@@ -1,0 +1,495 @@
+"""Boosting drivers, serving part (PyTorch port of
+``lightgbm_tpu/boosting.py``).
+
+A :class:`GBDT` here holds a trained ensemble and serves it: the model
+text format (``model_to_string`` / ``model_from_string``, byte-compatible
+with the JAX package), raw-score and final prediction with prediction
+early stopping, the version-keyed device packs behind
+:class:`~lightgbm_tpu_torch.serve.session.PredictSession`, binned
+routing of a dataset's rows (``_route_tree_device``) and the online
+hot-swap hooks ``adopt`` / ``restore``. DART and RF models load and serve
+(RF averages its trees). Training comes with a later slice.
+
+Everything device-side lives on ``self.device``, resolved from
+``config.device_type`` (see device.py).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .config import Config
+from .dataset import BinnedDataset
+from .device import resolve_device
+from .learner import assign_leaves, leaf_values_by_row, route_layout
+from .objective import ObjectiveFunction, create_objective
+from .obs import telemetry
+from .tree import Tree
+from .utils.log import LightGBMError
+
+
+class ScoreTracker:
+    """Running f32 raw scores for one dataset on a torch device
+    (reference: score_updater.hpp:21)."""
+
+    def __init__(self, num_data: int, num_class: int, init: np.ndarray,
+                 device: torch.device = torch.device("cpu")) -> None:
+        shape = (num_data, num_class) if num_class > 1 else (num_data,)
+        s = np.zeros(shape, dtype=np.float32)
+        s += init if num_class > 1 else init[0]
+        self.score = torch.as_tensor(s).to(device)
+
+    def add(self, leaf_values, leaf_assign: torch.Tensor, class_id: int,
+            num_class: int, scale: float = 1.0) -> None:
+        lv = torch.as_tensor(np.asarray(leaf_values, np.float32)).to(
+            leaf_assign.device)
+        vals = leaf_values_by_row(lv, leaf_assign) * np.float32(scale)
+        if self.score.dim() > 1:
+            self.score[:, class_id] += vals
+        else:
+            self.score += vals
+
+    def np(self) -> np.ndarray:
+        return self.score.cpu().numpy()
+
+
+class GBDT:
+    """Gradient boosting model (reference: src/boosting/gbdt.cpp)."""
+
+    name = "gbdt"
+    #: below this many rows, predict walks the host trees
+    DEVICE_PREDICT_MIN_ROWS = 512
+
+    def __init__(self, config: Config,
+                 train_set: Optional[BinnedDataset] = None) -> None:
+        self.config = config
+        self.device = resolve_device(config.device_type)
+        self.train_set = train_set
+        self.models: List[Tree] = []
+        self.iter_ = 0
+        self.num_class = max(1, int(config.num_class))
+        self.objective: Optional[ObjectiveFunction] = None
+        self.num_tree_per_iteration = self.num_class
+        self.init_scores = np.zeros(self.num_class, dtype=np.float64)
+        self.best_iteration = -1
+        # monotonic token bumped whenever self.models changes content;
+        # the device packs key on it
+        self._model_version = 0
+        # guards models, the version token and the serving caches: a
+        # PredictSession worker thread must never pack a half-committed
+        # model
+        self._cache_lock = threading.RLock()
+        self._pack_cache: Dict = {}
+        self._forest_cache: Dict = {}
+        self._serve_sessions: Dict = {}
+        self._tree_log_cache: Dict = {}
+        if train_set is not None:
+            self.objective = create_objective(config)
+            self.num_tree_per_iteration = \
+                self.objective.num_model_per_iteration
+
+    # ---------------------------------------------------------- binned route
+    def _valid_bins(self, ds: BinnedDataset) -> torch.Tensor:
+        """Device copy of a dataset's binned matrix, cached on the
+        dataset per device."""
+        cache = ds.__dict__.setdefault("_device_bins", {})
+        if self.device not in cache:
+            cache[self.device] = torch.as_tensor(ds.binned).to(self.device)
+        return cache[self.device]
+
+    def _valid_bins_t(self, ds: BinnedDataset) -> torch.Tensor:
+        """The router's transposed block form of the device matrix,
+        cached like :meth:`_valid_bins` (one transpose per dataset, not
+        one per tree)."""
+        cache = ds.__dict__.setdefault("_device_bins_t", {})
+        if self.device not in cache:
+            cache[self.device] = route_layout(self._valid_bins(ds))
+        return cache[self.device]
+
+    def _route_tree_device(self, tree: Tree, ds: BinnedDataset):
+        """Route a dataset's binned rows through a host Tree on the
+        device. Returns (slot-ordered leaf values (L,) numpy, per-row
+        slots (N,) device tensor)."""
+        from .ops.binning import BIN_CATEGORICAL
+        from .ops.predict import tree_to_bin_log
+
+        # content key (not id()): a collected tree's address can be
+        # reused by a new tree after a model swap
+        key = (tree.num_leaves, tree.split_feature.tobytes(),
+               tree.threshold.tobytes(), tree.decision_type.tobytes(),
+               tree.leaf_value.tobytes(), id(ds))
+        with self._cache_lock:
+            log = self._tree_log_cache.get(key)
+        if log is None:
+            log = tree_to_bin_log(tree, ds, self.device)
+            with self._cache_lock:
+                if len(self._tree_log_cache) > 4096:
+                    self._tree_log_cache.clear()
+                self._tree_log_cache[key] = log
+        bins = self._valid_bins(ds)
+        bundle = None
+        if ds.has_bundles:
+            bundle = {k: torch.as_tensor(v).to(self.device)
+                      for k, v in ds.bundle_maps().items()}
+        hc = any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers)
+        bins_t = None
+        if not hc and bins.dtype == torch.uint8:
+            bins_t = self._valid_bins_t(ds)
+        leaf = assign_leaves(bins, log, has_categorical=hc, bundle=bundle,
+                             bins_t=bins_t)
+        return log.leaf_value.cpu().numpy(), leaf
+
+    # ------------------------------------------------------------- versions
+    @property
+    def model_version(self) -> int:
+        return self._model_version
+
+    def _bump_model_version(self) -> None:
+        with self._cache_lock:
+            self._model_version += 1
+
+    def adopt(self, other: "GBDT") -> tuple:
+        """Atomically swap this booster's served model for ``other``'s
+        with a single version bump, so every concurrent PredictSession
+        sees the old ensemble or the new one whole. Returns a rollback
+        token for :meth:`restore`."""
+        with self._cache_lock:
+            snap = (list(self.models), self.init_scores.copy(), self.iter_,
+                    self.best_iteration)
+            self.models = list(other.models)
+            self.init_scores = np.asarray(other.init_scores,
+                                          np.float64).copy()
+            self.iter_ = int(other.iter_)
+            self.best_iteration = int(getattr(other, "best_iteration", -1))
+            self._bump_model_version()
+        return snap
+
+    def restore(self, snapshot: tuple) -> None:
+        """Roll back to a model captured by :meth:`adopt`."""
+        models, init_scores, it, best_it = snapshot
+        with self._cache_lock:
+            self.models = list(models)
+            self.init_scores = np.asarray(init_scores, np.float64).copy()
+            self.iter_ = int(it)
+            self.best_iteration = int(best_it)
+            self._bump_model_version()
+
+    # ---------------------------------------------------------------- packs
+    def _packed_model(self, start: int, end: int):
+        """Device ``PackedSplits`` for iterations [start, end), cached
+        behind the model-version token (``serve/pack_build`` /
+        ``serve/pack_hit``)."""
+        from .ops.predict import pack_splits
+
+        with self._cache_lock:
+            key = (start, end, self._model_version)
+            hit = self._pack_cache.get(key)
+            if hit is not None:
+                telemetry.count("serve/pack_hit")
+                return hit
+            if len(self._pack_cache) > 16:
+                self._pack_cache.clear()
+            telemetry.count("serve/pack_build")
+            K = self.num_tree_per_iteration
+            hit = self._pack_cache[key] = pack_splits(
+                self.models[start * K:end * K], num_class=K,
+                device=self.device)
+            return hit
+
+    def _forest_knob(self) -> str:
+        """Resolved ``tpu_forest_kernel`` for serving sessions. ``auto``
+        resolves ``on``: the CUDA forest kernel is the port's serving
+        path wherever the model is eligible (``_forest_model`` sends an
+        ineligible model to the plain predict)."""
+        cfg = getattr(self.config, "tpu_forest_kernel", "auto")
+        if cfg != "auto":
+            return cfg
+        reason = ("hand-written CUDA forest kernel is the serving path; "
+                  "ineligible models (no bin mappers, tables past "
+                  "FOREST_VMEM_BUDGET) take the plain predict")
+        telemetry.record("auto_resolution",
+                         dedupe_key=("tpu_forest_kernel", "on", reason),
+                         knob="tpu_forest_kernel", configured="auto",
+                         value="on", reason=reason)
+        return "on"
+
+    def _forest_model(self, start: int, end: int):
+        """Device BIN-space ``ForestPack`` for [start, end), or ``None``
+        when the forest path is structurally ineligible (no constructed
+        train_set to supply bin mappers, splits on unmapped features,
+        tables over the budget). Cached behind the model-version token
+        like ``_packed_model``, ineligibility included."""
+        from .ops.forest import (FOREST_VMEM_BUDGET, forest_pack,
+                                 forest_table_bytes)
+
+        with self._cache_lock:
+            key = (start, end, self._model_version)
+            hit = self._forest_cache.get(key)
+            if hit is not None:
+                telemetry.count("serve/forest_hit")
+                return None if hit[0] == "ineligible" else hit[1]
+            if len(self._forest_cache) > 16:
+                self._forest_cache.clear()
+            ds = self.train_set
+            why = None
+            entry = None
+            if ds is None:
+                why = "no constructed train_set (bin mappers unavailable)"
+            else:
+                try:
+                    telemetry.count("serve/forest_build")
+                    K = self.num_tree_per_iteration
+                    fp, has_cat, has_linear = forest_pack(
+                        self.models[start * K:end * K], ds, num_class=K,
+                        device=self.device)
+                    tbytes = forest_table_bytes(fp)
+                    if tbytes > FOREST_VMEM_BUDGET:
+                        why = ("node tables %d B exceed the %d B budget"
+                               % (tbytes, FOREST_VMEM_BUDGET))
+                    else:
+                        entry = (fp, has_cat, has_linear)
+                except ValueError as exc:
+                    why = str(exc)
+            if entry is None:
+                self._forest_cache[key] = ("ineligible", why)
+                telemetry.record("forest_ineligible", dedupe_key=why,
+                                 reason=why)
+                return None
+            self._forest_cache[key] = ("ok", entry)
+            return entry
+
+    def _predict_session(self, start: int, end: int):
+        """Lazily created serving session per iteration range."""
+        from .serve.session import PredictSession
+
+        with self._cache_lock:
+            sess = self._serve_sessions.get((start, end))
+            if sess is None:
+                if len(self._serve_sessions) > 32:
+                    self._serve_sessions.clear()
+                sess = self._serve_sessions[(start, end)] = PredictSession(
+                    self, start_iteration=start, num_iteration=end - start)
+            return sess
+
+    # -------------------------------------------------------------- predict
+    def _raw_scores(self, X: np.ndarray, start: int, end: int) -> np.ndarray:
+        """Ensemble raw scores with optional prediction early stopping
+        (reference: src/boosting/prediction_early_stop.cpp)."""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        es = bool(cfg.pred_early_stop) and self.objective is not None \
+            and (self.objective.name in ("binary",)
+                 or (K > 1 and "multiclass" in self.objective.name))
+        if not es:
+            return self._raw_scores_range(X, start, end)
+        freq = max(1, int(cfg.pred_early_stop_freq))
+        margin_thr = float(cfg.pred_early_stop_margin)
+        n = X.shape[0]
+        score = np.zeros((n, K), dtype=np.float64)
+        active = np.ones(n, dtype=bool)
+        init = self.init_scores[None, :K]
+        for b0 in range(start, end, freq):
+            if not active.any():
+                break
+            b1 = min(end, b0 + freq)
+            score[active] += self._raw_scores_range(X[active], b0, b1)
+            full = score[active] + init
+            if K == 1:
+                margin = 2.0 * np.abs(full[:, 0])
+            else:
+                top2 = np.partition(full, K - 2, axis=1)[:, K - 2:]
+                margin = np.max(top2, axis=1) - np.min(top2, axis=1)
+            idx = np.flatnonzero(active)
+            active[idx[margin > margin_thr]] = False
+        return score
+
+    def _raw_scores_range(self, X: np.ndarray, start: int,
+                          end: int) -> np.ndarray:
+        """Ensemble raw scores (N, K) over model range [start*K, end*K):
+        large batches on the device through a PredictSession, small
+        ones by walking the host trees."""
+        K = self.num_tree_per_iteration
+        n = X.shape[0]
+        with self._cache_lock:
+            models = self.models[start * K:end * K]
+        if n >= self.DEVICE_PREDICT_MIN_ROWS and models:
+            return self._predict_session(start, end).raw_scores(X)
+        score = np.zeros((n, K), dtype=np.float64)
+        for i, t in enumerate(models):
+            score[:, (start * K + i) % K] += t.predict(X)
+        return score
+
+    def _iteration_range(self, start_iteration: int,
+                         num_iteration: int) -> int:
+        K = self.num_tree_per_iteration
+        total_iters = len(self.models) // max(K, 1)
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = total_iters - start_iteration
+        return min(total_iters, start_iteration + num_iteration)
+
+    def predict(self, X: np.ndarray, *, raw_score: bool = False,
+                start_iteration: int = 0, num_iteration: int = -1,
+                pred_leaf: bool = False) -> np.ndarray:
+        X = np.asarray(X, dtype=np.float64)
+        n = X.shape[0]
+        K = self.num_tree_per_iteration
+        with self._cache_lock:
+            end = self._iteration_range(start_iteration, num_iteration)
+            leaf_models = self.models[start_iteration * K:end * K] \
+                if pred_leaf else None
+        if pred_leaf:
+            out = np.zeros((n, (end - start_iteration) * K), dtype=np.int32)
+            for i, t in enumerate(leaf_models):
+                out[:, i] = t.predict_leaf_index(X)
+            return out
+        score = self._average(self._raw_scores(X, start_iteration, end),
+                              start_iteration, end)
+        score = score + self.init_scores[None, :K]
+        if not raw_score and self.objective is not None:
+            score = self.objective.convert_output(score).numpy()
+        return score.ravel() if K == 1 else score
+
+    def _average(self, raw: np.ndarray, start: int, end: int) -> np.ndarray:
+        """Raw sums -> model output before init scores (RF averages)."""
+        return raw
+
+    # ------------------------------------------------------------- model IO
+    def model_to_string(self, num_iteration: int = -1) -> str:
+        """(reference: gbdt_model_text.cpp:400 SaveModelToString)"""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        with self._cache_lock:
+            models = list(self.models)
+            init_scores = self.init_scores.copy()
+        total_iters = len(models) // max(K, 1)
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = total_iters
+        end = min(total_iters, num_iteration) * K
+        ts = self.train_set
+        names = ts.feature_names if ts else getattr(self, "_feature_names",
+                                                    [])
+        lines = [
+            "tree",
+            "version=v3",
+            "boosting=%s" % self.name,
+            "objective=%s" % self._objective_string(),
+            "num_class=%d" % self.num_class,
+            "num_tree_per_iteration=%d" % K,
+            "init_score=%s" % " ".join("%.17g" % v for v in init_scores),
+            "max_feature_idx=%d" % (ts.num_total_features - 1 if ts
+                                    else len(names) - 1),
+            "feature_names=%s" % " ".join(names),
+            "best_iteration=%d" % self.best_iteration,
+            "",
+        ]
+        for i, tree in enumerate(models[:end]):
+            lines.append("Tree=%d" % i)
+            lines.append(tree.to_text())
+            lines.append("")
+        lines.append("end of trees")
+        itype = "gain" if int(cfg.saved_feature_importance_type) == 1 \
+            else "split"
+        imps = self.feature_importance(itype, num_iteration)
+        pairs = [(float(v), names[i] if i < len(names) else
+                  "Column_%d" % i) for i, v in enumerate(imps) if v > 0]
+        pairs.sort(key=lambda p: -p[0])
+        lines.append("")
+        lines.append("feature_importances:")
+        for v, name in pairs:
+            lines.append("%s=%.17g" % (name, v)
+                         if itype == "gain" else "%s=%d" % (name, int(v)))
+        return "\n".join(lines)
+
+    def _objective_string(self) -> str:
+        obj = self.objective.name if self.objective else self.config.objective
+        if obj in ("multiclass", "multiclassova"):
+            return "%s num_class:%d" % (obj, self.num_class)
+        return obj
+
+    @classmethod
+    def model_from_string(cls, s: str,
+                          config: Optional[Config] = None) -> "GBDT":
+        config = config or Config()
+        header, _, rest = s.partition("Tree=")
+        kv: Dict[str, str] = {}
+        for line in header.splitlines():
+            if "=" in line:
+                k, v = line.split("=", 1)
+                kv[k] = v
+        obj_str = kv.get("objective", "regression").split()
+        config.objective = obj_str[0]
+        for tok in obj_str[1:]:
+            if tok.startswith("num_class:"):
+                config.num_class = int(tok.split(":")[1])
+        booster_cls = {"gbdt": cls, "dart": DART, "rf": RF}.get(
+            kv.get("boosting", "gbdt"), cls)
+        model = booster_cls(config, None)
+        model.num_tree_per_iteration = int(kv.get("num_tree_per_iteration", 1))
+        model.num_class = int(kv.get("num_class", 1))
+        init = kv.get("init_score", "0").split()
+        model.init_scores = np.asarray([float(v) for v in init],
+                                       dtype=np.float64)
+        model.best_iteration = int(kv.get("best_iteration", -1))
+        model.objective = create_objective(config)
+        model._feature_names = kv.get("feature_names", "").split()
+        for block in ("Tree=" + rest).split("Tree=")[1:]:
+            block = block.split("end of trees")[0]
+            lines = block.strip().splitlines()[1:]  # drop the index line
+            model.models.append(Tree.from_text("\n".join(lines)))
+        model.iter_ = len(model.models) // max(model.num_tree_per_iteration, 1)
+        return model
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        """(reference: GBDT::FeatureImportance, gbdt.cpp)"""
+        with self._cache_lock:
+            models = list(self.models)
+        nf = self.train_set.num_total_features if self.train_set else (
+            max((int(t.split_feature.max()) for t in models
+                 if t.num_leaves > 1), default=-1) + 1)
+        imp = np.zeros(nf, dtype=np.float64)
+        K = self.num_tree_per_iteration
+        end = len(models) if iteration <= 0 else min(
+            len(models), iteration * K)
+        for t in models[:end]:
+            if t.num_leaves <= 1:
+                continue
+            for r in range(t.num_internal):
+                if importance_type == "split":
+                    imp[t.split_feature[r]] += 1
+                else:
+                    imp[t.split_feature[r]] += max(0.0, float(t.split_gain[r]))
+        return imp
+
+
+class DART(GBDT):
+    """Dropout boosting (reference: src/boosting/dart.hpp). Its trees
+    carry their normalised leaf values, so serving is plain GBDT."""
+
+    name = "dart"
+
+
+class RF(GBDT):
+    """Random forest (reference: src/boosting/rf.hpp): the output is the
+    average of the trees' outputs."""
+
+    name = "rf"
+
+    def _average(self, raw: np.ndarray, start: int, end: int) -> np.ndarray:
+        return raw / max(1, end - start)
+
+
+def create_boosting(config: Config,
+                    train_set: Optional[BinnedDataset] = None) -> GBDT:
+    """Factory (reference: src/boosting/boosting.cpp:35 CreateBoosting)."""
+    kind = config.boosting
+    if kind in ("gbdt", "gbrt", "goss"):
+        return GBDT(config, train_set)
+    if kind == "dart":
+        return DART(config, train_set)
+    if kind in ("rf", "random_forest"):
+        return RF(config, train_set)
+    raise LightGBMError("Unknown boosting type: %s" % kind)

@@ -1,0 +1,182 @@
+"""Build, load and count the hand-written CUDA kernels under ``csrc/``.
+
+Each kernel source is a ``.cu`` file with a plain C entry point that
+launches on the stream it is given and returns ``cudaGetLastError()``.
+At first use it is compiled for Hopper (``sm_90a``) with ``nvcc`` into a
+shared library under ``lightgbm_tpu_torch/_build/`` (git-ignored), named
+by the source's content hash so an edited source never loads a stale
+library, and bound with ``ctypes``. Nothing here runs at import time: the
+CPU tests import every module of the port on a host with no ``nvcc``.
+
+:class:`CudaKernel` also holds the kernel's launch count: the op wrapper
+calls :meth:`CudaKernel.launch`, which adds one after every launch the
+device accepted, and :func:`reset_launch_counts` zeroes all of them so a
+run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+class CudaKernel:
+    """One ``csrc/<source>`` library: its C entry point ``symbol`` with
+    ctypes ``argtypes``, built lazily, plus its launch count."""
+
+    def __init__(self, symbol: str, source: str,
+                 argtypes: Sequence) -> None:
+        self.symbol = symbol
+        self.source = CSRC_DIR / source
+        self.argtypes = list(argtypes)
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._fn = None
+        self._lib = None
+        self._lock = threading.Lock()
+        self._launches = 0
+
+    # ---------------------------------------------------------------- build
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / ("%s-%s.so" % (self.source.stem,
+                                          digest.hexdigest()[:16]))
+
+    def build_command(self, out: Path) -> List[str]:
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def _start_build(self) -> Optional[tuple]:
+        """Start nvcc for a missing library; returns (process, tmp, final)
+        or None when the library is already built."""
+        final = self.library_path()
+        if final.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = final.with_suffix(".%d.tmp" % os.getpid())
+        proc = subprocess.Popen(self.build_command(tmp),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, final
+
+    def _finish_build(self, started: tuple, t0: float) -> None:
+        proc, tmp, final = started
+        out, _ = proc.communicate()
+        self.build_log = out or ""
+        self.build_seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for %s (exit %d):\n%s"
+                               % (self.source.name, proc.returncode,
+                                  self.build_log))
+        os.replace(tmp, final)
+
+    def _bind(self) -> None:
+        lib = ctypes.CDLL(str(self.library_path()))
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = lib.lgbt_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._lib, self._fn = lib, fn
+
+    def load(self):
+        """The bound C entry point, building the library first if needed."""
+        with self._lock:
+            if self._fn is None:
+                started = self._start_build()
+                if started is not None:
+                    self._finish_build(started, time.perf_counter())
+                self._bind()
+            return self._fn
+
+    # --------------------------------------------------------------- launch
+    def launch(self, *args) -> None:
+        """Call the C entry point; raise on a non-zero CUDA status, else
+        count one launch."""
+        rc = self.load()(*args)
+        if rc != 0:
+            msg = self._lib.lgbt_error_string(rc).decode()
+            raise RuntimeError("%s: CUDA error %d (%s)"
+                               % (self.symbol, rc, msg))
+        with self._lock:
+            self._launches += 1
+
+    @property
+    def launches(self) -> int:
+        with self._lock:
+            return self._launches
+
+    def reset(self) -> None:
+        with self._lock:
+            self._launches = 0
+
+
+KERNELS: Dict[str, CudaKernel] = {}
+
+
+def register(kernel: CudaKernel) -> CudaKernel:
+    KERNELS[kernel.symbol] = kernel
+    return kernel
+
+
+def build_all() -> float:
+    """Build every registered kernel that is not built yet, one ``nvcc``
+    per source, all started together; bind them all. Returns the wall
+    seconds the builds took."""
+    t0 = time.perf_counter()
+    started = []
+    for k in KERNELS.values():
+        with k._lock:
+            if k._fn is None:
+                started.append((k, k._start_build()))
+    errors = []
+    for k, s in started:
+        with k._lock:
+            try:
+                if s is not None:
+                    k._finish_build(s, t0)
+                k._bind()
+            except (RuntimeError, OSError) as exc:
+                errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.reset()
+
+
+def stream_of(t) -> int:
+    """Handle of the current CUDA stream on ``t``'s device (a Python int
+    for ctypes)."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
