@@ -4,29 +4,44 @@
     python3 chip_smoke.py [--seed 0] [--trees 100] [--leaves 255]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Four phases, each fatal on failure:
+the checkout it sits in. Five phases, each fatal on failure:
 
-1. build   — compile both hand-written kernels (``csrc/*.cu``), one nvcc
-             per source, started together.
+1. build   — compile the four hand-written kernels (``csrc/*.cu``), one
+             nvcc per source, started together.
 2. kernels — hold each kernel against its plain torch twin on the card:
              the forest kernel on small seeded packs covering every branch
              (numerical, NaN-missing, categorical, multiclass K=3, linear,
              linear + NaN) and at full width; the row router with and
-             without EFB bundle columns. Leaf ids must be equal, scores
-             within |a - b| <= SCORE_ATOL + SCORE_RTOL * |b|.
-3. serve   — the main path: a seeded binary ensemble of 100 trees x 255
-             leaves over a Higgs-shaped 28-feature dataset (max_bin=255),
-             serialised with ``model_to_string`` and reloaded through
-             ``Booster(model_str=...)`` + ``booster_from_reference``; then
+             without EFB bundle columns; the segment partition (bytes and
+             left counts equal: unaligned starts, empty sides, a segment
+             under one block, one row, an EFB bundle column); the segment
+             histogram (counts equal; g/h within the f32 summation bound
+             ``ops.histogram.sum_error_bound`` of the twin's float64 sum
+             of the same per-row values; hi/lo and bf16 modes; 0 rows to
+             9000; bit-equal run to run). Both again at 2M rows right
+             after phase 3, on its data and its first root split. Leaf ids
+             must be equal, scores within SCORE_ATOL + SCORE_RTOL * |b|.
+3. train   — the training path: 2,000,000 Higgs-shaped rows x 28 features
+             (max_bin=255), ``objective=binary``, ``num_leaves=255``,
+             ``--trees`` iterations through ``lightgbm_tpu_torch.train``
+             with a 100,000-row valid set. Launch counts are zeroed just
+             before and read just after: the partition, histogram and
+             router kernels must have run. Every tree's leaf segment
+             counts must equal the router's per-leaf row counts and the
+             histogram count channel, and sum to N. Two 3-iteration runs
+             must give byte-equal model strings; 3 iterations on 200,000
+             rows on the card and on the host (the plain twins) must agree
+             in train logloss within LOGLOSS_TOL.
+4. serve   — the trained model through every serving entry point:
              PredictSession requests of 1, 256, 4096 and 65536 rows, 64
              concurrent MicroBatcher submits, loopback ``POST /predict``
-             and ``predict_binned`` over 2,000,000 binned rows. Launch
-             counts are zeroed just before and read just after; both
-             kernels must have run. Every answer is checked against the
-             plain path and, on a small input, against the host tree walk.
-4. timings — each kernel's ms (CUDA events), its plain twin's ms and its
-             bound at the main path's shapes, printed beside the card's
-             name and power limit.
+             and ``predict_binned`` over 2,000,000 binned rows, counts
+             zeroed just before and read just after (forest and router
+             must have run); every answer against the plain path and, on
+             a small input, the host tree walk.
+5. timings — each kernel's ms (CUDA events), its plain twin's ms, one
+             library call's ms where torch has one, and its bound at the
+             main path's shapes, beside the card's name and power limit.
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -50,14 +65,22 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCORE_RTOL = 1e-5
 SCORE_ATOL = 1e-5
 
+#: train logloss after 3 iterations, card vs host: the histogram sums run
+#: in another order, so near-tie splits may flip between the two
+LOGLOSS_TOL = 1e-3
+
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 #: operations/s outside the tensor cores (the routing work is scalar)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 
 HIGGS_FEATURES = 28
+TRAIN_ROWS = 2_000_000
+VALID_ROWS = 100_000
 BINNED_ROWS = 2_000_000
 REQUEST_ROWS = (1, 256, 4096, 65536)
+TRAIN_PARAMS = {"objective": "binary", "max_bin": 255, "num_leaves": 255,
+                "verbosity": -1}
 
 
 def log(msg):
@@ -296,37 +319,374 @@ def phase_kernels(dev, seed):
             sync(dev)
             err = max(err, id_diff("router/" + name, got, want))
         errs["router/" + name] = float(err)
+        if name == "efb_bundles":
+            # the partition on a bundle column of the EFB matrix
+            bt_rows = torch.as_tensor(ds.binned)
+            g = int(np.argmax([len(gr.feature_indices) for gr in ds.groups]))
+            table = torch.as_tensor(
+                rng.rand(int(ds.group_num_bins().max())) < 0.4)
+            work = seeded_work(rng, bt_rows, dev)
+            errs["partition/bundle_column"] = check_partition(
+                "partition/bundle_column", work, [0, 128 + 7, n - 9, g],
+                table.to(dev))
+    errs.update(phase_segment_kernels(dev, rng))
     return errs
 
 
-def build_main_model(seed, trees, leaves, train_rows, tmpdir,
-                     device_type="cuda"):
-    """The full-width binary model, as a user would load it: model text
-    through Booster(model_str=...) plus the binned training set written
-    with save_binned, through booster_from_reference."""
+def seeded_work(rng, bins, dev, guard=128):
+    """(2, W, Npad) work pair: plane 0 packs ``bins`` (N, G) u8 with seeded
+    g/h/cnt at lane guard + i, plane 1 is junk."""
     import numpy as np
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.boosting import GBDT
-    from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.dataset import save_binned
+    import torch
+    from lightgbm_tpu_torch.ops.partition import pack_planes, planes_npad
 
+    n, gcols = bins.shape
+    ghc = np.stack([rng.randn(n) * 2, np.abs(rng.randn(n)) + 0.01,
+                    np.ones(n)], axis=1).astype(np.float32)
+    npad = planes_npad(n, guard)
+    work = torch.as_tensor(rng.randint(0, 256, (2, gcols + 12, npad))
+                           .astype(np.uint8))
+    work[0, :, guard:guard + n] = pack_planes(bins, torch.as_tensor(ghc))
+    return work.to(dev)
+
+
+def check_partition(name, work, seg, table):
+    """Kernel (on a CUDA tensor) vs plain twin: the whole buffer and the
+    left count must be equal. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops.partition import (partition_segment,
+                                                  partition_segment_plain)
+
+    a, b = work.clone(), work.clone()
+    sg = torch.tensor(seg, dtype=torch.int32, device=work.device)
+    lt_a = partition_segment(a, sg, table, max(seg[2], 1))
+    lt_b = partition_segment_plain(b, sg, table)
+    sync(work.device)
+    if int(lt_a) != int(lt_b):
+        raise AssertionError("%s: lt %d != %d" % (name, int(lt_a), int(lt_b)))
+    if not torch.equal(a, b):
+        raise AssertionError("%s: %d bytes differ" % (
+            name, int(torch.count_nonzero(a != b))))
+    return 0.0
+
+
+def abs_work(work, num_feat):
+    """The work pair with |g| and |h| in place of g and h (for the per-bin
+    sum of |x| that scales the histogram tolerance)."""
+    import torch
+    from lightgbm_tpu_torch.ops.partition import pack_planes, unpack_ghc_planes
+
+    w = work.clone()
+    for p in (0, 1):
+        ghc = unpack_ghc_planes(w[p], num_feat).abs().nan_to_num(0.0)
+        w[p] = pack_planes(w[p, :num_feat].t(), ghc.t())
+    return w
+
+
+def check_histogram(name, work, seg, num_bins, num_feat, exact):
+    """Kernel vs plain twin: counts equal, g/h within the kernel's f32
+    summation bound of the twin's exact sum, the same bits run to run.
+    Returns max |diff|."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (segment_histogram,
+                                                  segment_histogram_plain,
+                                                  sum_error_bound)
+
+    sg = torch.tensor(seg, dtype=torch.int32, device=work.device)
+    kw = dict(num_bins=num_bins, num_feat=num_feat, exact=exact)
+    got = segment_histogram(work, sg, cnt_bound=max(seg[2], 1), **kw)
+    want = segment_histogram_plain(work, sg, **kw)
+    absum = segment_histogram_plain(abs_work(work, num_feat), sg, **kw)
+    sync(work.device)
+    if not torch.equal(got[..., 2], want[..., 2]):
+        raise AssertionError("%s: count channel differs" % name)
+    diff = (got - want).abs()
+    bound = sum_error_bound(seg[2]) * absum
+    if not torch.isfinite(got).all() or (diff > bound).any():
+        raise AssertionError("%s: g/h off, max |diff| %.3g"
+                             % (name, float(diff.max())))
+    if seg[2] and not torch.equal(
+            got, segment_histogram(work, sg, cnt_bound=seg[2], **kw)):
+        raise AssertionError("%s: not bit-equal run to run" % name)
+    return float(diff.max())
+
+
+def phase_segment_kernels(dev, rng):
+    """Partition and segment histogram, kernel vs plain, small cases."""
+    import numpy as np
+    import torch
+
+    n, nb = 9000, 64
+    bins = torch.as_tensor(rng.randint(0, nb, (n, 10)).astype(np.uint8))
+    work = seeded_work(rng, bins, dev)
+    table = torch.as_tensor(rng.rand(nb) < 0.45).to(dev)
+    none = torch.zeros(nb, dtype=torch.bool, device=dev)
+    errs = {}
+    for name, seg, tbl in (
+            ("partition/unaligned", [0, 128 + 13, 7001, 3], table),
+            ("partition/whole", [0, 128, n, 0], table),
+            ("partition/under_one_block", [0, 128 + 4095, 300, 5], table),
+            ("partition/empty_left", [0, 128 + 100, 777, 2], none),
+            ("partition/empty_right", [0, 128 + 100, 777, 2], ~none),
+            ("partition/one_row", [0, 128 + 8999, 1, 9], table)):
+        errs[name] = check_partition(name, work, seg, tbl)
+    for exact in (True, False):
+        mode = "hilo" if exact else "bf16"
+        for name, seg in (("whole", [0, 128, n]),
+                          ("unaligned", [0, 128 + 13, 7001]),
+                          ("one_row", [0, 128 + 77, 1]),
+                          ("empty", [0, 128 + 5, 0])):
+            key = "histogram/%s/%s" % (mode, name)
+            errs[key] = check_histogram(key, work, seg, nb, 10, exact)
+    return errs
+
+
+def higgs_labels(rng, X):
+    """0/1 labels with a learnable signal: the high-level masses and the
+    lepton pT push toward "signal", as they do in HIGGS."""
+    import numpy as np
+    s = 1.5 * np.log(X[:, 21:28]).mean(axis=1) + 0.6 * np.log(X[:, 0]) \
+        - 0.4 * np.abs(X[:, 1]) + 0.3 * (X[:, 8] > 0) \
+        - 0.2 * np.log(X[:, 3])
+    p = 1.0 / (1.0 + np.exp(-2.5 * s))
+    return (rng.rand(len(X)) < p).astype(np.float64)
+
+
+def training_data(seed, train_rows, valid_rows):
+    """Seeded (X, y, X_valid, y_valid), Higgs-shaped."""
+    import numpy as np
     rng = np.random.RandomState(seed)
-    Xtr = higgs_like(rng, train_rows)
-    ytr = (rng.rand(train_rows) < 0.53).astype(np.float64)
-    params = {"objective": "binary", "max_bin": 255, "verbosity": -1,
-              "device_type": device_type}
-    train = lgt.Dataset(Xtr, label=ytr, params=params)
-    ds = train.construct()
-    cfg = Config.from_params(params)
-    g = GBDT(cfg, ds)
-    g.models = random_trees(ds, rng, trees, leaves)
-    g.init_scores = np.array([0.12], np.float64)
-    g.iter_ = trees
-    path = os.path.join(tmpdir, "higgs_train_binned.npz")
-    save_binned(ds, path)
-    text = g.model_to_string()
-    lgt.Booster(params=params, model_str=text)   # the text alone loads
-    return lgt.booster_from_reference(text, path, params), train, rng
+    X = higgs_like(rng, train_rows + valid_rows)
+    y = higgs_labels(rng, X)
+    return X[:train_rows], y[:train_rows], X[train_rows:], y[train_rows:]
+
+
+def train_params(dev, leaves):
+    return dict(TRAIN_PARAMS, num_leaves=leaves, device_type=dev.type,
+                metric=["auc", "binary_logloss"])
+
+
+def phase_train(dev, data, trees, leaves):
+    """The training path: ``lightgbm_tpu_torch.train`` at full width with a
+    valid set; every tree's segment counts checked against the router and
+    the histograms. Returns (booster, train Dataset, launch counts,
+    summary dict)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    params = train_params(dev, leaves)
+    t0 = time.perf_counter()
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    log("train: binned %d + %d rows on the host in %.1f s"
+        % (len(X), len(Xv), time.perf_counter() - t0))
+    n = len(X)
+    checked = []
+
+    def check_tree(env):
+        st = env.model.inner.learner.last_stats
+        ns = st["num_splits"]
+        cnt = st["leaf_cnt"][:ns + 1].long()
+        routed = torch.bincount(st["row_leaf"].long(), minlength=ns + 1)
+        hist = st["hist_cnt"][:ns + 1]
+        if int(cnt.sum()) != n or not torch.equal(cnt, routed[:ns + 1]) \
+                or not torch.equal(cnt.to(torch.float32), hist):
+            raise AssertionError("tree %d: leaf segment counts disagree "
+                                 "with the router or the histograms"
+                                 % env.iteration)
+        checked.append(ns)
+
+    evals = {}
+    sync(dev)
+    kernels.reset_launch_counts()
+    if dev.type == "cuda":
+        kernels.start_timing()
+    t0 = time.perf_counter()
+    bst = lgt.train(params, train, trees, valid_sets=[valid],
+                    callbacks=[check_tree, lgt.record_evaluation(evals)])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    dev_ms = kernels.stop_timing() if dev.type == "cuda" else {}
+    counts = kernels.launch_counts()
+    if len(checked) != trees:
+        raise AssertionError("checked %d trees of %d" % (len(checked), trees))
+    auc = evals["valid_0"]["auc"][-1]
+    ll = evals["valid_0"]["binary_logloss"][-1]
+    if not (np.isfinite(ll) and 0.5 < auc <= 1.0):
+        raise AssertionError("valid auc %.4f logloss %.4f" % (auc, ll))
+    summary = dict(trees=trees, splits=int(sum(checked)), wall_s=wall,
+                   wall_per_tree_ms=wall / trees * 1e3, valid_auc=auc,
+                   valid_logloss=ll,
+                   kernel_ms_per_tree={k: v / trees for k, v in dev_ms.items()})
+    log("train: %d trees x %d leaves on %d rows in %.2f s (%.1f ms/tree), "
+        "%d splits; valid auc %.5f logloss %.5f; launches %s"
+        % (trees, leaves, n, wall, summary["wall_per_tree_ms"],
+           summary["splits"], auc, ll, counts))
+    if dev_ms:
+        log("train: device ms per tree %s" % ", ".join(
+            "%s %.3f" % kv for kv in summary["kernel_ms_per_tree"].items()))
+    return bst, train, counts, summary
+
+
+def check_determinism(dev, train, leaves, iters=3):
+    """Two card runs of ``iters`` iterations: byte-equal model strings."""
+    import lightgbm_tpu_torch as lgt
+    params = train_params(dev, leaves)
+    a = lgt.train(params, train, iters).model_to_string()
+    b = lgt.train(params, train, iters).model_to_string()
+    if a != b:
+        raise AssertionError("two runs gave different model strings")
+    log("determinism: %d iterations twice, model strings byte-equal "
+        "(%d bytes)" % (iters, len(a)))
+
+
+def profile_iteration(dev, train, leaves):
+    """One boosting iteration (after a warm-up one) under torch.profiler:
+    device time by kernel name and the device's busy share of the wall.
+    Returns a dict; kernel times are None when the profiler saw no device
+    activity."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from torch.profiler import ProfilerActivity, profile
+
+    bst = lgt.Booster(train_params(dev, leaves), train)
+    bst.update()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bst.update()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.key not in by_name:
+            by_name[ev.key] = us / 1e3
+    # kernels only (not the cudaLaunchKernel host events): names of device
+    # events; their sum over the wall is the busy share
+    kern = {k: v for k, v in by_name.items()
+            if not k.startswith("cuda") and not k.startswith("aten::")}
+    busy = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    log("profile: one iteration, wall %.1f ms, device busy %.1f ms (%.1f%%)"
+        "; top kernels %s" % (wall_ms, busy, 100.0 * busy / wall_ms,
+                              ", ".join("%s %.2f" % kv for kv in top)))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy if kern else None,
+                top=top)
+
+
+def card_vs_host(dev, data, rows, leaves, iters=3):
+    """The same small training on the card and on the host (plain twins):
+    splits that agree, and train logloss within LOGLOSS_TOL."""
+    import lightgbm_tpu_torch as lgt
+    X, y = data[0][:rows], data[1][:rows]
+    out = {}
+    for name, d in (("card", dev.type), ("host", "cpu")):
+        params = dict(train_params(dev, leaves), device_type=d,
+                      metric=["binary_logloss"])
+        ds = lgt.Dataset(X, label=y, params=params)
+        t0 = time.perf_counter()
+        bst = lgt.train(params, ds, iters)
+        out[name] = (bst, time.perf_counter() - t0,
+                     bst.eval_train()[0][2])
+    (ca, ta, la), (ho, th, lh) = out["card"], out["host"]
+    agree = total = 0
+    for a, b in zip(ca.inner.models, ho.inner.models):
+        k = max(a.num_internal, b.num_internal)
+        total += k
+        for r in range(min(a.num_internal, b.num_internal)):
+            if (a.split_feature[r], a.threshold[r]) != \
+                    (b.split_feature[r], b.threshold[r]):
+                break
+            agree += 1
+    log("card vs host: %d rows x %d iterations; %d of %d splits agree "
+        "(in order, up to the first difference per tree); train logloss "
+        "card %.7f host %.7f; card %.1f s, host %.1f s"
+        % (rows, iters, agree, total, la, lh, ta, th))
+    if abs(la - lh) > LOGLOSS_TOL:
+        raise AssertionError("train logloss card %.6f vs host %.6f"
+                             % (la, lh))
+    return dict(splits_agree=agree, splits=total, logloss_card=la,
+                logloss_host=lh)
+
+
+def full_width_segment_kernels(bst, dev, errs):
+    """Partition and histogram kernels vs their twins at the training
+    shapes: the root segment of all rows, with the trained first tree's
+    root split; then each kernel's ms, twin ms, library ms and bound."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import segment_histogram_plain
+    from lightgbm_tpu_torch.ops.partition import (partition_segment,
+                                                  partition_segment_plain,
+                                                  planes_npad, work_spec,
+                                                  pack_planes_fold_root)
+
+    g = bst.inner
+    lrn = g.learner
+    bins = lrn.bins
+    n, F = bins.shape
+    B = lrn.num_bin_hist
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    guard, width = work_spec(F)
+    work = torch.zeros((2, width, planes_npad(n, guard)), dtype=torch.uint8,
+                       device=dev)
+    pack_planes_fold_root(work, bins, ghc, guard, num_bins=B, exact=True)
+    t0 = g.models[0]
+    feat = g.train_set.inner_feature_index(int(t0.split_feature[0]))
+    table = torch.arange(B, device=dev) <= int(t0.split_bin[0])
+    seg = [0, guard, n, feat]
+    errs["partition/full_width"] = check_partition(
+        "partition/full_width", work, seg, table)
+    for exact in (True, False):
+        key = "histogram/%s/full_width" % ("hilo" if exact else "bf16")
+        errs[key] = check_histogram(key, work, seg[:3], B, F, exact)
+    rows = {}
+    sg4 = torch.tensor(seg, dtype=torch.int32, device=dev)
+    sg3 = sg4[:3].contiguous()
+    from lightgbm_tpu_torch.ops.histogram import segment_histogram
+    p_ms = cuda_ms(lambda: partition_segment(work, sg4, table, n))
+    pp_ms = cuda_ms(lambda: partition_segment_plain(work, sg4, table),
+                    iters=3, warmup=1)
+    h_ms = cuda_ms(lambda: segment_histogram(work, sg3, num_bins=B,
+                                             num_feat=F, cnt_bound=n))
+    hp_ms = cuda_ms(lambda: segment_histogram_plain(work, sg3, num_bins=B,
+                                                    num_feat=F),
+                    iters=3, warmup=1)
+    # library yardstick: one index_add_ over precomputed flat (f*B + bin)
+    # indices and the rows' (g, h, cnt) repeated per feature; the timed
+    # window holds the zeroed (F*B, 3) output and the index_add_ only
+    idx = (bins.long() + torch.arange(F, device=dev) * B).t().reshape(-1)
+    vals = ghc.repeat(F, 1)
+    out = torch.zeros((F * B, 3), device=dev)
+    l_ms = cuda_ms(lambda: out.zero_().index_add_(0, idx, vals))
+    rows["partition_segment"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/partition_segment.cu",
+        replaces="lightgbm_tpu/ops/partition.py:1249",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("partition/")),
+        ms=p_ms, plain_ms=pp_ms, library_ms=None,
+        bytes=2 * width * n, ops=n)
+    rows["segment_histogram"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
+        replaces="lightgbm_tpu/ops/histogram.py:698",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("histogram/")),
+        ms=h_ms, plain_ms=hp_ms, library_ms=l_ms,
+        bytes=(F + 12) * n + F * B * 3 * 4, ops=n * F * 5)
+    log("full width: partition %.4f ms (twin %.2f), histogram %.4f ms "
+        "(twin %.2f, index_add_ %.4f) over %d rows x %d columns"
+        % (p_ms, pp_ms, h_ms, hp_ms, l_ms, n, F))
+    return rows
 
 
 def phase_serve(bst, train, rng, binned_rows):
@@ -427,8 +787,9 @@ def check_serve(bst, out):
     return errs
 
 
-def phase_timings(bst, out, dev, errs):
-    """Kernel vs plain ms and bound at the main path's shapes."""
+def phase_timings(bst, out, dev, errs, rows):
+    """Kernel vs plain ms and bound at the main path's shapes, added to
+    ``rows`` (which may already hold the training kernels' rows)."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.learner import assign_leaves, route_layout
@@ -442,7 +803,6 @@ def phase_timings(bst, out, dev, errs):
     g = bst.inner
     fp, has_cat, has_lin = g._forest_model(0, len(g.models))
     ds = g.train_set
-    rows = {}
     # forest at the top rung: one 65536-row dispatch
     X = out["reqs"][65536]
     b, _ = bin_rows(ds, X)
@@ -500,7 +860,7 @@ def phase_timings(bst, out, dev, errs):
         t_ops = r.pop("ops") / PEAK_SCALAR_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["library_ms"] = None
+        r.setdefault("library_ms", None)
         log("timing %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms (%s)"
             % (name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
     return rows
@@ -511,7 +871,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trees", type=int, default=100)
     ap.add_argument("--leaves", type=int, default=255)
-    ap.add_argument("--train-rows", type=int, default=200_000)
+    ap.add_argument("--train-rows", type=int, default=TRAIN_ROWS)
+    ap.add_argument("--valid-rows", type=int, default=VALID_ROWS)
+    ap.add_argument("--host-rows", type=int, default=200_000)
     ap.add_argument("--binned-rows", type=int, default=BINNED_ROWS)
     args = ap.parse_args(argv)
 
@@ -525,7 +887,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from lightgbm_tpu_torch.ops import forest, kernels, route  # noqa: F401
+    # importing the op modules registers their kernels
+    from lightgbm_tpu_torch.ops import (forest, histogram,  # noqa: F401
+                                        kernels, partition, route)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -546,43 +910,59 @@ def main(argv=None):
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         log("build %s: %.1f s %s" % (k.symbol, k.build_seconds,
                                      " | ".join(lines)))
-    log("build: both kernels in %.1f s" % secs)
+    log("build: %d kernels in %.1f s" % (len(kernels.KERNELS), secs))
 
     log("== phase 2: kernels vs plain")
     errs = phase_kernels(dev, args.seed)
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
-    log("== phase 3: full-width serving")
-    with tempfile.TemporaryDirectory() as tmp:
-        bst, train, rng = build_main_model(args.seed, args.trees,
-                                           args.leaves, args.train_rows, tmp)
-        g = bst.inner
-        log("model: %d trees x %d leaves, %d features, device %s"
-            % (len(g.models), args.leaves, g.train_set.num_total_features,
-               g.device))
-        out, counts = phase_serve(bst, train, rng, args.binned_rows)
-        for name in ("forest_predict", "route_rows"):
-            if counts.get(name, 0) <= 0:
-                raise AssertionError("main path never launched %s" % name)
-        serve_errs = check_serve(bst, out)
-        for name, e in serve_errs.items():
-            log("check %s: max |diff| %.3g" % (name, e))
-        # full-width forest kernel vs its twin at the 65536-row rung
-        from lightgbm_tpu_torch.ops.forest import forest_predict_plain
-        fp, has_cat, has_lin = g._forest_model(0, len(g.models))
-        b, _ = bin_rows(g.train_set, out["reqs"][65536])
-        bins = torch.from_numpy(b).to(dev)
-        errs["forest/full_width"] = check_scores(
-            "forest/full_width",
-            forest.forest_predict_impl(bins, None, fp).cpu().numpy(),
-            forest_predict_plain(bins, None, fp).cpu().numpy())
-        log("check forest/full_width: max |diff| %.3g"
-            % errs["forest/full_width"])
+    log("== phase 3: full-width training (%s)" % card)
+    data = training_data(args.seed, args.train_rows, args.valid_rows)
+    bst, train, train_counts, summary = phase_train(dev, data, args.trees,
+                                                    args.leaves)
+    for name in ("partition_segment", "segment_histogram", "route_rows"):
+        if train_counts.get(name, 0) <= 0:
+            raise AssertionError("training never launched %s" % name)
+    rows = full_width_segment_kernels(bst, dev, errs)
+    check_determinism(dev, train, args.leaves)
+    summary["profile"] = profile_iteration(dev, train, args.leaves)
+    summary["card_vs_host"] = card_vs_host(dev, data, args.host_rows,
+                                           args.leaves)
 
-        log("== phase 4: timings (%s)" % card)
-        rows = phase_timings(bst, out, dev, errs)
-    kernels_line = {"kernels": [dict(name=name, launches=counts[name], **r)
+    log("== phase 4: serving the trained model")
+    import numpy as np
+    rng = np.random.RandomState(args.seed + 7)
+    g = bst.inner
+    log("model: %d trees x %d leaves, %d features, device %s"
+        % (len(g.models), args.leaves, g.train_set.num_total_features,
+           g.device))
+    out, serve_counts = phase_serve(bst, train, rng, args.binned_rows)
+    for name in ("forest_predict", "route_rows"):
+        if serve_counts.get(name, 0) <= 0:
+            raise AssertionError("serving never launched %s" % name)
+    serve_errs = check_serve(bst, out)
+    for name, e in serve_errs.items():
+        log("check %s: max |diff| %.3g" % (name, e))
+    fp, has_cat, has_lin = g._forest_model(0, len(g.models))
+    b, _ = bin_rows(g.train_set, out["reqs"][65536])
+    bins = torch.from_numpy(b).to(dev)
+    errs["forest/full_width"] = check_scores(
+        "forest/full_width",
+        forest.forest_predict_impl(bins, None, fp).cpu().numpy(),
+        forest.forest_predict_plain(bins, None, fp).cpu().numpy())
+    log("check forest/full_width: max |diff| %.3g" % errs["forest/full_width"])
+
+    log("== phase 5: timings (%s)" % card)
+    rows = phase_timings(bst, out, dev, errs, rows)
+    launches = {"partition_segment": train_counts["partition_segment"],
+                "segment_histogram": train_counts["segment_histogram"],
+                "route_rows": train_counts["route_rows"]
+                + serve_counts["route_rows"],
+                "forest_predict": serve_counts["forest_predict"]}
+    log("launches: training %s; serving %s" % (train_counts, serve_counts))
+    log("train summary %s" % json.dumps(summary))
+    kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}
     log(card)
     log("total %.1f s" % (time.perf_counter() - t_start))

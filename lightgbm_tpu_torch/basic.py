@@ -1,11 +1,12 @@
-"""User-facing Dataset and Booster (PyTorch port of the serving part of
+"""User-facing Dataset and Booster (PyTorch port of
 ``lightgbm_tpu/basic.py``).
 
 ``Dataset`` bins lazily at ``construct()`` (or loads a ``save_binned``
-npz); ``Booster`` loads a model from a file or a string and predicts. The
+npz); ``Booster(params, train_set)`` trains (``update``, ``add_valid``,
+``eval_train`` / ``eval_valid``, ``rollback_one_iter``), and
+``Booster(model_file=|model_str=)`` loads a model; both predict. The
 booster's device comes from ``params["device_type"]``: ``cpu`` for the
-host, the CUDA card otherwise (the default). Training a booster from a
-``train_set`` comes with the training slice.
+host, the CUDA card otherwise (the default).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .boosting import GBDT
+from .boosting import GBDT, create_boosting
 from .config import Config
 from .dataset import BinnedDataset, construct_dataset
 from .utils.log import LightGBMError, Log
@@ -60,6 +61,19 @@ class Dataset:
         self._constructed: Optional[BinnedDataset] = None
         self._used_params: Optional[Dict[str, Any]] = None
 
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this dataset's bin mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, params=params)
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed binned dataset (``Dataset(path)`` loads
+        it back without re-binning)."""
+        from .dataset import save_binned
+        save_binned(self.construct(), filename)
+        return self
+
     def construct(self, params: Optional[Dict[str, Any]] = None
                   ) -> BinnedDataset:
         merged = dict(self.params)
@@ -68,8 +82,20 @@ class Dataset:
         if self._constructed is not None and self._used_params == merged:
             return self._constructed
         if isinstance(self.data, str):
-            from .dataset import load_binned
-            self._constructed = load_binned(self.data)
+            # binary dataset cache; metadata passed here overrides the
+            # cached copy
+            from .dataset import Metadata, load_binned
+            ds = load_binned(self.data)
+            if any(v is not None for v in
+                   (self.label, self.weight, self.group, self.init_score)):
+                md = Metadata(ds.num_data, self.label, self.weight,
+                              self.group, self.init_score)
+                for f in ("label", "weight", "init_score",
+                          "query_boundaries", "query_id"):
+                    v = getattr(md, f)
+                    if v is not None:
+                        setattr(ds.metadata, f, v)
+            self._constructed = ds
             self._used_params = merged
             return self._constructed
         cfg = Config.from_params(merged)
@@ -90,7 +116,8 @@ class Dataset:
 
 
 class Booster:
-    """Model handle for serving (reference: basic.py:2142)."""
+    """Model handle (reference: basic.py:2142): trains from a
+    ``train_set`` or loads a model from ``model_file`` / ``model_str``."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
@@ -98,21 +125,72 @@ class Booster:
                  model_str: Optional[str] = None) -> None:
         params = dict(params or {})
         self.params = params
+        self.train_dataset = train_set
+        self.best_score: Dict[str, Dict[str, float]] = {}
         if train_set is not None:
-            raise LightGBMError("training is not ported yet: load a model "
-                                "with model_file= or model_str=")
+            if not isinstance(train_set, Dataset):
+                raise TypeError("train_set must be a Dataset")
+            binned = train_set.construct(params)
+            self.config = Config.from_params(params)
+            self.inner: GBDT = create_boosting(self.config, binned)
+            self.best_iteration = -1
+            return
         if model_file is not None:
             with open(model_file) as f:
                 model_str = f.read()
         if model_str is None:
-            raise LightGBMError("Need model_file or model_str")
-        self.inner: GBDT = GBDT.model_from_string(
-            model_str, Config.from_params(params))
+            raise LightGBMError("Need train_set, model_file or model_str")
+        self.inner = GBDT.model_from_string(model_str,
+                                            Config.from_params(params))
         self.config = self.inner.config
         # loaded models keep their stored best_iteration so predict()
         # defaults to the early-stopped tree count like the reference
         self.best_iteration = self.inner.best_iteration
 
+    # ----------------------------------------------------------- training
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if data.reference is None:
+            data.reference = self.train_dataset
+        self.inner.add_valid(name, data.construct(self.params))
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; returns True if no tree could grow
+        (reference: basic.py:2565 update)."""
+        if train_set is not None:
+            raise LightGBMError("Resetting train_set is not supported")
+        if fobj is not None:
+            grad, hess = fobj(self.inner.train_score.np(), self.train_dataset)
+            return self.inner.train_one_iter(np.asarray(grad),
+                                             np.asarray(hess))
+        return self.inner.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        self.inner.rollback_one_iter()
+        return self
+
+    @property
+    def current_iteration(self) -> int:
+        return self.inner.current_iteration
+
+    def num_trees(self) -> int:
+        return self.inner.num_trees()
+
+    def eval_train(self, feval=None):
+        return self.inner.eval_train(feval)
+
+    def eval_valid(self, feval=None):
+        return self.inner.eval_valid(feval)
+
+    def save_model(self, filename: str, num_iteration: Optional[int] = None
+                   ) -> "Booster":
+        with self.inner._cache_lock:
+            self.inner.best_iteration = self.best_iteration
+        self.inner.save_model(filename,
+                              -1 if num_iteration is None else num_iteration)
+        return self
+
+    # ------------------------------------------------------------ serving
     def predict(self, data, *, raw_score: bool = False,
                 start_iteration: int = 0,
                 num_iteration: Optional[int] = None,

@@ -1,14 +1,21 @@
-"""Boosting drivers, serving part (PyTorch port of
-``lightgbm_tpu/boosting.py``).
+"""Boosting drivers (PyTorch port of ``lightgbm_tpu/boosting.py``).
 
-A :class:`GBDT` here holds a trained ensemble and serves it: the model
-text format (``model_to_string`` / ``model_from_string``, byte-compatible
-with the JAX package), raw-score and final prediction with prediction
-early stopping, the version-keyed device packs behind
-:class:`~lightgbm_tpu_torch.serve.session.PredictSession`, binned
-routing of a dataset's rows (``_route_tree_device``) and the online
+A :class:`GBDT` trains an ensemble and serves it. Training (plain GBDT,
+reference: gbdt.cpp:369 TrainOneIter) runs the objective's gradients, one
+:class:`~lightgbm_tpu_torch.learner.SerialTreeLearner` tree per class and
+device-side score updates for the training set and every valid set, one
+iteration at a time; the fused K-iteration block of the JAX package is
+later work (ROADMAP A9), so ``supports_fused()`` is False. Bagging, GOSS
+and ``feature_fraction < 1`` need the port's threefry sampler (ROADMAP
+A3); DART, RF and linear-tree training wait in A10. Each raises.
+
+Serving: the model text format (``model_to_string`` /
+``model_from_string``, byte-compatible with the JAX package), raw-score
+and final prediction with prediction early stopping, the version-keyed
+device packs behind :class:`~lightgbm_tpu_torch.serve.session.PredictSession`,
+binned routing of a dataset's rows (``_route_tree_device``) and the online
 hot-swap hooks ``adopt`` / ``restore``. DART and RF models load and serve
-(RF averages its trees). Training comes with a later slice.
+(RF averages its trees).
 
 Everything device-side lives on ``self.device``, resolved from
 ``config.device_type`` (see device.py).
@@ -16,7 +23,7 @@ Everything device-side lives on ``self.device``, resolved from
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +31,9 @@ import torch
 from .config import Config
 from .dataset import BinnedDataset
 from .device import resolve_device
-from .learner import assign_leaves, leaf_values_by_row, route_layout
+from .learner import (SerialTreeLearner, TreeLog, assign_leaves,
+                      leaf_values_by_row, route_layout)
+from .metric import Metric, create_metrics
 from .objective import ObjectiveFunction, create_objective
 from .obs import telemetry
 from .tree import Tree
@@ -44,8 +53,13 @@ class ScoreTracker:
 
     def add(self, leaf_values, leaf_assign: torch.Tensor, class_id: int,
             num_class: int, scale: float = 1.0) -> None:
-        lv = torch.as_tensor(np.asarray(leaf_values, np.float32)).to(
-            leaf_assign.device)
+        """score[:, class_id] += leaf_values[leaf_assign] * scale, on the
+        device (``leaf_values`` a device tensor or host array)."""
+        if isinstance(leaf_values, torch.Tensor):
+            lv = leaf_values.to(leaf_assign.device)
+        else:
+            lv = torch.as_tensor(np.asarray(leaf_values, np.float32)).to(
+                leaf_assign.device)
         vals = leaf_values_by_row(lv, leaf_assign) * np.float32(scale)
         if self.score.dim() > 1:
             self.score[:, class_id] += vals
@@ -86,10 +100,218 @@ class GBDT:
         self._forest_cache: Dict = {}
         self._serve_sessions: Dict = {}
         self._tree_log_cache: Dict = {}
+        self.metrics: List[Metric] = []
+        self.valid_sets: List[Tuple[str, BinnedDataset, ScoreTracker]] = []
+        self.learner: Optional[SerialTreeLearner] = None
+        self.train_score: Optional[ScoreTracker] = None
         if train_set is not None:
-            self.objective = create_objective(config)
-            self.num_tree_per_iteration = \
-                self.objective.num_model_per_iteration
+            self._setup(train_set)
+
+    # ------------------------------------------------------------------ setup
+    def _setup(self, train_set: BinnedDataset) -> None:
+        cfg = self.config
+        if self.name != "gbdt":
+            raise LightGBMError("boosting=%s training is not ported to the "
+                                "PyTorch/CUDA package yet (ROADMAP A10)"
+                                % self.name)
+        if cfg.data_sample_strategy == "goss" or (
+                cfg.bagging_freq > 0 and min(cfg.bagging_fraction,
+                                             cfg.pos_bagging_fraction,
+                                             cfg.neg_bagging_fraction) < 1.0):
+            raise LightGBMError("bagging and GOSS need the port's threefry "
+                                "sampler (ROADMAP A3)")
+        if float(cfg.feature_fraction) < 1.0:
+            raise LightGBMError("feature_fraction < 1 needs the port's "
+                                "threefry sampler (ROADMAP A3)")
+        if cfg.linear_tree:
+            raise LightGBMError("linear_tree training is not ported to the "
+                                "PyTorch/CUDA package yet (ROADMAP A10)")
+        self.objective = create_objective(cfg)
+        self.objective.init(train_set.metadata, self.device)
+        self.num_tree_per_iteration = self.objective.num_model_per_iteration
+        self.metrics = create_metrics(cfg, self.objective.name)
+        self.learner = SerialTreeLearner(
+            cfg, train_set, self.device, bins=self._valid_bins(train_set),
+            bins_t=self._valid_bins_t(train_set))
+        if cfg.boost_from_average and self.objective.name != "none":
+            for k in range(self.num_tree_per_iteration):
+                self.init_scores[k] = self.objective.boost_from_score(k)
+        self.train_score = self._fresh_tracker(train_set)
+        self._inbag = torch.ones(train_set.num_data, dtype=torch.float32,
+                                 device=self.device)
+        self._fmask = torch.ones(train_set.num_features, dtype=torch.bool,
+                                 device=self.device)
+
+    def _fresh_tracker(self, ds: BinnedDataset) -> "ScoreTracker":
+        """Scores at the init scores plus the dataset's own init_score."""
+        ts = ScoreTracker(ds.num_data, self.num_tree_per_iteration,
+                          self.init_scores, self.device)
+        if ds.metadata.init_score is not None:
+            base = ds.metadata.init_score
+            base = base.reshape(ds.num_data, -1) if self.num_class > 1 \
+                else base.ravel()
+            ts.score = ts.score + torch.as_tensor(
+                np.asarray(base, np.float32)).to(self.device)
+        return ts
+
+    def add_valid(self, name: str, valid_set: BinnedDataset) -> None:
+        vs = self._fresh_tracker(valid_set)
+        # replay already-trained trees (continued training)
+        for i, tree in enumerate(self.models):
+            vals, leaf = self._route_tree_device(tree, valid_set)
+            vs.add(vals, leaf, i % self.num_tree_per_iteration,
+                   self.num_tree_per_iteration)
+        self.valid_sets.append((name, valid_set, vs))
+
+    def _tree_channels(self, grad: torch.Tensor, hess: torch.Tensor,
+                       k: int) -> torch.Tensor:
+        """(N, 3) (grad, hess, inbag) channels of class ``k``; without
+        bagging every row is in bag."""
+        g = grad if grad.dim() == 1 else grad[:, k]
+        h = hess if hess.dim() == 1 else hess[:, k]
+        return torch.stack([g, h, self._inbag], dim=1)
+
+    def _feature_mask(self, it: int) -> torch.Tensor:
+        """Per-tree column sample: all features (feature_fraction < 1 is
+        refused in _setup until the threefry sampler lands)."""
+        return self._fmask
+
+    def supports_fused(self) -> bool:
+        """The fused K-iteration block is ROADMAP A9."""
+        return False
+
+    # --------------------------------------------------------------- training
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting iteration (reference: gbdt.cpp:369 TrainOneIter).
+        Returns True when no tree could be grown (all-stop signal)."""
+        it = self.iter_
+        K = self.num_tree_per_iteration
+        if grad is None:
+            g, h = self.objective.get_gradients(self.train_score.score)
+        else:
+            n = self.train_set.num_data
+            g = torch.as_tensor(np.asarray(grad, np.float32)).to(self.device)
+            h = torch.as_tensor(np.asarray(hess, np.float32)).to(self.device)
+            if K > 1:
+                g, h = g.reshape(n, K), h.reshape(n, K)
+        fmask = self._feature_mask(it)
+        any_nonconstant = False
+        for k in range(K):
+            log = self.learner.train(self._tree_channels(g, h, k), fmask)
+            tree = self._finalize_tree(log, k)
+            with self._cache_lock:
+                self.models.append(tree)
+            splits = tree.num_leaves - 1
+            telemetry.count("tree/trees")
+            telemetry.count("tree/splits", splits)
+            telemetry.count("tree/leaves", tree.num_leaves)
+            # launches: one partition and one smaller-child histogram per
+            # split, plus the root histogram of the pack
+            telemetry.count("learner/partition_launches", splits)
+            telemetry.count("learner/hist_launches", splits + 1)
+            telemetry.count("learner/scan_launches", splits)
+            if tree.num_leaves > 1:
+                any_nonconstant = True
+        with self._cache_lock:
+            self.iter_ += 1
+            self._bump_model_version()
+        return not any_nonconstant
+
+    def _shrinkage_rate(self, log: TreeLog) -> float:
+        return float(self.config.learning_rate)
+
+    def _finalize_tree(self, log: TreeLog, class_id: int) -> Tree:
+        """Host tree from the log, plus the device score updates: the
+        training set through the learner's row_leaf, valid sets through
+        the router. Constant (1-leaf) trees contribute nothing."""
+        rate = self._shrinkage_rate(log)
+        leaf_vals_dev = log.leaf_value * np.float32(rate)
+        tree = self.learner.log_to_tree(log)
+        tree.apply_shrinkage(rate)
+        if tree.num_leaves > 1:
+            K = self.num_tree_per_iteration
+            self.train_score.add(leaf_vals_dev, log.row_leaf, class_id, K)
+            for _, vset, vscore in self.valid_sets:
+                bins_t = self._valid_bins_t(vset) \
+                    if not self.learner.hp.has_categorical else None
+                vleaf = assign_leaves(
+                    self._valid_bins(vset), log,
+                    has_categorical=self.learner.hp.has_categorical,
+                    bundle=self.learner.bundle, bins_t=bins_t)
+                vscore.add(leaf_vals_dev, vleaf, class_id, K)
+        return tree
+
+    def rollback_one_iter(self) -> None:
+        """(reference: gbdt.cpp:454 RollbackOneIter)"""
+        if self.iter_ <= 0:
+            return
+        with self._cache_lock:
+            for _ in range(self.num_tree_per_iteration):
+                self.models.pop()
+            self.iter_ -= 1
+            self._bump_model_version()
+        self._rebuild_scores()
+
+    def _rebuild_scores(self) -> None:
+        """Scores replayed from the trees (after rollback or when training
+        continues from a loaded model)."""
+        self._bump_model_version()
+        K = self.num_tree_per_iteration
+        ts = self._fresh_tracker(self.train_set)
+        for i, tree in enumerate(self.models):
+            vals, leaf = self._route_tree_device(tree, self.train_set)
+            ts.add(vals, leaf, i % K, K)
+        self.train_score = ts
+        rebuilt = []
+        for name, vset, _ in self.valid_sets:
+            vs = self._fresh_tracker(vset)
+            for i, tree in enumerate(self.models):
+                vals, leaf = self._route_tree_device(tree, vset)
+                vs.add(vals, leaf, i % K, K)
+            rebuilt.append((name, vset, vs))
+        self.valid_sets = rebuilt
+
+    # ------------------------------------------------------------------- eval
+    def eval_set(self, name: str, ds: BinnedDataset, tracker: ScoreTracker,
+                 feval=None) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        conv = self.objective.convert_output(tracker.score).cpu().numpy()
+        md = ds.metadata
+        for m in self.metrics:
+            for mname, val in m.eval(conv, md.label, md.weight,
+                                     md.query_boundaries):
+                out.append((name, mname, float(val), m.greater_is_better))
+        if feval is not None:
+            res = feval(tracker.np(), ds)
+            if res:
+                if isinstance(res[0], (list, tuple)):
+                    for mname, val, gib in res:
+                        out.append((name, mname, float(val), bool(gib)))
+                else:
+                    mname, val, gib = res
+                    out.append((name, mname, float(val), bool(gib)))
+        return out
+
+    def eval_train(self, feval=None):
+        return self.eval_set("training", self.train_set, self.train_score,
+                             feval)
+
+    def eval_valid(self, feval=None):
+        out = []
+        for name, ds, tracker in self.valid_sets:
+            out.extend(self.eval_set(name, ds, tracker, feval))
+        return out
+
+    @property
+    def current_iteration(self) -> int:
+        return self.iter_
+
+    def num_trees(self) -> int:
+        return len(self.models)
+
+    def save_model(self, filename: str, num_iteration: int = -1) -> None:
+        with open(filename, "w") as f:
+            f.write(self.model_to_string(num_iteration))
 
     # ---------------------------------------------------------- binned route
     def _valid_bins(self, ds: BinnedDataset) -> torch.Tensor:

@@ -11,7 +11,10 @@ CPU tests import every module of the port on a host with no ``nvcc``.
 :class:`CudaKernel` also holds the kernel's launch count: the op wrapper
 calls :meth:`CudaKernel.launch`, which adds one after every launch the
 device accepted, and :func:`reset_launch_counts` zeroes all of them so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. Between
+:func:`start_timing` and :func:`stop_timing` every launch is also bracketed
+by CUDA events, which gives each kernel's device time inside a real run
+(off, the cost is one attribute test per launch).
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ class CudaKernel:
         self._lib = None
         self._lock = threading.Lock()
         self._launches = 0
+        self._events = None   # [(start, end)] CUDA events while timing
 
     # ---------------------------------------------------------------- build
     def library_path(self) -> Path:
@@ -116,7 +120,17 @@ class CudaKernel:
     def launch(self, *args) -> None:
         """Call the C entry point; raise on a non-zero CUDA status, else
         count one launch."""
-        rc = self.load()(*args)
+        fn = self.load()
+        events = self._events
+        if events is not None:
+            import torch
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        rc = fn(*args)
+        if events is not None:
+            ev[1].record()
+            events.append(ev)
         if rc != 0:
             msg = self._lib.lgbt_error_string(rc).decode()
             raise RuntimeError("%s: CUDA error %d (%s)"
@@ -173,6 +187,25 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.reset()
+
+
+def start_timing() -> None:
+    """Bracket every following launch with CUDA events."""
+    for k in KERNELS.values():
+        k._events = []
+
+
+def stop_timing() -> Dict[str, float]:
+    """Stop timing; returns each kernel's summed device milliseconds since
+    :func:`start_timing` (waits for the card)."""
+    import torch
+    out = {}
+    if any(k._events for k in KERNELS.values()):
+        torch.cuda.synchronize()
+    for name, k in KERNELS.items():
+        events, k._events = k._events or [], None
+        out[name] = float(sum(a.elapsed_time(b) for a, b in events))
+    return out
 
 
 def stream_of(t) -> int:

@@ -16,8 +16,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-# importing forest and route registers their kernels' launch counters
-from lightgbm_tpu_torch.ops import forest, kernels, route  # noqa: E402,F401
+# importing the op modules registers their kernels' launch counters
+from lightgbm_tpu_torch.ops import (forest, histogram, kernels,  # noqa: E402
+                                    partition, route)  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -35,14 +36,38 @@ def test_kernels_match_plain_on_card(card):
     errs = chip_smoke.phase_kernels(card, 3)
     assert max(errs.values()) <= 1e-5, errs
     after = kernels.launch_counts()
-    assert after["forest_predict"] > before["forest_predict"]
-    assert after["route_rows"] > before["route_rows"]
+    for name in ("forest_predict", "route_rows", "partition_segment",
+                 "segment_histogram"):
+        assert after[name] > before[name], name
 
 
-def test_small_serving_path_on_card(card, tmp_path):
-    bst, train, rng = chip_smoke.build_main_model(
-        1, 16, 63, 20000, str(tmp_path))
+def test_segment_kernels_match_plain_on_card(card):
+    before = kernels.launch_counts()
+    errs = chip_smoke.phase_segment_kernels(card, np.random.RandomState(5))
+    assert all(np.isfinite(list(errs.values())))
+    after = kernels.launch_counts()
+    assert after["partition_segment"] > before["partition_segment"]
+    assert after["segment_histogram"] > before["segment_histogram"]
+
+
+@pytest.fixture(scope="module")
+def trained_on_card(card):
+    data = chip_smoke.training_data(1, 20000, 5000)
+    return chip_smoke.phase_train(card, data, 4, 63)
+
+
+def test_small_training_path_on_card(card, trained_on_card):
+    bst, train, counts, summary = trained_on_card
+    assert counts["partition_segment"] == summary["splits"]
+    assert counts["segment_histogram"] == summary["splits"] + 4
+    assert counts["route_rows"] == 8        # training set + valid set
+    chip_smoke.check_determinism(card, train, 63, iters=2)
+
+
+def test_small_serving_path_on_card(card, trained_on_card):
+    bst, train, _, _ = trained_on_card
+    rng = np.random.RandomState(1)
     out, counts = chip_smoke.phase_serve(bst, train, rng, 100000)
-    assert counts["forest_predict"] > 0 and counts["route_rows"] == 16
+    assert counts["forest_predict"] > 0 and counts["route_rows"] == 4
     errs = chip_smoke.check_serve(bst, out)
     assert np.isfinite(list(errs.values())).all()

@@ -1,8 +1,8 @@
-"""``chip_smoke.py`` rehearsed on the CPU at a small size: its seeded
-model and data builders, the kernels-vs-plain phase and the main serving
-path run end to end through the kernels' plain twins (on the card the
-same code launches the kernels), and the script itself refuses to run
-without a card."""
+"""``chip_smoke.py`` rehearsed on the CPU at a small size: its seeded data
+builders, the kernels-vs-plain phase, the training phase and the serving
+of the trained model run end to end through the kernels' plain twins (on
+the card the same code launches the kernels), and the script itself
+refuses to run without a card."""
 import os
 import subprocess
 import sys
@@ -24,17 +24,42 @@ def test_kernels_phase_covers_every_branch_on_cpu():
     assert set(errs) == {
         "forest/numerical", "forest/nan_missing", "forest/categorical",
         "forest/multiclass3", "forest/linear", "forest/linear_nan",
-        "router/dense", "router/efb_bundles"}
+        "router/dense", "router/efb_bundles", "partition/bundle_column",
+        "partition/unaligned", "partition/whole",
+        "partition/under_one_block", "partition/empty_left",
+        "partition/empty_right", "partition/one_row",
+        "histogram/hilo/whole", "histogram/hilo/unaligned",
+        "histogram/hilo/one_row", "histogram/hilo/empty",
+        "histogram/bf16/whole", "histogram/bf16/unaligned",
+        "histogram/bf16/one_row", "histogram/bf16/empty"}
     assert all(e <= 1e-6 for e in errs.values()), errs
 
 
-def test_serve_phase_small_on_cpu(tmp_path):
-    bst, train, rng = chip_smoke.build_main_model(
-        0, 8, 31, 3000, str(tmp_path), device_type="cpu")
+@pytest.fixture(scope="module")
+def trained():
+    data = chip_smoke.training_data(0, 2000, 500)
+    bst, train, counts, summary = chip_smoke.phase_train(CPU, data, 3, 15)
+    return data, bst, train, counts, summary
+
+
+def test_train_phase_small_on_cpu(trained):
+    data, bst, train, counts, summary = trained
+    assert counts["partition_segment"] == counts["segment_histogram"] \
+        == counts["route_rows"] == 0                       # plain twins
+    assert summary["trees"] == 3 and summary["splits"] > 0
+    assert 0.6 < summary["valid_auc"] <= 1.0
+    chip_smoke.check_determinism(CPU, train, 15, iters=1)
+    res = chip_smoke.card_vs_host(CPU, data, 1000, 7, iters=1)
+    assert res["splits_agree"] == res["splits"] > 0
+
+
+def test_serve_phase_small_on_cpu(trained):
+    _, bst, train, _, _ = trained
     assert bst.inner.train_set.num_total_features \
         == chip_smoke.HIGGS_FEATURES
+    rng = np.random.RandomState(1)
     out, counts = chip_smoke.phase_serve(bst, train, rng, 5000)
-    assert counts == {"forest_predict": 0, "route_rows": 0}  # plain twins
+    assert counts["forest_predict"] == 0 and counts["route_rows"] == 0
     errs = chip_smoke.check_serve(bst, out)
     assert max(errs.values()) <= 1e-6, errs
     assert out["binned"].shape == (5000,)

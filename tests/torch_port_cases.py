@@ -81,3 +81,109 @@ def train_case(name, tmpdir, rounds=6, n=600, f=8, n_query=300, seed=7,
     ds.save_binary(path)
     port = lgt.booster_from_reference(bst.model_to_string(), path, CPU)
     return bst, port, Xq, path
+
+
+# ---------------------------------------------------------------- training
+#
+# Training parity needs data on which every split the two packages take is
+# decided by a real gain. The label is a weighted sum of the features plus
+# grid noise (no feature is irrelevant, no leaf is pure), and
+# min_gain_to_split=1e-3 rejects the splits that exist only by f32
+# rounding: on a pure leaf both packages compute "gains" of 1e-5 to 1e-4
+# from summation-order noise, and which of those wins is arbitrary. The
+# categorical case splits one category against the rest: a many-vs-many
+# split and its complement (ascending and descending category order) have
+# the same gain up to rounding, so either package may send a set left or
+# right (the split scan is held to the many-vs-many case in
+# test_torch_split.py on exact sums).
+
+#: tree leaf values and predictions, port vs JAX: the gradients differ by
+#: an ulp (exp in XLA vs torch) and histogram sums run in another order
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+
+TRAIN_CASES = {
+    "binary": dict(objective="binary"),
+    "regression": dict(objective="regression"),
+    "multiclass": dict(objective="multiclass", num_class=3),
+    "nan_missing": dict(objective="binary", nan=True),
+    "categorical": dict(objective="binary", cat=True, max_cat_to_onehot=8),
+    "efb": dict(objective="binary", efb=True),
+}
+
+
+def make_train_data(rng, n, f=8, objective="binary", cat=False, nan=False,
+                    efb=False):
+    """(X, y, categorical_feature) for one training case."""
+    X = grid(rng, n, f)
+    w = np.array([1.0, -0.8, 0.6, -0.45, 0.3, -0.2, 0.12, 0.07])[:f]
+    z = X @ w + 0.5 * grid(rng, n, 1)[:, 0]
+    if cat:
+        X[:, 0] = rng.randint(0, 6, n)
+        z = X[:, 1:] @ w[1:] + 0.3 * (np.isin(X[:, 0], (1, 3, 4)) - 0.5) \
+            + 0.5 * grid(rng, n, 1)[:, 0]
+    if efb:
+        # one-hot blocks that EFB bundles, beside the dense columns
+        blocks = []
+        for _ in range(3):
+            ids = rng.randint(0, 8, n)
+            oh = np.zeros((n, 8))
+            oh[np.arange(n), ids] = 1.0
+            z = z + 0.25 * (ids % 3 == 0) - 0.08
+            blocks.append(oh)
+        X = np.concatenate(blocks + [X], axis=1)
+    if objective == "multiclass":
+        y = np.digitize(z, [-0.3, 0.3]).astype(np.float64)
+    elif objective == "regression":
+        y = np.round(z * 64) / 64
+    else:
+        y = (z > 0).astype(np.float64)
+    if nan:
+        X[rng.rand(*X.shape) < 0.15] = np.nan
+    return X, y, ([0] if cat else [])
+
+
+def train_params(name, leaves=15):
+    spec = dict(TRAIN_CASES[name])
+    for k in ("nan", "cat", "efb"):
+        spec.pop(k, None)
+    return dict(spec, verbosity=-1, num_leaves=leaves, min_gain_to_split=1e-3)
+
+
+def jax_dataset(name, tmpdir, n=2000, seed=1, valid_rows=0):
+    """(JAX Dataset, npz path, X, y, valid (X, y) or None) for a case:
+    the JAX side bins and writes the npz that the port trains on."""
+    spec = TRAIN_CASES[name]
+    rng = np.random.RandomState(seed)
+    X, y, cats = make_train_data(
+        rng, n + valid_rows, objective=spec["objective"],
+        cat=spec.get("cat", False), nan=spec.get("nan", False),
+        efb=spec.get("efb", False))
+    valid = (X[n:], y[n:]) if valid_rows else None
+    X, y = X[:n], y[:n]
+    ds = lgb.Dataset(X, label=y, categorical_feature=cats)
+    ds.construct(train_params(name))
+    path = os.path.join(str(tmpdir), "%s_train_%d.npz" % (name, seed))
+    ds.save_binary(path)
+    return ds, path, X, y, valid
+
+
+def assert_same_trees(jax_models, port_models):
+    """Equal structure (features, thresholds, decision types, categories,
+    leaf counts); leaf values at TRAIN_RTOL / TRAIN_ATOL."""
+    assert len(jax_models) == len(port_models)
+    for i, (a, b) in enumerate(zip(jax_models, port_models)):
+        assert a.num_leaves == b.num_leaves, i
+        k = a.num_internal
+        for fld in ("split_feature", "threshold", "decision_type",
+                    "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(a, fld)[:k],
+                                          getattr(b, fld)[:k],
+                                          err_msg="tree %d %s" % (i, fld))
+        np.testing.assert_array_equal(a.leaf_count[:a.num_leaves],
+                                      b.leaf_count[:b.num_leaves])
+        assert {f: list(v) for f, v in a.cat_threshold.items()} == \
+            {f: list(v) for f, v in b.cat_threshold.items()}, i
+        np.testing.assert_allclose(b.leaf_value[:b.num_leaves],
+                                   a.leaf_value[:a.num_leaves],
+                                   rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
+                                   err_msg="tree %d leaf_value" % i)
