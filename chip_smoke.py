@@ -1,47 +1,66 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``lightgbm_tpu_torch``).
 
-    python3 chip_smoke.py [--seed 0] [--trees 100] [--leaves 255]
+    python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Five phases, each fatal on failure:
+the checkout it sits in. Seven phases, each fatal on failure:
 
-1. build   — compile the four hand-written kernels (``csrc/*.cu``), one
-             nvcc per source, started together.
-2. kernels — hold each kernel against its plain torch twin on the card:
-             the forest kernel on small seeded packs covering every branch
-             (numerical, NaN-missing, categorical, multiclass K=3, linear,
-             linear + NaN) and at full width; the row router with and
-             without EFB bundle columns; the segment partition (bytes and
-             left counts equal: unaligned starts, empty sides, a segment
-             under one block, one row, an EFB bundle column); the segment
-             histogram (counts equal; g/h within the f32 summation bound
-             ``ops.histogram.sum_error_bound`` of the twin's float64 sum
-             of the same per-row values; hi/lo and bf16 modes; 0 rows to
-             9000; bit-equal run to run). Both again at 2M rows right
-             after phase 3, on its data and its first root split. Leaf ids
-             must be equal, scores within SCORE_ATOL + SCORE_RTOL * |b|.
-3. train   — the training path: 2,000,000 Higgs-shaped rows x 28 features
-             (max_bin=255), ``objective=binary``, ``num_leaves=255``,
-             ``--trees`` iterations through ``lightgbm_tpu_torch.train``
-             with a 100,000-row valid set. Launch counts are zeroed just
-             before and read just after: the partition, histogram and
-             router kernels must have run. Every tree's leaf segment
-             counts must equal the router's per-leaf row counts and the
-             histogram count channel, and sum to N. Two 3-iteration runs
-             must give byte-equal model strings; 3 iterations on 200,000
-             rows on the card and on the host (the plain twins) must agree
-             in train logloss within LOGLOSS_TOL.
-4. serve   — the trained model through every serving entry point:
-             PredictSession requests of 1, 256, 4096 and 65536 rows, 64
-             concurrent MicroBatcher submits, loopback ``POST /predict``
-             and ``predict_binned`` over 2,000,000 binned rows, counts
-             zeroed just before and read just after (forest and router
-             must have run); every answer against the plain path and, on
-             a small input, the host tree walk.
-5. timings — each kernel's ms (CUDA events), its plain twin's ms, one
-             library call's ms where torch has one, and its bound at the
-             main path's shapes, beside the card's name and power limit.
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: five
+                sources, seven entry points), one nvcc per source, started
+                together.
+2. kernels   -- hold each kernel against its plain torch twin on the card:
+                the forest kernel on small seeded packs covering every
+                branch (numerical, NaN-missing, categorical, multiclass
+                K=3, linear, linear + NaN); the row router with and without
+                EFB bundle columns; the segment partition on both layouts
+                (bytes and left counts equal: unaligned starts, empty
+                sides, a segment under one block, one row, an EFB bundle
+                column; rows of W = F + 12 and F + 3 bytes, F = 27 and 28);
+                the segment histogram on both layouts (counts equal; g/h
+                within the f32 summation bound ``ops.histogram.
+                sum_error_bound`` of the twin's float64 sum of the same
+                per-row values; hi/lo and bf16 modes; 0 rows to 9000;
+                bit-equal run to run; the rows kernel bit-equal to the
+                planes kernel on the same rows); the int8 histogram
+                (byte-equal to its twin and run to run). Again at 2M rows
+                after phases 3 and 4, on their data and first root splits.
+                Leaf ids must be equal, scores within SCORE_ATOL +
+                SCORE_RTOL * |b|.
+3. planes    -- the slice-2 training path: 2,000,000 Higgs-shaped rows x
+                28 features (max_bin=255), ``objective=binary``,
+                ``num_leaves=255``, ``--trees`` iterations through
+                ``lightgbm_tpu_torch.train`` with a 100,000-row valid set.
+                Launch counts are zeroed just before and read just after:
+                the partition, histogram and router kernels must have run.
+                Every tree's leaf segment counts must equal the router's
+                per-leaf row counts and sum to N, and the histogram count
+                channel the in-bag rows. Two 3-iteration runs must give
+                byte-equal model strings; 3 iterations on 200,000 rows on
+                the card and on the host (the plain twins) must agree in
+                train logloss within LOGLOSS_TOL.
+4. quantized -- the slice-3 path, the same data and trees with
+                QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
+                sampling 0.8) on the rows layout: the rows partition, the
+                int8 histogram and the router must have run; the same
+                per-tree checks (the int8 count channel = the in-bag rows);
+                byte-equal determinism; card vs host on 200,000 rows with
+                every split of the first tree equal; valid AUC within
+                AUC_TOL of phase 3's at the same number of trees.
+5. short runs -- unquantized rows layout vs planes, 200,000 rows x 3
+                trees on the card: byte-equal model strings (the rows
+                histogram kernel must have run); GOSS on the card vs the
+                host.
+6. serve     -- the quantized model through every serving entry point:
+                PredictSession requests of 1, 256, 4096 and 65536 rows, 64
+                concurrent MicroBatcher submits, loopback ``POST /predict``
+                and ``predict_binned`` over 2,000,000 binned rows, counts
+                zeroed just before and read just after (forest and router
+                must have run); every answer against the plain path and, on
+                a small input, the host tree walk.
+7. timings   -- each kernel's ms (CUDA events), its plain twin's ms, one
+                library call's ms where torch has one, and its bound at the
+                main path's shapes, beside the card's name and power limit.
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -81,6 +100,15 @@ BINNED_ROWS = 2_000_000
 REQUEST_ROWS = (1, 256, 4096, 65536)
 TRAIN_PARAMS = {"objective": "binary", "max_bin": 255, "num_leaves": 255,
                 "verbosity": -1}
+#: the slice-3 configuration: int8 quantized gradients, bagging and column
+#: sampling on top of TRAIN_PARAMS (trains on the rows work layout)
+QUANT_PARAMS = {"use_quantized_grad": True, "bagging_fraction": 0.8,
+                "bagging_freq": 1, "feature_fraction": 0.8}
+#: GOSS samples from iteration 1 / learning_rate on: 2 here
+GOSS_PARAMS = {"data_sample_strategy": "goss", "learning_rate": 0.5}
+#: valid AUC, quantized and sampled model vs the unquantized planes model
+#: at the same number of trees
+AUC_TOL = 0.01
 
 
 def log(msg):
@@ -330,6 +358,7 @@ def phase_kernels(dev, seed):
                 "partition/bundle_column", work, [0, 128 + 7, n - 9, g],
                 table.to(dev))
     errs.update(phase_segment_kernels(dev, rng))
+    errs.update(phase_rows_kernels(dev, rng))
     return errs
 
 
@@ -350,17 +379,18 @@ def seeded_work(rng, bins, dev, guard=128):
     return work.to(dev)
 
 
-def check_partition(name, work, seg, table):
-    """Kernel (on a CUDA tensor) vs plain twin: the whole buffer and the
-    left count must be equal. Returns 0.0."""
+def check_partition(name, work, seg, table, rows=False):
+    """Kernel (on a CUDA tensor) vs plain twin, planes or rows layout: the
+    whole buffer and the left count must be equal. Returns 0.0."""
     import torch
-    from lightgbm_tpu_torch.ops.partition import (partition_segment,
-                                                  partition_segment_plain)
+    from lightgbm_tpu_torch.ops import partition as P
 
+    kernel, plain = (P.partition_segment_rows, P.partition_segment_rows_plain) \
+        if rows else (P.partition_segment, P.partition_segment_plain)
     a, b = work.clone(), work.clone()
     sg = torch.tensor(seg, dtype=torch.int32, device=work.device)
-    lt_a = partition_segment(a, sg, table, max(seg[2], 1))
-    lt_b = partition_segment_plain(b, sg, table)
+    lt_a = kernel(a, sg, table, max(seg[2], 1))
+    lt_b = plain(b, sg, table)
     sync(work.device)
     if int(lt_a) != int(lt_b):
         raise AssertionError("%s: lt %d != %d" % (name, int(lt_a), int(lt_b)))
@@ -370,74 +400,185 @@ def check_partition(name, work, seg, table):
     return 0.0
 
 
-def abs_work(work, num_feat):
+def abs_work(work, num_feat, rows=False):
     """The work pair with |g| and |h| in place of g and h (for the per-bin
     sum of |x| that scales the histogram tolerance)."""
-    import torch
-    from lightgbm_tpu_torch.ops.partition import pack_planes, unpack_ghc_planes
+    from lightgbm_tpu_torch.ops.partition import (pack_planes, pack_rows,
+                                                  unpack_ghc,
+                                                  unpack_ghc_planes)
 
     w = work.clone()
     for p in (0, 1):
-        ghc = unpack_ghc_planes(w[p], num_feat).abs().nan_to_num(0.0)
-        w[p] = pack_planes(w[p, :num_feat].t(), ghc.t())
+        if rows:
+            ghc = unpack_ghc(w[p], num_feat).abs().nan_to_num(0.0)
+            w[p] = pack_rows(w[p, :, :num_feat], ghc)
+        else:
+            ghc = unpack_ghc_planes(w[p], num_feat).abs().nan_to_num(0.0)
+            w[p] = pack_planes(w[p, :num_feat].t(), ghc.t())
     return w
 
 
-def check_histogram(name, work, seg, num_bins, num_feat, exact):
-    """Kernel vs plain twin: counts equal, g/h within the kernel's f32
-    summation bound of the twin's exact sum, the same bits run to run.
-    Returns max |diff|."""
+def check_histogram(name, work, seg, num_bins, num_feat, exact, rows=False):
+    """Kernel vs plain twin, planes or rows layout: counts equal, g/h
+    within the kernel's f32 summation bound of the twin's exact sum, the
+    same bits run to run; on the rows layout also the same bits as the
+    planes kernel on the same rows. Returns max |diff|."""
     import torch
-    from lightgbm_tpu_torch.ops.histogram import (segment_histogram,
-                                                  segment_histogram_plain,
-                                                  sum_error_bound)
+    from lightgbm_tpu_torch.ops import histogram as H
 
+    kernel, plain = (H.segment_histogram_rows, H.segment_histogram_rows_plain) \
+        if rows else (H.segment_histogram, H.segment_histogram_plain)
     sg = torch.tensor(seg, dtype=torch.int32, device=work.device)
     kw = dict(num_bins=num_bins, num_feat=num_feat, exact=exact)
-    got = segment_histogram(work, sg, cnt_bound=max(seg[2], 1), **kw)
-    want = segment_histogram_plain(work, sg, **kw)
-    absum = segment_histogram_plain(abs_work(work, num_feat), sg, **kw)
+    got = kernel(work, sg, cnt_bound=max(seg[2], 1), **kw)
+    want = plain(work, sg, **kw)
+    absum = plain(abs_work(work, num_feat, rows), sg, **kw)
     sync(work.device)
     if not torch.equal(got[..., 2], want[..., 2]):
         raise AssertionError("%s: count channel differs" % name)
     diff = (got - want).abs()
-    bound = sum_error_bound(seg[2]) * absum
+    bound = H.sum_error_bound(seg[2]) * absum
     if not torch.isfinite(got).all() or (diff > bound).any():
         raise AssertionError("%s: g/h off, max |diff| %.3g"
                              % (name, float(diff.max())))
     if seg[2] and not torch.equal(
-            got, segment_histogram(work, sg, cnt_bound=seg[2], **kw)):
+            got, kernel(work, sg, cnt_bound=seg[2], **kw)):
         raise AssertionError("%s: not bit-equal run to run" % name)
+    if rows:
+        planes = work.transpose(1, 2).contiguous()
+        other = H.segment_histogram(planes, sg, cnt_bound=max(seg[2], 1),
+                                    **kw)
+        if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
+            raise AssertionError("%s: rows and planes kernels differ" % name)
     return float(diff.max())
 
 
+def check_histogram_q(name, work, seg, num_bins, num_feat, scale):
+    """int8 kernel vs plain twin: byte-equal, and the same bytes run to
+    run. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (segment_histogram_q,
+                                                  segment_histogram_q_plain)
+
+    sg = torch.tensor(seg, dtype=torch.int32, device=work.device)
+    kw = dict(num_bins=num_bins, num_feat=num_feat)
+    got = segment_histogram_q(work, sg, scale, cnt_bound=max(seg[2], 1), **kw)
+    want = segment_histogram_q_plain(work, sg, scale, **kw)
+    again = segment_histogram_q(work, sg, scale, cnt_bound=max(seg[2], 1),
+                                **kw)
+    sync(work.device)
+    if not torch.isfinite(got).all() \
+            or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("%s: %d values differ from the twin" % (
+            name, int(torch.count_nonzero(got != want))))
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("%s: not byte-equal run to run" % name)
+    return 0.0
+
+
+def seeded_rows_work(rng, bins, dev, quantized=False, guard=128):
+    """(2, Npad, W) rows pair: buffer 0 packs ``bins`` (N, G) u8 with seeded
+    g/h/cnt at row guard + i (a fifth of the rows out of bag: g = h = cnt
+    = 0), int8 with a seeded dither when ``quantized``; buffer 1 is junk.
+    Returns (work, the (3,) dequantization scale or None)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import dequant_scale
+    from lightgbm_tpu_torch.ops.partition import (pack_rows,
+                                                  pack_rows_quantized,
+                                                  planes_npad,
+                                                  quantize_scales, work_spec)
+    from lightgbm_tpu_torch.prng import PRNGKey
+
+    n, gcols = bins.shape
+    m = (rng.rand(n) < 0.8).astype(np.float32)
+    ghc = torch.as_tensor(np.stack([rng.randn(n) * 2 * m,
+                                    (np.abs(rng.randn(n)) + 0.01) * m, m],
+                                   axis=1).astype(np.float32))
+    _, width = work_spec(gcols, quantized)
+    work = torch.as_tensor(rng.randint(0, 256, (2, planes_npad(n, guard),
+                                                width)).astype(np.uint8))
+    scale = None
+    if quantized:
+        scales = quantize_scales(ghc)
+        work[0, guard:guard + n] = pack_rows_quantized(
+            bins, ghc, PRNGKey(int(rng.randint(1 << 30))), scales)
+        scale = dequant_scale(scales).to(dev)
+    else:
+        work[0, guard:guard + n] = pack_rows(bins, ghc)
+    return work.to(dev), scale
+
+
+#: (name, [src, start, cnt, feat], table) of the partition cases over a
+#: 9000-row segment buffer: "table", all left ("all") or all right ("none")
+PART_CASES = (("unaligned", [0, 128 + 13, 7001, 3], "table"),
+              ("whole", [0, 128, 9000, 0], "table"),
+              ("under_one_block", [0, 128 + 4095, 300, 5], "table"),
+              ("empty_left", [0, 128 + 100, 777, 2], "none"),
+              ("empty_right", [0, 128 + 100, 777, 2], "all"),
+              ("one_row", [0, 128 + 8999, 1, 9], "table"))
+#: (name, [plane, start, cnt]) of the histogram cases
+HIST_CASES = (("whole", [0, 128, 9000]), ("unaligned", [0, 128 + 13, 7001]),
+              ("one_row", [0, 128 + 77, 1]), ("empty", [0, 128 + 5, 0]))
+
+
 def phase_segment_kernels(dev, rng):
-    """Partition and segment histogram, kernel vs plain, small cases."""
+    """Partition and segment histogram on the planes layout, kernel vs
+    plain, small cases."""
     import numpy as np
     import torch
 
     n, nb = 9000, 64
     bins = torch.as_tensor(rng.randint(0, nb, (n, 10)).astype(np.uint8))
     work = seeded_work(rng, bins, dev)
-    table = torch.as_tensor(rng.rand(nb) < 0.45).to(dev)
-    none = torch.zeros(nb, dtype=torch.bool, device=dev)
+    tables = _tables(rng, nb, dev)
     errs = {}
-    for name, seg, tbl in (
-            ("partition/unaligned", [0, 128 + 13, 7001, 3], table),
-            ("partition/whole", [0, 128, n, 0], table),
-            ("partition/under_one_block", [0, 128 + 4095, 300, 5], table),
-            ("partition/empty_left", [0, 128 + 100, 777, 2], none),
-            ("partition/empty_right", [0, 128 + 100, 777, 2], ~none),
-            ("partition/one_row", [0, 128 + 8999, 1, 9], table)):
-        errs[name] = check_partition(name, work, seg, tbl)
+    for name, seg, tbl in PART_CASES:
+        key = "partition/" + name
+        errs[key] = check_partition(key, work, seg, tables[tbl])
     for exact in (True, False):
-        mode = "hilo" if exact else "bf16"
-        for name, seg in (("whole", [0, 128, n]),
-                          ("unaligned", [0, 128 + 13, 7001]),
-                          ("one_row", [0, 128 + 77, 1]),
-                          ("empty", [0, 128 + 5, 0])):
-            key = "histogram/%s/%s" % (mode, name)
+        for name, seg in HIST_CASES:
+            key = "histogram/%s/%s" % ("hilo" if exact else "bf16", name)
             errs[key] = check_histogram(key, work, seg, nb, 10, exact)
+    return errs
+
+
+def _tables(rng, nb, dev):
+    import torch
+    none = torch.zeros(nb, dtype=torch.bool, device=dev)
+    return {"table": torch.as_tensor(rng.rand(nb) < 0.45).to(dev),
+            "none": none, "all": ~none}
+
+
+def phase_rows_kernels(dev, rng):
+    """The rows partition, the rows histogram and the int8 histogram,
+    kernel vs plain, small cases: W = F + 12 and F + 3, F = 27 (its f32
+    words start unaligned) and 28."""
+    import numpy as np
+    import torch
+
+    n, nb = 9000, 64
+    tables = _tables(rng, nb, dev)
+    errs = {}
+    for F, quantized in ((27, False), (28, True), (27, True)):
+        bins = torch.as_tensor(rng.randint(0, nb, (n, F)).astype(np.uint8))
+        work, scale = seeded_rows_work(rng, bins, dev, quantized)
+        tag = "w%d" % work.shape[2]
+        for name, seg, tbl in PART_CASES:
+            key = "partition_rows/%s/%s" % (tag, name)
+            errs[key] = check_partition(key, work, seg, tables[tbl],
+                                        rows=True)
+        if quantized:
+            for name, seg in HIST_CASES:
+                key = "histogram_q/%s/%s" % (tag, name)
+                errs[key] = check_histogram_q(key, work, seg, nb, F, scale)
+            continue
+        for exact in (True, False):
+            for name, seg in HIST_CASES:
+                key = "histogram_rows/%s/%s/%s" % (
+                    tag, "hilo" if exact else "bf16", name)
+                errs[key] = check_histogram(key, work, seg, nb, F, exact,
+                                            rows=True)
     return errs
 
 
@@ -461,44 +602,58 @@ def training_data(seed, train_rows, valid_rows):
     return X[:train_rows], y[:train_rows], X[train_rows:], y[train_rows:]
 
 
-def train_params(dev, leaves):
+def train_params(dev, leaves, extra=None):
     return dict(TRAIN_PARAMS, num_leaves=leaves, device_type=dev.type,
-                metric=["auc", "binary_logloss"])
+                metric=["auc", "binary_logloss"], **(extra or {}))
 
 
-def phase_train(dev, data, trees, leaves):
+def build_datasets(dev, data, leaves, extra=None):
+    """The binned (train, valid) Datasets of a training phase (``train``
+    re-bins a Dataset built with other params, so each phase builds its
+    own)."""
+    import lightgbm_tpu_torch as lgt
+    X, y, Xv, yv = data
+    t0 = time.perf_counter()
+    train = lgt.Dataset(X, label=y, params=train_params(dev, leaves, extra))
+    train.construct()
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    log("train: binned %d + %d rows on the host in %.1f s"
+        % (len(X), len(Xv), time.perf_counter() - t0))
+    return train, valid
+
+
+def phase_train(dev, datasets, trees, leaves, extra=None):
     """The training path: ``lightgbm_tpu_torch.train`` at full width with a
-    valid set; every tree's segment counts checked against the router and
-    the histograms. Returns (booster, train Dataset, launch counts,
+    valid set, ``extra`` params on TRAIN_PARAMS; every tree's segment
+    counts checked against the router (all rows) and its histograms' count
+    channel against the in-bag rows. Returns (booster, launch counts,
     summary dict)."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import kernels
 
-    X, y, Xv, yv = data
-    params = train_params(dev, leaves)
-    t0 = time.perf_counter()
-    train = lgt.Dataset(X, label=y, params=params)
-    train.construct()
-    valid = lgt.Dataset(Xv, label=yv, reference=train)
-    valid.construct()
-    log("train: binned %d + %d rows on the host in %.1f s"
-        % (len(X), len(Xv), time.perf_counter() - t0))
-    n = len(X)
+    train, valid = datasets
+    params = train_params(dev, leaves, extra)
+    n = len(train.label)
     checked = []
 
     def check_tree(env):
-        st = env.model.inner.learner.last_stats
+        g = env.model.inner
+        st = g.learner.last_stats
         ns = st["num_splits"]
         cnt = st["leaf_cnt"][:ns + 1].long()
-        routed = torch.bincount(st["row_leaf"].long(), minlength=ns + 1)
-        hist = st["hist_cnt"][:ns + 1]
+        leaf = st["row_leaf"].long()
+        routed = torch.bincount(leaf, minlength=ns + 1)
+        inbag = torch.bincount(leaf, weights=g._inbag.double(),
+                               minlength=ns + 1)
+        hist = st["hist_cnt"][:ns + 1].double()
         if int(cnt.sum()) != n or not torch.equal(cnt, routed[:ns + 1]) \
-                or not torch.equal(cnt.to(torch.float32), hist):
+                or not torch.equal(hist, inbag[:ns + 1]):
             raise AssertionError("tree %d: leaf segment counts disagree "
-                                 "with the router or the histograms"
-                                 % env.iteration)
+                                 "with the router or the histograms' "
+                                 "in-bag counts" % env.iteration)
         checked.append(ns)
 
     evals = {}
@@ -522,30 +677,33 @@ def phase_train(dev, data, trees, leaves):
     summary = dict(trees=trees, splits=int(sum(checked)), wall_s=wall,
                    wall_per_tree_ms=wall / trees * 1e3, valid_auc=auc,
                    valid_logloss=ll,
-                   kernel_ms_per_tree={k: v / trees for k, v in dev_ms.items()})
-    log("train: %d trees x %d leaves on %d rows in %.2f s (%.1f ms/tree), "
-        "%d splits; valid auc %.5f logloss %.5f; launches %s"
-        % (trees, leaves, n, wall, summary["wall_per_tree_ms"],
-           summary["splits"], auc, ll, counts))
+                   layout=bst.inner.learner._kw["work_layout"],
+                   kernel_ms_per_tree={k: v / trees for k, v in dev_ms.items()
+                                       if v})
+    log("train %s: %d trees x %d leaves on %d rows (%s layout) in %.2f s "
+        "(%.1f ms/tree), %d splits; valid auc %.5f logloss %.5f; "
+        "launches %s" % (json.dumps(extra or {}), trees, leaves, n,
+                         summary["layout"], wall, summary["wall_per_tree_ms"],
+                         summary["splits"], auc, ll, counts))
     if dev_ms:
         log("train: device ms per tree %s" % ", ".join(
             "%s %.3f" % kv for kv in summary["kernel_ms_per_tree"].items()))
-    return bst, train, counts, summary
+    return bst, counts, summary
 
 
-def check_determinism(dev, train, leaves, iters=3):
+def check_determinism(dev, train, leaves, iters=3, extra=None):
     """Two card runs of ``iters`` iterations: byte-equal model strings."""
     import lightgbm_tpu_torch as lgt
-    params = train_params(dev, leaves)
+    params = train_params(dev, leaves, extra)
     a = lgt.train(params, train, iters).model_to_string()
     b = lgt.train(params, train, iters).model_to_string()
     if a != b:
         raise AssertionError("two runs gave different model strings")
-    log("determinism: %d iterations twice, model strings byte-equal "
-        "(%d bytes)" % (iters, len(a)))
+    log("determinism %s: %d iterations twice, model strings byte-equal "
+        "(%d bytes)" % (json.dumps(extra or {}), iters, len(a)))
 
 
-def profile_iteration(dev, train, leaves):
+def profile_iteration(dev, train, leaves, extra=None):
     """One boosting iteration (after a warm-up one) under torch.profiler:
     device time by kernel name and the device's busy share of the wall.
     Returns a dict; kernel times are None when the profiler saw no device
@@ -554,7 +712,7 @@ def profile_iteration(dev, train, leaves):
     import lightgbm_tpu_torch as lgt
     from torch.profiler import ProfilerActivity, profile
 
-    bst = lgt.Booster(train_params(dev, leaves), train)
+    bst = lgt.Booster(train_params(dev, leaves, extra), train)
     bst.update()
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -576,21 +734,24 @@ def profile_iteration(dev, train, leaves):
             if not k.startswith("cuda") and not k.startswith("aten::")}
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-    log("profile: one iteration, wall %.1f ms, device busy %.1f ms (%.1f%%)"
-        "; top kernels %s" % (wall_ms, busy, 100.0 * busy / wall_ms,
+    log("profile %s: one iteration, wall %.1f ms, device busy %.1f ms "
+        "(%.1f%%); top kernels %s" % (json.dumps(extra or {}), wall_ms, busy,
+                                      100.0 * busy / wall_ms,
                               ", ".join("%s %.2f" % kv for kv in top)))
     return dict(wall_ms=wall_ms, device_busy_ms=busy if kern else None,
                 top=top)
 
 
-def card_vs_host(dev, data, rows, leaves, iters=3):
+def card_vs_host(dev, data, rows, leaves, iters=3, extra=None,
+                 first_tree_equal=False):
     """The same small training on the card and on the host (plain twins):
-    splits that agree, and train logloss within LOGLOSS_TOL."""
+    splits that agree (every split of the first tree when
+    ``first_tree_equal``), and train logloss within LOGLOSS_TOL."""
     import lightgbm_tpu_torch as lgt
     X, y = data[0][:rows], data[1][:rows]
     out = {}
     for name, d in (("card", dev.type), ("host", "cpu")):
-        params = dict(train_params(dev, leaves), device_type=d,
+        params = dict(train_params(dev, leaves, extra), device_type=d,
                       metric=["binary_logloss"])
         ds = lgt.Dataset(X, label=y, params=params)
         t0 = time.perf_counter()
@@ -599,23 +760,60 @@ def card_vs_host(dev, data, rows, leaves, iters=3):
                      bst.eval_train()[0][2])
     (ca, ta, la), (ho, th, lh) = out["card"], out["host"]
     agree = total = 0
+    first = None
     for a, b in zip(ca.inner.models, ho.inner.models):
         k = max(a.num_internal, b.num_internal)
         total += k
+        same = 0
         for r in range(min(a.num_internal, b.num_internal)):
             if (a.split_feature[r], a.threshold[r]) != \
                     (b.split_feature[r], b.threshold[r]):
                 break
-            agree += 1
-    log("card vs host: %d rows x %d iterations; %d of %d splits agree "
-        "(in order, up to the first difference per tree); train logloss "
-        "card %.7f host %.7f; card %.1f s, host %.1f s"
-        % (rows, iters, agree, total, la, lh, ta, th))
+            same += 1
+        agree += same
+        if first is None:
+            first = (same, k)
+    log("card vs host %s: %d rows x %d iterations; %d of %d splits agree "
+        "(in order, up to the first difference per tree; first tree %d of "
+        "%d); train logloss card %.7f host %.7f; card %.1f s, host %.1f s"
+        % (json.dumps(extra or {}), rows, iters, agree, total, first[0],
+           first[1], la, lh, ta, th))
     if abs(la - lh) > LOGLOSS_TOL:
         raise AssertionError("train logloss card %.6f vs host %.6f"
                              % (la, lh))
-    return dict(splits_agree=agree, splits=total, logloss_card=la,
-                logloss_host=lh)
+    if first_tree_equal and first[0] != first[1]:
+        raise AssertionError("first tree: %d of %d splits agree" % first)
+    return dict(splits_agree=agree, splits=total, first_tree=first,
+                logloss_card=la, logloss_host=lh)
+
+
+def rows_vs_planes(dev, data, rows, leaves, iters=3):
+    """Unquantized training on the rows layout against the planes layout
+    on the card: byte-equal model strings (the two layouts hold the same
+    rows in the same order and their histogram kernels share one body).
+    Launch counts are zeroed before the rows run and read after it."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = data[0][:rows], data[1][:rows]
+    ds = lgt.Dataset(X, label=y, params=train_params(dev, leaves))
+    planes = lgt.train(train_params(dev, leaves), ds, iters)
+    sync(dev)
+    kernels.reset_launch_counts()
+    rows_bst = lgt.train(train_params(dev, leaves,
+                                      {"tpu_work_layout": "rows"}), ds, iters)
+    sync(dev)
+    counts = kernels.launch_counts()
+    a, b = planes.model_to_string(), rows_bst.model_to_string()
+    log("rows vs planes: %d rows x %d iterations, model strings %s (%d "
+        "bytes); rows launches %s" % (rows, iters,
+                                      "byte-equal" if a == b else "DIFFER",
+                                      len(a), counts))
+    if a != b:
+        raise AssertionError("rows and planes layouts grew different models")
+    for name in ("partition_segment_rows", "segment_histogram_rows"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError("the rows run never launched %s" % name)
+    return counts
 
 
 def full_width_segment_kernels(bst, dev, errs):
@@ -686,6 +884,107 @@ def full_width_segment_kernels(bst, dev, errs):
     log("full width: partition %.4f ms (twin %.2f), histogram %.4f ms "
         "(twin %.2f, index_add_ %.4f) over %d rows x %d columns"
         % (p_ms, pp_ms, h_ms, hp_ms, l_ms, n, F))
+    return rows
+
+
+def full_width_rows_kernels(bst, dev, errs, timed=True):
+    """The rows partition, the rows histogram and the int8 histogram vs
+    their twins at the quantized training's shapes: the root segment of
+    all rows, packed as that training packs it (int8, W = F + 3) and,
+    for the rows histogram, unquantized (W = F + 12); the partition with
+    the trained first tree's root split. Then, when ``timed`` (on the
+    card), each kernel's ms, twin ms, library ms and bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.prng import PRNGKey, fold_in
+
+    g = bst.inner
+    lrn = g.learner
+    bins = lrn.bins
+    n, F = bins.shape
+    B = lrn.num_bin_hist
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    m = g._inbag
+    ghc = torch.stack([grad * m, hess * m, m], dim=1)
+    guard, _ = P.work_spec(F, True)
+    qwork = P.work_buffer(n, F, "rows", True, dev)
+    scales = P.quantize_scales(ghc)
+    scale = H.dequant_scale(scales)
+    qwork[0, guard:guard + n] = P.pack_rows_quantized(
+        bins, ghc, fold_in(PRNGKey(0), 987123), scales,
+        offset=lrn._kw["dither_offset"])
+    fwork = P.work_buffer(n, F, "rows", False, dev)
+    fwork[0, guard:guard + n] = P.pack_rows(bins, ghc)
+    t0 = g.models[0]
+    feat = g.train_set.inner_feature_index(int(t0.split_feature[0]))
+    table = torch.arange(B, device=dev) <= int(t0.split_bin[0])
+    seg = [0, guard, n, feat]
+    errs["partition_rows/full_width"] = check_partition(
+        "partition_rows/full_width", qwork, seg, table, rows=True)
+    errs["histogram_q/full_width"] = check_histogram_q(
+        "histogram_q/full_width", qwork, seg[:3], B, F, scale)
+    errs["histogram_rows/full_width"] = check_histogram(
+        "histogram_rows/full_width", fwork, seg[:3], B, F, True, rows=True)
+    if not timed:
+        return {}
+    sg4 = torch.tensor(seg, dtype=torch.int32, device=dev)
+    sg3 = sg4[:3].contiguous()
+    p_ms = cuda_ms(lambda: P.partition_segment_rows(qwork, sg4, table, n))
+    pp_ms = cuda_ms(lambda: P.partition_segment_rows_plain(qwork, sg4, table),
+                    iters=3, warmup=1)
+    h_ms = cuda_ms(lambda: H.segment_histogram_rows(
+        fwork, sg3, num_bins=B, num_feat=F, cnt_bound=n))
+    hp_ms = cuda_ms(lambda: H.segment_histogram_rows_plain(
+        fwork, sg3, num_bins=B, num_feat=F), iters=3, warmup=1)
+    q_ms = cuda_ms(lambda: H.segment_histogram_q(
+        qwork, sg3, scale, num_bins=B, num_feat=F, cnt_bound=n))
+    qp_ms = cuda_ms(lambda: H.segment_histogram_q_plain(
+        qwork, sg3, scale, num_bins=B, num_feat=F), iters=3, warmup=1)
+    # library yardsticks: one index_add_ over precomputed flat (f*B + bin)
+    # indices with the rows' channels repeated per feature, f32 (g, h, cnt)
+    # for the rows histogram, the int8 bytes as int32 for the int8 one
+    idx = (bins.long() + torch.arange(F, device=dev) * B).t().reshape(-1)
+    vals = ghc.repeat(F, 1)
+    out = torch.zeros((F * B, 3), device=dev)
+    l_ms = cuda_ms(lambda: out.zero_().index_add_(0, idx, vals))
+    gq, hq, cq = P.unpack_ghq(qwork[0, guard:guard + n], F)
+    qvals = torch.stack([gq.int(), hq.int(), cq.int()], dim=1).repeat(F, 1)
+    qout = torch.zeros((F * B, 3), dtype=torch.int32, device=dev)
+    lq_ms = cuda_ms(lambda: qout.zero_().index_add_(0, idx, qvals))
+    inbag = int(m.sum())
+    W = qwork.shape[2]
+
+    def err(prefix):
+        return max(v for k, v in errs.items() if k.startswith(prefix))
+
+    rows = {
+        "partition_segment_rows": dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/partition_segment.cu",
+            replaces="lightgbm_tpu/ops/partition.py:908",
+            max_abs_err=err("partition_rows/"), ms=p_ms, plain_ms=pp_ms,
+            library_ms=None, bytes=2 * W * n, ops=n),
+        "segment_histogram_rows": dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
+            replaces="lightgbm_tpu/ops/histogram.py:385",
+            max_abs_err=err("histogram_rows/"), ms=h_ms, plain_ms=hp_ms,
+            library_ms=l_ms, bytes=(F + 12) * n + F * B * 3 * 4,
+            ops=n * F * 5),
+        "segment_histogram_q": dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/segment_histogram_q.cu",
+            replaces="lightgbm_tpu/ops/histogram.py:891",
+            max_abs_err=err("histogram_q/"), ms=q_ms, plain_ms=qp_ms,
+            library_ms=lq_ms, bytes=(F + 3) * n + F * B * 3 * 4,
+            ops=inbag * F * 3),
+    }
+    log("full width rows: partition %.4f ms (twin %.2f) at W = %d, rows "
+        "histogram %.4f ms (twin %.2f, index_add_ %.4f), int8 histogram "
+        "%.4f ms (twin %.2f, int32 index_add_ %.4f) over %d rows x %d "
+        "columns, %d in bag" % (p_ms, pp_ms, W, h_ms, hp_ms, l_ms, q_ms,
+                                qp_ms, lq_ms, n, F, inbag))
     return rows
 
 
@@ -869,7 +1168,7 @@ def phase_timings(bst, out, dev, errs, rows):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--trees", type=int, default=100)
+    ap.add_argument("--trees", type=int, default=40)
     ap.add_argument("--leaves", type=int, default=255)
     ap.add_argument("--train-rows", type=int, default=TRAIN_ROWS)
     ap.add_argument("--valid-rows", type=int, default=VALID_ROWS)
@@ -917,31 +1216,66 @@ def main(argv=None):
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
-    log("== phase 3: full-width training (%s)" % card)
+    log("== phase 3: full-width training, planes layout (%s)" % card)
     data = training_data(args.seed, args.train_rows, args.valid_rows)
-    bst, train, train_counts, summary = phase_train(dev, data, args.trees,
-                                                    args.leaves)
+    planes_ds = build_datasets(dev, data, args.leaves)
+    bst_p, counts_p, summary_p = phase_train(dev, planes_ds, args.trees,
+                                             args.leaves)
     for name in ("partition_segment", "segment_histogram", "route_rows"):
-        if train_counts.get(name, 0) <= 0:
-            raise AssertionError("training never launched %s" % name)
-    rows = full_width_segment_kernels(bst, dev, errs)
-    check_determinism(dev, train, args.leaves)
-    summary["profile"] = profile_iteration(dev, train, args.leaves)
-    summary["card_vs_host"] = card_vs_host(dev, data, args.host_rows,
-                                           args.leaves)
+        if counts_p.get(name, 0) <= 0:
+            raise AssertionError("planes training never launched %s" % name)
+    rows = full_width_segment_kernels(bst_p, dev, errs)
+    check_determinism(dev, planes_ds[0], args.leaves)
+    summary_p["profile"] = profile_iteration(dev, planes_ds[0], args.leaves)
+    summary_p["card_vs_host"] = card_vs_host(dev, data, args.host_rows,
+                                             args.leaves)
 
-    log("== phase 4: serving the trained model")
+    log("== phase 4: full-width quantized, sampled training (%s)" % card)
+    quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
+    bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
+                                             args.leaves, QUANT_PARAMS)
+    if summary_q["layout"] != "rows":
+        raise AssertionError("quantized training ran on the %s layout"
+                             % summary_q["layout"])
+    for name in ("partition_segment_rows", "segment_histogram_q",
+                 "route_rows"):
+        if counts_q.get(name, 0) <= 0:
+            raise AssertionError("quantized training never launched %s"
+                                 % name)
+    rows.update(full_width_rows_kernels(bst_q, dev, errs))
+    check_determinism(dev, quant_ds[0], args.leaves, extra=QUANT_PARAMS)
+    summary_q["profile"] = profile_iteration(dev, quant_ds[0], args.leaves,
+                                             QUANT_PARAMS)
+    summary_q["card_vs_host"] = card_vs_host(
+        dev, data, args.host_rows, args.leaves, extra=QUANT_PARAMS,
+        first_tree_equal=True)
+    gap = abs(summary_q["valid_auc"] - summary_p["valid_auc"])
+    log("valid auc after %d trees: planes %.5f, quantized and sampled %.5f "
+        "(|diff| %.5f, limit %.2f)" % (args.trees, summary_p["valid_auc"],
+                                       summary_q["valid_auc"], gap, AUC_TOL))
+    if gap > AUC_TOL:
+        raise AssertionError("quantized valid auc %.5f vs planes %.5f"
+                             % (summary_q["valid_auc"],
+                                summary_p["valid_auc"]))
+
+    log("== phase 5: rows layout and GOSS, short runs (%s)" % card)
+    counts_r = rows_vs_planes(dev, data, args.host_rows, args.leaves)
+    summary_q["goss_card_vs_host"] = card_vs_host(
+        dev, data, args.host_rows, args.leaves, iters=4, extra=GOSS_PARAMS)
+
+    log("== phase 6: serving the quantized model")
     import numpy as np
     rng = np.random.RandomState(args.seed + 7)
-    g = bst.inner
+    g = bst_q.inner
     log("model: %d trees x %d leaves, %d features, device %s"
         % (len(g.models), args.leaves, g.train_set.num_total_features,
            g.device))
-    out, serve_counts = phase_serve(bst, train, rng, args.binned_rows)
+    out, serve_counts = phase_serve(bst_q, quant_ds[0], rng,
+                                    args.binned_rows)
     for name in ("forest_predict", "route_rows"):
         if serve_counts.get(name, 0) <= 0:
             raise AssertionError("serving never launched %s" % name)
-    serve_errs = check_serve(bst, out)
+    serve_errs = check_serve(bst_q, out)
     for name, e in serve_errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
     fp, has_cat, has_lin = g._forest_model(0, len(g.models))
@@ -953,15 +1287,20 @@ def main(argv=None):
         forest.forest_predict_plain(bins, None, fp).cpu().numpy())
     log("check forest/full_width: max |diff| %.3g" % errs["forest/full_width"])
 
-    log("== phase 5: timings (%s)" % card)
-    rows = phase_timings(bst, out, dev, errs, rows)
-    launches = {"partition_segment": train_counts["partition_segment"],
-                "segment_histogram": train_counts["segment_histogram"],
-                "route_rows": train_counts["route_rows"]
+    log("== phase 7: timings (%s)" % card)
+    rows = phase_timings(bst_q, out, dev, errs, rows)
+    launches = {"partition_segment": counts_p["partition_segment"],
+                "segment_histogram": counts_p["segment_histogram"],
+                "partition_segment_rows": counts_q["partition_segment_rows"],
+                "segment_histogram_q": counts_q["segment_histogram_q"],
+                "segment_histogram_rows": counts_r["segment_histogram_rows"],
+                "route_rows": counts_p["route_rows"] + counts_q["route_rows"]
                 + serve_counts["route_rows"],
                 "forest_predict": serve_counts["forest_predict"]}
-    log("launches: training %s; serving %s" % (train_counts, serve_counts))
-    log("train summary %s" % json.dumps(summary))
+    log("launches: planes training %s; quantized training %s; rows run %s; "
+        "serving %s" % (counts_p, counts_q, counts_r, serve_counts))
+    log("train summary planes %s" % json.dumps(summary_p))
+    log("train summary quantized %s" % json.dumps(summary_q))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}
     log(card)

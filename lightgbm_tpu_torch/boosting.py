@@ -5,9 +5,10 @@ reference: gbdt.cpp:369 TrainOneIter) runs the objective's gradients, one
 :class:`~lightgbm_tpu_torch.learner.SerialTreeLearner` tree per class and
 device-side score updates for the training set and every valid set, one
 iteration at a time; the fused K-iteration block of the JAX package is
-later work (ROADMAP A9), so ``supports_fused()`` is False. Bagging, GOSS
-and ``feature_fraction < 1`` need the port's threefry sampler (ROADMAP
-A3); DART, RF and linear-tree training wait in A10. Each raises.
+later work (ROADMAP A9), so ``supports_fused()`` is False. Bagging,
+balanced bagging, GOSS and ``feature_fraction < 1`` draw their masks from
+the port's threefry (``fused.py``, ``prng.py``) exactly as the JAX package
+draws them; DART, RF and linear-tree training wait in A10 and raise.
 
 Serving: the model text format (``model_to_string`` /
 ``model_from_string``, byte-compatible with the JAX package), raw-score
@@ -31,11 +32,13 @@ import torch
 from .config import Config
 from .dataset import BinnedDataset
 from .device import resolve_device
+from .fused import make_balanced_sampler, make_feature_mask_fn, make_sampler
 from .learner import (SerialTreeLearner, TreeLog, assign_leaves,
                       leaf_values_by_row, route_layout)
 from .metric import Metric, create_metrics
 from .objective import ObjectiveFunction, create_objective
 from .obs import telemetry
+from .prng import PRNGKey, fold_in
 from .tree import Tree
 from .utils.log import LightGBMError
 
@@ -114,15 +117,6 @@ class GBDT:
             raise LightGBMError("boosting=%s training is not ported to the "
                                 "PyTorch/CUDA package yet (ROADMAP A10)"
                                 % self.name)
-        if cfg.data_sample_strategy == "goss" or (
-                cfg.bagging_freq > 0 and min(cfg.bagging_fraction,
-                                             cfg.pos_bagging_fraction,
-                                             cfg.neg_bagging_fraction) < 1.0):
-            raise LightGBMError("bagging and GOSS need the port's threefry "
-                                "sampler (ROADMAP A3)")
-        if float(cfg.feature_fraction) < 1.0:
-            raise LightGBMError("feature_fraction < 1 needs the port's "
-                                "threefry sampler (ROADMAP A3)")
         if cfg.linear_tree:
             raise LightGBMError("linear_tree training is not ported to the "
                                 "PyTorch/CUDA package yet (ROADMAP A10)")
@@ -139,8 +133,13 @@ class GBDT:
         self.train_score = self._fresh_tracker(train_set)
         self._inbag = torch.ones(train_set.num_data, dtype=torch.float32,
                                  device=self.device)
+        self._amp: Optional[torch.Tensor] = None
         self._fmask = torch.ones(train_set.num_features, dtype=torch.bool,
                                  device=self.device)
+        self._key = PRNGKey(cfg.seed if cfg.seed is not None else 0)
+        self._sampler = self._make_sampler()
+        self._fmask_fn = make_feature_mask_fn(cfg, train_set.num_features,
+                                              self.device)
 
     def _fresh_tracker(self, ds: BinnedDataset) -> "ScoreTracker":
         """Scores at the init scores plus the dataset's own init_score."""
@@ -163,18 +162,53 @@ class GBDT:
                    self.num_tree_per_iteration)
         self.valid_sets.append((name, valid_set, vs))
 
+    # --------------------------------------------------------------- sampling
+    def _make_sampler(self):
+        """The row sampler of this config, or None (the JAX package's
+        choice: GOSS first, then balanced bagging when a positive or
+        negative fraction is set and labels exist, else plain bagging)."""
+        cfg = self.config
+        lab = self.objective.label if self.objective is not None else None
+        if lab is None and self.train_set.metadata.label is not None:
+            # custom objectives (objective=none) still bag by label
+            lab = torch.as_tensor(np.asarray(self.train_set.metadata.label,
+                                             np.float32)).to(self.device)
+        if cfg.data_sample_strategy != "goss" \
+                and (cfg.pos_bagging_fraction < 1.0
+                     or cfg.neg_bagging_fraction < 1.0) \
+                and cfg.bagging_freq > 0 and lab is not None:
+            return make_balanced_sampler(cfg, lab)
+        return make_sampler(cfg, self.train_set.num_data)
+
+    def _bagging(self, it: int, grad: torch.Tensor,
+                 hess: torch.Tensor) -> None:
+        """Refresh the in-bag mask (reference: gbdt.cpp:228 Bagging,
+        goss.hpp:103 for data_sample_strategy=goss); GOSS also keeps its
+        amplification of the sampled small-gradient rows."""
+        if self._sampler is None:
+            return
+        g = grad if grad.dim() == 1 else torch.sum(torch.abs(grad), dim=1)
+        h = hess if hess.dim() == 1 else torch.sum(torch.abs(hess), dim=1)
+        self._inbag, amp = self._sampler(it, g, h)
+        if self.config.data_sample_strategy == "goss":
+            self._amp = amp
+
     def _tree_channels(self, grad: torch.Tensor, hess: torch.Tensor,
                        k: int) -> torch.Tensor:
-        """(N, 3) (grad, hess, inbag) channels of class ``k``; without
-        bagging every row is in bag."""
+        """(N, 3) channels ``(g * m, h * m, m)`` of class ``k`` for the
+        in-bag mask m, with GOSS's amplification folded into g and h."""
         g = grad if grad.dim() == 1 else grad[:, k]
         h = hess if hess.dim() == 1 else hess[:, k]
-        return torch.stack([g, h, self._inbag], dim=1)
+        if self._amp is not None:
+            g, h = g * self._amp, h * self._amp
+        m = self._inbag
+        return torch.stack([g * m, h * m, m], dim=1)
 
     def _feature_mask(self, it: int) -> torch.Tensor:
-        """Per-tree column sample: all features (feature_fraction < 1 is
-        refused in _setup until the threefry sampler lands)."""
-        return self._fmask
+        """Per-tree column sample (all features without feature_fraction)."""
+        if self._fmask_fn is None:
+            return self._fmask
+        return self._fmask_fn(it)
 
     def supports_fused(self) -> bool:
         """The fused K-iteration block is ROADMAP A9."""
@@ -194,10 +228,13 @@ class GBDT:
             h = torch.as_tensor(np.asarray(hess, np.float32)).to(self.device)
             if K > 1:
                 g, h = g.reshape(n, K), h.reshape(n, K)
+        self._bagging(it, g, h)
         fmask = self._feature_mask(it)
         any_nonconstant = False
         for k in range(K):
-            log = self.learner.train(self._tree_channels(g, h, k), fmask)
+            key = fold_in(self._key, it * 131 + k)
+            log = self.learner.train(self._tree_channels(g, h, k), fmask,
+                                     key)
             tree = self._finalize_tree(log, k)
             with self._cache_lock:
                 self.models.append(tree)
@@ -206,7 +243,9 @@ class GBDT:
             telemetry.count("tree/splits", splits)
             telemetry.count("tree/leaves", tree.num_leaves)
             # launches: one partition and one smaller-child histogram per
-            # split, plus the root histogram of the pack
+            # split, plus one root histogram per tree on either layout (the
+            # JAX planes pack folds its root into the pack pass; the
+            # port's pack is a torch copy and the root its own launch)
             telemetry.count("learner/partition_launches", splits)
             telemetry.count("learner/hist_launches", splits + 1)
             telemetry.count("learner/scan_launches", splits)

@@ -1,36 +1,46 @@
-// Stable two-way partition of one leaf's segment of the planes work buffer,
-// for Hopper (sm_90a).
+// Stable two-way partition of one leaf's segment of the work buffer, for
+// Hopper (sm_90a), on both work layouts.
 //
-// Replaces the TPU kernel lightgbm_tpu/ops/partition.py:
+// Replaces the TPU kernels lightgbm_tpu/ops/partition.py:
 // partition_segment_planes_fused (pallas_call "partition_segment_planes_fused",
-// body _partition_planes_kernel). Same data contract: work is a (2, W, Npad)
-// u8 ping-pong pair of byte planes (F bin planes, then g/h/cnt as 12 f32 byte
-// planes); the segment is lanes [start, start + cnt) of plane src; rows whose
-// split-column bin b has table[b] set in the (B,) bool routing table go left
-// (the TPU kernel bit-packs the table into 8 scalar words for its scalar
-// prefetch; here the 256 bytes sit in shared memory). Rows are written into
-// plane 1 - src, left rows first; lanes outside the segment are not touched;
-// lt (the left count) is written to a device int. Unlike the TPU kernel the order is fixed: stable on both sides (left
-// rows ascending from start, right rows ascending from start + lt), so the
-// result equals the plain twin byte for byte.
+// body _partition_planes_kernel; entry point partition_segment) and
+// partition_segment_fused (pallas_call "partition_segment_fused", body
+// _partition_kernel; entry point partition_segment_rows). Same data
+// contract: work is a ping-pong pair of packed rows, each row W bytes (F bin
+// bytes, then g/h/cnt as 12 f32 bytes, or int8 g, int8 h, u8 cnt when
+// quantized), laid out as (2, W, Npad) byte planes (planes) or (2, Npad, W)
+// rows (rows); the segment is rows [start, start + cnt) of buffer src; rows
+// whose split-column bin b has table[b] set in the (B,) bool routing table
+// go left (the TPU kernels bit-pack the table into 8 scalar words for their
+// scalar prefetch; here the 256 bytes sit in shared memory). Rows are
+// written into buffer 1 - src, left rows first; rows outside the segment
+// are not touched; lt (the left count) is written to a device int. Unlike
+// the TPU kernels the order is fixed: stable on both sides (left rows
+// ascending from start, right rows ascending from start + lt), so the
+// result equals the plain twin byte for byte, and the two layouts hold the
+// same rows in the same order.
 //
 // What bounds it on this card: bytes. Each row is read once (W bytes, plus
 // the split column once more for the count) and written once (W bytes): 80 B
-// per row at W = 40, 160 MB for the 2M-row root split, ~0.05 ms at 3.35 TB/s.
-// There is no arithmetic to speak of.
+// per row at W = 40, 160 MB for the 2M-row root split, ~0.05 ms at 3.35 TB/s;
+// 62 B per row quantized (W = 31). There is no arithmetic to speak of.
 //
 // Design: three launches on one stream, no atomics on positions, so the
 // result is deterministic.
-//   1. count: one block per 4096-lane tile; each warp ballots the go-left
-//      bits of its 512 lanes, 32 at a time; the block's left count goes to
+//   1. count: one block per 4096-row tile; each warp ballots the go-left
+//      bits of its 512 rows, 32 at a time; the block's left count goes to
 //      scratch[block].
 //   2. scan: one block turns the per-tile counts into exclusive offsets and
 //      writes lt (the total).
-//   3. scatter: each block recomputes its warps' ballots (kept in registers),
-//      ranks each lane by popc of the ballot below it, and copies the row's
-//      W bytes plane by plane. A warp reads 32 consecutive bytes of a plane
-//      per step and writes its left lanes, and its right lanes, to
-//      consecutive bytes: both sides stay coalesced.
+//   3. scatter: each block recomputes its warps' ballots (kept in
+//      registers) and ranks each row by popc of the ballot below it.
+//      Planes: each lane copies its row's W bytes plane by plane; a warp
+//      reads 32 consecutive bytes of a plane per step and writes its left
+//      lanes, and its right lanes, to consecutive bytes. Rows: the warp's
+//      32 source rows are 32 * W consecutive bytes; lane l copies bytes l,
+//      l + 32, ... of that span to their row's destination (fetched from
+//      the owning lane by a shuffle), so reads are coalesced and writes
+//      land in the two runs of consecutive destination rows.
 // start, cnt, feat and src are read from a device array, so the host never
 // waits on the card to launch; the grid is sized by a host upper bound of
 // cnt and tiles past the segment do nothing.
@@ -45,9 +55,19 @@ constexpr int kSteps = 16;                      // 32-lane steps per warp
 constexpr int kTile = kWarps * kSteps * 32;     // 4096 lanes per block
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool goes_left(const uint8_t* col, long lane,
+// Byte `feat` of row `row` of one buffer: planes hold byte w of row i at
+// w * npad + i, rows at i * W + w.
+template <bool kRows>
+__device__ __forceinline__ uint8_t bin_at(const uint8_t* buf, int W, int npad,
+                                          int feat, long row) {
+  return kRows ? buf[row * W + feat] : buf[(size_t)feat * npad + row];
+}
+
+template <bool kRows>
+__device__ __forceinline__ bool goes_left(const uint8_t* buf, int W, int npad,
+                                          int feat, long row,
                                           const uint8_t* tbl) {
-  return tbl[col[lane]] != 0;
+  return tbl[bin_at<kRows>(buf, W, npad, feat, row)] != 0;
 }
 
 // The (B,) table into shared memory; bins past B route right.
@@ -59,6 +79,7 @@ __device__ __forceinline__ void load_table(uint8_t* s_tbl,
   __syncthreads();
 }
 
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint8_t* __restrict__ work, int W, int npad,
              const int* __restrict__ seg, const uint8_t* __restrict__ table,
@@ -67,13 +88,14 @@ count_kernel(const uint8_t* __restrict__ work, int W, int npad,
   __shared__ int s_warp[kWarps];
   load_table(s_tbl, table, nbins);
   const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
-  const uint8_t* col = work + ((size_t)src * W + feat) * npad;
+  const uint8_t* buf = work + (size_t)src * W * npad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long base = (long)blockIdx.x * kTile + warp * (kSteps * 32);
   int n = 0;
   for (int s = 0; s < kSteps; ++s) {
     const long i = base + s * 32 + lane;
-    const bool g = i < cnt && goes_left(col, start + i, s_tbl);
+    const bool g = i < cnt &&
+                   goes_left<kRows>(buf, W, npad, feat, start + i, s_tbl);
     n += __popc(__ballot_sync(kFull, g));
   }
   if (lane == 0) s_warp[warp] = n;
@@ -108,6 +130,7 @@ scan_kernel(int* __restrict__ counts, int nblocks, int* __restrict__ lt) {
   if (threadIdx.x == 0) *lt = carry;
 }
 
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
                const int* __restrict__ seg, const uint8_t* __restrict__ table,
@@ -120,7 +143,6 @@ scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
   const int lt = *lt_p;
   const uint8_t* srcp = work + (size_t)src * W * npad;
   uint8_t* dstp = work + (size_t)(1 - src) * W * npad;
-  const uint8_t* col = srcp + (size_t)feat * npad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long base = (long)blockIdx.x * kTile + warp * (kSteps * 32);
   unsigned masks[kSteps];
@@ -128,7 +150,8 @@ scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
     const long i = base + s * 32 + lane;
-    const bool g = i < cnt && goes_left(col, start + i, s_tbl);
+    const bool g = i < cnt &&
+                   goes_left<kRows>(srcp, W, npad, feat, start + i, s_tbl);
     masks[s] = __ballot_sync(kFull, g);
     n += __popc(masks[s]);
   }
@@ -141,10 +164,21 @@ scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
   for (int s = 0; s < kSteps; ++s) {
     const long i = base + s * 32 + lane;
     const unsigned m = masks[s];
+    const int lb = left_before + __popc(m & below);   // left rows before i
+    long long dst = -1;                               // -1: past the segment
     if (i < cnt) {
-      const int lb = left_before + __popc(m & below);   // left rows before i
-      const long dst = ((m >> lane) & 1u) ? (long)start + lb
-                                          : (long)start + lt + (i - lb);
+      dst = ((m >> lane) & 1u) ? (long long)start + lb
+                               : (long long)start + lt + (i - lb);
+    }
+    if (kRows && base + s * 32 < cnt) {   // warp-uniform test
+      // the warp's 32 source rows are one run of 32 * W bytes
+      const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
+      for (int k = lane; k < 32 * W; k += 32) {
+        const int r = k / W;
+        const long long d = __shfl_sync(kFull, dst, r);
+        if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
+      }
+    } else if (!kRows && dst >= 0) {
       const long from = start + i;
       for (int w = 0; w < W; ++w) {
         dstp[(size_t)w * npad + dst] = srcp[(size_t)w * npad + from];
@@ -152,6 +186,28 @@ scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
     }
     left_before += __popc(m);
   }
+}
+
+template <bool kRows>
+int launch_partition(void* work, int W, int npad, const void* seg,
+                     const void* table, int nbins, void* scratch, void* lt,
+                     int nblocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* w = static_cast<uint8_t*>(work);
+  const int* sg = static_cast<const int*>(seg);
+  const uint8_t* tb = static_cast<const uint8_t*>(table);
+  int* counts = static_cast<int*>(scratch);
+  int* ltp = static_cast<int*>(lt);
+  count_kernel<kRows><<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb, nbins,
+                                                   counts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  scan_kernel<<<1, 1024, 0, s>>>(counts, nblocks, ltp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  scatter_kernel<kRows><<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb,
+                                                     nbins, counts, ltp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -162,25 +218,20 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Planes layout: work is (2, W, npad).
 int partition_segment(void* work, int W, int npad, const void* seg,
                       const void* table, int nbins, void* scratch, void* lt,
                       int nblocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint8_t* w = static_cast<uint8_t*>(work);
-  const int* sg = static_cast<const int*>(seg);
-  const uint8_t* tb = static_cast<const uint8_t*>(table);
-  int* counts = static_cast<int*>(scratch);
-  int* ltp = static_cast<int*>(lt);
-  count_kernel<<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb, nbins,
-                                            counts);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  scan_kernel<<<1, 1024, 0, s>>>(counts, nblocks, ltp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  scatter_kernel<<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb, nbins,
-                                              counts, ltp);
-  return static_cast<int>(cudaGetLastError());
+  return launch_partition<false>(work, W, npad, seg, table, nbins, scratch,
+                                 lt, nblocks, stream);
+}
+
+// Rows layout: work is (2, npad, W).
+int partition_segment_rows(void* work, int W, int npad, const void* seg,
+                           const void* table, int nbins, void* scratch,
+                           void* lt, int nblocks, void* stream) {
+  return launch_partition<true>(work, W, npad, seg, table, nbins, scratch,
+                                lt, nblocks, stream);
 }
 
 }  // extern "C"

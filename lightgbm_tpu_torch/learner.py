@@ -1,11 +1,13 @@
 """Leaf-wise tree growth and binned-row routing (PyTorch port of
 ``lightgbm_tpu/learner.py``).
 
-:func:`build_tree_partitioned` grows one tree on the planes work layout,
-the JAX package's ``tpu_work_layout=planes`` path: per split, a stable
-partition of the parent's rows (``ops/partition.partition_segment``, the
-CUDA kernel on the card), a histogram of the smaller child's contiguous
-segment (``ops/histogram.segment_histogram``) with the sibling as parent
+:func:`build_tree_partitioned` grows one tree on the planes or the rows
+work layout (the JAX package's ``tpu_work_layout``): per split, a stable
+partition of the parent's rows (``ops/partition.partition_segment`` /
+``partition_segment_rows``, CUDA kernels on the card), a histogram of the
+smaller child's contiguous segment (``ops/histogram.segment_histogram`` /
+``segment_histogram_rows``, or ``segment_histogram_q`` for int8 quantized
+gradients, which train on the rows layout only) with the sibling as parent
 minus child, and the split scan over both children
 (``ops/split.find_best_split``). After the tree, :func:`assign_leaves`
 routes every row to its leaf (the ``route_rows`` kernel).
@@ -195,6 +197,9 @@ def build_tree_partitioned(
     num_bin_hist: Optional[int] = None,
     bundle: Optional[Dict[str, torch.Tensor]] = None,
     hist_mode: str = "hilo",
+    work_layout: str = "planes",
+    key=None,
+    dither_offset: int = 0,
     comm: Comm = Comm(),
     bins_t: Optional[torch.Tensor] = None,
     work: Optional[torch.Tensor] = None,
@@ -204,21 +209,31 @@ def build_tree_partitioned(
     contract: serial_tree_learner.cpp:324 FindBestSplits over the smaller
     leaf + histogram subtraction, data_partition.hpp:101 Split).
 
-    ``work`` is a carried (2, W, Npad) u8 buffer (allocated when None);
+    ``work_layout`` is ``planes`` or ``rows``; ``hist_mode`` ``hilo``,
+    ``bf16`` or ``int8`` (rows only: gradients packed as int8 with
+    per-tree scales and a stochastic-rounding dither drawn from
+    ``fold_in(key, 987123)`` at row offset ``dither_offset``, as the JAX
+    builder draws it). ``work`` is a carried ping-pong buffer of the
+    layout's shape (``ops/partition.work_buffer``; allocated when None);
     ``stats``, when given, receives the final per-leaf segment counts
     (``leaf_cnt``) and the count channel of each leaf's histogram
-    (``hist_cnt``), both (num_leaves,) device tensors, the split count and
-    the routed ``row_leaf``.
+    (``hist_cnt``, the in-bag rows), both (num_leaves,) device tensors, the
+    split count and the routed ``row_leaf``.
 
     Kept exactly as the JAX builder has them: the leaf to split is the
     first argmax of the best gains; the smaller child is the one with the
     smaller in-bag count (``left_sum[2] <= right_sum[2]``); the larger
-    child's histogram is parent minus smaller.
+    child's histogram is parent minus smaller; the root sum comes from the
+    unquantized channels.
     """
-    from .ops.histogram import segment_histogram
-    from .ops.partition import (pack_planes_fold_root, partition_segment,
-                                planes_npad, work_spec)
+    from .ops.histogram import (dequant_scale, segment_histogram,
+                                segment_histogram_q, segment_histogram_rows)
+    from .ops.partition import (pack_planes_fold_root, pack_rows,
+                                pack_rows_quantized, partition_segment,
+                                partition_segment_rows, quantize_scales,
+                                work_buffer, work_spec)
     from .ops.split import calc_leaf_output
+    from .prng import fold_in
 
     dev = bins.device
     f32, i32 = torch.float32, torch.int32
@@ -227,10 +242,51 @@ def build_tree_partitioned(
     max_splits = num_leaves - 1
     bm = num_bin_hist if num_bin_hist is not None else num_bin
     exact = hist_mode != "bf16"
-    guard, width = work_spec(num_grp)
+    quantized = hist_mode == "int8"
+    rows_layout = work_layout == "rows"
+    if quantized and not rows_layout:
+        raise ValueError("int8 quantized histograms need the rows work "
+                         "layout (the planes layout has no quantized pack)")
+    if quantized and key is None:
+        raise ValueError("int8 quantized histograms need a key for the "
+                         "stochastic-rounding dither")
+    guard, _ = work_spec(num_grp, quantized)
     if work is None:
-        work = torch.zeros((2, width, planes_npad(n, guard)),
-                           dtype=torch.uint8, device=dev)
+        work = work_buffer(n, num_grp, work_layout, quantized, dev)
+
+    # ---- pack plane 0, root histogram (one launch) ----
+    if rows_layout:
+        part_fn = partition_segment_rows
+        if quantized:
+            # per-tree local scales, dequantized inside the histogram
+            scales = quantize_scales(ghc)
+            scale = dequant_scale(scales)
+            work[0, guard:guard + n] = pack_rows_quantized(
+                bins, ghc, fold_in(key, 987123), scales,
+                offset=dither_offset)
+
+            def hist_fn(seg, cnt_bound):
+                return segment_histogram_q(work, seg, scale, num_bins=bm,
+                                           num_feat=num_grp,
+                                           cnt_bound=cnt_bound)
+        else:
+            work[0, guard:guard + n] = pack_rows(bins, ghc)
+
+            def hist_fn(seg, cnt_bound):
+                return segment_histogram_rows(work, seg, num_bins=bm,
+                                              num_feat=num_grp, exact=exact,
+                                              cnt_bound=cnt_bound)
+        root_hist = hist_fn(torch.tensor([0, guard, n], dtype=i32,
+                                         device=dev), n)
+    else:
+        part_fn = partition_segment
+
+        def hist_fn(seg, cnt_bound):
+            return segment_histogram(work, seg, num_bins=bm,
+                                     num_feat=num_grp, exact=exact,
+                                     cnt_bound=cnt_bound)
+        root_hist = pack_planes_fold_root(work, bins, ghc, guard,
+                                          num_bins=bm, exact=exact)
 
     def feat_view(hg, total_sum):
         """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature
@@ -257,8 +313,7 @@ def build_tree_partitioned(
     best_for = _make_best_for(meta, hp, feature_mask)
 
     # ---- root ----
-    root_hist = comm.hist(pack_planes_fold_root(
-        work, bins, ghc, guard, num_bins=bm, exact=exact))
+    root_hist = comm.hist(root_hist)
     root_sum = comm.root(torch.sum(ghc, dim=0))
     hist_pool = torch.zeros((num_leaves, num_grp, bm, 3), dtype=f32,
                             device=dev)
@@ -324,7 +379,7 @@ def build_tree_partitioned(
 
         # ---- physical partition of the parent's segment ----
         seg = hdr.index_select(0, seg_cols)     # [src, start, cnt, col]
-        lt = partition_segment(work, seg, route_table(i_go, i_feat), cnt)
+        lt = part_fn(work, seg, route_table(i_go, i_feat), cnt)
         new_parity = 1 - parity
         seg_tab[new, 0:1] = lt + start
         seg_tab[new, 1:2] = cnt - lt
@@ -363,9 +418,7 @@ def build_tree_partitioned(
         else:
             hseg[1:2] = lt + start
             hseg[2:3] = cnt - lt
-        hist_small = comm.hist(segment_histogram(
-            work, hseg, num_bins=bm, num_feat=num_grp, exact=exact,
-            cnt_bound=cnt))
+        hist_small = comm.hist(hist_fn(hseg, cnt))
         hist_large = hist_pool[leaf] - hist_small
         hist_left, hist_right = (hist_small, hist_large) if left_smaller \
             else (hist_large, hist_small)
@@ -528,12 +581,16 @@ class SerialTreeLearner:
             and self.num_bin_hist <= 256 and self.bins.dtype == torch.uint8
 
     def build_kwargs(self) -> dict:
-        """Resolve the ``tpu_*`` knobs for the card. ``auto`` takes the
-        planes layout with resident state off, the hand-written kernels
-        (knob value ``pallas``) on a CUDA device and their plain twins
-        (``xla``) on the host; each resolution is recorded with its reason.
-        Settings the port cannot honour raise."""
+        """Resolve the ``tpu_*`` knobs for the card; each ``auto``
+        resolution is recorded with its reason. The work layout: int8
+        quantized gradients (``use_quantized_grad`` or
+        ``tpu_hist_precision=int8``) and ``tpu_hist_mxu=on`` train on the
+        rows layout, everything else on planes; an explicit layout is
+        honoured. The kernels: the hand-written ones (knob value
+        ``pallas``) on a CUDA device, their plain twins (``xla``) on the
+        host. Settings the port cannot honour raise."""
         from .obs import telemetry
+        from .ops.partition import dither_offset
 
         cfg = self.config
         cuda = self.device.type == "cuda"
@@ -543,26 +600,51 @@ class SerialTreeLearner:
                              dedupe_key=(knob, value, reason), knob=knob,
                              configured="auto", value=value, reason=reason)
 
-        if cfg.use_quantized_grad or cfg.tpu_hist_precision == "int8":
-            _refuse("int8 quantized histograms (use_quantized_grad / "
-                    "tpu_hist_precision=int8)", "B6 after A3")
+        mode = "int8" if cfg.use_quantized_grad else cfg.tpu_hist_precision
+        quantized = mode == "int8"
+        mxu = cfg.tpu_hist_mxu
         layout = cfg.tpu_work_layout
-        if layout == "rows":
-            _refuse("tpu_work_layout=rows", "B2/B4")
-        if layout == "auto":
-            layout = "planes"
-            rec("tpu_work_layout", layout, "the port trains on the planes "
-                "layout only; rows is ROADMAP B2/B4")
-        if cfg.tpu_resident_state == "on" or layout == "resident":
+        if cfg.tpu_resident_state == "on":
             _refuse("the resident layout (tpu_resident_state=on)",
                     "B: resident gather histogram")
+        if layout == "planes" and quantized:
+            raise LightGBMError(
+                "tpu_work_layout=planes cannot train int8 quantized "
+                "histograms: the planes layout has no quantized pack, in "
+                "the JAX package as here (use rows or auto; ROADMAP B)")
+        if layout == "planes" and mxu == "on":
+            raise LightGBMError(
+                "tpu_hist_mxu=on needs the rows work layout, not "
+                "tpu_work_layout=planes (ROADMAP B)")
+        if layout == "auto":
+            if quantized:
+                layout = "rows"
+                why = "int8 mode has no quantized planes pack"
+            elif mxu == "on":
+                layout = "rows"
+                why = "tpu_hist_mxu=on histograms the rows layout"
+            else:
+                layout = "planes"
+                why = ("f32 histograms: the planes layout, rows on request "
+                       "(tpu_work_layout=rows or tpu_hist_mxu=on)")
+            rec("tpu_work_layout", layout, why)
         if cfg.tpu_resident_state == "auto":
             rec("tpu_resident_state", "off", "the resident gather "
-                "histogram is not ported; planes moves every byte plane")
+                "histogram is not ported (ROADMAP B)")
+        if mxu == "auto":
+            rec("tpu_hist_mxu", "off", "the layout decides the histogram "
+                "kernel; on only asks for the rows layout")
+        rows = layout == "rows"
+        hist_src = ("csrc/segment_histogram_q.cu" if quantized else
+                    "csrc/segment_histogram.cu (%s)"
+                    % ("segment_histogram_rows" if rows
+                       else "segment_histogram"))
         kernels = {}
         for knob, src in (("tpu_partition_kernel",
-                           "csrc/partition_segment.cu"),
-                          ("tpu_hist_kernel", "csrc/segment_histogram.cu")):
+                           "csrc/partition_segment.cu (%s)"
+                           % ("partition_segment_rows" if rows
+                              else "partition_segment")),
+                          ("tpu_hist_kernel", hist_src)):
             v = getattr(cfg, knob)
             if v == "xla" and cuda:
                 _refuse("%s=xla on a CUDA device (the plain twins run only "
@@ -572,7 +654,7 @@ class SerialTreeLearner:
                 rec(knob, v, "hand-written CUDA kernel %s" % src if cuda
                     else "host tensors: the kernel's plain torch twin")
             kernels[knob] = v
-        for knob, item in (("tpu_split_kernel", "B7"), ("tpu_hist_mxu", "B6"),
+        for knob, item in (("tpu_split_kernel", "B7"),
                            ("tpu_goss_compact", "A3")):
             v = getattr(cfg, knob)
             if v == "on":
@@ -582,29 +664,36 @@ class SerialTreeLearner:
         return dict(hp=self.hp, num_leaves=self.num_leaves,
                     num_bin=self.num_bin, max_depth=int(cfg.max_depth),
                     num_bin_hist=self.num_bin_hist, bundle=self.bundle,
-                    hist_mode=cfg.tpu_hist_precision, comm=self.comm,
+                    hist_mode=mode, comm=self.comm,
                     part_kernel=kernels["tpu_partition_kernel"],
                     hist_kernel=kernels["tpu_hist_kernel"],
-                    work_layout=layout)
+                    work_layout=layout,
+                    dither_offset=dither_offset(
+                        int(self.bins.shape[1]), int(cfg.tpu_part_chunk),
+                        int(cfg.tpu_hist_chunk)))
 
     def train(self, ghc: torch.Tensor,
-              feature_mask: Optional[torch.Tensor] = None) -> TreeLog:
+              feature_mask: Optional[torch.Tensor] = None,
+              key=None) -> TreeLog:
         """One tree from (grad, hess, inbag) channels; the log stays on
-        the device."""
-        from .ops.partition import planes_npad, work_spec
+        the device. ``key`` (a ``prng`` key, ``PRNGKey(0)`` when None)
+        seeds the int8 quantization dither."""
+        from .ops.partition import work_buffer
+        from .prng import PRNGKey
 
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features,
                                       dtype=torch.bool, device=self.device)
-        if self._work is None:
-            guard, width = work_spec(self.bins.shape[1])
-            self._work = torch.zeros(
-                (2, width, planes_npad(self.bins.shape[0], guard)),
-                dtype=torch.uint8, device=self.device)
         kw = {k: v for k, v in self._kw.items()
-              if k not in ("part_kernel", "hist_kernel", "work_layout")}
+              if k not in ("part_kernel", "hist_kernel")}
+        if self._work is None:
+            self._work = work_buffer(self.bins.shape[0], self.bins.shape[1],
+                                     kw["work_layout"],
+                                     kw["hist_mode"] == "int8", self.device)
         stats: dict = {}
         log = build_tree_partitioned(self.bins, ghc, self.meta, feature_mask,
+                                     key=key if key is not None
+                                     else PRNGKey(0),
                                      bins_t=self.bins_t, work=self._work,
                                      stats=stats, **kw)
         self.last_stats = stats

@@ -1,12 +1,19 @@
-"""Segment histograms on the planes work layout (PyTorch port of the planes
-part of ``lightgbm_tpu/ops/histogram.py``).
+"""Segment histograms on the planes and rows work layouts (PyTorch port of
+the segment histograms of ``lightgbm_tpu/ops/histogram.py``).
 
 A histogram is ``(F, B, 3)`` float32 of (sum_grad, sum_hess, count) per
 feature bin, over the rows of one leaf's contiguous segment of the work
-buffer (ops/partition.py). :func:`segment_histogram` launches the
-hand-written kernel ``csrc/segment_histogram.cu`` on a CUDA tensor
-(replacing the TPU kernel ``hist_pallas_segment_planes``) and runs
-:func:`segment_histogram_plain` on a CPU tensor.
+buffer (ops/partition.py). Each wrapper launches a hand-written kernel on a
+CUDA tensor and runs its plain twin on a CPU tensor:
+
+- :func:`segment_histogram` (planes) and :func:`segment_histogram_rows`:
+  ``csrc/segment_histogram.cu``, replacing the TPU kernels
+  ``hist_pallas_segment_planes`` and ``hist_pallas_segment`` (and the f32
+  mode of ``hist_mxu_segment``, which computes the same function);
+- :func:`segment_histogram_q`, int8 quantized rows:
+  ``csrc/segment_histogram_q.cu``, replacing the quantized mode of
+  ``hist_mxu_segment``. Its sums are integers, so the kernel, its twin and
+  the JAX package's ``hist16_segment_q`` agree byte for byte.
 
 Per-row numerics are the TPU kernel's. In ``exact`` mode (the default,
 ``tpu_hist_precision=hilo``) g and h each contribute
@@ -26,13 +33,19 @@ import numpy as np
 import torch
 
 from .kernels import CudaKernel, register, stream_of
-from .partition import unpack_ghc_planes
+from .partition import (GH_BYTES, GH_BYTES_Q, check_on_card, unpack_ghc,
+                        unpack_ghc_planes, unpack_ghq)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_HIST_ARGS = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]
 HIST_KERNEL = register(CudaKernel(
-    "segment_histogram", "segment_histogram.cu",
-    [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]))
+    "segment_histogram", "segment_histogram.cu", _HIST_ARGS))
+HIST_ROWS_KERNEL = register(CudaKernel(
+    "segment_histogram_rows", "segment_histogram.cu", _HIST_ARGS))
+HIST_Q_KERNEL = register(CudaKernel(
+    "segment_histogram_q", "segment_histogram_q.cu",
+    [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]))
 
 #: rows a histogram block takes per tile, and the most row blocks a launch
 #: uses (each writes one partial histogram that the second pass sums)
@@ -40,6 +53,14 @@ HIST_TILE = 1024
 HIST_MAX_ROW_BLOCKS = 128
 #: features one histogram block keeps in shared memory (one warp each)
 HIST_MAX_FEATS_PER_BLOCK = 16
+#: int8 histogram: rows per row block that size its grid, the most row
+#: blocks (two per SM of an H100), and the shared-memory budget of one
+#: block's privatised int32 histogram
+HIST_Q_ROWS_PER_BLOCK = 8192
+HIST_Q_MAX_ROW_BLOCKS = 264
+HIST_Q_SMEM_BYTES = 96 * 1024
+#: the largest segment whose int32 sums cannot overflow: 127 * N < 2^31
+HIST_Q_MAX_ROWS = (2 ** 31 - 1) // 127
 
 
 def build_histogram_np(bins: np.ndarray, ghc: np.ndarray,
@@ -77,22 +98,41 @@ def combine(acc: torch.Tensor, exact: bool) -> torch.Tensor:
     return acc
 
 
+def _histogram_plain(bin_cols: torch.Tensor, ghc_t: torch.Tensor, *,
+                     num_bins: int, exact: bool) -> torch.Tensor:
+    """(F, C) bin codes + (3, C) f32 channels -> (F, B, 3) f32: each
+    feature's ``index_add_`` of the per-row channel contributions (rounded
+    exactly as the kernel rounds them) into float64 sums."""
+    ch = channels(ghc_t, exact).t().to(torch.float64)             # (C, NCH)
+    acc = torch.zeros((bin_cols.shape[0], num_bins, ch.shape[1]),
+                      dtype=torch.float64, device=bin_cols.device)
+    for f in range(bin_cols.shape[0]):
+        acc[f].index_add_(0, bin_cols[f].long(), ch)
+    return combine(acc, exact).to(torch.float32)
+
+
 def segment_histogram_plain(work: torch.Tensor, seg: torch.Tensor, *,
                             num_bins: int, num_feat: int,
                             exact: bool = True) -> torch.Tensor:
-    """Plain torch twin: per-feature ``index_add_`` of the segment's
-    per-row channel contributions (rounded exactly as the kernel rounds
-    them) into (B, NCH) float64 sums, returned as f32: the correctly
-    rounded sum that the kernel's f32 sums are held to."""
+    """Plain torch twin of the planes kernel: the correctly rounded sum
+    of the segment's per-row contributions that the kernel's f32 sums are
+    held to."""
     plane, start, cnt = (int(v) for v in seg.tolist())
     cols = work[plane, :, start:start + cnt]
-    ch = channels(unpack_ghc_planes(cols, num_feat), exact).t() \
-        .to(torch.float64)                                          # (C, NCH)
-    acc = torch.zeros((num_feat, num_bins, ch.shape[1]), dtype=torch.float64,
-                      device=work.device)
-    for f in range(num_feat):
-        acc[f].index_add_(0, cols[f].long(), ch)
-    return combine(acc, exact).to(torch.float32)
+    return _histogram_plain(cols[:num_feat], unpack_ghc_planes(cols, num_feat),
+                            num_bins=num_bins, exact=exact)
+
+
+def segment_histogram_rows_plain(work: torch.Tensor, seg: torch.Tensor, *,
+                                 num_bins: int, num_feat: int,
+                                 exact: bool = True) -> torch.Tensor:
+    """Plain torch twin of the rows kernel (the planes twin's sums over the
+    same rows)."""
+    plane, start, cnt = (int(v) for v in seg.tolist())
+    rows = work[plane, start:start + cnt]
+    return _histogram_plain(rows[:, :num_feat].t(),
+                            unpack_ghc(rows, num_feat).t(),
+                            num_bins=num_bins, exact=exact)
 
 
 def sum_error_bound(cnt: int) -> float:
@@ -117,26 +157,52 @@ def segment_histogram(work: torch.Tensor, seg: torch.Tensor, *,
     device and ``cnt_bound`` a host int >= cnt that sizes the grid. The
     kernel's result is bit-identical run to run (fixed summation order,
     no float atomics)."""
-    if work.dim() != 3 or work.shape[0] != 2 or work.dtype != torch.uint8:
-        raise ValueError("segment_histogram: work must be (2, W, Npad) u8, "
-                         "got %s %s" % (tuple(work.shape), work.dtype))
-    if seg.dtype != torch.int32 or seg.numel() != 3:
-        raise ValueError("segment_histogram: seg must be 3 int32")
-    if not 0 < num_feat <= work.shape[1] - 12 or not 0 < num_bins <= 256:
-        raise ValueError("segment_histogram: num_feat %d / num_bins %d do "
-                         "not fit a %d-plane u8 work buffer"
-                         % (num_feat, num_bins, work.shape[1]))
+    _check_hist_args("segment_histogram", work, seg, num_bins, num_feat,
+                     work.shape[1] - GH_BYTES)
     if work.device.type == "cpu":
         return segment_histogram_plain(work, seg, num_bins=num_bins,
                                        num_feat=num_feat, exact=exact)
-    if work.device.type != "cuda":
-        raise RuntimeError("segment_histogram: no kernel for device %s"
-                           % work.device)
-    if seg.device != work.device:
-        raise ValueError("segment_histogram: seg is on %s, work on %s"
-                         % (seg.device, work.device))
-    if not (work.is_contiguous() and seg.is_contiguous()):
-        raise ValueError("segment_histogram: inputs must be contiguous")
+    return _launch_histogram(HIST_KERNEL, work, seg, num_bins, num_feat,
+                             exact, cnt_bound, rows=work.shape[2],
+                             width=work.shape[1])
+
+
+def segment_histogram_rows(work: torch.Tensor, seg: torch.Tensor, *,
+                           num_bins: int, num_feat: int, exact: bool = True,
+                           cnt_bound: int) -> torch.Tensor:
+    """:func:`segment_histogram` on the rows layout, ``work`` (2, Npad, W)
+    u8 with ``W = num_feat + 12``. The kernel runs the planes kernel's body
+    (tile assignment, per-row rounding, summation order), so on the same
+    rows in the same order its result equals the planes kernel's, bit for
+    bit."""
+    _check_hist_args("segment_histogram_rows", work, seg, num_bins, num_feat,
+                     work.shape[2] - GH_BYTES)
+    if work.device.type == "cpu":
+        return segment_histogram_rows_plain(work, seg, num_bins=num_bins,
+                                            num_feat=num_feat, exact=exact)
+    return _launch_histogram(HIST_ROWS_KERNEL, work, seg, num_bins, num_feat,
+                             exact, cnt_bound, rows=work.shape[1],
+                             width=work.shape[2])
+
+
+def _check_hist_args(name: str, work: torch.Tensor, seg: torch.Tensor,
+                     num_bins: int, num_feat: int, max_feat: int) -> None:
+    if work.dim() != 3 or work.shape[0] != 2 or work.dtype != torch.uint8:
+        raise ValueError("%s: work must be a (2, ., .) u8 pair, got %s %s"
+                         % (name, tuple(work.shape), work.dtype))
+    if seg.dtype != torch.int32 or seg.numel() != 3:
+        raise ValueError("%s: seg must be 3 int32" % name)
+    if not 0 < num_feat <= max_feat or not 0 < num_bins <= 256:
+        raise ValueError("%s: num_feat %d / num_bins %d do not fit a u8 work "
+                         "buffer of shape %s" % (name, num_feat, num_bins,
+                                                 tuple(work.shape)))
+
+
+def _launch_histogram(kernel: CudaKernel, work: torch.Tensor,
+                      seg: torch.Tensor, num_bins: int, num_feat: int,
+                      exact: bool, cnt_bound: int, *, rows: int,
+                      width: int) -> torch.Tensor:
+    check_on_card(kernel.symbol, work, seg)
     nch = 5 if exact else 3
     row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
                             -(-int(cnt_bound) // HIST_TILE)))
@@ -144,8 +210,69 @@ def segment_histogram(work: torch.Tensor, seg: torch.Tensor, *,
                           dtype=torch.float32, device=work.device)
     out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
                       device=work.device)
-    HIST_KERNEL.launch(work.data_ptr(), work.shape[1], work.shape[2],
-                       seg.data_ptr(), num_feat, num_bins, int(exact),
-                       row_blocks, partial.data_ptr(), out.data_ptr(),
-                       stream_of(work))
+    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(), num_feat,
+                  num_bins, int(exact), row_blocks, partial.data_ptr(),
+                  out.data_ptr(), stream_of(work))
+    return out
+
+
+# ---------------------------------------------------------------- int8 rows
+
+def dequant_scale(scales: torch.Tensor) -> torch.Tensor:
+    """(2,) f32 ``[gscale, hscale]`` -> the (3,) f32 dequantization
+    ``[1 / gscale, 1 / hscale, 1]`` (hist16_segment_q's, in f32)."""
+    s = scales.to(torch.float32)
+    return torch.cat([torch.div(torch.ones_like(s), s),
+                      torch.ones(1, dtype=torch.float32, device=s.device)])
+
+
+def segment_histogram_q_plain(work: torch.Tensor, seg: torch.Tensor,
+                              scale: torch.Tensor, *, num_bins: int,
+                              num_feat: int) -> torch.Tensor:
+    """Plain torch twin of the int8 kernel: per-feature int64
+    ``index_add_`` of the int8 g, int8 h and u8 cnt, cast to int32, then
+    ``float(sum) * scale``."""
+    plane, start, cnt = (int(v) for v in seg.tolist())
+    rows = work[plane, start:start + cnt]
+    gq, hq, cq = unpack_ghq(rows, num_feat)
+    ch = torch.stack([gq.long(), hq.long(), cq.long()], dim=1)    # (C, 3)
+    acc = torch.zeros((num_feat, num_bins, 3), dtype=torch.int64,
+                      device=work.device)
+    for f in range(num_feat):
+        acc[f].index_add_(0, rows[:, f].long(), ch)
+    return acc.to(torch.int32).to(torch.float32) * scale
+
+
+def segment_histogram_q(work: torch.Tensor, seg: torch.Tensor,
+                        scale: torch.Tensor, *, num_bins: int, num_feat: int,
+                        cnt_bound: int) -> torch.Tensor:
+    """(F, num_bins, 3) f32 dequantized histogram of rows ``[start, start +
+    cnt)`` of buffer ``plane`` of the quantized rows pair ``work``
+    (2, Npad, F + 3) u8 (ops/partition.pack_rows_quantized). ``scale`` is
+    the (3,) f32 :func:`dequant_scale`; ``seg`` and ``cnt_bound`` as in
+    :func:`segment_histogram`. Segments over :data:`HIST_Q_MAX_ROWS` rows
+    are refused: their int32 sums could overflow."""
+    _check_hist_args("segment_histogram_q", work, seg, num_bins, num_feat,
+                     work.shape[2] - GH_BYTES_Q)
+    if scale.dtype != torch.float32 or scale.numel() != 3:
+        raise ValueError("segment_histogram_q: scale must be 3 float32")
+    if int(cnt_bound) > HIST_Q_MAX_ROWS:
+        raise ValueError("segment_histogram_q: %d rows could overflow the "
+                         "int32 sums (at most %d)"
+                         % (int(cnt_bound), HIST_Q_MAX_ROWS))
+    if work.device.type == "cpu":
+        return segment_histogram_q_plain(work, seg, scale, num_bins=num_bins,
+                                         num_feat=num_feat)
+    check_on_card("segment_histogram_q", work, seg, scale)
+    nfb = max(1, min(num_feat, HIST_Q_SMEM_BYTES // (num_bins * 3 * 4)))
+    row_blocks = max(1, min(HIST_Q_MAX_ROW_BLOCKS,
+                            -(-int(cnt_bound) // HIST_Q_ROWS_PER_BLOCK)))
+    acc = torch.empty((num_feat, num_bins, 3), dtype=torch.int32,
+                      device=work.device)
+    out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
+                      device=work.device)
+    HIST_Q_KERNEL.launch(work.data_ptr(), work.shape[2], work.shape[1],
+                         seg.data_ptr(), num_feat, num_bins, nfb, row_blocks,
+                         scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                         stream_of(work))
     return out

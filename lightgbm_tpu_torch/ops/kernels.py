@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels under ``csrc/``.
 
-Each kernel source is a ``.cu`` file with a plain C entry point that
-launches on the stream it is given and returns ``cudaGetLastError()``.
-At first use it is compiled for Hopper (``sm_90a``) with ``nvcc`` into a
+Each kernel source is a ``.cu`` file with plain C entry points that launch
+on the stream they are given and return ``cudaGetLastError()``; one
+:class:`CudaKernel` per entry point, so each counts its own launches. At
+first use a source is compiled for Hopper (``sm_90a``) with ``nvcc`` into a
 shared library under ``lightgbm_tpu_torch/_build/`` (git-ignored), named
 by the source's content hash so an edited source never loads a stale
 library, and bound with ``ctypes``. Nothing here runs at import time: the
@@ -31,6 +32,9 @@ from typing import Dict, List, Optional, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+
+#: held while a library is built: entry points of one source share it
+_BUILD_LOCK = threading.Lock()
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -110,9 +114,10 @@ class CudaKernel:
         """The bound C entry point, building the library first if needed."""
         with self._lock:
             if self._fn is None:
-                started = self._start_build()
-                if started is not None:
-                    self._finish_build(started, time.perf_counter())
+                with _BUILD_LOCK:
+                    started = self._start_build()
+                    if started is not None:
+                        self._finish_build(started, time.perf_counter())
                 self._bind()
             return self._fn
 
@@ -157,26 +162,33 @@ def register(kernel: CudaKernel) -> CudaKernel:
 
 
 def build_all() -> float:
-    """Build every registered kernel that is not built yet, one ``nvcc``
-    per source, all started together; bind them all. Returns the wall
-    seconds the builds took."""
+    """Build every registered kernel's library that is not built yet, one
+    ``nvcc`` per source, all started together; bind every entry point.
+    Returns the wall seconds the builds took."""
     t0 = time.perf_counter()
-    started = []
-    for k in KERNELS.values():
-        with k._lock:
-            if k._fn is None:
-                started.append((k, k._start_build()))
-    errors = []
-    for k, s in started:
-        with k._lock:
+    started = {}
+    with _BUILD_LOCK:
+        for k in KERNELS.values():
+            path = k.library_path()
+            if k._fn is None and path not in started:
+                started[path] = (k, k._start_build())
+        errors = []
+        for k, s in started.values():
             try:
                 if s is not None:
                     k._finish_build(s, t0)
-                k._bind()
             except (RuntimeError, OSError) as exc:
                 errors.append(str(exc))
+        for k in KERNELS.values():        # entry points sharing a source
+            builder = started.get(k.library_path(), (k,))[0]
+            k.build_log, k.build_seconds = (builder.build_log,
+                                            builder.build_seconds)
     if errors:
         raise RuntimeError("\n".join(errors))
+    for k in KERNELS.values():
+        with k._lock:
+            if k._fn is None:
+                k._bind()
     return time.perf_counter() - t0
 
 

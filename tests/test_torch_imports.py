@@ -41,7 +41,7 @@ def test_every_port_module_is_listed():
     for mod in ("ops.forest", "ops.route", "ops.predict", "ops.binning",
                 "ops.kernels", "ops.partition", "ops.histogram", "ops.split",
                 "learner", "boosting", "basic", "convert", "engine",
-                "callback", "metric",
+                "callback", "metric", "prng", "fused",
                 "serve.session", "serve.batcher", "serve.http",
                 "online.registry", "linear.pack", "tree", "dataset",
                 "config", "objective", "obs", "utils.log"):

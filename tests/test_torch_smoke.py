@@ -19,6 +19,19 @@ import chip_smoke  # noqa: E402
 CPU = torch.device("cpu")
 
 
+ROWS_KEYS = {
+    "partition_rows/%s/%s" % (w, name)
+    for w in ("w39", "w31", "w30")
+    for name in ("unaligned", "whole", "under_one_block", "empty_left",
+                 "empty_right", "one_row")} | {
+    "histogram_rows/w39/%s/%s" % (mode, name)
+    for mode in ("hilo", "bf16")
+    for name in ("whole", "unaligned", "one_row", "empty")} | {
+    "histogram_q/%s/%s" % (w, name)
+    for w in ("w31", "w30")
+    for name in ("whole", "unaligned", "one_row", "empty")}
+
+
 def test_kernels_phase_covers_every_branch_on_cpu():
     errs = chip_smoke.phase_kernels(CPU, 0)
     assert set(errs) == {
@@ -31,15 +44,28 @@ def test_kernels_phase_covers_every_branch_on_cpu():
         "histogram/hilo/whole", "histogram/hilo/unaligned",
         "histogram/hilo/one_row", "histogram/hilo/empty",
         "histogram/bf16/whole", "histogram/bf16/unaligned",
-        "histogram/bf16/one_row", "histogram/bf16/empty"}
+        "histogram/bf16/one_row", "histogram/bf16/empty"} | ROWS_KEYS
     assert all(e <= 1e-6 for e in errs.values()), errs
 
 
 @pytest.fixture(scope="module")
-def trained():
-    data = chip_smoke.training_data(0, 2000, 500)
-    bst, train, counts, summary = chip_smoke.phase_train(CPU, data, 3, 15)
-    return data, bst, train, counts, summary
+def data():
+    return chip_smoke.training_data(0, 2000, 500)
+
+
+@pytest.fixture(scope="module")
+def trained(data):
+    ds = chip_smoke.build_datasets(CPU, data, 15)
+    bst, counts, summary = chip_smoke.phase_train(CPU, ds, 3, 15)
+    return data, bst, ds[0], counts, summary
+
+
+@pytest.fixture(scope="module")
+def quantized(data):
+    ds = chip_smoke.build_datasets(CPU, data, 15, chip_smoke.QUANT_PARAMS)
+    bst, counts, summary = chip_smoke.phase_train(CPU, ds, 3, 15,
+                                                  chip_smoke.QUANT_PARAMS)
+    return bst, ds[0], counts, summary
 
 
 def test_train_phase_small_on_cpu(trained):
@@ -47,14 +73,49 @@ def test_train_phase_small_on_cpu(trained):
     assert counts["partition_segment"] == counts["segment_histogram"] \
         == counts["route_rows"] == 0                       # plain twins
     assert summary["trees"] == 3 and summary["splits"] > 0
+    assert summary["layout"] == "planes"
     assert 0.6 < summary["valid_auc"] <= 1.0
     chip_smoke.check_determinism(CPU, train, 15, iters=1)
     res = chip_smoke.card_vs_host(CPU, data, 1000, 7, iters=1)
     assert res["splits_agree"] == res["splits"] > 0
 
 
-def test_serve_phase_small_on_cpu(trained):
-    _, bst, train, _, _ = trained
+def test_quantized_phase_small_on_cpu(trained, quantized):
+    """The slice-3 phase at a tiny size: int8 gradients, bagging and
+    column sampling on the rows layout, its full-width kernel checks, its
+    determinism and card-vs-host runs, and the AUC against planes."""
+    data, _, _, _, planes = trained
+    bst, train, counts, summary = quantized
+    assert summary["layout"] == "rows" and summary["splits"] > 0
+    assert all(v == 0 for v in counts.values())             # plain twins
+    assert abs(summary["valid_auc"] - planes["valid_auc"]) \
+        <= chip_smoke.AUC_TOL + 0.05     # 3 trees on 2000 rows: noisier
+    errs = {}
+    assert chip_smoke.full_width_rows_kernels(bst, CPU, errs,
+                                              timed=False) == {}
+    assert set(errs) == {"partition_rows/full_width",
+                         "histogram_q/full_width",
+                         "histogram_rows/full_width"}
+    assert max(errs.values()) <= 1e-6
+    chip_smoke.check_determinism(CPU, train, 15, iters=1,
+                                 extra=chip_smoke.QUANT_PARAMS)
+    res = chip_smoke.card_vs_host(CPU, data, 1000, 7, iters=2,
+                                  extra=chip_smoke.QUANT_PARAMS,
+                                  first_tree_equal=True)
+    assert res["first_tree"][0] == res["first_tree"][1] > 0
+
+
+def test_rows_vs_planes_and_goss_small_on_cpu(trained):
+    data = trained[0]
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.rows_vs_planes(CPU, data, 1000, 7)    # twins launch none
+    res = chip_smoke.card_vs_host(CPU, data, 1000, 7, iters=4,
+                                  extra=chip_smoke.GOSS_PARAMS)
+    assert res["splits_agree"] == res["splits"] > 0
+
+
+def test_serve_phase_small_on_cpu(quantized):
+    bst, train, _, _ = quantized
     assert bst.inner.train_set.num_total_features \
         == chip_smoke.HIGGS_FEATURES
     rng = np.random.RandomState(1)

@@ -12,7 +12,9 @@ The bars:
   (``dataset_from_reference``): the same trees, leaf values and
   predictions within TRAIN_RTOL / TRAIN_ATOL (torch_port_cases.py);
 - early stopping, continued training from a JAX model and rollback;
-- every setting the port cannot honour raises, naming its ROADMAP item.
+- every setting the port cannot honour raises, naming its ROADMAP item
+  (quantized, sampled and rows-layout training are held to the JAX
+  package in test_torch_quantized_train.py).
 """
 import numpy as np
 import pytest
@@ -199,11 +201,9 @@ def test_auto_knobs_resolve_and_record(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"tpu_work_layout": "rows"}, {"tpu_resident_state": "on"},
-    {"tpu_split_kernel": "on"}, {"tpu_hist_mxu": "on"},
-    {"use_quantized_grad": True}, {"tpu_hist_precision": "int8"},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"data_sample_strategy": "goss"}, {"feature_fraction": 0.5},
+    {"tpu_resident_state": "on"}, {"tpu_split_kernel": "on"},
+    {"tpu_goss_compact": "on"},
+    {"tpu_work_layout": "planes", "use_quantized_grad": True},
     {"feature_fraction_bynode": 0.5}, {"extra_trees": True},
     {"interaction_constraints": "[0,1]"}, {"cegb_penalty_split": 0.1},
     {"forcedsplits_filename": "forced.json"}, {"objective": "huber"},

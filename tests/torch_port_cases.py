@@ -167,9 +167,10 @@ def jax_dataset(name, tmpdir, n=2000, seed=1, valid_rows=0):
     return ds, path, X, y, valid
 
 
-def assert_same_trees(jax_models, port_models):
+def assert_same_trees(jax_models, port_models, rtol=TRAIN_RTOL,
+                      atol=TRAIN_ATOL):
     """Equal structure (features, thresholds, decision types, categories,
-    leaf counts); leaf values at TRAIN_RTOL / TRAIN_ATOL."""
+    leaf counts); leaf values at ``rtol`` / ``atol``."""
     assert len(jax_models) == len(port_models)
     for i, (a, b) in enumerate(zip(jax_models, port_models)):
         assert a.num_leaves == b.num_leaves, i
@@ -185,5 +186,5 @@ def assert_same_trees(jax_models, port_models):
             {f: list(v) for f, v in b.cat_threshold.items()}, i
         np.testing.assert_allclose(b.leaf_value[:b.num_leaves],
                                    a.leaf_value[:a.num_leaves],
-                                   rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
+                                   rtol=rtol, atol=atol,
                                    err_msg="tree %d leaf_value" % i)
