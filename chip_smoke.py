@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Seven phases, each fatal on failure:
+the checkout it sits in. Eight phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: five
-                sources, seven entry points), one nvcc per source, started
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: six
+                sources, eight entry points), one nvcc per source, started
                 together.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
                 the forest kernel on small seeded packs covering every
@@ -23,10 +23,18 @@ the checkout it sits in. Seven phases, each fatal on failure:
                 per-row values; hi/lo and bf16 modes; 0 rows to 9000;
                 bit-equal run to run; the rows kernel bit-equal to the
                 planes kernel on the same rows); the int8 histogram
-                (byte-equal to its twin and run to run). Again at 2M rows
-                after phases 3 and 4, on their data and first root splits.
-                Leaf ids must be equal, scores within SCORE_ATOL +
-                SCORE_RTOL * |b|.
+                (byte-equal to its twin and run to run); the one-kernel
+                split against its twin and against K3 + K4 (routed bytes
+                and lt equal, child histograms bit-equal to K3 + K4 and
+                the parent subtraction; unaligned start, empty sides,
+                one-row children, a segment under one tile) and its split
+                scan against torch's on the same histograms in every case
+                of SPLIT_CASES (NaN-missing both ways, one-vs-rest and
+                both many-vs-many orders, monotone with both depth-penalty
+                branches, a masked feature, no valid split, NaN gains,
+                exact ties). Again at 2M rows after phases 3 and 4, on
+                their data and first root splits. Leaf ids must be equal,
+                scores within SCORE_ATOL + SCORE_RTOL * |b|.
 3. planes    -- the slice-2 training path: 2,000,000 Higgs-shaped rows x
                 28 features (max_bin=255), ``objective=binary``,
                 ``num_leaves=255``, ``--trees`` iterations through
@@ -39,6 +47,13 @@ the checkout it sits in. Seven phases, each fatal on failure:
                 byte-equal model strings; 3 iterations on 200,000 rows on
                 the card and on the host (the plain twins) must agree in
                 train logloss within LOGLOSS_TOL.
+3b. one kernel -- the slice-4 path: phase 3's data and trees with
+                ``tpu_split_kernel=on``, one cooperative launch per split
+                (``one_kernel_split`` launches = splits, no K3, K4 only for
+                the roots); the same per-tree checks, byte-equal
+                determinism, on vs off and card vs host on 200,000 rows x
+                3 trees (train logloss within LOGLOSS_TOL), valid AUC
+                within ONE_KERNEL_AUC_TOL of phase 3's.
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -60,7 +75,9 @@ the checkout it sits in. Seven phases, each fatal on failure:
                 a small input, the host tree walk.
 7. timings   -- each kernel's ms (CUDA events), its plain twin's ms, one
                 library call's ms where torch has one, and its bound at the
-                main path's shapes, beside the card's name and power limit.
+                main path's shapes, beside the card's name and power limit;
+                for the one-kernel split also the three-launch path's ms on
+                the same 2M-row root split.
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -98,8 +115,10 @@ TRAIN_ROWS = 2_000_000
 VALID_ROWS = 100_000
 BINNED_ROWS = 2_000_000
 REQUEST_ROWS = (1, 256, 4096, 65536)
+#: tpu_split_kernel=off pins the three-launch split (on the card auto runs
+#: the one-kernel split wherever it can), so phase 3 measures that path
 TRAIN_PARAMS = {"objective": "binary", "max_bin": 255, "num_leaves": 255,
-                "verbosity": -1}
+                "verbosity": -1, "tpu_split_kernel": "off"}
 #: the slice-3 configuration: int8 quantized gradients, bagging and column
 #: sampling on top of TRAIN_PARAMS (trains on the rows work layout)
 QUANT_PARAMS = {"use_quantized_grad": True, "bagging_fraction": 0.8,
@@ -109,6 +128,26 @@ GOSS_PARAMS = {"data_sample_strategy": "goss", "learning_rate": 0.5}
 #: valid AUC, quantized and sampled model vs the unquantized planes model
 #: at the same number of trees
 AUC_TOL = 0.01
+#: the slice-4 configuration: one launch per split (planes layout)
+ONE_KERNEL_PARAMS = {"tpu_split_kernel": "on"}
+#: valid AUC, one-kernel model vs the three-launch planes model at the same
+#: number of trees (the scan's sums run in another order, so near-tie
+#: splits may differ)
+ONE_KERNEL_AUC_TOL = 0.002
+#: one-kernel split vs the torch scan on the same histograms: gains, sums
+#: and outputs within SPLIT_ATOL + SPLIT_RTOL * |x| (the kernel's prefix
+#: sums accumulate in double, torch's on the card in float in another
+#: order); the integer fields must be equal wherever the torch scan's
+#: winner beats its runner-up by more than that
+SPLIT_RTOL = 1e-5
+SPLIT_ATOL = 1e-5
+#: the split-scan cases of the one-kernel split (split_case); in "ties" the
+#: tie is exact in both scans by construction, so the winner must be equal
+SPLIT_CASES = ("numerical", "nan_left", "nan_right", "categorical_onehot",
+               "categorical_mvm", "categorical_mvm_asc", "monotone_penalty",
+               "monotone_shallow", "masked_fmask", "no_split", "nan_gains",
+               "ties", "l1_clip", "path_smooth")
+EXACT_TIE_CASES = ("ties",)
 
 
 def log(msg):
@@ -742,6 +781,26 @@ def profile_iteration(dev, train, leaves, extra=None):
                 top=top)
 
 
+def split_agreement(a_bst, b_bst):
+    """(splits that agree, splits, (first tree's agreeing, its splits)):
+    per tree, the splits equal in order up to the first difference."""
+    agree = total = 0
+    first = None
+    for a, b in zip(a_bst.inner.models, b_bst.inner.models):
+        k = max(a.num_internal, b.num_internal)
+        total += k
+        same = 0
+        for r in range(min(a.num_internal, b.num_internal)):
+            if (a.split_feature[r], a.threshold[r]) != \
+                    (b.split_feature[r], b.threshold[r]):
+                break
+            same += 1
+        agree += same
+        if first is None:
+            first = (same, k)
+    return agree, total, first
+
+
 def card_vs_host(dev, data, rows, leaves, iters=3, extra=None,
                  first_tree_equal=False):
     """The same small training on the card and on the host (plain twins):
@@ -759,20 +818,7 @@ def card_vs_host(dev, data, rows, leaves, iters=3, extra=None,
         out[name] = (bst, time.perf_counter() - t0,
                      bst.eval_train()[0][2])
     (ca, ta, la), (ho, th, lh) = out["card"], out["host"]
-    agree = total = 0
-    first = None
-    for a, b in zip(ca.inner.models, ho.inner.models):
-        k = max(a.num_internal, b.num_internal)
-        total += k
-        same = 0
-        for r in range(min(a.num_internal, b.num_internal)):
-            if (a.split_feature[r], a.threshold[r]) != \
-                    (b.split_feature[r], b.threshold[r]):
-                break
-            same += 1
-        agree += same
-        if first is None:
-            first = (same, k)
+    agree, total, first = split_agreement(ca, ho)
     log("card vs host %s: %d rows x %d iterations; %d of %d splits agree "
         "(in order, up to the first difference per tree; first tree %d of "
         "%d); train logloss card %.7f host %.7f; card %.1f s, host %.1f s"
@@ -988,6 +1034,486 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
     return rows
 
 
+def split_case(name, rng, n=9000, F=8, nb=32):
+    """numpy inputs of one split-scan case on seeded rows: ``(bins (n, F)
+    u8, ghc (n, 3) f32 on a 1/64 grid, meta dict of (F,) arrays, hp dict,
+    fmask (F,) bool, (lows2, ups2, outs2), depth, nan_at)``: the children's
+    (2,) bounds and parent outputs, their node depth. ``nan_at`` is the
+    (feature, bin) whose parent g is set to NaN (the larger child's gains
+    there go NaN and must never win)."""
+    import numpy as np
+    bins = rng.randint(0, nb, (n, F))
+    num_bins = np.full(F, nb, np.int32)
+    g = rng.randn(n) * 0.25 + 0.4 * (bins[:, 1] < nb // 2) \
+        - 0.3 * (bins[:, 3] > nb // 3)
+    h = np.abs(rng.randn(n)) * 0.25 + 0.1
+    meta = dict(num_bins=num_bins, movable_missing=np.zeros(F, bool),
+                missing_bin=np.zeros(F, np.int32),
+                is_categorical=np.zeros(F, bool),
+                monotone=np.zeros(F, np.int8),
+                penalty=np.ones(F, np.float32),
+                cegb_coupled=np.zeros(F, np.float32))
+    hp = {"min_data_in_leaf": 20.0}
+    fmask = np.ones(F, bool)
+    lows2 = np.full(2, -np.inf, np.float32)
+    ups2 = np.full(2, np.inf, np.float32)
+    outs2 = np.zeros(2, np.float32)
+    depth, nan_at = 1, None
+    if name in ("nan_left", "nan_right"):
+        # the missing bin's rows look like the low bins (default left) or
+        # the high ones (default right)
+        meta["movable_missing"][0] = True
+        meta["missing_bin"][0] = nb - 1
+        side = np.where(bins[:, 0] < nb // 2, 1.0, -1.0)
+        side[bins[:, 0] == nb - 1] = 1.0 if name == "nan_left" else -1.0
+        g = g + 1.5 * side
+    elif name == "categorical_onehot":
+        bins[:, 2] = rng.randint(0, 5, n)
+        num_bins[2] = 5
+        meta["is_categorical"][2] = True
+        g = g + 1.5 * (bins[:, 2] == 3)
+        hp.update(has_categorical=True, max_cat_to_onehot=4)
+    elif name in ("categorical_mvm", "categorical_mvm_asc"):
+        # categories 1, 4 and 7 pull g up (the descending order wins) or
+        # down (the ascending one)
+        bins[:, 2] = rng.randint(0, 12, n)
+        num_bins[2] = 12
+        meta["is_categorical"][2] = True
+        sign = 1.5 if name == "categorical_mvm" else -1.5
+        g = g + sign * np.isin(bins[:, 2], (1, 4, 7))
+        hp.update(has_categorical=True, max_cat_to_onehot=4,
+                  min_data_per_group=10.0)
+    elif name in ("monotone_penalty", "monotone_shallow"):
+        meta["monotone"][1] = -1
+        meta["monotone"][3] = 1
+        # penalty 1.5 at depth 1: 1 - 2^(p-1-d); 0.5 at depth 3: 1 - p/2^d
+        deep = name == "monotone_penalty"
+        hp.update(has_monotone=True, monotone_penalty=1.5 if deep else 0.5)
+        depth = 1 if deep else 3
+        lows2[0], ups2[0] = -2.0, 0.5
+    elif name == "masked_fmask":
+        fmask[[1, 3]] = False
+    elif name == "no_split":
+        hp["min_data_in_leaf"] = 1e9
+    elif name == "nan_gains":
+        nan_at = (1, 5)     # the winning feature of the numerical case
+    elif name == "ties":
+        # numerical features 4 and 5 and one-vs-rest feature 2 hold the
+        # same 3-bin column: equal gains; the flat first maximum is kind
+        # 0 (numerical) before kind 1, then the smaller feature
+        col = rng.randint(0, 3, n)
+        bins[:, 2] = bins[:, 4] = bins[:, 5] = col
+        num_bins[[2, 4, 5]] = 3
+        meta["is_categorical"][2] = True
+        g = g + 1.5 * (col == 0)
+        hp.update(has_categorical=True, max_cat_to_onehot=4, cat_l2=0.0)
+    elif name == "l1_clip":
+        # L1 thresholding moves every gain and zeroes small bins' sums;
+        # max_delta_step clips the children's outputs (|G / H| ~ 1)
+        hp.update(lambda_l1=5.0, lambda_l2=1.0, max_delta_step=0.05)
+    elif name == "path_smooth":
+        # outputs pulled toward nonzero parent outputs
+        hp.update(path_smooth=50.0)
+        outs2[:] = (0.3, -0.2)
+    g = np.round(g * 64) / 64
+    h = np.round(h * 64) / 64
+    ghc = np.stack([g, h, np.ones(n)], axis=1).astype(np.float32)
+    return (bins.astype(np.uint8), ghc, meta, hp, fmask,
+            (lows2, ups2, outs2), depth, nan_at)
+
+
+def split_inputs(dev, case, guard=128):
+    """One case on ``dev`` as the learner would call the one-kernel split:
+    plane 0 packs the rows, the parent is all of them, routed by the last
+    feature (noise in every case, so both children keep the case's
+    structure) at its middle bin. Returns (work, seg list, table, the
+    keyword arguments of ops.partition.one_kernel_split_planes but
+    cnt_bound)."""
+    import torch
+    from lightgbm_tpu_torch.ops.partition import pack_planes, planes_npad
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    bins, ghc, meta, hp, fmask, (lows2, ups2, outs2), depth, nan_at = case
+    n, F = bins.shape
+    B = int(meta["num_bins"].max())
+    work = torch.zeros((2, F + 12, planes_npad(n, guard)), dtype=torch.uint8,
+                       device=dev)
+    work[0, :, guard:guard + n] = pack_planes(torch.as_tensor(bins),
+                                              torch.as_tensor(ghc)).to(dev)
+    seg = [0, guard, n, F - 1]
+    table = torch.arange(B, device=dev) <= int(meta["num_bins"][F - 1]) // 2
+    kw = dict(depth=depth, hp=SplitHyper(**hp), num_bins=B, num_feat=F,
+              meta=FeatureMeta(**{k: torch.as_tensor(v).to(dev)
+                                  for k, v in meta.items()}),
+              fmask=torch.as_tensor(fmask).to(dev),
+              lows2=torch.as_tensor(lows2).to(dev),
+              ups2=torch.as_tensor(ups2).to(dev))
+    kw = dict(segment_split(work, seg, table, kw),
+              outs2=torch.as_tensor(outs2).to(dev))
+    if nan_at is not None:
+        kw["parent_hist"][nan_at[0], nan_at[1], 0] = float("nan")
+    return work, seg, table, kw
+
+
+def scan_reference(hist_left, hist_right, kw):
+    """find_best_split (torch) on the two children's histograms as the
+    one-kernel split scans them: (SplitInfo, (2, 4, F, B) candidates)."""
+    import torch
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    args = (torch.stack([hist_left, hist_right]), kw["sums2"], kw["meta"],
+            kw["fmask"], kw["hp"])
+    opts = dict(parent_output=kw["outs2"], leaf_lower=kw["lows2"],
+                leaf_upper=kw["ups2"], node_depth=kw["depth"])
+    return (find_best_split(*args, **opts),
+            find_best_split(*args, want_candidates=True, **opts))
+
+
+def compare_split_info(name, got, ref, cand, strict=False):
+    """The kernel's SplitInfo against the torch scan's on the same
+    histograms. Integer fields equal unless the torch winner's margin over
+    its runner-up is within the gain tolerance (then the torch scan's gain
+    at the kernel's choice must be within it of the best); gains, sums and
+    outputs within SPLIT_ATOL + SPLIT_RTOL * |x|. Returns max |diff|."""
+    import math
+    import torch
+
+    worst = 0.0
+    for c in (0, 1):
+        mine = (int(got.kind[c]), int(got.feature[c]), int(got.bin[c]))
+        theirs = (int(ref.kind[c]), int(ref.feature[c]), int(ref.bin[c]))
+        top = torch.topk(cand[c].reshape(-1).double(), 2).values.tolist()
+        tol = SPLIT_ATOL + SPLIT_RTOL * abs(top[0]) \
+            if math.isfinite(top[0]) else 0.0
+        decided = strict or not math.isfinite(top[0]) \
+            or top[0] - top[1] > tol
+        if mine != theirs:
+            alt = float(cand[c][mine])
+            msg = "%s child %d: winner (kind, feature, bin) %s, torch's " \
+                "%s (gains %r vs %r, runner-up %r)" \
+                % (name, c, mine, theirs, alt, top[0], top[1])
+            if decided or not abs(alt - top[0]) <= tol:
+                raise AssertionError(msg)
+            log("near tie, accepted: " + msg)
+            continue          # the other fields belong to other candidates
+        if bool(got.default_left[c]) != bool(ref.default_left[c]) \
+                or not torch.equal(got.go_left[c], ref.go_left[c]):
+            raise AssertionError("%s child %d: routing table or default "
+                                 "direction differs" % (name, c))
+        for fld in ("gain", "left_sum", "right_sum", "left_output",
+                    "right_output"):
+            x = getattr(got, fld)[c].double().reshape(-1)
+            y = getattr(ref, fld)[c].double().reshape(-1)
+            d = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
+            if not bool((d <= SPLIT_ATOL + SPLIT_RTOL * y.abs()).all()):
+                raise AssertionError("%s child %d: %s %s vs torch %s"
+                                     % (name, c, fld, x.tolist(),
+                                        y.tolist()))
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def check_one_kernel(name, work, seg, table, kw, strict=False):
+    """The one-kernel split (kernel on a CUDA tensor) against its plain
+    twin and against the three-launch chain K3 + K4 + parent - child on
+    the same input: routed bytes and lt equal to both; hist_left and
+    hist_right bit-equal to the chain's, counts equal to the twin's and
+    g/h within the f32 summation bound of its float64 sums; the SplitInfo
+    against the torch scan on the same histograms (compare_split_info).
+    Returns max |diff|."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+
+    dev = work.device
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    bound = max(seg[2], 1)
+    a, b, c = work.clone(), work.clone(), work.clone()
+    lt_a, hl_a, hr_a, got = P.one_kernel_split_planes(a, sg, table,
+                                                      cnt_bound=bound, **kw)
+    lt_b, hl_b, hr_b, _ = P.one_kernel_split_planes_plain(b, sg, table, **kw)
+    lt_c = P.partition_segment(c, sg, table, bound)
+    src, start, cnt = seg[:3]
+    n_left = int(lt_c)
+    ls = kw["left_smaller"]
+    hseg = [1 - src, start, n_left] if ls \
+        else [1 - src, start + n_left, cnt - n_left]
+    hkw = dict(num_bins=kw["num_bins"], num_feat=kw["num_feat"])
+    small = H.segment_histogram(c, torch.tensor(hseg, dtype=torch.int32,
+                                                device=dev),
+                                cnt_bound=bound, **hkw)
+    large = kw["parent_hist"] - small
+    hl_c, hr_c = (small, large) if ls else (large, small)
+    sync(dev)
+    if not int(lt_a) == int(lt_b) == n_left:
+        raise AssertionError("%s: lt %d, twin %d, K3 %d"
+                             % (name, int(lt_a), int(lt_b), n_left))
+    if not (torch.equal(a, b) and torch.equal(a, c)):
+        raise AssertionError("%s: routed bytes differ (%d from the twin, %d "
+                             "from K3)" % (name,
+                                           int(torch.count_nonzero(a != b)),
+                                           int(torch.count_nonzero(a != c))))
+    for x, y in ((hl_a, hl_c), (hr_a, hr_c)):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError("%s: child histograms not bit-equal to "
+                                 "K3 + K4" % name)
+    absum = H.segment_histogram_plain(
+        abs_work(c, kw["num_feat"]), torch.tensor(hseg, dtype=torch.int32),
+        **hkw).to(dev)
+    rel = H.sum_error_bound(bound) + H.sum_error_bound(hseg[2])
+    for x, y in ((hl_a, hl_b), (hr_a, hr_b)):
+        if not torch.equal(x[..., 2], y[..., 2]):
+            raise AssertionError("%s: count channel differs from the twin"
+                                 % name)
+        diff = (x - y).abs()
+        if bool((diff > rel * absum).any()):
+            raise AssertionError("%s: g/h off the twin, max |diff| %.3g"
+                                 % (name, float(diff.max())))
+    ref, cand = scan_reference(hl_c, hr_c, kw)
+    return compare_split_info(name, got, ref, cand, strict)
+
+
+def segment_split(work, seg, table, kw):
+    """``kw`` (split_inputs') re-based on the segment ``seg`` routed by
+    ``table``: its own parent histogram, the children's sums and which is
+    smaller, as the learner would have them."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (segment_histogram,
+                                                  segment_histogram_plain)
+    from lightgbm_tpu_torch.ops.partition import partition_segment_plain
+
+    dev = work.device
+    src, start, cnt, _ = seg
+    hkw = dict(num_bins=kw["num_bins"], num_feat=kw["num_feat"])
+    parent = segment_histogram(work, torch.tensor(seg[:3], dtype=torch.int32,
+                                                  device=dev),
+                               cnt_bound=max(cnt, 1), **hkw)
+    w = work.clone()
+    n_left = int(partition_segment_plain(
+        w, torch.tensor(seg, dtype=torch.int32, device=dev), table))
+    left = segment_histogram_plain(
+        w, torch.tensor([1 - src, start, n_left], dtype=torch.int32), **hkw)
+    ls = left[0].sum(dim=0)
+    total = parent[0].sum(dim=0)
+    return dict(kw, parent_hist=parent, left_smaller=2 * n_left <= cnt,
+                sums2=torch.stack([ls, total - ls]),
+                outs2=torch.zeros(2, device=dev))
+
+
+def phase_one_kernel(dev, rng):
+    """The one-kernel split against its twin and K3 + K4, seeded: segment
+    shapes (unaligned start, empty left or right side, a one-row child on
+    either side, a segment under one tile, the whole buffer) on the
+    numerical case, then every split-scan case of SPLIT_CASES at the
+    root."""
+    import torch
+    errs = {}
+    work, seg, table, kw = split_inputs(dev, split_case("numerical", rng))
+    n, col, nb = seg[2], seg[3], kw["num_bins"]
+    none = torch.zeros(nb, dtype=torch.bool, device=dev)
+    # one row of the segment goes left (bin 1 at its middle row, 0 else)
+    one = [0, 128 + 300, 2001, col]
+    w_one = work.clone()
+    w_one[0, col, one[1]:one[1] + one[2]] = 0
+    w_one[0, col, one[1] + one[2] // 2] = 1
+    t_one = torch.arange(nb, device=dev) == 1
+    shapes = (("unaligned", work, [0, 128 + 13, 7001, col], table),
+              ("empty_left", work, [0, 128 + 100, 777, col], none),
+              ("empty_right", work, [0, 128 + 100, 777, col], ~none),
+              ("under_one_tile", work, [0, 128 + 4095, 300, col], table),
+              ("whole", work, [0, 128, n, col], table),
+              ("one_row_left", w_one, one, t_one),
+              ("one_row_right", w_one, one, ~t_one))
+    for name, w, sg, tbl in shapes:
+        key = "one_kernel/%s" % name
+        errs[key] = check_one_kernel(key, w, sg, tbl,
+                                     segment_split(w, sg, tbl, kw))
+    for name in SPLIT_CASES:
+        key = "one_kernel/scan/%s" % name
+        w, sg, tbl, ckw = split_inputs(dev, split_case(name, rng))
+        errs[key] = check_one_kernel(key, w, sg, tbl, ckw,
+                                     strict=name in EXACT_TIE_CASES)
+    return errs
+
+
+def split_kernel_on_vs_off(dev, data, rows, leaves, iters=3):
+    """The same small training with the one-kernel split on and off on the
+    card: train logloss within LOGLOSS_TOL (the kernel's scan sums in
+    another order than torch's, so near-tie splits may flip), the split
+    agreement printed. On the card the on run asks for ``auto``, which
+    must resolve to on. Launch counts are zeroed before the on run and
+    read after it."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = data[0][:rows], data[1][:rows]
+    out = {}
+    for sk, knob in (("off", "off"),
+                     ("on", "auto" if dev.type == "cuda" else "on")):
+        params = dict(train_params(dev, leaves, {"tpu_split_kernel": knob}),
+                      metric=["binary_logloss"])
+        ds = lgt.Dataset(X, label=y, params=params)
+        ds.construct()
+        sync(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(params, ds, iters)
+        sync(dev)
+        if bst.inner.learner._kw["split_kernel"] != sk:
+            raise AssertionError("tpu_split_kernel=%s resolved to %s, not %s"
+                                 % (knob, bst.inner.learner._kw[
+                                     "split_kernel"], sk))
+        out[sk] = (bst, time.perf_counter() - t0, bst.eval_train()[0][2],
+                   kernels.launch_counts())
+    (off, t_off, l_off, _), (on, t_on, l_on, counts) = out["off"], out["on"]
+    agree, total, first = split_agreement(on, off)
+    log("one-kernel on vs off: %d rows x %d iterations; %d of %d splits "
+        "agree (first tree %d of %d); train logloss on %.7f off %.7f; on "
+        "%.2f s, off %.2f s; on launches %s"
+        % (rows, iters, agree, total, first[0], first[1], l_on, l_off, t_on,
+           t_off, counts))
+    if abs(l_on - l_off) > LOGLOSS_TOL:
+        raise AssertionError("train logloss one-kernel %.6f vs three-launch "
+                             "%.6f" % (l_on, l_off))
+    if dev.type == "cuda" and counts.get("one_kernel_split", 0) <= 0:
+        raise AssertionError("the on run never launched one_kernel_split")
+    return dict(splits_agree=agree, splits=total, first_tree=first,
+                logloss_on=l_on, logloss_off=l_off)
+
+
+def full_width_one_kernel(bst, dev, errs, timed=True):
+    """The one-kernel split against its twin and K3 + K4 at the training
+    shapes: the root segment of all rows packed from the trained model's
+    gradients, routed by the split find_best_split takes on its histogram.
+    Then, when ``timed`` (on the card), the kernel's ms, the twin's, the
+    three-launch path's (K3, K4 on the smaller child, the subtraction and
+    the torch scan, as the learner runs them) and the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    g = bst.inner
+    lrn = g.learner
+    bins = lrn.bins
+    n, F = bins.shape
+    B = lrn.num_bin_hist
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    guard, width = P.work_spec(F)
+    work = torch.zeros((2, width, P.planes_npad(n, guard)),
+                       dtype=torch.uint8, device=dev)
+    parent = P.pack_planes_fold_root(work, bins, ghc, guard, num_bins=B,
+                                     exact=True)
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    info = find_best_split(parent, torch.sum(ghc, dim=0), lrn.meta, fmask,
+                           lrn.hp)
+    seg = [0, guard, n, int(info.feature)]
+    table = info.go_left
+    kw = dict(left_smaller=bool(info.left_sum[2] <= info.right_sum[2]),
+              depth=1, parent_hist=parent, meta=lrn.meta, fmask=fmask,
+              sums2=torch.stack([info.left_sum, info.right_sum]),
+              outs2=torch.stack([info.left_output, info.right_output]),
+              lows2=torch.full((2,), float("-inf"), device=dev),
+              ups2=torch.full((2,), float("inf"), device=dev), hp=lrn.hp,
+              num_bins=B, num_feat=F)
+    errs["one_kernel/full_width"] = check_one_kernel(
+        "one_kernel/full_width", work, seg, table, kw)
+    if not timed:
+        return {}
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    k_ms = cuda_ms(lambda: P.one_kernel_split_planes(work, sg, table,
+                                                     cnt_bound=n, **kw))
+    p_ms = cuda_ms(lambda: P.one_kernel_split_planes_plain(work, sg, table,
+                                                           **kw),
+                   iters=3, warmup=1)
+    ls = kw["left_smaller"]
+
+    def three_launch():
+        lt = P.partition_segment(work, sg, table, n)
+        hseg = torch.empty(3, dtype=torch.int32, device=dev)
+        hseg[0] = 1
+        if ls:
+            hseg[1] = guard
+            hseg[2:3] = lt
+        else:
+            hseg[1:2] = lt + guard
+            hseg[2:3] = n - lt
+        small = H.segment_histogram(work, hseg, num_bins=B, num_feat=F,
+                                    cnt_bound=n)
+        large = parent - small
+        hl, hr = (small, large) if ls else (large, small)
+        return find_best_split(torch.stack([hl, hr]), kw["sums2"],
+                               kw["meta"], kw["fmask"], kw["hp"],
+                               parent_output=kw["outs2"],
+                               leaf_lower=kw["lows2"], leaf_upper=kw["ups2"],
+                               node_depth=kw["depth"])
+
+    t_ms = cuda_ms(three_launch)
+    n_left = int(P.partition_segment(work.clone(), sg, table, n))
+    n_small = n_left if ls else n - n_left
+    # the function must read and write each parent row once and read the
+    # histograms; the rows of the smaller child can be summed while they
+    # are scattered. The design reads them again in phase B: its own floor
+    # counts width * n_small bytes more.
+    f_bytes = 2 * width * n + 3 * F * B * 12
+    log("full width one-kernel split: %.4f ms (twin %.2f, three-launch "
+        "K3 + K4 + torch scan %.4f) at the %d-row root, %d rows in the "
+        "smaller child; byte floor of the function %.5f ms, of the "
+        "three-phase design %.5f ms"
+        % (k_ms, p_ms, t_ms, n, n_small, f_bytes / PEAK_BYTES_PER_S * 1e3,
+           (f_bytes + width * n_small) / PEAK_BYTES_PER_S * 1e3))
+    return {"one_kernel_split": dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/one_kernel_split.cu",
+        replaces="lightgbm_tpu/ops/partition.py:1465",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("one_kernel/")),
+        ms=k_ms, plain_ms=p_ms, library_ms=None, three_launch_ms=t_ms,
+        bytes=f_bytes, ops=n + n_small * F * 5)}
+
+
+def phase_one_kernel_train(dev, data, trees, leaves, planes, host_rows):
+    """The slice-4 path at full width: ``lightgbm_tpu_torch.train`` with
+    ``tpu_split_kernel=on`` (one launch per split) on phase 3's data, its
+    launch counts (one_kernel_split = splits, no K3, K4 = the roots), the
+    per-tree checks, byte-equal determinism, its profiled busy share, on
+    vs off and card vs host on ``host_rows`` rows, and valid AUC within
+    ONE_KERNEL_AUC_TOL of phase 3's ``planes`` summary."""
+    ds = build_datasets(dev, data, leaves, ONE_KERNEL_PARAMS)
+    bst, counts, summary = phase_train(dev, ds, trees, leaves,
+                                       ONE_KERNEL_PARAMS)
+    want = {"one_kernel_split": summary["splits"], "partition_segment": 0,
+            "segment_histogram": trees}
+    if dev.type == "cuda" and any(counts.get(k, 0) != v
+                                  for k, v in want.items()):
+        raise AssertionError("one-kernel training launches %s, want %s"
+                             % (counts, want))
+    check_determinism(dev, ds[0], leaves, extra=ONE_KERNEL_PARAMS)
+    if dev.type == "cuda":
+        summary["profile"] = profile_iteration(dev, ds[0], leaves,
+                                               ONE_KERNEL_PARAMS)
+    summary["on_vs_off"] = split_kernel_on_vs_off(dev, data, host_rows,
+                                                  leaves)
+    summary["card_vs_host"] = card_vs_host(dev, data, host_rows, leaves,
+                                           extra=ONE_KERNEL_PARAMS)
+    gap = abs(summary["valid_auc"] - planes["valid_auc"])
+
+    def busy(s):
+        p = s.get("profile") or {}
+        return "%.1f%%" % (100.0 * p["device_busy_ms"] / p["wall_ms"]) \
+            if p.get("device_busy_ms") else "not measured"
+
+    log("valid auc after %d trees: three-launch %.5f, one-kernel %.5f "
+        "(|diff| %.5f, limit %.3f); ms per tree %.1f vs %.1f; device busy "
+        "%s vs %s" % (trees, planes["valid_auc"], summary["valid_auc"], gap,
+                      ONE_KERNEL_AUC_TOL, planes["wall_per_tree_ms"],
+                      summary["wall_per_tree_ms"], busy(planes),
+                      busy(summary)))
+    if gap > ONE_KERNEL_AUC_TOL:
+        raise AssertionError("one-kernel valid auc %.5f vs three-launch %.5f"
+                             % (summary["valid_auc"], planes["valid_auc"]))
+    return bst, counts, summary
+
+
 def phase_serve(bst, train, rng, binned_rows):
     """The main path; returns (outputs to check, launch counts)."""
     import numpy as np
@@ -1160,8 +1686,10 @@ def phase_timings(bst, out, dev, errs, rows):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r.setdefault("library_ms", None)
-        log("timing %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms (%s)"
-            % (name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+        log("timing %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms (%s)%s"
+            % (name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+               ", three-launch path %.4f ms" % r["three_launch_ms"]
+               if "three_launch_ms" in r else ""))
     return rows
 
 
@@ -1212,7 +1740,9 @@ def main(argv=None):
     log("build: %d kernels in %.1f s" % (len(kernels.KERNELS), secs))
 
     log("== phase 2: kernels vs plain")
+    import numpy as np
     errs = phase_kernels(dev, args.seed)
+    errs.update(phase_one_kernel(dev, np.random.RandomState(args.seed + 3)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -1229,6 +1759,11 @@ def main(argv=None):
     summary_p["profile"] = profile_iteration(dev, planes_ds[0], args.leaves)
     summary_p["card_vs_host"] = card_vs_host(dev, data, args.host_rows,
                                              args.leaves)
+    rows.update(full_width_one_kernel(bst_p, dev, errs))
+
+    log("== phase 3b: full-width training, one kernel per split (%s)" % card)
+    _, counts_k, summary_k = phase_one_kernel_train(
+        dev, data, args.trees, args.leaves, summary_p, args.host_rows)
 
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
@@ -1264,7 +1799,6 @@ def main(argv=None):
         dev, data, args.host_rows, args.leaves, iters=4, extra=GOSS_PARAMS)
 
     log("== phase 6: serving the quantized model")
-    import numpy as np
     rng = np.random.RandomState(args.seed + 7)
     g = bst_q.inner
     log("model: %d trees x %d leaves, %d features, device %s"
@@ -1296,10 +1830,13 @@ def main(argv=None):
                 "segment_histogram_rows": counts_r["segment_histogram_rows"],
                 "route_rows": counts_p["route_rows"] + counts_q["route_rows"]
                 + serve_counts["route_rows"],
-                "forest_predict": serve_counts["forest_predict"]}
-    log("launches: planes training %s; quantized training %s; rows run %s; "
-        "serving %s" % (counts_p, counts_q, counts_r, serve_counts))
+                "forest_predict": serve_counts["forest_predict"],
+                "one_kernel_split": counts_k["one_kernel_split"]}
+    log("launches: planes training %s; one-kernel training %s; quantized "
+        "training %s; rows run %s; serving %s"
+        % (counts_p, counts_k, counts_q, counts_r, serve_counts))
     log("train summary planes %s" % json.dumps(summary_p))
+    log("train summary one-kernel %s" % json.dumps(summary_k))
     log("train summary quantized %s" % json.dumps(summary_q))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}

@@ -245,10 +245,14 @@ class GBDT:
             # launches: one partition and one smaller-child histogram per
             # split, plus one root histogram per tree on either layout (the
             # JAX planes pack folds its root into the pack pass; the
-            # port's pack is a torch copy and the root its own launch)
+            # port's pack is a torch copy and the root its own launch).
+            # The one-kernel split is one launch per split, counted as a
+            # partition launch as the JAX package counts it.
+            one = self.learner._kw["split_kernel"] == "on"
             telemetry.count("learner/partition_launches", splits)
-            telemetry.count("learner/hist_launches", splits + 1)
-            telemetry.count("learner/scan_launches", splits)
+            telemetry.count("learner/hist_launches", 1 if one else splits + 1)
+            telemetry.count("learner/scan_launches", 0 if one else splits)
+            telemetry.gauge("learner/launches_per_split", 1 if one else 3)
             if tree.num_leaves > 1:
                 any_nonconstant = True
         with self._cache_lock:

@@ -43,68 +43,31 @@
 //      land in the two runs of consecutive destination rows.
 // start, cnt, feat and src are read from a device array, so the host never
 // waits on the card to launch; the grid is sized by a host upper bound of
-// cnt and tiles past the segment do nothing.
+// cnt and tiles past the segment do nothing. The per-tile count and scatter
+// live in segment_partition.cuh, which phase A of one_kernel_split.cu runs
+// too.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_partition.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 16;                      // 32-lane steps per warp
-constexpr int kTile = kWarps * kSteps * 32;     // 4096 lanes per block
-constexpr unsigned kFull = 0xffffffffu;
-
-// Byte `feat` of row `row` of one buffer: planes hold byte w of row i at
-// w * npad + i, rows at i * W + w.
-template <bool kRows>
-__device__ __forceinline__ uint8_t bin_at(const uint8_t* buf, int W, int npad,
-                                          int feat, long row) {
-  return kRows ? buf[row * W + feat] : buf[(size_t)feat * npad + row];
-}
+using namespace lgbt_part;
 
 template <bool kRows>
-__device__ __forceinline__ bool goes_left(const uint8_t* buf, int W, int npad,
-                                          int feat, long row,
-                                          const uint8_t* tbl) {
-  return tbl[bin_at<kRows>(buf, W, npad, feat, row)] != 0;
-}
-
-// The (B,) table into shared memory; bins past B route right.
-__device__ __forceinline__ void load_table(uint8_t* s_tbl,
-                                           const uint8_t* table, int nbins) {
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-    s_tbl[b] = b < nbins ? table[b] : 0;
-  }
-  __syncthreads();
-}
-
-template <bool kRows>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPartThreads)
 count_kernel(const uint8_t* __restrict__ work, int W, int npad,
              const int* __restrict__ seg, const uint8_t* __restrict__ table,
              int nbins, int* __restrict__ counts) {
   __shared__ uint8_t s_tbl[256];
-  __shared__ int s_warp[kWarps];
+  __shared__ int s_warp[kPartWarps];
   load_table(s_tbl, table, nbins);
   const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
   const uint8_t* buf = work + (size_t)src * W * npad;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long base = (long)blockIdx.x * kTile + warp * (kSteps * 32);
-  int n = 0;
-  for (int s = 0; s < kSteps; ++s) {
-    const long i = base + s * 32 + lane;
-    const bool g = i < cnt &&
-                   goes_left<kRows>(buf, W, npad, feat, start + i, s_tbl);
-    n += __popc(__ballot_sync(kFull, g));
-  }
-  if (lane == 0) s_warp[warp] = n;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int w = 0; w < kWarps; ++w) t += s_warp[w];
-    counts[blockIdx.x] = t;
-  }
+  const int t = part_count_tile<kRows>(buf, W, npad, start, cnt, feat, s_tbl,
+                                       blockIdx.x, s_warp);
+  if (threadIdx.x == 0) counts[blockIdx.x] = t;
 }
 
 // In-place exclusive scan of the per-tile counts; *lt = their total.
@@ -131,61 +94,19 @@ scan_kernel(int* __restrict__ counts, int nblocks, int* __restrict__ lt) {
 }
 
 template <bool kRows>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPartThreads)
 scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
                const int* __restrict__ seg, const uint8_t* __restrict__ table,
                int nbins, const int* __restrict__ offsets,
                const int* __restrict__ lt_p) {
   __shared__ uint8_t s_tbl[256];
-  __shared__ int s_warp[kWarps];
+  __shared__ int s_warp[kPartWarps];
   load_table(s_tbl, table, nbins);
   const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
-  const int lt = *lt_p;
   const uint8_t* srcp = work + (size_t)src * W * npad;
   uint8_t* dstp = work + (size_t)(1 - src) * W * npad;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long base = (long)blockIdx.x * kTile + warp * (kSteps * 32);
-  unsigned masks[kSteps];
-  int n = 0;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const long i = base + s * 32 + lane;
-    const bool g = i < cnt &&
-                   goes_left<kRows>(srcp, W, npad, feat, start + i, s_tbl);
-    masks[s] = __ballot_sync(kFull, g);
-    n += __popc(masks[s]);
-  }
-  if (lane == 0) s_warp[warp] = n;
-  __syncthreads();
-  int left_before = offsets[blockIdx.x];
-  for (int w = 0; w < warp; ++w) left_before += s_warp[w];
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const long i = base + s * 32 + lane;
-    const unsigned m = masks[s];
-    const int lb = left_before + __popc(m & below);   // left rows before i
-    long long dst = -1;                               // -1: past the segment
-    if (i < cnt) {
-      dst = ((m >> lane) & 1u) ? (long long)start + lb
-                               : (long long)start + lt + (i - lb);
-    }
-    if (kRows && base + s * 32 < cnt) {   // warp-uniform test
-      // the warp's 32 source rows are one run of 32 * W bytes
-      const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
-      for (int k = lane; k < 32 * W; k += 32) {
-        const int r = k / W;
-        const long long d = __shfl_sync(kFull, dst, r);
-        if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
-      }
-    } else if (!kRows && dst >= 0) {
-      const long from = start + i;
-      for (int w = 0; w < W; ++w) {
-        dstp[(size_t)w * npad + dst] = srcp[(size_t)w * npad + from];
-      }
-    }
-    left_before += __popc(m);
-  }
+  part_scatter_tile<kRows>(srcp, dstp, W, npad, start, cnt, feat, *lt_p,
+                           s_tbl, blockIdx.x, offsets[blockIdx.x], s_warp);
 }
 
 template <bool kRows>
@@ -198,15 +119,15 @@ int launch_partition(void* work, int W, int npad, const void* seg,
   const uint8_t* tb = static_cast<const uint8_t*>(table);
   int* counts = static_cast<int*>(scratch);
   int* ltp = static_cast<int*>(lt);
-  count_kernel<kRows><<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb, nbins,
-                                                   counts);
+  count_kernel<kRows><<<nblocks, kPartThreads, 0, s>>>(w, W, npad, sg, tb,
+                                                       nbins, counts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   scan_kernel<<<1, 1024, 0, s>>>(counts, nblocks, ltp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  scatter_kernel<kRows><<<nblocks, kThreads, 0, s>>>(w, W, npad, sg, tb,
-                                                     nbins, counts, ltp);
+  scatter_kernel<kRows><<<nblocks, kPartThreads, 0, s>>>(
+      w, W, npad, sg, tb, nbins, counts, ltp);
   return static_cast<int>(cudaGetLastError());
 }
 

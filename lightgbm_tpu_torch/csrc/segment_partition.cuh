@@ -1,0 +1,129 @@
+// Device code of the stable two-way segment partition (K3), shared by
+// csrc/partition_segment.cu (the three-launch path) and phase A of
+// csrc/one_kernel_split.cu, so that both route the same bytes in the same
+// order. See partition_segment.cu for the data contract and the design.
+//
+// A tile is kPartTile = 4096 rows handled by one 256-thread block: each of
+// its 8 warps owns 16 consecutive 32-row steps. part_count_tile counts the
+// tile's go-left rows; part_scatter_tile writes the tile's rows to the
+// destination buffer given the number of left rows before the tile.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lgbt_part {
+
+constexpr int kPartThreads = 256;
+constexpr int kPartWarps = kPartThreads / 32;
+constexpr int kPartSteps = 16;                              // steps per warp
+constexpr int kPartTile = kPartWarps * kPartSteps * 32;     // 4096 rows
+constexpr unsigned kPartFull = 0xffffffffu;
+
+// Byte `feat` of row `row` of one buffer: planes hold byte w of row i at
+// w * npad + i, rows at i * W + w.
+template <bool kRows>
+__device__ __forceinline__ uint8_t bin_at(const uint8_t* buf, int W, int npad,
+                                          int feat, long row) {
+  return kRows ? buf[row * W + feat] : buf[(size_t)feat * npad + row];
+}
+
+template <bool kRows>
+__device__ __forceinline__ bool goes_left(const uint8_t* buf, int W, int npad,
+                                          int feat, long row,
+                                          const uint8_t* tbl) {
+  return tbl[bin_at<kRows>(buf, W, npad, feat, row)] != 0;
+}
+
+// The (B,) table into shared memory; bins past B route right.
+__device__ __forceinline__ void load_table(uint8_t* s_tbl,
+                                           const uint8_t* table, int nbins) {
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
+    s_tbl[b] = b < nbins ? table[b] : 0;
+  }
+  __syncthreads();
+}
+
+// Go-left rows of tile `tile` of the segment [start, start + cnt) of
+// `buf`; the total is returned to thread 0 (other threads get 0).
+template <bool kRows>
+__device__ __forceinline__ int part_count_tile(const uint8_t* buf, int W,
+                                               int npad, int start, int cnt,
+                                               int feat, const uint8_t* s_tbl,
+                                               long tile, int* s_warp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long base = tile * kPartTile + warp * (kPartSteps * 32);
+  int n = 0;
+  for (int s = 0; s < kPartSteps; ++s) {
+    const long i = base + s * 32 + lane;
+    const bool g = i < cnt &&
+                   goes_left<kRows>(buf, W, npad, feat, start + i, s_tbl);
+    n += __popc(__ballot_sync(kPartFull, g));
+  }
+  __syncthreads();     // s_warp is free: a previous tile's readers are done
+  if (lane == 0) s_warp[warp] = n;
+  __syncthreads();
+  int t = 0;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kPartWarps; ++w) t += s_warp[w];
+  }
+  return t;
+}
+
+// Rows of tile `tile` from srcp to dstp: a left row goes to start + (left
+// rows before it), a right row to start + lt + (right rows before it).
+// `left_before_tile` is the segment's go-left count in the tiles before
+// this one. Each warp recomputes its ballots (kept in registers) and ranks
+// each row by popc of the ballot below it.
+template <bool kRows>
+__device__ __forceinline__ void part_scatter_tile(
+    const uint8_t* __restrict__ srcp, uint8_t* __restrict__ dstp, int W,
+    int npad, int start, int cnt, int feat, int lt, const uint8_t* s_tbl,
+    long tile, int left_before_tile, int* s_warp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long base = tile * kPartTile + warp * (kPartSteps * 32);
+  unsigned masks[kPartSteps];
+  int n = 0;
+#pragma unroll
+  for (int s = 0; s < kPartSteps; ++s) {
+    const long i = base + s * 32 + lane;
+    const bool g = i < cnt &&
+                   goes_left<kRows>(srcp, W, npad, feat, start + i, s_tbl);
+    masks[s] = __ballot_sync(kPartFull, g);
+    n += __popc(masks[s]);
+  }
+  __syncthreads();     // s_warp is free: a previous tile's readers are done
+  if (lane == 0) s_warp[warp] = n;
+  __syncthreads();
+  int left_before = left_before_tile;
+  for (int w = 0; w < warp; ++w) left_before += s_warp[w];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < kPartSteps; ++s) {
+    const long i = base + s * 32 + lane;
+    const unsigned m = masks[s];
+    const int lb = left_before + __popc(m & below);   // left rows before i
+    long long dst = -1;                               // -1: past the segment
+    if (i < cnt) {
+      dst = ((m >> lane) & 1u) ? (long long)start + lb
+                               : (long long)start + lt + (i - lb);
+    }
+    if (kRows && base + s * 32 < cnt) {   // warp-uniform test
+      // the warp's 32 source rows are one run of 32 * W bytes
+      const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
+      for (int k = lane; k < 32 * W; k += 32) {
+        const int r = k / W;
+        const long long d = __shfl_sync(kPartFull, dst, r);
+        if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
+      }
+    } else if (!kRows && dst >= 0) {
+      const long from = start + i;
+      for (int w = 0; w < W; ++w) {
+        dstp[(size_t)w * npad + dst] = srcp[(size_t)w * npad + from];
+      }
+    }
+    left_before += __popc(m);
+  }
+}
+
+}  // namespace lgbt_part

@@ -9,8 +9,11 @@ smaller child's contiguous segment (``ops/histogram.segment_histogram`` /
 ``segment_histogram_rows``, or ``segment_histogram_q`` for int8 quantized
 gradients, which train on the rows layout only) with the sibling as parent
 minus child, and the split scan over both children
-(``ops/split.find_best_split``). After the tree, :func:`assign_leaves`
-routes every row to its leaf (the ``route_rows`` kernel).
+(``ops/split.find_best_split``). With ``split_kernel="on"`` (the JAX
+package's ``tpu_split_kernel=on``, planes layout) the three run as ONE
+launch per split, ``ops/partition.one_kernel_split_planes``. After the
+tree, :func:`assign_leaves` routes every row to its leaf (the
+``route_rows`` kernel).
 
 The JAX ``while_loop`` becomes a Python loop whose state stays on the
 device. What the host needs to issue a split (the chosen leaf, whether its
@@ -184,6 +187,37 @@ def _make_best_for(meta, hp, feature_mask):
     return best_for
 
 
+def split_kernel_ineligible(*, work_layout: str, hist_mode: str, bundle,
+                            num_bin_hist: int, num_bin: int, comm, hp,
+                            hist_chunk: int = 0) -> list:
+    """Why ``split_kernel="on"`` (one launch per split) cannot run here;
+    empty when it can. The JAX package's gate (learner.py, the
+    ``one_kernel`` premises): the kernel inlines a plain
+    ``find_best_split`` over the planes layout, so it needs serial comm, no
+    feature bundles, no CEGB and scalar (basic) monotone bounds;
+    ``hist_chunk`` keeps the reference's 128-row alignment rule so both
+    packages resolve the knob alike. By-node sampling, extra-trees and
+    interaction constraints, the rest of the JAX gate, never reach it: the
+    learner refuses them (ROADMAP A3, A10). The port's host twin is
+    eligible wherever the kernel is."""
+    bad = []
+    if work_layout != "planes":
+        bad.append("needs the planes work layout")
+    if hist_mode == "int8":
+        bad.append("int8 histograms unsupported")
+    if bundle is not None or num_bin_hist != num_bin:
+        bad.append("EFB feature bundling unsupported")
+    if comm.axis is not None:
+        bad.append("multi-device comm unsupported")
+    if hp.use_cegb:
+        bad.append("CEGB penalties unsupported")
+    if hp.has_monotone and (hp.mono_intermediate or hp.mono_advanced):
+        bad.append("intermediate/advanced monotone unsupported")
+    if hist_chunk % 128:
+        bad.append("hist_chunk must be a multiple of 128")
+    return bad
+
+
 def build_tree_partitioned(
     bins: torch.Tensor,          # (N, G) uint8 bundle columns
     ghc: torch.Tensor,           # (N, 3) f32 (grad, hess, inbag)
@@ -198,6 +232,7 @@ def build_tree_partitioned(
     bundle: Optional[Dict[str, torch.Tensor]] = None,
     hist_mode: str = "hilo",
     work_layout: str = "planes",
+    split_kernel: str = "off",
     key=None,
     dither_offset: int = 0,
     comm: Comm = Comm(),
@@ -209,7 +244,10 @@ def build_tree_partitioned(
     contract: serial_tree_learner.cpp:324 FindBestSplits over the smaller
     leaf + histogram subtraction, data_partition.hpp:101 Split).
 
-    ``work_layout`` is ``planes`` or ``rows``; ``hist_mode`` ``hilo``,
+    ``work_layout`` is ``planes`` or ``rows``; ``split_kernel`` ``on`` runs
+    each split as one launch (``ops/partition.one_kernel_split_planes``,
+    planes only: :func:`split_kernel_ineligible` says where it cannot run,
+    and a ``ValueError`` names it "not eligible"); ``hist_mode`` ``hilo``,
     ``bf16`` or ``int8`` (rows only: gradients packed as int8 with
     per-tree scales and a stochastic-rounding dither drawn from
     ``fold_in(key, 987123)`` at row offset ``dither_offset``, as the JAX
@@ -228,7 +266,8 @@ def build_tree_partitioned(
     """
     from .ops.histogram import (dequant_scale, segment_histogram,
                                 segment_histogram_q, segment_histogram_rows)
-    from .ops.partition import (pack_planes_fold_root, pack_rows,
+    from .ops.partition import (OneKernelSplit, pack_planes_fold_root,
+                                pack_rows,
                                 pack_rows_quantized, partition_segment,
                                 partition_segment_rows, quantize_scales,
                                 work_buffer, work_spec)
@@ -250,6 +289,15 @@ def build_tree_partitioned(
     if quantized and key is None:
         raise ValueError("int8 quantized histograms need a key for the "
                          "stochastic-rounding dither")
+    one_kernel = split_kernel == "on"
+    if one_kernel:
+        bad = split_kernel_ineligible(work_layout=work_layout,
+                                      hist_mode=hist_mode, bundle=bundle,
+                                      num_bin_hist=bm, num_bin=num_bin,
+                                      comm=comm, hp=hp)
+        if bad:
+            raise ValueError("tpu_split_kernel=on is not eligible here: "
+                             + "; ".join(bad))
     guard, _ = work_spec(num_grp, quantized)
     if work is None:
         work = work_buffer(n, num_grp, work_layout, quantized, dev)
@@ -287,6 +335,11 @@ def build_tree_partitioned(
                                      cnt_bound=cnt_bound)
         root_hist = pack_planes_fold_root(work, bins, ghc, guard,
                                           num_bins=bm, exact=exact)
+    if one_kernel:
+        # checked and set up once per tree; each split fills in its own
+        one_kernel_split = OneKernelSplit(work, meta, feature_mask, hp,
+                                          num_bins=bm, num_feat=num_grp,
+                                          exact=exact, cnt_max=n)
 
     def feat_view(hg, total_sum):
         """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature
@@ -377,16 +430,6 @@ def build_tree_partitioned(
         log_rs[s] = i_rs
         log_go[s] = i_go
 
-        # ---- physical partition of the parent's segment ----
-        seg = hdr.index_select(0, seg_cols)     # [src, start, cnt, col]
-        lt = part_fn(work, seg, route_table(i_go, i_feat), cnt)
-        new_parity = 1 - parity
-        seg_tab[new, 0:1] = lt + start
-        seg_tab[new, 1:2] = cnt - lt
-        seg_tab[leaf, 1:2] = lt
-        seg_tab[leaf, 2] = new_parity
-        seg_tab[new, 2] = new_parity
-
         # ---- stats bookkeeping ----
         leaf_sum[leaf] = i_ls
         leaf_sum[new] = i_rs
@@ -408,32 +451,49 @@ def build_tree_partitioned(
                                           lo_p)
             leaf_upper[new] = torch.where(mono < 0, torch.minimum(up_p, mid),
                                           up_p)
-
-        # ---- histograms: smaller child's segment, sibling by subtraction
-        hseg = torch.empty(3, dtype=i32, device=dev)
-        hseg[0] = new_parity
-        if left_smaller:
-            hseg[1] = start
-            hseg[2:3] = lt
-        else:
-            hseg[1:2] = lt + start
-            hseg[2:3] = cnt - lt
-        hist_small = comm.hist(hist_fn(hseg, cnt))
-        hist_large = hist_pool[leaf] - hist_small
-        hist_left, hist_right = (hist_small, hist_large) if left_smaller \
-            else (hist_large, hist_small)
-        hist_pool[leaf] = hist_left
-        hist_pool[new] = hist_right
-
-        # ---- refresh best splits for both children in one batched scan
         pair_sum = torch.stack([i_ls, i_rs])
         pair = slice(leaf, leaf + 1), slice(new, new + 1)
         pair_out = torch.cat([leaf_out[pair[0]], leaf_out[pair[1]]])
         pair_lo = torch.cat([leaf_lower[pair[0]], leaf_lower[pair[1]]])
         pair_up = torch.cat([leaf_upper[pair[0]], leaf_upper[pair[1]]])
-        infos = best_for(feat_view(torch.stack([hist_left, hist_right]),
-                                   pair_sum),
-                         pair_sum, pair_out, pair_lo, pair_up, d)
+        new_parity = 1 - parity
+        seg = hdr.index_select(0, seg_cols)     # [src, start, cnt, col]
+
+        if one_kernel:
+            # ---- ONE launch: partition + smaller-child histogram + the
+            # split scan of both children (bounds and outputs set above)
+            lt, hist_left, hist_right, infos = one_kernel_split(
+                seg, i_go, left_smaller, d, hist_pool[leaf], pair_sum,
+                pair_out, pair_lo, pair_up, cnt_bound=cnt)
+        else:
+            # ---- physical partition of the parent's segment ----
+            lt = part_fn(work, seg, route_table(i_go, i_feat), cnt)
+            # ---- histograms: smaller child's segment, sibling by
+            # subtraction
+            hseg = torch.empty(3, dtype=i32, device=dev)
+            hseg[0] = new_parity
+            if left_smaller:
+                hseg[1] = start
+                hseg[2:3] = lt
+            else:
+                hseg[1:2] = lt + start
+                hseg[2:3] = cnt - lt
+            hist_small = comm.hist(hist_fn(hseg, cnt))
+            hist_large = hist_pool[leaf] - hist_small
+            hist_left, hist_right = (hist_small, hist_large) \
+                if left_smaller else (hist_large, hist_small)
+            # ---- refresh best splits for both children in one batched
+            # scan
+            infos = best_for(feat_view(torch.stack([hist_left, hist_right]),
+                                       pair_sum),
+                             pair_sum, pair_out, pair_lo, pair_up, d)
+        seg_tab[new, 0:1] = lt + start
+        seg_tab[new, 1:2] = cnt - lt
+        seg_tab[leaf, 1:2] = lt
+        seg_tab[leaf, 2] = new_parity
+        seg_tab[new, 2] = new_parity
+        hist_pool[leaf] = hist_left
+        hist_pool[new] = hist_right
         if max_depth > 0 and d >= max_depth:
             infos = infos._replace(gain=torch.full_like(infos.gain,
                                                         float("-inf")))
@@ -476,7 +536,9 @@ class SerialTreeLearner:
     analog: SerialTreeLearner + the factory at tree_learner.cpp:15).
 
     Settings the port cannot honour raise :class:`LightGBMError` naming
-    their ROADMAP item; nothing warns and switches path."""
+    their ROADMAP item. The one exception is the reference's own:
+    ``tpu_split_kernel=on`` where the one-kernel split is ineligible warns
+    and trains the three-launch path, as the JAX package does."""
 
     def __init__(self, config, dataset, device: Optional[torch.device] = None,
                  bins: Optional[torch.Tensor] = None,
@@ -654,23 +716,84 @@ class SerialTreeLearner:
                 rec(knob, v, "hand-written CUDA kernel %s" % src if cuda
                     else "host tensors: the kernel's plain torch twin")
             kernels[knob] = v
-        for knob, item in (("tpu_split_kernel", "B7"),
-                           ("tpu_goss_compact", "A3")):
-            v = getattr(cfg, knob)
-            if v == "on":
-                _refuse("%s=on" % knob, item)
-            if v == "auto":
-                rec(knob, "off", "not ported (ROADMAP %s)" % item)
+        if cfg.tpu_goss_compact == "on":
+            _refuse("tpu_goss_compact=on", "A3")
+        if cfg.tpu_goss_compact == "auto":
+            rec("tpu_goss_compact", "off", "not ported (ROADMAP A3)")
+        split_kernel = self._resolve_split_kernel(layout, mode, cuda, rec)
         return dict(hp=self.hp, num_leaves=self.num_leaves,
                     num_bin=self.num_bin, max_depth=int(cfg.max_depth),
                     num_bin_hist=self.num_bin_hist, bundle=self.bundle,
                     hist_mode=mode, comm=self.comm,
                     part_kernel=kernels["tpu_partition_kernel"],
                     hist_kernel=kernels["tpu_hist_kernel"],
-                    work_layout=layout,
+                    work_layout=layout, split_kernel=split_kernel,
                     dither_offset=dither_offset(
                         int(self.bins.shape[1]), int(cfg.tpu_part_chunk),
                         int(cfg.tpu_hist_chunk)))
+
+    def _resolve_split_kernel(self, layout: str, mode: str, cuda: bool,
+                              rec) -> str:
+        """``tpu_split_kernel``. ``auto`` is on where the one-kernel split
+        can run on the card (:func:`split_kernel_ineligible` is empty):
+        one launch per split there trains the same trees up to near ties,
+        several times faster than three launches and the torch scan
+        (PERF.md). The JAX package resolves ``auto`` to off only until its
+        kernel is measured on hardware. On the host ``auto`` is off: the
+        twin is the three-launch chain itself. ``on`` is on wherever it is
+        eligible, on the card (``csrc/one_kernel_split.cu``) and on the
+        host (the twin); ``on`` where ineligible warns and trains the
+        three-launch path, the reference's own downgrade. Each ``auto``
+        resolution is recorded with its reason."""
+        from .utils.log import Log
+
+        cfg = self.config
+        sk = cfg.tpu_split_kernel
+        if sk == "off":
+            return "off"
+        bad = split_kernel_ineligible(
+            work_layout=layout, hist_mode=mode, bundle=self.bundle,
+            num_bin_hist=self.num_bin_hist, num_bin=self.num_bin,
+            comm=self.comm, hp=self.hp, hist_chunk=int(cfg.tpu_hist_chunk))
+        if sk == "auto":
+            if not cuda:
+                why = ("host tensors: the plain twin of "
+                       "csrc/one_kernel_split.cu is the three-launch chain")
+            elif bad:
+                why = "structurally ineligible: " + "; ".join(bad)
+            else:
+                rec("tpu_split_kernel", "on", "eligible on the card: "
+                    "csrc/one_kernel_split.cu runs each split as one launch")
+                return "on"
+            rec("tpu_split_kernel", "off", why)
+            return "off"
+        if bad:
+            Log.warning("tpu_split_kernel=on is not eligible here (%s); "
+                        "using the three-launch path", "; ".join(bad))
+            return "off"
+        return "on"
+
+    def traffic_spec(self) -> dict:
+        """Bytes-moved accounting of the per-split hot loop for the
+        resolved config (the JAX package's ``traffic_spec`` for the
+        layouts the port has): per parent row per split the partition
+        reads and writes the work row (W bytes each way) and the
+        smaller-child histogram reads it once; ``launches_per_split`` is 1
+        on the one-kernel split, else 3 (partition, histogram, scan)."""
+        from .ops.partition import work_spec
+
+        kw = self.build_kwargs()
+        _, w = work_spec(int(self.bins.shape[1]), kw["hist_mode"] == "int8")
+        one_kernel = kw["split_kernel"] == "on"
+        return {"work_layout": kw["work_layout"], "work_width": int(w),
+                "partition_bytes_per_row": int(2 * w),
+                "hist_bytes_per_row": int(w),
+                "split_kernel": kw["split_kernel"],
+                "hist_mxu": "on" if self.config.tpu_hist_mxu == "on"
+                else "off",
+                "effective_rows": int(self.bins.shape[0]),
+                "goss_compact": "off",
+                "launches_per_split": 1 if one_kernel else 3}
 
     def train(self, ghc: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None,

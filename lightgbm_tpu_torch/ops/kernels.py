@@ -5,8 +5,9 @@ on the stream they are given and return ``cudaGetLastError()``; one
 :class:`CudaKernel` per entry point, so each counts its own launches. At
 first use a source is compiled for Hopper (``sm_90a``) with ``nvcc`` into a
 shared library under ``lightgbm_tpu_torch/_build/`` (git-ignored), named
-by the source's content hash so an edited source never loads a stale
-library, and bound with ``ctypes``. Nothing here runs at import time: the
+by the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source never loads a stale library, and bound with
+``ctypes``. Nothing here runs at import time: the
 CPU tests import every module of the port on a host with no ``nvcc``.
 
 :class:`CudaKernel` also holds the kernel's launch count: the op wrapper
@@ -53,11 +54,14 @@ class CudaKernel:
     """One ``csrc/<source>`` library: its C entry point ``symbol`` with
     ctypes ``argtypes``, built lazily, plus its launch count."""
 
-    def __init__(self, symbol: str, source: str,
-                 argtypes: Sequence) -> None:
+    def __init__(self, symbol: str, source: str, argtypes: Sequence,
+                 flags: Sequence[str] = ()) -> None:
         self.symbol = symbol
         self.source = CSRC_DIR / source
         self.argtypes = list(argtypes)
+        #: nvcc flags of this source beside NVCC_FLAGS (entry points of
+        #: one source must agree)
+        self.flags = tuple(flags)
         self.build_log = ""
         self.build_seconds = 0.0
         self._fn = None
@@ -68,13 +72,16 @@ class CudaKernel:
 
     # ---------------------------------------------------------------- build
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS + self.flags).encode())
         return BUILD_DIR / ("%s-%s.so" % (self.source.stem,
                                           digest.hexdigest()[:16]))
 
     def build_command(self, out: Path) -> List[str]:
-        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+        return [nvcc_path(), *NVCC_FLAGS, *self.flags, "-o", str(out),
+                str(self.source)]
 
     def _start_build(self) -> Optional[tuple]:
         """Start nvcc for a missing library; returns (process, tmp, final)

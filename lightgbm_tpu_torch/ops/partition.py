@@ -32,6 +32,12 @@ same order.
 Segment arguments ride in a small device i32 tensor, so the learner never
 waits for the card to issue a launch; ``cnt_bound`` (a host int at least
 the segment's row count) only sizes the grid.
+
+:func:`one_kernel_split_planes` runs a whole split in one launch: the
+partition, the smaller child's histogram and both children's split scan
+(``csrc/one_kernel_split.cu``, replacing the TPU kernel
+``one_kernel_split_planes``, planes mode); its plain twin
+:func:`one_kernel_split_planes_plain` is the three-launch chain.
 """
 from __future__ import annotations
 
@@ -56,6 +62,10 @@ PARTITION_KERNEL = register(CudaKernel(
     "partition_segment", "partition_segment.cu", _PART_ARGS))
 PARTITION_ROWS_KERNEL = register(CudaKernel(
     "partition_segment_rows", "partition_segment.cu", _PART_ARGS))
+#: phase C follows torch's arithmetic op by op: no contracted multiply-adds
+ONE_KERNEL = register(CudaKernel(
+    "one_kernel_split", "one_kernel_split.cu", [_P, _P],
+    flags=("-fmad=false",)))
 
 
 def work_spec(num_groups: int, quantized: bool = False) -> Tuple[int, int]:
@@ -276,3 +286,266 @@ def partition_segment_rows(work: torch.Tensor, seg: torch.Tensor,
     return _launch_partition(PARTITION_ROWS_KERNEL, work, seg, table,
                              cnt_bound, rows=work.shape[1],
                              width=work.shape[2])
+
+
+# ------------------------------------------------------------ one-kernel split
+
+class OneKernelArgs(ctypes.Structure):
+    """The C struct ``OneKernelArgs`` of ``csrc/one_kernel_split.cu``
+    (same fields, same order)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "work", "seg", "table", "parent", "num_bins", "movable",
+        "missing_bin", "is_cat", "monotone", "penalty", "fmask", "sums2",
+        "outs2", "lows2", "ups2", "counts", "partial", "cand_gain",
+        "cand_bin", "num_dl", "rank", "lt", "hist_left", "hist_right",
+        "gain", "feature", "bin", "kind", "default_left", "go_left",
+        "left_sum", "right_sum", "left_output", "right_output")] \
+        + [(name, ctypes.c_int32) for name in (
+            "W", "npad", "table_bins", "left_smaller", "depth", "F", "B",
+            "nch", "nfb", "groups", "row_blocks", "max_cat_to_onehot",
+            "has_categorical", "has_monotone", "use_mono_penalty")] \
+        + [(name, ctypes.c_float) for name in (
+            "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
+            "min_sum_hessian", "min_gain_to_split", "max_delta_step",
+            "cat_smooth", "cat_l2", "min_data_per_group", "path_smooth",
+            "monotone_penalty", "max_cat_threshold")]
+
+
+#: warps of a one-kernel block, hence the most features of one histogram
+#: work item (the kernel runs 256 threads: K3's tile and one thread per bin)
+ONE_KERNEL_WARPS = 8
+
+
+def _hyper_fields(hp) -> dict:
+    """The scan's scalar hyperparameters as the float32 values torch uses:
+    a Python float meets a float32 tensor as float32, and the sums that
+    find_best_split forms in Python (``2 * lambda_l1``, ``lambda_l2 +
+    cat_l2``) are rounded once."""
+    return dict(
+        lambda_l1=hp.lambda_l1, lambda_l2=hp.lambda_l2,
+        two_l1=2.0 * hp.lambda_l1, l2_cat=hp.lambda_l2 + hp.cat_l2,
+        min_data_in_leaf=hp.min_data_in_leaf,
+        min_sum_hessian=hp.min_sum_hessian_in_leaf,
+        min_gain_to_split=hp.min_gain_to_split,
+        max_delta_step=hp.max_delta_step, cat_smooth=hp.cat_smooth,
+        cat_l2=hp.cat_l2, min_data_per_group=hp.min_data_per_group,
+        path_smooth=hp.path_smooth, monotone_penalty=hp.monotone_penalty,
+        max_cat_threshold=float(hp.max_cat_threshold),
+        max_cat_to_onehot=int(hp.max_cat_to_onehot),
+        has_categorical=int(hp.has_categorical),
+        has_monotone=int(hp.has_monotone),
+        use_mono_penalty=int(hp.has_monotone and hp.monotone_penalty > 0))
+
+
+def one_kernel_split_planes_plain(work, seg, go_left, left_smaller, depth,
+                                  parent_hist, meta, fmask, sums2, outs2,
+                                  lows2, ups2, hp, *, num_bins, num_feat,
+                                  exact=True):
+    """Plain torch twin of the one-kernel split: the three-launch chain,
+    ``partition_segment_plain`` -> ``segment_histogram_plain`` on the
+    smaller child -> parent minus child -> ``find_best_split`` over the
+    stacked pair with ``node_depth=depth``."""
+    from .histogram import segment_histogram_plain
+    from .split import find_best_split
+
+    lt = partition_segment_plain(work, seg, go_left)
+    src, start, cnt, _ = (int(v) for v in seg.tolist())
+    n_left = int(lt)
+    hseg = torch.tensor([1 - src, start, n_left] if left_smaller
+                        else [1 - src, start + n_left, cnt - n_left],
+                        dtype=torch.int32, device=work.device)
+    small = segment_histogram_plain(work, hseg, num_bins=num_bins,
+                                    num_feat=num_feat, exact=exact)
+    large = parent_hist - small
+    hl, hr = (small, large) if left_smaller else (large, small)
+    infos = find_best_split(torch.stack([hl, hr]), sums2, meta, fmask, hp,
+                            parent_output=outs2, leaf_lower=lows2,
+                            leaf_upper=ups2, node_depth=depth)
+    return lt, hl, hr, infos
+
+
+def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
+                            parent_hist, meta, fmask, sums2, outs2, lows2,
+                            ups2, hp, *, num_bins, num_feat, exact=True,
+                            cnt_bound):
+    """One split in one launch (planes layout): route the parent's rows,
+    histogram the smaller child, scan both children.
+
+    ``work`` (2, W, Npad) u8 with ``W = num_feat + 12`` is updated in
+    place; ``seg`` is the device (4,) i32 ``[src, start, cnt, col]``;
+    ``go_left`` the (B,) bool routing table; ``left_smaller`` (the left
+    child is the smaller one), ``depth`` (the children's node depth) and
+    ``cnt_bound`` (>= cnt, sizes the grid and the histogram's row blocks
+    as in :func:`segment_histogram`) are host ints. ``parent_hist`` is the
+    parent's (F, B, 3) f32 histogram, ``meta`` a ``FeatureMeta`` of (F,)
+    tensors, ``fmask`` the (F,) bool search mask, ``sums2`` the (2, 3)
+    child sums, ``outs2``/``lows2``/``ups2`` the (2,) child outputs and
+    bounds, ``hp`` a ``SplitHyper``.
+
+    Returns ``(lt, hist_left, hist_right, infos)``: the (1,) i32 left
+    count, the children's (F, B, 3) histograms and a batch-2
+    ``ops.split.SplitInfo`` (left child, then right) in the port's dtypes
+    (the kernel writes i64 and bool directly). On a CUDA tensor it
+    launches ``csrc/one_kernel_split.cu`` once; on a CPU tensor it runs
+    the plain twin. Raises on a shape or type the kernel does not take.
+    A caller that runs many splits over one work buffer (the learner)
+    builds one :class:`OneKernelSplit` instead and calls it per split.
+    """
+    return OneKernelSplit(work, meta, fmask, hp, num_bins=num_bins,
+                          num_feat=num_feat, exact=exact,
+                          cnt_max=cnt_bound)(
+        seg, go_left, left_smaller, depth, parent_hist, sums2, outs2, lows2,
+        ups2, cnt_bound=cnt_bound)
+
+
+class OneKernelSplit:
+    """:func:`one_kernel_split_planes` over one work buffer, split after
+    split. What stays fixed while a tree grows (the buffer, ``meta``,
+    ``fmask``, ``hp`` and the shapes) is validated once, and on the card
+    packed once into the C argument struct beside the scratch buffers
+    (sized for segments of up to ``cnt_max`` rows); each call checks and
+    fills in one split's own fields and launches."""
+
+    def __init__(self, work, meta, fmask, hp, *, num_bins, num_feat,
+                 exact=True, cnt_max):
+        from .histogram import HIST_MAX_ROW_BLOCKS, HIST_TILE
+
+        name = "one_kernel_split_planes"
+        _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
+                                num_feat)
+        self.work, self.meta, self.fmask, self.hp = work, meta, fmask, hp
+        self.num_bins, self.num_feat, self.exact = num_bins, num_feat, exact
+        self.cnt_max = int(cnt_max)
+        self._args = None
+        if work.device.type == "cpu":
+            return
+        check_on_card("one_kernel_split", work, fmask, *meta[:6])
+        dev = work.device
+        F, B = num_feat, num_bins
+        nch = 5 if exact else 3
+        groups = -(-F // ONE_KERNEL_WARPS)
+        row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
+                                -(-self.cnt_max // HIST_TILE)))
+        tiles = max(1, -(-self.cnt_max // PART_TILE))
+        i32 = torch.int32
+        self._scratch = (
+            torch.empty(tiles, dtype=i32, device=dev),          # counts
+            torch.empty((row_blocks, F, B, nch),
+                        dtype=torch.float32, device=dev),       # partials
+            torch.empty((2, 2, 4, F), dtype=i32, device=dev),   # gain | bin
+            torch.empty((3, 2, F, B), dtype=torch.uint8,
+                        device=dev))                            # dl | ranks
+        counts, partial, cand, flags = self._scratch
+        fl = flags.data_ptr()
+        self._args = OneKernelArgs(
+            work=work.data_ptr(), num_bins=meta.num_bins.data_ptr(),
+            movable=meta.movable_missing.data_ptr(),
+            missing_bin=meta.missing_bin.data_ptr(),
+            is_cat=meta.is_categorical.data_ptr(),
+            monotone=meta.monotone.data_ptr(),
+            penalty=meta.penalty.data_ptr(), fmask=fmask.data_ptr(),
+            counts=counts.data_ptr(), partial=partial.data_ptr(),
+            cand_gain=cand.data_ptr(), cand_bin=cand.data_ptr() + 4 * 8 * F,
+            num_dl=fl, rank=fl + 2 * F * B, W=work.shape[1],
+            npad=work.shape[2], table_bins=B, F=F, B=B, nch=nch,
+            nfb=-(-F // groups), groups=groups, **_hyper_fields(hp))
+
+    def __call__(self, seg, go_left, left_smaller, depth, parent_hist,
+                 sums2, outs2, lows2, ups2, *, cnt_bound):
+        from .histogram import HIST_MAX_ROW_BLOCKS, HIST_TILE
+        from .split import SplitInfo
+
+        _check_one_kernel_split(self, seg, go_left, parent_hist, sums2,
+                                outs2, lows2, ups2, cnt_bound)
+        work, B = self.work, self.num_bins
+        if self._args is None:
+            return one_kernel_split_planes_plain(
+                work, seg, go_left, left_smaller, depth, parent_hist,
+                self.meta, self.fmask, sums2, outs2, lows2, ups2, self.hp,
+                num_bins=B, num_feat=self.num_feat, exact=self.exact)
+        check_on_card("one_kernel_split", work, seg, go_left, parent_hist,
+                      sums2, outs2, lows2, ups2)
+        dev, F = work.device, self.num_feat
+        hists = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
+        lt = torch.empty(1, dtype=torch.int32, device=dev)
+        fout = torch.empty(18, dtype=torch.float32, device=dev)
+        iout = torch.empty(6, dtype=torch.int64, device=dev)
+        bout = torch.empty(2 + 2 * B, dtype=torch.bool, device=dev)
+        fo, io, bo = fout.data_ptr(), iout.data_ptr(), bout.data_ptr()
+        a = self._args
+        a.seg, a.table = seg.data_ptr(), go_left.data_ptr()
+        a.parent, a.sums2 = parent_hist.data_ptr(), sums2.data_ptr()
+        a.outs2, a.lows2, a.ups2 = (outs2.data_ptr(), lows2.data_ptr(),
+                                    ups2.data_ptr())
+        a.lt = lt.data_ptr()
+        a.hist_left = hists.data_ptr()
+        a.hist_right = a.hist_left + 4 * F * B * 3
+        a.gain, a.left_sum, a.right_sum = fo, fo + 8, fo + 32
+        a.left_output, a.right_output = fo + 56, fo + 64
+        a.feature, a.bin, a.kind = io, io + 16, io + 32
+        a.default_left, a.go_left = bo, bo + 2
+        a.left_smaller, a.depth = int(bool(left_smaller)), int(depth)
+        a.row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
+                                  -(-int(cnt_bound) // HIST_TILE)))
+        ONE_KERNEL.launch(ctypes.addressof(a), stream_of(work))
+        infos = SplitInfo(
+            gain=fout[0:2], feature=iout[0:2], bin=iout[2:4], kind=iout[4:6],
+            default_left=bout[0:2], go_left=bout[2:].view(2, B),
+            left_sum=fout[2:8].view(2, 3), right_sum=fout[8:14].view(2, 3),
+            left_output=fout[14:16], right_output=fout[16:18])
+        return lt, hists[0], hists[1], infos
+
+
+def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
+                            num_feat) -> None:
+    """What a one-kernel split takes for a whole tree."""
+    if work.dim() != 3 or work.shape[0] != 2 or work.dtype != torch.uint8:
+        raise ValueError("%s: work must be a (2, ., .) u8 pair, got %s %s"
+                         % (name, tuple(work.shape), work.dtype))
+    if work.shape[2] % 128:
+        raise ValueError("%s: needs whole 128-lane tiles in the lane dim, "
+                         "got Npad=%d" % (name, work.shape[2]))
+    if work.shape[1] != num_feat + GH_BYTES:
+        raise ValueError("%s: work has %d planes, not num_feat + %d = %d"
+                         % (name, work.shape[1], GH_BYTES,
+                            num_feat + GH_BYTES))
+    if not 0 < num_bins <= 256:
+        raise ValueError("%s: needs 0 < num_bins <= 256, got %d"
+                         % (name, num_bins))
+    want = (("num_bins", torch.int32), ("movable_missing", torch.bool),
+            ("missing_bin", torch.int32), ("is_categorical", torch.bool),
+            ("monotone", torch.int8), ("penalty", torch.float32))
+    for field, dtype in want:
+        t = getattr(meta, field)
+        if t.dtype != dtype or t.shape != (num_feat,):
+            raise ValueError("%s: meta.%s must be (%d,) %s, got %s %s"
+                             % (name, field, num_feat, dtype,
+                                tuple(t.shape), t.dtype))
+    if fmask.dtype != torch.bool or fmask.shape != (num_feat,):
+        raise ValueError("%s: fmask must be (%d,) bool" % (name, num_feat))
+    if hp.use_cegb or hp.mono_intermediate or hp.mono_advanced:
+        raise ValueError("%s: CEGB and intermediate/advanced monotone "
+                         "constraints are not inputs of the kernel" % name)
+
+
+def _check_one_kernel_split(op, seg, go_left, parent_hist, sums2, outs2,
+                            lows2, ups2, cnt_bound) -> None:
+    """What a one-kernel split takes for one split."""
+    name = "one_kernel_split_planes"
+    F, B = op.num_feat, op.num_bins
+    _check_partition_args(name, op.work, seg, go_left)
+    if go_left.numel() != B:
+        raise ValueError("%s: needs a (%d,) table, got %d"
+                         % (name, B, go_left.numel()))
+    if parent_hist.shape != (F, B, 3) or parent_hist.dtype != torch.float32:
+        raise ValueError("%s: parent_hist must be (%d, %d, 3) f32, got %s %s"
+                         % (name, F, B, tuple(parent_hist.shape),
+                            parent_hist.dtype))
+    if sums2.shape != (2, 3) or sums2.dtype != torch.float32:
+        raise ValueError("%s: sums2 must be (2, 3) f32" % name)
+    for field, t in (("outs2", outs2), ("lows2", lows2), ("ups2", ups2)):
+        if t.shape != (2,) or t.dtype != torch.float32:
+            raise ValueError("%s: %s must be (2,) f32" % (name, field))
+    if int(cnt_bound) > op.cnt_max:
+        raise ValueError("%s: cnt_bound %d above the %d rows the scratch "
+                         "was sized for" % (name, cnt_bound, op.cnt_max))

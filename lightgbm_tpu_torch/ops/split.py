@@ -174,13 +174,16 @@ def find_best_split(
     leaf_upper=float("inf"),
     rand_threshold: Optional[torch.Tensor] = None,
     want_feature_gains: bool = False,
+    want_candidates: bool = False,
     cegb_delta: Optional[torch.Tensor] = None,
     node_depth=None,
     adv_bounds=None,
 ) -> SplitInfo:
     """Best split over all features for one leaf's histogram (or a batch
     of leaves). With ``want_feature_gains`` returns only the per-feature
-    max gains."""
+    max gains; with ``want_candidates`` the whole ``(P, 4, F, B)`` table of
+    candidate gains (kind, feature, bin) whose flat first maximum is the
+    winner, ``-inf`` where a candidate is not live."""
     single = hist.dim() == 3
     if single:
         hist = hist[None]
@@ -310,6 +313,8 @@ def find_best_split(
     if want_feature_gains:
         fg = torch.amax(stacked, dim=(1, 3))                  # (P, F)
         return fg[0] if single else fg
+    if want_candidates:
+        return stacked[0] if single else stacked
     flat = stacked.reshape(P, -1)
     best_idx = torch.argmax(flat, dim=1)                       # first max
     best_gain = torch.gather(flat, 1, best_idx[:, None])[:, 0]

@@ -42,6 +42,17 @@ def test_kernels_match_plain_on_card(card):
         assert after[name] > before[name], name
 
 
+def test_one_kernel_split_matches_plain_on_card(card):
+    """One seeded split per case: the cooperative kernel's routed bytes and
+    lt equal to its twin's and K3's, its child histograms bit-equal to K3 +
+    K4 + the subtraction, its SplitInfo held to the torch scan on the same
+    histograms (chip_smoke.check_one_kernel)."""
+    before = kernels.launch_counts()["one_kernel_split"]
+    errs = chip_smoke.phase_one_kernel(card, np.random.RandomState(7))
+    assert max(errs.values()) <= 1.0, errs
+    assert kernels.launch_counts()["one_kernel_split"] > before
+
+
 def test_segment_kernels_match_plain_on_card(card):
     before = kernels.launch_counts()
     errs = chip_smoke.phase_segment_kernels(card, np.random.RandomState(5))
@@ -91,6 +102,23 @@ def test_small_quantized_training_on_card(card, data, trained_on_card):
                             extra=chip_smoke.QUANT_PARAMS,
                             first_tree_equal=True)
     chip_smoke.rows_vs_planes(card, data, 5000, 15, iters=2)
+
+
+def test_small_one_kernel_training_on_card(card, data, trained_on_card):
+    ds = chip_smoke.build_datasets(card, data, 63,
+                                   chip_smoke.ONE_KERNEL_PARAMS)
+    bst, counts, summary = chip_smoke.phase_train(
+        card, ds, 4, 63, chip_smoke.ONE_KERNEL_PARAMS)
+    assert counts["one_kernel_split"] == summary["splits"]
+    assert counts["partition_segment"] == 0
+    assert counts["segment_histogram"] == 4          # the roots
+    errs = {}
+    chip_smoke.full_width_one_kernel(trained_on_card[0], card, errs,
+                                     timed=False)
+    assert set(errs) == {"one_kernel/full_width"}
+    chip_smoke.check_determinism(card, ds[0], 63, iters=2,
+                                 extra=chip_smoke.ONE_KERNEL_PARAMS)
+    chip_smoke.split_kernel_on_vs_off(card, data, 5000, 15, iters=2)
 
 
 def test_small_serving_path_on_card(card, trained_on_card):

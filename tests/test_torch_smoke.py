@@ -114,6 +114,31 @@ def test_rows_vs_planes_and_goss_small_on_cpu(trained):
     assert res["splits_agree"] == res["splits"] > 0
 
 
+def test_one_kernel_phases_small_on_cpu(trained):
+    """The slice-4 checks at a tiny size: every seeded one-kernel case
+    (the twin against itself through the three-launch chain and the torch
+    scan), the 2M-row check's code path, and the one-kernel training
+    phase, which on the host trains the same trees as the three-launch
+    one."""
+    data, bst, _, _, summary = trained
+    errs = chip_smoke.phase_one_kernel(CPU, np.random.RandomState(3))
+    assert set(errs) == {"one_kernel/%s" % k for k in (
+        "unaligned", "empty_left", "empty_right", "under_one_tile", "whole",
+        "one_row_left", "one_row_right")} | {
+        "one_kernel/scan/%s" % k for k in chip_smoke.SPLIT_CASES}
+    assert max(errs.values()) == 0.0
+    errs = {}
+    assert chip_smoke.full_width_one_kernel(bst, CPU, errs,
+                                            timed=False) == {}
+    assert errs == {"one_kernel/full_width": 0.0}
+    _, counts, one = chip_smoke.phase_one_kernel_train(CPU, data, 3, 15,
+                                                       summary, 1000)
+    assert all(v == 0 for v in counts.values())              # plain twins
+    assert one["splits"] == summary["splits"]
+    assert one["valid_auc"] == summary["valid_auc"]
+    assert one["on_vs_off"]["splits_agree"] == one["on_vs_off"]["splits"]
+
+
 def test_serve_phase_small_on_cpu(quantized):
     bst, train, _, _ = quantized
     assert bst.inner.train_set.num_total_features \

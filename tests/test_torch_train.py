@@ -14,7 +14,9 @@ The bars:
 - early stopping, continued training from a JAX model and rollback;
 - every setting the port cannot honour raises, naming its ROADMAP item
   (quantized, sampled and rows-layout training are held to the JAX
-  package in test_torch_quantized_train.py).
+  package in test_torch_quantized_train.py, the one-kernel split in
+  test_torch_one_kernel.py); an ineligible ``tpu_split_kernel=on`` warns
+  and trains the three-launch path, as the JAX package does.
 """
 import numpy as np
 import pytest
@@ -194,15 +196,42 @@ def test_auto_knobs_resolve_and_record(tmp_path):
     # on a CUDA device auto names the kernels and xla is refused
     lrn = bst.inner.learner
     lrn.device = torch.device("cuda")
-    assert lrn.build_kwargs()["part_kernel"] == "pallas"
+    kw = lrn.build_kwargs()
+    assert kw["part_kernel"] == "pallas"
+    assert kw["split_kernel"] == "on"      # eligible: one launch per split
     lrn.config.tpu_hist_kernel = "xla"
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lrn.build_kwargs()
 
 
+def test_ineligible_split_kernel_downgrades(tmp_path):
+    """tpu_split_kernel=on where the one-kernel split cannot run (the rows
+    layout, int8 histograms) warns and trains the three-launch path, the
+    JAX package's own downgrade (tests/test_one_kernel.py)."""
+    from lightgbm_tpu_torch.utils.log import set_thread_log_sink
+
+    _, path, _, _, _ = jax_dataset("binary", tmp_path, n=300, seed=2)
+    lines = []
+    set_thread_log_sink(lines.append)
+    try:
+        for extra in ({"tpu_work_layout": "rows"},
+                      {"use_quantized_grad": True}):
+            params = dict(train_params("binary"), tpu_split_kernel="on",
+                          **CPU, **extra)
+            bst = lgt.train(params, lgt.dataset_from_reference(path, CPU), 2)
+            kw = bst.inner.learner._kw
+            assert kw["split_kernel"] == "off"
+            assert kw["work_layout"] == "rows"
+            assert bst.current_iteration == 2
+    finally:
+        set_thread_log_sink(None)
+    warned = [ln for ln in lines if "not eligible" in ln]
+    assert len(warned) == 2
+    assert "planes work layout" in warned[0] and "int8" in warned[1]
+
+
 @pytest.mark.parametrize("extra", [
-    {"tpu_resident_state": "on"}, {"tpu_split_kernel": "on"},
-    {"tpu_goss_compact": "on"},
+    {"tpu_resident_state": "on"}, {"tpu_goss_compact": "on"},
     {"tpu_work_layout": "planes", "use_quantized_grad": True},
     {"feature_fraction_bynode": 0.5}, {"extra_trees": True},
     {"interaction_constraints": "[0,1]"}, {"cegb_penalty_split": 0.1},

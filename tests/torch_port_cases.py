@@ -188,3 +188,78 @@ def assert_same_trees(jax_models, port_models, rtol=TRAIN_RTOL,
                                    a.leaf_value[:a.num_leaves],
                                    rtol=rtol, atol=atol,
                                    err_msg="tree %d leaf_value" % i)
+
+
+# ------------------------------------------------------- one-kernel split
+#
+# The JAX package runs its one-kernel split (``one_kernel_split_planes``)
+# as tests/test_one_kernel.py runs it: the Pallas interpreter, the planes
+# layout with the fused partition and 256-row chunks.
+
+#: JAX settings of the one-kernel path under the interpreter
+JAX_ONE_KERNEL = {"tree_builder": "partition", "tpu_work_layout": "planes",
+                  "tpu_partition_kernel": "pallas", "tpu_part_chunk": 256,
+                  "tpu_hist_chunk": 256}
+
+
+def one_kernel_jax_inputs(case):
+    """A ``chip_smoke.split_case`` tuple as the JAX ``one_kernel_split_planes``
+    takes it, and the same numpy inputs for the port: returns ``(jax
+    positional args, jax keyword args, port keyword args, the JAX work
+    buffer as numpy, [src, start, cnt, col])``. The segment is all rows,
+    routed by the last feature at its middle bin (``split_inputs``); the
+    parent histogram is the JAX package's; the port's work buffer is the
+    JAX buffer without its sublane padding (its first F + 12 planes)."""
+    import jax.numpy as jnp
+    import torch
+    from lightgbm_tpu.ops import partition as JP
+    from lightgbm_tpu.ops.split import FeatureMeta, SplitHyper
+    from lightgbm_tpu_torch.ops import split as PS
+
+    bins, ghc, meta, hp, fmask, (lows2, ups2, outs2), depth, nan_at = case
+    n, f = bins.shape
+    nb = int(meta["num_bins"].max())
+    ch = JAX_ONE_KERNEL["tpu_part_chunk"]
+    guard = ch + 2 * JP.PLANE_ALIGN
+    npad = JP.planes_npad(n, guard, "pallas")
+    _, w_pl = JP.work_spec(f, False, "pallas", ch, ch, layout="planes")
+    work = jnp.zeros((2, w_pl, npad), jnp.uint8)
+    work, root = JP.pack_planes_fold_root(work, jnp.asarray(bins),
+                                          jnp.asarray(ghc), guard,
+                                          num_bins=nb, exact=True, chunk=ch)
+    root = np.array(root)
+    if nan_at is not None:
+        root[nan_at[0], nan_at[1], 0] = np.nan
+    col = f - 1
+    table = np.arange(nb) <= int(meta["num_bins"][col]) // 2
+    go = table[bins[:, col]]
+    sums2 = np.stack([ghc[go].sum(axis=0), ghc[~go].sum(axis=0)]) \
+        .astype(np.float32)
+    left_smaller = bool(go.sum() <= (~go).sum())
+    seg = [0, guard, n, col]
+    jargs = (work, jnp.int32(0), jnp.int32(guard), jnp.int32(n),
+             jnp.int32(col), jnp.asarray(table), jnp.bool_(left_smaller),
+             jnp.int32(depth), jnp.asarray(root),
+             FeatureMeta(**{k: jnp.asarray(v) for k, v in meta.items()}),
+             jnp.asarray(fmask), jnp.asarray(sums2), jnp.asarray(outs2),
+             jnp.asarray(lows2), jnp.asarray(ups2), SplitHyper(**hp))
+    jkw = dict(num_bins=nb, num_feat=f, ch=ch, hist_chunk=ch)
+
+    def t(a):
+        return torch.as_tensor(np.array(a))
+
+    pkw = dict(go_left=t(table), left_smaller=left_smaller, depth=depth,
+               parent_hist=t(root),
+               meta=PS.FeatureMeta(**{k: t(v) for k, v in meta.items()}),
+               fmask=t(fmask), sums2=t(sums2), outs2=t(outs2),
+               lows2=t(lows2), ups2=t(ups2), hp=PS.SplitHyper(**hp),
+               num_bins=nb, num_feat=f, cnt_bound=n)
+    return jargs, jkw, pkw, np.array(work), seg
+
+
+def one_kernel_tree_data(rng, n=1501, f=20):
+    """(X, y) on the 1/64 grid: a weighted sum of every feature plus grid
+    noise, so no feature is irrelevant and no leaf is pure."""
+    X = grid(rng, n, f)
+    z = X @ rng.randn(f) + 0.5 * grid(rng, n, 1)[:, 0]
+    return X, (z > 0).astype(np.float64)
