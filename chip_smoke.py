@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Eight phases, each fatal on failure:
+the checkout it sits in. Nine phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: six
-                sources, eight entry points), one nvcc per source, started
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: seven
+                sources, eleven entry points), one nvcc per source, started
                 together.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
                 the forest kernel on small seeded packs covering every
@@ -32,9 +32,20 @@ the checkout it sits in. Eight phases, each fatal on failure:
                 of SPLIT_CASES (NaN-missing both ways, one-vs-rest and
                 both many-vs-many orders, monotone with both depth-penalty
                 branches, a masked feature, no valid split, NaN gains,
-                exact ties). Again at 2M rows after phases 3 and 4, on
-                their data and first root splits. Leaf ids must be equal,
-                scores within SCORE_ATOL + SCORE_RTOL * |b|.
+                exact ties). The resident layout's kernels on a sparse
+                ascending segment (a deep leaf's rows in the resident
+                planes, stale junk elsewhere): the route gather (bytes
+                equal to the twin's and the planes column), the resident
+                histogram (against its twin as above, bit-equal to the
+                planes kernel on the same rows; 0 rows to 9000), the
+                one-kernel split's resident mode against its twin, the
+                resident three-launch chain and its planes mode on the
+                same rows (routed bytes and lt equal, histograms and every
+                SplitInfo field bit-equal) on segment shapes and every case
+                of SPLIT_CASES. Again at 2M rows after phases 3, 3c and 4,
+                on their data and first root splits (3c also on a deep
+                leaf). Leaf ids must be equal, scores within SCORE_ATOL +
+                SCORE_RTOL * |b|.
 3. planes    -- the slice-2 training path: 2,000,000 Higgs-shaped rows x
                 28 features (max_bin=255), ``objective=binary``,
                 ``num_leaves=255``, ``--trees`` iterations through
@@ -54,6 +65,18 @@ the checkout it sits in. Eight phases, each fatal on failure:
                 determinism, on vs off and card vs host on 200,000 rows x
                 3 trees (train logloss within LOGLOSS_TOL), valid AUC
                 within ONE_KERNEL_AUC_TOL of phase 3's.
+3c. resident -- the slice-5 path: phase 3's data and trees with
+                RESIDENT_PARAMS (``tpu_resident_state=on``,
+                ``tpu_split_kernel=on``): the slim rows, the bins gathered
+                from the router's planes (``one_kernel_split_resident``
+                launches = splits, the resident histogram only for the
+                roots, no K3, K4 or route gather); the same per-tree checks;
+                the model string byte-equal to phase 3b's, served on 4096
+                valid rows against the plain path; byte-equal
+                determinism; on 200,000 rows x 3 trees, resident
+                three-launch training (route gather, K3, the resident
+                histogram) byte-equal to planes three-launch, and card vs
+                host within LOGLOSS_TOL.
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -77,7 +100,9 @@ the checkout it sits in. Eight phases, each fatal on failure:
                 library call's ms where torch has one, and its bound at the
                 main path's shapes, beside the card's name and power limit;
                 for the one-kernel split also the three-launch path's ms on
-                the same 2M-row root split.
+                the same 2M-row root split; the resident kernels at the 2M
+                root and at a deep leaf of ~8k rows, beside the planes
+                kernels on the same rows.
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -141,6 +166,10 @@ ONE_KERNEL_AUC_TOL = 0.002
 #: winner beats its runner-up by more than that
 SPLIT_RTOL = 1e-5
 SPLIT_ATOL = 1e-5
+#: the slice-5 configuration: the resident layout (the bins stay once in
+#: the router's planes; the partition moves 17-byte slim rows), one launch
+#: per split
+RESIDENT_PARAMS = {"tpu_resident_state": "on", "tpu_split_kernel": "on"}
 #: the split-scan cases of the one-kernel split (split_case); in "ties" the
 #: tie is exact in both scans by construction, so the winner must be equal
 SPLIT_CASES = ("numerical", "nan_left", "nan_right", "categorical_onehot",
@@ -1514,6 +1543,524 @@ def phase_one_kernel_train(dev, data, trees, leaves, planes, host_rows):
     return bst, counts, summary
 
 
+# ------------------------------------------------------------ resident layout
+
+def resident_pair(dev, bins_all, res, rows, ghc, rng=None, guard=128):
+    """One segment on both layouts: rows ``rows`` (ascending indices into
+    the (N, F) u8 ``bins_all``, whose resident planes are ``res``) with
+    ``ghc`` (their (m, 3) f32 channels), in order at lanes ``guard ..`` of
+    buffer 0. Returns (the slim pair, the planes pair). With ``rng`` every
+    other lane and buffer 1 hold junk: stale bytes the kernels must never
+    follow."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.partition import (RST_WIDTH, pack_planes,
+                                                  pack_resident, planes_npad)
+
+    m, F = rows.shape[0], bins_all.shape[1]
+    npad = planes_npad(m, guard)
+
+    def buf(width):
+        if rng is None:
+            return torch.zeros((2, width, npad), dtype=torch.uint8,
+                               device=dev)
+        return torch.as_tensor(rng.randint(0, 256, (2, width, npad))
+                               .astype(np.uint8)).to(dev)
+
+    slim, planes = buf(RST_WIDTH), buf(F + 12)
+    slim[0, :, guard:guard + m] = pack_resident(rows, ghc)
+    planes[0, :, guard:guard + m] = pack_planes(bins_all[rows], ghc)
+    return slim, planes
+
+
+def seeded_resident(rng, bins, dev, spread=3):
+    """The rows of ``bins`` (n, F) u8 as a sparse ascending subset of a
+    ``spread * n``-row matrix (the other rows random bins), as the rows of
+    a deep leaf sit in the resident planes. Returns (all bins, the (F,
+    Npad) resident planes, the rows' indices)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.learner import route_layout
+
+    n, F = bins.shape
+    nb = max(int(bins.max()) + 1, 2)
+    bins_all = torch.as_tensor(rng.randint(0, nb, (spread * n, F))
+                               .astype(np.uint8))
+    rows = torch.as_tensor(np.sort(rng.choice(spread * n, n,
+                                              replace=False)))
+    bins_all[rows] = torch.as_tensor(bins)
+    bins_all = bins_all.to(dev)
+    return bins_all, route_layout(bins_all).reshape(F, -1), rows.to(dev)
+
+
+def check_route(name, slim, res, planes, seg):
+    """Route gather kernel vs twin: the whole slim pair equal; the route
+    bytes equal to the planes layout's split column on the same rows."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    a, b = slim.clone(), slim.clone()
+    sg = torch.tensor(seg, dtype=torch.int32, device=slim.device)
+    P.write_route_plane(a, res, sg, max(seg[2], 1))
+    P.write_route_plane_plain(b, res, sg)
+    sync(slim.device)
+    src, start, cnt, col = seg
+    if not torch.equal(a, b):
+        raise AssertionError("%s: %d bytes differ from the twin" % (
+            name, int(torch.count_nonzero(a != b))))
+    if not torch.equal(a[src, 0, start:start + cnt],
+                       planes[src, col, start:start + cnt]):
+        raise AssertionError("%s: route bytes differ from the planes "
+                             "column" % name)
+    return 0.0
+
+
+def check_histogram_resident(name, slim, res, planes, seg, num_bins,
+                             num_feat, exact):
+    """Resident histogram kernel vs twin (counts equal, g/h within the
+    f32 summation bound of the twin's float64 sum), bit-equal run to run
+    and to the planes kernel on the same rows. Returns max |diff|."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    sg = torch.tensor(seg, dtype=torch.int32, device=slim.device)
+    kw = dict(num_bins=num_bins, num_feat=num_feat, exact=exact)
+    bound = max(seg[2], 1)
+    got = H.segment_histogram_resident(slim, res, sg, cnt_bound=bound, **kw)
+    want = H.segment_histogram_resident_plain(slim, res, sg, **kw)
+    other = H.segment_histogram(planes, sg, cnt_bound=bound, **kw)
+    again = H.segment_histogram_resident(slim, res, sg, cnt_bound=bound,
+                                         **kw)
+    absum = H.segment_histogram_plain(abs_work(planes, num_feat), sg, **kw)
+    sync(slim.device)
+    if not torch.equal(got[..., 2], want[..., 2]):
+        raise AssertionError("%s: count channel differs" % name)
+    diff = (got - want).abs()
+    if not torch.isfinite(got).all() \
+            or (diff > H.sum_error_bound(seg[2]) * absum).any():
+        raise AssertionError("%s: g/h off, max |diff| %.3g"
+                             % (name, float(diff.max())))
+    for x, what in ((again, "run to run"), (other, "to the planes kernel")):
+        if not torch.equal(got.view(torch.int32), x.view(torch.int32)):
+            raise AssertionError("%s: not bit-equal %s" % (name, what))
+    return float(diff.max())
+
+
+def check_one_kernel_resident(name, slim, res, planes, seg, table, kw):
+    """The one-kernel split's resident mode against its twin, against the
+    resident three-launch chain (route gather, K3 on the route plane, the
+    resident histogram of the smaller child, parent minus child) and
+    against its planes mode on the same rows: lt equal to all three; the
+    routed slim bytes equal to the twin's and the chain's; the child
+    histograms bit-equal to the chain's and to the planes mode's, counts
+    equal to the twin's and g/h within the f32 summation bound of its
+    float64 sums; every SplitInfo field bit-equal to the planes mode's.
+    Returns max |diff| against the twin's histograms."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+
+    dev = slim.device
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    bound = max(seg[2], 1)
+    a, b, c, p = slim.clone(), slim.clone(), slim.clone(), planes.clone()
+    lt_a, hl_a, hr_a, got = P.one_kernel_split_planes(
+        a, sg, table, cnt_bound=bound, resident=res, **kw)
+    lt_b, hl_b, hr_b, _ = P.one_kernel_split_planes_plain(
+        b, sg, table, resident=res, **kw)
+    P.write_route_plane(c, res, sg, bound)
+    lt_c = P.partition_segment(c, P.on_route_plane(sg), table, bound)
+    lt_p, hl_p, hr_p, want = P.one_kernel_split_planes(
+        p, sg, table, cnt_bound=bound, **kw)
+    src, start, cnt = seg[:3]
+    n_left = int(lt_c)
+    ls = kw["left_smaller"]
+    hseg = torch.tensor([1 - src, start, n_left] if ls
+                        else [1 - src, start + n_left, cnt - n_left],
+                        dtype=torch.int32, device=dev)
+    hkw = dict(num_bins=kw["num_bins"], num_feat=kw["num_feat"])
+    small = H.segment_histogram_resident(c, res, hseg, cnt_bound=bound,
+                                         **hkw)
+    large = kw["parent_hist"] - small
+    hl_c, hr_c = (small, large) if ls else (large, small)
+    absum = H.segment_histogram_plain(abs_work(p, kw["num_feat"]), hseg,
+                                      **hkw)
+    sync(dev)
+    if not int(lt_a) == int(lt_b) == n_left == int(lt_p):
+        raise AssertionError("%s: lt %d, twin %d, chain %d, planes %d"
+                             % (name, int(lt_a), int(lt_b), n_left,
+                                int(lt_p)))
+    if not (torch.equal(a, b) and torch.equal(a, c)):
+        raise AssertionError("%s: routed bytes differ (%d from the twin, %d "
+                             "from the chain)" % (
+                                 name, int(torch.count_nonzero(a != b)),
+                                 int(torch.count_nonzero(a != c))))
+
+    def bits(x):
+        return x.contiguous().view(torch.uint8)
+
+    for x, y, z in ((hl_a, hl_c, hl_p), (hr_a, hr_c, hr_p)):
+        if not (torch.equal(bits(x), bits(y)) and torch.equal(bits(x),
+                                                              bits(z))):
+            raise AssertionError("%s: child histograms not bit-equal to the "
+                                 "chain's and the planes mode's" % name)
+    rel = H.sum_error_bound(bound) + H.sum_error_bound(int(hseg[2]))
+    worst = 0.0
+    for x, y in ((hl_a, hl_b), (hr_a, hr_b)):
+        if not torch.equal(x[..., 2], y[..., 2]):
+            raise AssertionError("%s: count channel differs from the twin"
+                                 % name)
+        diff = (x - y).abs()
+        if bool((diff > rel * absum).any()):
+            raise AssertionError("%s: g/h off the twin, max |diff| %.3g"
+                                 % (name, float(diff.max())))
+        worst = max(worst, float(diff.max()))
+    for fld in got._fields:
+        if not torch.equal(bits(getattr(got, fld)), bits(getattr(want, fld))):
+            raise AssertionError("%s: SplitInfo.%s differs from the planes "
+                                 "mode's" % (name, fld))
+    return worst
+
+
+def phase_resident_kernels(dev, rng):
+    """The resident layout's kernels against their twins and the planes
+    kernels on the same rows, seeded; the segments' rows are a sparse
+    ascending third of the resident planes (a deep leaf's gather): the
+    route gather on PART_CASES' segments, the resident histogram on
+    HIST_CASES' (hi/lo and bf16), and the one-kernel split's resident mode
+    on segment shapes of the numerical case, then on every case of
+    SPLIT_CASES at the root."""
+    import numpy as np
+    import torch
+
+    n, nb, F = 9000, 64, 10
+    bins = rng.randint(0, nb, (n, F)).astype(np.uint8)
+    bins_all, res, rows = seeded_resident(rng, bins, dev)
+    ghc = torch.as_tensor(np.stack([rng.randn(n) * 2,
+                                    np.abs(rng.randn(n)) + 0.01,
+                                    np.ones(n)], axis=1)
+                          .astype(np.float32)).to(dev)
+    slim, planes = resident_pair(dev, bins_all, res, rows, ghc, rng)
+    errs = {}
+    for name, seg, _ in PART_CASES:
+        key = "route/" + name
+        errs[key] = check_route(key, slim, res, planes, seg)
+    for exact in (True, False):
+        for name, seg in HIST_CASES:
+            key = "histogram_resident/%s/%s" % ("hilo" if exact else "bf16",
+                                                name)
+            errs[key] = check_histogram_resident(key, slim, res, planes, seg,
+                                                 nb, F, exact)
+    for i, name in enumerate(("numerical",) + SPLIT_CASES):
+        case = split_case(name, rng)
+        work, seg, table, kw = split_inputs(dev, case)
+        bins_all, res, rows = seeded_resident(rng, case[0], dev)
+        ghc = torch.as_tensor(case[1]).to(dev)
+        slim, _ = resident_pair(dev, bins_all, res, rows, ghc, rng)
+        if i:
+            key = "one_kernel_resident/scan/%s" % name
+            errs[key] = check_one_kernel_resident(key, slim, res, work, seg,
+                                                  table, kw)
+            continue
+        col = seg[3]
+        shapes = (("unaligned", [0, 128 + 13, 7001, col], table),
+                  ("empty_left", [0, 128 + 100, 777, col],
+                   torch.zeros_like(table)),
+                  ("under_one_tile", [0, 128 + 4095, 300, col], table),
+                  ("whole", seg, table))
+        for sname, sg, tbl in shapes:
+            key = "one_kernel_resident/%s" % sname
+            errs[key] = check_one_kernel_resident(
+                key, slim, res, work, sg, tbl,
+                segment_split(work, sg, tbl, kw))
+    return errs
+
+
+def resident_vs_planes(dev, data, rows, leaves, iters=3):
+    """Three-launch training on the resident layout against the planes
+    layout (``tpu_split_kernel=off`` both): byte-equal model strings.
+    Launch counts are zeroed before the resident run and read after it;
+    on the card the route gather, K3 and the resident histogram must have
+    run."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+    X, y = data[0][:rows], data[1][:rows]
+    ds = lgt.Dataset(X, label=y, params=train_params(dev, leaves))
+    planes = lgt.train(train_params(dev, leaves), ds, iters)
+    sync(dev)
+    kernels.reset_launch_counts()
+    res_bst = lgt.train(train_params(dev, leaves,
+                                     {"tpu_resident_state": "on"}), ds, iters)
+    sync(dev)
+    counts = kernels.launch_counts()
+    a, b = planes.model_to_string(), res_bst.model_to_string()
+    log("resident vs planes, three launches: %d rows x %d iterations, model "
+        "strings %s (%d bytes); resident launches %s"
+        % (rows, iters, "byte-equal" if a == b else "DIFFER", len(a),
+           counts))
+    if res_bst.inner.learner._kw["work_layout"] != "resident":
+        raise AssertionError("tpu_resident_state=on did not train resident")
+    if a != b:
+        raise AssertionError("resident and planes layouts grew different "
+                             "models")
+    if dev.type == "cuda":
+        for name in ("write_route_plane", "partition_segment",
+                     "segment_histogram_resident"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError("the resident run never launched %s"
+                                     % name)
+    return counts
+
+
+def phase_resident_train(dev, data, trees, leaves, one_kernel, host_rows):
+    """The slice-5 path at full width: ``lightgbm_tpu_torch.train`` with
+    RESIDENT_PARAMS on phase 3's data: launches (the resident one-kernel
+    split = splits, the resident histogram = the roots, no K3, K4, route
+    gather or planes one-kernel split), the per-tree checks, the model
+    string byte-equal to phase 3b's (``one_kernel``: its booster and
+    summary), served by PredictSession against the plain path, byte-equal
+    determinism, its profiled busy share; resident
+    against planes three-launch training and card against host on
+    ``host_rows`` rows."""
+    ok_bst, ok_summary = one_kernel
+    ds = build_datasets(dev, data, leaves, RESIDENT_PARAMS)
+    bst, counts, summary = phase_train(dev, ds, trees, leaves,
+                                       RESIDENT_PARAMS)
+    if summary["layout"] != "resident":
+        raise AssertionError("resident training ran on the %s layout"
+                             % summary["layout"])
+    want = {"one_kernel_split_resident": summary["splits"],
+            "segment_histogram_resident": trees, "one_kernel_split": 0,
+            "partition_segment": 0, "segment_histogram": 0,
+            "write_route_plane": 0}
+    if dev.type == "cuda" and any(counts.get(k, 0) != v
+                                  for k, v in want.items()):
+        raise AssertionError("resident training launches %s, want %s"
+                             % (counts, want))
+    a, b = bst.model_to_string(), ok_bst.model_to_string()
+    log("resident vs planes, one kernel per split: %d trees, model strings "
+        "%s (%d bytes); ms per tree %.1f vs %.1f"
+        % (trees, "byte-equal" if a == b else "DIFFER", len(a),
+           summary["wall_per_tree_ms"], ok_summary["wall_per_tree_ms"]))
+    if a != b:
+        raise AssertionError("resident one-kernel training grew another "
+                             "model than planes one-kernel training")
+    # the slice-1 path serves it: the forest kernel against the plain path
+    from lightgbm_tpu_torch.serve import PredictSession
+    Xq = data[2][:4096]
+    summary["serve_err"] = check_scores(
+        "serve/resident", PredictSession(bst).predict(Xq),
+        PredictSession(bst, forest="off").predict(Xq))
+    check_determinism(dev, ds[0], leaves, extra=RESIDENT_PARAMS)
+    if dev.type == "cuda":
+        summary["profile"] = profile_iteration(dev, ds[0], leaves,
+                                               RESIDENT_PARAMS)
+    summary["three_launch"] = resident_vs_planes(dev, data, host_rows,
+                                                 leaves)
+    summary["card_vs_host"] = card_vs_host(dev, data, host_rows, leaves,
+                                           extra=RESIDENT_PARAMS)
+    return bst, counts, summary
+
+
+def deep_leaf_rows(bst, dev, target=8192):
+    """The rows of the first tree's leaf whose size is closest to
+    ``target``, ascending (as they sit in that leaf's slim segment), and
+    the leaf's depth."""
+    import torch
+    from lightgbm_tpu_torch.learner import assign_leaves
+    from lightgbm_tpu_torch.ops.predict import tree_to_bin_log
+
+    g = bst.inner
+    lrn = g.learner
+    t0 = g.models[0]
+    slot = assign_leaves(lrn.bins, tree_to_bin_log(t0, g.train_set, dev),
+                         has_categorical=False, bins_t=lrn.bins_t)
+    sizes = torch.bincount(slot.long())
+    pick = int(torch.argmin((sizes - target).abs()))
+    leaf_of_slot = t0.to_split_arrays()["leaf_of_slot"]
+    depth = int(t0.leaf_depths()[leaf_of_slot[pick]])
+    return torch.nonzero(slot == pick).reshape(-1), depth
+
+
+def full_width_resident(bst, dev, errs, timed=True):
+    """The resident kernels at the training shapes of the resident model
+    (phase 3c): the 2M-row root (ridx the identity) and a deep leaf's rows
+    (deep_leaf_rows: sparse ridx), packed from the model's gradients on
+    both layouts, routed by the split find_best_split takes on the
+    segment's histogram. Each segment: the route gather, the resident
+    histogram and the one-kernel split's resident mode against their twins
+    and the planes kernels (check_route, check_histogram_resident,
+    check_one_kernel_resident). Then, when ``timed`` (on the card), each
+    kernel's ms beside the planes kernel's on the same rows, the twin's,
+    the resident three-launch chain's, the library call's and the
+    bounds."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    g = bst.inner
+    lrn = g.learner
+    bins = lrn.bins
+    n, F = bins.shape
+    B = lrn.num_bin_hist
+    res = lrn.bins_t.reshape(F, -1)
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    deep, depth = deep_leaf_rows(bst, dev)
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    rows = {}
+    for tag, idx in (("root", torch.arange(n, device=dev)), ("deep", deep)):
+        m = int(idx.shape[0])
+        gs = ghc[idx]
+        slim, planes = resident_pair(dev, bins, res, idx, gs)
+        seg3 = [0, 128, m]
+        sg3 = torch.tensor(seg3, dtype=torch.int32, device=dev)
+        parent = H.segment_histogram(planes, sg3, num_bins=B, num_feat=F,
+                                     cnt_bound=m)
+        info = find_best_split(parent, torch.sum(gs, dim=0), lrn.meta,
+                               fmask, lrn.hp)
+        seg = seg3 + [int(info.feature)]
+        table = info.go_left
+        kw = dict(left_smaller=bool(info.left_sum[2] <= info.right_sum[2]),
+                  depth=depth if tag == "deep" else 1, parent_hist=parent,
+                  meta=lrn.meta, fmask=fmask,
+                  sums2=torch.stack([info.left_sum, info.right_sum]),
+                  outs2=torch.stack([info.left_output, info.right_output]),
+                  lows2=torch.full((2,), float("-inf"), device=dev),
+                  ups2=torch.full((2,), float("inf"), device=dev), hp=lrn.hp,
+                  num_bins=B, num_feat=F)
+        errs["route/full_width_" + tag] = check_route(
+            "route/full_width_" + tag, slim, res, planes, seg)
+        errs["histogram_resident/full_width_" + tag] = \
+            check_histogram_resident("histogram_resident/full_width_" + tag,
+                                     slim, res, planes, seg3, B, F, True)
+        errs["one_kernel_resident/full_width_" + tag] = \
+            check_one_kernel_resident("one_kernel_resident/full_width_"
+                                      + tag, slim, res, planes, seg, table,
+                                      kw)
+        if not timed:
+            continue
+        sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+        n_left = int(P.partition_segment(planes.clone(), sg, table, m))
+        n_small = n_left if kw["left_smaller"] else m - n_left
+        ls = kw["left_smaller"]
+
+        def resident_three_launch():
+            P.write_route_plane(slim, res, sg, m)
+            lt = P.partition_segment(slim, P.on_route_plane(sg), table, m)
+            hseg = torch.empty(3, dtype=torch.int32, device=dev)
+            hseg[0] = 1
+            if ls:
+                hseg[1] = 128
+                hseg[2:3] = lt
+            else:
+                hseg[1:2] = lt + 128
+                hseg[2:3] = m - lt
+            small = H.segment_histogram_resident(slim, res, hseg,
+                                                 num_bins=B, num_feat=F,
+                                                 cnt_bound=m)
+            large = parent - small
+            hl, hr = (small, large) if ls else (large, small)
+            return find_best_split(torch.stack([hl, hr]), kw["sums2"],
+                                   kw["meta"], kw["fmask"], kw["hp"],
+                                   parent_output=kw["outs2"],
+                                   leaf_lower=kw["lows2"],
+                                   leaf_upper=kw["ups2"],
+                                   node_depth=kw["depth"])
+
+        slow = dict(iters=3, warmup=1)
+        t = {
+            "b7": cuda_ms(lambda: P.one_kernel_split_planes(
+                slim, sg, table, cnt_bound=m, resident=res, **kw)),
+            "b7_planes": cuda_ms(lambda: P.one_kernel_split_planes(
+                planes, sg, table, cnt_bound=m, **kw)),
+            "b7_plain": cuda_ms(lambda: P.one_kernel_split_planes_plain(
+                slim, sg, table, resident=res, **kw), **slow),
+            "three_launch": cuda_ms(resident_three_launch),
+            "hist": cuda_ms(lambda: H.segment_histogram_resident(
+                slim, res, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "hist_planes": cuda_ms(lambda: H.segment_histogram(
+                planes, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "hist_plain": cuda_ms(lambda: H.segment_histogram_resident_plain(
+                slim, res, sg3, num_bins=B, num_feat=F), **slow),
+            "route": cuda_ms(lambda: P.write_route_plane(slim, res, sg, m)),
+            "route_plain": cuda_ms(lambda: P.write_route_plane_plain(
+                slim, res, sg), **slow)}
+        # library yardsticks on precomputed indices: one index_add_ over
+        # the gathered bins' flat (f*B + bin) indices with the rows'
+        # channels repeated per feature; one index_select of the split
+        # column through the rows' indices
+        flat = (bins[idx].long() + torch.arange(F, device=dev) * B).t() \
+            .reshape(-1)
+        vals = gs.repeat(F, 1)
+        out = torch.zeros((F * B, 3), device=dev)
+        col = res[seg[3]]
+        t["hist_library"] = cuda_ms(
+            lambda: out.zero_().index_add_(0, flat, vals))
+        t["route_library"] = cuda_ms(lambda: col.index_select(0, idx))
+        hist_bytes = 3 * F * B * 12
+        b = {"b7": 2 * P.RST_WIDTH * m + m + F * n_small + hist_bytes,
+             "hist": (P.RST_RIDX + P.GH_BYTES + F) * m + F * B * 3 * 4,
+             "route": (P.RST_RIDX + 2) * m}
+        log("full width resident %s (%d rows%s, %d in the smaller child): "
+            "one-kernel split %.4f ms (planes mode %.4f, twin %.2f, "
+            "three-launch chain %.4f), bound %.5f ms; histogram %.4f ms (K4 "
+            "planes %.4f, twin %.2f, index_add_ %.4f), bound %.5f ms; route "
+            "gather %.4f ms (twin %.2f, index_select %.4f), bound %.5f ms"
+            % (tag, m, ", depth %d" % depth if tag == "deep" else "",
+               n_small, t["b7"], t["b7_planes"], t["b7_plain"],
+               t["three_launch"], b["b7"] / PEAK_BYTES_PER_S * 1e3,
+               t["hist"], t["hist_planes"], t["hist_plain"],
+               t["hist_library"], b["hist"] / PEAK_BYTES_PER_S * 1e3,
+               t["route"], t["route_plain"], t["route_library"],
+               b["route"] / PEAK_BYTES_PER_S * 1e3))
+        if tag == "root":
+            rows = {
+                "one_kernel_split_resident": dict(
+                    route="cuda",
+                    source="lightgbm_tpu_torch/csrc/one_kernel_split.cu",
+                    replaces="lightgbm_tpu/ops/partition.py:1465",
+                    ms=t["b7"], plain_ms=t["b7_plain"], library_ms=None,
+                    planes_ms=t["b7_planes"],
+                    three_launch_ms=t["three_launch"], bytes=b["b7"],
+                    ops=m + n_small * F * 5),
+                "segment_histogram_resident": dict(
+                    route="cuda",
+                    source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
+                    replaces="lightgbm_tpu/ops/histogram.py:560",
+                    ms=t["hist"], plain_ms=t["hist_plain"],
+                    library_ms=t["hist_library"],
+                    planes_ms=t["hist_planes"], bytes=b["hist"],
+                    ops=m * F * 5),
+                "write_route_plane": dict(
+                    route="cuda",
+                    source="lightgbm_tpu_torch/csrc/resident_route.cu",
+                    replaces="lightgbm_tpu/ops/partition.py:410",
+                    ms=t["route"], plain_ms=t["route_plain"],
+                    library_ms=t["route_library"], bytes=b["route"], ops=m)}
+        else:
+            for name, k in (("one_kernel_split_resident", "b7"),
+                            ("segment_histogram_resident", "hist"),
+                            ("write_route_plane", "route")):
+                rows[name].update(
+                    deep_rows=m, deep_depth=depth, deep_ms=t[k],
+                    deep_bound_ms=b[k] / PEAK_BYTES_PER_S * 1e3)
+            rows["one_kernel_split_resident"]["deep_planes_ms"] = \
+                t["b7_planes"]
+            rows["segment_histogram_resident"]["deep_planes_ms"] = \
+                t["hist_planes"]
+    for name, prefix in (("one_kernel_split_resident",
+                          "one_kernel_resident/"),
+                         ("segment_histogram_resident",
+                          "histogram_resident/"),
+                         ("write_route_plane", "route/")):
+        if name in rows:
+            rows[name]["max_abs_err"] = max(
+                v for k, v in errs.items() if k.startswith(prefix))
+    return rows
+
+
 def phase_serve(bst, train, rng, binned_rows):
     """The main path; returns (outputs to check, launch counts)."""
     import numpy as np
@@ -1743,6 +2290,8 @@ def main(argv=None):
     import numpy as np
     errs = phase_kernels(dev, args.seed)
     errs.update(phase_one_kernel(dev, np.random.RandomState(args.seed + 3)))
+    errs.update(phase_resident_kernels(dev,
+                                       np.random.RandomState(args.seed + 5)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -1762,8 +2311,17 @@ def main(argv=None):
     rows.update(full_width_one_kernel(bst_p, dev, errs))
 
     log("== phase 3b: full-width training, one kernel per split (%s)" % card)
-    _, counts_k, summary_k = phase_one_kernel_train(
+    bst_k, counts_k, summary_k = phase_one_kernel_train(
         dev, data, args.trees, args.leaves, summary_p, args.host_rows)
+
+    log("== phase 3c: full-width training, resident layout, one kernel "
+        "per split (%s)" % card)
+    bst_r, counts_rs, summary_rs = phase_resident_train(
+        dev, data, args.trees, args.leaves, (bst_k, summary_k),
+        args.host_rows)
+    del bst_k
+    rows.update(full_width_resident(bst_r, dev, errs))
+    del bst_r
 
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
@@ -1831,12 +2389,19 @@ def main(argv=None):
                 "route_rows": counts_p["route_rows"] + counts_q["route_rows"]
                 + serve_counts["route_rows"],
                 "forest_predict": serve_counts["forest_predict"],
-                "one_kernel_split": counts_k["one_kernel_split"]}
-    log("launches: planes training %s; one-kernel training %s; quantized "
-        "training %s; rows run %s; serving %s"
-        % (counts_p, counts_k, counts_q, counts_r, serve_counts))
+                "one_kernel_split": counts_k["one_kernel_split"],
+                "one_kernel_split_resident":
+                    counts_rs["one_kernel_split_resident"],
+                "segment_histogram_resident":
+                    counts_rs["segment_histogram_resident"],
+                "write_route_plane":
+                    summary_rs["three_launch"]["write_route_plane"]}
+    log("launches: planes training %s; one-kernel training %s; resident "
+        "training %s; quantized training %s; rows run %s; serving %s"
+        % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
     log("train summary planes %s" % json.dumps(summary_p))
     log("train summary one-kernel %s" % json.dumps(summary_k))
+    log("train summary resident %s" % json.dumps(summary_rs))
     log("train summary quantized %s" % json.dumps(summary_q))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}

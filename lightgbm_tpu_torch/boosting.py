@@ -34,7 +34,7 @@ from .dataset import BinnedDataset
 from .device import resolve_device
 from .fused import make_balanced_sampler, make_feature_mask_fn, make_sampler
 from .learner import (SerialTreeLearner, TreeLog, assign_leaves,
-                      leaf_values_by_row, route_layout)
+                      launches_per_split, leaf_values_by_row, route_layout)
 from .metric import Metric, create_metrics
 from .objective import ObjectiveFunction, create_objective
 from .obs import telemetry
@@ -247,12 +247,18 @@ class GBDT:
             # JAX planes pack folds its root into the pack pass; the
             # port's pack is a torch copy and the root its own launch).
             # The one-kernel split is one launch per split, counted as a
-            # partition launch as the JAX package counts it.
-            one = self.learner._kw["split_kernel"] == "on"
+            # partition launch as the JAX package counts it. The resident
+            # layout's three-launch path gathers the route plane before
+            # each partition: one route-gather launch more per split.
+            kw = self.learner._kw
+            one = kw["split_kernel"] == "on"
             telemetry.count("learner/partition_launches", splits)
             telemetry.count("learner/hist_launches", 1 if one else splits + 1)
             telemetry.count("learner/scan_launches", 0 if one else splits)
-            telemetry.gauge("learner/launches_per_split", 1 if one else 3)
+            if kw["work_layout"] == "resident" and not one:
+                telemetry.count("learner/route_gather_launches", splits)
+            telemetry.gauge("learner/launches_per_split",
+                            launches_per_split(kw["work_layout"], one))
             if tree.num_leaves > 1:
                 any_nonconstant = True
         with self._cache_lock:

@@ -4,20 +4,34 @@
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/partition.py:
 // one_kernel_split_planes (pallas_call "one_kernel_split_planes", body
-// _one_kernel_split_kernel), planes mode (the resident mode reads bins
-// from the resident layout, which the port does not have yet). Same
-// contract: work is the (2, W, Npad) u8 plane pair of
-// ops/partition.py; seg = [src, start, cnt, col]; the parent's rows
-// [start, start + cnt) of plane src are routed into plane 1 - src by the
-// (B,) go-left table, left rows first; the smaller child (the left one
-// when left_smaller) gets a fresh histogram, the larger one is parent
-// minus smaller; then ops/split.find_best_split runs on both children with
-// node_depth = depth, and each child's SplitInfo is written out.
+// _one_kernel_split_kernel), in both of its modes: planes (entry point
+// one_kernel_split) and resident (entry point one_kernel_split_resident,
+// the TPU kernel's resident_planes argument). Same contract: work is the
+// (2, W, Npad) u8 plane pair of ops/partition.py; seg = [src, start, cnt,
+// col]; the parent's rows [start, start + cnt) of plane src are routed
+// into plane 1 - src by the (B,) go-left table, left rows first; the
+// smaller child (the left one when left_smaller) gets a fresh histogram,
+// the larger one is parent minus smaller; then ops/split.find_best_split
+// runs on both children with node_depth = depth, and each child's
+// SplitInfo is written out.
+//
+// Resident mode: work is the slim pair (W = 17, csrc/resident.cuh) and
+// col is the split column of the resident bin planes res (F, npad_res).
+// Before each partition tile is counted, the block that owns it gathers
+// its rows' route bytes res[col][ridx] into plane 0 of plane src (16 rows
+// per thread, their loads issued together), as
+// csrc/resident_route.cu does for the three-launch path (the same block
+// scatters that tile later, so no grid barrier is added); phase A then
+// routes on plane 0, and phase B gathers the smaller child's bins through
+// ridx (segment_hist.cuh ResidentRows). The routed bytes equal the
+// route gather + K3 chain's, and the child histograms equal K4 planes' on
+// the same rows, bit for bit.
 //
 // Phases, separated by grid-wide barriers (cooperative_groups
 // this_grid().sync()); every phase walks its work items grid-stride, so
 // any co-resident grid size gives the same result:
-//   A. partition: K3's per-tile count and stable scatter
+//   A. partition: (resident: the tile's route gather, then) K3's
+//      per-tile count and stable scatter
 //      (segment_partition.cuh) over 4096-row tiles. Between them each
 //      block sums the per-tile counts of the tiles before its own (integer
 //      sums: the tile-order prefix) and their total, lt. The routed bytes
@@ -67,7 +81,10 @@
 // scatter, the partial histograms, the reduce and the per-feature scan),
 // each a few microseconds, and phase C's per-feature prefix sums are
 // sequential (256 steps); on the many small segments of a 255-leaf tree
-// these, not bytes, set the time.
+// these, not bytes, set the time. In resident mode the function moves
+// the slim payload (17 B per row each way), each parent row's gathered
+// route byte and the smaller child's F gathered bins: 2 x 17 x N + N +
+// F x n_small bytes and the histograms, ~0.0285 ms at the 2M root.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,9 +131,10 @@ struct OneKernelArgs {
   float* right_sum;
   float* left_output;          // (2,)
   float* right_output;
+  const uint8_t* res;          // resident mode: (F, npad_res) bin planes
   int32_t W, npad, table_bins, left_smaller, depth, F, B, nch, nfb, groups,
       row_blocks, max_cat_to_onehot, has_categorical, has_monotone,
-      use_mono_penalty;
+      use_mono_penalty, npad_res;
   float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
       min_sum_hessian, min_gain_to_split, max_delta_step, cat_smooth, cat_l2,
       min_data_per_group, path_smooth, monotone_penalty, max_cat_threshold;
@@ -534,6 +552,7 @@ __device__ void finish_child(const OneKernelArgs& a, int c, float* smem) {
   }
 }
 
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads)
 one_kernel_split_kernel(const OneKernelArgs a) {
   using namespace lgbt_part;
@@ -543,14 +562,23 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   __shared__ uint8_t s_tbl[256];
   __shared__ int s_warp[kPartWarps];
   __shared__ int s_red[kWarps];
-  const int src = a.seg[0], start = a.seg[1], cnt = a.seg[2], col = a.seg[3];
-  const uint8_t* srcp = a.work + (size_t)src * a.W * a.npad;
+  const int src = a.seg[0], start = a.seg[1], cnt = a.seg[2];
+  // resident: seg[3] is the resident column, the partition routes plane 0
+  const int col = kResident ? lgbt_res::kRoute : a.seg[3];
+  uint8_t* srcp = a.work + (size_t)src * a.W * a.npad;
   uint8_t* dstp = a.work + (size_t)(1 - src) * a.W * a.npad;
   const int ntiles = (cnt + kPartTile - 1) / kPartTile;
 
   // ---- A. partition ----
   load_table(s_tbl, a.table, a.table_bins);
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    if (kResident) {
+      lgbt_res::route_gather<kPartTile / kThreads>(
+          srcp, a.npad, start, cnt, a.res, a.npad_res, a.seg[3],
+          (long)t * kPartTile, (long)(t + 1) * kPartTile, threadIdx.x,
+          kThreads);
+      __syncthreads();   // the tile's route bytes are written
+    }
     const int n = part_count_tile<false>(srcp, a.W, a.npad, start, cnt, col,
                                          s_tbl, t, s_warp);
     if (threadIdx.x == 0) a.counts[t] = n;
@@ -570,12 +598,21 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   const int small_cnt = a.left_smaller ? lt : cnt - lt;
   float* s_hist = smem;
   float* s_ch = smem + (size_t)a.nfb * a.B * a.nch;
+  int* s_ridx = reinterpret_cast<int*>(s_ch + (size_t)a.nch * kHistTile);
   const int items = a.row_blocks * a.groups;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int rb = it % a.row_blocks, grp = it / a.row_blocks;
-    hist_row_block<false>(dstp, a.W, a.npad, small_start, small_cnt, a.F,
-                          a.B, a.nch, a.nfb, grp * a.nfb, rb, a.row_blocks,
-                          s_hist, s_ch, a.partial);
+    if constexpr (kResident) {
+      const ResidentRows lay{dstp, a.npad, a.res, a.npad_res};
+      hist_row_block(lay, small_start, small_cnt, a.F, a.B, a.nch, a.nfb,
+                     grp * a.nfb, rb, a.row_blocks, s_hist, s_ch, s_ridx,
+                     a.partial);
+    } else {
+      const PackedRows<false> lay{dstp, a.W, a.npad, a.F};
+      hist_row_block(lay, small_start, small_cnt, a.F, a.B, a.nch, a.nfb,
+                     grp * a.nfb, rb, a.row_blocks, s_hist, s_ch, s_ridx,
+                     a.partial);
+    }
   }
   grid.sync();
   const int FB = a.F * a.B;
@@ -599,17 +636,19 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   for (int c = blockIdx.x; c < 2; c += gridDim.x) finish_child(a, c, smem);
 }
 
-size_t smem_bytes(const OneKernelArgs& a) {
+size_t smem_bytes(const OneKernelArgs& a, bool resident) {
   const size_t hist = ((size_t)a.nfb * a.B * a.nch +
-                       (size_t)a.nch * lgbt_hist::kHistTile) * sizeof(float);
+                       (size_t)a.nch * lgbt_hist::kHistTile) * sizeof(float) +
+                      (resident ? lgbt_hist::kHistTile * sizeof(int) : 0);
   const size_t scan = (17 * kMaxBins + 3 * kWarps) * sizeof(float);
   return hist > scan ? hist : scan;
 }
 
-// The cooperative grid for `smem` bytes of dynamic shared memory on the
-// current device: the blocks that fit at once (occupancy x SMs). The
-// queries run once per (device, smem) and thread; a tree's splits all
-// share one smem size.
+// The cooperative grid of one mode's kernel for `smem` bytes of dynamic
+// shared memory on the current device: the blocks that fit at once
+// (occupancy x SMs). The queries run once per (mode, device, smem) and
+// thread; a tree's splits all share one smem size.
+template <bool kResident>
 cudaError_t cooperative_grid(size_t smem, int* grid) {
   thread_local int cached_dev = -1, cached_grid = 0;
   thread_local size_t cached_smem = 0;
@@ -620,12 +659,12 @@ cudaError_t cooperative_grid(size_t smem, int* grid) {
     *grid = cached_grid;
     return cudaSuccess;
   }
-  e = cudaFuncSetAttribute(one_kernel_split_kernel,
+  e = cudaFuncSetAttribute(one_kernel_split_kernel<kResident>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, one_kernel_split_kernel, kThreads, smem);
+      &per_sm, one_kernel_split_kernel<kResident>, kThreads, smem);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
@@ -637,6 +676,27 @@ cudaError_t cooperative_grid(size_t smem, int* grid) {
   return cudaSuccess;
 }
 
+template <bool kResident>
+int launch_split(const OneKernelArgs* args, void* stream) {
+  const OneKernelArgs a = *args;
+  if (a.B < 1 || a.B > kMaxBins || a.nfb > kWarps ||
+      (kResident && (a.res == nullptr || a.npad_res < 1 ||
+                     a.W != lgbt_res::kWidth))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(a, kResident);
+  int grid = 0;
+  cudaError_t e = cooperative_grid<kResident>(smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* kargs[] = {const_cast<OneKernelArgs*>(&a)};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(one_kernel_split_kernel<kResident>),
+      dim3(grid), dim3(kThreads), kargs, smem,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -645,23 +705,16 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One split, one cooperative launch on `stream`. Returns a cudaError_t
-// code (0 on success).
+// One split, one cooperative launch on `stream` (planes mode). Returns a
+// cudaError_t code (0 on success).
 int one_kernel_split(const OneKernelArgs* args, void* stream) {
-  const OneKernelArgs a = *args;
-  if (a.B < 1 || a.B > kMaxBins || a.nfb > kWarps) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(a);
-  int grid = 0;
-  cudaError_t e = cooperative_grid(smem, &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* kargs[] = {const_cast<OneKernelArgs*>(&a)};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(one_kernel_split_kernel), dim3(grid),
-      dim3(kThreads), kargs, smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<false>(args, stream);
+}
+
+// The same in resident mode: args->work is the slim pair, args->res the
+// resident bin planes.
+int one_kernel_split_resident(const OneKernelArgs* args, void* stream) {
+  return launch_split<true>(args, stream);
 }
 
 }  // extern "C"

@@ -10,11 +10,19 @@
 // row block's partial. hist_reduce_bin sums one (feature, bin)'s partials
 // in row-block order and combines hi + lo. A feature's sums depend only on
 // the row blocks, never on how features are grouped into blocks.
+//
+// Where a row's bytes are is a layout policy: PackedRows<false> (planes),
+// PackedRows<true> (rows), ResidentRows (the slim pair plus the resident
+// bin planes, csrc/resident.cuh). The pass runs the same arithmetic in the
+// same order on every layout, so the same rows in the same order give the
+// same bits whichever layout holds them.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "resident.cuh"
 
 namespace lgbt_hist {
 
@@ -26,37 +34,71 @@ __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Byte w of row `row` of one buffer: planes hold it at w * npad + row, rows
-// at row * W + w.
+// Planes (kRows false) hold byte w of row `row` at w * npad + row, rows
+// at row * W + w: the F bin bytes, then g, h, cnt at bytes F .. F + 11.
 template <bool kRows>
-__device__ __forceinline__ uint32_t byte_at(const uint8_t* buf, int W,
-                                            int npad, int w, long row) {
-  return kRows ? buf[row * W + w] : buf[(size_t)w * npad + row];
-}
+struct PackedRows {
+  const uint8_t* buf;
+  int W, npad, F;
+  static constexpr bool kGather = false;
+  __device__ __forceinline__ uint32_t byte_at(int w, long row) const {
+    return kRows ? buf[row * W + w] : buf[(size_t)w * npad + row];
+  }
+  __device__ __forceinline__ int gh_off() const { return F; }
+  __device__ __forceinline__ void stage(long, int*, int) const {}
+  // bin of feature f of buffer row `row`, tile row r
+  __device__ __forceinline__ uint32_t bin(int f, long row, const int*,
+                                          int) const {
+    return byte_at(f, row);
+  }
+};
+
+// The slim pair's buffer `buf` (npad lanes per plane) holds g, h, cnt at
+// planes 5 .. 16; bin f of a row is res[f * npad_res + ridx]. The channel
+// pass stages each tile row's ridx in shared memory (s_ridx, kHistTile
+// ints), where the feature warps read it.
+struct ResidentRows {
+  const uint8_t* buf;
+  int npad;
+  const uint8_t* res;
+  int npad_res;
+  static constexpr bool kGather = true;
+  __device__ __forceinline__ uint32_t byte_at(int w, long row) const {
+    return buf[(size_t)w * npad + row];
+  }
+  __device__ __forceinline__ int gh_off() const { return lgbt_res::kGhOff; }
+  __device__ __forceinline__ void stage(long row, int* s_ridx, int r) const {
+    s_ridx[r] = lgbt_res::ridx_at(buf, npad, row, npad_res);
+  }
+  __device__ __forceinline__ uint32_t bin(int f, long, const int* s_ridx,
+                                          int r) const {
+    return res[(size_t)f * npad_res + s_ridx[r]];
+  }
+};
 
 // The little-endian f32 word at bytes w .. w + 3 of row `row`.
-template <bool kRows>
-__device__ __forceinline__ float word_at(const uint8_t* buf, int W, int npad,
-                                         int w, long row) {
-  const uint32_t b0 = byte_at<kRows>(buf, W, npad, w, row);
-  const uint32_t b1 = byte_at<kRows>(buf, W, npad, w + 1, row);
-  const uint32_t b2 = byte_at<kRows>(buf, W, npad, w + 2, row);
-  const uint32_t b3 = byte_at<kRows>(buf, W, npad, w + 3, row);
+template <class L>
+__device__ __forceinline__ float word_at(const L& lay, int w, long row) {
+  const uint32_t b0 = lay.byte_at(w, row);
+  const uint32_t b1 = lay.byte_at(w + 1, row);
+  const uint32_t b2 = lay.byte_at(w + 2, row);
+  const uint32_t b3 = lay.byte_at(w + 3, row);
   return __uint_as_float(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
 }
 
-// Row block rb of row_blocks over rows [start, start + cnt) of buffer `pl`
-// for features [f0, f0 + min(nfb, F - f0)), one warp each (the block has at
-// least nfb warps). s_hist holds (nfb, B, nch) floats, s_ch (nch,
-// kHistTile). Writes partial[rb][f0 ...] of the (row_blocks, F, B, nch)
-// partial sums. No __restrict__ on pl or partial: one_kernel_split.cu
-// reads both after other blocks wrote them in the same launch, which the
-// read-only (non-coherent) load path must not serve.
-template <bool kRows>
+// Row block rb of row_blocks over rows [start, start + cnt) of the
+// layout's buffer for features [f0, f0 + min(nfb, F - f0)), one warp each
+// (the block has at least nfb warps). s_hist holds (nfb, B, nch) floats,
+// s_ch (nch, kHistTile), s_ridx kHistTile ints (ResidentRows only).
+// Writes partial[rb][f0 ...] of the (row_blocks, F, B, nch) partial sums.
+// No __restrict__ on the layout's buffers: one_kernel_split.cu reads them
+// after other blocks wrote them in the same launch, which the read-only
+// (non-coherent) load path must not serve; partial is only written here.
+template <class L>
 __device__ __forceinline__ void hist_row_block(
-    const uint8_t* pl, int W, int npad, int start, int cnt,
-    int F, int B, int nch, int nfb, int f0, int rb, int row_blocks,
-    float* s_hist, float* s_ch, float* __restrict__ partial) {
+    const L& lay, int start, int cnt, int F, int B, int nch, int nfb, int f0,
+    int rb, int row_blocks, float* s_hist, float* s_ch, int* s_ridx,
+    float* __restrict__ partial) {
   const int nf = min(nfb, F - f0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hist_len = nfb * B * nch;
@@ -69,9 +111,11 @@ __device__ __forceinline__ void hist_row_block(
     __syncthreads();   // the previous tile's channels are consumed
     for (int r = threadIdx.x; r < rows; r += blockDim.x) {
       const long lane_i = (long)start + row0 + r;
-      const float g = word_at<kRows>(pl, W, npad, F, lane_i);
-      const float h = word_at<kRows>(pl, W, npad, F + 4, lane_i);
-      const float c = word_at<kRows>(pl, W, npad, F + 8, lane_i);
+      const int gh = lay.gh_off();
+      const float g = word_at(lay, gh, lane_i);
+      const float h = word_at(lay, gh + 4, lane_i);
+      const float c = word_at(lay, gh + 8, lane_i);
+      lay.stage(lane_i, s_ridx, r);
       if (nch == 5) {
         const float g_hi = bf(g), h_hi = bf(h);
         s_ch[r] = g_hi;
@@ -93,7 +137,7 @@ __device__ __forceinline__ void hist_row_block(
       for (int r0 = 0; r0 < rows; r0 += 32) {
         const int r = r0 + lane;
         const int b = r < rows
-            ? (int)byte_at<kRows>(pl, W, npad, feat, row_base + r) : B;
+            ? (int)lay.bin(feat, row_base + r, s_ridx, r) : B;
         const bool valid = b < B;
         // invalid lanes get keys no bin uses, so they never join a group
         const unsigned key = valid ? (unsigned)b : (unsigned)(B + lane);

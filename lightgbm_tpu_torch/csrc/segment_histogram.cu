@@ -1,5 +1,5 @@
 // g/h/count histogram of one leaf's segment of the work buffer, for Hopper
-// (sm_90a), on both work layouts.
+// (sm_90a), on the planes, rows and resident work layouts.
 //
 // Replaces the TPU kernels lightgbm_tpu/ops/histogram.py:
 // hist_pallas_segment_planes (pallas_call "hist_pallas_segment_planes", body
@@ -17,6 +17,18 @@
 // sums differs from the TPU. Both layouts run one kernel body with the same
 // tile assignment and summation order, so the same rows in the same order
 // give the same bits on either layout.
+//
+// The resident entry point (segment_histogram_resident) replaces
+// lightgbm_tpu/ops/histogram.py hist16_segment_resident, an XLA gather of
+// the JAX package's resident path (no Pallas kernel there): the slim pair
+// (csrc/resident.cuh) carries g, h, cnt and each row's ridx, and the bins
+// are gathered from the resident planes through ridx. It runs the same
+// body, so on the same rows in the same order it is bit-equal to the
+// planes entry point (torch's index_add_ on the card uses float atomics
+// and is not deterministic). Its bytes: 4 ridx + 12 channel bytes + F
+// gathered bins per row, 44 B at F = 28 (~0.026 ms for 2M rows); below the
+// first few tree levels a leaf's rows are sparse in the resident order and
+// each gathered byte costs a 32-byte sector.
 //
 // What bounds it on this card: bytes. A row is read once: F bin bytes + 12
 // channel bytes, 40 B at F = 28, 80 MB for a 2M-row segment, ~0.025 ms at
@@ -49,8 +61,10 @@ namespace {
 
 using namespace lgbt_hist;
 
-template <bool kRows>
-__global__ void hist_kernel(const uint8_t* __restrict__ work, int W, int npad,
+// One row block of one feature group. `lay` points at the pair's first
+// buffer; the kernel moves it to buffer seg[0] (plane_bytes apart).
+template <class L>
+__global__ void hist_kernel(L lay, size_t plane_bytes,
                             const int* __restrict__ seg, int F, int B,
                             int nch, int feats_per_block,
                             float* __restrict__ partial) {
@@ -58,11 +72,11 @@ __global__ void hist_kernel(const uint8_t* __restrict__ work, int W, int npad,
   const int nfb = feats_per_block;
   float* s_hist = smem;                          // (nfb, B, nch)
   float* s_ch = smem + (size_t)nfb * B * nch;    // (nch, kHistTile)
+  int* s_ridx = reinterpret_cast<int*>(s_ch + (size_t)nch * kHistTile);
   const int plane = seg[0], start = seg[1], cnt = seg[2];
-  const uint8_t* pl = work + (size_t)plane * W * npad;
-  hist_row_block<kRows>(pl, W, npad, start, cnt, F, B, nch, nfb,
-                        blockIdx.y * nfb, blockIdx.x, gridDim.x, s_hist, s_ch,
-                        partial);
+  lay.buf += (size_t)plane * plane_bytes;
+  hist_row_block(lay, start, cnt, F, B, nch, nfb, blockIdx.y * nfb,
+                 blockIdx.x, gridDim.x, s_hist, s_ch, s_ridx, partial);
 }
 
 __global__ void reduce_kernel(const float* __restrict__ partial,
@@ -78,22 +92,22 @@ __global__ void reduce_kernel(const float* __restrict__ partial,
   dst[2] = o[2];
 }
 
-template <bool kRows>
-int launch_histogram(const void* work, int W, int npad, const void* seg,
-                     int F, int B, int exact, int row_blocks, void* partial,
+template <class L>
+int launch_histogram(L lay, size_t plane_bytes, const void* seg, int F,
+                     int B, int exact, int row_blocks, void* partial,
                      void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nch = exact ? 5 : 3;
   const int groups = (F + kHistMaxFeats - 1) / kHistMaxFeats;
   const int nfb = (F + groups - 1) / groups;
-  const int smem = (nfb * B * nch + nch * kHistTile) * (int)sizeof(float);
+  const int smem = (nfb * B * nch + nch * kHistTile) * (int)sizeof(float) +
+                   (L::kGather ? kHistTile * (int)sizeof(int) : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      hist_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(row_blocks, groups);
-  hist_kernel<kRows><<<grid, nfb * 32, smem, s>>>(
-      static_cast<const uint8_t*>(work), W, npad,
-      static_cast<const int*>(seg), F, B, nch, nfb,
+  hist_kernel<L><<<grid, nfb * 32, smem, s>>>(
+      lay, plane_bytes, static_cast<const int*>(seg), F, B, nch, nfb,
       static_cast<float*>(partial));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -116,16 +130,31 @@ const char* lgbt_error_string(int code) {
 int segment_histogram(const void* work, int W, int npad, const void* seg,
                       int F, int B, int exact, int row_blocks, void* partial,
                       void* out, void* stream) {
-  return launch_histogram<false>(work, W, npad, seg, F, B, exact, row_blocks,
-                                 partial, out, stream);
+  const PackedRows<false> lay{static_cast<const uint8_t*>(work), W, npad, F};
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
+                          row_blocks, partial, out, stream);
 }
 
 // Rows layout: work is (2, npad, W).
 int segment_histogram_rows(const void* work, int W, int npad, const void* seg,
                            int F, int B, int exact, int row_blocks,
                            void* partial, void* out, void* stream) {
-  return launch_histogram<true>(work, W, npad, seg, F, B, exact, row_blocks,
-                                partial, out, stream);
+  const PackedRows<true> lay{static_cast<const uint8_t*>(work), W, npad, F};
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
+                          row_blocks, partial, out, stream);
+}
+
+// Resident layout: work is the (2, W, npad) slim pair, res the
+// (F, npad_res) resident bin planes.
+int segment_histogram_resident(const void* work, int W, int npad,
+                               const void* seg, const void* res,
+                               int npad_res, int F, int B, int exact,
+                               int row_blocks, void* partial, void* out,
+                               void* stream) {
+  const ResidentRows lay{static_cast<const uint8_t*>(work), npad,
+                         static_cast<const uint8_t*>(res), npad_res};
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
+                          row_blocks, partial, out, stream);
 }
 
 }  // extern "C"

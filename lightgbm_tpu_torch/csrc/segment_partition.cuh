@@ -74,10 +74,13 @@ __device__ __forceinline__ int part_count_tile(const uint8_t* buf, int W,
 // rows before it), a right row to start + lt + (right rows before it).
 // `left_before_tile` is the segment's go-left count in the tiles before
 // this one. Each warp recomputes its ballots (kept in registers) and ranks
-// each row by popc of the ballot below it.
+// each row by popc of the ballot below it. No __restrict__ on srcp: the
+// resident mode of one_kernel_split.cu writes its route plane earlier in
+// the same launch, which the read-only (non-coherent) load path must not
+// serve.
 template <bool kRows>
 __device__ __forceinline__ void part_scatter_tile(
-    const uint8_t* __restrict__ srcp, uint8_t* __restrict__ dstp, int W,
+    const uint8_t* srcp, uint8_t* __restrict__ dstp, int W,
     int npad, int start, int cnt, int feat, int lt, const uint8_t* s_tbl,
     long tile, int left_before_tile, int* s_warp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

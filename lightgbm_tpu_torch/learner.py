@@ -1,8 +1,9 @@
 """Leaf-wise tree growth and binned-row routing (PyTorch port of
 ``lightgbm_tpu/learner.py``).
 
-:func:`build_tree_partitioned` grows one tree on the planes or the rows
-work layout (the JAX package's ``tpu_work_layout``): per split, a stable
+:func:`build_tree_partitioned` grows one tree on the planes, resident or
+rows work layout (the JAX package's ``tpu_work_layout`` and
+``tpu_resident_state``): per split, a stable
 partition of the parent's rows (``ops/partition.partition_segment`` /
 ``partition_segment_rows``, CUDA kernels on the card), a histogram of the
 smaller child's contiguous segment (``ops/histogram.segment_histogram`` /
@@ -10,8 +11,12 @@ smaller child's contiguous segment (``ops/histogram.segment_histogram`` /
 gradients, which train on the rows layout only) with the sibling as parent
 minus child, and the split scan over both children
 (``ops/split.find_best_split``). With ``split_kernel="on"`` (the JAX
-package's ``tpu_split_kernel=on``, planes layout) the three run as ONE
-launch per split, ``ops/partition.one_kernel_split_planes``. After the
+package's ``tpu_split_kernel=on``, planes or resident layout) the three
+run as ONE launch per split, ``ops/partition.one_kernel_split_planes``.
+The resident layout (``tpu_resident_state=on``) keeps the bins once in
+the router's planes and partitions a slim payload: a route gather
+(``ops/partition.write_route_plane``) before each partition, and a gather
+histogram (``ops/histogram.segment_histogram_resident``). After the
 tree, :func:`assign_leaves` routes every row to its leaf (the
 ``route_rows`` kernel).
 
@@ -56,14 +61,14 @@ class TreeLog(NamedTuple):
 
 def route_layout(bins: torch.Tensor) -> torch.Tensor:
     """(N, G) u8 binned matrix -> the router's (G, Npad/128, 128) u8
-    transposed block form, rows zero-padded to a multiple of 128."""
+    transposed block form, rows zero-padded to a multiple of 128. Its
+    (G, Npad) view is the resident layout's bin planes
+    (``ops/partition.resident_bin_planes``)."""
+    from .ops.partition import resident_bin_planes
     from .ops.route import ROUTE_ROW_ALIGN
 
-    n, g = bins.shape
-    npad = -(-n // ROUTE_ROW_ALIGN) * ROUTE_ROW_ALIGN
-    bt = torch.zeros((g, npad), dtype=bins.dtype, device=bins.device)
-    bt[:, :n] = bins.t()
-    return bt.reshape(g, npad // ROUTE_ROW_ALIGN, ROUTE_ROW_ALIGN)
+    return resident_bin_planes(bins).reshape(bins.shape[1], -1,
+                                             ROUTE_ROW_ALIGN)
 
 
 def assign_leaves(bins: torch.Tensor, log: TreeLog,
@@ -193,16 +198,16 @@ def split_kernel_ineligible(*, work_layout: str, hist_mode: str, bundle,
     """Why ``split_kernel="on"`` (one launch per split) cannot run here;
     empty when it can. The JAX package's gate (learner.py, the
     ``one_kernel`` premises): the kernel inlines a plain
-    ``find_best_split`` over the planes layout, so it needs serial comm, no
-    feature bundles, no CEGB and scalar (basic) monotone bounds;
-    ``hist_chunk`` keeps the reference's 128-row alignment rule so both
-    packages resolve the knob alike. By-node sampling, extra-trees and
+    ``find_best_split`` over the planes or resident layout, so it needs
+    serial comm, no feature bundles, no CEGB and scalar (basic) monotone
+    bounds; ``hist_chunk`` keeps the reference's 128-row alignment rule
+    so both packages resolve the knob alike. By-node sampling, extra-trees and
     interaction constraints, the rest of the JAX gate, never reach it: the
     learner refuses them (ROADMAP A3, A10). The port's host twin is
     eligible wherever the kernel is."""
     bad = []
-    if work_layout != "planes":
-        bad.append("needs the planes work layout")
+    if work_layout not in ("planes", "resident"):
+        bad.append("needs the planes work layout (or the resident one)")
     if hist_mode == "int8":
         bad.append("int8 histograms unsupported")
     if bundle is not None or num_bin_hist != num_bin:
@@ -244,10 +249,14 @@ def build_tree_partitioned(
     contract: serial_tree_learner.cpp:324 FindBestSplits over the smaller
     leaf + histogram subtraction, data_partition.hpp:101 Split).
 
-    ``work_layout`` is ``planes`` or ``rows``; ``split_kernel`` ``on`` runs
-    each split as one launch (``ops/partition.one_kernel_split_planes``,
-    planes only: :func:`split_kernel_ineligible` says where it cannot run,
-    and a ``ValueError`` names it "not eligible"); ``hist_mode`` ``hilo``,
+    ``work_layout`` is ``planes``, ``resident`` or ``rows``; ``resident``
+    partitions the slim pair and gathers bins from the resident planes,
+    the (G, Npad) view of ``bins_t`` (the router's block form,
+    :func:`route_layout`, built here when None), and grows the trees of
+    ``planes`` bit for bit. ``split_kernel`` ``on`` runs each split as one
+    launch (``ops/partition.one_kernel_split_planes``, planes and resident
+    only: :func:`split_kernel_ineligible` says where it cannot run, and a
+    ``ValueError`` names it "not eligible"); ``hist_mode`` ``hilo``,
     ``bf16`` or ``int8`` (rows only: gradients packed as int8 with
     per-tree scales and a stochastic-rounding dither drawn from
     ``fold_in(key, 987123)`` at row offset ``dither_offset``, as the JAX
@@ -265,12 +274,15 @@ def build_tree_partitioned(
     unquantized channels.
     """
     from .ops.histogram import (dequant_scale, segment_histogram,
-                                segment_histogram_q, segment_histogram_rows)
-    from .ops.partition import (OneKernelSplit, pack_planes_fold_root,
-                                pack_rows,
+                                segment_histogram_q,
+                                segment_histogram_resident,
+                                segment_histogram_rows)
+    from .ops.partition import (OneKernelSplit, on_route_plane,
+                                pack_planes_fold_root,
+                                pack_resident_fold_root, pack_rows,
                                 pack_rows_quantized, partition_segment,
                                 partition_segment_rows, quantize_scales,
-                                work_buffer, work_spec)
+                                work_buffer, work_spec, write_route_plane)
     from .ops.split import calc_leaf_output
     from .prng import fold_in
 
@@ -283,6 +295,10 @@ def build_tree_partitioned(
     exact = hist_mode != "bf16"
     quantized = hist_mode == "int8"
     rows_layout = work_layout == "rows"
+    resident = None
+    if work_layout == "resident":
+        bt = bins_t if bins_t is not None else route_layout(bins)
+        resident = bt.reshape(num_grp, -1)      # (G, Npad) bin planes
     if quantized and not rows_layout:
         raise ValueError("int8 quantized histograms need the rows work "
                          "layout (the planes layout has no quantized pack)")
@@ -298,7 +314,7 @@ def build_tree_partitioned(
         if bad:
             raise ValueError("tpu_split_kernel=on is not eligible here: "
                              + "; ".join(bad))
-    guard, _ = work_spec(num_grp, quantized)
+    guard, _ = work_spec(num_grp, quantized, work_layout)
     if work is None:
         work = work_buffer(n, num_grp, work_layout, quantized, dev)
 
@@ -326,6 +342,22 @@ def build_tree_partitioned(
                                               cnt_bound=cnt_bound)
         root_hist = hist_fn(torch.tensor([0, guard, n], dtype=i32,
                                          device=dev), n)
+    elif resident is not None:
+        def part_fn(work, seg, table, cnt_bound):
+            # the split column's bins into the route plane, then the
+            # planes partition of the slim rows on that plane
+            write_route_plane(work, resident, seg, cnt_bound)
+            return partition_segment(work, on_route_plane(seg), table,
+                                     cnt_bound)
+
+        def hist_fn(seg, cnt_bound):
+            return segment_histogram_resident(work, resident, seg,
+                                              num_bins=bm, num_feat=num_grp,
+                                              exact=exact,
+                                              cnt_bound=cnt_bound)
+        root_hist = pack_resident_fold_root(work, resident, ghc, guard,
+                                            num_bins=bm, num_feat=num_grp,
+                                            exact=exact)
     else:
         part_fn = partition_segment
 
@@ -339,7 +371,8 @@ def build_tree_partitioned(
         # checked and set up once per tree; each split fills in its own
         one_kernel_split = OneKernelSplit(work, meta, feature_mask, hp,
                                           num_bins=bm, num_feat=num_grp,
-                                          exact=exact, cnt_max=n)
+                                          exact=exact, cnt_max=n,
+                                          resident=resident)
 
     def feat_view(hg, total_sum):
         """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature
@@ -522,6 +555,14 @@ def build_tree_partitioned(
     return log._replace(row_leaf=row_leaf)
 
 
+def launches_per_split(work_layout: str, one_kernel: bool) -> int:
+    """Device launches per split: the one-kernel split; else partition,
+    histogram and scan, plus the route gather on the resident layout."""
+    if one_kernel:
+        return 1
+    return 4 if work_layout == "resident" else 3
+
+
 # ---------------------------------------------------------------------------
 # Host wrapper
 # ---------------------------------------------------------------------------
@@ -648,9 +689,12 @@ class SerialTreeLearner:
         quantized gradients (``use_quantized_grad`` or
         ``tpu_hist_precision=int8``) and ``tpu_hist_mxu=on`` train on the
         rows layout, everything else on planes; an explicit layout is
-        honoured. The kernels: the hand-written ones (knob value
-        ``pallas``) on a CUDA device, their plain twins (``xla``) on the
-        host. Settings the port cannot honour raise."""
+        honoured. ``tpu_resident_state=on`` turns planes into the
+        ``resident`` layout and raises with the rows layout or int8
+        histograms, with the JAX package's words; ``auto`` stays off
+        (:meth:`_resolve_resident`). The kernels: the hand-written ones
+        (knob value ``pallas``) on a CUDA device, their plain twins
+        (``xla``) on the host. Settings the port cannot honour raise."""
         from .obs import telemetry
         from .ops.partition import dither_offset
 
@@ -667,8 +711,18 @@ class SerialTreeLearner:
         mxu = cfg.tpu_hist_mxu
         layout = cfg.tpu_work_layout
         if cfg.tpu_resident_state == "on":
-            _refuse("the resident layout (tpu_resident_state=on)",
-                    "B: resident gather histogram")
+            if cfg.tpu_work_layout == "rows":
+                raise LightGBMError(
+                    "tpu_resident_state=on requires the planes work layout "
+                    "(got tpu_work_layout=rows)")
+            if quantized:
+                raise LightGBMError(
+                    "tpu_resident_state=on does not support int8 quantized "
+                    "training (plane-family layouts are hilo/bf16 only)")
+            if mxu == "on":
+                raise LightGBMError(
+                    "tpu_hist_mxu=on needs the rows work layout, not "
+                    "tpu_resident_state=on (ROADMAP B)")
         if layout == "planes" and quantized:
             raise LightGBMError(
                 "tpu_work_layout=planes cannot train int8 quantized "
@@ -690,22 +744,22 @@ class SerialTreeLearner:
                 why = ("f32 histograms: the planes layout, rows on request "
                        "(tpu_work_layout=rows or tpu_hist_mxu=on)")
             rec("tpu_work_layout", layout, why)
-        if cfg.tpu_resident_state == "auto":
-            rec("tpu_resident_state", "off", "the resident gather "
-                "histogram is not ported (ROADMAP B)")
+        layout = self._resolve_resident(layout, cuda, rec)
         if mxu == "auto":
             rec("tpu_hist_mxu", "off", "the layout decides the histogram "
                 "kernel; on only asks for the rows layout")
         rows = layout == "rows"
         hist_src = ("csrc/segment_histogram_q.cu" if quantized else
                     "csrc/segment_histogram.cu (%s)"
-                    % ("segment_histogram_rows" if rows
-                       else "segment_histogram"))
+                    % {"rows": "segment_histogram_rows",
+                       "resident": "segment_histogram_resident"}.get(
+                           layout, "segment_histogram"))
+        part_src = "csrc/partition_segment.cu (%s)" % (
+            "partition_segment_rows" if rows else "partition_segment")
+        if layout == "resident":
+            part_src = "csrc/resident_route.cu, then " + part_src
         kernels = {}
-        for knob, src in (("tpu_partition_kernel",
-                           "csrc/partition_segment.cu (%s)"
-                           % ("partition_segment_rows" if rows
-                              else "partition_segment")),
+        for knob, src in (("tpu_partition_kernel", part_src),
                           ("tpu_hist_kernel", hist_src)):
             v = getattr(cfg, knob)
             if v == "xla" and cuda:
@@ -731,6 +785,31 @@ class SerialTreeLearner:
                     dither_offset=dither_offset(
                         int(self.bins.shape[1]), int(cfg.tpu_part_chunk),
                         int(cfg.tpu_hist_chunk)))
+
+    def _resolve_resident(self, layout: str, cuda: bool, rec) -> str:
+        """``tpu_resident_state``: ``on`` (checked by the caller) turns the
+        planes layout into ``resident``. ``auto`` stays off everywhere (the
+        JAX package takes it only on a TPU): the resident trees equal
+        planes' bit for bit, so only speed could decide, and on the card
+        resident one-kernel training was no faster per tree than planes
+        (its split kernel is faster, but the host loop sets the pace;
+        PERF.md). Recorded with its reason."""
+        rs = self.config.tpu_resident_state
+        if rs == "on":
+            return "resident"
+        if rs == "auto":
+            if layout != "planes":
+                why = "layout %s: the resident state is a planes layout" \
+                    % layout
+            elif cuda:
+                why = ("measured on the card: byte-equal trees, no faster "
+                       "per tree than planes; the host loop sets the pace "
+                       "(PERF.md)")
+            else:
+                why = ("host tensors: the gather has no payoff without "
+                       "device memory bandwidth pressure")
+            rec("tpu_resident_state", "off", why)
+        return layout
 
     def _resolve_split_kernel(self, layout: str, mode: str, cuda: bool,
                               rec) -> str:
@@ -773,27 +852,48 @@ class SerialTreeLearner:
             return "off"
         return "on"
 
+    def resident_spec(self):
+        """(guard, npad) of the resident bin planes, or None when the
+        resolved layout is not resident. The port's resident planes are
+        the router's block form of the binned matrix (``self.bins_t``):
+        row i at lane i (no guard), lanes in whole 128-lane tiles."""
+        if self.build_kwargs()["work_layout"] != "resident":
+            return None
+        return 0, int(self.bins_t.shape[1] * self.bins_t.shape[2])
+
     def traffic_spec(self) -> dict:
         """Bytes-moved accounting of the per-split hot loop for the
-        resolved config (the JAX package's ``traffic_spec`` for the
-        layouts the port has): per parent row per split the partition
-        reads and writes the work row (W bytes each way) and the
-        smaller-child histogram reads it once; ``launches_per_split`` is 1
-        on the one-kernel split, else 3 (partition, histogram, scan)."""
-        from .ops.partition import work_spec
+        resolved config (the JAX package's ``traffic_spec``): per parent
+        row per split the partition reads and writes the work row (W bytes
+        each way) and the smaller-child histogram reads it once. The
+        resident layout moves the slim row (W = RST_WIDTH), plus the route
+        gather's 4 ridx bytes read, 1 gathered byte and 1 route byte
+        written per parent row; its histogram reads the slim row and the F
+        gathered bins. ``launches_per_split`` is the port's true count: 1
+        on the one-kernel split, else 3 (partition, histogram, scan), and
+        4 on the resident layout, whose route gather is a launch of its
+        own."""
+        from .ops.partition import RST_GH_OFF, work_spec
 
         kw = self.build_kwargs()
-        _, w = work_spec(int(self.bins.shape[1]), kw["hist_mode"] == "int8")
+        layout = kw["work_layout"]
+        f = int(self.bins.shape[1])
+        _, w = work_spec(f, kw["hist_mode"] == "int8", layout)
+        part, hist = 2 * w, w
+        if layout == "resident":
+            part += RST_GH_OFF + 1
+            hist += f
         one_kernel = kw["split_kernel"] == "on"
-        return {"work_layout": kw["work_layout"], "work_width": int(w),
-                "partition_bytes_per_row": int(2 * w),
-                "hist_bytes_per_row": int(w),
+        return {"work_layout": layout, "work_width": int(w),
+                "partition_bytes_per_row": int(part),
+                "hist_bytes_per_row": int(hist),
                 "split_kernel": kw["split_kernel"],
                 "hist_mxu": "on" if self.config.tpu_hist_mxu == "on"
                 else "off",
                 "effective_rows": int(self.bins.shape[0]),
                 "goss_compact": "off",
-                "launches_per_split": 1 if one_kernel else 3}
+                "launches_per_split": launches_per_split(layout,
+                                                         one_kernel)}
 
     def train(self, ghc: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None,

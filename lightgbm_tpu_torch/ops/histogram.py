@@ -10,6 +10,13 @@ CUDA tensor and runs its plain twin on a CPU tensor:
   ``csrc/segment_histogram.cu``, replacing the TPU kernels
   ``hist_pallas_segment_planes`` and ``hist_pallas_segment`` (and the f32
   mode of ``hist_mxu_segment``, which computes the same function);
+- :func:`segment_histogram_resident`, the resident layout's gather
+  histogram: ``csrc/segment_histogram.cu`` (entry point
+  ``segment_histogram_resident``), replacing the JAX package's XLA
+  ``hist16_segment_resident``. It gathers the bins from the resident
+  planes through the slim rows' ridx and runs the planes kernel's body,
+  so on the same rows in the same order it equals :func:`segment_histogram`
+  bit for bit;
 - :func:`segment_histogram_q`, int8 quantized rows:
   ``csrc/segment_histogram_q.cu``, replacing the quantized mode of
   ``hist_mxu_segment``. Its sums are integers, so the kernel, its twin and
@@ -33,8 +40,9 @@ import numpy as np
 import torch
 
 from .kernels import CudaKernel, register, stream_of
-from .partition import (GH_BYTES, GH_BYTES_Q, check_on_card, unpack_ghc,
-                        unpack_ghc_planes, unpack_ghq)
+from .partition import (GH_BYTES, GH_BYTES_Q, RST_GH_OFF, RST_ROUTE,
+                        check_on_card, check_resident_args, decode_ridx,
+                        unpack_ghc, unpack_ghc_planes, unpack_ghq)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +51,9 @@ HIST_KERNEL = register(CudaKernel(
     "segment_histogram", "segment_histogram.cu", _HIST_ARGS))
 HIST_ROWS_KERNEL = register(CudaKernel(
     "segment_histogram_rows", "segment_histogram.cu", _HIST_ARGS))
+HIST_RESIDENT_KERNEL = register(CudaKernel(
+    "segment_histogram_resident", "segment_histogram.cu",
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
 HIST_Q_KERNEL = register(CudaKernel(
     "segment_histogram_q", "segment_histogram_q.cu",
     [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]))
@@ -135,6 +146,22 @@ def segment_histogram_rows_plain(work: torch.Tensor, seg: torch.Tensor, *,
                             num_bins=num_bins, exact=exact)
 
 
+def segment_histogram_resident_plain(work: torch.Tensor,
+                                     resident: torch.Tensor,
+                                     seg: torch.Tensor, *, num_bins: int,
+                                     num_feat: int,
+                                     exact: bool = True) -> torch.Tensor:
+    """Plain torch twin of the resident kernel: the segment's ridx decoded
+    (clamped to the resident planes), the bins gathered through it, then
+    the planes twin's sums."""
+    plane, start, cnt = (int(v) for v in seg.tolist())
+    cols = work[plane, :, start:start + cnt]
+    ridx = decode_ridx(cols[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+    return _histogram_plain(resident[:num_feat].index_select(1, ridx),
+                            unpack_ghc_planes(cols, RST_GH_OFF),
+                            num_bins=num_bins, exact=exact)
+
+
 def sum_error_bound(cnt: int) -> float:
     """Relative bound, against a bin's sum of |x|, on the error of the
     kernel's f32 sums over a ``cnt``-row segment: each row block adds its
@@ -183,6 +210,40 @@ def segment_histogram_rows(work: torch.Tensor, seg: torch.Tensor, *,
     return _launch_histogram(HIST_ROWS_KERNEL, work, seg, num_bins, num_feat,
                              exact, cnt_bound, rows=work.shape[1],
                              width=work.shape[2])
+
+
+def segment_histogram_resident(work: torch.Tensor, resident: torch.Tensor,
+                               seg: torch.Tensor, *, num_bins: int,
+                               num_feat: int, exact: bool = True,
+                               cnt_bound: int) -> torch.Tensor:
+    """:func:`segment_histogram` on the resident layout: ``work`` is the
+    slim pair (2, RST_WIDTH, Npad) u8 (ops/partition.py), ``resident`` the
+    (>= num_feat, Npad_res) u8 resident bin planes; bin f of a segment row
+    is ``resident[f, ridx]``. ``seg`` and ``cnt_bound`` as in
+    :func:`segment_histogram`. The kernel runs the planes kernel's body
+    (tile assignment, per-row rounding, summation order), so on the same
+    rows in the same order it equals the planes kernel bit for bit."""
+    check_resident_args("segment_histogram_resident", work, resident)
+    _check_hist_args("segment_histogram_resident", work, seg, num_bins,
+                     num_feat, resident.shape[0])
+    if work.device.type == "cpu":
+        return segment_histogram_resident_plain(
+            work, resident, seg, num_bins=num_bins, num_feat=num_feat,
+            exact=exact)
+    check_on_card("segment_histogram_resident", work, seg, resident)
+    nch = 5 if exact else 3
+    row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
+                            -(-int(cnt_bound) // HIST_TILE)))
+    partial = torch.empty((row_blocks, num_feat, num_bins, nch),
+                          dtype=torch.float32, device=work.device)
+    out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
+                      device=work.device)
+    HIST_RESIDENT_KERNEL.launch(
+        work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(),
+        resident.data_ptr(), resident.shape[1], num_feat, num_bins,
+        int(exact), row_blocks, partial.data_ptr(), out.data_ptr(),
+        stream_of(work))
+    return out
 
 
 def _check_hist_args(name: str, work: torch.Tensor, seg: torch.Tensor,

@@ -36,8 +36,20 @@ the segment's row count) only sizes the grid.
 :func:`one_kernel_split_planes` runs a whole split in one launch: the
 partition, the smaller child's histogram and both children's split scan
 (``csrc/one_kernel_split.cu``, replacing the TPU kernel
-``one_kernel_split_planes``, planes mode); its plain twin
-:func:`one_kernel_split_planes_plain` is the three-launch chain.
+``one_kernel_split_planes`` in its planes and resident modes); its plain
+twin :func:`one_kernel_split_planes_plain` is the three-launch chain.
+
+The **resident** layout (the JAX package's ``tpu_resident_state=on``)
+keeps the bins once, in original row order, in the ``(F, Npad)`` resident
+planes (:func:`resident_bin_planes`; the learner's are the row router's
+block form of the binned matrix, so they cost no second copy). The work
+pair is slim, ``(2, RST_WIDTH, Npad)``: per row a route byte, the row's
+index into the resident planes (``ridx``, 4 little-endian byte planes)
+and the 12 g/h/cnt bytes. Before each partition :func:`write_route_plane`
+gathers the split column's bin of every segment row into the route plane
+(``csrc/resident_route.cu``), and the unchanged planes partition routes
+on plane 0. The port's ``ridx`` is the original row index ``i`` (the JAX
+package stores ``guard + i``); the resident planes have no guard lanes.
 """
 from __future__ import annotations
 
@@ -50,6 +62,12 @@ from .kernels import CudaKernel, register, stream_of
 
 GH_BYTES = 12      # g, h, cnt as f32 bytes
 GH_BYTES_Q = 3     # quantized: int8 g, int8 h, u8 cnt
+#: the slim work rows of the resident layout: plane 0 the route byte,
+#: planes 1..4 the row index (little-endian bytes), planes 5..16 g/h/cnt
+RST_ROUTE = 1
+RST_RIDX = 4
+RST_GH_OFF = RST_ROUTE + RST_RIDX
+RST_WIDTH = RST_GH_OFF + GH_BYTES
 #: rows of padding below and above the rows (row i sits at GUARD + i)
 GUARD = 128
 #: rows per block of the partition kernel (its count and scatter tile)
@@ -66,12 +84,24 @@ PARTITION_ROWS_KERNEL = register(CudaKernel(
 ONE_KERNEL = register(CudaKernel(
     "one_kernel_split", "one_kernel_split.cu", [_P, _P],
     flags=("-fmad=false",)))
+ONE_KERNEL_RESIDENT = register(CudaKernel(
+    "one_kernel_split_resident", "one_kernel_split.cu", [_P, _P],
+    flags=("-fmad=false",)))
+ROUTE_KERNEL = register(CudaKernel(
+    "write_route_plane", "resident_route.cu", [_P, _I, _I, _P, _P, _I, _I,
+                                               _P]))
+#: rows of a route-gather block: 256 threads, 4 rows each
+ROUTE_ROWS_PER_BLOCK = 1024
 
 
-def work_spec(num_groups: int, quantized: bool = False) -> Tuple[int, int]:
+def work_spec(num_groups: int, quantized: bool = False,
+              layout: str = "planes") -> Tuple[int, int]:
     """(guard rows, packed row width W) of the work buffer; W is the
-    plane count of the planes layout and the row width of the rows
-    layout."""
+    plane count of the planes and resident layouts (the resident one
+    carries the slim payload, RST_WIDTH planes) and the row width of the
+    rows layout."""
+    if layout == "resident":
+        return GUARD, RST_WIDTH
     return GUARD, num_groups + (GH_BYTES_Q if quantized else GH_BYTES)
 
 
@@ -102,8 +132,9 @@ def planes_npad(n: int, guard: int = GUARD) -> int:
 def work_buffer(n: int, num_groups: int, layout: str, quantized: bool,
                 device) -> torch.Tensor:
     """A zeroed ping-pong work pair for ``n`` rows: (2, W, Npad) on the
-    planes layout, (2, Npad, W) on the rows layout."""
-    guard, width = work_spec(num_groups, quantized)
+    planes layout, (2, RST_WIDTH, Npad) on the resident layout,
+    (2, Npad, W) on the rows layout."""
+    guard, width = work_spec(num_groups, quantized, layout)
     npad = planes_npad(n, guard)
     shape = (2, npad, width) if layout == "rows" else (2, width, npad)
     return torch.zeros(shape, dtype=torch.uint8, device=device)
@@ -288,6 +319,122 @@ def partition_segment_rows(work: torch.Tensor, seg: torch.Tensor,
                              width=work.shape[2])
 
 
+# ------------------------------------------------------------ resident layout
+
+def resident_bin_planes(bins: torch.Tensor) -> torch.Tensor:
+    """(N, F) u8 bins -> (F, Npad) u8 resident planes: row i at lane i,
+    zero-padded to whole 128-lane tiles (the JAX package's with no guard
+    lanes). Written once per dataset and never partitioned; the learner's
+    are the row router's block form (``learner.route_layout``)."""
+    n, f = bins.shape
+    res = torch.zeros((f, 128 * ((n + 127) // 128)), dtype=bins.dtype,
+                      device=bins.device)
+    res[:, :n] = bins.t()
+    return res
+
+
+def decode_ridx(planes: torch.Tensor, npad: int) -> torch.Tensor:
+    """(4, C) u8 little-endian byte planes -> (C,) i64 row indices,
+    clamped to ``[0, npad)``. Lanes outside a live segment hold stale bytes
+    that can decode to anything (a top byte >= 128 decodes negative, as an
+    i32 does); the clamp keeps a gather in bounds, as the JAX package's
+    ``_decode_ridx`` does."""
+    b = planes.to(torch.int64)
+    r = b[0] + b[1] * 256 + b[2] * 65536 + b[3] * 16777216
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.clamp(0, npad - 1)
+
+
+def encode_ridx(pos: torch.Tensor) -> torch.Tensor:
+    """(C,) integer row indices -> (4, C) u8 little-endian byte planes."""
+    sh = torch.arange(RST_RIDX, dtype=torch.int64, device=pos.device) * 8
+    return ((pos.to(torch.int64)[None, :] >> sh[:, None]) & 255) \
+        .to(torch.uint8)
+
+
+def pack_resident(rows: torch.Tensor, ghc: torch.Tensor) -> torch.Tensor:
+    """(C,) row indices into the resident planes + (C, 3) f32 ->
+    (RST_WIDTH, C) u8 slim planes: a zero route byte, the ridx bytes, the
+    g/h/cnt bytes."""
+    gb = ghc.to(torch.float32).contiguous().view(torch.uint8) \
+        .reshape(ghc.shape[0], GH_BYTES)
+    route = torch.zeros((RST_ROUTE, rows.shape[0]), dtype=torch.uint8,
+                        device=ghc.device)
+    return torch.cat([route, encode_ridx(rows), gb.t()], dim=0)
+
+
+def pack_resident_fold_root(work: torch.Tensor, resident: torch.Tensor,
+                            ghc: torch.Tensor, guard: int, *, num_bins: int,
+                            num_feat: int, exact: bool) -> torch.Tensor:
+    """Write the slim rows into plane 0 of ``work`` (in place: ridx = the
+    original row index, so row i at lane ``guard + i``) and return the
+    root histogram: one resident-histogram launch over all rows, which
+    gathers the bins in their original order and so equals the planes
+    pack's root histogram bit for bit."""
+    from .histogram import segment_histogram_resident
+
+    n = ghc.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=work.device)
+    work[0, :, guard:guard + n] = pack_resident(rows, ghc)
+    seg = torch.tensor([0, guard, n], dtype=torch.int32, device=work.device)
+    return segment_histogram_resident(work, resident, seg, num_bins=num_bins,
+                                      num_feat=num_feat, exact=exact,
+                                      cnt_bound=n)
+
+
+def on_route_plane(seg: torch.Tensor) -> torch.Tensor:
+    """The (4,) device segment ``[src, start, cnt, col]`` with column 0:
+    the planes partition of the slim pair routes on the route plane."""
+    return torch.cat([seg[:3], seg[3:] * 0])
+
+
+def write_route_plane_plain(work: torch.Tensor, resident: torch.Tensor,
+                            seg: torch.Tensor) -> None:
+    """Plain torch twin of the route gather: plane 0 of the segment's
+    lanes of buffer ``src`` gets ``resident[col, ridx]``."""
+    src, start, cnt, col = (int(v) for v in seg.tolist())
+    cols = work[src, :, start:start + cnt]
+    ridx = decode_ridx(cols[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+    work[src, 0, start:start + cnt] = resident[col].index_select(0, ridx)
+
+
+def write_route_plane(work: torch.Tensor, resident: torch.Tensor,
+                      seg: torch.Tensor, cnt_bound: int) -> None:
+    """Write the split column's bin of each row of a segment of the slim
+    pair ``work`` (2, RST_WIDTH, Npad) u8 into its route plane (plane 0 of
+    buffer ``src``), gathered from the (F, Npad_res) u8 ``resident``
+    planes through the rows' ridx; nothing else is written. ``seg`` is the
+    (4,) device i32 ``[src, start, cnt, col]``, ``cnt_bound`` a host int
+    >= cnt that sizes the grid. On a CUDA tensor it launches
+    ``csrc/resident_route.cu``; on a CPU tensor it runs the plain twin.
+    The planes partition then routes the slim rows on plane 0
+    (:func:`on_route_plane`)."""
+    check_resident_args("write_route_plane", work, resident)
+    if seg.dtype != torch.int32 or seg.numel() != 4:
+        raise ValueError("write_route_plane: seg must be 4 int32")
+    if work.device.type == "cpu":
+        return write_route_plane_plain(work, resident, seg)
+    check_on_card("write_route_plane", work, seg, resident)
+    nblocks = max(1, -(-int(cnt_bound) // ROUTE_ROWS_PER_BLOCK))
+    ROUTE_KERNEL.launch(work.data_ptr(), work.shape[1], work.shape[2],
+                        seg.data_ptr(), resident.data_ptr(),
+                        resident.shape[1], nblocks, stream_of(work))
+
+
+def check_resident_args(name: str, work: torch.Tensor,
+                        resident: torch.Tensor) -> None:
+    """Raise unless ``work`` is a slim pair and ``resident`` u8 planes."""
+    if work.dim() != 3 or work.shape[0] != 2 or work.dtype != torch.uint8 \
+            or work.shape[1] != RST_WIDTH:
+        raise ValueError("%s: work must be the (2, %d, .) u8 slim pair, got "
+                         "%s %s" % (name, RST_WIDTH, tuple(work.shape),
+                                    work.dtype))
+    if resident.dim() != 2 or resident.dtype != torch.uint8 \
+            or resident.shape[1] < 1:
+        raise ValueError("%s: resident must be (F, Npad) u8, got %s %s"
+                         % (name, tuple(resident.shape), resident.dtype))
+
+
 # ------------------------------------------------------------ one-kernel split
 
 class OneKernelArgs(ctypes.Structure):
@@ -299,11 +446,12 @@ class OneKernelArgs(ctypes.Structure):
         "outs2", "lows2", "ups2", "counts", "partial", "cand_gain",
         "cand_bin", "num_dl", "rank", "lt", "hist_left", "hist_right",
         "gain", "feature", "bin", "kind", "default_left", "go_left",
-        "left_sum", "right_sum", "left_output", "right_output")] \
+        "left_sum", "right_sum", "left_output", "right_output", "res")] \
         + [(name, ctypes.c_int32) for name in (
             "W", "npad", "table_bins", "left_smaller", "depth", "F", "B",
             "nch", "nfb", "groups", "row_blocks", "max_cat_to_onehot",
-            "has_categorical", "has_monotone", "use_mono_penalty")] \
+            "has_categorical", "has_monotone", "use_mono_penalty",
+            "npad_res")] \
         + [(name, ctypes.c_float) for name in (
             "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split", "max_delta_step",
@@ -340,22 +488,35 @@ def _hyper_fields(hp) -> dict:
 def one_kernel_split_planes_plain(work, seg, go_left, left_smaller, depth,
                                   parent_hist, meta, fmask, sums2, outs2,
                                   lows2, ups2, hp, *, num_bins, num_feat,
-                                  exact=True):
+                                  exact=True, resident=None):
     """Plain torch twin of the one-kernel split: the three-launch chain,
     ``partition_segment_plain`` -> ``segment_histogram_plain`` on the
     smaller child -> parent minus child -> ``find_best_split`` over the
-    stacked pair with ``node_depth=depth``."""
-    from .histogram import segment_histogram_plain
+    stacked pair with ``node_depth=depth``. Given the ``resident`` planes
+    (``work`` is then the slim pair) it is the resident chain:
+    ``write_route_plane_plain`` -> ``partition_segment_plain`` on the
+    route plane -> ``segment_histogram_resident_plain`` -> the same."""
+    from .histogram import (segment_histogram_plain,
+                            segment_histogram_resident_plain)
     from .split import find_best_split
 
-    lt = partition_segment_plain(work, seg, go_left)
+    if resident is not None:
+        write_route_plane_plain(work, resident, seg)
+        lt = partition_segment_plain(work, on_route_plane(seg), go_left)
+    else:
+        lt = partition_segment_plain(work, seg, go_left)
     src, start, cnt, _ = (int(v) for v in seg.tolist())
     n_left = int(lt)
     hseg = torch.tensor([1 - src, start, n_left] if left_smaller
                         else [1 - src, start + n_left, cnt - n_left],
                         dtype=torch.int32, device=work.device)
-    small = segment_histogram_plain(work, hseg, num_bins=num_bins,
-                                    num_feat=num_feat, exact=exact)
+    if resident is not None:
+        small = segment_histogram_resident_plain(
+            work, resident, hseg, num_bins=num_bins, num_feat=num_feat,
+            exact=exact)
+    else:
+        small = segment_histogram_plain(work, hseg, num_bins=num_bins,
+                                        num_feat=num_feat, exact=exact)
     large = parent_hist - small
     hl, hr = (small, large) if left_smaller else (large, small)
     infos = find_best_split(torch.stack([hl, hr]), sums2, meta, fmask, hp,
@@ -367,9 +528,9 @@ def one_kernel_split_planes_plain(work, seg, go_left, left_smaller, depth,
 def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
                             parent_hist, meta, fmask, sums2, outs2, lows2,
                             ups2, hp, *, num_bins, num_feat, exact=True,
-                            cnt_bound):
-    """One split in one launch (planes layout): route the parent's rows,
-    histogram the smaller child, scan both children.
+                            cnt_bound, resident=None):
+    """One split in one launch (planes or resident layout): route the
+    parent's rows, histogram the smaller child, scan both children.
 
     ``work`` (2, W, Npad) u8 with ``W = num_feat + 12`` is updated in
     place; ``seg`` is the device (4,) i32 ``[src, start, cnt, col]``;
@@ -390,10 +551,17 @@ def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
     the plain twin. Raises on a shape or type the kernel does not take.
     A caller that runs many splits over one work buffer (the learner)
     builds one :class:`OneKernelSplit` instead and calls it per split.
+
+    Resident mode (the TPU kernel's ``resident_planes``): ``resident`` is
+    the (num_feat, Npad_res) u8 resident bin planes, ``work`` the slim
+    pair (2, RST_WIDTH, Npad) and ``col`` a column of ``resident``. The
+    launch gathers the route bytes, routes the slim rows on them and
+    gathers the smaller child's bins through ridx
+    (``one_kernel_split_resident``); the twin is the resident chain.
     """
     return OneKernelSplit(work, meta, fmask, hp, num_bins=num_bins,
                           num_feat=num_feat, exact=exact,
-                          cnt_max=cnt_bound)(
+                          cnt_max=cnt_bound, resident=resident)(
         seg, go_left, left_smaller, depth, parent_hist, sums2, outs2, lows2,
         ups2, cnt_bound=cnt_bound)
 
@@ -404,22 +572,26 @@ class OneKernelSplit:
     ``fmask``, ``hp`` and the shapes) is validated once, and on the card
     packed once into the C argument struct beside the scratch buffers
     (sized for segments of up to ``cnt_max`` rows); each call checks and
-    fills in one split's own fields and launches."""
+    fills in one split's own fields and launches. ``resident`` (the
+    resident bin planes) selects the resident mode."""
 
     def __init__(self, work, meta, fmask, hp, *, num_bins, num_feat,
-                 exact=True, cnt_max):
+                 exact=True, cnt_max, resident=None):
         from .histogram import HIST_MAX_ROW_BLOCKS, HIST_TILE
 
         name = "one_kernel_split_planes"
         _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
-                                num_feat)
+                                num_feat, resident)
         self.work, self.meta, self.fmask, self.hp = work, meta, fmask, hp
         self.num_bins, self.num_feat, self.exact = num_bins, num_feat, exact
         self.cnt_max = int(cnt_max)
+        self.resident = resident
+        self._kernel = ONE_KERNEL if resident is None else ONE_KERNEL_RESIDENT
         self._args = None
         if work.device.type == "cpu":
             return
-        check_on_card("one_kernel_split", work, fmask, *meta[:6])
+        extra = () if resident is None else (resident,)
+        check_on_card(self._kernel.symbol, work, fmask, *meta[:6], *extra)
         dev = work.device
         F, B = num_feat, num_bins
         nch = 5 if exact else 3
@@ -448,7 +620,10 @@ class OneKernelSplit:
             cand_gain=cand.data_ptr(), cand_bin=cand.data_ptr() + 4 * 8 * F,
             num_dl=fl, rank=fl + 2 * F * B, W=work.shape[1],
             npad=work.shape[2], table_bins=B, F=F, B=B, nch=nch,
-            nfb=-(-F // groups), groups=groups, **_hyper_fields(hp))
+            nfb=-(-F // groups), groups=groups,
+            res=0 if resident is None else resident.data_ptr(),
+            npad_res=0 if resident is None else resident.shape[1],
+            **_hyper_fields(hp))
 
     def __call__(self, seg, go_left, left_smaller, depth, parent_hist,
                  sums2, outs2, lows2, ups2, *, cnt_bound):
@@ -462,8 +637,9 @@ class OneKernelSplit:
             return one_kernel_split_planes_plain(
                 work, seg, go_left, left_smaller, depth, parent_hist,
                 self.meta, self.fmask, sums2, outs2, lows2, ups2, self.hp,
-                num_bins=B, num_feat=self.num_feat, exact=self.exact)
-        check_on_card("one_kernel_split", work, seg, go_left, parent_hist,
+                num_bins=B, num_feat=self.num_feat, exact=self.exact,
+                resident=self.resident)
+        check_on_card(self._kernel.symbol, work, seg, go_left, parent_hist,
                       sums2, outs2, lows2, ups2)
         dev, F = work.device, self.num_feat
         hists = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
@@ -487,7 +663,7 @@ class OneKernelSplit:
         a.left_smaller, a.depth = int(bool(left_smaller)), int(depth)
         a.row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
                                   -(-int(cnt_bound) // HIST_TILE)))
-        ONE_KERNEL.launch(ctypes.addressof(a), stream_of(work))
+        self._kernel.launch(ctypes.addressof(a), stream_of(work))
         infos = SplitInfo(
             gain=fout[0:2], feature=iout[0:2], bin=iout[2:4], kind=iout[4:6],
             default_left=bout[0:2], go_left=bout[2:].view(2, B),
@@ -497,7 +673,7 @@ class OneKernelSplit:
 
 
 def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
-                            num_feat) -> None:
+                            num_feat, resident=None) -> None:
     """What a one-kernel split takes for a whole tree."""
     if work.dim() != 3 or work.shape[0] != 2 or work.dtype != torch.uint8:
         raise ValueError("%s: work must be a (2, ., .) u8 pair, got %s %s"
@@ -505,7 +681,12 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
     if work.shape[2] % 128:
         raise ValueError("%s: needs whole 128-lane tiles in the lane dim, "
                          "got Npad=%d" % (name, work.shape[2]))
-    if work.shape[1] != num_feat + GH_BYTES:
+    if resident is not None:
+        check_resident_args(name, work, resident)
+        if resident.shape[0] != num_feat:
+            raise ValueError("%s: resident has %d planes, not num_feat = %d"
+                             % (name, resident.shape[0], num_feat))
+    elif work.shape[1] != num_feat + GH_BYTES:
         raise ValueError("%s: work has %d planes, not num_feat + %d = %d"
                          % (name, work.shape[1], GH_BYTES,
                             num_feat + GH_BYTES))

@@ -128,3 +128,37 @@ def test_small_serving_path_on_card(card, trained_on_card):
     assert counts["forest_predict"] > 0 and counts["route_rows"] == 4
     errs = chip_smoke.check_serve(bst, out)
     assert np.isfinite(list(errs.values())).all()
+
+
+def test_resident_kernels_match_plain_on_card(card):
+    """The route gather, the resident histogram and the one-kernel split's
+    resident mode against their twins and the planes kernels on the same
+    rows (chip_smoke.phase_resident_kernels): route bytes equal, the
+    resident histogram bit-equal to K4 planes, the resident split's routed
+    bytes equal to the chain's and its histograms and SplitInfo bit-equal
+    to the planes mode's."""
+    before = kernels.launch_counts()
+    errs = chip_smoke.phase_resident_kernels(card, np.random.RandomState(9))
+    assert np.isfinite(list(errs.values())).all()
+    after = kernels.launch_counts()
+    for name in ("write_route_plane", "segment_histogram_resident",
+                 "one_kernel_split_resident"):
+        assert after[name] > before[name], name
+
+
+def test_small_resident_training_on_card(card, data):
+    """Resident one-kernel training byte-equal to planes one-kernel
+    training, resident three-launch byte-equal to planes three-launch, card
+    against host (chip_smoke.phase_resident_train), then the full-width
+    checks at the root and a deep leaf."""
+    ds = chip_smoke.build_datasets(card, data, 63,
+                                   chip_smoke.ONE_KERNEL_PARAMS)
+    one = chip_smoke.phase_train(card, ds, 4, 63,
+                                 chip_smoke.ONE_KERNEL_PARAMS)
+    bst, counts, summary = chip_smoke.phase_resident_train(
+        card, data, 4, 63, (one[0], one[2]), 5000)
+    assert counts["one_kernel_split_resident"] == summary["splits"]
+    assert summary["three_launch"]["write_route_plane"] > 0
+    errs = {}
+    assert chip_smoke.full_width_resident(bst, card, errs, timed=False) == {}
+    assert len(errs) == 6

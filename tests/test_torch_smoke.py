@@ -139,6 +139,38 @@ def test_one_kernel_phases_small_on_cpu(trained):
     assert one["on_vs_off"]["splits_agree"] == one["on_vs_off"]["splits"]
 
 
+def test_resident_phases_small_on_cpu(trained):
+    """The slice-5 checks at a tiny size: every seeded resident case (the
+    route gather, the resident histogram and the one-kernel split's
+    resident mode, twins against twins and the planes layout's), the
+    resident training phase (its model byte-equal to the one-kernel
+    phase's, its three-launch run byte-equal to planes') and the
+    full-width checks at the root and a deep leaf."""
+    data, _, _, _, summary = trained
+    errs = chip_smoke.phase_resident_kernels(CPU, np.random.RandomState(5))
+    assert set(errs) == {"route/%s" % c[0] for c in chip_smoke.PART_CASES} \
+        | {"histogram_resident/%s/%s" % (m, c[0])
+           for m in ("hilo", "bf16") for c in chip_smoke.HIST_CASES} \
+        | {"one_kernel_resident/%s" % k for k in (
+            "unaligned", "empty_left", "under_one_tile", "whole")} \
+        | {"one_kernel_resident/scan/%s" % k for k in chip_smoke.SPLIT_CASES}
+    assert max(errs.values()) == 0.0
+    one = chip_smoke.phase_one_kernel_train(CPU, data, 3, 15, summary, 1000)
+    bst, counts, res = chip_smoke.phase_resident_train(
+        CPU, data, 3, 15, (one[0], one[2]), 1000)
+    assert all(v == 0 for v in counts.values())              # plain twins
+    assert res["layout"] == "resident" and res["splits"] == one[2]["splits"]
+    assert res["card_vs_host"]["splits_agree"] == res["card_vs_host"][
+        "splits"]
+    errs = {}
+    assert chip_smoke.full_width_resident(bst, CPU, errs, timed=False) == {}
+    assert set(errs) == {"%s/full_width_%s" % (k, t)
+                         for k in ("route", "histogram_resident",
+                                   "one_kernel_resident")
+                         for t in ("root", "deep")}
+    assert max(errs.values()) == 0.0
+
+
 def test_serve_phase_small_on_cpu(quantized):
     bst, train, _, _ = quantized
     assert bst.inner.train_set.num_total_features \

@@ -231,7 +231,7 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"tpu_resident_state": "on"}, {"tpu_goss_compact": "on"},
+    {"tpu_goss_compact": "on"},
     {"tpu_work_layout": "planes", "use_quantized_grad": True},
     {"feature_fraction_bynode": 0.5}, {"extra_trees": True},
     {"interaction_constraints": "[0,1]"}, {"cegb_penalty_split": 0.1},
