@@ -21,13 +21,17 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 within the f32 summation bound ``ops.histogram.
                 sum_error_bound`` of the twin's float64 sum of the same
                 per-row values; hi/lo and bf16 modes; 0 rows to 9000;
-                bit-equal run to run; the rows kernel bit-equal to the
-                planes kernel on the same rows); the int8 histogram
+                bit-equal run to run and with ``cnt_bound`` at the count,
+                2x and 8x it: the summation order depends on the rows
+                alone; the rows kernel bit-equal to the planes kernel on
+                the same rows); the int8 histogram
                 (byte-equal to its twin and run to run); the one-kernel
                 split against its twin and against K3 + K4 (routed bytes
                 and lt equal, child histograms bit-equal to K3 + K4 and
                 the parent subtraction; unaligned start, empty sides,
-                one-row children, a segment under one tile) and its split
+                one-row children, a segment under one tile, bagged
+                segments whose smaller child by the count channel holds
+                ~3/4 of the rows) and its split
                 scan against torch's on the same histograms in every case
                 of SPLIT_CASES (NaN-missing both ways, one-vs-rest and
                 both many-vs-many orders, monotone with both depth-penalty
@@ -102,7 +106,13 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 for the one-kernel split also the three-launch path's ms on
                 the same 2M-row root split; the resident kernels at the 2M
                 root and at a deep leaf of ~8k rows, beside the planes
-                kernels on the same rows.
+                kernels on the same rows; the small kernels' device ms
+                with the host's launch overhead hidden (device_ms); the
+                one-kernel split's per-phase breakdown from its own
+                %globaltimer stamps at the root, a ~64k-row leaf and the
+                deep leaf, planes and resident (b7_breakdown; alone:
+                ``--breakdown-only``); whether the card takes a cluster
+                dimension with a cooperative launch (cluster_probe).
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -336,6 +346,32 @@ def cuda_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=2):
+    """Mean device milliseconds per call of ``fn`` with the host's launch
+    overhead hidden: the calls are queued behind a sleep kernel long enough
+    for the host to issue all of them, and CUDA events around the calls
+    time them back to back on the stream."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0          # one call, host and device
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 0)
+    rate = (khz or 2_000_000) * 1e3            # SM cycles per second
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host_s + 2e-3) * rate))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_kernels(dev, seed):
@@ -509,9 +545,8 @@ def check_histogram(name, work, seg, num_bins, num_feat, exact, rows=False):
     if not torch.isfinite(got).all() or (diff > bound).any():
         raise AssertionError("%s: g/h off, max |diff| %.3g"
                              % (name, float(diff.max())))
-    if seg[2] and not torch.equal(
-            got, kernel(work, sg, cnt_bound=seg[2], **kw)):
-        raise AssertionError("%s: not bit-equal run to run" % name)
+    check_bound_invariant(name, lambda b: kernel(work, sg, cnt_bound=b, **kw),
+                          got, seg[2])
     if rows:
         planes = work.transpose(1, 2).contiguous()
         other = H.segment_histogram(planes, sg, cnt_bound=max(seg[2], 1),
@@ -519,6 +554,19 @@ def check_histogram(name, work, seg, num_bins, num_feat, exact, rows=False):
         if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
             raise AssertionError("%s: rows and planes kernels differ" % name)
     return float(diff.max())
+
+
+def check_bound_invariant(name, launch, got, cnt):
+    """``launch(cnt_bound)`` with the row bound at the segment's count, 2x
+    and 8x it must give ``got``'s bits: the f32 histograms' summation order
+    depends on the rows alone, never on the grid a host bound sizes (and
+    run to run)."""
+    import torch
+    for b in (max(cnt, 1), 2 * max(cnt, 1), 8 * max(cnt, 1)):
+        x = launch(b)
+        if not torch.equal(got.view(torch.int32), x.view(torch.int32)):
+            raise AssertionError("%s: not bit-equal with cnt_bound %d"
+                                 % (name, b))
 
 
 def check_histogram_q(name, work, seg, num_bins, num_feat, scale):
@@ -942,23 +990,26 @@ def full_width_segment_kernels(bst, dev, errs):
     vals = ghc.repeat(F, 1)
     out = torch.zeros((F * B, 3), device=dev)
     l_ms = cuda_ms(lambda: out.zero_().index_add_(0, idx, vals))
+    h_dev = device_ms(lambda: segment_histogram(work, sg3, num_bins=B,
+                                                num_feat=F, cnt_bound=n))
+    p_dev = device_ms(lambda: partition_segment(work, sg4, table, n))
     rows["partition_segment"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/partition_segment.cu",
         replaces="lightgbm_tpu/ops/partition.py:1249",
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("partition/")),
-        ms=p_ms, plain_ms=pp_ms, library_ms=None,
+        ms=p_ms, device_ms=p_dev, plain_ms=pp_ms, library_ms=None,
         bytes=2 * width * n, ops=n)
     rows["segment_histogram"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
         replaces="lightgbm_tpu/ops/histogram.py:698",
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("histogram/")),
-        ms=h_ms, plain_ms=hp_ms, library_ms=l_ms,
+        ms=h_ms, device_ms=h_dev, plain_ms=hp_ms, library_ms=l_ms,
         bytes=(F + 12) * n + F * B * 3 * 4, ops=n * F * 5)
-    log("full width: partition %.4f ms (twin %.2f), histogram %.4f ms "
-        "(twin %.2f, index_add_ %.4f) over %d rows x %d columns"
-        % (p_ms, pp_ms, h_ms, hp_ms, l_ms, n, F))
+    log("full width: partition %.4f ms (device %s, twin %.2f), histogram "
+        "%.4f ms (device %s, twin %.2f, index_add_ %.4f) over %d rows x %d "
+        "columns" % (p_ms, p_dev, pp_ms, h_ms, h_dev, hp_ms, l_ms, n, F))
     return rows
 
 
@@ -1027,6 +1078,8 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
     qvals = torch.stack([gq.int(), hq.int(), cq.int()], dim=1).repeat(F, 1)
     qout = torch.zeros((F * B, 3), dtype=torch.int32, device=dev)
     lq_ms = cuda_ms(lambda: qout.zero_().index_add_(0, idx, qvals))
+    h_dev = device_ms(lambda: H.segment_histogram_rows(
+        fwork, sg3, num_bins=B, num_feat=F, cnt_bound=n))
     inbag = int(m.sum())
     W = qwork.shape[2]
 
@@ -1044,8 +1097,9 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
             route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
             replaces="lightgbm_tpu/ops/histogram.py:385",
-            max_abs_err=err("histogram_rows/"), ms=h_ms, plain_ms=hp_ms,
-            library_ms=l_ms, bytes=(F + 12) * n + F * B * 3 * 4,
+            max_abs_err=err("histogram_rows/"), ms=h_ms, device_ms=h_dev,
+            plain_ms=hp_ms, library_ms=l_ms,
+            bytes=(F + 12) * n + F * B * 3 * 4,
             ops=n * F * 5),
         "segment_histogram_q": dict(
             route="cuda",
@@ -1056,10 +1110,10 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
             ops=inbag * F * 3),
     }
     log("full width rows: partition %.4f ms (twin %.2f) at W = %d, rows "
-        "histogram %.4f ms (twin %.2f, index_add_ %.4f), int8 histogram "
-        "%.4f ms (twin %.2f, int32 index_add_ %.4f) over %d rows x %d "
-        "columns, %d in bag" % (p_ms, pp_ms, W, h_ms, hp_ms, l_ms, q_ms,
-                                qp_ms, lq_ms, n, F, inbag))
+        "histogram %.4f ms (device %s, twin %.2f, index_add_ %.4f), int8 "
+        "histogram %.4f ms (twin %.2f, int32 index_add_ %.4f) over %d rows "
+        "x %d columns, %d in bag" % (p_ms, pp_ms, W, h_ms, h_dev, hp_ms,
+                                     l_ms, q_ms, qp_ms, lq_ms, n, F, inbag))
     return rows
 
 
@@ -1305,7 +1359,8 @@ def check_one_kernel(name, work, seg, table, kw, strict=False):
 def segment_split(work, seg, table, kw):
     """``kw`` (split_inputs') re-based on the segment ``seg`` routed by
     ``table``: its own parent histogram, the children's sums and which is
-    smaller, as the learner would have them."""
+    smaller (by the count channel, as the learner decides it), as the
+    learner would have them."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (segment_histogram,
                                                   segment_histogram_plain)
@@ -1324,7 +1379,8 @@ def segment_split(work, seg, table, kw):
         w, torch.tensor([1 - src, start, n_left], dtype=torch.int32), **hkw)
     ls = left[0].sum(dim=0)
     total = parent[0].sum(dim=0)
-    return dict(kw, parent_hist=parent, left_smaller=2 * n_left <= cnt,
+    return dict(kw, parent_hist=parent, left_smaller=bool(ls[2] <= total[2]
+                                                          - ls[2]),
                 sums2=torch.stack([ls, total - ls]),
                 outs2=torch.zeros(2, device=dev))
 
@@ -1333,8 +1389,9 @@ def phase_one_kernel(dev, rng):
     """The one-kernel split against its twin and K3 + K4, seeded: segment
     shapes (unaligned start, empty left or right side, a one-row child on
     either side, a segment under one tile, the whole buffer) on the
-    numerical case, then every split-scan case of SPLIT_CASES at the
-    root."""
+    numerical case, two bagged segments whose smaller child by the count
+    channel holds ~3/4 of the rows (bagged_work), then every split-scan
+    case of SPLIT_CASES at the root."""
     import torch
     errs = {}
     work, seg, table, kw = split_inputs(dev, split_case("numerical", rng))
@@ -1346,23 +1403,62 @@ def phase_one_kernel(dev, rng):
     w_one[0, col, one[1]:one[1] + one[2]] = 0
     w_one[0, col, one[1] + one[2] // 2] = 1
     t_one = torch.arange(nb, device=dev) == 1
+    w_bag, t_bag = bagged_work(rng, work, col, nb)
     shapes = (("unaligned", work, [0, 128 + 13, 7001, col], table),
               ("empty_left", work, [0, 128 + 100, 777, col], none),
               ("empty_right", work, [0, 128 + 100, 777, col], ~none),
               ("under_one_tile", work, [0, 128 + 4095, 300, col], table),
               ("whole", work, [0, 128, n, col], table),
               ("one_row_left", w_one, one, t_one),
-              ("one_row_right", w_one, one, ~t_one))
+              ("one_row_right", w_one, one, ~t_one),
+              ("bagged_left", w_bag, [0, 128 + 13, n - 13, col], t_bag),
+              ("bagged_right", w_bag, [0, 128 + 13, n - 13, col], ~t_bag))
     for name, w, sg, tbl in shapes:
         key = "one_kernel/%s" % name
-        errs[key] = check_one_kernel(key, w, sg, tbl,
-                                     segment_split(w, sg, tbl, kw))
+        skw = segment_split(w, sg, tbl, kw)
+        if name.startswith("bagged"):
+            check_bagged_shape(key, w, sg, tbl, skw)
+        errs[key] = check_one_kernel(key, w, sg, tbl, skw)
     for name in SPLIT_CASES:
         key = "one_kernel/scan/%s" % name
         w, sg, tbl, ckw = split_inputs(dev, split_case(name, rng))
         errs[key] = check_one_kernel(key, w, sg, tbl, ckw,
                                      strict=name in EXACT_TIE_CASES)
     return errs
+
+
+def bagged_work(rng, work, col, nb):
+    """A copy of ``work`` (split_inputs' planes, all rows in buffer 0) whose
+    rows routed left by the returned table (bins <= 3 nb / 4 of column
+    ``col``: ~3/4 of the rows) are four in five out of bag: g = h = cnt =
+    0, as bagging packs them. The left child, more than half of the
+    parent's rows, is then the smaller one by the count channel (and the
+    right one under ~table)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.partition import GH_BYTES
+
+    w = work.clone()
+    width = w.shape[1]
+    table = torch.arange(nb, device=w.device) <= 3 * nb // 4
+    go = table[w[0, col].long()]
+    out = go & torch.as_tensor(rng.rand(w.shape[2]) < 0.8).to(w.device)
+    w[0, width - GH_BYTES:, out] = 0
+    return w, table
+
+
+def check_bagged_shape(name, work, seg, table, kw):
+    """The case must be one where the smaller child by the count channel
+    holds more than half of the parent's physical rows."""
+    import torch
+    from lightgbm_tpu_torch.ops.partition import partition_segment_plain
+    n_left = int(partition_segment_plain(
+        work.clone().cpu(), torch.tensor(seg, dtype=torch.int32),
+        table.cpu()))
+    small = n_left if kw["left_smaller"] else seg[2] - n_left
+    if not 2 * small > seg[2]:
+        raise AssertionError("%s: the smaller child by count has %d of %d "
+                             "rows" % (name, small, seg[2]))
 
 
 def split_kernel_on_vs_off(dev, data, rows, leaves, iters=3):
@@ -1450,8 +1546,13 @@ def full_width_one_kernel(bst, dev, errs, timed=True):
     if not timed:
         return {}
     sg = torch.tensor(seg, dtype=torch.int32, device=dev)
-    k_ms = cuda_ms(lambda: P.one_kernel_split_planes(work, sg, table,
-                                                     cnt_bound=n, **kw))
+    # the kernel as the learner calls it: one OneKernelSplit per tree
+    op = P.OneKernelSplit(work, kw["meta"], kw["fmask"], kw["hp"],
+                          num_bins=B, num_feat=F, cnt_max=n)
+    args = (sg, table, kw["left_smaller"], kw["depth"], kw["parent_hist"],
+            kw["sums2"], kw["outs2"], kw["lows2"], kw["ups2"])
+    k_ms = cuda_ms(lambda: op(*args, cnt_bound=n))
+    k_dev = device_ms(lambda: op(*args, cnt_bound=n))
     p_ms = cuda_ms(lambda: P.one_kernel_split_planes_plain(work, sg, table,
                                                            **kw),
                    iters=3, warmup=1)
@@ -1485,19 +1586,20 @@ def full_width_one_kernel(bst, dev, errs, timed=True):
     # are scattered. The design reads them again in phase B: its own floor
     # counts width * n_small bytes more.
     f_bytes = 2 * width * n + 3 * F * B * 12
-    log("full width one-kernel split: %.4f ms (twin %.2f, three-launch "
-        "K3 + K4 + torch scan %.4f) at the %d-row root, %d rows in the "
-        "smaller child; byte floor of the function %.5f ms, of the "
-        "three-phase design %.5f ms"
-        % (k_ms, p_ms, t_ms, n, n_small, f_bytes / PEAK_BYTES_PER_S * 1e3,
+    log("full width one-kernel split: %.4f ms (device %s, twin %.2f, "
+        "three-launch K3 + K4 + torch scan %.4f) at the %d-row root, %d "
+        "rows in the smaller child; byte floor of the function %.5f ms, of "
+        "the three-phase design %.5f ms"
+        % (k_ms, k_dev, p_ms, t_ms, n, n_small,
+           f_bytes / PEAK_BYTES_PER_S * 1e3,
            (f_bytes + width * n_small) / PEAK_BYTES_PER_S * 1e3))
     return {"one_kernel_split": dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/one_kernel_split.cu",
         replaces="lightgbm_tpu/ops/partition.py:1465",
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("one_kernel/")),
-        ms=k_ms, plain_ms=p_ms, library_ms=None, three_launch_ms=t_ms,
-        bytes=f_bytes, ops=n + n_small * F * 5)}
+        ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+        three_launch_ms=t_ms, bytes=f_bytes, ops=n + n_small * F * 5)}
 
 
 def phase_one_kernel_train(dev, data, trees, leaves, planes, host_rows):
@@ -1629,8 +1731,8 @@ def check_histogram_resident(name, slim, res, planes, seg, num_bins,
     got = H.segment_histogram_resident(slim, res, sg, cnt_bound=bound, **kw)
     want = H.segment_histogram_resident_plain(slim, res, sg, **kw)
     other = H.segment_histogram(planes, sg, cnt_bound=bound, **kw)
-    again = H.segment_histogram_resident(slim, res, sg, cnt_bound=bound,
-                                         **kw)
+    check_bound_invariant(name, lambda b: H.segment_histogram_resident(
+        slim, res, sg, cnt_bound=b, **kw), got, seg[2])
     absum = H.segment_histogram_plain(abs_work(planes, num_feat), sg, **kw)
     sync(slim.device)
     if not torch.equal(got[..., 2], want[..., 2]):
@@ -1640,9 +1742,8 @@ def check_histogram_resident(name, slim, res, planes, seg, num_bins,
             or (diff > H.sum_error_bound(seg[2]) * absum).any():
         raise AssertionError("%s: g/h off, max |diff| %.3g"
                              % (name, float(diff.max())))
-    for x, what in ((again, "run to run"), (other, "to the planes kernel")):
-        if not torch.equal(got.view(torch.int32), x.view(torch.int32)):
-            raise AssertionError("%s: not bit-equal %s" % (name, what))
+    if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
+        raise AssertionError("%s: not bit-equal to the planes kernel" % name)
     return float(diff.max())
 
 
@@ -1729,9 +1830,10 @@ def phase_resident_kernels(dev, rng):
     route gather on PART_CASES' segments, the resident histogram on
     HIST_CASES' (hi/lo and bf16), and the one-kernel split's resident mode
     on segment shapes of the numerical case, then on every case of
-    SPLIT_CASES at the root."""
+    SPLIT_CASES at the root, and on a bagged segment (bagged_work)."""
     import numpy as np
     import torch
+    from lightgbm_tpu_torch.ops import partition as P
 
     n, nb, F = 9000, 64, 10
     bins = rng.randint(0, nb, (n, F)).astype(np.uint8)
@@ -1773,6 +1875,16 @@ def phase_resident_kernels(dev, rng):
             errs[key] = check_one_kernel_resident(
                 key, slim, res, work, sg, tbl,
                 segment_split(work, sg, tbl, kw))
+        # the bagged case: the slim rows carry the planes' zeroed channels
+        w_bag, t_bag = bagged_work(rng, work, col, kw["num_bins"])
+        s_bag = slim.clone()
+        s_bag[0, P.RST_GH_OFF:] = w_bag[0, work.shape[1] - P.GH_BYTES:]
+        sg = [0, 128 + 13, seg[2] - 13, col]
+        key = "one_kernel_resident/bagged"
+        bkw = segment_split(w_bag, sg, t_bag, kw)
+        check_bagged_shape(key, w_bag, sg, t_bag, bkw)
+        errs[key] = check_one_kernel_resident(key, s_bag, res, w_bag, sg,
+                                              t_bag, bkw)
     return errs
 
 
@@ -1882,6 +1994,151 @@ def deep_leaf_rows(bst, dev, target=8192):
     return torch.nonzero(slot == pick).reshape(-1), depth
 
 
+def model_ghc(bst):
+    """(N, 3) f32 g, h, cnt of the model's training rows at its scores."""
+    import torch
+    g = bst.inner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    return torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+
+
+def model_segment(bst, dev, idx, depth):
+    """The split of the training rows ``idx`` (ascending) of a trained
+    model, as the learner would run it with the model's gradients: the
+    rows at lanes 128 .. of buffer 0 of a slim pair and a planes pair
+    (resident_pair), routed by the split find_best_split takes on their
+    histogram, at node depth ``depth``. Returns (slim, planes, seg, table,
+    the keyword arguments of ops.partition.one_kernel_split_planes but
+    cnt_bound and resident)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    lrn = bst.inner.learner
+    n, F = lrn.bins.shape
+    B = lrn.num_bin_hist
+    m = int(idx.shape[0])
+    gs = model_ghc(bst)[idx]
+    slim, planes = resident_pair(dev, lrn.bins, lrn.bins_t.reshape(F, -1),
+                                 idx, gs)
+    seg3 = [0, 128, m]
+    parent = H.segment_histogram(
+        planes, torch.tensor(seg3, dtype=torch.int32, device=dev),
+        num_bins=B, num_feat=F, cnt_bound=m)
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    info = find_best_split(parent, torch.sum(gs, dim=0), lrn.meta, fmask,
+                           lrn.hp)
+    kw = dict(left_smaller=bool(info.left_sum[2] <= info.right_sum[2]),
+              depth=depth, parent_hist=parent, meta=lrn.meta, fmask=fmask,
+              sums2=torch.stack([info.left_sum, info.right_sum]),
+              outs2=torch.stack([info.left_output, info.right_output]),
+              lows2=torch.full((2,), float("-inf"), device=dev),
+              ups2=torch.full((2,), float("inf"), device=dev), hp=lrn.hp,
+              num_bins=B, num_feat=F)
+    return slim, planes, seg3 + [int(info.feature)], info.go_left, kw
+
+
+def stamp_phases(stamps):
+    """Per phase of ONE_KERNEL_PHASES, the earliest start and the latest
+    end over the blocks (ms from the launch's first stamp), and the
+    launch's device ms (its last stamp minus its first), from a stamp
+    buffer the kernel filled."""
+    from lightgbm_tpu_torch.ops.partition import ONE_KERNEL_PHASES
+    st = stamps[stamps[:, 0] != 0].double()
+    t0 = float(st[:, 0].min())
+    out = {}
+    for name, a, b in ONE_KERNEL_PHASES:
+        ran = st[st[:, b] != 0]        # the blocks that ran the phase
+        out[name] = ((float(ran[:, a].min()) - t0) * 1e-6,
+                     (float(ran[:, b].max()) - t0) * 1e-6)
+    return out, (float(st.max()) - t0) * 1e-6, int(st.shape[0])
+
+
+def b7_breakdown(bst, dev, reps=5):
+    """B7's per-phase breakdown from the kernel's own %globaltimer stamps,
+    planes and resident mode, at three splits of a trained model: the
+    2M-row root, a leaf of ~64k rows and the deep leaf of ~8k rows
+    (deep_leaf_rows), each split as the learner would take it
+    (model_segment). Each mode is launched ``reps`` times after a warm-up;
+    the launch with the median device time is printed. Returns {split:
+    {mode: (device ms, {phase: (start, end) ms})}}."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    lrn = bst.inner.learner
+    n, F = lrn.bins.shape
+    res = lrn.bins_t.reshape(F, -1)
+    out = {}
+    for tag, target in (("root", None), ("mid", 65536), ("deep", 8192)):
+        if target is None:
+            idx, depth = torch.arange(n, device=dev), 1
+        else:
+            idx, depth = deep_leaf_rows(bst, dev, target)
+        slim, planes, seg, table, kw = model_segment(bst, dev, idx, depth)
+        m = int(idx.shape[0])
+        sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+        out[tag] = {}
+        for mode, work, extra in (("planes", planes, {}),
+                                  ("resident", slim, {"resident": res})):
+            op = P.OneKernelSplit(work, kw["meta"], kw["fmask"], kw["hp"],
+                                  num_bins=kw["num_bins"], num_feat=F,
+                                  cnt_max=m, **extra)
+            args = (sg, table, kw["left_smaller"], kw["depth"],
+                    kw["parent_hist"], kw["sums2"], kw["outs2"], kw["lows2"],
+                    kw["ups2"])
+            op(*args, cnt_bound=m)
+            runs = []
+            for _ in range(reps):
+                st = P.stamp_buffer(dev)
+                lt = op(*args, cnt_bound=m, stamps=st)[0]
+                sync(dev)
+                runs.append(stamp_phases(st.cpu()))
+            phases, ms, blocks = sorted(runs, key=lambda r: r[1])[reps // 2]
+            n_left = int(lt)
+            small = n_left if kw["left_smaller"] else m - n_left
+            # each phase's share of the critical path: from the previous
+            # phase's last block to its own last block
+            crit, prev = {}, 0.0
+            for k, (_, b) in phases.items():
+                crit[k], prev = b - prev, b
+            log("b7 breakdown %s %s: %d rows (depth %d, %d in the smaller "
+                "child), %d blocks, device %.4f ms (median of %d): %s; "
+                "critical path %s"
+                % (tag, mode, m, depth, small, blocks, ms, reps,
+                   "; ".join("%s %.4f-%.4f" % (k, a, b)
+                             for k, (a, b) in phases.items()),
+                   "; ".join("%s %.4f" % kv for kv in crit.items())))
+            out[tag][mode] = (ms, phases)
+    return out
+
+
+def cluster_probe(dev):
+    """Whether the card takes a thread block cluster dimension together
+    with the cooperative launch attribute (which one_kernel_split.cu needs
+    for its grid barriers): the library's one_kernel_cluster_probe, a
+    2-block cooperative launch in clusters of 2. Returns (CUDA status
+    code, its name, the cluster size each block saw)."""
+    import ctypes
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    P.ONE_KERNEL.load()
+    lib = ctypes.CDLL(str(P.ONE_KERNEL.library_path()))
+    fn = lib.one_kernel_cluster_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.lgbt_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    out = torch.zeros(2, dtype=torch.int32, device=dev)
+    rc = fn(out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    sizes = out.tolist()
+    log("cluster dimension with a cooperative launch: %s (status %d, %s); "
+        "cluster sizes seen %s" % ("accepted" if rc == 0 else "refused", rc,
+                                   err(rc).decode(), sizes))
+    return rc, err(rc).decode(), sizes
+
+
 def full_width_resident(bst, dev, errs, timed=True):
     """The resident kernels at the training shapes of the resident model
     (phase 3c): the 2M-row root (ridx the identity) and a deep leaf's rows
@@ -1905,31 +2162,16 @@ def full_width_resident(bst, dev, errs, timed=True):
     n, F = bins.shape
     B = lrn.num_bin_hist
     res = lrn.bins_t.reshape(F, -1)
-    grad, hess = g.objective.get_gradients(g.train_score.score)
-    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
     deep, depth = deep_leaf_rows(bst, dev)
-    fmask = torch.ones(F, dtype=torch.bool, device=dev)
     rows = {}
     for tag, idx in (("root", torch.arange(n, device=dev)), ("deep", deep)):
         m = int(idx.shape[0])
-        gs = ghc[idx]
-        slim, planes = resident_pair(dev, bins, res, idx, gs)
-        seg3 = [0, 128, m]
+        slim, planes, seg, table, kw = model_segment(
+            bst, dev, idx, depth if tag == "deep" else 1)
+        seg3 = seg[:3]
         sg3 = torch.tensor(seg3, dtype=torch.int32, device=dev)
-        parent = H.segment_histogram(planes, sg3, num_bins=B, num_feat=F,
-                                     cnt_bound=m)
-        info = find_best_split(parent, torch.sum(gs, dim=0), lrn.meta,
-                               fmask, lrn.hp)
-        seg = seg3 + [int(info.feature)]
-        table = info.go_left
-        kw = dict(left_smaller=bool(info.left_sum[2] <= info.right_sum[2]),
-                  depth=depth if tag == "deep" else 1, parent_hist=parent,
-                  meta=lrn.meta, fmask=fmask,
-                  sums2=torch.stack([info.left_sum, info.right_sum]),
-                  outs2=torch.stack([info.left_output, info.right_output]),
-                  lows2=torch.full((2,), float("-inf"), device=dev),
-                  ups2=torch.full((2,), float("inf"), device=dev), hp=lrn.hp,
-                  num_bins=B, num_feat=F)
+        parent = kw["parent_hist"]
+        gs = model_ghc(bst)[idx]
         errs["route/full_width_" + tag] = check_route(
             "route/full_width_" + tag, slim, res, planes, seg)
         errs["histogram_resident/full_width_" + tag] = \
@@ -1970,11 +2212,23 @@ def full_width_resident(bst, dev, errs, timed=True):
                                    node_depth=kw["depth"])
 
         slow = dict(iters=3, warmup=1)
+        rows_pair = planes.transpose(1, 2).contiguous()   # rows layout
+        # the kernel as the learner calls it: one OneKernelSplit per tree
+        ops = {mode: P.OneKernelSplit(w, kw["meta"], kw["fmask"], kw["hp"],
+                                      num_bins=B, num_feat=F, cnt_max=m,
+                                      **extra)
+               for mode, w, extra in (("b7", slim, {"resident": res}),
+                                      ("b7_planes", planes, {}))}
+        args = (sg, table, kw["left_smaller"], kw["depth"],
+                kw["parent_hist"], kw["sums2"], kw["outs2"], kw["lows2"],
+                kw["ups2"])
+
+        def b7(mode):
+            return lambda: ops[mode](*args, cnt_bound=m)
+
         t = {
-            "b7": cuda_ms(lambda: P.one_kernel_split_planes(
-                slim, sg, table, cnt_bound=m, resident=res, **kw)),
-            "b7_planes": cuda_ms(lambda: P.one_kernel_split_planes(
-                planes, sg, table, cnt_bound=m, **kw)),
+            "b7": cuda_ms(b7("b7")),
+            "b7_planes": cuda_ms(b7("b7_planes")),
             "b7_plain": cuda_ms(lambda: P.one_kernel_split_planes_plain(
                 slim, sg, table, resident=res, **kw), **slow),
             "three_launch": cuda_ms(resident_three_launch),
@@ -1982,6 +2236,8 @@ def full_width_resident(bst, dev, errs, timed=True):
                 slim, res, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
             "hist_planes": cuda_ms(lambda: H.segment_histogram(
                 planes, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "hist_rows": cuda_ms(lambda: H.segment_histogram_rows(
+                rows_pair, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
             "hist_plain": cuda_ms(lambda: H.segment_histogram_resident_plain(
                 slim, res, sg3, num_bins=B, num_feat=F), **slow),
             "route": cuda_ms(lambda: P.write_route_plane(slim, res, sg, m)),
@@ -1999,6 +2255,17 @@ def full_width_resident(bst, dev, errs, timed=True):
         t["hist_library"] = cuda_ms(
             lambda: out.zero_().index_add_(0, flat, vals))
         t["route_library"] = cuda_ms(lambda: col.index_select(0, idx))
+        # the same, device time only (launch overhead hidden)
+        dev_t = {
+            "b7": device_ms(b7("b7")), "b7_planes": device_ms(b7("b7_planes")),
+            "hist": device_ms(lambda: H.segment_histogram_resident(
+                slim, res, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "hist_planes": device_ms(lambda: H.segment_histogram(
+                planes, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "hist_rows": device_ms(lambda: H.segment_histogram_rows(
+                rows_pair, sg3, num_bins=B, num_feat=F, cnt_bound=m)),
+            "route": device_ms(lambda: P.write_route_plane(slim, res, sg, m)),
+            "route_library": device_ms(lambda: col.index_select(0, idx))}
         hist_bytes = 3 * F * B * 12
         b = {"b7": 2 * P.RST_WIDTH * m + m + F * n_small + hist_bytes,
              "hist": (P.RST_RIDX + P.GH_BYTES + F) * m + F * B * 3 * 4,
@@ -2006,30 +2273,36 @@ def full_width_resident(bst, dev, errs, timed=True):
         log("full width resident %s (%d rows%s, %d in the smaller child): "
             "one-kernel split %.4f ms (planes mode %.4f, twin %.2f, "
             "three-launch chain %.4f), bound %.5f ms; histogram %.4f ms (K4 "
-            "planes %.4f, twin %.2f, index_add_ %.4f), bound %.5f ms; route "
+            "planes %.4f, K4 rows %.4f, twin %.2f, index_add_ %.4f), bound "
+            "%.5f ms; route "
             "gather %.4f ms (twin %.2f, index_select %.4f), bound %.5f ms"
             % (tag, m, ", depth %d" % depth if tag == "deep" else "",
                n_small, t["b7"], t["b7_planes"], t["b7_plain"],
                t["three_launch"], b["b7"] / PEAK_BYTES_PER_S * 1e3,
-               t["hist"], t["hist_planes"], t["hist_plain"],
+               t["hist"], t["hist_planes"], t["hist_rows"], t["hist_plain"],
                t["hist_library"], b["hist"] / PEAK_BYTES_PER_S * 1e3,
                t["route"], t["route_plain"], t["route_library"],
                b["route"] / PEAK_BYTES_PER_S * 1e3))
+        log("full width resident %s, device ms (queued launches): %s"
+            % (tag, json.dumps(dev_t)))
         if tag == "root":
             rows = {
                 "one_kernel_split_resident": dict(
                     route="cuda",
                     source="lightgbm_tpu_torch/csrc/one_kernel_split.cu",
                     replaces="lightgbm_tpu/ops/partition.py:1465",
-                    ms=t["b7"], plain_ms=t["b7_plain"], library_ms=None,
+                    ms=t["b7"], device_ms=dev_t["b7"],
+                    plain_ms=t["b7_plain"], library_ms=None,
                     planes_ms=t["b7_planes"],
+                    planes_device_ms=dev_t["b7_planes"],
                     three_launch_ms=t["three_launch"], bytes=b["b7"],
                     ops=m + n_small * F * 5),
                 "segment_histogram_resident": dict(
                     route="cuda",
                     source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
                     replaces="lightgbm_tpu/ops/histogram.py:560",
-                    ms=t["hist"], plain_ms=t["hist_plain"],
+                    ms=t["hist"], device_ms=dev_t["hist"],
+                    plain_ms=t["hist_plain"],
                     library_ms=t["hist_library"],
                     planes_ms=t["hist_planes"], bytes=b["hist"],
                     ops=m * F * 5),
@@ -2037,17 +2310,27 @@ def full_width_resident(bst, dev, errs, timed=True):
                     route="cuda",
                     source="lightgbm_tpu_torch/csrc/resident_route.cu",
                     replaces="lightgbm_tpu/ops/partition.py:410",
-                    ms=t["route"], plain_ms=t["route_plain"],
-                    library_ms=t["route_library"], bytes=b["route"], ops=m)}
+                    ms=t["route"], device_ms=dev_t["route"],
+                    plain_ms=t["route_plain"],
+                    library_ms=t["route_library"],
+                    library_device_ms=dev_t["route_library"],
+                    bytes=b["route"], ops=m)}
         else:
             for name, k in (("one_kernel_split_resident", "b7"),
                             ("segment_histogram_resident", "hist"),
                             ("write_route_plane", "route")):
                 rows[name].update(
                     deep_rows=m, deep_depth=depth, deep_ms=t[k],
+                    deep_device_ms=dev_t[k],
                     deep_bound_ms=b[k] / PEAK_BYTES_PER_S * 1e3)
             rows["one_kernel_split_resident"]["deep_planes_ms"] = \
                 t["b7_planes"]
+            rows["one_kernel_split_resident"]["deep_planes_device_ms"] = \
+                dev_t["b7_planes"]
+            rows["write_route_plane"]["deep_library_ms"] = \
+                t["route_library"]
+            rows["write_route_plane"]["deep_library_device_ms"] = \
+                dev_t["route_library"]
             rows["segment_histogram_resident"]["deep_planes_ms"] = \
                 t["hist_planes"]
     for name, prefix in (("one_kernel_split_resident",
@@ -2249,6 +2532,9 @@ def main(argv=None):
     ap.add_argument("--valid-rows", type=int, default=VALID_ROWS)
     ap.add_argument("--host-rows", type=int, default=200_000)
     ap.add_argument("--binned-rows", type=int, default=BINNED_ROWS)
+    ap.add_argument("--breakdown-only", action="store_true",
+                    help="build, train --trees one-kernel trees and print "
+                    "only B7's per-phase breakdown (b7_breakdown)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch", "csrc")):
@@ -2286,6 +2572,15 @@ def main(argv=None):
                                      " | ".join(lines)))
     log("build: %d kernels in %.1f s" % (len(kernels.KERNELS), secs))
 
+    if args.breakdown_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
+        bst = phase_train(dev, ds, args.trees, args.leaves,
+                          RESIDENT_PARAMS)[0]
+        print(json.dumps({"b7_breakdown": b7_breakdown(bst, dev)}))
+        log(card)
+        return 0
+
     log("== phase 2: kernels vs plain")
     import numpy as np
     errs = phase_kernels(dev, args.seed)
@@ -2321,6 +2616,13 @@ def main(argv=None):
         args.host_rows)
     del bst_k
     rows.update(full_width_resident(bst_r, dev, errs))
+    breakdown = b7_breakdown(bst_r, dev)
+    cluster_probe(dev)
+    for tag, mode, name in (("root", "planes", "one_kernel_split"),
+                            ("root", "resident", "one_kernel_split_resident"),
+                            ("deep", "resident", "one_kernel_split_resident")):
+        rows[name]["%sstamps_ms" % ("deep_" if tag == "deep" else "")] = \
+            breakdown[tag][mode][0]
     del bst_r
 
     log("== phase 4: full-width quantized, sampled training (%s)" % card)

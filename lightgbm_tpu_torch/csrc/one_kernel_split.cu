@@ -18,75 +18,83 @@
 // Resident mode: work is the slim pair (W = 17, csrc/resident.cuh) and
 // col is the split column of the resident bin planes res (F, npad_res).
 // Before each partition tile is counted, the block that owns it gathers
-// its rows' route bytes res[col][ridx] into plane 0 of plane src (16 rows
-// per thread, their loads issued together), as
-// csrc/resident_route.cu does for the three-launch path (the same block
-// scatters that tile later, so no grid barrier is added); phase A then
-// routes on plane 0, and phase B gathers the smaller child's bins through
-// ridx (segment_hist.cuh ResidentRows). The routed bytes equal the
-// route gather + K3 chain's, and the child histograms equal K4 planes' on
-// the same rows, bit for bit.
+// its rows' route bytes res[col][ridx] into plane 0 of plane src (the
+// route gather of csrc/resident_route.cu: 4-lane words, 5 per thread,
+// their loads issued together; the same block scatters that tile later,
+// so no grid barrier is added); phase A then routes on plane 0, and phase
+// B gathers the smaller child's bins through ridx (segment_hist.cuh
+// ResidentRows). The routed bytes equal the route gather + K3 chain's, and
+// the child histograms equal K4 planes' on the same rows, bit for bit.
 //
-// Phases, separated by grid-wide barriers (cooperative_groups
-// this_grid().sync()); every phase walks its work items grid-stride, so
-// any co-resident grid size gives the same result:
+// Phases; every phase walks its work items grid-stride, so any co-resident
+// grid size gives the same result:
 //   A. partition: (resident: the tile's route gather, then) K3's
-//      per-tile count and stable scatter
-//      (segment_partition.cuh) over 4096-row tiles. Between them each
-//      block sums the per-tile counts of the tiles before its own (integer
-//      sums: the tile-order prefix) and their total, lt. The routed bytes
-//      and lt equal partition_segment's.
-//   B. smaller-child histogram: K4's row-block pass (segment_hist.cuh)
-//      over (row block, feature group) items, with K4's row-block count
-//      min(128, ceil(cnt_bound / 1024)) from the parent's host row count;
-//      then K4's ordered reduce of the partials and hi + lo, and
-//      parent - small elementwise. hist_left and hist_right are bit-equal
-//      to K3 + K4 + the torch subtraction on the same input: the same
-//      code sums the same values in the same order (no float atomics).
-//   C. split scan: one (child, feature) item per block, one thread per
-//      bin. The item evaluates every candidate of the feature as
-//      find_best_split does (numerical thresholds in both missing
-//      directions, one-vs-rest and many-vs-many categorical prefixes) and
-//      keeps the first maximum of each kind. After a barrier one block per
-//      child takes the flat first maximum over (kind, feature, bin) with
-//      the kind outermost, and builds the routing table, the child sums
-//      and the outputs.
+//      per-tile count and stable scatter (segment_partition.cuh) over
+//      4096-row tiles. After a grid barrier each block sums the per-tile
+//      counts of the tiles before its own (integer sums: the tile-order
+//      prefix) and their total, lt. The routed bytes and lt equal
+//      partition_segment's. Grid barrier.
+//   B. smaller-child histogram: K4's work items (segment_hist.cuh
+//      hist_chunk) over (chunk, 2-feature group), the chunk count read on
+//      the card from the smaller child's true row count, so there are no
+//      empty items. Each writes its chunk partial. Grid barrier.
+//   C. per (child, feature) item, one thread per bin: the feature's chunk
+//      partials summed in chunk order and hi + lo (K4's reduce), the
+//      child's row (the sums, or parent - sums for the larger child),
+//      then every split candidate of the feature as find_best_split
+//      evaluates them (numerical thresholds in both missing directions,
+//      one-vs-rest and many-vs-many categorical prefixes), keeping the
+//      first maximum of each kind. Each item then takes a ticket (an
+//      atomic counter after a __threadfence); the block that takes the
+//      last one picks each child's flat first maximum over (kind, feature,
+//      bin), kind outermost, in one block-wide reduction, and builds the
+//      routing table, the child sums and the outputs.
+// hist_left and hist_right are bit-equal to K3 + K4 + the torch
+// subtraction on the same input: the same code sums the same values in an
+// order fixed by the rows alone (no float atomics), whatever the grid.
 // Phase C follows torch's arithmetic op by op: this file is compiled with
 // -fmad=false so no multiply-add is contracted, and the scalar
 // hyperparameters arrive as the float32 values torch would use. Prefix
 // sums accumulate in double and round each to float, as torch's CPU
-// cumsum does (on the card torch's cumsum sums in float in another order,
-// so gains agree with the twin on the card at a tolerance, not bit for
-// bit). NaN gains are never live; torch.maximum/minimum propagate NaN and
-// so do the helpers here; the stable many-vs-many orders are ranks
-// (count of smaller keys plus equal keys at a lower bin, NaN last).
+// cumsum does, one thread per channel (on the card torch's cumsum sums in
+// float in another order, so gains agree with the twin on the card at a
+// tolerance, not bit for bit). NaN gains are never live;
+// torch.maximum/minimum propagate NaN and so do the helpers here; the
+// stable many-vs-many orders are ranks (count of smaller keys plus equal
+// keys at a lower bin, NaN last).
 //
 // Why one cooperative launch: a stable partition needs a scan across
 // blocks, the histogram needs the routed rows, the scan needs the whole
 // histogram, and on Hopper nothing carries from block to block without a
-// grid barrier or another launch. A launch with <<<>>> would leave
-// grid.sync() undefined; the entry point launches with
+// grid barrier, a ticket or another launch. A launch with <<<>>> would
+// leave grid.sync() undefined; the entry point launches with
 // cudaLaunchCooperativeKernel and sizes the grid to the blocks that fit
 // on the card at once (occupancy x SMs, queried once per device and
 // shared-memory size).
 //
-// What bounds it on this card: bytes at the root, barriers on small
+// What bounds it on this card: bytes at the root, latency on small
 // segments. The function must read and write each parent row once (80 B
 // per row at W = 40: 160 MB at the 2M-row root split) and read the
 // parent and child histograms (~3 x F x B x 12 B, 0.26 MB): ~0.048 ms at
 // 3.35 TB/s. This design reads the smaller child's rows a second time in
-// phase B (40 B per row, 36 MB at the 2M root's 900,085 rows), where
-// summing them during the scatter would not: its own floor is ~0.059 ms.
-// There are 5 grid barriers per launch (after the count, the
-// scatter, the partial histograms, the reduce and the per-feature scan),
-// each a few microseconds, and phase C's per-feature prefix sums are
-// sequential (256 steps); on the many small segments of a 255-leaf tree
-// these, not bytes, set the time. In resident mode the function moves
-// the slim payload (17 B per row each way), each parent row's gathered
-// route byte and the smaller child's F gathered bins: 2 x 17 x N + N +
-// F x n_small bytes and the histograms, ~0.0285 ms at the 2M root.
+// phase B (40 B per row) and writes and reads its chunk partials (143 KB
+// each way per 2048 rows). On the many small segments of a 255-leaf tree
+// the time is latency: 3 grid barriers (~1 us each), the scatter's
+// load-store rounds (2 rows x 8 planes per round), a chunk's tiles, and
+// phase C's sequential per-channel prefix sums (256 steps). In resident
+// mode the function moves the slim payload (17 B per row each way), each
+// parent row's gathered route byte and the smaller child's F gathered
+// bins: 2 x 17 x N + N + F x n_small bytes and the histograms, ~0.0285 ms
+// at the 2M root.
+//
+// A measurement path: given a stamps buffer, thread 0 of each block writes
+// %globaltimer at the kernel's entry, before and after each grid barrier,
+// after phase C's items and (the block that takes the last ticket) at its
+// end (ops/partition.ONE_KERNEL_PHASES); with a null pointer it writes
+// nothing.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -113,7 +121,8 @@ struct OneKernelArgs {
   const float* lows2;
   const float* ups2;
   int32_t* counts;             // scratch (part tiles,)
-  float* partial;              // scratch (row_blocks, F, B, nch)
+  float* partial;              // scratch (chunks, F, B, nch)
+  int32_t* done;               // scratch (1,): phase C's ticket, 0 at rest
   float* cand_gain;            // scratch (2, 4, F)
   int32_t* cand_bin;           // scratch (2, 4, F)
   uint8_t* num_dl;             // scratch (2, F, B)
@@ -132,9 +141,10 @@ struct OneKernelArgs {
   float* left_output;          // (2,)
   float* right_output;
   const uint8_t* res;          // resident mode: (F, npad_res) bin planes
-  int32_t W, npad, table_bins, left_smaller, depth, F, B, nch, nfb, groups,
-      row_blocks, max_cat_to_onehot, has_categorical, has_monotone,
-      use_mono_penalty, npad_res;
+  uint64_t* stamps;            // null, or (grid, kStamps) %globaltimer ns
+  int32_t W, npad, table_bins, left_smaller, depth, F, B, nch, groups,
+      max_cat_to_onehot, has_categorical, has_monotone, use_mono_penalty,
+      npad_res;
   float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
       min_sum_hessian, min_gain_to_split, max_delta_step, cat_smooth, cat_l2,
       min_data_per_group, path_smooth, monotone_penalty, max_cat_threshold;
@@ -147,6 +157,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxBins = 256;
 constexpr float kEpsilon = 1e-15f;   // ops/split.py K_EPSILON
+constexpr int kItemFeats = 2;        // features of a phase B work item
+constexpr int kStamps = 9;           // stamp slots per block
+
+// Thread 0 of the block writes %globaltimer into its slot i of the
+// measurement path's stamps; with a null pointer it does nothing.
+__device__ __forceinline__ void stamp(const OneKernelArgs& a, int i) {
+  if (a.stamps != nullptr && threadIdx.x == 0) {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[(size_t)blockIdx.x * kStamps + i] = t;
+  }
+}
 
 // ------------------------------------------------------------ float helpers
 // torch semantics: maximum/minimum/clamp propagate NaN (fmaxf does not).
@@ -320,11 +342,12 @@ __device__ __forceinline__ float depth_penalty(const OneKernelArgs& a) {
   return (1.f - powf(2.f, (p - 1.f) - d)) + kEpsilon;
 }
 
-// Phase C item: every candidate of feature f for child c; writes each
+// Phase C item: every candidate of feature f for child c, whose histogram
+// row (g, h, cnt) of bin threadIdx.x is hv (zero past B); writes each
 // kind's first maximum (gain after the live test and penalties, bin), the
 // per-bin default-left flags and the many-vs-many ranks.
 __device__ void scan_feature(const OneKernelArgs& a, int c, int f,
-                             float* smem) {
+                             float* smem, const float hv[3]) {
   const ScanSmem s = scan_smem(smem);
   const int B = a.B, F = a.F;
   const int b = threadIdx.x;
@@ -333,8 +356,6 @@ __device__ void scan_feature(const OneKernelArgs& a, int c, int f,
   const int mb = a.missing_bin[f];
   const bool is_cat = a.is_cat[f] != 0;
   const int mono = a.monotone[f];
-  const float* hist =
-      (c == 0 ? a.hist_left : a.hist_right) + (size_t)f * B * 3;
   const float tg = a.sums2[c * 3], th = a.sums2[c * 3 + 1],
               tc = a.sums2[c * 3 + 2];
   const float po = a.outs2[c], lo = a.lows2[c], up = a.ups2[c];
@@ -346,7 +367,7 @@ __device__ void scan_feature(const OneKernelArgs& a, int c, int f,
   __syncthreads();     // shared memory is free
   if (b < B) {
     for (int k = 0; k < 3; ++k) {
-      const float v = b < nb ? hist[b * 3 + k] : 0.f;
+      const float v = b < nb ? hv[k] : 0.f;
       s.h[k * kMaxBins + b] = v;
       s.nm[k * kMaxBins + b] = (movable && b == mb) ? 0.f : v;
     }
@@ -472,36 +493,41 @@ __device__ void scan_feature(const OneKernelArgs& a, int c, int f,
   }
 }
 
-// Phase C, second part: child c's winner over (kind, feature, bin), its
-// routing table, sums and outputs.
+// Phase C, second part, run by the block that finished the last scan
+// item: child c's winner over (kind, feature, bin), its routing table,
+// sums and outputs. Other blocks wrote the scan's outputs and the child
+// histograms in this launch; they are read from L2 (__ldcg), never
+// through this SM's L1. The winner is a block-wide first maximum in
+// better()'s order over the flat index (kind * F + f) * B + bin, with
+// kind outermost: the same candidate torch.argmax takes.
 __device__ void finish_child(const OneKernelArgs& a, int c, float* smem) {
   const ScanSmem s = scan_smem(smem);
   const int B = a.B, F = a.F;
   const int b = threadIdx.x;
   __syncthreads();     // shared memory is free
-  if (threadIdx.x == 0) {
-    float best = a.cand_gain[(size_t)c * 4 * F];
-    int best_idx = a.cand_bin[(size_t)c * 4 * F];
-    for (int kind = 0; kind < 4; ++kind) {
-      for (int f = 0; f < F; ++f) {
-        const size_t j = ((size_t)c * 4 + kind) * F + f;
-        const int idx = (kind * F + f) * B + a.cand_bin[j];
-        if (better(a.cand_gain[j], idx, best, best_idx)) {
-          best = a.cand_gain[j];
-          best_idx = idx;
-        }
-      }
+  float g = -INFINITY;
+  int idx = INT_MAX;
+  for (int t = threadIdx.x; t < 4 * F; t += blockDim.x) {
+    const size_t j = (size_t)c * 4 * F + t;
+    const float g2 = __ldcg(a.cand_gain + j);
+    const int i2 = t * B + __ldcg(a.cand_bin + j);
+    if (better(g2, i2, g, idx)) {
+      g = g2;
+      idx = i2;
     }
-    s.red_g[0] = best;
-    s.misc[0] = best_idx / (F * B);
-    s.misc[1] = (best_idx % (F * B)) / B;
-    s.misc[2] = best_idx % B;
+  }
+  block_argmax(&g, &idx, s.red_g, s.red_i);
+  if (threadIdx.x == 0) {
+    s.red_g[0] = g;
+    s.misc[0] = idx / (F * B);
+    s.misc[1] = (idx % (F * B)) / B;
+    s.misc[2] = idx % B;
   }
   __syncthreads();
   const float best = s.red_g[0];
   const int kind = s.misc[0], feat = s.misc[1], tbin = s.misc[2];
   const int nb = a.num_bins[feat];
-  const bool dl = a.num_dl[((size_t)c * F + feat) * B + tbin] != 0;
+  const bool dl = __ldcg(a.num_dl + ((size_t)c * F + feat) * B + tbin) != 0;
   const float* hist = (c == 0 ? a.hist_left : a.hist_right) +
                       (size_t)feat * B * 3;
   if (b < B) {
@@ -512,11 +538,12 @@ __device__ void finish_child(const OneKernelArgs& a, int c, float* smem) {
     } else if (kind == 1) {
       go = b == tbin;
     } else {
-      go = a.rank[(((size_t)c * 2 + (kind - 2)) * F + feat) * B + b] <= tbin;
+      go = __ldcg(a.rank + (((size_t)c * 2 + (kind - 2)) * F + feat) * B +
+                  b) <= tbin;
     }
     a.go_left[(size_t)c * B + b] = go ? 1 : 0;
     for (int k = 0; k < 3; ++k) {
-      s.h[k * kMaxBins + b] = (go && b < nb) ? hist[b * 3 + k] : 0.f;
+      s.h[k * kMaxBins + b] = (go && b < nb) ? __ldcg(hist + b * 3 + k) : 0.f;
     }
   }
   __syncthreads();
@@ -552,8 +579,66 @@ __device__ void finish_child(const OneKernelArgs& a, int c, float* smem) {
   }
 }
 
-template <bool kResident>
-__global__ void __launch_bounds__(kThreads)
+// Phase C item: the reduce of feature f's chunk partials (one thread per
+// bin, its NCH channels summed in chunk order, four chunks' loads in
+// flight), hi + lo, and child c's histogram row: the smaller child's sums
+// or parent - them. Writes the row to hist_left / hist_right and returns
+// it in hv (zero past B).
+template <int kNch>
+__device__ __forceinline__ void child_bins(const OneKernelArgs& a, int c,
+                                           int f, int chunks, float hv[3]) {
+  const int b = threadIdx.x;
+  hv[0] = hv[1] = hv[2] = 0.f;
+  if (b >= a.B) return;
+  const size_t fb = (size_t)f * a.B + b;
+  const size_t stride = (size_t)a.F * a.B * kNch;
+  float v[kNch];
+#pragma unroll
+  for (int k = 0; k < kNch; ++k) v[k] = 0.f;
+  const float* p = a.partial + fb * kNch;
+  int q = 0;
+  for (; q + 4 <= chunks; q += 4, p += 4 * stride) {
+    float x[4][kNch];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int k = 0; k < kNch; ++k) x[i][k] = p[i * stride + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int k = 0; k < kNch; ++k) v[k] += x[i][k];
+    }
+  }
+  for (; q < chunks; ++q, p += stride) {
+#pragma unroll
+    for (int k = 0; k < kNch; ++k) v[k] += p[k];
+  }
+  const float small[3] = {kNch == 5 ? v[0] + v[1] : v[0],
+                          kNch == 5 ? v[2] + v[3] : v[1],
+                          kNch == 5 ? v[4] : v[2]};
+  const bool is_small = (c == 0) == (a.left_smaller != 0);
+  float* out = (c == 0 ? a.hist_left : a.hist_right) + fb * 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    hv[k] = is_small ? small[k] : a.parent[fb * 3 + k] - small[k];
+    out[k] = hv[k];
+  }
+}
+
+// Phase B item, not inlined: the histogram's loop gets the kernel's whole
+// register budget instead of sharing it with values that phases A and C
+// keep live (inlined, the planes mode spilled inside it).
+template <int kNch, class L>
+__device__ __noinline__ void phase_b_item(const L lay, int start, int cnt,
+                                          int F, int B, int f0, int chunk,
+                                          float* smem, float* partial) {
+  lgbt_hist::hist_chunk<kNch, kThreads, kItemFeats>(lay, start, cnt, F, B,
+                                                    f0, chunk, smem, partial);
+}
+
+template <bool kResident, int kNch>
+__global__ void __launch_bounds__(kThreads, 2)
 one_kernel_split_kernel(const OneKernelArgs a) {
   using namespace lgbt_part;
   using namespace lgbt_hist;
@@ -562,18 +647,21 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   __shared__ uint8_t s_tbl[256];
   __shared__ int s_warp[kPartWarps];
   __shared__ int s_red[kWarps];
+  __shared__ int s_last;
   const int src = a.seg[0], start = a.seg[1], cnt = a.seg[2];
   // resident: seg[3] is the resident column, the partition routes plane 0
   const int col = kResident ? lgbt_res::kRoute : a.seg[3];
   uint8_t* srcp = a.work + (size_t)src * a.W * a.npad;
   uint8_t* dstp = a.work + (size_t)(1 - src) * a.W * a.npad;
   const int ntiles = (cnt + kPartTile - 1) / kPartTile;
+  stamp(a, 0);
 
   // ---- A. partition ----
   load_table(s_tbl, a.table, a.table_bins);
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     if (kResident) {
-      lgbt_res::route_gather<kPartTile / kThreads>(
+      // the tile's 4096 rows are at most 1025 words: 5 per thread
+      lgbt_res::route_gather<5>(
           srcp, a.npad, start, cnt, a.res, a.npad_res, a.seg[3],
           (long)t * kPartTile, (long)(t + 1) * kPartTile, threadIdx.x,
           kThreads);
@@ -583,7 +671,9 @@ one_kernel_split_kernel(const OneKernelArgs a) {
                                          s_tbl, t, s_warp);
     if (threadIdx.x == 0) a.counts[t] = n;
   }
+  stamp(a, 1);
   grid.sync();
+  stamp(a, 2);
   const int lt = block_sum(a.counts, ntiles, s_red);
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int before = block_sum(a.counts, t, s_red);
@@ -591,64 +681,67 @@ one_kernel_split_kernel(const OneKernelArgs a) {
                              s_tbl, t, before, s_warp);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.lt = lt;
+  stamp(a, 3);
   grid.sync();
+  stamp(a, 4);
 
-  // ---- B. smaller-child histogram, then parent - smaller ----
+  // ---- B. the smaller child's chunk partials, sized by its true count ----
   const int small_start = a.left_smaller ? start : start + lt;
   const int small_cnt = a.left_smaller ? lt : cnt - lt;
-  float* s_hist = smem;
-  float* s_ch = smem + (size_t)a.nfb * a.B * a.nch;
-  int* s_ridx = reinterpret_cast<int*>(s_ch + (size_t)a.nch * kHistTile);
-  const int items = a.row_blocks * a.groups;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int rb = it % a.row_blocks, grp = it / a.row_blocks;
+  const int chunks = hist_chunks(small_cnt);
+  // the groups of a chunk are neighbouring items: blocks in flight share
+  // the chunk's rows in L2
+  for (int it = blockIdx.x; it < chunks * a.groups; it += gridDim.x) {
+    const int chunk = it / a.groups, f0 = (it % a.groups) * kItemFeats;
     if constexpr (kResident) {
       const ResidentRows lay{dstp, a.npad, a.res, a.npad_res};
-      hist_row_block(lay, small_start, small_cnt, a.F, a.B, a.nch, a.nfb,
-                     grp * a.nfb, rb, a.row_blocks, s_hist, s_ch, s_ridx,
-                     a.partial);
+      phase_b_item<kNch>(lay, small_start, small_cnt, a.F, a.B, f0, chunk,
+                         smem, a.partial);
     } else {
       const PackedRows<false> lay{dstp, a.W, a.npad, a.F};
-      hist_row_block(lay, small_start, small_cnt, a.F, a.B, a.nch, a.nfb,
-                     grp * a.nfb, rb, a.row_blocks, s_hist, s_ch, s_ridx,
-                     a.partial);
+      phase_b_item<kNch>(lay, small_start, small_cnt, a.F, a.B, f0, chunk,
+                         smem, a.partial);
     }
   }
+  stamp(a, 5);
   grid.sync();
-  const int FB = a.F * a.B;
-  for (int fb = blockIdx.x * blockDim.x + threadIdx.x; fb < FB;
-       fb += gridDim.x * blockDim.x) {
-    float small[3];
-    hist_reduce_bin(a.partial, a.row_blocks, a.F, a.B, a.nch, fb, small);
-    for (int k = 0; k < 3; ++k) {
-      const float large = a.parent[(size_t)fb * 3 + k] - small[k];
-      a.hist_left[(size_t)fb * 3 + k] = a.left_smaller ? small[k] : large;
-      a.hist_right[(size_t)fb * 3 + k] = a.left_smaller ? large : small[k];
-    }
-  }
-  grid.sync();
+  stamp(a, 6);
 
-  // ---- C. split scan: per (child, feature), then per child ----
+  // ---- C. per (child, feature): reduce, subtract, scan; then the block
+  // that finishes the last item takes both children's winners ----
+  bool last = false;
   for (int it = blockIdx.x; it < 2 * a.F; it += gridDim.x) {
-    scan_feature(a, it / a.F, it % a.F, smem);
+    const int c = it / a.F, f = it % a.F;
+    float hv[3];
+    child_bins<kNch>(a, c, f, chunks, hv);
+    scan_feature(a, c, f, smem, hv);
+    __threadfence();     // this item's outputs are visible grid-wide
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == 2 * a.F - 1;
+    __syncthreads();
+    last = last || s_last;
   }
-  grid.sync();
-  for (int c = blockIdx.x; c < 2; c += gridDim.x) finish_child(a, c, smem);
+  stamp(a, 7);
+  if (last) {
+    __threadfence();
+    finish_child(a, 0, smem);
+    finish_child(a, 1, smem);
+    if (threadIdx.x == 0) *a.done = 0;   // ready for the next launch
+    stamp(a, 8);
+  }
 }
 
-size_t smem_bytes(const OneKernelArgs& a, bool resident) {
-  const size_t hist = ((size_t)a.nfb * a.B * a.nch +
-                       (size_t)a.nch * lgbt_hist::kHistTile) * sizeof(float) +
-                      (resident ? lgbt_hist::kHistTile * sizeof(int) : 0);
+size_t smem_bytes(const OneKernelArgs& a) {
+  const size_t hist = lgbt_hist::hist_smem_bytes(a.B, a.nch, kItemFeats);
   const size_t scan = (17 * kMaxBins + 3 * kWarps) * sizeof(float);
   return hist > scan ? hist : scan;
 }
 
-// The cooperative grid of one mode's kernel for `smem` bytes of dynamic
-// shared memory on the current device: the blocks that fit at once
-// (occupancy x SMs). The queries run once per (mode, device, smem) and
-// thread; a tree's splits all share one smem size.
-template <bool kResident>
+// The cooperative grid of one kernel for `smem` bytes of dynamic shared
+// memory on the current device: the blocks that fit at once (occupancy x
+// SMs). The queries run once per (kernel, device, smem) and thread; a
+// tree's splits all share one smem size.
+template <bool kResident, int kNch>
 cudaError_t cooperative_grid(size_t smem, int* grid) {
   thread_local int cached_dev = -1, cached_grid = 0;
   thread_local size_t cached_smem = 0;
@@ -659,12 +752,12 @@ cudaError_t cooperative_grid(size_t smem, int* grid) {
     *grid = cached_grid;
     return cudaSuccess;
   }
-  e = cudaFuncSetAttribute(one_kernel_split_kernel<kResident>,
+  e = cudaFuncSetAttribute(one_kernel_split_kernel<kResident, kNch>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, one_kernel_split_kernel<kResident>, kThreads, smem);
+      &per_sm, one_kernel_split_kernel<kResident, kNch>, kThreads, smem);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
@@ -676,30 +769,73 @@ cudaError_t cooperative_grid(size_t smem, int* grid) {
   return cudaSuccess;
 }
 
-template <bool kResident>
-int launch_split(const OneKernelArgs* args, void* stream) {
-  const OneKernelArgs a = *args;
-  if (a.B < 1 || a.B > kMaxBins || a.nfb > kWarps ||
-      (kResident && (a.res == nullptr || a.npad_res < 1 ||
-                     a.W != lgbt_res::kWidth))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(a, kResident);
+template <bool kResident, int kNch>
+int launch_nch(const OneKernelArgs& a, void* stream) {
+  const size_t smem = smem_bytes(a);
   int grid = 0;
-  cudaError_t e = cooperative_grid<kResident>(smem, &grid);
+  cudaError_t e = cooperative_grid<kResident, kNch>(smem, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* kargs[] = {const_cast<OneKernelArgs*>(&a)};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(one_kernel_split_kernel<kResident>),
+      reinterpret_cast<void*>(one_kernel_split_kernel<kResident, kNch>),
       dim3(grid), dim3(kThreads), kargs, smem,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kResident>
+int launch_split(const OneKernelArgs* args, void* stream) {
+  const OneKernelArgs a = *args;
+  if (a.B < 1 || a.B > kMaxBins || (a.nch != 3 && a.nch != 5) ||
+      a.groups != (a.F + kItemFeats - 1) / kItemFeats ||
+      (kResident && (a.res == nullptr || a.npad_res < 1 ||
+                     a.W != lgbt_res::kWidth || a.npad % 4 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return a.nch == 5 ? launch_nch<kResident, 5>(a, stream)
+                    : launch_nch<kResident, 3>(a, stream);
+}
+
+// Writes the cluster size each block of a cooperative launch sees, after
+// a grid barrier (one_kernel_cluster_probe).
+__global__ void cluster_probe_kernel(int* out) {
+  cg::this_grid().sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = cg::this_cluster().num_blocks();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Whether the card takes a thread block cluster dimension together with
+// the cooperative launch attribute: launches a 2-block probe with both
+// (clusters of 2) and waits for it. Returns the launch's cudaError_t code;
+// on success out[0..1] hold the cluster size each block saw.
+int one_kernel_cluster_probe(void* out, void* stream) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = 2;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_probe_kernel,
+                                     static_cast<int*>(out));
+  if (e != cudaSuccess) {
+    cudaGetLastError();    // a refused launch must not fail the next one
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaStreamSynchronize(cfg.stream));
+}
+
 
 const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

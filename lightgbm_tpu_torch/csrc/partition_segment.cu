@@ -93,8 +93,11 @@ scan_kernel(int* __restrict__ counts, int nblocks, int* __restrict__ lt) {
   if (threadIdx.x == 0) *lt = carry;
 }
 
+// planes: at most 128 registers, two blocks per SM (the copy's word
+// buffers would take more); rows: at most 64, four blocks per SM, so the
+// 489 tiles of a 2M-row root run in one wave
 template <bool kRows>
-__global__ void __launch_bounds__(kPartThreads)
+__global__ void __launch_bounds__(kPartThreads, kRows ? 4 : 2)
 scatter_kernel(uint8_t* __restrict__ work, int W, int npad,
                const int* __restrict__ seg, const uint8_t* __restrict__ table,
                int nbins, const int* __restrict__ offsets,

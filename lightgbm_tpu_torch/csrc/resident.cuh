@@ -38,13 +38,16 @@ __device__ __forceinline__ int ridx_at(const uint8_t* pl, int npad,
 
 // Route gather over rows [first, min(last, cnt)) of the segment starting
 // at lane `start` of slim buffer `pl`: plane 0 of each row gets bin
-// res[feat][ridx]. Thread t of `threads` takes rows first + t + k *
-// threads, k < kBatch, then moves on by kBatch * threads. A batch loads
-// every row's ridx, then every bin, then stores: its loads are in flight
-// together (a store between two loads through `pl` would order them), so
-// a sparse gather waits about two load latencies per batch, not two per
-// row.
-template <int kBatch>
+// res[feat][ridx]; no other byte is written. The planes are read and
+// written as aligned 4-lane words: thread t of `threads` takes words
+// t + k * threads, k < kWords, of the range, then moves on by kWords *
+// threads. A round loads its words of the 4 ridx planes, then every
+// row's bin, then stores: its loads are in flight together (a store
+// between two loads through `pl` would order them), so a sparse gather
+// waits about two load latencies per round. A word whose 4 lanes are all
+// rows of the range is stored whole; the ragged words at the ends of the
+// range are stored byte by byte, their other lanes untouched.
+template <int kWords>
 __device__ __forceinline__ void route_gather(uint8_t* pl, int npad,
                                              int start, int cnt,
                                              const uint8_t* res,
@@ -53,20 +56,52 @@ __device__ __forceinline__ void route_gather(uint8_t* pl, int npad,
                                              long threads) {
   const uint8_t* col = res + (size_t)feat * npad_res;
   const long end = last < cnt ? last : cnt;
-  for (long i0 = first + t; i0 < end; i0 += kBatch * threads) {
-    int r[kBatch];
-    uint8_t v[kBatch];
+  if (first >= end) return;
+  const long lo = start + first, hi = start + end;     // lanes [lo, hi)
+  const long w_end = (hi + 3) >> 2;                    // words [lo/4, w_end)
+  const size_t pw = (size_t)npad >> 2;                 // words per plane
+  const uint32_t* ridx = reinterpret_cast<const uint32_t*>(pl) + kRidx * pw;
+  uint32_t* route = reinterpret_cast<uint32_t*>(pl) + kRoute * pw;
+  for (long w0 = (lo >> 2) + t; w0 < w_end; w0 += kWords * threads) {
+    uint32_t rb[kWords][4];
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const long i = i0 + k * threads;
-      r[k] = i < end ? ridx_at(pl, npad, start + i, npad_res) : -1;
+    for (int k = 0; k < kWords; ++k) {
+      const long w = w0 + k * threads;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) rb[k][p] = w < w_end ? ridx[p * pw + w] : 0;
+    }
+    uint32_t v[kWords];
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const long w = w0 + k * threads;
+      v[k] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long lane = 4 * w + j;
+        if (w < w_end && lane >= lo && lane < hi) {
+          const int sh = 8 * j;
+          const int r = (int)(((rb[k][0] >> sh) & 255u) |
+                              (((rb[k][1] >> sh) & 255u) << 8) |
+                              (((rb[k][2] >> sh) & 255u) << 16) |
+                              (((rb[k][3] >> sh) & 255u) << 24));
+          v[k] |= (uint32_t)col[min(max(r, 0), npad_res - 1)] << sh;
+        }
+      }
     }
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) v[k] = r[k] >= 0 ? col[r[k]] : 0;
+    for (int k = 0; k < kWords; ++k) {
+      const long w = w0 + k * threads;
+      if (w >= w_end) continue;
+      if (4 * w >= lo && 4 * w + 4 <= hi) {
+        route[w] = v[k];
+        continue;
+      }
+      uint8_t* bytes = reinterpret_cast<uint8_t*>(route + w);
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const long i = i0 + k * threads;
-      if (i < end) pl[(size_t)kRoute * npad + start + i] = v[k];
+      for (int j = 0; j < 4; ++j) {
+        const long lane = 4 * w + j;
+        if (lane >= lo && lane < hi) bytes[j] = (uint8_t)(v[k] >> (8 * j));
+      }
     }
   }
 }

@@ -20,11 +20,14 @@
 // levels a leaf's rows are ascending but sparse in the original order, so
 // each gathered byte costs a 32-byte sector of its own.
 //
-// Design: each thread takes kBatch = 4 rows a grid stride apart (and
-// strides past the grid), bytes read and written one at a time: a warp
-// reads 32 consecutive bytes of each ridx plane and writes 32 consecutive
-// route bytes; a thread's 4 rows' loads are issued before its stores
-// (resident.cuh route_gather). A first, simple kernel.
+// Design: the planes are read and written as aligned 4-lane words: a
+// thread loads one word of each of the 4 ridx planes (a warp reads 128
+// consecutive bytes of each), decodes its 4 rows' ridx, gathers their 4
+// bins and stores one word of route bytes; the ragged words at the
+// segment's ends are stored byte by byte (resident.cuh route_gather).
+// Blocks of 64 threads, one word each per pass: an 8k-row segment spreads
+// over 32 blocks, one per SM, and a larger one over as many blocks as it
+// has words (grid-stride beyond the grid).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,15 +35,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBatch = 4;    // rows per thread per pass
+constexpr int kThreads = 64;
 
 __global__ void __launch_bounds__(kThreads)
 route_kernel(uint8_t* work, int W, int npad, const int* __restrict__ seg,
              const uint8_t* __restrict__ res, int npad_res) {
   const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
   uint8_t* pl = work + (size_t)src * W * npad;
-  lgbt_res::route_gather<kBatch>(
+  lgbt_res::route_gather<1>(
       pl, npad, start, cnt, res, npad_res, feat, 0, cnt,
       (long)blockIdx.x * blockDim.x + threadIdx.x,
       (long)gridDim.x * blockDim.x);
@@ -54,11 +56,15 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// work is the (2, W, npad) slim pair, res the (F, npad_res) resident
-// planes; nblocks blocks of 256 threads, 4 rows each.
+// work is the (2, W, npad) slim pair (npad a multiple of 4), res the
+// (F, npad_res) resident planes; nblocks blocks of 64 threads, one 4-row
+// word each per pass.
 int write_route_plane(void* work, int W, int npad, const void* seg,
                       const void* res, int npad_res, int nblocks,
                       void* stream) {
+  if (npad % 4 != 0 || nblocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   route_kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(work), W, npad, static_cast<const int*>(seg),
       static_cast<const uint8_t*>(res), npad_res);

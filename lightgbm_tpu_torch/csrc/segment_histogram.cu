@@ -14,9 +14,9 @@
 // __float2bfloat16_rn, as jnp.astype rounds), summed in separate f32
 // channels and added at the end (_hist16_combine); cnt contributes bf16(cnt).
 // In bf16 mode each channel contributes bf16(x). Only the order of the f32
-// sums differs from the TPU. Both layouts run one kernel body with the same
-// tile assignment and summation order, so the same rows in the same order
-// give the same bits on either layout.
+// sums differs from the TPU. Every layout runs one kernel body with one
+// summation order, fixed by the segment's rows, so the same rows in the
+// same order give the same bits on any layout and any grid.
 //
 // The resident entry point (segment_histogram_resident) replaces
 // lightgbm_tpu/ops/histogram.py hist16_segment_resident, an XLA gather of
@@ -32,26 +32,44 @@
 //
 // What bounds it on this card: bytes. A row is read once: F bin bytes + 12
 // channel bytes, 40 B at F = 28, 80 MB for a 2M-row segment, ~0.025 ms at
-// 3.35 TB/s. The work per row is a shared-memory add per feature. The rows
-// layout reads a feature's bins at a stride of W bytes; the 16 warps of a
-// block read the same rows, so those reads are served from L1.
+// 3.35 TB/s. The work per row is a shared-memory add per feature and
+// channel, and the chunk partials cost F x B x NCH x 4 B (143 KB) each way
+// per 2048 rows, 140 MB at 2M rows. The chunk is small so that the many
+// small segments of a tree get more work items; the price is more partial
+// traffic on the largest segments (PERF.md).
 //
-// Design, chosen for bit-determinism run to run (no float atomics):
-//   1. Grid (row blocks, feature groups). A block owns <= 16 features, one
-//      warp each, with its (features, B, NCH) f32 histogram in shared memory.
-//      Row blocks walk the segment in 1024-row tiles, tile t going to block
-//      t % row_blocks (a fixed assignment). Per tile the block decodes the
-//      rows' channels into shared memory once; then each warp takes 32 rows
-//      of its feature at a time, groups lanes by bin with __match_any_sync,
-//      and the group's lowest lane sums the group's rows in lane order and
-//      adds the sum to the bin. Each bin is written by one warp in row order.
-//   2. A second launch sums the row blocks' partial histograms in block order
-//      and combines hi + lo.
-// The count channel sums exact small integers in f32 (exact below 2^24 rows).
-// Channel words are assembled from single bytes: on the rows layout a row's
-// f32 words start at byte F, which is not 4-byte aligned in general. The
-// row-block pass and the ordered reduce live in segment_hist.cuh, which
-// phase B of one_kernel_split.cu runs too.
+// Design, chosen for bit-determinism run to run (no float atomics)
+// with the summation order fixed by the segment's rows alone
+// (segment_hist.cuh states it):
+//   1. Grid (feature groups, chunks): groups of 4 features, chunks from
+//      the host's row bound (blocks past the segment's true chunk count
+//      return at once); the blocks in flight share a chunk's rows in L2.
+//      A block of 512 threads holds 16 private (B, NCH) f32 histograms in
+//      shared memory, one per (feature, slice), each owned by one of its
+//      16 warps, so every warp counts its own rows. The chunk is staged in
+//      512-row tiles, the bins and the bf16-rounded channels in shared
+//      memory, the next tile's bytes in flight while the warps count the
+//      current one: on planes, cp.async copies each needed plane's
+//      16-byte-aligned window of the tile into a second staging buffer; on
+//      rows and resident (a row's bytes are not one run per plane;
+//      resident gathers its bins through ridx) each thread loads its row
+//      of the next tile into registers. Per 32-row step a warp groups its
+//      lanes by bin with 8 ballots, one per bin bit (the groups
+//      __match_any_sync would give, at a cost that does not grow with the
+//      number of distinct bins); the group's lowest lane adds the group's
+//      rows to the bin in lane order, pulling their values by warp
+//      shuffle. Two blocks fit on an SM (at most 64 registers, ~108 KB of
+//      shared memory each). The chunk's partial is its four slices added
+//      in order.
+//   2. A second launch, one thread per (feature, bin, channel), sums the
+//      chunk partials in chunk order (eight loads in flight) and combines
+//      hi + lo.
+// The count channel sums exact small integers in f32 (exact below 2^24
+// rows). Channel words are assembled from single bytes: on the rows layout
+// a row's f32 words start at byte F, which is not 4-byte aligned in
+// general. The previous design (one warp per feature, a dependent global
+// bin load per 32-row step, tile t to block t % row_blocks with row_blocks
+// from the host's bound) took 2.79 ms at the 2M root (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,61 +79,84 @@ namespace {
 
 using namespace lgbt_hist;
 
-// One row block of one feature group. `lay` points at the pair's first
-// buffer; the kernel moves it to buffer seg[0] (plane_bytes apart).
-template <class L>
-__global__ void hist_kernel(L lay, size_t plane_bytes,
-                            const int* __restrict__ seg, int F, int B,
-                            int nch, int feats_per_block,
-                            float* __restrict__ partial) {
+constexpr int kThreads = 512;      // 16 warps: 4 features x 4 slices
+constexpr int kReduceBins = 64;    // (feature, bin)s per reduce block
+
+// One chunk of one feature group. `lay` points at the pair's first buffer;
+// the kernel moves it to buffer seg[0] (plane_bytes apart).
+template <int kNch, class L>
+__global__ void __launch_bounds__(kThreads, 2)
+hist_kernel(L lay, size_t plane_bytes, const int* __restrict__ seg, int F,
+            int B, float* __restrict__ partial) {
   extern __shared__ float smem[];
-  const int nfb = feats_per_block;
-  float* s_hist = smem;                          // (nfb, B, nch)
-  float* s_ch = smem + (size_t)nfb * B * nch;    // (nch, kHistTile)
-  int* s_ridx = reinterpret_cast<int*>(s_ch + (size_t)nch * kHistTile);
   const int plane = seg[0], start = seg[1], cnt = seg[2];
+  if ((int)blockIdx.y >= hist_chunks(cnt)) return;
   lay.buf += (size_t)plane * plane_bytes;
-  hist_row_block(lay, start, cnt, F, B, nch, nfb, blockIdx.y * nfb,
-                 blockIdx.x, gridDim.x, s_hist, s_ch, s_ridx, partial);
+  hist_chunk<kNch, kThreads, kHistFeats>(lay, start, cnt, F, B,
+                                         blockIdx.x * kHistFeats, blockIdx.y,
+                                         smem, partial);
 }
 
-__global__ void reduce_kernel(const float* __restrict__ partial,
-                              int row_blocks, int F, int B, int nch,
-                              float* __restrict__ out) {
-  const int fb = blockIdx.x * blockDim.x + threadIdx.x;
-  if (fb >= F * B) return;
-  float o[3];
-  hist_reduce_bin(partial, row_blocks, F, B, nch, fb, o);
-  float* dst = out + (size_t)fb * 3;
-  dst[0] = o[0];
-  dst[1] = o[1];
-  dst[2] = o[2];
+// out (F, B, 3): per (feature, bin, channel) the chunk partials summed in
+// chunk order, then hi + lo (exact mode).
+template <int kNch>
+__global__ void __launch_bounds__(kReduceBins * kNch)
+reduce_kernel(const int* __restrict__ seg, const float* __restrict__ partial,
+              int F, int B, float* __restrict__ out) {
+  __shared__ float s[kReduceBins * kNch];
+  const int chunks = hist_chunks(seg[2]);
+  const int fb0 = blockIdx.x * kReduceBins;
+  const int t = threadIdx.x;
+  const int fb = fb0 + t / kNch;
+  if (fb < F * B) {
+    s[t] = hist_sum(partial, chunks, (size_t)F * B * kNch,
+                    (size_t)fb0 * kNch + t);
+  }
+  __syncthreads();
+  if (t < kReduceBins && fb0 + t < F * B) {
+    const float* v = s + t * kNch;
+    float* dst = out + (size_t)(fb0 + t) * 3;
+    dst[0] = kNch == 5 ? v[0] + v[1] : v[0];
+    dst[1] = kNch == 5 ? v[2] + v[3] : v[1];
+    dst[2] = kNch == 5 ? v[4] : v[2];
+  }
 }
 
-template <class L>
-int launch_histogram(L lay, size_t plane_bytes, const void* seg, int F,
-                     int B, int exact, int row_blocks, void* partial,
-                     void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nch = exact ? 5 : 3;
-  const int groups = (F + kHistMaxFeats - 1) / kHistMaxFeats;
-  const int nfb = (F + groups - 1) / groups;
-  const int smem = (nfb * B * nch + nch * kHistTile) * (int)sizeof(float) +
-                   (L::kGather ? kHistTile * (int)sizeof(int) : 0);
+template <int kNch, class L>
+int launch_nch(L lay, size_t plane_bytes, const int* seg, int F, int B,
+               int chunks, float* partial, float* out, cudaStream_t s) {
+  const int smem = hist_smem_bytes(B, kNch, kHistFeats);
   cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      hist_kernel<kNch, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(row_blocks, groups);
-  hist_kernel<L><<<grid, nfb * 32, smem, s>>>(
-      lay, plane_bytes, static_cast<const int*>(seg), F, B, nch, nfb,
-      static_cast<float*>(partial));
+  // x: the feature groups, so that blocks in flight share a chunk's rows
+  // in L2
+  dim3 grid((F + kHistFeats - 1) / kHistFeats, chunks);
+  hist_kernel<kNch, L><<<grid, kThreads, smem, s>>>(lay, plane_bytes, seg, F,
+                                                    B, partial);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = 256;
-  reduce_kernel<<<(F * B + threads - 1) / threads, threads, 0, s>>>(
-      static_cast<const float*>(partial), row_blocks, F, B, nch,
-      static_cast<float*>(out));
+  reduce_kernel<kNch><<<(F * B + kReduceBins - 1) / kReduceBins,
+                        kReduceBins * kNch, 0, s>>>(seg, partial, F, B, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// chunks: the grid's chunk count, hist_chunks of a host bound >= cnt (at
+// least 1); partial holds (chunks, F, B, NCH) f32.
+template <class L>
+int launch_histogram(L lay, size_t plane_bytes, const void* seg, int F,
+                     int B, int exact, int chunks, void* partial, void* out,
+                     void* stream) {
+  if (B < 1 || B > 256 || chunks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  float* p = static_cast<float*>(partial);
+  float* o = static_cast<float*>(out);
+  return exact ? launch_nch<5>(lay, plane_bytes, sg, F, B, chunks, p, o, s)
+               : launch_nch<3>(lay, plane_bytes, sg, F, B, chunks, p, o, s);
 }
 
 }  // namespace
@@ -128,20 +169,20 @@ const char* lgbt_error_string(int code) {
 
 // Planes layout: work is (2, W, npad).
 int segment_histogram(const void* work, int W, int npad, const void* seg,
-                      int F, int B, int exact, int row_blocks, void* partial,
+                      int F, int B, int exact, int chunks, void* partial,
                       void* out, void* stream) {
   const PackedRows<false> lay{static_cast<const uint8_t*>(work), W, npad, F};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
-                          row_blocks, partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
+                          partial, out, stream);
 }
 
 // Rows layout: work is (2, npad, W).
 int segment_histogram_rows(const void* work, int W, int npad, const void* seg,
-                           int F, int B, int exact, int row_blocks,
+                           int F, int B, int exact, int chunks,
                            void* partial, void* out, void* stream) {
   const PackedRows<true> lay{static_cast<const uint8_t*>(work), W, npad, F};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
-                          row_blocks, partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
+                          partial, out, stream);
 }
 
 // Resident layout: work is the (2, W, npad) slim pair, res the
@@ -149,12 +190,12 @@ int segment_histogram_rows(const void* work, int W, int npad, const void* seg,
 int segment_histogram_resident(const void* work, int W, int npad,
                                const void* seg, const void* res,
                                int npad_res, int F, int B, int exact,
-                               int row_blocks, void* partial, void* out,
+                               int chunks, void* partial, void* out,
                                void* stream) {
   const ResidentRows lay{static_cast<const uint8_t*>(work), npad,
                          static_cast<const uint8_t*>(res), npad_res};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact,
-                          row_blocks, partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
+                          partial, out, stream);
 }
 
 }  // extern "C"

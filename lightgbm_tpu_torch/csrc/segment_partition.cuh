@@ -74,15 +74,19 @@ __device__ __forceinline__ int part_count_tile(const uint8_t* buf, int W,
 // rows before it), a right row to start + lt + (right rows before it).
 // `left_before_tile` is the segment's go-left count in the tiles before
 // this one. Each warp recomputes its ballots (kept in registers) and ranks
-// each row by popc of the ballot below it. No __restrict__ on srcp: the
-// resident mode of one_kernel_split.cu writes its route plane earlier in
-// the same launch, which the read-only (non-coherent) load path must not
-// serve.
+// each row by popc of the ballot below it. On the planes layout the copy
+// reads aligned 4-row words (npad is a multiple of 4), 4 planes per round
+// with all loads of a round before its stores, so that a round waits about
+// one load latency (a store between two loads through srcp would order
+// them) and each load brings 4 rows. No __restrict__ on srcp: the resident
+// mode of one_kernel_split.cu writes its route plane earlier in the same
+// launch, which the read-only (non-coherent) load path must not serve.
 template <bool kRows>
 __device__ __forceinline__ void part_scatter_tile(
     const uint8_t* srcp, uint8_t* __restrict__ dstp, int W,
     int npad, int start, int cnt, int feat, int lt, const uint8_t* s_tbl,
     long tile, int left_before_tile, int* s_warp) {
+  constexpr int kCopyPlanes = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long base = tile * kPartTile + warp * (kPartSteps * 32);
   unsigned masks[kPartSteps];
@@ -101,32 +105,95 @@ __device__ __forceinline__ void part_scatter_tile(
   int left_before = left_before_tile;
   for (int w = 0; w < warp; ++w) left_before += s_warp[w];
   const unsigned below = (1u << lane) - 1u;
+  if (kRows) {
+#pragma unroll
+    for (int s = 0; s < kPartSteps; ++s) {
+      const long i = base + s * 32 + lane;
+      const unsigned m = masks[s];
+      const int lb = left_before + __popc(m & below);   // left rows before i
+      long long dst = -1;                               // -1: past the end
+      if (i < cnt) {
+        dst = ((m >> lane) & 1u) ? (long long)start + lb
+                                 : (long long)start + lt + (i - lb);
+      }
+      if (base + s * 32 < cnt) {   // warp-uniform test
+        // the warp's 32 source rows are one run of 32 * W bytes
+        const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
+        for (int k = lane; k < 32 * W; k += 32) {
+          const int r = k / W;
+          const long long d = __shfl_sync(kPartFull, dst, r);
+          if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
+        }
+      }
+      left_before += __popc(m);
+    }
+    return;
+  }
+  int dsts[kPartSteps];   // destination row - start, -1: past the segment
 #pragma unroll
   for (int s = 0; s < kPartSteps; ++s) {
     const long i = base + s * 32 + lane;
     const unsigned m = masks[s];
     const int lb = left_before + __popc(m & below);   // left rows before i
-    long long dst = -1;                               // -1: past the segment
-    if (i < cnt) {
-      dst = ((m >> lane) & 1u) ? (long long)start + lb
-                               : (long long)start + lt + (i - lb);
-    }
-    if (kRows && base + s * 32 < cnt) {   // warp-uniform test
-      // the warp's 32 source rows are one run of 32 * W bytes
-      const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
-      for (int k = lane; k < 32 * W; k += 32) {
-        const int r = k / W;
-        const long long d = __shfl_sync(kPartFull, dst, r);
-        if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
-      }
-    } else if (!kRows && dst >= 0) {
-      const long from = start + i;
-      for (int w = 0; w < W; ++w) {
-        dstp[(size_t)w * npad + dst] = srcp[(size_t)w * npad + from];
-      }
-    }
+    dsts[s] = -1;
+    if (i < cnt) dsts[s] = ((m >> lane) & 1u) ? lb : (int)(lt + (i - lb));
     left_before += __popc(m);
   }
+  // planes: the warp's 512 destinations go to shared memory; each lane
+  // then copies aligned 4-row words of the source planes (the warp's rows
+  // span at most kSpanWords words of a plane), kCopyPlanes planes per
+  // round, all loads of a round before its stores, and stores each live
+  // byte at its row's destination.
+  constexpr int kSpanRows = kPartSteps * 32;
+  constexpr int kSpanWords = kSpanRows / 4 + 1;
+  constexpr int kLaneWords = (kSpanWords + 31) / 32;
+  __shared__ int s_dst[kPartThreads * kPartSteps];
+  int* wd = s_dst + warp * kSpanRows;
+#pragma unroll
+  for (int s = 0; s < kPartSteps; ++s) wd[s * 32 + lane] = dsts[s];
+  __syncwarp();
+  const long span0 = (long)start + base;      // lane of the warp's row 0
+  const long w_lo = span0 >> 2;
+  int d[kLaneWords][4];
+  bool live[kLaneWords];
+#pragma unroll
+  for (int i = 0; i < kLaneWords; ++i) {
+    live[i] = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long idx = 4 * (w_lo + lane + 32 * i) + j - span0;
+      d[i][j] = (lane + 32 * i < kSpanWords && idx >= 0 && idx < kSpanRows)
+                    ? wd[idx] : -1;
+      live[i] = live[i] || d[i][j] >= 0;
+    }
+  }
+  const uint32_t* src32 = reinterpret_cast<const uint32_t*>(srcp);
+  const size_t pw = (size_t)npad >> 2;
+  for (int w0 = 0; w0 < W; w0 += kCopyPlanes) {
+    uint32_t v[kCopyPlanes][kLaneWords];
+#pragma unroll
+    for (int k = 0; k < kCopyPlanes; ++k) {
+#pragma unroll
+      for (int i = 0; i < kLaneWords; ++i) {
+        if (w0 + k < W && live[i]) {
+          v[k][i] = src32[(size_t)(w0 + k) * pw + w_lo + lane + 32 * i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyPlanes; ++k) {
+      if (w0 + k >= W) break;
+      uint8_t* to = dstp + (size_t)(w0 + k) * npad + start;
+#pragma unroll
+      for (int i = 0; i < kLaneWords; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (d[i][j] >= 0) to[d[i][j]] = (uint8_t)(v[k][i] >> (8 * j));
+        }
+      }
+    }
+  }
+  __syncwarp();      // wd is free for the warp's next tile
 }
 
 }  // namespace lgbt_part

@@ -58,12 +58,12 @@ HIST_Q_KERNEL = register(CudaKernel(
     "segment_histogram_q", "segment_histogram_q.cu",
     [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]))
 
-#: rows a histogram block takes per tile, and the most row blocks a launch
-#: uses (each writes one partial histogram that the second pass sums)
-HIST_TILE = 1024
-HIST_MAX_ROW_BLOCKS = 128
-#: features one histogram block keeps in shared memory (one warp each)
-HIST_MAX_FEATS_PER_BLOCK = 16
+#: the f32 histograms' summation order (csrc/segment_hist.cuh): chunks of
+#: HIST_CHUNK segment rows, each cut into HIST_SLICES slices of 32-row
+#: steps (step q in slice q % HIST_SLICES); a slice adds its rows one by
+#: one, a chunk adds its slices in order, the segment its chunks in order
+HIST_CHUNK = 2048
+HIST_SLICES = 4
 #: int8 histogram: rows per row block that size its grid, the most row
 #: blocks (two per SM of an H100), and the shared-memory budget of one
 #: block's privatised int32 histogram
@@ -162,16 +162,21 @@ def segment_histogram_resident_plain(work: torch.Tensor,
                             num_bins=num_bins, exact=exact)
 
 
+def hist_chunks(cnt: int) -> int:
+    """Chunks of a ``cnt``-row segment in the kernels' summation order (a
+    function of the count alone)."""
+    return -(-int(cnt) // HIST_CHUNK)
+
+
 def sum_error_bound(cnt: int) -> float:
     """Relative bound, against a bin's sum of |x|, on the error of the
-    kernel's f32 sums over a ``cnt``-row segment: each row block adds its
-    rows one by one (at most ``m`` of them), then the row blocks' partials
-    are added in order, so |err| <= (m + row_blocks + 2) * 2^-24 * sum|x|
-    (hi and lo channels each, combined once)."""
-    row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS, -(-int(cnt) // HIST_TILE)))
-    tiles = -(-int(cnt) // HIST_TILE)
-    m = -(-tiles // row_blocks) * HIST_TILE
-    return (m + row_blocks + 2) * 2.0 ** -24
+    kernels' f32 sums over a ``cnt``-row segment. A row's value goes
+    through at most ``m - 1`` adds in its slice (``m`` = the slice's rows,
+    at most HIST_CHUNK / HIST_SLICES), ``HIST_SLICES - 1`` in its chunk's
+    partial, one per chunk in the segment's sum and one in hi + lo, so
+    |err| <= (m + HIST_SLICES + chunks + 2) * 2^-24 * sum|x|."""
+    m = min(int(cnt), HIST_CHUNK // HIST_SLICES)
+    return (m + HIST_SLICES + hist_chunks(cnt) + 2) * 2.0 ** -24
 
 
 def segment_histogram(work: torch.Tensor, seg: torch.Tensor, *,
@@ -182,8 +187,9 @@ def segment_histogram(work: torch.Tensor, seg: torch.Tensor, *,
 
     ``seg`` is a (3,) i32 tensor ``[plane, start, cnt]`` on ``work``'s
     device and ``cnt_bound`` a host int >= cnt that sizes the grid. The
-    kernel's result is bit-identical run to run (fixed summation order,
-    no float atomics)."""
+    kernel's result is bit-identical run to run and for any ``cnt_bound``:
+    its summation order depends on the segment's rows alone (no float
+    atomics)."""
     _check_hist_args("segment_histogram", work, seg, num_bins, num_feat,
                      work.shape[1] - GH_BYTES)
     if work.device.type == "cpu":
@@ -199,9 +205,8 @@ def segment_histogram_rows(work: torch.Tensor, seg: torch.Tensor, *,
                            cnt_bound: int) -> torch.Tensor:
     """:func:`segment_histogram` on the rows layout, ``work`` (2, Npad, W)
     u8 with ``W = num_feat + 12``. The kernel runs the planes kernel's body
-    (tile assignment, per-row rounding, summation order), so on the same
-    rows in the same order its result equals the planes kernel's, bit for
-    bit."""
+    (per-row rounding, summation order), so on the same rows in the same
+    order its result equals the planes kernel's, bit for bit."""
     _check_hist_args("segment_histogram_rows", work, seg, num_bins, num_feat,
                      work.shape[2] - GH_BYTES)
     if work.device.type == "cpu":
@@ -221,8 +226,8 @@ def segment_histogram_resident(work: torch.Tensor, resident: torch.Tensor,
     (>= num_feat, Npad_res) u8 resident bin planes; bin f of a segment row
     is ``resident[f, ridx]``. ``seg`` and ``cnt_bound`` as in
     :func:`segment_histogram`. The kernel runs the planes kernel's body
-    (tile assignment, per-row rounding, summation order), so on the same
-    rows in the same order it equals the planes kernel bit for bit."""
+    (per-row rounding, summation order), so on the same rows in the same
+    order it equals the planes kernel bit for bit."""
     check_resident_args("segment_histogram_resident", work, resident)
     _check_hist_args("segment_histogram_resident", work, seg, num_bins,
                      num_feat, resident.shape[0])
@@ -231,17 +236,12 @@ def segment_histogram_resident(work: torch.Tensor, resident: torch.Tensor,
             work, resident, seg, num_bins=num_bins, num_feat=num_feat,
             exact=exact)
     check_on_card("segment_histogram_resident", work, seg, resident)
-    nch = 5 if exact else 3
-    row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
-                            -(-int(cnt_bound) // HIST_TILE)))
-    partial = torch.empty((row_blocks, num_feat, num_bins, nch),
-                          dtype=torch.float32, device=work.device)
-    out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
-                      device=work.device)
+    chunks, partial, out = _hist_scratch(work, num_bins, num_feat, exact,
+                                         cnt_bound)
     HIST_RESIDENT_KERNEL.launch(
         work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(),
         resident.data_ptr(), resident.shape[1], num_feat, num_bins,
-        int(exact), row_blocks, partial.data_ptr(), out.data_ptr(),
+        int(exact), chunks, partial.data_ptr(), out.data_ptr(),
         stream_of(work))
     return out
 
@@ -264,17 +264,24 @@ def _launch_histogram(kernel: CudaKernel, work: torch.Tensor,
                       exact: bool, cnt_bound: int, *, rows: int,
                       width: int) -> torch.Tensor:
     check_on_card(kernel.symbol, work, seg)
-    nch = 5 if exact else 3
-    row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
-                            -(-int(cnt_bound) // HIST_TILE)))
-    partial = torch.empty((row_blocks, num_feat, num_bins, nch),
+    chunks, partial, out = _hist_scratch(work, num_bins, num_feat, exact,
+                                         cnt_bound)
+    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(), num_feat,
+                  num_bins, int(exact), chunks, partial.data_ptr(),
+                  out.data_ptr(), stream_of(work))
+    return out
+
+
+def _hist_scratch(work, num_bins, num_feat, exact, cnt_bound):
+    """The grid's chunk count (from the host bound; the kernel reads the
+    true count on the card and skips the rest), the (chunks, F, B, NCH)
+    partials and the (F, B, 3) output of one f32 histogram launch."""
+    chunks = max(1, hist_chunks(cnt_bound))
+    partial = torch.empty((chunks, num_feat, num_bins, 5 if exact else 3),
                           dtype=torch.float32, device=work.device)
     out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
                       device=work.device)
-    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(), num_feat,
-                  num_bins, int(exact), row_blocks, partial.data_ptr(),
-                  out.data_ptr(), stream_of(work))
-    return out
+    return chunks, partial, out
 
 
 # ---------------------------------------------------------------- int8 rows

@@ -90,8 +90,8 @@ ONE_KERNEL_RESIDENT = register(CudaKernel(
 ROUTE_KERNEL = register(CudaKernel(
     "write_route_plane", "resident_route.cu", [_P, _I, _I, _P, _P, _I, _I,
                                                _P]))
-#: rows of a route-gather block: 256 threads, 4 rows each
-ROUTE_ROWS_PER_BLOCK = 1024
+#: 4-row words of a route-gather block per pass: 64 threads, one word each
+ROUTE_WORDS_PER_BLOCK = 64
 
 
 def work_spec(num_groups: int, quantized: bool = False,
@@ -415,7 +415,8 @@ def write_route_plane(work: torch.Tensor, resident: torch.Tensor,
     if work.device.type == "cpu":
         return write_route_plane_plain(work, resident, seg)
     check_on_card("write_route_plane", work, seg, resident)
-    nblocks = max(1, -(-int(cnt_bound) // ROUTE_ROWS_PER_BLOCK))
+    # cnt_bound rows start anywhere in a word: at most cnt_bound / 4 + 2
+    nblocks = max(1, -(-(int(cnt_bound) // 4 + 2) // ROUTE_WORDS_PER_BLOCK))
     ROUTE_KERNEL.launch(work.data_ptr(), work.shape[1], work.shape[2],
                         seg.data_ptr(), resident.data_ptr(),
                         resident.shape[1], nblocks, stream_of(work))
@@ -443,15 +444,15 @@ class OneKernelArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "work", "seg", "table", "parent", "num_bins", "movable",
         "missing_bin", "is_cat", "monotone", "penalty", "fmask", "sums2",
-        "outs2", "lows2", "ups2", "counts", "partial", "cand_gain",
+        "outs2", "lows2", "ups2", "counts", "partial", "done", "cand_gain",
         "cand_bin", "num_dl", "rank", "lt", "hist_left", "hist_right",
         "gain", "feature", "bin", "kind", "default_left", "go_left",
-        "left_sum", "right_sum", "left_output", "right_output", "res")] \
+        "left_sum", "right_sum", "left_output", "right_output", "res",
+        "stamps")] \
         + [(name, ctypes.c_int32) for name in (
             "W", "npad", "table_bins", "left_smaller", "depth", "F", "B",
-            "nch", "nfb", "groups", "row_blocks", "max_cat_to_onehot",
-            "has_categorical", "has_monotone", "use_mono_penalty",
-            "npad_res")] \
+            "nch", "groups", "max_cat_to_onehot", "has_categorical",
+            "has_monotone", "use_mono_penalty", "npad_res")] \
         + [(name, ctypes.c_float) for name in (
             "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split", "max_delta_step",
@@ -459,9 +460,28 @@ class OneKernelArgs(ctypes.Structure):
             "monotone_penalty", "max_cat_threshold")]
 
 
-#: warps of a one-kernel block, hence the most features of one histogram
-#: work item (the kernel runs 256 threads: K3's tile and one thread per bin)
-ONE_KERNEL_WARPS = 8
+#: features of one histogram work item of the one-kernel split
+ONE_KERNEL_FEATS_PER_ITEM = 2
+#: the measurement path: each block's thread 0 writes %globaltimer (ns)
+#: into its row of a (grid, ONE_KERNEL_STAMP_SLOTS) i64 buffer at these
+#: points; (phase, first slot, last slot) in launch order. "C finish" runs
+#: in the one block that took phase C's last ticket, which alone writes
+#: slot 8.
+ONE_KERNEL_STAMP_SLOTS = 9
+ONE_KERNEL_PHASES = (
+    ("A count", 0, 1), ("barrier 1", 1, 2), ("A scatter", 2, 3),
+    ("barrier 2", 3, 4), ("B chunks", 4, 5), ("barrier 3", 5, 6),
+    ("C reduce + scan", 6, 7), ("C finish", 7, 8))
+#: rows of a stamp buffer: more blocks than any cooperative grid has
+ONE_KERNEL_MAX_GRID = 4096
+
+
+def stamp_buffer(device) -> torch.Tensor:
+    """A zeroed (ONE_KERNEL_MAX_GRID, ONE_KERNEL_STAMP_SLOTS) i64 buffer
+    for :class:`OneKernelSplit`'s ``stamps``: rows of blocks the grid does
+    not have stay zero."""
+    return torch.zeros((ONE_KERNEL_MAX_GRID, ONE_KERNEL_STAMP_SLOTS),
+                       dtype=torch.int64, device=device)
 
 
 def _hyper_fields(hp) -> dict:
@@ -536,8 +556,9 @@ def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
     place; ``seg`` is the device (4,) i32 ``[src, start, cnt, col]``;
     ``go_left`` the (B,) bool routing table; ``left_smaller`` (the left
     child is the smaller one), ``depth`` (the children's node depth) and
-    ``cnt_bound`` (>= cnt, sizes the grid and the histogram's row blocks
-    as in :func:`segment_histogram`) are host ints. ``parent_hist`` is the
+    ``cnt_bound`` (>= cnt; it sizes the scratch, while the kernel sizes
+    its histogram by the smaller child's count, read on the card) are host
+    ints. ``parent_hist`` is the
     parent's (F, B, 3) f32 histogram, ``meta`` a ``FeatureMeta`` of (F,)
     tensors, ``fmask`` the (F,) bool search mask, ``sums2`` the (2, 3)
     child sums, ``outs2``/``lows2``/``ups2`` the (2,) child outputs and
@@ -566,6 +587,17 @@ def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
         ups2, cnt_bound=cnt_bound)
 
 
+def one_kernel_scratch_rows(cnt_max: int) -> Tuple[int, int]:
+    """(chunk partials, partition tiles) a one-kernel split's scratch holds
+    for parents of up to ``cnt_max`` rows. The smaller child is the one
+    with the smaller count channel, which under bagging may hold any share
+    of the parent's rows, so the partials cover all ``cnt_max`` of them;
+    the kernel reads the child's true count on the card and uses as many
+    chunks as it has."""
+    from .histogram import hist_chunks
+    return max(1, hist_chunks(cnt_max)), max(1, -(-int(cnt_max) // PART_TILE))
+
+
 class OneKernelSplit:
     """:func:`one_kernel_split_planes` over one work buffer, split after
     split. What stays fixed while a tree grows (the buffer, ``meta``,
@@ -573,12 +605,13 @@ class OneKernelSplit:
     packed once into the C argument struct beside the scratch buffers
     (sized for segments of up to ``cnt_max`` rows); each call checks and
     fills in one split's own fields and launches. ``resident`` (the
-    resident bin planes) selects the resident mode."""
+    resident bin planes) selects the resident mode. A call may pass
+    ``stamps`` (a :func:`stamp_buffer` on the card): the kernel then
+    writes each block's phase times into it (ONE_KERNEL_PHASES); the
+    learner never does."""
 
     def __init__(self, work, meta, fmask, hp, *, num_bins, num_feat,
                  exact=True, cnt_max, resident=None):
-        from .histogram import HIST_MAX_ROW_BLOCKS, HIST_TILE
-
         name = "one_kernel_split_planes"
         _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
                                 num_feat, resident)
@@ -595,19 +628,17 @@ class OneKernelSplit:
         dev = work.device
         F, B = num_feat, num_bins
         nch = 5 if exact else 3
-        groups = -(-F // ONE_KERNEL_WARPS)
-        row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
-                                -(-self.cnt_max // HIST_TILE)))
-        tiles = max(1, -(-self.cnt_max // PART_TILE))
+        chunks, tiles = one_kernel_scratch_rows(self.cnt_max)
         i32 = torch.int32
         self._scratch = (
             torch.empty(tiles, dtype=i32, device=dev),          # counts
-            torch.empty((row_blocks, F, B, nch),
+            torch.empty((chunks, F, B, nch),
                         dtype=torch.float32, device=dev),       # partials
+            torch.zeros(1, dtype=i32, device=dev),              # ticket
             torch.empty((2, 2, 4, F), dtype=i32, device=dev),   # gain | bin
             torch.empty((3, 2, F, B), dtype=torch.uint8,
                         device=dev))                            # dl | ranks
-        counts, partial, cand, flags = self._scratch
+        counts, partial, done, cand, flags = self._scratch
         fl = flags.data_ptr()
         self._args = OneKernelArgs(
             work=work.data_ptr(), num_bins=meta.num_bins.data_ptr(),
@@ -617,17 +648,17 @@ class OneKernelSplit:
             monotone=meta.monotone.data_ptr(),
             penalty=meta.penalty.data_ptr(), fmask=fmask.data_ptr(),
             counts=counts.data_ptr(), partial=partial.data_ptr(),
+            done=done.data_ptr(),
             cand_gain=cand.data_ptr(), cand_bin=cand.data_ptr() + 4 * 8 * F,
             num_dl=fl, rank=fl + 2 * F * B, W=work.shape[1],
             npad=work.shape[2], table_bins=B, F=F, B=B, nch=nch,
-            nfb=-(-F // groups), groups=groups,
+            groups=-(-F // ONE_KERNEL_FEATS_PER_ITEM),
             res=0 if resident is None else resident.data_ptr(),
             npad_res=0 if resident is None else resident.shape[1],
             **_hyper_fields(hp))
 
     def __call__(self, seg, go_left, left_smaller, depth, parent_hist,
-                 sums2, outs2, lows2, ups2, *, cnt_bound):
-        from .histogram import HIST_MAX_ROW_BLOCKS, HIST_TILE
+                 sums2, outs2, lows2, ups2, *, cnt_bound, stamps=None):
         from .split import SplitInfo
 
         _check_one_kernel_split(self, seg, go_left, parent_hist, sums2,
@@ -661,8 +692,13 @@ class OneKernelSplit:
         a.feature, a.bin, a.kind = io, io + 16, io + 32
         a.default_left, a.go_left = bo, bo + 2
         a.left_smaller, a.depth = int(bool(left_smaller)), int(depth)
-        a.row_blocks = max(1, min(HIST_MAX_ROW_BLOCKS,
-                                  -(-int(cnt_bound) // HIST_TILE)))
+        if stamps is not None:
+            check_on_card(self._kernel.symbol, work, stamps)
+            if stamps.dtype != torch.int64 or stamps.shape != (
+                    ONE_KERNEL_MAX_GRID, ONE_KERNEL_STAMP_SLOTS):
+                raise ValueError("one_kernel_split_planes: stamps must be "
+                                 "a stamp_buffer()")
+        a.stamps = 0 if stamps is None else stamps.data_ptr()
         self._kernel.launch(ctypes.addressof(a), stream_of(work))
         infos = SplitInfo(
             gain=fout[0:2], feature=iout[0:2], bin=iout[2:4], kind=iout[4:6],

@@ -162,3 +162,45 @@ def test_small_resident_training_on_card(card, data):
     errs = {}
     assert chip_smoke.full_width_resident(bst, card, errs, timed=False) == {}
     assert len(errs) == 6
+
+
+def test_histogram_order_ignores_cnt_bound_on_card(card):
+    """K4 planes, rows and resident on a 20,000-row segment (three chunks,
+    an unaligned start) with cnt_bound at the count, 2x and 8x it: the
+    same bits (chip_smoke.check_bound_invariant), and within the f32
+    summation bound of the twin."""
+    rng = np.random.RandomState(13)
+    n, nb, F = 20000, 64, 10
+    bins = rng.randint(0, nb, (n, F)).astype(np.uint8)
+    work = chip_smoke.seeded_work(rng, torch.as_tensor(bins), card)
+    seg = [0, 128 + 5, n - 5]
+    for exact in (True, False):
+        chip_smoke.check_histogram("order/planes", work, seg, nb, F, exact)
+        chip_smoke.check_histogram("order/rows",
+                                   work.transpose(1, 2).contiguous(), seg,
+                                   nb, F, exact, rows=True)
+    bins_all, res, rows = chip_smoke.seeded_resident(rng, bins, card)
+    ghc = torch.as_tensor(np.stack([rng.randn(n), np.abs(rng.randn(n)),
+                                    np.ones(n)], axis=1)
+                          .astype(np.float32)).to(card)
+    slim, planes = chip_smoke.resident_pair(card, bins_all, res, rows, ghc,
+                                            rng)
+    chip_smoke.check_histogram_resident("order/resident", slim, res, planes,
+                                        seg, nb, F, True)
+
+
+def test_one_kernel_bagged_child_on_card(card):
+    """B7 on segments whose smaller child by the count channel holds ~3/4
+    of the parent's rows (bagging's zeroed count channel): routed bytes,
+    lt, the child histograms bit-equal to K3 + K4 + the subtraction, and
+    the SplitInfo (chip_smoke.check_one_kernel)."""
+    rng = np.random.RandomState(21)
+    case = chip_smoke.split_case("numerical", rng, n=30000)
+    work, seg, table, kw = chip_smoke.split_inputs(card, case)
+    nb, col = kw["num_bins"], seg[3]
+    w_bag, t_bag = chip_smoke.bagged_work(rng, work, col, nb)
+    for tbl in (t_bag, ~t_bag):
+        sg = [0, 128 + 13, seg[2] - 13, col]
+        skw = chip_smoke.segment_split(w_bag, sg, tbl, kw)
+        chip_smoke.check_bagged_shape("bagged", w_bag, sg, tbl, skw)
+        chip_smoke.check_one_kernel("bagged", w_bag, sg, tbl, skw)

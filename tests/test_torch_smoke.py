@@ -124,7 +124,7 @@ def test_one_kernel_phases_small_on_cpu(trained):
     errs = chip_smoke.phase_one_kernel(CPU, np.random.RandomState(3))
     assert set(errs) == {"one_kernel/%s" % k for k in (
         "unaligned", "empty_left", "empty_right", "under_one_tile", "whole",
-        "one_row_left", "one_row_right")} | {
+        "one_row_left", "one_row_right", "bagged_left", "bagged_right")} | {
         "one_kernel/scan/%s" % k for k in chip_smoke.SPLIT_CASES}
     assert max(errs.values()) == 0.0
     errs = {}
@@ -152,7 +152,8 @@ def test_resident_phases_small_on_cpu(trained):
         | {"histogram_resident/%s/%s" % (m, c[0])
            for m in ("hilo", "bf16") for c in chip_smoke.HIST_CASES} \
         | {"one_kernel_resident/%s" % k for k in (
-            "unaligned", "empty_left", "under_one_tile", "whole")} \
+            "unaligned", "empty_left", "under_one_tile", "whole",
+            "bagged")} \
         | {"one_kernel_resident/scan/%s" % k for k in chip_smoke.SPLIT_CASES}
     assert max(errs.values()) == 0.0
     one = chip_smoke.phase_one_kernel_train(CPU, data, 3, 15, summary, 1000)

@@ -263,3 +263,46 @@ def one_kernel_tree_data(rng, n=1501, f=20):
     X = grid(rng, n, f)
     z = X @ rng.randn(f) + 0.5 * grid(rng, n, 1)[:, 0]
     return X, (z > 0).astype(np.float64)
+
+
+# ------------------------------------------------- f32 histogram order
+#
+# The summation order of the port's f32 segment histograms (K4 planes,
+# rows and resident, and phase B of the one-kernel split; see
+# lightgbm_tpu_torch/csrc/segment_hist.cuh), emulated in float32 numpy.
+
+def hist_order_np(bins, ch, num_bins):
+    """(n, F) bin codes + (n, NCH) f32 per-row contributions -> (F, B, NCH)
+    f32 sums in the kernels' order: chunks of HIST_CHUNK rows; in a chunk,
+    slice s holds the 32-row steps q with q % HIST_SLICES == s and adds its
+    rows one by one in row order (``np.add.at`` accumulates repeated
+    indices sequentially, in the array's float32); a chunk's partial is
+    its slices added left to right; the segment's sum is zero plus the
+    partials in chunk order."""
+    from lightgbm_tpu_torch.ops.histogram import HIST_CHUNK, HIST_SLICES
+
+    n, nf = bins.shape
+    nch = ch.shape[1]
+    ch = np.asarray(ch, np.float32)
+    total = np.zeros((nf, num_bins, nch), np.float32)
+    for c0 in range(0, n, HIST_CHUNK):
+        rows = np.arange(c0, min(c0 + HIST_CHUNK, n))
+        sl = ((rows - c0) // 32) % HIST_SLICES
+        part = None
+        for s in range(HIST_SLICES):
+            r = rows[sl == s]
+            h = np.zeros((nf, num_bins, nch), np.float32)
+            for f in range(nf):
+                for k in range(nch):
+                    np.add.at(h[f, :, k], bins[r, f], ch[r, k])
+            part = h if part is None else part + h
+        total = total + part
+    return total
+
+
+def combine_np(acc, exact):
+    """(F, B, NCH) f32 channel sums -> (F, B, 3): hi + lo in f32."""
+    if not exact:
+        return acc
+    return np.stack([acc[..., 0] + acc[..., 1], acc[..., 2] + acc[..., 3],
+                     acc[..., 4]], axis=-1).astype(np.float32)
