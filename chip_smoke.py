@@ -6,7 +6,7 @@
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 the checkout it sits in. Nine phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: seven
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: eight
                 sources, eleven entry points), one nvcc per source, started
                 together.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -88,7 +88,13 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 per-tree checks (the int8 count channel = the in-bag rows);
                 byte-equal determinism; card vs host on 200,000 rows with
                 every split of the first tree equal; valid AUC within
-                AUC_TOL of phase 3's at the same number of trees.
+                AUC_TOL of phase 3's at the same number of trees; at the
+                default sizes the model string's sha256 must be
+                QUANT_MODEL_SHA256. The rows partition (W = F + 3 and
+                F + 12) and the int8 histogram against their twins on the
+                2M root, the leaf nearest 64k rows and the leaf nearest 8k
+                rows (ROWS_SEGMENTS), timed there by device time and the
+                host clock (alone: ``--rows-only``).
 5. short runs -- unquantized rows layout vs planes, 200,000 rows x 3
                 trees on the card: byte-equal model strings (the rows
                 histogram kernel must have run); GOSS on the card vs the
@@ -163,6 +169,10 @@ GOSS_PARAMS = {"data_sample_strategy": "goss", "learning_rate": 0.5}
 #: valid AUC, quantized and sampled model vs the unquantized planes model
 #: at the same number of trees
 AUC_TOL = 0.01
+#: sha256 of phase 4's model string at the default sizes (seed 0, 40
+#: trees, 255 leaves, 2M + 100k rows), grown on the card
+QUANT_MODEL_SHA256 = ("5f9a32c5a7ecb6d640f57d1200e85bdd"
+                      "7fb5606fbd4b6617abed348ab69de7f3")
 #: the slice-4 configuration: one launch per split (planes layout)
 ONE_KERNEL_PARAMS = {"tpu_split_kernel": "on"}
 #: valid AUC, one-kernel model vs the three-launch planes model at the same
@@ -939,6 +949,33 @@ def rows_vs_planes(dev, data, rows, leaves, iters=3):
     return counts
 
 
+def check_quantized_model(bst, counts, summary, args):
+    """Phase 4's checks beside phase_train's: the rows layout, launches of
+    K3 rows, K5 and the router, and the model's sha256 (added to
+    ``summary``), which at the script's default sizes must equal
+    QUANT_MODEL_SHA256: the kernels may change how fast they run, never
+    which model they grow."""
+    import hashlib
+    if summary["layout"] != "rows":
+        raise AssertionError("quantized training ran on the %s layout"
+                             % summary["layout"])
+    for name in ("partition_segment_rows", "segment_histogram_q",
+                 "route_rows"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError("quantized training never launched %s"
+                                 % name)
+    sha = hashlib.sha256(bst.model_to_string().encode()).hexdigest()
+    summary["model_sha256"] = sha
+    default = (args.seed, args.trees, args.leaves, args.train_rows,
+               args.valid_rows) == (0, 40, 255, TRAIN_ROWS, VALID_ROWS)
+    log("quantized model sha256 %s (%s)" % (
+        sha, "must be %s" % QUANT_MODEL_SHA256 if default
+        else "not the default sizes: not compared"))
+    if default and QUANT_MODEL_SHA256 and sha != QUANT_MODEL_SHA256:
+        raise AssertionError("quantized model sha256 %s, not %s"
+                             % (sha, QUANT_MODEL_SHA256))
+
+
 def full_width_segment_kernels(bst, dev, errs):
     """Partition and histogram kernels vs their twins at the training
     shapes: the root segment of all rows, with the trained first tree's
@@ -1013,86 +1050,163 @@ def full_width_segment_kernels(bst, dev, errs):
     return rows
 
 
-def full_width_rows_kernels(bst, dev, errs, timed=True):
-    """The rows partition, the rows histogram and the int8 histogram vs
-    their twins at the quantized training's shapes: the root segment of
-    all rows, packed as that training packs it (int8, W = F + 3) and,
-    for the rows histogram, unquantized (W = F + 12); the partition with
-    the trained first tree's root split. Then, when ``timed`` (on the
-    card), each kernel's ms, twin ms, library ms and bound."""
+def rows_segment(bst, dev, idx, start=128):
+    """The rows ``idx`` (ascending) of a quantized rows model's training
+    set as one segment at row ``start`` of buffer 0, packed as its training
+    packs them from the model's gradients and last in-bag mask: int8
+    (W = F + 3, scales from these rows) and f32 (W = F + 12); buffer 1 is
+    zeroed. The split is the one find_best_split takes on the segment's
+    histogram. Returns (int8 pair, f32 pair, [0, start, m, col], go-left
+    table, the (3,) dequantization scale, the segment's in-bag rows)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
     from lightgbm_tpu_torch.prng import PRNGKey, fold_in
 
     g = bst.inner
     lrn = g.learner
-    bins = lrn.bins
-    n, F = bins.shape
+    F = lrn.bins.shape[1]
     B = lrn.num_bin_hist
+    m = int(idx.shape[0])
     grad, hess = g.objective.get_gradients(g.train_score.score)
-    m = g._inbag
-    ghc = torch.stack([grad * m, hess * m, m], dim=1)
-    guard, _ = P.work_spec(F, True)
-    qwork = P.work_buffer(n, F, "rows", True, dev)
+    inbag = g._inbag
+    ghc = torch.stack([grad * inbag, hess * inbag, inbag], dim=1)[idx]
+    bins = lrn.bins[idx]
+    npad = P.planes_npad(m + start, 128)
     scales = P.quantize_scales(ghc)
-    scale = H.dequant_scale(scales)
-    qwork[0, guard:guard + n] = P.pack_rows_quantized(
+    qwork = torch.zeros((2, npad, F + P.GH_BYTES_Q), dtype=torch.uint8,
+                        device=dev)
+    qwork[0, start:start + m] = P.pack_rows_quantized(
         bins, ghc, fold_in(PRNGKey(0), 987123), scales,
         offset=lrn._kw["dither_offset"])
-    fwork = P.work_buffer(n, F, "rows", False, dev)
-    fwork[0, guard:guard + n] = P.pack_rows(bins, ghc)
-    t0 = g.models[0]
-    feat = g.train_set.inner_feature_index(int(t0.split_feature[0]))
-    table = torch.arange(B, device=dev) <= int(t0.split_bin[0])
-    seg = [0, guard, n, feat]
-    errs["partition_rows/full_width"] = check_partition(
-        "partition_rows/full_width", qwork, seg, table, rows=True)
-    errs["histogram_q/full_width"] = check_histogram_q(
-        "histogram_q/full_width", qwork, seg[:3], B, F, scale)
+    fwork = torch.zeros((2, npad, F + P.GH_BYTES), dtype=torch.uint8,
+                        device=dev)
+    fwork[0, start:start + m] = P.pack_rows(bins, ghc)
+    hist = H.segment_histogram_rows(
+        fwork, torch.tensor([0, start, m], dtype=torch.int32, device=dev),
+        num_bins=B, num_feat=F, cnt_bound=m)
+    info = find_best_split(hist, torch.sum(ghc, dim=0), lrn.meta,
+                           torch.ones(F, dtype=torch.bool, device=dev),
+                           lrn.hp)
+    return (qwork, fwork, [0, start, m, int(info.feature)],
+            info.go_left.contiguous(), H.dequant_scale(scales),
+            int(inbag[idx].sum()))
+
+
+#: the segments K3 rows and K5 are held and timed on: the 2M-row root,
+#: the first tree's leaf nearest 64k rows and its leaf nearest 8k rows
+#: (deep_leaf_rows); the leaves start at unaligned rows, as they do inside
+#: a tree
+ROWS_SEGMENTS = (("root", None, 128), ("mid", 65536, 128 + 5),
+                 ("deep", 8192, 128 + 13))
+
+
+def full_width_rows_kernels(bst, dev, errs, timed=True):
+    """The rows partition (K3 rows), the rows histogram and the int8
+    histogram (K5) vs their twins at the quantized training's shapes: the
+    root segment of all rows, the ~64k-row leaf and the deep leaf
+    (ROWS_SEGMENTS), packed as that training packs them (int8, W = F + 3)
+    and unquantized (W = F + 12), each routed by the split find_best_split
+    takes on it; the rows histogram at the root. Then, when ``timed`` (on
+    the card), each kernel's ms, twin ms, library ms and bound at the
+    root, and K3 rows (both widths) and K5 by device time (device_ms) and
+    by the host clock (cuda_ms) on all three segments."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+
+    lrn = bst.inner.learner
+    n, F = lrn.bins.shape
+    B = lrn.num_bin_hist
+    segs = {}
+    for tag, target, start in ROWS_SEGMENTS:
+        if target is None:
+            idx = torch.arange(n, device=dev)
+        else:
+            idx = deep_leaf_rows(bst, dev, target)[0]
+        segs[tag] = rows_segment(bst, dev, idx, start)
+        qwork, fwork, seg, table, scale, _ = segs[tag]
+        for key, work in (("partition_rows/full_width_" + tag, qwork),
+                          ("partition_rows/full_width_%s_w%d"
+                           % (tag, fwork.shape[2]), fwork)):
+            errs[key] = check_partition(key, work, seg, table, rows=True)
+        key = "histogram_q/full_width_" + tag
+        errs[key] = check_histogram_q(key, qwork, seg[:3], B, F, scale)
+    qwork, fwork, seg, table, scale, inbag = segs["root"]
     errs["histogram_rows/full_width"] = check_histogram(
         "histogram_rows/full_width", fwork, seg[:3], B, F, True, rows=True)
     if not timed:
         return {}
+    per_seg = {}
+    for tag, (qw, fw, sg, tb, sc, ib) in segs.items():
+        s4 = torch.tensor(sg, dtype=torch.int32, device=dev)
+        s3 = s4[:3].contiguous()
+        m = sg[2]
+        fns = {"partition": lambda: P.partition_segment_rows(qw, s4, tb, m),
+               "partition_w40":
+                   lambda: P.partition_segment_rows(fw, s4, tb, m),
+               "histogram_q": lambda: H.segment_histogram_q(
+                   qw, s3, sc, num_bins=B, num_feat=F, cnt_bound=m)}
+        per_seg[tag] = dict(rows=m, inbag=ib, start=sg[1])
+        for kind, fn in fns.items():
+            per_seg[tag][kind] = dict(ms=cuda_ms(fn), device_ms=device_ms(fn))
+        v = per_seg[tag]
+        log("rows kernels %s: %d rows (%d in bag) from row %d: K3 rows "
+            "W = %d %.4f ms (device %.4f), W = %d %.4f ms (device %.4f); "
+            "K5 %.4f ms (device %.4f); bounds %.5f, %.5f, %.5f ms (bytes)"
+            % (tag, m, ib, sg[1], qw.shape[2], v["partition"]["ms"],
+               v["partition"]["device_ms"], fw.shape[2],
+               v["partition_w40"]["ms"], v["partition_w40"]["device_ms"],
+               v["histogram_q"]["ms"], v["histogram_q"]["device_ms"],
+               2 * qw.shape[2] * m / PEAK_BYTES_PER_S * 1e3,
+               2 * fw.shape[2] * m / PEAK_BYTES_PER_S * 1e3,
+               ((F + 3) * m + F * B * 3 * 4) / PEAK_BYTES_PER_S * 1e3))
     sg4 = torch.tensor(seg, dtype=torch.int32, device=dev)
     sg3 = sg4[:3].contiguous()
-    p_ms = cuda_ms(lambda: P.partition_segment_rows(qwork, sg4, table, n))
     pp_ms = cuda_ms(lambda: P.partition_segment_rows_plain(qwork, sg4, table),
                     iters=3, warmup=1)
     h_ms = cuda_ms(lambda: H.segment_histogram_rows(
         fwork, sg3, num_bins=B, num_feat=F, cnt_bound=n))
     hp_ms = cuda_ms(lambda: H.segment_histogram_rows_plain(
         fwork, sg3, num_bins=B, num_feat=F), iters=3, warmup=1)
-    q_ms = cuda_ms(lambda: H.segment_histogram_q(
-        qwork, sg3, scale, num_bins=B, num_feat=F, cnt_bound=n))
     qp_ms = cuda_ms(lambda: H.segment_histogram_q_plain(
         qwork, sg3, scale, num_bins=B, num_feat=F), iters=3, warmup=1)
     # library yardsticks: one index_add_ over precomputed flat (f*B + bin)
     # indices with the rows' channels repeated per feature, f32 (g, h, cnt)
     # for the rows histogram, the int8 bytes as int32 for the int8 one
-    idx = (bins.long() + torch.arange(F, device=dev) * B).t().reshape(-1)
-    vals = ghc.repeat(F, 1)
+    rows0 = seg[1]
+    idx = (lrn.bins.long() + torch.arange(F, device=dev) * B).t().reshape(-1)
+    vals = P.unpack_ghc(fwork[0, rows0:rows0 + n], F).repeat(F, 1)
     out = torch.zeros((F * B, 3), device=dev)
     l_ms = cuda_ms(lambda: out.zero_().index_add_(0, idx, vals))
-    gq, hq, cq = P.unpack_ghq(qwork[0, guard:guard + n], F)
+    gq, hq, cq = P.unpack_ghq(qwork[0, rows0:rows0 + n], F)
     qvals = torch.stack([gq.int(), hq.int(), cq.int()], dim=1).repeat(F, 1)
     qout = torch.zeros((F * B, 3), dtype=torch.int32, device=dev)
     lq_ms = cuda_ms(lambda: qout.zero_().index_add_(0, idx, qvals))
     h_dev = device_ms(lambda: H.segment_histogram_rows(
         fwork, sg3, num_bins=B, num_feat=F, cnt_bound=n))
-    inbag = int(m.sum())
     W = qwork.shape[2]
+    root = per_seg["root"]
 
     def err(prefix):
         return max(v for k, v in errs.items() if k.startswith(prefix))
 
+    def seg_times(kind):
+        return {tag: dict(rows=v["rows"], **v[kind])
+                for tag, v in per_seg.items()}
+
     rows = {
         "partition_segment_rows": dict(
             route="cuda",
-            source="lightgbm_tpu_torch/csrc/partition_segment.cu",
+            source="lightgbm_tpu_torch/csrc/partition_rows.cu",
             replaces="lightgbm_tpu/ops/partition.py:908",
-            max_abs_err=err("partition_rows/"), ms=p_ms, plain_ms=pp_ms,
-            library_ms=None, bytes=2 * W * n, ops=n),
+            max_abs_err=err("partition_rows/"),
+            ms=root["partition"]["ms"],
+            device_ms=root["partition"]["device_ms"], plain_ms=pp_ms,
+            library_ms=None, segments=seg_times("partition"),
+            segments_w40=seg_times("partition_w40"),
+            bytes=2 * W * n, ops=n),
         "segment_histogram_rows": dict(
             route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_histogram.cu",
@@ -1105,15 +1219,17 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
             route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_histogram_q.cu",
             replaces="lightgbm_tpu/ops/histogram.py:891",
-            max_abs_err=err("histogram_q/"), ms=q_ms, plain_ms=qp_ms,
-            library_ms=lq_ms, bytes=(F + 3) * n + F * B * 3 * 4,
-            ops=inbag * F * 3),
+            max_abs_err=err("histogram_q/"), ms=root["histogram_q"]["ms"],
+            device_ms=root["histogram_q"]["device_ms"], plain_ms=qp_ms,
+            library_ms=lq_ms, segments=seg_times("histogram_q"),
+            bytes=(F + 3) * n + F * B * 3 * 4, ops=inbag * F * 3),
     }
     log("full width rows: partition %.4f ms (twin %.2f) at W = %d, rows "
         "histogram %.4f ms (device %s, twin %.2f, index_add_ %.4f), int8 "
         "histogram %.4f ms (twin %.2f, int32 index_add_ %.4f) over %d rows "
-        "x %d columns, %d in bag" % (p_ms, pp_ms, W, h_ms, h_dev, hp_ms,
-                                     l_ms, q_ms, qp_ms, lq_ms, n, F, inbag))
+        "x %d columns, %d in bag"
+        % (root["partition"]["ms"], pp_ms, W, h_ms, h_dev, hp_ms, l_ms,
+           root["histogram_q"]["ms"], qp_ms, lq_ms, n, F, inbag))
     return rows
 
 
@@ -2532,6 +2648,10 @@ def main(argv=None):
     ap.add_argument("--valid-rows", type=int, default=VALID_ROWS)
     ap.add_argument("--host-rows", type=int, default=200_000)
     ap.add_argument("--binned-rows", type=int, default=BINNED_ROWS)
+    ap.add_argument("--rows-only", action="store_true",
+                    help="build, train phase 4 (quantized, rows layout) "
+                    "and print only its model's sha256, its kernels' "
+                    "in-run ms and full_width_rows_kernels")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -2571,6 +2691,25 @@ def main(argv=None):
         log("build %s: %.1f s %s" % (k.symbol, k.build_seconds,
                                      " | ".join(lines)))
     log("build: %d kernels in %.1f s" % (len(kernels.KERNELS), secs))
+
+    if args.rows_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
+        bst, counts, summary = phase_train(dev, ds, args.trees, args.leaves,
+                                           QUANT_PARAMS)
+        check_quantized_model(bst, counts, summary, args)
+        errs = {}
+        rows = full_width_rows_kernels(bst, dev, errs)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        print(json.dumps({"rows_kernels": rows,
+                          "kernel_ms_per_tree":
+                              summary["kernel_ms_per_tree"],
+                          "wall_per_tree_ms": summary["wall_per_tree_ms"],
+                          "model_sha256": summary["model_sha256"]},
+                         default=str))
+        log(card)
+        return 0
 
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
@@ -2629,14 +2768,7 @@ def main(argv=None):
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
                                              args.leaves, QUANT_PARAMS)
-    if summary_q["layout"] != "rows":
-        raise AssertionError("quantized training ran on the %s layout"
-                             % summary_q["layout"])
-    for name in ("partition_segment_rows", "segment_histogram_q",
-                 "route_rows"):
-        if counts_q.get(name, 0) <= 0:
-            raise AssertionError("quantized training never launched %s"
-                                 % name)
+    check_quantized_model(bst_q, counts_q, summary_q, args)
     rows.update(full_width_rows_kernels(bst_q, dev, errs))
     check_determinism(dev, quant_ds[0], args.leaves, extra=QUANT_PARAMS)
     summary_q["profile"] = profile_iteration(dev, quant_ds[0], args.leaves,

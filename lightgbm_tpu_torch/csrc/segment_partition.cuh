@@ -1,7 +1,8 @@
-// Device code of the stable two-way segment partition (K3), shared by
-// csrc/partition_segment.cu (the three-launch path) and phase A of
-// csrc/one_kernel_split.cu, so that both route the same bytes in the same
-// order. See partition_segment.cu for the data contract and the design.
+// Device code of the stable two-way segment partition (K3) on the planes
+// layout, shared by csrc/partition_segment.cu (the three-launch path) and
+// phase A of csrc/one_kernel_split.cu, so that both route the same bytes
+// in the same order. See partition_segment.cu for the data contract and
+// the design.
 //
 // A tile is kPartTile = 4096 rows handled by one 256-thread block: each of
 // its 8 warps owns 16 consecutive 32-row steps. part_count_tile counts the
@@ -86,6 +87,8 @@ __device__ __forceinline__ void part_scatter_tile(
     const uint8_t* srcp, uint8_t* __restrict__ dstp, int W,
     int npad, int start, int cnt, int feat, int lt, const uint8_t* s_tbl,
     long tile, int left_before_tile, int* s_warp) {
+  // the rows layout has its own kernel, csrc/partition_rows.cu
+  static_assert(!kRows, "part_scatter_tile copies planes");
   constexpr int kCopyPlanes = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long base = tile * kPartTile + warp * (kPartSteps * 32);
@@ -105,30 +108,6 @@ __device__ __forceinline__ void part_scatter_tile(
   int left_before = left_before_tile;
   for (int w = 0; w < warp; ++w) left_before += s_warp[w];
   const unsigned below = (1u << lane) - 1u;
-  if (kRows) {
-#pragma unroll
-    for (int s = 0; s < kPartSteps; ++s) {
-      const long i = base + s * 32 + lane;
-      const unsigned m = masks[s];
-      const int lb = left_before + __popc(m & below);   // left rows before i
-      long long dst = -1;                               // -1: past the end
-      if (i < cnt) {
-        dst = ((m >> lane) & 1u) ? (long long)start + lb
-                                 : (long long)start + lt + (i - lb);
-      }
-      if (base + s * 32 < cnt) {   // warp-uniform test
-        // the warp's 32 source rows are one run of 32 * W bytes
-        const uint8_t* run = srcp + (size_t)(start + base + s * 32) * W;
-        for (int k = lane; k < 32 * W; k += 32) {
-          const int r = k / W;
-          const long long d = __shfl_sync(kPartFull, dst, r);
-          if (d >= 0) dstp[(size_t)d * W + (k - r * W)] = run[k];
-        }
-      }
-      left_before += __popc(m);
-    }
-    return;
-  }
   int dsts[kPartSteps];   // destination row - start, -1: past the segment
 #pragma unroll
   for (int s = 0; s < kPartSteps; ++s) {

@@ -18,7 +18,8 @@ CUDA tensor and runs its plain twin on a CPU tensor:
   so on the same rows in the same order it equals :func:`segment_histogram`
   bit for bit;
 - :func:`segment_histogram_q`, int8 quantized rows:
-  ``csrc/segment_histogram_q.cu``, replacing the quantized mode of
+  ``csrc/segment_histogram_q.cu`` (one cluster launch, sized by
+  :func:`hist_q_plan`), replacing the quantized mode of
   ``hist_mxu_segment``. Its sums are integers, so the kernel, its twin and
   the JAX package's ``hist16_segment_q`` agree byte for byte.
 
@@ -35,6 +36,7 @@ and the kernel's f32 sums are held to it within :func:`sum_error_bound`.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,7 +58,7 @@ HIST_RESIDENT_KERNEL = register(CudaKernel(
     [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
 HIST_Q_KERNEL = register(CudaKernel(
     "segment_histogram_q", "segment_histogram_q.cu",
-    [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]))
+    [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]))
 
 #: the f32 histograms' summation order (csrc/segment_hist.cuh): chunks of
 #: HIST_CHUNK segment rows, each cut into HIST_SLICES slices of 32-row
@@ -64,12 +66,19 @@ HIST_Q_KERNEL = register(CudaKernel(
 #: one, a chunk adds its slices in order, the segment its chunks in order
 HIST_CHUNK = 2048
 HIST_SLICES = 4
-#: int8 histogram: rows per row block that size its grid, the most row
-#: blocks (two per SM of an H100), and the shared-memory budget of one
-#: block's privatised int32 histogram
-HIST_Q_ROWS_PER_BLOCK = 8192
-HIST_Q_MAX_ROW_BLOCKS = 264
-HIST_Q_SMEM_BYTES = 96 * 1024
+#: int8 histogram (csrc/segment_histogram_q.cu): segment rows per row
+#: block that size its grid, the blocks of one cluster (they merge their
+#: histograms through distributed shared memory), the most row blocks
+#: asked for across the feature groups (about a wave of one block per SM;
+#: the entry point cuts the grid to the clusters the card runs at once),
+#: the dynamic shared memory a block may take, and the warps of a block
+#: and the 32-row steps each stages ahead (the kernel's kWarps, kRing)
+HIST_Q_ROWS_PER_BLOCK = 512
+HIST_Q_CLUSTER = 8
+HIST_Q_MAX_ROW_BLOCKS = 128
+HIST_Q_SMEM_BYTES = 224 * 1024
+HIST_Q_WARPS = 16
+HIST_Q_RING = 4
 #: the largest segment whose int32 sums cannot overflow: 127 * N < 2^31
 HIST_Q_MAX_ROWS = (2 ** 31 - 1) // 127
 
@@ -332,15 +341,76 @@ def segment_histogram_q(work: torch.Tensor, seg: torch.Tensor,
         return segment_histogram_q_plain(work, seg, scale, num_bins=num_bins,
                                          num_feat=num_feat)
     check_on_card("segment_histogram_q", work, seg, scale)
-    nfb = max(1, min(num_feat, HIST_Q_SMEM_BYTES // (num_bins * 3 * 4)))
-    row_blocks = max(1, min(HIST_Q_MAX_ROW_BLOCKS,
-                            -(-int(cnt_bound) // HIST_Q_ROWS_PER_BLOCK)))
-    acc = torch.empty((num_feat, num_bins, 3), dtype=torch.int32,
-                      device=work.device)
+    plan = hist_q_plan(cnt_bound, num_feat, num_bins)
+    stream = stream_of(work)
+    acc, ticket = _hist_q_scratch(work.device, stream, plan.acc_ints)
     out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
                       device=work.device)
     HIST_Q_KERNEL.launch(work.data_ptr(), work.shape[2], work.shape[1],
-                         seg.data_ptr(), num_feat, num_bins, nfb, row_blocks,
-                         scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                         stream_of(work))
+                         seg.data_ptr(), num_feat, num_bins,
+                         plan.feats_per_block, plan.row_blocks, plan.cluster,
+                         int(plan.staged), scale.data_ptr(), acc.data_ptr(),
+                         ticket.data_ptr(), out.data_ptr(), stream)
     return out
+
+
+class HistQPlan(NamedTuple):
+    """The launch of one int8 histogram (csrc/segment_histogram_q.cu)."""
+    feats_per_block: int  # features of one block's shared histogram
+    groups: int           # feature groups (grid.y)
+    row_blocks: int       # row blocks (grid.x), a multiple of cluster
+    cluster: int          # blocks per cluster
+    staged: bool          # rows staged through shared memory
+    smem_bytes: int       # dynamic shared memory of a block
+    acc_ints: int         # the int32 accumulator the launch needs
+
+
+def hist_q_plan(cnt_bound: int, num_feat: int, num_bins: int) -> HistQPlan:
+    """Size an int8 histogram of up to ``cnt_bound`` rows of ``num_feat``
+    bin bytes. A block holds the int32 (nfb, B, 3) histogram of as many
+    features as fit HIST_Q_SMEM_BYTES beside its warps' staging ring (the
+    ring only when it takes at most half of the budget; wider rows are
+    read in place); a row block per HIST_Q_ROWS_PER_BLOCK rows, at most
+    HIST_Q_MAX_ROW_BLOCKS across the feature groups and at least one
+    cluster, rounded up to whole clusters (below HIST_Q_CLUSTER blocks, a
+    power of two)."""
+    width = num_feat + GH_BYTES_Q
+    ring = HIST_Q_WARPS * HIST_Q_RING * ((32 * width + 31) // 16 * 16)
+    staged = ring <= HIST_Q_SMEM_BYTES // 2
+    if not staged:
+        ring = 0
+    nfb = max(1, min(num_feat,
+                     (HIST_Q_SMEM_BYTES - ring - 16) // (num_bins * 12)))
+    smem = (nfb * num_bins * 12 + 15) // 16 * 16 + ring
+    groups = -(-num_feat // nfb)
+    want = max(1, -(-int(cnt_bound) // HIST_Q_ROWS_PER_BLOCK))
+    most = max(HIST_Q_CLUSTER,
+               HIST_Q_MAX_ROW_BLOCKS // groups // HIST_Q_CLUSTER
+               * HIST_Q_CLUSTER)
+    want = min(want, most)
+    if want < HIST_Q_CLUSTER:
+        cluster = 1 << (want - 1).bit_length()
+        blocks = cluster
+    else:
+        cluster = HIST_Q_CLUSTER
+        blocks = -(-want // cluster) * cluster
+    return HistQPlan(nfb, groups, blocks, cluster, staged, smem,
+                     num_feat * num_bins * 3)
+
+
+#: (device, stream) -> (int32 accumulator, u32 ticket), both zero between
+#: launches: the kernel's last block zeroes them
+_HIST_Q_SCRATCH = {}
+
+
+def _hist_q_scratch(device, stream: int, ints: int):
+    """The int8 histogram's kept accumulator and ticket for launches on
+    ``stream`` of ``device``, grown (zeroed) when a launch needs more.
+    Launches on one stream run in order, so they share them safely."""
+    key = (device.index, stream)
+    kept = _HIST_Q_SCRATCH.get(key)
+    if kept is None or kept[0].numel() < ints:
+        kept = (torch.zeros(ints, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        _HIST_Q_SCRATCH[key] = kept
+    return kept

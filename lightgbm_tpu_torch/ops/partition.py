@@ -20,10 +20,11 @@ nothing on a GPU.
 
 :func:`partition_segment` (planes) and :func:`partition_segment_rows` are
 the split. On a CUDA tensor they launch the hand-written kernel
-``csrc/partition_segment.cu`` (entry points ``partition_segment`` and
-``partition_segment_rows``, replacing the TPU kernels
-``partition_segment_planes_fused`` and ``partition_segment_fused``); on a
-CPU tensor they run their plain twins. The order is fixed and stable on
+``csrc/partition_segment.cu`` (entry point ``partition_segment``,
+replacing the TPU kernel ``partition_segment_planes_fused``) and
+``csrc/partition_rows.cu`` (entry point ``partition_segment_rows``, one
+cooperative launch, replacing ``partition_segment_fused``); on a CPU
+tensor they run their plain twins. The order is fixed and stable on
 both sides (the TPU kernels leave it unspecified): left rows ascending
 from ``start``, right rows ascending from ``start + lt``, so a kernel and
 its twin agree byte for byte, and both layouts hold the same rows in the
@@ -31,7 +32,8 @@ same order.
 
 Segment arguments ride in a small device i32 tensor, so the learner never
 waits for the card to issue a launch; ``cnt_bound`` (a host int at least
-the segment's row count) only sizes the grid.
+the segment's row count) only sizes the grid (:func:`partition_rows_plan`
+on the rows layout).
 
 :func:`one_kernel_split_planes` runs a whole split in one launch: the
 partition, the smaller child's histogram and both children's split scan
@@ -54,7 +56,8 @@ package stores ``guard + i``); the resident planes have no guard lanes.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -70,8 +73,18 @@ RST_GH_OFF = RST_ROUTE + RST_RIDX
 RST_WIDTH = RST_GH_OFF + GH_BYTES
 #: rows of padding below and above the rows (row i sits at GUARD + i)
 GUARD = 128
-#: rows per block of the partition kernel (its count and scatter tile)
+#: rows per block of the planes partition kernel (its count and scatter
+#: tile)
 PART_TILE = 4096
+#: the rows partition (csrc/partition_rows.cu): bytes of rows a tile aims
+#: at (its rows are 32 * steps, steps <= 32), the dynamic shared memory a
+#: block may hold in tile slots, the blocks per SM its streaming (two-read)
+#: grid asks for, and the widest row it takes (one 32-row tile per slot,
+#: and the magic-number division exact: 32 W^2 < 2^32)
+PART_ROWS_TILE_BYTES = 32 * 1024
+PART_ROWS_SMEM_BYTES = 224 * 1024
+PART_ROWS_BLOCKS_PER_SM = 2
+PART_ROWS_MAX_WIDTH = (PART_ROWS_SMEM_BYTES - 32) // 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +92,8 @@ _PART_ARGS = [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P]
 PARTITION_KERNEL = register(CudaKernel(
     "partition_segment", "partition_segment.cu", _PART_ARGS))
 PARTITION_ROWS_KERNEL = register(CudaKernel(
-    "partition_segment_rows", "partition_segment.cu", _PART_ARGS))
+    "partition_segment_rows", "partition_rows.cu",
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]))
 #: phase C follows torch's arithmetic op by op: no contracted multiply-adds
 ONE_KERNEL = register(CudaKernel(
     "one_kernel_split", "one_kernel_split.cu", [_P, _P],
@@ -305,18 +319,76 @@ def partition_segment_rows_plain(work: torch.Tensor, seg: torch.Tensor,
     return go.sum().to(torch.int32).reshape(1)
 
 
+class PartRowsPlan(NamedTuple):
+    """The launch of one rows partition (csrc/partition_rows.cu)."""
+    steps: int        # 32-row steps per tile
+    tile_rows: int    # 32 * steps
+    slot_bytes: int   # shared memory of one tile slot
+    slots: int        # tile slots per block
+    grid: int         # blocks asked for (the card may run fewer at once)
+    resident: bool    # every tile stays staged across the grid barrier
+
+
+def partition_rows_plan(cnt_bound: int, width: int,
+                        sms: int) -> PartRowsPlan:
+    """Size a rows partition of up to ``cnt_bound`` rows of ``width``
+    bytes on a card of ``sms`` SMs. A tile is about PART_ROWS_TILE_BYTES
+    of rows. When the grid's shared memory holds every tile (at most
+    PART_ROWS_SMEM_BYTES an SM), the plan is resident: each block gets
+    ``slots`` tiles and keeps them staged across the grid barrier, so the
+    segment is read once; PART_ROWS_BLOCKS_PER_SM blocks share an SM while
+    their slots fit, else one block takes it. Otherwise the kernel reads
+    the segment twice (the split column for the count, then the rows),
+    through two slots, on PART_ROWS_BLOCKS_PER_SM blocks per SM."""
+    if not 4 <= width <= PART_ROWS_MAX_WIDTH:
+        raise ValueError("partition_segment_rows: rows of %d bytes (the "
+                         "kernel takes 4 to %d)"
+                         % (width, PART_ROWS_MAX_WIDTH))
+    steps = max(1, min(32, PART_ROWS_TILE_BYTES // (32 * width)))
+    rows = 32 * steps
+    slot = (rows * width + 31) // 16 * 16
+    tiles = max(1, -(-int(cnt_bound) // rows))
+    cap = PART_ROWS_SMEM_BYTES // slot
+    if tiles <= sms * cap:
+        # PART_ROWS_BLOCKS_PER_SM blocks per SM while their slots fit,
+        # else one block per SM with up to all of its shared memory
+        per_sm = PART_ROWS_BLOCKS_PER_SM
+        slots = -(-tiles // (sms * per_sm))
+        if slots * slot > PART_ROWS_SMEM_BYTES // per_sm:
+            slots = -(-tiles // sms)
+        return PartRowsPlan(steps, rows, slot, slots, -(-tiles // slots),
+                            True)
+    return PartRowsPlan(steps, rows, slot, min(2, cap),
+                        min(tiles, sms * PART_ROWS_BLOCKS_PER_SM), False)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def partition_segment_rows(work: torch.Tensor, seg: torch.Tensor,
                            table: torch.Tensor,
                            cnt_bound: int) -> torch.Tensor:
     """Stably partition rows ``[start, start + cnt)`` of buffer ``src`` of
     ``work`` (2, Npad, W) u8 into buffer ``1 - src`` by the routing table;
-    the arguments and the result are :func:`partition_segment`'s."""
+    the arguments and the result are :func:`partition_segment`'s. On the
+    card: one cooperative launch sized by :func:`partition_rows_plan`."""
     _check_partition_args("partition_segment_rows", work, seg, table)
     if work.device.type == "cpu":
         return partition_segment_rows_plain(work, seg, table)
-    return _launch_partition(PARTITION_ROWS_KERNEL, work, seg, table,
-                             cnt_bound, rows=work.shape[1],
-                             width=work.shape[2])
+    check_on_card("partition_segment_rows", work, seg, table)
+    plan = partition_rows_plan(cnt_bound, work.shape[2],
+                               sm_count(work.device.index))
+    block_left = torch.empty(plan.grid, dtype=torch.int32,
+                             device=work.device)
+    lt = torch.empty(1, dtype=torch.int32, device=work.device)
+    PARTITION_ROWS_KERNEL.launch(
+        work.data_ptr(), work.shape[2], work.shape[1], seg.data_ptr(),
+        table.data_ptr(), table.numel(), plan.steps, plan.slots, plan.grid,
+        block_left.data_ptr(), lt.data_ptr(), stream_of(work))
+    return lt
 
 
 # ------------------------------------------------------------ resident layout

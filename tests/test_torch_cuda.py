@@ -204,3 +204,85 @@ def test_one_kernel_bagged_child_on_card(card):
         skw = chip_smoke.segment_split(w_bag, sg, tbl, kw)
         chip_smoke.check_bagged_shape("bagged", w_bag, sg, tbl, skw)
         chip_smoke.check_one_kernel("bagged", w_bag, sg, tbl, skw)
+
+
+def _rows_pair(card, rng, n, F, quantized, nb=64, skew=False):
+    """A seeded (2, Npad, W) rows pair of ``n`` rows from row 128
+    (chip_smoke.seeded_rows_work); with ``skew`` feature 0 takes three
+    values, ~55% of rows on one (the b-tag features' shape)."""
+    bins = rng.randint(0, nb, (n, F)).astype(np.uint8)
+    if skew:
+        bins[:, 0] = np.where(rng.rand(n) < 0.55, 7,
+                              rng.choice([2, 11], n))
+    return chip_smoke.seeded_rows_work(rng, torch.as_tensor(bins), card,
+                                       quantized)
+
+
+#: (bin columns, quantized) of the rows partition cases: W = 31, 40, an
+#: EFB-like bundle width of 21 and a 16-byte multiple of 64
+ROWS_WIDTHS = ((28, True), (28, False), (9, False), (61, True))
+
+
+@pytest.mark.parametrize("F,quantized", ROWS_WIDTHS)
+def test_rows_partition_edges_on_card(card, F, quantized):
+    """K3 rows against its twin (whole pair and lt equal) at the counts
+    where the launch changes shape: 1, 31, a tile - 1 and + 1, the
+    resident limit - 1, at it and + 1 (partition_rows_plan), from an
+    unaligned start; all left, all right and empty; the same bytes twice
+    in a row."""
+    rng = np.random.RandomState(F + 100 * quantized)
+    width = F + (3 if quantized else 12)
+    sms = partition.sm_count(card.index)
+    plan = partition.partition_rows_plan(1, width, sms)
+    limit = sms * (partition.PART_ROWS_SMEM_BYTES // plan.slot_bytes) \
+        * plan.tile_rows
+    assert partition.partition_rows_plan(limit, width, sms).resident
+    assert not partition.partition_rows_plan(limit + 1, width, sms).resident
+    work, _ = _rows_pair(card, rng, limit + 64, F, quantized)
+    tables = chip_smoke._tables(rng, 64, card)
+    start = 128 + 13
+    for cnt in (1, 31, plan.tile_rows - 1, plan.tile_rows + 1, limit - 1,
+                limit, limit + 1):
+        chip_smoke.check_partition("rows/%d" % cnt, work,
+                                   [0, start, cnt, cnt % F], tables["table"],
+                                   rows=True)
+    for tbl in ("all", "none"):
+        chip_smoke.check_partition("rows/" + tbl, work, [0, start, 5000, 1],
+                                   tables[tbl], rows=True)
+    chip_smoke.check_partition("rows/empty", work, [0, start, 0, 1],
+                               tables["table"], rows=True)
+    a, b = work.clone(), work.clone()
+    seg = torch.tensor([0, start, 77777, 2], dtype=torch.int32, device=card)
+    lt_a = partition.partition_segment_rows(a, seg, tables["table"], 77777)
+    lt_b = partition.partition_segment_rows(b, seg, tables["table"], 77777)
+    assert int(lt_a) == int(lt_b) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("F,nb", ((28, 256), (61, 64), (5, 64), (200, 256)))
+def test_int8_histogram_edges_on_card(card, F, nb):
+    """K5 against its twin, byte for byte, call after call on one kept
+    accumulator (each call must leave it zero): 0, 1, 31, 32 and 33 rows,
+    a row block -1 and +1, a whole cluster of row blocks +1, the 2M-row
+    root's grid, from an unaligned start; an all out-of-bag segment; a
+    skewed feature; W = F + 3 = 31, 64, 8 and 203 (read in place, three
+    feature groups at 256 bins)."""
+    rng = np.random.RandomState(F)
+    rpb = histogram.HIST_Q_ROWS_PER_BLOCK
+    block_rows = histogram.HIST_Q_CLUSTER * rpb
+    n = 140_000 if F < 100 else 40_000
+    work, scale = _rows_pair(card, rng, n, F, True, nb, skew=True)
+    start = 128 + 13
+    for cnt in (0, 1, 31, 32, 33, rpb - 1, rpb + 1, block_rows + 1,
+                n - 13):
+        chip_smoke.check_histogram_q("q/%d" % cnt, work, [0, start, cnt],
+                                     nb, F, scale)
+    oob = work.clone()
+    oob[0, start:start + 3000, F:F + 3] = 0
+    chip_smoke.check_histogram_q("q/out_of_bag", oob, [0, start, 3000], nb,
+                                 F, scale)
+    got = histogram.segment_histogram_q(
+        oob, torch.tensor([0, start, 3000], dtype=torch.int32, device=card),
+        scale, num_bins=nb, num_feat=F, cnt_bound=3000)
+    assert int(torch.count_nonzero(got)) == 0
+    chip_smoke.check_histogram_q("q/after", work, [0, start + 1, 4099], nb,
+                                 F, scale)

@@ -146,7 +146,8 @@ def _rows_pair(rng, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("start,cnt", [(137, 700), (0, 1500), (513, 1),
-                                       (333, 1163)])
+                                       (333, 1163), (7, 31), (1, 1023),
+                                       (0, 1025), (13, 1487)])
 def test_rows_partition_matches_jax(quantized, start, cnt):
     rng = np.random.RandomState(start + cnt)
     work = _rows_pair(rng, quantized)
@@ -241,7 +242,8 @@ def test_rows_histogram_matches_jax(exact, start, cnt):
 
 
 @pytest.mark.parametrize("start,cnt", [(0, N), (37, 411), (3, 130), (900, 0),
-                                       (1499, 1)])
+                                       (1499, 1), (5, 31), (11, 33),
+                                       (13, 1025)])
 def test_int8_histogram_is_jax_bytes(start, cnt, monkeypatch):
     rng = np.random.RandomState(start + cnt + 5)
     work = _rows_pair(rng, True)

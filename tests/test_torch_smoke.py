@@ -93,9 +93,13 @@ def test_quantized_phase_small_on_cpu(trained, quantized):
     errs = {}
     assert chip_smoke.full_width_rows_kernels(bst, CPU, errs,
                                               timed=False) == {}
-    assert set(errs) == {"partition_rows/full_width",
-                         "histogram_q/full_width",
-                         "histogram_rows/full_width"}
+    want = {"histogram_rows/full_width"}
+    for tag, _, _ in chip_smoke.ROWS_SEGMENTS:
+        want |= {"partition_rows/full_width_" + tag,
+                 "partition_rows/full_width_%s_w%d"
+                 % (tag, chip_smoke.HIGGS_FEATURES + 12),
+                 "histogram_q/full_width_" + tag}
+    assert set(errs) == want
     assert max(errs.values()) <= 1e-6
     chip_smoke.check_determinism(CPU, train, 15, iters=1,
                                  extra=chip_smoke.QUANT_PARAMS)
