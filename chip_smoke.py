@@ -2,6 +2,7 @@
 """Chip smoke for the PyTorch/CUDA port (``lightgbm_tpu_torch``).
 
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
+    python3 chip_smoke.py --planes-route-only   # phase 3 and B1/B3 timings
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 the checkout it sits in. Nine phases, each fatal on failure:
@@ -46,7 +47,15 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 resident three-launch chain and its planes mode on the
                 same rows (routed bytes and lt equal, histograms and every
                 SplitInfo field bit-equal) on segment shapes and every case
-                of SPLIT_CASES. Again at 2M rows after phases 3, 3c and 4,
+                of SPLIT_CASES. The planes partition's edge cases at W = 17
+                and 40 (the counts where its launch changes shape, the
+                resident limits included, all-left, all-right and
+                alternating tables, buffer 1 as the source) and the
+                router's (a 254-round chain, a tree that always splits leaf
+                0, padded rounds, num_splits 0 and past the table, bundle
+                columns with out-of-range slots, a 4000-round tree; 28, 136
+                and 3000 columns): phase_planes_route_kernels. Again at 2M
+                rows after phases 3, 3c and 4,
                 on their data and first root splits (3c also on a deep
                 leaf). Leaf ids must be equal, scores within SCORE_ATOL +
                 SCORE_RTOL * |b|.
@@ -61,14 +70,24 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 channel the in-bag rows. Two 3-iteration runs must give
                 byte-equal model strings; 3 iterations on 200,000 rows on
                 the card and on the host (the plain twins) must agree in
-                train logloss within LOGLOSS_TOL.
+                train logloss within LOGLOSS_TOL; at the default sizes the
+                model string's sha256 must be PLANES_MODEL_SHA256. The
+                planes partition against its twin on PLANES_SEGMENTS (the
+                2M root, the leaf nearest 64k rows, the leaf nearest 8k
+                rows) at W = 40 and on the slim rows' W = 17, and the
+                router with the first tree on the 2M training rows, the
+                valid set, a 65,536-row serving rung and a chain tree,
+                timed there by device time and the host clock (alone:
+                ``--planes-route-only``).
 3b. one kernel -- the slice-4 path: phase 3's data and trees with
                 ``tpu_split_kernel=on``, one cooperative launch per split
                 (``one_kernel_split`` launches = splits, no K3, K4 only for
                 the roots); the same per-tree checks, byte-equal
                 determinism, on vs off and card vs host on 200,000 rows x
                 3 trees (train logloss within LOGLOSS_TOL), valid AUC
-                within ONE_KERNEL_AUC_TOL of phase 3's.
+                within ONE_KERNEL_AUC_TOL of phase 3's; at the default
+                sizes the model string's sha256 must be
+                ONE_KERNEL_MODEL_SHA256.
 3c. resident -- the slice-5 path: phase 3's data and trees with
                 RESIDENT_PARAMS (``tpu_resident_state=on``,
                 ``tpu_split_kernel=on``): the slim rows, the bins gathered
@@ -173,6 +192,12 @@ AUC_TOL = 0.01
 #: trees, 255 leaves, 2M + 100k rows), grown on the card
 QUANT_MODEL_SHA256 = ("5f9a32c5a7ecb6d640f57d1200e85bdd"
                       "7fb5606fbd4b6617abed348ab69de7f3")
+#: the same for phase 3's model (planes, three launches) and phase 3b's
+#: (one kernel per split; phase 3c's resident model must equal it)
+PLANES_MODEL_SHA256 = ("5cedd567e5520c91fee156e7cc1ad159"
+                       "7d6aebe9ad8ea533b403e4a9433978ba")
+ONE_KERNEL_MODEL_SHA256 = ("1aee18f809833f7915df283f37952069"
+                           "0e9a291b592c6e85c12db03ee658686d")
 #: the slice-4 configuration: one launch per split (planes layout)
 ONE_KERNEL_PARAMS = {"tpu_split_kernel": "on"}
 #: valid AUC, one-kernel model vs the three-launch planes model at the same
@@ -708,6 +733,158 @@ def phase_rows_kernels(dev, rng):
     return errs
 
 
+def planes_pair(rng, W, npad, dev, nb=64):
+    """A seeded (2, W, npad) u8 planes pair; its first 8 planes hold bins
+    below ``nb`` (split columns for tables of ``nb`` bins)."""
+    import numpy as np
+    import torch
+    work = rng.randint(0, 256, (2, W, npad)).astype(np.uint8)
+    work[:, :min(W, 8)] %= nb
+    return torch.as_tensor(work).to(dev)
+
+
+def planes_edge_counts(W, sms, limits=True):
+    """The counts at which K3 planes' launch changes shape at width W on
+    ``sms`` SMs: 0, 1, 31, 4095 and 4097 rows, a full-size tile + 1 and,
+    with ``limits``, the resident limit - 1, at it and + 1
+    (ops/partition.partition_planes_plan)."""
+    from lightgbm_tpu_torch.ops import partition as P
+    big = P.partition_planes_plan(10 ** 8, W, sms)
+    out = [0, 1, 31, 4095, 4097, big.tile_rows + 1]
+    if limits:
+        limit = sms * (P.PART_PLANES_SMEM_BYTES // (big.stripe * W)) \
+            * big.tile_rows
+        if not (P.partition_planes_plan(limit, W, sms).resident
+                and not P.partition_planes_plan(limit + 1, W, sms).resident):
+            raise AssertionError("W = %d: the resident limit is not %d"
+                                 % (W, limit))
+        out += [limit - 1, limit, limit + 1]
+    return out
+
+
+def route_table_np(rng, rounds, F, kind):
+    """A numpy (rounds * TBL_W,) i32 router table: "chain" (round r splits
+    leaf r, the newest right child: depth = rounds), "leaf_zero" (every
+    round splits leaf 0), "tree" (round r splits one of the leaves 0..r,
+    some rounds with a movable-missing bin) or "bundles" (a tree whose
+    rounds half read bundle columns: slots outside a sub-feature's range go
+    the way ``rest`` says, on both sides)."""
+    import numpy as np
+    t = np.zeros((rounds, 10), np.int64)
+    t[:, 0] = rng.randint(0, F, rounds)
+    t[:, 3] = -1
+    t[:, 5] = 1
+    if kind == "chain":
+        t[:, 0] = np.arange(rounds) % F
+        t[:, 1] = np.arange(rounds)
+        t[:, 2] = rng.randint(0, 12, rounds)
+    elif kind == "leaf_zero":
+        t[:, 2] = rng.randint(150, 256, rounds)
+    else:
+        t[:, 1] = [rng.randint(0, r + 1) for r in range(rounds)]
+        t[:, 2] = rng.randint(0, 40, rounds)
+        miss = rng.rand(rounds) < 0.4
+        t[miss, 3] = rng.randint(0, 40, int(miss.sum()))
+        t[miss, 4] = rng.rand(int(miss.sum())) < 0.5
+        if kind == "bundles":
+            b = rng.rand(rounds) < 0.5
+            k = int(b.sum())
+            t[b, 5] = 0
+            t[b, 6] = rng.randint(1, 20, k)
+            t[b, 7] = rng.randint(0, 8, k)
+            t[b, 8] = rng.randint(4, 24, k)
+            t[b, 9] = rng.rand(k) < 0.5
+            t[b, 2] = rng.randint(0, 20, k)
+    return t.astype(np.int32).reshape(-1)
+
+
+def padded_table(table, ns, rounds):
+    """``table``'s first ns rounds, then rounds of split_leaf = 0 up to
+    ``rounds``, as the learner pads a tree's unused rounds."""
+    import numpy as np
+    t = table.reshape(-1, 10)[:ns]
+    pad = np.zeros((rounds - ns, 10), np.int32)
+    pad[:, 0], pad[:, 2], pad[:, 5] = 1, 255, 1
+    return np.concatenate([t, pad]).reshape(-1)
+
+
+def check_route_kernel(name, bins_t, table, num_splits):
+    """Router kernel (on a CUDA tensor) vs twin: leaf ids equal, and the
+    same ids again. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+    dev = bins_t.device
+    tb = torch.as_tensor(table).to(dev)
+    ns = torch.tensor([num_splits], dtype=torch.int32, device=dev)
+    got = route_rows(bins_t, tb, ns)
+    again = route_rows(bins_t, tb, ns)
+    want = route_rows_plain(bins_t, tb, ns)
+    sync(dev)
+    id_diff(name, got, want)
+    if not torch.equal(got, again):
+        raise AssertionError("%s: not equal run to run" % name)
+    return 0.0
+
+
+def phase_planes_route_kernels(dev, rng, full=True):
+    """K3 planes and the row router against their twins on their edge
+    cases. K3 at W = 17 and 40 from unaligned lanes: the counts where its
+    launch changes shape (planes_edge_counts; the resident limits only
+    when ``full``), all left, all right and alternating tables (runs
+    whose end words are shared with the other side and the neighbouring
+    tiles), buffer 1 as the source. The router over 28 columns (staged
+    tiles), 136 (staged, fewer blocks an SM) and 3000 (bins read from
+    device memory): a 254-round chain, a tree that always splits leaf 0,
+    padded rounds past num_splits, num_splits 0 and past the table, bundle
+    columns with out-of-range slots both ways and movable-missing bins,
+    and, when ``full``, a 4000-round tree; over 200,064, 20,096 and 2048
+    rows when ``full``, else over a few thousand (the host rehearsal)."""
+    import torch
+    from lightgbm_tpu_torch.learner import route_layout
+    from lightgbm_tpu_torch.ops import partition as P
+
+    sms = P.sm_count(dev.index) if dev.type == "cuda" else 132
+    errs = {}
+    tables = _tables(rng, 64, dev)
+    tables["alternating"] = torch.arange(64, device=dev) % 2 == 0
+    for W in (17, 40):
+        counts = planes_edge_counts(W, sms, full)
+        start = 128 + 13
+        work = planes_pair(rng, W, P.planes_npad(start + max(counts) + 16),
+                           dev)
+        for cnt in counts:
+            key = "planes/w%d/%d" % (W, cnt)
+            errs[key] = check_partition(key, work, [0, start, cnt, cnt % 8],
+                                        tables["table"])
+        for name, tbl in tables.items():
+            for src, st, cnt in ((0, 128 + 1, 5), (1, 128 + 6, 5000)):
+                key = "planes/w%d/%s/src%d_%d" % (W, name, src, cnt)
+                errs[key] = check_partition(key, work, [src, st, cnt, 2], tbl)
+    import numpy as np
+    sizes = ((28, 200_064), (136, 20_096), (3000, 2048)) if full \
+        else ((28, 4096), (136, 2048), (3000, 256))
+    for F, npad in sizes:
+        bins = torch.as_tensor(rng.randint(0, 48, (npad, F))
+                               .astype(np.uint8))
+        bins[::5, :] = 60          # slots past every sub-feature's range
+        bt = route_layout(bins.to(dev))
+        cases = {"chain254": (route_table_np(rng, 254, F, "chain"), 254),
+                 "leaf_zero": (route_table_np(rng, 60, F, "leaf_zero"), 60),
+                 "tree": (route_table_np(rng, 254, F, "tree"), 254),
+                 "bundles": (route_table_np(rng, 254, F, "bundles"), 254),
+                 "padded": (padded_table(route_table_np(rng, 254, F, "tree"),
+                                         37, 254), 37),
+                 "no_splits": (route_table_np(rng, 30, F, "tree"), 0),
+                 "past_rounds": (route_table_np(rng, 30, F, "tree"), 1000)}
+        if full and F == 28:
+            cases["rounds4000"] = (route_table_np(rng, 4000, F, "tree"),
+                                   4000)
+        for name, (tbl, ns) in cases.items():
+            key = "route/f%d/%s" % (F, name)
+            errs[key] = check_route_kernel(key, bt, tbl, ns)
+    return errs
+
+
 def higgs_labels(rng, X):
     """0/1 labels with a learnable signal: the high-level masses and the
     lepton pT push toward "signal", as they do in HIGGS."""
@@ -800,7 +977,10 @@ def phase_train(dev, datasets, trees, leaves, extra=None):
     ll = evals["valid_0"]["binary_logloss"][-1]
     if not (np.isfinite(ll) and 0.5 < auc <= 1.0):
         raise AssertionError("valid auc %.4f logloss %.4f" % (auc, ll))
+    import hashlib
     summary = dict(trees=trees, splits=int(sum(checked)), wall_s=wall,
+                   model_sha256=hashlib.sha256(
+                       bst.model_to_string().encode()).hexdigest(),
                    wall_per_tree_ms=wall / trees * 1e3, valid_auc=auc,
                    valid_logloss=ll,
                    layout=bst.inner.learner._kw["work_layout"],
@@ -955,7 +1135,6 @@ def check_quantized_model(bst, counts, summary, args):
     ``summary``), which at the script's default sizes must equal
     QUANT_MODEL_SHA256: the kernels may change how fast they run, never
     which model they grow."""
-    import hashlib
     if summary["layout"] != "rows":
         raise AssertionError("quantized training ran on the %s layout"
                              % summary["layout"])
@@ -964,16 +1143,20 @@ def check_quantized_model(bst, counts, summary, args):
         if counts.get(name, 0) <= 0:
             raise AssertionError("quantized training never launched %s"
                                  % name)
-    sha = hashlib.sha256(bst.model_to_string().encode()).hexdigest()
-    summary["model_sha256"] = sha
+    check_model_sha("quantized", summary, args, QUANT_MODEL_SHA256)
+
+
+def check_model_sha(name, summary, args, want):
+    """At the script's default sizes a phase's model string must hash to
+    ``want`` (phase_train puts the sha256 in ``summary``)."""
+    sha = summary["model_sha256"]
     default = (args.seed, args.trees, args.leaves, args.train_rows,
                args.valid_rows) == (0, 40, 255, TRAIN_ROWS, VALID_ROWS)
-    log("quantized model sha256 %s (%s)" % (
-        sha, "must be %s" % QUANT_MODEL_SHA256 if default
+    log("%s model sha256 %s (%s)" % (
+        name, sha, "must be %s" % want if default
         else "not the default sizes: not compared"))
-    if default and QUANT_MODEL_SHA256 and sha != QUANT_MODEL_SHA256:
-        raise AssertionError("quantized model sha256 %s, not %s"
-                             % (sha, QUANT_MODEL_SHA256))
+    if default and sha != want:
+        raise AssertionError("%s model sha256 %s, not %s" % (name, sha, want))
 
 
 def full_width_segment_kernels(bst, dev, errs):
@@ -1231,6 +1414,137 @@ def full_width_rows_kernels(bst, dev, errs, timed=True):
         % (root["partition"]["ms"], pp_ms, W, h_ms, h_dev, hp_ms, l_ms,
            root["histogram_q"]["ms"], qp_ms, lq_ms, n, F, inbag))
     return rows
+
+
+#: the segments K3 planes (B1) is held and timed on: the phase-3 model's
+#: 2M-row root, the first tree's leaf nearest 64k rows and its leaf
+#: nearest 8k rows (deep_leaf_rows), all from unaligned lanes, as a
+#: tree's leaves start
+PLANES_SEGMENTS = (("root", None, 128 + 3), ("mid", 65536, 128 + 5),
+                   ("deep", 8192, 128 + 13))
+
+
+def full_width_planes(bst, dev, errs, timed=True):
+    """K3 planes against its twin on PLANES_SEGMENTS of a planes model:
+    each segment packed from the model's gradients on the planes pair
+    (W = F + 12) and on the slim pair (W = RST_WIDTH, routed on its route
+    plane, as the resident three-launch path runs it), split as
+    find_best_split takes it (model_segment). Then, when ``timed`` (on
+    the card), K3 at both widths on each segment by the host clock
+    (cuda_ms) and by device time (device_ms), beside its bound. Returns
+    {"w<W>": {segment: {rows, start, ms, device_ms, bound_ms}}}."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    lrn = bst.inner.learner
+    n, F = lrn.bins.shape
+    res = lrn.bins_t.reshape(F, -1)
+    out = {}
+    for tag, target, start in PLANES_SEGMENTS:
+        if target is None:
+            idx, depth = torch.arange(n, device=dev), 1
+        else:
+            idx, depth = deep_leaf_rows(bst, dev, target)
+        slim, planes, seg, table, _ = model_segment(bst, dev, idx, depth,
+                                                    start)
+        m = int(idx.shape[0])
+        P.write_route_plane(slim, res, torch.tensor(
+            seg, dtype=torch.int32, device=dev), m)
+        cases = ((planes, seg), (slim, seg[:3] + [0]))
+        for work, sg in cases:
+            key = "partition/full_width_%s_w%d" % (tag, work.shape[1])
+            errs[key] = check_partition(key, work, sg, table)
+        if not timed:
+            continue
+        for work, sg in cases:
+            s4 = torch.tensor(sg, dtype=torch.int32, device=dev)
+
+            def fn():
+                return P.partition_segment(work, s4, table, m)
+            W = work.shape[1]
+            v = dict(rows=m, start=start, ms=cuda_ms(fn),
+                     device_ms=device_ms(fn),
+                     bound_ms=2 * W * m / PEAK_BYTES_PER_S * 1e3)
+            out.setdefault("w%d" % W, {})[tag] = v
+            log("K3 planes %s: %d rows from lane %d, W = %d: %.4f ms "
+                "(device %.4f), bound %.5f ms (bytes)"
+                % (tag, m, start, W, v["ms"], v["device_ms"], v["bound_ms"]))
+    return out
+
+
+def chain_table(F, rounds, dev):
+    """The (rounds * TBL_W,) i32 route table of a chain tree: round r
+    splits leaf r, the newest right child, on column r % F. Rows go right
+    (threshold bin -1) but on every 32nd round, where rows of bin 0 go
+    left, so most rows walk every round: the router's worst case."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import TBL_W
+
+    tbl = torch.zeros((rounds, TBL_W), dtype=torch.int32)
+    r = torch.arange(rounds, dtype=torch.int32)
+    tbl[:, 0] = r % F
+    tbl[:, 1] = r
+    tbl[:, 2] = torch.where(r % 32 == 31, 0, -1)
+    tbl[:, 3] = -1
+    tbl[:, 5] = 1
+    return tbl.reshape(-1).to(dev)
+
+
+def full_width_route(bst, valid, dev, errs, timed=True):
+    """The row router against its twin (leaf ids equal) at the shapes the
+    main path gives it, with the first tree of the planes model ``bst``:
+    its 2M training rows, the valid set ``valid`` (a BinnedDataset), a
+    65,536-row serving rung (the valid set's first rows) and a chain tree
+    of as many rounds over the training rows (chain_table). Then, when
+    ``timed`` (on the card), each by the host clock (cuda_ms) and by
+    device time (device_ms), beside its bound (the bins read once, the
+    table, the ids written). Returns {shape: {rows, ms, device_ms,
+    bound_ms}}."""
+    import torch
+    from lightgbm_tpu_torch.learner import route_layout
+    from lightgbm_tpu_torch.ops.predict import tree_to_bin_log
+    from lightgbm_tpu_torch.ops.route import (build_route_table, route_rows,
+                                              route_rows_plain)
+
+    g = bst.inner
+    lrn = g.learner
+    n, F = lrn.bins.shape
+    t0 = g.models[0]
+    lg = tree_to_bin_log(t0, g.train_set, dev)
+    vlg = tree_to_bin_log(t0, valid, dev)
+    table = build_route_table(lg, None)
+    vtable = build_route_table(vlg, None)
+    vbins = g._valid_bins(valid)
+    rounds = table.numel() // 10        # the model's num_leaves - 1
+    chain_ns = torch.full((1,), rounds, dtype=torch.int32, device=dev)
+    shapes = {
+        "train": (lrn.bins_t, table, lg.num_splits, n),
+        "valid": (g._valid_bins_t(valid), vtable, vlg.num_splits,
+                  valid.num_data),
+        "serve": (route_layout(vbins[:65536]), vtable, vlg.num_splits,
+                  min(65536, valid.num_data)),
+        "chain": (lrn.bins_t, chain_table(F, rounds, dev), chain_ns, n)}
+    out = {}
+    for tag, (bt, tb, ns, rows) in shapes.items():
+        got = route_rows(bt, tb, ns)
+        want = route_rows_plain(bt, tb, ns)
+        sync(dev)
+        errs["router/full_width_" + tag] = float(
+            id_diff("router/full_width_" + tag, got, want))
+        if not timed:
+            continue
+
+        def fn():
+            return route_rows(bt, tb, ns)
+        v = dict(rows=rows, ms=cuda_ms(fn), device_ms=device_ms(fn),
+                 bound_ms=(bt.numel() + tb.numel() * 4 + bt.shape[1] * 512)
+                 / PEAK_BYTES_PER_S * 1e3)
+        out[tag] = v
+        log("router %s: %d rows x %d columns, %d rounds: %.4f ms (device "
+            "%.4f), bound %.5f ms (bytes); %d distinct leaves"
+            % (tag, rows, bt.shape[0], tb.numel() // 10, v["ms"],
+               v["device_ms"], v["bound_ms"], int(got[:rows].unique().numel())))
+    return out
 
 
 def split_case(name, rng, n=9000, F=8, nb=32):
@@ -2118,10 +2432,10 @@ def model_ghc(bst):
     return torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
 
 
-def model_segment(bst, dev, idx, depth):
+def model_segment(bst, dev, idx, depth, start=128):
     """The split of the training rows ``idx`` (ascending) of a trained
     model, as the learner would run it with the model's gradients: the
-    rows at lanes 128 .. of buffer 0 of a slim pair and a planes pair
+    rows at lanes ``start`` .. of buffer 0 of a slim pair and a planes pair
     (resident_pair), routed by the split find_best_split takes on their
     histogram, at node depth ``depth``. Returns (slim, planes, seg, table,
     the keyword arguments of ops.partition.one_kernel_split_planes but
@@ -2136,8 +2450,8 @@ def model_segment(bst, dev, idx, depth):
     m = int(idx.shape[0])
     gs = model_ghc(bst)[idx]
     slim, planes = resident_pair(dev, lrn.bins, lrn.bins_t.reshape(F, -1),
-                                 idx, gs)
-    seg3 = [0, 128, m]
+                                 idx, gs, guard=start)
+    seg3 = [0, start, m]
     parent = H.segment_histogram(
         planes, torch.tensor(seg3, dtype=torch.int32, device=dev),
         num_bins=B, num_feat=F, cnt_bound=m)
@@ -2652,6 +2966,11 @@ def main(argv=None):
                     help="build, train phase 4 (quantized, rows layout) "
                     "and print only its model's sha256, its kernels' "
                     "in-run ms and full_width_rows_kernels")
+    ap.add_argument("--planes-route-only", action="store_true",
+                    help="build, train phase 3 (planes, three launches) "
+                    "and print only its model's sha256, the in-run ms of "
+                    "K3 planes and the router, full_width_planes and "
+                    "full_width_route")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -2711,6 +3030,29 @@ def main(argv=None):
         log(card)
         return 0
 
+    if args.planes_route_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        ds = build_datasets(dev, data, args.leaves)
+        bst, counts, summary = phase_train(dev, ds, args.trees, args.leaves)
+        for name in ("partition_segment", "route_rows"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError("planes training never launched %s"
+                                     % name)
+        check_model_sha("planes", summary, args, PLANES_MODEL_SHA256)
+        errs = {}
+        planes = full_width_planes(bst, dev, errs)
+        route = full_width_route(bst, ds[1].construct(), dev, errs)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        print(json.dumps({"partition_segment": planes, "route_rows": route,
+                          "kernel_ms_per_tree":
+                              summary["kernel_ms_per_tree"],
+                          "wall_per_tree_ms": summary["wall_per_tree_ms"],
+                          "launches": counts,
+                          "model_sha256": summary["model_sha256"]}))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -2726,6 +3068,8 @@ def main(argv=None):
     errs.update(phase_one_kernel(dev, np.random.RandomState(args.seed + 3)))
     errs.update(phase_resident_kernels(dev,
                                        np.random.RandomState(args.seed + 5)))
+    errs.update(phase_planes_route_kernels(
+        dev, np.random.RandomState(args.seed + 11)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -2737,7 +3081,12 @@ def main(argv=None):
     for name in ("partition_segment", "segment_histogram", "route_rows"):
         if counts_p.get(name, 0) <= 0:
             raise AssertionError("planes training never launched %s" % name)
+    check_model_sha("planes", summary_p, args, PLANES_MODEL_SHA256)
     rows = full_width_segment_kernels(bst_p, dev, errs)
+    rows["partition_segment"]["segments"] = full_width_planes(bst_p, dev,
+                                                              errs)
+    route_shapes = full_width_route(bst_p, planes_ds[1].construct(), dev,
+                                    errs)
     check_determinism(dev, planes_ds[0], args.leaves)
     summary_p["profile"] = profile_iteration(dev, planes_ds[0], args.leaves)
     summary_p["card_vs_host"] = card_vs_host(dev, data, args.host_rows,
@@ -2747,6 +3096,7 @@ def main(argv=None):
     log("== phase 3b: full-width training, one kernel per split (%s)" % card)
     bst_k, counts_k, summary_k = phase_one_kernel_train(
         dev, data, args.trees, args.leaves, summary_p, args.host_rows)
+    check_model_sha("one-kernel", summary_k, args, ONE_KERNEL_MODEL_SHA256)
 
     log("== phase 3c: full-width training, resident layout, one kernel "
         "per split (%s)" % card)
@@ -2815,6 +3165,7 @@ def main(argv=None):
 
     log("== phase 7: timings (%s)" % card)
     rows = phase_timings(bst_q, out, dev, errs, rows)
+    rows["route_rows"]["shapes"] = route_shapes
     launches = {"partition_segment": counts_p["partition_segment"],
                 "segment_histogram": counts_p["segment_histogram"],
                 "partition_segment_rows": counts_q["partition_segment_rows"],

@@ -1,67 +1,257 @@
-// Row router: all rounds of one tree's split log -> a leaf id per row, for
-// Hopper (sm_90a).
+// Row router: one tree's split log -> a leaf id per row, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/route.py:route_rows (pallas_call
 // "route_rows", body _route_kernel). Same contract: transposed bins
-// (F, Npad/128, 128) u8, a (R * TBL_W) i32 table with TBL_W = 10 columns per
+// (F, npad/128, 128) u8, a (R * TBL_W) i32 table with TBL_W = 10 columns per
 // round (col, leaf, bin, miss, dl, plain, off, dpos, nbm1, rest) and the
-// device scalar num_splits -> (Npad,) i32 leaf ids. Numerical splits with
-// the movable-missing override, and the EFB bundle arithmetic: a bundled
+// device scalar num_splits -> (npad,) i32 leaf ids, equal to applying
+// rounds 0 .. min(num_splits, R) - 1 in order (a row at leaf `leaf` that
+// goes right moves to leaf r + 1). Numerical splits with the
+// movable-missing override, and the EFB bundle arithmetic: a bundled
 // column's slot maps back to the sub-feature's bin (slots at or above the
 // shared default position shift up by one) and slots outside the
 // sub-feature's range follow the default bin's direction (rest).
 //
-// What bounds it on this card: bytes at large N only in principle -- the
-// input is one u8 per (feature, row) and the output one i32 per row, 2M x 28
-// rows moving ~64 MB (~20 us at 3.35 TB/s). Each row runs R rounds of a
-// shared-memory table read and a compare, so the kernel is bound by integer
-// issue rate, not by memory.
+// What bounds it on this card: bytes. It reads one u8 per (column, row)
+// and writes one i32 per row: 2M x 28 rows move ~64 MB, ~0.019 ms at
+// 3.35 TB/s. A row's own work is one table entry and one bin per level of
+// its path, ~depth steps.
 //
-// Design: one thread per row, 256 rows per block. The whole table
-// (254 x 10 x 4 B ~ 10 KB at 255 leaves) is staged into shared memory once
-// per block; every thread of a warp reads the same word (a broadcast). A
-// row reads a bin only on the rounds that split its current leaf, from the
-// transposed layout, so a warp's 32 reads of one column fall in one
-// 32-byte sector when the rows share a leaf. num_splits stays on the device
-// (no host sync between the tree builder and the router).
+// Design: a walk per row, not a loop over every round.
+//   prologue (once per block of a grid that strides tiles of rows): the
+//     table goes to shared memory as 32-byte entries, and each round gets
+//     its two child links: next_left[r], the first round r' > r that
+//     splits the same leaf (the left child keeps the leaf id), and
+//     next_right[r], the first round r' > r that splits leaf r + 1 (the
+//     right child's id). They come from the rounds' keys (leaf << 16 | r)
+//     sorted in shared memory (a bitonic sort, O(R log^2 R) over the
+//     block): a round's next_left is the next key if it has the same leaf;
+//     its next_right, and the first round that splits leaf 0 (where every
+//     row starts), are binary searches. Only rounds below ns =
+//     min(num_splits, R) are keyed, so padded rounds (the learner pads
+//     unused rounds with leaf 0) are never followed; a missing link ends
+//     the walk. A row then follows ~depth links instead of R rounds.
+//   tiles: a block stages a tile's F byte stripes (each plane's T bytes
+//     are contiguous and 16-byte aligned) with 16-byte cp.async, double
+//     buffered (the first tile's copy overlaps the prologue, the next
+//     tile's the walk), so each plane is read once and coalesced; rows
+//     that diverge in the tree then read shared memory, not up to 32
+//     sectors of 32 planes. A thread walks one row and writes its id (a
+//     warp writes 128 consecutive bytes); eight blocks share an SM, so
+//     their warps hide each other's chains of dependent loads.
+//   steps: a numerical round is one 16-byte entry {col, bin, miss', links}
+//     and about a dozen instructions: go left = (c <= bin) xor (c ==
+//     miss'), where miss' is the movable-missing bin only where its
+//     default direction differs from the threshold's (else -1, which no
+//     bin matches). A bundle round (col stored as ~col) reads a second
+//     entry {off, dpos, nbm1, rest} and maps the slot first. When the
+//     table and even the tiles of every plane exceed a block's shared
+//     memory, the walk reads the bins from device memory.
+// num_splits stays on the device (no host sync between the tree builder
+// and the router).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 256;
+constexpr int kThreads = 256;              // one row a thread: T = 256
 constexpr int kTblW = 10;
+constexpr int kStripePad = 16;
+constexpr int kEnd = 0xffff;               // no link: the walk ends
+constexpr unsigned kNoKey = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kRows)
-route_rows_kernel(const uint8_t* __restrict__ bins_t, int npad,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait(bool one_in_flight) {
+  if (one_in_flight) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// The first position of the n sorted keys whose key is >= x.
+__device__ __forceinline__ int lower_bound(const unsigned* key, int n,
+                                           unsigned x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
                   const int* __restrict__ table, int rounds,
                   const int* __restrict__ num_splits,
                   int* __restrict__ out) {
-  extern __shared__ int s_tbl[];
-  for (int i = threadIdx.x; i < rounds * kTblW; i += kRows) {
-    s_tbl[i] = table[i];
+  extern __shared__ __align__(16) uint8_t s_dyn[];
+  // per round: e = {col (~col for a bundle round), bin, miss', links},
+  // f = {off, dpos, nbm1, rest}; then the sort keys
+  int4* s_e = reinterpret_cast<int4*>(s_dyn);
+  int4* s_f = s_e + rounds;
+  unsigned* s_key = reinterpret_cast<unsigned*>(s_f + rounds);
+  int nkeys = 1;
+  while (nkeys < rounds) nkeys <<= 1;
+  uint8_t* s_bins =
+      s_dyn + (((size_t)rounds * 32 + (size_t)nkeys * 4 + 15) & ~(size_t)15);
+  constexpr int T = kThreads;
+  constexpr int stripe = T + kStripePad;
+  const int buf_bytes = F * stripe;
+  const int tiles = (npad + T - 1) / T;
+  // stage tile `tile` into buffer `b`; one commit group per thread
+  auto stage = [&](int tile, int b) {
+    const size_t row0 = (size_t)tile * T;
+    constexpr int nch = T / 16;          // npad: a multiple of 128 >= T / 2
+    const int items = F * min(nch, static_cast<int>((npad - row0) >> 4));
+    const int per = min(nch, static_cast<int>((npad - row0) >> 4));
+    uint8_t* to = s_bins + b * buf_bytes;
+    for (int k = threadIdx.x; k < items; k += kThreads) {
+      const int f = k / per, c = k - f * per;
+      cp_async16(to + f * stripe + 16 * c,
+                 bins_t + (size_t)f * npad + row0 + 16 * c);
+    }
+    cp_async_commit();
+  };
+  if (kStaged && (int)blockIdx.x < tiles) stage(blockIdx.x, 0);
+
+  // ---- prologue: entries, keys, links
+  const int ns = max(0, min(*num_splits, rounds));
+  for (int r = threadIdx.x; r < nkeys; r += kThreads) {
+    unsigned key = kNoKey;
+    if (r < ns) {
+      const int* t = table + (size_t)r * kTblW;
+      const int col = t[0], leaf = t[1], bin = t[2], miss = t[3];
+      const bool dl = t[4] != 0, plain = t[5] == 1;
+      // the missing bin overrides only where it changes the direction
+      const int missx = miss >= 0 && dl != (miss <= bin) ? miss : -1;
+      s_e[r] = make_int4(plain ? col : ~col, bin, missx, 0);
+      s_f[r] = make_int4(t[6], t[7], t[8], t[9] != 0);
+      // a leaf id past R never matches a row's leaf: such a round is
+      // never reached
+      if (leaf >= 0 && leaf <= rounds) {
+        key = static_cast<unsigned>(leaf) << 16 | static_cast<unsigned>(r);
+      }
+    }
+    s_key[r] = key;
   }
   __syncthreads();
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  if (row >= npad) return;
-  const int ns = min(*num_splits, rounds);
-  int state = 0;
-  for (int r = 0; r < ns; ++r) {
-    const int* e = s_tbl + r * kTblW;
-    if (state != e[1]) continue;
-    const int col = bins_t[(size_t)e[0] * npad + row];
-    const int tbin = e[2], miss = e[3], dl = e[4], plain = e[5];
-    const int off = e[6], dpos = e[7], nbm1 = e[8], rest = e[9];
-    const int rank = col - off;
-    const int fb = rank + (rank >= dpos ? 1 : 0);
-    const bool in_range = col >= off && col < off + nbm1;
-    const int eff = plain == 1 ? col : fb;
-    int go = eff <= tbin ? 1 : 0;
-    if (miss >= 0 && eff == miss) go = dl;
-    if (!(plain == 1 || in_range)) go = rest;
-    if (go == 0) state = r + 1;
+  for (int k = 2; k <= nkeys; k <<= 1) {        // bitonic sort, ascending
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < nkeys; i += kThreads) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const unsigned a = s_key[i], b = s_key[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            s_key[i] = b;
+            s_key[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
   }
-  out[row] = state;
+  for (int p = threadIdx.x; p < nkeys; p += kThreads) {
+    const unsigned key = s_key[p];
+    if (key == kNoKey) continue;
+    const int r = static_cast<int>(key & 0xffffu);
+    const unsigned nxt = p + 1 < nkeys ? s_key[p + 1] : kNoKey;
+    const int nl = nxt != kNoKey && (nxt >> 16) == (key >> 16)
+                       ? static_cast<int>(nxt & 0xffffu) : kEnd;
+    const unsigned right = static_cast<unsigned>(r + 1);
+    const int q = lower_bound(s_key, nkeys, right << 16 | right);
+    const unsigned kq = q < nkeys ? s_key[q] : kNoKey;
+    const int nr = kq != kNoKey && (kq >> 16) == right
+                       ? static_cast<int>(kq & 0xffffu) : kEnd;
+    s_e[r].w = static_cast<int>(static_cast<unsigned>(nl) |
+                                static_cast<unsigned>(nr) << 16);
+  }
+  const unsigned k0 = s_key[0];
+  const int first = ns > 0 && k0 != kNoKey && (k0 >> 16) == 0
+                        ? static_cast<int>(k0 & 0xffffu) : kEnd;
+  __syncthreads();
+
+  // ---- tiles: each thread walks its row from `first` along the links
+  int b = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * T;
+    if (kStaged) {
+      const bool more = tile + (int)gridDim.x < tiles;
+      if (more) stage(tile + gridDim.x, b ^ 1);
+      cp_async_wait(more);
+      __syncthreads();
+    }
+    const size_t row = row0 + threadIdx.x;
+    if (row < (size_t)npad) {
+      const uint8_t* base = kStaged ? s_bins + b * buf_bytes + threadIdx.x
+                                    : bins_t + row;
+      const size_t stride = kStaged ? stripe : npad;
+      int r = first, state = 0;
+      while (r < ns) {
+        const int4 e = s_e[r];
+        bool go;
+        if (e.x >= 0) {
+          const int c = base[e.x * stride];
+          go = (c <= e.y) != (c == e.z);
+        } else {                       // a bundle column's slot
+          const int4 f = s_f[r];
+          const int c = base[~e.x * stride];
+          const int rank = c - f.x;
+          const int eff = rank + (rank >= f.y ? 1 : 0);
+          go = rank >= 0 && rank < f.z ? (eff <= e.y) != (eff == e.z)
+                                       : f.w != 0;
+        }
+        const unsigned links = static_cast<unsigned>(e.w);
+        if (!go) state = r + 1;
+        r = static_cast<int>(go ? links & 0xffffu : links >> 16);
+      }
+      out[row] = state;
+    }
+    if (kStaged) {
+      __syncthreads();               // the buffer is free for a later tile
+      b ^= 1;
+    }
+  }
+}
+
+// Raise both variants' dynamic shared-memory limit to the most a block
+// may take, once per device.
+cudaError_t raise_smem() {
+  thread_local bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (raised[dev]) return cudaSuccess;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  const void* fns[] = {reinterpret_cast<const void*>(route_walk_kernel<true>),
+                       reinterpret_cast<const void*>(route_walk_kernel<false>)};
+  for (const void* fn : fns) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, fn);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+    if (e != cudaSuccess) return e;
+  }
+  raised[dev] = true;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -72,19 +262,29 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int route_rows(const void* bins_t, int npad, const void* table, int rounds,
-               const void* num_splits, void* out, void* stream) {
-  const int smem = rounds * kTblW * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        route_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+// staged, grid and the dynamic shared memory smem come from
+// ops/route.route_plan.
+int route_rows(const void* bins_t, int F, int npad, const void* table,
+               int rounds, const void* num_splits, int staged, int grid,
+               int smem, void* out, void* stream) {
+  if (F < 1 || npad % 128 || rounds < 0 || rounds >= kEnd || grid < 1 ||
+      smem < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = (npad + kRows - 1) / kRows;
-  route_rows_kernel<<<grid, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bins_t), npad,
-      static_cast<const int*>(table), rounds,
-      static_cast<const int*>(num_splits), static_cast<int*>(out));
+  cudaError_t e = raise_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const uint8_t* b = static_cast<const uint8_t*>(bins_t);
+  const int* t = static_cast<const int*>(table);
+  const int* ns = static_cast<const int*>(num_splits);
+  int* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged) {
+    route_walk_kernel<true><<<grid, kThreads, smem, s>>>(b, F, npad, t,
+                                                        rounds, ns, o);
+  } else {
+    route_walk_kernel<false><<<grid, kThreads, smem, s>>>(b, F, npad, t,
+                                                         rounds, ns, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

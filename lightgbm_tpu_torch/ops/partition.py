@@ -73,9 +73,23 @@ RST_GH_OFF = RST_ROUTE + RST_RIDX
 RST_WIDTH = RST_GH_OFF + GH_BYTES
 #: rows of padding below and above the rows (row i sits at GUARD + i)
 GUARD = 128
-#: rows per block of the planes partition kernel (its count and scatter
-#: tile)
+#: rows per tile of the one-kernel split's partition phase (its count and
+#: scatter tile, csrc/segment_partition.cuh)
 PART_TILE = 4096
+#: the planes partition (csrc/partition_segment.cu): the bytes a tile of
+#: all W planes aims at (its rows are 32 * steps, steps <= 32), the bytes
+#: past its rows of each plane's stripe in shared memory, the dynamic
+#: shared memory an SM's blocks may hold in tile slots (two blocks of 512
+#: threads and their static shared memory fit beside it), and the most
+#: blocks an SM runs
+PART_PLANES_TILE_BYTES = 32 * 1024
+PART_PLANES_STRIPE_PAD = 16
+PART_PLANES_SMEM_BYTES = 216 * 1024
+PART_PLANES_BLOCKS_PER_SM = 2
+#: the ring bytes an SM's blocks aim at when streaming (two reads): on
+#: the card ~100 KB of slots an SM streamed fastest at W = 40 (one block
+#: of three 32 KB slots) and at W = 17 (two blocks of three 17 KB slots)
+PART_PLANES_STREAM_BYTES = 112 * 1024
 #: the rows partition (csrc/partition_rows.cu): bytes of rows a tile aims
 #: at (its rows are 32 * steps, steps <= 32), the dynamic shared memory a
 #: block may hold in tile slots, the blocks per SM its streaming (two-read)
@@ -88,9 +102,9 @@ PART_ROWS_MAX_WIDTH = (PART_ROWS_SMEM_BYTES - 32) // 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PART_ARGS = [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P]
 PARTITION_KERNEL = register(CudaKernel(
-    "partition_segment", "partition_segment.cu", _PART_ARGS))
+    "partition_segment", "partition_segment.cu",
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
 PARTITION_ROWS_KERNEL = register(CudaKernel(
     "partition_segment_rows", "partition_rows.cu",
     [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]))
@@ -258,12 +272,93 @@ def partition_segment(work: torch.Tensor, seg: torch.Tensor,
     bin codes, ``cnt_bound`` a host int >= cnt. The
     destination plane is written in place; lanes outside the segment stay
     untouched. Returns ``lt``, the left count, as a (1,) i32 device tensor.
+    On the card: one cooperative launch sized by
+    :func:`partition_planes_plan`.
     """
     _check_partition_args("partition_segment", work, seg, table)
     if work.device.type == "cpu":
         return partition_segment_plain(work, seg, table)
-    return _launch_partition(PARTITION_KERNEL, work, seg, table, cnt_bound,
-                             rows=work.shape[2], width=work.shape[1])
+    check_on_card("partition_segment", work, seg, table)
+    plan = partition_planes_plan(int(cnt_bound), work.shape[1],
+                                 sm_count(work.device.index))
+    lt = torch.empty(1, dtype=torch.int32, device=work.device)
+    PARTITION_KERNEL.launch(
+        work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(),
+        table.data_ptr(), table.numel(), plan.steps, plan.group, plan.slots,
+        plan.grid,
+        block_scratch(work.device, stream_of(work), plan.grid).data_ptr(),
+        lt.data_ptr(), stream_of(work))
+    return lt
+
+
+class PartPlanesPlan(NamedTuple):
+    """The launch of one planes partition (csrc/partition_segment.cu)."""
+    steps: int        # 32-row steps per tile
+    tile_rows: int    # 32 * steps
+    stripe: int       # shared memory of one plane of a tile
+    group: int        # planes a slot holds (W unless the tile is too wide)
+    slot_bytes: int   # group * stripe
+    slots: int        # slots per block
+    grid: int         # blocks asked for (the card may run fewer at once)
+    resident: bool    # every tile stays staged across the grid barrier
+
+
+@functools.lru_cache(maxsize=4096)
+def partition_planes_plan(cnt_bound: int, width: int,
+                          sms: int) -> PartPlanesPlan:
+    """Size a planes partition of up to ``cnt_bound`` rows of ``width``
+    planes on a card of ``sms`` SMs. A tile is at most
+    PART_PLANES_TILE_BYTES of rows over all planes, and no more rows than
+    spread the segment over every SM (a deep leaf's few thousand rows take
+    as many blocks as a 2M-row root's). When the grid's shared memory
+    (PART_PLANES_SMEM_BYTES an SM) holds every tile with all its planes,
+    the plan is resident: each block keeps its ``slots`` tiles staged
+    across the grid barrier and the segment is read once;
+    PART_PLANES_BLOCKS_PER_SM blocks share an SM while their slots fit,
+    else one block takes it. Otherwise the kernel reads the split column
+    for the count and then the tiles, a group of planes at a time (every
+    plane unless a tile is too wide), through a ring of two or three
+    slots, on as many blocks per SM (at most PART_PLANES_BLOCKS_PER_SM)
+    as keep an SM's rings near PART_PLANES_STREAM_BYTES."""
+    if width < 1:
+        raise ValueError("partition_segment: %d planes" % width)
+    cnt_bound = max(1, int(cnt_bound))
+    most = max(1, min(32, PART_PLANES_TILE_BYTES // (32 * width)))
+    steps = max(1, min(most, -(-cnt_bound // (32 * sms))))
+    rows = 32 * steps
+    stripe = rows + PART_PLANES_STRIPE_PAD
+    per_sm = PART_PLANES_BLOCKS_PER_SM
+    group = min(width, PART_PLANES_SMEM_BYTES // (2 * per_sm) // stripe)
+    tiles = -(-cnt_bound // rows)
+    if group == width and tiles <= sms * (PART_PLANES_SMEM_BYTES
+                                          // (stripe * width)):
+        slot = stripe * width
+        slots = -(-tiles // (sms * per_sm))
+        if slots * slot > PART_PLANES_SMEM_BYTES // per_sm:
+            slots = -(-tiles // sms)
+        return PartPlanesPlan(steps, rows, stripe, width, slot, slots,
+                              -(-tiles // slots), True)
+    slot = stripe * group
+    slots = min(3, PART_PLANES_SMEM_BYTES // per_sm // slot)
+    blocks = max(1, min(per_sm, PART_PLANES_STREAM_BYTES // (slots * slot)))
+    return PartPlanesPlan(steps, rows, stripe, group, slot, slots,
+                          min(tiles, sms * blocks), False)
+
+
+#: per (device, stream): the cooperative partitions' per-block left counts
+#: (written and read inside one launch, so launches on one stream share it)
+_BLOCK_SCRATCH: dict = {}
+
+
+def block_scratch(device: torch.device, stream: int,
+                  n: int) -> torch.Tensor:
+    """At least ``n`` i32 of scratch on ``device``, kept per (device,
+    stream) and grown as needed."""
+    buf = _BLOCK_SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1024), dtype=torch.int32, device=device)
+        _BLOCK_SCRATCH[(device, stream)] = buf
+    return buf
 
 
 def _check_partition_args(name: str, work: torch.Tensor, seg: torch.Tensor,
@@ -290,21 +385,6 @@ def check_on_card(name: str, work: torch.Tensor, *tensors) -> None:
                              % (name, t.device, work.device))
     if not all(t.is_contiguous() for t in (work,) + tensors):
         raise ValueError("%s: inputs must be contiguous" % name)
-
-
-def _launch_partition(kernel: CudaKernel, work: torch.Tensor,
-                      seg: torch.Tensor, table: torch.Tensor, cnt_bound: int,
-                      *, rows: int, width: int) -> torch.Tensor:
-    """Launch a partition entry point on a CUDA ``work`` (``rows`` = its
-    Npad, ``width`` = W); raises on any other device."""
-    check_on_card(kernel.symbol, work, seg, table)
-    nblocks = max(1, -(-int(cnt_bound) // PART_TILE))
-    scratch = torch.empty(nblocks, dtype=torch.int32, device=work.device)
-    lt = torch.empty(1, dtype=torch.int32, device=work.device)
-    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(),
-                  table.data_ptr(), table.numel(), scratch.data_ptr(),
-                  lt.data_ptr(), nblocks, stream_of(work))
-    return lt
 
 
 def partition_segment_rows_plain(work: torch.Tensor, seg: torch.Tensor,
@@ -381,13 +461,12 @@ def partition_segment_rows(work: torch.Tensor, seg: torch.Tensor,
     check_on_card("partition_segment_rows", work, seg, table)
     plan = partition_rows_plan(cnt_bound, work.shape[2],
                                sm_count(work.device.index))
-    block_left = torch.empty(plan.grid, dtype=torch.int32,
-                             device=work.device)
     lt = torch.empty(1, dtype=torch.int32, device=work.device)
     PARTITION_ROWS_KERNEL.launch(
         work.data_ptr(), work.shape[2], work.shape[1], seg.data_ptr(),
         table.data_ptr(), table.numel(), plan.steps, plan.slots, plan.grid,
-        block_left.data_ptr(), lt.data_ptr(), stream_of(work))
+        block_scratch(work.device, stream_of(work), plan.grid).data_ptr(),
+        lt.data_ptr(), stream_of(work))
     return lt
 
 

@@ -3,10 +3,12 @@
 
 :func:`route_rows` applies every round of one tree to every row of the
 transposed bin matrix and returns each row's leaf id. On a CUDA tensor it
-launches the hand-written kernel ``csrc/route_rows.cu`` (one thread per
-row, the round table in shared memory); on a CPU tensor it runs
-:func:`route_rows_plain`, the same arithmetic as plain torch ops, which is
-also the reference the card's kernel is held to.
+launches the hand-written kernel ``csrc/route_rows.cu`` (a walk per row:
+the table and each round's child links in shared memory, the rows' bins
+staged a tile at a time, sized by :func:`route_plan`); on a CPU tensor it
+runs :func:`route_rows_plain`, the same arithmetic as plain torch ops,
+round by round, which is also the reference the card's kernel is held
+to.
 
 Scope, as in the JAX package: numerical splits, with or without EFB
 bundles. Categorical trees need a per-row (B,)-table lookup and stay on
@@ -15,11 +17,13 @@ the plain router in ``learner.assign_leaves``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from .kernels import CudaKernel, register, stream_of
+from .partition import sm_count
 
 # table layout: per round r the columns are
 #   0 col      matrix column to read (bundle group or feature)
@@ -36,14 +40,67 @@ TBL_W = 10
 #: rows are padded to a multiple of this (the kernel's layout unit; the
 #: TPU kernel's 16384-row grid block has no counterpart here)
 ROUTE_ROW_ALIGN = 128
-#: rounds whose table fits the shared memory one block may use
-ROUTE_MAX_ROUNDS = 232448 // (TBL_W * 4)
+#: shared memory a block of the kernel may take (the card's opt-in limit
+#: less a little static room)
+ROUTE_SMEM_BYTES = 232448 - 64
+
+
+def route_table_bytes(rounds: int) -> int:
+    """Shared memory of a ``rounds``-round table in the kernel: a 32-byte
+    entry per round (bins, flags, links) and a 4-byte sort key per round,
+    padded to a power of two, 16-byte aligned."""
+    keys = 1
+    while keys < rounds:
+        keys *= 2
+    return (32 * rounds + 4 * keys + 15) // 16 * 16
+
+
+#: rounds whose table fits a block's shared memory (the kernel then reads
+#: the bins from device memory)
+ROUTE_MAX_ROUNDS = max(r for r in range(1, 8193)
+                       if route_table_bytes(r) <= ROUTE_SMEM_BYTES)
+#: rows of a tile (one a thread of a 256-thread block), the bytes past a
+#: tile's rows in each column's stripe, and the blocks per SM the grid asks
+#: for (their warps hide each other's chains of dependent loads)
+ROUTE_TILE_ROWS = 256
+ROUTE_STRIPE_PAD = 16
+ROUTE_BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 ROUTE_KERNEL = register(CudaKernel(
     "route_rows", "route_rows.cu",
-    [_P, _I, _P, _I, _P, _P, _P]))
+    [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P]))
+
+
+class RoutePlan(NamedTuple):
+    """The launch of one router call (csrc/route_rows.cu)."""
+    staged: bool      # the tiles' bins are staged in shared memory
+    grid: int         # blocks; each strides over the tiles
+    smem: int         # dynamic shared memory of a block
+
+
+@functools.lru_cache(maxsize=1024)
+def route_plan(npad: int, num_cols: int, rounds: int,
+               sms: int) -> RoutePlan:
+    """Size a router call over ``npad`` rows (a multiple of
+    ROUTE_ROW_ALIGN) of ``num_cols`` columns with a ``rounds``-round table
+    on a card of ``sms`` SMs. A block holds the table
+    (:func:`route_table_bytes`) and stages ROUTE_TILE_ROWS-row tiles of
+    every column in two buffers (ROUTE_STRIPE_PAD bytes past each column's
+    rows) when they fit ROUTE_SMEM_BYTES beside it; else it reads the bins
+    from device memory. The grid strides over the tiles, at most
+    ROUTE_BLOCKS_PER_SM blocks per SM, so the table's prologue runs once
+    per block."""
+    if rounds > ROUTE_MAX_ROUNDS:
+        raise ValueError("route_rows: %d rounds exceed the %d a block's "
+                         "shared memory holds" % (rounds, ROUTE_MAX_ROUNDS))
+    ent = route_table_bytes(rounds)
+    staged = ent + 2 * num_cols * (ROUTE_TILE_ROWS + ROUTE_STRIPE_PAD)
+    grid = max(1, min(-(-npad // ROUTE_TILE_ROWS), sms * ROUTE_BLOCKS_PER_SM))
+    if staged <= ROUTE_SMEM_BYTES:
+        return RoutePlan(True, grid, staged)
+    return RoutePlan(False, grid, ent)
 
 
 def route_rows_plain(bins_t: torch.Tensor, table: torch.Tensor,
@@ -103,15 +160,15 @@ def route_rows(bins_t: torch.Tensor, table: torch.Tensor,
     if not (bins_t.is_contiguous() and table.is_contiguous()):
         raise ValueError("route_rows: inputs must be contiguous")
     rounds = table.numel() // TBL_W
-    if rounds > ROUTE_MAX_ROUNDS:
-        raise ValueError("route_rows: %d rounds exceed the %d a block's "
-                         "shared memory holds" % (rounds, ROUTE_MAX_ROUNDS))
     npad = bins_t.shape[1] * ROUTE_ROW_ALIGN
+    plan = route_plan(npad, bins_t.shape[0], rounds,
+                      sm_count(bins_t.device.index))
     out = torch.empty(npad, dtype=torch.int32, device=bins_t.device)
     if npad:
-        ROUTE_KERNEL.launch(bins_t.data_ptr(), npad, table.data_ptr(),
-                            rounds, num_splits.data_ptr(), out.data_ptr(),
-                            stream_of(bins_t))
+        ROUTE_KERNEL.launch(bins_t.data_ptr(), bins_t.shape[0], npad,
+                            table.data_ptr(), rounds, num_splits.data_ptr(),
+                            int(plan.staged), plan.grid, plan.smem,
+                            out.data_ptr(), stream_of(bins_t))
     return out
 
 

@@ -286,3 +286,38 @@ def test_int8_histogram_edges_on_card(card, F, nb):
     assert int(torch.count_nonzero(got)) == 0
     chip_smoke.check_histogram_q("q/after", work, [0, start + 1, 4099], nb,
                                  F, scale)
+
+
+def test_planes_partition_edges_on_card(card):
+    """K3 planes against its twin (whole pair and lt equal) at W = 17 and
+    40: the counts where its launch changes shape (the resident limits
+    included), all left, all right and alternating tables, buffer 1 as the
+    source; the router against its twin on the chain, leaf-0, padded,
+    bundled and 4000-round tables over 28, 136 and 3000 columns
+    (chip_smoke.phase_planes_route_kernels)."""
+    before = kernels.launch_counts()
+    errs = chip_smoke.phase_planes_route_kernels(card,
+                                                 np.random.RandomState(23))
+    assert max(errs.values()) == 0.0
+    after = kernels.launch_counts()
+    for name in ("partition_segment", "route_rows"):
+        assert after[name] > before[name], name
+
+
+def test_planes_partition_same_bytes_twice_on_card(card):
+    """One launch per split, the same bytes and lt call after call, with
+    a bound far above the count."""
+    rng = np.random.RandomState(29)
+    work = chip_smoke.planes_pair(rng, 40, partition.planes_npad(90_000),
+                                  card)
+    table = torch.as_tensor(rng.rand(64) < 0.5).to(card)
+    seg = torch.tensor([0, 128 + 7, 77777, 3], dtype=torch.int32,
+                       device=card)
+    a, b = work.clone(), work.clone()
+    n0 = kernels.launch_counts()["partition_segment"]
+    lt_a = partition.partition_segment(a, seg, table, 77777)
+    lt_b = partition.partition_segment(b, seg, table, 2_000_000)
+    assert kernels.launch_counts()["partition_segment"] == n0 + 2
+    assert int(lt_a) == int(lt_b) and torch.equal(a, b)
+    chip_smoke.check_partition("planes/twice", work, [0, 128 + 7, 77777, 3],
+                               table)

@@ -118,6 +118,34 @@ def test_route_rows_equals_jax(cases, name, monkeypatch):
     assert ROUTE_KERNEL.launches == before
 
 
+@pytest.mark.parametrize("name", ["nan_missing", "efb"])
+def test_route_walk_emulation_equals_jax(cases, name, monkeypatch):
+    """The card kernel's link walk, emulated in numpy
+    (test_torch_route_walk.route_walk_np), on the trained trees' tables:
+    leaf ids equal to the plain twin's and the JAX Pallas router's."""
+    from test_torch_route_walk import route_walk_np
+
+    bst, port = cases[name]
+    jds, jbins, jbundle = _jax_side(bst)
+    pds, pbins, pbundle = _port_side(port)
+    n, g = jds.binned.shape
+    npad = -(-n // ROUTE_BLOCK_ROWS) * ROUTE_BLOCK_ROWS
+    jbt = jnp.pad(jbins.T, ((0, 0), (0, npad - n))).reshape(g, -1, 128)
+    pbt = route_layout(pbins)
+    monkeypatch.setattr(lightgbm_tpu.ops.partition, "_INTERPRET", True)
+    for tree, ptree in zip(bst.inner.models, port.inner.models):
+        jlog = jax_bin_log(tree, jds)
+        plog = tree_to_bin_log(ptree, pds)
+        ptab = build_route_table(plog, pbundle)
+        ns = int(plog.num_splits[0])
+        got = route_walk_np(pbt.reshape(g, -1).numpy(), ptab.numpy(), ns)
+        want = route_rows_plain(pbt, ptab, plog.num_splits).numpy()
+        ref = np.asarray(jax_route_rows(jbt, jnp.asarray(ptab.numpy()),
+                                        jlog.num_splits, n))
+        assert np.array_equal(got, want)
+        assert np.array_equal(got[:n], ref[:n])
+
+
 def test_categorical_trees_use_plain_router(cases):
     bst, port = cases["categorical"]
     jds, jbins, _ = _jax_side(bst)

@@ -176,6 +176,28 @@ def test_resident_phases_small_on_cpu(trained):
     assert max(errs.values()) == 0.0
 
 
+def test_planes_and_router_phases_small_on_cpu(data, trained):
+    """K3 planes on PLANES_SEGMENTS of the planes model at W = 40 and 17,
+    the router on its four shapes, and both kernels' edge cases
+    (without the resident limits' large buffers), through the twins."""
+    import lightgbm_tpu_torch as lgt
+    _, bst, train, _, _ = trained
+    errs = {}
+    assert chip_smoke.full_width_planes(bst, CPU, errs, timed=False) == {}
+    valid = lgt.Dataset(data[2], label=data[3], reference=train)
+    assert chip_smoke.full_width_route(bst, valid.construct(), CPU, errs,
+                                       timed=False) == {}
+    assert set(errs) == {
+        "partition/full_width_%s_w%d" % (tag, w)
+        for tag in ("root", "mid", "deep") for w in (40, 17)} | {
+        "router/full_width_" + s
+        for s in ("train", "valid", "serve", "chain")}
+    errs = chip_smoke.phase_planes_route_kernels(
+        CPU, np.random.RandomState(2), full=False)
+    assert len(errs) == 2 * (6 + 4 * 2) + 3 * 7
+    assert max(errs.values()) == 0.0
+
+
 def test_serve_phase_small_on_cpu(quantized):
     bst, train, _, _ = quantized
     assert bst.inner.train_set.num_total_features \
