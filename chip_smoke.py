@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
     python3 chip_smoke.py --planes-route-only   # phase 3 and B1/B3 timings
+    python3 chip_smoke.py --forest-only   # phase 4's model and B8 timings
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 the checkout it sits in. Nine phases, each fatal on failure:
@@ -54,8 +55,15 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 router's (a 254-round chain, a tree that always splits leaf
                 0, padded rounds, num_splits 0 and past the table, bundle
                 columns with out-of-range slots, a 4000-round tree; 28, 136
-                and 3000 columns): phase_planes_route_kernels. Again at 2M
-                rows after phases 3, 3c and 4,
+                and 3000 columns): phase_planes_route_kernels. The forest
+                kernel's edges (FOREST_EDGE_CASES: a 254-round chain, trees
+                that always split slot 0, padded rounds, num_splits 0 and
+                past R, padded trees, movable-missing bins, categorical, 3
+                classes, linear + NaN, 1000 features with and without
+                categorical rounds, whose bins are read from device
+                memory; at 1, 255, 257 and 4097 rows; one class bit-equal
+                to the twin): phase_forest_kernels. Again at 2M rows after
+                phases 3, 3c and 4,
                 on their data and first root splits (3c also on a deep
                 leaf). Leaf ids must be equal, scores within SCORE_ATOL +
                 SCORE_RTOL * |b|.
@@ -124,7 +132,13 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 and ``predict_binned`` over 2,000,000 binned rows, counts
                 zeroed just before and read just after (forest and router
                 must have run); every answer against the plain path and, on
-                a small input, the host tree walk.
+                a small input, the host tree walk. The forest kernel
+                bit-equal to its twin at FOREST_SHAPES (the 256, 4096 and
+                65,536-row rungs, and a 40-tree chain forest of 254 rounds
+                over the top rung), timed there by device time and the host
+                clock, and the median PredictSession.predict latency per
+                request size, before the serving entry points run and after
+                their checks (alone: ``--forest-only``).
 7. timings   -- each kernel's ms (CUDA events), its plain twin's ms, one
                 library call's ms where torch has one, and its bound at the
                 main path's shapes, beside the card's name and power limit;
@@ -416,7 +430,8 @@ def phase_kernels(dev, seed):
     from lightgbm_tpu_torch.learner import route_layout
     from lightgbm_tpu_torch.ops.forest import (forest_pack,
                                                forest_predict_impl,
-                                               forest_predict_plain)
+                                               forest_predict_plain,
+                                               forest_walk)
     from lightgbm_tpu_torch.ops.predict import tree_to_bin_log
     from lightgbm_tpu_torch.ops.route import (build_route_table, route_rows,
                                               route_rows_plain)
@@ -455,10 +470,11 @@ def phase_kernels(dev, seed):
         bins = torch.from_numpy(b).to(dev)
         xd = torch.from_numpy(xr).to(dev)
         kw = dict(num_class=K, has_cat=has_cat, has_linear=has_lin)
-        got = forest_predict_impl(bins, xd, fp, **kw)
+        got = forest_predict_impl(bins, xd, fp, walk=forest_walk(fp), **kw)
         want = forest_predict_plain(bins, xd, fp, **kw)
         sync(dev)
-        errs["forest/" + name] = check_scores(
+        check = check_scores if K > 1 or has_lin else check_bits
+        errs["forest/" + name] = check(
             "forest/" + name, got.cpu().numpy(), want.cpu().numpy())
 
     # router without bundles (dense) and with EFB bundle columns
@@ -1544,6 +1560,328 @@ def full_width_route(bst, valid, dev, errs, timed=True):
             "%.4f), bound %.5f ms (bytes); %d distinct leaves"
             % (tag, rows, bt.shape[0], tb.numel() // 10, v["ms"],
                v["device_ms"], v["bound_ms"], int(got[:rows].unique().numel())))
+    return out
+
+
+#: B8's shapes (full_width_forest): the serving rungs that requests of 1
+#: or 256 rows (both one 256-row dispatch), 4096 and 65,536 rows
+#: dispatch, with the serving model; and a chain forest over the top rung
+FOREST_SHAPES = (("rung256", 256), ("rung4096", 4096),
+                 ("rung65536", 65536), ("chain", 65536))
+
+
+#: synthetic packs that stress the forest kernel's walk (forest_edge_pack),
+#: and the row counts each is checked at (one pass, a pass's edges, a
+#: ragged last pass of a multi-chunk launch); the WIDE ones have too many
+#: features for a pass's bins to fit beside the tables, so their walks
+#: read the bins from device memory (the plan's unstaged kernels)
+FOREST_WIDE_CASES = ("wide", "wide_categorical")
+FOREST_EDGE_CASES = ("chain254", "leaf_zero", "padded_rounds", "no_splits",
+                     "past_rounds", "padded_trees", "nan_missing",
+                     "categorical", "multiclass3", "linear_nan") \
+    + FOREST_WIDE_CASES
+#: features of a WIDE case's rows
+FOREST_WIDE_F = 1000
+FOREST_EDGE_ROWS = (1, 255, 257, 4097)
+
+
+def forest_edge_pack(name, rng, n, dev, F=7, nb=48):
+    """A seeded ForestPack that stresses one edge of the forest walk, with
+    (n, F) i32 bins in [0, nb) (and raw rows for linear leaves). Returns
+    (pack, bins, X or None, forest_predict kwargs). Cases: a 254-round
+    chain (round r splits slot r; rows go right but at every 32nd round);
+    trees that always split slot 0; padded rounds (num_splits below R,
+    the rest slot 0 with junk); num_splits 0 (half the trees) and past R;
+    11 trees padded to 16 with num_splits 0, as forest_pack pads; movable
+    missing bins (15% of bins are the missing bin); categorical rounds;
+    3 classes; linear leaves with NaN raw values; FOREST_WIDE_F features
+    at 254 rounds, without and with categorical rounds. The 3 classes
+    have 40 trees: two spans of groups, the last one short."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.forest import ForestPack
+
+    T, R, K, Km, Kc = 16, 62, 1, 1, 1
+    if name in ("chain254", "padded_rounds") + FOREST_WIDE_CASES:
+        R = 254
+    if name in FOREST_WIDE_CASES:
+        F = FOREST_WIDE_F
+    if name in ("chain254", "leaf_zero", "no_splits", "past_rounds"):
+        T = 8
+    if name == "multiclass3":
+        T, K = 40, 3
+    if name == "linear_nan":
+        Km = 3
+    slot = np.array([[rng.randint(0, r + 1) for r in range(R)]
+                     for _ in range(T)], np.int32)
+    feature = rng.randint(0, F, (T, R)).astype(np.int32)
+    tbin = rng.randint(0, nb, (T, R)).astype(np.int32)
+    kind = np.zeros((T, R), np.int32)
+    default_left = (rng.rand(T, R) < 0.5).astype(np.int32)
+    miss_bin = np.zeros((T, R), np.int32)
+    movable = np.zeros((T, R), np.int32)
+    ns = np.full(T, R, np.int32)
+    cat_bins = np.full((T, R, Kc), -2, np.int32)
+    bins = rng.randint(0, nb, (n, F)).astype(np.int32)
+    if name == "chain254":
+        slot[:] = np.arange(R)
+        tbin[:] = np.where(np.arange(R) % 32 == 31,
+                           rng.randint(0, 4, (T, R)), -1)
+    elif name == "leaf_zero":
+        slot[:] = 0
+        tbin[:] = rng.randint(nb // 2, nb, (T, R))
+    elif name == "padded_rounds":
+        ns[:] = rng.randint(1, R, T)
+        pad = np.arange(R)[None, :] >= ns[:, None]
+        slot[pad], feature[pad], tbin[pad] = 0, 1, 255
+    elif name == "no_splits":
+        ns[::2] = 0
+    elif name == "past_rounds":
+        ns[:] = 1000
+    elif name == "padded_trees":
+        ns[11:] = 0
+    elif name == "nan_missing":
+        movable[:] = rng.rand(T, R) < 0.4
+        miss_bin[:] = np.where(rng.rand(T, R) < 0.7, nb - 1,
+                               rng.randint(0, nb, (T, R)))
+        bins[rng.rand(n, F) < 0.15] = nb - 1
+    elif name in ("categorical", "wide_categorical"):
+        Kc = 6
+        kind[:] = rng.rand(T, R) < 0.3
+        cat_bins = np.full((T, R, Kc), -2, np.int32)
+        for t, r in zip(*np.nonzero(kind)):
+            k = rng.randint(0, Kc + 1)
+            cat_bins[t, r, :k] = rng.choice(nb, k, replace=False)
+    L = R + 1
+    value = rng.normal(0.0, 0.05, (T, L)).astype(np.float32)
+    if name == "padded_trees":
+        value[11:] = 0.0
+    const = np.zeros((T, L), np.float32)
+    coeff = np.zeros((T, L, Km), np.float32)
+    coeff_feat = np.zeros((T, L, Km), np.int32)
+    coeff_mask = np.zeros((T, L, Km), np.float32)
+    X = None
+    if name == "linear_nan":
+        const[:] = rng.normal(0.0, 0.05, (T, L))
+        coeff[:] = rng.normal(0.0, 0.05, (T, L, Km))
+        coeff_feat[:] = rng.randint(0, F, (T, L, Km))
+        coeff_mask[:] = rng.rand(T, L, Km) < 0.7
+        Xn = rng.normal(0.0, 1.0, (n, F)).astype(np.float32)
+        Xn[rng.rand(n, F) < 0.15] = np.nan
+        X = torch.from_numpy(Xn).to(dev)
+
+    def dev_t(a, tr=True):
+        a = np.ascontiguousarray(np.swapaxes(a, 0, 1) if tr else a)
+        return torch.from_numpy(a).to(dev)
+
+    fp = ForestPack(
+        slot=dev_t(slot), feature=dev_t(feature), tbin=dev_t(tbin),
+        kind=dev_t(kind), default_left=dev_t(default_left),
+        miss_bin=dev_t(miss_bin), movable=dev_t(movable),
+        num_splits=dev_t(ns, False), value_of_slot=dev_t(value, False),
+        tree_class=dev_t(np.arange(T, dtype=np.int32) % K, False),
+        cat_bins=dev_t(cat_bins), const_of_slot=dev_t(const, False),
+        coeff=dev_t(coeff, False), coeff_feat=dev_t(coeff_feat, False),
+        coeff_mask=dev_t(coeff_mask, False))
+    kw = dict(num_class=K, has_cat=name.endswith("categorical"),
+              has_linear=name == "linear_nan")
+    return fp, torch.from_numpy(bins).to(dev), X, kw
+
+
+def phase_forest_kernels(dev, rng):
+    """The forest kernel against its twin on every FOREST_EDGE_CASES pack
+    at FOREST_EDGE_ROWS rows (each launch with the pack's forest_walk):
+    bit-equal for one class without linear leaves, else within
+    SCORE_ATOL + SCORE_RTOL * |b|. The WIDE packs' plans must read the
+    bins from device memory, and only theirs."""
+    from lightgbm_tpu_torch.ops.forest import (forest_plan,
+                                               forest_predict_impl,
+                                               forest_predict_plain,
+                                               forest_walk)
+    errs = {}
+    for name in FOREST_EDGE_CASES:
+        fp, bins, X, kw = forest_edge_pack(name, rng, max(FOREST_EDGE_ROWS),
+                                           dev)
+        walk = forest_walk(fp)
+        exact = kw["num_class"] == 1 and not kw["has_linear"]
+        R, T = fp.slot.shape
+        # staging depends on rounds and features only, not on the SMs
+        staged = forest_plan(1, T, R, 1, bins.shape[1],
+                             kw["num_class"]).staged
+        if staged == (name in FOREST_WIDE_CASES):
+            raise AssertionError("forest_edge/%s: plan staged=%s"
+                                 % (name, staged))
+        for n in FOREST_EDGE_ROWS:
+            xn = X[:n] if X is not None else None
+            got = forest_predict_impl(bins[:n], xn, fp, walk=walk, **kw)
+            want = forest_predict_plain(bins[:n], xn, fp, **kw)
+            sync(dev)
+            key = "forest_edge/%s/%d" % (name, n)
+            errs[key] = (check_bits if exact else check_scores)(
+                key, got.cpu().numpy(), want.cpu().numpy())
+    return errs
+
+
+def check_bits(name, got, want):
+    """max |got - want|; raises unless the two f32 arrays are equal bit
+    for bit (the kernel sums in its twin's order)."""
+    import numpy as np
+    got = np.ascontiguousarray(got, np.float32)
+    want = np.ascontiguousarray(want, np.float32)
+    err = check_scores(name, got, want)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("%s: %d/%d values differ in their bits "
+                             "(max |diff| %.3g)"
+                             % (name, int((got.view(np.int32)
+                                           != want.view(np.int32)).sum()),
+                                got.size, err))
+    return err
+
+
+def chain_trees(ds, rng, num_trees, rounds):
+    """``num_trees`` chain trees of ``rounds`` rounds over the features of
+    ``ds``: round r splits leaf r (the newest right child) at bin 0 of a
+    feature with at least 64 bins, so a row goes left, and stops, only
+    where its bin is 0 (~1 row in 255): most rows walk most of the rounds,
+    the forest walk's worst case."""
+    import numpy as np
+    from lightgbm_tpu_torch.tree import Tree
+
+    wide = [j for j in range(ds.num_features)
+            if ds.bin_mappers[j].num_bins >= 64]
+    trees = []
+    for _ in range(num_trees):
+        ones = np.ones((rounds, 3))
+        trees.append(Tree.from_split_log(
+            rounds, np.arange(rounds),
+            np.array([wide[r % len(wide)] for r in range(rounds)]),
+            np.zeros(rounds, np.int64), rng.rand(rounds) < 0.5,
+            np.ones(rounds), ones, ones,
+            rng.normal(0.0, 0.05, rounds + 1),
+            bin_mappers=ds.bin_mappers,
+            real_feature_index=ds.used_feature_indices))
+    return trees
+
+
+def forest_walk_steps(trees, pack, bins, has_cat):
+    """Links a walk along child links follows for the (n, F) i32 ``bins``
+    through ``trees`` (packed as ``pack``): the depth of each row's leaf
+    (its slot from forest_slots_plain), summed over rows and trees."""
+    import torch
+    from lightgbm_tpu_torch.ops.forest import forest_slots_plain
+
+    slots = forest_slots_plain(bins, pack, has_cat).long()
+    steps = 0
+    for t, tree in enumerate(trees):
+        leaf_of_slot = tree.to_split_arrays()["leaf_of_slot"]
+        depth = torch.as_tensor(tree.leaf_depths()[leaf_of_slot])
+        steps += int(depth.to(bins.device)[slots[t]].sum())
+    return steps
+
+
+def forest_bound_bytes(pack, walk, bins, num_class=1, has_cat=False,
+                       has_linear=False):
+    """Bytes one forest call must move: the (n, F) i32 bins (and raw rows
+    for linear leaves) read once, the tables the kernel reads for this
+    pack (its 16-byte walk entries, first rounds, leaf values and tree
+    classes; the categorical bins only with categorical rounds, the
+    linear tables only with linear leaves) read once, and the (n, K) f32
+    scores written once."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    b = nbytes(bins, walk.nodes, walk.first, pack.value_of_slot,
+               pack.tree_class) + bins.shape[0] * max(1, num_class) * 4
+    if has_cat:
+        b += nbytes(pack.cat_bins)
+    if has_linear:
+        b += nbytes(bins, pack.const_of_slot, pack.coeff, pack.coeff_feat,
+                    pack.coeff_mask)
+    return b
+
+
+def full_width_forest(bst, reqs, dev, errs, timed=True, seed=0):
+    """The forest kernel against its twin (bit-equal: K = 1) at
+    FOREST_SHAPES, with the serving model ``bst`` (its cached forest
+    entry, as PredictSession dispatches it) on the bins of ``reqs`` (rows
+    -> raw requests), and with a chain forest of as many trees and rounds
+    (chain_trees) over the top rung. Then, when ``timed`` (on the card),
+    each by the host clock (cuda_ms) and by device time (device_ms),
+    beside its bound: the bytes of forest_bound_bytes over 3.35 TB/s, or
+    two operations a walk step and one a tree over 67 TFLOP/s, whichever
+    is larger. Returns {shape: {rows, steps, ms, device_ms, bound_ms,
+    bound_by}}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.forest import (forest_pack,
+                                               forest_predict_impl,
+                                               forest_predict_plain,
+                                               forest_walk)
+
+    g = bst.inner
+    ds = g.train_set
+    fp, has_cat, has_lin, walk = g._forest_model(0, len(g.models))
+    rounds = fp.slot.shape[0]
+    chain = chain_trees(ds, np.random.RandomState(seed + 13),
+                        len(g.models), rounds)
+    cfp = forest_pack(chain, ds, device=dev)[0]
+    forests = {"serve": (fp, walk, g.models, has_cat),
+               "chain": (cfp, forest_walk(cfp), chain, False)}
+    out = {}
+    for tag, rows in FOREST_SHAPES:
+        pack, pw, trees, cat = forests["chain" if tag == "chain"
+                                       else "serve"]
+        b, _ = bin_rows(ds, reqs[rows])
+        bins = torch.from_numpy(b).to(dev)
+        got = forest_predict_impl(bins, None, pack, walk=pw, has_cat=cat)
+        want = forest_predict_plain(bins, None, pack, has_cat=cat)
+        sync(dev)
+        errs["forest/full_width_" + tag] = check_bits(
+            "forest/full_width_" + tag, got.cpu().numpy(),
+            want.cpu().numpy())
+        steps = forest_walk_steps(trees, pack, bins, cat)
+        v = dict(rows=rows, trees=len(trees), steps=steps,
+                 bytes=forest_bound_bytes(pack, pw, bins, has_cat=cat),
+                 ops=2 * steps + len(trees) * rows)
+        if timed:
+            def fn():
+                return forest_predict_impl(bins, None, pack, walk=pw,
+                                           has_cat=cat)
+            t_bytes = v["bytes"] / PEAK_BYTES_PER_S * 1e3
+            t_ops = v["ops"] / PEAK_SCALAR_OPS_PER_S * 1e3
+            v.update(ms=cuda_ms(fn), device_ms=device_ms(fn),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log("forest %s: %d rows x %d trees, %d rounds, %d walk steps: "
+                "%.4f ms (device %.4f), bound %.5f ms (%s)"
+                % (tag, rows, len(trees), rounds, steps, v["ms"],
+                   v["device_ms"], v["bound_ms"], v["bound_by"]))
+        out[tag] = v
+    return out
+
+
+def serve_latency(bst, reqs, reps=5):
+    """Median host-clock ms of ``PredictSession.predict`` per request of
+    ``reqs`` (rows -> raw rows), after one warm call each: host binning,
+    the copies, one forest launch per dispatch and the transform."""
+    import statistics
+    from lightgbm_tpu_torch.serve import PredictSession
+
+    sess = PredictSession(bst)
+    log("serve latency: %d threads alive (%s)"
+        % (threading.active_count(),
+           ", ".join(sorted(t.name for t in threading.enumerate()))))
+    out = {}
+    for n, X in sorted(reqs.items()):
+        sess.predict(X)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            sess.predict(X)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[n] = statistics.median(times)
+        log("serve latency %d rows: median %.3f ms of %d (%s)"
+            % (n, out[n], reps, ", ".join("%.3f" % t for t in times)))
     return out
 
 
@@ -2872,49 +3210,33 @@ def check_serve(bst, out):
     return errs
 
 
-def phase_timings(bst, out, dev, errs, rows):
+def phase_timings(bst, out, dev, errs, rows, forest_shapes):
     """Kernel vs plain ms and bound at the main path's shapes, added to
-    ``rows`` (which may already hold the training kernels' rows)."""
-    import numpy as np
+    ``rows`` (which may already hold the training kernels' rows); the
+    forest kernel's from ``forest_shapes`` (full_width_forest)."""
     import torch
-    from lightgbm_tpu_torch.learner import assign_leaves, route_layout
-    from lightgbm_tpu_torch.ops.forest import (forest_predict_impl,
-                                               forest_predict_plain,
-                                               forest_table_bytes)
+    from lightgbm_tpu_torch.ops.forest import forest_predict_plain
     from lightgbm_tpu_torch.ops.predict import tree_to_bin_log
     from lightgbm_tpu_torch.ops.route import (build_route_table, route_rows,
                                               route_rows_plain)
 
     g = bst.inner
-    fp, has_cat, has_lin = g._forest_model(0, len(g.models))
-    ds = g.train_set
-    # forest at the top rung: one 65536-row dispatch
-    X = out["reqs"][65536]
-    b, _ = bin_rows(ds, X)
+    fp, has_cat, _, _ = g._forest_model(0, len(g.models))
+    # forest at the top rung (one 65536-row dispatch), as full_width_forest
+    # timed it; its plain twin here
+    top = forest_shapes["rung65536"]
+    b, _ = bin_rows(g.train_set, out["reqs"][65536])
     bins = torch.from_numpy(b).to(dev)
-    kw = dict(num_class=1, has_cat=has_cat, has_linear=has_lin)
-    f_ms = cuda_ms(lambda: forest_predict_impl(bins, None, fp, **kw))
-    p_ms = cuda_ms(lambda: forest_predict_plain(bins, None, fp, **kw),
+    p_ms = cuda_ms(lambda: forest_predict_plain(bins, None, fp,
+                                                has_cat=has_cat),
                    iters=3, warmup=1)
-    # work the walk needs on these rows: one bin compare per split on
-    # each row's root-to-leaf path, one add per tree
-    bins_u8 = torch.from_numpy(b.astype(np.uint8)).to(dev)
-    bt = route_layout(bins_u8)
-    steps = 0
-    for t in g.models:
-        lg = tree_to_bin_log(t, ds, dev)
-        slot = assign_leaves(bins_u8, lg, has_categorical=False, bins_t=bt)
-        leaf_of_slot = t.to_split_arrays()["leaf_of_slot"]
-        depth = torch.as_tensor(t.leaf_depths()[leaf_of_slot]).to(dev)
-        steps += int(depth[slot.long()].sum())
-    f_ops = 2 * steps + len(g.models) * X.shape[0]
-    f_bytes = bins.numel() * 4 + forest_table_bytes(fp) + X.shape[0] * 4
     rows["forest_predict"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/forest_predict.cu",
         replaces="lightgbm_tpu/ops/forest.py:268",
         max_abs_err=max(v for k, v in errs.items()
-                        if k.startswith("forest/")),
-        ms=f_ms, plain_ms=p_ms, bytes=f_bytes, ops=f_ops)
+                        if k.startswith("forest")),
+        ms=top["ms"], device_ms=top["device_ms"], plain_ms=p_ms,
+        bytes=top["bytes"], ops=top["ops"], shapes=forest_shapes)
     # router at the binned shape: one tree over the 2M-row matrix
     bd = out["binned_ds"]
     dbins = g._valid_bins(bd)
@@ -2971,6 +3293,11 @@ def main(argv=None):
                     "and print only its model's sha256, the in-run ms of "
                     "K3 planes and the router, full_width_planes and "
                     "full_width_route")
+    ap.add_argument("--forest-only", action="store_true",
+                    help="build, train the serving model (phase 4) and "
+                    "print only the forest kernel against its twin and "
+                    "its timings (full_width_forest) and the median "
+                    "PredictSession.predict latency at REQUEST_ROWS")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -3053,6 +3380,27 @@ def main(argv=None):
         log(card)
         return 0
 
+    if args.forest_only:
+        import numpy as np
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
+        bst, counts, summary = phase_train(dev, ds, args.trees, args.leaves,
+                                           QUANT_PARAMS)
+        check_quantized_model(bst, counts, summary, args)
+        errs = phase_forest_kernels(dev,
+                                    np.random.RandomState(args.seed + 17))
+        rng = np.random.RandomState(args.seed + 7)     # phase 6's requests
+        reqs = {n: higgs_like(rng, n) for n in REQUEST_ROWS}
+        shapes = full_width_forest(bst, reqs, dev, errs, seed=args.seed)
+        latency = serve_latency(bst, reqs)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        print(json.dumps({"forest_predict": shapes,
+                          "serve_latency_ms": latency,
+                          "model_sha256": summary["model_sha256"]}))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -3070,6 +3418,8 @@ def main(argv=None):
                                        np.random.RandomState(args.seed + 5)))
     errs.update(phase_planes_route_kernels(
         dev, np.random.RandomState(args.seed + 11)))
+    errs.update(phase_forest_kernels(dev,
+                                     np.random.RandomState(args.seed + 17)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -3146,6 +3496,11 @@ def main(argv=None):
     log("model: %d trees x %d leaves, %d features, device %s"
         % (len(g.models), args.leaves, g.train_set.num_total_features,
            g.device))
+    # the request latency before the batcher, the server and the checks
+    # run (serve_latency again below, after them)
+    early_rng = np.random.RandomState(args.seed + 19)
+    early = serve_latency(bst_q, {n: higgs_like(early_rng, n)
+                                  for n in REQUEST_ROWS})
     out, serve_counts = phase_serve(bst_q, quant_ds[0], rng,
                                     args.binned_rows)
     for name in ("forest_predict", "route_rows"):
@@ -3154,18 +3509,18 @@ def main(argv=None):
     serve_errs = check_serve(bst_q, out)
     for name, e in serve_errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
-    fp, has_cat, has_lin = g._forest_model(0, len(g.models))
-    b, _ = bin_rows(g.train_set, out["reqs"][65536])
-    bins = torch.from_numpy(b).to(dev)
-    errs["forest/full_width"] = check_scores(
-        "forest/full_width",
-        forest.forest_predict_impl(bins, None, fp).cpu().numpy(),
-        forest.forest_predict_plain(bins, None, fp).cpu().numpy())
-    log("check forest/full_width: max |diff| %.3g" % errs["forest/full_width"])
+    forest_shapes = full_width_forest(bst_q, out["reqs"], dev, errs,
+                                      seed=args.seed)
+    for tag, _ in FOREST_SHAPES:
+        log("check forest/full_width_%s: max |diff| %.3g"
+            % (tag, errs["forest/full_width_" + tag]))
+    latency = serve_latency(bst_q, out["reqs"])
 
     log("== phase 7: timings (%s)" % card)
-    rows = phase_timings(bst_q, out, dev, errs, rows)
+    rows = phase_timings(bst_q, out, dev, errs, rows, forest_shapes)
     rows["route_rows"]["shapes"] = route_shapes
+    rows["forest_predict"]["serve_latency_ms"] = latency
+    rows["forest_predict"]["serve_latency_ms_before_serving"] = early
     launches = {"partition_segment": counts_p["partition_segment"],
                 "segment_histogram": counts_p["segment_histogram"],
                 "partition_segment_rows": counts_q["partition_segment_rows"],

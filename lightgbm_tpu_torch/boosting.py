@@ -488,13 +488,15 @@ class GBDT:
         return "on"
 
     def _forest_model(self, start: int, end: int):
-        """Device BIN-space ``ForestPack`` for [start, end), or ``None``
-        when the forest path is structurally ineligible (no constructed
-        train_set to supply bin mappers, splits on unmapped features,
-        tables over the budget). Cached behind the model-version token
-        like ``_packed_model``, ineligibility included."""
+        """Device BIN-space ``(ForestPack, has_cat, has_linear,
+        ForestWalk)`` for [start, end) (the walk tables derived once per
+        pack, beside it), or ``None`` when the forest path is structurally
+        ineligible (no constructed train_set to supply bin mappers, splits
+        on unmapped features, tables over the budget). Cached behind the
+        model-version token like ``_packed_model``, ineligibility
+        included."""
         from .ops.forest import (FOREST_VMEM_BUDGET, forest_pack,
-                                 forest_table_bytes)
+                                 forest_table_bytes, forest_walk)
 
         with self._cache_lock:
             key = (start, end, self._model_version)
@@ -521,7 +523,8 @@ class GBDT:
                         why = ("node tables %d B exceed the %d B budget"
                                % (tbytes, FOREST_VMEM_BUDGET))
                     else:
-                        entry = (fp, has_cat, has_linear)
+                        entry = (fp, has_cat, has_linear,
+                                 forest_walk(fp))
                 except ValueError as exc:
                     why = str(exc)
             if entry is None:

@@ -10,158 +10,333 @@
 // rule (a NaN in any used feature falls back to the plain leaf value).
 //
 // What bounds it on this card: not bytes. The inputs are N*F*4 bytes of
-// bins read once and N*K*4 bytes written; the node tables (~0.75 MB at 100
-// trees x 255 leaves) stay in L2. The work is the routing front: every row
-// runs R rounds per tree (a compare against the split's slot each round,
-// and a bin read + threshold test on the ~depth rounds that move it), so
-// the kernel is bound by integer issue rate and shared-memory latency.
+// bins read once and N*K*4 bytes written (65,536 rows x 28 features: ~7.6
+// MB, ~0.0024 ms at 3.35 TB/s). The work is the routing: each (row, tree)
+// pair follows the ~depth splits on its root-to-leaf path, a chain of
+// dependent shared-memory reads, so the kernel is bound by latency and
+// integer issue, and on small batches by how many SMs it occupies.
 //
-// Design: one thread per row, 128 rows per block. The TPU kernel's one-hot
-// MXU gather has no reason to exist here -- a thread reads bins[row, f]
-// directly (the row's 4F bytes stay in L1 after the first touch). Trees are
-// walked in groups of TB = 8 (the oracle's tree_batch): the group's node
-// tables are staged into shared memory with coalesced reads along T (the
-// (R, T) layout puts a group's 8 trees of one round in one 32-byte sector),
-// so each routing round reads a broadcast shared-memory word instead of a
-// strided global one. A row's leaf values are summed per group in the
-// oracle's association ((v0+v4)+(v2+v6))+((v1+v5)+(v3+v7)) and the group
-// partials in tree order, with no atomics: results repeat run to run.
+// Design: a walk per (row, tree) along child links, lanes over trees.
+//   walk tables (ops/forest.forest_walk, derived once per pack and kept
+//     beside it): per round and tree a 16-byte entry {feature |
+//     categorical << 31, tbin, miss, next_left | next_right << 16}, where
+//     miss is the movable-missing bin only if its default direction
+//     differs from the threshold's (else INT_MIN, which no bin equals), so
+//     a numerical step is go = (b <= tbin) != (b == miss). next_left[r] is the
+//     first later round that splits the same slot (a row that goes left
+//     keeps its slot), next_right[r] the first later round that splits
+//     slot r + 1; only rounds below min(num_splits, R) are linked, so
+//     padded rounds are never followed, and 0xffff ends the walk. A walk
+//     starts at the tree's first round that splits slot 0 (0xffff for a
+//     tree without splits: its rows stay at slot 0) and ends at slot[r] if
+//     the row went left at its last round r, else r + 1: the slot the TPU
+//     kernel's front update reaches after all R rounds.
+//   grid (ops/forest.forest_plan): block (c, s) takes row chunk c through
+//     the span s of tree groups (8 trees a group; one group a span for
+//     one class, K for K classes), a group at a time. It stages the
+//     group's entries and leaf values in shared memory (~40 KB at 255
+//     leaves) with cp.async, round-major (a set's 8 lanes read 8 different
+//     16-byte bank groups), then walks its chunk in passes of 32 rows: a
+//     warp takes 4 rows, thread = (row, lane = tree of the group). Each
+//     warp stages its own rows' bins (4 x F i32, contiguous),
+//     double-buffered by cp.async, so divergent walks read shared memory
+//     and no barrier waits for the block's slowest walk; where a pass's
+//     bins do not fit beside the tables (wide F), the walks read them from
+//     device memory. The rows are cut into as many chunks as fill one wave
+//     with every span, so small batches spread over the SMs too. A
+//     numerical step is 13 instructions; the categorical set test is
+//     compiled only into the kernel for packs that have categorical
+//     rounds.
+//   sums: the 8 lanes of a row hold its group's 8 leaf values; three
+//     __shfl_xor_sync steps (xor 4, 2, 1) leave ((v0+v4)+(v2+v6))+
+//     ((v1+v5)+(v3+v7)) in lane 0: the oracle's halving association
+//     (ops/predict.halving_sum). Multiclass: lane k % 8 sums class k's
+//     values over the group's trees in tree order from 0.f (non-class
+//     trees add 0.f); the span's groups are chained in group order (the same lane
+//     adds each group's sum to its (span, row, class) partial). Each block
+//     writes its (span, row, class) partials; the block that takes a
+//     chunk's last ticket (a counter after __threadfence) sums them in
+//     span order from 0.f and zeroes the ticket. One class has one group
+//     a span, so its groups are chained in order from 0.f: it equals the
+//     plain twin bit for bit. Every result repeats run to run (no atomics
+//     on values).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 128;  // threads (= rows) per block
-constexpr int kTB = 8;      // trees per staged group (tree_batch)
+constexpr int kThreads = 256;
+constexpr int kTB = 8;                       // trees of a group, lanes of a set
+constexpr int kWarpRows = 32 / kTB;          // rows of a warp in a pass
+constexpr int kPassRows = kThreads / kTB;    // rows of a pass
+constexpr int kEnd = 0xffff;                 // no link: the walk ends
+constexpr int kFeatMask = 0x7fffffff;        // sign bit: categorical round
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 struct ForestArgs {
-  const int* bins;            // (n, F)
-  const float* X;             // (n, F) raw rows, linear leaves only
+  const int* bins;             // (n, F)
+  const float* X;              // (n, F) raw rows, linear leaves only
   int n, F;
-  const int* slot;            // (R, T)
-  const int* feature;         // (R, T)
-  const int* tbin;            // (R, T)
-  const int* kind;            // (R, T)
-  const int* default_left;    // (R, T)
-  const int* miss_bin;        // (R, T)
-  const int* movable;         // (R, T)
-  const int* num_splits;      // (T,)
-  const float* value_of_slot; // (T, L)
-  const int* tree_class;      // (T,)
-  const int* cat_bins;        // (R, T, Kc), pad -2
-  const float* const_of_slot; // (T, L)
-  const float* coeff;         // (T, L, Km)
-  const int* coeff_feat;      // (T, L, Km)
-  const float* coeff_mask;    // (T, L, Km)
+  const int4* nodes;           // (R, T) walk entries
+  const int* first;            // (T,)
+  const float* value_of_slot;  // (T, L)
+  const int* tree_class;       // (T,)
+  const int* cat_bins;         // (R, T, Kc), pad -2
+  const float* const_of_slot;  // (T, L)
+  const float* coeff;          // (T, L, Km)
+  const int* coeff_feat;       // (T, L, Km)
+  const float* coeff_mask;     // (T, L, Km)
   int R, T, L, K, Kc, Km;
-  int has_cat, has_linear;
-  float* out;                 // (n, K)
+  int has_linear;
+  int rows_per_block;          // a multiple of kPassRows
+  int span;                    // tree groups of a block
+  float* part;                 // (spans, n, K) partials
+  unsigned* ticket;            // (chunks,), zero between launches
+  float* out;                  // (n, K)
 };
 
-__global__ void __launch_bounds__(kRows)
-forest_predict_kernel(ForestArgs a) {
-  // shared layout per group: 5 int tables (kTB, R) then values (kTB, L)
-  extern __shared__ int smem[];
-  const int R = a.R, L = a.L;
-  int* s_slot = smem;
-  int* s_feat = s_slot + kTB * R;
-  int* s_tbin = s_feat + kTB * R;
-  int* s_miss = s_tbin + kTB * R;
-  int* s_flag = s_miss + kTB * R;  // bit0 categorical, bit1 dl, bit2 movable
-  float* s_val = reinterpret_cast<float*>(s_flag + kTB * R);
-  __shared__ int s_ns[kTB];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait(bool one_in_flight) {
+  if (one_in_flight) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Copy `ints` i32 from 16-byte aligned `src` to 16-byte aligned `dst`
+// with the `lanes` threads from `lane`: 16 bytes a thread, the tail 4.
+__device__ __forceinline__ void stage_ints(int* dst, const int* src,
+                                           int ints, int lane, int lanes) {
+  const int vec = ints >> 2;
+  for (int k = lane; k < vec; k += lanes) {
+    cp_async16(dst + 4 * k, src + 4 * k);
+  }
+  for (int k = 4 * vec + lane; k < ints; k += lanes) {
+    cp_async4(dst + k, src + k);
+  }
+}
+
+// Whether a row with bin c goes left at round r of tree t (entry e).
+// Categorical rounds exist only in a kCat instantiation: the test in
+// every walk's loop made the walk up to 1.8x slower.
+template <bool kCat>
+__device__ __forceinline__ bool goes_left(const ForestArgs& a, int4 e,
+                                          int c, int r, int t) {
+  if (kCat && e.x < 0) {
+    const int* cb = a.cat_bins + ((size_t)r * a.T + t) * a.Kc;
+    bool go = false;
+    for (int k = 0; k < a.Kc; ++k) go |= (__ldg(cb + k) == c);
+    return go;
+  }
+  return (c <= e.y) != (c == e.z);
+}
+
+template <bool kStaged, bool kCat>
+__global__ void __launch_bounds__(kThreads, 4)
+forest_walk_kernel(ForestArgs a) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ int s_first[kTB];
   __shared__ int s_cls[kTB];
+  __shared__ int s_last;
+  const int R = a.R, L = a.L, F = a.F;
+  // round-major: a set's 8 lanes read 8 different 16-byte bank groups
+  int4* s_node = reinterpret_cast<int4*>(s_dyn);                // (R, kTB)
+  float* s_val = reinterpret_cast<float*>(s_node + kTB * R);     // (L, kTB)
+  int* s_bins = reinterpret_cast<int*>(s_val + kTB * L);  // (warps, 2, rows)
+  const int warp_ints = kWarpRows * F;
 
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kRows + tid;
-  const bool live = row < a.n;
-  const int* brow = a.bins + (size_t)(live ? row : 0) * a.F;
-  const float* xrow = a.X + (size_t)(live ? row : 0) * a.F;
-  float score1 = 0.f;  // K == 1 accumulator; K > 1 accumulates in a.out
+  const int chunk = blockIdx.x, sp = blockIdx.y, spans = gridDim.y;
+  const int g_lo = sp * a.span, g_hi = min(a.T / kTB, g_lo + a.span);
+  const int row_lo = chunk * a.rows_per_block;
+  const int row_hi = min(a.n, row_lo + a.rows_per_block);
+  const int passes = (row_hi - row_lo + kPassRows - 1) / kPassRows;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lane = threadIdx.x & 31;
+  const int set = lane / kTB, j = lane % kTB;
+  int* w_bins = s_bins + warp * 2 * warp_ints;
+  // each warp stages its own rows of a pass: no block barrier per pass
+  auto stage = [&](int p, int b) {
+    const int r0 = row_lo + p * kPassRows + warp * kWarpRows;
+    if (r0 < row_hi) {
+      stage_ints(w_bins + b * warp_ints, a.bins + (size_t)r0 * F,
+                 min(kWarpRows, row_hi - r0) * F, lane, 32);
+    }
+  };
 
-  if (live && a.K > 1) {
-    for (int k = 0; k < a.K; ++k) a.out[(size_t)row * a.K + k] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < a.T; t0 += kTB) {
-    __syncthreads();  // the previous group's tables are no longer read
-    for (int i = tid; i < R * kTB; i += kRows) {
-      const int r = i / kTB, j = i % kTB;
-      const size_t src = (size_t)r * a.T + t0 + j;
-      s_slot[j * R + r] = a.slot[src];
-      s_feat[j * R + r] = a.feature[src];
-      s_tbin[j * R + r] = a.tbin[src];
-      s_miss[j * R + r] = a.miss_bin[src];
-      s_flag[j * R + r] = (a.kind[src] > 0 ? 1 : 0)
-                          | (a.default_left[src] == 1 ? 2 : 0)
-                          | (a.movable[src] == 1 ? 4 : 0);
+  for (int grp = g_lo; grp < g_hi; ++grp) {
+    const int t0 = grp * kTB;
+    const int t = t0 + j;
+    __syncthreads();                 // the last group's tables are free
+    // the group's entries and leaf values, transposed to (round, tree)
+    // and (slot, tree): one commit group
+    for (int k = threadIdx.x; k < kTB * R; k += kThreads) {
+      cp_async16(s_node + k,
+                 a.nodes + (size_t)(k / kTB) * a.T + t0 + k % kTB);
     }
-    for (int i = tid; i < L * kTB; i += kRows) {
-      s_val[i] = a.value_of_slot[(size_t)t0 * L + i];
+    for (int k = threadIdx.x; k < kTB * L; k += kThreads) {
+      cp_async4(s_val + k,
+                a.value_of_slot + (size_t)(t0 + k % kTB) * L + k / kTB);
     }
-    if (tid < kTB) {
-      s_ns[tid] = min(a.num_splits[t0 + tid], R);
-      s_cls[tid] = a.tree_class[t0 + tid];
+    cp_async_commit();
+    if (kStaged) stage(0, 0);
+    cp_async_commit();
+    if (threadIdx.x < kTB) {
+      s_first[threadIdx.x] = a.first[t0 + threadIdx.x];
+      s_cls[threadIdx.x] = a.tree_class[t0 + threadIdx.x];
     }
+    cp_async_wait(kStaged);          // the tables' group
     __syncthreads();
-    if (!live) continue;
 
-    float v[kTB];
-#pragma unroll
-    for (int j = 0; j < kTB; ++j) {
-      const int t = t0 + j;
-      const int* sl = s_slot + j * R;
-      const int* sf = s_feat + j * R;
-      const int* sb = s_tbin + j * R;
-      const int* sm = s_miss + j * R;
-      const int* sg = s_flag + j * R;
-      const int ns = s_ns[j];
-      int front = 0;
-      for (int r = 0; r < ns; ++r) {
-        if (front != sl[r]) continue;
-        const int b = __ldg(brow + sf[r]);
-        const int fl = sg[r];
-        bool go;
-        if (a.has_cat && (fl & 1)) {
-          const int* cb = a.cat_bins + ((size_t)r * a.T + t) * a.Kc;
-          go = false;
-          for (int k = 0; k < a.Kc; ++k) go |= (__ldg(cb + k) == b);
-        } else {
-          go = b <= sb[r];
-          if ((fl & 4) && b == sm[r]) go = (fl & 2) != 0;
-        }
-        if (!go) front = r + 1;
+    int b = 0;
+    for (int p = 0; p < passes; ++p) {
+      const int r0 = row_lo + p * kPassRows + warp * kWarpRows;
+      if (r0 >= row_hi) break;       // this warp has no rows left
+      const bool more = kStaged && p + 1 < passes;
+      if (more) {
+        stage(p + 1, b ^ 1);
+        cp_async_commit();
       }
-      float val = s_val[j * L + front];
-      if (a.has_linear) {
-        const size_t o = (size_t)t * L + front;
-        const float* cf = a.coeff + o * a.Km;
-        const int* fi = a.coeff_feat + o * a.Km;
-        const float* cm = a.coeff_mask + o * a.Km;
-        bool nanrow = false;
-        float contrib = 0.f;
-        for (int k = 0; k < a.Km; ++k) {
-          if (!(__ldg(cm + k) > 0.5f)) continue;
-          const float z = __ldg(xrow + __ldg(fi + k));
-          if (isnan(z)) nanrow = true;
-          else contrib += z * __ldg(cf + k);
-        }
-        if (!nanrow) val = __ldg(a.const_of_slot + o) + contrib;
+      if (kStaged) {
+        cp_async_wait(more);
+        __syncwarp();
       }
-      v[j] = val;
-    }
-    if (a.K == 1) {
-      score1 += ((v[0] + v[4]) + (v[2] + v[6])) + ((v[1] + v[5]) + (v[3] + v[7]));
-    } else {
-      for (int k = 0; k < a.K; ++k) {
-        float g = 0.f;
+      const int row = r0 + set;
+      const bool live = row < row_hi;
+      float v = 0.f;
+      if (live) {
+        const int* brow = kStaged ? w_bins + b * warp_ints + set * F
+                                  : a.bins + (size_t)row * F;
+        const int4* nd = s_node + j;  // the lane's tree, round-major
+        int r = s_first[j], state = 0;
+        while (r < R) {               // kEnd (> R) ends it; links go forward
+          const int4 e = nd[r * kTB];
+          const bool go = goes_left<kCat>(a, e, brow[e.x & kFeatMask], r, t);
+          const unsigned links = static_cast<unsigned>(e.w);
+          if (!go) state = r + 1;
+          r = static_cast<int>(go ? links & 0xffffu : links >> 16);
+        }
+        v = s_val[state * kTB + j];
+        if (a.has_linear) {
+          const size_t o = (size_t)t * L + state;
+          const float* cf = a.coeff + o * a.Km;
+          const int* fi = a.coeff_feat + o * a.Km;
+          const float* cm = a.coeff_mask + o * a.Km;
+          const float* xrow = a.X + (size_t)row * F;
+          bool nanrow = false;
+          float contrib = 0.f;
+          for (int k = 0; k < a.Km; ++k) {
+            if (!(__ldg(cm + k) > 0.5f)) continue;
+            const float z = __ldg(xrow + __ldg(fi + k));
+            if (isnan(z)) nanrow = true;
+            else contrib += z * __ldg(cf + k);
+          }
+          if (!nanrow) v = __ldg(a.const_of_slot + o) + contrib;
+        }
+      }
+      if (a.K == 1) {
+        v += __shfl_xor_sync(kFull, v, 4);
+        v += __shfl_xor_sync(kFull, v, 2);
+        v += __shfl_xor_sync(kFull, v, 1);
+        if (live && j == 0) a.part[(size_t)sp * a.n + row] = v;
+      } else {
+        float w[kTB];
 #pragma unroll
-        for (int j = 0; j < kTB; ++j) g += (s_cls[j] == k) ? v[j] : 0.f;
-        a.out[(size_t)row * a.K + k] += g;
+        for (int i = 0; i < kTB; ++i) {
+          w[i] = __shfl_sync(kFull, v, (lane & ~(kTB - 1u)) | i);
+        }
+        if (live) {
+          for (int k = j; k < a.K; k += kTB) {
+            float g = 0.f;
+#pragma unroll
+            for (int i = 0; i < kTB; ++i) g += (s_cls[i] == k) ? w[i] : 0.f;
+            // this lane wrote the span's earlier groups' sum here
+            float* pk = a.part + ((size_t)sp * a.n + row) * a.K + k;
+            *pk = grp == g_lo ? g : *pk + g;
+          }
+        }
+      }
+      if (kStaged) {
+        __syncwarp();                // the buffer is free for a later pass
+        b ^= 1;
       }
     }
   }
-  if (live && a.K == 1) a.out[row] = score1;
+
+  // the chunk's last block sums the spans' partials in span order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(a.ticket + chunk, 1u) == (unsigned)(spans - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const size_t stride = (size_t)a.n * a.K;
+  const int items = (row_hi - row_lo) * a.K;
+  for (int i = threadIdx.x; i < items; i += kThreads) {
+    const size_t o = (size_t)row_lo * a.K + i;
+    float s = 0.f;
+    for (int g = 0; g < spans; ++g) s += __ldcg(a.part + g * stride + o);
+    a.out[o] = s;
+  }
+  if (threadIdx.x == 0) a.ticket[chunk] = 0;
+}
+
+// Raise every variant's dynamic shared-memory limit to the most a block
+// may take, once per device; `limit` is then that most (the card's
+// opt-in limit less the largest static room of a variant).
+cudaError_t raise_smem(int* limit) {
+  thread_local int raised[kMaxDevices] = {};   // the limit, 0 until raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (raised[dev]) {
+    *limit = raised[dev];
+    return cudaSuccess;
+  }
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  const void* fns[] = {
+      reinterpret_cast<const void*>(forest_walk_kernel<true, false>),
+      reinterpret_cast<const void*>(forest_walk_kernel<false, false>),
+      reinterpret_cast<const void*>(forest_walk_kernel<true, true>),
+      reinterpret_cast<const void*>(forest_walk_kernel<false, true>)};
+  int most = optin;
+  for (const void* fn : fns) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, fn);
+    if (e != cudaSuccess) return e;
+    const int room = optin - static_cast<int>(fa.sharedSizeBytes);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             room);
+    if (e != cudaSuccess) return e;
+    most = room < most ? room : most;
+  }
+  raised[dev] = most;
+  *limit = most;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -172,29 +347,39 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// staged, rows_per_block, chunks, span and the dynamic shared memory smem
+// come from ops/forest.forest_plan; part and ticket from its scratch. A
+// plan whose smem exceeds what this card lets a block take is refused.
 int forest_predict(const void* bins, const void* X, int n, int F,
-                   const void* slot, const void* feature, const void* tbin,
-                   const void* kind, const void* default_left,
-                   const void* miss_bin, const void* movable,
-                   const void* num_splits, const void* value_of_slot,
-                   const void* tree_class, const void* cat_bins,
-                   const void* const_of_slot, const void* coeff,
-                   const void* coeff_feat, const void* coeff_mask,
-                   int R, int T, int L, int K, int Kc, int Km,
-                   int has_cat, int has_linear, void* out, void* stream) {
+                   const void* nodes, const void* first,
+                   const void* value_of_slot, const void* tree_class,
+                   const void* cat_bins, const void* const_of_slot,
+                   const void* coeff, const void* coeff_feat,
+                   const void* coeff_mask, int R, int T, int L, int K, int Kc,
+                   int Km, int has_cat, int has_linear, int staged,
+                   int rows_per_block, int chunks, int span, int smem,
+                   void* part,
+                   void* ticket, void* out, void* stream) {
+  if (n < 1 || F < 1 || R < 1 || R >= kEnd || L != R + 1 || T < kTB ||
+      T % kTB || K < 1 || rows_per_block < kPassRows ||
+      rows_per_block % kPassRows || chunks < 1 ||
+      (long long)chunks * rows_per_block < n || span < 1 ||
+      (K == 1 && span != 1) || smem < 0 ||
+      reinterpret_cast<uintptr_t>(bins) % 16 ||
+      reinterpret_cast<uintptr_t>(nodes) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int limit = 0;
+  cudaError_t e = raise_smem(&limit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
   ForestArgs a;
   a.bins = static_cast<const int*>(bins);
   a.X = static_cast<const float*>(X);
   a.n = n;
   a.F = F;
-  a.slot = static_cast<const int*>(slot);
-  a.feature = static_cast<const int*>(feature);
-  a.tbin = static_cast<const int*>(tbin);
-  a.kind = static_cast<const int*>(kind);
-  a.default_left = static_cast<const int*>(default_left);
-  a.miss_bin = static_cast<const int*>(miss_bin);
-  a.movable = static_cast<const int*>(movable);
-  a.num_splits = static_cast<const int*>(num_splits);
+  a.nodes = static_cast<const int4*>(nodes);
+  a.first = static_cast<const int*>(first);
   a.value_of_slot = static_cast<const float*>(value_of_slot);
   a.tree_class = static_cast<const int*>(tree_class);
   a.cat_bins = static_cast<const int*>(cat_bins);
@@ -208,20 +393,23 @@ int forest_predict(const void* bins, const void* X, int n, int F,
   a.K = K;
   a.Kc = Kc;
   a.Km = Km;
-  a.has_cat = has_cat;
   a.has_linear = has_linear;
+  a.rows_per_block = rows_per_block;
+  a.span = span;
+  a.part = static_cast<float*>(part);
+  a.ticket = static_cast<unsigned*>(ticket);
   a.out = static_cast<float*>(out);
-  if (T % kTB != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kTB * (5 * R + L) * 4;  // group tables + leaf values
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        forest_predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(chunks, (T / kTB + span - 1) / span);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged && has_cat) {
+    forest_walk_kernel<true, true><<<grid, kThreads, smem, s>>>(a);
+  } else if (staged) {
+    forest_walk_kernel<true, false><<<grid, kThreads, smem, s>>>(a);
+  } else if (has_cat) {
+    forest_walk_kernel<false, true><<<grid, kThreads, smem, s>>>(a);
+  } else {
+    forest_walk_kernel<false, false><<<grid, kThreads, smem, s>>>(a);
   }
-  const int grid = (n + kRows - 1) / kRows;
-  forest_predict_kernel<<<grid, kRows, smem,
-                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -135,8 +135,8 @@ class PredictSession:
         return self._gbdt._forest_knob()
 
     def _ensure_forest(self):
-        """Version-keyed ``(ForestPack, has_cat, has_linear)`` or None
-        when the model is structurally ineligible."""
+        """Version-keyed ``(ForestPack, has_cat, has_linear, ForestWalk)``
+        or None when the model is structurally ineligible."""
         g = self._gbdt
         with self._lock, g._cache_lock:
             ver = g.model_version
@@ -222,7 +222,7 @@ class PredictSession:
                     chunk = np.concatenate(
                         [chunk, np.zeros((b - rows, nf), chunk.dtype)])
                 if forest is not None:
-                    fp, f_cat, f_lin = forest
+                    fp, f_cat, f_lin, walk = forest
                     xdev = None
                     if f_lin:
                         xchunk = Xraw[lo:lo + top]
@@ -233,7 +233,8 @@ class PredictSession:
                         xdev = torch.from_numpy(xchunk).to(dev)
                     score = forest_predict_impl(
                         torch.from_numpy(chunk).to(dev), xdev, fp,
-                        num_class=self._K, has_cat=f_cat, has_linear=f_lin)
+                        walk=walk, num_class=self._K, has_cat=f_cat,
+                        has_linear=f_lin)
                 else:
                     score = predict_raw_impl(
                         torch.from_numpy(chunk).to(dev), pack,

@@ -42,6 +42,24 @@ def test_kernels_match_plain_on_card(card):
         assert after[name] > before[name], name
 
 
+def test_forest_edges_match_plain_on_card(card):
+    """The forest kernel's walk against its twin on the edge packs (a
+    254-round chain, padded trees and rounds, num_splits 0 and past R,
+    categorical, NaN-missing bins, 1000 features with bins read from
+    device memory: bit-equal; 3 classes over two spans of groups and
+    linear leaves with NaN rows: within tolerance) at 1, 255, 257 and
+    4097 rows (chip_smoke.phase_forest_kernels)."""
+    for rows in chip_smoke.FOREST_EDGE_ROWS:
+        assert not forest.forest_plan(
+            rows, 16, 254, partition.sm_count(card.index),
+            chip_smoke.FOREST_WIDE_F, 1).staged
+    before = kernels.launch_counts()["forest_predict"]
+    errs = chip_smoke.phase_forest_kernels(card, np.random.RandomState(9))
+    assert max(errs.values()) <= 1e-5, errs
+    assert kernels.launch_counts()["forest_predict"] - before \
+        == len(chip_smoke.FOREST_EDGE_CASES) * len(chip_smoke.FOREST_EDGE_ROWS)
+
+
 def test_one_kernel_split_matches_plain_on_card(card):
     """One seeded split per case: the cooperative kernel's routed bytes and
     lt equal to its twin's and K3's, its child histograms bit-equal to K3 +

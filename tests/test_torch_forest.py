@@ -19,7 +19,7 @@ from lightgbm_tpu.serve import PredictSession as JaxSession
 from lightgbm_tpu_torch import obs
 from lightgbm_tpu_torch.ops.forest import (FOREST_KERNEL, forest_pack,
                                            forest_predict_impl,
-                                           forest_predict_plain)
+                                           forest_predict_plain, forest_walk)
 from lightgbm_tpu_torch.serve import PredictSession
 
 
@@ -99,7 +99,8 @@ def test_cpu_wrapper_uses_plain_twin_and_counts_nothing(cases):
     bins, _ = sess._bin_rows(np.asarray(Xq, np.float32))
     bins = torch.from_numpy(bins)
     before = FOREST_KERNEL.launches
-    a = forest_predict_impl(bins, None, fp, has_cat=has_cat)
+    a = forest_predict_impl(bins, None, fp, walk=forest_walk(fp),
+                            has_cat=has_cat)
     b = forest_predict_plain(bins, None, fp, has_cat=has_cat)
     assert torch.equal(a, b)
     assert FOREST_KERNEL.launches == before
@@ -132,8 +133,10 @@ def test_forest_knob_auto_resolves_on(cases):
 def test_forest_wrapper_validates_inputs(cases):
     _, port, _, _ = cases["binary"]
     fp, _, _ = forest_pack(port.inner.models, port.inner.train_set)
+    walk = forest_walk(fp)
     with pytest.raises(ValueError):
-        forest_predict_impl(torch.zeros((4, 8), dtype=torch.int64), None, fp)
+        forest_predict_impl(torch.zeros((4, 8), dtype=torch.int64), None, fp,
+                            walk=walk)
     with pytest.raises(ValueError):
         forest_predict_impl(torch.zeros((4, 8), dtype=torch.int32), None,
-                            fp, has_linear=True)
+                            fp, walk=walk, has_linear=True)

@@ -210,6 +210,37 @@ def test_serve_phase_small_on_cpu(quantized):
     assert out["binned"].shape == (5000,)
 
 
+def test_forest_phases_small_on_cpu(quantized):
+    """The forest kernel's edge packs and its full-width shapes (the
+    serving model at the 256, 4096 and 65,536-row rungs and a chain forest
+    over the top rung) against the twin, and the per-request latency,
+    through the plain twin; no kernel launches."""
+    bst, _, _, _ = quantized
+    errs = chip_smoke.phase_forest_kernels(CPU, np.random.RandomState(3))
+    assert set(errs) == {"forest_edge/%s/%d" % (c, n)
+                         for c in chip_smoke.FOREST_EDGE_CASES
+                         for n in chip_smoke.FOREST_EDGE_ROWS}
+    assert max(errs.values()) == 0.0
+    rng = np.random.RandomState(2)
+    reqs = {n: chip_smoke.higgs_like(rng, n)
+            for n in chip_smoke.REQUEST_ROWS}
+    errs = {}
+    shapes = chip_smoke.full_width_forest(bst, reqs, CPU, errs, timed=False)
+    assert set(shapes) == {tag for tag, _ in chip_smoke.FOREST_SHAPES}
+    assert errs == {"forest/full_width_" + tag: 0.0 for tag in shapes}
+    leaves = 15
+    for tag, rows in chip_smoke.FOREST_SHAPES:
+        v = shapes[tag]
+        assert v["rows"] == rows and v["trees"] == 3
+        assert v["trees"] * rows <= v["steps"] \
+            <= v["trees"] * rows * (leaves - 1)
+    # the chain's rows walk most of its 14 rounds
+    assert shapes["chain"]["steps"] > 10 * 3 * 65536
+    lat = chip_smoke.serve_latency(bst, {1: reqs[1], 256: reqs[256]},
+                                   reps=2)
+    assert set(lat) == {1, 256} and all(t > 0 for t in lat.values())
+
+
 def test_higgs_like_is_float32_exact():
     X = chip_smoke.higgs_like(np.random.RandomState(1), 1000)
     assert X.shape == (1000, 28)
