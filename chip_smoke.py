@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
     python3 chip_smoke.py --planes-route-only   # phase 3 and B1/B3 timings
     python3 chip_smoke.py --forest-only   # phase 4's model and B8 timings
+    python3 chip_smoke.py --fused-only    # phases 3b and 3d, the commit
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Nine phases, each fatal on failure:
+the checkout it sits in. Ten phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: eight
-                sources, eleven entry points), one nvcc per source, started
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: nine
+                sources, twelve entry points), one nvcc per source, started
                 together.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
                 the forest kernel on small seeded packs covering every
@@ -62,7 +63,13 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 classes, linear + NaN, 1000 features with and without
                 categorical rounds, whose bins are read from device
                 memory; at 1, 255, 257 and 4097 rows; one class bit-equal
-                to the twin): phase_forest_kernels. Again at 2M rows after
+                to the twin): phase_forest_kernels. The split commit against
+                its twin on seeded states (COMMIT_CASES: tied and NaN
+                gains, max_depth, monotone bounds, live 0, the final
+                commit; every table bit-equal): phase_commit_kernel; the
+                one-kernel split through its device header (the parent in
+                a pool row, live 0 a no-op): phase_one_kernel_header.
+                Again at 2M rows after
                 phases 3, 3c and 4,
                 on their data and first root splits (3c also on a deep
                 leaf). Leaf ids must be equal, scores within SCORE_ATOL +
@@ -108,6 +115,21 @@ the checkout it sits in. Nine phases, each fatal on failure:
                 three-launch training (route gather, K3, the resident
                 histogram) byte-equal to planes three-launch, and card vs
                 host within LOGLOSS_TOL.
+3d. fused    -- the slice-10 path: phase 3b's data and params through
+                ``train`` with no valid set and no callback (fused blocks
+                of 10 trees; each tree one replay of the learner's CUDA
+                graph: the root, (split commit, one-kernel split) x 254,
+                a final commit, the router), then RESIDENT_PARAMS, then
+                QUANT_PARAMS (the host-loop builder inside the block).
+                Launches: one_kernel_split(_resident) = trees x 254,
+                split_commit = trees x 255, no K3; the planes and resident
+                models hash to ONE_KERNEL_MODEL_SHA256, the quantized one
+                to QUANT_MODEL_SHA256 (default sizes); valid AUC from
+                ``predict`` equal to phase 3b's. Prints the wall per tree
+                against phase 3b's, launches per split, the graph's capture
+                ms and the busy share of one profiled block; then the split
+                commit against its twin at a full-width state, timed
+                (alone, with phase 3b: ``--fused-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -2229,6 +2251,26 @@ def check_bagged_shape(name, work, seg, table, kw):
                              "rows" % (name, small, seg[2]))
 
 
+def header_split(op, seg, table, kw):
+    """``op`` (a OneKernelSplit) as the learner calls it: its device
+    header, pair block and output buffers built once, so that a timed call
+    is the launch alone. Returns ``call(stamps=None) -> SplitOut``."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    sg = torch.as_tensor(seg, dtype=torch.int32).to(op.work.device)
+    hdr = P.split_header(sg, kw["left_smaller"], kw["depth"])
+    pair = P.split_pair(kw["sums2"], kw["outs2"], kw["lows2"], kw["ups2"])
+    out = P.split_out(op.num_feat, op.num_bins, op.work.device)
+    parent = kw["parent_hist"][None]
+
+    def call(stamps=None):
+        op.split(hdr, table, parent, pair, out, stamps=stamps)
+        return out
+
+    return call
+
+
 def split_kernel_on_vs_off(dev, data, rows, leaves, iters=3):
     """The same small training with the one-kernel split on and off on the
     card: train logloss within LOGLOSS_TOL (the kernel's scan sums in
@@ -2317,10 +2359,9 @@ def full_width_one_kernel(bst, dev, errs, timed=True):
     # the kernel as the learner calls it: one OneKernelSplit per tree
     op = P.OneKernelSplit(work, kw["meta"], kw["fmask"], kw["hp"],
                           num_bins=B, num_feat=F, cnt_max=n)
-    args = (sg, table, kw["left_smaller"], kw["depth"], kw["parent_hist"],
-            kw["sums2"], kw["outs2"], kw["lows2"], kw["ups2"])
-    k_ms = cuda_ms(lambda: op(*args, cnt_bound=n))
-    k_dev = device_ms(lambda: op(*args, cnt_bound=n))
+    call = header_split(op, seg, table, kw)
+    k_ms = cuda_ms(call)
+    k_dev = device_ms(call)
     p_ms = cuda_ms(lambda: P.one_kernel_split_planes_plain(work, sg, table,
                                                            **kw),
                    iters=3, warmup=1)
@@ -2844,21 +2885,18 @@ def b7_breakdown(bst, dev, reps=5):
             idx, depth = deep_leaf_rows(bst, dev, target)
         slim, planes, seg, table, kw = model_segment(bst, dev, idx, depth)
         m = int(idx.shape[0])
-        sg = torch.tensor(seg, dtype=torch.int32, device=dev)
         out[tag] = {}
         for mode, work, extra in (("planes", planes, {}),
                                   ("resident", slim, {"resident": res})):
             op = P.OneKernelSplit(work, kw["meta"], kw["fmask"], kw["hp"],
                                   num_bins=kw["num_bins"], num_feat=F,
                                   cnt_max=m, **extra)
-            args = (sg, table, kw["left_smaller"], kw["depth"],
-                    kw["parent_hist"], kw["sums2"], kw["outs2"], kw["lows2"],
-                    kw["ups2"])
-            op(*args, cnt_bound=m)
+            call = header_split(op, seg, table, kw)
+            call()
             runs = []
             for _ in range(reps):
                 st = P.stamp_buffer(dev)
-                lt = op(*args, cnt_bound=m, stamps=st)[0]
+                lt = call(stamps=st).lt
                 sync(dev)
                 runs.append(stamp_phases(st.cpu()))
             phases, ms, blocks = sorted(runs, key=lambda r: r[1])[reps // 2]
@@ -2987,12 +3025,11 @@ def full_width_resident(bst, dev, errs, timed=True):
                                       **extra)
                for mode, w, extra in (("b7", slim, {"resident": res}),
                                       ("b7_planes", planes, {}))}
-        args = (sg, table, kw["left_smaller"], kw["depth"],
-                kw["parent_hist"], kw["sums2"], kw["outs2"], kw["lows2"],
-                kw["ups2"])
+        calls = {mode: header_split(op, seg, table, kw)
+                 for mode, op in ops.items()}
 
         def b7(mode):
-            return lambda: ops[mode](*args, cnt_bound=m)
+            return calls[mode]
 
         t = {
             "b7": cuda_ms(b7("b7")),
@@ -3110,6 +3147,401 @@ def full_width_resident(bst, dev, errs, timed=True):
             rows[name]["max_abs_err"] = max(
                 v for k, v in errs.items() if k.startswith(prefix))
     return rows
+
+
+# ------------------------------------------------------------- fused block
+
+#: trees per block of phase 3d's profiled block (tpu_iter_block's default)
+FUSED_BLOCK = 10
+
+
+def commit_state(dev, rng, L, F, B, nan=False, ties=False):
+    """A seeded tree state and one-kernel outputs for split_commit: every
+    table filled with random values (gains in [-1, 1) with some -inf; NaN
+    gains with ``nan``; the top gain repeated at a higher slot with
+    ``ties``), header rows whose parent slots, segments and depths are
+    consistent with L, and outputs of random sums, bins and tables."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import partition as P
+
+    st = C.tree_state(L, F, B, dev)
+    out = P.split_out(F, B, dev)
+
+    def r(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    gain = rng.uniform(-1, 1, L).astype(np.float32)
+    gain[rng.rand(L) < 0.3] = -np.inf
+    if ties:
+        top = int(np.argmax(gain))
+        gain[(top + 1 + rng.randint(L - 1)) % L] = gain[top]
+        gain[(top + L // 2) % L] = gain[top]
+    if nan:
+        gain[rng.randint(L, size=2)] = np.nan
+    st.best_gain.copy_(torch.as_tensor(gain))
+    st.best_feature.copy_(torch.as_tensor(rng.randint(F, size=L)))
+    st.best_bin.copy_(torch.as_tensor(rng.randint(B, size=L)))
+    st.best_kind.copy_(torch.as_tensor(rng.randint(4, size=L)))
+    st.best_dl.copy_(torch.as_tensor(rng.rand(L) < 0.5))
+    st.best_go.copy_(torch.as_tensor(rng.rand(L, B) < 0.5))
+    for t in (st.best_ls, st.best_rs, st.best_lo, st.best_ro, st.leaf_sum,
+              st.leaf_out, st.hist_pool):
+        t.copy_(r(*t.shape))
+    st.leaf_lower.copy_(r(L) - 2.0)
+    st.leaf_upper.copy_(r(L) + 2.0)
+    st.depth.copy_(torch.as_tensor(rng.randint(0, 9, size=L)))
+    st.seg_tab.copy_(torch.as_tensor(np.stack(
+        [rng.randint(128, 5000, L), rng.randint(0, 4000, L),
+         rng.randint(0, 2, L)], axis=1)))
+    st.num_splits.fill_(int(rng.randint(0, L - 1)))
+    st.hdr.copy_(torch.as_tensor(np.stack(
+        [rng.randint(0, 2, L), rng.randint(128, 5000, L),
+         rng.randint(1, 4000, L), rng.randint(F, size=L),
+         rng.randint(0, 2, L), rng.randint(1, 9, L), np.ones(L, np.int64),
+         rng.randint(0, L, L)], axis=1)))
+    out.lt.fill_(int(rng.randint(0, 100)))
+    out.hists.copy_(r(*out.hists.shape))
+    out.fout.copy_(r(18))
+    out.iout.copy_(torch.as_tensor(np.concatenate(
+        [rng.randint(F, size=2), rng.randint(B, size=2),
+         rng.randint(4, size=2)])))
+    out.bout.copy_(torch.as_tensor(rng.rand(2 + 2 * B) < 0.5))
+    return st, out
+
+
+#: (name, s as a fraction of L - 1 or an index, live word of header s - 1,
+#: state options, max_depth, monotone)
+COMMIT_CASES = (
+    ("first", 0, 1, {}, -1, False),
+    ("mid", 0.5, 1, {}, -1, False),
+    ("mid_max_depth", 0.5, 1, {}, 4, False),
+    ("mid_monotone", 0.5, 1, {}, -1, True),
+    ("ties", 0.5, 1, {"ties": True}, -1, False),
+    ("nan_gains", 0.5, 1, {"nan": True}, -1, True),
+    ("after_stop", 0.5, 0, {}, -1, False),
+    ("final", 1.0, 1, {}, 3, False),
+    ("final_stopped", 1.0, 0, {}, -1, False),
+)
+
+
+def check_split_commit(name, st, out, s, max_depth, monotone, mono_on):
+    """split_commit (the kernel on a CUDA state) against its plain twin on
+    copies of one state: every table, log, header and pair row bit-equal
+    (compared as bytes, so NaN and -0.0 count). Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+
+    a = C.TreeState(*(t.clone() for t in st))
+    b = C.TreeState(*(t.clone() for t in st))
+    kw = dict(max_depth=max_depth, monotone=monotone, has_monotone=mono_on)
+    C.split_commit(a, out, s, **kw)
+    C.split_commit_plain(b, out, s, **kw)
+    sync(st.hdr.device)
+    for fld, x, y in zip(C.TreeState._fields, a, b):
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            raise AssertionError("%s: split_commit %s differs from its twin "
+                                 "(%d of %d bytes)"
+                                 % (name, fld, int(torch.count_nonzero(
+                                     x.view(torch.uint8)
+                                     != y.view(torch.uint8))),
+                                    x.view(torch.uint8).numel()))
+    return 0.0
+
+
+def phase_commit_kernel(dev, rng, L=63, F=9, B=40):
+    """The split commit against its twin on seeded states (COMMIT_CASES:
+    the first and a middle split, max_depth cutting the children, basic
+    monotone bounds, tied and NaN gains, a split after the tree stopped
+    (live 0), the final commit of a tree that ran and of one that
+    stopped)."""
+    import torch
+    errs = {}
+    monotone = torch.as_tensor(rng.randint(-1, 2, F).astype("int8")).to(dev)
+    for name, where, live, opts, max_depth, mono_on in COMMIT_CASES:
+        st, out = commit_state(dev, rng, L, F, B, **opts)
+        s = where if isinstance(where, int) else int(round(where * (L - 1)))
+        if s > 0:
+            st.hdr[s - 1, 6] = live
+        errs["commit/%s" % name] = check_split_commit(
+            "commit/" + name, st, out, s, max_depth, monotone, mono_on)
+    return errs
+
+
+def loop_state_at(lrn, ghc, s):
+    """The learner's device tree loop (built by one tree on ``ghc`` if the
+    learner has none: fused blocks on host tensors take the host loop) run
+    eagerly from the root through split slot ``s - 1`` on ``ghc``: the
+    loop, its state before commit ``s``."""
+    if lrn._loop is None:
+        lrn.train_device(ghc)
+    loop = lrn._loop
+    loop.ghc.copy_(ghc)
+    loop.fmask.fill_(True)
+    loop.root()
+    loop.splits(s)
+    return loop
+
+
+def full_width_commit(bst, dev, errs, timed=True):
+    """The split commit against its twin at a full-width state: the
+    fused model's learner's device loop run to the middle of a tree on the
+    model's gradients (F, B and L of phase 3d), then commit s on copies.
+    When ``timed``: the kernel's ms (host clock and device_ms), the
+    twin's and the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+
+    g = bst.inner
+    lrn = g.learner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    L = lrn.num_leaves
+    s = L // 2
+    loop = loop_state_at(lrn, ghc, s)
+    st, out = loop.state, loop.out
+    kw = dict(max_depth=loop.commit.max_depth, monotone=lrn.meta.monotone,
+              mono_on=lrn.hp.has_monotone)
+    errs["commit/full_width"] = check_split_commit(
+        "commit/full_width", st, out, s, kw["max_depth"], kw["monotone"],
+        kw["mono_on"])
+    if not timed:
+        return {}
+    a = C.TreeState(*(t.clone() for t in st))
+    op = C.SplitCommit(a, out, max_depth=kw["max_depth"],
+                       monotone=kw["monotone"], has_monotone=kw["mono_on"])
+    b = C.TreeState(*(t.clone() for t in st))
+    k_ms = cuda_ms(lambda: op(s))
+    k_dev = device_ms(lambda: op(s))
+    p_ms = cuda_ms(lambda: C.split_commit_plain(
+        b, out, s, max_depth=kw["max_depth"], monotone=kw["monotone"],
+        has_monotone=kw["mono_on"]), iters=5, warmup=1)
+    F, B = st.hist_pool.shape[1], st.hist_pool.shape[2]
+    # the function reads the two child histograms and writes them into
+    # the pool, reads the L gains and the winner's row of the best table
+    # and writes the log entry, leaf rows and the header: the histograms
+    # dominate
+    f_bytes = 2 * 2 * F * B * 3 * 4 + L * 4 + 2 * B + 512
+    log("full width split commit: %.4f ms (device %.4f, twin %.3f) at L = "
+        "%d, F = %d, B = %d, s = %d; byte floor %.6f ms"
+        % (k_ms, k_dev, p_ms, L, F, B, s, f_bytes / PEAK_BYTES_PER_S * 1e3))
+    return {"split_commit": dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/split_commit.cu",
+        replaces="lightgbm_tpu/learner.py:1175",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("commit/")),
+        ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+        bytes=f_bytes, ops=L + 64)}
+
+
+def check_one_kernel_header(name, work, seg, table, kw):
+    """The one-kernel split through its device header: with the parent in
+    row 3 of a histogram pool it gives what the parent in row 0 gives
+    (every output bit-equal, the same routed bytes), and with the live
+    word 0 it writes nothing (the work buffer and every output buffer
+    unchanged). Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+
+    dev = work.device
+    F, B = kw["num_feat"], kw["num_bins"]
+    outs = []
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    pair = P.split_pair(kw["sums2"], kw["outs2"], kw["lows2"], kw["ups2"])
+    pool = torch.zeros((5, F, B, 3), dtype=torch.float32, device=dev)
+    pool[3] = kw["parent_hist"]
+    for slot, parent, live in ((0, kw["parent_hist"][None], 1),
+                               (3, pool, 1), (3, pool, 0)):
+        w = work.clone()
+        op = P.OneKernelSplit(w, kw["meta"], kw["fmask"], kw["hp"],
+                              num_bins=B, num_feat=F, cnt_max=max(seg[2], 1))
+        out = P.split_out(F, B, dev)
+        for t in out:
+            t.copy_(torch.ones_like(t) if t.dtype == torch.bool
+                    else torch.full_like(t, 7))
+        hdr = P.split_header(sg, kw["left_smaller"], kw["depth"], slot, live)
+        op.split(hdr, table, parent, pair, out)
+        outs.append((w, out))
+    sync(dev)
+    (w0, o0), (w3, o3), (wz, oz) = outs
+    if not torch.equal(w0, w3) or not all(
+            torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+            for x, y in zip(o0, o3)):
+        raise AssertionError("%s: the parent's pool row changes the split"
+                             % name)
+    if not torch.equal(wz, work) or not all(
+            bool((t == (1 if t.dtype == torch.bool else 7)).all())
+            for t in oz):
+        raise AssertionError("%s: a live = 0 split wrote something" % name)
+    return 0.0
+
+
+def auc_np(y, p):
+    """ROC AUC of scores ``p`` for 0/1 labels ``y`` (ties share ranks)."""
+    from scipy.stats import rankdata
+    r = rankdata(p)
+    pos = y > 0
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    return float((r[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def profile_block(dev, train, leaves, extra, k=FUSED_BLOCK):
+    """One fused block of ``k`` trees (after a warm-up block, which also
+    captures the graph) under torch.profiler: the device's busy share of
+    the block's wall. Returns a dict; busy is None when the profiler saw
+    no device activity."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from torch.profiler import ProfilerActivity, profile
+
+    bst = lgt.Booster(train_params(dev, leaves, extra), train)
+    bst.inner.train_block(k)
+    bst.inner.finish_fused("profile")
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bst.inner.train_block(k)
+        bst.inner.finish_fused("profile")
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.key not in by_name:
+            by_name[ev.key] = us / 1e3
+    kern = {k_: v for k_, v in by_name.items()
+            if not k_.startswith("cuda") and not k_.startswith("aten::")}
+    busy = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    log("profile fused block %s: %d trees, wall %.1f ms (%.2f ms/tree), "
+        "device busy %.1f ms (%.1f%%); top kernels %s"
+        % (json.dumps(extra), k, wall_ms, wall_ms / k, busy,
+           100.0 * busy / wall_ms, ", ".join("%s %.2f" % kv for kv in top)))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy if kern else None,
+                top=top)
+
+
+def phase_one_kernel_header(dev, rng):
+    """check_one_kernel_header on phase_one_kernel's numerical case: an
+    unaligned segment and the whole buffer."""
+    errs = {}
+    work, seg, table, kw = split_inputs(dev, split_case("numerical", rng))
+    for name, sg in (("unaligned", [0, 128 + 13, 7001, seg[3]]),
+                     ("whole", seg)):
+        key = "one_kernel_header/%s" % name
+        errs[key] = check_one_kernel_header(
+            key, work, sg, table, segment_split(work, sg, table, kw))
+    return errs
+
+
+def phase_fused(dev, data, trees, leaves, per_iter, args, card,
+                profile=True):
+    """Phase 3d: the slice-10 path. Phase 3b's data and params through
+    ``lightgbm_tpu_torch.train`` with no valid set and no callback (fused
+    blocks; each tree one replay of the learner's CUDA graph: the root,
+    (split commit, one-kernel split) x (leaves - 1), a final commit and the
+    router), then the same with RESIDENT_PARAMS and with QUANT_PARAMS (the
+    host-loop builder inside the block). Launch counts are zeroed just
+    before each run and read just after: one_kernel_split(_resident) =
+    trees x (leaves - 1) (splits plus no-op tails), split_commit = trees x
+    leaves, no K3, the root histogram and the router once a tree. The
+    planes and resident models must hash to ONE_KERNEL_MODEL_SHA256 and
+    the quantized one to QUANT_MODEL_SHA256 (default sizes), valid AUC
+    from ``predict`` must equal phase 3b's (``per_iter["predict_auc"]``,
+    the same model's predictions). Prints the
+    wall per tree against ``per_iter`` (phase 3b's summary), launches per
+    split, the graph's capture ms and (``profile``) the busy share of one
+    profiled block. Returns (planes booster, {tag: launch counts},
+    summary)."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    summary = {}
+    counts_by = {}
+    keep = None
+    for tag, extra, want in (("planes", ONE_KERNEL_PARAMS,
+                              ONE_KERNEL_MODEL_SHA256),
+                             ("resident", RESIDENT_PARAMS,
+                              ONE_KERNEL_MODEL_SHA256),
+                             ("quantized", QUANT_PARAMS,
+                              QUANT_MODEL_SHA256)):
+        params = train_params(dev, leaves, extra)
+        train = lgt.Dataset(X, label=y, params=params)
+        train.construct()
+        sync(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(params, train, trees)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        g = bst.inner
+        if g._fused is None:
+            raise AssertionError("phase 3d %s: training did not take the "
+                                 "fused path" % tag)
+        text = bst.model_to_string()
+        s = dict(trees=trees, wall_s=wall, wall_per_tree_ms=wall / trees
+                 * 1e3, model_sha256=hashlib.sha256(text.encode())
+                 .hexdigest(), splits=sum(t.num_leaves - 1
+                                          for t in g.models))
+        check_model_sha("fused %s" % tag, s, args, want)
+        loop = g.learner._loop
+        if tag != "quantized":
+            one = "one_kernel_split" if tag == "planes" \
+                else "one_kernel_split_resident"
+            root = "segment_histogram" if tag == "planes" \
+                else "segment_histogram_resident"
+            want_counts = {one: trees * (leaves - 1),
+                           "split_commit": trees * leaves,
+                           root: trees, "route_rows": trees,
+                           "partition_segment": 0}
+            if dev.type == "cuda" and any(counts.get(k, 0) != v
+                                          for k, v in want_counts.items()):
+                raise AssertionError("fused %s launches %s, want %s"
+                                     % (tag, counts, want_counts))
+            if dev.type == "cuda":
+                if loop is None or loop.graph is None:
+                    raise AssertionError("fused %s: no device tree loop "
+                                         "graph" % tag)
+                s["capture_ms"] = loop.capture_ms
+                s["replay_launches"] = loop.replay_launches
+            s["launches_per_split"] = (counts.get(one, 0) + counts.get(
+                "split_commit", 0)) / max(1, s["splits"])
+            s["launches_per_tree"] = sum(counts.values()) / trees
+        elif loop is not None or counts.get("split_commit", 0):
+            raise AssertionError("fused quantized: the device loop ran")
+        auc = auc_np(yv, bst.predict(Xv))
+        s["valid_auc"] = auc
+        same = tag == "quantized" or auc == per_iter["predict_auc"]
+        log("fused %s (%s): %d trees x %d leaves on %d rows in %.2f s "
+            "(%.1f ms/tree; per-iteration phase 3b %.1f ms/tree), %d splits;"
+            " graph capture %s ms; launches per split %s; valid auc from "
+            "predict %.7f (phase 3b %.7f); launches %s"
+            % (tag, card, trees, leaves, len(X), wall,
+               s["wall_per_tree_ms"], per_iter["wall_per_tree_ms"],
+               s["splits"], s.get("capture_ms"),
+               s.get("launches_per_split"), auc, per_iter["predict_auc"],
+               counts))
+        if not same:
+            raise AssertionError("fused %s valid auc %.7f vs phase 3b %.7f"
+                                 % (tag, auc, per_iter["predict_auc"]))
+        if profile and dev.type == "cuda" and tag != "quantized":
+            s["profile"] = profile_block(dev, train, leaves, extra)
+        summary[tag] = s
+        counts_by[tag] = counts
+        if tag == "planes":
+            keep = bst
+        del bst
+    p, r = summary["planes"], summary["resident"]
+    if p["model_sha256"] != r["model_sha256"]:
+        raise AssertionError("fused resident model differs from planes")
+    return keep, counts_by, summary
 
 
 def phase_serve(bst, train, rng, binned_rows):
@@ -3298,6 +3730,10 @@ def main(argv=None):
                     "print only the forest kernel against its twin and "
                     "its timings (full_width_forest) and the median "
                     "PredictSession.predict latency at REQUEST_ROWS")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="build, check the split commit and the one-kernel "
+                    "header, train phase 3b (per iteration) and phase 3d "
+                    "(fused blocks) and print only their summaries")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -3314,8 +3750,9 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     # importing the op modules registers their kernels
-    from lightgbm_tpu_torch.ops import (forest, histogram,  # noqa: F401
-                                        kernels, partition, route)
+    from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
+                                        histogram, kernels, partition,
+                                        route)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3401,6 +3838,30 @@ def main(argv=None):
         log(card)
         return 0
 
+    if args.fused_only:
+        import numpy as np
+        errs = phase_commit_kernel(dev, np.random.RandomState(args.seed + 23))
+        errs.update(phase_one_kernel_header(
+            dev, np.random.RandomState(args.seed + 29)))
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        bst_k, counts_k, summary_k = phase_train(
+            dev, build_datasets(dev, data, args.leaves, ONE_KERNEL_PARAMS),
+            args.trees, args.leaves, ONE_KERNEL_PARAMS)
+        check_model_sha("one-kernel", summary_k, args, ONE_KERNEL_MODEL_SHA256)
+        summary_k["predict_auc"] = auc_np(data[3], bst_k.predict(data[2]))
+        del bst_k
+        bst_f, counts_f, summary_f = phase_fused(
+            dev, data, args.trees, args.leaves, summary_k, args, card)
+        rows = full_width_commit(bst_f, dev, errs)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        print(json.dumps({"fused": summary_f, "split_commit": rows,
+                          "per_iteration_wall_per_tree_ms":
+                              summary_k["wall_per_tree_ms"],
+                          "launches": counts_f}, default=str))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -3420,6 +3881,10 @@ def main(argv=None):
         dev, np.random.RandomState(args.seed + 11)))
     errs.update(phase_forest_kernels(dev,
                                      np.random.RandomState(args.seed + 17)))
+    errs.update(phase_commit_kernel(dev,
+                                    np.random.RandomState(args.seed + 23)))
+    errs.update(phase_one_kernel_header(
+        dev, np.random.RandomState(args.seed + 29)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -3447,6 +3912,7 @@ def main(argv=None):
     bst_k, counts_k, summary_k = phase_one_kernel_train(
         dev, data, args.trees, args.leaves, summary_p, args.host_rows)
     check_model_sha("one-kernel", summary_k, args, ONE_KERNEL_MODEL_SHA256)
+    summary_k["predict_auc"] = auc_np(data[3], bst_k.predict(data[2]))
 
     log("== phase 3c: full-width training, resident layout, one kernel "
         "per split (%s)" % card)
@@ -3463,6 +3929,14 @@ def main(argv=None):
         rows[name]["%sstamps_ms" % ("deep_" if tag == "deep" else "")] = \
             breakdown[tag][mode][0]
     del bst_r
+
+    log("== phase 3d: full-width training in fused blocks, the device tree "
+        "loop as one CUDA graph per tree (%s)" % card)
+    bst_f, counts_f, summary_f = phase_fused(dev, data, args.trees,
+                                             args.leaves, summary_k, args,
+                                             card)
+    rows.update(full_width_commit(bst_f, dev, errs))
+    del bst_f
 
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
@@ -3535,7 +4009,8 @@ def main(argv=None):
                 "segment_histogram_resident":
                     counts_rs["segment_histogram_resident"],
                 "write_route_plane":
-                    summary_rs["three_launch"]["write_route_plane"]}
+                    summary_rs["three_launch"]["write_route_plane"],
+                "split_commit": counts_f["planes"]["split_commit"]}
     log("launches: planes training %s; one-kernel training %s; resident "
         "training %s; quantized training %s; rows run %s; serving %s"
         % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
@@ -3543,6 +4018,7 @@ def main(argv=None):
     log("train summary one-kernel %s" % json.dumps(summary_k))
     log("train summary resident %s" % json.dumps(summary_rs))
     log("train summary quantized %s" % json.dumps(summary_q))
+    log("train summary fused %s" % json.dumps(summary_f, default=str))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}
     log(card)

@@ -4,8 +4,10 @@ A :class:`GBDT` trains an ensemble and serves it. Training (plain GBDT,
 reference: gbdt.cpp:369 TrainOneIter) runs the objective's gradients, one
 :class:`~lightgbm_tpu_torch.learner.SerialTreeLearner` tree per class and
 device-side score updates for the training set and every valid set, one
-iteration at a time; the fused K-iteration block of the JAX package is
-later work (ROADMAP A9), so ``supports_fused()`` is False. Bagging,
+iteration at a time, or, with no valid set and no per-iteration
+observation, K iterations per fused block (``fused.FusedTrainer``,
+``train_block`` / ``finish_fused``; every reader of the model finalizes
+the block in flight first). Bagging,
 balanced bagging, GOSS and ``feature_fraction < 1`` draw their masks from
 the port's threefry (``fused.py``, ``prng.py``) exactly as the JAX package
 draws them; DART, RF and linear-tree training wait in A10 and raise.
@@ -154,6 +156,7 @@ class GBDT:
         return ts
 
     def add_valid(self, name: str, valid_set: BinnedDataset) -> None:
+        self.finish_fused("add_valid")
         vs = self._fresh_tracker(valid_set)
         # replay already-trained trees (continued training)
         for i, tree in enumerate(self.models):
@@ -210,14 +213,41 @@ class GBDT:
             return self._fmask
         return self._fmask_fn(it)
 
+    # ---------------------------------------------------------- fused blocks
     def supports_fused(self) -> bool:
-        """The fused K-iteration block is ROADMAP A9."""
-        return False
+        """True when K iterations can run as one fused block (no
+        per-iteration host observation needed): plain GBDT, a built-in
+        objective without leaf renewal, no valid sets (the JAX package's
+        conditions; its mesh learner has no counterpart here)."""
+        return (type(self) is GBDT
+                and not self.config.linear_tree
+                and self.objective is not None
+                and self.objective.name != "none"
+                and not self.objective.need_renew
+                and not self.valid_sets
+                and self.train_set is not None)
+
+    def train_block(self, k: int) -> bool:
+        """Train k iterations as one fused block (see fused.py). Returns
+        True when training should stop."""
+        if getattr(self, "_fused", None) is None:
+            from .fused import FusedTrainer
+            self._fused = FusedTrainer(self)
+        return self._fused.run(k)
+
+    def finish_fused(self, reason: str = "unspecified") -> bool:
+        """Finalize any in-flight fused block (its host trees). ``reason``
+        names the calling reader for the ``fused/flush/<reason>``
+        counters."""
+        if getattr(self, "_fused", None) is None:
+            return False
+        return self._fused.flush(reason)
 
     # --------------------------------------------------------------- training
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (reference: gbdt.cpp:369 TrainOneIter).
         Returns True when no tree could be grown (all-stop signal)."""
+        self.finish_fused("train_one_iter")
         it = self.iter_
         K = self.num_tree_per_iteration
         if grad is None:
@@ -238,33 +268,37 @@ class GBDT:
             tree = self._finalize_tree(log, k)
             with self._cache_lock:
                 self.models.append(tree)
-            splits = tree.num_leaves - 1
-            telemetry.count("tree/trees")
-            telemetry.count("tree/splits", splits)
-            telemetry.count("tree/leaves", tree.num_leaves)
-            # launches: one partition and one smaller-child histogram per
-            # split, plus one root histogram per tree on either layout (the
-            # JAX planes pack folds its root into the pack pass; the
-            # port's pack is a torch copy and the root its own launch).
-            # The one-kernel split is one launch per split, counted as a
-            # partition launch as the JAX package counts it. The resident
-            # layout's three-launch path gathers the route plane before
-            # each partition: one route-gather launch more per split.
-            kw = self.learner._kw
-            one = kw["split_kernel"] == "on"
-            telemetry.count("learner/partition_launches", splits)
-            telemetry.count("learner/hist_launches", 1 if one else splits + 1)
-            telemetry.count("learner/scan_launches", 0 if one else splits)
-            if kw["work_layout"] == "resident" and not one:
-                telemetry.count("learner/route_gather_launches", splits)
-            telemetry.gauge("learner/launches_per_split",
-                            launches_per_split(kw["work_layout"], one))
+            self._count_tree(tree)
             if tree.num_leaves > 1:
                 any_nonconstant = True
         with self._cache_lock:
             self.iter_ += 1
             self._bump_model_version()
         return not any_nonconstant
+
+    def _count_tree(self, tree: Tree) -> None:
+        """Growth and launch counters of one finished tree."""
+        splits = tree.num_leaves - 1
+        telemetry.count("tree/trees")
+        telemetry.count("tree/splits", splits)
+        telemetry.count("tree/leaves", tree.num_leaves)
+        # launches: one partition and one smaller-child histogram per
+        # split, plus one root histogram per tree on either layout (the
+        # JAX planes pack folds its root into the pack pass; the port's
+        # pack is a torch copy and the root its own launch). The one-kernel
+        # split is one launch per split, counted as a partition launch as
+        # the JAX package counts it. The resident layout's three-launch
+        # path gathers the route plane before each partition: one
+        # route-gather launch more per split.
+        kw = self.learner._kw
+        one = kw["split_kernel"] == "on"
+        telemetry.count("learner/partition_launches", splits)
+        telemetry.count("learner/hist_launches", 1 if one else splits + 1)
+        telemetry.count("learner/scan_launches", 0 if one else splits)
+        if kw["work_layout"] == "resident" and not one:
+            telemetry.count("learner/route_gather_launches", splits)
+        telemetry.gauge("learner/launches_per_split",
+                        launches_per_split(kw["work_layout"], one))
 
     def _shrinkage_rate(self, log: TreeLog) -> float:
         return float(self.config.learning_rate)
@@ -292,6 +326,7 @@ class GBDT:
 
     def rollback_one_iter(self) -> None:
         """(reference: gbdt.cpp:454 RollbackOneIter)"""
+        self.finish_fused("rollback_one_iter")
         if self.iter_ <= 0:
             return
         with self._cache_lock:
@@ -353,12 +388,15 @@ class GBDT:
 
     @property
     def current_iteration(self) -> int:
+        self.finish_fused("current_iteration")
         return self.iter_
 
     def num_trees(self) -> int:
+        self.finish_fused("num_trees")
         return len(self.models)
 
     def save_model(self, filename: str, num_iteration: int = -1) -> None:
+        self.finish_fused("save_model")
         with open(filename, "w") as f:
             f.write(self.model_to_string(num_iteration))
 
@@ -427,6 +465,7 @@ class GBDT:
         with a single version bump, so every concurrent PredictSession
         sees the old ensemble or the new one whole. Returns a rollback
         token for :meth:`restore`."""
+        self.finish_fused("adopt")
         with self._cache_lock:
             snap = (list(self.models), self.init_scores.copy(), self.iter_,
                     self.best_iteration)
@@ -455,6 +494,7 @@ class GBDT:
         ``serve/pack_hit``)."""
         from .ops.predict import pack_splits
 
+        self.finish_fused("packed_model")
         with self._cache_lock:
             key = (start, end, self._model_version)
             hit = self._pack_cache.get(key)
@@ -498,6 +538,7 @@ class GBDT:
         from .ops.forest import (FOREST_VMEM_BUDGET, forest_pack,
                                  forest_table_bytes, forest_walk)
 
+        self.finish_fused("forest_model")
         with self._cache_lock:
             key = (start, end, self._model_version)
             hit = self._forest_cache.get(key)
@@ -539,6 +580,7 @@ class GBDT:
         """Lazily created serving session per iteration range."""
         from .serve.session import PredictSession
 
+        self.finish_fused("predict_session")
         with self._cache_lock:
             sess = self._serve_sessions.get((start, end))
             if sess is None:
@@ -607,6 +649,7 @@ class GBDT:
     def predict(self, X: np.ndarray, *, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1,
                 pred_leaf: bool = False) -> np.ndarray:
+        self.finish_fused("predict")
         X = np.asarray(X, dtype=np.float64)
         n = X.shape[0]
         K = self.num_tree_per_iteration
@@ -633,6 +676,7 @@ class GBDT:
     # ------------------------------------------------------------- model IO
     def model_to_string(self, num_iteration: int = -1) -> str:
         """(reference: gbdt_model_text.cpp:400 SaveModelToString)"""
+        self.finish_fused("model_to_string")
         cfg = self.config
         K = self.num_tree_per_iteration
         with self._cache_lock:
@@ -719,6 +763,7 @@ class GBDT:
     def feature_importance(self, importance_type: str = "split",
                            iteration: int = -1) -> np.ndarray:
         """(reference: GBDT::FeatureImportance, gbdt.cpp)"""
+        self.finish_fused("feature_importance")
         with self._cache_lock:
             models = list(self.models)
         nf = self.train_set.num_total_features if self.train_set else (

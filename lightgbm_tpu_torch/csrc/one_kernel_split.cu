@@ -7,13 +7,19 @@
 // _one_kernel_split_kernel), in both of its modes: planes (entry point
 // one_kernel_split) and resident (entry point one_kernel_split_resident,
 // the TPU kernel's resident_planes argument). Same contract: work is the
-// (2, W, Npad) u8 plane pair of ops/partition.py; seg = [src, start, cnt,
-// col]; the parent's rows [start, start + cnt) of plane src are routed
-// into plane 1 - src by the (B,) go-left table, left rows first; the
-// smaller child (the left one when left_smaller) gets a fresh histogram,
-// the larger one is parent minus smaller; then ops/split.find_best_split
-// runs on both children with node_depth = depth, and each child's
-// SplitInfo is written out.
+// (2, W, Npad) u8 plane pair of ops/partition.py. The split's scalars are
+// read on the card from a device header hdr = [src, start, cnt, col,
+// left_smaller, depth, live, parent_slot] (ops/partition.ONE_KERNEL_HDR):
+// the parent's rows [start, start + cnt) of plane src are routed into plane
+// 1 - src by the (B,) go-left table, left rows first; the smaller child
+// (the left one when left_smaller) gets a fresh histogram, the larger one
+// is the parent (row parent_slot of the histogram pool) minus smaller; then
+// ops/split.find_best_split runs on both children with node_depth = depth,
+// and each child's SplitInfo is written into the caller's buffers. When
+// live is 0 every block returns before its first grid barrier (all blocks
+// read the same word) and nothing is written: the device tree loop
+// (learner.DeviceTreeLoop) launches a fixed number of splits per tree
+// and a tree that stops early runs the rest as such no-ops.
 //
 // Resident mode: work is the slim pair (W = 17, csrc/resident.cuh) and
 // col is the split column of the resident bin planes res (F, npad_res).
@@ -67,10 +73,10 @@
 // blocks, the histogram needs the routed rows, the scan needs the whole
 // histogram, and on Hopper nothing carries from block to block without a
 // grid barrier, a ticket or another launch. A launch with <<<>>> would
-// leave grid.sync() undefined; the entry point launches with
-// cudaLaunchCooperativeKernel and sizes the grid to the blocks that fit
-// on the card at once (occupancy x SMs, queried once per device and
-// shared-memory size).
+// leave grid.sync() undefined; the entry point launches with the
+// cooperative launch attribute (cudaLaunchKernelEx, which a CUDA graph
+// captures) and sizes the grid to the blocks that fit on the card at once
+// (occupancy x SMs, queried once per device and shared-memory size).
 //
 // What bounds it on this card: bytes at the root, latency on small
 // segments. The function must read and write each parent row once (80 B
@@ -106,9 +112,10 @@ namespace cg = cooperative_groups;
 // Field order and types must match ops/partition.py OneKernelArgs.
 struct OneKernelArgs {
   uint8_t* work;
-  const int32_t* seg;          // [src, start, cnt, col]
+  const int32_t* hdr;          // (8,) [src, start, cnt, col, left_smaller,
+                               //  depth, live, parent_slot]
   const uint8_t* table;        // (table_bins,) bool
-  const float* parent;         // (F, B, 3)
+  const float* parent;         // (., F, B, 3) pool, row hdr[7] the parent
   const int32_t* num_bins;     // FeatureMeta columns, (F,) each
   const uint8_t* movable;
   const int32_t* missing_bin;
@@ -142,7 +149,7 @@ struct OneKernelArgs {
   float* right_output;
   const uint8_t* res;          // resident mode: (F, npad_res) bin planes
   uint64_t* stamps;            // null, or (grid, kStamps) %globaltimer ns
-  int32_t W, npad, table_bins, left_smaller, depth, F, B, nch, groups,
+  int32_t W, npad, table_bins, F, B, nch, groups,
       max_cat_to_onehot, has_categorical, has_monotone, use_mono_penalty,
       npad_res;
   float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
@@ -334,9 +341,10 @@ __device__ __forceinline__ ScanSmem scan_smem(float* smem) {
 }
 
 // The monotone depth penalty of find_best_split for node depth d.
-__device__ __forceinline__ float depth_penalty(const OneKernelArgs& a) {
+__device__ __forceinline__ float depth_penalty(const OneKernelArgs& a,
+                                               int depth) {
   const float p = a.monotone_penalty;
-  const float d = (float)a.depth;
+  const float d = (float)depth;
   if (p >= d + 1.f) return kEpsilon;
   if (p <= 1.f) return (1.f - p / powf(2.f, d)) + kEpsilon;
   return (1.f - powf(2.f, (p - 1.f) - d)) + kEpsilon;
@@ -346,7 +354,7 @@ __device__ __forceinline__ float depth_penalty(const OneKernelArgs& a) {
 // row (g, h, cnt) of bin threadIdx.x is hv (zero past B); writes each
 // kind's first maximum (gain after the live test and penalties, bin), the
 // per-bin default-left flags and the many-vs-many ranks.
-__device__ void scan_feature(const OneKernelArgs& a, int c, int f,
+__device__ void scan_feature(const OneKernelArgs& a, int c, int f, int depth,
                              float* smem, const float hv[3]) {
   const ScanSmem s = scan_smem(smem);
   const int B = a.B, F = a.F;
@@ -477,7 +485,7 @@ __device__ void scan_feature(const OneKernelArgs& a, int c, int f,
   const bool fm = a.fmask[f] != 0;
   const float pen_f = a.penalty[f];
   const bool mono_pen = a.use_mono_penalty && mono != 0;
-  const float dpen = mono_pen ? depth_penalty(a) : 1.f;
+  const float dpen = mono_pen ? depth_penalty(a, depth) : 1.f;
   const float stacked[4] = {num, oh, mvm[0], mvm[1]};
   for (int kind = 0; kind < 4; ++kind) {
     const float v = stacked[kind];
@@ -586,7 +594,9 @@ __device__ void finish_child(const OneKernelArgs& a, int c, float* smem) {
 // it in hv (zero past B).
 template <int kNch>
 __device__ __forceinline__ void child_bins(const OneKernelArgs& a, int c,
-                                           int f, int chunks, float hv[3]) {
+                                           int f, int chunks,
+                                           bool left_smaller,
+                                           const float* parent, float hv[3]) {
   const int b = threadIdx.x;
   hv[0] = hv[1] = hv[2] = 0.f;
   if (b >= a.B) return;
@@ -617,11 +627,11 @@ __device__ __forceinline__ void child_bins(const OneKernelArgs& a, int c,
   const float small[3] = {kNch == 5 ? v[0] + v[1] : v[0],
                           kNch == 5 ? v[2] + v[3] : v[1],
                           kNch == 5 ? v[4] : v[2]};
-  const bool is_small = (c == 0) == (a.left_smaller != 0);
+  const bool is_small = (c == 0) == left_smaller;
   float* out = (c == 0 ? a.hist_left : a.hist_right) + fb * 3;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    hv[k] = is_small ? small[k] : a.parent[fb * 3 + k] - small[k];
+    hv[k] = is_small ? small[k] : parent[fb * 3 + k] - small[k];
     out[k] = hv[k];
   }
 }
@@ -648,9 +658,12 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   __shared__ int s_warp[kPartWarps];
   __shared__ int s_red[kWarps];
   __shared__ int s_last;
-  const int src = a.seg[0], start = a.seg[1], cnt = a.seg[2];
-  // resident: seg[3] is the resident column, the partition routes plane 0
-  const int col = kResident ? lgbt_res::kRoute : a.seg[3];
+  // every block reads the same word: a no-op split leaves the whole grid
+  // before its first barrier
+  if (a.hdr[6] == 0) return;
+  const int src = a.hdr[0], start = a.hdr[1], cnt = a.hdr[2];
+  // resident: hdr[3] is the resident column, the partition routes plane 0
+  const int col = kResident ? lgbt_res::kRoute : a.hdr[3];
   uint8_t* srcp = a.work + (size_t)src * a.W * a.npad;
   uint8_t* dstp = a.work + (size_t)(1 - src) * a.W * a.npad;
   const int ntiles = (cnt + kPartTile - 1) / kPartTile;
@@ -662,7 +675,7 @@ one_kernel_split_kernel(const OneKernelArgs a) {
     if (kResident) {
       // the tile's 4096 rows are at most 1025 words: 5 per thread
       lgbt_res::route_gather<5>(
-          srcp, a.npad, start, cnt, a.res, a.npad_res, a.seg[3],
+          srcp, a.npad, start, cnt, a.res, a.npad_res, a.hdr[3],
           (long)t * kPartTile, (long)(t + 1) * kPartTile, threadIdx.x,
           kThreads);
       __syncthreads();   // the tile's route bytes are written
@@ -686,8 +699,11 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   stamp(a, 4);
 
   // ---- B. the smaller child's chunk partials, sized by its true count ----
-  const int small_start = a.left_smaller ? start : start + lt;
-  const int small_cnt = a.left_smaller ? lt : cnt - lt;
+  // (the header's other words are read where they are used, so that no
+  // register holds them across the phases)
+  const bool left_smaller = a.hdr[4] != 0;
+  const int small_start = left_smaller ? start : start + lt;
+  const int small_cnt = left_smaller ? lt : cnt - lt;
   const int chunks = hist_chunks(small_cnt);
   // the groups of a chunk are neighbouring items: blocks in flight share
   // the chunk's rows in L2
@@ -710,11 +726,14 @@ one_kernel_split_kernel(const OneKernelArgs a) {
   // ---- C. per (child, feature): reduce, subtract, scan; then the block
   // that finishes the last item takes both children's winners ----
   bool last = false;
+  const bool small_left = a.hdr[4] != 0;
+  const int depth = a.hdr[5];
+  const float* parent = a.parent + (size_t)a.hdr[7] * a.F * a.B * 3;
   for (int it = blockIdx.x; it < 2 * a.F; it += gridDim.x) {
     const int c = it / a.F, f = it % a.F;
     float hv[3];
-    child_bins<kNch>(a, c, f, chunks, hv);
-    scan_feature(a, c, f, smem, hv);
+    child_bins<kNch>(a, c, f, chunks, small_left, parent, hv);
+    scan_feature(a, c, f, depth, smem, hv);
     __threadfence();     // this item's outputs are visible grid-wide
     __syncthreads();
     if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == 2 * a.F - 1;
@@ -775,11 +794,20 @@ int launch_nch(const OneKernelArgs& a, void* stream) {
   int grid = 0;
   cudaError_t e = cooperative_grid<kResident, kNch>(smem, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* kargs[] = {const_cast<OneKernelArgs*>(&a)};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(one_kernel_split_kernel<kResident, kNch>),
-      dim3(grid), dim3(kThreads), kargs, smem,
-      static_cast<cudaStream_t>(stream));
+  // cudaLaunchKernelEx with the cooperative attribute: the same launch as
+  // cudaLaunchCooperativeKernel, and one that stream capture records as a
+  // cooperative kernel node of a CUDA graph
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, one_kernel_split_kernel<kResident, kNch>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

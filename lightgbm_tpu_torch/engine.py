@@ -1,9 +1,11 @@
 """Training entry point (PyTorch port of ``lightgbm_tpu/engine.py``;
 reference: python-package/lightgbm/engine.py:14 train).
 
-The port runs the JAX package's eager loop, one ``Booster.update`` per
-iteration with callbacks and valid-set evaluation between iterations. The
-fused K-iteration block (ROADMAP A9) and ``cv`` are later work.
+With no custom objective or eval, no valid set and no user callback, the
+booster trains in fused blocks of ``tpu_iter_block`` iterations
+(``fused.FusedTrainer``; the JAX package's fast path). Otherwise the
+eager loop runs, one ``Booster.update`` per iteration with callbacks and
+valid-set evaluation between iterations. ``cv`` is later work.
 """
 from __future__ import annotations
 
@@ -72,9 +74,12 @@ def train(
         callbacks.append(early_stopping(
             int(early_rounds),
             first_metric_only=bool(params.get("first_metric_only", False))))
+    auto_callbacks = []
     if int(params.get("verbosity", 1)) > 0 \
             and not any(getattr(c, "order", None) == 10 for c in callbacks):
-        callbacks.append(log_evaluation(int(params.get("metric_freq", 1))))
+        auto_callbacks.append(log_evaluation(int(params.get("metric_freq",
+                                                            1))))
+        callbacks.extend(auto_callbacks)
     callbacks_before = sorted(
         (c for c in callbacks if getattr(c, "before_iteration", False)),
         key=lambda c: getattr(c, "order", 0))
@@ -84,6 +89,14 @@ def train(
 
     begin = booster.inner.iter_
     end = begin + num_boost_round
+    # fused fast path: no per-iteration observation -> K iterations per
+    # block (only the engine's own log_evaluation is inert without valid
+    # sets; any user-supplied callback disables fusing)
+    user_callbacks = [c for c in callbacks if c not in auto_callbacks]
+    if (fobj is None and feval is None and not valid_sets
+            and not user_callbacks and booster.inner.supports_fused()):
+        _train_fused(booster, begin, end)
+        return booster
     for it in range(begin, end):
         for cb in callbacks_before:
             cb(CallbackEnv(booster, params, it, begin, end, None, telemetry))
@@ -110,3 +123,38 @@ def train(
     with booster.inner._cache_lock:
         booster.inner.best_iteration = booster.best_iteration
     return booster
+
+
+def _train_fused(booster: Booster, begin: int, end: int) -> None:
+    """Iterations [begin, end) in fused blocks of ``tpu_iter_block``
+    (the JAX package's engine fast path)."""
+    inner = booster.inner
+    block = int(inner.config.tpu_iter_block)
+    stopped = False
+    scheduled = begin       # iter_ lags by the in-flight pipelined block
+    try:
+        while scheduled < end:
+            k = min(block, end - scheduled)
+            stopped = inner.train_block(k)
+            if stopped:
+                break
+            scheduled += k
+    except BaseException:
+        # best-effort cleanup; never mask the primary error
+        try:
+            inner.finish_fused("train_error")
+        except BaseException:
+            pass
+        raise
+    else:
+        # the host trees are built one block behind the device: finalize
+        # the block in flight
+        stopped = inner.finish_fused("train_end") or stopped
+    if stopped:
+        Log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+    booster.best_iteration = inner.iter_
+    # adopt()/restore() update this field from watcher threads under the
+    # model lock; take it here too so the field has one guard
+    with inner._cache_lock:
+        inner.best_iteration = booster.best_iteration

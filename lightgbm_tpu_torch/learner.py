@@ -25,7 +25,11 @@ device. What the host needs to issue a split (the chosen leaf, whether its
 gain is positive, the parent segment, the split column, which child is
 smaller) comes back in ONE device->host transfer per split; the kernels
 read their segment arguments from device tensors and the host sizes their
-grids from the parent's row count.
+grids from the parent's row count. With the one-kernel split on data with
+no categorical feature, :class:`DeviceTreeLoop` grows the same tree with
+no transfer at all: a fixed sequence of (split commit, one-kernel split)
+launches that read their scalars on the card, one CUDA graph per tree
+(the fused blocks of ``fused.py`` use it).
 
 Only the serial learner is ported (:class:`Comm` is its identity seam);
 the data/feature/voting learners are later work (ROADMAP A11).
@@ -282,7 +286,8 @@ def build_tree_partitioned(
                                 pack_resident_fold_root, pack_rows,
                                 pack_rows_quantized, partition_segment,
                                 partition_segment_rows, quantize_scales,
-                                work_buffer, work_spec, write_route_plane)
+                                split_out, split_pair, work_buffer,
+                                work_spec, write_route_plane)
     from .ops.split import calc_leaf_output
     from .prng import fold_in
 
@@ -373,6 +378,10 @@ def build_tree_partitioned(
                                           num_bins=bm, num_feat=num_grp,
                                           exact=exact, cnt_max=n,
                                           resident=resident)
+        split_bufs = split_out(num_grp, bm, dev)
+        one = torch.ones(1, dtype=i32, device=dev)
+        # the split's header ONE_KERNEL_HDR from hdr below + [depth, live]
+        hdr_cols = torch.tensor([2, 0, 1, 3, 6, 7, 8, 4], device=dev)
 
     def feat_view(hg, total_sum):
         """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature
@@ -494,10 +503,18 @@ def build_tree_partitioned(
 
         if one_kernel:
             # ---- ONE launch: partition + smaller-child histogram + the
-            # split scan of both children (bounds and outputs set above)
-            lt, hist_left, hist_right, infos = one_kernel_split(
-                seg, i_go, left_smaller, d, hist_pool[leaf], pair_sum,
-                pair_out, pair_lo, pair_up, cnt_bound=cnt)
+            # split scan of both children (bounds and outputs set above),
+            # its scalars read on the card from a header built there
+            k_hdr = torch.cat([hdr, torch.full((1,), d, dtype=i32,
+                                               device=dev), one]) \
+                .index_select(0, hdr_cols)
+            one_kernel_split.split(k_hdr, i_go, hist_pool,
+                                   split_pair(pair_sum, pair_out, pair_lo,
+                                              pair_up), split_bufs,
+                                   lanes=(start, start + cnt))
+            lt = split_bufs.lt
+            hist_left, hist_right = split_bufs.hists[0], split_bufs.hists[1]
+            infos = split_bufs.infos()
         else:
             # ---- physical partition of the parent's segment ----
             lt = part_fn(work, seg, route_table(i_go, i_feat), cnt)
@@ -553,6 +570,188 @@ def build_tree_partitioned(
         stats["num_splits"] = ns
         stats["row_leaf"] = row_leaf
     return log._replace(row_leaf=row_leaf)
+
+
+class DeviceTreeLoop:
+    """The device tree loop: one leaf-wise tree with no read back to the
+    host between its root and its log (the JAX builder's
+    ``lax.while_loop``, ``lightgbm_tpu/learner.py``), for the one-kernel
+    split (``split_kernel="on"``, planes or resident layout) on data with
+    no categorical feature.
+
+    A tree is a fixed sequence: the root (the pack and its histogram, the
+    root's split scan), then ``num_leaves - 1`` pairs of a split commit
+    (``ops/commit.split_commit``: apply the last split, pick the next one,
+    write its header) and a one-kernel split that reads that header on the
+    card (``ops/partition.OneKernelSplit.split``), a final commit, and the
+    row router (``ops/route.route_rows``) with the device ``num_splits``.
+    A tree that stops early runs its remaining splits as ``live = 0``
+    no-ops. The trees and logs equal :func:`build_tree_partitioned`'s with
+    the same arguments, field by field.
+
+    The inputs are static buffers (``ghc``, ``fmask``): :meth:`run` copies
+    a tree's into them. On the card the sequence is captured once as one
+    CUDA graph (after one eager tree, which sets up every launch's lazy
+    state) and replayed per tree; the kernels' launch counts are counted
+    at capture and added per replay (``ops/kernels.capture_launches``).
+    A failed capture or launch raises. On host tensors the sequence runs
+    eagerly through the kernels' plain twins, which read nothing back
+    either. The returned log aliases the loop's buffers: the next tree
+    overwrites it.
+    """
+
+    def __init__(self, bins: torch.Tensor, meta, hp, *, num_leaves: int,
+                 num_bin: int, max_depth: int = -1,
+                 num_bin_hist: Optional[int] = None,
+                 hist_mode: str = "hilo", work_layout: str = "planes",
+                 bins_t: Optional[torch.Tensor] = None,
+                 work: Optional[torch.Tensor] = None) -> None:
+        from .ops.commit import SplitCommit, tree_state
+        from .ops.partition import (OneKernelSplit, root_segment, split_out,
+                                    work_buffer, work_spec)
+
+        dev = bins.device
+        n, num_grp = bins.shape
+        bm = num_bin_hist if num_bin_hist is not None else num_bin
+        bad = split_kernel_ineligible(work_layout=work_layout,
+                                      hist_mode=hist_mode, bundle=None,
+                                      num_bin_hist=bm, num_bin=num_bin,
+                                      comm=Comm(), hp=hp)
+        if hp.has_categorical:
+            bad.append("categorical trees route through the plain router")
+        if bad:
+            raise ValueError("the device tree loop cannot run here: "
+                             + "; ".join(bad))
+        self.bins, self.meta, self.hp = bins, meta, hp
+        self.n, self.num_grp, self.bm = n, num_grp, bm
+        self.num_leaves = num_leaves
+        self.exact = hist_mode != "bf16"
+        self.bins_t = bins_t if bins_t is not None else route_layout(bins)
+        self.resident = self.bins_t.reshape(num_grp, -1) \
+            if work_layout == "resident" else None
+        self.guard, _ = work_spec(num_grp, False, work_layout)
+        self.work = work if work is not None else work_buffer(
+            n, num_grp, work_layout, False, dev)
+        self.ghc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        self.fmask = torch.ones(int(meta.num_bins.shape[0]),
+                                dtype=torch.bool, device=dev)
+        self.state = tree_state(num_leaves, num_grp, bm, dev)
+        self.out = split_out(num_grp, bm, dev)
+        self.split = OneKernelSplit(self.work, meta, self.fmask, hp,
+                                    num_bins=bm, num_feat=num_grp,
+                                    exact=self.exact, cnt_max=n,
+                                    resident=self.resident)
+        self.commit = SplitCommit(self.state, self.out, max_depth=max_depth,
+                                  monotone=meta.monotone,
+                                  has_monotone=hp.has_monotone)
+        self.cuda = dev.type == "cuda"
+        self.root_seg = root_segment(self.guard, n, dev) if self.cuda \
+            else None
+        self.graph = None
+        self._warm = False
+        self._graph_log: Optional[TreeLog] = None
+        #: launches of one replay, per kernel (the capture's tally)
+        self.replay_launches: Dict[str, int] = {}
+        #: wall ms of the capture, once it ran
+        self.capture_ms: Optional[float] = None
+
+    def root(self) -> None:
+        """The state of a tree after its root, from the static inputs: the
+        pack and the root histogram, the root's sums, output and best
+        split."""
+        from .ops.commit import reset_tree_state
+        from .ops.partition import (pack_planes_fold_root,
+                                    pack_resident_fold_root)
+        from .ops.split import calc_leaf_output, find_best_split
+
+        st, hp, meta = self.state, self.hp, self.meta
+        ghc = self.ghc
+        reset_tree_state(st, self.guard, self.n)
+        if self.resident is not None:
+            root_hist = pack_resident_fold_root(
+                self.work, self.resident, ghc, self.guard, num_bins=self.bm,
+                num_feat=self.num_grp, exact=self.exact, seg=self.root_seg)
+        else:
+            root_hist = pack_planes_fold_root(
+                self.work, self.bins, ghc, self.guard, num_bins=self.bm,
+                exact=self.exact, seg=self.root_seg)
+        root_sum = torch.sum(ghc, dim=0)
+        st.hist_pool[0] = root_hist
+        st.leaf_sum[0] = root_sum
+        st.leaf_out[0] = calc_leaf_output(root_sum[0], root_sum[1], hp)
+        root_info = find_best_split(
+            root_hist[None], root_sum[None], meta, self.fmask, hp,
+            parent_output=st.leaf_out[:1], leaf_lower=st.leaf_lower[:1],
+            leaf_upper=st.leaf_upper[:1], node_depth=0)
+        _set_best(st.best, slice(0, 1), root_info)
+
+    def splits(self, stop: int) -> None:
+        """Split slots ``[0, stop)``: a commit, then the one-kernel split
+        that reads the header it wrote."""
+        st = self.state
+        for s in range(stop):
+            self.commit(s)
+            self.split.split(st.hdr[s], st.log_go[s], st.hist_pool,
+                             st.pair[s], self.out)
+
+    def grow(self) -> TreeLog:
+        """One tree from the static inputs, every launch queued without a
+        read back to the host."""
+        from .ops.route import build_route_table, route_rows
+
+        st, meta = self.state, self.meta
+        self.root()
+        self.splits(self.num_leaves - 1)
+        self.commit(self.num_leaves - 1)
+        feat = st.log_feat.long()
+        log = TreeLog(
+            num_splits=st.num_splits, split_leaf=st.log_leaf,
+            feature=st.log_feat, bin=st.log_bin, kind=st.log_kind,
+            default_left=st.log_dl, gain=st.log_gain, left_sum=st.log_ls,
+            right_sum=st.log_rs, go_left=st.log_go,
+            miss_bin=meta.missing_bin[feat].to(torch.int32),
+            movable=meta.movable_missing[feat], leaf_value=st.leaf_out,
+            leaf_sum=st.leaf_sum, row_leaf=st.num_splits[:0])
+        row_leaf = route_rows(self.bins_t, build_route_table(log, None),
+                              st.num_splits)[:self.n]
+        return log._replace(row_leaf=row_leaf)
+
+    def run(self, ghc: torch.Tensor, fmask: torch.Tensor) -> TreeLog:
+        """One tree from ``ghc`` (N, 3) and ``fmask`` (F,): copied into
+        the static inputs, then the graph's replay on the card (the first
+        tree runs eagerly and the second captures), the eager sequence on
+        the host."""
+        from .ops import kernels
+
+        self.ghc.copy_(ghc)
+        self.fmask.copy_(fmask)
+        if not self.cuda:
+            return self.grow()
+        if not self._warm:
+            self._warm = True
+            return self.grow()      # sets up every launch's lazy state
+        if self.graph is None:
+            import time
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with kernels.capture_launches() as cap:
+                # relaxed: the kernels' entry points set function
+                # attributes (not stream work) while they are recorded
+                with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+                    self._graph_log = self.grow()
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.graph, self.replay_launches = graph, dict(cap.counts)
+        self.graph.replay()
+        kernels.add_launches(self.replay_launches)
+        return self._graph_log
+
+    def stats(self) -> dict:
+        """The last tree's per-leaf segment and histogram counts, split
+        count and routed rows (``build_tree_partitioned``'s ``stats``)."""
+        st = self.state
+        return {"leaf_cnt": st.seg_tab[:, 1].clone(),
+                "hist_cnt": st.hist_pool[:, 0, :, 2].sum(dim=1),
+                "num_splits": st.num_splits.clone()}
 
 
 def launches_per_split(work_layout: str, one_kernel: bool) -> int:
@@ -651,6 +850,7 @@ class SerialTreeLearner:
         self.comm = Comm()
         self._kw = self.build_kwargs()
         self._work = None
+        self._loop: Optional[DeviceTreeLoop] = None
         #: the last tree's per-leaf segment and histogram counts
         self.last_stats: dict = {}
 
@@ -920,6 +1120,46 @@ class SerialTreeLearner:
                                      bins_t=self.bins_t, work=self._work,
                                      stats=stats, **kw)
         self.last_stats = stats
+        return log
+
+    def device_loop_eligible(self) -> bool:
+        """Whether :meth:`train_device` can grow this learner's trees: the
+        one-kernel split resolved on and no categorical feature (then
+        :func:`assign_leaves` takes the router kernel)."""
+        kw = self._kw
+        return kw["split_kernel"] == "on" and not self.hp.has_categorical \
+            and kw["work_layout"] in ("planes", "resident")
+
+    def train_device(self, ghc: torch.Tensor,
+                     feature_mask: Optional[torch.Tensor] = None) -> TreeLog:
+        """One tree through the :class:`DeviceTreeLoop` (built once per
+        learner, a CUDA graph on the card): no read back to the host from
+        the root to the log, which lives on the device (a copy: the next
+        tree reuses the loop's buffers). Its log equals :meth:`train`'s."""
+        from .ops.partition import work_buffer
+
+        if not self.device_loop_eligible():
+            raise ValueError("the device tree loop needs tpu_split_kernel "
+                             "on and no categorical feature")
+        if feature_mask is None:
+            feature_mask = torch.ones(self.dataset.num_features,
+                                      dtype=torch.bool, device=self.device)
+        if self._loop is None:
+            kw = self._kw
+            if self._work is None:
+                self._work = work_buffer(self.bins.shape[0],
+                                         self.bins.shape[1],
+                                         kw["work_layout"], False,
+                                         self.device)
+            self._loop = DeviceTreeLoop(
+                self.bins, self.meta, self.hp, num_leaves=self.num_leaves,
+                num_bin=self.num_bin, max_depth=kw["max_depth"],
+                num_bin_hist=self.num_bin_hist, hist_mode=kw["hist_mode"],
+                work_layout=kw["work_layout"], bins_t=self.bins_t,
+                work=self._work)
+        log = self._loop.run(ghc, feature_mask)
+        log = TreeLog(*(t.clone() for t in log))
+        self.last_stats = dict(self._loop.stats(), row_leaf=log.row_leaf)
         return log
 
     def log_to_tree(self, log: TreeLog):

@@ -1,0 +1,296 @@
+"""The split commit: the bookkeeping between two one-kernel splits of the
+device tree loop (``learner.DeviceTreeLoop``).
+
+The JAX builder keeps a tree's state in the carry of one
+``lax.while_loop`` (``lightgbm_tpu/learner.py``, the split loop of
+``build_tree_partitioned``); the per-split host loop of this package keeps
+it in device tensors and updates it with torch ops between reads of one
+header. The device tree loop keeps the same state in a :class:`TreeState`
+and updates it with one launch per split, :func:`split_commit`: on a CUDA
+tensor the hand-written kernel ``csrc/split_commit.cu``, on a CPU tensor
+its plain twin :func:`split_commit_plain` (the host loop's torch code,
+written over device indices, with no read back to the host). Commit ``s``
+applies split ``s - 1``'s one-kernel outputs (``ops/partition.SplitOut``),
+picks split ``s`` (the first argmax of the best gains; live while the
+previous split ran and the gain is positive), records its log entry and
+writes header and pair row ``s`` that the one-kernel split reads. The
+kernel and its twin leave the state bit-equal.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .kernels import CudaKernel, register, stream_of
+from .partition import HDR_WORDS, PAIR_WORDS, check_on_card
+
+_P = ctypes.c_void_p
+#: the midpoint and bounds follow torch's arithmetic op by op
+COMMIT_KERNEL = register(CudaKernel(
+    "split_commit", "split_commit.cu", [_P, ctypes.c_int, _P],
+    flags=("-fmad=false",)))
+#: blocks of a commit launch: block 0 does the scalar work, all of them
+#: copy the two child histograms into the pool
+COMMIT_BLOCKS = 32
+
+
+class TreeState(NamedTuple):
+    """A tree's state on the device, for ``num_leaves`` = L leaves, F
+    features and B bins: the per-leaf tables, the best split of each leaf,
+    the split log and the one-kernel split's header and pair rows."""
+    seg_tab: torch.Tensor      # (L, 3) i32 start, cnt, parity
+    hist_pool: torch.Tensor    # (L, F, B, 3) f32
+    best_gain: torch.Tensor    # (L,) f32
+    best_feature: torch.Tensor  # (L,) i64
+    best_bin: torch.Tensor     # (L,) i64
+    best_kind: torch.Tensor    # (L,) i64
+    best_dl: torch.Tensor      # (L,) bool
+    best_go: torch.Tensor      # (L, B) bool
+    best_ls: torch.Tensor      # (L, 3) f32
+    best_rs: torch.Tensor      # (L, 3) f32
+    best_lo: torch.Tensor      # (L,) f32
+    best_ro: torch.Tensor      # (L,) f32
+    leaf_sum: torch.Tensor     # (L, 3) f32
+    leaf_out: torch.Tensor     # (L,) f32
+    leaf_lower: torch.Tensor   # (L,) f32
+    leaf_upper: torch.Tensor   # (L,) f32
+    depth: torch.Tensor        # (L,) i32
+    log_leaf: torch.Tensor     # (L-1,) i32
+    log_feat: torch.Tensor     # (L-1,) i32
+    log_bin: torch.Tensor      # (L-1,) i32
+    log_kind: torch.Tensor     # (L-1,) i32
+    log_dl: torch.Tensor       # (L-1,) bool
+    log_gain: torch.Tensor     # (L-1,) f32
+    log_ls: torch.Tensor       # (L-1, 3) f32
+    log_rs: torch.Tensor       # (L-1, 3) f32
+    log_go: torch.Tensor       # (L-1, B) bool
+    num_splits: torch.Tensor   # (1,) i32
+    hdr: torch.Tensor          # (L, HDR_WORDS) i32
+    pair: torch.Tensor         # (L, PAIR_WORDS) f32
+
+    @property
+    def best(self):
+        """The best-split table as an ``ops.split.SplitInfo`` of views."""
+        from .split import SplitInfo
+        return SplitInfo(self.best_gain, self.best_feature, self.best_bin,
+                         self.best_kind, self.best_dl, self.best_go,
+                         self.best_ls, self.best_rs, self.best_lo,
+                         self.best_ro)
+
+
+def tree_state(num_leaves: int, num_feat: int, num_bins: int,
+               device) -> TreeState:
+    """A :class:`TreeState`, allocated once and reset per tree
+    (:func:`reset_tree_state`)."""
+    L, F, B = num_leaves, num_feat, num_bins
+    f32, i32, i64, b = torch.float32, torch.int32, torch.int64, torch.bool
+
+    def z(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return TreeState(
+        seg_tab=z(L, 3, dtype=i32), hist_pool=z(L, F, B, 3),
+        best_gain=z(L), best_feature=z(L, dtype=i64), best_bin=z(L, dtype=i64),
+        best_kind=z(L, dtype=i64), best_dl=z(L, dtype=b),
+        best_go=z(L, B, dtype=b), best_ls=z(L, 3), best_rs=z(L, 3),
+        best_lo=z(L), best_ro=z(L), leaf_sum=z(L, 3), leaf_out=z(L),
+        leaf_lower=z(L), leaf_upper=z(L), depth=z(L, dtype=i32),
+        log_leaf=z(L - 1, dtype=i32), log_feat=z(L - 1, dtype=i32),
+        log_bin=z(L - 1, dtype=i32), log_kind=z(L - 1, dtype=i32),
+        log_dl=z(L - 1, dtype=b), log_gain=z(L - 1), log_ls=z(L - 1, 3),
+        log_rs=z(L - 1, 3), log_go=z(L - 1, B, dtype=b),
+        num_splits=z(1, dtype=i32), hdr=z(L, HDR_WORDS, dtype=i32),
+        pair=z(L, PAIR_WORDS))
+
+
+def reset_tree_state(st: TreeState, guard: int, n: int) -> None:
+    """The state of a tree before its root: every table at the host
+    loop's initial values, the root's segment ``(guard, n, 0)``. Fills
+    only (no host->device copy), so a CUDA graph holds it."""
+    for t in st:
+        t.zero_()
+    st.best_gain.fill_(float("-inf"))
+    st.leaf_lower.fill_(float("-inf"))
+    st.leaf_upper.fill_(float("inf"))
+    st.seg_tab[0, 0:1].fill_(guard)
+    st.seg_tab[0, 1:2].fill_(n)
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return t.index_select(0, idx)
+
+
+def _put(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+         live: torch.Tensor) -> None:
+    """t[idx] = val where ``live`` (a 0-d bool), else unchanged; ``idx``
+    a (1,) i64 device index."""
+    cur = t.index_select(0, idx)
+    t.index_copy_(0, idx, torch.where(live, val.to(t.dtype).reshape(
+        cur.shape), cur))
+
+
+def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
+                       monotone: torch.Tensor, has_monotone: bool) -> None:
+    """Plain torch twin of ``csrc/split_commit.cu``: commit ``s`` of the
+    tree in ``st`` from the one-kernel outputs ``out`` (the host loop's
+    bookkeeping, ``learner.build_tree_partitioned``, with every index and
+    condition kept on the device)."""
+    dev = st.best_gain.device
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    L = st.best_gain.shape[0]
+    if s > 0:
+        ph = st.hdr[s - 1].to(i64)
+        p_live = ph[6] != 0
+        leaf = ph[7].reshape(1)
+        new = torch.full((1,), s, dtype=i64, device=dev)
+        lt = out.lt.to(i64)[0]
+        start, cnt, npar = ph[1], ph[2], 1 - ph[0]
+        _put(st.seg_tab, new, torch.stack([start + lt, cnt - lt, npar]),
+             p_live)
+        old = _rows(st.seg_tab, leaf)[0].to(i64)
+        _put(st.seg_tab, leaf, torch.stack([old[0], lt, npar]), p_live)
+        _put(st.hist_pool, leaf, out.hists[0:1], p_live)
+        _put(st.hist_pool, new, out.hists[1:2], p_live)
+        infos = out.infos()
+        gain = infos.gain
+        if max_depth > 0:
+            gain = torch.where(ph[5] >= max_depth,
+                               torch.full_like(gain, float("-inf")), gain)
+        for c, slot in ((0, leaf), (1, new)):
+            for table, val in zip(st.best, infos._replace(gain=gain)):
+                _put(table, slot, val[c:c + 1], p_live)
+        live_in = p_live
+    else:
+        live_in = torch.ones((), dtype=torch.bool, device=dev)
+    if s >= L - 1:
+        return
+    leaf = torch.argmax(st.best_gain).reshape(1)
+    new = torch.full((1,), s + 1, dtype=i64, device=dev)
+    at = torch.full((1,), s, dtype=i64, device=dev)
+    (i_gain, i_feat, i_bin, i_kind, i_dl, i_go, i_ls, i_rs, i_lo,
+     i_ro) = (_rows(t, leaf) for t in st.best)
+    live = live_in & (i_gain[0] > 0)
+    for table, val in ((st.log_leaf, leaf), (st.log_feat, i_feat),
+                       (st.log_bin, i_bin), (st.log_kind, i_kind),
+                       (st.log_dl, i_dl), (st.log_gain, i_gain),
+                       (st.log_ls, i_ls), (st.log_rs, i_rs),
+                       (st.log_go, i_go)):
+        _put(table, at, val, live)
+    _put(st.leaf_sum, leaf, i_ls, live)
+    _put(st.leaf_sum, new, i_rs, live)
+    _put(st.leaf_out, leaf, i_lo, live)
+    _put(st.leaf_out, new, i_ro, live)
+    d = _rows(st.depth, leaf) + 1
+    _put(st.depth, leaf, d, live)
+    _put(st.depth, new, d, live)
+    if has_monotone:
+        # basic method: both children bounded by the split midpoint
+        # (monotone_constraints.hpp:327 BasicLeafConstraints)
+        mono = monotone.index_select(0, i_feat)
+        mid = (i_lo + i_ro) * 0.5
+        lo_p, up_p = _rows(st.leaf_lower, leaf), _rows(st.leaf_upper, leaf)
+        _put(st.leaf_lower, leaf,
+             torch.where(mono < 0, torch.maximum(lo_p, mid), lo_p), live)
+        _put(st.leaf_upper, leaf,
+             torch.where(mono > 0, torch.minimum(up_p, mid), up_p), live)
+        _put(st.leaf_lower, new,
+             torch.where(mono > 0, torch.maximum(lo_p, mid), lo_p), live)
+        _put(st.leaf_upper, new,
+             torch.where(mono < 0, torch.minimum(up_p, mid), up_p), live)
+    st.num_splits.add_(live.to(i32))
+    pair = torch.cat([i_ls[0], i_rs[0], i_lo, i_ro,
+                      _rows(st.leaf_lower, leaf), _rows(st.leaf_lower, new),
+                      _rows(st.leaf_upper, leaf), _rows(st.leaf_upper, new)])
+    _put(st.pair, at, pair.to(f32), live)
+    seg = _rows(st.seg_tab, leaf)[0]
+    hdr = torch.cat([seg[2:3], seg[0:2], i_feat.to(i32),
+                     (i_ls[:, 2] <= i_rs[:, 2]).to(i32), d.to(i32),
+                     torch.ones(1, dtype=i32, device=dev), leaf.to(i32)])
+    cur = _rows(st.hdr, at)[0]
+    st.hdr.index_copy_(0, at, torch.where(
+        live, hdr, torch.cat([cur[:6], cur[6:7] * 0, cur[7:]]))[None])
+
+
+class CommitArgs(ctypes.Structure):
+    """The C struct ``CommitArgs`` of ``csrc/split_commit.cu`` (same
+    fields, same order)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "lt", "hists", "fout", "iout", "bout", "seg_tab", "hist_pool",
+        "best_gain", "best_feature", "best_bin", "best_kind", "best_dl",
+        "best_go", "best_ls", "best_rs", "best_lo", "best_ro", "leaf_sum",
+        "leaf_out", "leaf_lower", "leaf_upper", "depth", "log_leaf",
+        "log_feat", "log_bin", "log_kind", "log_dl", "log_gain", "log_ls",
+        "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone")] \
+        + [(name, ctypes.c_int32) for name in (
+            "s", "L", "F", "B", "max_depth", "has_monotone")]
+
+
+class SplitCommit:
+    """:func:`split_commit` over one :class:`TreeState` and one set of
+    one-kernel outputs: the pointers are packed once, each call sets
+    ``s`` and launches."""
+
+    def __init__(self, st: TreeState, out, *, max_depth: int,
+                 monotone: torch.Tensor, has_monotone: bool) -> None:
+        _check_commit(st, out, monotone)
+        self.st, self.out = st, out
+        self.max_depth, self.has_monotone = int(max_depth), bool(has_monotone)
+        self.monotone = monotone
+        self._args = None
+        if st.best_gain.device.type == "cpu":
+            return
+        check_on_card("split_commit", st.hdr, *st, *out, monotone)
+        L, F, B = (st.best_gain.shape[0], st.hist_pool.shape[1],
+                   st.hist_pool.shape[2])
+        ptrs = {f: getattr(st, f).data_ptr() for f in TreeState._fields}
+        ptrs.update({f: getattr(out, f).data_ptr() for f in out._fields})
+        self._args = CommitArgs(monotone=monotone.data_ptr(), L=L, F=F, B=B,
+                                max_depth=self.max_depth,
+                                has_monotone=int(self.has_monotone),
+                                **{f: ptrs[f] for f, _ in CommitArgs._fields_
+                                   if f in ptrs})
+
+    def __call__(self, s: int) -> None:
+        L = self.st.best_gain.shape[0]
+        if not 0 <= s < L:
+            raise ValueError("split_commit: s = %d outside [0, %d)" % (s, L))
+        if self._args is None:
+            split_commit_plain(self.st, self.out, s, max_depth=self.max_depth,
+                               monotone=self.monotone,
+                               has_monotone=self.has_monotone)
+            return
+        self._args.s = s
+        COMMIT_KERNEL.launch(ctypes.addressof(self._args), COMMIT_BLOCKS,
+                             stream_of(self.st.hdr))
+
+
+def split_commit(st: TreeState, out, s: int, *, max_depth: int,
+                 monotone: torch.Tensor, has_monotone: bool) -> None:
+    """Commit ``s`` of the tree in ``st`` (in place) from the one-kernel
+    split outputs ``out`` (``ops/partition.SplitOut``): apply split
+    ``s - 1``, pick split ``s``, record it and write its header and pair
+    rows. ``monotone`` is the (F,) i8 constraint of each feature. On a
+    CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
+    :func:`split_commit_plain`. Nothing is read back to the host."""
+    SplitCommit(st, out, max_depth=max_depth, monotone=monotone,
+                has_monotone=has_monotone)(s)
+
+
+def _check_commit(st: TreeState, out, monotone: torch.Tensor) -> None:
+    L, F, B = (st.best_gain.shape[0], st.hist_pool.shape[1],
+               st.hist_pool.shape[2])
+    if L < 2 or st.hist_pool.shape != (L, F, B, 3):
+        raise ValueError("split_commit: a tree state of %d leaves" % L)
+    if st.hdr.shape != (L, HDR_WORDS) or st.pair.shape != (L, PAIR_WORDS):
+        raise ValueError("split_commit: header rows must be (L, %d), pair "
+                         "rows (L, %d)" % (HDR_WORDS, PAIR_WORDS))
+    if out.hists.shape != (2, F, B, 3) or out.bout.shape != (2 + 2 * B,):
+        raise ValueError("split_commit: outputs of another shape than the "
+                         "state's (F = %d, B = %d)" % (F, B))
+    if monotone.dtype != torch.int8 or monotone.shape != (F,):
+        raise ValueError("split_commit: monotone must be (%d,) int8" % F)
+    if not all(t.is_contiguous() for t in (*st, *out)):
+        raise ValueError("split_commit: state and outputs must be "
+                         "contiguous")

@@ -119,15 +119,23 @@ def combine(acc: torch.Tensor, exact: bool) -> torch.Tensor:
 
 
 def _histogram_plain(bin_cols: torch.Tensor, ghc_t: torch.Tensor, *,
-                     num_bins: int, exact: bool) -> torch.Tensor:
+                     num_bins: int, exact: bool,
+                     mask=None) -> torch.Tensor:
     """(F, C) bin codes + (3, C) f32 channels -> (F, B, 3) f32: each
     feature's ``index_add_`` of the per-row channel contributions (rounded
-    exactly as the kernel rounds them) into float64 sums."""
+    exactly as the kernel rounds them) into float64 sums. With a (C,) bool
+    ``mask`` the other columns contribute zeros to bin 0, which leaves
+    every sum's bits as the masked columns alone give them."""
     ch = channels(ghc_t, exact).t().to(torch.float64)             # (C, NCH)
+    bins = bin_cols.long()
+    if mask is not None:
+        zero = torch.zeros((), dtype=ch.dtype, device=ch.device)
+        ch = torch.where(mask[:, None], ch, zero)
+        bins = torch.where(mask[None, :], bins, zero.long())
     acc = torch.zeros((bin_cols.shape[0], num_bins, ch.shape[1]),
                       dtype=torch.float64, device=bin_cols.device)
     for f in range(bin_cols.shape[0]):
-        acc[f].index_add_(0, bin_cols[f].long(), ch)
+        acc[f].index_add_(0, bins[f], ch)
     return combine(acc, exact).to(torch.float32)
 
 

@@ -17,6 +17,11 @@ run can show that its main path went through the kernels. Between
 :func:`start_timing` and :func:`stop_timing` every launch is also bracketed
 by CUDA events, which gives each kernel's device time inside a real run
 (off, the cost is one attribute test per launch).
+
+Under CUDA graph capture (:class:`capture_launches`) a wrapper's launch is
+recorded, not run: its count goes to the capture's tally instead, no
+timing event is recorded, and :func:`add_launches` adds the tally once per
+replay, so the counts stay the launches the card ran.
 """
 from __future__ import annotations
 
@@ -131,9 +136,11 @@ class CudaKernel:
     # --------------------------------------------------------------- launch
     def launch(self, *args) -> None:
         """Call the C entry point; raise on a non-zero CUDA status, else
-        count one launch."""
+        count one launch (into the capture's tally while a graph is being
+        captured)."""
         fn = self.load()
-        events = self._events
+        tally = _CAPTURE[0]
+        events = self._events if tally is None else None
         if events is not None:
             import torch
             ev = (torch.cuda.Event(enable_timing=True),
@@ -148,7 +155,10 @@ class CudaKernel:
             raise RuntimeError("%s: CUDA error %d (%s)"
                                % (self.symbol, rc, msg))
         with self._lock:
-            self._launches += 1
+            if tally is None:
+                self._launches += 1
+            else:
+                tally[self.symbol] = tally.get(self.symbol, 0) + 1
 
     @property
     def launches(self) -> int:
@@ -197,6 +207,36 @@ def build_all() -> float:
             if k._fn is None:
                 k._bind()
     return time.perf_counter() - t0
+
+
+#: the launch tally of the graph being captured, or None
+_CAPTURE: List[Optional[Dict[str, int]]] = [None]
+
+
+class capture_launches:
+    """Context of a CUDA graph capture: the launches the wrappers record
+    inside it are tallied in ``counts`` (symbol -> launches of one replay)
+    and not counted as run."""
+
+    def __init__(self) -> None:
+        self.counts: Dict[str, int] = {}
+
+    def __enter__(self) -> "capture_launches":
+        if _CAPTURE[0] is not None:
+            raise RuntimeError("a graph capture is already in progress")
+        _CAPTURE[0] = self.counts
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CAPTURE[0] = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one graph replay (a capture's tally)."""
+    for name, n in counts.items():
+        k = KERNELS[name]
+        with k._lock:
+            k._launches += n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -38,8 +38,13 @@ on the rows layout).
 :func:`one_kernel_split_planes` runs a whole split in one launch: the
 partition, the smaller child's histogram and both children's split scan
 (``csrc/one_kernel_split.cu``, replacing the TPU kernel
-``one_kernel_split_planes`` in its planes and resident modes); its plain
-twin :func:`one_kernel_split_planes_plain` is the three-launch chain.
+``one_kernel_split_planes`` in its planes and resident modes). The kernel
+reads the split's scalars from a device header (ONE_KERNEL_HDR) and
+writes into the caller's buffers (:class:`SplitOut`), so a tree's splits
+can be queued with no read back to the host
+(:meth:`OneKernelSplit.split`); its plain twin
+:func:`one_kernel_split_header_plain` computes, from the same header, what
+the three-launch chain :func:`one_kernel_split_planes_plain` computes.
 
 The **resident** layout (the JAX package's ``tpu_resident_state=on``)
 keeps the bins once, in original row order, in the ``(F, Npad)`` resident
@@ -233,18 +238,33 @@ def unpack_ghq(rows: torch.Tensor, num_feat: int):
             rows[:, num_feat + 1].view(torch.int8), rows[:, num_feat + 2])
 
 
+def root_segment(guard: int, n: int, device) -> torch.Tensor:
+    """The (3,) i32 device segment ``[0, guard, n]`` of a tree's root (all
+    rows in plane 0). A caller that replays the root from a CUDA graph
+    makes it once, before capture: building it copies host ints to the
+    card."""
+    return torch.tensor([0, guard, n], dtype=torch.int32, device=device)
+
+
 def pack_planes_fold_root(work: torch.Tensor, bins: torch.Tensor,
                           ghc: torch.Tensor, guard: int, *, num_bins: int,
-                          exact: bool) -> torch.Tensor:
+                          exact: bool, seg=None) -> torch.Tensor:
     """Write rows into plane 0 of ``work`` (in place) and return the root
-    histogram: one segment-histogram launch over all rows. The TPU folds
-    the histogram into the pack pass to save a DMA read; here the pack is
-    a torch copy and the histogram its own kernel."""
-    from .histogram import segment_histogram
+    histogram: one segment-histogram launch over all rows (``seg``, the
+    :func:`root_segment`, made here when None). The TPU folds the
+    histogram into the pack pass to save a DMA read; here the pack is a
+    torch copy and the histogram its own kernel. On host tensors the
+    twin sums the rows the host already knows (no read of ``seg``)."""
+    from .histogram import _histogram_plain, segment_histogram
 
     n, g = bins.shape
     work[0, :, guard:guard + n] = pack_planes(bins, ghc)
-    seg = torch.tensor([0, guard, n], dtype=torch.int32, device=work.device)
+    if work.device.type == "cpu":
+        cols = work[0, :, guard:guard + n]
+        return _histogram_plain(cols[:g], unpack_ghc_planes(cols, g),
+                                num_bins=num_bins, exact=exact)
+    if seg is None:
+        seg = root_segment(guard, n, work.device)
     return segment_histogram(work, seg, num_bins=num_bins, num_feat=g,
                              exact=exact, cnt_bound=n)
 
@@ -516,18 +536,26 @@ def pack_resident(rows: torch.Tensor, ghc: torch.Tensor) -> torch.Tensor:
 
 def pack_resident_fold_root(work: torch.Tensor, resident: torch.Tensor,
                             ghc: torch.Tensor, guard: int, *, num_bins: int,
-                            num_feat: int, exact: bool) -> torch.Tensor:
+                            num_feat: int, exact: bool,
+                            seg=None) -> torch.Tensor:
     """Write the slim rows into plane 0 of ``work`` (in place: ridx = the
     original row index, so row i at lane ``guard + i``) and return the
-    root histogram: one resident-histogram launch over all rows, which
-    gathers the bins in their original order and so equals the planes
-    pack's root histogram bit for bit."""
-    from .histogram import segment_histogram_resident
+    root histogram: one resident-histogram launch over all rows (``seg``
+    as in :func:`pack_planes_fold_root`), which gathers the bins in their
+    original order and so equals the planes pack's root histogram bit for
+    bit. On host tensors the twin sums the rows the host knows."""
+    from .histogram import _histogram_plain, segment_histogram_resident
 
     n = ghc.shape[0]
     rows = torch.arange(n, dtype=torch.int64, device=work.device)
     work[0, :, guard:guard + n] = pack_resident(rows, ghc)
-    seg = torch.tensor([0, guard, n], dtype=torch.int32, device=work.device)
+    if work.device.type == "cpu":
+        cols = work[0, :, guard:guard + n]
+        return _histogram_plain(resident[:num_feat, :n],
+                                unpack_ghc_planes(cols, RST_GH_OFF),
+                                num_bins=num_bins, exact=exact)
+    if seg is None:
+        seg = root_segment(guard, n, work.device)
     return segment_histogram_resident(work, resident, seg, num_bins=num_bins,
                                       num_feat=num_feat, exact=exact,
                                       cnt_bound=n)
@@ -593,7 +621,7 @@ class OneKernelArgs(ctypes.Structure):
     """The C struct ``OneKernelArgs`` of ``csrc/one_kernel_split.cu``
     (same fields, same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "work", "seg", "table", "parent", "num_bins", "movable",
+        "work", "hdr", "table", "parent", "num_bins", "movable",
         "missing_bin", "is_cat", "monotone", "penalty", "fmask", "sums2",
         "outs2", "lows2", "ups2", "counts", "partial", "done", "cand_gain",
         "cand_bin", "num_dl", "rank", "lt", "hist_left", "hist_right",
@@ -601,14 +629,78 @@ class OneKernelArgs(ctypes.Structure):
         "left_sum", "right_sum", "left_output", "right_output", "res",
         "stamps")] \
         + [(name, ctypes.c_int32) for name in (
-            "W", "npad", "table_bins", "left_smaller", "depth", "F", "B",
-            "nch", "groups", "max_cat_to_onehot", "has_categorical",
-            "has_monotone", "use_mono_penalty", "npad_res")] \
+            "W", "npad", "table_bins", "F", "B", "nch", "groups",
+            "max_cat_to_onehot", "has_categorical", "has_monotone",
+            "use_mono_penalty", "npad_res")] \
         + [(name, ctypes.c_float) for name in (
             "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split", "max_delta_step",
             "cat_smooth", "cat_l2", "min_data_per_group", "path_smooth",
             "monotone_penalty", "max_cat_threshold")]
+
+
+#: the one-kernel split's device header, (8,) i32: the segment, which child
+#: is the smaller one, the children's node depth, whether the split runs at
+#: all (0: every block returns at once, nothing is written) and the
+#: parent's row of the histogram pool. The kernel reads it on the card.
+ONE_KERNEL_HDR = ("src", "start", "cnt", "col", "left_smaller", "depth",
+                  "live", "parent_slot")
+HDR_WORDS = len(ONE_KERNEL_HDR)
+#: the split's pair block, (12,) f32: the children's sums (2, 3), outputs
+#: (2,), lower and upper bounds (2,) each
+PAIR_WORDS = 12
+
+
+class SplitOut(NamedTuple):
+    """The caller's output buffers of a one-kernel split (written only when
+    the header's ``live`` word is 1)."""
+    lt: torch.Tensor      # (1,) i32 left count
+    hists: torch.Tensor   # (2, F, B, 3) f32 left, right histograms
+    fout: torch.Tensor    # (18,) f32 gain 2, left_sum 2x3, right_sum 2x3,
+    #                       left_output 2, right_output 2
+    iout: torch.Tensor    # (6,) i64 feature 2, bin 2, kind 2
+    bout: torch.Tensor    # (2 + 2B,) bool default_left 2, go_left 2xB
+
+    def infos(self):
+        """The batch-2 ``ops.split.SplitInfo`` (left child, then right):
+        views of the buffers."""
+        from .split import SplitInfo
+        fo, io, bo = self.fout, self.iout, self.bout
+        return SplitInfo(
+            gain=fo[0:2], feature=io[0:2], bin=io[2:4], kind=io[4:6],
+            default_left=bo[0:2], go_left=bo[2:].view(2, -1),
+            left_sum=fo[2:8].view(2, 3), right_sum=fo[8:14].view(2, 3),
+            left_output=fo[14:16], right_output=fo[16:18])
+
+
+def split_out(num_feat: int, num_bins: int, device) -> SplitOut:
+    """Zeroed :class:`SplitOut` buffers, allocated once per tree (or once
+    per learner) and reused split after split."""
+    return SplitOut(
+        lt=torch.zeros(1, dtype=torch.int32, device=device),
+        hists=torch.zeros((2, num_feat, num_bins, 3), dtype=torch.float32,
+                          device=device),
+        fout=torch.zeros(18, dtype=torch.float32, device=device),
+        iout=torch.zeros(6, dtype=torch.int64, device=device),
+        bout=torch.zeros(2 + 2 * num_bins, dtype=torch.bool, device=device))
+
+
+def split_pair(sums2, outs2, lows2, ups2) -> torch.Tensor:
+    """The (12,) f32 pair block from the children's (2, 3) sums and (2,)
+    outputs and bounds (device tensors; no host read)."""
+    return torch.cat([sums2.reshape(-1), outs2.reshape(-1),
+                      lows2.reshape(-1), ups2.reshape(-1)]).to(torch.float32)
+
+
+def split_header(seg, left_smaller, depth, parent_slot=0,
+                 live=1) -> torch.Tensor:
+    """A (8,) i32 header on ``seg``'s device from the (4,) device segment
+    ``[src, start, cnt, col]`` and host values: a convenience for callers
+    that know them on the host (it copies them to the card). The learner
+    builds its headers on the card."""
+    tail = torch.tensor([int(bool(left_smaller)), int(depth), int(live),
+                         int(parent_slot)], dtype=torch.int32)
+    return torch.cat([seg.reshape(-1).to(torch.int32), tail.to(seg.device)])
 
 
 #: features of one histogram work item of the one-kernel split
@@ -709,7 +801,8 @@ def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
     child is the smaller one), ``depth`` (the children's node depth) and
     ``cnt_bound`` (>= cnt; it sizes the scratch, while the kernel sizes
     its histogram by the smaller child's count, read on the card) are host
-    ints. ``parent_hist`` is the
+    values, copied into a device header (:func:`split_header`) that the
+    kernel reads. ``parent_hist`` is the
     parent's (F, B, 3) f32 histogram, ``meta`` a ``FeatureMeta`` of (F,)
     tensors, ``fmask`` the (F,) bool search mask, ``sums2`` the (2, 3)
     child sums, ``outs2``/``lows2``/``ups2`` the (2,) child outputs and
@@ -720,9 +813,11 @@ def one_kernel_split_planes(work, seg, go_left, left_smaller, depth,
     ``ops.split.SplitInfo`` (left child, then right) in the port's dtypes
     (the kernel writes i64 and bool directly). On a CUDA tensor it
     launches ``csrc/one_kernel_split.cu`` once; on a CPU tensor it runs
-    the plain twin. Raises on a shape or type the kernel does not take.
-    A caller that runs many splits over one work buffer (the learner)
-    builds one :class:`OneKernelSplit` instead and calls it per split.
+    the plain twin (:func:`one_kernel_split_header_plain`). Raises on a
+    shape or type the kernel does not take. A caller that runs many splits
+    over one work buffer (the learner) builds one :class:`OneKernelSplit`
+    instead and calls :meth:`OneKernelSplit.split` per split with a header
+    built on the card.
 
     Resident mode (the TPU kernel's ``resident_planes``): ``resident`` is
     the (num_feat, Npad_res) u8 resident bin planes, ``work`` the slim
@@ -754,12 +849,13 @@ class OneKernelSplit:
     split. What stays fixed while a tree grows (the buffer, ``meta``,
     ``fmask``, ``hp`` and the shapes) is validated once, and on the card
     packed once into the C argument struct beside the scratch buffers
-    (sized for segments of up to ``cnt_max`` rows); each call checks and
-    fills in one split's own fields and launches. ``resident`` (the
-    resident bin planes) selects the resident mode. A call may pass
-    ``stamps`` (a :func:`stamp_buffer` on the card): the kernel then
-    writes each block's phase times into it (ONE_KERNEL_PHASES); the
-    learner never does."""
+    (sized for segments of up to ``cnt_max`` rows); :meth:`split` fills in
+    one split's pointers and launches. Every scalar of a split rides in
+    its device header, so a launch never waits for the card and a CUDA
+    graph can hold a tree's launches. ``resident`` (the resident bin
+    planes) selects the resident mode. A call may pass ``stamps`` (a
+    :func:`stamp_buffer` on the card): the kernel then writes each block's
+    phase times into it (ONE_KERNEL_PHASES); the learner never does."""
 
     def __init__(self, work, meta, fmask, hp, *, num_bins, num_feat,
                  exact=True, cnt_max, resident=None):
@@ -772,6 +868,7 @@ class OneKernelSplit:
         self.resident = resident
         self._kernel = ONE_KERNEL if resident is None else ONE_KERNEL_RESIDENT
         self._args = None
+        self._checked_out = None
         if work.device.type == "cpu":
             return
         extra = () if resident is None else (resident,)
@@ -808,55 +905,80 @@ class OneKernelSplit:
             npad_res=0 if resident is None else resident.shape[1],
             **_hyper_fields(hp))
 
-    def __call__(self, seg, go_left, left_smaller, depth, parent_hist,
-                 sums2, outs2, lows2, ups2, *, cnt_bound, stamps=None):
-        from .split import SplitInfo
-
-        _check_one_kernel_split(self, seg, go_left, parent_hist, sums2,
-                                outs2, lows2, ups2, cnt_bound)
-        work, B = self.work, self.num_bins
+    def split(self, hdr, go_left, pool, pair, out, *, lanes=None,
+              stamps=None) -> None:
+        """One split from the (8,) i32 device header ``hdr``
+        (ONE_KERNEL_HDR), the (B,) bool routing table ``go_left``, the
+        (P, F, B, 3) f32 histogram ``pool`` whose row ``parent_slot`` is
+        the parent's, and the (12,) f32 ``pair`` block (PAIR_WORDS); the
+        results go into ``out`` (:class:`SplitOut`). On a CUDA tensor one
+        cooperative launch of ``csrc/one_kernel_split.cu``; on a CPU tensor
+        the plain twin :func:`one_kernel_split_header_plain`. Neither reads
+        anything back to the host. The scratch holds segments of up to
+        ``cnt_max`` rows: a header whose count exceeds it is the caller's
+        error, which the host does not see. ``lanes``, a host ``(lo, hi)``
+        that holds the parent's segment, lets the twin work on those lanes
+        only (a caller that knows the segment on the host, as the per-split
+        host loop does); the kernel needs no such bound."""
+        _check_one_kernel_split(self, hdr, go_left, pool, pair, out)
         if self._args is None:
-            return one_kernel_split_planes_plain(
-                work, seg, go_left, left_smaller, depth, parent_hist,
-                self.meta, self.fmask, sums2, outs2, lows2, ups2, self.hp,
-                num_bins=B, num_feat=self.num_feat, exact=self.exact,
-                resident=self.resident)
-        check_on_card(self._kernel.symbol, work, seg, go_left, parent_hist,
-                      sums2, outs2, lows2, ups2)
-        dev, F = work.device, self.num_feat
-        hists = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
-        lt = torch.empty(1, dtype=torch.int32, device=dev)
-        fout = torch.empty(18, dtype=torch.float32, device=dev)
-        iout = torch.empty(6, dtype=torch.int64, device=dev)
-        bout = torch.empty(2 + 2 * B, dtype=torch.bool, device=dev)
-        fo, io, bo = fout.data_ptr(), iout.data_ptr(), bout.data_ptr()
+            one_kernel_split_header_plain(
+                self.work, hdr, go_left, pool, pair, out, self.meta,
+                self.fmask, self.hp, num_bins=self.num_bins,
+                num_feat=self.num_feat, exact=self.exact,
+                resident=self.resident, lanes=lanes)
+            return
+        check_on_card(self._kernel.symbol, self.work, hdr, go_left, pool,
+                      pair, out.lt)
+        F, B = self.num_feat, self.num_bins
+        fo, io, bo = (out.fout.data_ptr(), out.iout.data_ptr(),
+                      out.bout.data_ptr())
+        pp = pair.data_ptr()
         a = self._args
-        a.seg, a.table = seg.data_ptr(), go_left.data_ptr()
-        a.parent, a.sums2 = parent_hist.data_ptr(), sums2.data_ptr()
-        a.outs2, a.lows2, a.ups2 = (outs2.data_ptr(), lows2.data_ptr(),
-                                    ups2.data_ptr())
-        a.lt = lt.data_ptr()
-        a.hist_left = hists.data_ptr()
+        a.hdr, a.table, a.parent = (hdr.data_ptr(), go_left.data_ptr(),
+                                    pool.data_ptr())
+        a.sums2, a.outs2, a.lows2, a.ups2 = pp, pp + 24, pp + 32, pp + 40
+        a.lt = out.lt.data_ptr()
+        a.hist_left = out.hists.data_ptr()
         a.hist_right = a.hist_left + 4 * F * B * 3
         a.gain, a.left_sum, a.right_sum = fo, fo + 8, fo + 32
         a.left_output, a.right_output = fo + 56, fo + 64
         a.feature, a.bin, a.kind = io, io + 16, io + 32
         a.default_left, a.go_left = bo, bo + 2
-        a.left_smaller, a.depth = int(bool(left_smaller)), int(depth)
         if stamps is not None:
-            check_on_card(self._kernel.symbol, work, stamps)
+            check_on_card(self._kernel.symbol, self.work, stamps)
             if stamps.dtype != torch.int64 or stamps.shape != (
                     ONE_KERNEL_MAX_GRID, ONE_KERNEL_STAMP_SLOTS):
                 raise ValueError("one_kernel_split_planes: stamps must be "
                                  "a stamp_buffer()")
         a.stamps = 0 if stamps is None else stamps.data_ptr()
-        self._kernel.launch(ctypes.addressof(a), stream_of(work))
-        infos = SplitInfo(
-            gain=fout[0:2], feature=iout[0:2], bin=iout[2:4], kind=iout[4:6],
-            default_left=bout[0:2], go_left=bout[2:].view(2, B),
-            left_sum=fout[2:8].view(2, 3), right_sum=fout[8:14].view(2, 3),
-            left_output=fout[14:16], right_output=fout[16:18])
-        return lt, hists[0], hists[1], infos
+        self._kernel.launch(ctypes.addressof(a), stream_of(self.work))
+
+    def __call__(self, seg, go_left, left_smaller, depth, parent_hist,
+                 sums2, outs2, lows2, ups2, *, cnt_bound, stamps=None):
+        """:meth:`split` with the split's scalars given on the host (copied
+        into a header, :func:`split_header`) and fresh output buffers.
+        Returns ``(lt, hist_left, hist_right, infos)``."""
+        if int(cnt_bound) > self.cnt_max:
+            raise ValueError("one_kernel_split_planes: cnt_bound %d above "
+                             "the %d rows the scratch was sized for"
+                             % (cnt_bound, self.cnt_max))
+        if seg.dtype != torch.int32 or seg.numel() != 4:
+            raise ValueError("one_kernel_split_planes: seg must be 4 int32")
+        for field, t, shape in (("parent_hist", parent_hist,
+                                 (self.num_feat, self.num_bins, 3)),
+                                ("sums2", sums2, (2, 3)),
+                                ("outs2", outs2, (2,)), ("lows2", lows2, (2,)),
+                                ("ups2", ups2, (2,))):
+            if t.shape != shape or t.dtype != torch.float32:
+                raise ValueError("one_kernel_split_planes: %s must be %s f32,"
+                                 " got %s %s" % (field, shape,
+                                                 tuple(t.shape), t.dtype))
+        out = split_out(self.num_feat, self.num_bins, self.work.device)
+        self.split(split_header(seg, left_smaller, depth), go_left,
+                   parent_hist[None], split_pair(sums2, outs2, lows2, ups2),
+                   out, stamps=stamps)
+        return out.lt, out.hists[0], out.hists[1], out.infos()
 
 
 def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
@@ -896,24 +1018,119 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
                          "constraints are not inputs of the kernel" % name)
 
 
-def _check_one_kernel_split(op, seg, go_left, parent_hist, sums2, outs2,
-                            lows2, ups2, cnt_bound) -> None:
+def _check_one_kernel_split(op, hdr, go_left, pool, pair, out) -> None:
     """What a one-kernel split takes for one split."""
     name = "one_kernel_split_planes"
     F, B = op.num_feat, op.num_bins
-    _check_partition_args(name, op.work, seg, go_left)
-    if go_left.numel() != B:
-        raise ValueError("%s: needs a (%d,) table, got %d"
-                         % (name, B, go_left.numel()))
-    if parent_hist.shape != (F, B, 3) or parent_hist.dtype != torch.float32:
-        raise ValueError("%s: parent_hist must be (%d, %d, 3) f32, got %s %s"
-                         % (name, F, B, tuple(parent_hist.shape),
-                            parent_hist.dtype))
-    if sums2.shape != (2, 3) or sums2.dtype != torch.float32:
-        raise ValueError("%s: sums2 must be (2, 3) f32" % name)
-    for field, t in (("outs2", outs2), ("lows2", lows2), ("ups2", ups2)):
-        if t.shape != (2,) or t.dtype != torch.float32:
-            raise ValueError("%s: %s must be (2,) f32" % (name, field))
-    if int(cnt_bound) > op.cnt_max:
-        raise ValueError("%s: cnt_bound %d above the %d rows the scratch "
-                         "was sized for" % (name, cnt_bound, op.cnt_max))
+    if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
+        raise ValueError("%s: hdr must be (%d,) int32" % (name, HDR_WORDS))
+    if go_left.dtype != torch.bool or go_left.shape != (B,):
+        raise ValueError("%s: needs a (%d,) bool table, got %s %s"
+                         % (name, B, tuple(go_left.shape), go_left.dtype))
+    if pool.dim() != 4 or pool.shape[1:] != (F, B, 3) \
+            or pool.dtype != torch.float32:
+        raise ValueError("%s: the histogram pool must be (P, %d, %d, 3) f32, "
+                         "got %s %s" % (name, F, B, tuple(pool.shape),
+                                        pool.dtype))
+    if pair.dtype != torch.float32 or pair.shape != (PAIR_WORDS,):
+        raise ValueError("%s: pair must be (%d,) f32" % (name, PAIR_WORDS))
+    if out is not op._checked_out:
+        want = SplitOut(lt=((1,), torch.int32),
+                        hists=((2, F, B, 3), torch.float32),
+                        fout=((18,), torch.float32),
+                        iout=((6,), torch.int64),
+                        bout=((2 + 2 * B,), torch.bool))
+        for field, t, (shape, dtype) in zip(SplitOut._fields, out, want):
+            if t.shape != shape or t.dtype != dtype \
+                    or not t.is_contiguous() or t.device != op.work.device:
+                raise ValueError("%s: out.%s must be contiguous %s %s on %s, "
+                                 "got %s %s on %s"
+                                 % (name, field, shape, dtype,
+                                    op.work.device, tuple(t.shape), t.dtype,
+                                    t.device))
+        op._checked_out = out    # buffers reused split after split
+
+
+def one_kernel_split_header_plain(work, hdr, go_left, pool, pair, out, meta,
+                                  fmask, hp, *, num_bins, num_feat,
+                                  exact=True, resident=None,
+                                  lanes=None) -> None:
+    """Plain torch twin of :meth:`OneKernelSplit.split`: the split read
+    from the device header, with no host read, so that the device tree
+    loop (``learner.DeviceTreeLoop``) runs on host tensors as it runs on
+    the card. It computes what the three-launch chain
+    (:func:`one_kernel_split_planes_plain`) computes, bit for bit, over
+    whole planes under masks instead of slices: the stable partition as a
+    permutation of the destination plane's lanes (lanes outside the
+    segment map to themselves), the smaller child's float64 histogram with
+    the other lanes' contributions zeroed (adding zeros leaves every sum's
+    bits as they are), parent minus child, then ``find_best_split``. With
+    ``live`` 0 nothing is written. ``lanes`` (host ``(lo, hi)`` holding the
+    segment) limits the work to those lanes; by default every lane."""
+    from .histogram import _histogram_plain
+    from .split import find_best_split
+
+    dev = work.device
+    lo, hi = lanes if lanes is not None else (0, work.shape[2])
+    view = work[:, :, lo:hi]
+    src, start, cnt, col, ls, depth, live, slot = \
+        hdr.to(torch.int64).unbind()
+    live = live != 0
+    ls = ls != 0
+    dst = 1 - src
+    lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+    in_seg = (lane >= start) & (lane < start + cnt) & live
+    srcp = view.index_select(0, src.reshape(1))[0]
+    dstp = view.index_select(0, dst.reshape(1))[0]
+    if resident is not None:
+        # the route gather: plane 0 of the segment's lanes of buffer src
+        ridx = decode_ridx(srcp[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+        routed = resident.index_select(0, col.reshape(1))[0] \
+            .index_select(0, ridx)
+        srcp[0] = torch.where(in_seg, routed, srcp[0])
+        view.index_copy_(0, src.reshape(1), srcp[None])
+        key = srcp[0]
+    else:
+        key = srcp.index_select(0, col.reshape(1))[0]
+    # lanes outside the segment may hold any byte: look up bin 0 for them
+    key = torch.where(in_seg, key.long(), torch.zeros((), dtype=torch.int64,
+                                                      device=dev))
+    go = go_left[key] & in_seg
+    right = in_seg & ~go
+    lt = go.sum()
+    dest = torch.where(go, start + torch.cumsum(go, 0) - 1,
+                       torch.where(right,
+                                   start + lt + torch.cumsum(right, 0) - 1,
+                                   lane)) - lo
+    moved = torch.where(in_seg[None], srcp, dstp)
+    dstp = torch.empty_like(dstp).index_copy_(1, dest, moved)
+    view.index_copy_(0, dst.reshape(1), dstp[None])
+
+    s_start = torch.where(ls, start, start + lt)
+    s_cnt = torch.where(ls, lt, cnt - lt)
+    in_small = (lane >= s_start) & (lane < s_start + s_cnt) & live
+    if resident is not None:
+        ridx = decode_ridx(dstp[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+        bin_cols = resident[:num_feat].index_select(1, ridx)
+        ghc_t = unpack_ghc_planes(dstp, RST_GH_OFF)
+    else:
+        bin_cols = dstp[:num_feat]
+        ghc_t = unpack_ghc_planes(dstp, num_feat)
+    small = _histogram_plain(bin_cols, ghc_t, num_bins=num_bins, exact=exact,
+                             mask=in_small)
+    large = pool.index_select(0, slot.reshape(1))[0] - small
+    hl = torch.where(ls, small, large)
+    hr = torch.where(ls, large, small)
+    sums2 = pair[0:6].view(2, 3)
+    infos = find_best_split(torch.stack([hl, hr]), sums2, meta, fmask, hp,
+                            parent_output=pair[6:8], leaf_lower=pair[8:10],
+                            leaf_upper=pair[10:12], node_depth=depth)
+    fout = torch.cat([infos.gain, infos.left_sum.reshape(-1),
+                      infos.right_sum.reshape(-1), infos.left_output,
+                      infos.right_output])
+    iout = torch.cat([infos.feature, infos.bin, infos.kind])
+    bout = torch.cat([infos.default_left, infos.go_left.reshape(-1)])
+    for buf, val in ((out.lt, lt.to(torch.int32).reshape(1)),
+                     (out.hists, torch.stack([hl, hr])), (out.fout, fout),
+                     (out.iout, iout), (out.bout, bout)):
+        buf.copy_(torch.where(live, val.to(buf.dtype), buf))

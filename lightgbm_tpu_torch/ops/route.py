@@ -106,28 +106,35 @@ def route_plan(npad: int, num_cols: int, rounds: int,
 def route_rows_plain(bins_t: torch.Tensor, table: torch.Tensor,
                      num_splits: torch.Tensor) -> torch.Tensor:
     """Plain torch twin of the kernel: same inputs, same (Npad,) i32
-    leaf ids, one vectorised pass over all rows per round."""
+    leaf ids. Each round's direction is a function of the column's byte
+    alone, so it is tabulated first for all rounds and all 256 byte values
+    (the table's arithmetic on an (R, 256) grid); then one pass over all
+    rows per round looks it up. Every round of the table runs, rounds at
+    or past ``num_splits`` leaving the leaf ids as they are, so nothing is
+    read back to the host (the device tree loop routes through it on host
+    tensors)."""
     F = bins_t.shape[0]
     flat = bins_t.reshape(F, -1)
-    tbl = table.reshape(-1, TBL_W).tolist()
-    ns = min(int(num_splits.reshape(-1)[0]), len(tbl))
+    tbl = table.reshape(-1, TBL_W).to(torch.int64)
+    (col_idx, leaf, tbin, miss, dl, plain, off, dpos, nbm1,
+     rest) = (c[:, None] for c in tbl.unbind(1))
+    v = torch.arange(256, dtype=torch.int64, device=bins_t.device)[None, :]
+    rank = v - off
+    bundled = plain != 1
+    eff = torch.where(bundled, rank + (rank >= dpos).to(torch.int64), v)
+    go = eff <= tbin
+    go = torch.where((miss >= 0) & (eff == miss), dl != 0, go)
+    in_range = (v >= off) & (v < off + nbm1)
+    go = torch.where(bundled & ~in_range, rest != 0, go)          # (R, 256)
+    cols = col_idx[:, 0].clamp(0, F - 1)
+    ns = num_splits.reshape(-1)[0]
     state = torch.zeros(flat.shape[1], dtype=torch.int32,
                         device=bins_t.device)
-    for r in range(ns):
-        col_idx, leaf, tbin, miss, dl, plain, off, dpos, nbm1, rest = tbl[r]
-        col = flat[col_idx].to(torch.int32)
-        if plain == 1:
-            eff = col
-        else:
-            rank = col - off
-            eff = rank + (rank >= dpos).to(torch.int32)
-        go = eff <= tbin
-        if miss >= 0:
-            go = torch.where(eff == miss, bool(dl), go)
-        if plain != 1:
-            in_range = (col >= off) & (col < off + nbm1)
-            go = torch.where(in_range, go, bool(rest))
-        state = torch.where((state == leaf) & ~go, r + 1, state)
+    for r in range(tbl.shape[0]):
+        col = flat.index_select(0, cols[r:r + 1])[0].long()
+        right = ~go[r].index_select(0, col)
+        state = torch.where((state == leaf[r]) & right & (ns > r),
+                            torch.full_like(state, r + 1), state)
     return state
 
 

@@ -17,8 +17,8 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
-from lightgbm_tpu_torch.ops import (forest, histogram, kernels,  # noqa: E402
-                                    partition, route)  # noqa: F401
+from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
+                                    histogram, kernels, partition, route)
 
 pytestmark = pytest.mark.cuda
 
@@ -339,3 +339,81 @@ def test_planes_partition_same_bytes_twice_on_card(card):
     assert int(lt_a) == int(lt_b) and torch.equal(a, b)
     chip_smoke.check_partition("planes/twice", work, [0, 128 + 7, 77777, 3],
                                table)
+
+
+def test_split_commit_matches_twin_on_card(card):
+    """The split commit against its twin on seeded states: tied and NaN
+    gains, max_depth, monotone bounds, a split after the tree stopped
+    (live 0), the final commit; every table, log and header bit-equal
+    (chip_smoke.phase_commit_kernel)."""
+    before = kernels.launch_counts()["split_commit"]
+    errs = chip_smoke.phase_commit_kernel(card, np.random.RandomState(13))
+    assert set(errs.values()) == {0.0}
+    assert kernels.launch_counts()["split_commit"] - before \
+        == len(chip_smoke.COMMIT_CASES)
+
+
+def test_one_kernel_header_on_card(card):
+    """B7 through its device header: the parent read from a pool row gives
+    the bits the parent alone gives, and live = 0 writes nothing
+    (chip_smoke.check_one_kernel_header)."""
+    errs = chip_smoke.phase_one_kernel_header(card,
+                                              np.random.RandomState(15))
+    assert set(errs.values()) == {0.0}
+
+
+@pytest.fixture(scope="module")
+def fused_data():
+    return chip_smoke.training_data(2, 200000, 5000)
+
+
+@pytest.mark.parametrize("extra", ["one_kernel", "resident", "three_launch"])
+def test_fused_training_equals_per_iteration_on_card(card, fused_data,
+                                                     extra):
+    """200,000 rows: the fused path (the device tree loop and its CUDA
+    graph with the one-kernel split, the host-loop builder inside the block
+    on the three-launch path) byte-equal to the per-iteration path."""
+    import lightgbm_tpu_torch as lgt
+    X, y = fused_data[0], fused_data[1]
+    params = chip_smoke.train_params(card, 63, {
+        "one_kernel": chip_smoke.ONE_KERNEL_PARAMS,
+        "resident": chip_smoke.RESIDENT_PARAMS,
+        "three_launch": {"tpu_split_kernel": "off"}}[extra])
+    kernels.reset_launch_counts()
+    fused = lgt.train(params, lgt.Dataset(X, label=y, params=params), 4)
+    counts = kernels.launch_counts()
+    eager = lgt.train(params, lgt.Dataset(X, label=y, params=params), 4,
+                      callbacks=[lambda env: None])
+    assert fused.inner._fused is not None
+    assert fused.model_to_string() == eager.model_to_string()
+    if extra != "three_launch":
+        assert counts["split_commit"] == 4 * 63
+        assert fused.inner.learner._loop.graph is not None
+
+
+def test_graph_replay_equals_loop_on_card(card, fused_data):
+    """The device tree loop replayed from its CUDA graph equals the same
+    loop run eagerly without the graph, tree after tree, and each replay
+    counts its captured launches."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.learner import TreeLog
+    X, y = fused_data[0], fused_data[1]
+    params = chip_smoke.train_params(card, 63, chip_smoke.ONE_KERNEL_PARAMS)
+    g = lgt.Booster(params, lgt.Dataset(X, label=y, params=params)).inner
+    lrn = g.learner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    fmask = torch.ones(lrn.dataset.num_features, dtype=torch.bool,
+                       device=card)
+    for i, scale in enumerate((1.0, 0.5, 2.0, 1.0)):
+        ghc = torch.stack([grad * scale, hess, torch.ones_like(grad)], dim=1)
+        before = kernels.launch_counts()
+        got = lrn.train_device(ghc, fmask)
+        after = kernels.launch_counts()
+        loop = lrn._loop
+        assert (loop.graph is not None) == (i > 0)
+        if i > 1:
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == loop.replay_launches
+        want = TreeLog(*(t.clone() for t in loop.grow()))
+        for fld in got._fields:
+            assert torch.equal(getattr(got, fld), getattr(want, fld)), fld

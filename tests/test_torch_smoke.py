@@ -255,3 +255,34 @@ def test_smoke_refuses_without_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_fused_phases_small_on_cpu(data, trained):
+    """The slice-10 checks at a tiny size: the split commit's seeded cases
+    and the one-kernel header's (twins against twins), phase 3d (fused
+    planes and resident byte-equal to the per-iteration one-kernel model,
+    its valid AUC from predict equal to that model's; quantized through
+    the host-loop builder) and the full-width commit check."""
+    import types
+    errs = chip_smoke.phase_commit_kernel(CPU, np.random.RandomState(23))
+    assert set(errs) == {"commit/%s" % c[0] for c in chip_smoke.COMMIT_CASES}
+    errs.update(chip_smoke.phase_one_kernel_header(
+        CPU, np.random.RandomState(29)))
+    assert {"one_kernel_header/unaligned", "one_kernel_header/whole"} \
+        <= set(errs)
+    ds = chip_smoke.build_datasets(CPU, data, 15,
+                                   chip_smoke.ONE_KERNEL_PARAMS)
+    bst_k, _, per_iter = chip_smoke.phase_train(
+        CPU, ds, 3, 15, chip_smoke.ONE_KERNEL_PARAMS)
+    per_iter["predict_auc"] = chip_smoke.auc_np(data[3],
+                                                bst_k.predict(data[2]))
+    args = types.SimpleNamespace(seed=0, trees=3, leaves=15,
+                                 train_rows=len(data[0]),
+                                 valid_rows=len(data[2]))
+    bst, counts, summary = chip_smoke.phase_fused(CPU, data, 3, 15, per_iter,
+                                                  args, "cpu")
+    assert set(summary) == {"planes", "resident", "quantized"}
+    assert summary["planes"]["model_sha256"] == per_iter["model_sha256"]
+    assert all(v == 0 for c in counts.values() for v in c.values())
+    assert chip_smoke.full_width_commit(bst, CPU, errs, timed=False) == {}
+    assert max(errs.values()) == 0.0 and "commit/full_width" in errs
