@@ -4,14 +4,15 @@
     python3 chip_smoke.py [--seed 0] [--trees 40] [--leaves 255]
     python3 chip_smoke.py --planes-route-only   # phase 3 and B1/B3 timings
     python3 chip_smoke.py --forest-only   # phase 4's model and B8 timings
-    python3 chip_smoke.py --fused-only    # phases 3b and 3d, the commit
+    python3 chip_smoke.py --fused-only    # phases 3b, 3d and 3e, the commit
+                                          # and the chain's kernels
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 the checkout it sits in. Ten phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: nine
-                sources, twelve entry points), one nvcc per source, started
-                together.
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: ten
+                sources, fourteen entry points), one nvcc per source,
+                started together.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
                 the forest kernel on small seeded packs covering every
                 branch (numerical, NaN-missing, categorical, multiclass
@@ -68,7 +69,15 @@ the checkout it sits in. Ten phases, each fatal on failure:
                 gains, max_depth, monotone bounds, live 0, the final
                 commit; every table bit-equal): phase_commit_kernel; the
                 one-kernel split through its device header (the parent in
-                a pool row, live 0 a no-op): phase_one_kernel_header.
+                a pool row, live 0 a no-op): phase_one_kernel_header. The
+                three-launch chain's launches on a split header with
+                plans sized for a 2M-row root against the per-split path
+                (route gather, K3, K4 / K5 on the planes, rows, int8 and
+                resident layouts, CHAIN_CASES, a dead header a no-op), the
+                split scan kernel against find_best_split run by torch on
+                the card on every SPLIT_CASES case, bit for bit, and the
+                router with a categorical table against its twin:
+                phase_chain_kernels.
                 Again at 2M rows after
                 phases 3, 3c and 4,
                 on their data and first root splits (3c also on a deep
@@ -115,21 +124,37 @@ the checkout it sits in. Ten phases, each fatal on failure:
                 three-launch training (route gather, K3, the resident
                 histogram) byte-equal to planes three-launch, and card vs
                 host within LOGLOSS_TOL.
-3d. fused    -- the slice-10 path: phase 3b's data and params through
-                ``train`` with no valid set and no callback (fused blocks
-                of 10 trees; each tree one replay of the learner's CUDA
-                graph: the root, (split commit, one-kernel split) x 254,
-                a final commit, the router), then RESIDENT_PARAMS, then
-                QUANT_PARAMS (the host-loop builder inside the block).
-                Launches: one_kernel_split(_resident) = trees x 254,
-                split_commit = trees x 255, no K3; the planes and resident
-                models hash to ONE_KERNEL_MODEL_SHA256, the quantized one
-                to QUANT_MODEL_SHA256 (default sizes); valid AUC from
-                ``predict`` equal to phase 3b's. Prints the wall per tree
-                against phase 3b's, launches per split, the graph's capture
-                ms and the busy share of one profiled block; then the split
-                commit against its twin at a full-width state, timed
-                (alone, with phase 3b: ``--fused-only``).
+3d. fused    -- the slice-10 and slice-11 paths: phase 3b's data and
+                params through ``train`` with no valid set and no callback
+                (fused blocks of 10 trees; each tree one replay of the
+                learner's CUDA graph: the root, (split commit, split) x
+                254, a final commit, the router), then RESIDENT_PARAMS,
+                then TRAIN_PARAMS (the three-launch chain: K3, K4, the
+                split scan) and QUANT_PARAMS (the chain on int8 rows: K3
+                rows, K5, the split scan, the dither drawn in the graph).
+                Launches: each slot's kernels trees x 254, split_commit =
+                trees x 255; the planes and resident models hash to
+                ONE_KERNEL_MODEL_SHA256, the three-launch one to
+                PLANES_MODEL_SHA256 and the quantized one to
+                QUANT_MODEL_SHA256 (default sizes); valid AUC from
+                ``predict`` of the one-kernel models equal to phase 3b's.
+                Prints the wall per tree against phase 3b's, launches per
+                split slot and per tree, the graph's capture ms and replay
+                launches and the busy share of one profiled block; the
+                split scan against torch's at the chain models' root and a
+                deep leaf, timed, with K3's and K4's / K5's device ms
+                under the loop's static plans and under plans sized by the
+                segment's own count; then the split commit against its
+                twin at a full-width state, timed (alone, with phases 3b
+                and 3e and the chain's kernel checks: ``--fused-only``).
+3e. mixed    -- categorical and EFB data through the device tree loop:
+                200,000 rows of 28 HIGGS-like columns, a 4-category and a
+                24-category column and three one-hot blocks that EFB
+                bundles (MIXED_PARAMS, 63 leaves, 8 trees), fused against
+                per iteration: byte-equal model strings with one-vs-rest
+                and many-vs-many splits; split_scan and route_rows_cat
+                launched; the categorical router against its twin over the
+                training rows and a 65,536-row rung, timed.
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -258,6 +283,10 @@ SPLIT_CASES = ("numerical", "nan_left", "nan_right", "categorical_onehot",
                "monotone_shallow", "masked_fmask", "no_split", "nan_gains",
                "ties", "l1_clip", "path_smooth")
 EXACT_TIE_CASES = ("ties",)
+#: the row bound of the static plans in the kernel checks (the device tree
+#: loop plans its launches once, for the root): a 2M-row root's, so that
+#: every checked segment is a deep leaf of it
+CHAIN_STATIC_ROWS = 2_000_000
 
 
 def log(msg):
@@ -631,11 +660,13 @@ def check_histogram(name, work, seg, num_bins, num_feat, exact, rows=False):
 
 def check_bound_invariant(name, launch, got, cnt):
     """``launch(cnt_bound)`` with the row bound at the segment's count, 2x
-    and 8x it must give ``got``'s bits: the f32 histograms' summation order
-    depends on the rows alone, never on the grid a host bound sizes (and
-    run to run)."""
+    and 8x it, and at CHAIN_STATIC_ROWS (the segment as a deep leaf of a
+    plan sized for a 2M-row root, as the device tree loop's are), must give
+    ``got``'s bits: the f32 histograms' summation order depends on the rows
+    alone, never on the grid a host bound sizes (and run to run)."""
     import torch
-    for b in (max(cnt, 1), 2 * max(cnt, 1), 8 * max(cnt, 1)):
+    for b in (max(cnt, 1), 2 * max(cnt, 1), 8 * max(cnt, 1),
+              CHAIN_STATIC_ROWS):
         x = launch(b)
         if not torch.equal(got.view(torch.int32), x.view(torch.int32)):
             raise AssertionError("%s: not bit-equal with cnt_bound %d"
@@ -3377,6 +3408,547 @@ def check_one_kernel_header(name, work, seg, table, kw):
     return 0.0
 
 
+# ------------------------------------------- the three-launch chain (slice 11)
+
+#: (name, [src, start, cnt, col], left_smaller, live) of the chain's checks
+#: over a 9000-row buffer
+CHAIN_CASES = (("unaligned", [0, 128 + 13, 7001, 3], 1, 1),
+               ("right_smaller", [0, 128, 9000, 0], 0, 1),
+               ("one_row", [0, 128 + 8999, 1, 5], 1, 1),
+               ("dead", [0, 128 + 13, 7001, 3], 1, 0))
+
+
+def chain_header(seg, left_smaller, live, dev, depth=1, slot=0):
+    """A split's (8,) i32 device header (ops/partition.ONE_KERNEL_HDR)."""
+    import torch
+    return torch.tensor(list(seg) + [left_smaller, depth, live, slot],
+                        dtype=torch.int32, device=dev)
+
+
+def check_chain_static(name, work, seg, table, ls, live, layout, num_bins,
+                       num_feat, exact=True, resident=None, scale=None):
+    """The chain's launches on a split's header with static plans sized for
+    CHAIN_STATIC_ROWS (the route gather on resident, K3, then K4 or K5 of
+    the smaller child from the header and the left count) against the
+    per-split path with the host's segment and bounds at the counts, on
+    copies of one buffer: the routed bytes, lt and the histogram's bits
+    equal. A dead header (live 0) moves no byte, leaves lt and gives a
+    zero histogram. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+
+    dev = work.device
+    a, b = work.clone(), work.clone()
+    hdr = chain_header(seg, ls, live, dev)
+    lt = torch.full((1,), -7, dtype=torch.int32, device=dev)
+    part_layout = "rows" if layout == "int8" else layout
+    if resident is not None:
+        P.RouteGather(a, resident, cnt_max=CHAIN_STATIC_ROWS)(hdr)
+    P.SegmentPartition(a, layout=part_layout,
+                       cnt_max=CHAIN_STATIC_ROWS)(hdr, table, lt)
+    small = H.SegmentHistogram(
+        a, layout=layout, num_bins=num_bins, num_feat=num_feat, exact=exact,
+        cnt_max=CHAIN_STATIC_ROWS, resident=resident, scale=scale)(hdr, lt)
+    sync(dev)
+    if not live:
+        if not torch.equal(a, work) or int(lt) != -7 \
+                or bool((small != 0).any()):
+            raise AssertionError("%s: a dead header wrote something" % name)
+        return 0.0
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    src, start, cnt, _ = seg
+    bound = max(cnt, 1)
+    if resident is not None:
+        P.write_route_plane(b, resident, sg, bound)
+        lt_b = P.partition_segment(b, P.on_route_plane(sg), table, bound)
+    elif part_layout == "rows":
+        lt_b = P.partition_segment_rows(b, sg, table, bound)
+    else:
+        lt_b = P.partition_segment(b, sg, table, bound)
+    n_left = int(lt_b)
+    hseg = [1 - src, start, n_left] if ls \
+        else [1 - src, start + n_left, cnt - n_left]
+    hs = torch.tensor(hseg, dtype=torch.int32, device=dev)
+    hkw = dict(num_bins=num_bins, num_feat=num_feat,
+               cnt_bound=max(hseg[2], 1))
+    if layout == "int8":
+        want = H.segment_histogram_q(b, hs, scale, **hkw)
+    elif layout == "resident":
+        want = H.segment_histogram_resident(b, resident, hs, exact=exact,
+                                            **hkw)
+    elif layout == "rows":
+        want = H.segment_histogram_rows(b, hs, exact=exact, **hkw)
+    else:
+        want = H.segment_histogram(b, hs, exact=exact, **hkw)
+    sync(dev)
+    if int(lt) != n_left or not torch.equal(a, b):
+        raise AssertionError("%s: static-plan partition differs (lt %d vs "
+                             "%d, %d bytes)" % (name, int(lt), n_left,
+                                                int((a != b).sum())))
+    if not torch.equal(small.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("%s: static-plan histogram not bit-equal"
+                             % name)
+    return 0.0
+
+
+def chain_children(work, seg, table, kw):
+    """The children's (F, B, 3) histograms of ``seg`` routed by ``table``
+    through K3 + K4 + the parent subtraction (as the host loop builds
+    them), on a copy of ``work``."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+
+    dev = work.device
+    c = work.clone()
+    sg = torch.tensor(seg, dtype=torch.int32, device=dev)
+    bound = max(seg[2], 1)
+    n_left = int(P.partition_segment(c, sg, table, bound))
+    src, start, cnt = seg[:3]
+    ls = kw["left_smaller"]
+    hseg = [1 - src, start, n_left] if ls \
+        else [1 - src, start + n_left, cnt - n_left]
+    small = H.segment_histogram(c, torch.tensor(hseg, dtype=torch.int32,
+                                                device=dev),
+                                num_bins=kw["num_bins"],
+                                num_feat=kw["num_feat"], cnt_bound=bound)
+    large = kw["parent_hist"] - small
+    return (small, large) if ls else (large, small)
+
+
+SCAN_FIELDS = ("gain", "feature", "bin", "kind", "default_left", "go_left",
+               "left_sum", "right_sum", "left_output", "right_output")
+
+
+def check_split_scan(name, hists, pair, depth, meta, fmask, hp, op=None):
+    """The split scan kernel (a CUDA tensor) against ``find_best_split``
+    run by torch on the card on the same (2, F, B, 3) histograms, pair row
+    and depth: every SplitInfo field bit-equal (compared as bytes), and a
+    dead header (live 0) writes nothing. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.scan import SplitScan
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    dev = hists.device
+    F, B = hists.shape[1], hists.shape[2]
+    op = op or SplitScan(meta, fmask, hp, num_feat=F, num_bins=B,
+                         device=dev)
+    out = P.split_out(F, B, dev)
+    op(hists, pair, chain_header([0, 0, 0, 0], 1, 1, dev, depth), out)
+    ref = find_best_split(hists, pair[0:6].view(2, 3), meta, fmask, hp,
+                          parent_output=pair[6:8], leaf_lower=pair[8:10],
+                          leaf_upper=pair[10:12], node_depth=depth)
+    dead = P.split_out(F, B, dev)
+    for t in dead:
+        t.fill_(1)
+    op(hists, pair, chain_header([0, 0, 0, 0], 1, 0, dev, depth), dead)
+    sync(dev)
+    got = out.infos()
+    for fld in SCAN_FIELDS:
+        x = getattr(got, fld)
+        y = getattr(ref, fld).to(x.dtype)
+        if not torch.equal(x.contiguous().view(torch.uint8),
+                           y.contiguous().view(torch.uint8)):
+            raise AssertionError("%s: split_scan %s %s vs find_best_split "
+                                 "%s" % (name, fld, x.tolist()[:8],
+                                         y.tolist()[:8]))
+    if not all(bool((t == 1).all()) for t in dead):
+        raise AssertionError("%s: a dead header's scan wrote something"
+                             % name)
+    return 0.0
+
+
+def cat_route_table(rng, rounds, F, nb, dev, frac=0.5):
+    """A seeded router table (route_table_np's "tree") and its categorical
+    table: about ``frac`` of the rounds categorical, each with a random
+    go-left set over ``nb`` bins."""
+    import types
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.route import build_cat_table
+
+    table = route_table_np(rng, rounds, F, "tree")
+    kind = (rng.rand(rounds) < frac).astype(np.int32)
+    go = rng.rand(rounds, nb) < 0.5
+    log = types.SimpleNamespace(kind=torch.as_tensor(kind),
+                                go_left=torch.as_tensor(go))
+    return (torch.as_tensor(table).to(dev),
+            build_cat_table(log).to(dev))
+
+
+def check_cat_router(name, bins_t, table, cat, num_splits):
+    """The router with a categorical table (route_rows_cat, a CUDA tensor)
+    against its twin: leaf ids equal, and equal run to run. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+
+    dev = bins_t.device
+    ns = torch.tensor([num_splits], dtype=torch.int32, device=dev)
+    got = route_rows(bins_t, table, ns, cat)
+    again = route_rows(bins_t, table, ns, cat)
+    want = route_rows_plain(bins_t, table, ns, cat)
+    sync(dev)
+    id_diff(name, got, want)
+    if not torch.equal(got, again):
+        raise AssertionError("%s: not equal run to run" % name)
+    return 0.0
+
+
+def phase_chain_kernels(dev, rng):
+    """The chain's kernels on the card, seeded: K3, the route gather and
+    K4 / K5 on a split's header with static plans against the per-split
+    path (CHAIN_CASES on the planes, rows f32, int8 and resident layouts,
+    a dead header included); the split scan against find_best_split on the
+    children of every SPLIT_CASES case, bit for bit; the router with a
+    categorical table against its twin (a 254-round tree over 28 columns
+    at 65,536 rows, 9000 rows with one column, num_splits 0)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.learner import route_layout
+    from lightgbm_tpu_torch.ops.partition import split_pair
+
+    errs = {}
+    n, nb = 9000, 64
+    tables = _tables(rng, nb, dev)
+    bins = torch.as_tensor(rng.randint(0, nb, (n, 10)).astype(np.uint8))
+    work = seeded_work(rng, bins, dev)
+    for name, seg, ls, live in CHAIN_CASES:
+        key = "chain/planes/" + name
+        errs[key] = check_chain_static(key, work, seg, tables["table"], ls,
+                                       live, "planes", nb, 10)
+    for F, quantized in ((27, False), (28, True)):
+        rb = torch.as_tensor(rng.randint(0, nb, (n, F)).astype(np.uint8))
+        rwork, scale = seeded_rows_work(rng, rb, dev, quantized)
+        tag = "int8" if quantized else "rows"
+        for name, seg, ls, live in CHAIN_CASES:
+            key = "chain/%s/%s" % (tag, name)
+            errs[key] = check_chain_static(key, rwork, seg, tables["table"],
+                                           ls, live, tag, nb, F, scale=scale)
+    rbins = torch.as_tensor(rng.randint(0, nb, (n, 8)).astype(np.uint8))
+    bins_all, res, rows = seeded_resident(rng, rbins, dev)
+    ghc = torch.as_tensor(np.stack([rng.randn(n), np.abs(rng.randn(n)),
+                                    np.ones(n)], axis=1).astype(np.float32)
+                          ).to(dev)
+    slim, _ = resident_pair(dev, bins_all, res, rows, ghc, rng)
+    for name, seg, ls, live in CHAIN_CASES:
+        key = "chain/resident/" + name
+        rseg = [seg[0], seg[1], seg[2], seg[3] % 8]
+        errs[key] = check_chain_static(key, slim, rseg, tables["table"], ls,
+                                       live, "resident", nb, 8,
+                                       resident=res)
+    for case in SPLIT_CASES:
+        work_c, seg, table, kw = split_inputs(dev, split_case(case, rng))
+        hl, hr = chain_children(work_c, seg, table, kw)
+        pair = split_pair(kw["sums2"], kw["outs2"], kw["lows2"], kw["ups2"])
+        key = "split_scan/" + case
+        errs[key] = check_split_scan(key, torch.stack([hl, hr]), pair,
+                                     kw["depth"], kw["meta"], kw["fmask"],
+                                     kw["hp"])
+    F = 28
+    bt = route_layout(torch.as_tensor(rng.randint(0, nb, (65536, F))
+                                      .astype(np.uint8)).to(dev))
+    for name, rounds, ns in (("tree254", 254, 254), ("ns0", 254, 0),
+                             ("all_cat", 60, 60)):
+        table, cat = cat_route_table(rng, rounds, F, nb, dev,
+                                     1.0 if name == "all_cat" else 0.5)
+        key = "router_cat/" + name
+        errs[key] = check_cat_router(key, bt, table, cat, ns)
+    one = route_layout(torch.as_tensor(rng.randint(0, nb, (9000, 1))
+                                       .astype(np.uint8)).to(dev))
+    table, cat = cat_route_table(rng, 30, 1, nb, dev)
+    errs["router_cat/one_column"] = check_cat_router(
+        "router_cat/one_column", one, table, cat, 30)
+    return errs
+
+
+def chain_split_at(lrn, ghc, s):
+    """The learner's device tree loop run eagerly through split slot
+    ``s`` on ``ghc`` (loop_state_at ``s + 1``): the loop, slot ``s``'s
+    header and pair rows, the scan's input histograms and the routing
+    table."""
+    loop = loop_state_at(lrn, ghc, s + 1)
+    st = loop.state
+    hists = loop.split.fhist if loop.split.fhist is not None \
+        else loop.out.hists
+    return loop, st.hdr[s], st.pair[s], hists, loop.table(s)
+
+
+def full_width_chain(bst, dev, errs, tag, timed=True):
+    """The chain at full width on a fused model's learner (its device tree
+    loop run eagerly on the model's gradients): the split scan against
+    find_best_split at the root split's children and at the tree's last
+    live split (a deep leaf), bit for bit. When ``timed``: the split
+    scan's ms (host clock, device_ms), the twin's (find_best_split by torch
+    on the card) and its bound at both; the partition's and the smaller
+    child's histogram's device ms with the loop's static plan against a
+    plan sized by the segment's own count (the per-split path's) at both.
+    Returns the kernels-line rows (empty unless timed)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    g = bst.inner
+    lrn = g.learner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    if grad.dim() > 1:
+        grad, hess = grad[:, 0], hess[:, 0]
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    L = lrn.num_leaves
+    loop = loop_state_at(lrn, ghc, L - 1)
+    live = loop.state.hdr[:, 6].cpu()
+    deep = max(s for s in range(L - 1) if int(live[s]) == 1)
+    out = {}
+    for where, s in (("root", 0), ("deep", deep)):
+        loop, hdr, pair, hists, table = chain_split_at(lrn, ghc, s)
+        op = loop.split.scan
+        key = "split_scan/%s/%s" % (tag, where)
+        errs[key] = check_split_scan(key, hists.clone(), pair, hdr[5],
+                                     lrn.meta, loop.fmask, lrn.hp, op)
+        if not timed:
+            continue
+        F, B = hists.shape[1], hists.shape[2]
+        o2 = P.split_out(F, B, dev)
+        k_ms = cuda_ms(lambda: op(hists, pair, hdr, o2))
+        k_dev = device_ms(lambda: op(hists, pair, hdr, o2))
+        p_ms = cuda_ms(lambda: find_best_split(
+            hists, pair[0:6].view(2, 3), lrn.meta, loop.fmask, lrn.hp,
+            parent_output=pair[6:8], leaf_lower=pair[8:10],
+            leaf_upper=pair[10:12], node_depth=hdr[5]), iters=5, warmup=1)
+        src, start, cnt = (int(v) for v in hdr[:3].cpu())
+        lt = loop.out.lt.clone()
+        n_left = int(lt)
+        ls = int(hdr[4]) != 0
+        hseg = [1 - src, start, n_left] if ls \
+            else [1 - src, start + n_left, cnt - n_left]
+        hs = torch.tensor(hseg, dtype=torch.int32, device=dev)
+        work = loop.work
+        sg = hdr[:4].clone()
+        part = loop.split.partition
+        hist = loop.split.histogram
+        lt2 = torch.empty_like(lt)
+        st_part = device_ms(lambda: part(hdr, table, lt2))
+        hkw = dict(num_bins=hist.num_bins, num_feat=hist.num_feat,
+                   cnt_bound=max(hseg[2], 1))
+        if loop.layout == "rows":
+            own_part = device_ms(lambda: P.partition_segment_rows(
+                work, sg, table, max(cnt, 1)))
+        elif loop.layout == "resident":
+            own_part = device_ms(lambda: P.partition_segment(
+                work, P.on_route_plane(sg), table, max(cnt, 1)))
+        else:
+            own_part = device_ms(lambda: P.partition_segment(
+                work, sg, table, max(cnt, 1)))
+        st_hist = device_ms(lambda: hist(hdr, lt))
+        if hist.layout == "int8":
+            own_hist = device_ms(lambda: H.segment_histogram_q(
+                work, hs, hist.scale, **hkw))
+        elif hist.layout == "resident":
+            own_hist = device_ms(lambda: H.segment_histogram_resident(
+                work, hist.resident, hs, exact=hist.exact, **hkw))
+        elif hist.layout == "rows":
+            own_hist = device_ms(lambda: H.segment_histogram_rows(
+                work, hs, exact=hist.exact, **hkw))
+        else:
+            own_hist = device_ms(lambda: H.segment_histogram(
+                work, hs, exact=hist.exact, **hkw))
+        log("chain %s at the %s (%d rows, smaller child %d): split_scan "
+            "%.4f ms (device %.4f, find_best_split %.3f); partition device "
+            "%.4f static / %.4f own plan; histogram (%s) device %.4f static "
+            "/ %.4f own plan" % (tag, where, cnt, hseg[2], k_ms, k_dev, p_ms,
+                                 st_part, own_part, hist.layout, st_hist,
+                                 own_hist))
+        out[where] = dict(rows=cnt, small_rows=hseg[2], ms=k_ms,
+                          device_ms=k_dev, plain_ms=p_ms,
+                          partition_static_device_ms=st_part,
+                          partition_own_plan_device_ms=own_part,
+                          histogram_static_device_ms=st_hist,
+                          histogram_own_plan_device_ms=own_hist,
+                          histogram=hist.layout, F=F, B=B)
+    if not timed:
+        return {}
+    deep_row = out["deep"]
+    F, B = deep_row["F"], deep_row["B"]
+    # the scan reads the two (F, B, 3) histograms and the pair row and
+    # writes two SplitInfo rows; ~10 operations for each of its 2 x 4 x F
+    # x B candidates
+    return {"split_scan": dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/split_scan.cu",
+        replaces="lightgbm_tpu/ops/split.py:find_best_split (XLA; no "
+                 "pallas_call)",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("split_scan/")),
+        ms=deep_row["ms"], device_ms=deep_row["device_ms"],
+        plain_ms=deep_row["plain_ms"], library_ms=None,
+        bytes=2 * F * B * 12 + 48 + 2 * (64 + B),
+        ops=2 * 4 * F * B * 10, shapes=out)}
+
+
+#: phase 3e: rows, trees and leaves of the mixed run (HIGGS-like columns,
+#: two categorical columns, three one-hot blocks that EFB bundles)
+MIXED_ROWS = 200_000
+MIXED_TREES = 8
+MIXED_PARAMS = {"objective": "binary", "max_bin": 255, "num_leaves": 63,
+                "verbosity": -1, "max_cat_to_onehot": 4,
+                "min_data_per_group": 50, "tpu_split_kernel": "off"}
+
+
+def mixed_data(seed, n):
+    """(X, y, categorical columns): 28 HIGGS-like columns, a 4-category
+    column (one-vs-rest splits under max_cat_to_onehot = 4), a
+    24-category one (many-vs-many) and three one-hot blocks of 8 sparse
+    columns that EFB bundles; labels from a seeded logistic model over
+    all of them."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 31)
+    X = higgs_like(rng, n)
+    c4 = rng.randint(0, 4, n)
+    c24 = rng.randint(0, 24, n)
+    blocks, z = [], X[:, :4] @ np.array([0.6, -0.4, 0.3, 0.2])
+    for b in range(3):
+        ids = rng.randint(0, 8, n)
+        oh = np.zeros((n, 8))
+        oh[np.arange(n), ids] = 1.0
+        blocks.append(oh)
+        z = z + 0.4 * (ids % (b + 2) == 0)
+    z = z + 0.8 * (c4 == 2) + 0.6 * np.isin(c24, (1, 5, 8, 13, 21)) \
+        - 0.5 * np.isin(c24, (2, 3, 17))
+    y = (rng.rand(n) < 1 / (1 + np.exp(-(z - z.mean())))).astype(np.float64)
+    X = np.concatenate([X, c4[:, None], c24[:, None]] + blocks, axis=1)
+    return X, y, [X.shape[1] - 26, X.shape[1] - 25]
+
+
+def phase_mixed(dev, seed, card, rows=MIXED_ROWS, trees=MIXED_TREES,
+                timed=True):
+    """Phase 3e: categorical and EFB data through the device tree loop.
+    ``mixed_data`` at ``rows`` rows, MIXED_PARAMS (three launches), trained
+    in fused blocks (each tree one graph replay: the chain, the commit
+    with the bundle column map, the router with its categorical table) and
+    per iteration (a user callback; the per-split host loop and torch's
+    scan): the model strings must be byte-equal, the model must hold
+    one-vs-rest and many-vs-many splits and the dataset EFB bundles; the
+    fused run launches split_scan and route_rows_cat. Then the split scan
+    against find_best_split at the model's root and a deep leaf
+    (full_width_chain), and the categorical router (a CUDA tensor) against
+    its twin on the model's trees over the training rows and a 65,536-row
+    rung, and (``timed``) its ms over the
+    training rows. Returns (fused booster, launch counts, summary, check
+    errors, the categorical router's kernels-line row)."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops.predict import tree_to_bin_log
+    from lightgbm_tpu_torch.ops.route import build_cat_table, build_route_table
+
+    X, y, cats = mixed_data(seed, rows + 65536)
+    Xr, X, y = X[rows:], X[:rows], y[:rows]
+    params = dict(MIXED_PARAMS, device_type=dev.type)
+
+    def dataset():
+        ds = lgt.Dataset(X, label=y, categorical_feature=cats,
+                         params=params)
+        ds.construct()
+        return ds
+
+    train = dataset()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused = lgt.train(dict(params), train, trees)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    g = fused.inner
+    loop = g.learner._loop
+    if g._fused is None or (dev.type == "cuda" and (loop is None
+                                                    or loop.graph is None)):
+        raise AssertionError("phase 3e: training did not take the device "
+                             "tree loop's graph")
+    if g.learner.bundle is None:
+        raise AssertionError("phase 3e: the dataset has no EFB bundle")
+    t1 = time.perf_counter()
+    eager = lgt.train(dict(params), dataset(), trees,
+                      callbacks=[lambda env: None])
+    sync(dev)
+    eager_wall = time.perf_counter() - t1
+    text_f, text_e = fused.model_to_string(), eager.model_to_string()
+    ovr = sum(1 for t in g.models for c in t.cat_threshold.values()
+              if len(c) == 1)
+    mvm = sum(1 for t in g.models for c in t.cat_threshold.values()
+              if len(c) > 1)
+    log("phase 3e (%s): %d trees x %d leaves on %d rows x %d columns (%d "
+        "bundles), fused %.1f ms/tree, per iteration %.1f ms/tree; %d "
+        "one-vs-rest and %d many-vs-many splits; models %s; launches %s"
+        % (card, trees, params["num_leaves"], rows, X.shape[1],
+           g.learner.bins.shape[1], wall / trees * 1e3,
+           eager_wall / trees * 1e3, ovr, mvm,
+           "byte-equal" if text_f == text_e else "DIFFER", counts))
+    if text_f != text_e:
+        raise AssertionError("phase 3e: the fused model differs from the "
+                             "per-iteration model")
+    if not ovr or not mvm:
+        raise AssertionError("phase 3e: want one-vs-rest and many-vs-many "
+                             "splits, got %d and %d" % (ovr, mvm))
+    if dev.type == "cuda":
+        want = {"split_scan": trees * (params["num_leaves"] - 1),
+                "route_rows_cat": trees, "route_rows": 0}
+        if any(counts.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError("phase 3e launches %s, want %s"
+                                 % (counts, want))
+    errs = {}
+    lrn = g.learner
+    # the split scan with categorical items at the root and a deep leaf
+    full_width_chain(fused, dev, errs, "mixed", timed=False)
+    rung = lgt.Dataset(Xr, label=np.zeros(len(Xr)), reference=train)
+    rung_t = g._valid_bins_t(rung.construct())
+    for i, tree in enumerate(g.models[:3]):
+        lg = tree_to_bin_log(tree, g.train_set, dev)
+        table, cat = build_route_table(lg, lrn.bundle), build_cat_table(lg)
+        for where, bt in (("train", lrn.bins_t), ("rung65536", rung_t)):
+            key = "router_cat/mixed_tree%d_%s" % (i, where)
+            errs[key] = check_cat_router(key, bt, table, cat,
+                                         int(lg.num_splits[0]))
+    summary = dict(trees=trees, rows=rows, wall_per_tree_ms=wall / trees
+                   * 1e3, per_iteration_wall_per_tree_ms=eager_wall / trees
+                   * 1e3, one_vs_rest=ovr, many_vs_many=mvm,
+                   capture_ms=loop.capture_ms if loop is not None else None,
+                   launches=counts)
+    row = {}
+    if timed and dev.type == "cuda":
+        from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+        cat_trees = [t for t in g.models if t.cat_threshold]
+        lg = tree_to_bin_log(cat_trees[0], g.train_set, dev)
+        table, cat = build_route_table(lg, lrn.bundle), build_cat_table(lg)
+        bt = lrn.bins_t
+        k_ms = cuda_ms(lambda: route_rows(bt, table, lg.num_splits, cat))
+        k_dev = device_ms(lambda: route_rows(bt, table, lg.num_splits, cat))
+        p_ms = cuda_ms(lambda: route_rows_plain(bt, table, lg.num_splits,
+                                                cat), iters=3, warmup=1)
+        # the bins read once, the tables, the leaf ids written; two
+        # operations a walk step (~the tree's depth a row)
+        ids = route_rows(bt, table, lg.num_splits, cat)[:rows]
+        t0_ = cat_trees[0]
+        depth = torch.as_tensor(t0_.leaf_depths()[
+            t0_.to_split_arrays()["leaf_of_slot"]]).to(dev)
+        steps = int(depth[ids.long()].sum())
+        log("categorical router over the %d training rows (%d columns, %d "
+            "rounds): %.4f ms (device %.4f), twin %.3f ms"
+            % (rows, bt.shape[0], int(lg.num_splits[0]), k_ms, k_dev, p_ms))
+        row = {"route_rows_cat": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/route_rows.cu",
+            replaces="lightgbm_tpu/learner.py:1560 (the categorical branch "
+                     "of assign_leaves' fori_loop; no pallas_call)",
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith("router_cat/")),
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
+            bytes=bt.numel() + table.numel() * 4 + cat.numel() * 4
+            + rows * 4, ops=2 * steps)}
+    return fused, counts, summary, errs, row
+
+
 def auc_np(y, p):
     """ROC AUC of scores ``p`` for 0/1 labels ``y`` (ties share ranks)."""
     from scipy.stats import rankdata
@@ -3438,25 +4010,30 @@ def phase_one_kernel_header(dev, rng):
     return errs
 
 
-def phase_fused(dev, data, trees, leaves, per_iter, args, card,
+def phase_fused(dev, data, trees, leaves, per_iter, args, card, errs,
                 profile=True):
-    """Phase 3d: the slice-10 path. Phase 3b's data and params through
-    ``lightgbm_tpu_torch.train`` with no valid set and no callback (fused
-    blocks; each tree one replay of the learner's CUDA graph: the root,
-    (split commit, one-kernel split) x (leaves - 1), a final commit and the
-    router), then the same with RESIDENT_PARAMS and with QUANT_PARAMS (the
-    host-loop builder inside the block). Launch counts are zeroed just
-    before each run and read just after: one_kernel_split(_resident) =
-    trees x (leaves - 1) (splits plus no-op tails), split_commit = trees x
-    leaves, no K3, the root histogram and the router once a tree. The
-    planes and resident models must hash to ONE_KERNEL_MODEL_SHA256 and
-    the quantized one to QUANT_MODEL_SHA256 (default sizes), valid AUC
-    from ``predict`` must equal phase 3b's (``per_iter["predict_auc"]``,
-    the same model's predictions). Prints the
-    wall per tree against ``per_iter`` (phase 3b's summary), launches per
-    split, the graph's capture ms and (``profile``) the busy share of one
-    profiled block. Returns (planes booster, {tag: launch counts},
-    summary)."""
+    """Phase 3d: the device tree loop at full width. Phase 3b's data
+    through ``lightgbm_tpu_torch.train`` with no valid set and no callback
+    (fused blocks; each tree one replay of the learner's CUDA graph: the
+    root, (split commit, split) x (leaves - 1), a final commit and the
+    router), with ONE_KERNEL_PARAMS and RESIDENT_PARAMS (the one-kernel
+    split), TRAIN_PARAMS (``tpu_split_kernel=off``: the three-launch chain,
+    K3 + K4 + split_scan) and QUANT_PARAMS (the chain on the rows layout
+    with int8: K3 rows + K5 + split_scan, the dither drawn inside the
+    graph from the tree's key). Launch counts are zeroed just before each
+    run and read just after: every split slot's launches trees x (leaves -
+    1) times (splits plus no-op tails), split_commit trees x leaves, the
+    root histogram and the router once a tree. The models must hash to
+    ONE_KERNEL_MODEL_SHA256 (planes, resident), PLANES_MODEL_SHA256 (three
+    launches) and QUANT_MODEL_SHA256 (quantized) at the default sizes: the
+    per-iteration models of phases 3b, 3 and 4. Valid AUC from ``predict``
+    of the one-kernel models must equal phase 3b's (``per_iter
+    ["predict_auc"]``). Prints the wall per tree against ``per_iter``
+    (phase 3b's summary), the launches per split slot and per tree, the
+    graph's capture ms and replay launches and (``profile``) the busy share
+    of one profiled block; checks the split scan at the chain models' root
+    and a deep leaf (full_width_chain, into ``errs``). Returns (planes
+    booster, {tag: launch counts}, summary, the chain's kernel rows)."""
     import hashlib
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import kernels
@@ -3464,11 +4041,14 @@ def phase_fused(dev, data, trees, leaves, per_iter, args, card,
     X, y, Xv, yv = data
     summary = {}
     counts_by = {}
+    chain_rows = {}
     keep = None
+    L1 = leaves - 1
     for tag, extra, want in (("planes", ONE_KERNEL_PARAMS,
                               ONE_KERNEL_MODEL_SHA256),
                              ("resident", RESIDENT_PARAMS,
                               ONE_KERNEL_MODEL_SHA256),
+                             ("three_launch", {}, PLANES_MODEL_SHA256),
                              ("quantized", QUANT_PARAMS,
                               QUANT_MODEL_SHA256)):
         params = train_params(dev, leaves, extra)
@@ -3492,47 +4072,62 @@ def phase_fused(dev, data, trees, leaves, per_iter, args, card,
                                           for t in g.models))
         check_model_sha("fused %s" % tag, s, args, want)
         loop = g.learner._loop
-        if tag != "quantized":
-            one = "one_kernel_split" if tag == "planes" \
-                else "one_kernel_split_resident"
-            root = "segment_histogram" if tag == "planes" \
-                else "segment_histogram_resident"
-            want_counts = {one: trees * (leaves - 1),
-                           "split_commit": trees * leaves,
-                           root: trees, "route_rows": trees,
-                           "partition_segment": 0}
-            if dev.type == "cuda" and any(counts.get(k, 0) != v
-                                          for k, v in want_counts.items()):
+        slot = {"planes": ("one_kernel_split",),
+                "resident": ("one_kernel_split_resident",),
+                "three_launch": ("partition_segment", "split_scan"),
+                "quantized": ("partition_segment_rows", "split_scan")}[tag]
+        root = {"planes": "segment_histogram",
+                "resident": "segment_histogram_resident",
+                "three_launch": "segment_histogram",
+                "quantized": "segment_histogram_q"}[tag]
+        want_counts = {k: trees * L1 for k in slot}
+        want_counts.update(split_commit=trees * leaves, route_rows=trees)
+        want_counts[root] = trees * (1 if tag in ("planes", "resident")
+                                     else leaves)
+        if tag in ("planes", "resident"):
+            want_counts.update(partition_segment=0, split_scan=0)
+        if dev.type == "cuda":
+            if any(counts.get(k, 0) != v for k, v in want_counts.items()):
                 raise AssertionError("fused %s launches %s, want %s"
                                      % (tag, counts, want_counts))
-            if dev.type == "cuda":
-                if loop is None or loop.graph is None:
-                    raise AssertionError("fused %s: no device tree loop "
-                                         "graph" % tag)
-                s["capture_ms"] = loop.capture_ms
-                s["replay_launches"] = loop.replay_launches
-            s["launches_per_split"] = (counts.get(one, 0) + counts.get(
-                "split_commit", 0)) / max(1, s["splits"])
-            s["launches_per_tree"] = sum(counts.values()) / trees
-        elif loop is not None or counts.get("split_commit", 0):
-            raise AssertionError("fused quantized: the device loop ran")
+            if loop is None or loop.graph is None:
+                raise AssertionError("fused %s: no device tree loop "
+                                     "graph" % tag)
+            s["capture_ms"] = loop.capture_ms
+            s["replay_launches"] = loop.replay_launches
+        # a tree: the slots, then the root histogram, the final commit and
+        # the router
+        s["launches_per_tree"] = sum(counts.values()) / trees
+        s["launches_per_split"] = (s["launches_per_tree"] - 3) / L1
         auc = auc_np(yv, bst.predict(Xv))
         s["valid_auc"] = auc
-        same = tag == "quantized" or auc == per_iter["predict_auc"]
+        same = tag not in ("planes", "resident") \
+            or auc == per_iter["predict_auc"]
         log("fused %s (%s): %d trees x %d leaves on %d rows in %.2f s "
             "(%.1f ms/tree; per-iteration phase 3b %.1f ms/tree), %d splits;"
-            " graph capture %s ms; launches per split %s; valid auc from "
-            "predict %.7f (phase 3b %.7f); launches %s"
+            " graph capture %s ms; launches per split slot %s, per tree %s;"
+            " valid auc from predict %.7f (phase 3b %.7f); launches %s"
             % (tag, card, trees, leaves, len(X), wall,
                s["wall_per_tree_ms"], per_iter["wall_per_tree_ms"],
                s["splits"], s.get("capture_ms"),
-               s.get("launches_per_split"), auc, per_iter["predict_auc"],
-               counts))
+               s.get("launches_per_split"), s.get("launches_per_tree"), auc,
+               per_iter["predict_auc"], counts))
         if not same:
             raise AssertionError("fused %s valid auc %.7f vs phase 3b %.7f"
                                  % (tag, auc, per_iter["predict_auc"]))
-        if profile and dev.type == "cuda" and tag != "quantized":
+        if profile and dev.type == "cuda":
             s["profile"] = profile_block(dev, train, leaves, extra)
+        if tag in ("three_launch", "quantized"):
+            rows = full_width_chain(bst, dev, errs, tag,
+                                    timed=dev.type == "cuda")
+            if rows:
+                s["chain_shapes"] = rows["split_scan"]["shapes"]
+                if tag == "three_launch":
+                    chain_rows = rows
+                else:
+                    chain_rows["split_scan"]["shapes"] = dict(
+                        three_launch=chain_rows["split_scan"]["shapes"],
+                        quantized=rows["split_scan"]["shapes"])
         summary[tag] = s
         counts_by[tag] = counts
         if tag == "planes":
@@ -3541,7 +4136,7 @@ def phase_fused(dev, data, trees, leaves, per_iter, args, card,
     p, r = summary["planes"], summary["resident"]
     if p["model_sha256"] != r["model_sha256"]:
         raise AssertionError("fused resident model differs from planes")
-    return keep, counts_by, summary
+    return keep, counts_by, summary, chain_rows
 
 
 def phase_serve(bst, train, rng, binned_rows):
@@ -3752,7 +4347,7 @@ def main(argv=None):
     # importing the op modules registers their kernels
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
                                         histogram, kernels, partition,
-                                        route)
+                                        route, scan)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3843,6 +4438,8 @@ def main(argv=None):
         errs = phase_commit_kernel(dev, np.random.RandomState(args.seed + 23))
         errs.update(phase_one_kernel_header(
             dev, np.random.RandomState(args.seed + 29)))
+        errs.update(phase_chain_kernels(
+            dev, np.random.RandomState(args.seed + 37)))
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         bst_k, counts_k, summary_k = phase_train(
             dev, build_datasets(dev, data, args.leaves, ONE_KERNEL_PARAMS),
@@ -3850,12 +4447,18 @@ def main(argv=None):
         check_model_sha("one-kernel", summary_k, args, ONE_KERNEL_MODEL_SHA256)
         summary_k["predict_auc"] = auc_np(data[3], bst_k.predict(data[2]))
         del bst_k
-        bst_f, counts_f, summary_f = phase_fused(
-            dev, data, args.trees, args.leaves, summary_k, args, card)
+        bst_f, counts_f, summary_f, chain_rows = phase_fused(
+            dev, data, args.trees, args.leaves, summary_k, args, card, errs)
         rows = full_width_commit(bst_f, dev, errs)
+        del bst_f
+        _, counts_m, summary_m, errs_m, cat_row = phase_mixed(
+            dev, args.seed, card)
+        errs.update(errs_m)
         for name, e in errs.items():
             log("check %s: max |diff| %.3g" % (name, e))
         print(json.dumps({"fused": summary_f, "split_commit": rows,
+                          "chain": chain_rows, "mixed": summary_m,
+                          "route_rows_cat": cat_row,
                           "per_iteration_wall_per_tree_ms":
                               summary_k["wall_per_tree_ms"],
                           "launches": counts_f}, default=str))
@@ -3885,6 +4488,8 @@ def main(argv=None):
                                     np.random.RandomState(args.seed + 23)))
     errs.update(phase_one_kernel_header(
         dev, np.random.RandomState(args.seed + 29)))
+    errs.update(phase_chain_kernels(dev,
+                                    np.random.RandomState(args.seed + 37)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
@@ -3932,11 +4537,18 @@ def main(argv=None):
 
     log("== phase 3d: full-width training in fused blocks, the device tree "
         "loop as one CUDA graph per tree (%s)" % card)
-    bst_f, counts_f, summary_f = phase_fused(dev, data, args.trees,
-                                             args.leaves, summary_k, args,
-                                             card)
+    bst_f, counts_f, summary_f, chain_rows = phase_fused(
+        dev, data, args.trees, args.leaves, summary_k, args, card, errs)
     rows.update(full_width_commit(bst_f, dev, errs))
+    rows.update(chain_rows)
     del bst_f
+
+    log("== phase 3e: categorical and EFB data through the device tree "
+        "loop, fused against per iteration (%s)" % card)
+    _, counts_m, summary_m, errs_m, cat_row = phase_mixed(dev, args.seed,
+                                                          card)
+    errs.update(errs_m)
+    rows.update(cat_row)
 
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
@@ -4010,7 +4622,11 @@ def main(argv=None):
                     counts_rs["segment_histogram_resident"],
                 "write_route_plane":
                     summary_rs["three_launch"]["write_route_plane"],
-                "split_commit": counts_f["planes"]["split_commit"]}
+                "split_commit": counts_f["planes"]["split_commit"],
+                "split_scan": counts_f["three_launch"]["split_scan"]
+                + counts_f["quantized"]["split_scan"]
+                + counts_m["split_scan"],
+                "route_rows_cat": counts_m["route_rows_cat"]}
     log("launches: planes training %s; one-kernel training %s; resident "
         "training %s; quantized training %s; rows run %s; serving %s"
         % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
@@ -4019,6 +4635,7 @@ def main(argv=None):
     log("train summary resident %s" % json.dumps(summary_rs))
     log("train summary quantized %s" % json.dumps(summary_q))
     log("train summary fused %s" % json.dumps(summary_f, default=str))
+    log("train summary mixed %s" % json.dumps(summary_m, default=str))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}
     log(card)

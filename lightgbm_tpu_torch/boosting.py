@@ -276,8 +276,11 @@ class GBDT:
             self._bump_model_version()
         return not any_nonconstant
 
-    def _count_tree(self, tree: Tree) -> None:
-        """Growth and launch counters of one finished tree."""
+    def _count_tree(self, tree: Tree, device_loop: bool = False) -> None:
+        """Growth and launch counters of one finished tree; the
+        ``learner/launches_per_split`` gauge is the count of the loop that
+        grew it (the device tree loop on the card's fused path, else the
+        per-split host loop)."""
         splits = tree.num_leaves - 1
         telemetry.count("tree/trees")
         telemetry.count("tree/splits", splits)
@@ -298,7 +301,8 @@ class GBDT:
         if kw["work_layout"] == "resident" and not one:
             telemetry.count("learner/route_gather_launches", splits)
         telemetry.gauge("learner/launches_per_split",
-                        launches_per_split(kw["work_layout"], one))
+                        launches_per_split(kw["work_layout"], one,
+                                           device_loop))
 
     def _shrinkage_rate(self, log: TreeLog) -> float:
         return float(self.config.learning_rate)
@@ -315,10 +319,11 @@ class GBDT:
             K = self.num_tree_per_iteration
             self.train_score.add(leaf_vals_dev, log.row_leaf, class_id, K)
             for _, vset, vscore in self.valid_sets:
+                vbins = self._valid_bins(vset)
                 bins_t = self._valid_bins_t(vset) \
-                    if not self.learner.hp.has_categorical else None
+                    if vbins.dtype == torch.uint8 else None
                 vleaf = assign_leaves(
-                    self._valid_bins(vset), log,
+                    vbins, log,
                     has_categorical=self.learner.hp.has_categorical,
                     bundle=self.learner.bundle, bins_t=bins_t)
                 vscore.add(leaf_vals_dev, vleaf, class_id, K)
@@ -445,7 +450,7 @@ class GBDT:
                       for k, v in ds.bundle_maps().items()}
         hc = any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers)
         bins_t = None
-        if not hc and bins.dtype == torch.uint8:
+        if bins.dtype == torch.uint8:
             bins_t = self._valid_bins_t(ds)
         leaf = assign_leaves(bins, log, has_categorical=hc, bundle=bundle,
                              bins_t=bins_t)

@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_arg.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -279,14 +281,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 partition_planes_kernel(uint8_t* work, int W, int npad,
                         const int* __restrict__ seg,
                         const uint8_t* __restrict__ table, int nbins,
-                        int steps, int group, int slots, int* block_left,
-                        int* __restrict__ lt_out) {
+                        int steps, int group, int slots, int mode,
+                        int* block_left, int* __restrict__ lt_out) {
   extern __shared__ __align__(16) uint8_t s_ring[];
   __shared__ Shared sh;
   for (int b = threadIdx.x; b < 256; b += kThreads) {
     sh.tbl[b] = b < nbins ? (table[b] != 0) : 0;
   }
-  const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
+  // a dead split (device tree loop) leaves the whole grid here: every
+  // block reads the same word, before the grid barrier
+  if (mode != lgbt_seg::kSegPlain && seg[6] == 0) return;
+  const lgbt_seg::Seg sg = lgbt_seg::read_seg<true>(seg, nullptr, mode);
+  const int src = sg.src, start = sg.start, cnt = sg.cnt, feat = sg.col;
   const uint8_t* sbuf = work + (size_t)src * W * npad;
   uint8_t* dbuf = work + (size_t)(1 - src) * W * npad;
   const int T = steps * 32;
@@ -468,13 +474,17 @@ const char* lgbt_error_string(int code) {
 // (32-row steps per tile), group (planes per slot), slots (slots of shared
 // memory per block) and grid come from ops/partition.partition_planes_plan;
 // the grid is cut to what the card runs at once. block_left holds at least
-// `grid` ints, lt one.
+// `grid` ints, lt one. mode (segment_arg.cuh) says what seg holds: the
+// segment [src, start, cnt, feat], or a split's header. The launch is
+// cudaLaunchKernelEx with the cooperative attribute, which stream capture
+// records as a cooperative node of a CUDA graph.
 int partition_segment(void* work, int W, int npad, const void* seg,
                       const void* table, int nbins, int steps, int group,
-                      int slots, int grid, void* block_left, void* lt,
-                      void* stream) {
+                      int slots, int grid, int mode, void* block_left,
+                      void* lt, void* stream) {
   if (W < 1 || npad % 16 || steps < 1 || steps > kMaxSteps || group < 1 ||
-      group > W || slots < 1 || grid < 1 || nbins < 1 || nbins > 256) {
+      group > W || slots < 1 || grid < 1 || nbins < 1 || nbins > 256 ||
+      !lgbt_seg::seg_mode_ok(mode) || mode == lgbt_seg::kSegSmaller) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t slot_bytes = (size_t)group * (32 * steps + kStripePad);
@@ -483,16 +493,22 @@ int partition_segment(void* work, int W, int npad, const void* seg,
   cudaError_t e = max_grid(smem, &most);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (grid > most) grid = most;
-  uint8_t* w = static_cast<uint8_t*>(work);
-  const int* sg = static_cast<const int*>(seg);
-  const uint8_t* tb = static_cast<const uint8_t*>(table);
-  int* bl = static_cast<int*>(block_left);
-  int* ltp = static_cast<int*>(lt);
-  void* args[] = {&w,     &W,     &npad,  &sg, &tb,  &nbins,
-                  &steps, &group, &slots, &bl, &ltp};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(partition_planes_kernel), dim3(grid),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, partition_planes_kernel,
+                         static_cast<uint8_t*>(work), W, npad,
+                         static_cast<const int*>(seg),
+                         static_cast<const uint8_t*>(table), nbins, steps,
+                         group, slots, mode, static_cast<int*>(block_left),
+                         static_cast<int*>(lt));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "resident.cuh"
+#include "segment_arg.cuh"
 
 namespace {
 
@@ -39,8 +40,9 @@ constexpr int kThreads = 64;
 
 __global__ void __launch_bounds__(kThreads)
 route_kernel(uint8_t* work, int W, int npad, const int* __restrict__ seg,
-             const uint8_t* __restrict__ res, int npad_res) {
-  const int src = seg[0], start = seg[1], cnt = seg[2], feat = seg[3];
+             int mode, const uint8_t* __restrict__ res, int npad_res) {
+  const lgbt_seg::Seg sg = lgbt_seg::read_seg<true>(seg, nullptr, mode);
+  const int src = sg.src, start = sg.start, cnt = sg.cnt, feat = sg.col;
   uint8_t* pl = work + (size_t)src * W * npad;
   lgbt_res::route_gather<1>(
       pl, npad, start, cnt, res, npad_res, feat, 0, cnt,
@@ -58,16 +60,19 @@ const char* lgbt_error_string(int code) {
 
 // work is the (2, W, npad) slim pair (npad a multiple of 4), res the
 // (F, npad_res) resident planes; nblocks blocks of 64 threads, one 4-row
-// word each per pass.
+// word each per pass. mode (segment_arg.cuh): seg is [src, start, cnt,
+// feat] (kSegPlain) or a split's header (kSegParent; a dead one writes
+// nothing).
 int write_route_plane(void* work, int W, int npad, const void* seg,
-                      const void* res, int npad_res, int nblocks,
+                      int mode, const void* res, int npad_res, int nblocks,
                       void* stream) {
-  if (npad % 4 != 0 || nblocks < 1) {
+  if (npad % 4 != 0 || nblocks < 1 ||
+      (mode != lgbt_seg::kSegPlain && mode != lgbt_seg::kSegParent)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   route_kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(work), W, npad, static_cast<const int*>(seg),
-      static_cast<const uint8_t*>(res), npad_res);
+      mode, static_cast<const uint8_t*>(res), npad_res);
   return static_cast<int>(cudaGetLastError());
 }
 

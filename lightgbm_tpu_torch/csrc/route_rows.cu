@@ -11,7 +11,12 @@
 // movable-missing override, and the EFB bundle arithmetic: a bundled
 // column's slot maps back to the sub-feature's bin (slots at or above the
 // shared default position shift up by one) and slots outside the
-// sub-feature's range follow the default bin's direction (rest).
+// sub-feature's range follow the default bin's direction (rest). Beyond
+// the TPU kernel, categorical splits: given the (R * CAT_W) categorical
+// table (ops/route.build_cat_table: per round a kind flag and the split's
+// 256-bit go-left set), a categorical round sends a row left when its
+// column's byte is in the set, as the JAX package's round-by-round
+// assign_leaves does with its (B,) table (lightgbm_tpu/learner.py).
 //
 // What bounds it on this card: bytes. It reads one u8 per (column, row)
 // and writes one i32 per row: 2M x 28 rows move ~64 MB, ~0.019 ms at
@@ -40,6 +45,9 @@
 //     sectors of 32 planes. A thread walks one row and writes its id (a
 //     warp writes 128 consecutive bytes); eight blocks share an SM, so
 //     their warps hide each other's chains of dependent loads.
+//   categorical rounds (kCat): the set's 8 words go to shared memory beside
+//     the entries (32 bytes a round more), and the round's entry carries
+//     bin = kCatBin; its step is one word load and a shift.
 //   steps: a numerical round is one 16-byte entry {col, bin, miss', links}
 //     and about a dozen instructions: go left = (c <= bin) xor (c ==
 //     miss'), where miss' is the movable-missing bin only where its
@@ -57,6 +65,8 @@ namespace {
 
 constexpr int kThreads = 256;              // one row a thread: T = 256
 constexpr int kTblW = 10;
+constexpr int kCatW = 9;                   // kind, then 8 words of the set
+constexpr int kCatBin = -0x7fffffff;       // a categorical round's bin
 constexpr int kStripePad = 16;
 constexpr int kEnd = 0xffff;               // no link: the walk ends
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -92,22 +102,24 @@ __device__ __forceinline__ int lower_bound(const unsigned* key, int n,
   return lo;
 }
 
-template <bool kStaged>
+template <bool kStaged, bool kCat>
 __global__ void __launch_bounds__(kThreads)
 route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
                   const int* __restrict__ table, int rounds,
                   const int* __restrict__ num_splits,
-                  int* __restrict__ out) {
+                  const int* __restrict__ cat, int* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t s_dyn[];
-  // per round: e = {col (~col for a bundle round), bin, miss', links},
-  // f = {off, dpos, nbm1, rest}; then the sort keys
+  // per round: e = {col (~col for a bundle round), bin (kCatBin for a
+  // categorical round), miss', links}, f = {off, dpos, nbm1, rest}; with
+  // kCat each round's go-left set (8 words); then the sort keys
   int4* s_e = reinterpret_cast<int4*>(s_dyn);
   int4* s_f = s_e + rounds;
-  unsigned* s_key = reinterpret_cast<unsigned*>(s_f + rounds);
+  unsigned* s_set = reinterpret_cast<unsigned*>(s_f + rounds);
+  unsigned* s_key = s_set + (kCat ? 8 * rounds : 0);
   int nkeys = 1;
   while (nkeys < rounds) nkeys <<= 1;
-  uint8_t* s_bins =
-      s_dyn + (((size_t)rounds * 32 + (size_t)nkeys * 4 + 15) & ~(size_t)15);
+  const size_t ent = (size_t)rounds * (kCat ? 64 : 32);
+  uint8_t* s_bins = s_dyn + ((ent + (size_t)nkeys * 4 + 15) & ~(size_t)15);
   constexpr int T = kThreads;
   constexpr int stripe = T + kStripePad;
   const int buf_bytes = F * stripe;
@@ -138,8 +150,16 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
       const bool dl = t[4] != 0, plain = t[5] == 1;
       // the missing bin overrides only where it changes the direction
       const int missx = miss >= 0 && dl != (miss <= bin) ? miss : -1;
-      s_e[r] = make_int4(plain ? col : ~col, bin, missx, 0);
+      const bool is_cat = kCat && cat[(size_t)r * kCatW] > 0;
+      s_e[r] = is_cat ? make_int4(col, kCatBin, -1, 0)
+                      : make_int4(plain ? col : ~col, bin, missx, 0);
       s_f[r] = make_int4(t[6], t[7], t[8], t[9] != 0);
+      if (kCat) {
+        for (int w = 0; w < 8; ++w) {
+          s_set[r * 8 + w] =
+              static_cast<unsigned>(cat[(size_t)r * kCatW + 1 + w]);
+        }
+      }
       // a leaf id past R never matches a row's leaf: such a round is
       // never reached
       if (leaf >= 0 && leaf <= rounds) {
@@ -205,7 +225,11 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
         bool go;
         if (e.x >= 0) {
           const int c = base[e.x * stride];
-          go = (c <= e.y) != (c == e.z);
+          if (kCat && e.y == kCatBin) {  // a categorical round: c in the set
+            go = (s_set[r * 8 + (c >> 5)] >> (c & 31)) & 1u;
+          } else {
+            go = (c <= e.y) != (c == e.z);
+          }
         } else {                       // a bundle column's slot
           const int4 f = s_f[r];
           const int c = base[~e.x * stride];
@@ -227,7 +251,7 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
   }
 }
 
-// Raise both variants' dynamic shared-memory limit to the most a block
+// Raise every variant's dynamic shared-memory limit to the most a block
 // may take, once per device.
 cudaError_t raise_smem() {
   thread_local bool raised[kMaxDevices] = {};
@@ -240,8 +264,11 @@ cudaError_t raise_smem() {
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess) return e;
-  const void* fns[] = {reinterpret_cast<const void*>(route_walk_kernel<true>),
-                       reinterpret_cast<const void*>(route_walk_kernel<false>)};
+  const void* fns[] = {
+      reinterpret_cast<const void*>(route_walk_kernel<true, false>),
+      reinterpret_cast<const void*>(route_walk_kernel<false, false>),
+      reinterpret_cast<const void*>(route_walk_kernel<true, true>),
+      reinterpret_cast<const void*>(route_walk_kernel<false, true>)};
   for (const void* fn : fns) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, fn);
@@ -262,11 +289,11 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// staged, grid and the dynamic shared memory smem come from
-// ops/route.route_plan.
-int route_rows(const void* bins_t, int F, int npad, const void* table,
-               int rounds, const void* num_splits, int staged, int grid,
-               int smem, void* out, void* stream) {
+namespace {
+
+int launch_route(const void* bins_t, int F, int npad, const void* table,
+                 int rounds, const void* num_splits, const void* cat,
+                 int staged, int grid, int smem, void* out, void* stream) {
   if (F < 1 || npad % 128 || rounds < 0 || rounds >= kEnd || grid < 1 ||
       smem < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -276,16 +303,37 @@ int route_rows(const void* bins_t, int F, int npad, const void* table,
   const uint8_t* b = static_cast<const uint8_t*>(bins_t);
   const int* t = static_cast<const int*>(table);
   const int* ns = static_cast<const int*>(num_splits);
+  const int* c = static_cast<const int*>(cat);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    route_walk_kernel<true><<<grid, kThreads, smem, s>>>(b, F, npad, t,
-                                                        rounds, ns, o);
-  } else {
-    route_walk_kernel<false><<<grid, kThreads, smem, s>>>(b, F, npad, t,
-                                                         rounds, ns, o);
-  }
+  auto kernel = staged ? (c ? route_walk_kernel<true, true>
+                            : route_walk_kernel<true, false>)
+                       : (c ? route_walk_kernel<false, true>
+                            : route_walk_kernel<false, false>);
+  kernel<<<grid, kThreads, smem, s>>>(b, F, npad, t, rounds, ns, c, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// staged, grid and the dynamic shared memory smem come from
+// ops/route.route_plan.
+int route_rows(const void* bins_t, int F, int npad, const void* table,
+               int rounds, const void* num_splits, int staged, int grid,
+               int smem, void* out, void* stream) {
+  return launch_route(bins_t, F, npad, table, rounds, num_splits, nullptr,
+                      staged, grid, smem, out, stream);
+}
+
+// The same with the (rounds * kCatW) categorical table `cat`: categorical
+// rounds go by their go-left sets.
+int route_rows_cat(const void* bins_t, int F, int npad, const void* table,
+                   int rounds, const void* num_splits, const void* cat,
+                   int staged, int grid, int smem, void* out,
+                   void* stream) {
+  if (cat == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_route(bins_t, F, npad, table, rounds, num_splits, cat,
+                      staged, grid, smem, out, stream);
 }
 
 }  // extern "C"

@@ -41,9 +41,11 @@
 // Design, chosen for bit-determinism run to run (no float atomics)
 // with the summation order fixed by the segment's rows alone
 // (segment_hist.cuh states it):
-//   1. Grid (feature groups, chunks): groups of 4 features, chunks from
-//      the host's row bound (blocks past the segment's true chunk count
-//      return at once); the blocks in flight share a chunk's rows in L2.
+//   1. Grid (feature groups, chunk rows): groups of 4 features; the chunk
+//      rows stride over the segment's true chunk count, read on the card
+//      (one row a chunk of the host's row bound on the per-split path, a
+//      wave's worth on the device tree loop's static plan); the blocks in
+//      flight share a chunk's rows in L2.
 //      A block of 512 threads holds 16 private (B, NCH) f32 histograms in
 //      shared memory, one per (feature, slice), each owned by one of its
 //      16 warps, so every warp counts its own rows. The chunk is staged in
@@ -73,6 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_arg.cuh"
 #include "segment_hist.cuh"
 
 namespace {
@@ -82,29 +85,36 @@ using namespace lgbt_hist;
 constexpr int kThreads = 512;      // 16 warps: 4 features x 4 slices
 constexpr int kReduceBins = 64;    // (feature, bin)s per reduce block
 
-// One chunk of one feature group. `lay` points at the pair's first buffer;
-// the kernel moves it to buffer seg[0] (plane_bytes apart).
+// The chunks of one feature group, grid-stride over the segment's true
+// chunk count (read on the card). `lay` points at the pair's first buffer;
+// the kernel moves it to the segment's buffer (plane_bytes apart).
 template <int kNch, class L>
 __global__ void __launch_bounds__(kThreads, 2)
-hist_kernel(L lay, size_t plane_bytes, const int* __restrict__ seg, int F,
-            int B, float* __restrict__ partial) {
+hist_kernel(L lay, size_t plane_bytes, const int* __restrict__ seg,
+            const int* __restrict__ lt, int mode, int F, int B,
+            float* __restrict__ partial) {
   extern __shared__ float smem[];
-  const int plane = seg[0], start = seg[1], cnt = seg[2];
-  if ((int)blockIdx.y >= hist_chunks(cnt)) return;
-  lay.buf += (size_t)plane * plane_bytes;
-  hist_chunk<kNch, kThreads, kHistFeats>(lay, start, cnt, F, B,
-                                         blockIdx.x * kHistFeats, blockIdx.y,
-                                         smem, partial);
+  const lgbt_seg::Seg sg = lgbt_seg::read_seg<false>(seg, lt, mode);
+  const int chunks = hist_chunks(sg.cnt);
+  if ((int)blockIdx.y >= chunks) return;
+  lay.buf += (size_t)sg.src * plane_bytes;
+  for (int chunk = blockIdx.y; chunk < chunks; chunk += gridDim.y) {
+    hist_chunk<kNch, kThreads, kHistFeats>(lay, sg.start, sg.cnt, F, B,
+                                           blockIdx.x * kHistFeats, chunk,
+                                           smem, partial);
+  }
 }
 
 // out (F, B, 3): per (feature, bin, channel) the chunk partials summed in
 // chunk order, then hi + lo (exact mode).
 template <int kNch>
 __global__ void __launch_bounds__(kReduceBins * kNch)
-reduce_kernel(const int* __restrict__ seg, const float* __restrict__ partial,
-              int F, int B, float* __restrict__ out) {
+reduce_kernel(const int* __restrict__ seg, const int* __restrict__ lt,
+              int mode, const float* __restrict__ partial, int F, int B,
+              float* __restrict__ out) {
   __shared__ float s[kReduceBins * kNch];
-  const int chunks = hist_chunks(seg[2]);
+  const int chunks =
+      hist_chunks(lgbt_seg::read_seg<false>(seg, lt, mode).cnt);
   const int fb0 = blockIdx.x * kReduceBins;
   const int t = threadIdx.x;
   const int fb = fb0 + t / kNch;
@@ -123,8 +133,9 @@ reduce_kernel(const int* __restrict__ seg, const float* __restrict__ partial,
 }
 
 template <int kNch, class L>
-int launch_nch(L lay, size_t plane_bytes, const int* seg, int F, int B,
-               int chunks, float* partial, float* out, cudaStream_t s) {
+int launch_nch(L lay, size_t plane_bytes, const int* seg, const int* lt,
+               int mode, int F, int B, int chunks, float* partial,
+               float* out, cudaStream_t s) {
   const int smem = hist_smem_bytes(B, kNch, kHistFeats);
   cudaError_t e = cudaFuncSetAttribute(
       hist_kernel<kNch, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -133,30 +144,39 @@ int launch_nch(L lay, size_t plane_bytes, const int* seg, int F, int B,
   // x: the feature groups, so that blocks in flight share a chunk's rows
   // in L2
   dim3 grid((F + kHistFeats - 1) / kHistFeats, chunks);
-  hist_kernel<kNch, L><<<grid, kThreads, smem, s>>>(lay, plane_bytes, seg, F,
-                                                    B, partial);
+  hist_kernel<kNch, L><<<grid, kThreads, smem, s>>>(lay, plane_bytes, seg,
+                                                    lt, mode, F, B, partial);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_kernel<kNch><<<(F * B + kReduceBins - 1) / kReduceBins,
-                        kReduceBins * kNch, 0, s>>>(seg, partial, F, B, out);
+                        kReduceBins * kNch, 0, s>>>(seg, lt, mode, partial,
+                                                    F, B, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// chunks: the grid's chunk count, hist_chunks of a host bound >= cnt (at
-// least 1); partial holds (chunks, F, B, NCH) f32.
+// chunks: the grid's chunk rows (at least 1; its blocks stride over the
+// segment's chunks); partial holds (hist_chunks(cnt), F, B, NCH) f32 for
+// the largest segment the caller passes. mode and lt (segment_arg.cuh):
+// seg is [plane, start, cnt] (kSegPlain), or a split's header and lt its
+// left count (kSegSmaller: the smaller child's segment).
 template <class L>
-int launch_histogram(L lay, size_t plane_bytes, const void* seg, int F,
-                     int B, int exact, int chunks, void* partial, void* out,
-                     void* stream) {
-  if (B < 1 || B > 256 || chunks < 1) {
+int launch_histogram(L lay, size_t plane_bytes, const void* seg,
+                     const void* lt, int mode, int F, int B, int exact,
+                     int chunks, void* partial, void* out, void* stream) {
+  if (B < 1 || B > 256 || chunks < 1 ||
+      (mode != lgbt_seg::kSegPlain && mode != lgbt_seg::kSegSmaller) ||
+      (mode == lgbt_seg::kSegSmaller && lt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
+  const int* n = static_cast<const int*>(lt);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
-  return exact ? launch_nch<5>(lay, plane_bytes, sg, F, B, chunks, p, o, s)
-               : launch_nch<3>(lay, plane_bytes, sg, F, B, chunks, p, o, s);
+  return exact ? launch_nch<5>(lay, plane_bytes, sg, n, mode, F, B, chunks,
+                               p, o, s)
+               : launch_nch<3>(lay, plane_bytes, sg, n, mode, F, B, chunks,
+                               p, o, s);
 }
 
 }  // namespace
@@ -169,33 +189,34 @@ const char* lgbt_error_string(int code) {
 
 // Planes layout: work is (2, W, npad).
 int segment_histogram(const void* work, int W, int npad, const void* seg,
-                      int F, int B, int exact, int chunks, void* partial,
-                      void* out, void* stream) {
+                      const void* lt, int mode, int F, int B, int exact,
+                      int chunks, void* partial, void* out, void* stream) {
   const PackedRows<false> lay{static_cast<const uint8_t*>(work), W, npad, F};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
-                          partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, lt, mode, F, B, exact,
+                          chunks, partial, out, stream);
 }
 
 // Rows layout: work is (2, npad, W).
 int segment_histogram_rows(const void* work, int W, int npad, const void* seg,
-                           int F, int B, int exact, int chunks,
-                           void* partial, void* out, void* stream) {
+                           const void* lt, int mode, int F, int B, int exact,
+                           int chunks, void* partial, void* out,
+                           void* stream) {
   const PackedRows<true> lay{static_cast<const uint8_t*>(work), W, npad, F};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
-                          partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, lt, mode, F, B, exact,
+                          chunks, partial, out, stream);
 }
 
 // Resident layout: work is the (2, W, npad) slim pair, res the
 // (F, npad_res) resident bin planes.
 int segment_histogram_resident(const void* work, int W, int npad,
-                               const void* seg, const void* res,
-                               int npad_res, int F, int B, int exact,
-                               int chunks, void* partial, void* out,
-                               void* stream) {
+                               const void* seg, const void* lt, int mode,
+                               const void* res, int npad_res, int F, int B,
+                               int exact, int chunks, void* partial,
+                               void* out, void* stream) {
   const ResidentRows lay{static_cast<const uint8_t*>(work), npad,
                          static_cast<const uint8_t*>(res), npad_res};
-  return launch_histogram(lay, (size_t)W * npad, seg, F, B, exact, chunks,
-                          partial, out, stream);
+  return launch_histogram(lay, (size_t)W * npad, seg, lt, mode, F, B, exact,
+                          chunks, partial, out, stream);
 }
 
 }  // extern "C"

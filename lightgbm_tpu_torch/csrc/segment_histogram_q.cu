@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_arg.cuh"
 namespace cg = cooperative_groups;
 
 namespace {
@@ -121,7 +122,8 @@ __device__ __forceinline__ void add3(int* hb, int g, int h, int c) {
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
 hist_q_kernel(const uint8_t* __restrict__ work, int W, int npad,
-              const int* __restrict__ seg, int F, int B, int nfb,
+              const int* __restrict__ seg, const int* __restrict__ lt,
+              int mode, int F, int B, int nfb,
               const float* __restrict__ scale, int* acc, unsigned* ticket,
               float* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -136,7 +138,8 @@ hist_q_kernel(const uint8_t* __restrict__ work, int W, int npad,
   for (int k = threadIdx.x; k < len; k += kThreads) s_hist[k] = 0;
   __syncthreads();
 
-  const int plane = seg[0], start = seg[1], cnt = seg[2];
+  const lgbt_seg::Seg sg = lgbt_seg::read_seg<false>(seg, lt, mode);
+  const int plane = sg.src, start = sg.start, cnt = sg.cnt;
   const uint8_t* rows = work + ((size_t)plane * npad + start) * W;
   const long nsteps = (cnt + 31) / 32;
   const long gw = (long)blockIdx.x * kWarps + warp;
@@ -303,7 +306,9 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// work (2, npad, W) u8; seg [plane, start, cnt] i32; scale (3,) f32; acc
+// work (2, npad, W) u8; seg [plane, start, cnt] i32 (mode kSegPlain), or
+// a split's header with lt its left count (kSegSmaller: the smaller
+// child's segment, segment_arg.cuh); scale (3,) f32; acc
 // (F, B, 3) i32 and ticket (1,) u32, zero on entry and left zero; out
 // (F, B, 3) f32. feats_per_block (the feature groups, grid.y), row_blocks
 // (grid.x, a multiple of cluster), cluster and staged (rows staged through
@@ -311,12 +316,15 @@ const char* lgbt_error_string(int code) {
 // row_blocks is cut to the clusters the card runs at once (the kernel
 // walks the segment grid-stride, so any grid gives the same sums).
 int segment_histogram_q(const void* work, int W, int npad, const void* seg,
-                        int F, int B, int feats_per_block, int row_blocks,
-                        int cluster, int staged, const void* scale,
+                        const void* lt, int mode, int F, int B,
+                        int feats_per_block, int row_blocks, int cluster,
+                        int staged, const void* scale,
                         void* acc, void* ticket, void* out, void* stream) {
   if (F < 1 || B < 1 || B > 256 || W != F + 3 || feats_per_block < 1 ||
       cluster < 1 || cluster > kMaxCluster || row_blocks < cluster ||
-      row_blocks % cluster != 0) {
+      row_blocks % cluster != 0 ||
+      (mode != lgbt_seg::kSegPlain && mode != lgbt_seg::kSegSmaller) ||
+      (mode == lgbt_seg::kSegSmaller && lt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = staged ? hist_q_kernel<true> : hist_q_kernel<false>;
@@ -344,7 +352,8 @@ int segment_histogram_q(const void* work, int W, int npad, const void* seg,
     cfg.gridDim.x = fit > cluster ? fit : cluster;
   }
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint8_t*>(work), W,
-                         npad, static_cast<const int*>(seg), F, B,
+                         npad, static_cast<const int*>(seg),
+                         static_cast<const int*>(lt), mode, F, B,
                          feats_per_block, static_cast<const float*>(scale),
                          static_cast<int*>(acc),
                          static_cast<unsigned*>(ticket),

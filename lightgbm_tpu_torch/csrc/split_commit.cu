@@ -21,10 +21,17 @@
 //       children's leaf sums, outputs and depth, the basic monotone bounds
 //       (both children bounded by the midpoint of their outputs,
 //       monotone_constraints.hpp:327), and num_splits += 1;
-//   (d) write header row s and pair row s of the one-kernel split
-//       (ops/partition.ONE_KERNEL_HDR, PAIR_WORDS): [src, start, cnt, col,
-//       left_smaller, depth, live, leaf] and the children's sums, outputs
-//       and bounds. With live 0 the split is a no-op.
+//   (d) write header row s and pair row s of the split (ops/partition.
+//       ONE_KERNEL_HDR, PAIR_WORDS): [src, start, cnt, col, left_smaller,
+//       depth, live, leaf] and the children's sums, outputs and bounds; col
+//       is the split feature's column of the work rows, through the (F,)
+//       column map (EFB: the feature's bundle; none: the feature itself).
+//       With live 0 the split is a no-op.
+//
+// The split's outputs come from the one-kernel split or from the chain's
+// split scan (ops/chain.ChainSplit); the child histograms and the pool are
+// in the work rows' column space (HF columns of HB bins: the bundles with
+// EFB), the best-split tables and the log in feature space (B bins).
 //
 // Block 0 does (a)'s scalar writes, then (b)-(d); every block copies a
 // share of the two child histograms into the pool. Nothing is read back
@@ -34,7 +41,7 @@
 // min; built with -fmad=false), so the state equals the host loop's and
 // its plain twin's (ops/commit.split_commit_plain) bit for bit.
 //
-// What bounds it: latency. It moves two child histograms (2 x F x B x 12 B
+// What bounds it: latency. It moves two child histograms (2 x HF x HB x 12 B
 // read and written, 0.34 MB at F = 28, B = 255: ~0.2 us at 3.35 TB/s) and
 // a few hundred scalars; the pick is one block-wide argmax over L gains.
 #include <cuda_runtime.h>
@@ -45,13 +52,13 @@
 struct CommitArgs {
   // the one-kernel split's outputs (ops/partition.SplitOut)
   const int32_t* lt;          // (1,)
-  const float* hists;         // (2, F, B, 3)
+  const float* hists;         // (2, HF, HB, 3)
   const float* fout;          // (18,)
   const int64_t* iout;        // (6,)
   const uint8_t* bout;        // (2 + 2B,)
   // tree state (ops/commit.TreeState)
   int32_t* seg_tab;           // (L, 3) start, cnt, parity
-  float* hist_pool;           // (L, F, B, 3)
+  float* hist_pool;           // (L, HF, HB, 3)
   float* best_gain;           // (L,)
   int64_t* best_feature;      // (L,)
   int64_t* best_bin;
@@ -80,7 +87,8 @@ struct CommitArgs {
   int32_t* hdr;               // (L, 8)
   float* pair;                // (L, 12)
   const int8_t* monotone;     // (F,)
-  int32_t s, L, F, B, max_depth, has_monotone;
+  const int32_t* col_map;     // (F,) the feature's column, or null: itself
+  int32_t s, L, F, B, HF, HB, max_depth, has_monotone;
 };
 
 namespace {
@@ -148,11 +156,11 @@ __global__ void __launch_bounds__(kThreads)
 split_commit_kernel(const CommitArgs a) {
   __shared__ float s_g[kWarps];
   __shared__ int s_i[kWarps];
-  const int s = a.s, F = a.F, B = a.B;
+  const int s = a.s, B = a.B;
   const int32_t* ph = a.hdr + (size_t)(s - 1) * kHdr;   // split s - 1
   const bool prev_live = s > 0 && ph[6] != 0;
   const int pleaf = prev_live ? ph[7] : 0;
-  const size_t hsize = (size_t)F * B * 3;
+  const size_t hsize = (size_t)a.HF * a.HB * 3;
 
   // ---- (a) the child histograms into the pool, every block a share ----
   if (prev_live) {
@@ -259,7 +267,7 @@ split_commit_kernel(const CommitArgs a) {
   hdr[0] = a.seg_tab[leaf * 3 + 2];
   hdr[1] = a.seg_tab[leaf * 3 + 0];
   hdr[2] = a.seg_tab[leaf * 3 + 1];
-  hdr[3] = (int32_t)feat;
+  hdr[3] = a.col_map != nullptr ? a.col_map[feat] : (int32_t)feat;
   hdr[4] = ls[2] <= rs[2] ? 1 : 0;
   hdr[5] = d;
   hdr[6] = 1;
@@ -280,7 +288,7 @@ const char* lgbt_error_string(int code) {
 int split_commit(const CommitArgs* args, int blocks, void* stream) {
   const CommitArgs a = *args;
   if (a.s < 0 || a.s >= a.L || a.L < 2 || a.F < 1 || a.B < 1 ||
-      blocks < 1) {
+      a.HF < 1 || a.HB < 1 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   split_commit_kernel<<<blocks, kThreads, 0,

@@ -1,0 +1,149 @@
+// The split scan of both children of a split in one launch, for Hopper
+// (sm_90a): the third launch of the three-launch chain (partition, the
+// smaller child's histogram, the scan) in the device tree loop.
+//
+// Replaces lightgbm_tpu/ops/split.py find_best_split, which the JAX
+// builder runs as XLA inside its lax.while_loop (no Pallas kernel), and in
+// this package ops/split.find_best_split on a (2, F, B, 3) batch: about 55
+// torch calls a split, a few hundred kernels, which a CUDA graph of a
+// 255-leaf tree would hold as tens of thousands of nodes. Same contract:
+// the two children's histograms hists (2, F, B, 3) f32 (left, right), the
+// split's pair row [sums (2, 3), outputs (2,), lower (2,), upper (2,)]
+// (ops/partition.PAIR_WORDS), the FeatureMeta columns, the (F,) search
+// mask and the node depth -> each child's best split (gain, feature, bin,
+// kind, default_left, go_left (B,), left_sum, right_sum, left_output,
+// right_output) in the SplitOut buffers of ops/partition.py, which the
+// split commit (csrc/split_commit.cu) reads as it reads the one-kernel
+// split's. The depth and a live word come from the split's device header
+// (ops/partition.ONE_KERNEL_HDR, words 5 and 6); with live 0 every block
+// returns at once and nothing is written.
+//
+// The scan is the one-kernel split's phase C (split_scan.cuh, one body for
+// both kernels) in torch's summation order on the card (kTorchOrder), so
+// its outputs are bit-equal to find_best_split run on the card on the same
+// inputs: numerical thresholds in both missing directions, one-vs-rest and
+// many-vs-many categorical prefixes, basic monotone bounds and the depth
+// penalty, the feature penalty and mask, min_gain_to_split. Built with
+// -fmad=false: no multiply-add is contracted, as torch's elementwise ops
+// round each operation.
+//
+// Design: one block of 256 threads (one a bin) per (child, feature) item,
+// 2F blocks: the item loads its histogram row, builds its prefix sums in
+// shared memory and keeps each kind's first maximum; then it takes a ticket
+// (an atomic counter after a __threadfence). The block that takes the last
+// one picks each child's first maximum over (kind, feature, bin) and builds
+// its routing table, sums and outputs, then zeroes the ticket for the next
+// launch. No grid barrier, so no cooperative launch.
+//
+// What bounds it on this card: latency. It reads the two histograms (2 x F
+// x B x 12 B, 0.17 MB at F = 28, B = 255: ~0.05 us at 3.35 TB/s) and does
+// ~10 operations a candidate (2 x 4 x F x B candidates: ~0.6 MFLOP, ~0.01
+// us at 67 TFLOP/s). Its time is the items' chains: three sequential
+// prefix sums of B steps per item (six more with categorical features),
+// the many-vs-many ranks (B compares a thread), then the finishing block's
+// reductions.
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "split_scan.cuh"
+
+// Field order and types must match ops/scan.py SplitScanArgs.
+struct SplitScanArgs {
+  const float* hists;          // (2, F, B, 3) children's histograms
+  const int32_t* hdr;          // (8,) split header: depth hdr[5], live hdr[6]
+  const int32_t* num_bins;     // FeatureMeta columns, (F,) each
+  const uint8_t* movable;
+  const int32_t* missing_bin;
+  const uint8_t* is_cat;
+  const int8_t* monotone;
+  const float* penalty;
+  const uint8_t* fmask;        // (F,) bool
+  const float* sums2;          // (2, 3)
+  const float* outs2;          // (2,)
+  const float* lows2;
+  const float* ups2;
+  int32_t* done;               // scratch (1,): the ticket, 0 at rest
+  float* cand_gain;            // scratch (2, 4, F)
+  int32_t* cand_bin;           // scratch (2, 4, F)
+  uint8_t* num_dl;             // scratch (2, F, B)
+  uint8_t* rank;               // scratch (2, 2, F, B)
+  const float* hist_left;      // hists[0], hists[1]
+  const float* hist_right;
+  float* gain;                 // (2,)
+  int64_t* feature;            // (2,)
+  int64_t* bin;
+  int64_t* kind;
+  uint8_t* default_left;       // (2,) bool
+  uint8_t* go_left;            // (2, B) bool
+  float* left_sum;             // (2, 3)
+  float* right_sum;
+  float* left_output;          // (2,)
+  float* right_output;
+  int32_t F, B, max_cat_to_onehot, has_categorical, has_monotone,
+      use_mono_penalty;
+  float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
+      min_sum_hessian, min_gain_to_split, max_delta_step, cat_smooth, cat_l2,
+      min_data_per_group, path_smooth, monotone_penalty, max_cat_threshold;
+};
+
+namespace {
+
+using namespace lgbt_scan;
+
+__global__ void __launch_bounds__(kScanThreads)
+split_scan_kernel(const SplitScanArgs a) {
+  extern __shared__ float smem[];
+  __shared__ int s_last;
+  // every block reads the same word: a dead split writes nothing
+  if (a.hdr[6] == 0) return;
+  const int depth = a.hdr[5];
+  const int F = a.F, B = a.B, b = threadIdx.x;
+  bool last = false;
+  for (int it = blockIdx.x; it < 2 * F; it += gridDim.x) {
+    const int c = it / F, f = it % F;
+    const float* row = a.hists + ((size_t)c * F + f) * B * 3;
+    float hv[3] = {0.f, 0.f, 0.f};
+    if (b < B) {
+      for (int k = 0; k < 3; ++k) hv[k] = row[b * 3 + k];
+    }
+    scan_feature<true>(a, c, f, depth, smem, hv);
+    __threadfence();     // this item's outputs are visible grid-wide
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == 2 * F - 1;
+    __syncthreads();
+    last = last || s_last;
+  }
+  if (last) {
+    __threadfence();
+    finish_child<true>(a, 0, smem);
+    finish_child<true>(a, 1, smem);
+    if (threadIdx.x == 0) *a.done = 0;   // ready for the next launch
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lgbt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// One split scan on `stream`: 2F blocks of 256 threads, one (child,
+// feature) item each. Returns a cudaError_t code (0 on success).
+int split_scan(const SplitScanArgs* args, void* stream) {
+  const SplitScanArgs a = *args;
+  if (a.F < 1 || a.B < 1 || a.B > kMaxBins || a.hdr == nullptr ||
+      a.hist_left != a.hists ||
+      a.hist_right != a.hists + (size_t)a.F * a.B * 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = kScanSmemFloats * sizeof(float);
+  split_scan_kernel<<<2 * a.F, kScanThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

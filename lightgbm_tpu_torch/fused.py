@@ -226,16 +226,17 @@ class FusedTrainer:
         self.config = gbdt.config
         #: the block dispatched but not finalized
         self._pending: Optional[_Pending] = None
-        #: trees through the device tree loop (and its CUDA graph) where
-        #: it can run on the card; on host tensors the per-split host loop
-        #: grows the same tree faster (no device to keep busy, and the
-        #: loop's twins work on whole planes: O(N) a split)
+        #: trees through the device tree loop (and its CUDA graph) on the
+        #: card, in every configuration the learner accepts; on host
+        #: tensors the per-split host loop grows the same tree faster (no
+        #: device to keep busy, and the loop's twins work on whole planes:
+        #: O(N) a split)
         self.device_loop = self.learner.device_loop_eligible() \
             and self.learner.device.type == "cuda"
 
     def _tree(self, ghc: torch.Tensor, fmask: torch.Tensor, key):
         if self.device_loop:
-            return self.learner.train_device(ghc, fmask)
+            return self.learner.train_device(ghc, fmask, key)
         return self.learner.train(ghc, fmask, key)
 
     def run(self, k: int) -> bool:
@@ -355,7 +356,7 @@ class FusedTrainer:
         """The ``tree/*`` and ``learner/*`` counts of the finalized trees,
         as the per-iteration path counts them."""
         for tree in trees:
-            self.gbdt._count_tree(tree)
+            self.gbdt._count_tree(tree, device_loop=self.device_loop)
 
     def _host_tree(self, host: BlockLogs, i: int):
         from .tree import Tree

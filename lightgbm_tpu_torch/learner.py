@@ -25,11 +25,12 @@ device. What the host needs to issue a split (the chosen leaf, whether its
 gain is positive, the parent segment, the split column, which child is
 smaller) comes back in ONE device->host transfer per split; the kernels
 read their segment arguments from device tensors and the host sizes their
-grids from the parent's row count. With the one-kernel split on data with
-no categorical feature, :class:`DeviceTreeLoop` grows the same tree with
-no transfer at all: a fixed sequence of (split commit, one-kernel split)
-launches that read their scalars on the card, one CUDA graph per tree
-(the fused blocks of ``fused.py`` use it).
+grids from the parent's row count. :class:`DeviceTreeLoop` grows the same
+tree with no transfer at all, in every configuration: a fixed sequence of
+(split commit, split) launches that read their scalars on the card -- the
+one-kernel split, or the three-launch chain with the split scan kernel
+(``ops/chain.ChainSplit``) -- one CUDA graph per tree (the fused blocks of
+``fused.py`` use it on the card).
 
 Only the serial learner is ported (:class:`Comm` is its identity seam);
 the data/feature/voting learners are later work (ROADMAP A11).
@@ -82,21 +83,34 @@ def assign_leaves(bins: torch.Tensor, log: TreeLog,
     """Route binned rows through a tree's split log -> (N,) i32 leaf slots
     (device analog of Tree::PredictLeafIndex over pre-binned data).
 
-    Numerical(-or-bundled) trees over a u8 matrix go through the row
-    router ``ops.route.route_rows`` — its CUDA kernel on the card, its
-    plain twin on the host — the same condition under which the JAX
-    package takes its Pallas router. ``bins_t`` is the router's block form
-    (:func:`route_layout`) when the caller caches it. Categorical trees
-    and u16 matrices take the round-by-round plain router below, whose
+    A u8 matrix goes through the row router ``ops.route.route_rows`` --
+    its CUDA kernel on the card, its plain twin on the host -- with no
+    read back to the host: numerical(-or-bundled) trees as the JAX package
+    routes them with its Pallas router, and categorical trees with the
+    router's categorical table (``ops.route.build_cat_table``), where the
+    JAX package runs its round-by-round ``fori_loop``. ``bins_t`` is the
+    router's block form (:func:`route_layout`) when the caller caches it.
+    u16 matrices take the round-by-round plain router below, whose
     categorical rounds look the bin up in the (B,) routing table.
     """
     n = bins.shape[0]
-    if not has_categorical and bins.dtype == torch.uint8:
-        from .ops.route import build_route_table, route_rows
+    if bins.dtype == torch.uint8:
+        from .ops.route import build_cat_table, build_route_table, route_rows
 
         btr = bins_t if bins_t is not None else route_layout(bins)
         table = build_route_table(log, bundle)
-        return route_rows(btr, table, log.num_splits)[:n]
+        cat = build_cat_table(log) if has_categorical else None
+        return route_rows(btr, table, log.num_splits, cat)[:n]
+    return assign_leaves_plain(bins, log, has_categorical, bundle)
+
+
+def assign_leaves_plain(bins: torch.Tensor, log: TreeLog,
+                        has_categorical: bool = True,
+                        bundle: Optional[dict] = None) -> torch.Tensor:
+    """The round-by-round router of :func:`assign_leaves` (u8 or u16
+    bins): one pass over every row per split, the split count read on the
+    host."""
+    n = bins.shape[0]
     max_splits = log.split_leaf.shape[0]
     ns = min(int(log.num_splits.reshape(-1)[0]), max_splits)
     row_leaf = torch.zeros(n, dtype=torch.int32, device=bins.device)
@@ -225,6 +239,22 @@ def split_kernel_ineligible(*, work_layout: str, hist_mode: str, bundle,
     if hist_chunk % 128:
         bad.append("hist_chunk must be a multiple of 128")
     return bad
+
+
+def feature_view(hg: torch.Tensor, total_sum: torch.Tensor, bundle: dict,
+                 num_feat: int, num_bin: int) -> torch.Tensor:
+    """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature views;
+    a bundled feature's shared default bin is recovered as total -
+    sum(own slots) (dataset.h:503 FixHistogram). ``total_sum`` is the
+    (P, 3) nodes' sums. Torch ops on device tensors: no host read."""
+    p, num_grp, bm = hg.shape[0], hg.shape[1], hg.shape[2]
+    flat = hg.reshape(p, num_grp * bm, 3)
+    fh = flat[:, bundle["proj"].reshape(-1).long()] \
+        .reshape(p, num_feat, num_bin, 3)
+    fh = fh * bundle["valid"][None, :, :, None]
+    rest = total_sum[:, None, :] - torch.sum(fh, dim=2)     # (P, F, 3)
+    put = bundle["dpos_oh"] & bundle["has_rest"][:, None]
+    return torch.where(put[None, :, :, None], rest[:, :, None, :], fh)
 
 
 def build_tree_partitioned(
@@ -384,19 +414,9 @@ def build_tree_partitioned(
         hdr_cols = torch.tensor([2, 0, 1, 3, 6, 7, 8, 4], device=dev)
 
     def feat_view(hg, total_sum):
-        """(P, G, Bm, 3) bundled histograms -> (P, F, B, 3) per-feature
-        views; a bundled feature's shared default bin is recovered as
-        total - sum(own slots) (dataset.h:503 FixHistogram)."""
         if bundle is None:
             return hg
-        p = hg.shape[0]
-        flat = hg.reshape(p, num_grp * bm, 3)
-        fh = flat[:, bundle["proj"].reshape(-1).long()] \
-            .reshape(p, num_feat, num_bin, 3)
-        fh = fh * bundle["valid"][None, :, :, None]
-        rest = total_sum[:, None, :] - torch.sum(fh, dim=2)     # (P, F, 3)
-        put = bundle["dpos_oh"] & bundle["has_rest"][:, None]
-        return torch.where(put[None, :, :, None], rest[:, :, None, :], fh)
+        return feature_view(hg, total_sum, bundle, num_feat, num_bin)
 
     def route_table(go_left, feature):
         """Feature-space (B,) table -> bundle-column (Bm,) table (alien
@@ -575,75 +595,112 @@ def build_tree_partitioned(
 class DeviceTreeLoop:
     """The device tree loop: one leaf-wise tree with no read back to the
     host between its root and its log (the JAX builder's
-    ``lax.while_loop``, ``lightgbm_tpu/learner.py``), for the one-kernel
-    split (``split_kernel="on"``, planes or resident layout) on data with
-    no categorical feature.
+    ``lax.while_loop``, ``lightgbm_tpu/learner.py``), in every
+    configuration of the partitioned builder: the planes, resident and
+    rows layouts, f32 (hi/lo, bf16) and int8 histograms, EFB bundles and
+    categorical features.
 
     A tree is a fixed sequence: the root (the pack and its histogram, the
     root's split scan), then ``num_leaves - 1`` pairs of a split commit
     (``ops/commit.split_commit``: apply the last split, pick the next one,
-    write its header) and a one-kernel split that reads that header on the
-    card (``ops/partition.OneKernelSplit.split``), a final commit, and the
-    row router (``ops/route.route_rows``) with the device ``num_splits``.
-    A tree that stops early runs its remaining splits as ``live = 0``
-    no-ops. The trees and logs equal :func:`build_tree_partitioned`'s with
-    the same arguments, field by field.
+    write its header) and a split that reads that header on the card, a
+    final commit, and the row router (``ops/route.route_rows``, categorical
+    rounds included) with the device ``num_splits``. The split is the
+    one-kernel split (``split_kernel="on"``, planes or resident, no EFB or
+    int8: ``ops/partition.OneKernelSplit``) or the three-launch chain
+    (``ops/chain.ChainSplit``: K3, K4 or K5, the split scan). With bundles
+    the commit writes the split feature's bundle column into the header
+    and the chain partitions by the routing table in bundle codes
+    (``go_left[map_fb[feature]]``, built per slot on the card). A tree that
+    stops early runs its remaining splits as ``live = 0`` no-ops. The trees
+    and logs equal :func:`build_tree_partitioned`'s with the same
+    arguments, field by field.
 
-    The inputs are static buffers (``ghc``, ``fmask``): :meth:`run` copies
-    a tree's into them. On the card the sequence is captured once as one
-    CUDA graph (after one eager tree, which sets up every launch's lazy
-    state) and replayed per tree; the kernels' launch counts are counted
-    at capture and added per replay (``ops/kernels.capture_launches``).
-    A failed capture or launch raises. On host tensors the sequence runs
-    eagerly through the kernels' plain twins, which read nothing back
-    either. The returned log aliases the loop's buffers: the next tree
-    overwrites it.
+    The inputs are static buffers (``ghc``, ``fmask`` and, for int8, the
+    dither key's two words): :meth:`run` copies a tree's into them. On the
+    card the sequence is captured once as one CUDA graph (after one eager
+    tree, which sets up every launch's lazy state) and replayed per tree;
+    the kernels' launch counts are counted at capture and added per replay
+    (``ops/kernels.capture_launches``). A failed capture or launch raises.
+    On host tensors the sequence runs eagerly through the kernels' plain
+    twins, which read nothing back either. The returned log aliases the
+    loop's buffers: the next tree overwrites it.
     """
 
     def __init__(self, bins: torch.Tensor, meta, hp, *, num_leaves: int,
                  num_bin: int, max_depth: int = -1,
                  num_bin_hist: Optional[int] = None,
                  hist_mode: str = "hilo", work_layout: str = "planes",
+                 split_kernel: str = "on",
+                 bundle: Optional[Dict[str, torch.Tensor]] = None,
+                 dither_offset: int = 0,
                  bins_t: Optional[torch.Tensor] = None,
                  work: Optional[torch.Tensor] = None) -> None:
+        from .ops.chain import ChainSplit
         from .ops.commit import SplitCommit, tree_state
         from .ops.partition import (OneKernelSplit, root_segment, split_out,
                                     work_buffer, work_spec)
 
         dev = bins.device
         n, num_grp = bins.shape
+        num_feat = int(meta.num_bins.shape[0])
         bm = num_bin_hist if num_bin_hist is not None else num_bin
-        bad = split_kernel_ineligible(work_layout=work_layout,
-                                      hist_mode=hist_mode, bundle=None,
-                                      num_bin_hist=bm, num_bin=num_bin,
-                                      comm=Comm(), hp=hp)
-        if hp.has_categorical:
-            bad.append("categorical trees route through the plain router")
-        if bad:
-            raise ValueError("the device tree loop cannot run here: "
-                             + "; ".join(bad))
-        self.bins, self.meta, self.hp = bins, meta, hp
+        quantized = hist_mode == "int8"
+        if quantized and work_layout != "rows":
+            raise ValueError("int8 quantized histograms need the rows work "
+                             "layout (the planes layout has no quantized "
+                             "pack)")
+        self.one_kernel = split_kernel == "on"
+        if self.one_kernel:
+            bad = split_kernel_ineligible(work_layout=work_layout,
+                                          hist_mode=hist_mode, bundle=bundle,
+                                          num_bin_hist=bm, num_bin=num_bin,
+                                          comm=Comm(), hp=hp)
+            if bad:
+                raise ValueError("tpu_split_kernel=on is not eligible here: "
+                                 + "; ".join(bad))
+        self.bins, self.meta, self.hp, self.bundle = bins, meta, hp, bundle
         self.n, self.num_grp, self.bm = n, num_grp, bm
+        self.num_feat, self.num_bin = num_feat, num_bin
         self.num_leaves = num_leaves
+        self.layout, self.quantized = work_layout, quantized
         self.exact = hist_mode != "bf16"
+        self.dither_offset = int(dither_offset)
         self.bins_t = bins_t if bins_t is not None else route_layout(bins)
         self.resident = self.bins_t.reshape(num_grp, -1) \
             if work_layout == "resident" else None
-        self.guard, _ = work_spec(num_grp, False, work_layout)
+        self.guard, _ = work_spec(num_grp, quantized, work_layout)
         self.work = work if work is not None else work_buffer(
-            n, num_grp, work_layout, False, dev)
+            n, num_grp, work_layout, quantized, dev)
         self.ghc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        self.fmask = torch.ones(int(meta.num_bins.shape[0]),
-                                dtype=torch.bool, device=dev)
-        self.state = tree_state(num_leaves, num_grp, bm, dev)
-        self.out = split_out(num_grp, bm, dev)
-        self.split = OneKernelSplit(self.work, meta, self.fmask, hp,
-                                    num_bins=bm, num_feat=num_grp,
-                                    exact=self.exact, cnt_max=n,
-                                    resident=self.resident)
+        self.fmask = torch.ones(num_feat, dtype=torch.bool, device=dev)
+        #: int8: the dither key's words and the tree's dequantization
+        self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.scale = torch.ones(3, dtype=torch.float32, device=dev)
+        hist = (num_grp, bm)
+        self.state = tree_state(num_leaves, num_feat, num_bin, dev, hist)
+        self.out = split_out(num_feat, num_bin, dev, hist)
+        self.map_fb = None
+        col_map = None
+        if bundle is not None:
+            self.map_fb = bundle["map_fb"].long()
+            col_map = bundle["group"].to(torch.int32)
+        if self.one_kernel:
+            self.split = OneKernelSplit(self.work, meta, self.fmask, hp,
+                                        num_bins=bm, num_feat=num_grp,
+                                        exact=self.exact, cnt_max=n,
+                                        resident=self.resident)
+        else:
+            self.split = ChainSplit(
+                self.work, meta, self.fmask, hp, layout=work_layout,
+                hist_mode=hist_mode, num_feat=num_grp, num_bins=bm,
+                scan_feat=num_feat, scan_bins=num_bin, cnt_max=n,
+                resident=self.resident, scale=self.scale,
+                feat_view=None if bundle is None else self.feature_view)
         self.commit = SplitCommit(self.state, self.out, max_depth=max_depth,
                                   monotone=meta.monotone,
-                                  has_monotone=hp.has_monotone)
+                                  has_monotone=hp.has_monotone,
+                                  col_map=col_map)
         self.cuda = dev.type == "cuda"
         self.root_seg = root_segment(self.guard, n, dev) if self.cuda \
             else None
@@ -655,49 +712,77 @@ class DeviceTreeLoop:
         #: wall ms of the capture, once it ran
         self.capture_ms: Optional[float] = None
 
+    def feature_view(self, hg: torch.Tensor,
+                     total_sum: torch.Tensor) -> torch.Tensor:
+        """:func:`feature_view` of this loop's bundles."""
+        return feature_view(hg, total_sum, self.bundle, self.num_feat,
+                            self.num_bin)
+
     def root(self) -> None:
         """The state of a tree after its root, from the static inputs: the
         pack and the root histogram, the root's sums, output and best
         split."""
         from .ops.commit import reset_tree_state
+        from .ops.histogram import dequant_scale
         from .ops.partition import (pack_planes_fold_root,
-                                    pack_resident_fold_root)
+                                    pack_resident_fold_root,
+                                    pack_rows_fold_root, quantize_scales)
         from .ops.split import calc_leaf_output, find_best_split
 
         st, hp, meta = self.state, self.hp, self.meta
         ghc = self.ghc
         reset_tree_state(st, self.guard, self.n)
+        kw = dict(num_bins=self.bm, seg=self.root_seg)
         if self.resident is not None:
             root_hist = pack_resident_fold_root(
-                self.work, self.resident, ghc, self.guard, num_bins=self.bm,
-                num_feat=self.num_grp, exact=self.exact, seg=self.root_seg)
+                self.work, self.resident, ghc, self.guard,
+                num_feat=self.num_grp, exact=self.exact, **kw)
+        elif self.layout == "rows":
+            if self.quantized:
+                scales = quantize_scales(ghc)
+                self.scale.copy_(dequant_scale(scales))
+                kw.update(key=self.key, scales=scales, scale=self.scale,
+                          offset=self.dither_offset)
+            root_hist = pack_rows_fold_root(self.work, self.bins, ghc,
+                                            self.guard, exact=self.exact,
+                                            **kw)
         else:
             root_hist = pack_planes_fold_root(
-                self.work, self.bins, ghc, self.guard, num_bins=self.bm,
-                exact=self.exact, seg=self.root_seg)
+                self.work, self.bins, ghc, self.guard, exact=self.exact, **kw)
         root_sum = torch.sum(ghc, dim=0)
         st.hist_pool[0] = root_hist
         st.leaf_sum[0] = root_sum
         st.leaf_out[0] = calc_leaf_output(root_sum[0], root_sum[1], hp)
+        view = root_hist[None] if self.bundle is None \
+            else self.feature_view(root_hist[None], root_sum[None])
         root_info = find_best_split(
-            root_hist[None], root_sum[None], meta, self.fmask, hp,
+            view, root_sum[None], meta, self.fmask, hp,
             parent_output=st.leaf_out[:1], leaf_lower=st.leaf_lower[:1],
             leaf_upper=st.leaf_upper[:1], node_depth=0)
         _set_best(st.best, slice(0, 1), root_info)
 
+    def table(self, s: int) -> torch.Tensor:
+        """Split slot ``s``'s routing table over its column's codes: the
+        logged (B,) go-left row, through the bundle's code map with EFB."""
+        go = self.state.log_go[s]
+        if self.map_fb is None:
+            return go
+        feat = self.state.log_feat[s:s + 1]
+        return go.index_select(0, self.map_fb.index_select(0, feat)[0])
+
     def splits(self, stop: int) -> None:
-        """Split slots ``[0, stop)``: a commit, then the one-kernel split
-        that reads the header it wrote."""
+        """Split slots ``[0, stop)``: a commit, then the split that reads
+        the header it wrote."""
         st = self.state
         for s in range(stop):
             self.commit(s)
-            self.split.split(st.hdr[s], st.log_go[s], st.hist_pool,
+            self.split.split(st.hdr[s], self.table(s), st.hist_pool,
                              st.pair[s], self.out)
 
     def grow(self) -> TreeLog:
         """One tree from the static inputs, every launch queued without a
         read back to the host."""
-        from .ops.route import build_route_table, route_rows
+        from .ops.route import build_cat_table, build_route_table, route_rows
 
         st, meta = self.state, self.meta
         self.root()
@@ -712,19 +797,30 @@ class DeviceTreeLoop:
             miss_bin=meta.missing_bin[feat].to(torch.int32),
             movable=meta.movable_missing[feat], leaf_value=st.leaf_out,
             leaf_sum=st.leaf_sum, row_leaf=st.num_splits[:0])
-        row_leaf = route_rows(self.bins_t, build_route_table(log, None),
-                              st.num_splits)[:self.n]
+        cat = build_cat_table(log) if self.hp.has_categorical else None
+        row_leaf = route_rows(self.bins_t, build_route_table(log, self.bundle),
+                              st.num_splits, cat)[:self.n]
         return log._replace(row_leaf=row_leaf)
 
-    def run(self, ghc: torch.Tensor, fmask: torch.Tensor) -> TreeLog:
-        """One tree from ``ghc`` (N, 3) and ``fmask`` (F,): copied into
-        the static inputs, then the graph's replay on the card (the first
-        tree runs eagerly and the second captures), the eager sequence on
-        the host."""
+    def run(self, ghc: torch.Tensor, fmask: torch.Tensor,
+            key=None) -> TreeLog:
+        """One tree from ``ghc`` (N, 3), ``fmask`` (F,) and, for int8, the
+        ``prng`` key of the tree (its dither is drawn from ``fold_in(key,
+        987123)`` at row offset ``dither_offset``, as
+        :func:`build_tree_partitioned` draws it): copied into the static
+        inputs (the key's words by fills, so the host does not wait), then
+        the graph's replay on the card (the first tree runs eagerly and the
+        second captures), the eager sequence on the host."""
         from .ops import kernels
+        from .prng import fold_in, key_words
 
         self.ghc.copy_(ghc)
         self.fmask.copy_(fmask)
+        if self.quantized:
+            if key is None:
+                raise ValueError("int8 quantized histograms need a key for "
+                                 "the stochastic-rounding dither")
+            key_words(fold_in(key, 987123), self.key)
         if not self.cuda:
             return self.grow()
         if not self._warm:
@@ -754,17 +850,40 @@ class DeviceTreeLoop:
                 "num_splits": st.num_splits.clone()}
 
 
-def launches_per_split(work_layout: str, one_kernel: bool) -> int:
-    """Device launches per split: the one-kernel split; else partition,
-    histogram and scan, plus the route gather on the resident layout."""
+def launches_per_split(work_layout: str, one_kernel: bool,
+                       device_loop: bool = True) -> int:
+    """Device launches per split slot. The device tree loop (the card's
+    fused path): the one-kernel split and the split commit; or the chain's
+    partition, histogram and split scan and the commit, plus the route
+    gather on the resident layout. The per-split host loop: the one-kernel
+    split; or partition, histogram and the torch scan, plus the route
+    gather on the resident layout."""
+    gather = 1 if work_layout == "resident" else 0
     if one_kernel:
-        return 1
-    return 4 if work_layout == "resident" else 3
+        return 2 if device_loop else 1
+    return 3 + gather + (1 if device_loop else 0)
 
 
 # ---------------------------------------------------------------------------
 # Host wrapper
 # ---------------------------------------------------------------------------
+
+def kernel_sources(layout: str, quantized: bool):
+    """(partition, histogram): the sources and entry points of the
+    hand-written kernels that a resolved work layout runs, as the
+    ``auto_resolution`` records name them."""
+    hist = ("csrc/segment_histogram_q.cu" if quantized else
+            "csrc/segment_histogram.cu (%s)"
+            % {"rows": "segment_histogram_rows",
+               "resident": "segment_histogram_resident"}.get(
+                   layout, "segment_histogram"))
+    part = ("csrc/partition_rows.cu (partition_segment_rows)"
+            if layout == "rows" else
+            "csrc/partition_segment.cu (partition_segment)")
+    if layout == "resident":
+        part = "csrc/resident_route.cu, then " + part
+    return part, hist
+
 
 def _refuse(what: str, item: str) -> None:
     raise LightGBMError("%s is not ported to the PyTorch/CUDA package yet "
@@ -948,16 +1067,7 @@ class SerialTreeLearner:
         if mxu == "auto":
             rec("tpu_hist_mxu", "off", "the layout decides the histogram "
                 "kernel; on only asks for the rows layout")
-        rows = layout == "rows"
-        hist_src = ("csrc/segment_histogram_q.cu" if quantized else
-                    "csrc/segment_histogram.cu (%s)"
-                    % {"rows": "segment_histogram_rows",
-                       "resident": "segment_histogram_resident"}.get(
-                           layout, "segment_histogram"))
-        part_src = "csrc/partition_segment.cu (%s)" % (
-            "partition_segment_rows" if rows else "partition_segment")
-        if layout == "resident":
-            part_src = "csrc/resident_route.cu, then " + part_src
+        part_src, hist_src = kernel_sources(layout, quantized)
         kernels = {}
         for knob, src in (("tpu_partition_kernel", part_src),
                           ("tpu_hist_kernel", hist_src)):
@@ -990,10 +1100,11 @@ class SerialTreeLearner:
         """``tpu_resident_state``: ``on`` (checked by the caller) turns the
         planes layout into ``resident``. ``auto`` stays off everywhere (the
         JAX package takes it only on a TPU): the resident trees equal
-        planes' bit for bit, so only speed could decide, and on the card
-        resident one-kernel training was no faster per tree than planes
-        (its split kernel is faster, but the host loop sets the pace;
-        PERF.md). Recorded with its reason."""
+        planes' bit for bit, so only speed could decide. On the card fused
+        resident training was 5.1% and 8.8% faster a tree than planes in
+        two calls' profiled blocks (PERF.md, PR 10), too few to change a
+        default until a benchmark holds it over more runs (ROADMAP A1).
+        Recorded with its reason."""
         rs = self.config.tpu_resident_state
         if rs == "on":
             return "resident"
@@ -1002,9 +1113,10 @@ class SerialTreeLearner:
                 why = "layout %s: the resident state is a planes layout" \
                     % layout
             elif cuda:
-                why = ("measured on the card: byte-equal trees, no faster "
-                       "per tree than planes; the host loop sets the pace "
-                       "(PERF.md)")
+                why = ("measured on the card: byte-equal trees, fused 5.1% "
+                       "and 8.8% faster a tree than planes in two calls; "
+                       "off until a benchmark holds it over more runs "
+                       "(ROADMAP A1; PERF.md)")
             else:
                 why = ("host tensors: the gather has no payoff without "
                        "device memory bandwidth pressure")
@@ -1069,10 +1181,13 @@ class SerialTreeLearner:
         resident layout moves the slim row (W = RST_WIDTH), plus the route
         gather's 4 ridx bytes read, 1 gathered byte and 1 route byte
         written per parent row; its histogram reads the slim row and the F
-        gathered bins. ``launches_per_split`` is the port's true count: 1
-        on the one-kernel split, else 3 (partition, histogram, scan), and
-        4 on the resident layout, whose route gather is a launch of its
-        own."""
+        gathered bins. ``launches_per_split`` is the port's true count on
+        the device tree loop, which grows the fused path's trees on the
+        card: 2 on the one-kernel split (it and the split commit), else 4
+        (partition, histogram, split scan, commit) and 5 on the resident
+        layout, whose route gather is a launch of its own;
+        ``launches_per_split_host_loop`` the per-split host loop's (1; 3 or
+        4 with the torch scan)."""
         from .ops.partition import RST_GH_OFF, work_spec
 
         kw = self.build_kwargs()
@@ -1093,7 +1208,9 @@ class SerialTreeLearner:
                 "effective_rows": int(self.bins.shape[0]),
                 "goss_compact": "off",
                 "launches_per_split": launches_per_split(layout,
-                                                         one_kernel)}
+                                                         one_kernel),
+                "launches_per_split_host_loop": launches_per_split(
+                    layout, one_kernel, device_loop=False)}
 
     def train(self, ghc: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None,
@@ -1123,41 +1240,46 @@ class SerialTreeLearner:
         return log
 
     def device_loop_eligible(self) -> bool:
-        """Whether :meth:`train_device` can grow this learner's trees: the
-        one-kernel split resolved on and no categorical feature (then
-        :func:`assign_leaves` takes the router kernel)."""
-        kw = self._kw
-        return kw["split_kernel"] == "on" and not self.hp.has_categorical \
-            and kw["work_layout"] in ("planes", "resident")
+        """Whether :meth:`train_device` can grow this learner's trees: in
+        every configuration the learner accepts (the partitioned builder
+        on u8 bins, checked at construction): the one-kernel split or the
+        three-launch chain, any layout and histogram mode, EFB bundles and
+        categorical features."""
+        return self.use_partition()
 
     def train_device(self, ghc: torch.Tensor,
-                     feature_mask: Optional[torch.Tensor] = None) -> TreeLog:
+                     feature_mask: Optional[torch.Tensor] = None,
+                     key=None) -> TreeLog:
         """One tree through the :class:`DeviceTreeLoop` (built once per
         learner, a CUDA graph on the card): no read back to the host from
         the root to the log, which lives on the device (a copy: the next
-        tree reuses the loop's buffers). Its log equals :meth:`train`'s."""
+        tree reuses the loop's buffers). ``key`` (``PRNGKey(0)`` when None)
+        seeds the int8 dither, as in :meth:`train`. Its log equals
+        :meth:`train`'s."""
         from .ops.partition import work_buffer
+        from .prng import PRNGKey
 
-        if not self.device_loop_eligible():
-            raise ValueError("the device tree loop needs tpu_split_kernel "
-                             "on and no categorical feature")
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features,
                                       dtype=torch.bool, device=self.device)
+        kw = self._kw
         if self._loop is None:
-            kw = self._kw
+            quantized = kw["hist_mode"] == "int8"
             if self._work is None:
                 self._work = work_buffer(self.bins.shape[0],
                                          self.bins.shape[1],
-                                         kw["work_layout"], False,
+                                         kw["work_layout"], quantized,
                                          self.device)
             self._loop = DeviceTreeLoop(
                 self.bins, self.meta, self.hp, num_leaves=self.num_leaves,
                 num_bin=self.num_bin, max_depth=kw["max_depth"],
                 num_bin_hist=self.num_bin_hist, hist_mode=kw["hist_mode"],
-                work_layout=kw["work_layout"], bins_t=self.bins_t,
+                work_layout=kw["work_layout"],
+                split_kernel=kw["split_kernel"], bundle=self.bundle,
+                dither_offset=kw["dither_offset"], bins_t=self.bins_t,
                 work=self._work)
-        log = self._loop.run(ghc, feature_mask)
+        log = self._loop.run(ghc, feature_mask,
+                             key if key is not None else PRNGKey(0))
         log = TreeLog(*(t.clone() for t in log))
         self.last_stats = dict(self._loop.stats(), row_leaf=log.row_leaf)
         return log

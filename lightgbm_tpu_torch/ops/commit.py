@@ -13,8 +13,13 @@ written over device indices, with no read back to the host). Commit ``s``
 applies split ``s - 1``'s one-kernel outputs (``ops/partition.SplitOut``),
 picks split ``s`` (the first argmax of the best gains; live while the
 previous split ran and the gain is positive), records its log entry and
-writes header and pair row ``s`` that the one-kernel split reads. The
-kernel and its twin leave the state bit-equal.
+writes header and pair row ``s`` that the split reads (the one-kernel
+split, or the three-launch chain of ``ops/chain.ChainSplit``). The header's
+``col`` word is the split feature's column of the work rows through an
+(F,) column map: the feature itself, or its bundle with EFB (the pool and
+the split outputs' histograms are then in bundle space, (HF, HB), and the
+best-split tables and the log in feature space). The kernel and its twin
+leave the state bit-equal.
 """
 from __future__ import annotations
 
@@ -38,10 +43,11 @@ COMMIT_BLOCKS = 32
 
 class TreeState(NamedTuple):
     """A tree's state on the device, for ``num_leaves`` = L leaves, F
-    features and B bins: the per-leaf tables, the best split of each leaf,
-    the split log and the one-kernel split's header and pair rows."""
+    features and B bins (HF columns of HB bins in the work rows): the
+    per-leaf tables, the best split of each leaf, the split log and the
+    split's header and pair rows."""
     seg_tab: torch.Tensor      # (L, 3) i32 start, cnt, parity
-    hist_pool: torch.Tensor    # (L, F, B, 3) f32
+    hist_pool: torch.Tensor    # (L, HF, HB, 3) f32
     best_gain: torch.Tensor    # (L,) f32
     best_feature: torch.Tensor  # (L,) i64
     best_bin: torch.Tensor     # (L,) i64
@@ -81,17 +87,19 @@ class TreeState(NamedTuple):
 
 
 def tree_state(num_leaves: int, num_feat: int, num_bins: int,
-               device) -> TreeState:
+               device, hist=None) -> TreeState:
     """A :class:`TreeState`, allocated once and reset per tree
-    (:func:`reset_tree_state`)."""
+    (:func:`reset_tree_state`). ``hist`` (HF, HB) is the histograms'
+    shape when it differs from (F, B) (EFB bundles)."""
     L, F, B = num_leaves, num_feat, num_bins
+    HF, HB = hist if hist is not None else (F, B)
     f32, i32, i64, b = torch.float32, torch.int32, torch.int64, torch.bool
 
     def z(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return TreeState(
-        seg_tab=z(L, 3, dtype=i32), hist_pool=z(L, F, B, 3),
+        seg_tab=z(L, 3, dtype=i32), hist_pool=z(L, HF, HB, 3),
         best_gain=z(L), best_feature=z(L, dtype=i64), best_bin=z(L, dtype=i64),
         best_kind=z(L, dtype=i64), best_dl=z(L, dtype=b),
         best_go=z(L, B, dtype=b), best_ls=z(L, 3), best_rs=z(L, 3),
@@ -132,11 +140,13 @@ def _put(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 
 
 def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
-                       monotone: torch.Tensor, has_monotone: bool) -> None:
+                       monotone: torch.Tensor, has_monotone: bool,
+                       col_map=None) -> None:
     """Plain torch twin of ``csrc/split_commit.cu``: commit ``s`` of the
-    tree in ``st`` from the one-kernel outputs ``out`` (the host loop's
+    tree in ``st`` from the split outputs ``out`` (the host loop's
     bookkeeping, ``learner.build_tree_partitioned``, with every index and
-    condition kept on the device)."""
+    condition kept on the device); ``col_map`` the (F,) i32 column of each
+    feature, or None (the feature itself)."""
     dev = st.best_gain.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     L = st.best_gain.shape[0]
@@ -205,7 +215,8 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
                       _rows(st.leaf_upper, leaf), _rows(st.leaf_upper, new)])
     _put(st.pair, at, pair.to(f32), live)
     seg = _rows(st.seg_tab, leaf)[0]
-    hdr = torch.cat([seg[2:3], seg[0:2], i_feat.to(i32),
+    col = i_feat if col_map is None else col_map.index_select(0, i_feat)
+    hdr = torch.cat([seg[2:3], seg[0:2], col.to(i32),
                      (i_ls[:, 2] <= i_rs[:, 2]).to(i32), d.to(i32),
                      torch.ones(1, dtype=i32, device=dev), leaf.to(i32)])
     cur = _rows(st.hdr, at)[0]
@@ -222,31 +233,38 @@ class CommitArgs(ctypes.Structure):
         "best_go", "best_ls", "best_rs", "best_lo", "best_ro", "leaf_sum",
         "leaf_out", "leaf_lower", "leaf_upper", "depth", "log_leaf",
         "log_feat", "log_bin", "log_kind", "log_dl", "log_gain", "log_ls",
-        "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone")] \
+        "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone",
+        "col_map")] \
         + [(name, ctypes.c_int32) for name in (
-            "s", "L", "F", "B", "max_depth", "has_monotone")]
+            "s", "L", "F", "B", "HF", "HB", "max_depth", "has_monotone")]
 
 
 class SplitCommit:
     """:func:`split_commit` over one :class:`TreeState` and one set of
-    one-kernel outputs: the pointers are packed once, each call sets
-    ``s`` and launches."""
+    split outputs: the pointers are packed once, each call sets ``s`` and
+    launches."""
 
     def __init__(self, st: TreeState, out, *, max_depth: int,
-                 monotone: torch.Tensor, has_monotone: bool) -> None:
-        _check_commit(st, out, monotone)
+                 monotone: torch.Tensor, has_monotone: bool,
+                 col_map=None) -> None:
+        _check_commit(st, out, monotone, col_map)
         self.st, self.out = st, out
         self.max_depth, self.has_monotone = int(max_depth), bool(has_monotone)
-        self.monotone = monotone
+        self.monotone, self.col_map = monotone, col_map
         self._args = None
         if st.best_gain.device.type == "cpu":
             return
-        check_on_card("split_commit", st.hdr, *st, *out, monotone)
-        L, F, B = (st.best_gain.shape[0], st.hist_pool.shape[1],
-                   st.hist_pool.shape[2])
+        extra = () if col_map is None else (col_map,)
+        check_on_card("split_commit", st.hdr, *st, *out, monotone, *extra)
+        L, HF, HB = (st.best_gain.shape[0], st.hist_pool.shape[1],
+                     st.hist_pool.shape[2])
+        F, B = monotone.shape[0], st.best_go.shape[1]
         ptrs = {f: getattr(st, f).data_ptr() for f in TreeState._fields}
         ptrs.update({f: getattr(out, f).data_ptr() for f in out._fields})
-        self._args = CommitArgs(monotone=monotone.data_ptr(), L=L, F=F, B=B,
+        self._args = CommitArgs(monotone=monotone.data_ptr(),
+                                col_map=0 if col_map is None
+                                else col_map.data_ptr(),
+                                L=L, F=F, B=B, HF=HF, HB=HB,
                                 max_depth=self.max_depth,
                                 has_monotone=int(self.has_monotone),
                                 **{f: ptrs[f] for f, _ in CommitArgs._fields_
@@ -259,7 +277,8 @@ class SplitCommit:
         if self._args is None:
             split_commit_plain(self.st, self.out, s, max_depth=self.max_depth,
                                monotone=self.monotone,
-                               has_monotone=self.has_monotone)
+                               has_monotone=self.has_monotone,
+                               col_map=self.col_map)
             return
         self._args.s = s
         COMMIT_KERNEL.launch(ctypes.addressof(self._args), COMMIT_BLOCKS,
@@ -267,30 +286,38 @@ class SplitCommit:
 
 
 def split_commit(st: TreeState, out, s: int, *, max_depth: int,
-                 monotone: torch.Tensor, has_monotone: bool) -> None:
-    """Commit ``s`` of the tree in ``st`` (in place) from the one-kernel
-    split outputs ``out`` (``ops/partition.SplitOut``): apply split
-    ``s - 1``, pick split ``s``, record it and write its header and pair
-    rows. ``monotone`` is the (F,) i8 constraint of each feature. On a
+                 monotone: torch.Tensor, has_monotone: bool,
+                 col_map=None) -> None:
+    """Commit ``s`` of the tree in ``st`` (in place) from the split
+    outputs ``out`` (``ops/partition.SplitOut``): apply split ``s - 1``,
+    pick split ``s``, record it and write its header and pair rows.
+    ``monotone`` is the (F,) i8 constraint of each feature, ``col_map``
+    the (F,) i32 work-row column of each feature (None: the feature). On a
     CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
     :func:`split_commit_plain`. Nothing is read back to the host."""
     SplitCommit(st, out, max_depth=max_depth, monotone=monotone,
-                has_monotone=has_monotone)(s)
+                has_monotone=has_monotone, col_map=col_map)(s)
 
 
-def _check_commit(st: TreeState, out, monotone: torch.Tensor) -> None:
-    L, F, B = (st.best_gain.shape[0], st.hist_pool.shape[1],
-               st.hist_pool.shape[2])
-    if L < 2 or st.hist_pool.shape != (L, F, B, 3):
+def _check_commit(st: TreeState, out, monotone: torch.Tensor,
+                  col_map=None) -> None:
+    L, HF, HB = (st.best_gain.shape[0], st.hist_pool.shape[1],
+                 st.hist_pool.shape[2])
+    B = st.best_go.shape[1]
+    if L < 2 or st.hist_pool.shape != (L, HF, HB, 3):
         raise ValueError("split_commit: a tree state of %d leaves" % L)
     if st.hdr.shape != (L, HDR_WORDS) or st.pair.shape != (L, PAIR_WORDS):
         raise ValueError("split_commit: header rows must be (L, %d), pair "
                          "rows (L, %d)" % (HDR_WORDS, PAIR_WORDS))
-    if out.hists.shape != (2, F, B, 3) or out.bout.shape != (2 + 2 * B,):
+    if out.hists.shape != (2, HF, HB, 3) or out.bout.shape != (2 + 2 * B,):
         raise ValueError("split_commit: outputs of another shape than the "
-                         "state's (F = %d, B = %d)" % (F, B))
-    if monotone.dtype != torch.int8 or monotone.shape != (F,):
-        raise ValueError("split_commit: monotone must be (%d,) int8" % F)
+                         "state's (HF = %d, HB = %d, B = %d)" % (HF, HB, B))
+    F = monotone.shape[0]
+    if monotone.dtype != torch.int8 or monotone.dim() != 1:
+        raise ValueError("split_commit: monotone must be (F,) int8")
+    if col_map is not None and (col_map.dtype != torch.int32
+                                or col_map.shape != (F,)):
+        raise ValueError("split_commit: col_map must be (%d,) int32" % F)
     if not all(t.is_contiguous() for t in (*st, *out)):
         raise ValueError("split_commit: state and outputs must be "
                          "contiguous")

@@ -23,6 +23,11 @@ CUDA tensor and runs its plain twin on a CPU tensor:
   ``hist_mxu_segment``. Its sums are integers, so the kernel, its twin and
   the JAX package's ``hist16_segment_q`` agree byte for byte.
 
+The device tree loop's three-launch chain histograms the smaller child of
+a split from its device header and left count with plans taken once for
+the root (:class:`SegmentHistogram`; twin
+:func:`segment_histogram_header_plain`, masked, with no host read).
+
 Per-row numerics are the TPU kernel's. In ``exact`` mode (the default,
 ``tpu_hist_precision=hilo``) g and h each contribute
 ``bf16(x)`` and ``bf16(x - bf16(x))`` (round to nearest even), summed in
@@ -42,23 +47,24 @@ import numpy as np
 import torch
 
 from .kernels import CudaKernel, register, stream_of
-from .partition import (GH_BYTES, GH_BYTES_Q, RST_GH_OFF, RST_ROUTE,
-                        check_on_card, check_resident_args, decode_ridx,
-                        unpack_ghc, unpack_ghc_planes, unpack_ghq)
+from .partition import (GH_BYTES, GH_BYTES_Q, HDR_WORDS, RST_GH_OFF,
+                        RST_ROUTE, SEG_PLAIN, SEG_SMALLER, check_on_card,
+                        check_resident_args, decode_ridx, planes_view,
+                        sm_count, unpack_ghc, unpack_ghc_planes, unpack_ghq)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_HIST_ARGS = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]
+_HIST_ARGS = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 HIST_KERNEL = register(CudaKernel(
     "segment_histogram", "segment_histogram.cu", _HIST_ARGS))
 HIST_ROWS_KERNEL = register(CudaKernel(
     "segment_histogram_rows", "segment_histogram.cu", _HIST_ARGS))
 HIST_RESIDENT_KERNEL = register(CudaKernel(
     "segment_histogram_resident", "segment_histogram.cu",
-    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
+    [_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
 HIST_Q_KERNEL = register(CudaKernel(
     "segment_histogram_q", "segment_histogram_q.cu",
-    [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]))
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]))
 
 #: the f32 histograms' summation order (csrc/segment_hist.cuh): chunks of
 #: HIST_CHUNK segment rows, each cut into HIST_SLICES slices of 32-row
@@ -81,6 +87,12 @@ HIST_Q_WARPS = 16
 HIST_Q_RING = 4
 #: the largest segment whose int32 sums cannot overflow: 127 * N < 2^31
 HIST_Q_MAX_ROWS = (2 ** 31 - 1) // 127
+#: the f32 histogram's blocks an SM holds at once (512 threads, ~108 KB of
+#: shared memory each) and the waves of them a static plan's grid spans
+#: (the device tree loop's: its chunk rows stride over the segment's
+#: chunks, so a deep leaf does not pay for a grid sized by the root)
+HIST_BLOCKS_PER_SM = 2
+HIST_STATIC_WAVES = 2
 
 
 def build_histogram_np(bins: np.ndarray, ghc: np.ndarray,
@@ -256,9 +268,9 @@ def segment_histogram_resident(work: torch.Tensor, resident: torch.Tensor,
     chunks, partial, out = _hist_scratch(work, num_bins, num_feat, exact,
                                          cnt_bound)
     HIST_RESIDENT_KERNEL.launch(
-        work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(),
-        resident.data_ptr(), resident.shape[1], num_feat, num_bins,
-        int(exact), chunks, partial.data_ptr(), out.data_ptr(),
+        work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(), None,
+        SEG_PLAIN, resident.data_ptr(), resident.shape[1], num_feat,
+        num_bins, int(exact), chunks, partial.data_ptr(), out.data_ptr(),
         stream_of(work))
     return out
 
@@ -283,9 +295,9 @@ def _launch_histogram(kernel: CudaKernel, work: torch.Tensor,
     check_on_card(kernel.symbol, work, seg)
     chunks, partial, out = _hist_scratch(work, num_bins, num_feat, exact,
                                          cnt_bound)
-    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(), num_feat,
-                  num_bins, int(exact), chunks, partial.data_ptr(),
-                  out.data_ptr(), stream_of(work))
+    kernel.launch(work.data_ptr(), width, rows, seg.data_ptr(), None,
+                  SEG_PLAIN, num_feat, num_bins, int(exact), chunks,
+                  partial.data_ptr(), out.data_ptr(), stream_of(work))
     return out
 
 
@@ -318,11 +330,19 @@ def segment_histogram_q_plain(work: torch.Tensor, seg: torch.Tensor,
     ``index_add_`` of the int8 g, int8 h and u8 cnt, cast to int32, then
     ``float(sum) * scale``."""
     plane, start, cnt = (int(v) for v in seg.tolist())
-    rows = work[plane, start:start + cnt]
+    return histogram_q_rows_plain(work[plane, start:start + cnt], scale,
+                                  num_bins=num_bins, num_feat=num_feat)
+
+
+def histogram_q_rows_plain(rows: torch.Tensor, scale: torch.Tensor, *,
+                           num_bins: int, num_feat: int) -> torch.Tensor:
+    """(C, F + 3) quantized rows -> their dequantized (F, B, 3) f32
+    histogram: per-feature int64 ``index_add_`` of the int8 g, int8 h and
+    u8 cnt, cast to int32, then ``float(sum) * scale``."""
     gq, hq, cq = unpack_ghq(rows, num_feat)
     ch = torch.stack([gq.long(), hq.long(), cq.long()], dim=1)    # (C, 3)
     acc = torch.zeros((num_feat, num_bins, 3), dtype=torch.int64,
-                      device=work.device)
+                      device=rows.device)
     for f in range(num_feat):
         acc[f].index_add_(0, rows[:, f].long(), ch)
     return acc.to(torch.int32).to(torch.float32) * scale
@@ -355,7 +375,7 @@ def segment_histogram_q(work: torch.Tensor, seg: torch.Tensor,
     out = torch.empty((num_feat, num_bins, 3), dtype=torch.float32,
                       device=work.device)
     HIST_Q_KERNEL.launch(work.data_ptr(), work.shape[2], work.shape[1],
-                         seg.data_ptr(), num_feat, num_bins,
+                         seg.data_ptr(), None, SEG_PLAIN, num_feat, num_bins,
                          plan.feats_per_block, plan.row_blocks, plan.cluster,
                          int(plan.staged), scale.data_ptr(), acc.data_ptr(),
                          ticket.data_ptr(), out.data_ptr(), stream)
@@ -422,3 +442,154 @@ def _hist_q_scratch(device, stream: int, ints: int):
                 torch.zeros(1, dtype=torch.int32, device=device))
         _HIST_Q_SCRATCH[key] = kept
     return kept
+
+
+# ------------------------------------------- the device tree loop's K4 / K5
+
+def segment_histogram_header_plain(work: torch.Tensor, hdr: torch.Tensor,
+                                   lt: torch.Tensor, *, num_bins: int,
+                                   num_feat: int, exact: bool = True,
+                                   layout: str = "planes", resident=None,
+                                   scale=None, lanes=None) -> torch.Tensor:
+    """Plain twin of a histogram of the smaller child of a split
+    (SEG_SMALLER) from its (8,) header and (1,) left count ``lt``, over
+    whole planes under a mask: lanes outside the child contribute zeros to
+    bin 0, which leaves every float64 (and integer) sum as the child's rows
+    alone give it, so the result equals the slicing twins' bit for bit
+    with no host read. A dead header gives zeros. ``layout`` is
+    ``planes`` (``resident`` given: the resident gather), ``rows`` or
+    ``int8`` (the quantized rows pair; ``scale`` the (3,) dequantization).
+    ``lanes`` (host ``(lo, hi)`` holding the segment) limits the work to
+    those lanes."""
+    dev = work.device
+    src, start, cnt, _, ls, _, live, _ = hdr.to(torch.int64).unbind()
+    n = lt.to(torch.int64).reshape(-1)[0]
+    ls = ls != 0
+    view = planes_view(work, layout in ("rows", "int8"))
+    lo, hi = lanes if lanes is not None else (0, view.shape[2])
+    view = view[:, :, lo:hi]
+    lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+    s_start = torch.where(ls, start, start + n)
+    s_cnt = torch.where(ls, n, cnt - n)
+    mask = (lane >= s_start) & (lane < s_start + s_cnt) & (live != 0)
+    cols = view.index_select(0, (1 - src).reshape(1))[0]
+    if layout == "int8":
+        g = cols[num_feat].view(torch.int8).long()
+        h = cols[num_feat + 1].view(torch.int8).long()
+        c = cols[num_feat + 2].long()
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ch = torch.where(mask[:, None], torch.stack([g, h, c], dim=1), zero)
+        bins = torch.where(mask[None, :], cols[:num_feat].long(), zero)
+        acc = torch.zeros((num_feat, num_bins, 3), dtype=torch.int64,
+                          device=dev)
+        for f in range(num_feat):
+            acc[f].index_add_(0, bins[f], ch)
+        return acc.to(torch.int32).to(torch.float32) * scale
+    if resident is not None:
+        ridx = decode_ridx(cols[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+        bin_cols = resident[:num_feat].index_select(1, ridx)
+        ghc_t = unpack_ghc_planes(cols, RST_GH_OFF)
+    else:
+        bin_cols = cols[:num_feat]
+        ghc_t = unpack_ghc_planes(cols, num_feat)
+    return _histogram_plain(bin_cols, ghc_t, num_bins=num_bins, exact=exact,
+                            mask=mask)
+
+
+class SegmentHistogram:
+    """The smaller child's histogram in the device tree loop's three-launch
+    chain (``ops/chain.ChainSplit``): K4 on the planes, rows or resident
+    layout, or K5 on the int8 rows, launched per split on the split's
+    device header and the partition's left count (SEG_SMALLER: the kernel
+    derives the child's segment and reads the live word on the card; a dead
+    header writes zeros). Planned once for children of up to ``cnt_max``
+    rows (the root): K4's partials hold ``hist_chunks(cnt_max)`` chunks and
+    its chunk rows stride over the child's true chunks on a grid of
+    HIST_STATIC_WAVES waves; K5 takes :func:`hist_q_plan` at ``cnt_max`` and
+    keeps its own accumulator and ticket. The output buffer is reused: each
+    call returns the same (F, B, 3) tensor. The sums do not depend on the
+    plan (K4's order is fixed by the rows, K5's are integers). On host
+    tensors :func:`segment_histogram_header_plain`."""
+
+    def __init__(self, work: torch.Tensor, *, layout: str, num_bins: int,
+                 num_feat: int, exact: bool = True, cnt_max: int,
+                 resident=None, scale=None):
+        if layout not in ("planes", "resident", "rows", "int8"):
+            raise ValueError("SegmentHistogram: layout %r" % layout)
+        self.work, self.layout = work, layout
+        self.num_bins, self.num_feat, self.exact = num_bins, num_feat, exact
+        self.resident, self.scale = resident, scale
+        self.cnt_max = max(1, int(cnt_max))
+        if layout == "int8":
+            if scale is None or scale.dtype != torch.float32 \
+                    or scale.numel() != 3:
+                raise ValueError("SegmentHistogram: int8 needs a (3,) f32 "
+                                 "scale")
+            if self.cnt_max > HIST_Q_MAX_ROWS:
+                raise ValueError("SegmentHistogram: %d rows could overflow "
+                                 "the int32 sums" % self.cnt_max)
+        if layout == "resident":
+            check_resident_args("segment_histogram_resident", work, resident)
+        self.out = torch.zeros((num_feat, num_bins, 3), dtype=torch.float32,
+                               device=work.device)
+        if work.device.type == "cpu":
+            return
+        dev = work.device
+        extra = tuple(t for t in (resident, scale) if t is not None)
+        check_on_card("segment_histogram", work, *extra)
+        if layout == "int8":
+            self.plan = hist_q_plan(self.cnt_max, num_feat, num_bins)
+            self.acc = torch.zeros(self.plan.acc_ints, dtype=torch.int32,
+                                   device=dev)
+            self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+            return
+        chunks = max(1, hist_chunks(self.cnt_max))
+        self.partial = torch.empty((chunks, num_feat, num_bins,
+                                    5 if exact else 3),
+                                   dtype=torch.float32, device=dev)
+        groups = -(-num_feat // 4)     # segment_histogram.cu kHistFeats
+        waves = HIST_STATIC_WAVES * HIST_BLOCKS_PER_SM * sm_count(dev.index)
+        self.grid_chunks = max(1, min(chunks, waves // groups))
+
+    def __call__(self, hdr: torch.Tensor, lt: torch.Tensor) -> torch.Tensor:
+        """The (F, B, 3) f32 histogram of the smaller child of the split
+        whose (8,) i32 header is ``hdr`` and (1,) i32 left count ``lt``."""
+        if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
+            raise ValueError("segment histogram: hdr must be (%d,) int32"
+                             % HDR_WORDS)
+        if lt.dtype != torch.int32 or lt.numel() != 1:
+            raise ValueError("segment histogram: lt must be one int32")
+        work, F, B = self.work, self.num_feat, self.num_bins
+        if work.device.type == "cpu":
+            self.out.copy_(segment_histogram_header_plain(
+                work, hdr, lt, num_bins=B, num_feat=F, exact=self.exact,
+                layout="planes" if self.layout == "resident" else self.layout,
+                resident=self.resident, scale=self.scale))
+            return self.out
+        check_on_card("segment_histogram", work, hdr, lt)
+        stream = stream_of(work)
+        if self.layout == "int8":
+            p = self.plan
+            HIST_Q_KERNEL.launch(
+                work.data_ptr(), work.shape[2], work.shape[1], hdr.data_ptr(),
+                lt.data_ptr(), SEG_SMALLER, F, B, p.feats_per_block,
+                p.row_blocks, p.cluster, int(p.staged), self.scale.data_ptr(),
+                self.acc.data_ptr(), self.ticket.data_ptr(),
+                self.out.data_ptr(), stream)
+        elif self.layout == "resident":
+            HIST_RESIDENT_KERNEL.launch(
+                work.data_ptr(), work.shape[1], work.shape[2], hdr.data_ptr(),
+                lt.data_ptr(), SEG_SMALLER, self.resident.data_ptr(),
+                self.resident.shape[1], F, B, int(self.exact),
+                self.grid_chunks, self.partial.data_ptr(),
+                self.out.data_ptr(), stream)
+        else:
+            rows = self.layout == "rows"
+            kernel = HIST_ROWS_KERNEL if rows else HIST_KERNEL
+            width, n = (work.shape[2], work.shape[1]) if rows \
+                else (work.shape[1], work.shape[2])
+            kernel.launch(work.data_ptr(), width, n, hdr.data_ptr(),
+                          lt.data_ptr(), SEG_SMALLER, F, B, int(self.exact),
+                          self.grid_chunks, self.partial.data_ptr(),
+                          self.out.data_ptr(), stream)
+        return self.out

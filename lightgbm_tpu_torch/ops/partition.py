@@ -33,7 +33,11 @@ same order.
 Segment arguments ride in a small device i32 tensor, so the learner never
 waits for the card to issue a launch; ``cnt_bound`` (a host int at least
 the segment's row count) only sizes the grid (:func:`partition_rows_plan`
-on the rows layout).
+on the rows layout). The device tree loop's three-launch chain
+(``ops/chain.py``) launches the same kernels on a split's device header
+instead, with plans taken once for the root (:class:`SegmentPartition`,
+:class:`RouteGather`; the segment modes ``SEG_*``); their twins work on
+whole planes under masks and read nothing back to the host.
 
 :func:`one_kernel_split_planes` runs a whole split in one launch: the
 partition, the smaller child's histogram and both children's split scan
@@ -109,10 +113,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 PARTITION_KERNEL = register(CudaKernel(
     "partition_segment", "partition_segment.cu",
-    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]))
 PARTITION_ROWS_KERNEL = register(CudaKernel(
     "partition_segment_rows", "partition_rows.cu",
-    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]))
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]))
 #: phase C follows torch's arithmetic op by op: no contracted multiply-adds
 ONE_KERNEL = register(CudaKernel(
     "one_kernel_split", "one_kernel_split.cu", [_P, _P],
@@ -121,10 +125,20 @@ ONE_KERNEL_RESIDENT = register(CudaKernel(
     "one_kernel_split_resident", "one_kernel_split.cu", [_P, _P],
     flags=("-fmad=false",)))
 ROUTE_KERNEL = register(CudaKernel(
-    "write_route_plane", "resident_route.cu", [_P, _I, _I, _P, _P, _I, _I,
-                                               _P]))
+    "write_route_plane", "resident_route.cu", [_P, _I, _I, _P, _I, _P, _I,
+                                               _I, _P]))
 #: 4-row words of a route-gather block per pass: 64 threads, one word each
 ROUTE_WORDS_PER_BLOCK = 64
+#: the route gather's blocks per SM on a static plan (the device tree
+#: loop's, sized for the root; the blocks stride over the segment's words)
+ROUTE_STATIC_BLOCKS_PER_SM = 16
+
+#: what a partition, histogram or route-gather launch reads as its segment
+#: (csrc/segment_arg.cuh): the small segment array of the per-split host
+#: loop, or a split's device header (ONE_KERNEL_HDR) -- its parent segment,
+#: the same routed on the route plane (resident), or with the left count
+#: the smaller child's segment. A header whose live word is 0 is a no-op.
+SEG_PLAIN, SEG_PARENT, SEG_ROUTE, SEG_SMALLER = 0, 1, 2, 3
 
 
 def work_spec(num_groups: int, quantized: bool = False,
@@ -269,6 +283,44 @@ def pack_planes_fold_root(work: torch.Tensor, bins: torch.Tensor,
                              exact=exact, cnt_bound=n)
 
 
+def pack_rows_fold_root(work: torch.Tensor, bins: torch.Tensor,
+                        ghc: torch.Tensor, guard: int, *, num_bins: int,
+                        exact: bool = True, seg=None, key=None, scales=None,
+                        scale=None, offset: int = 0) -> torch.Tensor:
+    """Write rows into buffer 0 of the rows pair ``work`` (in place) and
+    return the root histogram, as :func:`pack_planes_fold_root` does for
+    planes: f32 rows (:func:`pack_rows`) and the rows histogram, or, given
+    the dither ``key`` (a ``prng`` key or its (2,) int64 device words), the
+    per-tree ``scales`` and the (3,) dequantization ``scale``, int8 rows
+    (:func:`pack_rows_quantized` at row ``offset``) and the int8
+    histogram. On host tensors the twin sums the rows the host already
+    knows (no read of ``seg``)."""
+    from .histogram import (_histogram_plain, histogram_q_rows_plain,
+                            segment_histogram_q, segment_histogram_rows)
+
+    n, g = bins.shape
+    quantized = key is not None
+    if quantized:
+        work[0, guard:guard + n] = pack_rows_quantized(bins, ghc, key, scales,
+                                                       offset=offset)
+    else:
+        work[0, guard:guard + n] = pack_rows(bins, ghc)
+    if work.device.type == "cpu":
+        rows = work[0, guard:guard + n]
+        if quantized:
+            return histogram_q_rows_plain(rows, scale, num_bins=num_bins,
+                                          num_feat=g)
+        return _histogram_plain(rows[:, :g].t(), unpack_ghc(rows, g).t(),
+                                num_bins=num_bins, exact=exact)
+    if seg is None:
+        seg = root_segment(guard, n, work.device)
+    if quantized:
+        return segment_histogram_q(work, seg, scale, num_bins=num_bins,
+                                   num_feat=g, cnt_bound=n)
+    return segment_histogram_rows(work, seg, num_bins=num_bins, num_feat=g,
+                                  exact=exact, cnt_bound=n)
+
+
 def partition_segment_plain(work: torch.Tensor, seg: torch.Tensor,
                             table: torch.Tensor) -> torch.Tensor:
     """Plain torch twin: the segment's columns of plane ``src`` written to
@@ -305,7 +357,7 @@ def partition_segment(work: torch.Tensor, seg: torch.Tensor,
     PARTITION_KERNEL.launch(
         work.data_ptr(), work.shape[1], work.shape[2], seg.data_ptr(),
         table.data_ptr(), table.numel(), plan.steps, plan.group, plan.slots,
-        plan.grid,
+        plan.grid, SEG_PLAIN,
         block_scratch(work.device, stream_of(work), plan.grid).data_ptr(),
         lt.data_ptr(), stream_of(work))
     return lt
@@ -485,6 +537,7 @@ def partition_segment_rows(work: torch.Tensor, seg: torch.Tensor,
     PARTITION_ROWS_KERNEL.launch(
         work.data_ptr(), work.shape[2], work.shape[1], seg.data_ptr(),
         table.data_ptr(), table.numel(), plan.steps, plan.slots, plan.grid,
+        SEG_PLAIN,
         block_scratch(work.device, stream_of(work), plan.grid).data_ptr(),
         lt.data_ptr(), stream_of(work))
     return lt
@@ -597,7 +650,7 @@ def write_route_plane(work: torch.Tensor, resident: torch.Tensor,
     # cnt_bound rows start anywhere in a word: at most cnt_bound / 4 + 2
     nblocks = max(1, -(-(int(cnt_bound) // 4 + 2) // ROUTE_WORDS_PER_BLOCK))
     ROUTE_KERNEL.launch(work.data_ptr(), work.shape[1], work.shape[2],
-                        seg.data_ptr(), resident.data_ptr(),
+                        seg.data_ptr(), SEG_PLAIN, resident.data_ptr(),
                         resident.shape[1], nblocks, stream_of(work))
 
 
@@ -652,10 +705,12 @@ PAIR_WORDS = 12
 
 
 class SplitOut(NamedTuple):
-    """The caller's output buffers of a one-kernel split (written only when
-    the header's ``live`` word is 1)."""
+    """The caller's output buffers of a split (one-kernel, or the chain of
+    ``ops/chain.ChainSplit``; written only when the header's ``live`` word
+    is 1)."""
     lt: torch.Tensor      # (1,) i32 left count
-    hists: torch.Tensor   # (2, F, B, 3) f32 left, right histograms
+    hists: torch.Tensor   # (2, F, B, 3) f32 left, right histograms (the
+    #                       work rows' columns: (2, HF, HB, 3) with EFB)
     fout: torch.Tensor    # (18,) f32 gain 2, left_sum 2x3, right_sum 2x3,
     #                       left_output 2, right_output 2
     iout: torch.Tensor    # (6,) i64 feature 2, bin 2, kind 2
@@ -673,12 +728,14 @@ class SplitOut(NamedTuple):
             left_output=fo[14:16], right_output=fo[16:18])
 
 
-def split_out(num_feat: int, num_bins: int, device) -> SplitOut:
+def split_out(num_feat: int, num_bins: int, device, hist=None) -> SplitOut:
     """Zeroed :class:`SplitOut` buffers, allocated once per tree (or once
-    per learner) and reused split after split."""
+    per learner) and reused split after split. ``hist`` (HF, HB) is the
+    histograms' shape when it differs from (F, B) (EFB bundles)."""
+    hf, hb = hist if hist is not None else (num_feat, num_bins)
     return SplitOut(
         lt=torch.zeros(1, dtype=torch.int32, device=device),
-        hists=torch.zeros((2, num_feat, num_bins, 3), dtype=torch.float32,
+        hists=torch.zeros((2, hf, hb, 3), dtype=torch.float32,
                           device=device),
         fout=torch.zeros(18, dtype=torch.float32, device=device),
         iout=torch.zeros(6, dtype=torch.int64, device=device),
@@ -999,6 +1056,12 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
         raise ValueError("%s: work has %d planes, not num_feat + %d = %d"
                          % (name, work.shape[1], GH_BYTES,
                             num_feat + GH_BYTES))
+    check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat)
+
+
+def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat) -> None:
+    """What a split scan kernel takes for a whole tree: the FeatureMeta
+    columns, the search mask and hyperparameters it has fields for."""
     if not 0 < num_bins <= 256:
         raise ValueError("%s: needs 0 < num_bins <= 256, got %d"
                          % (name, num_bins))
@@ -1051,6 +1114,86 @@ def _check_one_kernel_split(op, hdr, go_left, pool, pair, out) -> None:
         op._checked_out = out    # buffers reused split after split
 
 
+def _hdr_words(hdr: torch.Tensor):
+    """The (8,) header's words as 0-d int64 tensors (no host read)."""
+    return hdr.to(torch.int64).unbind()
+
+
+def planes_view(work: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """``work`` as (2, W, Npad) byte planes: the rows layout's (2, Npad, W)
+    pair transposed (a view; the planes and resident layouts as they
+    are)."""
+    return work.transpose(1, 2) if rows else work
+
+
+def write_route_plane_header_plain(work: torch.Tensor, resident: torch.Tensor,
+                                   hdr: torch.Tensor, lanes=None) -> None:
+    """Plain twin of the route gather on a split's header (SEG_PARENT):
+    plane 0 of the parent segment's lanes of buffer ``src`` gets
+    ``resident[col, ridx]``, over whole planes under a mask (no host
+    read); a dead header writes nothing new. ``lanes`` (host ``(lo, hi)``
+    holding the segment) limits the work to those lanes."""
+    src, start, cnt, col, _, _, live, _ = _hdr_words(hdr)
+    lo, hi = lanes if lanes is not None else (0, work.shape[2])
+    view = work[:, :, lo:hi]
+    lane = torch.arange(lo, hi, dtype=torch.int64, device=work.device)
+    in_seg = (lane >= start) & (lane < start + cnt) & (live != 0)
+    srcp = view.index_select(0, src.reshape(1))[0]
+    ridx = decode_ridx(srcp[RST_ROUTE:RST_GH_OFF], resident.shape[1])
+    routed = resident.index_select(0, col.reshape(1))[0].index_select(0, ridx)
+    srcp[0] = torch.where(in_seg, routed, srcp[0])
+    view.index_copy_(0, src.reshape(1), srcp[None])
+
+
+def partition_header_plain(work: torch.Tensor, hdr: torch.Tensor,
+                           table: torch.Tensor, *, route_plane=False,
+                           lanes=None) -> torch.Tensor:
+    """Plain twin of a partition on a split's header (SEG_PARENT, or
+    SEG_ROUTE with ``route_plane``) over the (2, W, Npad) planes ``work``
+    (:func:`planes_view` of a rows pair): the stable partition as a
+    permutation of the destination plane's lanes under a mask (lanes
+    outside the segment map to themselves), so nothing is read back to the
+    host and a dead header moves nothing. Returns ``lt`` as a (1,) i32
+    tensor (0 when dead). ``lanes`` as in
+    :func:`write_route_plane_header_plain`."""
+    dev = work.device
+    src, start, cnt, col, _, _, live, _ = _hdr_words(hdr)
+    lo, hi = lanes if lanes is not None else (0, work.shape[2])
+    view = work[:, :, lo:hi]
+    lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+    in_seg = (lane >= start) & (lane < start + cnt) & (live != 0)
+    srcp = view.index_select(0, src.reshape(1))[0]
+    dstp = view.index_select(0, (1 - src).reshape(1))[0]
+    key = srcp[0] if route_plane else \
+        srcp.index_select(0, col.reshape(1))[0]
+    # lanes outside the segment may hold any byte: look up bin 0 for them
+    key = torch.where(in_seg, key.long(), torch.zeros((), dtype=torch.int64,
+                                                      device=dev))
+    go = table[key] & in_seg
+    right = in_seg & ~go
+    lt = go.sum()
+    dest = torch.where(go, start + torch.cumsum(go, 0) - 1,
+                       torch.where(right,
+                                   start + lt + torch.cumsum(right, 0) - 1,
+                                   lane)) - lo
+    moved = torch.where(in_seg[None], srcp, dstp)
+    dstp = torch.empty_like(dstp).index_copy_(1, dest, moved)
+    view.index_copy_(0, (1 - src).reshape(1), dstp[None])
+    return lt.to(torch.int32).reshape(1)
+
+
+def put_split_infos(out: "SplitOut", infos, live: torch.Tensor) -> None:
+    """The batch-2 ``SplitInfo`` into ``out``'s fout / iout / bout where
+    ``live`` (a 0-d bool), else unchanged."""
+    fout = torch.cat([infos.gain, infos.left_sum.reshape(-1),
+                      infos.right_sum.reshape(-1), infos.left_output,
+                      infos.right_output])
+    iout = torch.cat([infos.feature, infos.bin, infos.kind])
+    bout = torch.cat([infos.default_left, infos.go_left.reshape(-1)])
+    for buf, val in ((out.fout, fout), (out.iout, iout), (out.bout, bout)):
+        buf.copy_(torch.where(live, val.to(buf.dtype), buf))
+
+
 def one_kernel_split_header_plain(work, hdr, go_left, pool, pair, out, meta,
                                   fmask, hp, *, num_bins, num_feat,
                                   exact=True, resident=None,
@@ -1060,77 +1203,137 @@ def one_kernel_split_header_plain(work, hdr, go_left, pool, pair, out, meta,
     loop (``learner.DeviceTreeLoop``) runs on host tensors as it runs on
     the card. It computes what the three-launch chain
     (:func:`one_kernel_split_planes_plain`) computes, bit for bit, over
-    whole planes under masks instead of slices: the stable partition as a
-    permutation of the destination plane's lanes (lanes outside the
-    segment map to themselves), the smaller child's float64 histogram with
-    the other lanes' contributions zeroed (adding zeros leaves every sum's
-    bits as they are), parent minus child, then ``find_best_split``. With
-    ``live`` 0 nothing is written. ``lanes`` (host ``(lo, hi)`` holding the
-    segment) limits the work to those lanes; by default every lane."""
-    from .histogram import _histogram_plain
+    whole planes under masks instead of slices: the route gather
+    (resident) and the partition (:func:`partition_header_plain`), the
+    smaller child's float64 histogram with the other lanes' contributions
+    zeroed (adding zeros leaves every sum's bits as they are;
+    ``ops/histogram.segment_histogram_header_plain``), parent minus child,
+    then ``find_best_split``. With ``live`` 0 nothing is written. ``lanes``
+    (host ``(lo, hi)`` holding the segment) limits the work to those
+    lanes; by default every lane."""
+    from .histogram import segment_histogram_header_plain
     from .split import find_best_split
 
-    dev = work.device
-    lo, hi = lanes if lanes is not None else (0, work.shape[2])
-    view = work[:, :, lo:hi]
-    src, start, cnt, col, ls, depth, live, slot = \
-        hdr.to(torch.int64).unbind()
+    _, _, _, _, ls, depth, live, slot = _hdr_words(hdr)
     live = live != 0
     ls = ls != 0
-    dst = 1 - src
-    lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
-    in_seg = (lane >= start) & (lane < start + cnt) & live
-    srcp = view.index_select(0, src.reshape(1))[0]
-    dstp = view.index_select(0, dst.reshape(1))[0]
     if resident is not None:
-        # the route gather: plane 0 of the segment's lanes of buffer src
-        ridx = decode_ridx(srcp[RST_ROUTE:RST_GH_OFF], resident.shape[1])
-        routed = resident.index_select(0, col.reshape(1))[0] \
-            .index_select(0, ridx)
-        srcp[0] = torch.where(in_seg, routed, srcp[0])
-        view.index_copy_(0, src.reshape(1), srcp[None])
-        key = srcp[0]
-    else:
-        key = srcp.index_select(0, col.reshape(1))[0]
-    # lanes outside the segment may hold any byte: look up bin 0 for them
-    key = torch.where(in_seg, key.long(), torch.zeros((), dtype=torch.int64,
-                                                      device=dev))
-    go = go_left[key] & in_seg
-    right = in_seg & ~go
-    lt = go.sum()
-    dest = torch.where(go, start + torch.cumsum(go, 0) - 1,
-                       torch.where(right,
-                                   start + lt + torch.cumsum(right, 0) - 1,
-                                   lane)) - lo
-    moved = torch.where(in_seg[None], srcp, dstp)
-    dstp = torch.empty_like(dstp).index_copy_(1, dest, moved)
-    view.index_copy_(0, dst.reshape(1), dstp[None])
-
-    s_start = torch.where(ls, start, start + lt)
-    s_cnt = torch.where(ls, lt, cnt - lt)
-    in_small = (lane >= s_start) & (lane < s_start + s_cnt) & live
-    if resident is not None:
-        ridx = decode_ridx(dstp[RST_ROUTE:RST_GH_OFF], resident.shape[1])
-        bin_cols = resident[:num_feat].index_select(1, ridx)
-        ghc_t = unpack_ghc_planes(dstp, RST_GH_OFF)
-    else:
-        bin_cols = dstp[:num_feat]
-        ghc_t = unpack_ghc_planes(dstp, num_feat)
-    small = _histogram_plain(bin_cols, ghc_t, num_bins=num_bins, exact=exact,
-                             mask=in_small)
+        write_route_plane_header_plain(work, resident, hdr, lanes)
+    lt = partition_header_plain(work, hdr, go_left,
+                                route_plane=resident is not None,
+                                lanes=lanes)
+    small = segment_histogram_header_plain(
+        work, hdr, lt, num_bins=num_bins, num_feat=num_feat, exact=exact,
+        resident=resident, lanes=lanes)
     large = pool.index_select(0, slot.reshape(1))[0] - small
     hl = torch.where(ls, small, large)
     hr = torch.where(ls, large, small)
-    sums2 = pair[0:6].view(2, 3)
-    infos = find_best_split(torch.stack([hl, hr]), sums2, meta, fmask, hp,
-                            parent_output=pair[6:8], leaf_lower=pair[8:10],
-                            leaf_upper=pair[10:12], node_depth=depth)
-    fout = torch.cat([infos.gain, infos.left_sum.reshape(-1),
-                      infos.right_sum.reshape(-1), infos.left_output,
-                      infos.right_output])
-    iout = torch.cat([infos.feature, infos.bin, infos.kind])
-    bout = torch.cat([infos.default_left, infos.go_left.reshape(-1)])
-    for buf, val in ((out.lt, lt.to(torch.int32).reshape(1)),
-                     (out.hists, torch.stack([hl, hr])), (out.fout, fout),
-                     (out.iout, iout), (out.bout, bout)):
+    infos = find_best_split(torch.stack([hl, hr]), pair[0:6].view(2, 3),
+                            meta, fmask, hp, parent_output=pair[6:8],
+                            leaf_lower=pair[8:10], leaf_upper=pair[10:12],
+                            node_depth=depth)
+    for buf, val in ((out.lt, lt), (out.hists, torch.stack([hl, hr]))):
         buf.copy_(torch.where(live, val.to(buf.dtype), buf))
+    put_split_infos(out, infos, live)
+
+
+# ------------------------------------------------ the device tree loop's K3
+
+class SegmentPartition:
+    """The partition of the device tree loop's three-launch chain
+    (``ops/chain.ChainSplit``): K3 on the planes, resident (the route
+    plane) or rows layout, planned once for segments of up to ``cnt_max``
+    rows (the root) and launched per split on the split's device header,
+    with no host value: the kernel reads the segment and the live word on
+    the card (SEG_PARENT, SEG_ROUTE), and a dead header moves nothing. The
+    plan is :func:`partition_planes_plan` / :func:`partition_rows_plan` at
+    ``cnt_max``: each kernel decides its mode from the true count and any
+    grid gives the same bytes. Its per-block scratch is kept here. On host
+    tensors, :func:`partition_header_plain` (on the planes view)."""
+
+    def __init__(self, work: torch.Tensor, *, layout: str, cnt_max: int):
+        if layout not in ("planes", "resident", "rows"):
+            raise ValueError("SegmentPartition: layout %r" % layout)
+        self.work, self.layout = work, layout
+        self.rows = layout == "rows"
+        self.mode = SEG_ROUTE if layout == "resident" else SEG_PARENT
+        self.cnt_max = max(1, int(cnt_max))
+        self.plan = None
+        if work.device.type == "cpu":
+            return
+        check_on_card("partition_segment", work)
+        sms = sm_count(work.device.index)
+        if self.rows:
+            self.plan = partition_rows_plan(self.cnt_max, work.shape[2], sms)
+        else:
+            self.plan = partition_planes_plan(self.cnt_max, work.shape[1],
+                                              sms)
+        self.scratch = torch.empty(max(self.plan.grid, 1), dtype=torch.int32,
+                                   device=work.device)
+
+    def __call__(self, hdr: torch.Tensor, table: torch.Tensor,
+                 lt: torch.Tensor) -> None:
+        """Partition the parent segment of the (8,) i32 header ``hdr`` by
+        the (Bm,) bool ``table`` (over the split column's codes) into the
+        other buffer; the left count goes into the (1,) i32 ``lt``."""
+        if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
+            raise ValueError("partition: hdr must be (%d,) int32"
+                             % HDR_WORDS)
+        if table.dtype != torch.bool or table.dim() != 1 \
+                or not 0 < table.numel() <= 256:
+            raise ValueError("partition: table must be (B,) bool, B <= 256")
+        work = self.work
+        if self.plan is None:
+            # a dead header leaves lt as it is, as the kernel does
+            lt.copy_(torch.where(hdr[6:7] != 0, partition_header_plain(
+                planes_view(work, self.rows), hdr, table,
+                route_plane=self.mode == SEG_ROUTE), lt))
+            return
+        check_on_card("partition_segment", work, hdr, table, lt)
+        p = self.plan
+        if self.rows:
+            PARTITION_ROWS_KERNEL.launch(
+                work.data_ptr(), work.shape[2], work.shape[1],
+                hdr.data_ptr(), table.data_ptr(), table.numel(), p.steps,
+                p.slots, p.grid, self.mode, self.scratch.data_ptr(),
+                lt.data_ptr(), stream_of(work))
+        else:
+            PARTITION_KERNEL.launch(
+                work.data_ptr(), work.shape[1], work.shape[2],
+                hdr.data_ptr(), table.data_ptr(), table.numel(), p.steps,
+                p.group, p.slots, p.grid, self.mode, self.scratch.data_ptr(),
+                lt.data_ptr(), stream_of(work))
+
+
+class RouteGather:
+    """The resident layout's route gather in the device tree loop: the
+    split column's bins into the route plane of the parent segment of the
+    split's header (SEG_PARENT), sized once for ``cnt_max`` rows
+    (ROUTE_STATIC_BLOCKS_PER_SM blocks an SM at most, striding over the
+    segment's words). On host tensors
+    :func:`write_route_plane_header_plain`."""
+
+    def __init__(self, work: torch.Tensor, resident: torch.Tensor, *,
+                 cnt_max: int):
+        check_resident_args("write_route_plane", work, resident)
+        self.work, self.resident = work, resident
+        self.nblocks = 0
+        if work.device.type == "cpu":
+            return
+        check_on_card("write_route_plane", work, resident)
+        words = -(-(max(1, int(cnt_max)) // 4 + 2) // ROUTE_WORDS_PER_BLOCK)
+        self.nblocks = max(1, min(words, ROUTE_STATIC_BLOCKS_PER_SM
+                                  * sm_count(work.device.index)))
+
+    def __call__(self, hdr: torch.Tensor) -> None:
+        if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
+            raise ValueError("write_route_plane: hdr must be (%d,) int32"
+                             % HDR_WORDS)
+        if not self.nblocks:
+            write_route_plane_header_plain(self.work, self.resident, hdr)
+            return
+        check_on_card("write_route_plane", self.work, hdr)
+        ROUTE_KERNEL.launch(self.work.data_ptr(), self.work.shape[1],
+                            self.work.shape[2], hdr.data_ptr(), SEG_PARENT,
+                            self.resident.data_ptr(), self.resident.shape[1],
+                            self.nblocks, stream_of(self.work))

@@ -7,7 +7,10 @@ Python ints: deriving keys (:func:`PRNGKey`, :func:`fold_in`) is a handful
 of integer operations on the host and never touches a device. Drawing bits
 (:func:`random_bits`, :func:`uniform`) runs as torch operations on the
 device asked for, so a draw on the card neither synchronises it nor copies
-anything from the host.
+anything from the host. A draw also takes its key as a (2,) int64 device
+tensor of the two words (:func:`key_words`): a CUDA graph that draws then
+reads the key from that buffer at every replay, where two Python ints
+would be frozen into the graph at capture.
 
 The counter scheme is JAX's *partitionable* one (``jax_threefry_
 partitionable``, on by default in JAX 0.9): element ``i`` of the flat
@@ -38,11 +41,16 @@ def _rotl(v: _Word, r: int) -> _Word:
     return ((v << r) & MASK32) | (v >> (32 - r))
 
 
-def threefry2x32(key: Key, x0: _Word, x1: _Word) -> Tuple[_Word, _Word]:
+def threefry2x32(key, x0: _Word, x1: _Word) -> Tuple[_Word, _Word]:
     """The Threefry-2x32 hash of the counter pair ``(x0, x1)`` under
     ``key`` (20 rounds; ``jax._src.prng._threefry2x32_lowering``). The
-    counters are Python ints or int64 tensors of 32-bit values."""
-    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    counters are Python ints or int64 tensors of 32-bit values; the key is
+    a :data:`Key` or a (2,) int64 tensor of its words (then the counters
+    are tensors on its device)."""
+    if isinstance(key, torch.Tensor):
+        k0, k1 = key[0:1] & MASK32, key[1:2] & MASK32
+    else:
+        k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x = [(x0 + ks[0]) & MASK32, (x1 + ks[1]) & MASK32]
     for i in range(5):
@@ -67,12 +75,22 @@ def fold_in(key: Key, data: int) -> Key:
     return (int(a), int(b))
 
 
-def random_bits(key: Key, shape: Sequence[int], *,
+def key_words(key: Key, out: torch.Tensor) -> torch.Tensor:
+    """Write ``key``'s two words into the (2,) int64 tensor ``out`` with
+    fills (no host-to-device copy, so the host does not wait for the card)
+    and return it."""
+    out[0:1].fill_(int(key[0]) & MASK32)
+    out[1:2].fill_(int(key[1]) & MASK32)
+    return out
+
+
+def random_bits(key, shape: Sequence[int], *,
                 device: Optional[torch.device] = None,
                 start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of 32-bit
     values. ``start`` draws elements ``[start, start + prod(shape))`` of a
-    larger draw's flat index instead of ``[0, prod(shape))``."""
+    larger draw's flat index instead of ``[0, prod(shape))``. ``key`` is a
+    :data:`Key` or its (2,) int64 device tensor (:func:`key_words`)."""
     numel = 1
     for d in shape:
         numel *= int(d)
@@ -82,7 +100,7 @@ def random_bits(key: Key, shape: Sequence[int], *,
     return (hi ^ lo).reshape(tuple(shape))
 
 
-def uniform(key: Key, shape: Sequence[int], *,
+def uniform(key, shape: Sequence[int], *,
             device: Optional[torch.device] = None,
             start: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top

@@ -18,7 +18,8 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
 from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
-                                    histogram, kernels, partition, route)
+                                    histogram, kernels, partition, route,
+                                    scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -367,18 +368,25 @@ def fused_data():
     return chip_smoke.training_data(2, 200000, 5000)
 
 
-@pytest.mark.parametrize("extra", ["one_kernel", "resident", "three_launch"])
+@pytest.mark.parametrize("extra", ["one_kernel", "resident", "three_launch",
+                                   "resident_three_launch", "rows",
+                                   "quantized"])
 def test_fused_training_equals_per_iteration_on_card(card, fused_data,
                                                      extra):
     """200,000 rows: the fused path (the device tree loop and its CUDA
-    graph with the one-kernel split, the host-loop builder inside the block
-    on the three-launch path) byte-equal to the per-iteration path."""
+    graph: the one-kernel split, or the three-launch chain with the split
+    scan on planes, resident, rows and int8 rows) byte-equal to the
+    per-iteration path (the per-split host loop and torch's scan)."""
     import lightgbm_tpu_torch as lgt
     X, y = fused_data[0], fused_data[1]
     params = chip_smoke.train_params(card, 63, {
         "one_kernel": chip_smoke.ONE_KERNEL_PARAMS,
         "resident": chip_smoke.RESIDENT_PARAMS,
-        "three_launch": {"tpu_split_kernel": "off"}}[extra])
+        "three_launch": {"tpu_split_kernel": "off"},
+        "resident_three_launch": {"tpu_resident_state": "on",
+                                  "tpu_split_kernel": "off"},
+        "rows": {"tpu_work_layout": "rows"},
+        "quantized": chip_smoke.QUANT_PARAMS}[extra])
     kernels.reset_launch_counts()
     fused = lgt.train(params, lgt.Dataset(X, label=y, params=params), 4)
     counts = kernels.launch_counts()
@@ -386,9 +394,36 @@ def test_fused_training_equals_per_iteration_on_card(card, fused_data,
                       callbacks=[lambda env: None])
     assert fused.inner._fused is not None
     assert fused.model_to_string() == eager.model_to_string()
-    if extra != "three_launch":
-        assert counts["split_commit"] == 4 * 63
-        assert fused.inner.learner._loop.graph is not None
+    assert counts["split_commit"] == 4 * 63
+    assert counts["split_scan"] == (0 if extra in ("one_kernel", "resident")
+                                    else 4 * 62)
+    assert fused.inner.learner._loop.graph is not None
+
+
+def test_chain_kernels_match_plain_on_card(card):
+    """The chain's launches with static plans against the per-split path,
+    the split scan against find_best_split on the card bit for bit, and
+    the categorical router against its twin
+    (chip_smoke.phase_chain_kernels)."""
+    before = kernels.launch_counts()
+    errs = chip_smoke.phase_chain_kernels(card, np.random.RandomState(41))
+    assert max(errs.values()) == 0.0, errs
+    after = kernels.launch_counts()
+    for name in ("split_scan", "route_rows_cat", "partition_segment",
+                 "partition_segment_rows", "segment_histogram_q",
+                 "write_route_plane", "segment_histogram_resident"):
+        assert after[name] > before[name], name
+
+
+def test_mixed_fused_equals_per_iteration_on_card(card):
+    """Categorical and EFB data (chip_smoke.mixed_data, 50,000 rows, 3
+    trees): fused through the device loop byte-equal to per iteration,
+    with one-vs-rest and many-vs-many splits; the categorical router on
+    the model's trees equal to its twin."""
+    _, counts, summary, errs, _ = chip_smoke.phase_mixed(
+        card, 1, "test", rows=50000, trees=3, timed=False)
+    assert summary["one_vs_rest"] > 0 and summary["many_vs_many"] > 0
+    assert counts["route_rows_cat"] == 3 and max(errs.values()) == 0.0
 
 
 def test_graph_replay_equals_loop_on_card(card, fused_data):

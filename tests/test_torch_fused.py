@@ -108,8 +108,9 @@ def test_fused_equals_per_iteration(name):
     block = int(extra.get("tpu_iter_block", 10))
     assert telemetry.counter("fused/blocks_dispatched") == \
         -(-ROUNDS // block)
+    # the device tree loop takes every configuration on the card
     device_loop = fused.inner.learner.device_loop_eligible()
-    assert device_loop == name.startswith("split_kernel")
+    assert device_loop
     eager = _eager(params, X, y, cats)
     assert fused.current_iteration == eager.current_iteration == ROUNDS
     assert fused.model_to_string() == eager.model_to_string()

@@ -233,8 +233,12 @@ def test_build_tree_rejects_ineligible_on():
 def test_traffic_spec_launches():
     off = _small_booster(tpu_split_kernel="off").inner.learner.traffic_spec()
     on = _small_booster(tpu_split_kernel="on").inner.learner.traffic_spec()
-    assert off["launches_per_split"] == 3 and off["split_kernel"] == "off"
-    assert on["launches_per_split"] == 1 and on["split_kernel"] == "on"
+    # the device tree loop's count (the split commit in every slot; the
+    # split scan kernel on the chain), and the per-split host loop's
+    assert off["launches_per_split"] == 4 and off["split_kernel"] == "off"
+    assert on["launches_per_split"] == 2 and on["split_kernel"] == "on"
+    assert (off["launches_per_split_host_loop"],
+            on["launches_per_split_host_loop"]) == (3, 1)
     assert on["work_layout"] == "planes" and on["work_width"] == 8 + 12
     assert on["partition_bytes_per_row"] == 2 * on["hist_bytes_per_row"]
 

@@ -398,7 +398,8 @@ def test_traffic_spec_resident():
     """At the HIGGS width (F = 28) the resident partition moves half the
     planes partition's bytes per row: 2 x 17 + the route gather's 6
     against 2 x 40; its histogram reads the slim row and 28 gathered
-    bins; the route gather is one launch more per split."""
+    bins; the route gather is one launch more per split (the device tree
+    loop also commits every split)."""
     planes = _booster(wide=True).inner.learner
     off = _booster(wide=True, tpu_resident_state="on",
                    tpu_split_kernel="off").inner.learner
@@ -410,7 +411,10 @@ def test_traffic_spec_resident():
     assert 2 * r["partition_bytes_per_row"] == p["partition_bytes_per_row"]
     assert r["hist_bytes_per_row"] == 17 + 28
     assert (p["launches_per_split"], r["launches_per_split"],
-            k["launches_per_split"]) == (3, 4, 1)
+            k["launches_per_split"]) == (4, 5, 2)      # the device loop
+    assert (p["launches_per_split_host_loop"],
+            r["launches_per_split_host_loop"],
+            k["launches_per_split_host_loop"]) == (3, 4, 1)
     assert planes.resident_spec() is None
     assert off.resident_spec() == (0, off.bins_t.numel() // 28)
 

@@ -257,12 +257,25 @@ def test_smoke_refuses_without_card():
     assert '"ok"' not in out.stdout
 
 
-def test_fused_phases_small_on_cpu(data, trained):
-    """The slice-10 checks at a tiny size: the split commit's seeded cases
-    and the one-kernel header's (twins against twins), phase 3d (fused
-    planes and resident byte-equal to the per-iteration one-kernel model,
-    its valid AUC from predict equal to that model's; quantized through
-    the host-loop builder) and the full-width commit check."""
+@pytest.fixture
+def one_thread():
+    """One torch thread for a test of many small ops (the device loop's
+    and the chain's twins), which OpenMP threads of several test workers
+    sharing the host's cores slow down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_fused_phases_small_on_cpu(data, trained, one_thread):
+    """The slice-10 and slice-11 checks at a tiny size: the split commit's
+    seeded cases and the one-kernel header's (twins against twins), phase
+    3d (fused planes and resident byte-equal to the per-iteration
+    one-kernel model, its valid AUC from predict equal to that model's;
+    the three-launch chain and quantized fused runs; on host tensors the
+    fused blocks take the host loop), the split scan at the chain models'
+    root and deep leaf, and the full-width commit check."""
     import types
     errs = chip_smoke.phase_commit_kernel(CPU, np.random.RandomState(23))
     assert set(errs) == {"commit/%s" % c[0] for c in chip_smoke.COMMIT_CASES}
@@ -279,10 +292,41 @@ def test_fused_phases_small_on_cpu(data, trained):
     args = types.SimpleNamespace(seed=0, trees=3, leaves=15,
                                  train_rows=len(data[0]),
                                  valid_rows=len(data[2]))
-    bst, counts, summary = chip_smoke.phase_fused(CPU, data, 3, 15, per_iter,
-                                                  args, "cpu")
-    assert set(summary) == {"planes", "resident", "quantized"}
+    bst, counts, summary, chain_rows = chip_smoke.phase_fused(
+        CPU, data, 3, 15, per_iter, args, "cpu", errs)
+    assert set(summary) == {"planes", "resident", "three_launch",
+                            "quantized"}
     assert summary["planes"]["model_sha256"] == per_iter["model_sha256"]
     assert all(v == 0 for c in counts.values() for v in c.values())
+    assert chain_rows == {}
+    assert {"split_scan/%s/%s" % (t, w) for t in ("three_launch",
+                                                  "quantized")
+            for w in ("root", "deep")} <= set(errs)
     assert chip_smoke.full_width_commit(bst, CPU, errs, timed=False) == {}
     assert max(errs.values()) == 0.0 and "commit/full_width" in errs
+
+
+def test_chain_kernels_phase_on_cpu(one_thread):
+    """phase_chain_kernels at its own size on host tensors (twins against
+    twins): every static-plan case on every layout, the split scan on every
+    SPLIT_CASES case, the categorical router's tables."""
+    errs = chip_smoke.phase_chain_kernels(CPU, np.random.RandomState(37))
+    layouts = ("planes", "rows", "int8", "resident")
+    assert {"chain/%s/%s" % (lay, c[0]) for lay in layouts
+            for c in chip_smoke.CHAIN_CASES} <= set(errs)
+    assert {"split_scan/" + c for c in chip_smoke.SPLIT_CASES} <= set(errs)
+    assert sum(k.startswith("router_cat/") for k in errs) == 4
+    assert max(errs.values()) == 0.0
+
+
+def test_mixed_phase_small_on_cpu(one_thread):
+    """Phase 3e at 20,000 rows x 3 trees on host tensors: categorical and
+    EFB data, fused byte-equal to per iteration with one-vs-rest and
+    many-vs-many splits, the categorical router's twin on the model's
+    trees."""
+    _, counts, summary, errs, row = chip_smoke.phase_mixed(
+        CPU, 0, "cpu", rows=20000, trees=3, timed=False)
+    assert summary["one_vs_rest"] > 0 and summary["many_vs_many"] > 0
+    assert all(v == 0 for v in counts.values()) and row == {}
+    assert len(errs) == 8 and max(errs.values()) == 0.0
+    assert {"split_scan/mixed/root", "split_scan/mixed/deep"} <= set(errs)
