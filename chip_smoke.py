@@ -6,13 +6,15 @@
     python3 chip_smoke.py --forest-only   # phase 4's model and B8 timings
     python3 chip_smoke.py --fused-only    # phases 3b, 3d and 3e, the commit
                                           # and the chain's kernels
+    python3 chip_smoke.py --file-only     # phase 2b: host IO and the CLI
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Ten phases, each fatal on failure:
+the checkout it sits in. Eleven phases, each fatal on failure:
 
 1. build     -- compile the hand-written kernels (``csrc/*.cu``: ten
                 sources, fourteen entry points), one nvcc per source,
-                started together.
+                started together; then the two host libraries
+                (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
                 the forest kernel on small seeded packs covering every
                 branch (numerical, NaN-missing, categorical, multiclass
@@ -83,6 +85,23 @@ the checkout it sits in. Ten phases, each fatal on failure:
                 on their data and first root splits (3c also on a deep
                 leaf). Leaf ids must be equal, scores within SCORE_ATOL +
                 SCORE_RTOL * |b|.
+2b. file     -- the slice-12 path: ``Dataset.construct`` of the 2.1M
+                training and valid rows by the native route and by numpy
+                (bins byte-equal, both timed); then FILE_TRAIN_ROWS and
+                FILE_VALID_ROWS of them written as CSV files, parsed
+                natively (equal to the arrays bit for bit), binned and
+                trained on the card (FILE_TREES trees), and the same
+                through ``lightgbm_tpu_torch.cli``: ``task=train`` (the
+                model byte-equal to ``train``'s; the one-kernel split, the
+                split commit and the router launched), ``task=predict``
+                (scores against the trained booster's ``predict``, which
+                launches the forest kernel; a model read from its file
+                has no bin mappers and takes the plain device predict),
+                ``task=save_binary`` and
+                ``task=train`` from the ``.bin`` (the same model), and one
+                ``python -m lightgbm_tpu_torch config=...`` subprocess
+                (exit 0, the same model). Parse, construct, train and each
+                task timed (alone: ``--file-only``).
 3. planes    -- the slice-2 training path: 2,000,000 Higgs-shaped rows x
                 28 features (max_bin=255), ``objective=binary``,
                 ``num_leaves=255``, ``--trees`` iterations through
@@ -4302,6 +4321,183 @@ def phase_timings(bst, out, dev, errs, rows, forest_shapes):
     return rows
 
 
+# --------------------------------------------------------------- file phase
+
+#: the file phase: rows of its CSV files, cut from the 2M training rows to
+#: bound the time it takes to write them, and the trees it trains
+FILE_TRAIN_ROWS = 200_000
+FILE_VALID_ROWS = 20_000
+FILE_TREES = 8
+
+
+def write_csv(path, X, y):
+    """label, then the features; every value is a multiple of 1/1024, so
+    ten fractional digits print it exactly."""
+    import numpy as np
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.10f")
+
+
+def construct_routes(dev, X, y, leaves):
+    """``Dataset.construct`` of (X, y) by the native route and by the numpy
+    route (``construct_dataset(native=False)``): seconds, bins byte-equal."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import construct_dataset
+
+    params = train_params(dev, leaves)
+    t0 = time.perf_counter()
+    native = lgt.Dataset(X, label=y, params=params).construct()
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = construct_dataset(X, Config.from_params(params), label=y,
+                              native=False)
+    t_numpy = time.perf_counter() - t0
+    if not np.array_equal(native.binned, plain.binned):
+        raise AssertionError("native and numpy binning disagree")
+    log("construct: %d x %d rows, native %.2f s, numpy %.2f s (ratio "
+        "%.3f), bins byte-equal" % (X.shape[0], X.shape[1], t_native,
+                                    t_numpy, t_native / t_numpy))
+    return dict(rows=int(X.shape[0]), native_s=t_native, numpy_s=t_numpy,
+                ratio=t_native / t_numpy)
+
+
+def phase_file(dev, data, leaves, card):
+    """The file-driven path: the native constructs at full size against
+    numpy, then CSV files through ``lightgbm_tpu_torch.cli`` on the card
+    (train, predict, save_binary, train from the ``.bin``, and one
+    ``python -m lightgbm_tpu_torch`` subprocess), each model byte-equal to
+    ``train`` on the same arrays in this run. Returns (summary, launch
+    counts of the CLI's train and of the trained booster's predict)."""
+    import hashlib
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import cli, io_native
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io import load_text_file
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    summary = {"construct": construct_routes(
+        dev, np.concatenate([X, Xv]), np.concatenate([y, yv]), leaves)}
+    Xf, yf = X[:FILE_TRAIN_ROWS], y[:FILE_TRAIN_ROWS]
+    Xfv, yfv = Xv[:FILE_VALID_ROWS], yv[:FILE_VALID_ROWS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_file_") as d:
+        train_csv = os.path.join(d, "train.csv")
+        valid_csv = os.path.join(d, "valid.csv")
+        t0 = time.perf_counter()
+        write_csv(train_csv, Xf, yf)
+        write_csv(valid_csv, Xfv, yfv)
+        summary["write_s"] = time.perf_counter() - t0
+        params = {"objective": "binary", "max_bin": 255,
+                  "num_leaves": leaves, "num_iterations": FILE_TREES,
+                  "verbosity": -1, "device_type": dev.type}
+        conf = os.path.join(d, "train.conf")
+        with open(conf, "w") as f:
+            f.write("".join("%s = %s\n" % kv for kv in dict(
+                params, task="train", data=train_csv,
+                output_model=os.path.join(d, "sub.txt")).items()))
+
+        # the in-memory model: parse and bin natively, train on the card
+        t0 = time.perf_counter()
+        Xp, yp, _, _, _ = load_text_file(train_csv,
+                                         Config.from_params(params))
+        summary["parse_s"] = time.perf_counter() - t0
+        for a, b in ((Xp, Xf), (yp, yf)):
+            if not np.array_equal(np.asarray(a).view(np.uint64),
+                                  np.ascontiguousarray(b).view(np.uint64)):
+                raise AssertionError("the parsed CSV differs from the "
+                                     "arrays written")
+        t0 = time.perf_counter()
+        ds = lgt.Dataset(Xp, label=yp, params=dict(params))
+        ds.construct()
+        summary["construct_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bst = lgt.train(dict(params), ds)
+        want = bst.model_to_string()
+        sync(dev)
+        summary["train_s"] = time.perf_counter() - t0
+
+        def run_cli(args, expect=None):
+            sync(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(args)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            for name in (expect or ()) if dev.type == "cuda" else ():
+                if counts.get(name, 0) <= 0:
+                    raise AssertionError("cli %s never launched %s"
+                                         % (args[0], name))
+            return secs, counts
+
+        def model_text(path):
+            with open(path) as f:
+                return f.read()
+
+        arg = ["%s=%s" % kv for kv in params.items()]
+        model = os.path.join(d, "model.txt")
+        summary["cli_train_s"], train_counts = run_cli(
+            ["task=train", "data=" + train_csv, "output_model=" + model]
+            + arg, expect=("one_kernel_split", "split_commit", "route_rows"))
+        if model_text(model) != want:
+            raise AssertionError("the CLI model differs from train's on "
+                                 "the same arrays")
+        # the trained booster has bin mappers, so it predicts through the
+        # forest kernel; a model read from its file has none and takes the
+        # plain device predict, in both packages (boosting._forest_model)
+        sync(dev)
+        kernels.reset_launch_counts()
+        ref = bst.predict(Xfv)
+        sync(dev)
+        predict_counts = kernels.launch_counts()
+        if dev.type == "cuda" and predict_counts.get("forest_predict",
+                                                     0) <= 0:
+            raise AssertionError("predict never launched forest_predict")
+        pred = os.path.join(d, "pred.txt")
+        summary["cli_predict_s"], _ = run_cli(
+            ["task=predict", "data=" + valid_csv, "input_model=" + model,
+             "output_result=" + pred, "device_type=" + dev.type,
+             "verbosity=-1"])
+        summary["predict_max_abs_err"] = check_scores(
+            "cli predict", np.loadtxt(pred), ref)
+        summary["cli_save_binary_s"], _ = run_cli(
+            ["task=save_binary", "data=" + train_csv] + arg)
+        from_bin = os.path.join(d, "from_bin.txt")
+        summary["cli_train_bin_s"], _ = run_cli(
+            ["task=train", "data=" + train_csv + ".bin",
+             "output_model=" + from_bin] + arg)
+        if model_text(from_bin) != want:
+            raise AssertionError("the model from the .bin differs")
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        sub = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                              "config=" + conf], cwd=d, env=env,
+                             capture_output=True, text=True, timeout=600)
+        summary["subprocess_s"] = time.perf_counter() - t0
+        if sub.returncode != 0:
+            raise AssertionError("python -m lightgbm_tpu_torch exited %d:\n%s"
+                                 % (sub.returncode, sub.stderr[-3000:]))
+        if model_text(os.path.join(d, "sub.txt")) != want:
+            raise AssertionError("the subprocess's model differs")
+    summary["model_sha256"] = hashlib.sha256(want.encode()).hexdigest()
+    summary["host_build_s"] = dict(io_native.BUILD_SECONDS)
+    log("file: %d + %d rows written in %.1f s; parse %.2f s, construct "
+        "%.2f s, train %.2f s (%d trees x %d leaves); cli train %.2f s, "
+        "predict %.2f s, save_binary %.2f s, train from .bin %.2f s; "
+        "python -m %.1f s; every model byte-equal (%s)"
+        % (len(Xf), len(Xfv), summary["write_s"], summary["parse_s"],
+           summary["construct_s"], summary["train_s"], FILE_TREES, leaves,
+           summary["cli_train_s"], summary["cli_predict_s"],
+           summary["cli_save_binary_s"], summary["cli_train_bin_s"],
+           summary["subprocess_s"], summary["model_sha256"][:16]))
+    log("file: launches, cli train %s; predict %s (%s)"
+        % (train_counts, predict_counts, card))
+    return summary, {"train": train_counts, "predict": predict_counts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4329,6 +4525,10 @@ def main(argv=None):
                     help="build, check the split commit and the one-kernel "
                     "header, train phase 3b (per iteration) and phase 3d "
                     "(fused blocks) and print only their summaries")
+    ap.add_argument("--file-only", action="store_true",
+                    help="build, run the file phase (2b: native and numpy "
+                    "construction at full size, CSV files through the CLI "
+                    "on the card) and print only its summary")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -4369,6 +4569,19 @@ def main(argv=None):
         log("build %s: %.1f s %s" % (k.symbol, k.build_seconds,
                                      " | ".join(lines)))
     log("build: %d kernels in %.1f s" % (len(kernels.KERNELS), secs))
+    from lightgbm_tpu_torch import io_native
+    t0 = time.perf_counter()
+    host = io_native.build_all()
+    log("build: host libraries %s in %.1f s (0.0: already built)"
+        % (", ".join("%s %.1f s" % kv for kv in host.items()),
+           time.perf_counter() - t0))
+
+    if args.file_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary, counts = phase_file(dev, data, args.leaves, card)
+        print(json.dumps({"file": summary, "launches": counts}))
+        log(card)
+        return 0
 
     if args.rows_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
@@ -4493,8 +4706,12 @@ def main(argv=None):
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 
-    log("== phase 3: full-width training, planes layout (%s)" % card)
+    log("== phase 2b: native construction at full size, and CSV files "
+        "through the command line (%s)" % card)
     data = training_data(args.seed, args.train_rows, args.valid_rows)
+    summary_file, counts_file = phase_file(dev, data, args.leaves, card)
+
+    log("== phase 3: full-width training, planes layout (%s)" % card)
     planes_ds = build_datasets(dev, data, args.leaves)
     bst_p, counts_p, summary_p = phase_train(dev, planes_ds, args.trees,
                                              args.leaves)
@@ -4636,6 +4853,8 @@ def main(argv=None):
     log("train summary quantized %s" % json.dumps(summary_q))
     log("train summary fused %s" % json.dumps(summary_f, default=str))
     log("train summary mixed %s" % json.dumps(summary_m, default=str))
+    log("file summary %s; launches %s" % (json.dumps(summary_file),
+                                          counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)
                                 for name, r in rows.items()]}
     log(card)

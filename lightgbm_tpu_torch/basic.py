@@ -79,7 +79,9 @@ class Dataset:
         merged = dict(self.params)
         if params:
             merged.update(params)
-        if self._constructed is not None and self._used_params == merged:
+        if self._constructed is not None and (
+                self._used_params == merged or self.data is None):
+            # a dataset built elsewhere (the two-round loader) keeps its bins
             return self._constructed
         if isinstance(self.data, str):
             # binary dataset cache; metadata passed here overrides the

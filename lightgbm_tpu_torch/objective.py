@@ -278,6 +278,6 @@ def create_objective(config: Config) -> ObjectiveFunction:
     """Factory (reference: src/objective/objective_function.cpp:15)."""
     name = OBJECTIVE_ALIASES.get(config.objective, config.objective)
     if name not in _REGISTRY:
-        Log.fatal("Objective %s is not served by the port yet",
-                  config.objective)
+        Log.fatal("Objective %s is not ported to the PyTorch/CUDA package "
+                  "yet (ROADMAP A10)", config.objective)
     return _REGISTRY[name](config)

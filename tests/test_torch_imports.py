@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every one of its modules,
-and ``chip_smoke.py``, loads neither JAX nor anything of the JAX package
-(checked in a fresh interpreter, since this test process imports both)."""
+and ``chip_smoke.py``, loads neither JAX nor anything of the JAX package,
+nor pandas (checked in a fresh interpreter, since this test process
+imports all three)."""
 import os
 import pkgutil
 import subprocess
@@ -17,7 +18,8 @@ for name in names:
 import chip_smoke  # module body only: main() runs under __main__
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
-             or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
+             or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu.")
+             or m == "pandas" or m.startswith("pandas."))
 print(len(names))
 print(",".join(bad))
 """
@@ -45,5 +47,6 @@ def test_every_port_module_is_listed():
                 "callback", "metric", "prng", "fused",
                 "serve.session", "serve.batcher", "serve.http",
                 "online.registry", "linear.pack", "tree", "dataset",
-                "config", "objective", "obs", "utils.log"):
+                "config", "objective", "obs", "utils.log",
+                "io", "io_native", "cli", "__main__"):
         assert "lightgbm_tpu_torch." + mod in names, mod

@@ -23,7 +23,7 @@ import jax
 
 from torch_port_cases import (CPU, JAX_ONE_KERNEL, assert_same_trees,
                               make_train_data, one_kernel_jax_inputs,
-                              one_kernel_tree_data)
+                              one_kernel_tree_data, one_torch_thread)
 
 import chip_smoke
 import lightgbm_tpu as lgb
@@ -35,6 +35,13 @@ from lightgbm_tpu_torch.obs import telemetry
 from lightgbm_tpu_torch.ops import histogram as PH
 from lightgbm_tpu_torch.ops import partition as PP
 from lightgbm_tpu_torch.ops import split as PS
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test here runs the port on the host: one torch thread
+    (torch_port_cases.one_torch_thread)."""
+
 
 #: the op-level cases: chip_smoke.SPLIT_CASES but the second many-vs-many
 #: direction and the shallow monotone penalty, which the card covers, and

@@ -21,12 +21,19 @@ import numpy as np
 import pytest
 
 from torch_port_cases import (CPU, TRAIN_ATOL, TRAIN_RTOL, assert_same_trees,
-                              jax_dataset, train_params)
+                              jax_dataset, one_torch_thread, train_params)
 
 import lightgbm_tpu as lgb
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch.obs import telemetry
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test here runs the port on the host: one torch thread
+    (torch_port_cases.one_torch_thread)."""
+
 
 QUANT = {"use_quantized_grad": True}
 #: one or two flipped quanta per leaf (module docstring)

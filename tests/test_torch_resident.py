@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from torch_port_cases import (CPU, TRAIN_CASES, assert_same_trees, grid,
                               make_train_data, one_kernel_tree_data,
-                              train_params)
+                              one_torch_thread, train_params)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.config import Config as JConfig
@@ -44,6 +44,13 @@ from lightgbm_tpu_torch.ops import histogram as PH
 from lightgbm_tpu_torch.ops import partition as PP
 from lightgbm_tpu_torch.ops import split as PS
 from lightgbm_tpu_torch.utils.log import LightGBMError
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test here runs the port on the host: one torch thread
+    (torch_port_cases.one_torch_thread)."""
+
 
 CH = 256
 JG = JP.guard_rows(CH)         # the JAX buffers' guard lanes

@@ -9,11 +9,20 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_port_cases import one_torch_thread  # noqa: F401
+
 from lightgbm_tpu import fused as jfused
 from lightgbm_tpu.config import Config as JConfig
 
 from lightgbm_tpu_torch import fused
 from lightgbm_tpu_torch.config import Config
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test here runs the port on the host: one torch thread
+    (torch_port_cases.one_torch_thread)."""
+
 
 N = 3001
 ITERS = [0, 1, 2, 3, 7, 20]

@@ -257,11 +257,12 @@ def test_smoke_refuses_without_card():
     assert '"ok"' not in out.stdout
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def one_thread():
-    """One torch thread for a test of many small ops (the device loop's
-    and the chain's twins), which OpenMP threads of several test workers
-    sharing the host's cores slow down many times over."""
+    """One torch thread a test: every phase here runs many small ops on
+    the host (the kernels' twins, the device loop's and the chain's),
+    which OpenMP threads of several test workers sharing the host's cores
+    slow down many times over."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

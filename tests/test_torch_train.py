@@ -26,7 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_cases import (CPU, TRAIN_ATOL, TRAIN_RTOL, assert_same_trees,
-                              jax_dataset, train_params)
+                              jax_dataset, one_torch_thread, train_params)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.config import Config as JConfig
@@ -38,6 +38,12 @@ from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.dataset import construct_dataset
 from lightgbm_tpu_torch.learner import SerialTreeLearner
 from lightgbm_tpu_torch.utils.log import LightGBMError
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test here runs the port on the host: one torch thread
+    (torch_port_cases.one_torch_thread)."""
 
 
 def _higgs_grid(rng, n, f):

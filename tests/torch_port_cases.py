@@ -12,6 +12,8 @@ import os
 import sys
 
 import numpy as np
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -25,6 +27,18 @@ import lightgbm_tpu_torch as lgt  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-6
 
 CPU = {"device_type": "cpu"}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread a test. Training on the host runs many small torch
+    ops, which the OpenMP threads of several test workers sharing the
+    host's cores slow down many times over; a training-heavy test module
+    imports this fixture and makes it autouse."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def grid(rng, n, f):
