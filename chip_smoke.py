@@ -7,12 +7,14 @@
     python3 chip_smoke.py --fused-only    # phases 3b, 3d and 3e, the commit
                                           # and the chain's kernels
     python3 chip_smoke.py --file-only     # phase 2b: host IO and the CLI
+    python3 chip_smoke.py --rank-only     # phases 3f and 3g: ranking and
+                                          # the other objectives
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Eleven phases, each fatal on failure:
+the checkout it sits in. Fourteen phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: ten
-                sources, fourteen entry points), one nvcc per source,
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: eleven
+                sources, fifteen entry points), one nvcc per source,
                 started together; then the two host libraries
                 (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -174,6 +176,33 @@ the checkout it sits in. Eleven phases, each fatal on failure:
                 and many-vs-many splits; split_scan and route_rows_cat
                 launched; the categorical router against its twin over the
                 training rows and a 65,536-row rung, timed.
+3f. ranking  -- the ranking path: bench.py's MSLR-like workload
+                (mslr_like: 2,270,000 rows x 137 features, ~120-document
+                queries, five grades; the valid set the last ~10% of the
+                queries), RANK_PARAMS (lambdarank, 255 leaves, 255 bins,
+                learning rate 0.1, NDCG@10, blocks of 10) through ``train``
+                for RANK_TREES fused trees: ``rank_lambdas`` launched once a
+                tree, each tree one graph replay; the wall per tree with the
+                first block and the graph capture apart, each knob's
+                ``auto`` resolution, train NDCG@10; a second run's model
+                byte-equal; RANK_PER_ITER_TREES trees per iteration with the
+                valid set byte-equal to the first fused ones, the valid
+                NDCG@10 after each. The lambda kernel against its twin
+                (rows within LAMBDA_RTOL of their query's largest value) on
+                all-tied, seeded and trained scores at this shape and on
+                RANK_EXTRA_SIZES (5,000 and 1,100 documents: the global
+                path; one document; all labels 0; weights, no norm, a
+                truncation above and below the lengths), timed; the
+                threefry bits and uniforms of rank_xendcg's draw bit-equal
+                card vs host and XENDCG_TREES fused rank_xendcg trees
+                (alone, with 3g: ``--rank-only``).
+3g. objectives -- OBJECTIVES (L1, Huber, Fair, Quantile, MAPE, Poisson,
+                Gamma, Tweedie, multiclassova, cross_entropy,
+                cross_entropy_lambda) on OBJECTIVE_ROWS HIGGS-shaped rows
+                with labels valid for each, OBJECTIVE_TREES trees of
+                OBJECTIVE_LEAVES leaves on the card and on the host: fused,
+                or per iteration with leaf renewal; splits that agree and
+                the train metric within OBJECTIVE_METRIC_TOL.
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -973,13 +1002,19 @@ def phase_planes_route_kernels(dev, rng, full=True):
     return errs
 
 
-def higgs_labels(rng, X):
-    """0/1 labels with a learnable signal: the high-level masses and the
+def higgs_signal(X):
+    """The learnable signal of higgs_labels: the high-level masses and the
     lepton pT push toward "signal", as they do in HIGGS."""
     import numpy as np
-    s = 1.5 * np.log(X[:, 21:28]).mean(axis=1) + 0.6 * np.log(X[:, 0]) \
+    return 1.5 * np.log(X[:, 21:28]).mean(axis=1) + 0.6 * np.log(X[:, 0]) \
         - 0.4 * np.abs(X[:, 1]) + 0.3 * (X[:, 8] > 0) \
         - 0.2 * np.log(X[:, 3])
+
+
+def higgs_labels(rng, X):
+    """0/1 labels drawn from the logistic of higgs_signal."""
+    import numpy as np
+    s = higgs_signal(X)
     p = 1.0 / (1.0 + np.exp(-2.5 * s))
     return (rng.rand(len(X)) < p).astype(np.float64)
 
@@ -2092,12 +2127,20 @@ def scan_reference(hist_left, hist_right, kw):
             find_best_split(*args, want_candidates=True, **opts))
 
 
-def compare_split_info(name, got, ref, cand, strict=False):
+def compare_split_info(name, got, ref, cand, strict=False, hists=None):
     """The kernel's SplitInfo against the torch scan's on the same
     histograms. Integer fields equal unless the torch winner's margin over
     its runner-up is within the gain tolerance (then the torch scan's gain
     at the kernel's choice must be within it of the best); gains, sums and
-    outputs within SPLIT_ATOL + SPLIT_RTOL * |x|. Returns max |diff|."""
+    outputs within SPLIT_ATOL + SPLIT_RTOL * |x|. With ``hists`` (the two
+    children's (F, B, 3) histograms, which both scans read), the left and
+    right sums may also differ by the f32 summation bound over the
+    winner's bins: each side sums up to B + 1 of them in its own order
+    (the kernel in bin order, torch in its reduction's), so the two differ
+    by at most 2 * gamma(B + 1) * (sum of the bins' |x| + |x|). That is
+    the bound where the sums cancel (LambdaRank's gradients sum to about 0
+    a query), and a bound relative to the result is none. Returns max
+    |diff|."""
     import math
     import torch
 
@@ -2128,7 +2171,12 @@ def compare_split_info(name, got, ref, cand, strict=False):
             x = getattr(got, fld)[c].double().reshape(-1)
             y = getattr(ref, fld)[c].double().reshape(-1)
             d = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
-            if not bool((d <= SPLIT_ATOL + SPLIT_RTOL * y.abs()).all()):
+            tol = SPLIT_ATOL + SPLIT_RTOL * y.abs()
+            if hists is not None and fld in ("left_sum", "right_sum"):
+                bins = hists[c, int(got.feature[c])].double().abs().sum(0)
+                nu = 2.0 ** -24 * (hists.shape[2] + 1)
+                tol = tol + 2 * nu / (1 - nu) * (bins + y.abs())
+            if not bool((d <= tol).all()):
                 raise AssertionError("%s child %d: %s %s vs torch %s"
                                      % (name, c, fld, x.tolist(),
                                         y.tolist()))
@@ -2136,7 +2184,8 @@ def compare_split_info(name, got, ref, cand, strict=False):
     return worst
 
 
-def check_one_kernel(name, work, seg, table, kw, strict=False):
+def check_one_kernel(name, work, seg, table, kw, strict=False,
+                     cancelling=False):
     """The one-kernel split (kernel on a CUDA tensor) against its plain
     twin and against the three-launch chain K3 + K4 + parent - child on
     the same input: routed bytes and lt equal to both; hist_left and
@@ -2193,7 +2242,9 @@ def check_one_kernel(name, work, seg, table, kw, strict=False):
             raise AssertionError("%s: g/h off the twin, max |diff| %.3g"
                                  % (name, float(diff.max())))
     ref, cand = scan_reference(hl_c, hr_c, kw)
-    return compare_split_info(name, got, ref, cand, strict)
+    return compare_split_info(name, got, ref, cand, strict,
+                              hists=torch.stack([hl_c, hr_c])
+                              if cancelling else None)
 
 
 def segment_split(work, seg, table, kw):
@@ -2365,7 +2416,7 @@ def split_kernel_on_vs_off(dev, data, rows, leaves, iters=3):
                 logloss_on=l_on, logloss_off=l_off)
 
 
-def full_width_one_kernel(bst, dev, errs, timed=True):
+def full_width_one_kernel(bst, dev, errs, timed=True, cancelling=False):
     """The one-kernel split against its twin and K3 + K4 at the training
     shapes: the root segment of all rows packed from the trained model's
     gradients, routed by the split find_best_split takes on its histogram.
@@ -2402,7 +2453,8 @@ def full_width_one_kernel(bst, dev, errs, timed=True):
               ups2=torch.full((2,), float("inf"), device=dev), hp=lrn.hp,
               num_bins=B, num_feat=F)
     errs["one_kernel/full_width"] = check_one_kernel(
-        "one_kernel/full_width", work, seg, table, kw)
+        "one_kernel/full_width", work, seg, table, kw,
+        cancelling=cancelling)
     if not timed:
         return {}
     sg = torch.tensor(seg, dtype=torch.int32, device=dev)
@@ -3334,12 +3386,12 @@ def loop_state_at(lrn, ghc, s):
     return loop
 
 
-def full_width_commit(bst, dev, errs, timed=True):
+def full_width_commit(bst, dev, errs, timed=True, s=None):
     """The split commit against its twin at a full-width state: the
-    fused model's learner's device loop run to the middle of a tree on the
-    model's gradients (F, B and L of phase 3d), then commit s on copies.
-    When ``timed``: the kernel's ms (host clock and device_ms), the
-    twin's and the bound."""
+    fused model's learner's device loop run to commit ``s`` of a tree
+    (the middle one by default) on the model's gradients (F, B and L of
+    phase 3d), then commit s on copies. When ``timed``: the kernel's ms
+    (host clock and device_ms), the twin's and the bound."""
     import torch
     from lightgbm_tpu_torch.ops import commit as C
 
@@ -3348,14 +3400,14 @@ def full_width_commit(bst, dev, errs, timed=True):
     grad, hess = g.objective.get_gradients(g.train_score.score)
     ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
     L = lrn.num_leaves
-    s = L // 2
+    tag = "commit/full_width" if s is None else "commit/full_width_s%d" % s
+    s = L // 2 if s is None else s
     loop = loop_state_at(lrn, ghc, s)
     st, out = loop.state, loop.out
     kw = dict(max_depth=loop.commit.max_depth, monotone=lrn.meta.monotone,
               mono_on=lrn.hp.has_monotone)
-    errs["commit/full_width"] = check_split_commit(
-        "commit/full_width", st, out, s, kw["max_depth"], kw["monotone"],
-        kw["mono_on"])
+    errs[tag] = check_split_commit(tag, st, out, s, kw["max_depth"],
+                                   kw["monotone"], kw["mono_on"])
     if not timed:
         return {}
     a = C.TreeState(*(t.clone() for t in st))
@@ -4309,16 +4361,623 @@ def phase_timings(bst, out, dev, errs, rows, forest_shapes):
         ms=r_ms, plain_ms=rp_ms, bytes=r_bytes,
         ops=2 * r_steps)
     for name, r in rows.items():
-        t_bytes = r.pop("bytes") / PEAK_BYTES_PER_S * 1e3
-        t_ops = r.pop("ops") / PEAK_SCALAR_OPS_PER_S * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r.setdefault("library_ms", None)
-        log("timing %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms (%s)%s"
-            % (name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
-               ", three-launch path %.4f ms" % r["three_launch_ms"]
-               if "three_launch_ms" in r else ""))
+        bound_row(name, r)
     return rows
+
+
+def bound_row(name, r):
+    """Turn a kernels-line row's ``bytes`` and ``ops`` into ``bound_ms``
+    (the larger of bytes over PEAK_BYTES_PER_S and operations over
+    PEAK_SCALAR_OPS_PER_S) and ``bound_by``, and log it."""
+    t_bytes = r.pop("bytes") / PEAK_BYTES_PER_S * 1e3
+    t_ops = r.pop("ops") / PEAK_SCALAR_OPS_PER_S * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    r.setdefault("library_ms", None)
+    log("timing %s: kernel %.4f ms, plain %.3f ms, bound %.5f ms (%s)%s"
+        % (name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+           ", three-launch path %.4f ms" % r["three_launch_ms"]
+           if "three_launch_ms" in r else ""))
+    return r
+
+
+# ------------------------------------------------------------ ranking phase
+
+#: phase 3f: bench.py's MSLR-like ranking workload (2.27M rows x 137
+#: features, ~120-document queries, five grades), cut from the
+#: reference's 500 trees to RANK_TREES fused trees; rows, width, leaves and
+#: bins stay full
+RANK_ROWS = 2_270_000
+RANK_FEATURES = 137
+RANK_TREES = 20
+#: per-iteration trees with the valid set, byte-equal to the first fused
+#: ones, and fused rank_xendcg trees
+RANK_PER_ITER_TREES = 3
+XENDCG_TREES = 5
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "verbosity": -1, "metric": ["ndcg"],
+               "eval_at": [10], "tpu_iter_block": 10}
+#: the extra lambda-kernel queries beside the training set's: a 5,000- and
+#: a 1,100-document query (past RANK_SMEM_DOCS: the global-memory path), a
+#: single document, one all-zero-label query, an empty one and a few
+#: ordinary ones
+RANK_EXTRA_SIZES = (5000, 1, 50, 0, 1100, 37, 220, 8)
+#: f32 operations of one (higher, lower) lambda pair, exp counted as one:
+#: the score difference and its orientation, sigma * d, exp, 1 + e and its
+#: reciprocal (p), |delta discount| and |delta gain| (2 each), |delta NDCG|
+#: (2), lambda (2), hessian (4) and the four accumulations
+LAMBDA_PAIR_OPS = 22
+
+
+def mslr_like(n, f=RANK_FEATURES, docs_per_query=120, seed=11):
+    """(X, y, group): ``bench.py``'s ``make_mslr_like``: Gaussian
+    features, a linear relevance with noise cut into five grades by its
+    global quantiles (as MSLR-WEB30K's), query sizes max(20, N(120, 25))
+    until the rows run out."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    w = rng.randn(f) / np.sqrt(f)
+    rel = X @ w + 0.5 * rng.randn(n)
+    edges = np.quantile(rel, [0.55, 0.75, 0.9, 0.97])
+    y = np.digitize(rel, edges).astype(np.float64)
+    sizes = []
+    left = n
+    while left > 0:
+        s = min(left, max(20, int(rng.normal(docs_per_query, 25))))
+        sizes.append(s)
+        left -= s
+    return X.astype(np.float64), y, np.asarray(sizes, dtype=np.int64)
+
+
+def rank_datasets(dev, rows, params):
+    """(train, valid) Datasets of the MSLR-like set: the valid set is the
+    last ~10% of the queries, cut on a query boundary."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    t0 = time.perf_counter()
+    X, y, group = mslr_like(rows)
+    gen = time.perf_counter() - t0
+    cut = len(group) - len(group) // 10
+    r = int(group[:cut].sum())
+    t1 = time.perf_counter()
+    train = lgt.Dataset(X[:r], label=y[:r], group=group[:cut],
+                        params=dict(params, device_type=dev.type))
+    train.construct()
+    valid = lgt.Dataset(X[r:], label=y[r:], group=group[cut:],
+                        reference=train)
+    valid.construct()
+    log("rank data: %d rows x %d features, %d queries (%d train, %d "
+        "valid; sizes %d-%d, mean %.1f), made in %.1f s, binned in %.1f s"
+        % (len(X), X.shape[1], len(group), cut, len(group) - cut,
+           group.min(), group.max(), group.mean(), gen,
+           time.perf_counter() - t1))
+    return train, valid
+
+
+def query_ids(t):
+    """(N,) i64 query of each row of RankTables ``t``."""
+    import torch
+    sizes = (t.qb[1:] - t.qb[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(t.num_queries, device=t.qb.device), sizes)
+
+
+def check_lambdas(name, t, score, weight=None):
+    """The lambda kernel against its twin on the same scores: NaN in the
+    same rows (none where the scores are finite), and each other row's
+    grad (hess) within LAMBDA_RTOL of its query's largest finite |grad|
+    (hess) of the twin. Returns the largest |diff|."""
+    import torch
+    from lightgbm_tpu_torch.ops.rank import (LAMBDA_RTOL,
+                                             lambdarank_gradients,
+                                             lambdarank_gradients_plain)
+    g, h = lambdarank_gradients(score, t, weight)
+    gp, hp = lambdarank_gradients_plain(score, t, weight)
+    sync(score.device)
+    qid = query_ids(t)
+
+    def query_max(x):
+        x = torch.where(torch.isnan(x), torch.zeros_like(x), x.abs())
+        return torch.zeros(t.num_queries, dtype=x.dtype,
+                           device=x.device).scatter_reduce_(
+            0, qid, x, "amax")[qid]
+
+    if not (torch.equal(torch.isnan(g), torch.isnan(gp))
+            and torch.equal(torch.isnan(h), torch.isnan(hp))):
+        raise AssertionError("%s: NaN in other rows than the twin's (%d "
+                             "and %d grad rows)" % (
+                                 name, int(torch.isnan(g).sum()),
+                                 int(torch.isnan(gp).sum())))
+    if bool(torch.isfinite(score).all()) and not (
+            torch.isfinite(g).all() and torch.isfinite(h).all()):
+        raise AssertionError("%s: non-finite lambdas" % name)
+    num = ~torch.isnan(gp) & ~torch.isnan(hp)
+    eg = torch.where(num, (g - gp).abs(), torch.zeros_like(g))
+    eh = torch.where(num, (h - hp).abs(), torch.zeros_like(h))
+    bad = (eg > LAMBDA_RTOL * query_max(gp)) | (eh > LAMBDA_RTOL
+                                                  * query_max(hp))
+    if bool(bad.any()):
+        raise AssertionError("%s: %d rows beyond %g of their query's "
+                             "largest value (max |diff| grad %.3g, hess "
+                             "%.3g)" % (name, int(bad.sum()), LAMBDA_RTOL,
+                                        float(eg.max()), float(eh.max())))
+    return float(max(eg.max(), eh.max()))
+
+
+def lambda_pairs(score, t):
+    """The (higher, lower) pairs that these scores' lambdas need: the
+    higher side in its query's top min(truncation_level, n) ranks, the
+    two gains different (for the operation bound)."""
+    import torch
+    from lightgbm_tpu_torch.ops.rank import bucket_tensors
+    total = 0
+    for p_b, k_b, safe, valid, gains, _ in bucket_tensors(t, score.device):
+        s = torch.where(valid, score[safe], float("-inf"))
+        order = torch.argsort(-s, dim=1, stable=True)
+        g = torch.gather(gains, 1, order)
+        v = torch.gather(valid, 1, order)
+        once = torch.arange(p_b, device=s.device)[None, :] \
+            > torch.arange(k_b, device=s.device)[:, None]
+        m = (g[:, :k_b, None] != g[:, None, :]) & v[:, :k_b, None] \
+            & v[:, None, :] & once[None]
+        total += int(m.sum())
+    return total
+
+
+def rank_objective(dev, sizes, rng, params=None, weighted=False):
+    """A LambdarankNDCG objective on seeded labels for queries of
+    ``sizes`` (all labels 0, so the inverse max DCG is 0, where a size is
+    50). The boundaries are set on the metadata directly, since a group
+    size of 0 is refused there and the objective takes an empty query."""
+    import numpy as np
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+    sizes = np.asarray(sizes, np.int64)
+    n = int(sizes.sum())
+    y = rng.randint(0, 5, n).astype(np.float64)
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    for q in np.flatnonzero(sizes == 50):
+        y[qb[q]:qb[q + 1]] = 0.0
+    w = rng.uniform(0.5, 2.0, n) if weighted else None
+    obj = create_objective(Config.from_params(
+        dict(objective="lambdarank", **(params or {}))))
+    md = Metadata(n, label=y, weight=w)
+    md.query_boundaries = qb.astype(np.int32)
+    obj.init(md, dev)
+    return obj
+
+
+def rank_nan_scores(rng, t):
+    """Seeded scores of RankTables ``t``'s rows with NaN in a few: the
+    first row, two rows of each query of 20-47 documents (where the JAX
+    package's bucket pads to 48, so its NaN ranks lie past the padding)
+    and three of the largest query's rows, the last of them -NaN."""
+    import numpy as np
+    qb = t.qb.cpu().numpy()
+    s = rng.randn(int(qb[-1]))
+    sizes = np.diff(qb)
+    picks = [qb[0]]
+    for q in np.flatnonzero((sizes >= 20) & (sizes < 48)):
+        picks += list(qb[q] + rng.choice(sizes[q], 2, replace=False))
+    big = int(np.argmax(sizes))
+    picks += list(qb[big] + rng.choice(sizes[big], min(3, sizes[big]),
+                                       replace=False))
+    s[np.asarray(picks, np.int64)] = np.nan
+    s[picks[-1]] = -np.nan
+    return s
+
+
+def phase_rank_kernels(dev, rng):
+    """The lambda kernel against its twin on RANK_EXTRA_SIZES queries: the
+    all-tied scores of iteration 0, seeded scores, scores on a coarse grid
+    (many ties), seeded scores with a few NaN (rank_nan_scores); the
+    default settings, weights, the norm off with a truncation of 300
+    (above the short queries' lengths, below the long ones'), and a
+    truncation of 40 (between the 37-document query's numeric count and
+    its bucket's 48). Returns the check errors."""
+    import numpy as np
+    import torch
+    errs = {}
+    for tag, params, weighted in (
+            ("default", None, False), ("weighted", None, True),
+            ("no_norm_trunc300", {"lambdarank_norm": False,
+                                  "lambdarank_truncation_level": 300},
+             False),
+            ("trunc40", {"lambdarank_truncation_level": 40}, False)):
+        obj = rank_objective(dev, RANK_EXTRA_SIZES, rng, params, weighted)
+        n = obj.num_data
+        for case, s in (("tied", np.zeros(n)), ("seeded", rng.randn(n)),
+                        ("grid", np.round(rng.randn(n) * 4) / 4),
+                        ("nan", rank_nan_scores(rng, obj.tables))):
+            score = torch.as_tensor(s.astype(np.float32)).to(dev)
+            key = "lambdas/%s/%s" % (tag, case)
+            errs[key] = check_lambdas(key, obj.tables, score, obj.weight)
+    return errs
+
+
+def check_prng_card_vs_host(dev, key, shape):
+    """The threefry bits and uniforms drawn on ``dev`` bit-equal to the
+    host's; the Gumbel values within 2 ulps of max(|g|, 1)."""
+    import torch
+    from lightgbm_tpu_torch import prng
+    tiny = float(torch.finfo(torch.float32).tiny)
+    for what, fn in (("bits", lambda d: prng.random_bits(key, shape,
+                                                         device=d)),
+                     ("uniform", lambda d: prng.uniform(
+                         key, shape, device=d, minval=tiny))):
+        a, b = fn(dev).cpu(), fn(torch.device("cpu"))
+        if what == "uniform":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError("prng %s: card and host differ at %d of %d"
+                                 % (what, int((a != b).sum()), a.numel()))
+    a = prng.gumbel(key, shape, device=dev).cpu()
+    b = prng.gumbel(key, shape, device=torch.device("cpu"))
+    ulp = torch.finfo(torch.float32).eps * torch.clamp(b.abs(), min=1.0)
+    err = float(((a - b).abs() / ulp).max())
+    if err > 2.0:
+        raise AssertionError("prng gumbel: card and host %.1f ulps apart"
+                             % err)
+    return err
+
+
+def untrained_ndcg10(ds):
+    """NDCG@10 of all-equal scores on a constructed Dataset (each query in
+    its own order): the floor a trained ranker must beat."""
+    import numpy as np
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric import NDCGMetric
+    md = ds.construct().metadata
+    m = NDCGMetric(Config.from_params({"eval_at": [10]}))
+    return m.eval(np.zeros(md.num_data), md.label, None,
+                  md.query_boundaries)[0][1]
+
+
+def model_text(bst, num_iteration):
+    """``model_to_string(num_iteration)`` without its best_iteration line
+    (the fused path stores its whole run's count there)."""
+    return "\n".join(ln for ln in bst.model_to_string(num_iteration)
+                     .splitlines() if not ln.startswith("best_iteration="))
+
+
+def phase_rank(dev, card, rows=RANK_ROWS, trees=RANK_TREES,
+               per_iter=RANK_PER_ITER_TREES, xendcg_trees=XENDCG_TREES,
+               timed=True, seed=0, extra=None):
+    """Phase 3f: LambdaRank at full width on the card. MSLR-like data
+    (mslr_like, ``rows`` rows) with RANK_PARAMS through ``train``: fused
+    blocks, the lambdas one launch of ``rank_lambdas`` a tree, each tree
+    one replay of the device tree loop's graph. Launch counts are zeroed
+    just before and read just after the ``trees``-tree run. Prints the
+    wall per tree (the first block apart, from a run of one block, and the
+    graph's capture ms), the ``auto`` resolution of each knob and the
+    train NDCG@10; a second run's model sha256 must equal the first's.
+    Then ``per_iter`` trees per iteration with the valid set: their model
+    string byte-equal to the first ``per_iter`` fused trees' (best
+    iteration aside), the valid NDCG@10 after each. The lambda kernel
+    against its twin at this shape (all-tied scores, seeded scores, the
+    trained model's scores) and on RANK_EXTRA_SIZES (phase_rank_kernels),
+    timed when ``timed``; the threefry bits and uniforms of rank_xendcg's
+    draw card vs host, and ``xendcg_trees`` fused rank_xendcg trees.
+    ``extra`` params go on RANK_PARAMS (a small rehearsal). Returns
+    (summary, launch counts of the main run, the kernels-line row, check
+    errors)."""
+    import hashlib
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import prng
+    from lightgbm_tpu_torch.obs import telemetry
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops.rank import (lambdarank_gradients,
+                                             lambdarank_gradients_plain)
+
+    params = dict(RANK_PARAMS, device_type=dev.type, **(extra or {}))
+    train, valid = rank_datasets(dev, rows, params)
+    n = train.construct().num_data
+    summary = dict(rows=n, features=train.construct().num_total_features,
+                   queries=len(train.get_group()), trees=trees)
+
+    def fused_run(k):
+        sync(dev)
+        t0 = time.perf_counter()
+        bst = lgt.train(dict(params), train, k)
+        sync(dev)
+        return bst, time.perf_counter() - t0
+
+    # the one-time set-up of a Dataset's first booster (the binned matrix
+    # to the card and its router layout, cached on the Dataset; the
+    # objective's tables), timed apart from the runs
+    sync(dev)
+    t0 = time.perf_counter()
+    lgt.Booster(dict(params), train)
+    sync(dev)
+    setup = time.perf_counter() - t0
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    bst, wall = fused_run(trees)
+    counts = kernels.launch_counts()
+    g = bst.inner
+    loop = g.learner._loop
+    if g._fused is None or (dev.type == "cuda" and (loop is None
+                                                    or loop.graph is None)):
+        raise AssertionError("phase 3f: training did not take the fused "
+                             "device tree loop")
+    auto = {r["knob"]: r["value"]
+            for r in telemetry.records("auto_resolution")}
+    if dev.type == "cuda":
+        # the lambdas once a tree; each tree's graph: the split slots (B7
+        # or the chain's scan), the commit and the router
+        want = {"rank_lambdas": trees, "route_rows": trees,
+                "split_commit": trees * params["num_leaves"]}
+        splits = counts.get("one_kernel_split", 0) \
+            + counts.get("split_scan", 0)
+        if any(counts.get(k, 0) != v for k, v in want.items()) \
+                or splits != trees * (params["num_leaves"] - 1):
+            raise AssertionError("phase 3f launches %s, want %s and %d "
+                                 "split slots" % (counts, want, trees
+                                                  * (params["num_leaves"]
+                                                     - 1)))
+    text = bst.model_to_string()
+    sha = hashlib.sha256(text.encode()).hexdigest()
+    ndcg = dict((m, v) for _, m, v, _ in bst.eval_train())["ndcg@10"]
+    bst2, wall2 = fused_run(trees)
+    sha2 = hashlib.sha256(bst2.model_to_string().encode()).hexdigest()
+    del bst2
+    block = int(params["tpu_iter_block"])
+    first, first_wall = fused_run(block)
+    del first
+    # a run of one block against the second full run: the later blocks
+    steady = (wall2 - first_wall) / max(trees - block, 1)
+    summary.update(
+        setup_s=setup, wall_s=wall, wall_per_tree_ms=wall / trees * 1e3,
+        second_run_wall_s=wall2,
+        second_run_wall_per_tree_ms=wall2 / trees * 1e3,
+        first_block_wall_s=first_wall,
+        later_blocks_wall_per_tree_ms=steady * 1e3,
+        capture_ms=getattr(loop, "capture_ms", None), auto=auto,
+        train_ndcg10=ndcg, model_sha256=sha, second_model_sha256=sha2,
+        splits=sum(t.num_leaves - 1 for t in g.models), launches=counts)
+    log("phase 3f (%s): %d lambdarank trees x %d leaves on %d rows x %d "
+        "features in %.2f s (%.1f ms/tree), again in %.2f s (%.1f "
+        "ms/tree); the first block of %d alone %.2f s (graph capture %s "
+        "ms), later blocks %.1f ms/tree; the Dataset's first booster's "
+        "set-up %.2f s apart; train ndcg@10 %.5f; auto %s; launches %s"
+        % (card, trees, params["num_leaves"], n, summary["features"], wall,
+           summary["wall_per_tree_ms"], wall2,
+           summary["second_run_wall_per_tree_ms"], block, first_wall,
+           summary["capture_ms"], steady * 1e3, setup, ndcg, auto, counts))
+    if sha != sha2:
+        raise AssertionError("phase 3f: two fused runs gave different "
+                             "models")
+    floor = untrained_ndcg10(train)
+    summary["untrained_train_ndcg10"] = floor
+    if not (np.isfinite(ndcg) and floor < ndcg <= 1.0):
+        raise AssertionError("phase 3f: train ndcg@10 %.4f (untrained "
+                             "%.4f)" % (ndcg, floor))
+
+    evals = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    eager = lgt.train(dict(params), train, per_iter, valid_sets=[valid],
+                      callbacks=[lgt.record_evaluation(evals)])
+    sync(dev)
+    eager_wall = time.perf_counter() - t0
+    same = model_text(eager, per_iter) == model_text(bst, per_iter)
+    curve = evals["valid_0"]["ndcg@10"]
+    summary.update(per_iteration_wall_per_tree_ms=eager_wall / per_iter
+                   * 1e3, valid_ndcg10=curve)
+    log("phase 3f per iteration with the valid set: %d trees in %.2f s "
+        "(%.1f ms/tree); model %s the first %d fused trees'; valid "
+        "ndcg@10 after each tree %s"
+        % (per_iter, eager_wall, eager_wall / per_iter * 1e3,
+           "byte-equal to" if same else "DIFFERS from", per_iter,
+           ", ".join("%.5f" % v for v in curve)))
+    if not same:
+        raise AssertionError("phase 3f: per-iteration trees differ from "
+                             "the fused ones")
+    vfloor = untrained_ndcg10(valid)
+    summary["untrained_valid_ndcg10"] = vfloor
+    if not all(np.isfinite(v) and v <= 1.0 for v in curve) \
+            or curve[-1] <= vfloor:
+        raise AssertionError("phase 3f: valid ndcg@10 %s (untrained %.4f)"
+                             % (curve, vfloor))
+    del eager
+
+    # the lambda kernel against its twin at this shape
+    obj = g.objective
+    t = obj.tables
+    rng = np.random.RandomState(seed + 41)
+    scores = {"tied": torch.zeros(n, dtype=torch.float32, device=dev),
+              "seeded": torch.as_tensor(rng.randn(n).astype(np.float32))
+              .to(dev),
+              "after_%d_trees" % trees: g.train_score.score.clone()}
+    errs = {}
+    for case, s in scores.items():
+        key = "lambdas/full_width/%s" % case
+        errs[key] = check_lambdas(key, t, s, obj.weight)
+    errs.update(phase_rank_kernels(dev, rng))
+
+    # the tree loop's kernels at this width (F = 137: B7 works on 149
+    # planes) against their twins, on the trained model's gradients: B7 at
+    # the root and at a deep leaf of the first tree, the split commit
+    # after the root, in the middle and at the last split, the router over
+    # the training and valid rows. Keys under "rank/".
+    fw = {}
+    # (the split sums are held to the f32 summation bound over the
+    # winner's bins: the lambdas cancel, compare_split_info)
+    b7 = full_width_one_kernel(bst, dev, fw, timed=timed
+                               and dev.type == "cuda", cancelling=True)
+    idx, depth = deep_leaf_rows(bst, dev)
+    _, planes, seg, table, kw = model_segment(bst, dev, idx, depth)
+    fw["one_kernel/deep"] = check_one_kernel("one_kernel/deep", planes,
+                                             seg, table, kw,
+                                             cancelling=True)
+    del planes
+    for s in (1, params["num_leaves"] // 2, params["num_leaves"] - 1):
+        full_width_commit(bst, dev, fw, timed=False, s=s)
+    full_width_route(bst, valid.construct(), dev, fw, timed=False)
+    errs.update(("rank/" + k, v) for k, v in fw.items())
+    if b7:
+        summary["one_kernel_split_root"] = {
+            k: b7["one_kernel_split"][k]
+            for k in ("ms", "device_ms", "plain_ms", "three_launch_ms",
+                      "bytes")}
+    log("phase 3f: B7 at %d features (root, a %d-row leaf at depth %d), "
+        "the split commit (3 states) and the router equal to their twins: "
+        "%s" % (summary["features"], int(idx.numel()), depth,
+                ", ".join("%s %.3g" % kv for kv in sorted(fw.items()))))
+
+    # rank_xendcg: the draws card vs host, then fused trees on the card
+    key = prng.fold_in(prng.PRNGKey(5), 3)
+    shape = (t.num_queries, obj.P)
+    errs["prng/gumbel_ulps"] = check_prng_card_vs_host(dev, key, shape)
+    xparams = dict(params, objective="rank_xendcg")
+    xtrain = lgt.Dataset(train.data, label=train.label, group=train.group,
+                         params=xparams)
+    xtrain.construct()
+    sync(dev)
+    t0 = time.perf_counter()
+    xb = lgt.train(dict(xparams), xtrain, xendcg_trees)
+    sync(dev)
+    xwall = time.perf_counter() - t0
+    xndcg = dict((m, v) for _, m, v, _ in xb.eval_train())["ndcg@10"]
+    if xb.inner._fused is None or not np.isfinite(xndcg) or xndcg <= floor:
+        raise AssertionError("phase 3f: rank_xendcg fused %s, ndcg@10 %.4f"
+                             % (xb.inner._fused is not None, xndcg))
+    summary.update(xendcg_trees=xendcg_trees, xendcg_wall_per_tree_ms=xwall
+                   / xendcg_trees * 1e3, xendcg_train_ndcg10=xndcg)
+    log("phase 3f rank_xendcg: draws of shape %s bit-equal card vs host "
+        "(gumbel within %.1f ulps); %d fused trees in %.2f s (%.1f "
+        "ms/tree), train ndcg@10 %.5f; lambda checks max |diff| %.3g"
+        % (shape, errs["prng/gumbel_ulps"], xendcg_trees, xwall,
+           xwall / xendcg_trees * 1e3, xndcg,
+           max(v for k, v in errs.items() if k.startswith("lambdas/"))))
+    del xb, xtrain
+
+    row = {}
+    if timed and dev.type == "cuda":
+        s = scores["after_%d_trees" % trees]
+        w = obj.weight
+        k_ms = cuda_ms(lambda: lambdarank_gradients(s, t, w))
+        k_dev = device_ms(lambda: lambdarank_gradients(s, t, w))
+        p_ms = cuda_ms(lambda: lambdarank_gradients_plain(s, t, w),
+                       iters=3, warmup=1)
+        p_dev = device_ms(lambda: lambdarank_gradients_plain(s, t, w),
+                          iters=3, warmup=1)
+        pairs = lambda_pairs(s, t)
+        # each row's score, gain (and weight) read and grad, hess written
+        # once; the boundaries, inverse max DCGs and discounts
+        f_bytes = n * (16 + (4 if w is not None else 0)) \
+            + t.qb.numel() * 4 + t.inv_max_dcg.numel() * 4 \
+            + t.discount.numel() * 4
+        log("lambda kernel at %d rows, %d queries: %.4f ms (device %.4f), "
+            "twin %.3f ms (device %.3f); %d pairs; byte floor %.5f ms, "
+            "operation floor %.5f ms"
+            % (n, t.num_queries, k_ms, k_dev, p_ms, p_dev, pairs,
+               f_bytes / PEAK_BYTES_PER_S * 1e3,
+               pairs * LAMBDA_PAIR_OPS / PEAK_SCALAR_OPS_PER_S * 1e3))
+        row = {"rank_lambdas": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/rank_lambdas.cu",
+            replaces="lightgbm_tpu/objective.py:595 "
+                     "(LambdarankNDCG._bucket_lambdas; XLA, no pallas_call)",
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith("lambdas/")),
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, plain_device_ms=p_dev,
+            library_ms=None, pairs=pairs, bytes=f_bytes,
+            ops=pairs * LAMBDA_PAIR_OPS)}
+    return summary, counts, row, errs
+
+
+# ------------------------------------------------------- objectives phase
+
+#: phase 3g: each objective beyond binary, L2 and softmax, on the card and on
+#: the host: OBJECTIVE_ROWS HIGGS-shaped rows, OBJECTIVE_TREES trees of
+#: OBJECTIVE_LEAVES leaves (cut from 255 to keep the host runs short)
+OBJECTIVE_ROWS = 200_000
+OBJECTIVE_TREES = 4
+OBJECTIVE_LEAVES = 63
+OBJECTIVES = ("regression_l1", "huber", "fair", "quantile", "mape",
+              "poisson", "gamma", "tweedie", "multiclassova",
+              "cross_entropy", "cross_entropy_lambda")
+#: the train metric card vs host: |diff| <= OBJECTIVE_METRIC_TOL *
+#: max(1, |host|) (histogram sums in another order may flip a near-tie
+#: split)
+OBJECTIVE_METRIC_TOL = 1e-3
+
+
+def objective_labels(objective, X, rng):
+    """Labels valid for ``objective`` from the HIGGS signal of ``X``:
+    continuous for the L1 family, positive for the log links (counts for
+    Poisson and Tweedie, gamma noise for Gamma), three classes for OVA,
+    probabilities in [0, 1] for the cross-entropies; on a 1/1024 grid."""
+    import numpy as np
+    s = higgs_signal(X)
+    s = (s - s.mean()) / s.std()
+    if objective in ("poisson", "tweedie"):
+        y = rng.poisson(np.exp(0.5 * s)).astype(np.float64)
+    elif objective == "gamma":
+        y = np.exp(0.5 * s) * rng.gamma(4.0, 0.25, len(s)) + 1e-3
+    elif objective == "multiclassova":
+        y = np.digitize(s + 0.5 * rng.randn(len(s)), [-0.5, 0.5])
+    elif objective.startswith("cross_entropy"):
+        y = 1.0 / (1.0 + np.exp(-1.5 * s))
+    else:
+        y = s + 0.5 * rng.randn(len(s))
+    return np.round(np.asarray(y, np.float64) * 1024.0) / 1024.0
+
+
+def phase_objectives(dev, data, card, rows=OBJECTIVE_ROWS,
+                     trees=OBJECTIVE_TREES, leaves=OBJECTIVE_LEAVES,
+                     seed=0):
+    """Phase 3g: every objective of OBJECTIVES trains on the card and on
+    the host (the plain twins) from the same rows (the first ``rows`` of
+    the HIGGS-shaped training data) with labels from objective_labels:
+    fused blocks, or per iteration for the objectives with leaf renewal
+    (L1, quantile, MAPE). The splits that agree (split_agreement) and the
+    train metric card vs host within OBJECTIVE_METRIC_TOL. Returns
+    {objective: summary}."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    X = data[0][:rows]
+    rng = np.random.RandomState(seed + 43)
+    out = {}
+    for obj in OBJECTIVES:
+        y = objective_labels(obj, X, rng)
+        res = {}
+        for name, d in (("card", dev.type), ("host", "cpu")):
+            params = dict(objective=obj, num_leaves=leaves, max_bin=255,
+                          verbosity=-1, device_type=d)
+            if obj == "multiclassova":
+                params["num_class"] = 3
+            ds = lgt.Dataset(X, label=y, params=params)
+            t0 = time.perf_counter()
+            bst = lgt.train(params, ds, trees)
+            sync(dev)
+            ev = bst.eval_train()
+            res[name] = (bst, time.perf_counter() - t0, ev[0][1], ev[0][2])
+        (ca, ta, mname, va), (ho, th, _, vh) = res["card"], res["host"]
+        renew = ca.inner.objective.need_renew
+        fused = getattr(ca.inner, "_fused", None) is not None
+        if fused == renew:
+            raise AssertionError("phase 3g %s: fused %s with renewal %s"
+                                 % (obj, fused, renew))
+        agree, total, first = split_agreement(ca, ho)
+        log("phase 3g %s (%s): %d rows x %d trees x %d leaves (%s); %d of "
+            "%d splits agree (first tree %d of %d); train %s card %.7f host "
+            "%.7f; card %.1f s, host %.1f s"
+            % (obj, card, rows, trees, leaves,
+               "per iteration" if renew else "fused", agree, total,
+               first[0], first[1], mname, va, vh, ta, th))
+        if not (np.isfinite(va) and abs(va - vh)
+                <= OBJECTIVE_METRIC_TOL * max(1.0, abs(vh))):
+            raise AssertionError("phase 3g %s: train %s card %.6f host %.6f"
+                                 % (obj, mname, va, vh))
+        out[obj] = dict(metric=mname, card=va, host=vh, splits_agree=agree,
+                        splits=total, card_s=ta, host_s=th,
+                        fused=not renew)
+    return out
 
 
 # --------------------------------------------------------------- file phase
@@ -4529,6 +5188,11 @@ def main(argv=None):
                     help="build, run the file phase (2b: native and numpy "
                     "construction at full size, CSV files through the CLI "
                     "on the card) and print only its summary")
+    ap.add_argument("--rank-only", action="store_true",
+                    help="build, run the ranking phase (3f: lambdarank at "
+                    "full width, the lambda kernel against its twin, "
+                    "rank_xendcg) and the objectives phase (3g) and print "
+                    "only their summaries and the lambda kernel's row")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -4547,7 +5211,7 @@ def main(argv=None):
     # importing the op modules registers their kernels
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
                                         histogram, kernels, partition,
-                                        route, scan)
+                                        rank, route, scan)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4580,6 +5244,21 @@ def main(argv=None):
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         summary, counts = phase_file(dev, data, args.leaves, card)
         print(json.dumps({"file": summary, "launches": counts}))
+        log(card)
+        return 0
+
+    if args.rank_only:
+        summary_rank, counts_rank, row, errs = phase_rank(dev, card,
+                                                          seed=args.seed)
+        objectives = phase_objectives(
+            dev, training_data(args.seed, OBJECTIVE_ROWS, 0), card,
+            seed=args.seed)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        row = {name: dict(launches=counts_rank[name], **bound_row(name, r))
+               for name, r in row.items()}
+        print(json.dumps({"rank": summary_rank, "objectives": objectives,
+                          "kernels": row}, default=str))
         log(card)
         return 0
 
@@ -4767,6 +5446,17 @@ def main(argv=None):
     errs.update(errs_m)
     rows.update(cat_row)
 
+    log("== phase 3f: ranking at full width: lambdarank through the "
+        "lambda kernel and the device tree loop, rank_xendcg (%s)" % card)
+    summary_rank, counts_rank, rank_row, errs_rank = phase_rank(
+        dev, card, seed=args.seed)
+    errs.update(errs_rank)
+    rows.update(rank_row)
+
+    log("== phase 3g: every other objective, card vs host (%s)"
+        % card)
+    summary_obj = phase_objectives(dev, data, card, seed=args.seed)
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -4843,7 +5533,8 @@ def main(argv=None):
                 "split_scan": counts_f["three_launch"]["split_scan"]
                 + counts_f["quantized"]["split_scan"]
                 + counts_m["split_scan"],
-                "route_rows_cat": counts_m["route_rows_cat"]}
+                "route_rows_cat": counts_m["route_rows_cat"],
+                "rank_lambdas": counts_rank["rank_lambdas"]}
     log("launches: planes training %s; one-kernel training %s; resident "
         "training %s; quantized training %s; rows run %s; serving %s"
         % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
@@ -4853,6 +5544,8 @@ def main(argv=None):
     log("train summary quantized %s" % json.dumps(summary_q))
     log("train summary fused %s" % json.dumps(summary_f, default=str))
     log("train summary mixed %s" % json.dumps(summary_m, default=str))
+    log("train summary rank %s" % json.dumps(summary_rank, default=str))
+    log("train summary objectives %s" % json.dumps(summary_obj))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

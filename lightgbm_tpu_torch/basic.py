@@ -2,8 +2,9 @@
 ``lightgbm_tpu/basic.py``).
 
 ``Dataset`` bins lazily at ``construct()`` (or loads a ``save_binned``
-npz); ``Booster(params, train_set)`` trains (``update``, ``add_valid``,
-``eval_train`` / ``eval_valid``, ``rollback_one_iter``), and
+npz) and takes ranking queries (``group=``, ``set_group`` /
+``get_group``); ``Booster(params, train_set)`` trains (``update``,
+``add_valid``, ``eval_train`` / ``eval_valid``, ``rollback_one_iter``), and
 ``Booster(model_file=|model_str=)`` loads a model; both predict. The
 booster's device comes from ``params["device_type"]``: ``cpu`` for the
 host, the CUDA card otherwise (the default).
@@ -66,6 +67,21 @@ class Dataset:
         """A validation set binned with this dataset's bin mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score, params=params)
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes (or contiguous per-row query ids) of a ranking
+        dataset; the dataset is constructed again at its next use."""
+        self.group = _to_1d(group)
+        self._constructed = None
+        return self
+
+    def get_group(self):
+        """The query sizes: from the constructed dataset's boundaries
+        when it has them, else as given."""
+        if self._constructed is not None and \
+                self._constructed.metadata.query_boundaries is not None:
+            return np.diff(self._constructed.metadata.query_boundaries)
+        return self.group
 
     def save_binary(self, filename: str) -> "Dataset":
         """Write the constructed binned dataset (``Dataset(path)`` loads

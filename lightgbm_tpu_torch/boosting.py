@@ -251,7 +251,7 @@ class GBDT:
         it = self.iter_
         K = self.num_tree_per_iteration
         if grad is None:
-            g, h = self.objective.get_gradients(self.train_score.score)
+            g, h = self.gradients(it)
         else:
             n = self.train_set.num_data
             g = torch.as_tensor(np.asarray(grad, np.float32)).to(self.device)
@@ -275,6 +275,15 @@ class GBDT:
             self.iter_ += 1
             self._bump_model_version()
         return not any_nonconstant
+
+    def gradients(self, it: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The objective's gradients at the training scores; an objective
+        that draws per-iteration randomness (``needs_iter``) gets the
+        iteration index."""
+        obj = self.objective
+        if obj.needs_iter:
+            return obj.get_gradients(self.train_score.score, it)
+        return obj.get_gradients(self.train_score.score)
 
     def _count_tree(self, tree: Tree, device_loop: bool = False) -> None:
         """Growth and launch counters of one finished tree; the
@@ -310,11 +319,27 @@ class GBDT:
     def _finalize_tree(self, log: TreeLog, class_id: int) -> Tree:
         """Host tree from the log, plus the device score updates: the
         training set through the learner's row_leaf, valid sets through
-        the router. Constant (1-leaf) trees contribute nothing."""
+        the router. Constant (1-leaf) trees contribute nothing. An
+        objective with leaf renewal (``need_renew``) refits the leaves on
+        the host from every row's leaf and the scores before the tree
+        (reference: serial_tree_learner.cpp:684 RenewTreeOutput): one read
+        of both per tree, on the per-iteration path only
+        (:meth:`supports_fused` excludes it)."""
         rate = self._shrinkage_rate(log)
-        leaf_vals_dev = log.leaf_value * np.float32(rate)
         tree = self.learner.log_to_tree(log)
-        tree.apply_shrinkage(rate)
+        if self.objective.need_renew:
+            if tree.num_leaves > 1:
+                renewed = self.objective.renew_leaf_values(
+                    log.row_leaf.cpu().numpy(), tree.num_leaves,
+                    self.train_score.np())
+                if renewed is not None:
+                    tree.leaf_value = renewed.astype(np.float64)
+            tree.apply_shrinkage(rate)
+            leaf_vals_dev = torch.as_tensor(
+                np.asarray(tree.leaf_value, np.float32)).to(self.device)
+        else:
+            leaf_vals_dev = log.leaf_value * np.float32(rate)
+            tree.apply_shrinkage(rate)
         if tree.num_leaves > 1:
             K = self.num_tree_per_iteration
             self.train_score.add(leaf_vals_dev, log.row_leaf, class_id, K)

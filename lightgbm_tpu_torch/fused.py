@@ -265,7 +265,7 @@ class FusedTrainer:
         telemetry.count("fused/iters_dispatched", k)
         logs = []
         for it in range(it0, it0 + k):
-            g, h = gbdt.objective.get_gradients(gbdt.train_score.score)
+            g, h = gbdt.gradients(it)
             gbdt._bagging(it, g, h)
             fmask = gbdt._feature_mask(it)
             for c in range(K):

@@ -1,16 +1,17 @@
 """Threefry-2x32 counter-based random bits, bit for bit with ``jax.random``
 (PyTorch port of the parts of ``jax/_src/prng.py`` and ``jax/_src/random.py``
-that the JAX package's samplers and its quantization dither use).
+that the JAX package's samplers, its quantization dither and the
+``rank_xendcg`` objective's Gumbel noise use).
 
 A key is a pair of unsigned 32-bit words, held here as a tuple of two
 Python ints: deriving keys (:func:`PRNGKey`, :func:`fold_in`) is a handful
 of integer operations on the host and never touches a device. Drawing bits
-(:func:`random_bits`, :func:`uniform`) runs as torch operations on the
-device asked for, so a draw on the card neither synchronises it nor copies
-anything from the host. A draw also takes its key as a (2,) int64 device
-tensor of the two words (:func:`key_words`): a CUDA graph that draws then
-reads the key from that buffer at every replay, where two Python ints
-would be frozen into the graph at capture.
+(:func:`random_bits`, :func:`uniform`, :func:`gumbel`) runs as torch
+operations on the device asked for, so a draw on the card neither
+synchronises it nor copies anything from the host. A draw also takes its
+key as a (2,) int64 device tensor of the two words (:func:`key_words`): a
+CUDA graph that draws then reads the key from that buffer at every
+replay, where two Python ints would be frozen into the graph at capture.
 
 The counter scheme is JAX's *partitionable* one (``jax_threefry_
 partitionable``, on by default in JAX 0.9): element ``i`` of the flat
@@ -101,11 +102,32 @@ def random_bits(key, shape: Sequence[int], *,
 
 
 def uniform(key, shape: Sequence[int], *,
-            device: Optional[torch.device] = None,
-            start: int = 0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits as a mantissa under exponent 0, minus one
-    (``jax._src.random._uniform``). ``start`` as in :func:`random_bits`."""
+            device: Optional[torch.device] = None, start: int = 0,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32:
+    the top 23 bits as a mantissa under exponent 0, minus one, scaled to
+    ``max(minval, u * (maxval - minval) + minval)`` in float32, op for op
+    (``jax._src.random._uniform``). XLA may contract the multiply-add into
+    an FMA (its CPU backend does), so under other bounds than (0, 1) and
+    (tiny, 1), where both roundings are exact, a value may lie an ulp
+    from JAX's. ``start`` as in :func:`random_bits`."""
     bits = random_bits(key, shape, device=device, start=start)
     one = (bits >> 9) | 0x3F800000
-    return one.to(torch.int32).view(torch.float32) - 1.0
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return floats   # (maxval - minval) = 1 and + 0: exact as it is
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(key, shape: Sequence[int], *,
+           device: Optional[torch.device] = None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, JAX 0.9's default
+    ``"low"`` mode: ``-log(-log(uniform(minval=tiny, maxval=1)))`` with
+    ``tiny`` the smallest normal float32 (``jax._src.random._gumbel``).
+    The bits and the uniforms are JAX's bit for bit; torch's ``log`` may
+    round an ulp away from XLA's, so the values agree to a few ulps."""
+    u = uniform(key, shape, device=device,
+                minval=float(torch.finfo(torch.float32).tiny), maxval=1.0)
+    return -torch.log(-torch.log(u))

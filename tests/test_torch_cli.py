@@ -196,16 +196,26 @@ def test_refused_settings_name_their_item(files, port_model, args, item):
 
 
 def test_ranking_loads_groups_and_refuses_to_train(tmp_path):
+    """(Named for the refusal it held until ranking trained.) A ranking
+    file and its ``.query`` sidecar train lambdarank through the command
+    line: the model byte-equal to ``train`` on the same arrays and
+    groups."""
     rng = np.random.RandomState(2)
     path = tmp_path / "rank.tsv"
-    np.savetxt(path, np.column_stack([rng.randint(0, 3, 60),
-                                      rng.randn(60, 3)]),
-               delimiter="\t", fmt="%.5f")
+    table = np.column_stack([rng.randint(0, 3, 60), rng.randn(60, 3)])
+    np.savetxt(path, table, delimiter="\t", fmt="%.5f")
     np.savetxt(str(path) + ".query", [20, 25, 15], fmt="%d")
-    with pytest.raises(LightGBMError, match="ROADMAP A10"):
-        cli.main(["task=train", "objective=lambdarank", "data=%s" % path,
-                  "device_type=cpu", "verbosity=-1",
-                  "output_model=%s" % (tmp_path / "m.txt")])
+    params = {"objective": "lambdarank", "num_leaves": 4,
+              "min_data_in_leaf": 5, "num_iterations": 3, "verbosity": -1}
+    model = tmp_path / "m.txt"
+    cli.main(_args(dict(params, task="train", data=str(path),
+                        output_model=str(model), **CPU)))
+    table = np.loadtxt(path, delimiter="\t")
+    ds = lgt.Dataset(table[:, 1:], label=table[:, 0], group=[20, 25, 15],
+                     params=dict(params, **CPU))
+    mem = lgt.train(dict(params, **CPU), ds)
+    assert mem.num_trees() == 3
+    assert open(model).read() == mem.model_to_string()
 
 
 def _env():

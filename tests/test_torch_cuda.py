@@ -18,8 +18,8 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
 from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
-                                    histogram, kernels, partition, route,
-                                    scan)
+                                    histogram, kernels, partition, rank,
+                                    route, scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -452,3 +452,66 @@ def test_graph_replay_equals_loop_on_card(card, fused_data):
         want = TreeLog(*(t.clone() for t in loop.grow()))
         for fld in got._fields:
             assert torch.equal(getattr(got, fld), getattr(want, fld)), fld
+
+
+def test_lambda_kernel_matches_twin_on_card(card):
+    """The lambda kernel against its twin (chip_smoke.phase_rank_kernels):
+    a 5,000- and a 1,100-document query (the global-memory path), one
+    document, an empty query, all labels 0, all-tied, seeded, grid and
+    partly NaN scores, weights, no norm and truncations above, below and
+    between the lengths; NaN in the twin's rows, each other row within
+    rank.LAMBDA_RTOL of its query's largest value."""
+    before = kernels.launch_counts()["rank_lambdas"]
+    errs = chip_smoke.phase_rank_kernels(card, np.random.RandomState(13))
+    assert len(errs) == 16 and np.isfinite(list(errs.values())).all()
+    assert kernels.launch_counts()["rank_lambdas"] - before == 16
+
+
+def test_cuda_tensor_never_takes_the_lambda_twin(card, monkeypatch):
+    """On a CUDA tensor the objective launches the kernel and never calls
+    the twin; a failed launch raises instead of falling back."""
+    obj = chip_smoke.rank_objective(card, (40, 7, 300),
+                                    np.random.RandomState(2))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the twin ran on a CUDA tensor")
+
+    monkeypatch.setattr(rank, "lambdarank_gradients_plain", refuse)
+    score = torch.randn(obj.num_data, device=card)
+    before = kernels.launch_counts()["rank_lambdas"]
+    g, h = obj.get_gradients(score)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rank_lambdas"] == before + 1
+    assert torch.isfinite(g).all() and bool((h > 0).all())
+
+    def broken(*_a, **_k):
+        raise RuntimeError("rank_lambdas: CUDA error 1 (invalid argument)")
+
+    monkeypatch.setattr(rank.RANK_KERNEL, "launch", broken)
+    with pytest.raises(RuntimeError, match="rank_lambdas"):
+        obj.get_gradients(score)
+
+
+def test_small_ranking_training_on_card(card):
+    """Phase 3f at a small size: lambdarank fused through the lambda
+    kernel and the device tree loop (a second run byte-equal, the
+    per-iteration trees byte-equal to the fused ones), the lambda checks,
+    rank_xendcg's draws card vs host and fused rank_xendcg trees."""
+    summary, counts, _, errs = chip_smoke.phase_rank(
+        card, "test", rows=40000, trees=4, per_iter=2, xendcg_trees=2,
+        timed=False, extra={"num_leaves": 31, "tpu_iter_block": 2})
+    assert counts["rank_lambdas"] == 4
+    assert summary["model_sha256"] == summary["second_model_sha256"]
+    assert errs["prng/gumbel_ulps"] <= 2.0
+    assert {"rank/one_kernel/full_width", "rank/one_kernel/deep",
+            "rank/commit/full_width_s1",
+            "rank/router/full_width_valid"} <= set(errs)
+
+
+def test_small_objectives_card_vs_host(card):
+    """Phase 3g at a small size: every other objective on the
+    card and on the host."""
+    data = chip_smoke.training_data(1, 20000, 0)
+    out = chip_smoke.phase_objectives(card, data, "test", rows=20000,
+                                      trees=2, leaves=15)
+    assert set(out) == set(chip_smoke.OBJECTIVES)

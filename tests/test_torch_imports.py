@@ -42,7 +42,7 @@ def test_every_port_module_is_listed():
                                                    "lightgbm_tpu_torch.")}
     for mod in ("ops.forest", "ops.route", "ops.predict", "ops.binning",
                 "ops.kernels", "ops.partition", "ops.histogram", "ops.split",
-                "ops.commit",
+                "ops.commit", "ops.rank", "ops.chain", "ops.scan",
                 "learner", "boosting", "basic", "convert", "engine",
                 "callback", "metric", "prng", "fused",
                 "serve.session", "serve.batcher", "serve.http",

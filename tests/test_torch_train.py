@@ -241,7 +241,8 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
     {"tpu_work_layout": "planes", "use_quantized_grad": True},
     {"feature_fraction_bynode": 0.5}, {"extra_trees": True},
     {"interaction_constraints": "[0,1]"}, {"cegb_penalty_split": 0.1},
-    {"forcedsplits_filename": "forced.json"}, {"objective": "huber"},
+    {"forcedsplits_filename": "forced.json"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "dart"}, {"linear_tree": True}, {"tree_learner": "data"},
     {"tree_builder": "dense"},
 ])
