@@ -9,12 +9,15 @@
     python3 chip_smoke.py --file-only     # phase 2b: host IO and the CLI
     python3 chip_smoke.py --rank-only     # phases 3f and 3g: ranking and
                                           # the other objectives
+    python3 chip_smoke.py --options-only  # phase 3h: the per-node split
+                                          # options, forced splits, GOSS
+                                          # compaction
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Fourteen phases, each fatal on failure:
+the checkout it sits in. Fifteen phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: eleven
-                sources, fifteen entry points), one nvcc per source,
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: twelve
+                sources, sixteen entry points), one nvcc per source,
                 started together; then the two host libraries
                 (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -203,6 +206,28 @@ the checkout it sits in. Fourteen phases, each fatal on failure:
                 OBJECTIVE_LEAVES leaves on the card and on the host: fused,
                 or per iteration with leaf renewal; splits that agree and
                 the train metric within OBJECTIVE_METRIC_TOL.
+3h. options  -- phase 3's data, 255 leaves, through the device tree loop
+                in fused blocks, OPTIONS_TREES trees of each of (a)
+                feature_fraction_bynode 0.5 + extra_trees, (b)
+                OPTIONS_SETS interaction constraints + OPTIONS_CEGB +
+                OPTIONS_FORCED forced splits (a JSON file the script
+                writes into a temp dir), (c) GOSS with tpu_goss_compact on
+                and off, (d) the forced splits alone at default knobs (the
+                one-kernel split); launch counts zeroed just before each
+                run and read just after; OPTIONS_PER_ITER_TREES trees per
+                iteration byte-equal to the first fused ones for (a), (b)
+                and (d); (d)'s trees carry the forced splits at their top
+                three levels; (c) on vs off: the models byte-equal, and one
+                tree on full-float32 gradients bit-equal on both loops
+                (check_goss_compact_bits); each model's sha256 and wall
+                per tree, and the steady wall of a second block. The node
+                inputs kernel against its twin at F = 28 and 137 (and 137
+                with NODE_MANY_SETS sets), the split scan with
+                every node input live against find_best_split at the root
+                and a deep leaf, the forced leaf's scan at each forced
+                slot, the extended commit at COMMIT_FORCED_CASES; (a) and
+                (b) card vs host at OPTIONS_HOST_ROWS rows (train logloss
+                within OPTIONS_METRIC_TOL) (alone: ``--options-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -4980,6 +5005,629 @@ def phase_objectives(dev, data, card, rows=OBJECTIVE_ROWS,
     return out
 
 
+# ------------------------------------------------------------ options phase
+
+#: phase 3h: fused trees of each configuration at full width (phase 3's
+#: data, 255 leaves, 255 bins), the first per-iteration trees compared with
+#: the first fused ones, and the card-vs-host runs (3g's size)
+OPTIONS_TREES = 10
+OPTIONS_PER_ITER_TREES = 3
+OPTIONS_HOST_ROWS = 200_000
+OPTIONS_HOST_TREES = 4
+OPTIONS_HOST_LEAVES = 63
+#: card vs host, train logloss (the agreement phase 3g shows)
+OPTIONS_METRIC_TOL = 2e-7
+#: GOSS compaction bit for bit against the dense path on the card, on
+#: gradients drawn in full float32 (check_goss_compact_bits): rows, and the
+#: in-bag share
+GOSS_BITS_ROWS = 65536
+GOSS_BITS_INBAG = 0.25
+#: the node inputs kernel with more constraint sets than one word of bits
+#: a feature holds (its compat scratch has no bound)
+NODE_MANY_SETS = 300
+#: the interaction constraint sets: the lepton, missing energy, jets 1-2
+#: and the masses; jets 3-4 and the masses (every column in one at least;
+#: the forced splits' features all lie in the first)
+OPTIONS_SETS = "[%s],[%s]" % (
+    ",".join(str(f) for f in list(range(13)) + list(range(21, 28))),
+    ",".join(str(f) for f in range(13, 28)))
+#: CEGB: a split costs 1e-5 a row of its leaf (20 at the 2M-row root, 0.1
+#: at a 10,000-row leaf), a feature 2.0 until the model first splits on it
+#: (gains at 2M rows run to the thousands: the trees keep their leaves)
+OPTIONS_CEGB = {"cegb_penalty_split": 1e-5,
+                "cegb_penalty_feature_coupled": [2.0] * HIGGS_FEATURES}
+#: three levels of forced splits (7), BFS: (feature, threshold) of the
+#: root, its left and right children, and their children left to right
+OPTIONS_FORCED = ((25, 1.0), (0, 0.9), (1, 0.0), (21, 1.0), (3, 0.9),
+                  (26, 1.0), (8, 0.5))
+
+
+def forced_json(path):
+    """Write OPTIONS_FORCED as a forced-splits JSON tree to ``path``."""
+    nodes = [{"feature": f, "threshold": t} for f, t in OPTIONS_FORCED]
+    for i, node in enumerate(nodes):
+        if 2 * i + 1 < len(nodes):
+            node["left"] = nodes[2 * i + 1]
+        if 2 * i + 2 < len(nodes):
+            node["right"] = nodes[2 * i + 2]
+    with open(path, "w") as f:
+        json.dump(nodes[0], f)
+    return path
+
+
+def options_configs(forced_file):
+    """The configurations of phase 3h: (a) by-node sampling and
+    extra-trees, (b) interaction constraints, CEGB and forced splits, (c)
+    GOSS with compaction on and off, (d) forced splits alone at default
+    knobs (the one-kernel split on the card). TRAIN_PARAMS pins the
+    three-launch split; (d) drops that pin."""
+    return {
+        "bynode_extra": {"feature_fraction_bynode": 0.5,
+                         "extra_trees": True},
+        "constraints_cegb_forced": dict(
+            OPTIONS_CEGB, interaction_constraints=OPTIONS_SETS,
+            forcedsplits_filename=forced_file),
+        "goss_compact_on": dict(GOSS_PARAMS, tpu_goss_compact="on"),
+        "goss_compact_off": dict(GOSS_PARAMS, tpu_goss_compact="off"),
+        "forced_one_kernel": {"forcedsplits_filename": forced_file,
+                              "tpu_split_kernel": "auto"},
+    }
+
+
+def check_node_draws(name, dev, rng, F, L=255, S=3):
+    """The node inputs kernel (``ops/node.node_inputs`` on CUDA tensors)
+    against its twin run by torch on the same card tensors
+    (``node_inputs_plain``: prng.uniform's threefry, the stable double
+    argsort, the constraint sets' masks, the CEGB formula): masks, bins and
+    penalties bit-equal for several (round, leaf) pairs, the leaf read from
+    a header word or given, and a dead live word writes nothing. Returns
+    0.0."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops import node as N
+    from lightgbm_tpu_torch.ops.split import SplitHyper
+    from lightgbm_tpu_torch.prng import PRNGKey
+
+    def t(a):
+        return torch.as_tensor(a).to(dev)
+
+    opts = N.NodeOptions(kth=max(1, F // 2), extra_trees=True, extra_seed=6,
+                         sets=t(rng.rand(S, F) < 0.6), cegb=True)
+    hp = SplitHyper(cegb_tradeoff=0.9, cegb_penalty_split=1e-5,
+                    use_cegb=True)
+    kw = dict(opts=opts, fmask=t(rng.rand(F) < 0.9),
+              num_bins=t(rng.randint(1, 256, F).astype(np.int32)),
+              coupled=t(rng.rand(F).astype(np.float32) * 3), hp=hp,
+              sums=t((rng.rand(2, 3) * 1e5).astype(np.float32)),
+              used=t(rng.rand(L, F) < 0.1), tree_used=t(rng.rand(F) < 0.5))
+    keys = N.node_keys(PRNGKey(int(rng.randint(2 ** 31))), 6,
+                       torch.zeros(4, dtype=torch.int64, device=dev))
+    for r, leaf, leaf1 in ((0, 0, 0), (0, 0, 1), (5, 3, 6), (253, 200, 254)):
+        for lf in (leaf, t(np.array([leaf], np.int32))):
+            a, b = N.node_buf(opts, F, dev), N.node_buf(opts, F, dev)
+            N.node_inputs(a, keys, r, lf, leaf1, 2, **kw)
+            N.node_inputs_plain(b, keys, r, lf, leaf1, 2, **kw)
+            sync(dev)
+            for x, y in zip(a.rows(2), b.rows(2)):
+                if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                    raise AssertionError("%s: node_inputs differs from its "
+                                         "twin at r %d, leaf %d" % (name, r,
+                                                                    leaf))
+    dead = N.node_buf(opts, F, dev)
+    for x in dead:
+        x.fill_(1)
+    N.node_inputs(dead, keys, 1, 0, 1, 2,
+                  live=torch.zeros(1, dtype=torch.int32, device=dev), **kw)
+    sync(dev)
+    if not all(bool((x == 1).all()) for x in dead):
+        raise AssertionError("%s: a dead live word wrote node inputs" % name)
+    return 0.0
+
+
+def check_split_scan_node(name, op, hists, pair, hdr, meta, hp):
+    """The split scan kernel with the children's own node inputs
+    (``op.node``: masks, threshold bins, CEGB penalties) against
+    ``find_best_split`` by torch on the card under the same inputs: every
+    field bit-equal. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    dev = hists.device
+    F, B = hists.shape[1], hists.shape[2]
+    out = P.split_out(F, B, dev)
+    op(hists, pair, hdr, out)
+    mask, thr, delta = op.node.rows(2)
+    ref = find_best_split(hists, pair[0:6].view(2, 3), meta, mask, hp,
+                          parent_output=pair[6:8], leaf_lower=pair[8:10],
+                          leaf_upper=pair[10:12], node_depth=hdr[5],
+                          rand_threshold=thr, cegb_delta=delta)
+    sync(dev)
+    got = out.infos()
+    for fld in SCAN_FIELDS:
+        x = getattr(got, fld)
+        y = getattr(ref, fld).to(x.dtype)
+        if not torch.equal(x.contiguous().view(torch.uint8),
+                           y.contiguous().view(torch.uint8)):
+            raise AssertionError("%s: split_scan %s %s vs find_best_split "
+                                 "%s" % (name, fld, x.tolist()[:8],
+                                         y.tolist()[:8]))
+    return 0.0
+
+
+def check_scan_leaf(name, loop, s):
+    """The one-leaf scan of forced slot ``s`` (the split scan kernel, one
+    node) against ``scan_leaf_info`` by torch on the card at the loop's
+    state before commit ``s``: child 0 of the outputs bit-equal. Returns
+    0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops.commit import forced_info
+    from lightgbm_tpu_torch.ops.scan import scan_leaf_info
+
+    st = loop.state
+    fl = loop.f_leaf[s]
+    loop.forced_out.fout.fill_(7.0)
+    loop.forced_leaf_scan(s)
+    if s > 0 and fl == loop.f_leaf[s - 1]:
+        hist = loop.out.hists[0]
+    elif s > 0 and fl == s:
+        hist = loop.out.hists[1]
+    else:
+        hist = st.hist_pool[fl]
+    if loop.bundle is not None:
+        hist = loop.feature_view(hist[None], st.leaf_sum[fl:fl + 1])[0]
+    ref = scan_leaf_info(hist, st.leaf_sum[fl], st.leaf_out[fl],
+                         st.leaf_lower[fl], st.leaf_upper[fl], st.depth[fl],
+                         loop.f_mask[s], loop.f_thr[s], loop.meta, loop.hp)
+    sync(st.hdr.device)
+    got = forced_info(loop.forced_out)
+    if int(st.force_live[0]) != 1:
+        raise AssertionError("%s: forcing stopped before slot %d" % (name,
+                                                                     s))
+    for fld in SCAN_FIELDS:
+        x = getattr(got, fld).reshape(-1)
+        y = getattr(ref, fld).reshape(-1).to(x.dtype)
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            raise AssertionError("%s: the forced leaf's scan %s %s vs %s"
+                                 % (name, fld, x.tolist()[:8],
+                                    y.tolist()[:8]))
+    return 0.0
+
+
+#: (name, the forced scan's gain: valid or -inf, every best gain -inf):
+#: a forced round, a forced round whose leaf cannot split there (the best
+#: split instead, forcing stops) and one where no leaf can split either
+#: (nothing is committed)
+COMMIT_FORCED_CASES = (("forced_valid", True, False),
+                       ("forced_invalid", False, False),
+                       ("forced_invalid_dead", False, True))
+
+
+def phase_commit_options(dev, rng, L=63, F=9, B=40, n_forced=7):
+    """The extended split commit against its twin on seeded states
+    (COMMIT_FORCED_CASES, slot 3 of 7 forced ones, each leaf's used
+    features kept, the model's used set): every table bit-equal. Returns
+    {name: 0.0}."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import partition as P
+
+    errs = {}
+    monotone = torch.as_tensor(rng.randint(-1, 2, F).astype("int8")).to(dev)
+    for name, valid, dead in COMMIT_FORCED_CASES:
+        st, out = commit_state(dev, rng, L, F, B)
+        s = 3
+        st.hdr[s - 1, 6] = 1
+        st.leaf_used.copy_(torch.as_tensor(rng.rand(L, F) < 0.2))
+        st.tree_used.copy_(torch.as_tensor(rng.rand(F) < 0.3))
+        st.force_live.fill_(1)
+        if dead:
+            st.best_gain.fill_(float("-inf"))
+            out.fout[0:2].fill_(float("-inf"))
+        fo = P.split_out(F, B, dev)
+        fo.fout.copy_(torch.as_tensor(rng.randn(18).astype(np.float32)))
+        fo.fout[0] = float(abs(rng.randn())) if valid else float("-inf")
+        fo.iout.copy_(torch.as_tensor(np.concatenate(
+            [rng.randint(F, size=2), rng.randint(B, size=2),
+             rng.randint(4, size=2)])))
+        fo.bout.copy_(torch.as_tensor(rng.rand(2 + 2 * B) < 0.5))
+        kw = dict(max_depth=-1, monotone=monotone, has_monotone=True,
+                  forced=fo, n_forced=n_forced, f_leaf=2, track_used=True)
+        a = C.TreeState(*(x.clone() for x in st))
+        b = C.TreeState(*(x.clone() for x in st))
+        C.split_commit(a, out, s, **kw)
+        C.split_commit_plain(b, out, s, **kw)
+        sync(dev)
+        for fld, x, y in zip(C.TreeState._fields, a, b):
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                raise AssertionError("commit/%s: %s differs from its twin"
+                                     % (name, fld))
+        live = int(a.hdr[s, 6])
+        want_live = 0 if dead else 1
+        if live != want_live or int(a.force_live[0]) != int(valid):
+            raise AssertionError("commit/%s: live %d, forcing %d"
+                                 % (name, live, int(a.force_live[0])))
+        errs["commit/" + name] = 0.0
+    return errs
+
+
+def check_goss_compact_bits(dev, data, rows=GOSS_BITS_ROWS, leaves=63):
+    """GOSS compaction on the card against the dense path on gradients
+    and hessians drawn in full float32 over magnitudes e^-4 to e^4 (the
+    sums round, so the order of the card's f32 additions shows in the
+    bits): the compacting device
+    loop's tree (the in-bag rows gathered and counted on the card), the
+    per-split host loop's compacted tree and the dense device loop's tree
+    (every row, in-bag ones first), log field by field. Returns 0.0."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+
+    X, y = data[0][:rows], data[1][:rows]
+    rng = np.random.RandomState(53)
+    w = np.exp(rng.uniform(-4, 4, rows))
+    g = rng.randn(rows) * w
+    h = (rng.rand(rows) * 0.25 + 1e-3) * w
+    inbag = (rng.rand(rows) < GOSS_BITS_INBAG).astype(np.float64)
+    ghc = torch.as_tensor(np.stack([g * inbag, h * inbag, inbag], axis=1)
+                          .astype(np.float32)).to(dev)
+    logs = {}
+    for gc in ("on", "off"):
+        params = train_params(dev, leaves, dict(GOSS_PARAMS,
+                                                tpu_goss_compact=gc))
+        lrn = lgt.Booster(params, lgt.Dataset(X, label=y, params=params)) \
+            .inner.learner
+        if (gc == "on") != lrn._kw["goss_compact"] \
+                or not lrn._kw["inbag_first"]:
+            raise AssertionError("goss_compact/bits: compaction %s did not "
+                                 "resolve" % gc)
+        logs[gc] = lrn.train_device(ghc)
+        logs[gc + "_host_loop"] = lrn.train(ghc)
+    sync(dev)
+    want = logs["off"]
+    for tag in ("on", "on_host_loop", "off_host_loop"):
+        for fld in want._fields:
+            a, b = getattr(logs[tag], fld), getattr(want, fld)
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError("goss_compact/bits: %s %s differs "
+                                     "from the dense tree" % (tag, fld))
+    if int(want.num_splits[0]) < 2:
+        raise AssertionError("goss_compact/bits: %d splits"
+                             % int(want.num_splits[0]))
+    log("goss_compact/bits: %d rows, %d in bag, the compact tree (%d "
+        "splits) bit-equal to the dense one" % (rows, int(inbag.sum()),
+                                                int(want.num_splits[0])))
+    return 0.0
+
+
+def options_learner(dev, data, extra, rows, leaves):
+    """A booster's learner on the first ``rows`` rows with TRAIN_PARAMS and
+    ``extra``, and its gradients' (N, 3) channels at the initial scores."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    X, y = data[0][:rows], data[1][:rows]
+    params = dict(train_params(dev, leaves, extra))
+    bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+    g = bst.inner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    return g.learner, torch.stack([grad, hess, torch.ones_like(grad)],
+                                  dim=1)
+
+
+def phase_options_kernels(dev, rng, data, forced_file, rows, leaves):
+    """Phase 3h's kernel checks: the node inputs kernel against its twin
+    at F = 28 and 137; the split scan with every node input live (by-node
+    masks, extra-trees bins, constraint sets, CEGB penalties) against
+    find_best_split at the root split and the last live split of a tree on
+    ``rows`` rows; the forced leaf's scan at each forced slot; the extended
+    commit at COMMIT_FORCED_CASES. Returns (errs, the learner with every
+    option, the forced learner, their channels)."""
+    errs = {}
+    for F, S in ((28, 3), (137, 3), (137, NODE_MANY_SETS)):
+        key = "node_inputs/F%d" % F + ("/S%d" % S if S != 3 else "")
+        errs[key] = check_node_draws(key, dev, rng, F, S=S)
+    errs.update(phase_commit_options(dev, rng))
+    errs["goss_compact/bits"] = check_goss_compact_bits(
+        dev, data, rows=min(rows, GOSS_BITS_ROWS), leaves=leaves)
+    every = dict(OPTIONS_CEGB, feature_fraction_bynode=0.5,
+                 extra_trees=True, interaction_constraints=OPTIONS_SETS)
+    lrn, ghc = options_learner(dev, data, every, rows, leaves)
+    L = lrn.num_leaves
+    loop = loop_state_at(lrn, ghc, L - 1)
+    live = loop.state.hdr[:, 6].cpu()
+    deep = max(s for s in range(L - 1) if int(live[s]) == 1)
+    for where, s in (("root", 0), ("deep", deep)):
+        loop, hdr, pair, hists, _ = chain_split_at(lrn, ghc, s)
+        key = "split_scan/options/%s" % where
+        errs[key] = check_split_scan_node(key, loop.split.scan,
+                                          hists.clone(), pair, hdr,
+                                          lrn.meta, lrn.hp)
+    flrn, fghc = options_learner(
+        dev, data, {"forcedsplits_filename": forced_file}, rows, leaves)
+    for s in range(len(OPTIONS_FORCED)):
+        loop = loop_state_at(flrn, fghc, s)
+        key = "split_scan/forced_leaf/s%d" % s
+        errs[key] = check_scan_leaf(key, loop, s)
+    return errs, (lrn, ghc), (flrn, fghc)
+
+
+def time_options_kernels(dev, every, forced, errs):
+    """The extended kernels' ms at phase 3h's learners (F = 28, B = 255):
+    node_inputs (both children, every option) against its twin by torch
+    on the card; the split scan with node inputs at the deep leaf against
+    find_best_split; the commit of a forced round against its twin.
+    Returns the kernels-line rows (node_inputs) and the extended rows'
+    timings (split_scan, split_commit)."""
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import node as N
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    lrn, ghc = every
+    L = lrn.num_leaves
+    loop = loop_state_at(lrn, ghc, L - 1)
+    live = loop.state.hdr[:, 6].cpu()
+    deep = max(s for s in range(L - 1) if int(live[s]) == 1)
+    loop, hdr, pair, hists, _ = chain_split_at(lrn, ghc, deep)
+    st, F, B = loop.state, loop.num_feat, loop.num_bin
+    nb = N.node_buf(loop.opts, F, dev)
+    kw = dict(opts=loop.opts, fmask=loop.fmask, num_bins=lrn.meta.num_bins,
+              coupled=lrn.meta.cegb_coupled, hp=lrn.hp,
+              sums=st.pair[deep, 0:6].view(2, 3), used=st.leaf_used,
+              tree_used=st.tree_used)
+    leaf = st.hdr[deep, 7:8]
+    n_ms = cuda_ms(lambda: N.node_inputs(nb, loop.keys, deep, leaf,
+                                         deep + 1, 2, **kw))
+    n_dev = device_ms(lambda: N.node_inputs(nb, loop.keys, deep, leaf,
+                                            deep + 1, 2, **kw))
+    n_plain = cuda_ms(lambda: N.node_inputs_plain(
+        nb, loop.keys, deep, leaf, deep + 1, 2, **kw), iters=5, warmup=1)
+    S = 0 if loop.opts.sets is None else int(loop.opts.sets.shape[0])
+    # reads: the keys, the mask, bins, penalties, used row and model set,
+    # the sets; writes (2, F) masks, bins and penalties. Operations: two
+    # draws of F uniforms a node (~130 integer operations each), the F^2
+    # rank compares and the S x F set tests
+    n_bytes = 32 + F * (1 + 4 + 4 + 1 + 1) + S * F + 2 * F * (1 + 4 + 4)
+    n_ops = 2 * (2 * F * 130 + F * F * 3 + 2 * S * F + 6 * F)
+    op = loop.split.scan
+    out = P.split_out(F, B, dev)
+    s_ms = cuda_ms(lambda: op(hists, pair, hdr, out))
+    s_dev = device_ms(lambda: op(hists, pair, hdr, out))
+    mask, thr, delta = op.node.rows(2)
+    s_plain = cuda_ms(lambda: find_best_split(
+        hists, pair[0:6].view(2, 3), lrn.meta, mask, lrn.hp,
+        parent_output=pair[6:8], leaf_lower=pair[8:10],
+        leaf_upper=pair[10:12], node_depth=hdr[5], rand_threshold=thr,
+        cegb_delta=delta), iters=5, warmup=1)
+    flrn, fghc = forced
+    floop = loop_state_at(flrn, fghc, 2)
+    floop.forced_leaf_scan(2)
+    fst = floop.state
+    a = C.TreeState(*(x.clone() for x in fst))
+    ckw = dict(max_depth=floop.commit.max_depth,
+               monotone=flrn.meta.monotone,
+               has_monotone=flrn.hp.has_monotone,
+               col_map=floop.commit.col_map, forced=floop.forced_out,
+               n_forced=floop.n_forced, track_used=False)
+    cop = C.SplitCommit(a, floop.out, **ckw)
+    c_ms = cuda_ms(lambda: cop(2, floop.f_leaf[2]))
+    c_dev = device_ms(lambda: cop(2, floop.f_leaf[2]))
+    b = C.TreeState(*(x.clone() for x in fst))
+    c_plain = cuda_ms(lambda: C.split_commit_plain(
+        b, floop.out, 2, f_leaf=floop.f_leaf[2], **ckw), iters=5, warmup=1)
+    log("phase 3h kernels at F = %d, B = %d: node_inputs %.4f ms (device "
+        "%.4f, twin %.3f) at slot %d; split_scan with node inputs %.4f ms "
+        "(device %.4f, find_best_split %.3f); forced commit %.4f ms (device "
+        "%.4f, twin %.3f)" % (F, B, n_ms, n_dev, n_plain, deep, s_ms, s_dev,
+                              s_plain, c_ms, c_dev, c_plain))
+    rows = {"node_inputs": dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/node_draws.cu",
+        replaces="lightgbm_tpu/learner.py:228 (_make_best_for node_inputs, "
+                 "XLA; no pallas_call)",
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("node_inputs/")),
+        ms=n_ms, device_ms=n_dev, plain_ms=n_plain, library_ms=None,
+        bytes=n_bytes, ops=n_ops)}
+    scan_bytes = 2 * F * B * 12 + 48 + 2 * (64 + B) + 2 * F * 9
+    extended = {
+        "split_scan": dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain,
+                           bound_ms=max(scan_bytes / PEAK_BYTES_PER_S,
+                                        2 * 4 * F * B * 11
+                                        / PEAK_SCALAR_OPS_PER_S) * 1e3),
+        "split_commit": dict(ms=c_ms, device_ms=c_dev, plain_ms=c_plain,
+                             bound_ms=(2 * 2 * F * B * 3 * 4 + L * 4
+                                       + 2 * B + 512) / PEAK_BYTES_PER_S
+                             * 1e3)}
+    return rows, extended
+
+
+def options_run(dev, data, name, extra, trees, per_iter, leaves):
+    """One configuration of phase 3h at full width: fused ``trees`` trees
+    (launch counts zeroed just before, read just after), then ``per_iter``
+    trees per iteration (a callback) whose model must be the first fused
+    trees' byte for byte (``per_iter`` 0: none), then ``trees`` more fused
+    trees on the fused booster, whose graphs are captured by then (the
+    steady wall a tree). Returns (fused booster, counts, summary)."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y = data[0], data[1]
+    params = train_params(dev, leaves, extra)
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(params), train, trees)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    g = bst.inner
+    if g._fused is None:
+        raise AssertionError("phase 3h %s: training did not take the fused "
+                             "path" % name)
+    text = bst.model_to_string()
+    Xv, yv = data[2], data[3]
+    s = dict(trees=trees, wall_per_tree_ms=wall / trees * 1e3,
+             model_sha256=hashlib.sha256(text.encode()).hexdigest(),
+             leaves=[t.num_leaves for t in g.models],
+             split_kernel=g.learner._kw["split_kernel"],
+             train_logloss=bst.eval_train()[1][2],
+             valid_logloss={k: logloss_np(yv, bst.predict(
+                 Xv, num_iteration=k)) for k in (min(3, trees), trees)})
+    if per_iter:
+        t0 = time.perf_counter()
+        eager = lgt.train(dict(params), train, per_iter,
+                          callbacks=[lambda env: None])
+        s["per_iteration_wall_per_tree_ms"] = \
+            (time.perf_counter() - t0) / per_iter * 1e3
+        if model_text(eager, per_iter) != model_text(bst, per_iter):
+            raise AssertionError("phase 3h %s: the per-iteration model is "
+                                 "not the first fused trees' byte for byte"
+                                 % name)
+        s["per_iteration_equal"] = True
+    sync(dev)
+    t0 = time.perf_counter()
+    g.train_block(trees)
+    g.finish_fused("steady")
+    sync(dev)
+    s["steady_wall_per_tree_ms"] = (time.perf_counter() - t0) / trees * 1e3
+    log("phase 3h %s: %d fused trees in %.1f ms a tree with the first "
+        "eager trees and the graph captures, %.1f ms a tree in a second "
+        "block (%s), leaves %s, train logloss %.7f, valid logloss %s, "
+        "sha256 %s; launches %s"
+        % (name, trees, s["wall_per_tree_ms"], s["steady_wall_per_tree_ms"],
+           s["split_kernel"], s["leaves"], s["train_logloss"],
+           s["valid_logloss"], s["model_sha256"], counts))
+    return bst, counts, s
+
+
+def logloss_np(y, p):
+    """Binary log loss of probabilities ``p`` for 0/1 labels ``y``."""
+    import numpy as np
+    p = np.clip(np.asarray(p, np.float64), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def options_card_vs_host(dev, data, name, extra, rows, trees, leaves):
+    """``extra`` on the first ``rows`` rows on the card and on the host
+    (the plain twins): the splits that agree (split_agreement) and the
+    train logloss within OPTIONS_METRIC_TOL."""
+    import lightgbm_tpu_torch as lgt
+    X, y = data[0][:rows], data[1][:rows]
+    res = {}
+    for where, d in (("card", dev.type), ("host", "cpu")):
+        params = dict(train_params(dev, leaves, extra), device_type=d)
+        bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
+                        trees)
+        res[where] = (bst, bst.eval_train()[1][2])
+    (ca, lc), (ho, lh) = res["card"], res["host"]
+    agree, total, first = split_agreement(ca, ho)
+    log("phase 3h card vs host %s: %d rows x %d trees x %d leaves; %d of "
+        "%d splits agree (first tree %d of %d); train logloss card %.9f "
+        "host %.9f (|diff| %.3g, limit %.1g)"
+        % (name, rows, trees, leaves, agree, total, first[0], first[1], lc,
+           lh, abs(lc - lh), OPTIONS_METRIC_TOL))
+    if not abs(lc - lh) <= OPTIONS_METRIC_TOL:
+        raise AssertionError("phase 3h %s: train logloss card %.9f host "
+                             "%.9f" % (name, lc, lh))
+    return dict(splits_agree=agree, splits=total, logloss_card=lc,
+                logloss_host=lh)
+
+
+def phase_options(dev, data, card, trees=OPTIONS_TREES,
+                  per_iter=OPTIONS_PER_ITER_TREES, leaves=255,
+                  host_rows=OPTIONS_HOST_ROWS, host_trees=OPTIONS_HOST_TREES,
+                  host_leaves=OPTIONS_HOST_LEAVES, timed=True, seed=0):
+    """Phase 3h: the per-node split options and GOSS compaction through the
+    device tree loop at full width (phase 3's data, ``leaves`` leaves, 255
+    bins), each configuration of options_configs fused (``trees`` trees;
+    launch counts zeroed just before and read just after) and, for (a),
+    (b) and (d), ``per_iter`` trees per iteration byte-equal to the first
+    fused ones. (d)'s trees carry the forced splits at their top three
+    levels, through the one-kernel split that ``auto`` picks; (c) on
+    against off. The kernel checks of phase_options_kernels (at
+    ``host_rows`` rows and ``host_leaves`` leaves), and (a) and (b) card
+    against host at ``host_rows`` rows x ``host_trees`` trees x
+    ``host_leaves`` leaves. Returns (summary, {config: launch counts},
+    errs, the kernels-line rows: node_inputs, and the extended split_scan
+    and split_commit timings under "extended")."""
+    import shutil
+    import tempfile
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="lgbt_forced_")
+    try:
+        forced_file = forced_json(os.path.join(tmp, "forced.json"))
+        rng = np.random.RandomState(seed + 47)
+        errs, every, forced = phase_options_kernels(
+            dev, rng, data, forced_file, host_rows, host_leaves)
+        rows, extended = ({}, {}) if not timed else time_options_kernels(
+            dev, every, forced, errs)
+        del every, forced
+        configs = options_configs(forced_file)
+        summary, counts_by = {}, {}
+        for name, extra in configs.items():
+            bst, counts, s = options_run(dev, data, name, extra, trees,
+                                         per_iter, leaves)
+            L1 = leaves - 1
+            want = {"split_commit": trees * leaves}
+            if name in ("bynode_extra", "constraints_cegb_forced"):
+                want.update(node_inputs=trees * leaves,
+                            split_scan=trees * L1)
+            if name == "constraints_cegb_forced":
+                want["split_scan"] += trees * len(OPTIONS_FORCED)
+            if name == "forced_one_kernel":
+                want.update(one_kernel_split=trees * L1,
+                            split_scan=trees * len(OPTIONS_FORCED),
+                            node_inputs=0)
+                if s["split_kernel"] != "on" and dev.type == "cuda":
+                    raise AssertionError("phase 3h: auto did not resolve "
+                                         "to the one-kernel split")
+                feats = [f for f, _ in OPTIONS_FORCED]
+                for i, t in enumerate(bst.inner.models):
+                    if list(t.split_feature[:len(feats)]) != feats:
+                        raise AssertionError(
+                            "phase 3h: tree %d's top splits %s, forced %s"
+                            % (i, list(t.split_feature[:len(feats)]),
+                               feats))
+            if name.startswith("goss"):
+                want["split_scan"] = trees * L1
+            if dev.type == "cuda" and any(counts.get(k, 0) != v
+                                          for k, v in want.items()):
+                raise AssertionError("phase 3h %s launches %s, want %s"
+                                     % (name, counts, want))
+            summary[name] = s
+            counts_by[name] = counts
+            del bst
+        on, off = summary["goss_compact_on"], summary["goss_compact_off"]
+        on["equal_to_off"] = on["model_sha256"] == off["model_sha256"]
+        log("phase 3h GOSS compaction on vs off (%s): byte-equal %s; valid "
+            "logloss %s vs %s; train logloss %.9f vs %.9f; %.1f vs %.1f ms "
+            "a tree in a second block"
+            % (card, on["equal_to_off"], on["valid_logloss"],
+               off["valid_logloss"], on["train_logloss"],
+               off["train_logloss"], on["steady_wall_per_tree_ms"],
+               off["steady_wall_per_tree_ms"]))
+        if not on["equal_to_off"]:
+            raise AssertionError(
+                "phase 3h: the compacted GOSS model (sha256 %s) differs "
+                "from the dense one (%s)" % (on["model_sha256"],
+                                             off["model_sha256"]))
+        for name in ("bynode_extra", "constraints_cegb_forced"):
+            summary[name]["card_vs_host"] = options_card_vs_host(
+                dev, data, name, configs[name], host_rows, host_trees,
+                host_leaves)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rows:
+        rows["node_inputs"]["launches_by_config"] = {
+            k: c.get("node_inputs", 0) for k, c in counts_by.items()}
+    return summary, counts_by, errs, dict(rows, extended=extended)
+
+
 # --------------------------------------------------------------- file phase
 
 #: the file phase: rows of its CSV files, cut from the 2M training rows to
@@ -5193,6 +5841,13 @@ def main(argv=None):
                     "full width, the lambda kernel against its twin, "
                     "rank_xendcg) and the objectives phase (3g) and print "
                     "only their summaries and the lambda kernel's row")
+    ap.add_argument("--options-only", action="store_true",
+                    help="build, run the options phase (3h: by-node "
+                    "sampling, extra-trees, constraints, CEGB, forced "
+                    "splits and GOSS compaction through the device tree "
+                    "loop, their kernels against their twins, card vs "
+                    "host) and print only its summary and node_inputs' "
+                    "row")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -5210,8 +5865,8 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     # importing the op modules registers their kernels
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
-                                        histogram, kernels, partition,
-                                        rank, route, scan)
+                                        histogram, kernels, node,
+                                        partition, rank, route, scan)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5259,6 +5914,22 @@ def main(argv=None):
                for name, r in row.items()}
         print(json.dumps({"rank": summary_rank, "objectives": objectives,
                           "kernels": row}, default=str))
+        log(card)
+        return 0
+
+    if args.options_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_opt, counts_opt, errs, opt_rows = phase_options(
+            dev, data, card, leaves=args.leaves, seed=args.seed)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        extended = opt_rows.pop("extended")
+        row = {name: dict(launches=sum(c.get(name, 0)
+                                       for c in counts_opt.values()),
+                          **bound_row(name, r))
+               for name, r in opt_rows.items()}
+        print(json.dumps({"options": summary_opt, "kernels": row,
+                          "extended": extended}, default=str))
         log(card)
         return 0
 
@@ -5457,6 +6128,23 @@ def main(argv=None):
         % card)
     summary_obj = phase_objectives(dev, data, card, seed=args.seed)
 
+    log("== phase 3h: by-node sampling, extra-trees, interaction "
+        "constraints, CEGB, forced splits and GOSS compaction through the "
+        "device tree loop (%s)" % card)
+    summary_opt, counts_opt, errs_opt, opt_rows = phase_options(
+        dev, data, card, leaves=args.leaves, seed=args.seed)
+    errs.update(errs_opt)
+    extended = opt_rows.pop("extended")
+    rows.update(opt_rows)
+    for name in ("split_scan", "split_commit"):
+        rows[name]["options"] = extended[name]
+    log("phase 3h wall a tree beside phase 3d's (%s): %s; 3d three-launch "
+        "%.1f, one-kernel planes %.1f ms"
+        % (card, ", ".join("%s %.1f" % (k, v["wall_per_tree_ms"])
+                           for k, v in summary_opt.items()),
+           summary_f["three_launch"]["wall_per_tree_ms"],
+           summary_f["planes"]["wall_per_tree_ms"]))
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -5529,10 +6217,14 @@ def main(argv=None):
                     counts_rs["segment_histogram_resident"],
                 "write_route_plane":
                     summary_rs["three_launch"]["write_route_plane"],
-                "split_commit": counts_f["planes"]["split_commit"],
+                "split_commit": counts_f["planes"]["split_commit"]
+                + sum(c.get("split_commit", 0) for c in counts_opt.values()),
                 "split_scan": counts_f["three_launch"]["split_scan"]
                 + counts_f["quantized"]["split_scan"]
-                + counts_m["split_scan"],
+                + counts_m["split_scan"]
+                + sum(c.get("split_scan", 0) for c in counts_opt.values()),
+                "node_inputs": sum(c.get("node_inputs", 0)
+                                   for c in counts_opt.values()),
                 "route_rows_cat": counts_m["route_rows_cat"],
                 "rank_lambdas": counts_rank["rank_lambdas"]}
     log("launches: planes training %s; one-kernel training %s; resident "
@@ -5546,6 +6238,7 @@ def main(argv=None):
     log("train summary mixed %s" % json.dumps(summary_m, default=str))
     log("train summary rank %s" % json.dumps(summary_rank, default=str))
     log("train summary objectives %s" % json.dumps(summary_obj))
+    log("train summary options %s" % json.dumps(summary_opt, default=str))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

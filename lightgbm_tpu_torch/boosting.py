@@ -36,7 +36,8 @@ from .dataset import BinnedDataset
 from .device import resolve_device
 from .fused import make_balanced_sampler, make_feature_mask_fn, make_sampler
 from .learner import (SerialTreeLearner, TreeLog, assign_leaves,
-                      launches_per_split, leaf_values_by_row, route_layout)
+                      launches_per_split, leaf_values_by_row,
+                      note_used_features, route_layout)
 from .metric import Metric, create_metrics
 from .objective import ObjectiveFunction, create_objective
 from .obs import telemetry
@@ -138,6 +139,10 @@ class GBDT:
         self._amp: Optional[torch.Tensor] = None
         self._fmask = torch.ones(train_set.num_features, dtype=torch.bool,
                                  device=self.device)
+        #: the features the model's trees split on, on the device (CEGB's
+        #: coupled penalties apply until a feature's first use)
+        self._cegb_used = torch.zeros(train_set.num_features,
+                                      dtype=torch.bool, device=self.device)
         self._key = PRNGKey(cfg.seed if cfg.seed is not None else 0)
         self._sampler = self._make_sampler()
         self._fmask_fn = make_feature_mask_fn(cfg, train_set.num_features,
@@ -264,7 +269,9 @@ class GBDT:
         for k in range(K):
             key = fold_in(self._key, it * 131 + k)
             log = self.learner.train(self._tree_channels(g, h, k), fmask,
-                                     key)
+                                     key, self._cegb_used)
+            if self.learner.hp.use_cegb:
+                note_used_features(self._cegb_used, log)
             tree = self._finalize_tree(log, k)
             with self._cache_lock:
                 self.models.append(tree)
@@ -309,9 +316,13 @@ class GBDT:
         telemetry.count("learner/scan_launches", 0 if one else splits)
         if kw["work_layout"] == "resident" and not one:
             telemetry.count("learner/route_gather_launches", splits)
+        if kw["goss_compact"]:
+            # grown over the in-bag rows alone (GOSS compaction)
+            telemetry.count("learner/goss_compact_trees")
         telemetry.gauge("learner/launches_per_split",
                         launches_per_split(kw["work_layout"], one,
-                                           device_loop))
+                                           device_loop,
+                                           self.learner.opts.active))
 
     def _shrinkage_rate(self, log: TreeLog) -> float:
         return float(self.config.learning_rate)

@@ -153,9 +153,15 @@ struct OneKernelArgs {
   float* right_output;
   const uint8_t* res;          // resident mode: (F, npad_res) bin planes
   uint64_t* stamps;            // null, or (grid, kStamps) %globaltimer ns
+  // the per-node inputs of split_scan.cuh, which this kernel never takes
+  // (the learner sends by-node sampling, extra-trees and CEGB to the
+  // three-launch chain): null, and mask_stride 0 (one mask both children
+  // share)
+  const int32_t* rand_thr;
+  const float* cegb;
   int32_t W, npad, table_bins, F, B, nch, groups,
       max_cat_to_onehot, has_categorical, has_monotone, use_mono_penalty,
-      npad_res;
+      npad_res, mask_stride;
   float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
       min_sum_hessian, min_gain_to_split, max_delta_step, cat_smooth, cat_l2,
       min_data_per_group, path_smooth, monotone_penalty, max_cat_threshold;

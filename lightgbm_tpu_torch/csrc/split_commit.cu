@@ -15,12 +15,23 @@
 //       with gain -inf where max_depth > 0 and depth >= max_depth;
 //   (b) when s < L - 1, pick split s: leaf = the first maximum of the best
 //       gains in torch.argmax's order (NaN above everything), live =
-//       (split s - 1 ran, or s = 0) and gain > 0;
+//       (split s - 1 ran, or s = 0) and gain > 0. While the tree's forced splits hold (its forcing word,
+//       s < n_forced), the pick is forced split s, the forced-split scan of
+//       its leaf f_leaf (csrc/split_scan.cu, one node), when that scan
+//       found a valid split (gain > -inf), and the round is live even
+//       without a positive best gain; when it found none, the forcing word
+//       clears and the round picks the best split as above, live when its
+//       gain is > -inf (pick_forced and the `valid` commit of the JAX
+//       package's build_tree_partitioned, lightgbm_tpu/learner.py). A round that is not live writes
+//       nothing but its header's live word, and no later round is live;
 //   (c) when live, record log entry s (leaf, feature, bin, kind,
 //       default_left, gain, the children's sums and the go-left row), the
 //       children's leaf sums, outputs and depth, the basic monotone bounds
 //       (both children bounded by the midpoint of their outputs,
-//       monotone_constraints.hpp:327), and num_splits += 1;
+//       monotone_constraints.hpp:327), the features used on the children's
+//       path (the parent's and the split's, when track_used: interaction
+//       constraints), the split feature in the tree's used set (CEGB), and
+//       num_splits += 1;
 //   (d) write header row s and pair row s of the split (ops/partition.
 //       ONE_KERNEL_HDR, PAIR_WORDS): [src, start, cnt, col, left_smaller,
 //       depth, live, leaf] and the children's sums, outputs and bounds; col
@@ -88,7 +99,14 @@ struct CommitArgs {
   float* pair;                // (L, 12)
   const int8_t* monotone;     // (F,)
   const int32_t* col_map;     // (F,) the feature's column, or null: itself
-  int32_t s, L, F, B, HF, HB, max_depth, has_monotone;
+  uint8_t* leaf_used;         // (L, F) bool features used on each path
+  uint8_t* tree_used;         // (F,) bool features the model has used
+  int32_t* force_live;        // (1,) the tree's forced splits still hold
+  const float* ffout;         // the forced-split scan's outputs (SplitOut,
+  const int64_t* fiout;       // child 0), or null without forced splits
+  const uint8_t* fbout;
+  int32_t s, L, F, B, HF, HB, max_depth, has_monotone, n_forced, f_leaf,
+      track_used;
 };
 
 namespace {
@@ -210,29 +228,52 @@ split_commit_kernel(const CommitArgs a) {
   __syncthreads();               // the table is whole before the pick
 
   // ---- (b) pick split s ----
-  const int leaf = block_argmax(a.best_gain, a.L, s_g, s_i);
-  const bool live = (s == 0 || prev_live) && a.best_gain[leaf] > 0.f;
+  const int best = block_argmax(a.best_gain, a.L, s_g, s_i);
+  const bool cont = s == 0 || prev_live;
+  const bool forcing = cont && s < a.n_forced && a.force_live[0] != 0;
+  const bool fok = forcing && a.ffout[0] > -INFINITY;   // NaN: not valid
+  const float g_best = a.best_gain[best];
+  // the picked split: the forced scan's child 0, or the best table's row
+  const int leaf = fok ? a.f_leaf : best;
+  const float gain = fok ? a.ffout[0] : g_best;
+  const bool live = cont && (g_best > 0.f || forcing) && gain > -INFINITY;
   const int nw = s + 1;
   int32_t* hdr = a.hdr + (size_t)s * kHdr;
+  __syncthreads();               // every thread has read the forcing word
+  if (a.n_forced > 0 && t == 0 && !(live && !(forcing && !fok))) {
+    a.force_live[0] = 0;
+  }
   if (!live) {
     if (t == 0) hdr[6] = 0;
     return;
   }
+  const int64_t feat = fok ? a.fiout[0] : a.best_feature[leaf];
   // ---- (c) record, (d) header ----
+  const uint8_t* go = fok ? a.fbout + 2 : a.best_go + (size_t)leaf * B;
   for (int b = t; b < B; b += blockDim.x) {
-    a.log_go[(size_t)s * B + b] = a.best_go[(size_t)leaf * B + b];
+    a.log_go[(size_t)s * B + b] = go[b];
+  }
+  if (a.track_used) {
+    uint8_t* up = a.leaf_used + (size_t)leaf * a.F;
+    uint8_t* un = a.leaf_used + (size_t)nw * a.F;
+    for (int f = t; f < a.F; f += blockDim.x) {
+      const uint8_t u = (up[f] != 0 || f == feat) ? 1 : 0;
+      up[f] = u;
+      un[f] = u;
+    }
   }
   if (t != 0) return;
-  const int64_t feat = a.best_feature[leaf];
-  const float* ls = a.best_ls + leaf * 3;
-  const float* rs = a.best_rs + leaf * 3;
-  const float lo = a.best_lo[leaf], ro = a.best_ro[leaf];
+  const float* ls = fok ? a.ffout + 2 : a.best_ls + leaf * 3;
+  const float* rs = fok ? a.ffout + 8 : a.best_rs + leaf * 3;
+  const float lo = fok ? a.ffout[14] : a.best_lo[leaf];
+  const float ro = fok ? a.ffout[16] : a.best_ro[leaf];
   a.log_leaf[s] = leaf;
   a.log_feat[s] = (int32_t)feat;
-  a.log_bin[s] = (int32_t)a.best_bin[leaf];
-  a.log_kind[s] = (int32_t)a.best_kind[leaf];
-  a.log_dl[s] = a.best_dl[leaf];
-  a.log_gain[s] = a.best_gain[leaf];
+  a.log_bin[s] = (int32_t)(fok ? a.fiout[2] : a.best_bin[leaf]);
+  a.log_kind[s] = (int32_t)(fok ? a.fiout[4] : a.best_kind[leaf]);
+  a.log_dl[s] = fok ? a.fbout[0] : a.best_dl[leaf];
+  a.log_gain[s] = gain;
+  a.tree_used[feat] = 1;
   float* pr = a.pair + (size_t)s * kPair;
   for (int k = 0; k < 3; ++k) {
     const float l = ls[k], r = rs[k];

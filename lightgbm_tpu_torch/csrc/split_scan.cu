@@ -1,6 +1,7 @@
 // The split scan of both children of a split in one launch, for Hopper
 // (sm_90a): the third launch of the three-launch chain (partition, the
-// smaller child's histogram, the scan) in the device tree loop.
+// smaller child's histogram, the scan) in the device tree loop, and the
+// forced-split scan of one leaf before a forced split's commit.
 //
 // Replaces lightgbm_tpu/ops/split.py find_best_split, which the JAX
 // builder runs as XLA inside its lax.while_loop (no Pallas kernel), and in
@@ -14,9 +15,13 @@
 // kind, default_left, go_left (B,), left_sum, right_sum, left_output,
 // right_output) in the SplitOut buffers of ops/partition.py, which the
 // split commit (csrc/split_commit.cu) reads as it reads the one-kernel
-// split's. The depth and a live word come from the split's device header
-// (ops/partition.ONE_KERNEL_HDR, words 5 and 6); with live 0 every block
-// returns at once and nothing is written.
+// split's. The depth and a live word come from device words (the split's
+// header, ops/partition.ONE_KERNEL_HDR words 5 and 6, or a forced leaf's
+// depth and the tree's forcing word); with live 0 every block returns at
+// once and nothing is written. Each child may have its own search mask,
+// extra-trees threshold bins and CEGB penalties (ops/node.py: by-node
+// sampling, interaction constraints), (2, F) each; `nodes` = 1 scans the
+// first child only (a forced split's leaf).
 //
 // The scan is the one-kernel split's phase C (split_scan.cuh, one body for
 // both kernels) in torch's summation order on the card (kTorchOrder), so
@@ -28,7 +33,7 @@
 // round each operation.
 //
 // Design: one block of 256 threads (one a bin) per (child, feature) item,
-// 2F blocks: the item loads its histogram row, builds its prefix sums in
+// nodes x F blocks: the item loads its histogram row, builds its prefix sums in
 // shared memory and keeps each kind's first maximum; then it takes a ticket
 // (an atomic counter after a __threadfence). The block that takes the last
 // one picks each child's first maximum over (kind, feature, bin) and builds
@@ -51,15 +56,18 @@
 
 // Field order and types must match ops/scan.py SplitScanArgs.
 struct SplitScanArgs {
-  const float* hists;          // (2, F, B, 3) children's histograms
-  const int32_t* hdr;          // (8,) split header: depth hdr[5], live hdr[6]
+  const float* hists;          // (nodes, F, B, 3) children's histograms
+  const int32_t* live;         // the live word (the header's hdr[6])
+  const int32_t* depth;        // the children's depth (the header's hdr[5])
   const int32_t* num_bins;     // FeatureMeta columns, (F,) each
   const uint8_t* movable;
   const int32_t* missing_bin;
   const uint8_t* is_cat;
   const int8_t* monotone;
   const float* penalty;
-  const uint8_t* fmask;        // (F,) bool
+  const uint8_t* fmask;        // child c's (F,) bool mask at c * mask_stride
+  const int32_t* rand_thr;     // null, or (2, F) extra-trees threshold bins
+  const float* cegb;           // null, or (2, F) CEGB gain penalties
   const float* sums2;          // (2, 3)
   const float* outs2;          // (2,)
   const float* lows2;
@@ -82,7 +90,7 @@ struct SplitScanArgs {
   float* left_output;          // (2,)
   float* right_output;
   int32_t F, B, max_cat_to_onehot, has_categorical, has_monotone,
-      use_mono_penalty;
+      use_mono_penalty, mask_stride, nodes;
   float lambda_l1, lambda_l2, two_l1, l2_cat, min_data_in_leaf,
       min_sum_hessian, min_gain_to_split, max_delta_step, cat_smooth, cat_l2,
       min_data_per_group, path_smooth, monotone_penalty, max_cat_threshold;
@@ -97,11 +105,11 @@ split_scan_kernel(const SplitScanArgs a) {
   extern __shared__ float smem[];
   __shared__ int s_last;
   // every block reads the same word: a dead split writes nothing
-  if (a.hdr[6] == 0) return;
-  const int depth = a.hdr[5];
-  const int F = a.F, B = a.B, b = threadIdx.x;
+  if (a.live[0] == 0) return;
+  const int depth = a.depth[0];
+  const int F = a.F, B = a.B, b = threadIdx.x, items = a.nodes * F;
   bool last = false;
-  for (int it = blockIdx.x; it < 2 * F; it += gridDim.x) {
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int c = it / F, f = it % F;
     const float* row = a.hists + ((size_t)c * F + f) * B * 3;
     float hv[3] = {0.f, 0.f, 0.f};
@@ -111,14 +119,13 @@ split_scan_kernel(const SplitScanArgs a) {
     scan_feature<true>(a, c, f, depth, smem, hv);
     __threadfence();     // this item's outputs are visible grid-wide
     __syncthreads();
-    if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == 2 * F - 1;
+    if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == items - 1;
     __syncthreads();
     last = last || s_last;
   }
   if (last) {
     __threadfence();
-    finish_child<true>(a, 0, smem);
-    finish_child<true>(a, 1, smem);
+    for (int c = 0; c < a.nodes; ++c) finish_child<true>(a, c, smem);
     if (threadIdx.x == 0) *a.done = 0;   // ready for the next launch
   }
 }
@@ -131,17 +138,20 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One split scan on `stream`: 2F blocks of 256 threads, one (child,
-// feature) item each. Returns a cudaError_t code (0 on success).
+// One split scan on `stream`: nodes x F blocks of 256 threads, one
+// (child, feature) item each. Returns a cudaError_t code (0 on success).
 int split_scan(const SplitScanArgs* args, void* stream) {
   const SplitScanArgs a = *args;
-  if (a.F < 1 || a.B < 1 || a.B > kMaxBins || a.hdr == nullptr ||
+  if (a.F < 1 || a.B < 1 || a.B > kMaxBins || a.live == nullptr ||
+      a.depth == nullptr || a.nodes < 1 || a.nodes > 2 ||
+      (a.mask_stride != 0 && a.mask_stride != a.F) ||
       a.hist_left != a.hists ||
-      a.hist_right != a.hists + (size_t)a.F * a.B * 3) {
+      (a.nodes == 2 &&
+       a.hist_right != a.hists + (size_t)a.F * a.B * 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = kScanSmemFloats * sizeof(float);
-  split_scan_kernel<<<2 * a.F, kScanThreads, smem,
+  split_scan_kernel<<<a.nodes * a.F, kScanThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,13 @@
 //
 // The functions are templates on the kernel's argument struct A, which
 // holds the scan's fields under these names: the FeatureMeta columns
-// (num_bins, movable, missing_bin, is_cat, monotone, penalty), fmask, the
+// (num_bins, movable, missing_bin, is_cat, monotone, penalty), the search
+// masks fmask (child c's row at c * mask_stride: 0 for one mask the
+// children share, F for a mask a child), rand_thr (null, or (2, F):
+// extra-trees, the one numerical threshold bin each feature may take) and
+// cegb (null, or (2, F): the CEGB penalty subtracted from each feature's
+// gains after the feature and depth penalties, the order of
+// ops/split.find_best_split), the
 // children's sums2 / outs2 / lows2 / ups2, the scratch cand_gain /
 // cand_bin / num_dl / rank, the child histograms hist_left / hist_right,
 // the SplitOut fields (gain, feature, bin, kind, default_left, go_left,
@@ -288,7 +294,9 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
   float num = neg;
   bool dl = false;
   if (b < B) {
-    const bool t_valid = b < nb - 1 && !is_cat;
+    const bool t_valid = b < nb - 1 && !is_cat &&
+                         (a.rand_thr == nullptr ||
+                          b == a.rand_thr[(size_t)c * F + f]);
     float gdir[2];
     for (int d = 0; d < 2; ++d) {
       const float gl = d ? s.cum[b] + miss[0] : s.cum[b];
@@ -378,15 +386,17 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
   }
 
   // ---- live test, feature penalty, monotone depth penalty; per kind max
-  const bool fm = a.fmask[f] != 0;
+  const bool fm = a.fmask[(size_t)c * a.mask_stride + f] != 0;
   const float pen_f = a.penalty[f];
   const bool mono_pen = a.use_mono_penalty && mono != 0;
   const float dpen = mono_pen ? depth_penalty(a, depth) : 1.f;
+  const float cegb = a.cegb != nullptr ? a.cegb[(size_t)c * F + f] : 0.f;
   const float stacked[4] = {num, oh, mvm[0], mvm[1]};
   for (int kind = 0; kind < 4; ++kind) {
     const float v = stacked[kind];
     float adj = v * pen_f;
     if (mono_pen) adj = adj * dpen;
+    if (a.cegb != nullptr) adj = adj - cegb;
     float g = (b < B && v > neg && fm) ? adj : neg;
     int i = b < B ? b : kMaxBins + b;
     block_argmax(&g, &i, s.red_g, s.red_i);

@@ -29,6 +29,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .learner import note_used_features
 from .obs import telemetry
 from .prng import Key, PRNGKey, fold_in, uniform
 from .utils.log import LightGBMError, Log
@@ -162,13 +163,14 @@ def _small(log, has_categorical: bool) -> BlockLogs:
 
 class _Pending(NamedTuple):
     """A dispatched block: its logs' bytes on the host (valid once
-    ``event`` completed), their layout, its length and the scores before
-    it (for the rollback)."""
+    ``event`` completed), their layout, its length and the scores and,
+    with CEGB, the model's used features before it (for the rollback)."""
     host: torch.Tensor
     event: Optional[object]
     layout: List[Tuple[str, np.dtype, tuple, int]]
     k: int
     pre_score: torch.Tensor
+    pre_used: Optional[torch.Tensor]
 
 
 def _pack(logs: List[BlockLogs]) -> Tuple[torch.Tensor, list]:
@@ -235,9 +237,17 @@ class FusedTrainer:
             and self.learner.device.type == "cuda"
 
     def _tree(self, ghc: torch.Tensor, fmask: torch.Tensor, key):
+        """One tree, and with CEGB its features into the model's used set
+        (carried on the device across the block's trees, as the JAX
+        package's fused blocks carry ``cegb_used``)."""
+        used = self.gbdt._cegb_used
         if self.device_loop:
-            return self.learner.train_device(ghc, fmask, key)
-        return self.learner.train(ghc, fmask, key)
+            log = self.learner.train_device(ghc, fmask, key, used)
+        else:
+            log = self.learner.train(ghc, fmask, key, used)
+        if self.learner.hp.use_cegb:
+            note_used_features(used, log)
+        return log
 
     def run(self, k: int) -> bool:
         """Run k fused iterations. Returns True when training should stop.
@@ -261,6 +271,8 @@ class FusedTrainer:
         # plus the not-yet-finalized block's length
         it0 = gbdt.iter_ + (prev.k if prev is not None else 0)
         pre_score = gbdt.train_score.score.clone()
+        pre_used = gbdt._cegb_used.clone() if self.learner.hp.use_cegb \
+            else None
         telemetry.count("fused/blocks_dispatched")
         telemetry.count("fused/iters_dispatched", k)
         logs = []
@@ -286,7 +298,8 @@ class FusedTrainer:
             event.record()
         else:
             host = buf
-        self._pending = _Pending(host, event, layout, k, pre_score)
+        self._pending = _Pending(host, event, layout, k, pre_score,
+                                 pre_used)
         if self.config.obs_check_finite != "off":
             # opt-in watchdog: waits for THIS block, trading the pipeline
             # overlap for catching a NaN blow-up at the block it happened
@@ -296,12 +309,16 @@ class FusedTrainer:
         if stopped:
             # the previous block ended all-constant: drop the one in
             # flight
-            self._rollback(pre_score)
+            self._rollback(pre_score, pre_used)
         return stopped
 
-    def _rollback(self, pre_score: torch.Tensor) -> None:
-        """Drop the in-flight block and restore the scores before it."""
+    def _rollback(self, pre_score: torch.Tensor,
+                  pre_used: Optional[torch.Tensor]) -> None:
+        """Drop the in-flight block and restore the scores and the used
+        features before it."""
         self.gbdt.train_score.score = pre_score
+        if pre_used is not None:
+            self.gbdt._cegb_used.copy_(pre_used)
         self._pending = None
 
     def flush(self, reason: str = "unspecified") -> bool:
@@ -341,7 +358,7 @@ class FusedTrainer:
                         all_constant = False
                 last_iter_constant = all_constant
         except BaseException:
-            self._rollback(pending.pre_score)
+            self._rollback(pending.pre_score, pending.pre_used)
             raise
         # atomic commit: models, iter_ and the version move together, under
         # the model lock so serving never packs mid-commit

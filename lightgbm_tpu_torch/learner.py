@@ -195,34 +195,55 @@ def _set_best(best, idx, info) -> None:
         b[idx] = v
 
 
-def _make_best_for(meta, hp, feature_mask):
-    """Per-node split evaluation. By-node sampling, extra-trees and
-    interaction constraints need the port's RNG and constraint sets
-    (ROADMAP A3, A10); the learner refuses them, so this is the plain
-    (F, B) scan."""
+def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
+                   node=None):
+    """Per-node split evaluation (the JAX package's ``_make_best_for``):
+    the node inputs of ``opts`` (an ``ops/node.NodeOptions``: by-node
+    column sampling, extra-trees thresholds, interaction constraints, CEGB
+    penalties; ``ops/node.node_inputs`` writes them into the
+    ``ops/node.NodeBuf`` ``node``, from the tree's (4,) ``keys``), then
+    the (F, B) scan of a batch of nodes. A node of round ``r`` draws with
+    that ``r`` and its leaf: the root at ``r = 0``, leaf 0; both children
+    of round ``r`` at ``r``, the split leaf and the new one."""
+    from .ops.node import node_inputs
     from .ops.split import find_best_split
 
-    def best_for(hist, parent_sum, parent_out, lower, upper, depth):
-        return find_best_split(hist, parent_sum, meta, feature_mask, hp,
+    active = opts is not None and opts.active
+
+    def best_for(hist, parent_sum, parent_out, lower, upper, depth, *,
+                 r=0, leaf=0, leaf1=0, used=None, tree_used=None):
+        mask, thr, delta = feature_mask, None, None
+        if active:
+            p = hist.shape[0]
+            node_inputs(node, keys, r, leaf, leaf1, p, opts=opts,
+                        fmask=feature_mask, num_bins=meta.num_bins,
+                        coupled=meta.cegb_coupled, hp=hp,
+                        sums=parent_sum.contiguous(), used=used,
+                        tree_used=tree_used)
+            mask, thr, delta = node.rows(p)
+        return find_best_split(hist, parent_sum, meta, mask, hp,
                                parent_output=parent_out, leaf_lower=lower,
-                               leaf_upper=upper, node_depth=depth)
+                               leaf_upper=upper, node_depth=depth,
+                               rand_threshold=thr, cegb_delta=delta)
 
     return best_for
 
 
 def split_kernel_ineligible(*, work_layout: str, hist_mode: str, bundle,
                             num_bin_hist: int, num_bin: int, comm, hp,
-                            hist_chunk: int = 0) -> list:
+                            hist_chunk: int = 0, opts=None) -> list:
     """Why ``split_kernel="on"`` (one launch per split) cannot run here;
     empty when it can. The JAX package's gate (learner.py, the
     ``one_kernel`` premises): the kernel inlines a plain
     ``find_best_split`` over the planes or resident layout, so it needs
-    serial comm, no feature bundles, no CEGB and scalar (basic) monotone
-    bounds; ``hist_chunk`` keeps the reference's 128-row alignment rule
-    so both packages resolve the knob alike. By-node sampling, extra-trees and
-    interaction constraints, the rest of the JAX gate, never reach it: the
-    learner refuses them (ROADMAP A3, A10). The port's host twin is
-    eligible wherever the kernel is."""
+    serial comm, no feature bundles, no CEGB, no by-node sampling or
+    extra-trees, no interaction constraint sets (``opts``, an
+    ``ops/node.NodeOptions``) and scalar (basic) monotone bounds;
+    ``hist_chunk`` keeps the reference's 128-row alignment rule so both
+    packages resolve the knob alike. Forced splits stay eligible: the
+    split commit picks them and the kernel partitions by the split its
+    header names. The port's host twin is eligible wherever the kernel
+    is."""
     bad = []
     if work_layout not in ("planes", "resident"):
         bad.append("needs the planes work layout (or the resident one)")
@@ -236,9 +257,43 @@ def split_kernel_ineligible(*, work_layout: str, hist_mode: str, bundle,
         bad.append("CEGB penalties unsupported")
     if hp.has_monotone and (hp.mono_intermediate or hp.mono_advanced):
         bad.append("intermediate/advanced monotone unsupported")
+    if opts is not None and (opts.kth or opts.extra_trees):
+        bad.append("by-node sampling / extra-trees unsupported")
+    if opts is not None and opts.sets is not None:
+        bad.append("interaction constraint sets unsupported")
     if hist_chunk % 128:
         bad.append("hist_chunk must be a multiple of 128")
     return bad
+
+
+def forced_tables(forced, num_feat: int, device):
+    """BFS forced splits ``(leaves, features, bins)`` -> (leaves as host
+    ints, (n, F) bool one-feature masks, (n, F) i32 threshold bins): the
+    inputs of each forced round's one-leaf scan (``pick_forced`` of the
+    JAX package's tree loop: the forced feature alone, at the forced
+    bin)."""
+    leaves, feats, bins_ = (list(map(int, x)) for x in forced)
+    n = len(leaves)
+    feat_t = torch.tensor(feats, dtype=torch.int64).to(device)
+    mask = torch.arange(num_feat, device=device)[None, :] == feat_t[:, None]
+    thr = torch.tensor(bins_, dtype=torch.int32).to(device)[:, None] \
+        .expand(n, num_feat).contiguous()
+    return leaves, mask, thr
+
+
+def note_used_features(used: torch.Tensor, log: "TreeLog") -> None:
+    """Add the features a tree split on to the model's (F,) bool ``used``
+    set, in place on the device (the JAX package's
+    ``_note_used_features``, CEGB's coupled penalties; no host read)."""
+    F = used.shape[0]
+    valid = torch.arange(log.feature.shape[0], device=used.device) \
+        < log.num_splits.reshape(-1)[0]
+    idx = torch.where(valid, log.feature.long(),
+                      torch.full_like(log.feature.long(), F))
+    ext = torch.cat([used, torch.zeros(1, dtype=torch.bool,
+                                       device=used.device)])
+    ext.index_fill_(0, idx, True)
+    used.copy_(ext[:F])
 
 
 def feature_view(hg: torch.Tensor, total_sum: torch.Tensor, bundle: dict,
@@ -278,6 +333,11 @@ def build_tree_partitioned(
     bins_t: Optional[torch.Tensor] = None,
     work: Optional[torch.Tensor] = None,
     stats: Optional[dict] = None,
+    opts=None,
+    cegb_used: Optional[torch.Tensor] = None,
+    forced=None,
+    inbag_first: bool = False,
+    goss_compact: bool = False,
 ) -> TreeLog:
     """Grow one leaf-wise tree with a physical row partition (reference
     contract: serial_tree_learner.cpp:324 FindBestSplits over the smaller
@@ -301,6 +361,26 @@ def build_tree_partitioned(
     (``hist_cnt``, the in-bag rows), both (num_leaves,) device tensors, the
     split count and the routed ``row_leaf``.
 
+    ``opts`` (an ``ops/node.NodeOptions``) adds the per-node options, as
+    the JAX package has them: by-node column sampling, extra-trees
+    thresholds (both drawn from ``key``), interaction constraints (each
+    leaf's used features), CEGB penalties (``cegb_used``, the (F,) bool
+    features the model has used, seeds the tree's used set). ``forced``,
+    BFS ``(leaf, feature, bin)`` lists (:meth:`SerialTreeLearner.
+    _forced_splits`), forces the tree's first splits while each forced
+    leaf has a valid split at its bin; the loop then runs up to
+    ``num_leaves - 1 + len(forced)`` rounds, and a round that finds no
+    valid split commits nothing. ``inbag_first`` (GOSS) grows the tree
+    over the rows in ``ops/partition.inbag_order``'s order, the in-bag
+    ones first: the partition is stable, so every leaf's segment then
+    holds its in-bag rows first, in the same positions whether the
+    out-of-bag ones (zero channels) follow or not, and the card's
+    histograms, which sum a segment's rows in an order fixed by their
+    positions, give the same bits either way. ``goss_compact`` (GOSS
+    compaction, ``tpu_goss_compact=on``) then drops the out-of-bag rows:
+    the root segment holds the in-bag ones alone. Either way the root sums
+    come from ``ghc`` as given and every row is routed in its own order.
+
     Kept exactly as the JAX builder has them: the leaf to split is the
     first argmax of the best gains; the smaller child is the one with the
     smaller in-bag count (``left_sum[2] <= right_sum[2]``); the larger
@@ -311,13 +391,15 @@ def build_tree_partitioned(
                                 segment_histogram_q,
                                 segment_histogram_resident,
                                 segment_histogram_rows)
-    from .ops.partition import (OneKernelSplit, on_route_plane,
-                                pack_planes_fold_root,
+    from .ops.partition import (OneKernelSplit, inbag_order,
+                                on_route_plane, pack_planes_fold_root,
                                 pack_resident_fold_root, pack_rows,
                                 pack_rows_quantized, partition_segment,
                                 partition_segment_rows, quantize_scales,
                                 split_out, split_pair, work_buffer,
                                 work_spec, write_route_plane)
+    from .ops.node import NodeOptions, node_buf, node_keys
+    from .ops.scan import scan_leaf_info
     from .ops.split import calc_leaf_output
     from .prng import fold_in
 
@@ -326,6 +408,21 @@ def build_tree_partitioned(
     n, num_grp = bins.shape
     num_feat = int(meta.num_bins.shape[0])
     max_splits = num_leaves - 1
+    # the root sums from the channels as given (a row reduction over the
+    # gathered rows would group the f32 additions otherwise); the router
+    # routes every row in its own order
+    root_sum = torch.sum(ghc, dim=0)
+    route_bins, route_bins_t = bins, bins_t
+    nr = n
+    if goss_compact and not inbag_first:
+        raise ValueError("goss_compact needs inbag_first")
+    if inbag_first:
+        order, c_in = inbag_order(ghc)
+        bins, ghc = bins.index_select(0, order), ghc.index_select(0, order)
+        bins_t = None
+        if goss_compact:
+            # the host loop reads a header per split anyway
+            nr = int(c_in)
     bm = num_bin_hist if num_bin_hist is not None else num_bin
     exact = hist_mode != "bf16"
     quantized = hist_mode == "int8"
@@ -345,13 +442,16 @@ def build_tree_partitioned(
         bad = split_kernel_ineligible(work_layout=work_layout,
                                       hist_mode=hist_mode, bundle=bundle,
                                       num_bin_hist=bm, num_bin=num_bin,
-                                      comm=comm, hp=hp)
+                                      comm=comm, hp=hp, opts=opts)
         if bad:
             raise ValueError("tpu_split_kernel=on is not eligible here: "
                              + "; ".join(bad))
     guard, _ = work_spec(num_grp, quantized, work_layout)
     if work is None:
         work = work_buffer(n, num_grp, work_layout, quantized, dev)
+    # the root segment: every row, or the in-bag ones (compaction)
+    root_seg = None if nr == n else torch.tensor([0, guard, nr], dtype=i32,
+                                                 device=dev)
 
     # ---- pack plane 0, root histogram (one launch) ----
     if rows_layout:
@@ -375,7 +475,7 @@ def build_tree_partitioned(
                 return segment_histogram_rows(work, seg, num_bins=bm,
                                               num_feat=num_grp, exact=exact,
                                               cnt_bound=cnt_bound)
-        root_hist = hist_fn(torch.tensor([0, guard, n], dtype=i32,
+        root_hist = hist_fn(torch.tensor([0, guard, nr], dtype=i32,
                                          device=dev), n)
     elif resident is not None:
         def part_fn(work, seg, table, cnt_bound):
@@ -392,7 +492,7 @@ def build_tree_partitioned(
                                               cnt_bound=cnt_bound)
         root_hist = pack_resident_fold_root(work, resident, ghc, guard,
                                             num_bins=bm, num_feat=num_grp,
-                                            exact=exact)
+                                            exact=exact, seg=root_seg)
     else:
         part_fn = partition_segment
 
@@ -401,7 +501,8 @@ def build_tree_partitioned(
                                      num_feat=num_grp, exact=exact,
                                      cnt_bound=cnt_bound)
         root_hist = pack_planes_fold_root(work, bins, ghc, guard,
-                                          num_bins=bm, exact=exact)
+                                          num_bins=bm, exact=exact,
+                                          seg=root_seg)
     if one_kernel:
         # checked and set up once per tree; each split fills in its own
         one_kernel_split = OneKernelSplit(work, meta, feature_mask, hp,
@@ -410,8 +511,9 @@ def build_tree_partitioned(
                                           resident=resident)
         split_bufs = split_out(num_grp, bm, dev)
         one = torch.ones(1, dtype=i32, device=dev)
-        # the split's header ONE_KERNEL_HDR from hdr below + [depth, live]
-        hdr_cols = torch.tensor([2, 0, 1, 3, 6, 7, 8, 4], device=dev)
+        # the split's header ONE_KERNEL_HDR from hdr[:6] below + [depth,
+        # live]
+        hdr_cols = torch.tensor([2, 0, 1, 3, 5, 6, 7, 4], device=dev)
 
     def feat_view(hg, total_sum):
         if bundle is None:
@@ -425,11 +527,21 @@ def build_tree_partitioned(
             return go_left
         return go_left[bundle["map_fb"][feature].long()]
 
-    best_for = _make_best_for(meta, hp, feature_mask)
+    opts = opts if opts is not None else NodeOptions()
+    n_forced = 0 if forced is None else len(forced[0])
+    keys = node = None
+    if opts.active:
+        if key is None:
+            raise ValueError("by-node sampling, extra-trees, interaction "
+                             "constraints and CEGB need the tree's key")
+        keys = node_keys(key, opts.extra_seed,
+                         torch.zeros(4, dtype=torch.int64, device=dev))
+        node = node_buf(opts, num_feat, dev)
+    best_for = _make_best_for(meta, hp, feature_mask, opts, keys, node)
 
     # ---- root ----
     root_hist = comm.hist(root_hist)
-    root_sum = comm.root(torch.sum(ghc, dim=0))
+    root_sum = comm.root(root_sum)
     hist_pool = torch.zeros((num_leaves, num_grp, bm, 3), dtype=f32,
                             device=dev)
     hist_pool[0] = root_hist
@@ -439,16 +551,28 @@ def build_tree_partitioned(
     leaf_out[0] = calc_leaf_output(root_sum[0], root_sum[1], hp)
     leaf_lower = torch.full((num_leaves,), float("-inf"), device=dev)
     leaf_upper = torch.full((num_leaves,), float("inf"), device=dev)
+    # features used on each leaf's path (interaction constraints) and by
+    # the tree and the model (CEGB), kept only where an option reads them
+    leaf_used = torch.zeros((num_leaves, num_feat), dtype=torch.bool,
+                            device=dev) if opts.needs_used else None
+    tree_used = None
+    if hp.use_cegb:
+        tree_used = cegb_used.to(torch.bool).clone() \
+            if cegb_used is not None \
+            else torch.zeros(num_feat, dtype=torch.bool, device=dev)
     # segment table: (start, cnt, parity) per leaf, on the device
     seg_tab = torch.zeros((num_leaves, 3), dtype=i32, device=dev)
     seg_tab[0, 0] = guard
-    seg_tab[0, 1] = n
+    seg_tab[0, 1] = nr
     depth = [0] * num_leaves
     best = _empty_best(num_leaves, num_bin, dev)
     root_info = best_for(feat_view(root_hist[None], root_sum[None]),
                          root_sum[None], leaf_out[:1], leaf_lower[:1],
-                         leaf_upper[:1], 0)
+                         leaf_upper[:1], 0, used=leaf_used,
+                         tree_used=tree_used)
     _set_best(best, slice(0, 1), root_info)
+    if n_forced:
+        f_leaf, f_mask, f_thr = forced_tables(forced, num_feat, dev)
 
     log_leaf = []
     log_feat = torch.zeros(max_splits, dtype=torch.int64, device=dev)
@@ -461,23 +585,48 @@ def build_tree_partitioned(
     log_go = torch.zeros((max_splits, num_bin), dtype=torch.bool, device=dev)
     group = bundle["group"].long() if bundle is not None else None
     seg_cols = torch.tensor([2, 0, 1, 3], device=dev)   # parity,start,cnt,col
+    no = torch.zeros((), dtype=torch.bool, device=dev)
 
-    for s in range(max_splits):
-        # ---- the split's one device->host transfer ----
+    # rounds r (the draws' index) and splits s: a round that finds no
+    # valid split (a forced one, whose leaf cannot split there, when no
+    # leaf has a split either) commits nothing but still counts
+    r = s = 0
+    force_live = n_forced > 0
+    while s < max_splits and r < max_splits + n_forced:
+        forcing = force_live and r < n_forced
+        # ---- the round's one device->host transfer ----
         leaf_d = torch.argmax(best.gain)
-        feat_d = best.feature[leaf_d]
+        info = [x[leaf_d] for x in best]
+        ok_d = no
+        if forcing:
+            fl = f_leaf[r]
+            fi = scan_leaf_info(
+                feat_view(hist_pool[fl][None], leaf_sum[fl][None])[0],
+                leaf_sum[fl], leaf_out[fl], leaf_lower[fl], leaf_upper[fl],
+                depth[fl], f_mask[r], f_thr[r], meta, hp)
+            ok_d = fi.gain > float("-inf")
+            leaf_d = torch.where(ok_d, torch.full_like(leaf_d, fl), leaf_d)
+            info = [torch.where(ok_d, a.to(b.dtype), b)
+                    for a, b in zip(fi, info)]
+        feat_d = info[1]
         col_d = group[feat_d] if group is not None else feat_d
         hdr = torch.cat([
             seg_tab[leaf_d], col_d.to(i32).reshape(1),
             leaf_d.to(i32).reshape(1),
-            (best.gain[leaf_d] > 0).to(i32).reshape(1),
-            (best.left_sum[leaf_d, 2] <= best.right_sum[leaf_d, 2])
-            .to(i32).reshape(1)])
-        start, cnt, parity, _, leaf, positive, left_smaller = hdr.tolist()
-        if not positive:
+            (info[6][2] <= info[7][2]).to(i32).reshape(1),
+            (torch.max(best.gain) > 0).to(i32).reshape(1),
+            (info[0] > float("-inf")).to(i32).reshape(1),
+            ok_d.to(i32).reshape(1)])
+        (start, cnt, parity, _, leaf, left_smaller, positive, valid,
+         ok) = hdr.tolist()
+        if not (positive or forcing):
             break
+        if forcing and not ok:
+            force_live = False
+        if not valid:
+            r += 1
+            continue
         new = s + 1
-        info = [x[leaf] for x in best]     # views; read before best[leaf]
         (i_gain, i_feat, i_bin, i_kind, i_dl, i_go, i_ls, i_rs, i_lo,
          i_ro) = info
 
@@ -513,6 +662,13 @@ def build_tree_partitioned(
                                           lo_p)
             leaf_upper[new] = torch.where(mono < 0, torch.minimum(up_p, mid),
                                           up_p)
+        if opts.needs_used:
+            used = leaf_used[leaf] | (torch.arange(num_feat, device=dev)
+                                      == i_feat)
+            leaf_used[leaf] = used
+            leaf_used[new] = used
+        if tree_used is not None:
+            tree_used.index_fill_(0, i_feat.reshape(1), True)
         pair_sum = torch.stack([i_ls, i_rs])
         pair = slice(leaf, leaf + 1), slice(new, new + 1)
         pair_out = torch.cat([leaf_out[pair[0]], leaf_out[pair[1]]])
@@ -525,8 +681,8 @@ def build_tree_partitioned(
             # ---- ONE launch: partition + smaller-child histogram + the
             # split scan of both children (bounds and outputs set above),
             # its scalars read on the card from a header built there
-            k_hdr = torch.cat([hdr, torch.full((1,), d, dtype=i32,
-                                               device=dev), one]) \
+            k_hdr = torch.cat([hdr[:6], torch.full((1,), d, dtype=i32,
+                                                   device=dev), one]) \
                 .index_select(0, hdr_cols)
             one_kernel_split.split(k_hdr, i_go, hist_pool,
                                    split_pair(pair_sum, pair_out, pair_lo,
@@ -553,10 +709,12 @@ def build_tree_partitioned(
             hist_left, hist_right = (hist_small, hist_large) \
                 if left_smaller else (hist_large, hist_small)
             # ---- refresh best splits for both children in one batched
-            # scan
+            # scan, drawn at this round with both children's leaves
             infos = best_for(feat_view(torch.stack([hist_left, hist_right]),
                                        pair_sum),
-                             pair_sum, pair_out, pair_lo, pair_up, d)
+                             pair_sum, pair_out, pair_lo, pair_up, d,
+                             r=r, leaf=leaf, leaf1=new, used=leaf_used,
+                             tree_used=tree_used)
         seg_tab[new, 0:1] = lt + start
         seg_tab[new, 1:2] = cnt - lt
         seg_tab[leaf, 1:2] = lt
@@ -569,6 +727,8 @@ def build_tree_partitioned(
                                                         float("-inf")))
         _set_best(best, leaf, [x[0] for x in infos])
         _set_best(best, new, [x[1] for x in infos])
+        s += 1
+        r += 1
 
     ns = len(log_leaf)
     split_leaf = torch.tensor(log_leaf + [0] * (max_splits - ns),
@@ -582,8 +742,9 @@ def build_tree_partitioned(
         movable=meta.movable_missing[log_feat],
         leaf_value=leaf_out, leaf_sum=leaf_sum,
         row_leaf=torch.zeros(0, dtype=i32, device=dev))
-    row_leaf = assign_leaves(bins, log, has_categorical=hp.has_categorical,
-                             bundle=bundle, bins_t=bins_t)
+    row_leaf = assign_leaves(route_bins, log,
+                             has_categorical=hp.has_categorical,
+                             bundle=bundle, bins_t=route_bins_t)
     if stats is not None:
         stats["leaf_cnt"] = seg_tab[:, 1]
         stats["hist_cnt"] = hist_pool[:, 0, :, 2].sum(dim=1)
@@ -598,7 +759,8 @@ class DeviceTreeLoop:
     ``lax.while_loop``, ``lightgbm_tpu/learner.py``), in every
     configuration of the partitioned builder: the planes, resident and
     rows layouts, f32 (hi/lo, bf16) and int8 histograms, EFB bundles and
-    categorical features.
+    categorical features, and the per-node options (``opts``, an
+    ``ops/node.NodeOptions``) and forced splits.
 
     A tree is a fixed sequence: the root (the pack and its histogram, the
     root's split scan), then ``num_leaves - 1`` pairs of a split commit
@@ -611,13 +773,29 @@ class DeviceTreeLoop:
     (``ops/chain.ChainSplit``: K3, K4 or K5, the split scan). With bundles
     the commit writes the split feature's bundle column into the header
     and the chain partitions by the routing table in bundle codes
-    (``go_left[map_fb[feature]]``, built per slot on the card). A tree that
-    stops early runs its remaining splits as ``live = 0`` no-ops. The trees
-    and logs equal :func:`build_tree_partitioned`'s with the same
-    arguments, field by field.
+    (``go_left[map_fb[feature]]``, built per slot on the card). With node
+    options each slot launches ``ops/node.node_inputs`` between the commit
+    and the split: the children's masks, threshold bins and CEGB penalties,
+    drawn at the slot's round from the header's leaf, which the chain's
+    scan reads. With forced splits the first ``len(forced)`` slots start
+    with the forced leaf's one-leaf scan (``ops/scan.SplitScan.
+    scan_leaf``), which the commit takes while the forced splits hold; the
+    JAX loop's extra rounds need no slot: a round that finds no valid split
+    is always its last. A tree that stops early runs its remaining splits
+    as ``live = 0`` no-ops. The trees and logs equal
+    :func:`build_tree_partitioned`'s with the same arguments, field by
+    field.
 
-    The inputs are static buffers (``ghc``, ``fmask`` and, for int8, the
-    dither key's two words): :meth:`run` copies a tree's into them. On the
+    The inputs are static buffers (``ghc``, ``fmask``, the tree key's
+    words, the model's used features ``cegb0``): :meth:`run` copies a
+    tree's into them. With ``inbag_first`` (GOSS) the root first puts the
+    rows in ``ops/partition.inbag_order``'s order (the in-bag ones first)
+    into buffers of its own, and with ``goss_compact`` (GOSS compaction)
+    sets the root segment's count to the in-bag count, on the card: the
+    tree grows over the in-bag rows alone, and its histograms are the
+    ``inbag_first`` dense tree's bit for bit (as in
+    :func:`build_tree_partitioned`). The root sums come from the channels
+    as given, and the router routes every row in its own order. On the
     card the sequence is captured once as one CUDA graph (after one eager
     tree, which sets up every launch's lazy state) and replayed per tree;
     the kernels' launch counts are counted at capture and added per replay
@@ -635,17 +813,22 @@ class DeviceTreeLoop:
                  bundle: Optional[Dict[str, torch.Tensor]] = None,
                  dither_offset: int = 0,
                  bins_t: Optional[torch.Tensor] = None,
-                 work: Optional[torch.Tensor] = None) -> None:
+                 work: Optional[torch.Tensor] = None, opts=None,
+                 forced=None, inbag_first: bool = False,
+                 goss_compact: bool = False) -> None:
         from .ops.chain import ChainSplit
         from .ops.commit import SplitCommit, tree_state
+        from .ops.node import NodeOptions, node_buf
         from .ops.partition import (OneKernelSplit, root_segment, split_out,
                                     work_buffer, work_spec)
+        from .ops.scan import SplitScan
 
         dev = bins.device
         n, num_grp = bins.shape
         num_feat = int(meta.num_bins.shape[0])
         bm = num_bin_hist if num_bin_hist is not None else num_bin
         quantized = hist_mode == "int8"
+        opts = opts if opts is not None else NodeOptions()
         if quantized and work_layout != "rows":
             raise ValueError("int8 quantized histograms need the rows work "
                              "layout (the planes layout has no quantized "
@@ -655,7 +838,7 @@ class DeviceTreeLoop:
             bad = split_kernel_ineligible(work_layout=work_layout,
                                           hist_mode=hist_mode, bundle=bundle,
                                           num_bin_hist=bm, num_bin=num_bin,
-                                          comm=Comm(), hp=hp)
+                                          comm=Comm(), hp=hp, opts=opts)
             if bad:
                 raise ValueError("tpu_split_kernel=on is not eligible here: "
                                  + "; ".join(bad))
@@ -666,20 +849,42 @@ class DeviceTreeLoop:
         self.layout, self.quantized = work_layout, quantized
         self.exact = hist_mode != "bf16"
         self.dither_offset = int(dither_offset)
-        self.bins_t = bins_t if bins_t is not None else route_layout(bins)
+        if goss_compact and not inbag_first:
+            raise ValueError("goss_compact needs inbag_first")
+        self.opts, self.inbag_first = opts, bool(inbag_first)
+        self.compact = bool(goss_compact)
+        #: the router's block form of the rows in their own order
+        self.route_bins_t = bins_t if bins_t is not None \
+            else route_layout(bins)
+        self.bins_t = self.route_bins_t
+        if self.inbag_first:
+            # the tree's rows in the in-bag-first order, refreshed per tree
+            self.bins_src = bins
+            self.bins = torch.empty_like(bins)
+            if work_layout == "resident":
+                self.bins_t = torch.empty_like(self.route_bins_t)
         self.resident = self.bins_t.reshape(num_grp, -1) \
             if work_layout == "resident" else None
         self.guard, _ = work_spec(num_grp, quantized, work_layout)
         self.work = work if work is not None else work_buffer(
             n, num_grp, work_layout, quantized, dev)
         self.ghc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        #: the tree's channels as given (gathered into ``ghc`` in the
+        #: in-bag-first order)
+        self.ghc_in = torch.zeros_like(self.ghc) if self.inbag_first \
+            else self.ghc
         self.fmask = torch.ones(num_feat, dtype=torch.bool, device=dev)
         #: int8: the dither key's words and the tree's dequantization
         self.key = torch.zeros(2, dtype=torch.int64, device=dev)
         self.scale = torch.ones(3, dtype=torch.float32, device=dev)
+        #: the node draws' key words (ops/node.node_keys), the model's used
+        #: features
+        self.keys = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.cegb0 = torch.zeros(num_feat, dtype=torch.bool, device=dev)
         hist = (num_grp, bm)
         self.state = tree_state(num_leaves, num_feat, num_bin, dev, hist)
         self.out = split_out(num_feat, num_bin, dev, hist)
+        self.node = node_buf(opts, num_feat, dev) if opts.active else None
         self.map_fb = None
         col_map = None
         if bundle is not None:
@@ -696,11 +901,26 @@ class DeviceTreeLoop:
                 hist_mode=hist_mode, num_feat=num_grp, num_bins=bm,
                 scan_feat=num_feat, scan_bins=num_bin, cnt_max=n,
                 resident=self.resident, scale=self.scale,
-                feat_view=None if bundle is None else self.feature_view)
+                feat_view=None if bundle is None else self.feature_view,
+                node=self.node)
+        self.n_forced = 0 if forced is None else len(forced[0])
+        self.forced_out = None
+        if self.n_forced:
+            self.f_leaf, self.f_mask, self.f_thr = forced_tables(
+                forced, num_feat, dev)
+            self.forced_out = split_out(num_feat, num_bin, dev, hist)
+            self.forced_scan = SplitScan(meta, self.fmask, hp,
+                                         num_feat=num_feat,
+                                         num_bins=num_bin, device=dev,
+                                         node=self.node)
+            self.fview = torch.zeros((1, num_feat, num_bin, 3),
+                                     dtype=torch.float32, device=dev)
         self.commit = SplitCommit(self.state, self.out, max_depth=max_depth,
                                   monotone=meta.monotone,
                                   has_monotone=hp.has_monotone,
-                                  col_map=col_map)
+                                  col_map=col_map, forced=self.forced_out,
+                                  n_forced=self.n_forced,
+                                  track_used=opts.needs_used)
         self.cuda = dev.type == "cuda"
         self.root_seg = root_segment(self.guard, n, dev) if self.cuda \
             else None
@@ -718,20 +938,47 @@ class DeviceTreeLoop:
         return feature_view(hg, total_sum, self.bundle, self.num_feat,
                             self.num_bin)
 
+    def node_inputs(self, r: int, leaf, leaf1: int, p: int, sums,
+                    live=None) -> None:
+        """``ops/node.node_inputs`` of this loop's tree into its node
+        buffer."""
+        from .ops.node import node_inputs
+
+        st = self.state
+        node_inputs(self.node, self.keys, r, leaf, leaf1, p, opts=self.opts,
+                    fmask=self.fmask, num_bins=self.meta.num_bins,
+                    coupled=self.meta.cegb_coupled, hp=self.hp, sums=sums,
+                    used=st.leaf_used, tree_used=st.tree_used, live=live)
+
     def root(self) -> None:
         """The state of a tree after its root, from the static inputs: the
         pack and the root histogram, the root's sums, output and best
         split."""
         from .ops.commit import reset_tree_state
         from .ops.histogram import dequant_scale
-        from .ops.partition import (pack_planes_fold_root,
+        from .ops.partition import (inbag_order, pack_planes_fold_root,
                                     pack_resident_fold_root,
                                     pack_rows_fold_root, quantize_scales)
         from .ops.split import calc_leaf_output, find_best_split
 
         st, hp, meta = self.state, self.hp, self.meta
         ghc = self.ghc
-        reset_tree_state(st, self.guard, self.n)
+        reset_tree_state(st, self.guard, self.n, forced=self.n_forced > 0,
+                         tree_used=self.cegb0)
+        # the root sums come from the channels as given (a row reduction
+        # over the gathered rows would group the f32 additions otherwise)
+        root_sum = torch.sum(self.ghc_in, dim=0)
+        if self.inbag_first:
+            order, c_in = inbag_order(self.ghc_in)
+            ghc.copy_(self.ghc_in.index_select(0, order))
+            self.bins.copy_(self.bins_src.index_select(0, order))
+            if self.resident is not None:
+                self.bins_t.copy_(route_layout(self.bins))
+        if self.compact:
+            c_in = c_in.to(torch.int32)
+            st.seg_tab[0, 1:2].copy_(c_in)
+            if self.root_seg is not None:
+                self.root_seg[2:3].copy_(c_in)
         kw = dict(num_bins=self.bm, seg=self.root_seg)
         if self.resident is not None:
             root_hist = pack_resident_fold_root(
@@ -749,16 +996,20 @@ class DeviceTreeLoop:
         else:
             root_hist = pack_planes_fold_root(
                 self.work, self.bins, ghc, self.guard, exact=self.exact, **kw)
-        root_sum = torch.sum(ghc, dim=0)
         st.hist_pool[0] = root_hist
         st.leaf_sum[0] = root_sum
         st.leaf_out[0] = calc_leaf_output(root_sum[0], root_sum[1], hp)
         view = root_hist[None] if self.bundle is None \
             else self.feature_view(root_hist[None], root_sum[None])
+        mask, thr, delta = self.fmask, None, None
+        if self.node is not None:
+            self.node_inputs(0, 0, 0, 1, st.leaf_sum[0:1])
+            mask, thr, delta = self.node.rows(1)
         root_info = find_best_split(
-            view, root_sum[None], meta, self.fmask, hp,
+            view, root_sum[None], meta, mask, hp,
             parent_output=st.leaf_out[:1], leaf_lower=st.leaf_lower[:1],
-            leaf_upper=st.leaf_upper[:1], node_depth=0)
+            leaf_upper=st.leaf_upper[:1], node_depth=0,
+            rand_threshold=thr, cegb_delta=delta)
         _set_best(st.best, slice(0, 1), root_info)
 
     def table(self, s: int) -> torch.Tensor:
@@ -770,12 +1021,44 @@ class DeviceTreeLoop:
         feat = self.state.log_feat[s:s + 1]
         return go.index_select(0, self.map_fb.index_select(0, feat)[0])
 
+    def forced_leaf_scan(self, s: int) -> None:
+        """The one-leaf scan of forced slot ``s``, before its commit: the
+        forced leaf's histogram is a child of split ``s - 1`` (in the split
+        outputs, which the commit has yet to pool: while the forced splits
+        hold, split ``s - 1`` was forced split ``s - 1``) or already in the
+        pool; its sums, output, bounds and depth are in the state."""
+        st = self.state
+        fl = self.f_leaf[s]
+        if s > 0 and fl == self.f_leaf[s - 1]:
+            hist = self.out.hists[0:1]
+        elif s > 0 and fl == s:
+            hist = self.out.hists[1:2]
+        else:
+            hist = st.hist_pool[fl:fl + 1]
+        if self.bundle is not None:
+            self.fview.copy_(self.feature_view(hist,
+                                               st.leaf_sum[fl:fl + 1]))
+            hist = self.fview
+        self.forced_scan.scan_leaf(
+            hist, st.leaf_sum[fl], st.leaf_out[fl:fl + 1],
+            st.leaf_lower[fl:fl + 1], st.leaf_upper[fl:fl + 1],
+            st.depth[fl:fl + 1], st.force_live, self.f_mask[s],
+            self.f_thr[s], self.forced_out)
+
     def splits(self, stop: int) -> None:
         """Split slots ``[0, stop)``: a commit, then the split that reads
-        the header it wrote."""
+        the header it wrote (with the forced leaf's scan before the commit
+        and the children's node inputs after it)."""
         st = self.state
         for s in range(stop):
-            self.commit(s)
+            forced = s < self.n_forced
+            if forced:
+                self.forced_leaf_scan(s)
+            self.commit(s, self.f_leaf[s] if forced else 0)
+            if self.node is not None:
+                self.node_inputs(s, st.hdr[s, 7:8], s + 1, 2,
+                                 st.pair[s, 0:6].view(2, 3),
+                                 live=st.hdr[s, 6:7])
             self.split.split(st.hdr[s], self.table(s), st.hist_pool,
                              st.pair[s], self.out)
 
@@ -798,29 +1081,40 @@ class DeviceTreeLoop:
             movable=meta.movable_missing[feat], leaf_value=st.leaf_out,
             leaf_sum=st.leaf_sum, row_leaf=st.num_splits[:0])
         cat = build_cat_table(log) if self.hp.has_categorical else None
-        row_leaf = route_rows(self.bins_t, build_route_table(log, self.bundle),
+        row_leaf = route_rows(self.route_bins_t,
+                              build_route_table(log, self.bundle),
                               st.num_splits, cat)[:self.n]
         return log._replace(row_leaf=row_leaf)
 
-    def run(self, ghc: torch.Tensor, fmask: torch.Tensor,
-            key=None) -> TreeLog:
-        """One tree from ``ghc`` (N, 3), ``fmask`` (F,) and, for int8, the
-        ``prng`` key of the tree (its dither is drawn from ``fold_in(key,
-        987123)`` at row offset ``dither_offset``, as
-        :func:`build_tree_partitioned` draws it): copied into the static
-        inputs (the key's words by fills, so the host does not wait), then
-        the graph's replay on the card (the first tree runs eagerly and the
-        second captures), the eager sequence on the host."""
+    def run(self, ghc: torch.Tensor, fmask: torch.Tensor, key=None,
+            cegb_used: Optional[torch.Tensor] = None) -> TreeLog:
+        """One tree from ``ghc`` (N, 3), ``fmask`` (F,) and the ``prng``
+        ``key`` of the tree (for int8 its dither is drawn from
+        ``fold_in(key, 987123)`` at row offset ``dither_offset``, as
+        :func:`build_tree_partitioned` draws it; the node options draw from
+        it too) and the model's used features ``cegb_used`` ((F,) bool,
+        none when None): copied into the static inputs (the keys' words by
+        fills, so the host does not wait), then the graph's replay on the
+        card (the first tree runs eagerly and the second captures), the
+        eager sequence on the host."""
         from .ops import kernels
+        from .ops.node import node_keys
         from .prng import fold_in, key_words
 
-        self.ghc.copy_(ghc)
+        self.ghc_in.copy_(ghc)
         self.fmask.copy_(fmask)
-        if self.quantized:
+        if self.quantized or self.node is not None:
             if key is None:
-                raise ValueError("int8 quantized histograms need a key for "
-                                 "the stochastic-rounding dither")
-            key_words(fold_in(key, 987123), self.key)
+                raise ValueError("int8 quantized histograms and the "
+                                 "per-node options need the tree's key")
+            if self.quantized:
+                key_words(fold_in(key, 987123), self.key)
+            if self.node is not None:
+                node_keys(key, self.opts.extra_seed, self.keys)
+        if cegb_used is not None:
+            self.cegb0.copy_(cegb_used)
+        else:
+            self.cegb0.zero_()
         if not self.cuda:
             return self.grow()
         if not self._warm:
@@ -851,17 +1145,22 @@ class DeviceTreeLoop:
 
 
 def launches_per_split(work_layout: str, one_kernel: bool,
-                       device_loop: bool = True) -> int:
+                       device_loop: bool = True,
+                       node_inputs: bool = False) -> int:
     """Device launches per split slot. The device tree loop (the card's
     fused path): the one-kernel split and the split commit; or the chain's
     partition, histogram and split scan and the commit, plus the route
     gather on the resident layout. The per-split host loop: the one-kernel
     split; or partition, histogram and the torch scan, plus the route
-    gather on the resident layout."""
+    gather on the resident layout. With the per-node options
+    (``node_inputs``; the chain only) either loop launches the node inputs
+    kernel once more a split. A tree's forced slots add one launch each
+    (the forced leaf's scan), not counted here."""
     gather = 1 if work_layout == "resident" else 0
     if one_kernel:
         return 2 if device_loop else 1
-    return 3 + gather + (1 if device_loop else 0)
+    return 3 + gather + (1 if device_loop else 0) + (1 if node_inputs
+                                                     else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -895,16 +1194,21 @@ class SerialTreeLearner:
     analog: SerialTreeLearner + the factory at tree_learner.cpp:15).
 
     Settings the port cannot honour raise :class:`LightGBMError` naming
-    their ROADMAP item. The one exception is the reference's own:
+    their ROADMAP item. The exceptions are the reference's own:
     ``tpu_split_kernel=on`` where the one-kernel split is ineligible warns
-    and trains the three-launch path, as the JAX package does."""
+    and trains the three-launch path, ``tpu_goss_compact=on`` where GOSS
+    compaction cannot run warns and trains the dense-mask path, and
+    ``cegb_penalty_feature_lazy`` warns and is ignored, as the JAX package
+    does."""
 
     def __init__(self, config, dataset, device: Optional[torch.device] = None,
                  bins: Optional[torch.Tensor] = None,
                  bins_t: Optional[torch.Tensor] = None) -> None:
         from .device import resolve_device
         from .ops.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
+        from .ops.node import node_options
         from .ops.split import FeatureMeta, SplitHyper
+        from .utils.log import Log
 
         self.config = config
         self.dataset = dataset
@@ -926,6 +1230,14 @@ class SerialTreeLearner:
         pen = np.ones(dataset.num_features, dtype=np.float32)
         if dataset.feature_penalty is not None:
             pen = dataset.feature_penalty.astype(np.float32)
+        cegb_coupled = np.zeros(dataset.num_features, dtype=np.float32)
+        if config.cegb_penalty_feature_coupled:
+            for i, f in enumerate(dataset.used_feature_indices):
+                if f < len(config.cegb_penalty_feature_coupled):
+                    cegb_coupled[i] = config.cegb_penalty_feature_coupled[f]
+        if config.cegb_penalty_feature_lazy:
+            Log.warning("cegb_penalty_feature_lazy is not supported; "
+                        "use cegb_penalty_feature_coupled")
         mappers = dataset.bin_mappers
 
         def t(a, dtype):
@@ -941,7 +1253,7 @@ class SerialTreeLearner:
                              torch.bool),
             monotone=t(mono, torch.int8),
             penalty=t(pen, torch.float32),
-            cegb_coupled=torch.zeros(dataset.num_features, device=dev))
+            cegb_coupled=t(cegb_coupled, torch.float32))
         self.hp = SplitHyper(
             lambda_l1=float(config.lambda_l1),
             lambda_l2=float(config.lambda_l2),
@@ -958,7 +1270,16 @@ class SerialTreeLearner:
             has_categorical=any(m.bin_type == BIN_CATEGORICAL
                                 for m in mappers),
             has_monotone=dataset.monotone_constraints is not None,
-            monotone_penalty=float(config.monotone_penalty))
+            monotone_penalty=float(config.monotone_penalty),
+            cegb_tradeoff=float(config.cegb_tradeoff),
+            cegb_penalty_split=float(config.cegb_penalty_split),
+            # gated on a non-zero penalty, as the JAX package gates it:
+            # the tradeoff alone multiplies nothing
+            use_cegb=bool(config.cegb_penalty_split > 0
+                          or config.cegb_penalty_feature_coupled))
+        self.opts = node_options(config, dataset.num_features,
+                                 self._constraint_sets(), self.hp.use_cegb)
+        self.forced = self._forced_splits()
         self.bundle = None
         if dataset.has_bundles:
             self.bundle = {k: torch.as_tensor(v).to(dev)
@@ -981,20 +1302,83 @@ class SerialTreeLearner:
                     "than 256 bins per column)", "A10")
         if cfg.tree_learner != "serial":
             _refuse("tree_learner=%s" % cfg.tree_learner, "A11")
-        if float(cfg.feature_fraction_bynode) < 1.0 or bool(cfg.extra_trees):
-            _refuse("by-node feature sampling and extra_trees (they draw "
-                    "threefry bits)", "A3")
-        if cfg.interaction_constraints:
-            _refuse("interaction_constraints", "A10")
-        if cfg.forcedsplits_filename:
-            _refuse("forced splits (forcedsplits_filename)", "A10")
-        if cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_coupled \
-                or cfg.cegb_penalty_feature_lazy:
-            _refuse("CEGB penalties", "A10")
         if ds.monotone_constraints is not None \
                 and cfg.monotone_constraints_method != "basic":
             _refuse("monotone_constraints_method=%s"
                     % cfg.monotone_constraints_method, "A10")
+
+    def _constraint_sets(self) -> Optional[torch.Tensor]:
+        """``interaction_constraints`` ``"[0,1],[2,3]"`` -> (S, F) bool
+        over inner features, on the learner's device; None when unset
+        (the JAX package's parser; col_sampler.hpp:27). Features the
+        dataset dropped are skipped."""
+        import re
+
+        spec = self.config.interaction_constraints
+        if not spec:
+            return None
+        groups = re.findall(r"\[([^\]]*)\]", str(spec))
+        if not groups:
+            return None
+        F = self.dataset.num_features
+        sets = np.zeros((len(groups), F), dtype=bool)
+        for s, grp in enumerate(groups):
+            for tok in grp.split(","):
+                tok = tok.strip()
+                if tok == "":
+                    continue
+                inner = self.dataset.inner_feature_index(int(tok))
+                if inner >= 0:
+                    sets[s, inner] = True
+        return torch.as_tensor(sets).to(self.device)
+
+    def _forced_splits(self):
+        """``forcedsplits_filename``'s JSON tree -> BFS ``(leaves,
+        features, bins)`` lists of host ints, or None (the JAX package's
+        loader; serial_tree_learner.cpp:450 ForceSplits): each node's
+        threshold through its feature's ``value_to_bin``, at most bin
+        ``num_bins - 2``; a node on a feature the dataset dropped is
+        skipped, at most ``num_leaves - 1`` splits. A missing file warns
+        and forces nothing."""
+        import json
+        import os
+
+        from .utils.log import Log
+
+        fname = self.config.forcedsplits_filename
+        if not fname:
+            return None
+        if not os.path.exists(fname):
+            Log.warning("forced splits file %s not found", fname)
+            return None
+        with open(fname) as f:
+            root = json.load(f)
+        leaves, feats, bins_ = [], [], []
+        queue = [(root, 0)]
+        n_created = 0
+        while queue and n_created < self.num_leaves - 1:
+            node, leaf = queue.pop(0)
+            if not node or "feature" not in node:
+                continue
+            inner = self.dataset.inner_feature_index(int(node["feature"]))
+            if inner < 0:
+                continue
+            mapper = self.dataset.bin_mappers[inner]
+            tbin = int(mapper.value_to_bin(
+                np.asarray([float(node["threshold"])]))[0])
+            tbin = min(tbin, mapper.num_bins - 2) \
+                if mapper.num_bins > 1 else 0
+            leaves.append(leaf)
+            feats.append(inner)
+            bins_.append(tbin)
+            n_created += 1
+            if "left" in node and node["left"]:
+                queue.append((node["left"], leaf))
+            if "right" in node and node["right"]:
+                queue.append((node["right"], n_created))
+        if not leaves:
+            return None
+        return leaves, feats, bins_
 
     def use_partition(self) -> bool:
         """The partitioned builder needs u8 bins (max_bin <= 256); the
@@ -1080,10 +1464,7 @@ class SerialTreeLearner:
                 rec(knob, v, "hand-written CUDA kernel %s" % src if cuda
                     else "host tensors: the kernel's plain torch twin")
             kernels[knob] = v
-        if cfg.tpu_goss_compact == "on":
-            _refuse("tpu_goss_compact=on", "A3")
-        if cfg.tpu_goss_compact == "auto":
-            rec("tpu_goss_compact", "off", "not ported (ROADMAP A3)")
+        inbag_first, compact = self._resolve_goss_compact(mode, cuda, rec)
         split_kernel = self._resolve_split_kernel(layout, mode, cuda, rec)
         return dict(hp=self.hp, num_leaves=self.num_leaves,
                     num_bin=self.num_bin, max_depth=int(cfg.max_depth),
@@ -1094,7 +1475,53 @@ class SerialTreeLearner:
                     work_layout=layout, split_kernel=split_kernel,
                     dither_offset=dither_offset(
                         int(self.bins.shape[1]), int(cfg.tpu_part_chunk),
-                        int(cfg.tpu_hist_chunk)))
+                        int(cfg.tpu_hist_chunk)),
+                    opts=self.opts, forced=self.forced,
+                    inbag_first=inbag_first, goss_compact=compact)
+
+    def _resolve_goss_compact(self, mode: str, cuda: bool, rec):
+        """``tpu_goss_compact`` -> ``(inbag_first, compact)``. Where GOSS
+        samples and the histograms are f32, every tree grows over the rows
+        in the in-bag-first order (:func:`build_tree_partitioned`), so that
+        the card's histograms, which sum a segment's rows in an order fixed
+        by their positions, give a compacted tree the dense one's bits.
+        ``on`` compacts there; elsewhere it warns and keeps the dense-mask
+        path, the JAX package's downgrade. ``auto`` is off, recorded with
+        its reason: the compacted trees equal the dense ones bit for bit,
+        but the gain is unmeasured."""
+        from .utils.log import Log
+
+        cfg = self.config
+        goss = cfg.data_sample_strategy == "goss" \
+            and float(cfg.top_rate) + float(cfg.other_rate) < 1.0
+        # int8: the stochastic-rounding draws are seeded by row position
+        inbag_first = goss and mode != "int8"
+        gc = cfg.tpu_goss_compact
+        if gc == "auto":
+            if not goss:
+                why = ("no GOSS sampling in this config "
+                       "(data_sample_strategy=%s)" % cfg.data_sample_strategy)
+            else:
+                why = ("the compacted trees equal the dense path's bit for "
+                       "bit, but the gain is unmeasured %s"
+                       % ("on the card (no benchmark yet, ROADMAP A1)"
+                          if cuda else "on host tensors"))
+            rec("tpu_goss_compact", "off", why)
+            return inbag_first, False
+        if gc != "on":
+            return inbag_first, False
+        bad = []
+        if not goss:
+            bad.append("no GOSS sampling in this config")
+        if mode == "int8":
+            bad.append("int8 stochastic-rounding draws are row-position "
+                       "seeded (compaction would change the quantization "
+                       "stream)")
+        if bad:
+            Log.warning("tpu_goss_compact=on is not eligible here (%s); "
+                        "using the dense-mask path", "; ".join(bad))
+            return inbag_first, False
+        return True, True
 
     def _resolve_resident(self, layout: str, cuda: bool, rec) -> str:
         """``tpu_resident_state``: ``on`` (checked by the caller) turns the
@@ -1145,7 +1572,8 @@ class SerialTreeLearner:
         bad = split_kernel_ineligible(
             work_layout=layout, hist_mode=mode, bundle=self.bundle,
             num_bin_hist=self.num_bin_hist, num_bin=self.num_bin,
-            comm=self.comm, hp=self.hp, hist_chunk=int(cfg.tpu_hist_chunk))
+            comm=self.comm, hp=self.hp, hist_chunk=int(cfg.tpu_hist_chunk),
+            opts=self.opts)
         if sk == "auto":
             if not cuda:
                 why = ("host tensors: the plain twin of "
@@ -1187,8 +1615,13 @@ class SerialTreeLearner:
         (partition, histogram, split scan, commit) and 5 on the resident
         layout, whose route gather is a launch of its own;
         ``launches_per_split_host_loop`` the per-split host loop's (1; 3 or
-        4 with the torch scan)."""
-        from .ops.partition import RST_GH_OFF, work_spec
+        4 with the torch scan); the per-node options add the node inputs
+        kernel to both. ``effective_rows`` is N, or under GOSS compaction
+        M (``ops/partition.goss_compact_rows``, the JAX package's figure):
+        a 4-sigma bound on the in-bag rows that a compacted tree scans
+        after the warmup trees, expected, not measured (the warmup trees
+        scan all N)."""
+        from .ops.partition import RST_GH_OFF, goss_compact_rows, work_spec
 
         kw = self.build_kwargs()
         layout = kw["work_layout"]
@@ -1199,26 +1632,49 @@ class SerialTreeLearner:
             part += RST_GH_OFF + 1
             hist += f
         one_kernel = kw["split_kernel"] == "on"
+        n = int(self.bins.shape[0])
+        cfg = self.config
+        m = goss_compact_rows(n, float(cfg.top_rate), float(cfg.other_rate)) \
+            if kw["goss_compact"] else n
         return {"work_layout": layout, "work_width": int(w),
                 "partition_bytes_per_row": int(part),
                 "hist_bytes_per_row": int(hist),
                 "split_kernel": kw["split_kernel"],
                 "hist_mxu": "on" if self.config.tpu_hist_mxu == "on"
                 else "off",
-                "effective_rows": int(self.bins.shape[0]),
-                "goss_compact": "off",
-                "launches_per_split": launches_per_split(layout,
-                                                         one_kernel),
+                # rows a pass of a tree is expected to scan at most
+                "effective_rows": int(m),
+                "goss_compact": "on" if kw["goss_compact"] else "off",
+                "launches_per_split": launches_per_split(
+                    layout, one_kernel, node_inputs=self.opts.active),
                 "launches_per_split_host_loop": launches_per_split(
-                    layout, one_kernel, device_loop=False)}
+                    layout, one_kernel, device_loop=False,
+                    node_inputs=self.opts.active)}
+
+    def _work_buffer(self, kw: dict) -> torch.Tensor:
+        """The carried work buffer of the resolved layout."""
+        from .ops.partition import work_buffer
+
+        if self._work is None:
+            self._work = work_buffer(self.bins.shape[0], self.bins.shape[1],
+                                     kw["work_layout"],
+                                     kw["hist_mode"] == "int8", self.device)
+        return self._work
+
+    def _used(self, cegb_used: Optional[torch.Tensor]) -> torch.Tensor:
+        if cegb_used is None:
+            return torch.zeros(self.dataset.num_features, dtype=torch.bool,
+                               device=self.device)
+        return cegb_used
 
     def train(self, ghc: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None,
-              key=None) -> TreeLog:
+              key=None, cegb_used: Optional[torch.Tensor] = None) -> TreeLog:
         """One tree from (grad, hess, inbag) channels; the log stays on
         the device. ``key`` (a ``prng`` key, ``PRNGKey(0)`` when None)
-        seeds the int8 quantization dither."""
-        from .ops.partition import work_buffer
+        seeds the int8 quantization dither and the per-node draws;
+        ``cegb_used`` is the (F,) bool set of features the model has used
+        (CEGB; none when None)."""
         from .prng import PRNGKey
 
         if feature_mask is None:
@@ -1226,15 +1682,13 @@ class SerialTreeLearner:
                                       dtype=torch.bool, device=self.device)
         kw = {k: v for k, v in self._kw.items()
               if k not in ("part_kernel", "hist_kernel")}
-        if self._work is None:
-            self._work = work_buffer(self.bins.shape[0], self.bins.shape[1],
-                                     kw["work_layout"],
-                                     kw["hist_mode"] == "int8", self.device)
         stats: dict = {}
         log = build_tree_partitioned(self.bins, ghc, self.meta, feature_mask,
                                      key=key if key is not None
                                      else PRNGKey(0),
-                                     bins_t=self.bins_t, work=self._work,
+                                     bins_t=self.bins_t,
+                                     work=self._work_buffer(kw),
+                                     cegb_used=self._used(cegb_used),
                                      stats=stats, **kw)
         self.last_stats = stats
         return log
@@ -1243,20 +1697,22 @@ class SerialTreeLearner:
         """Whether :meth:`train_device` can grow this learner's trees: in
         every configuration the learner accepts (the partitioned builder
         on u8 bins, checked at construction): the one-kernel split or the
-        three-launch chain, any layout and histogram mode, EFB bundles and
-        categorical features."""
+        three-launch chain, any layout and histogram mode, EFB bundles,
+        categorical features, the per-node options, forced splits and GOSS
+        compaction."""
         return self.use_partition()
 
     def train_device(self, ghc: torch.Tensor,
                      feature_mask: Optional[torch.Tensor] = None,
-                     key=None) -> TreeLog:
+                     key=None,
+                     cegb_used: Optional[torch.Tensor] = None) -> TreeLog:
         """One tree through the :class:`DeviceTreeLoop` (built once per
         learner, a CUDA graph on the card): no read back to the host from
         the root to the log, which lives on the device (a copy: the next
         tree reuses the loop's buffers). ``key`` (``PRNGKey(0)`` when None)
-        seeds the int8 dither, as in :meth:`train`. Its log equals
+        seeds the int8 dither and the per-node draws and ``cegb_used`` is
+        the model's used features, as in :meth:`train`. Its log equals
         :meth:`train`'s."""
-        from .ops.partition import work_buffer
         from .prng import PRNGKey
 
         if feature_mask is None:
@@ -1264,12 +1720,6 @@ class SerialTreeLearner:
                                       dtype=torch.bool, device=self.device)
         kw = self._kw
         if self._loop is None:
-            quantized = kw["hist_mode"] == "int8"
-            if self._work is None:
-                self._work = work_buffer(self.bins.shape[0],
-                                         self.bins.shape[1],
-                                         kw["work_layout"], quantized,
-                                         self.device)
             self._loop = DeviceTreeLoop(
                 self.bins, self.meta, self.hp, num_leaves=self.num_leaves,
                 num_bin=self.num_bin, max_depth=kw["max_depth"],
@@ -1277,9 +1727,12 @@ class SerialTreeLearner:
                 work_layout=kw["work_layout"],
                 split_kernel=kw["split_kernel"], bundle=self.bundle,
                 dither_offset=kw["dither_offset"], bins_t=self.bins_t,
-                work=self._work)
+                work=self._work_buffer(kw), opts=self.opts,
+                forced=self.forced, inbag_first=kw["inbag_first"],
+                goss_compact=kw["goss_compact"])
         log = self._loop.run(ghc, feature_mask,
-                             key if key is not None else PRNGKey(0))
+                             key if key is not None else PRNGKey(0),
+                             self._used(cegb_used))
         log = TreeLog(*(t.clone() for t in log))
         self.last_stats = dict(self._loop.stats(), row_leaf=log.row_leaf)
         return log

@@ -12,8 +12,10 @@ its plain twin :func:`split_commit_plain` (the host loop's torch code,
 written over device indices, with no read back to the host). Commit ``s``
 applies split ``s - 1``'s one-kernel outputs (``ops/partition.SplitOut``),
 picks split ``s`` (the first argmax of the best gains; live while the
-previous split ran and the gain is positive), records its log entry and
-writes header and pair row ``s`` that the split reads (the one-kernel
+previous split ran and the gain is positive; or, while a tree's forced
+splits hold, forced split ``s`` from the forced-split scan of its leaf),
+records its log entry, the features used on the children's path and by
+the tree, and writes header and pair row ``s`` that the split reads (the one-kernel
 split, or the three-launch chain of ``ops/chain.ChainSplit``). The header's
 ``col`` word is the split feature's column of the work rows through an
 (F,) column map: the feature itself, or its bundle with EFB (the pool and
@@ -75,6 +77,9 @@ class TreeState(NamedTuple):
     num_splits: torch.Tensor   # (1,) i32
     hdr: torch.Tensor          # (L, HDR_WORDS) i32
     pair: torch.Tensor         # (L, PAIR_WORDS) f32
+    leaf_used: torch.Tensor    # (L, F) bool features used on each path
+    tree_used: torch.Tensor    # (F,) bool features the model has used
+    force_live: torch.Tensor   # (1,) i32 the forced splits still hold
 
     @property
     def best(self):
@@ -110,13 +115,18 @@ def tree_state(num_leaves: int, num_feat: int, num_bins: int,
         log_dl=z(L - 1, dtype=b), log_gain=z(L - 1), log_ls=z(L - 1, 3),
         log_rs=z(L - 1, 3), log_go=z(L - 1, B, dtype=b),
         num_splits=z(1, dtype=i32), hdr=z(L, HDR_WORDS, dtype=i32),
-        pair=z(L, PAIR_WORDS))
+        pair=z(L, PAIR_WORDS), leaf_used=z(L, F, dtype=b),
+        tree_used=z(F, dtype=b), force_live=z(1, dtype=i32))
 
 
-def reset_tree_state(st: TreeState, guard: int, n: int) -> None:
+def reset_tree_state(st: TreeState, guard: int, n: int, *,
+                     forced: bool = False, tree_used=None) -> None:
     """The state of a tree before its root: every table at the host
-    loop's initial values, the root's segment ``(guard, n, 0)``. Fills
-    only (no host->device copy), so a CUDA graph holds it."""
+    loop's initial values, the root's segment ``(guard, n, 0)``, the
+    forcing word 1 when the tree has ``forced`` splits and the model's
+    used features from the device tensor ``tree_used`` (none when None).
+    Fills and device copies only (no host->device copy), so a CUDA graph
+    holds it."""
     for t in st:
         t.zero_()
     st.best_gain.fill_(float("-inf"))
@@ -124,6 +134,10 @@ def reset_tree_state(st: TreeState, guard: int, n: int) -> None:
     st.leaf_upper.fill_(float("inf"))
     st.seg_tab[0, 0:1].fill_(guard)
     st.seg_tab[0, 1:2].fill_(n)
+    if forced:
+        st.force_live.fill_(1)
+    if tree_used is not None:
+        st.tree_used.copy_(tree_used)
 
 
 def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -139,14 +153,31 @@ def _put(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         cur.shape), cur))
 
 
+def forced_info(fo: "SplitOut"):
+    """Child 0 of a forced-split scan's outputs as an unbatched
+    ``ops.split.SplitInfo`` of views (the fields the commit reads)."""
+    from .split import SplitInfo
+    B = (fo.bout.shape[0] - 2) // 2
+    return SplitInfo(
+        gain=fo.fout[0:1], feature=fo.iout[0:1], bin=fo.iout[2:3],
+        kind=fo.iout[4:5], default_left=fo.bout[0:1],
+        go_left=fo.bout[2:2 + B][None], left_sum=fo.fout[2:5][None],
+        right_sum=fo.fout[8:11][None], left_output=fo.fout[14:15],
+        right_output=fo.fout[16:17])
+
+
 def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
                        monotone: torch.Tensor, has_monotone: bool,
-                       col_map=None) -> None:
+                       col_map=None, forced=None, n_forced: int = 0,
+                       f_leaf: int = 0, track_used: bool = False) -> None:
     """Plain torch twin of ``csrc/split_commit.cu``: commit ``s`` of the
     tree in ``st`` from the split outputs ``out`` (the host loop's
     bookkeeping, ``learner.build_tree_partitioned``, with every index and
     condition kept on the device); ``col_map`` the (F,) i32 column of each
-    feature, or None (the feature itself)."""
+    feature, or None (the feature itself); ``forced`` the forced-split
+    scan's outputs (a ``SplitOut``, child 0) of slot ``s < n_forced``,
+    whose leaf is ``f_leaf``; ``track_used`` keeps each leaf's used
+    features."""
     dev = st.best_gain.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     L = st.best_gain.shape[0]
@@ -176,12 +207,29 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
         live_in = torch.ones((), dtype=torch.bool, device=dev)
     if s >= L - 1:
         return
-    leaf = torch.argmax(st.best_gain).reshape(1)
+    leaf_b = torch.argmax(st.best_gain).reshape(1)
     new = torch.full((1,), s + 1, dtype=i64, device=dev)
     at = torch.full((1,), s, dtype=i64, device=dev)
+    picked = [_rows(t, leaf_b) for t in st.best]
+    g_best = picked[0][0]
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    forcing = fok = false
+    leaf = leaf_b
+    if s < n_forced and forced is not None:
+        forcing = live_in & (st.force_live[0] != 0)
+        finfo = forced_info(forced)
+        fok = forcing & (finfo.gain[0] > float("-inf"))
+        leaf = torch.where(fok, torch.full_like(leaf_b, f_leaf), leaf_b)
+        picked = [torch.where(fok, f.to(p.dtype), p)
+                  for f, p in zip(finfo, picked)]
     (i_gain, i_feat, i_bin, i_kind, i_dl, i_go, i_ls, i_rs, i_lo,
-     i_ro) = (_rows(t, leaf) for t in st.best)
-    live = live_in & (i_gain[0] > 0)
+     i_ro) = picked
+    cond = live_in & ((g_best > 0) | forcing)
+    live = cond & (i_gain[0] > float("-inf"))
+    if n_forced:
+        keep = live & ~(forcing & ~fok)
+        st.force_live.copy_(torch.where(keep, st.force_live,
+                                        torch.zeros_like(st.force_live)))
     for table, val in ((st.log_leaf, leaf), (st.log_feat, i_feat),
                        (st.log_bin, i_bin), (st.log_kind, i_kind),
                        (st.log_dl, i_dl), (st.log_gain, i_gain),
@@ -209,6 +257,14 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
              torch.where(mono > 0, torch.maximum(lo_p, mid), lo_p), live)
         _put(st.leaf_upper, new,
              torch.where(mono < 0, torch.minimum(up_p, mid), up_p), live)
+    if track_used:
+        F = st.tree_used.shape[0]
+        hot = torch.arange(F, device=dev) == i_feat
+        used = _rows(st.leaf_used, leaf) | hot[None]
+        _put(st.leaf_used, leaf, used, live)
+        _put(st.leaf_used, new, used, live)
+    _put(st.tree_used, i_feat, torch.ones(1, dtype=torch.bool, device=dev),
+         live)
     st.num_splits.add_(live.to(i32))
     pair = torch.cat([i_ls[0], i_rs[0], i_lo, i_ro,
                       _rows(st.leaf_lower, leaf), _rows(st.leaf_lower, new),
@@ -234,43 +290,62 @@ class CommitArgs(ctypes.Structure):
         "leaf_out", "leaf_lower", "leaf_upper", "depth", "log_leaf",
         "log_feat", "log_bin", "log_kind", "log_dl", "log_gain", "log_ls",
         "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone",
-        "col_map")] \
+        "col_map", "leaf_used", "tree_used", "force_live", "ffout", "fiout",
+        "fbout")] \
         + [(name, ctypes.c_int32) for name in (
-            "s", "L", "F", "B", "HF", "HB", "max_depth", "has_monotone")]
+            "s", "L", "F", "B", "HF", "HB", "max_depth", "has_monotone",
+            "n_forced", "f_leaf", "track_used")]
 
 
 class SplitCommit:
     """:func:`split_commit` over one :class:`TreeState` and one set of
-    split outputs: the pointers are packed once, each call sets ``s`` and
-    launches."""
+    split outputs: the pointers are packed once, each call sets ``s`` (and
+    the forced leaf of slot ``s``) and launches. ``forced`` (a
+    ``SplitOut``) holds the forced-split scan of slots ``s < n_forced``;
+    ``track_used`` keeps each leaf's used features (interaction
+    constraints)."""
 
     def __init__(self, st: TreeState, out, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
-                 col_map=None) -> None:
+                 col_map=None, forced=None, n_forced: int = 0,
+                 track_used: bool = False) -> None:
         _check_commit(st, out, monotone, col_map)
+        if n_forced and forced is None:
+            raise ValueError("split_commit: forced splits need the "
+                             "forced-split scan's outputs")
         self.st, self.out = st, out
         self.max_depth, self.has_monotone = int(max_depth), bool(has_monotone)
         self.monotone, self.col_map = monotone, col_map
+        self.forced, self.n_forced = forced, int(n_forced)
+        self.track_used = bool(track_used)
         self._args = None
         if st.best_gain.device.type == "cpu":
             return
         extra = () if col_map is None else (col_map,)
+        if forced is not None:
+            extra += tuple(forced)
         check_on_card("split_commit", st.hdr, *st, *out, monotone, *extra)
         L, HF, HB = (st.best_gain.shape[0], st.hist_pool.shape[1],
                      st.hist_pool.shape[2])
         F, B = monotone.shape[0], st.best_go.shape[1]
         ptrs = {f: getattr(st, f).data_ptr() for f in TreeState._fields}
         ptrs.update({f: getattr(out, f).data_ptr() for f in out._fields})
+        if forced is not None:
+            ptrs.update(ffout=forced.fout.data_ptr(),
+                        fiout=forced.iout.data_ptr(),
+                        fbout=forced.bout.data_ptr())
         self._args = CommitArgs(monotone=monotone.data_ptr(),
                                 col_map=0 if col_map is None
                                 else col_map.data_ptr(),
                                 L=L, F=F, B=B, HF=HF, HB=HB,
                                 max_depth=self.max_depth,
                                 has_monotone=int(self.has_monotone),
+                                n_forced=self.n_forced,
+                                track_used=int(self.track_used),
                                 **{f: ptrs[f] for f, _ in CommitArgs._fields_
                                    if f in ptrs})
 
-    def __call__(self, s: int) -> None:
+    def __call__(self, s: int, f_leaf: int = 0) -> None:
         L = self.st.best_gain.shape[0]
         if not 0 <= s < L:
             raise ValueError("split_commit: s = %d outside [0, %d)" % (s, L))
@@ -278,25 +353,32 @@ class SplitCommit:
             split_commit_plain(self.st, self.out, s, max_depth=self.max_depth,
                                monotone=self.monotone,
                                has_monotone=self.has_monotone,
-                               col_map=self.col_map)
+                               col_map=self.col_map, forced=self.forced,
+                               n_forced=self.n_forced, f_leaf=f_leaf,
+                               track_used=self.track_used)
             return
         self._args.s = s
+        self._args.f_leaf = int(f_leaf)
         COMMIT_KERNEL.launch(ctypes.addressof(self._args), COMMIT_BLOCKS,
                              stream_of(self.st.hdr))
 
 
 def split_commit(st: TreeState, out, s: int, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
-                 col_map=None) -> None:
+                 col_map=None, forced=None, n_forced: int = 0,
+                 f_leaf: int = 0, track_used: bool = False) -> None:
     """Commit ``s`` of the tree in ``st`` (in place) from the split
     outputs ``out`` (``ops/partition.SplitOut``): apply split ``s - 1``,
-    pick split ``s``, record it and write its header and pair rows.
+    pick split ``s`` (forced split ``s`` from ``forced``, the forced-split
+    scan of leaf ``f_leaf``, while the tree's forced splits hold and ``s <
+    n_forced``), record it and write its header and pair rows.
     ``monotone`` is the (F,) i8 constraint of each feature, ``col_map``
     the (F,) i32 work-row column of each feature (None: the feature). On a
     CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
     :func:`split_commit_plain`. Nothing is read back to the host."""
     SplitCommit(st, out, max_depth=max_depth, monotone=monotone,
-                has_monotone=has_monotone, col_map=col_map)(s)
+                has_monotone=has_monotone, col_map=col_map, forced=forced,
+                n_forced=n_forced, track_used=track_used)(s, f_leaf)
 
 
 def _check_commit(st: TreeState, out, monotone: torch.Tensor,

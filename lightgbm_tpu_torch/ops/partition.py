@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -168,6 +169,38 @@ def dither_offset(num_groups: int, part_chunk: int = 0,
     hc = hist_chunk if hist_chunk > 0 else (4096 if num_groups <= 64
                                             else 1024)
     return max(pc, hc)
+
+
+def goss_compact_rows(n: int, top_rate: float, other_rate: float) -> int:
+    """The compact row count M of GOSS compaction (the JAX package's
+    ``goss_compact_rows``): the ``top_k`` rows GOSS always keeps plus the
+    expected sample of the rest, with a 4-sigma margin and 32 rows of
+    slack, at most ``n``. The JAX package grows a compacted tree over a
+    static M-row prefix; here it is the rows a compacted tree is expected
+    to scan at most (``traffic_spec``), and ``M = n`` leaves nothing to
+    compact."""
+    top_k = max(1, int(n * top_rate))
+    rest = max(0, n - top_k)
+    p = min(1.0, other_rate / max(1e-12, 1.0 - top_rate))
+    slack = 4.0 * math.sqrt(rest * p * (1.0 - p)) + 32.0
+    return min(n, top_k + int(math.ceil(rest * p + slack)))
+
+
+def inbag_order(ghc: torch.Tensor):
+    """The rows in GOSS compaction's order: the in-bag rows (``ghc[:, 2] >
+    0``) first in their order, then the out-of-bag rows in theirs (the
+    order of the JAX package's ``compact_rows_by_inbag``) -> ``(order,
+    c)``: the (N,) i64 row of each position and the (1,) i64 in-bag count
+    ``c``, both on the device. A stable split by prefix sums; nothing is
+    read back to the host, so a CUDA graph holds it."""
+    n = ghc.shape[0]
+    dev = ghc.device
+    inbag = ghc[:, 2] > 0
+    cin = torch.cumsum(inbag.to(torch.int64), dim=0)
+    c = cin[n - 1:]
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = torch.where(inbag, cin - 1, c + (iota - cin))
+    return torch.empty_like(iota).scatter_(0, pos, iota), c
 
 
 def planes_npad(n: int, guard: int = GUARD) -> int:
@@ -680,11 +713,11 @@ class OneKernelArgs(ctypes.Structure):
         "cand_bin", "num_dl", "rank", "lt", "hist_left", "hist_right",
         "gain", "feature", "bin", "kind", "default_left", "go_left",
         "left_sum", "right_sum", "left_output", "right_output", "res",
-        "stamps")] \
+        "stamps", "rand_thr", "cegb")] \
         + [(name, ctypes.c_int32) for name in (
             "W", "npad", "table_bins", "F", "B", "nch", "groups",
             "max_cat_to_onehot", "has_categorical", "has_monotone",
-            "use_mono_penalty", "npad_res")] \
+            "use_mono_penalty", "npad_res", "mask_stride")] \
         + [(name, ctypes.c_float) for name in (
             "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split", "max_delta_step",
@@ -1059,9 +1092,11 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
     check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat)
 
 
-def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat) -> None:
+def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat,
+                      cegb_ok=False) -> None:
     """What a split scan kernel takes for a whole tree: the FeatureMeta
-    columns, the search mask and hyperparameters it has fields for."""
+    columns, the search mask and hyperparameters it has fields for
+    (``cegb_ok``: the kernel takes CEGB penalties)."""
     if not 0 < num_bins <= 256:
         raise ValueError("%s: needs 0 < num_bins <= 256, got %d"
                          % (name, num_bins))
@@ -1076,7 +1111,8 @@ def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat) -> None:
                                 tuple(t.shape), t.dtype))
     if fmask.dtype != torch.bool or fmask.shape != (num_feat,):
         raise ValueError("%s: fmask must be (%d,) bool" % (name, num_feat))
-    if hp.use_cegb or hp.mono_intermediate or hp.mono_advanced:
+    if (hp.use_cegb and not cegb_ok) or hp.mono_intermediate \
+            or hp.mono_advanced:
         raise ValueError("%s: CEGB and intermediate/advanced monotone "
                          "constraints are not inputs of the kernel" % name)
 
@@ -1192,6 +1228,24 @@ def put_split_infos(out: "SplitOut", infos, live: torch.Tensor) -> None:
     bout = torch.cat([infos.default_left, infos.go_left.reshape(-1)])
     for buf, val in ((out.fout, fout), (out.iout, iout), (out.bout, bout)):
         buf.copy_(torch.where(live, val.to(buf.dtype), buf))
+
+
+def put_split_info0(out: "SplitOut", info, live: torch.Tensor) -> None:
+    """An unbatched ``SplitInfo`` into child 0 of ``out`` where ``live``
+    (a 0-d bool), the other child's slots unchanged."""
+    fo, io, bo = out.fout, out.iout, out.bout
+    B = info.go_left.shape[-1]
+    for buf, idx, val in (
+            (fo, [0], info.gain), (fo, [2, 3, 4], info.left_sum),
+            (fo, [8, 9, 10], info.right_sum), (fo, [14], info.left_output),
+            (fo, [16], info.right_output), (io, [0], info.feature),
+            (io, [2], info.bin), (io, [4], info.kind),
+            (bo, [0], info.default_left),
+            (bo, list(range(2, 2 + B)), info.go_left)):
+        ix = torch.tensor(idx, dtype=torch.int64, device=buf.device)
+        cur = buf.index_select(0, ix)
+        buf.index_copy_(0, ix, torch.where(
+            live, val.reshape(-1).to(buf.dtype), cur))
 
 
 def one_kernel_split_header_plain(work, hdr, go_left, pool, pair, out, meta,

@@ -1,12 +1,15 @@
 """The split scan of a split's two children in one launch: the third
-launch of the device tree loop's three-launch chain (``ops/chain.py``).
+launch of the device tree loop's three-launch chain (``ops/chain.py``),
+and the scan of a forced split's leaf (:meth:`SplitScan.scan_leaf`).
 
 :class:`SplitScan` computes what :func:`ops.split.find_best_split` computes
 over a (2, F, B, 3) batch of child histograms, with the children's sums,
 outputs and bounds from the split's pair row and the node depth from its
 device header (``ops/partition.ONE_KERNEL_HDR``; a header whose live word
 is 0 writes nothing), into the ``ops/partition.SplitOut`` buffers that the
-split commit reads. On a CUDA tensor it launches ``csrc/split_scan.cu``,
+split commit reads. Each child may carry its own inputs from
+``ops/node.py`` (an ``ops/node.NodeBuf``: its search mask, extra-trees
+threshold bins and CEGB penalties). On a CUDA tensor it launches ``csrc/split_scan.cu``,
 the one-kernel split's phase C in torch's summation order on the card, so
 its outputs equal ``find_best_split``'s there bit for bit; on a CPU tensor
 its plain twin :func:`split_scan_plain` is ``find_best_split`` itself. The
@@ -21,7 +24,8 @@ import torch
 
 from .kernels import CudaKernel, register, stream_of
 from .partition import (HDR_WORDS, PAIR_WORDS, SplitOut, _hyper_fields,
-                        check_on_card, check_scan_inputs, put_split_infos)
+                        check_on_card, check_scan_inputs, put_split_infos,
+                        put_split_info0)
 
 _P = ctypes.c_void_p
 #: torch's op-by-op rounding: no contracted multiply-adds
@@ -33,15 +37,16 @@ class SplitScanArgs(ctypes.Structure):
     """The C struct ``SplitScanArgs`` of ``csrc/split_scan.cu`` (same
     fields, same order)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "hists", "hdr", "num_bins", "movable", "missing_bin", "is_cat",
-        "monotone", "penalty", "fmask", "sums2", "outs2", "lows2", "ups2",
+        "hists", "live", "depth", "num_bins", "movable", "missing_bin",
+        "is_cat", "monotone", "penalty", "fmask", "rand_thr", "cegb",
+        "sums2", "outs2", "lows2", "ups2",
         "done", "cand_gain", "cand_bin", "num_dl", "rank", "hist_left",
         "hist_right", "gain", "feature", "bin", "kind", "default_left",
         "go_left", "left_sum", "right_sum", "left_output",
         "right_output")] \
         + [(name, ctypes.c_int32) for name in (
             "F", "B", "max_cat_to_onehot", "has_categorical", "has_monotone",
-            "use_mono_penalty")] \
+            "use_mono_penalty", "mask_stride", "nodes")] \
         + [(name, ctypes.c_float) for name in (
             "lambda_l1", "lambda_l2", "two_l1", "l2_cat", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split", "max_delta_step",
@@ -49,31 +54,74 @@ class SplitScanArgs(ctypes.Structure):
             "monotone_penalty", "max_cat_threshold")]
 
 
-def split_scan_plain(hists, pair, hdr, out, meta, fmask, hp) -> None:
+def split_scan_plain(hists, pair, hdr, out, meta, fmask, hp,
+                     node=None) -> None:
     """Plain twin of :class:`SplitScan`: ``find_best_split`` over the
-    (2, F, B, 3) ``hists`` with the pair row's sums, outputs and bounds and
-    the header's depth, written into ``out`` where the header is live (no
-    host read)."""
+    (2, F, B, 3) ``hists`` with the pair row's sums, outputs and bounds,
+    the header's depth and the children's ``node`` inputs (an
+    ``ops/node.NodeBuf``, or None: ``fmask`` for both), written into
+    ``out`` where the header is live (no host read)."""
     from .split import find_best_split
 
     w = hdr.to(torch.int64).unbind()
-    infos = find_best_split(hists, pair[0:6].view(2, 3), meta, fmask, hp,
+    mask, thr, delta = (fmask, None, None) if node is None \
+        else node.rows(2)
+    infos = find_best_split(hists, pair[0:6].view(2, 3), meta, mask, hp,
                             parent_output=pair[6:8], leaf_lower=pair[8:10],
-                            leaf_upper=pair[10:12], node_depth=w[5])
+                            leaf_upper=pair[10:12], node_depth=w[5],
+                            rand_threshold=thr, cegb_delta=delta)
     put_split_infos(out, infos, w[6] != 0)
+
+
+def scan_leaf_info(hist, sums, outs, lows, ups, depth, mask, thr, meta,
+                   hp):
+    """``find_best_split`` of one leaf (a forced split's: JAX
+    ``pick_forced``) under the (F,) ``mask`` and threshold bins ``thr``,
+    without CEGB, as an unbatched ``SplitInfo``. It runs as a batch of two
+    copies of the leaf: torch then sums the winner's bins in the order the
+    split scan kernel follows on the card (a (2, B, 3) reduction), so the
+    kernel's one-leaf scan is bit-equal to it there too."""
+    from .split import SplitInfo, find_best_split
+
+    info = find_best_split(
+        torch.stack([hist, hist]), torch.stack([sums.reshape(3)] * 2),
+        meta, torch.stack([mask, mask]), hp,
+        parent_output=outs.reshape(1).expand(2),
+        leaf_lower=lows.reshape(1).expand(2),
+        leaf_upper=ups.reshape(1).expand(2),
+        node_depth=depth.reshape(-1)[0] if isinstance(depth, torch.Tensor)
+        else depth, rand_threshold=torch.stack([thr, thr]))
+    return SplitInfo(*(x[0] for x in info))
+
+
+def scan_leaf_plain(hist, sums, outs, lows, ups, depth, live, mask, thr,
+                    out, meta, hp) -> None:
+    """Plain twin of :meth:`SplitScan.scan_leaf`: :func:`scan_leaf_info`
+    into child 0 of ``out`` where ``live``."""
+    info = scan_leaf_info(hist, sums, outs, lows, ups, depth, mask, thr,
+                          meta, hp)
+    put_split_info0(out, info, live.reshape(-1)[0] != 0)
 
 
 class SplitScan:
     """The split scan over one learner's features: what stays fixed for a
     tree (``meta``, ``fmask``, ``hp``, the shapes) is checked once and, on
     the card, packed once into the C argument struct beside the scratch;
-    each call fills in one split's pointers and launches 2F blocks."""
+    each call fills in one split's pointers and launches 2F blocks (F for
+    :meth:`scan_leaf`). ``node``, an ``ops/node.NodeBuf`` (or None), holds
+    the children's own masks, threshold bins and CEGB penalties, which
+    every call reads."""
 
     def __init__(self, meta, fmask, hp, *, num_feat: int, num_bins: int,
-                 device) -> None:
-        check_scan_inputs("split_scan", meta, fmask, hp, num_bins, num_feat)
+                 device, node=None) -> None:
+        check_scan_inputs("split_scan", meta, fmask, hp, num_bins, num_feat,
+                          cegb_ok=True)
+        if hp.use_cegb and (node is None or node.delta is None):
+            raise ValueError("split_scan: CEGB needs the nodes' penalties "
+                             "(an ops/node.NodeBuf with delta)")
         self.meta, self.fmask, self.hp = meta, fmask, hp
         self.num_feat, self.num_bins = num_feat, num_bins
+        self.node = node
         self._args = None
         if torch.device(device).type == "cpu":
             return
@@ -93,10 +141,36 @@ class SplitScan:
             missing_bin=meta.missing_bin.data_ptr(),
             is_cat=meta.is_categorical.data_ptr(),
             monotone=meta.monotone.data_ptr(),
-            penalty=meta.penalty.data_ptr(), fmask=fmask.data_ptr(),
+            penalty=meta.penalty.data_ptr(),
             done=done.data_ptr(), cand_gain=cand.data_ptr(),
             cand_bin=cand.data_ptr() + 4 * 8 * F, num_dl=fl,
             rank=fl + 2 * F * B, F=F, B=B, **_hyper_fields(hp))
+
+    def _check_out(self, out: SplitOut) -> None:
+        B = self.num_bins
+        if out.bout.shape != (2 + 2 * B,):
+            raise ValueError("split_scan: out.bout must be (%d,) bool"
+                             % (2 + 2 * B))
+
+    def _launch(self, hists, live, depth, sums, outs, lows, ups, masks,
+                stride, thr, delta, out, nodes) -> None:
+        F, B = self.num_feat, self.num_bins
+        a = self._args
+        hp_ = hists.data_ptr()
+        fo, io, bo = (out.fout.data_ptr(), out.iout.data_ptr(),
+                      out.bout.data_ptr())
+        a.hists, a.hist_left, a.hist_right = hp_, hp_, hp_ + 4 * F * B * 3
+        a.live, a.depth = live.data_ptr(), depth.data_ptr()
+        a.sums2, a.outs2, a.lows2, a.ups2 = sums, outs, lows, ups
+        a.fmask, a.mask_stride = masks.data_ptr(), stride
+        a.rand_thr = 0 if thr is None else thr.data_ptr()
+        a.cegb = 0 if delta is None else delta.data_ptr()
+        a.nodes = nodes
+        a.gain, a.left_sum, a.right_sum = fo, fo + 8, fo + 32
+        a.left_output, a.right_output = fo + 56, fo + 64
+        a.feature, a.bin, a.kind = io, io + 16, io + 32
+        a.default_left, a.go_left = bo, bo + 2
+        SCAN_KERNEL.launch(ctypes.addressof(a), stream_of(hists))
 
     def __call__(self, hists: torch.Tensor, pair: torch.Tensor,
                  hdr: torch.Tensor, out: SplitOut) -> None:
@@ -114,26 +188,48 @@ class SplitScan:
         if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
             raise ValueError("split_scan: hdr must be (%d,) int32"
                              % HDR_WORDS)
-        if out.bout.shape != (2 + 2 * B,):
-            raise ValueError("split_scan: out.bout must be (%d,) bool"
-                             % (2 + 2 * B))
+        self._check_out(out)
         if self._args is None:
             split_scan_plain(hists, pair, hdr, out, self.meta, self.fmask,
-                             self.hp)
+                             self.hp, self.node)
             return
         check_on_card("split_scan", hists, pair, hdr, out.fout, out.iout,
                       out.bout)
-        a = self._args
-        hp_ = hists.data_ptr()
+        node = self.node
+        masks, stride, thr, delta = (self.fmask, 0, None, None) \
+            if node is None else (node.mask, F, node.thr, node.delta)
         pp = pair.data_ptr()
-        fo, io, bo = (out.fout.data_ptr(), out.iout.data_ptr(),
-                      out.bout.data_ptr())
-        a.hists, a.hist_left, a.hist_right = hp_, hp_, hp_ + 4 * F * B * 3
-        a.hdr = hdr.data_ptr()
-        a.sums2, a.outs2, a.lows2, a.ups2 = pp, pp + 24, pp + 32, pp + 40
-        a.gain, a.left_sum, a.right_sum = fo, fo + 8, fo + 32
-        a.left_output, a.right_output = fo + 56, fo + 64
-        a.feature, a.bin, a.kind = io, io + 16, io + 32
-        a.default_left, a.go_left = bo, bo + 2
-        SCAN_KERNEL.launch(ctypes.addressof(a), stream_of(hists))
+        self._launch(hists, hdr[6:7], hdr[5:6], pp, pp + 24, pp + 32,
+                     pp + 40, masks, stride, thr, delta, out, 2)
 
+    def scan_leaf(self, hist: torch.Tensor, sums: torch.Tensor,
+                  outs: torch.Tensor, lows: torch.Tensor, ups: torch.Tensor,
+                  depth: torch.Tensor, live: torch.Tensor,
+                  mask: torch.Tensor, thr: torch.Tensor,
+                  out: SplitOut) -> None:
+        """The scan of one leaf, a forced split's (JAX ``pick_forced``):
+        the (1, F, B, 3) f32 ``hist``, its (3,) ``sums``, (1,) output and
+        bounds, (1,) i32 ``depth`` and ``live`` words (device tensors, such
+        as rows of the tree state), the (F,) bool ``mask`` (the forced
+        feature alone) and (F,) i32 threshold bins ``thr`` (the forced
+        bin): ``find_best_split`` under them, without CEGB, into child 0
+        of ``out``, where ``live``."""
+        F, B = self.num_feat, self.num_bins
+        if hist.dtype != torch.float32 or hist.shape != (1, F, B, 3) \
+                or not hist.is_contiguous():
+            raise ValueError("split_scan: hist must be contiguous (1, %d, "
+                             "%d, 3) f32" % (F, B))
+        if mask.shape != (F,) or thr.shape != (F,) \
+                or thr.dtype != torch.int32 or mask.dtype != torch.bool:
+            raise ValueError("split_scan: mask (%d,) bool and thr (%d,) "
+                             "int32" % (F, F))
+        self._check_out(out)
+        if self._args is None:
+            scan_leaf_plain(hist[0], sums, outs, lows, ups, depth, live,
+                            mask, thr, out, self.meta, self.hp)
+            return
+        check_on_card("split_scan", hist, sums, outs, lows, ups, depth,
+                      live, mask, thr, out.fout)
+        self._launch(hist, live, depth, sums.data_ptr(), outs.data_ptr(),
+                     lows.data_ptr(), ups.data_ptr(), mask, 0, thr, None,
+                     out, 1)

@@ -166,7 +166,7 @@ def find_best_split(
     hist: torch.Tensor,          # (F, B, 3) or (P, F, B, 3) f32
     parent_sum: torch.Tensor,    # (3,) or (P, 3)
     meta: FeatureMeta,
-    feature_mask: torch.Tensor,  # (F,) bool
+    feature_mask: torch.Tensor,  # (F,) or per node (P, F) bool
     hp: SplitHyper,
     *,
     parent_output=0.0,
@@ -183,7 +183,10 @@ def find_best_split(
     of leaves). With ``want_feature_gains`` returns only the per-feature
     max gains; with ``want_candidates`` the whole ``(P, 4, F, B)`` table of
     candidate gains (kind, feature, bin) whose flat first maximum is the
-    winner, ``-inf`` where a candidate is not live."""
+    winner, ``-inf`` where a candidate is not live. ``feature_mask``,
+    ``rand_threshold`` (extra-trees: the one numerical threshold bin each
+    feature may take) and ``cegb_delta`` may be (F,) for every node or
+    (P, F), one row a node (the by-node draws of the learner)."""
     single = hist.dim() == 3
     if single:
         hist = hist[None]
@@ -229,12 +232,15 @@ def find_best_split(
 
     t_valid = (b_iota[None, :] < nb[:, None] - 1) \
         & ~meta.is_categorical[:, None]
+    t_valid = t_valid[None]                                    # (1, F, B)
     if rand_threshold is not None:
-        t_valid = t_valid & (b_iota[None, :] == rand_threshold.long()[:, None])
+        rt = rand_threshold.long()
+        rt = rt[None] if rt.dim() == 1 else rt                 # (P|1, F)
+        t_valid = t_valid & (b_iota[None, None, :] == rt[:, :, None])
     gains2 = eval_dir(torch.stack([cum, cum + miss[:, :, None, :]], dim=0))
     gains2 = torch.where(
-        torch.stack([t_valid, t_valid & meta.movable_missing[:, None]],
-                    dim=0)[:, None], gains2, neg)              # (2, P, F, B)
+        torch.stack([t_valid, t_valid & meta.movable_missing[None, :, None]],
+                    dim=0), gains2, neg)                       # (2, P, F, B)
     gain_dr, gain_dl = gains2[0], gains2[1]
     num_gain = torch.maximum(gain_dr, gain_dl)                 # (P, F, B)
     num_dl = gain_dl > gain_dr
@@ -295,7 +301,8 @@ def find_best_split(
     # ---------- combine ----------
     stacked = torch.stack([num_gain, oh_gain, mvm_asc, mvm_desc],
                           dim=1)                               # (P, 4, F, B)
-    live = (stacked > NEG_INF) & feature_mask[None, None, :, None]
+    fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    live = (stacked > NEG_INF) & fm[:, None, :, None]
     adj = stacked * meta.penalty[None, None, :, None]
     if hp.has_monotone and hp.monotone_penalty > 0 and node_depth is not None:
         p = torch.full((), hp.monotone_penalty, dtype=f32, device=dev)

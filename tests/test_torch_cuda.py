@@ -18,8 +18,8 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
 from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
-                                    histogram, kernels, partition, rank,
-                                    route, scan)
+                                    histogram, kernels, node, partition,
+                                    rank, route, scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -515,3 +515,39 @@ def test_small_objectives_card_vs_host(card):
     out = chip_smoke.phase_objectives(card, data, "test", rows=20000,
                                       trees=2, leaves=15)
     assert set(out) == set(chip_smoke.OBJECTIVES)
+
+
+def test_node_inputs_match_twin_on_card(card):
+    """The node inputs kernel against its twin run by torch on the card
+    (chip_smoke.check_node_draws): by-node masks, extra-trees bins,
+    constraint masks and CEGB penalties bit-equal at F = 28 and 137 (and
+    137 with 300 constraint sets), the leaf given or read from a header
+    word, a dead live word."""
+    before = kernels.launch_counts()["node_inputs"]
+    rng = np.random.RandomState(21)
+    for F, S in ((28, 3), (137, 3), (137, chip_smoke.NODE_MANY_SETS)):
+        assert chip_smoke.check_node_draws("F%d" % F, card, rng, F,
+                                           S=S) == 0.0
+    assert kernels.launch_counts()["node_inputs"] - before == 3 * (8 + 1)
+
+
+def test_extended_commit_matches_twin_on_card(card):
+    """The split commit with forced splits and used features against its
+    twin: a forced round, a forced round whose leaf cannot split there and
+    one where nothing can split (chip_smoke.phase_commit_options)."""
+    errs = chip_smoke.phase_commit_options(card, np.random.RandomState(8))
+    assert set(errs) == {"commit/" + c[0]
+                         for c in chip_smoke.COMMIT_FORCED_CASES}
+
+
+def test_options_scan_and_forced_leaf_on_card(card, tmp_path):
+    """The split scan with every node input live against find_best_split
+    at a small learner's root and deep leaf, and the forced leaf's scan at
+    each forced slot (chip_smoke.phase_options_kernels)."""
+    data = chip_smoke.training_data(2, 30000, 0)
+    forced = chip_smoke.forced_json(str(tmp_path / "forced.json"))
+    errs, _, _ = chip_smoke.phase_options_kernels(
+        card, np.random.RandomState(9), data, forced, 30000, 31)
+    assert {"split_scan/options/root", "split_scan/options/deep"} \
+        <= set(errs)
+    assert max(errs.values()) == 0.0

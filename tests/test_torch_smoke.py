@@ -331,3 +331,30 @@ def test_mixed_phase_small_on_cpu(one_thread):
     assert all(v == 0 for v in counts.values()) and row == {}
     assert len(errs) == 8 and max(errs.values()) == 0.0
     assert {"split_scan/mixed/root", "split_scan/mixed/deep"} <= set(errs)
+
+
+def test_options_phase_small_on_cpu(data, one_thread):
+    """Phase 3h at a tiny size on host tensors: (a)-(d) fused with the
+    per-iteration trees byte-equal to the first fused ones, (d)'s trees
+    with the forced splits at their top levels, compaction on vs off, the
+    node inputs, forced-leaf scan, extended scan and commit checks (twins
+    against twins here), card vs host (host against host)."""
+    summary, counts, errs, rows = chip_smoke.phase_options(
+        CPU, data, "cpu", trees=3, per_iter=2, leaves=15, host_rows=1500,
+        host_trees=2, host_leaves=15, timed=False)
+    assert set(summary) == {"bynode_extra", "constraints_cegb_forced",
+                            "goss_compact_on", "goss_compact_off",
+                            "forced_one_kernel"}
+    assert all(summary[k]["per_iteration_equal"] for k in (
+        "bynode_extra", "constraints_cegb_forced", "forced_one_kernel"))
+    assert summary["goss_compact_on"]["equal_to_off"]
+    assert {"node_inputs/F28", "node_inputs/F137", "node_inputs/F137/S300",
+            "goss_compact/bits", "split_scan/options/root",
+            "split_scan/options/deep"} <= set(errs)
+    assert {"commit/" + c[0] for c in chip_smoke.COMMIT_FORCED_CASES} \
+        <= set(errs)
+    assert len([k for k in errs if k.startswith("split_scan/forced_leaf/")]) \
+        == len(chip_smoke.OPTIONS_FORCED)
+    assert max(errs.values()) == 0.0
+    assert all(v == 0 for c in counts.values() for v in c.values())
+    assert rows == {"extended": {}}

@@ -247,9 +247,22 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
     {"tree_builder": "dense"},
 ])
 def test_unsupported_settings_raise(tmp_path, extra):
+    """Settings the port does not train raise naming their ROADMAP item.
+    The per-node split options, forced splits (a file that is not there
+    warns and forces nothing, as in the JAX package) and GOSS compaction
+    (where GOSS does not sample it warns and keeps the dense path) train
+    since they were ported, and raise no longer."""
     _, path, _, _, _ = jax_dataset("binary", tmp_path, n=200, seed=3)
     params = dict(train_params("binary"), **CPU)
     params.update(extra)
+    ported = ("tpu_goss_compact", "feature_fraction_bynode", "extra_trees",
+              "interaction_constraints", "cegb_penalty_split",
+              "forcedsplits_filename")
+    if any(k in extra for k in ported):
+        bst = lgt.train(params, lgt.dataset_from_reference(path, CPU), 2)
+        assert bst.current_iteration == 2
+        assert bst.inner.models[0].num_leaves > 1
+        return
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lgt.train(params, lgt.dataset_from_reference(path, CPU), 1)
 
