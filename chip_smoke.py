@@ -12,12 +12,14 @@
     python3 chip_smoke.py --options-only  # phase 3h: the per-node split
                                           # options, forced splits, GOSS
                                           # compaction
+    python3 chip_smoke.py --monotone-only # phase 3i: intermediate and
+                                          # advanced monotone, DART, RF
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Fifteen phases, each fatal on failure:
+the checkout it sits in. Sixteen phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: twelve
-                sources, sixteen entry points), one nvcc per source,
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: thirteen
+                sources, eighteen entry points), one nvcc per source,
                 started together; then the two host libraries
                 (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -228,6 +230,33 @@ the checkout it sits in. Fifteen phases, each fatal on failure:
                 slot, the extended commit at COMMIT_FORCED_CASES; (a) and
                 (b) card vs host at OPTIONS_HOST_ROWS rows (train logloss
                 within OPTIONS_METRIC_TOL) (alone: ``--options-only``).
+3i. monotone -- phase 3's data, 255 leaves: MONO_TREES fused trees of
+                each of (a) intermediate and (b) advanced monotone
+                constraints on MONO_COLUMNS (8 of the 28 columns, mixed
+                signs) through the device tree loop (the chain; advanced
+                launches mono_commit and mono_bounds each split), launch
+                counts zeroed just before each run and read just after;
+                MONO_PER_ITER_TREES trees per iteration byte-equal to the
+                first fused ones; the steady wall of a second block; the
+                monotonicity sweep (MONO_SWEEP_ROWS rows, each constrained
+                column through its bins, predicted through the forest
+                kernel: no step against the sign beyond MONO_SWEEP_TOL);
+                the same for (e) intermediate and (f) advanced on the two
+                MONO_PAIR_COLUMNS, where (f) must differ from (e), as (b)
+                must equal (a); (c) DART (drop_rate 0.1, skip_drop 0) and
+                (d) RF (bagging 0.7, feature_fraction 0.8),
+                MONO_BOOST_TREES trees each per iteration with the valid
+                set, valid AUC. mono_bounds and mono_commit against their
+                twins at F = 28 and 137 (L = 63) and F = 28, L = 255 (a
+                numerical winner, a categorical one, an invalid round),
+                the extended commit under both methods (L = 63 and 255),
+                the split scan with per-candidate bounds against
+                find_best_split at the root and a deep leaf, and on each
+                fused learner's state at its middle and last live slots
+                the commit, mono_commit, mono_bounds and the scan, all bit
+                for bit; (a)-(d) and (f) card vs host at MONO_HOST_ROWS
+                rows (train logloss within OPTIONS_METRIC_TOL) (alone:
+                ``--monotone-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -5442,8 +5471,10 @@ def time_options_kernels(dev, every, forced, errs):
     return rows, extended
 
 
-def options_run(dev, data, name, extra, trees, per_iter, leaves):
-    """One configuration of phase 3h at full width: fused ``trees`` trees
+def options_run(dev, data, name, extra, trees, per_iter, leaves,
+                tag="3h"):
+    """One configuration of phase 3h (``tag``) at full width: fused
+    ``trees`` trees
     (launch counts zeroed just before, read just after), then ``per_iter``
     trees per iteration (a callback) whose model must be the first fused
     trees' byte for byte (``per_iter`` 0: none), then ``trees`` more fused
@@ -5466,8 +5497,8 @@ def options_run(dev, data, name, extra, trees, per_iter, leaves):
     counts = kernels.launch_counts()
     g = bst.inner
     if g._fused is None:
-        raise AssertionError("phase 3h %s: training did not take the fused "
-                             "path" % name)
+        raise AssertionError("phase %s %s: training did not take the fused "
+                             "path" % (tag, name))
     text = bst.model_to_string()
     Xv, yv = data[2], data[3]
     s = dict(trees=trees, wall_per_tree_ms=wall / trees * 1e3,
@@ -5484,9 +5515,9 @@ def options_run(dev, data, name, extra, trees, per_iter, leaves):
         s["per_iteration_wall_per_tree_ms"] = \
             (time.perf_counter() - t0) / per_iter * 1e3
         if model_text(eager, per_iter) != model_text(bst, per_iter):
-            raise AssertionError("phase 3h %s: the per-iteration model is "
+            raise AssertionError("phase %s %s: the per-iteration model is "
                                  "not the first fused trees' byte for byte"
-                                 % name)
+                                 % (tag, name))
         s["per_iteration_equal"] = True
     sync(dev)
     t0 = time.perf_counter()
@@ -5494,12 +5525,13 @@ def options_run(dev, data, name, extra, trees, per_iter, leaves):
     g.finish_fused("steady")
     sync(dev)
     s["steady_wall_per_tree_ms"] = (time.perf_counter() - t0) / trees * 1e3
-    log("phase 3h %s: %d fused trees in %.1f ms a tree with the first "
+    log("phase %s %s: %d fused trees in %.1f ms a tree with the first "
         "eager trees and the graph captures, %.1f ms a tree in a second "
         "block (%s), leaves %s, train logloss %.7f, valid logloss %s, "
         "sha256 %s; launches %s"
-        % (name, trees, s["wall_per_tree_ms"], s["steady_wall_per_tree_ms"],
-           s["split_kernel"], s["leaves"], s["train_logloss"],
+        % (tag, name, trees, s["wall_per_tree_ms"],
+           s["steady_wall_per_tree_ms"], s["split_kernel"], s["leaves"],
+           s["train_logloss"],
            s["valid_logloss"], s["model_sha256"], counts))
     return bst, counts, s
 
@@ -5511,7 +5543,8 @@ def logloss_np(y, p):
     return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
 
 
-def options_card_vs_host(dev, data, name, extra, rows, trees, leaves):
+def options_card_vs_host(dev, data, name, extra, rows, trees, leaves,
+                         tag="3h"):
     """``extra`` on the first ``rows`` rows on the card and on the host
     (the plain twins): the splits that agree (split_agreement) and the
     train logloss within OPTIONS_METRIC_TOL."""
@@ -5525,14 +5558,14 @@ def options_card_vs_host(dev, data, name, extra, rows, trees, leaves):
         res[where] = (bst, bst.eval_train()[1][2])
     (ca, lc), (ho, lh) = res["card"], res["host"]
     agree, total, first = split_agreement(ca, ho)
-    log("phase 3h card vs host %s: %d rows x %d trees x %d leaves; %d of "
+    log("phase %s card vs host %s: %d rows x %d trees x %d leaves; %d of "
         "%d splits agree (first tree %d of %d); train logloss card %.9f "
         "host %.9f (|diff| %.3g, limit %.1g)"
-        % (name, rows, trees, leaves, agree, total, first[0], first[1], lc,
-           lh, abs(lc - lh), OPTIONS_METRIC_TOL))
+        % (tag, name, rows, trees, leaves, agree, total, first[0], first[1],
+           lc, lh, abs(lc - lh), OPTIONS_METRIC_TOL))
     if not abs(lc - lh) <= OPTIONS_METRIC_TOL:
-        raise AssertionError("phase 3h %s: train logloss card %.9f host "
-                             "%.9f" % (name, lc, lh))
+        raise AssertionError("phase %s %s: train logloss card %.9f host "
+                             "%.9f" % (tag, name, lc, lh))
     return dict(splits_agree=agree, splits=total, logloss_card=lc,
                 logloss_host=lh)
 
@@ -5625,6 +5658,673 @@ def phase_options(dev, data, card, trees=OPTIONS_TREES,
     if rows:
         rows["node_inputs"]["launches_by_config"] = {
             k: c.get("node_inputs", 0) for k, c in counts_by.items()}
+    return summary, counts_by, errs, dict(rows, extended=extended)
+
+
+# ----------------------------------------------------------- monotone phase
+
+#: phase 3i: the intermediate and advanced monotone methods through the
+#: device tree loop and DART and RF per iteration, at full width (phase
+#: 3's data, 255 leaves, 255 bins): fused trees of each monotone method,
+#: the first per-iteration trees compared with the first fused ones, the
+#: per-iteration trees of DART and RF, and the card-vs-host runs (3g's
+#: size)
+MONO_TREES = 10
+#: per-iteration trees of (a), (b) and (f) ((e) runs none: (a) holds the
+#: intermediate method's loops to each other), and DART's and RF's, cut
+#: from 3 and MONO_TREES to keep 3i near 100 s of the script (~1.0-1.5 s
+#: a tree per iteration at full width)
+MONO_PER_ITER_TREES = 2
+MONO_BOOST_TREES = 5
+MONO_HOST_ROWS = 200_000
+MONO_HOST_TREES = 4
+MONO_HOST_LEAVES = 63
+#: the constrained columns of higgs_like and their signs, on columns the
+#: label model (higgs_signal) uses: the lepton pT (+), the missing energy
+#: (-), jet 1's b-tag (+) and five of the masses, two of them against
+#: their sign in the signal (so that the bounds bite)
+MONO_COLUMNS = {0: 1, 3: -1, 8: 1, 21: 1, 22: 1, 23: -1, 24: 1, 27: -1}
+#: rows of the monotonicity sweep, and the largest step against a
+#: column's sign it allows (tests/test_monotone.py's criterion)
+MONO_SWEEP_ROWS = 2000
+MONO_SWEEP_TOL = 1e-7
+DART_PARAMS = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.0}
+RF_PARAMS = {"boosting": "rf", "bagging_fraction": 0.7, "bagging_freq": 1,
+             "feature_fraction": 0.8}
+#: feature counts of the monotone kernels' checks (phase 3's and 3f's)
+MONO_CHECK_FEATURES = (28, 137)
+#: (e) and (f) of phase 3i: both methods on two columns of phase 3's
+#: data, the lepton pT (+) and its eta (free: the label model's -|eta|).
+#: On three or more features the JAX package's advanced method bounds
+#: every candidate as the intermediate method bounds the leaf (ROADMAP.md
+#: C), so (a) and (b) grow equal models; with two its per-bin bounds
+#: bite, and (f) differs from (e)
+MONO_PAIR_COLUMNS = (0, 1)
+MONO_PAIR_SIGNS = {0: 1}
+
+
+def mono_constraints(num_feat=HIGGS_FEATURES):
+    return [MONO_COLUMNS.get(f, 0) for f in range(num_feat)]
+
+
+def monotone_configs():
+    """The configurations of phase 3i: (a) intermediate and (b) advanced
+    monotone constraints on MONO_COLUMNS, (c) DART dropping at every
+    iteration, (d) RF with bagging and column sampling."""
+    c = mono_constraints()
+    return {
+        "intermediate": {"monotone_constraints": c,
+                         "monotone_constraints_method": "intermediate"},
+        "advanced": {"monotone_constraints": c,
+                     "monotone_constraints_method": "advanced"},
+        "dart": dict(DART_PARAMS),
+        "rf": dict(RF_PARAMS),
+    }
+
+
+def monotone_pair(data):
+    """Phase 3i's (e) and (f): (data cut to MONO_PAIR_COLUMNS, {name:
+    params}) for the intermediate and advanced methods."""
+    import numpy as np
+    X, y, Xv, yv = data
+    cols = list(MONO_PAIR_COLUMNS)
+    c = [MONO_PAIR_SIGNS.get(f, 0) for f in range(len(cols))]
+    return ((np.ascontiguousarray(X[:, cols]), y,
+             np.ascontiguousarray(Xv[:, cols]), yv),
+            {m + "_pair": {"monotone_constraints": c,
+                           "monotone_constraints_method": m}
+             for m in ("intermediate", "advanced")})
+
+
+def mono_state(dev, rng, L, F, B):
+    """A seeded advanced state on ``dev``: each leaf's box inside a
+    feature's bins, bounds on a 1/8 grid (ties) with a third unbounded,
+    and (F,) i8 constraints of mixed signs. Returns (cons_lo, cons_hi,
+    rng_lo, rng_hi, monotone, num_bins)."""
+    import numpy as np
+    import torch
+    nb = rng.randint(max(2, B // 2), B + 1, F).astype(np.int32)
+    lo = rng.randint(0, nb - 1, size=(L, F))
+    hi = lo + 1 + (rng.rand(L, F) * (nb - 1 - lo)).astype(np.int64)
+    cons_lo = rng.randint(-12, 4, size=(L, F, B)) / 8.0
+    cons_hi = rng.randint(-4, 12, size=(L, F, B)) / 8.0
+    cons_lo[rng.rand(L, F, B) < 0.3] = -np.inf
+    cons_hi[rng.rand(L, F, B) < 0.3] = np.inf
+    mono = rng.randint(-1, 2, F).astype(np.int8)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    return (t(cons_lo, torch.float32), t(cons_hi, torch.float32),
+            t(lo, torch.int32), t(hi, torch.int32), t(mono, torch.int8),
+            nb)
+
+
+def same_bytes(name, got, want):
+    """Every tensor pair bit-equal (compared as bytes: NaN and -0.0
+    count). Returns 0.0."""
+    import torch
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x.contiguous().view(torch.uint8),
+                           y.contiguous().view(torch.uint8)):
+            bad = x.contiguous().view(torch.uint8) \
+                != y.contiguous().view(torch.uint8)
+            raise AssertionError("%s: output %s differs from its twin (%d of "
+                                 "%d bytes)" % (name, i,
+                                                int(torch.count_nonzero(bad)),
+                                                bad.numel()))
+    return 0.0
+
+
+def same_fields(name, fields, got, want):
+    """same_bytes with each pair named by its field. Returns 0.0."""
+    for fld, x, y in zip(fields, got, want):
+        same_bytes("%s %s" % (name, fld), [x], [y])
+    return 0.0
+
+
+def check_mono_kernels(dev, rng, F, L=63, B=255):
+    """mono_bounds and mono_commit (the kernels on card tensors) against
+    their twins run by torch on the same card tensors, bit-equal, at
+    three states: a numerical winner (the children's boxes cut on the
+    split feature), a categorical winner (the children's boxes the
+    parent's) and an invalid round (live 0: nothing written). Keys name
+    F, and L where it is not 63. Returns {name: 0.0}."""
+    import torch
+    from lightgbm_tpu_torch.ops import monotone as M
+
+    errs = {}
+    i32 = torch.int32
+    shape = "F%d" % F if L == 63 else "F%d_L%d" % (F, L)
+    for case in ("numerical", "categorical", "invalid"):
+        cons_lo, cons_hi, rlo, rhi, mono, nb = mono_state(dev, rng, L, F, B)
+        leaf, new = int(rng.randint(0, L // 2)), L // 2 + 1
+        f = int(rng.randint(F))
+        t = int(rng.randint(max(1, nb[f] - 1)))
+        # the commit's box cut: the new leaf's row is the parent's
+        rlo[new] = rlo[leaf]
+        rhi[new] = rhi[leaf]
+        if case == "numerical":
+            rhi[leaf, f] = t + 1
+            rlo[new, f] = t + 1
+        live = 0 if case == "invalid" else 1
+        word = torch.full((1,), leaf, dtype=i32, device=dev)
+        live_w = torch.full((1,), live, dtype=i32, device=dev)
+        outs = [torch.full((2, 4, F, B), 7.0, device=dev) for _ in range(2)]
+        state = (cons_lo, cons_hi, rlo, rhi)
+        M.mono_bounds(*state, word, new, 2, outs[0], live=live_w)
+        M.mono_bounds_plain(*state, word, new, 2, outs[1], live=live_w)
+        sync(dev)
+        key = "mono_bounds/%s/%s" % (shape, case)
+        errs[key] = same_bytes(key, outs[:1], outs[1:])
+        # one forced leaf, node 0 only
+        M.mono_bounds(*state, word, 0, 1, outs[0])
+        M.mono_bounds_plain(*state, word, 0, 1, outs[1])
+        sync(dev)
+        key = "mono_bounds/%s/%s/one_leaf" % (shape, case)
+        errs[key] = same_bytes(key, outs[:1], outs[1:])
+        words = torch.tensor([live, leaf], dtype=i32).to(dev)
+        vals = torch.as_tensor(rng.randint(-16, 16, 2) / 8.0).to(
+            torch.float32).to(dev)
+        a = [x.clone() for x in state]
+        b = [x.clone() for x in state]
+        M.mono_commit(*a, mono, words, vals, new)
+        M.mono_commit_plain(*b, mono, words, vals, new)
+        sync(dev)
+        key = "mono_commit/%s/%s" % (shape, case)
+        errs[key] = same_bytes(key, a, b)
+        if case == "invalid":
+            errs[key] = same_bytes(key + "/unchanged", a, state)
+    return errs
+
+
+#: (name, slot as a fraction of L - 1, live word of slot s - 1, state
+#: options) of the extended commit's checks under each monotone method
+COMMIT_MONO_CASES = (("first", 0, 1, {}), ("mid", 0.5, 1, {}),
+                     ("ties", 0.5, 1, {"ties": True}),
+                     ("after_stop", 0.5, 0, {}), ("final", 1.0, 1, {}))
+
+
+def check_commit_mono(dev, rng, L=63, F=9, B=40, suffix=""):
+    """The extended split commit against its twin under the intermediate
+    (1) and advanced (2) methods on seeded states (COMMIT_MONO_CASES, the
+    state of mono_state: boxes, per-bin bounds, scalar bounds), and a
+    forced round whose leaf cannot split there: every table bit-equal.
+    Returns {name + ``suffix``: 0.0}."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import partition as P
+
+    errs = {}
+    for method in (1, 2):
+        cases = COMMIT_MONO_CASES + (("forced_invalid", 3, 1, {}),)
+        for name, where, live, opts in cases:
+            st, out = commit_state(dev, rng, L, F, B, **opts)
+            cons_lo, cons_hi, rlo, rhi, mono, nb = mono_state(dev, rng, L, F,
+                                                              B)
+            st = st._replace(rng_lo=rlo, rng_hi=rhi,
+                             cons_lo=cons_lo if method == 2 else st.cons_lo,
+                             cons_hi=cons_hi if method == 2 else st.cons_hi)
+            # best bins inside the features' bins
+            st.best_bin.copy_(torch.as_tensor(
+                rng.randint(0, 10 ** 6, L) % (nb[st.best_feature.cpu()
+                                                    .numpy()] - 1)).to(dev))
+            s = where if isinstance(where, int) \
+                else int(round(where * (L - 1)))
+            if s > 0:
+                st.hdr[s - 1, 6] = live
+            kw = dict(max_depth=-1, monotone=mono, has_monotone=True,
+                      mono_method=method)
+            if name == "forced_invalid":
+                fo = P.split_out(F, B, dev)
+                fo.fout.fill_(float("-inf"))
+                st.force_live.fill_(1)
+                kw.update(forced=fo, n_forced=7, f_leaf=2)
+            a = C.TreeState(*(x.clone() for x in st))
+            b = C.TreeState(*(x.clone() for x in st))
+            C.split_commit(a, out, s, **kw)
+            C.split_commit_plain(b, out, s, **kw)
+            sync(dev)
+            key = "commit/mono%d/%s%s" % (method, name, suffix)
+            errs[key] = same_fields(key, C.TreeState._fields, a, b)
+    return errs
+
+
+def check_split_scan_adv(name, loop, s):
+    """The split scan kernel under the advanced method (each candidate's
+    child bounds from the loop's bounds buffer: the children of slot
+    ``s``, the last slot the loop ran) against find_best_split with
+    adv_bounds by torch on the card: every field bit-equal. Returns (0.0,
+    the share of finite bounds)."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    st = loop.state
+    hdr, pair = st.hdr[s], st.pair[s]
+    hists = loop.split.fhist if loop.split.fhist is not None \
+        else loop.out.hists
+    F, B = hists.shape[1], hists.shape[2]
+    dev = hists.device
+    out = P.split_out(F, B, dev)
+    loop.split.scan(hists, pair, hdr, out)
+    ref = find_best_split(hists, pair[0:6].view(2, 3), loop.meta, loop.fmask,
+                          loop.hp, parent_output=pair[6:8],
+                          leaf_lower=pair[8:10], leaf_upper=pair[10:12],
+                          node_depth=hdr[5],
+                          adv_bounds=tuple(loop.bounds.unbind(1)))
+    sync(dev)
+    got = out.infos()
+    same_fields(name + ": split_scan vs find_best_split", SCAN_FIELDS,
+                [getattr(got, f) for f in SCAN_FIELDS],
+                [getattr(ref, f).to(getattr(got, f).dtype)
+                 for f in SCAN_FIELDS])
+    return 0.0, float(torch.isfinite(loop.bounds).float().mean())
+
+
+def phase_monotone_kernels(dev, rng, data, rows, leaves, full_leaves=255):
+    """Phase 3i's kernel checks: mono_bounds and mono_commit against their
+    twins at F = 28 and 137 (check_mono_kernels, L = 63) and at F = 28, L
+    = ``full_leaves``; the extended commit under both methods
+    (check_commit_mono) at L = 63 and at F = 28, B = 255, L =
+    ``full_leaves``; and the extended split scan against find_best_split
+    with adv_bounds at the root split's children and at the last live
+    split of a tree on ``rows`` rows under the advanced method. Returns
+    errs."""
+    errs = {}
+    for F in MONO_CHECK_FEATURES:
+        errs.update(check_mono_kernels(dev, rng, F))
+    errs.update(check_mono_kernels(dev, rng, HIGGS_FEATURES, L=full_leaves))
+    errs.update(check_commit_mono(dev, rng))
+    errs.update(check_commit_mono(dev, rng, L=full_leaves, F=HIGGS_FEATURES,
+                                  B=255, suffix="/full_width"))
+    lrn, ghc = options_learner(dev, data, monotone_configs()["advanced"],
+                               rows, leaves)
+    deep = last_live_slot(lrn, ghc)
+    for where, s in (("root", 0), ("deep", deep)):
+        loop = loop_state_at(lrn, ghc, s + 1)
+        key = "split_scan/advanced/%s" % where
+        errs[key], finite = check_split_scan_adv(key, loop, s)
+        log("phase 3i %s: slot %d, finite bound share %.4f" % (key, s,
+                                                               finite))
+        if where == "deep" and not finite > 0:
+            raise AssertionError("phase 3i: no bound bites at the deep "
+                                 "leaf")
+    return errs
+
+
+def last_live_slot(lrn, ghc):
+    """The last split slot of a tree on ``ghc`` that split a leaf."""
+    loop = loop_state_at(lrn, ghc, lrn.num_leaves - 1)
+    live = loop.state.hdr[:, 6].cpu()
+    return max(s for s in range(lrn.num_leaves - 1) if int(live[s]) == 1)
+
+
+def mono_commit_touched(state, mono, words, outs, new_leaf):
+    """The (l, f, b) elements of cons_lo and cons_hi that mono_commit's
+    gates select at this state (either child; the new leaf's inherited
+    rows aside): the twin run on copies with NaN outputs, which min and
+    max carry into every selected element."""
+    import torch
+    from lightgbm_tpu_torch.ops import monotone as M
+
+    cl = [x.clone() for x in state]
+    nan = torch.full_like(outs, float("nan"))
+    M.mono_commit_plain(*cl, mono, words, nan, new_leaf)
+    keep = torch.ones(cl[0].shape[0], dtype=torch.bool, device=nan.device)
+    keep[new_leaf] = False
+    return sum(int(torch.isnan(x[keep]).sum()) for x in cl[:2])
+
+
+def full_width_mono_checks(lrn, ghc, method, errs, tag="full_width"):
+    """The extended commit (``method`` 1 or 2) and, under the advanced
+    method, mono_commit after it, mono_bounds of both children and the
+    split scan with their bounds, each kernel and its twin on separate
+    copies of the state of a tree on ``ghc`` at the middle slot and the
+    last live one (a full-width learner of phase 3i: L = 255, F = 28, or
+    F = 2 for the pair): bit-equal, under keys ``*/<tag>_*``. Returns the
+    last live slot."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import monotone as M
+
+    L = lrn.num_leaves
+    deep = last_live_slot(lrn, ghc)
+    mono = lrn.meta.monotone
+    for where, s in (("mid", L // 2), ("deep", deep)):
+        loop = loop_state_at(lrn, ghc, s)
+        st, dev = loop.state, loop.state.hdr.device
+        kw = dict(max_depth=loop.commit.max_depth, monotone=mono,
+                  has_monotone=True, mono_method=method)
+        a = C.TreeState(*(x.clone() for x in st))
+        b = C.TreeState(*(x.clone() for x in st))
+        C.split_commit(a, loop.out, s, **kw)
+        C.split_commit_plain(b, loop.out, s, **kw)
+        sync(dev)
+        key = "commit/mono%d/%s_%s" % (method, tag, where)
+        errs[key] = same_fields(key, C.TreeState._fields, a, b)
+        if method != 2:
+            continue
+        words, outs = a.hdr[s, 6:8], a.pair[s, 6:8]
+        ka = [x.clone() for x in (a.cons_lo, a.cons_hi, a.rng_lo, a.rng_hi)]
+        kb = [x.clone() for x in ka]
+        M.mono_commit(*ka, mono, words, outs, s + 1)
+        M.mono_commit_plain(*kb, mono, words, outs, s + 1)
+        sync(dev)
+        key = "mono_commit/%s_%s" % (tag, where)
+        errs[key] = same_bytes(key, ka, kb)
+        F, B = ka[0].shape[1], ka[0].shape[2]
+        bo = [torch.full((2, 4, F, B), 7.0, device=dev) for _ in range(2)]
+        M.mono_bounds(*ka, a.hdr[s, 7:8], s + 1, 2, bo[0])
+        M.mono_bounds_plain(*ka, a.hdr[s, 7:8], s + 1, 2, bo[1])
+        sync(dev)
+        key = "mono_bounds/%s_%s" % (tag, where)
+        errs[key] = same_bytes(key, bo[:1], bo[1:])
+        key = "split_scan/advanced/%s_%s" % (tag, where)
+        errs[key], _ = check_split_scan_adv(key, loop_state_at(lrn, ghc,
+                                                               s + 1), s)
+        log("phase 3i %s, L = %d, F = %d, slot %d: commit, mono_commit (%d "
+            "elements selected), mono_bounds (finite share %.4f) and the "
+            "scan with bounds bit-equal to their twins"
+            % (tag, L, F, s, mono_commit_touched(
+                (a.cons_lo, a.cons_hi, a.rng_lo, a.rng_hi), mono, words,
+                outs, s + 1), float(torch.isfinite(bo[0]).float().mean())))
+    return deep
+
+
+def time_monotone_kernels(dev, adv, errs):
+    """The monotone kernels' ms at phase 3i's full-width advanced learner
+    (L = 255, F = 28, B = 255) on the fused model's gradients, at the
+    last live slot of a tree, after full_width_mono_checks under the
+    advanced method: mono_bounds (both children) and mono_commit against
+    their twins by torch on the card, the extended split scan against
+    find_best_split with adv_bounds, the extended commit against its
+    twin. Returns the kernels-line rows (mono_bounds, mono_commit) and the
+    extended rows' timings."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import monotone as M
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    lrn, ghc = adv
+    L = lrn.num_leaves
+    deep = full_width_mono_checks(lrn, ghc, 2, errs)
+    loop = loop_state_at(lrn, ghc, deep)
+    st, F, B = loop.state, loop.num_feat, loop.num_bin
+    # the commit of slot `deep`, timed on a copy of the state
+    a = C.TreeState(*(x.clone() for x in st))
+    b = C.TreeState(*(x.clone() for x in st))
+    ckw = dict(max_depth=loop.commit.max_depth, monotone=lrn.meta.monotone,
+               has_monotone=True, mono_method=2)
+    cop = C.SplitCommit(a, loop.out, **ckw)
+    c_ms = cuda_ms(lambda: cop(deep))
+    c_dev = device_ms(lambda: cop(deep))
+    c_plain = cuda_ms(lambda: C.split_commit_plain(b, loop.out, deep, **ckw),
+                      iters=5, warmup=1)
+    loop.commit(deep)
+    state = (st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi)
+    words, outs = st.hdr[deep, 6:8], st.pair[deep, 6:8]
+    mono = lrn.meta.monotone
+    touched = mono_commit_touched(state, mono, words, outs, deep + 1)
+    cl = [x.clone() for x in state]
+    m_ms = cuda_ms(lambda: M.mono_commit(*cl, mono, words, outs, deep + 1))
+    m_dev = device_ms(lambda: M.mono_commit(*cl, mono, words, outs,
+                                            deep + 1))
+    m_plain = cuda_ms(lambda: M.mono_commit_plain(*cl, mono, words, outs,
+                                                  deep + 1),
+                      iters=5, warmup=1)
+    M.mono_commit(*state, mono, words, outs, deep + 1)
+    leaf_w = st.hdr[deep, 7:8]
+    bout = torch.empty_like(loop.bounds)
+    b_ms = cuda_ms(lambda: M.mono_bounds(*state, leaf_w, deep + 1, 2, bout))
+    b_dev = device_ms(lambda: M.mono_bounds(*state, leaf_w, deep + 1, 2,
+                                            bout))
+    b_plain = cuda_ms(lambda: M.mono_bounds_plain(*state, leaf_w, deep + 1,
+                                                  2, bout),
+                      iters=5, warmup=1)
+    loop = loop_state_at(lrn, ghc, deep + 1)
+    st = loop.state
+    hdr, pair = st.hdr[deep], st.pair[deep]
+    hists = loop.out.hists
+    op = loop.split.scan
+    out = P.split_out(F, B, dev)
+    s_ms = cuda_ms(lambda: op(hists, pair, hdr, out))
+    s_dev = device_ms(lambda: op(hists, pair, hdr, out))
+    adv_b = tuple(loop.bounds.unbind(1))
+    s_plain = cuda_ms(lambda: find_best_split(
+        hists, pair[0:6].view(2, 3), lrn.meta, loop.fmask, lrn.hp,
+        parent_output=pair[6:8], leaf_lower=pair[8:10],
+        leaf_upper=pair[10:12], node_depth=hdr[5], adv_bounds=adv_b),
+        iters=5, warmup=1)
+    log("phase 3i kernels at L = %d, F = %d, B = %d, slot %d: mono_bounds "
+        "%.4f ms (device %.4f, twin %.3f); mono_commit %.4f ms (device "
+        "%.4f, twin %.3f; %d of %d bound elements selected); split_scan "
+        "with bounds %.4f ms (device %.4f, find_best_split %.3f); advanced "
+        "commit %.4f ms (device %.4f, twin %.3f)"
+        % (L, F, B, deep, b_ms, b_dev, b_plain, m_ms, m_dev, m_plain,
+           touched, 2 * L * F * B, s_ms, s_dev, s_plain, c_ms, c_dev,
+           c_plain))
+    # mono_bounds reads two leaves' (F, B) rows and boxes and writes (2, 4,
+    # F, B); per element a row extremum, four scan steps and four outputs
+    b_bytes = 2 * (2 * F * B * 4 + 2 * F * 4) + 2 * 4 * F * B * 4
+    b_ops = 2 * F * B * 10
+    # mono_commit needs the (L, F) boxes, the new leaf's inherited rows
+    # (read and written) and a read and a write of each bound element its
+    # gates select at this state (mono_commit_touched); per selected
+    # element a min or max, per (l, f) the two children's ~24 box tests
+    m_bytes = 2 * L * F * 4 + 2 * F * B * 8 + touched * 8
+    m_ops = touched + 2 * L * F * 24
+    rows = {
+        "mono_bounds": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/monotone.cu",
+            replaces="lightgbm_tpu/learner.py:508 (_adv_bounds_of, XLA; no "
+                     "pallas_call)",
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith("mono_bounds/")),
+            ms=b_ms, device_ms=b_dev, plain_ms=b_plain, library_ms=None,
+            bytes=b_bytes, ops=b_ops),
+        "mono_commit": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/monotone.cu",
+            replaces="lightgbm_tpu/learner.py:573 (_adv_commit, XLA; no "
+                     "pallas_call)",
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith("mono_commit/")),
+            ms=m_ms, device_ms=m_dev, plain_ms=m_plain, library_ms=None,
+            selected_elements=touched, bytes=m_bytes, ops=m_ops)}
+    scan_bytes = 2 * F * B * 12 + 2 * 4 * F * B * 4 + 48 + 2 * (64 + B)
+    c_bytes = 2 * 2 * F * B * 3 * 4 + L * 4 + 2 * B + 512 + 2 * F * B * 4
+    extended = {
+        "split_scan": dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain,
+                           bound_ms=max(scan_bytes / PEAK_BYTES_PER_S,
+                                        2 * 4 * F * B * 13
+                                        / PEAK_SCALAR_OPS_PER_S) * 1e3),
+        "split_commit": dict(ms=c_ms, device_ms=c_dev, plain_ms=c_plain,
+                             bound_ms=c_bytes / PEAK_BYTES_PER_S * 1e3)}
+    return rows, extended
+
+
+def mono_sweep(bst, X, rng, columns, rows=MONO_SWEEP_ROWS):
+    """For each constrained column ({column: sign} ``columns``), every
+    bin's value (its upper bound; the last bin past the last bound) put
+    in turn into ``rows`` sampled rows of ``X`` (all of them when it has
+    fewer), their raw scores predicted through the forest kernel: no step
+    along the bins may go against the column's sign by more than
+    MONO_SWEEP_TOL. Returns (sweeps, the worst step against a sign)."""
+    import numpy as np
+    g = bst.inner
+    ds = g.train_set
+    rows = min(rows, len(X))
+    base = X[rng.choice(len(X), size=rows, replace=False)]
+    worst, sweeps = 0.0, 0
+    for col, sign in columns.items():
+        m = ds.bin_mappers[ds.inner_feature_index(col)]
+        ub = np.asarray(m.upper_bounds, np.float64)
+        vals = np.concatenate([ub[:-1], [ub[-2] + 1.0 if len(ub) > 1
+                                         else 1.0]])
+        pts = np.repeat(base, len(vals), axis=0)
+        pts[:, col] = np.tile(vals, rows)
+        p = bst.predict(pts, raw_score=True).reshape(rows, len(vals))
+        step = float((np.diff(p, axis=1) * sign).min())
+        worst = min(worst, step)
+        sweeps += rows
+        if step < -MONO_SWEEP_TOL:
+            raise AssertionError("phase 3i: column %d (sign %+d) steps %.3g "
+                                 "against its sign" % (col, sign, step))
+    return sweeps, worst
+
+
+def boost_run(dev, data, name, extra, trees, leaves):
+    """DART or RF at full width, per iteration with phase 3's valid set
+    (launch counts zeroed just before, read just after). Returns (booster,
+    counts, summary)."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    params = train_params(dev, leaves, extra)
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(params), train, trees, valid_sets=[valid])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    g = bst.inner
+    if g.name != extra["boosting"] or getattr(g, "_fused", None) is not None:
+        raise AssertionError("phase 3i %s: trained %s, fused %s"
+                             % (name, g.name, g._fused is not None))
+    text = bst.model_to_string()
+    auc = auc_np(yv, bst.predict(Xv))
+    valid_auc = [v for _, m, v, _ in g.eval_valid() if m == "auc"][0]
+    if abs(auc - valid_auc) > 1e-5:
+        raise AssertionError("phase 3i %s: predicted valid auc %.7f, the "
+                             "valid scores' %.7f" % (name, auc, valid_auc))
+    s = dict(trees=trees, wall_per_tree_ms=wall / trees * 1e3,
+             model_sha256=hashlib.sha256(text.encode()).hexdigest(),
+             leaves=[t.num_leaves for t in g.models], valid_auc=auc,
+             train_logloss=bst.eval_train()[1][2])
+    log("phase 3i %s: %d trees per iteration in %.1f ms a tree, leaves %s, "
+        "valid auc %.5f, train logloss %.7f, sha256 %s; launches %s"
+        % (name, trees, s["wall_per_tree_ms"], s["leaves"], auc,
+           s["train_logloss"], s["model_sha256"], counts))
+    return bst, counts, s
+
+
+def phase_monotone(dev, data, card, trees=MONO_TREES,
+                   per_iter=MONO_PER_ITER_TREES, boost_trees=MONO_BOOST_TREES,
+                   leaves=255,
+                   host_rows=MONO_HOST_ROWS, host_trees=MONO_HOST_TREES,
+                   host_leaves=MONO_HOST_LEAVES, timed=True, seed=0):
+    """Phase 3i: the intermediate and advanced monotone methods through
+    the device tree loop at full width (phase 3's data, ``leaves``
+    leaves, 255 bins), (a) and (b) on MONO_COLUMNS, (e) and (f) on the
+    two MONO_PAIR_COLUMNS: each fused (``trees`` trees; launch counts
+    zeroed just before and read just after), ``per_iter`` trees per
+    iteration byte-equal to the first fused ones (none for (e)), a
+    second fused block
+    timed, and the monotonicity sweep through the forest kernel; (b)
+    equal to (a), (f) not equal to (e). DART and RF, ``boost_trees``
+    trees each per iteration with the valid set (valid AUC). The kernel
+    checks of phase_monotone_kernels (at ``host_rows`` rows and
+    ``host_leaves`` leaves) and of full_width_mono_checks on the fused
+    learners, and (a)-(d) and (f) card against host at ``host_rows`` rows
+    x ``host_trees`` trees x ``host_leaves`` leaves. Returns (summary,
+    {config: launch counts}, errs, the kernels-line rows: mono_bounds and
+    mono_commit, and the extended split_scan and split_commit timings
+    under "extended")."""
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(seed + 53)
+    errs = phase_monotone_kernels(dev, rng, data, host_rows, host_leaves,
+                                  full_leaves=leaves)
+    rows, extended = {}, {}
+    configs = monotone_configs()
+    pair, pair_configs = monotone_pair(data)
+    runs = [(n, configs[n], data, MONO_COLUMNS)
+            for n in ("intermediate", "advanced")] \
+        + [(n, c, pair, MONO_PAIR_SIGNS) for n, c in pair_configs.items()]
+    summary, counts_by = {}, {}
+    L1 = leaves - 1
+    for name, extra, d, columns in runs:
+        bst, counts, s = options_run(
+            dev, d, name, extra, trees,
+            0 if name == "intermediate_pair" else per_iter, leaves,
+            tag="3i")
+        method = extra["monotone_constraints_method"]
+        want = {"split_commit": trees * leaves, "split_scan": trees * L1}
+        if method == "advanced":
+            want.update(mono_commit=trees * L1, mono_bounds=trees * leaves)
+        else:
+            want.update(mono_commit=0, mono_bounds=0)
+        if dev.type == "cuda" and any(counts.get(k, 0) != v
+                                      for k, v in want.items()):
+            raise AssertionError("phase 3i %s launches %s, want %s"
+                                 % (name, counts, want))
+        if dev.type == "cuda" and s["split_kernel"] != "off":
+            raise AssertionError("phase 3i %s: not the chain" % name)
+        t0 = time.perf_counter()
+        s["sweeps"], s["worst_step"] = mono_sweep(
+            bst, d[2], np.random.RandomState(seed + 59), columns)
+        s["sweep_s"] = time.perf_counter() - t0
+        log("phase 3i %s monotonicity: %d sweeps of %d columns, worst step "
+            "against a sign %.3g (limit %.0e), %.1f s"
+            % (name, s["sweeps"], len(columns), s["worst_step"],
+               MONO_SWEEP_TOL, s["sweep_s"]))
+        summary[name] = s
+        counts_by[name] = counts
+        # the kernels against their twins on the fused model's learner
+        # (full width), and timed there under the advanced method
+        g = bst.inner
+        grad, hess = g.objective.get_gradients(g.train_score.score)
+        ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+        code = 2 if method == "advanced" else 1
+        if timed and name == "advanced":
+            rows, extended = time_monotone_kernels(dev, (g.learner, ghc),
+                                                   errs)
+        else:
+            full_width_mono_checks(g.learner, ghc, code, errs,
+                                   tag="pair" if d is pair
+                                   else "full_width")
+        del bst, g, grad, hess, ghc
+    for a, b, equal in (("intermediate", "advanced", True),
+                        ("intermediate_pair", "advanced_pair", False)):
+        same = summary[a]["model_sha256"] == summary[b]["model_sha256"]
+        summary[b]["equal_to_intermediate"] = same
+        log("phase 3i %s vs %s: byte-equal models %s" % (b, a, same))
+        if same != equal:
+            raise AssertionError(
+                "phase 3i: %s %s %s (on %d features the JAX package's "
+                "methods grow %s models)"
+                % (b, "equals" if same else "differs from", a,
+                   len(configs["advanced"]["monotone_constraints"])
+                   if a == "intermediate" else len(MONO_PAIR_COLUMNS),
+                   "equal" if equal else "different"))
+    for name in ("dart", "rf"):
+        _, counts, s = boost_run(dev, data, name, configs[name],
+                                 boost_trees, leaves)
+        if dev.type == "cuda" and counts.get("route_rows", 0) <= 0:
+            raise AssertionError("phase 3i %s never launched the router"
+                                 % name)
+        summary[name] = s
+        counts_by[name] = counts
+    for name, extra, d in [(n, c, data) for n, c in configs.items()] \
+            + [("advanced_pair", pair_configs["advanced_pair"], pair)]:
+        summary[name]["card_vs_host"] = options_card_vs_host(
+            dev, d, name, extra, host_rows, host_trees, host_leaves,
+            tag="3i")
+    if rows:
+        for k in ("mono_bounds", "mono_commit"):
+            rows[k]["launches_by_config"] = {
+                c: n.get(k, 0) for c, n in counts_by.items()}
+    log("phase 3i took %.1f s (%s)" % (time.perf_counter() - t_start, card))
     return summary, counts_by, errs, dict(rows, extended=extended)
 
 
@@ -5848,6 +6548,12 @@ def main(argv=None):
                     "loop, their kernels against their twins, card vs "
                     "host) and print only its summary and node_inputs' "
                     "row")
+    ap.add_argument("--monotone-only", action="store_true",
+                    help="build, run the monotone phase (3i: intermediate "
+                    "and advanced monotone constraints through the device "
+                    "tree loop, DART and RF, their kernels against their "
+                    "twins, card vs host) and print only its summary and "
+                    "the monotone kernels' rows")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -5865,7 +6571,7 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     # importing the op modules registers their kernels
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
-                                        histogram, kernels, node,
+                                        histogram, kernels, monotone, node,
                                         partition, rank, route, scan)
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -5929,6 +6635,22 @@ def main(argv=None):
                           **bound_row(name, r))
                for name, r in opt_rows.items()}
         print(json.dumps({"options": summary_opt, "kernels": row,
+                          "extended": extended}, default=str))
+        log(card)
+        return 0
+
+    if args.monotone_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_mono, counts_mono, errs, mono_rows = phase_monotone(
+            dev, data, card, leaves=args.leaves, seed=args.seed)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        extended = mono_rows.pop("extended")
+        row = {name: dict(launches=sum(c.get(name, 0)
+                                       for c in counts_mono.values()),
+                          **bound_row(name, r))
+               for name, r in mono_rows.items()}
+        print(json.dumps({"monotone": summary_mono, "kernels": row,
                           "extended": extended}, default=str))
         log(card)
         return 0
@@ -6145,6 +6867,24 @@ def main(argv=None):
            summary_f["three_launch"]["wall_per_tree_ms"],
            summary_f["planes"]["wall_per_tree_ms"]))
 
+    log("== phase 3i: intermediate and advanced monotone constraints "
+        "through the device tree loop, DART and RF (%s)" % card)
+    summary_mono, counts_mono, errs_mono, mono_rows = phase_monotone(
+        dev, data, card, leaves=args.leaves, seed=args.seed)
+    errs.update(errs_mono)
+    extended = mono_rows.pop("extended")
+    rows.update(mono_rows)
+    for name in ("split_scan", "split_commit"):
+        rows[name]["monotone"] = extended[name]
+    log("phase 3i wall a tree beside phase 3d's (%s): %s; steady %s; 3d "
+        "three-launch %.1f ms"
+        % (card, ", ".join("%s %.1f" % (k, v["wall_per_tree_ms"])
+                           for k, v in summary_mono.items()),
+           ", ".join("%s %.1f" % (k, v["steady_wall_per_tree_ms"])
+                     for k, v in summary_mono.items()
+                     if "steady_wall_per_tree_ms" in v),
+           summary_f["three_launch"]["wall_per_tree_ms"]))
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -6218,11 +6958,18 @@ def main(argv=None):
                 "write_route_plane":
                     summary_rs["three_launch"]["write_route_plane"],
                 "split_commit": counts_f["planes"]["split_commit"]
-                + sum(c.get("split_commit", 0) for c in counts_opt.values()),
+                + sum(c.get("split_commit", 0) for c in counts_opt.values())
+                + sum(c.get("split_commit", 0)
+                      for c in counts_mono.values()),
                 "split_scan": counts_f["three_launch"]["split_scan"]
                 + counts_f["quantized"]["split_scan"]
                 + counts_m["split_scan"]
-                + sum(c.get("split_scan", 0) for c in counts_opt.values()),
+                + sum(c.get("split_scan", 0) for c in counts_opt.values())
+                + sum(c.get("split_scan", 0) for c in counts_mono.values()),
+                "mono_bounds": sum(c.get("mono_bounds", 0)
+                                   for c in counts_mono.values()),
+                "mono_commit": sum(c.get("mono_commit", 0)
+                                   for c in counts_mono.values()),
                 "node_inputs": sum(c.get("node_inputs", 0)
                                    for c in counts_opt.values()),
                 "route_rows_cat": counts_m["route_rows_cat"],
@@ -6239,6 +6986,7 @@ def main(argv=None):
     log("train summary rank %s" % json.dumps(summary_rank, default=str))
     log("train summary objectives %s" % json.dumps(summary_obj))
     log("train summary options %s" % json.dumps(summary_opt, default=str))
+    log("train summary monotone %s" % json.dumps(summary_mono, default=str))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

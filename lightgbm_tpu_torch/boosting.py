@@ -10,7 +10,9 @@ observation, K iterations per fused block (``fused.FusedTrainer``,
 the block in flight first). Bagging,
 balanced bagging, GOSS and ``feature_fraction < 1`` draw their masks from
 the port's threefry (``fused.py``, ``prng.py``) exactly as the JAX package
-draws them; DART, RF and linear-tree training wait in A10 and raise.
+draws them. :class:`DART` (dropout boosting) and :class:`RF` (random
+forest) train per iteration, as in the JAX package; linear-tree training
+waits in A10 and raises.
 
 Serving: the model text format (``model_to_string`` /
 ``model_from_string``, byte-compatible with the JAX package), raw-score
@@ -116,13 +118,10 @@ class GBDT:
     # ------------------------------------------------------------------ setup
     def _setup(self, train_set: BinnedDataset) -> None:
         cfg = self.config
-        if self.name != "gbdt":
-            raise LightGBMError("boosting=%s training is not ported to the "
-                                "PyTorch/CUDA package yet (ROADMAP A10)"
-                                % self.name)
         if cfg.linear_tree:
             raise LightGBMError("linear_tree training is not ported to the "
-                                "PyTorch/CUDA package yet (ROADMAP A10)")
+                                "PyTorch/CUDA package yet (ROADMAP A10, "
+                                "item 6.3: linear trees)")
         self.objective = create_objective(cfg)
         self.objective.init(train_set.metadata, self.device)
         self.num_tree_per_iteration = self.objective.num_model_per_iteration
@@ -322,7 +321,8 @@ class GBDT:
         telemetry.gauge("learner/launches_per_split",
                         launches_per_split(kw["work_layout"], one,
                                            device_loop,
-                                           self.learner.opts.active))
+                                           self.learner.opts.active,
+                                           self.learner.hp.mono_advanced))
 
     def _shrinkage_rate(self, log: TreeLog) -> float:
         return float(self.config.learning_rate)
@@ -826,17 +826,170 @@ class GBDT:
 
 
 class DART(GBDT):
-    """Dropout boosting (reference: src/boosting/dart.hpp). Its trees
-    carry their normalised leaf values, so serving is plain GBDT."""
+    """Dropout boosting (reference: src/boosting/dart.hpp), per iteration:
+    each iteration drops a random set of earlier iterations' trees from
+    the scores, trains on the rest, then normalises the new tree and the
+    dropped ones. Its trees carry their normalised leaf values, so serving
+    is plain GBDT."""
 
     name = "dart"
 
+    def __init__(self, config: Config,
+                 train_set: Optional[BinnedDataset] = None) -> None:
+        super().__init__(config, train_set)
+        self._drop_rng = np.random.RandomState(config.drop_seed)
+
+    def _drop_set(self) -> List[int]:
+        """The iterations to drop (dart.hpp:97 DroppingTrees), drawn as the
+        JAX package draws them: ``skip_drop`` and the set from the
+        ``drop_seed`` stream; without ``uniform_drop`` the set's size from
+        ``RandomState(drop_seed + iter).binomial``, at most ``max_drop``."""
+        cfg = self.config
+        if not (self._drop_rng.rand() >= cfg.skip_drop and self.iter_ > 0):
+            return []
+        n_iters = self.iter_
+        if cfg.uniform_drop:
+            sel = self._drop_rng.rand(n_iters) < cfg.drop_rate
+            return [int(i) for i in np.flatnonzero(sel)]
+        p = min(1.0, cfg.drop_rate)
+        k_drop = min(cfg.max_drop, np.random.RandomState(
+            cfg.drop_seed + self.iter_).binomial(n_iters, p))
+        if k_drop <= 0:
+            return []
+        return [int(i) for i in self._drop_rng.choice(n_iters, size=k_drop,
+                                                      replace=False)]
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        drop = self._drop_set()
+        for it_idx in drop:
+            for k in range(K):
+                self._apply_tree_delta(self.models[it_idx * K + k], k, -1.0)
+        k_cnt = len(drop)
+        stop = super().train_one_iter(grad, hess)
+        if stop:
+            # no tree grew: the dropped trees go back untouched
+            for it_idx in drop:
+                for k in range(K):
+                    self._apply_tree_delta(self.models[it_idx * K + k], k,
+                                           1.0)
+            return stop
+        # ---- normalise (dart.hpp:65 Normalize) ----
+        norm = 1.0 / (k_cnt + 1.0)
+        if cfg.xgboost_dart_mode:
+            norm = cfg.learning_rate / (k_cnt + cfg.learning_rate)
+        # the committed trees change in place: under the model lock, so
+        # that no serving pack sees half of them rescaled, then a version
+        # bump
+        with self._cache_lock:
+            for k in range(K):
+                tree = self.models[-K + k]
+                self._apply_tree_delta(tree, k, norm - 1.0)
+                tree.apply_shrinkage(norm)
+            if k_cnt > 0:
+                factor = k_cnt / (k_cnt + 1.0)
+                if cfg.xgboost_dart_mode:
+                    factor = k_cnt / (k_cnt + cfg.learning_rate)
+                for it_idx in drop:
+                    for k in range(K):
+                        tree = self.models[it_idx * K + k]
+                        self._apply_tree_delta(tree, k, factor)
+                        tree.apply_shrinkage(factor)
+            self._bump_model_version()
+        return stop
+
+    def _apply_tree_delta(self, tree: Tree, class_id: int,
+                          scale: float) -> None:
+        """Add ``scale`` x the tree's outputs to the training and valid
+        scores, routed on the device (the router kernel on the card)."""
+        K = self.num_tree_per_iteration
+        vals, leaf = self._route_tree_device(tree, self.train_set)
+        self.train_score.add(vals, leaf, class_id, K, scale=scale)
+        for _, vset, vscore in self.valid_sets:
+            vvals, vleaf = self._route_tree_device(tree, vset)
+            vscore.add(vvals, vleaf, class_id, K, scale=scale)
+
 
 class RF(GBDT):
-    """Random forest (reference: src/boosting/rf.hpp): the output is the
-    average of the trees' outputs."""
+    """Random forest (reference: src/boosting/rf.hpp), per iteration:
+    bagging, gradients always at the constant init scores, trees without
+    shrinkage, and scores that are the running average of the trees'
+    outputs; the output is the average of the trees' outputs."""
 
     name = "rf"
+
+    def __init__(self, config: Config,
+                 train_set: Optional[BinnedDataset] = None) -> None:
+        super().__init__(config, train_set)
+        self._init_score_dev: Optional[torch.Tensor] = None
+        if train_set is not None:
+            # a copy: ScoreTracker.add updates the training scores in
+            # place, and the gradients must stay at the init scores
+            self._init_score_dev = self.train_score.score.clone()
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        it = self.iter_
+        K = self.num_tree_per_iteration
+        if grad is None:
+            obj = self.objective
+            g, h = (obj.get_gradients(self._init_score_dev, it)
+                    if obj.needs_iter
+                    else obj.get_gradients(self._init_score_dev))
+        else:
+            n = self.train_set.num_data
+            g = torch.as_tensor(np.asarray(grad, np.float32)).to(self.device)
+            h = torch.as_tensor(np.asarray(hess, np.float32)).to(self.device)
+            if K > 1:
+                g, h = g.reshape(n, K), h.reshape(n, K)
+        self._bagging(it, g, h)
+        fmask = self._feature_mask(it)
+        any_ok = False
+        for k in range(K):
+            key = fold_in(self._key, it * 131 + k)
+            log = self.learner.train(self._tree_channels(g, h, k), fmask,
+                                     key, self._cegb_used)
+            if self.learner.hp.use_cegb:
+                note_used_features(self._cegb_used, log)
+            tree = self.learner.log_to_tree(log)
+            with self._cache_lock:
+                self.models.append(tree)
+            self._count_tree(tree)
+            self._accumulate_avg(tree, log, k)
+            if tree.num_leaves > 1:
+                any_ok = True
+        with self._cache_lock:
+            self.iter_ += 1
+            self._bump_model_version()
+        return not any_ok
+
+    def _accumulate_avg(self, tree: Tree, log: TreeLog,
+                        class_id: int) -> None:
+        """The running average over iterations, new = (old * it + tree) /
+        (it + 1), of the training and valid scores less the init score."""
+        it = self.iter_
+        lv = torch.as_tensor(np.asarray(tree.leaf_value, np.float32)).to(
+            self.device)
+        init = self.init_scores[class_id if self.num_class > 1 else 0]
+
+        def average(tracker, vals):
+            col = tracker.score[:, class_id] if self.num_class > 1 \
+                else tracker.score
+            new = ((col - init) * it + vals) / (it + 1) + init
+            if self.num_class > 1:
+                tracker.score[:, class_id] = new
+            else:
+                tracker.score = new
+
+        average(self.train_score, leaf_values_by_row(lv, log.row_leaf))
+        for _, vset, vscore in self.valid_sets:
+            vbins = self._valid_bins(vset)
+            vleaf = assign_leaves(
+                vbins, log, has_categorical=self.learner.hp.has_categorical,
+                bundle=self.learner.bundle,
+                bins_t=self._valid_bins_t(vset)
+                if vbins.dtype == torch.uint8 else None)
+            average(vscore, leaf_values_by_row(lv, vleaf))
 
     def _average(self, raw: np.ndarray, start: int, end: int) -> np.ndarray:
         return raw / max(1, end - start)

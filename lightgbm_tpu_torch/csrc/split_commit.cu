@@ -24,11 +24,21 @@
 //       gain is > -inf (pick_forced and the `valid` commit of the JAX
 //       package's build_tree_partitioned, lightgbm_tpu/learner.py). A round that is not live writes
 //       nothing but its header's live word, and no later round is live;
-//   (c) when live, record log entry s (leaf, feature, bin, kind,
-//       default_left, gain, the children's sums and the go-left row), the
-//       children's leaf sums, outputs and depth, the basic monotone bounds
-//       (both children bounded by the midpoint of their outputs,
-//       monotone_constraints.hpp:327), the features used on the children's
+//   (c) when live, under the intermediate and advanced monotone methods
+//       first re-clamp the picked split's outputs to its leaf's current
+//       bounds (the scalar bounds; advanced: ops/monotone.adv_bounds_of of
+//       the leaf at the split's (feature, bin), csrc/monotone.cuh
+//       bound_at) and swap them where the sibling order fails (the JAX
+//       tree loop's re-clamp); then record log entry s (leaf, feature,
+//       bin, kind, default_left, gain, the children's sums and the
+//       go-left row), the children's leaf sums, outputs and depth, the
+//       monotone state: the basic method's bounds (both children bounded
+//       by the midpoint of their outputs, monotone_constraints.hpp:327);
+//       the intermediate method's (the new child inherits the parent's
+//       scalar bounds, the boxes are cut, and each child bounds every
+//       box-overlapping leaf wholly below or above it: a thread a leaf);
+//       the advanced method's box cut (its per-bin bounds are the next
+//       launch's, csrc/monotone.cu mono_commit); the features used on the children's
 //       path (the parent's and the split's, when track_used: interaction
 //       constraints), the split feature in the tree's used set (CEGB), and
 //       num_splits += 1;
@@ -55,9 +65,14 @@
 // What bounds it: latency. It moves two child histograms (2 x HF x HB x 12 B
 // read and written, 0.34 MB at F = 28, B = 255: ~0.2 us at 3.35 TB/s) and
 // a few hundred scalars; the pick is one block-wide argmax over L gains.
+// The advanced re-clamp reduces the picked leaf's (F, B) bound rows in
+// block 0 (a warp a feature), the intermediate refresh reads the (L, F)
+// boxes twice a child.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "monotone.cuh"
 
 // Field order and types must match ops/commit.py CommitArgs.
 struct CommitArgs {
@@ -105,8 +120,12 @@ struct CommitArgs {
   const float* ffout;         // the forced-split scan's outputs (SplitOut,
   const int64_t* fiout;       // child 0), or null without forced splits
   const uint8_t* fbout;
+  int32_t* rng_lo;            // (L, F) each leaf's bin box [lo, hi)
+  int32_t* rng_hi;
+  const float* cons_lo;       // (L, F, B) advanced bounds (mono_method 2)
+  const float* cons_hi;
   int32_t s, L, F, B, HF, HB, max_depth, has_monotone, n_forced, f_leaf,
-      track_used;
+      track_used, mono_method;   // 0 basic, 1 intermediate, 2 advanced
 };
 
 namespace {
@@ -172,6 +191,7 @@ __device__ int block_argmax(const float* gain, int n, float* s_g, int* s_i) {
 
 __global__ void __launch_bounds__(kThreads)
 split_commit_kernel(const CommitArgs a) {
+  extern __shared__ float smem[];   // advanced: 2F + kRed floats
   __shared__ float s_g[kWarps];
   __shared__ int s_i[kWarps];
   const int s = a.s, B = a.B;
@@ -248,6 +268,31 @@ split_commit_kernel(const CommitArgs a) {
     return;
   }
   const int64_t feat = fok ? a.fiout[0] : a.best_feature[leaf];
+  const int tbin = (int)(fok ? a.fiout[2] : a.best_bin[leaf]);
+  const int kind = (int)(fok ? a.fiout[4] : a.best_kind[leaf]);
+  float lo = fok ? a.ffout[14] : a.best_lo[leaf];
+  float ro = fok ? a.ffout[16] : a.best_ro[leaf];
+  const int method = a.has_monotone ? a.mono_method : 0;
+  const int F = a.F;
+  if (method != 0) {
+    // ---- (c) the re-clamp to the leaf's current bounds, then the swap
+    float bl[4];
+    if (method == 2) {
+      const size_t row = (size_t)leaf * F;
+      lgbt_mono::bound_at(a.cons_lo + row * B, a.cons_hi + row * B,
+                          a.rng_lo + row, a.rng_hi + row, F, B, (int)feat,
+                          tbin, smem, smem + F, smem + 2 * F, bl);
+    } else {
+      bl[0] = bl[2] = a.leaf_lower[leaf];
+      bl[1] = bl[3] = a.leaf_upper[leaf];
+    }
+    const float wl = tmin(tmax(lo, bl[0]), bl[1]);
+    const float wr = tmin(tmax(ro, bl[2]), bl[3]);
+    const int mono = a.monotone[feat];
+    const bool swap = (mono > 0 && wl > wr) || (mono < 0 && wl < wr);
+    lo = swap ? wr : wl;
+    ro = swap ? wl : wr;
+  }
   // ---- (c) record, (d) header ----
   const uint8_t* go = fok ? a.fbout + 2 : a.best_go + (size_t)leaf * B;
   for (int b = t; b < B; b += blockDim.x) {
@@ -262,15 +307,64 @@ split_commit_kernel(const CommitArgs a) {
       un[f] = u;
     }
   }
+  if (method != 0) {
+    // ---- the boxes: a numerical winner cuts the split feature's ----
+    __syncthreads();     // every thread has read the leaf's bounds
+    if (method == 1 && t == 0) {
+      a.leaf_lower[nw] = a.leaf_lower[leaf];
+      a.leaf_upper[nw] = a.leaf_upper[leaf];
+    }
+    for (int f = t; f < F; f += blockDim.x) {
+      const int p_rlo = a.rng_lo[(size_t)leaf * F + f];
+      const int p_rhi = a.rng_hi[(size_t)leaf * F + f];
+      const bool cut = kind == 0 && f == feat;
+      a.rng_lo[(size_t)nw * F + f] = cut ? tbin + 1 : p_rlo;
+      a.rng_hi[(size_t)nw * F + f] = p_rhi;
+      if (cut) a.rng_hi[(size_t)leaf * F + f] = tbin + 1;
+    }
+    __syncthreads();
+    if (method == 1) {
+      // ---- the neighbour refresh: child c (left, then right) bounds
+      // every leaf that overlaps its box in all features but one and lies
+      // wholly below (above) it in a monotone one
+      for (int l = t; l < a.L; l += blockDim.x) {
+        const int32_t* lr0 = a.rng_lo + (size_t)l * F;
+        const int32_t* lr1 = a.rng_hi + (size_t)l * F;
+        float up = a.leaf_upper[l], lw = a.leaf_lower[l];
+        for (int c = 0; c < 2; ++c) {
+          const size_t crow = (size_t)(c == 0 ? leaf : nw) * F;
+          const int32_t* c0 = a.rng_lo + crow;
+          const int32_t* c1 = a.rng_hi + crow;
+          int nfalse = 0;
+          for (int f = 0; f < F; ++f) {
+            nfalse += !(lr0[f] < c1[f] && c0[f] < lr1[f]);
+          }
+          bool hi_m = false, lo_m = false;
+          for (int f = 0; f < F; ++f) {
+            const bool ov = lr0[f] < c1[f] && c0[f] < lr1[f];
+            const bool ov_exc = nfalse == 0 || (nfalse == 1 && !ov);
+            const int m = a.monotone[f];
+            const bool below = lr1[f] <= c0[f], above = lr0[f] >= c1[f];
+            hi_m |= ov_exc && ((m > 0 && below) || (m < 0 && above));
+            lo_m |= ov_exc && ((m > 0 && above) || (m < 0 && below));
+          }
+          const float out = c == 0 ? lo : ro;
+          if (hi_m) up = tmin(up, out);
+          if (lo_m) lw = tmax(lw, out);
+        }
+        a.leaf_upper[l] = up;
+        a.leaf_lower[l] = lw;
+      }
+      __syncthreads();
+    }
+  }
   if (t != 0) return;
   const float* ls = fok ? a.ffout + 2 : a.best_ls + leaf * 3;
   const float* rs = fok ? a.ffout + 8 : a.best_rs + leaf * 3;
-  const float lo = fok ? a.ffout[14] : a.best_lo[leaf];
-  const float ro = fok ? a.ffout[16] : a.best_ro[leaf];
   a.log_leaf[s] = leaf;
   a.log_feat[s] = (int32_t)feat;
-  a.log_bin[s] = (int32_t)(fok ? a.fiout[2] : a.best_bin[leaf]);
-  a.log_kind[s] = (int32_t)(fok ? a.fiout[4] : a.best_kind[leaf]);
+  a.log_bin[s] = tbin;
+  a.log_kind[s] = kind;
   a.log_dl[s] = fok ? a.fbout[0] : a.best_dl[leaf];
   a.log_gain[s] = gain;
   a.tree_used[feat] = 1;
@@ -289,7 +383,7 @@ split_commit_kernel(const CommitArgs a) {
   const int d = a.depth[leaf] + 1;
   a.depth[leaf] = d;
   a.depth[nw] = d;
-  if (a.has_monotone) {
+  if (a.has_monotone && method == 0) {
     const int mono = a.monotone[feat];
     const float mid = (lo + ro) * 0.5f;
     const float lo_p = a.leaf_lower[leaf], up_p = a.leaf_upper[leaf];
@@ -332,7 +426,16 @@ int split_commit(const CommitArgs* args, int blocks, void* stream) {
       a.HF < 1 || a.HB < 1 || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  split_commit_kernel<<<blocks, kThreads, 0,
+  // the advanced re-clamp's row extrema and reductions in block 0
+  const size_t smem = a.has_monotone && a.mono_method == 2
+      ? (2 * (size_t)a.F + 8 * kWarps + 2) * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        split_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  split_commit_kernel<<<blocks, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,8 +27,10 @@
 // both kernels) in torch's summation order on the card (kTorchOrder), so
 // its outputs are bit-equal to find_best_split run on the card on the same
 // inputs: numerical thresholds in both missing directions, one-vs-rest and
-// many-vs-many categorical prefixes, basic monotone bounds and the depth
-// penalty, the feature penalty and mask, min_gain_to_split. Built with
+// many-vs-many categorical prefixes, the node's monotone bounds (basic and
+// intermediate methods) or each candidate's child bounds (advanced: the
+// adv input, find_best_split's adv_bounds) and the depth penalty, the
+// feature penalty and mask, min_gain_to_split. Built with
 // -fmad=false: no multiply-add is contracted, as torch's elementwise ops
 // round each operation.
 //
@@ -72,7 +74,10 @@ struct SplitScanArgs {
   const float* outs2;          // (2,)
   const float* lows2;
   const float* ups2;
-  int32_t* done;               // scratch (1,): the ticket, 0 at rest
+  const float* adv;            // null, or (nodes, 4, F, B) per-candidate
+                               // [lo_l, up_l, lo_r, up_r] (advanced
+                               // monotone: csrc/monotone.cu mono_bounds)
+  int32_t* done;            // scratch (1,): the ticket, 0 at rest
   float* cand_gain;            // scratch (2, 4, F)
   int32_t* cand_bin;           // scratch (2, 4, F)
   uint8_t* num_dl;             // scratch (2, F, B)

@@ -25,7 +25,9 @@
 // run there on the same histograms: prefix sums in float, one bin after
 // another (torch's cumsum over a dim that is not the innermost), the
 // winner's left sums in the order of torch.sum over the bins of a (2, B,
-// 3) tensor (torch_row_sum), the missing bin's sums from +0. Everything
+// 3) tensor (torch_row_sum), the missing bin's sums from +0. A struct with
+// an `adv` field (the split scan's) may carry the advanced monotone
+// method's per-candidate child bounds (adv_of). Everything
 // else is elementwise and follows torch op by op; the files that include
 // this one are built with -fmad=false.
 #pragma once
@@ -91,15 +93,32 @@ __device__ __forceinline__ float gain_given(const A& a, float g,
   return -(x + y) - a.two_l1 * fabsf(w);
 }
 
+// The per-candidate child bounds of the advanced monotone method: the
+// (nodes, 4, F, B) [lo_l, up_l, lo_r, up_r] field `adv` of an argument
+// struct that has one (csrc/split_scan.cu), null for a struct without it
+// (the one-kernel split, which the advanced method never runs).
+template <class A>
+__device__ __forceinline__ auto adv_of(const A& a, int) -> decltype(a.adv) {
+  return a.adv;
+}
+template <class A>
+__device__ __forceinline__ const float* adv_of(const A&, long) {
+  return nullptr;
+}
+
 // _split_gain_pair -> gain; *ok false on a monotone violation. Numerical
 // candidates (cat = false) carry the monotone test and bounds when the
-// model has monotone constraints; categorical ones use cat_l2.
+// model has monotone constraints: the node's [lo, up], or, with `cb` (the
+// candidate's lo_l, up_l, lo_r, up_r; the advanced method), each child's
+// own bounds and the sibling order re-checked after the clamp;
+// categorical ones use cat_l2.
 template <class A>
 __device__ __forceinline__ float split_gain(const A& a, float gl,
                                             float hl, float cl, float gr,
                                             float hr, float cr, bool cat,
                                             float po, float lo, float up,
-                                            int mono, bool* ok) {
+                                            int mono, bool* ok,
+                                            const float* cb = nullptr) {
   const float extra = cat ? a.cat_l2 : 0.f;
   const float l2 = cat ? a.l2_cat : a.lambda_l2;
   float wl = smoothed(a, leaf_output(a, gl, hl, extra), cl, po);
@@ -107,8 +126,14 @@ __device__ __forceinline__ float split_gain(const A& a, float gl,
   *ok = true;
   if (!cat && a.has_monotone) {
     *ok = !((mono > 0 && wl > wr) || (mono < 0 && wl < wr));
-    wl = tmin(tmax(wl, lo), up);
-    wr = tmin(tmax(wr, lo), up);
+    if (cb != nullptr) {
+      wl = tmin(tmax(wl, cb[0]), cb[1]);
+      wr = tmin(tmax(wr, cb[2]), cb[3]);
+      *ok = *ok && !((mono > 0 && wl > wr) || (mono < 0 && wl < wr));
+    } else {
+      wl = tmin(tmax(wl, lo), up);
+      wr = tmin(tmax(wr, lo), up);
+    }
   }
   return gain_given(a, gl, hl, wl, l2) + gain_given(a, gr, hr, wr, l2);
 }
@@ -293,6 +318,13 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
   // ---- numerical thresholds, both missing directions ----
   float num = neg;
   bool dl = false;
+  const float* adv = adv_of(a, 0);
+  float cb[4];
+  if (adv != nullptr && b < B) {
+    const size_t plane = (size_t)F * B;
+    const float* p = adv + (size_t)c * 4 * plane + (size_t)f * B + b;
+    for (int k = 0; k < 4; ++k) cb[k] = p[k * plane];
+  }
   if (b < B) {
     const bool t_valid = b < nb - 1 && !is_cat &&
                          (a.rand_thr == nullptr ||
@@ -306,7 +338,8 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
       const float gr = tg - gl, hr = th - hl, cr = tc - cl;
       bool ok;
       const float gain = split_gain(a, gl, hl, cl, gr, hr, cr, false, po, lo,
-                                    up, mono, &ok);
+                                    up, mono, &ok,
+                                    adv != nullptr ? cb : nullptr);
       const bool live = ok && data_ok(a, cl, hl, cr, hr);
       const bool valid = t_valid && (d == 0 || movable);
       gdir[d] = (live && valid) ? gain - pgain : neg;
@@ -480,7 +513,14 @@ __device__ void finish_child(const A& a, int c, float* smem) {
     const float po = a.outs2[c];
     float wl = smoothed(a, leaf_output(a, ls[0], ls[1], extra), ls[2], po);
     float wr = smoothed(a, leaf_output(a, rs[0], rs[1], extra), rs[2], po);
-    if (a.has_monotone) {
+    const float* adv = adv_of(a, 0);
+    if (a.has_monotone && adv != nullptr) {
+      // the winner's own bounds, whatever its kind (find_best_split)
+      const size_t plane = (size_t)F * B;
+      const float* p = adv + (size_t)c * 4 * plane + (size_t)feat * B + tbin;
+      wl = tmin(tmax(wl, p[0]), p[plane]);
+      wr = tmin(tmax(wr, p[2 * plane]), p[3 * plane]);
+    } else if (a.has_monotone) {
       wl = tmin(tmax(wl, a.lows2[c]), a.ups2[c]);
       wr = tmin(tmax(wr, a.lows2[c]), a.ups2[c]);
     }

@@ -37,6 +37,7 @@ the data/feature/voting learners are later work (ROADMAP A11).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -204,14 +205,17 @@ def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
     ``ops/node.NodeBuf`` ``node``, from the tree's (4,) ``keys``), then
     the (F, B) scan of a batch of nodes. A node of round ``r`` draws with
     that ``r`` and its leaf: the root at ``r = 0``, leaf 0; both children
-    of round ``r`` at ``r``, the split leaf and the new one."""
+    of round ``r`` at ``r``, the split leaf and the new one. Under the
+    advanced monotone method ``adv_bounds`` is the nodes' per-candidate
+    ``(lo_l, up_l, lo_r, up_r)``, (P, F, B) each."""
     from .ops.node import node_inputs
     from .ops.split import find_best_split
 
     active = opts is not None and opts.active
 
     def best_for(hist, parent_sum, parent_out, lower, upper, depth, *,
-                 r=0, leaf=0, leaf1=0, used=None, tree_used=None):
+                 r=0, leaf=0, leaf1=0, used=None, tree_used=None,
+                 adv_bounds=None):
         mask, thr, delta = feature_mask, None, None
         if active:
             p = hist.shape[0]
@@ -224,7 +228,8 @@ def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
         return find_best_split(hist, parent_sum, meta, mask, hp,
                                parent_output=parent_out, leaf_lower=lower,
                                leaf_upper=upper, node_depth=depth,
-                               rand_threshold=thr, cegb_delta=delta)
+                               rand_threshold=thr, cegb_delta=delta,
+                               adv_bounds=adv_bounds)
 
     return best_for
 
@@ -370,7 +375,11 @@ def build_tree_partitioned(
     _forced_splits`), forces the tree's first splits while each forced
     leaf has a valid split at its bin; the loop then runs up to
     ``num_leaves - 1 + len(forced)`` rounds, and a round that finds no
-    valid split commits nothing. ``inbag_first`` (GOSS) grows the tree
+    valid split commits nothing. Under the intermediate and advanced
+    monotone methods (``hp.mono_intermediate`` / ``mono_advanced``) the
+    picked split's outputs are re-clamped to its leaf's current bounds
+    before it is recorded, and every commit refreshes the other leaves'
+    bounds (``ops/monotone.py``). ``inbag_first`` (GOSS) grows the tree
     over the rows in ``ops/partition.inbag_order``'s order, the in-bag
     ones first: the partition is stable, so every leaf's segment then
     holds its in-bag rows first, in the same positions whether the
@@ -398,6 +407,9 @@ def build_tree_partitioned(
                                 partition_segment_rows, quantize_scales,
                                 split_out, split_pair, work_buffer,
                                 work_spec, write_route_plane)
+    from .ops.monotone import (adv_boxes_init, adv_child_boxes, adv_init,
+                               intermediate_refresh, method_code,
+                               mono_bounds, mono_commit, reclamp)
     from .ops.node import NodeOptions, node_buf, node_keys
     from .ops.scan import scan_leaf_info
     from .ops.split import calc_leaf_output
@@ -538,6 +550,27 @@ def build_tree_partitioned(
                          torch.zeros(4, dtype=torch.int64, device=dev))
         node = node_buf(opts, num_feat, dev)
     best_for = _make_best_for(meta, hp, feature_mask, opts, keys, node)
+    # the intermediate and advanced monotone methods: the leaves' bin
+    # boxes, the advanced per-bin bounds and the nodes' per-candidate
+    # bounds (ops/monotone.py; mono_bounds and mono_commit launch their
+    # kernels on the card)
+    method = method_code(hp)
+    cons_lo = cons_hi = bounds = None
+    if method == 2:
+        cons_lo, cons_hi, rng_lo, rng_hi = adv_init(
+            num_leaves, num_feat, num_bin, meta.num_bins)
+        bounds = torch.zeros((2, 4, num_feat, num_bin), dtype=f32,
+                             device=dev)
+    elif method == 1:
+        rng_lo, rng_hi = adv_boxes_init(num_leaves, num_feat, meta.num_bins)
+
+    def leaf_bounds(leaf, leaf1=0, nodes=1):
+        """(nodes, F, B) views of the advanced per-candidate bounds of
+        ``leaf`` (and ``leaf1``)."""
+        word = torch.full((1,), leaf, dtype=i32, device=dev)
+        mono_bounds(cons_lo, cons_hi, rng_lo, rng_hi, word, leaf1, nodes,
+                    bounds)
+        return tuple(bounds[:nodes, k] for k in range(4))
 
     # ---- root ----
     root_hist = comm.hist(root_hist)
@@ -569,7 +602,8 @@ def build_tree_partitioned(
     root_info = best_for(feat_view(root_hist[None], root_sum[None]),
                          root_sum[None], leaf_out[:1], leaf_lower[:1],
                          leaf_upper[:1], 0, used=leaf_used,
-                         tree_used=tree_used)
+                         tree_used=tree_used,
+                         adv_bounds=leaf_bounds(0) if method == 2 else None)
     _set_best(best, slice(0, 1), root_info)
     if n_forced:
         f_leaf, f_mask, f_thr = forced_tables(forced, num_feat, dev)
@@ -603,7 +637,9 @@ def build_tree_partitioned(
             fi = scan_leaf_info(
                 feat_view(hist_pool[fl][None], leaf_sum[fl][None])[0],
                 leaf_sum[fl], leaf_out[fl], leaf_lower[fl], leaf_upper[fl],
-                depth[fl], f_mask[r], f_thr[r], meta, hp)
+                depth[fl], f_mask[r], f_thr[r], meta, hp,
+                tuple(b[0] for b in leaf_bounds(fl)) if method == 2
+                else None)
             ok_d = fi.gain > float("-inf")
             leaf_d = torch.where(ok_d, torch.full_like(leaf_d, fl), leaf_d)
             info = [torch.where(ok_d, a.to(b.dtype), b)
@@ -629,6 +665,19 @@ def build_tree_partitioned(
         new = s + 1
         (i_gain, i_feat, i_bin, i_kind, i_dl, i_go, i_ls, i_rs, i_lo,
          i_ro) = info
+        if method:
+            # the stored split was scanned under the bounds of its leaf's
+            # last scan; neighbours' commits may have tightened them since:
+            # re-clamp its outputs and re-enforce the sibling order
+            mono_f = meta.monotone[i_feat]
+            if method == 2:
+                at = i_feat * num_bin + i_bin
+                lo_l, up_l, lo_r, up_r = (b[0].reshape(-1)[at]
+                                          for b in leaf_bounds(leaf))
+            else:
+                lo_l = lo_r = leaf_lower[leaf]
+                up_l = up_r = leaf_upper[leaf]
+            i_lo, i_ro = reclamp(i_lo, i_ro, mono_f, lo_l, up_l, lo_r, up_r)
 
         # ---- record ----
         log_leaf.append(leaf)
@@ -648,7 +697,29 @@ def build_tree_partitioned(
         leaf_out[new] = i_ro
         d = depth[leaf] + 1
         depth[leaf] = depth[new] = d
-        if hp.has_monotone:
+        if method:
+            # the intermediate method's new child inherits the parent's
+            # scalar bounds; a numerical winner cuts the boxes
+            if method == 1:
+                leaf_lower[new] = leaf_lower[leaf]
+                leaf_upper[new] = leaf_upper[leaf]
+            rng_lo, rng_hi, box_l, box_r = adv_child_boxes(
+                rng_lo, rng_hi, lambda a, b: a, leaf, new,
+                SimpleNamespace(kind=i_kind, feature=i_feat, bin=i_bin))
+            if method == 1:
+                # both children bound every box-overlapping leaf wholly
+                # below or above them (the neighbour refresh)
+                leaf_lower, leaf_upper = intermediate_refresh(
+                    leaf_lower, leaf_upper, rng_lo, rng_hi, meta.monotone,
+                    ((box_l, i_lo), (box_r, i_ro)), True)
+            else:
+                # both children's outputs into every overlapping leaf's
+                # per-bin bounds (the new leaf inherits the parent's)
+                words = torch.full((2,), leaf, dtype=i32, device=dev)
+                words[0:1].fill_(1)
+                mono_commit(cons_lo, cons_hi, rng_lo, rng_hi, meta.monotone,
+                            words, torch.stack([i_lo, i_ro]).to(f32), new)
+        elif hp.has_monotone:
             # basic method: both children bounded by the split midpoint
             # (monotone_constraints.hpp:327 BasicLeafConstraints)
             mono = meta.monotone[i_feat]
@@ -714,7 +785,9 @@ def build_tree_partitioned(
                                        pair_sum),
                              pair_sum, pair_out, pair_lo, pair_up, d,
                              r=r, leaf=leaf, leaf1=new, used=leaf_used,
-                             tree_used=tree_used)
+                             tree_used=tree_used,
+                             adv_bounds=leaf_bounds(leaf, new, 2)
+                             if method == 2 else None)
         seg_tab[new, 0:1] = lt + start
         seg_tab[new, 1:2] = cnt - lt
         seg_tab[leaf, 1:2] = lt
@@ -760,7 +833,7 @@ class DeviceTreeLoop:
     configuration of the partitioned builder: the planes, resident and
     rows layouts, f32 (hi/lo, bf16) and int8 histograms, EFB bundles and
     categorical features, and the per-node options (``opts``, an
-    ``ops/node.NodeOptions``) and forced splits.
+    ``ops/node.NodeOptions``) and forced splits, and every monotone method.
 
     A tree is a fixed sequence: the root (the pack and its histogram, the
     root's split scan), then ``num_leaves - 1`` pairs of a split commit
@@ -781,7 +854,13 @@ class DeviceTreeLoop:
     with the forced leaf's one-leaf scan (``ops/scan.SplitScan.
     scan_leaf``), which the commit takes while the forced splits hold; the
     JAX loop's extra rounds need no slot: a round that finds no valid split
-    is always its last. A tree that stops early runs its remaining splits
+    is always its last. The intermediate monotone method's state (the
+    boxes and scalar bounds) is the commit's; under the advanced method
+    each slot also launches ``ops/monotone.mono_commit`` after the commit
+    (the per-bin bounds of every leaf) and ``ops/monotone.mono_bounds``
+    before the split (the children's per-candidate bounds, which the
+    chain's scan reads), and a forced slot the forced leaf's bounds before
+    its scan. A tree that stops early runs its remaining splits
     as ``live = 0`` no-ops. The trees and logs equal
     :func:`build_tree_partitioned`'s with the same arguments, field by
     field.
@@ -818,6 +897,7 @@ class DeviceTreeLoop:
                  goss_compact: bool = False) -> None:
         from .ops.chain import ChainSplit
         from .ops.commit import SplitCommit, tree_state
+        from .ops.monotone import method_code
         from .ops.node import NodeOptions, node_buf
         from .ops.partition import (OneKernelSplit, root_segment, split_out,
                                     work_buffer, work_spec)
@@ -882,7 +962,16 @@ class DeviceTreeLoop:
         self.keys = torch.zeros(4, dtype=torch.int64, device=dev)
         self.cegb0 = torch.zeros(num_feat, dtype=torch.bool, device=dev)
         hist = (num_grp, bm)
-        self.state = tree_state(num_leaves, num_feat, num_bin, dev, hist)
+        #: the monotone method (ops/monotone.method_code) and, for the
+        #: advanced one, the nodes' (2, 4, F, B) per-candidate bounds that
+        #: the split scans read (node 0 the left child or the forced leaf)
+        self.mono_method = method_code(hp)
+        self.state = tree_state(num_leaves, num_feat, num_bin, dev, hist,
+                                mono_method=self.mono_method)
+        self.bounds = torch.zeros((2, 4, num_feat, num_bin),
+                                  dtype=torch.float32, device=dev) \
+            if self.mono_method == 2 else None
+        self.zero_word = torch.zeros(1, dtype=torch.int32, device=dev)
         self.out = split_out(num_feat, num_bin, dev, hist)
         self.node = node_buf(opts, num_feat, dev) if opts.active else None
         self.map_fb = None
@@ -902,7 +991,7 @@ class DeviceTreeLoop:
                 scan_feat=num_feat, scan_bins=num_bin, cnt_max=n,
                 resident=self.resident, scale=self.scale,
                 feat_view=None if bundle is None else self.feature_view,
-                node=self.node)
+                node=self.node, bounds=self.bounds)
         self.n_forced = 0 if forced is None else len(forced[0])
         self.forced_out = None
         if self.n_forced:
@@ -912,7 +1001,10 @@ class DeviceTreeLoop:
             self.forced_scan = SplitScan(meta, self.fmask, hp,
                                          num_feat=num_feat,
                                          num_bins=num_bin, device=dev,
-                                         node=self.node)
+                                         node=self.node, bounds=self.bounds)
+            #: the forced leaves as device words (their bounds' leaf)
+            self.f_leaf_words = torch.tensor(
+                self.f_leaf, dtype=torch.int32).to(dev)
             self.fview = torch.zeros((1, num_feat, num_bin, 3),
                                      dtype=torch.float32, device=dev)
         self.commit = SplitCommit(self.state, self.out, max_depth=max_depth,
@@ -920,7 +1012,8 @@ class DeviceTreeLoop:
                                   has_monotone=hp.has_monotone,
                                   col_map=col_map, forced=self.forced_out,
                                   n_forced=self.n_forced,
-                                  track_used=opts.needs_used)
+                                  track_used=opts.needs_used,
+                                  mono_method=self.mono_method)
         self.cuda = dev.type == "cuda"
         self.root_seg = root_segment(self.guard, n, dev) if self.cuda \
             else None
@@ -964,7 +1057,8 @@ class DeviceTreeLoop:
         st, hp, meta = self.state, self.hp, self.meta
         ghc = self.ghc
         reset_tree_state(st, self.guard, self.n, forced=self.n_forced > 0,
-                         tree_used=self.cegb0)
+                         tree_used=self.cegb0,
+                         num_bins=meta.num_bins if self.mono_method else None)
         # the root sums come from the channels as given (a row reduction
         # over the gathered rows would group the f32 additions otherwise)
         root_sum = torch.sum(self.ghc_in, dim=0)
@@ -1005,12 +1099,26 @@ class DeviceTreeLoop:
         if self.node is not None:
             self.node_inputs(0, 0, 0, 1, st.leaf_sum[0:1])
             mask, thr, delta = self.node.rows(1)
+        adv = None
+        if self.mono_method == 2:
+            self.mono_bounds(self.zero_word, 0, 1)
+            adv = tuple(self.bounds[:1, k] for k in range(4))
         root_info = find_best_split(
             view, root_sum[None], meta, mask, hp,
             parent_output=st.leaf_out[:1], leaf_lower=st.leaf_lower[:1],
             leaf_upper=st.leaf_upper[:1], node_depth=0,
-            rand_threshold=thr, cegb_delta=delta)
+            rand_threshold=thr, cegb_delta=delta, adv_bounds=adv)
         _set_best(st.best, slice(0, 1), root_info)
+
+    def mono_bounds(self, leaf0: torch.Tensor, leaf1: int, nodes: int,
+                    live=None) -> None:
+        """``ops/monotone.mono_bounds`` of this tree's state into the
+        loop's bounds buffer."""
+        from .ops.monotone import mono_bounds
+
+        st = self.state
+        mono_bounds(st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi, leaf0,
+                    leaf1, nodes, self.bounds, live)
 
     def table(self, s: int) -> torch.Tensor:
         """Split slot ``s``'s routing table over its column's codes: the
@@ -1039,6 +1147,9 @@ class DeviceTreeLoop:
             self.fview.copy_(self.feature_view(hist,
                                                st.leaf_sum[fl:fl + 1]))
             hist = self.fview
+        if self.mono_method == 2:
+            self.mono_bounds(self.f_leaf_words[s:s + 1], 0, 1,
+                             live=st.force_live)
         self.forced_scan.scan_leaf(
             hist, st.leaf_sum[fl], st.leaf_out[fl:fl + 1],
             st.leaf_lower[fl:fl + 1], st.leaf_upper[fl:fl + 1],
@@ -1047,17 +1158,29 @@ class DeviceTreeLoop:
 
     def splits(self, stop: int) -> None:
         """Split slots ``[0, stop)``: a commit, then the split that reads
-        the header it wrote (with the forced leaf's scan before the commit
-        and the children's node inputs after it)."""
+        the header it wrote (with the forced leaf's scan before the commit;
+        after it, under the advanced monotone method, the commit's per-bin
+        bound writes; the children's node inputs; and, advanced, the
+        children's per-candidate bounds)."""
+        from .ops.monotone import mono_commit
+
         st = self.state
+        advanced = self.mono_method == 2
         for s in range(stop):
             forced = s < self.n_forced
             if forced:
                 self.forced_leaf_scan(s)
             self.commit(s, self.f_leaf[s] if forced else 0)
+            if advanced:
+                mono_commit(st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi,
+                            self.meta.monotone, st.hdr[s, 6:8],
+                            st.pair[s, 6:8], s + 1)
             if self.node is not None:
                 self.node_inputs(s, st.hdr[s, 7:8], s + 1, 2,
                                  st.pair[s, 0:6].view(2, 3),
+                                 live=st.hdr[s, 6:7])
+            if advanced:
+                self.mono_bounds(st.hdr[s, 7:8], s + 1, 2,
                                  live=st.hdr[s, 6:7])
             self.split.split(st.hdr[s], self.table(s), st.hist_pool,
                              st.pair[s], self.out)
@@ -1146,7 +1269,8 @@ class DeviceTreeLoop:
 
 def launches_per_split(work_layout: str, one_kernel: bool,
                        device_loop: bool = True,
-                       node_inputs: bool = False) -> int:
+                       node_inputs: bool = False,
+                       advanced: bool = False) -> int:
     """Device launches per split slot. The device tree loop (the card's
     fused path): the one-kernel split and the split commit; or the chain's
     partition, histogram and split scan and the commit, plus the route
@@ -1154,13 +1278,19 @@ def launches_per_split(work_layout: str, one_kernel: bool,
     split; or partition, histogram and the torch scan, plus the route
     gather on the resident layout. With the per-node options
     (``node_inputs``; the chain only) either loop launches the node inputs
-    kernel once more a split. A tree's forced slots add one launch each
-    (the forced leaf's scan), not counted here."""
+    kernel once more a split. Under the advanced monotone method (the
+    chain only) the device loop launches ``mono_commit`` and
+    ``mono_bounds`` (the children's bounds) once more each a split, the
+    host loop those two and ``mono_bounds`` of the picked leaf (its
+    re-clamp). A tree's forced slots add one launch each (the forced
+    leaf's scan, and its bounds under the advanced method), not counted
+    here."""
     gather = 1 if work_layout == "resident" else 0
     if one_kernel:
         return 2 if device_loop else 1
+    mono = (2 if device_loop else 3) if advanced else 0
     return 3 + gather + (1 if device_loop else 0) + (1 if node_inputs
-                                                     else 0)
+                                                     else 0) + mono
 
 
 # ---------------------------------------------------------------------------
@@ -1270,6 +1400,10 @@ class SerialTreeLearner:
             has_categorical=any(m.bin_type == BIN_CATEGORICAL
                                 for m in mappers),
             has_monotone=dataset.monotone_constraints is not None,
+            mono_intermediate=config.monotone_constraints_method
+            in ("intermediate", "advanced"),
+            mono_advanced=(config.monotone_constraints_method == "advanced"
+                           and dataset.monotone_constraints is not None),
             monotone_penalty=float(config.monotone_penalty),
             cegb_tradeoff=float(config.cegb_tradeoff),
             cegb_penalty_split=float(config.cegb_penalty_split),
@@ -1299,13 +1433,10 @@ class SerialTreeLearner:
         ds = self.dataset
         if not self.use_partition():
             _refuse("the dense tree builder (tree_builder=dense, or more "
-                    "than 256 bins per column)", "A10")
+                    "than 256 bins per column)", "A10, item 6.4: the dense "
+                    "builder")
         if cfg.tree_learner != "serial":
             _refuse("tree_learner=%s" % cfg.tree_learner, "A11")
-        if ds.monotone_constraints is not None \
-                and cfg.monotone_constraints_method != "basic":
-            _refuse("monotone_constraints_method=%s"
-                    % cfg.monotone_constraints_method, "A10")
 
     def _constraint_sets(self) -> Optional[torch.Tensor]:
         """``interaction_constraints`` ``"[0,1],[2,3]"`` -> (S, F) bool
@@ -1616,7 +1747,9 @@ class SerialTreeLearner:
         layout, whose route gather is a launch of its own;
         ``launches_per_split_host_loop`` the per-split host loop's (1; 3 or
         4 with the torch scan); the per-node options add the node inputs
-        kernel to both. ``effective_rows`` is N, or under GOSS compaction
+        kernel to both, and the advanced monotone method its bound kernels
+        (``mono_commit`` and ``mono_bounds``: 2 a split on the device loop,
+        3 on the host loop). ``effective_rows`` is N, or under GOSS compaction
         M (``ops/partition.goss_compact_rows``, the JAX package's figure):
         a 4-sigma bound on the in-bag rows that a compacted tree scans
         after the warmup trees, expected, not measured (the warmup trees
@@ -1646,10 +1779,12 @@ class SerialTreeLearner:
                 "effective_rows": int(m),
                 "goss_compact": "on" if kw["goss_compact"] else "off",
                 "launches_per_split": launches_per_split(
-                    layout, one_kernel, node_inputs=self.opts.active),
+                    layout, one_kernel, node_inputs=self.opts.active,
+                    advanced=self.hp.mono_advanced),
                 "launches_per_split_host_loop": launches_per_split(
                     layout, one_kernel, device_loop=False,
-                    node_inputs=self.opts.active)}
+                    node_inputs=self.opts.active,
+                    advanced=self.hp.mono_advanced)}
 
     def _work_buffer(self, kw: dict) -> torch.Tensor:
         """The carried work buffer of the resolved layout."""

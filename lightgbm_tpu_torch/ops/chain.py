@@ -24,7 +24,9 @@ either. Per split, in order:
 - the split scan (``ops/scan.SplitScan``, ``csrc/split_scan.cu``) into
   ``out``, under the children's own node inputs when the learner has
   per-node options (``node``, an ``ops/node.NodeBuf`` that the tree loop
-  fills before the split).
+  fills before the split) and, under the advanced monotone method, the
+  children's per-candidate bounds (``bounds``, which the tree loop fills
+  with ``ops/monotone.mono_bounds`` before the split).
 
 The kernels are planned once for the root's row count, so a CUDA graph
 holds every split of a tree. A header whose live word is 0 moves no row
@@ -61,7 +63,8 @@ class ChainSplit:
                  scan_feat: int, scan_bins: int, cnt_max: int,
                  resident: Optional[torch.Tensor] = None,
                  scale: Optional[torch.Tensor] = None,
-                 feat_view: Optional[Callable] = None, node=None) -> None:
+                 feat_view: Optional[Callable] = None, node=None,
+                 bounds: Optional[torch.Tensor] = None) -> None:
         quantized = hist_mode == "int8"
         if quantized and layout != "rows":
             raise ValueError("ChainSplit: int8 histograms need the rows "
@@ -77,7 +80,7 @@ class ChainSplit:
             resident=resident, scale=scale)
         self.scan = SplitScan(meta, fmask, hp, num_feat=scan_feat,
                               num_bins=scan_bins, device=work.device,
-                              node=node)
+                              node=node, bounds=bounds)
         self.feat_view = feat_view
         self.fhist = None if feat_view is None else torch.zeros(
             (2, scan_feat, scan_bins, 3), dtype=torch.float32,

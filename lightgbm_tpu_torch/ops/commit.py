@@ -15,7 +15,13 @@ picks split ``s`` (the first argmax of the best gains; live while the
 previous split ran and the gain is positive; or, while a tree's forced
 splits hold, forced split ``s`` from the forced-split scan of its leaf),
 records its log entry, the features used on the children's path and by
-the tree, and writes header and pair row ``s`` that the split reads (the one-kernel
+the tree, the monotone state (``mono_method``: the basic method's midpoint
+bounds; the intermediate and advanced methods' re-clamp of the picked
+split to its leaf's current bounds and the sibling-order swap, then the
+intermediate method's scalar bounds and neighbour refresh, or the
+advanced method's box cut, whose per-bin bounds ``ops/monotone.
+mono_commit`` writes after the commit), and writes header and pair row
+``s`` that the split reads (the one-kernel
 split, or the three-launch chain of ``ops/chain.ChainSplit``). The header's
 ``col`` word is the split feature's column of the work rows through an
 (F,) column map: the feature itself, or its bundle with EFB (the pool and
@@ -26,6 +32,7 @@ leave the state bit-equal.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -80,6 +87,10 @@ class TreeState(NamedTuple):
     leaf_used: torch.Tensor    # (L, F) bool features used on each path
     tree_used: torch.Tensor    # (F,) bool features the model has used
     force_live: torch.Tensor   # (1,) i32 the forced splits still hold
+    rng_lo: torch.Tensor       # (L, F) i32 each leaf's bin box [lo, hi)
+    rng_hi: torch.Tensor       # (L, F) i32
+    cons_lo: torch.Tensor      # (L, F, B) f32 advanced bounds, else (0,)
+    cons_hi: torch.Tensor      # (L, F, B) f32
 
     @property
     def best(self):
@@ -92,10 +103,11 @@ class TreeState(NamedTuple):
 
 
 def tree_state(num_leaves: int, num_feat: int, num_bins: int,
-               device, hist=None) -> TreeState:
+               device, hist=None, mono_method: int = 0) -> TreeState:
     """A :class:`TreeState`, allocated once and reset per tree
     (:func:`reset_tree_state`). ``hist`` (HF, HB) is the histograms'
-    shape when it differs from (F, B) (EFB bundles)."""
+    shape when it differs from (F, B) (EFB bundles); ``mono_method`` 2
+    (advanced monotone) allocates the per-bin bounds."""
     L, F, B = num_leaves, num_feat, num_bins
     HF, HB = hist if hist is not None else (F, B)
     f32, i32, i64, b = torch.float32, torch.int32, torch.int64, torch.bool
@@ -116,17 +128,23 @@ def tree_state(num_leaves: int, num_feat: int, num_bins: int,
         log_rs=z(L - 1, 3), log_go=z(L - 1, B, dtype=b),
         num_splits=z(1, dtype=i32), hdr=z(L, HDR_WORDS, dtype=i32),
         pair=z(L, PAIR_WORDS), leaf_used=z(L, F, dtype=b),
-        tree_used=z(F, dtype=b), force_live=z(1, dtype=i32))
+        tree_used=z(F, dtype=b), force_live=z(1, dtype=i32),
+        rng_lo=z(L, F, dtype=i32), rng_hi=z(L, F, dtype=i32),
+        cons_lo=z(L, F, B) if mono_method == 2 else z(0),
+        cons_hi=z(L, F, B) if mono_method == 2 else z(0))
 
 
 def reset_tree_state(st: TreeState, guard: int, n: int, *,
-                     forced: bool = False, tree_used=None) -> None:
+                     forced: bool = False, tree_used=None,
+                     num_bins=None) -> None:
     """The state of a tree before its root: every table at the host
     loop's initial values, the root's segment ``(guard, n, 0)``, the
-    forcing word 1 when the tree has ``forced`` splits and the model's
-    used features from the device tensor ``tree_used`` (none when None).
-    Fills and device copies only (no host->device copy), so a CUDA graph
-    holds it."""
+    forcing word 1 when the tree has ``forced`` splits, the model's
+    used features from the device tensor ``tree_used`` (none when None)
+    and, with the (F,) ``num_bins``, every leaf's box the whole range and
+    its per-bin bounds unbounded (``ops/monotone.adv_init``). Fills and
+    device copies only (no host->device copy), so a CUDA graph holds
+    it."""
     for t in st:
         t.zero_()
     st.best_gain.fill_(float("-inf"))
@@ -138,6 +156,11 @@ def reset_tree_state(st: TreeState, guard: int, n: int, *,
         st.force_live.fill_(1)
     if tree_used is not None:
         st.tree_used.copy_(tree_used)
+    if num_bins is not None:
+        st.rng_hi.copy_(num_bins.to(torch.int32)[None, :].expand_as(
+            st.rng_hi))
+        st.cons_lo.fill_(float("-inf"))
+        st.cons_hi.fill_(float("inf"))
 
 
 def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -169,7 +192,8 @@ def forced_info(fo: "SplitOut"):
 def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
                        monotone: torch.Tensor, has_monotone: bool,
                        col_map=None, forced=None, n_forced: int = 0,
-                       f_leaf: int = 0, track_used: bool = False) -> None:
+                       f_leaf: int = 0, track_used: bool = False,
+                       mono_method: int = 0) -> None:
     """Plain torch twin of ``csrc/split_commit.cu``: commit ``s`` of the
     tree in ``st`` from the split outputs ``out`` (the host loop's
     bookkeeping, ``learner.build_tree_partitioned``, with every index and
@@ -177,7 +201,11 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
     feature, or None (the feature itself); ``forced`` the forced-split
     scan's outputs (a ``SplitOut``, child 0) of slot ``s < n_forced``,
     whose leaf is ``f_leaf``; ``track_used`` keeps each leaf's used
-    features."""
+    features; ``mono_method`` the monotone method (``ops/monotone.
+    method_code``: 0 basic, 1 intermediate, 2 advanced)."""
+    from .monotone import (adv_bounds_of, adv_child_boxes,
+                           intermediate_refresh, reclamp)
+
     dev = st.best_gain.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     L = st.best_gain.shape[0]
@@ -226,6 +254,21 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
      i_ro) = picked
     cond = live_in & ((g_best > 0) | forcing)
     live = cond & (i_gain[0] > float("-inf"))
+    method = mono_method if has_monotone else 0
+    if method:
+        # the picked split was scanned under the bounds of its leaf's last
+        # scan; neighbours' commits may have tightened them since
+        mono_f = monotone.index_select(0, i_feat)
+        if method == 2:
+            B = st.cons_lo.shape[2]
+            at_fb = i_feat * B + i_bin
+            lo_l, up_l, lo_r, up_r = (
+                a.reshape(-1).index_select(0, at_fb) for a in adv_bounds_of(
+                    (st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi), leaf))
+        else:
+            lo_l = lo_r = _rows(st.leaf_lower, leaf)
+            up_l = up_r = _rows(st.leaf_upper, leaf)
+        i_lo, i_ro = reclamp(i_lo, i_ro, mono_f, lo_l, up_l, lo_r, up_r)
     if n_forced:
         keep = live & ~(forcing & ~fok)
         st.force_live.copy_(torch.where(keep, st.force_live,
@@ -243,7 +286,30 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
     d = _rows(st.depth, leaf) + 1
     _put(st.depth, leaf, d, live)
     _put(st.depth, new, d, live)
-    if has_monotone:
+    if method:
+        # the intermediate method's children inherit the parent's scalar
+        # bounds; both methods cut the boxes (numerical winners)
+        if method == 1:
+            _put(st.leaf_lower, new, _rows(st.leaf_lower, leaf), live)
+            _put(st.leaf_upper, new, _rows(st.leaf_upper, leaf), live)
+
+        def sel(a, b):
+            return torch.where(live, a, b)
+
+        info = SimpleNamespace(kind=i_kind, feature=i_feat, bin=i_bin)
+        rng_lo, rng_hi, box_l, box_r = adv_child_boxes(
+            st.rng_lo, st.rng_hi, sel, leaf, new, info)
+        st.rng_lo.copy_(rng_lo)
+        st.rng_hi.copy_(rng_hi)
+        if method == 1:
+            # both children bound every box-overlapping leaf wholly below
+            # or above them (the neighbour refresh)
+            lower, upper = intermediate_refresh(
+                st.leaf_lower, st.leaf_upper, st.rng_lo, st.rng_hi,
+                monotone, ((box_l, i_lo), (box_r, i_ro)), live)
+            st.leaf_lower.copy_(lower)
+            st.leaf_upper.copy_(upper)
+    elif has_monotone:
         # basic method: both children bounded by the split midpoint
         # (monotone_constraints.hpp:327 BasicLeafConstraints)
         mono = monotone.index_select(0, i_feat)
@@ -291,10 +357,10 @@ class CommitArgs(ctypes.Structure):
         "log_feat", "log_bin", "log_kind", "log_dl", "log_gain", "log_ls",
         "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone",
         "col_map", "leaf_used", "tree_used", "force_live", "ffout", "fiout",
-        "fbout")] \
+        "fbout", "rng_lo", "rng_hi", "cons_lo", "cons_hi")] \
         + [(name, ctypes.c_int32) for name in (
             "s", "L", "F", "B", "HF", "HB", "max_depth", "has_monotone",
-            "n_forced", "f_leaf", "track_used")]
+            "n_forced", "f_leaf", "track_used", "mono_method")]
 
 
 class SplitCommit:
@@ -303,13 +369,14 @@ class SplitCommit:
     the forced leaf of slot ``s``) and launches. ``forced`` (a
     ``SplitOut``) holds the forced-split scan of slots ``s < n_forced``;
     ``track_used`` keeps each leaf's used features (interaction
-    constraints)."""
+    constraints); ``mono_method`` is the monotone method
+    (``ops/monotone.method_code``)."""
 
     def __init__(self, st: TreeState, out, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
                  col_map=None, forced=None, n_forced: int = 0,
-                 track_used: bool = False) -> None:
-        _check_commit(st, out, monotone, col_map)
+                 track_used: bool = False, mono_method: int = 0) -> None:
+        _check_commit(st, out, monotone, col_map, mono_method)
         if n_forced and forced is None:
             raise ValueError("split_commit: forced splits need the "
                              "forced-split scan's outputs")
@@ -318,6 +385,7 @@ class SplitCommit:
         self.monotone, self.col_map = monotone, col_map
         self.forced, self.n_forced = forced, int(n_forced)
         self.track_used = bool(track_used)
+        self.mono_method = int(mono_method) if has_monotone else 0
         self._args = None
         if st.best_gain.device.type == "cpu":
             return
@@ -342,6 +410,7 @@ class SplitCommit:
                                 has_monotone=int(self.has_monotone),
                                 n_forced=self.n_forced,
                                 track_used=int(self.track_used),
+                                mono_method=self.mono_method,
                                 **{f: ptrs[f] for f, _ in CommitArgs._fields_
                                    if f in ptrs})
 
@@ -355,7 +424,8 @@ class SplitCommit:
                                has_monotone=self.has_monotone,
                                col_map=self.col_map, forced=self.forced,
                                n_forced=self.n_forced, f_leaf=f_leaf,
-                               track_used=self.track_used)
+                               track_used=self.track_used,
+                               mono_method=self.mono_method)
             return
         self._args.s = s
         self._args.f_leaf = int(f_leaf)
@@ -366,23 +436,26 @@ class SplitCommit:
 def split_commit(st: TreeState, out, s: int, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
                  col_map=None, forced=None, n_forced: int = 0,
-                 f_leaf: int = 0, track_used: bool = False) -> None:
+                 f_leaf: int = 0, track_used: bool = False,
+                 mono_method: int = 0) -> None:
     """Commit ``s`` of the tree in ``st`` (in place) from the split
     outputs ``out`` (``ops/partition.SplitOut``): apply split ``s - 1``,
     pick split ``s`` (forced split ``s`` from ``forced``, the forced-split
     scan of leaf ``f_leaf``, while the tree's forced splits hold and ``s <
     n_forced``), record it and write its header and pair rows.
     ``monotone`` is the (F,) i8 constraint of each feature, ``col_map``
-    the (F,) i32 work-row column of each feature (None: the feature). On a
-    CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
+    the (F,) i32 work-row column of each feature (None: the feature),
+    ``mono_method`` the monotone method (``ops/monotone.method_code``). On
+    a CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
     :func:`split_commit_plain`. Nothing is read back to the host."""
     SplitCommit(st, out, max_depth=max_depth, monotone=monotone,
                 has_monotone=has_monotone, col_map=col_map, forced=forced,
-                n_forced=n_forced, track_used=track_used)(s, f_leaf)
+                n_forced=n_forced, track_used=track_used,
+                mono_method=mono_method)(s, f_leaf)
 
 
 def _check_commit(st: TreeState, out, monotone: torch.Tensor,
-                  col_map=None) -> None:
+                  col_map=None, mono_method: int = 0) -> None:
     L, HF, HB = (st.best_gain.shape[0], st.hist_pool.shape[1],
                  st.hist_pool.shape[2])
     B = st.best_go.shape[1]
@@ -400,6 +473,11 @@ def _check_commit(st: TreeState, out, monotone: torch.Tensor,
     if col_map is not None and (col_map.dtype != torch.int32
                                 or col_map.shape != (F,)):
         raise ValueError("split_commit: col_map must be (%d,) int32" % F)
+    if st.rng_lo.shape != (L, F) or st.rng_hi.shape != (L, F):
+        raise ValueError("split_commit: boxes must be (L, F)")
+    if mono_method == 2 and st.cons_lo.shape != (L, F, B):
+        raise ValueError("split_commit: the advanced method needs (L, F, B) "
+                         "bounds (tree_state(mono_method=2))")
     if not all(t.is_contiguous() for t in (*st, *out)):
         raise ValueError("split_commit: state and outputs must be "
                          "contiguous")

@@ -1093,10 +1093,11 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
 
 
 def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat,
-                      cegb_ok=False) -> None:
+                      cegb_ok=False, mono_ok=False) -> None:
     """What a split scan kernel takes for a whole tree: the FeatureMeta
     columns, the search mask and hyperparameters it has fields for
-    (``cegb_ok``: the kernel takes CEGB penalties)."""
+    (``cegb_ok``: the kernel takes CEGB penalties; ``mono_ok``: the
+    intermediate and advanced monotone methods' bounds)."""
     if not 0 < num_bins <= 256:
         raise ValueError("%s: needs 0 < num_bins <= 256, got %d"
                          % (name, num_bins))
@@ -1111,8 +1112,9 @@ def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat,
                                 tuple(t.shape), t.dtype))
     if fmask.dtype != torch.bool or fmask.shape != (num_feat,):
         raise ValueError("%s: fmask must be (%d,) bool" % (name, num_feat))
-    if (hp.use_cegb and not cegb_ok) or hp.mono_intermediate \
-            or hp.mono_advanced:
+    if (hp.use_cegb and not cegb_ok) or (
+            hp.has_monotone and (hp.mono_intermediate or hp.mono_advanced)
+            and not mono_ok):
         raise ValueError("%s: CEGB and intermediate/advanced monotone "
                          "constraints are not inputs of the kernel" % name)
 

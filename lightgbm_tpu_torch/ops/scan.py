@@ -39,7 +39,7 @@ class SplitScanArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "hists", "live", "depth", "num_bins", "movable", "missing_bin",
         "is_cat", "monotone", "penalty", "fmask", "rand_thr", "cegb",
-        "sums2", "outs2", "lows2", "ups2",
+        "sums2", "outs2", "lows2", "ups2", "adv",
         "done", "cand_gain", "cand_bin", "num_dl", "rank", "hist_left",
         "hist_right", "gain", "feature", "bin", "kind", "default_left",
         "go_left", "left_sum", "right_sum", "left_output",
@@ -55,34 +55,42 @@ class SplitScanArgs(ctypes.Structure):
 
 
 def split_scan_plain(hists, pair, hdr, out, meta, fmask, hp,
-                     node=None) -> None:
+                     node=None, bounds=None) -> None:
     """Plain twin of :class:`SplitScan`: ``find_best_split`` over the
     (2, F, B, 3) ``hists`` with the pair row's sums, outputs and bounds,
-    the header's depth and the children's ``node`` inputs (an
-    ``ops/node.NodeBuf``, or None: ``fmask`` for both), written into
-    ``out`` where the header is live (no host read)."""
+    the header's depth, the children's ``node`` inputs (an
+    ``ops/node.NodeBuf``, or None: ``fmask`` for both) and, for the
+    advanced monotone method, the children's (2, 4, F, B) per-candidate
+    ``bounds`` (``ops/monotone.mono_bounds``), written into ``out`` where
+    the header is live (no host read)."""
     from .split import find_best_split
 
     w = hdr.to(torch.int64).unbind()
     mask, thr, delta = (fmask, None, None) if node is None \
         else node.rows(2)
+    adv = None if bounds is None else tuple(bounds[:2].unbind(1))
     infos = find_best_split(hists, pair[0:6].view(2, 3), meta, mask, hp,
                             parent_output=pair[6:8], leaf_lower=pair[8:10],
                             leaf_upper=pair[10:12], node_depth=w[5],
-                            rand_threshold=thr, cegb_delta=delta)
+                            rand_threshold=thr, cegb_delta=delta,
+                            adv_bounds=adv)
     put_split_infos(out, infos, w[6] != 0)
 
 
 def scan_leaf_info(hist, sums, outs, lows, ups, depth, mask, thr, meta,
-                   hp):
+                   hp, adv=None):
     """``find_best_split`` of one leaf (a forced split's: JAX
     ``pick_forced``) under the (F,) ``mask`` and threshold bins ``thr``,
-    without CEGB, as an unbatched ``SplitInfo``. It runs as a batch of two
-    copies of the leaf: torch then sums the winner's bins in the order the
-    split scan kernel follows on the card (a (2, B, 3) reduction), so the
-    kernel's one-leaf scan is bit-equal to it there too."""
+    without CEGB, as an unbatched ``SplitInfo``; ``adv`` the leaf's four
+    (F, B) per-candidate bounds (advanced monotone method) or None. It
+    runs as a batch of two copies of the leaf: torch then sums the
+    winner's bins in the order the split scan kernel follows on the card
+    (a (2, B, 3) reduction), so the kernel's one-leaf scan is bit-equal to
+    it there too."""
     from .split import SplitInfo, find_best_split
 
+    if adv is not None:
+        adv = tuple(torch.stack([a, a]) for a in adv)
     info = find_best_split(
         torch.stack([hist, hist]), torch.stack([sums.reshape(3)] * 2),
         meta, torch.stack([mask, mask]), hp,
@@ -90,16 +98,19 @@ def scan_leaf_info(hist, sums, outs, lows, ups, depth, mask, thr, meta,
         leaf_lower=lows.reshape(1).expand(2),
         leaf_upper=ups.reshape(1).expand(2),
         node_depth=depth.reshape(-1)[0] if isinstance(depth, torch.Tensor)
-        else depth, rand_threshold=torch.stack([thr, thr]))
+        else depth, rand_threshold=torch.stack([thr, thr]),
+        adv_bounds=adv)
     return SplitInfo(*(x[0] for x in info))
 
 
 def scan_leaf_plain(hist, sums, outs, lows, ups, depth, live, mask, thr,
-                    out, meta, hp) -> None:
+                    out, meta, hp, bounds=None) -> None:
     """Plain twin of :meth:`SplitScan.scan_leaf`: :func:`scan_leaf_info`
-    into child 0 of ``out`` where ``live``."""
+    into child 0 of ``out`` where ``live`` (``bounds`` node 0 of the
+    per-candidate bounds, advanced monotone method)."""
     info = scan_leaf_info(hist, sums, outs, lows, ups, depth, mask, thr,
-                          meta, hp)
+                          meta, hp, None if bounds is None
+                          else tuple(bounds[0].unbind(0)))
     put_split_info0(out, info, live.reshape(-1)[0] != 0)
 
 
@@ -110,18 +121,32 @@ class SplitScan:
     each call fills in one split's pointers and launches 2F blocks (F for
     :meth:`scan_leaf`). ``node``, an ``ops/node.NodeBuf`` (or None), holds
     the children's own masks, threshold bins and CEGB penalties, which
-    every call reads."""
+    every call reads. Under the advanced monotone method ``bounds``, a
+    (2, 4, F, B) f32 buffer (``ops/monotone.mono_bounds``, node 0 the left
+    child or the forced leaf), holds each candidate's child bounds, which
+    every call reads; the intermediate method's bounds are the pair row's
+    scalars, as the basic method's."""
 
     def __init__(self, meta, fmask, hp, *, num_feat: int, num_bins: int,
-                 device, node=None) -> None:
+                 device, node=None, bounds=None) -> None:
+        from .monotone import method_code
+
         check_scan_inputs("split_scan", meta, fmask, hp, num_bins, num_feat,
-                          cegb_ok=True)
+                          cegb_ok=True, mono_ok=True)
         if hp.use_cegb and (node is None or node.delta is None):
             raise ValueError("split_scan: CEGB needs the nodes' penalties "
                              "(an ops/node.NodeBuf with delta)")
+        if (method_code(hp) == 2) != (bounds is not None):
+            raise ValueError("split_scan: the advanced monotone method, and "
+                             "only it, reads per-candidate bounds")
+        if bounds is not None and (
+                bounds.dtype != torch.float32 or not bounds.is_contiguous()
+                or bounds.shape != (2, 4, num_feat, num_bins)):
+            raise ValueError("split_scan: bounds must be contiguous (2, 4, "
+                             "%d, %d) f32" % (num_feat, num_bins))
         self.meta, self.fmask, self.hp = meta, fmask, hp
         self.num_feat, self.num_bins = num_feat, num_bins
-        self.node = node
+        self.node, self.bounds = node, bounds
         self._args = None
         if torch.device(device).type == "cpu":
             return
@@ -144,7 +169,9 @@ class SplitScan:
             penalty=meta.penalty.data_ptr(),
             done=done.data_ptr(), cand_gain=cand.data_ptr(),
             cand_bin=cand.data_ptr() + 4 * 8 * F, num_dl=fl,
-            rank=fl + 2 * F * B, F=F, B=B, **_hyper_fields(hp))
+            rank=fl + 2 * F * B,
+            adv=0 if bounds is None else bounds.data_ptr(), F=F, B=B,
+            **_hyper_fields(hp))
 
     def _check_out(self, out: SplitOut) -> None:
         B = self.num_bins
@@ -191,7 +218,7 @@ class SplitScan:
         self._check_out(out)
         if self._args is None:
             split_scan_plain(hists, pair, hdr, out, self.meta, self.fmask,
-                             self.hp, self.node)
+                             self.hp, self.node, self.bounds)
             return
         check_on_card("split_scan", hists, pair, hdr, out.fout, out.iout,
                       out.bout)
@@ -226,7 +253,7 @@ class SplitScan:
         self._check_out(out)
         if self._args is None:
             scan_leaf_plain(hist[0], sums, outs, lows, ups, depth, live,
-                            mask, thr, out, self.meta, self.hp)
+                            mask, thr, out, self.meta, self.hp, self.bounds)
             return
         check_on_card("split_scan", hist, sums, outs, lows, ups, depth,
                       live, mask, thr, out.fout)

@@ -18,8 +18,8 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
 from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
-                                    histogram, kernels, node, partition,
-                                    rank, route, scan)
+                                    histogram, kernels, monotone, node,
+                                    partition, rank, route, scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -551,3 +551,60 @@ def test_options_scan_and_forced_leaf_on_card(card, tmp_path):
     assert {"split_scan/options/root", "split_scan/options/deep"} \
         <= set(errs)
     assert max(errs.values()) == 0.0
+
+
+def test_monotone_kernels_match_twins_on_card(card):
+    """mono_bounds and mono_commit against their twins run by torch on the
+    card, bit for bit, at F = 28 and 137 (L = 63) and at F = 28, L = 255:
+    a numerical winner, a categorical one and an invalid round
+    (chip_smoke.check_mono_kernels)."""
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(31)
+    shapes = [(F, 63) for F in chip_smoke.MONO_CHECK_FEATURES] + [(28, 255)]
+    for F, L in shapes:
+        errs = chip_smoke.check_mono_kernels(card, rng, F, L=L)
+        assert len(errs) == 9 and max(errs.values()) == 0.0
+    after = kernels.launch_counts()
+    n = len(shapes) * 3
+    assert after["mono_bounds"] - before["mono_bounds"] == 2 * n
+    assert after["mono_commit"] - before["mono_commit"] == n
+
+
+def test_monotone_commit_matches_twin_on_card(card):
+    """The split commit under the intermediate and advanced methods (the
+    re-clamp, the swap, the boxes, the neighbour refresh) against its twin
+    at L = 63, F = 9, B = 40 and at L = 255, F = 28, B = 255
+    (chip_smoke.check_commit_mono)."""
+    rng = np.random.RandomState(33)
+    errs = chip_smoke.check_commit_mono(card, rng)
+    errs.update(chip_smoke.check_commit_mono(card, rng, L=255, F=28, B=255,
+                                             suffix="/full_width"))
+    assert len(errs) == 2 * 2 * (len(chip_smoke.COMMIT_MONO_CASES) + 1)
+
+
+def test_advanced_scan_on_card(card):
+    """The split scan with per-candidate bounds against find_best_split
+    with adv_bounds at a small advanced learner's root and deep leaf
+    (chip_smoke.phase_monotone_kernels)."""
+    data = chip_smoke.training_data(3, 30000, 0)
+    errs = chip_smoke.phase_monotone_kernels(
+        card, np.random.RandomState(35), data, 30000, 31)
+    assert {"split_scan/advanced/root", "split_scan/advanced/deep"} \
+        <= set(errs)
+    assert max(errs.values()) == 0.0
+
+
+@pytest.mark.parametrize("method", ["intermediate", "advanced"])
+def test_monotone_fused_equals_per_iteration_on_card(card, method):
+    """Both monotone methods train fused on the card's device tree loop
+    (the chain) and give the per-iteration model byte for byte."""
+    import lightgbm_tpu_torch as lgt
+    X, y, _, _ = chip_smoke.training_data(4, 20000, 0)
+    params = chip_smoke.train_params(
+        card, 31, chip_smoke.monotone_configs()[method])
+    fused = lgt.train(dict(params), lgt.Dataset(X, label=y, params=params),
+                      4)
+    assert fused.inner._fused is not None
+    eager = lgt.train(dict(params), lgt.Dataset(X, label=y, params=params),
+                      4, callbacks=[lambda env: None])
+    assert fused.model_to_string() == eager.model_to_string()

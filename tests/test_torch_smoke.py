@@ -358,3 +358,49 @@ def test_options_phase_small_on_cpu(data, one_thread):
     assert max(errs.values()) == 0.0
     assert all(v == 0 for c in counts.values() for v in c.values())
     assert rows == {"extended": {}}
+
+
+def test_monotone_phase_small_on_cpu(data, one_thread):
+    """Phase 3i at a tiny size on host tensors: (a) intermediate and (b)
+    advanced, and (e) and (f) on the two pair columns, fused with the
+    per-iteration trees byte-equal to the first fused ones (not (e)) and
+    the monotonicity sweep, (b) equal to (a) and (f) not equal to (e); (c)
+    DART and (d) RF per iteration with the valid set, the monotone
+    kernels', extended commit's and extended scan's checks (twins against
+    twins here; on the fused learners too), card vs host (host against
+    host)."""
+    summary, counts, errs, rows = chip_smoke.phase_monotone(
+        CPU, data, "cpu", trees=3, per_iter=2, leaves=15, host_rows=1500,
+        host_trees=2, host_leaves=15, timed=False)
+    assert set(summary) == {"intermediate", "advanced", "dart", "rf",
+                            "intermediate_pair", "advanced_pair"}
+    for name, columns in (("intermediate", chip_smoke.MONO_COLUMNS),
+                          ("advanced", chip_smoke.MONO_COLUMNS),
+                          ("intermediate_pair", chip_smoke.MONO_PAIR_SIGNS),
+                          ("advanced_pair", chip_smoke.MONO_PAIR_SIGNS)):
+        assert summary[name].get("per_iteration_equal", False) \
+            == (name != "intermediate_pair")
+        assert summary[name]["sweeps"] == min(
+            chip_smoke.MONO_SWEEP_ROWS, len(data[2])) * len(columns)
+        assert summary[name]["worst_step"] >= -chip_smoke.MONO_SWEEP_TOL
+    assert summary["advanced"]["equal_to_intermediate"]
+    assert not summary["advanced_pair"]["equal_to_intermediate"]
+    for name in ("intermediate", "advanced", "dart", "rf", "advanced_pair"):
+        assert "card_vs_host" in summary[name]
+    assert 0.5 < summary["dart"]["valid_auc"] <= 1.0
+    assert 0.5 < summary["rf"]["valid_auc"] <= 1.0
+    assert {"mono_bounds/F%d/%s" % (F, c)
+            for F in chip_smoke.MONO_CHECK_FEATURES
+            for c in ("numerical", "categorical", "invalid")} <= set(errs)
+    assert {"mono_bounds/F28_L15/numerical", "mono_commit/F28_L15/invalid",
+            "commit/mono1/mid/full_width", "commit/mono2/final/full_width",
+            "split_scan/advanced/root", "split_scan/advanced/deep",
+            "commit/mono1/mid", "commit/mono2/forced_invalid"} <= set(errs)
+    assert {"%s/%s_%s" % (k, tag, where)
+            for k in ("commit/mono1", "commit/mono2", "mono_commit",
+                      "mono_bounds", "split_scan/advanced")
+            for tag in ("full_width", "pair")
+            for where in ("mid", "deep")} <= set(errs)
+    assert max(errs.values()) == 0.0
+    assert all(v == 0 for c in counts.values() for v in c.values())
+    assert rows == {"extended": {}}

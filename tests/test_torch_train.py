@@ -247,34 +247,48 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
     {"tree_builder": "dense"},
 ])
 def test_unsupported_settings_raise(tmp_path, extra):
-    """Settings the port does not train raise naming their ROADMAP item.
-    The per-node split options, forced splits (a file that is not there
-    warns and forces nothing, as in the JAX package) and GOSS compaction
-    (where GOSS does not sample it warns and keeps the dense path) train
-    since they were ported, and raise no longer."""
+    """Settings the port does not train raise naming their ROADMAP item
+    (linear trees, tree_learner=data and the dense builder, each with its
+    item). The per-node split options, forced splits (a file that is not
+    there warns and forces nothing, as in the JAX package), GOSS
+    compaction (where GOSS does not sample it warns and keeps the dense
+    path), DART and RF train since they were ported, and raise no
+    longer."""
     _, path, _, _, _ = jax_dataset("binary", tmp_path, n=200, seed=3)
     params = dict(train_params("binary"), **CPU)
     params.update(extra)
     ported = ("tpu_goss_compact", "feature_fraction_bynode", "extra_trees",
               "interaction_constraints", "cegb_penalty_split",
-              "forcedsplits_filename")
+              "forcedsplits_filename", "boosting")
     if any(k in extra for k in ported):
         bst = lgt.train(params, lgt.dataset_from_reference(path, CPU), 2)
         assert bst.current_iteration == 2
         assert bst.inner.models[0].num_leaves > 1
+        if "boosting" in extra:
+            assert bst.inner.name == extra["boosting"]
         return
-    with pytest.raises(LightGBMError, match="ROADMAP"):
+    item = {"linear_tree": "A10, item 6.3", "tree_learner": "A11",
+            "tree_builder": "A10, item 6.4", "tpu_work_layout": "B"}[next(iter(extra))]
+    with pytest.raises(LightGBMError, match="ROADMAP %s" % item):
         lgt.train(params, lgt.dataset_from_reference(path, CPU), 1)
 
 
-def test_monotone_intermediate_raises():
+@pytest.mark.parametrize("method", ["intermediate", "advanced"])
+def test_monotone_intermediate_raises(method):
+    """The intermediate and advanced monotone methods no longer raise:
+    both train, and their predictions keep the constraint."""
     rng = np.random.RandomState(0)
     X = _higgs_grid(rng, 300, 3)
     params = {"objective": "regression", "verbosity": -1, "device_type": "cpu",
               "monotone_constraints": [1, 0, 0],
-              "monotone_constraints_method": "intermediate"}
-    with pytest.raises(LightGBMError, match="ROADMAP A10"):
-        lgt.train(params, lgt.Dataset(X, label=X[:, 0]), 1)
+              "monotone_constraints_method": method}
+    bst = lgt.train(params, lgt.Dataset(X, label=X[:, 0]), 2)
+    hp = bst.inner.learner.hp
+    assert hp.mono_intermediate and hp.mono_advanced == (method == "advanced")
+    assert bst.inner.models[0].num_leaves > 1
+    grid = np.tile(X[:1], (50, 1))
+    grid[:, 0] = np.linspace(X[:, 0].min(), X[:, 0].max(), 50)
+    assert float(np.diff(bst.predict(grid)).min()) >= -1e-7
 
 
 def test_fobj_equals_builtin_l2(tmp_path):
