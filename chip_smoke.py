@@ -14,12 +14,14 @@
                                           # compaction
     python3 chip_smoke.py --monotone-only # phase 3i: intermediate and
                                           # advanced monotone, DART, RF
+    python3 chip_smoke.py --linear-dense-only  # phase 3j: linear trees,
+                                               # the dense builder
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Sixteen phases, each fatal on failure:
+the checkout it sits in. Seventeen phases, each fatal on failure:
 
-1. build     -- compile the hand-written kernels (``csrc/*.cu``: thirteen
-                sources, eighteen entry points), one nvcc per source,
+1. build     -- compile the hand-written kernels (``csrc/*.cu``: fifteen
+                sources, twenty-two entry points), one nvcc per source,
                 started together; then the two host libraries
                 (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -257,6 +259,28 @@ the checkout it sits in. Sixteen phases, each fatal on failure:
                 for bit; (a)-(d) and (f) card vs host at MONO_HOST_ROWS
                 rows (train logloss within OPTIONS_METRIC_TOL) (alone:
                 ``--monotone-only``).
+3j. linear,  -- phase 3's data, 255 leaves: (a) linear trees
+    dense       (LINEAR_TREES per iteration with the valid set, at the
+                default linear_lambda and at LINEAR_LAMBDA): the Gram
+                kernel (csrc/linear_gram.cu) against its twin at the
+                middle and the last fit (within its f32 summation bound,
+                counts and fit_ok equal), the model's sha256 equal across
+                two runs, the model read back from its text predicting the
+                same, valid AUC above the plain GBDT's at the same trees,
+                card vs host at LINEAR_HOST_ROWS rows; (b) the dense
+                builder at max_bin 1023 (u16 bins) and at
+                tree_builder=dense with 255 bins: DENSE_TREES fused trees
+                through the device tree loop (launch counts zeroed just
+                before and read just after), DENSE_PER_ITER_TREES per
+                iteration with the valid set byte-equal to them (the
+                device loop again, as ``train`` runs it on the card), a
+                second block; a tree of the device loop equal field by
+                field to the per-split host loop's on the card; the dense
+                histogram
+                and the row update (csrc/dense_histogram.cu), the split
+                scan past 256 bins and the u16 router against their twins
+                on seeded inputs and at the root and a deep leaf of the
+                fused learners (alone: ``--linear-dense-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -391,7 +415,17 @@ EXACT_TIE_CASES = ("ties",)
 CHAIN_STATIC_ROWS = 2_000_000
 
 
+#: the script's clock, started at its first line of output
+_CLOCK = []
+
+
 def log(msg):
+    """Print a line; a phase's header also gets the seconds since the
+    script's first line, so that the output shows where the time goes."""
+    if not _CLOCK:
+        _CLOCK.append(time.perf_counter())
+    if msg.startswith("== phase"):
+        msg = "%s [at %.1f s]" % (msg, time.perf_counter() - _CLOCK[0])
     print(msg, flush=True)
 
 
@@ -4948,9 +4982,10 @@ def phase_rank(dev, card, rows=RANK_ROWS, trees=RANK_TREES,
 
 #: phase 3g: each objective beyond binary, L2 and softmax, on the card and on
 #: the host: OBJECTIVE_ROWS HIGGS-shaped rows, OBJECTIVE_TREES trees of
-#: OBJECTIVE_LEAVES leaves (cut from 255 to keep the host runs short)
+#: OBJECTIVE_LEAVES leaves (cut from 255 to keep the host runs short; the
+#: trees cut from 4 to keep the whole script near its time with phase 3j)
 OBJECTIVE_ROWS = 200_000
-OBJECTIVE_TREES = 4
+OBJECTIVE_TREES = 3
 OBJECTIVE_LEAVES = 63
 OBJECTIVES = ("regression_l1", "huber", "fair", "quantile", "mape",
               "poisson", "gamma", "tweedie", "multiclassova",
@@ -5042,7 +5077,7 @@ def phase_objectives(dev, data, card, rows=OBJECTIVE_ROWS,
 OPTIONS_TREES = 10
 OPTIONS_PER_ITER_TREES = 3
 OPTIONS_HOST_ROWS = 200_000
-OPTIONS_HOST_TREES = 4
+OPTIONS_HOST_TREES = 3
 OPTIONS_HOST_LEAVES = 63
 #: card vs host, train logloss (the agreement phase 3g shows)
 OPTIONS_METRIC_TOL = 2e-7
@@ -5677,7 +5712,7 @@ MONO_TREES = 10
 MONO_PER_ITER_TREES = 2
 MONO_BOOST_TREES = 5
 MONO_HOST_ROWS = 200_000
-MONO_HOST_TREES = 4
+MONO_HOST_TREES = 3
 MONO_HOST_LEAVES = 63
 #: the constrained columns of higgs_like and their signs, on columns the
 #: label model (higgs_signal) uses: the lepton pT (+), the missing energy
@@ -6328,6 +6363,885 @@ def phase_monotone(dev, data, card, trees=MONO_TREES,
     return summary, counts_by, errs, dict(rows, extended=extended)
 
 
+# ------------------------------------------- linear trees and the dense builder
+
+#: phase 3j: phase 3's data (2M x 28, 255 leaves, a 100k-row valid set).
+#: (a) linear trees per iteration with the valid set, at the default
+#: linear_lambda and at LINEAR_LAMBDA; (b) the dense builder past 256 bins
+#: (max_bin 1023: u16 bins) and asked for at 255 bins, fused through the
+#: device tree loop and per iteration with the valid set. Cut from the
+#: reference's 100 trees to these counts to keep the phase near a minute
+#: and a half; rows, width, leaves and bins stay full.
+LINEAR_TREES = 4
+LINEAR_LAMBDA = 1.0
+#: the linear fit at a small size, card (the Gram kernel) against host
+#: (its twin, linear_device=on): train logloss within LINEAR_METRIC_TOL
+#: (the Gram sums add in another order, so the f32 fits differ in their
+#: last bits)
+LINEAR_HOST_ROWS = 50_000
+LINEAR_HOST_TREES = 3
+LINEAR_HOST_LEAVES = 63
+LINEAR_METRIC_TOL = 1e-5
+#: the kernel's fit on the twin's system: relative residual ||A b + B|| /
+#: (||A|| ||b|| + ||B||), a few f32 ulps times the sums' relative error
+GRAM_RESIDUAL_TOL = 1e-4
+DENSE_TREES = 4
+DENSE_PER_ITER_TREES = 2
+DENSE_CONFIGS = {"u16_1023": {"max_bin": 1023},
+                 "dense_255": {"tree_builder": "dense"}}
+
+
+def gram_inputs(dev, rng, n, F, L, km):
+    """Seeded inputs of the Gram kernel: raw features on a 1/1024 grid with
+    ~5% NaN, row leaves with some leaves empty or under-determined, g and h
+    with out-of-bag zeros, per-leaf feature tables (leaf 0 without
+    features, the others 1 to km)."""
+    import numpy as np
+    import torch
+    X = np.round(rng.randn(n, F) * 512) / 1024
+    X[rng.rand(n, F) < 0.05] = np.nan
+    row_leaf = rng.randint(0, L, n)
+    row_leaf[rng.rand(n) < 0.3] = 1                     # a big leaf
+    row_leaf[row_leaf == L - 1] = L - 2                 # an empty leaf
+    row_leaf[:3] = L - 3                                # a leaf of 3 rows
+    g = rng.randn(n)
+    h = np.abs(rng.randn(n)) + 0.05
+    oob = rng.rand(n) < 0.2
+    g[oob], h[oob] = 0.0, 0.0
+    ghc = np.stack([g, h, (~oob).astype(float)], axis=1)
+    feat_idx = np.zeros((L, km), np.int32)
+    feat_mask = np.zeros((L, km), bool)
+    for l in range(1, L):
+        k = rng.randint(1, km + 1)
+        feat_idx[l, :k] = np.sort(rng.choice(F, k, replace=False))
+        feat_mask[l, :k] = True
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    return (t(X, torch.float32), t(row_leaf, torch.int32),
+            t(ghc, torch.float32), t(feat_idx, torch.int32),
+            t(feat_mask, torch.bool))
+
+
+def check_linear_gram(name, X, row_leaf, ghc, feat_idx, feat_mask, lam):
+    """The Gram kernel (a CUDA tensor) against its twin on the same inputs:
+    counts equal; A and B within ``linear.fit.gram_sum_bound``; equal run
+    to run; the batched solve of both keeps the same leaves (fit_ok), and
+    the kernel's coefficients solve the twin's system within
+    GRAM_RESIDUAL_TOL (relative residual). Returns max |diff| of A and
+    B."""
+    import torch
+    from lightgbm_tpu_torch.linear import fit as LF
+
+    got = LF.gram_sums(X, row_leaf, ghc, feat_idx, feat_mask)
+    again = LF.gram_sums(X, row_leaf, ghc, feat_idx, feat_mask)
+    want = LF.gram_sums_plain(X, row_leaf, ghc[:, 0], ghc[:, 1], feat_idx,
+                              feat_mask)
+    bound = LF.gram_sum_bound(X, row_leaf, ghc, feat_idx, feat_mask)
+    sync(X.device)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("%s: the Gram sums differ run to run" % name)
+    for fld in ("cnt", "vcnt"):
+        if not torch.equal(getattr(got, fld), getattr(want, fld)):
+            raise AssertionError("%s: %s differ" % (name, fld))
+    err = 0.0
+    for fld in ("A", "B"):
+        d = (getattr(got, fld) - getattr(want, fld)).abs()
+        over = d > getattr(bound, fld) * 1.0001 + 1e-30
+        if bool(over.any()):
+            raise AssertionError("%s: %s off by %.3g past its bound"
+                                 % (name, fld, float(d[over].max())))
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    bk, ok_k = LF.solve_leaves(got, feat_mask, lam)
+    _, ok_t = LF.solve_leaves(want, feat_mask, lam)
+    if not torch.equal(ok_k, ok_t):
+        raise AssertionError("%s: fit_ok differs at leaves %s" % (
+            name, torch.nonzero(ok_k != ok_t).flatten().tolist()[:8]))
+    # the kernel's coefficients solve the twin's system as a backward
+    # stable f32 solve does (the coefficients themselves move with the
+    # leaf's condition number, which at lambda 0 may be large)
+    A_t = LF.ridge_system(want, feat_mask, lam)
+    res = torch.linalg.vector_norm(
+        (A_t @ bk[:, :, None])[:, :, 0] + want.B, dim=1)
+    scale = torch.linalg.matrix_norm(A_t) * torch.linalg.vector_norm(
+        bk, dim=1) + torch.linalg.vector_norm(want.B, dim=1)
+    rel = (res / scale)[ok_k]
+    if rel.numel() and float(rel.max()) > GRAM_RESIDUAL_TOL:
+        raise AssertionError("%s: the kernel's coefficients leave a "
+                             "relative residual %.3g on the twin's system"
+                             % (name, float(rel.max())))
+    return err
+
+
+def check_dense_hist(name, op, leaf=-1, hdr=None, new_leaf=0):
+    """The dense histogram kernel (``op`` an ops.histogram.DenseHistogram
+    on the card) against its twin on the same rows: the count channel
+    equal, g and h within ``dense_sum_bound`` of the selected rows' sum of
+    |x| (the twin on |ghc|), bit-equal run to run. Returns max |diff|."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    got = op(leaf, hdr, new_leaf).clone()
+    again = op(leaf, hdr, new_leaf).clone()
+    want = H.dense_histogram_plain(op.bins, op.ghc, op.row_leaf, leaf,
+                                   num_bins=op.num_bins, hdr=hdr,
+                                   new_leaf=new_leaf)
+    absx = H.dense_histogram_plain(op.bins, op.ghc.abs(), op.row_leaf, leaf,
+                                   num_bins=op.num_bins, hdr=hdr,
+                                   new_leaf=new_leaf)
+    sync(op.bins.device)
+    if not torch.equal(got, again):
+        raise AssertionError("%s: not bit-equal run to run" % name)
+    if not torch.equal(got[..., 2], want[..., 2]):
+        raise AssertionError("%s: the count channels differ" % name)
+    cnt = int(want[0, :, 2].sum())
+    d = (got - want).abs()[..., :2]
+    lim = absx[..., :2] * H.dense_sum_bound(cnt) + 1e-30
+    if bool((d > lim).any()):
+        raise AssertionError("%s: off by %.3g past its bound"
+                             % (name, float(d.max())))
+    return float(d.max())
+
+
+def check_row_update(name, bins, row_leaf, go_left, hdr, new_leaf):
+    """The row update kernel against its twin on copies: equal leaf ids.
+    Returns 0.0."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    a, b = row_leaf.clone(), row_leaf.clone()
+    H.dense_row_update(bins, a, go_left, hdr, new_leaf)
+    H.dense_row_update_plain(bins, b, go_left, hdr, new_leaf)
+    sync(bins.device)
+    return float(id_diff(name, a, b))
+
+
+def check_router_u16(name, bins, log, bins_t=None, want=None):
+    """The router over u16 bins (route_rows_u16) against the round-by-round
+    plain router (``want``: the rows' known leaves, else
+    learner.assign_leaves_plain): leaf ids equal. Returns 0.0."""
+    from lightgbm_tpu_torch.learner import assign_leaves, assign_leaves_plain
+
+    got = assign_leaves(bins, log, has_categorical=True, bins_t=bins_t)
+    if want is None:
+        want = assign_leaves_plain(bins, log, True)
+    sync(bins.device)
+    return float(id_diff(name, got, want))
+
+
+def random_log(rng, dev, rounds, F, B, cat_frac=0.0):
+    """A seeded split log (learner.TreeLog) of ``rounds`` splits over F
+    features of B bins: round r splits one of leaves 0..r, numerical
+    thresholds with movable-missing bins, about ``cat_frac`` categorical
+    rounds with random go-left sets over all B bins."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.learner import TreeLog
+
+    leaf = np.array([rng.randint(0, r + 1) for r in range(rounds)])
+    feat = rng.randint(0, F, rounds)
+    tbin = rng.randint(0, B - 1, rounds)
+    kind = (rng.rand(rounds) < cat_frac).astype(np.int32)
+    go = np.arange(B)[None, :] <= tbin[:, None]
+    cats = rng.rand(rounds, B) < 0.5
+    go = np.where(kind[:, None] > 0, cats, go)
+    movable = rng.rand(rounds) < 0.3
+    miss = rng.randint(0, B, rounds)
+    dl = rng.rand(rounds) < 0.5
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(dtype).to(dev)
+
+    z = torch.zeros((rounds, 3), dtype=torch.float32, device=dev)
+    return TreeLog(
+        num_splits=t([rounds], torch.int32), split_leaf=t(leaf, torch.int32),
+        feature=t(feat, torch.int32), bin=t(tbin, torch.int32),
+        kind=t(kind, torch.int32), default_left=t(dl, torch.bool),
+        gain=z[:, 0], left_sum=z, right_sum=z, go_left=t(go, torch.bool),
+        miss_bin=t(miss, torch.int32), movable=t(movable, torch.bool),
+        leaf_value=torch.zeros(rounds + 1, device=dev),
+        leaf_sum=torch.zeros((rounds + 1, 3), device=dev),
+        row_leaf=torch.zeros(0, dtype=torch.int32, device=dev))
+
+
+def wide_scan_case(dev, rng, B, F=12, cat=False):
+    """Seeded (2, F, B, 3) children histograms past 256 bins on a 1/64
+    grid, their pair row and the scan's meta and hyperparameters; with
+    ``cat`` feature 2 categorical with B bins (ranks past 255)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.partition import split_pair
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    cnt = rng.randint(0, 40, (2, F, B)).astype(np.float64)
+    g = np.round((rng.randn(2, F, B) * 2 + 0.01 * np.arange(B)) * 64) / 64
+    h = np.round(np.abs(rng.randn(2, F, B)) * 64) / 64 + cnt / 64
+    g = g * (cnt > 0)
+    h = h * (cnt > 0)
+    hists = np.stack([g, h, cnt], axis=-1)
+    num_bins = np.full(F, B, np.int32)
+    num_bins[5] = 300
+    movable = np.zeros(F, bool)
+    movable[1] = True
+    miss = np.zeros(F, np.int32)
+    miss[1] = B - 1
+    is_cat = np.zeros(F, bool)
+    hp = dict(min_data_in_leaf=20.0)
+    if cat:
+        is_cat[2] = True
+        hp.update(has_categorical=True, max_cat_to_onehot=4,
+                  min_data_per_group=10.0, max_cat_threshold=64)
+    meta = FeatureMeta(
+        num_bins=torch.as_tensor(num_bins).to(dev),
+        movable_missing=torch.as_tensor(movable).to(dev),
+        missing_bin=torch.as_tensor(miss).to(dev),
+        is_categorical=torch.as_tensor(is_cat).to(dev),
+        monotone=torch.zeros(F, dtype=torch.int8, device=dev),
+        penalty=torch.ones(F, dtype=torch.float32, device=dev),
+        cegb_coupled=torch.zeros(F, dtype=torch.float32, device=dev))
+    ht = torch.as_tensor(hists.astype(np.float32)).to(dev)
+    # each child's sums: its feature 0's bins (every feature sums alike up
+    # to the grid's rounding, which the scan does not need)
+    sums = ht[:, 0].sum(dim=1)
+    pair = split_pair(sums, torch.zeros(2, device=dev),
+                      torch.full((2,), float("-inf"), device=dev),
+                      torch.full((2,), float("inf"), device=dev))
+    return ht, pair, meta, SplitHyper(**hp), torch.ones(F, dtype=torch.bool,
+                                                        device=dev)
+
+
+def phase_linear_dense_kernels(dev, rng, n=300_000):
+    """Phase 3j's kernels on seeded inputs: the Gram kernel against its
+    twin (31 and 255 leaves, 8 and 16 features a leaf, NaN rows, an empty
+    leaf, an under-determined one, out-of-bag rows; 300,000 rows); the
+    dense histogram against its twin on u8 (255 bins) and u16 (1023 bins)
+    rows: every row, a big and a small leaf, an empty leaf, a split's
+    header (either child smaller) and a dead one; the row update against
+    its twin (live and dead headers, u8 and u16); the split scan past 256
+    bins (511, 1023 and 3000 bins, with a categorical feature of 1023
+    bins) bit for bit against find_best_split on the card; the router over
+    u16 bins against the plain router (254 numerical rounds, categorical
+    rounds over 1023 bins, num_splits 0). Returns errs."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.learner import device_bins, route_layout
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.partition import HDR_WORDS
+
+    errs = {}
+    for L, km, lam in ((31, 8, 0.0), (255, 16, 0.5)):
+        key = "linear_gram/L%d_k%d" % (L, km)
+        errs[key] = check_linear_gram(
+            key, *gram_inputs(dev, rng, n, 24, L, km), lam)
+    for B, F in ((255, 28), (1023, 28)):
+        dt = np.uint8 if B <= 256 else np.uint16
+        bins_np = rng.randint(0, B, (n, F)).astype(dt)
+        bins = device_bins(bins_np, dev)
+        ghc = torch.as_tensor(np.stack(
+            [np.round(rng.randn(n) * 64) / 64, np.abs(np.round(
+                rng.randn(n) * 64) / 64), (rng.rand(n) < 0.9)], axis=1)
+            .astype(np.float32)).to(dev)
+        leaf_np = rng.randint(0, 40, n)
+        leaf_np[rng.rand(n) < 0.5] = 3
+        row_leaf = torch.as_tensor(leaf_np.astype(np.int32)).to(dev)
+        op = H.DenseHistogram(bins, ghc, row_leaf, B)
+        tag = "dense_histogram/b%d" % B
+        for name, leaf in (("all", -1), ("big", 3), ("small", 17),
+                           ("empty", 99)):
+            errs["%s/%s" % (tag, name)] = check_dense_hist(
+                "%s/%s" % (tag, name), op, leaf)
+        for name, ls, live in (("hdr_left", 1, 1), ("hdr_right", 0, 1)):
+            hdr = torch.tensor([0, 0, 0, 5, ls, 3, live, 3],
+                               dtype=torch.int32).to(dev)
+            errs["%s/%s" % (tag, name)] = check_dense_hist(
+                "%s/%s" % (tag, name), op, hdr=hdr, new_leaf=17)
+        dead = torch.tensor([0, 0, 0, 5, 1, 3, 0, 3],
+                            dtype=torch.int32).to(dev)
+        op.out.fill_(7.0)
+        op(hdr=dead, new_leaf=17)
+        sync(dev)
+        if not bool((op.out == 7.0).all()):
+            raise AssertionError("%s: a dead header wrote" % tag)
+        go = torch.as_tensor(rng.rand(B) < 0.5).to(dev)
+        for name, live in (("live", 1), ("dead", 0)):
+            hdr = torch.tensor([0, 0, 0, 7, 1, 3, live, 3],
+                               dtype=torch.int32).to(dev)
+            assert hdr.numel() == HDR_WORDS
+            key = "dense_row_update/b%d/%s" % (B, name)
+            errs[key] = check_row_update(key, bins, row_leaf, go, hdr, 40)
+    for B, cat in ((511, False), (1023, False), (1023, True), (3000, False)):
+        ht, pair, meta, hp, fmask = wide_scan_case(dev, rng, B, cat=cat)
+        key = "split_scan/b%d%s" % (B, "_cat" if cat else "")
+        errs[key] = check_split_scan(key, ht, pair, 2, meta, fmask, hp)
+    F, B = 28, 1023
+    bins = device_bins(rng.randint(0, B, (min(n, 65536), F))
+                       .astype(np.uint16), dev)
+    bt = route_layout(bins)
+    for name, rounds, cat_frac, ns in (("tree254", 254, 0.0, 254),
+                                       ("cat", 120, 0.5, 120),
+                                       ("ns0", 60, 0.0, 0)):
+        log_ = random_log(rng, dev, rounds, F, B, cat_frac)
+        if ns != rounds:
+            log_ = log_._replace(num_splits=torch.tensor(
+                [ns], dtype=torch.int32, device=dev))
+        key = "router_u16/" + name
+        errs[key] = check_router_u16(key, bins, log_, bt)
+    return errs
+
+
+def capture_linear_fits(at):
+    """Wrap the batched linear fit so that the calls numbered in ``at``
+    keep their inputs (the tree's feature tables, the rows' leaves and the
+    channels, cloned). Returns (the kept inputs by call, restore)."""
+    import lightgbm_tpu_torch.linear as LIN
+    from lightgbm_tpu_torch.linear.fit import leaf_feature_table
+
+    orig = LIN.fit_linear_leaves
+    calls, kept = [0], {}
+
+    def rec(tree, ds, row_leaf, ghc, **kw):
+        i = calls[0]
+        calls[0] += 1
+        if i in at:
+            kept[i] = (leaf_feature_table(tree, ds, kw["num_leaves_cap"]),
+                       ds, row_leaf.clone(), ghc.clone(), kw["lam"])
+        return orig(tree, ds, row_leaf, ghc, **kw)
+
+    LIN.fit_linear_leaves = rec
+
+    def restore():
+        LIN.fit_linear_leaves = orig
+
+    return kept, restore
+
+
+def linear_run(dev, data, lam, trees, leaves, capture=(),
+               linear_device="auto"):
+    """Linear trees at full width per iteration with phase 3's valid set
+    (launch counts zeroed just before, read just after); the calls of the
+    batched fit numbered in ``capture`` keep their inputs. Returns
+    (booster, counts, summary, kept inputs)."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    params = train_params(dev, leaves, {"linear_tree": True,
+                                        "linear_lambda": lam,
+                                        "linear_device": linear_device})
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    kept, restore = capture_linear_fits(set(capture))
+    sync(dev)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        bst = lgt.train(dict(params), train, trees, valid_sets=[valid])
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = kernels.launch_counts()
+    g = bst.inner
+    text = bst.model_to_string()
+    auc = auc_np(yv, bst.predict(Xv))
+    valid_auc = [v for _, m, v, _ in g.eval_valid() if m == "auc"][0]
+    if abs(auc - valid_auc) > 1e-5:
+        raise AssertionError("phase 3j linear: predicted valid auc %.7f, "
+                             "the valid scores' %.7f" % (auc, valid_auc))
+    loaded = lgt.Booster({"device_type": dev.type}, model_str=text)
+    d = float(abs(loaded.predict(Xv[:5000]) - bst.predict(Xv[:5000])).max())
+    if d > 1e-6:
+        raise AssertionError("phase 3j linear: the model read back from "
+                             "its text predicts %.3g away" % d)
+    fitted = sum(len(c) > 0 for t in g.models
+                 for c in t.leaf_coeff.values())
+    s = dict(trees=trees, linear_lambda=lam,
+             wall_per_tree_ms=wall / trees * 1e3,
+             model_sha256=hashlib.sha256(text.encode()).hexdigest(),
+             leaves=[t.num_leaves for t in g.models], valid_auc=auc,
+             linear_leaves=fitted, train_logloss=bst.eval_train()[1][2],
+             text_round_trip_max_diff=d)
+    log("phase 3j linear lambda %g: %d trees per iteration in %.1f ms a "
+        "tree, leaves %s, %d leaves with coefficients, valid auc %.5f, "
+        "train logloss %.7f, sha256 %s; launches %s"
+        % (lam, trees, s["wall_per_tree_ms"], s["leaves"], fitted, auc,
+           s["train_logloss"], s["model_sha256"], counts))
+    return bst, counts, s, kept
+
+
+def linear_card_vs_host(dev, data, rows, trees, leaves):
+    """Linear trees on the first ``rows`` rows on the card (the Gram
+    kernel) and on the host (the twin, linear_device=on): the splits that
+    agree, and the train logloss within LINEAR_METRIC_TOL."""
+    import lightgbm_tpu_torch as lgt
+    X, y = data[0][:rows], data[1][:rows]
+    res = {}
+    for where, d in (("card", dev.type), ("host", "cpu")):
+        params = dict(train_params(dev, leaves, {"linear_tree": True,
+                                                 "linear_device": "on"}),
+                      device_type=d)
+        bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
+                        trees)
+        res[where] = (bst, bst.eval_train()[1][2])
+    (ca, lc), (ho, lh) = res["card"], res["host"]
+    agree, total, _ = split_agreement(ca, ho)
+    log("phase 3j card vs host linear: %d rows x %d trees x %d leaves; %d "
+        "of %d splits agree; train logloss card %.9f host %.9f (|diff| "
+        "%.3g, limit %.1g)" % (rows, trees, leaves, agree, total, lc, lh,
+                               abs(lc - lh), LINEAR_METRIC_TOL))
+    if not abs(lc - lh) <= LINEAR_METRIC_TOL:
+        raise AssertionError("phase 3j linear: train logloss card %.9f host "
+                             "%.9f" % (lc, lh))
+    return dict(splits_agree=agree, splits=total, logloss_card=lc,
+                logloss_host=lh)
+
+
+def dense_run(dev, data, name, extra, trees, per_iter, leaves):
+    """The dense builder at full width: fused ``trees`` trees through the
+    device tree loop (launch counts zeroed just before, read just after),
+    then ``per_iter`` trees per iteration with phase 3's valid set (the
+    learner's ``train``: on the card the device tree loop, outside the
+    CUDA graph; the valid rows routed on the card) whose model must be
+    the first fused trees' byte for byte, then ``trees`` more
+    fused trees (the steady wall a tree). Returns (fused booster, counts,
+    summary)."""
+    import hashlib
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    X, y, Xv, yv = data
+    params = train_params(dev, leaves, extra)
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(params), train, trees)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    g = bst.inner
+    if g._fused is None or not g.learner.dense:
+        raise AssertionError("phase 3j %s: not the dense builder's fused "
+                             "path" % name)
+    text = bst.model_to_string()
+    s = dict(trees=trees, wall_per_tree_ms=wall / trees * 1e3,
+             model_sha256=hashlib.sha256(text.encode()).hexdigest(),
+             leaves=[t.num_leaves for t in g.models],
+             num_bin=g.learner.num_bin,
+             bins_dtype=str(g.learner.bins.dtype),
+             train_logloss=bst.eval_train()[1][2],
+             valid_auc=auc_np(yv, bst.predict(Xv)))
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = lgt.train(dict(params), train, per_iter, valid_sets=[valid])
+    sync(dev)
+    s["per_iteration_wall_per_tree_ms"] = \
+        (time.perf_counter() - t0) / per_iter * 1e3
+    s["per_iteration_launches"] = kernels.launch_counts()
+    if model_text(eager, per_iter) != model_text(bst, per_iter):
+        raise AssertionError("phase 3j %s: the per-iteration model is not "
+                             "the first fused trees' byte for byte" % name)
+    ev = [v for _, m, v, _ in eager.inner.eval_valid() if m == "auc"][0]
+    pv = auc_np(yv, eager.predict(Xv))
+    if abs(ev - pv) > 1e-5:
+        raise AssertionError("phase 3j %s: valid auc from the routed valid "
+                             "scores %.7f, predicted %.7f" % (name, ev, pv))
+    s["per_iteration_equal"] = True
+    sync(dev)
+    t0 = time.perf_counter()
+    g.train_block(trees)
+    g.finish_fused("steady")
+    sync(dev)
+    s["steady_wall_per_tree_ms"] = (time.perf_counter() - t0) / trees * 1e3
+    log("phase 3j %s: %d fused trees (%s bins, %d of them) in %.1f ms a tree "
+        "with the first eager tree and the capture, %.1f ms a tree in a "
+        "second block, %.1f ms a tree per iteration; leaves %s, train "
+        "logloss %.7f, valid auc %.5f, sha256 %s; launches %s"
+        % (name, trees, s["bins_dtype"], s["num_bin"], s["wall_per_tree_ms"],
+           s["steady_wall_per_tree_ms"], s["per_iteration_wall_per_tree_ms"],
+           s["leaves"], s["train_logloss"], s["valid_auc"],
+           s["model_sha256"], counts))
+    return bst, counts, s
+
+
+def dense_full_width(bst, data, dev, errs, tag, timed):
+    """Kernels D, S and R against their twins on a fused dense learner's
+    inputs at full width (the fused model's gradients): a tree grown on
+    them through the device tree loop equal field by field to the
+    per-split host loop's (build_tree) on the card, the histogram of
+    every row (the root) and of the smallest leaf of that tree
+    (a deep leaf), the row update of that leaf, the split scan of the root
+    and the deep leaf as a pair of children, and the router over the
+    training rows (equal to the loop's leaf ids) and the valid rows (equal
+    to the plain router). With ``timed``, each one's ms, plain ms and
+    bytes. Returns the timings."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.learner import assign_leaves, assign_leaves_plain
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.scan import SplitScan
+    from lightgbm_tpu_torch.ops.split import find_best_split
+
+    g = bst.inner
+    lrn = g.learner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    log_ = lrn.train_device(ghc)
+    row_leaf = log_.row_leaf.clone()
+    # the per-split host loop (build_tree) on the card grows the same tree
+    host_log = lrn.train_host_loop(ghc)
+    for fld, a, b in zip(log_._fields, log_, host_log):
+        if not torch.equal(a, b):
+            raise AssertionError("phase 3j %s: the device tree loop's %s "
+                                 "differs from the per-split host loop's"
+                                 % (tag, fld))
+    bins, B = lrn.bins, lrn.num_bin
+    n, F = bins.shape
+    counts = torch.bincount(row_leaf.long(), minlength=lrn.num_leaves)
+    deep = int(torch.argmin(torch.where(counts > 0, counts,
+                                        counts.max() + 1)))
+    m_deep = int(counts[deep])
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    root_op = H.DenseHistogram(bins, ghc, zero, B)
+    leaf_op = H.DenseHistogram(bins, ghc, row_leaf, B)
+    errs["dense_histogram/%s/root" % tag] = check_dense_hist(
+        "dense_histogram/%s/root" % tag, root_op, -1)
+    errs["dense_histogram/%s/deep" % tag] = check_dense_hist(
+        "dense_histogram/%s/deep" % tag, leaf_op, deep)
+    root_h, deep_h = root_op(-1).clone(), leaf_op(deep).clone()
+    go = torch.arange(B, device=dev) <= B // 3
+    hdr = torch.tensor([0, 0, 0, 0, 1, 3, 1, deep], dtype=torch.int32
+                       ).to(dev)
+    errs["dense_row_update/%s" % tag] = check_row_update(
+        "dense_row_update/%s" % tag, bins, row_leaf, go, hdr,
+        lrn.num_leaves)
+    hists = torch.stack([root_h, deep_h])
+    sums = hists[:, 0].sum(dim=1)
+    pair = P.split_pair(sums, torch.zeros(2, device=dev),
+                        torch.full((2,), float("-inf"), device=dev),
+                        torch.full((2,), float("inf"), device=dev))
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    errs["split_scan/%s" % tag] = check_split_scan(
+        "split_scan/%s" % tag, hists, pair, 3, lrn.meta, fmask, lrn.hp)
+    errs["router_u16/%s/train" % tag] = check_router_u16(
+        "router_u16/%s/train" % tag, bins, log_, lrn.bins_t, row_leaf)
+    vbins = g._valid_bins(valid_dataset_of(bst, data))
+    errs["router_u16/%s/valid" % tag] = check_router_u16(
+        "router_u16/%s/valid" % tag, vbins, log_)
+    if not timed:
+        return {}
+    t = {}
+    t["hist_root"] = (cuda_ms(lambda: root_op(-1)),
+                      device_ms(lambda: root_op(-1)),
+                      cuda_ms(lambda: H.dense_histogram_plain(
+                          bins, ghc, zero, -1, num_bins=B), iters=2,
+                          warmup=1))
+    t["hist_deep"] = (cuda_ms(lambda: leaf_op(deep)),
+                      device_ms(lambda: leaf_op(deep)),
+                      cuda_ms(lambda: H.dense_histogram_plain(
+                          bins, ghc, row_leaf, deep, num_bins=B), iters=2,
+                          warmup=1))
+    # index_add_ of the selected rows' channels into the flat (F * B, 3)
+    # histogram: one torch call of the same function (its inputs built
+    # outside the timing)
+    sel = torch.nonzero(row_leaf == deep).flatten()
+    for key, rows_ in (("lib_root", None), ("lib_deep", sel)):
+        b_sel = bins.long() if rows_ is None else bins.long()[rows_]
+        flat = (b_sel + torch.arange(F, device=dev) * B).reshape(-1)
+        src = (ghc if rows_ is None else ghc[rows_])[:, None, :] \
+            .expand(-1, F, 3).reshape(-1, 3).contiguous()
+        acc = torch.zeros((F * B, 3), dtype=torch.float32, device=dev)
+        t[key] = cuda_ms(lambda: acc.index_add_(0, flat, src), iters=5)
+        del b_sel, flat, src
+    op = SplitScan(lrn.meta, fmask, lrn.hp, num_feat=F, num_bins=B,
+                   device=dev)
+    out = P.split_out(F, B, dev)
+    shdr = chain_header([0, 0, 0, 0], 1, 1, dev, 3)
+    t["scan"] = (cuda_ms(lambda: op(hists, pair, shdr, out)),
+                 device_ms(lambda: op(hists, pair, shdr, out)),
+                 cuda_ms(lambda: find_best_split(
+                     hists, pair[0:6].view(2, 3), lrn.meta, fmask, lrn.hp,
+                     parent_output=pair[6:8], leaf_lower=pair[8:10],
+                     leaf_upper=pair[10:12], node_depth=3), iters=5,
+                     warmup=1))
+    bt = lrn.bins_t
+    t["route"] = (cuda_ms(lambda: assign_leaves(bins, log_, True,
+                                                bins_t=bt)),
+                  device_ms(lambda: assign_leaves(bins, log_, True,
+                                                  bins_t=bt)),
+                  cuda_ms(lambda: assign_leaves_plain(bins, log_, True),
+                          iters=2, warmup=1))
+    rl = row_leaf.clone()
+    t["update"] = (cuda_ms(lambda: H.dense_row_update(bins, rl, go, hdr,
+                                                      deep)),
+                   device_ms(lambda: H.dense_row_update(bins, rl, go, hdr,
+                                                        deep)),
+                   cuda_ms(lambda: H.dense_row_update_plain(bins, rl, go,
+                                                            hdr, deep),
+                           iters=5, warmup=1))
+    elem = bins.element_size()
+    ns = int(log_.num_splits[0])
+    t.update(n=n, F=F, B=B, m_deep=m_deep, elem=elem, splits=ns,
+             update_rows=m_deep)
+    log("phase 3j %s kernels at N = %d, F = %d, B = %d (%d-byte bins): "
+        "dense histogram root %.4f ms (device %.4f, twin %.1f, index_add_ "
+        "%.3f), deep leaf of %d rows %.4f ms (device %.4f, twin %.1f, "
+        "index_add_ %.3f); split scan %.4f ms (device %.4f, "
+        "find_best_split %.3f); router %d splits %.4f ms (device %.4f, "
+        "plain %.2f); row update %.4f ms (device %.4f, twin %.3f)"
+        % (tag, n, F, B, elem, *t["hist_root"], t["lib_root"], m_deep,
+           *t["hist_deep"], t["lib_deep"], *t["scan"], ns, *t["route"],
+           *t["update"]))
+    return t
+
+
+def valid_dataset_of(bst, data):
+    """Phase 3's valid rows binned against ``bst``'s training set."""
+    import lightgbm_tpu_torch as lgt
+    ds = getattr(bst, "_smoke_valid", None)
+    if ds is None:
+        ds = lgt.Dataset(data[2], label=data[3],
+                         reference=bst.train_dataset).construct()
+        bst._smoke_valid = ds
+    return ds
+
+
+def time_linear_gram(kept, dev, errs, timed=True):
+    """Kernel L against its twin at the captured fits (the middle and the
+    last tree of a full-width run): the Gram sums, fit_ok and the
+    coefficients (check_linear_gram); with ``timed`` each one timed.
+    Returns the last one's timings and bytes (None untimed)."""
+    import torch
+    from lightgbm_tpu_torch.linear import fit as LF
+
+    t = None
+    for i in sorted(kept):
+        tables, ds, row_leaf, ghc, lam = kept[i]
+        fi, fm = (torch.as_tensor(x).to(dev) for x in tables)
+        X = LF._device_raw(ds, dev)
+        key = "linear_gram/full_width/fit%d" % i
+        errs[key] = check_linear_gram(key, X, row_leaf, ghc, fi, fm, lam)
+        if not timed:
+            continue
+        n, (L, km) = row_leaf.shape[0], fi.shape
+        ms = cuda_ms(lambda: LF.gram_sums(X, row_leaf, ghc, fi, fm))
+        dms = device_ms(lambda: LF.gram_sums(X, row_leaf, ghc, fi, fm))
+        plain = cuda_ms(lambda: LF.gram_sums_plain(X, row_leaf, ghc[:, 0],
+                                                   ghc[:, 1], fi, fm),
+                        iters=2, warmup=1)
+        k_row = fm.sum(dim=1).index_select(0, row_leaf.long())
+        kp1 = km + 1
+        w = kp1 * kp1 + kp1 + 2
+        byts = n * (4 + 8) + int(k_row.sum()) * 4 + L * w * 4
+        ops = n * (kp1 * kp1 + kp1) * 2
+        t = dict(ms=ms, device_ms=dms, plain_ms=plain, bytes=byts, ops=ops,
+                 shape=dict(rows=n, leaves=L, k=km,
+                            features_used=int(k_row.sum())))
+        log("phase 3j linear_gram fit %d at %d rows, %d leaves, k = %d: "
+            "%.4f ms (device %.4f, twin %.2f), %d feature reads"
+            % (i, n, L, km, ms, dms, plain, int(k_row.sum())))
+    return t
+
+
+def phase_linear_dense(dev, data, card, leaves=255, timed=True, seed=0,
+                       linear_trees=LINEAR_TREES, dense_trees=DENSE_TREES,
+                       per_iter=DENSE_PER_ITER_TREES,
+                       host_rows=LINEAR_HOST_ROWS,
+                       host_trees=LINEAR_HOST_TREES,
+                       host_leaves=LINEAR_HOST_LEAVES, kernel_rows=300_000,
+                       linear_device="auto"):
+    """Phase 3j: (a) linear trees at full width per iteration with the
+    valid set, at the default linear_lambda and at LINEAR_LAMBDA: kernel
+    L against its twin at the middle and the last fit; sha256 equal
+    across two runs of the default; the model read back from its text
+    predicts the same; valid AUC above the plain GBDT's at the same trees;
+    card against host at ``host_rows`` rows. (b) the dense builder at
+    max_bin 1023 (u16 bins) and at tree_builder=dense with 255 bins:
+    fused through the device loop against per iteration (byte-equal), and
+    kernels D, S and R against their twins at the root and a deep leaf.
+    The seeded kernel checks first (phase_linear_dense_kernels at
+    ``kernel_rows`` rows). ``linear_device`` is the linear runs' knob
+    (``auto``: the Gram kernel on the card; ``on`` takes the batched fit
+    on the host too). Returns
+    (summary, {config: counts}, errs, the kernels-line rows)."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    errs = phase_linear_dense_kernels(dev, np.random.RandomState(seed + 61),
+                                      n=kernel_rows)
+    summary, counts_by = {}, {}
+    # the fits run from the second tree on (the first tree keeps constant
+    # leaves): the middle one and the last one
+    fits = linear_trees - 1
+    mid, last = (fits - 1) // 2, fits - 1
+    runs = {}
+    for name, lam in (("linear", 0.0), ("linear_lambda", LINEAR_LAMBDA)):
+        bst, counts, s, kept = linear_run(
+            dev, data, lam, linear_trees, leaves,
+            capture=(mid, last) if name == "linear" else (),
+            linear_device=linear_device)
+        if dev.type == "cuda" and counts.get("linear_gram", 0) \
+                != linear_trees - 1:
+            raise AssertionError("phase 3j %s: %d Gram launches for %d "
+                                 "fits" % (name, counts.get("linear_gram", 0),
+                                           linear_trees - 1))
+        summary[name], counts_by[name] = s, counts
+        runs[name] = (bst, kept)
+    _, _, again, _ = linear_run(dev, data, 0.0, linear_trees, leaves,
+                                linear_device=linear_device)
+    if again["model_sha256"] != summary["linear"]["model_sha256"]:
+        raise AssertionError("phase 3j linear: sha256 %s then %s"
+                             % (summary["linear"]["model_sha256"],
+                                again["model_sha256"]))
+    summary["linear"]["sha256_stable"] = True
+    batched = linear_device == "on" or (linear_device == "auto"
+                                        and dev.type == "cuda")
+    if batched and sorted(runs["linear"][1]) != [mid, last]:
+        raise AssertionError("phase 3j: the batched fit ran %d times, not "
+                             "%d" % (len(runs["linear"][1]), fits))
+    t_gram = time_linear_gram(runs["linear"][1], dev, errs,
+                              timed and dev.type == "cuda")
+    import lightgbm_tpu_torch as lgt
+    X, y, Xv, yv = data
+    params = train_params(dev, leaves)
+    plain = lgt.train(dict(params), lgt.Dataset(X, label=y, params=params),
+                      linear_trees)
+    plain_auc = auc_np(yv, plain.predict(Xv))
+    summary["linear"]["plain_gbdt_valid_auc"] = plain_auc
+    log("phase 3j valid auc after %d trees: linear %.5f, lambda %g %.5f, "
+        "plain GBDT %.5f" % (linear_trees, summary["linear"]["valid_auc"],
+                             LINEAR_LAMBDA,
+                             summary["linear_lambda"]["valid_auc"],
+                             plain_auc))
+    if not summary["linear"]["valid_auc"] > plain_auc:
+        raise AssertionError("phase 3j: linear valid auc %.5f not above the "
+                             "plain GBDT's %.5f"
+                             % (summary["linear"]["valid_auc"], plain_auc))
+    del plain, runs
+    summary["linear"]["card_vs_host"] = linear_card_vs_host(
+        dev, data, host_rows, host_trees, host_leaves)
+    t_dense = {}
+    for name, extra in DENSE_CONFIGS.items():
+        bst, counts, s = dense_run(dev, data, name, extra, dense_trees,
+                                   per_iter, leaves)
+        L1 = leaves - 1
+        want = {"dense_histogram": dense_trees * leaves,
+                "dense_row_update": dense_trees * L1,
+                "split_scan": dense_trees * L1,
+                "split_commit": dense_trees * leaves}
+        router = "route_rows_u16" if is_u16(extra) else "route_rows"
+        # per iteration too the trees grow through the card's kernels
+        per_iter_want = ("dense_histogram", "dense_row_update", "split_scan",
+                         "split_commit", router)
+        if dev.type == "cuda" and (
+                any(counts.get(k, 0) != v for k, v in want.items())
+                or any(s["per_iteration_launches"].get(k, 0) <= 0
+                       for k in per_iter_want)):
+            raise AssertionError("phase 3j %s launches %s (per iteration "
+                                 "%s), want %s and %s"
+                                 % (name, counts, s["per_iteration_launches"],
+                                    want, per_iter_want))
+        summary[name], counts_by[name] = s, counts
+        t_dense[name] = dense_full_width(bst, data, dev, errs, name,
+                                         timed and name == "u16_1023")
+        del bst
+    rows = {}
+    if timed and dev.type == "cuda":
+        rows = linear_dense_rows(errs, t_gram, t_dense["u16_1023"])
+    log("phase 3j took %.1f s (%s)" % (time.perf_counter() - t_start, card))
+    return summary, counts_by, errs, rows
+
+
+def linear_dense_launches(counts_by, summary):
+    """The launches of phase 3j's kernels on its main paths: the Gram
+    kernel in both linear runs, the dense kernels and the wide scan in the
+    fused dense runs, the u16 router routing the valid rows per
+    iteration."""
+    dense = [counts_by[k] for k in DENSE_CONFIGS]
+    return {"linear_gram": sum(counts_by[k].get("linear_gram", 0)
+                               for k in ("linear", "linear_lambda")),
+            "dense_histogram": sum(c.get("dense_histogram", 0)
+                                   for c in dense),
+            "dense_row_update": sum(c.get("dense_row_update", 0)
+                                    for c in dense),
+            "split_scan_b1023": counts_by["u16_1023"].get("split_scan", 0),
+            "route_rows_u16": summary["u16_1023"]["per_iteration_launches"]
+            .get("route_rows_u16", 0)}
+
+
+def is_u16(extra):
+    """Whether a phase 3j dense configuration bins past 256 (u16)."""
+    return extra.get("max_bin", 255) > 256
+
+
+def linear_dense_rows(errs, tg, td):
+    """The kernels-line rows of phase 3j's kernels, their bytes and ops
+    for bound_row."""
+    n, F, B, elem = td["n"], td["F"], td["B"], td["elem"]
+    m = td["m_deep"]
+
+    def err(prefix):
+        return max(v for k, v in errs.items() if k.startswith(prefix))
+
+    def timed(key):
+        ms, dms, plain = td[key]
+        return dict(ms=ms, device_ms=dms, plain_ms=plain)
+
+    out_b = F * B * 12
+    rows = {
+        "linear_gram": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/linear_gram.cu",
+            replaces="lightgbm_tpu/linear/fit.py:75 (fit_leaves_impl's Gram "
+                     "sums, XLA; no pallas_call)",
+            max_abs_err=err("linear_gram/"), ms=tg["ms"],
+            device_ms=tg["device_ms"], plain_ms=tg["plain_ms"],
+            library_ms=None, shape=tg["shape"], bytes=tg["bytes"],
+            ops=tg["ops"]),
+        "dense_histogram": dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/dense_histogram.cu",
+            replaces="lightgbm_tpu/ops/histogram.py:73 (build_histogram in "
+                     "learner.py:292 hist_of_leaf, XLA; no pallas_call)",
+            max_abs_err=err("dense_histogram/"), **timed("hist_deep"),
+            library_ms=td["lib_deep"], rows_selected=m,
+            root=dict(zip(("ms", "device_ms", "plain_ms"), td["hist_root"]),
+                      library_ms=td["lib_root"],
+                      bound_ms=(4 * n + n * (F * elem + 12) + out_b)
+                      / PEAK_BYTES_PER_S * 1e3),
+            bytes=4 * n + m * (F * elem + 12) + out_b, ops=3 * m * F),
+        "dense_row_update": dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/dense_histogram.cu",
+            replaces="lightgbm_tpu/learner.py:349 (the dense builder's row "
+                     "update, XLA; no pallas_call)",
+            max_abs_err=err("dense_row_update/"), **timed("update"),
+            library_ms=None, rows_on_parent=td["update_rows"],
+            bytes=4 * n + td["update_rows"] * (elem + 4), ops=n),
+        "split_scan_b1023": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/split_scan.cu",
+            replaces="lightgbm_tpu/ops/split.py:find_best_split (XLA; no "
+                     "pallas_call), past 256 bins",
+            max_abs_err=err("split_scan/b"), **timed("scan"),
+            library_ms=None, bins=B,
+            bytes=2 * F * B * 12 + 48 + 2 * (64 + B), ops=2 * 4 * F * B * 13),
+        "route_rows_u16": dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/route_rows.cu",
+            replaces="lightgbm_tpu/ops/route.py:88 (route_rows; u16 bins "
+                     "take the JAX learner.py:1560 round-by-round loop)",
+            max_abs_err=err("router_u16/"), **timed("route"),
+            library_ms=None, splits=td["splits"],
+            bytes=F * n * elem + 4 * n, ops=n * 8)}
+    return rows
+
+
 # --------------------------------------------------------------- file phase
 
 #: the file phase: rows of its CSV files, cut from the 2M training rows to
@@ -6554,6 +7468,12 @@ def main(argv=None):
                     "tree loop, DART and RF, their kernels against their "
                     "twins, card vs host) and print only its summary and "
                     "the monotone kernels' rows")
+    ap.add_argument("--linear-dense-only", action="store_true",
+                    help="build, run the linear and dense phase (3j: "
+                    "linear trees with the Gram kernel, the dense builder "
+                    "at 1023 and 255 bins through the device tree loop, "
+                    "their kernels against their twins, card vs host) and "
+                    "print only its summary and its kernels' rows")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -6570,6 +7490,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, HERE)
     # importing the op modules registers their kernels
+    from lightgbm_tpu_torch.linear import fit as linear_fit  # noqa: F401
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
                                         histogram, kernels, monotone, node,
                                         partition, rank, route, scan)
@@ -6652,6 +7573,21 @@ def main(argv=None):
                for name, r in mono_rows.items()}
         print(json.dumps({"monotone": summary_mono, "kernels": row,
                           "extended": extended}, default=str))
+        log(card)
+        return 0
+
+    if args.linear_dense_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_ld, counts_ld, errs, ld_rows = phase_linear_dense(
+            dev, data, card, leaves=args.leaves, seed=args.seed)
+        for name, e in errs.items():
+            log("check %s: max |diff| %.3g" % (name, e))
+        row = {name: dict(launches=linear_dense_launches(counts_ld,
+                                                         summary_ld)[name],
+                          **bound_row(name, r))
+               for name, r in ld_rows.items()}
+        print(json.dumps({"linear_dense": summary_ld, "kernels": row},
+                         default=str))
         log(card)
         return 0
 
@@ -6885,6 +7821,13 @@ def main(argv=None):
                      if "steady_wall_per_tree_ms" in v),
            summary_f["three_launch"]["wall_per_tree_ms"]))
 
+    log("== phase 3j: linear trees and the dense builder past 256 bins "
+        "(%s)" % card)
+    summary_ld, counts_ld, errs_ld, ld_rows = phase_linear_dense(
+        dev, data, card, leaves=args.leaves, seed=args.seed)
+    errs.update(errs_ld)
+    rows.update(ld_rows)
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -6960,12 +7903,15 @@ def main(argv=None):
                 "split_commit": counts_f["planes"]["split_commit"]
                 + sum(c.get("split_commit", 0) for c in counts_opt.values())
                 + sum(c.get("split_commit", 0)
-                      for c in counts_mono.values()),
+                      for c in counts_mono.values())
+                + sum(counts_ld[k].get("split_commit", 0)
+                      for k in DENSE_CONFIGS),
                 "split_scan": counts_f["three_launch"]["split_scan"]
                 + counts_f["quantized"]["split_scan"]
                 + counts_m["split_scan"]
                 + sum(c.get("split_scan", 0) for c in counts_opt.values())
-                + sum(c.get("split_scan", 0) for c in counts_mono.values()),
+                + sum(c.get("split_scan", 0) for c in counts_mono.values())
+                + counts_ld["dense_255"].get("split_scan", 0),
                 "mono_bounds": sum(c.get("mono_bounds", 0)
                                    for c in counts_mono.values()),
                 "mono_commit": sum(c.get("mono_commit", 0)
@@ -6973,7 +7919,8 @@ def main(argv=None):
                 "node_inputs": sum(c.get("node_inputs", 0)
                                    for c in counts_opt.values()),
                 "route_rows_cat": counts_m["route_rows_cat"],
-                "rank_lambdas": counts_rank["rank_lambdas"]}
+                "rank_lambdas": counts_rank["rank_lambdas"],
+                **linear_dense_launches(counts_ld, summary_ld)}
     log("launches: planes training %s; one-kernel training %s; resident "
         "training %s; quantized training %s; rows run %s; serving %s"
         % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
@@ -6987,6 +7934,8 @@ def main(argv=None):
     log("train summary objectives %s" % json.dumps(summary_obj))
     log("train summary options %s" % json.dumps(summary_opt, default=str))
     log("train summary monotone %s" % json.dumps(summary_mono, default=str))
+    log("train summary linear and dense %s" % json.dumps(summary_ld,
+                                                          default=str))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

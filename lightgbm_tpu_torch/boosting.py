@@ -11,8 +11,12 @@ the block in flight first). Bagging,
 balanced bagging, GOSS and ``feature_fraction < 1`` draw their masks from
 the port's threefry (``fused.py``, ``prng.py``) exactly as the JAX package
 draws them. :class:`DART` (dropout boosting) and :class:`RF` (random
-forest) train per iteration, as in the JAX package; linear-tree training
-waits in A10 and raises.
+forest) train per iteration, as in the JAX package, and so do linear
+trees (``linear_tree``): after each tree every leaf's ridge model is fit
+in one batched pass (``linear/fit.py``: the Gram kernel
+``csrc/linear_gram.cu`` on the card) or, on a host learner, by the
+f64 oracle (``linear_device``), and the scores are updated on the host
+from the raw features.
 
 Serving: the model text format (``model_to_string`` /
 ``model_from_string``, byte-compatible with the JAX package), raw-score
@@ -38,7 +42,7 @@ from .dataset import BinnedDataset
 from .device import resolve_device
 from .fused import make_balanced_sampler, make_feature_mask_fn, make_sampler
 from .learner import (SerialTreeLearner, TreeLog, assign_leaves,
-                      launches_per_split, leaf_values_by_row,
+                      device_bins, launches_per_split, leaf_values_by_row,
                       note_used_features, route_layout)
 from .metric import Metric, create_metrics
 from .objective import ObjectiveFunction, create_objective
@@ -118,10 +122,14 @@ class GBDT:
     # ------------------------------------------------------------------ setup
     def _setup(self, train_set: BinnedDataset) -> None:
         cfg = self.config
-        if cfg.linear_tree:
-            raise LightGBMError("linear_tree training is not ported to the "
-                                "PyTorch/CUDA package yet (ROADMAP A10, "
-                                "item 6.3: linear trees)")
+        if cfg.linear_tree and cfg.linear_device == "off" \
+                and self.device.type == "cuda":
+            # the card fits every leaf with the Gram kernel; the f64 host
+            # oracle is the host learner's fit, not a fallback of the card
+            raise LightGBMError(
+                "linear_device=off fits the linear leaves on the host and "
+                "needs device_type=cpu; on a CUDA device use "
+                "linear_device=auto or on (the Gram kernel)")
         self.objective = create_objective(cfg)
         self.objective.init(train_set.metadata, self.device)
         self.num_tree_per_iteration = self.objective.num_model_per_iteration
@@ -267,14 +275,16 @@ class GBDT:
         any_nonconstant = False
         for k in range(K):
             key = fold_in(self._key, it * 131 + k)
-            log = self.learner.train(self._tree_channels(g, h, k), fmask,
-                                     key, self._cegb_used)
+            ghc = self._tree_channels(g, h, k)
+            # the channels the tree grew on: the linear fit's weights
+            self._last_ghc = ghc
+            log = self.learner.train(ghc, fmask, key, self._cegb_used)
             if self.learner.hp.use_cegb:
                 note_used_features(self._cegb_used, log)
             tree = self._finalize_tree(log, k)
             with self._cache_lock:
                 self.models.append(tree)
-            self._count_tree(tree)
+            self._count_tree(tree, self.learner.train_on_loop)
             if tree.num_leaves > 1:
                 any_nonconstant = True
         with self._cache_lock:
@@ -294,8 +304,8 @@ class GBDT:
     def _count_tree(self, tree: Tree, device_loop: bool = False) -> None:
         """Growth and launch counters of one finished tree; the
         ``learner/launches_per_split`` gauge is the count of the loop that
-        grew it (the device tree loop on the card's fused path, else the
-        per-split host loop)."""
+        grew it (the device tree loop on the card's fused path and for
+        the card's dense builder, else the per-split host loop)."""
         splits = tree.num_leaves - 1
         telemetry.count("tree/trees")
         telemetry.count("tree/splits", splits)
@@ -335,7 +345,10 @@ class GBDT:
         the host from every row's leaf and the scores before the tree
         (reference: serial_tree_learner.cpp:684 RenewTreeOutput): one read
         of both per tree, on the per-iteration path only
-        (:meth:`supports_fused` excludes it)."""
+        (:meth:`supports_fused` excludes it). Linear trees (without leaf
+        renewal) fit their leaves' models and update the scores from the
+        raw features instead (:meth:`_fit_linear_tree`,
+        :meth:`_linear_score_updates`)."""
         rate = self._shrinkage_rate(log)
         tree = self.learner.log_to_tree(log)
         if self.objective.need_renew:
@@ -351,19 +364,139 @@ class GBDT:
         else:
             leaf_vals_dev = log.leaf_value * np.float32(rate)
             tree.apply_shrinkage(rate)
+        if self.config.linear_tree and not self.objective.need_renew:
+            self._fit_linear_tree(tree, log, rate)
+            if self.train_set.raw_numeric is not None:
+                if tree.num_leaves > 1:
+                    self._linear_score_updates(tree, log, class_id)
+                return tree
+            # no raw features (a binary-cache training set): the leaves
+            # stay constant, and so do the score updates
         if tree.num_leaves > 1:
             K = self.num_tree_per_iteration
             self.train_score.add(leaf_vals_dev, log.row_leaf, class_id, K)
             for _, vset, vscore in self.valid_sets:
-                vbins = self._valid_bins(vset)
-                bins_t = self._valid_bins_t(vset) \
-                    if vbins.dtype == torch.uint8 else None
                 vleaf = assign_leaves(
-                    vbins, log,
+                    self._valid_bins(vset), log,
                     has_categorical=self.learner.hp.has_categorical,
-                    bundle=self.learner.bundle, bins_t=bins_t)
+                    bundle=self.learner.bundle,
+                    bins_t=self._valid_bins_t(vset))
                 vscore.add(leaf_vals_dev, vleaf, class_id, K)
         return tree
+
+    def _fit_linear_tree(self, tree: Tree, log: TreeLog,
+                         rate: float) -> None:
+        """Fit ridge linear models in the leaves (reference:
+        LinearTreeLearner::CalculateLinear, linear_tree_learner.cpp:7):
+        solve -(Z^T H Z + lambda I') beta = Z^T g per leaf over the leaf's
+        branch numerical features; rows with NaN in those features are
+        excluded; under-determined leaves keep the plain output. The first
+        iteration only copies constants (the reference skips the fit).
+        With :meth:`_linear_fit_on_device` every leaf is fit in one batched
+        pass (``linear/fit.fit_linear_leaves``: the Gram kernel on the
+        card); else this host f64 loop, the oracle, fits them."""
+        from .ops.binning import BIN_CATEGORICAL
+
+        ds = self.train_set
+        tree.is_linear = True
+        # leaf_value is already shrunk; solved coefficients get the same
+        # shrinkage below (the reference applies Tree::Shrinkage to both)
+        tree.leaf_const = tree.leaf_value.copy()
+        if len(self.models) <= self.num_tree_per_iteration - 1 \
+                or tree.num_leaves <= 1 or ds.raw_numeric is None:
+            return
+        lam = float(self.config.linear_lambda)
+        if self._linear_fit_on_device():
+            from .linear import fit_linear_leaves
+            fit_linear_leaves(tree, ds, log.row_leaf, self._last_ghc,
+                              lam=lam, rate=rate,
+                              num_leaves_cap=int(self.config.num_leaves))
+            return
+        leaf = log.row_leaf.cpu().numpy()
+        # the bagged and amplified channels the tree grew on (the
+        # reference fits over the bagged partition only; out-of-bag rows
+        # carry h = 0 here, which drops them from the normal equations)
+        ghc = self._last_ghc.cpu().numpy().astype(np.float64)
+        gk, hk = ghc[:, 0], ghc[:, 1]
+        X = ds.raw_numeric
+        for l in range(tree.num_leaves):
+            feats = [int(f) for f in tree.branch_features(l)
+                     if ds.inner_feature_index(int(f)) >= 0
+                     and ds.bin_mappers[ds.inner_feature_index(int(f))]
+                     .bin_type != BIN_CATEGORICAL]
+            rows = np.flatnonzero(leaf == l)
+            if not feats or len(rows) < len(feats) + 1:
+                continue
+            Z = X[np.ix_(rows, feats)].astype(np.float64)
+            ok = ~np.isnan(Z).any(axis=1)
+            if int(ok.sum()) < len(feats) + 1:
+                continue
+            Zk = np.concatenate([Z[ok], np.ones((int(ok.sum()), 1))], axis=1)
+            hr = hk[rows][ok]
+            A = Zk.T @ (Zk * hr[:, None])
+            A[np.arange(len(feats)), np.arange(len(feats))] += lam
+            b = Zk.T @ gk[rows][ok]
+            try:
+                beta = -np.linalg.solve(A, b)
+            except np.linalg.LinAlgError:
+                continue
+            keep = np.abs(beta[:-1]) > 1e-35
+            tree.leaf_features[l] = np.asarray(feats, np.int64)[keep]
+            tree.leaf_coeff[l] = beta[:-1][keep] * rate
+            tree.leaf_const[l] = float(beta[-1]) * rate
+
+    def _linear_fit_on_device(self) -> bool:
+        """``linear_device``: off -> the host oracle (a host learner only:
+        :meth:`_setup` refuses it on the card), on -> the batched fit on
+        the learner's device, auto -> the batched fit on a CUDA device and
+        the oracle on the host (the JAX package's rule: the batched fit
+        only on an accelerator)."""
+        mode = self.config.linear_device
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        return self.device.type == "cuda"
+
+    def _add_class_scores(self, tracker: "ScoreTracker", vals: np.ndarray,
+                          class_id: int) -> None:
+        """tracker += f32(vals) in column ``class_id`` (f64 host values)."""
+        v = torch.as_tensor(np.asarray(vals, np.float32)).to(self.device)
+        if self.num_tree_per_iteration == 1:
+            tracker.score = tracker.score + v
+        else:
+            tracker.score[:, class_id] += v
+
+    def _linear_score_updates(self, tree: Tree, log: TreeLog,
+                              class_id: int) -> None:
+        """Score updates of a linear tree need the raw feature values, so
+        they run on the host, as in the JAX package (reference:
+        Tree::AddPredictionToScore with PredictionFunLinear,
+        tree.cpp:246): the training rows by their leaves, the valid rows
+        routed on the device (a leaf slot per row, mapped to its leaf)."""
+        from .utils.log import Log
+
+        leaf = log.row_leaf.cpu().numpy()
+        vals = tree.linear_predict(
+            self.train_set.raw_numeric.astype(np.float64), leaf)
+        self._add_class_scores(self.train_score, vals, class_id)
+        for _, vset, vscore in self.valid_sets:
+            slot_vals, vleaf = self._route_tree_device(tree, vset)
+            if vset.raw_numeric is None:
+                # no raw features (a binary-cache valid set): its scores
+                # take the plain leaf outputs, so its metrics stay meaningful
+                Log.warning("valid set lacks raw features for linear trees; "
+                            "using plain leaf outputs for its scores")
+                vscore.add(slot_vals, vleaf, class_id,
+                           self.num_tree_per_iteration)
+                continue
+            # the router returns to_split_arrays SLOTS (BFS order); the
+            # linear tables are keyed by LEAF id
+            leaf_of_slot = tree.to_split_arrays()["leaf_of_slot"]
+            vvals = tree.linear_predict(
+                vset.raw_numeric.astype(np.float64),
+                leaf_of_slot[vleaf.cpu().numpy()])
+            self._add_class_scores(vscore, vvals, class_id)
 
     def rollback_one_iter(self) -> None:
         """(reference: gbdt.cpp:454 RollbackOneIter)"""
@@ -447,7 +580,7 @@ class GBDT:
         dataset per device."""
         cache = ds.__dict__.setdefault("_device_bins", {})
         if self.device not in cache:
-            cache[self.device] = torch.as_tensor(ds.binned).to(self.device)
+            cache[self.device] = device_bins(ds.binned, self.device)
         return cache[self.device]
 
     def _valid_bins_t(self, ds: BinnedDataset) -> torch.Tensor:
@@ -485,11 +618,8 @@ class GBDT:
             bundle = {k: torch.as_tensor(v).to(self.device)
                       for k, v in ds.bundle_maps().items()}
         hc = any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers)
-        bins_t = None
-        if bins.dtype == torch.uint8:
-            bins_t = self._valid_bins_t(ds)
         leaf = assign_leaves(bins, log, has_categorical=hc, bundle=bundle,
-                             bins_t=bins_t)
+                             bins_t=self._valid_bins_t(ds))
         return log.leaf_value.cpu().numpy(), leaf
 
     # ------------------------------------------------------------- versions
@@ -954,7 +1084,7 @@ class RF(GBDT):
             tree = self.learner.log_to_tree(log)
             with self._cache_lock:
                 self.models.append(tree)
-            self._count_tree(tree)
+            self._count_tree(tree, self.learner.train_on_loop)
             self._accumulate_avg(tree, log, k)
             if tree.num_leaves > 1:
                 any_ok = True
@@ -983,12 +1113,10 @@ class RF(GBDT):
 
         average(self.train_score, leaf_values_by_row(lv, log.row_leaf))
         for _, vset, vscore in self.valid_sets:
-            vbins = self._valid_bins(vset)
             vleaf = assign_leaves(
-                vbins, log, has_categorical=self.learner.hp.has_categorical,
-                bundle=self.learner.bundle,
-                bins_t=self._valid_bins_t(vset)
-                if vbins.dtype == torch.uint8 else None)
+                self._valid_bins(vset), log,
+                has_categorical=self.learner.hp.has_categorical,
+                bundle=self.learner.bundle, bins_t=self._valid_bins_t(vset))
             average(vscore, leaf_values_by_row(lv, vleaf))
 
     def _average(self, raw: np.ndarray, start: int, end: int) -> np.ndarray:

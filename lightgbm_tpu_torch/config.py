@@ -182,8 +182,9 @@ class Config:
     # ---- linear tree ----
     linear_tree: bool = False
     linear_lambda: float = 0.0
-    # leaf fit path: auto (device when a TPU backend is up, host otherwise)
-    # | off (host NumPy oracle) | on (batched device solve, any backend)
+    # leaf fit path: auto (the batched fit on a CUDA device, the host
+    # oracle otherwise) | off (the host NumPy oracle; device_type=cpu
+    # only) | on (the batched fit on the learner's device)
     linear_device: str = "auto"
 
     # ---- dataset (reference: config.h "IO Parameters / Dataset") ----

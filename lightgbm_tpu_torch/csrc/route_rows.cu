@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/route.py:route_rows (pallas_call
 // "route_rows", body _route_kernel). Same contract: transposed bins
-// (F, npad/128, 128) u8, a (R * TBL_W) i32 table with TBL_W = 10 columns per
+// (F, npad/128, 128) u8 (or, past the TPU kernel, u16: the dense builder's
+// matrices past 256 bins, entry point route_rows_u16), a
+// (R * TBL_W) i32 table with TBL_W = 10 columns per
 // round (col, leaf, bin, miss, dl, plain, off, dpos, nbm1, rest) and the
 // device scalar num_splits -> (npad,) i32 leaf ids, equal to applying
 // rounds 0 .. min(num_splits, R) - 1 in order (a row at leaf `leaf` that
@@ -12,14 +14,15 @@
 // column's slot maps back to the sub-feature's bin (slots at or above the
 // shared default position shift up by one) and slots outside the
 // sub-feature's range follow the default bin's direction (rest). Beyond
-// the TPU kernel, categorical splits: given the (R * CAT_W) categorical
+// the TPU kernel, categorical splits: given the (R * (1 + W)) categorical
 // table (ops/route.build_cat_table: per round a kind flag and the split's
-// 256-bit go-left set), a categorical round sends a row left when its
-// column's byte is in the set, as the JAX package's round-by-round
-// assign_leaves does with its (B,) table (lightgbm_tpu/learner.py).
+// go-left set of 32 W bits, W = 8 for u8 bins), a categorical round sends a
+// row left when its column's bin is in the set, as the JAX package's
+// round-by-round assign_leaves does with its (B,) table
+// (lightgbm_tpu/learner.py).
 //
-// What bounds it on this card: bytes. It reads one u8 per (column, row)
-// and writes one i32 per row: 2M x 28 rows move ~64 MB, ~0.019 ms at
+// What bounds it on this card: bytes. It reads one u8 (u16) per (column,
+// row) and writes one i32 per row: 2M x 28 rows move ~64 MB, ~0.019 ms at
 // 3.35 TB/s. A row's own work is one table entry and one bin per level of
 // its path, ~depth steps.
 //
@@ -45,9 +48,10 @@
 //     sectors of 32 planes. A thread walks one row and writes its id (a
 //     warp writes 128 consecutive bytes); eight blocks share an SM, so
 //     their warps hide each other's chains of dependent loads.
-//   categorical rounds (kCat): the set's 8 words go to shared memory beside
-//     the entries (32 bytes a round more), and the round's entry carries
-//     bin = kCatBin; its step is one word load and a shift.
+//   categorical rounds (kCat): the set's W words go to shared memory beside
+//     the entries (4 W bytes a round more), and the round's entry carries
+//     bin = kCatBin; its step is one word load and a shift (a bin past the
+//     set's 32 W bits is not in it).
 //   steps: a numerical round is one 16-byte entry {col, bin, miss', links}
 //     and about a dozen instructions: go left = (c <= bin) xor (c ==
 //     miss'), where miss' is the movable-missing bin only where its
@@ -65,7 +69,6 @@ namespace {
 
 constexpr int kThreads = 256;              // one row a thread: T = 256
 constexpr int kTblW = 10;
-constexpr int kCatW = 9;                   // kind, then 8 words of the set
 constexpr int kCatBin = -0x7fffffff;       // a categorical round's bin
 constexpr int kStripePad = 16;
 constexpr int kEnd = 0xffff;               // no link: the walk ends
@@ -102,39 +105,42 @@ __device__ __forceinline__ int lower_bound(const unsigned* key, int n,
   return lo;
 }
 
-template <bool kStaged, bool kCat>
+template <typename E, bool kStaged, bool kCat>
 __global__ void __launch_bounds__(kThreads)
-route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
+route_walk_kernel(const E* __restrict__ bins_t, int F, int npad,
                   const int* __restrict__ table, int rounds,
                   const int* __restrict__ num_splits,
-                  const int* __restrict__ cat, int* __restrict__ out) {
+                  const int* __restrict__ cat, int cat_words,
+                  int* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t s_dyn[];
   // per round: e = {col (~col for a bundle round), bin (kCatBin for a
   // categorical round), miss', links}, f = {off, dpos, nbm1, rest}; with
-  // kCat each round's go-left set (8 words); then the sort keys
+  // kCat each round's go-left set (cat_words words); then the sort keys
   int4* s_e = reinterpret_cast<int4*>(s_dyn);
   int4* s_f = s_e + rounds;
   unsigned* s_set = reinterpret_cast<unsigned*>(s_f + rounds);
-  unsigned* s_key = s_set + (kCat ? 8 * rounds : 0);
+  const int cw = kCat ? cat_words : 0;
+  unsigned* s_key = s_set + (size_t)cw * rounds;
   int nkeys = 1;
   while (nkeys < rounds) nkeys <<= 1;
-  const size_t ent = (size_t)rounds * (kCat ? 64 : 32);
+  const size_t ent = (size_t)rounds * (32 + 4 * cw);
   uint8_t* s_bins = s_dyn + ((ent + (size_t)nkeys * 4 + 15) & ~(size_t)15);
   constexpr int T = kThreads;
-  constexpr int stripe = T + kStripePad;
-  const int buf_bytes = F * stripe;
+  constexpr int E16 = 16 / (int)sizeof(E);   // bins in 16 bytes
+  constexpr int stripe = T + kStripePad / (int)sizeof(E);   // in bins
+  const int buf_bytes = F * stripe * (int)sizeof(E);
   const int tiles = (npad + T - 1) / T;
   // stage tile `tile` into buffer `b`; one commit group per thread
   auto stage = [&](int tile, int b) {
     const size_t row0 = (size_t)tile * T;
-    constexpr int nch = T / 16;          // npad: a multiple of 128 >= T / 2
-    const int items = F * min(nch, static_cast<int>((npad - row0) >> 4));
-    const int per = min(nch, static_cast<int>((npad - row0) >> 4));
-    uint8_t* to = s_bins + b * buf_bytes;
+    constexpr int nch = T / E16;         // npad: a multiple of 128 >= T / 2
+    const int per = min(nch, static_cast<int>((npad - row0) / E16));
+    const int items = F * per;
+    E* to = reinterpret_cast<E*>(s_bins + b * buf_bytes);
     for (int k = threadIdx.x; k < items; k += kThreads) {
       const int f = k / per, c = k - f * per;
-      cp_async16(to + f * stripe + 16 * c,
-                 bins_t + (size_t)f * npad + row0 + 16 * c);
+      cp_async16(to + f * stripe + E16 * c,
+                 bins_t + (size_t)f * npad + row0 + E16 * c);
     }
     cp_async_commit();
   };
@@ -150,14 +156,14 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
       const bool dl = t[4] != 0, plain = t[5] == 1;
       // the missing bin overrides only where it changes the direction
       const int missx = miss >= 0 && dl != (miss <= bin) ? miss : -1;
-      const bool is_cat = kCat && cat[(size_t)r * kCatW] > 0;
+      const bool is_cat = kCat && cat[(size_t)r * (1 + cw)] > 0;
       s_e[r] = is_cat ? make_int4(col, kCatBin, -1, 0)
                       : make_int4(plain ? col : ~col, bin, missx, 0);
       s_f[r] = make_int4(t[6], t[7], t[8], t[9] != 0);
       if (kCat) {
-        for (int w = 0; w < 8; ++w) {
-          s_set[r * 8 + w] =
-              static_cast<unsigned>(cat[(size_t)r * kCatW + 1 + w]);
+        for (int w = 0; w < cw; ++w) {
+          s_set[(size_t)r * cw + w] =
+              static_cast<unsigned>(cat[(size_t)r * (1 + cw) + 1 + w]);
         }
       }
       // a leaf id past R never matches a row's leaf: such a round is
@@ -216,8 +222,10 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
     }
     const size_t row = row0 + threadIdx.x;
     if (row < (size_t)npad) {
-      const uint8_t* base = kStaged ? s_bins + b * buf_bytes + threadIdx.x
-                                    : bins_t + row;
+      const E* base =
+          kStaged ? reinterpret_cast<const E*>(s_bins + b * buf_bytes) +
+                        threadIdx.x
+                  : bins_t + row;
       const size_t stride = kStaged ? stripe : npad;
       int r = first, state = 0;
       while (r < ns) {
@@ -226,7 +234,8 @@ route_walk_kernel(const uint8_t* __restrict__ bins_t, int F, int npad,
         if (e.x >= 0) {
           const int c = base[e.x * stride];
           if (kCat && e.y == kCatBin) {  // a categorical round: c in the set
-            go = (s_set[r * 8 + (c >> 5)] >> (c & 31)) & 1u;
+            go = (c >> 5) < cw &&
+                 ((s_set[(size_t)r * cw + (c >> 5)] >> (c & 31)) & 1u);
           } else {
             go = (c <= e.y) != (c == e.z);
           }
@@ -265,10 +274,16 @@ cudaError_t raise_smem() {
                              dev);
   if (e != cudaSuccess) return e;
   const void* fns[] = {
-      reinterpret_cast<const void*>(route_walk_kernel<true, false>),
-      reinterpret_cast<const void*>(route_walk_kernel<false, false>),
-      reinterpret_cast<const void*>(route_walk_kernel<true, true>),
-      reinterpret_cast<const void*>(route_walk_kernel<false, true>)};
+      reinterpret_cast<const void*>(route_walk_kernel<uint8_t, true, false>),
+      reinterpret_cast<const void*>(route_walk_kernel<uint8_t, false, false>),
+      reinterpret_cast<const void*>(route_walk_kernel<uint8_t, true, true>),
+      reinterpret_cast<const void*>(route_walk_kernel<uint8_t, false, true>),
+      reinterpret_cast<const void*>(route_walk_kernel<uint16_t, true, false>),
+      reinterpret_cast<const void*>(
+          route_walk_kernel<uint16_t, false, false>),
+      reinterpret_cast<const void*>(route_walk_kernel<uint16_t, true, true>),
+      reinterpret_cast<const void*>(
+          route_walk_kernel<uint16_t, false, true>)};
   for (const void* fn : fns) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, fn);
@@ -281,6 +296,32 @@ cudaError_t raise_smem() {
   return cudaSuccess;
 }
 
+template <typename E>
+int launch_route(const void* bins_t, int F, int npad, const void* table,
+                 int rounds, const void* num_splits, const void* cat,
+                 int cat_words, int staged, int grid, int smem, void* out,
+                 void* stream) {
+  if (F < 1 || npad % 128 || rounds < 0 || rounds >= kEnd || grid < 1 ||
+      smem < 0 || (cat != nullptr && cat_words < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = raise_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const E* b = static_cast<const E*>(bins_t);
+  const int* t = static_cast<const int*>(table);
+  const int* ns = static_cast<const int*>(num_splits);
+  const int* c = static_cast<const int*>(cat);
+  int* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = staged ? (c ? route_walk_kernel<E, true, true>
+                            : route_walk_kernel<E, true, false>)
+                       : (c ? route_walk_kernel<E, false, true>
+                            : route_walk_kernel<E, false, false>);
+  kernel<<<grid, kThreads, smem, s>>>(b, F, npad, t, rounds, ns, c,
+                                      cat_words, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -289,51 +330,35 @@ const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-namespace {
-
-int launch_route(const void* bins_t, int F, int npad, const void* table,
-                 int rounds, const void* num_splits, const void* cat,
-                 int staged, int grid, int smem, void* out, void* stream) {
-  if (F < 1 || npad % 128 || rounds < 0 || rounds >= kEnd || grid < 1 ||
-      smem < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t e = raise_smem();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const uint8_t* b = static_cast<const uint8_t*>(bins_t);
-  const int* t = static_cast<const int*>(table);
-  const int* ns = static_cast<const int*>(num_splits);
-  const int* c = static_cast<const int*>(cat);
-  int* o = static_cast<int*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = staged ? (c ? route_walk_kernel<true, true>
-                            : route_walk_kernel<true, false>)
-                       : (c ? route_walk_kernel<false, true>
-                            : route_walk_kernel<false, false>);
-  kernel<<<grid, kThreads, smem, s>>>(b, F, npad, t, rounds, ns, c, o);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 // staged, grid and the dynamic shared memory smem come from
 // ops/route.route_plan.
 int route_rows(const void* bins_t, int F, int npad, const void* table,
                int rounds, const void* num_splits, int staged, int grid,
                int smem, void* out, void* stream) {
-  return launch_route(bins_t, F, npad, table, rounds, num_splits, nullptr,
-                      staged, grid, smem, out, stream);
+  return launch_route<uint8_t>(bins_t, F, npad, table, rounds, num_splits,
+                               nullptr, 0, staged, grid, smem, out, stream);
 }
 
-// The same with the (rounds * kCatW) categorical table `cat`: categorical
-// rounds go by their go-left sets.
+// The same with the (rounds * (1 + 8)) categorical table `cat`:
+// categorical rounds go by their go-left sets.
 int route_rows_cat(const void* bins_t, int F, int npad, const void* table,
                    int rounds, const void* num_splits, const void* cat,
                    int staged, int grid, int smem, void* out,
                    void* stream) {
   if (cat == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_route(bins_t, F, npad, table, rounds, num_splits, cat,
-                      staged, grid, smem, out, stream);
+  return launch_route<uint8_t>(bins_t, F, npad, table, rounds, num_splits,
+                               cat, 8, staged, grid, smem, out, stream);
+}
+
+// The router over u16 bins: `cat` null (numerical and bundle rounds
+// only), or the (rounds * (1 + cat_words)) categorical table.
+int route_rows_u16(const void* bins_t, int F, int npad, const void* table,
+                   int rounds, const void* num_splits, const void* cat,
+                   int cat_words, int staged, int grid, int smem, void* out,
+                   void* stream) {
+  return launch_route<uint16_t>(bins_t, F, npad, table, rounds, num_splits,
+                                cat, cat_words, staged, grid, smem, out,
+                                stream);
 }
 
 }  // extern "C"

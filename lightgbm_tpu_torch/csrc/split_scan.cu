@@ -34,16 +34,20 @@
 // -fmad=false: no multiply-add is contracted, as torch's elementwise ops
 // round each operation.
 //
-// Design: one block of 256 threads (one a bin) per (child, feature) item,
-// nodes x F blocks: the item loads its histogram row, builds its prefix sums in
-// shared memory and keeps each kind's first maximum; then it takes a ticket
+// Design: one block of 256 threads (one a bin up to 256 bins; past that
+// kBpt = 2, 4, 8 or 12 bins a thread, up to 3072 bins, with a block-wide
+// first maximum over each thread's own) per (child, feature) item, nodes x
+// F blocks: the item loads its histogram row, builds its prefix sums in
+// shared memory (one thread a channel, one bin after another, as torch's
+// cumsum on the card adds) and keeps each kind's first maximum; then it takes a ticket
 // (an atomic counter after a __threadfence). The block that takes the last
 // one picks each child's first maximum over (kind, feature, bin) and builds
 // its routing table, sums and outputs, then zeroes the ticket for the next
 // launch. No grid barrier, so no cooperative launch.
 //
 // What bounds it on this card: latency. It reads the two histograms (2 x F
-// x B x 12 B, 0.17 MB at F = 28, B = 255: ~0.05 us at 3.35 TB/s) and does
+// x B x 12 B, 0.17 MB at F = 28, B = 255: ~0.05 us at 3.35 TB/s; 0.69 MB
+// at B = 1023, ~0.2 us) and does
 // ~10 operations a candidate (2 x 4 x F x B candidates: ~0.6 MFLOP, ~0.01
 // us at 67 TFLOP/s). Its time is the items' chains: three sequential
 // prefix sums of B steps per item (six more with categorical features),
@@ -81,7 +85,7 @@ struct SplitScanArgs {
   float* cand_gain;            // scratch (2, 4, F)
   int32_t* cand_bin;           // scratch (2, 4, F)
   uint8_t* num_dl;             // scratch (2, F, B)
-  uint8_t* rank;               // scratch (2, 2, F, B)
+  uint16_t* rank;              // scratch (2, 2, F, B)
   const float* hist_left;      // hists[0], hists[1]
   const float* hist_right;
   float* gain;                 // (2,)
@@ -105,6 +109,7 @@ namespace {
 
 using namespace lgbt_scan;
 
+template <int kBpt>
 __global__ void __launch_bounds__(kScanThreads)
 split_scan_kernel(const SplitScanArgs a) {
   extern __shared__ float smem[];
@@ -117,11 +122,14 @@ split_scan_kernel(const SplitScanArgs a) {
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int c = it / F, f = it % F;
     const float* row = a.hists + ((size_t)c * F + f) * B * 3;
-    float hv[3] = {0.f, 0.f, 0.f};
-    if (b < B) {
-      for (int k = 0; k < 3; ++k) hv[k] = row[b * 3 + k];
+    float hv[kBpt * 3];
+#pragma unroll
+    for (int j = 0; j < kBpt; ++j) {
+      const int bj = b + j * kScanThreads;
+      for (int k = 0; k < 3; ++k) hv[j * 3 + k] = bj < B ? row[bj * 3 + k]
+                                                         : 0.f;
     }
-    scan_feature<true>(a, c, f, depth, smem, hv);
+    scan_feature_n<true, kBpt>(a, c, f, depth, smem, hv);
     __threadfence();     // this item's outputs are visible grid-wide
     __syncthreads();
     if (threadIdx.x == 0) s_last = atomicAdd(a.done, 1) == items - 1;
@@ -130,9 +138,34 @@ split_scan_kernel(const SplitScanArgs a) {
   }
   if (last) {
     __threadfence();
-    for (int c = 0; c < a.nodes; ++c) finish_child<true>(a, c, smem);
+    for (int c = 0; c < a.nodes; ++c) finish_child<true, kBpt>(a, c, smem);
     if (threadIdx.x == 0) *a.done = 0;   // ready for the next launch
   }
+}
+
+// The bins a thread takes for B bins: 1 up to 256, else the least of 2,
+// 4, 8, 12 that covers B; 0 past 3072.
+int bins_per_thread(int B) {
+  const int need = (B + kScanThreads - 1) / kScanThreads;
+  if (need <= 1) return 1;
+  const int options[] = {2, 4, 8, 12};
+  for (int bpt : options) {
+    if (need <= bpt) return bpt;
+  }
+  return 0;
+}
+
+template <int kBpt>
+cudaError_t launch_scan(const SplitScanArgs& a, cudaStream_t stream) {
+  const size_t smem = scan_smem_floats(kBpt) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_scan_kernel<kBpt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  split_scan_kernel<kBpt><<<a.nodes * a.F, kScanThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -147,7 +180,8 @@ const char* lgbt_error_string(int code) {
 // (child, feature) item each. Returns a cudaError_t code (0 on success).
 int split_scan(const SplitScanArgs* args, void* stream) {
   const SplitScanArgs a = *args;
-  if (a.F < 1 || a.B < 1 || a.B > kMaxBins || a.live == nullptr ||
+  const int bpt = bins_per_thread(a.B);
+  if (a.F < 1 || a.B < 1 || bpt == 0 || a.live == nullptr ||
       a.depth == nullptr || a.nodes < 1 || a.nodes > 2 ||
       (a.mask_stride != 0 && a.mask_stride != a.F) ||
       a.hist_left != a.hists ||
@@ -155,10 +189,16 @@ int split_scan(const SplitScanArgs* args, void* stream) {
        a.hist_right != a.hists + (size_t)a.F * a.B * 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = kScanSmemFloats * sizeof(float);
-  split_scan_kernel<<<a.nodes * a.F, kScanThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (bpt) {
+    case 1: e = launch_scan<1>(a, st); break;
+    case 2: e = launch_scan<2>(a, st); break;
+    case 4: e = launch_scan<4>(a, st); break;
+    case 8: e = launch_scan<8>(a, st); break;
+    default: e = launch_scan<12>(a, st); break;
+  }
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

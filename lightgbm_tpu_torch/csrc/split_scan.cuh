@@ -36,14 +36,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace lgbt_scan {
 
-constexpr int kScanThreads = 256;    // one thread a bin
+constexpr int kScanThreads = 256;    // one thread a bin (up to 256 bins)
 constexpr int kWarps = kScanThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxBins = 256;
 constexpr float kEpsilon = 1e-15f;   // ops/split.py K_EPSILON
-// Phase C shared memory of one block, in floats (ScanSmem).
+// Phase C shared memory of one block at one bin a thread, in floats
+// (ScanSmem).
 constexpr int kScanSmemFloats = 17 * kMaxBins + 3 * kWarps;
 
 // ------------------------------------------------------------ float helpers
@@ -234,26 +237,35 @@ __device__ __forceinline__ float torch_row_sum(const float* x, int n) {
   return v[0];
 }
 
-// Phase C shared memory, in floats (ranks and counts reuse float slots).
+// Phase C shared memory, in floats (ranks and counts reuse float slots),
+// for kBpt bins a thread: every per-bin row holds kBpt * kScanThreads
+// floats (kMaxBins at kBpt = 1).
 struct ScanSmem {
-  float* h;        // (3, kMaxBins) the feature's histogram, bins >= nb zero
-  float* nm;       // (3, kMaxBins) with the movable-missing bin zeroed
-  float* cum;      // (3, kMaxBins) prefix of nm
-  float* sorted;   // (2, 3, kMaxBins) h in many-vs-many order, then prefix
-  float* key;      // (2, kMaxBins) ascending keys, then negated descending
+  float* h;        // (3, S) the feature's histogram, bins >= nb zero
+  float* nm;       // (3, S) with the movable-missing bin zeroed
+  float* cum;      // (3, S) prefix of nm
+  float* sorted;   // (2, 3, S) h in many-vs-many order, then prefix
+  float* key;      // (2, S) ascending keys, then negated descending
   float* red_g;    // (kWarps,)
   int* red_i;      // (kWarps,)
   int* misc;       // (kWarps,)
 };
 
+// Shared memory of phase C at kBpt bins a thread, in floats.
+__host__ __device__ constexpr int scan_smem_floats(int bpt) {
+  return 17 * kScanThreads * bpt + 3 * kWarps;
+}
+
+template <int kBpt = 1>
 __device__ __forceinline__ ScanSmem scan_smem(float* smem) {
+  constexpr int S = kBpt * kScanThreads;
   ScanSmem s;
   s.h = smem;
-  s.nm = s.h + 3 * kMaxBins;
-  s.cum = s.nm + 3 * kMaxBins;
-  s.sorted = s.cum + 3 * kMaxBins;
-  s.key = s.sorted + 6 * kMaxBins;
-  s.red_g = s.key + 2 * kMaxBins;
+  s.nm = s.h + 3 * S;
+  s.cum = s.nm + 3 * S;
+  s.sorted = s.cum + 3 * S;
+  s.key = s.sorted + 6 * S;
+  s.red_g = s.key + 2 * S;
   s.red_i = reinterpret_cast<int*>(s.red_g + kWarps);
   s.misc = s.red_i + kWarps;
   return s;
@@ -270,16 +282,32 @@ __device__ __forceinline__ float depth_penalty(const A& a,
   return (1.f - powf(2.f, (p - 1.f) - d)) + kEpsilon;
 }
 
-// Phase C item: every candidate of feature f for child c, whose histogram
-// row (g, h, cnt) of bin threadIdx.x is hv (zero past B); writes each
-// kind's first maximum (gain after the live test and penalties, bin), the
-// per-bin default-left flags and the many-vs-many ranks.
-template <bool kTorchOrder, class A>
-__device__ void scan_feature(const A& a, int c, int f, int depth,
-                             float* smem, const float hv[3]) {
-  const ScanSmem s = scan_smem(smem);
+// A rank (the many-vs-many position of a bin) in the struct's rank type:
+// u8 in the one-kernel split (B <= 256), u16 in the split scan.
+template <class A>
+__device__ __forceinline__ void put_rank(const A& a, size_t at, int r) {
+  using R = typename std::remove_const<
+      typename std::remove_pointer<decltype(a.rank)>::type>::type;
+  a.rank[at] = static_cast<R>(r);
+}
+
+// Phase C item: every candidate of feature f for child c. Thread t owns
+// bins t + j * kScanThreads (j < kBpt), whose histogram rows (g, h, cnt)
+// are hv[j * 3 .. j * 3 + 3) (zero past B); writes each kind's first
+// maximum (gain after the live test and penalties, bin), the per-bin
+// default-left flags and the many-vs-many ranks. At kBpt = 1 (B <= 256)
+// it is the one-thread-a-bin scan the one-kernel split runs; past 256
+// bins each thread keeps its bins' candidates and first takes its own
+// maximum (in bin order, better()'s order), so the block's winner is the
+// same first maximum. The prefix sums stay one thread a channel, one bin
+// after another: torch's cumsum on the card adds in that order.
+template <bool kTorchOrder, int kBpt, class A>
+__device__ void scan_feature_n(const A& a, int c, int f, int depth,
+                               float* smem, const float* hv) {
+  constexpr int S = kBpt * kScanThreads;
+  const ScanSmem s = scan_smem<kBpt>(smem);
   const int B = a.B, F = a.F;
-  const int b = threadIdx.x;
+  const int t = threadIdx.x;
   const int nb = a.num_bins[f];
   const bool movable = a.movable[f] != 0;
   const int mb = a.missing_bin[f];
@@ -294,47 +322,52 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
                                  a.lambda_l2);
 
   __syncthreads();     // shared memory is free
-  if (b < B) {
-    for (int k = 0; k < 3; ++k) {
-      const float v = b < nb ? hv[k] : 0.f;
-      s.h[k * kMaxBins + b] = v;
-      s.nm[k * kMaxBins + b] = (movable && b == mb) ? 0.f : v;
+#pragma unroll
+  for (int j = 0; j < kBpt; ++j) {
+    const int b = t + j * kScanThreads;
+    if (b < B) {
+      for (int k = 0; k < 3; ++k) {
+        const float v = b < nb ? hv[j * 3 + k] : 0.f;
+        s.h[k * S + b] = v;
+        s.nm[k * S + b] = (movable && b == mb) ? 0.f : v;
+      }
     }
   }
   __syncthreads();
-  if (b < 3) {
-    prefix_sum<kTorchOrder>(s.nm + b * kMaxBins, s.cum + b * kMaxBins, B);
+  if (t < 3) {
+    prefix_sum<kTorchOrder>(s.nm + t * S, s.cum + t * S, B);
   }
   float miss[3] = {0.f, 0.f, 0.f};
   if (movable && mb >= 0 && mb < B) {
     // torch sums the masked bins from +0: a -0 missing bin gives +0
     for (int k = 0; k < 3; ++k) {
-      miss[k] = kTorchOrder ? 0.f + s.h[k * kMaxBins + mb]
-                            : s.h[k * kMaxBins + mb];
+      miss[k] = kTorchOrder ? 0.f + s.h[k * S + mb] : s.h[k * S + mb];
     }
   }
   __syncthreads();
 
   // ---- numerical thresholds, both missing directions ----
-  float num = neg;
-  bool dl = false;
+  float num[kBpt];
   const float* adv = adv_of(a, 0);
-  float cb[4];
-  if (adv != nullptr && b < B) {
-    const size_t plane = (size_t)F * B;
-    const float* p = adv + (size_t)c * 4 * plane + (size_t)f * B + b;
-    for (int k = 0; k < 4; ++k) cb[k] = p[k * plane];
-  }
-  if (b < B) {
+#pragma unroll
+  for (int j = 0; j < kBpt; ++j) {
+    const int b = t + j * kScanThreads;
+    num[j] = neg;
+    if (b >= B) continue;
+    float cb[4];
+    if (adv != nullptr) {
+      const size_t plane = (size_t)F * B;
+      const float* p = adv + (size_t)c * 4 * plane + (size_t)f * B + b;
+      for (int k = 0; k < 4; ++k) cb[k] = p[k * plane];
+    }
     const bool t_valid = b < nb - 1 && !is_cat &&
                          (a.rand_thr == nullptr ||
                           b == a.rand_thr[(size_t)c * F + f]);
     float gdir[2];
     for (int d = 0; d < 2; ++d) {
       const float gl = d ? s.cum[b] + miss[0] : s.cum[b];
-      const float hl = d ? s.cum[kMaxBins + b] + miss[1] : s.cum[kMaxBins + b];
-      const float cl = d ? s.cum[2 * kMaxBins + b] + miss[2]
-                         : s.cum[2 * kMaxBins + b];
+      const float hl = d ? s.cum[S + b] + miss[1] : s.cum[S + b];
+      const float cl = d ? s.cum[2 * S + b] + miss[2] : s.cum[2 * S + b];
       const float gr = tg - gl, hr = th - hl, cr = tc - cl;
       bool ok;
       const float gain = split_gain(a, gl, hl, cl, gr, hr, cr, false, po, lo,
@@ -344,77 +377,97 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
       const bool valid = t_valid && (d == 0 || movable);
       gdir[d] = (live && valid) ? gain - pgain : neg;
     }
-    num = tmax(gdir[0], gdir[1]);
-    dl = gdir[1] > gdir[0];
-    if (is_cat) num = neg;
+    num[j] = tmax(gdir[0], gdir[1]);
+    const bool dl = gdir[1] > gdir[0];
+    if (is_cat) num[j] = neg;
     a.num_dl[((size_t)c * F + f) * B + b] = dl ? 1 : 0;
   }
 
   // ---- categorical: one-vs-rest and many-vs-many prefixes ----
-  float oh = neg, mvm[2] = {neg, neg};
-  int rank[2] = {b, b};
+  float oh[kBpt], mvm[kBpt][2];
+  int rank[kBpt][2];
+#pragma unroll
+  for (int j = 0; j < kBpt; ++j) {
+    const int b = t + j * kScanThreads;
+    oh[j] = mvm[j][0] = mvm[j][1] = neg;
+    rank[j][0] = rank[j][1] = b;
+  }
   if (a.has_categorical) {
-    const bool cat_bin_ok = is_cat && b < nb - 1;
     const bool use_onehot = is_cat && (nb - 1 <= a.max_cat_to_onehot);
-    const float g_b = b < B ? s.h[b] : 0.f;
-    const float h_b = b < B ? s.h[kMaxBins + b] : 0.f;
-    const float c_b = b < B ? s.h[2 * kMaxBins + b] : 0.f;
-    if (b < B) {
-      bool ok;
-      const float gr = tg - g_b, hr = th - h_b, cr = tc - c_b;
-      const float gain = split_gain(a, g_b, h_b, c_b, gr, hr, cr, true, po,
-                                    lo, up, 0, &ok);
-      const bool live = data_ok(a, c_b, h_b, cr, hr) && cat_bin_ok &&
-                        use_onehot && c_b > 0.f;
-      oh = live ? gain - pgain : neg;
+    int n_groups = 0;
+#pragma unroll
+    for (int j = 0; j < kBpt; ++j) {
+      const int b = t + j * kScanThreads;
+      const bool cat_bin_ok = is_cat && b < nb - 1;
+      const float g_b = b < B ? s.h[b] : 0.f;
+      const float h_b = b < B ? s.h[S + b] : 0.f;
+      const float c_b = b < B ? s.h[2 * S + b] : 0.f;
+      if (b < B) {
+        bool ok;
+        const float gr = tg - g_b, hr = th - h_b, cr = tc - c_b;
+        const float gain = split_gain(a, g_b, h_b, c_b, gr, hr, cr, true, po,
+                                      lo, up, 0, &ok);
+        const bool live = data_ok(a, c_b, h_b, cr, hr) && cat_bin_ok &&
+                          use_onehot && c_b > 0.f;
+        oh[j] = live ? gain - pgain : neg;
+      }
+      const bool group_ok = b < B && cat_bin_ok &&
+                            c_b >= a.min_data_per_group && !use_onehot;
+      const float ratio = g_b / (h_b + a.cat_smooth);
+      if (b < B) {
+        s.key[b] = group_ok ? ratio : INFINITY;
+        s.key[S + b] = group_ok ? -ratio : INFINITY;
+      }
+      n_groups += __syncthreads_count(group_ok);
     }
-    const bool group_ok = b < B && cat_bin_ok &&
-                          c_b >= a.min_data_per_group && !use_onehot;
-    const float ratio = g_b / (h_b + a.cat_smooth);
-    if (b < B) {
-      s.key[b] = group_ok ? ratio : INFINITY;
-      s.key[kMaxBins + b] = group_ok ? -ratio : INFINITY;
-    }
-    const int n_groups = __syncthreads_count(group_ok);
-    if (b < B) {
+#pragma unroll
+    for (int j = 0; j < kBpt; ++j) {
+      const int b = t + j * kScanThreads;
+      if (b >= B) continue;
       for (int d = 0; d < 2; ++d) {
-        const float* key = s.key + d * kMaxBins;
+        const float* key = s.key + d * S;
         const float kb = key[b];
         int r = 0;
-        for (int j = 0; j < B; ++j) {
-          r += key_less(key[j], kb) || (j < b && key_equal(key[j], kb));
+        for (int i = 0; i < B; ++i) {
+          r += key_less(key[i], kb) || (i < b && key_equal(key[i], kb));
         }
-        rank[d] = r;
+        rank[j][d] = r;
         for (int k = 0; k < 3; ++k) {
-          s.sorted[(d * 3 + k) * kMaxBins + r] = s.h[k * kMaxBins + b];
+          s.sorted[(d * 3 + k) * S + r] = s.h[k * S + b];
         }
       }
     }
     __syncthreads();
-    if (b < 6) {
-      float* v = s.sorted + b * kMaxBins;
+    if (t < 6) {
+      float* v = s.sorted + t * S;
       prefix_sum<kTorchOrder>(v, v, B);
     }
     __syncthreads();
-    if (b < B) {
+#pragma unroll
+    for (int j = 0; j < kBpt; ++j) {
+      const int b = t + j * kScanThreads;
+      if (b >= B) continue;
       const float k1 = (float)(b + 1);
       for (int d = 0; d < 2; ++d) {
-        const float gl = s.sorted[(d * 3) * kMaxBins + b];
-        const float hl = s.sorted[(d * 3 + 1) * kMaxBins + b];
-        const float cl = s.sorted[(d * 3 + 2) * kMaxBins + b];
+        const float gl = s.sorted[(d * 3) * S + b];
+        const float hl = s.sorted[(d * 3 + 1) * S + b];
+        const float cl = s.sorted[(d * 3 + 2) * S + b];
         const float gr = tg - gl, hr = th - hl, cr = tc - cl;
         bool ok;
         const float gain = split_gain(a, gl, hl, cl, gr, hr, cr, true, po, lo,
                                       up, 0, &ok);
         const bool live = k1 <= a.max_cat_threshold &&
                           k1 < (float)n_groups && data_ok(a, cl, hl, cr, hr);
-        mvm[d] = live ? gain - pgain : neg;
+        mvm[j][d] = live ? gain - pgain : neg;
       }
     }
   }
-  if (b < B) {
+#pragma unroll
+  for (int j = 0; j < kBpt; ++j) {
+    const int b = t + j * kScanThreads;
+    if (b >= B) continue;
     for (int d = 0; d < 2; ++d) {
-      a.rank[(((size_t)c * 2 + d) * F + f) * B + b] = (uint8_t)rank[d];
+      put_rank(a, (((size_t)c * 2 + d) * F + f) * B + b, rank[j][d]);
     }
   }
 
@@ -424,14 +477,24 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
   const bool mono_pen = a.use_mono_penalty && mono != 0;
   const float dpen = mono_pen ? depth_penalty(a, depth) : 1.f;
   const float cegb = a.cegb != nullptr ? a.cegb[(size_t)c * F + f] : 0.f;
-  const float stacked[4] = {num, oh, mvm[0], mvm[1]};
   for (int kind = 0; kind < 4; ++kind) {
-    const float v = stacked[kind];
-    float adj = v * pen_f;
-    if (mono_pen) adj = adj * dpen;
-    if (a.cegb != nullptr) adj = adj - cegb;
-    float g = (b < B && v > neg && fm) ? adj : neg;
-    int i = b < B ? b : kMaxBins + b;
+    float g = neg;
+    int i = S + t;
+#pragma unroll
+    for (int j = 0; j < kBpt; ++j) {
+      const int b = t + j * kScanThreads;
+      const float v = kind == 0 ? num[j] : kind == 1 ? oh[j]
+                                         : mvm[j][kind - 2];
+      float adj = v * pen_f;
+      if (mono_pen) adj = adj * dpen;
+      if (a.cegb != nullptr) adj = adj - cegb;
+      const float gj = (b < B && v > neg && fm) ? adj : neg;
+      const int ij = b < B ? b : S + b;
+      if (j == 0 || better(gj, ij, g, i)) {
+        g = gj;
+        i = ij;
+      }
+    }
     block_argmax(&g, &i, s.red_g, s.red_i);
     if (threadIdx.x == 0) {
       a.cand_gain[((size_t)c * 4 + kind) * F + f] = g;
@@ -440,18 +503,30 @@ __device__ void scan_feature(const A& a, int c, int f, int depth,
   }
 }
 
+// The one-thread-a-bin scan (B <= kMaxBins), bin threadIdx.x's histogram
+// row hv.
+template <bool kTorchOrder, class A>
+__device__ void scan_feature(const A& a, int c, int f, int depth,
+                             float* smem, const float hv[3]) {
+  scan_feature_n<kTorchOrder, 1>(a, c, f, depth, smem, hv);
+}
+
 // Phase C, second part, run by the block that finished the last scan
 // item: child c's winner over (kind, feature, bin), its routing table,
 // sums and outputs. Other blocks wrote the scan's outputs and the child
 // histograms in this launch; they are read from L2 (__ldcg), never
 // through this SM's L1. The winner is a block-wide first maximum in
 // better()'s order over the flat index (kind * F + f) * B + bin, with
-// kind outermost: the same candidate torch.argmax takes.
-template <bool kTorchOrder, class A>
+// kind outermost: the same candidate torch.argmax takes. The winner's
+// left sums follow ops/split.find_best_split: up to 256 bins torch.sum's
+// order on the card (torch_row_sum; in bin order off kTorchOrder), past
+// 256 bins the last of a prefix sum, one bin after another (the twin's
+// cumsum there).
+template <bool kTorchOrder, int kBpt = 1, class A>
 __device__ void finish_child(const A& a, int c, float* smem) {
-  const ScanSmem s = scan_smem(smem);
+  constexpr int S = kBpt * kScanThreads;
+  const ScanSmem s = scan_smem<kBpt>(smem);
   const int B = a.B, F = a.F;
-  const int b = threadIdx.x;
   __syncthreads();     // shared memory is free
   float g = -INFINITY;
   int idx = INT_MAX;
@@ -478,7 +553,7 @@ __device__ void finish_child(const A& a, int c, float* smem) {
   const bool dl = __ldcg(a.num_dl + ((size_t)c * F + feat) * B + tbin) != 0;
   const float* hist = (c == 0 ? a.hist_left : a.hist_right) +
                       (size_t)feat * B * 3;
-  if (b < B) {
+  for (int b = threadIdx.x; b < B; b += kScanThreads) {
     bool go;
     if (kind == 0) {
       go = b <= tbin;
@@ -491,17 +566,28 @@ __device__ void finish_child(const A& a, int c, float* smem) {
     }
     a.go_left[(size_t)c * B + b] = go ? 1 : 0;
     for (int k = 0; k < 3; ++k) {
-      s.h[k * kMaxBins + b] = (go && b < nb) ? __ldcg(hist + b * 3 + k) : 0.f;
+      s.h[k * S + b] = (go && b < nb) ? __ldcg(hist + b * 3 + k) : 0.f;
     }
   }
   __syncthreads();
-  if (b < 3) {          // left sums: in bin order, or torch's on the card
-    if (kTorchOrder) {
-      s.nm[b] = torch_row_sum(s.h + b * kMaxBins, B);
+  if (threadIdx.x < 3) {   // left sums
+    const float* x = s.h + threadIdx.x * S;
+    if (kBpt > 1) {        // the last prefix sum, as prefix_sum adds
+      if (kTorchOrder) {
+        float acc = 0.f;
+        for (int j = 0; j < B; ++j) acc = acc + x[j];
+        s.nm[threadIdx.x] = acc;
+      } else {
+        double acc = 0.0;
+        for (int j = 0; j < B; ++j) acc += (double)x[j];
+        s.nm[threadIdx.x] = (float)acc;
+      }
+    } else if (kTorchOrder) {
+      s.nm[threadIdx.x] = torch_row_sum(x, B);
     } else {
       float acc = 0.f;
-      for (int j = 0; j < B; ++j) acc += s.h[b * kMaxBins + j];
-      s.nm[b] = acc;
+      for (int j = 0; j < B; ++j) acc += x[j];
+      s.nm[threadIdx.x] = acc;
     }
   }
   __syncthreads();

@@ -106,3 +106,50 @@ class ChainSplit:
             self.fhist.copy_(self.feat_view(out.hists, pair[0:6].view(2, 3)))
             hists = self.fhist
         self.scan(hists, pair, hdr, out)
+
+
+class DenseSplit:
+    """The dense builder's split in the device tree loop (the JAX
+    package's ``build_tree`` loop body, ``lightgbm_tpu/learner.py``): every
+    row stays in place with its leaf id in ``row_leaf`` (N,) i32. Per
+    split, from the split's device header, with no read back to the host:
+
+    - the row update (``ops/histogram.dense_row_update``): the parent's
+      rows whose bin in the split column goes right move to the new leaf;
+    - the smaller child's histogram (``ops/histogram.DenseHistogram``,
+      ``csrc/dense_histogram.cu``): its rows selected by leaf id from all
+      rows, planned once for all N rows;
+    - the sibling as the parent's pool row minus the smaller child;
+    - the split scan (``ops/scan.SplitScan``) into ``out``, under the
+      children's node inputs (``node``).
+
+    :meth:`split` takes the chain's arguments and the split's new leaf id
+    (slot ``s`` creates leaf ``s + 1``). A dead header moves no row and
+    writes nothing the commit reads."""
+
+    def __init__(self, bins: torch.Tensor, ghc: torch.Tensor,
+                 row_leaf: torch.Tensor, meta, fmask: torch.Tensor, hp, *,
+                 num_bins: int, node=None) -> None:
+        from .histogram import DenseHistogram
+
+        self.bins, self.row_leaf = bins, row_leaf
+        self.hist = DenseHistogram(bins, ghc, row_leaf, num_bins)
+        self.scan = SplitScan(meta, fmask, hp, num_feat=bins.shape[1],
+                              num_bins=num_bins, device=bins.device,
+                              node=node)
+
+    def split(self, hdr: torch.Tensor, go_left: torch.Tensor,
+              pool: torch.Tensor, pair: torch.Tensor, out: SplitOut,
+              new_leaf: int) -> None:
+        """One split from the (8,) i32 header ``hdr``, the (B,) bool
+        routing table ``go_left``, the (P, F, B, 3) pool, the (12,) pair
+        row and the new leaf id; the results go into ``out``."""
+        from .histogram import dense_row_update
+
+        dense_row_update(self.bins, self.row_leaf, go_left, hdr, new_leaf)
+        small = self.hist(hdr=hdr, new_leaf=new_leaf)
+        large = pool.index_select(0, hdr[7:8]).squeeze(0) - small
+        ls = hdr[4:5] != 0
+        torch.where(ls, small, large, out=out.hists[0])
+        torch.where(ls, large, small, out=out.hists[1])
+        self.scan(out.hists, pair, hdr, out)

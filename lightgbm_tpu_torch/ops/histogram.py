@@ -593,3 +593,259 @@ class SegmentHistogram:
                           self.grid_chunks, self.partial.data_ptr(),
                           self.out.data_ptr(), stream)
         return self.out
+
+
+# ---------------------------------------------------- the dense tree builder
+#
+# The dense builder (learner.build_tree, learner.DenseSplit) keeps every row
+# in place: per split it updates each row's leaf and histograms the rows on
+# the smaller child by a mask over all rows, over u8 or u16 bins (the only
+# builder past 256 bins). The JAX package runs both as XLA
+# (``lightgbm_tpu/ops/histogram.py`` build_histogram, a chunked one-hot
+# matmul of masked channels); the card runs ``csrc/dense_histogram.cu``.
+
+DENSE_HIST_KERNEL = register(CudaKernel(
+    "dense_histogram", "dense_histogram.cu",
+    [_P, _I, ctypes.c_longlong, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+     _I, _I, _I, _P, _P]))
+DENSE_UPDATE_KERNEL = register(CudaKernel(
+    "dense_row_update", "dense_histogram.cu",
+    [_P, _I, ctypes.c_longlong, _I, _P, _P, _P, _I, _I, _P]))
+#: csrc/dense_histogram.cu: rows of a count / compact tile, selected rows
+#: of a partial (its summation chunk), slices of a chunk, rows staged at
+#: once, and the shared memory a block's histograms may take
+DENSE_TILE_ROWS = 4096
+DENSE_CHUNK = 8192
+DENSE_SLICES = 4
+DENSE_STAGE = 256
+DENSE_SMEM_BYTES = 110 * 1024
+#: the JAX package's chunk of the dense builder's histogram (its
+#: ``min(tpu_rows_per_chunk, 8192)``) and of build_histogram
+DENSE_PLAIN_CHUNK = 4096
+
+
+def _hist_chunk_plain(bins_c: torch.Tensor, ghc_c: torch.Tensor,
+                      num_bins: int, mxu_bf16: bool = False) -> torch.Tensor:
+    """(C, F) int bins + (C, K) channels -> (F * B, K): the JAX package's
+    ``_hist_chunk``, whose one-hot contraction (the sum of each bin's rows'
+    channels in f32) runs here as a scatter-add. ``mxu_bf16`` splits the
+    f32 channels into bf16 hi + lo, sums each, and adds the two."""
+    chunk, num_feat = bins_c.shape
+    dev = bins_c.device
+    flat = (bins_c.long() + torch.arange(num_feat, device=dev)[None, :]
+            * num_bins).reshape(-1)
+
+    def contract(ch):
+        k = ch.shape[1]
+        src = ch[:, None, :].expand(chunk, num_feat, k).reshape(-1, k)
+        return torch.zeros((num_feat * num_bins, k), dtype=torch.float32,
+                           device=dev).index_add_(0, flat, src)
+
+    if mxu_bf16:
+        hi = ghc_c.to(torch.bfloat16).to(torch.float32)
+        lo = (ghc_c - hi).to(torch.bfloat16).to(torch.float32)
+        return contract(hi) + contract(lo)
+    return contract(ghc_c.to(torch.float32))
+
+
+def build_histogram_plain(bins: torch.Tensor, ghc: torch.Tensor,
+                          num_bins: int, chunk: int = DENSE_PLAIN_CHUNK,
+                          mxu_bf16: bool = False) -> torch.Tensor:
+    """(N, F) u8/u16 bins + (N, K) f32 channels (masked already) -> (F,
+    num_bins, K) f32: the JAX package's ``build_histogram``, chunk by
+    chunk in order (:func:`_hist_chunk_plain`), the chunks' sums added in
+    f32."""
+    n, num_feat = bins.shape
+    k = ghc.shape[1]
+    chunk = min(int(chunk), max(1, n))
+    acc = torch.zeros((num_feat * num_bins, k), dtype=torch.float32,
+                      device=bins.device)
+    for c0 in range(0, n, chunk):
+        acc = acc + _hist_chunk_plain(bins[c0:c0 + chunk],
+                                      ghc[c0:c0 + chunk], num_bins, mxu_bf16)
+    return acc.reshape(num_feat, num_bins, k)
+
+
+def _dense_leaf(row_leaf, leaf, hdr, new_leaf):
+    """The summed leaf and the live flag as device scalars (twins)."""
+    if hdr is None:
+        return torch.as_tensor(int(leaf), device=row_leaf.device), None
+    w = hdr.to(torch.int64)
+    small = torch.where(w[4] != 0, w[7], torch.full_like(w[7], new_leaf))
+    return small, w[6] != 0
+
+
+def dense_histogram_plain(bins: torch.Tensor, ghc: torch.Tensor,
+                          row_leaf: torch.Tensor, leaf: int = -1, *,
+                          num_bins: int, hdr=None, new_leaf: int = 0,
+                          chunk: int = DENSE_PLAIN_CHUNK) -> torch.Tensor:
+    """Plain twin of :func:`dense_histogram`: the channels masked to the
+    rows on the leaf (every row for ``leaf`` -1; with ``hdr`` the split's
+    smaller child), then :func:`build_histogram_plain` (JAX
+    ``hist_of_leaf``). No host read; a dead header gives zeros."""
+    small, live = _dense_leaf(row_leaf, leaf, hdr, new_leaf)
+    mask = (small < 0) | (row_leaf.long() == small)
+    if live is not None:
+        mask = mask & live
+    return build_histogram_plain(bins, ghc * mask[:, None].to(ghc.dtype),
+                                 num_bins, chunk)
+
+
+class DensePlan(NamedTuple):
+    """A dense histogram call: ``feats`` features and ``bins`` bins a
+    block, ``smem`` bytes of shared memory, ``chunks`` partials for N
+    rows."""
+    feats: int
+    bins: int
+    smem: int
+    chunks: int
+
+
+def dense_plan(n: int, num_feat: int, num_bins: int) -> DensePlan:
+    """Size :func:`dense_histogram` over ``n`` rows: as many features a
+    block as DENSE_SMEM_BYTES of (feature, slice) histograms hold at the
+    bin count (at most 8), the bins tiled across blocks where one
+    feature's histograms alone exceed it."""
+    stage = (3 + 1) * DENSE_STAGE * 4           # channels + one bin row
+    per_bin = DENSE_SLICES * 3 * 4
+    bt = min(num_bins, max(1, (DENSE_SMEM_BYTES - stage) // per_bin))
+    per_feat = bt * per_bin + DENSE_STAGE * 4
+    fg = max(1, min(8, num_feat, (DENSE_SMEM_BYTES - 3 * DENSE_STAGE * 4)
+                    // per_feat))
+    smem = fg * per_feat + 3 * DENSE_STAGE * 4
+    return DensePlan(fg, bt, smem, max(1, -(-n // DENSE_CHUNK)))
+
+
+def dense_sum_bound(cnt: int, chunk: int = DENSE_PLAIN_CHUNK) -> float:
+    """Relative bound, against a bin's sum of |x|, on how far the kernel's
+    f32 sums over ``cnt`` selected rows and the twin's (chunk-row f32
+    sums in any order, added in order) may lie apart: each side's recursive-summation
+    bound, the kernel's ``m + DENSE_SLICES + chunks`` adds (``m`` a slice's
+    rows) and the twin's ``chunk + chunks`` adds, times 2^-24."""
+    cnt = max(1, int(cnt))
+    m = min(cnt, DENSE_CHUNK // DENSE_SLICES)
+    kern = m + DENSE_SLICES + -(-cnt // DENSE_CHUNK)
+    twin = min(cnt, chunk) + -(-cnt // chunk)
+    return (kern + twin) * 2.0 ** -24
+
+
+class DenseHistogram:
+    """:func:`dense_histogram` of one learner's matrix with its scratch
+    (planned once for all N rows, so a CUDA graph holds every call): the
+    root (``leaf`` -1), a host leaf (the per-split host loop) or the
+    smaller child named by a split's device header (the device tree
+    loop). Each call returns the same (F, B, 3) output buffer. On host
+    tensors :func:`dense_histogram_plain` (``chunk`` its summation
+    chunk)."""
+
+    def __init__(self, bins: torch.Tensor, ghc: torch.Tensor,
+                 row_leaf: torch.Tensor, num_bins: int,
+                 chunk: int = DENSE_PLAIN_CHUNK) -> None:
+        n, num_feat = bins.shape
+        if bins.dtype not in (torch.uint8, torch.int16, torch.uint16) \
+                or bins.dim() != 2:
+            raise ValueError("dense_histogram: bins must be (N, F) u8 or "
+                             "u16, got %s %s" % (tuple(bins.shape),
+                                                 bins.dtype))
+        if ghc.shape != (n, 3) or ghc.dtype != torch.float32:
+            raise ValueError("dense_histogram: ghc must be (N, 3) f32")
+        if row_leaf.shape != (n,) or row_leaf.dtype != torch.int32:
+            raise ValueError("dense_histogram: row_leaf must be (N,) int32")
+        self.bins, self.ghc, self.row_leaf = bins, ghc, row_leaf
+        self.num_bins, self.chunk = int(num_bins), int(chunk)
+        dev = bins.device
+        self.out = torch.zeros((num_feat, self.num_bins, 3),
+                               dtype=torch.float32, device=dev)
+        if dev.type == "cpu":
+            return
+        check_on_card("dense_histogram", bins, ghc, row_leaf)
+        self.plan = dense_plan(n, num_feat, self.num_bins)
+        i32 = torch.int32
+        self.idx = torch.empty(n, dtype=i32, device=dev)
+        self.tile_cnt = torch.empty(-(-n // DENSE_TILE_ROWS), dtype=i32,
+                                    device=dev)
+        self.m_word = torch.zeros(1, dtype=i32, device=dev)
+        self.partial = torch.empty((self.plan.chunks, num_feat,
+                                    self.num_bins, 3), dtype=torch.float32,
+                                   device=dev)
+
+    def __call__(self, leaf: int = -1, hdr=None,
+                 new_leaf: int = 0) -> torch.Tensor:
+        """The (F, B, 3) histogram of the rows on ``leaf`` (-1: every row),
+        or with the (8,) i32 device header ``hdr`` of the split's smaller
+        child (new leaf ``new_leaf``); a dead header writes nothing."""
+        if hdr is not None and (hdr.dtype != torch.int32
+                                or hdr.shape != (HDR_WORDS,)):
+            raise ValueError("dense_histogram: hdr must be (%d,) int32"
+                             % HDR_WORDS)
+        bins = self.bins
+        if bins.device.type == "cpu":
+            h = dense_histogram_plain(bins, self.ghc, self.row_leaf, leaf,
+                                      num_bins=self.num_bins, hdr=hdr,
+                                      new_leaf=new_leaf, chunk=self.chunk)
+            if hdr is None:
+                self.out.copy_(h)
+            else:
+                torch.where(hdr[6] != 0, h, self.out, out=self.out)
+            return self.out
+        if hdr is not None:
+            check_on_card("dense_histogram", bins, hdr)
+        p = self.plan
+        n, num_feat = bins.shape
+        DENSE_HIST_KERNEL.launch(
+            bins.data_ptr(), bins.element_size(), n, num_feat, self.num_bins,
+            self.ghc.data_ptr(), self.row_leaf.data_ptr(), int(leaf),
+            0 if hdr is None else hdr.data_ptr(), int(new_leaf),
+            self.idx.data_ptr(), self.tile_cnt.data_ptr(),
+            self.m_word.data_ptr(), self.partial.data_ptr(), p.feats, p.bins,
+            p.smem, self.out.data_ptr(), stream_of(bins))
+        return self.out
+
+
+def dense_histogram(bins: torch.Tensor, ghc: torch.Tensor,
+                    row_leaf: torch.Tensor, leaf: int = -1, *,
+                    num_bins: int) -> torch.Tensor:
+    """(F, num_bins, 3) f32 histogram of the (N, 3) channels ``ghc`` over
+    the rows of the (N, F) u8/u16 ``bins`` whose ``row_leaf`` equals
+    ``leaf`` (-1: every row): on a CUDA tensor ``csrc/dense_histogram.cu``
+    (deterministic; within :func:`dense_sum_bound` of the twin), on a CPU
+    tensor :func:`dense_histogram_plain`. A fresh output each call."""
+    return DenseHistogram(bins, ghc, row_leaf, num_bins)(leaf).clone()
+
+
+def dense_row_update_plain(bins: torch.Tensor, row_leaf: torch.Tensor,
+                           go_left: torch.Tensor, hdr: torch.Tensor,
+                           new_leaf: int) -> None:
+    """Plain twin of :func:`dense_row_update`, in place with no host read:
+    the JAX builder's ``where(on_leaf & ~go_left[bin], new_leaf,
+    row_leaf)`` on the header's column and parent, where it is live."""
+    w = hdr.to(torch.int64)
+    col = bins.index_select(1, w[3:4])[:, 0].long()
+    go = go_left.index_select(0, col)
+    move = (row_leaf.long() == w[7]) & ~go & (w[6] != 0)
+    row_leaf.masked_fill_(move, int(new_leaf))
+
+
+def dense_row_update(bins: torch.Tensor, row_leaf: torch.Tensor,
+                     go_left: torch.Tensor, hdr: torch.Tensor,
+                     new_leaf: int) -> None:
+    """Move the rows on the split's parent (header word 7) whose bin in its
+    column (word 3) goes right by the (B,) bool ``go_left`` to leaf
+    ``new_leaf``, in place in the (N,) i32 ``row_leaf``, where the header
+    is live (word 6): ``csrc/dense_histogram.cu`` (entry point
+    ``dense_row_update``) on a CUDA tensor, the twin on a CPU tensor."""
+    if hdr.dtype != torch.int32 or hdr.shape != (HDR_WORDS,):
+        raise ValueError("dense_row_update: hdr must be (%d,) int32"
+                         % HDR_WORDS)
+    if go_left.dtype != torch.bool or go_left.dim() != 1:
+        raise ValueError("dense_row_update: go_left must be (B,) bool")
+    if bins.device.type == "cpu":
+        dense_row_update_plain(bins, row_leaf, go_left, hdr, new_leaf)
+        return
+    check_on_card("dense_row_update", bins, row_leaf, go_left, hdr)
+    n, num_feat = bins.shape
+    grid = max(1, min(-(-n // 256), 8 * sm_count(bins.device.index)))
+    DENSE_UPDATE_KERNEL.launch(bins.data_ptr(), bins.element_size(), n,
+                               num_feat, row_leaf.data_ptr(),
+                               go_left.data_ptr(), hdr.data_ptr(),
+                               int(new_leaf), grid, stream_of(bins))

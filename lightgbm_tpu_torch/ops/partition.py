@@ -1093,14 +1093,15 @@ def _check_one_kernel_fixed(name, work, meta, fmask, hp, num_bins,
 
 
 def check_scan_inputs(name, meta, fmask, hp, num_bins, num_feat,
-                      cegb_ok=False, mono_ok=False) -> None:
+                      cegb_ok=False, mono_ok=False, max_bins=256) -> None:
     """What a split scan kernel takes for a whole tree: the FeatureMeta
     columns, the search mask and hyperparameters it has fields for
     (``cegb_ok``: the kernel takes CEGB penalties; ``mono_ok``: the
-    intermediate and advanced monotone methods' bounds)."""
-    if not 0 < num_bins <= 256:
-        raise ValueError("%s: needs 0 < num_bins <= 256, got %d"
-                         % (name, num_bins))
+    intermediate and advanced monotone methods' bounds), up to
+    ``max_bins`` bins."""
+    if not 0 < num_bins <= max_bins:
+        raise ValueError("%s: needs 0 < num_bins <= %d, got %d"
+                         % (name, max_bins, num_bins))
     want = (("num_bins", torch.int32), ("movable_missing", torch.bool),
             ("missing_bin", torch.int32), ("is_categorical", torch.bool),
             ("monotone", torch.int8), ("penalty", torch.float32))

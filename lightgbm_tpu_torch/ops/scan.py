@@ -31,6 +31,8 @@ _P = ctypes.c_void_p
 #: torch's op-by-op rounding: no contracted multiply-adds
 SCAN_KERNEL = register(CudaKernel(
     "split_scan", "split_scan.cu", [_P, _P], flags=("-fmad=false",)))
+#: the most bins the kernel scans (12 bins a thread of 256)
+SCAN_MAX_BINS = 3072
 
 
 class SplitScanArgs(ctypes.Structure):
@@ -132,7 +134,8 @@ class SplitScan:
         from .monotone import method_code
 
         check_scan_inputs("split_scan", meta, fmask, hp, num_bins, num_feat,
-                          cegb_ok=True, mono_ok=True)
+                          cegb_ok=True, mono_ok=True,
+                          max_bins=SCAN_MAX_BINS)
         if hp.use_cegb and (node is None or node.delta is None):
             raise ValueError("split_scan: CEGB needs the nodes' penalties "
                              "(an ops/node.NodeBuf with delta)")
@@ -156,9 +159,10 @@ class SplitScan:
         self._scratch = (
             torch.zeros(1, dtype=i32, device=device),              # ticket
             torch.empty((2, 2, 4, F), dtype=i32, device=device),   # gain|bin
-            torch.empty((3, 2, F, B), dtype=torch.uint8,
-                        device=device))                            # dl|rank
-        done, cand, flags = self._scratch
+            torch.empty((2, F, B), dtype=torch.uint8, device=device),  # dl
+            torch.empty((2, 2, F, B), dtype=torch.int16,
+                        device=device))                            # rank
+        done, cand, flags, rank = self._scratch
         fl = flags.data_ptr()
         self._args = SplitScanArgs(
             num_bins=meta.num_bins.data_ptr(),
@@ -169,7 +173,7 @@ class SplitScan:
             penalty=meta.penalty.data_ptr(),
             done=done.data_ptr(), cand_gain=cand.data_ptr(),
             cand_bin=cand.data_ptr() + 4 * 8 * F, num_dl=fl,
-            rank=fl + 2 * F * B,
+            rank=rank.data_ptr(),
             adv=0 if bounds is None else bounds.data_ptr(), F=F, B=B,
             **_hyper_fields(hp))
 

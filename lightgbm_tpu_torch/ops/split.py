@@ -357,7 +357,14 @@ def find_best_split(
         go_left, default_left = go_num, dl
 
     hwin = hist[pi, feat]                                      # (P, B, 3)
-    left_sum = torch.sum(torch.where(go_left[:, :, None], hwin, zero), dim=1)
+    win_left = torch.where(go_left[:, :, None], hwin, zero)
+    if B <= 256:
+        left_sum = torch.sum(win_left, dim=1)
+    else:
+        # past 256 bins the winner's bins add one after another (the last
+        # of their prefix sums), an order the split scan kernel can follow
+        # (csrc/split_scan.cuh finish_child)
+        left_sum = torch.cumsum(win_left, dim=1)[:, -1]
     right_sum = parent_sum - left_sum
     extra = torch.where(kind > 0, torch.full((), hp.cat_l2, dtype=f32,
                                              device=dev), zero)

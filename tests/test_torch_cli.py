@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 
 from torch_port_cases import (ATOL, CPU, REPO, RTOL, assert_same_trees,
-                              one_torch_thread)
+                              one_torch_thread, torch_threads)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu import cli as jax_cli
@@ -33,6 +33,14 @@ from lightgbm_tpu_torch.utils.log import LightGBMError
 def _one_thread(one_torch_thread):
     """Every test here trains on the host: one torch thread (subprocesses
     get OMP_NUM_THREADS=1; torch_port_cases.one_torch_thread)."""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """The module-scoped training fixtures run before any function-scoped
+    fixture: one torch thread for them too."""
+    with torch_threads(1):
+        yield
 
 
 #: the training settings of every CLI run here (parity needs splits by

@@ -17,6 +17,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 # importing the op modules registers their kernels' launch counters
+from lightgbm_tpu_torch.linear import fit as linear_fit  # noqa: E402,F401
 from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: E402,F401
                                     histogram, kernels, monotone, node,
                                     partition, rank, route, scan)
@@ -608,3 +609,74 @@ def test_monotone_fused_equals_per_iteration_on_card(card, method):
     eager = lgt.train(dict(params), lgt.Dataset(X, label=y, params=params),
                       4, callbacks=[lambda env: None])
     assert fused.model_to_string() == eager.model_to_string()
+
+
+def test_linear_dense_kernels_match_plain_on_card(card):
+    """Phase 3j's kernels against their twins on seeded inputs
+    (chip_smoke.phase_linear_dense_kernels): the Gram kernel within its
+    f32 summation bound with equal counts and fit_ok; the dense histogram
+    within its bound, counts equal, on u8 and u16 rows, by leaf and by
+    header, a dead header writing nothing; the row update equal; the split
+    scan past 256 bins bit-equal to find_best_split; the u16 router equal
+    to the plain router."""
+    before = kernels.launch_counts()
+    chip_smoke.phase_linear_dense_kernels(card, np.random.RandomState(61))
+    after = kernels.launch_counts()
+    for name in ("linear_gram", "dense_histogram", "dense_row_update",
+                 "split_scan", "route_rows_u16"):
+        assert after[name] > before[name], name
+
+
+def test_dense_device_loop_equals_host_loop_on_card(card):
+    """The dense builder's device tree loop (the row update and the
+    smaller child's histogram by header, the scan and the commit; a CUDA
+    graph from the second tree) grows the per-split host loop's trees on
+    the card, field by field, at 1023 bins (u16) and at 255; on the
+    card the learner's ``train`` is the device loop."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.prng import PRNGKey
+
+    X, y, _, _ = chip_smoke.training_data(2, 100_000, 0)
+    for extra in ({"max_bin": 1023}, {"tree_builder": "dense"}):
+        params = chip_smoke.train_params(card, 63, extra)
+        bst = lgt.Booster(params, lgt.Dataset(X, label=y, params=params))
+        g = bst.inner
+        lrn = g.learner
+        assert lrn.dense and lrn.train_on_loop
+        grad, hess = g.objective.get_gradients(g.train_score.score)
+        for t in range(3):
+            ghc = torch.stack([grad * (1 + t), hess, torch.ones_like(grad)],
+                              dim=1)
+            a = lrn.train_host_loop(ghc, key=PRNGKey(t))
+            b = lrn.train(ghc, key=PRNGKey(t))
+            for fld, x, z in zip(a._fields, a, b):
+                assert torch.equal(x, z), (extra, t, fld)
+
+
+def test_linear_device_off_refused_on_card(card):
+    """``linear_device=off`` (the host oracle) is refused on the card;
+    ``auto`` fits with the Gram kernel there."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+
+    X, y, _, _ = chip_smoke.training_data(4, 5_000, 0)
+    for mode in ("off", "auto"):
+        params = chip_smoke.train_params(card, 15, {
+            "linear_tree": True, "linear_device": mode})
+        ds = lgt.Dataset(X, label=y, params=params)
+        if mode == "off":
+            with pytest.raises(LightGBMError, match="linear_device=off"):
+                lgt.train(params, ds, 2)
+            continue
+        before = kernels.launch_counts()["linear_gram"]
+        lgt.train(params, ds, 2)
+        assert kernels.launch_counts()["linear_gram"] > before
+
+
+def test_linear_training_card_vs_host(card):
+    """Linear trees on the card (the Gram kernel) against the host (its
+    twin) at a small size: splits agree, train logloss within
+    chip_smoke.LINEAR_METRIC_TOL."""
+    data = chip_smoke.training_data(3, 30_000, 0)
+    res = chip_smoke.linear_card_vs_host(card, data, 30_000, 3, 31)
+    assert res["splits_agree"] == res["splits"] > 0

@@ -36,7 +36,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_cases import CPU, assert_same_trees, grid, one_torch_thread
+from torch_port_cases import (CPU, assert_same_trees, grid, one_torch_thread,
+                              torch_threads)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.config import Config as JConfig
@@ -60,6 +61,14 @@ import chip_smoke  # noqa: E402
 def _one_thread(one_torch_thread):
     """The training tests here run the port on the host: one torch thread
     (torch_port_cases.one_torch_thread)."""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """The module-scoped training fixtures run before any function-scoped
+    fixture: one torch thread for them too."""
+    with torch_threads(1):
+        yield
 
 
 #: twin vs JAX: |diff| <= TWIN_RTOL * the query's largest |value| (the

@@ -48,6 +48,17 @@ def test_kernels_phase_covers_every_branch_on_cpu():
     assert all(e <= 1e-6 for e in errs.values()), errs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """The module-scoped training fixtures below run before any
+    function-scoped fixture: one torch thread for them too (see
+    one_thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data():
     return chip_smoke.training_data(0, 2000, 500)

@@ -26,7 +26,8 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_cases import (CPU, TRAIN_ATOL, TRAIN_RTOL, assert_same_trees,
-                              jax_dataset, one_torch_thread, train_params)
+                              jax_dataset, one_torch_thread, torch_threads,
+                              train_params)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.config import Config as JConfig
@@ -44,6 +45,14 @@ from lightgbm_tpu_torch.utils.log import LightGBMError
 def _one_thread(one_torch_thread):
     """Every test here runs the port on the host: one torch thread
     (torch_port_cases.one_torch_thread)."""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """The module-scoped training fixtures run before any function-scoped
+    fixture: one torch thread for them too."""
+    with torch_threads(1):
+        yield
 
 
 def _higgs_grid(rng, n, f):
@@ -248,27 +257,33 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
 ])
 def test_unsupported_settings_raise(tmp_path, extra):
     """Settings the port does not train raise naming their ROADMAP item
-    (linear trees, tree_learner=data and the dense builder, each with its
-    item). The per-node split options, forced splits (a file that is not
-    there warns and forces nothing, as in the JAX package), GOSS
-    compaction (where GOSS does not sample it warns and keeps the dense
-    path), DART and RF train since they were ported, and raise no
-    longer."""
+    (tree_learner=data and int8 on the planes layout, each with its item).
+    The per-node split options, forced splits (a file that is not there
+    warns and forces nothing, as in the JAX package), GOSS compaction
+    (where GOSS does not sample it warns and keeps the dense path), DART
+    and RF, linear trees (a binary-cache dataset keeps no raw features, so
+    its leaves stay constant, as the JAX package's fit skips them) and the
+    dense builder train since they were ported, and raise no longer."""
     _, path, _, _, _ = jax_dataset("binary", tmp_path, n=200, seed=3)
     params = dict(train_params("binary"), **CPU)
     params.update(extra)
     ported = ("tpu_goss_compact", "feature_fraction_bynode", "extra_trees",
               "interaction_constraints", "cegb_penalty_split",
-              "forcedsplits_filename", "boosting")
+              "forcedsplits_filename", "boosting", "linear_tree",
+              "tree_builder")
     if any(k in extra for k in ported):
         bst = lgt.train(params, lgt.dataset_from_reference(path, CPU), 2)
         assert bst.current_iteration == 2
         assert bst.inner.models[0].num_leaves > 1
         if "boosting" in extra:
             assert bst.inner.name == extra["boosting"]
+        if "linear_tree" in extra:
+            assert all(t.is_linear for t in bst.inner.models)
+        if "tree_builder" in extra:
+            assert bst.inner.learner.dense
+            assert bst.inner.learner._kw["work_layout"] == "dense"
         return
-    item = {"linear_tree": "A10, item 6.3", "tree_learner": "A11",
-            "tree_builder": "A10, item 6.4", "tpu_work_layout": "B"}[next(iter(extra))]
+    item = {"tree_learner": "A11", "tpu_work_layout": "B"}[next(iter(extra))]
     with pytest.raises(LightGBMError, match="ROADMAP %s" % item):
         lgt.train(params, lgt.dataset_from_reference(path, CPU), 1)
 

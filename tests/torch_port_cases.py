@@ -8,6 +8,7 @@ including the 1/128 bin midpoints), as in tests/test_forest_kernel.py, so
 BIN-space and raw-threshold routing cannot split a row on representation
 error.
 """
+import contextlib
 import os
 import sys
 
@@ -27,6 +28,20 @@ import lightgbm_tpu_torch as lgt  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-6
 
 CPU = {"device_type": "cpu"}
+
+
+@contextlib.contextmanager
+def torch_threads(n: int = 1):
+    """Run the block on ``n`` torch threads, then restore the count. A
+    module-scoped training fixture runs before any function-scoped
+    fixture, so it pins its own threads with this (through a module-scoped
+    autouse fixture of its test file)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture
