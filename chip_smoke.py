@@ -16,9 +16,12 @@
                                           # advanced monotone, DART, RF
     python3 chip_smoke.py --linear-dense-only  # phase 3j: linear trees,
                                                # the dense builder
+    python3 chip_smoke.py --api-online-only    # phase 3k: cv, sklearn,
+                                               # refit, SHAP, convert,
+                                               # online training
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Seventeen phases, each fatal on failure:
+the checkout it sits in. Eighteen phases, each fatal on failure:
 
 1. build     -- compile the hand-written kernels (``csrc/*.cu``: fifteen
                 sources, twenty-two entry points), one nvcc per source,
@@ -281,6 +284,26 @@ the checkout it sits in. Seventeen phases, each fatal on failure:
                 scan past 256 bins and the u16 router against their twins
                 on seeded inputs and at the root and a deep leaf of the
                 fused learners (alone: ``--linear-dense-only``).
+3k. API and  -- phase 3's data, 255 leaves, the API's defaults (the
+    online      one-kernel split): (a) ``cv``, 3 folds x 2 rounds at full
+                size (wall a fold, mean valid AUC), then card vs host at
+                ``--host-rows`` rows x 63 leaves (equal folds and fold
+                trees, metric histories within API_CV_TOL); (b)
+                ``LGBMClassifier``, API_FIT_ROUNDS fused rounds
+                (predict_proba and feature_importances_ equal the
+                booster's); (c) the ``reset_parameter`` schedule (each
+                tree's shrinkage equals it); (d) ``refit`` of (b)'s model
+                on the valid rows, card vs host within API_REFIT_RTOL, its
+                sha256; (e) ``pred_contrib`` (row sums = raw scores within
+                API_CONTRIB_TOL, host ms); (f) ``task=convert_model``
+                compiled with g++ (= the f64 raw scores within
+                API_CONVERT_TOL); (g) a PredictServer over (b)'s model with
+                an online refit trainer, then a continue-mode one, while
+                API_PREDICT_THREADS threads post /predict and
+                API_INGEST_POSTS chunks arrive on /ingest: every answer
+                equal to one published version's prediction, no failure,
+                a gate verdict. Launch counts zeroed before each part and
+                read after (alone: ``--api-online-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -7419,6 +7442,574 @@ def phase_file(dev, data, leaves, card):
     return summary, {"train": train_counts, "predict": predict_counts}
 
 
+# ------------------------------------------------------------- phase 3k
+#
+# The API surface and online training (slice 17): cv, the scikit-learn
+# classifier, the reset_parameter schedule, refit, pred_contrib,
+# convert_model and a PredictServer that refits, then continues, its
+# model from /ingest while four threads post /predict.
+
+#: phase 3k's training settings: the defaults the API takes (on the card
+#: tpu_split_kernel=auto runs the one-kernel split)
+API_PARAMS = {"objective": "binary", "max_bin": 255, "verbosity": -1}
+API_CV_FOLDS = 3
+API_CV_ROUNDS = 2
+API_HOST_LEAVES = 63
+API_FIT_ROUNDS = 10
+#: the learning rates of the reset_parameter schedule, one a tree
+API_SCHEDULE = (0.1, 0.05, 0.025)
+API_CONTRIB_ROWS = 2000
+API_CONVERT_ROWS = 10_000
+API_INGEST_POSTS = 8
+API_INGEST_ROWS = 1024
+API_PREDICT_THREADS = 4
+API_PREDICT_ROWS = 64
+#: each /predict thread's pause between requests: at 2 ms the threads
+#: hold the GIL so often that the cycles' train and shadow steps take
+#: 2.3-3x longer and phase 3k runs past its 90 s
+API_PREDICT_PAUSE_S = 0.01
+#: the windows of /predict traffic alone, before the first /ingest (the
+#: forest kernel serves) and after the continue verdict
+API_LATENCY_WINDOW_S = 2.0
+API_CONTINUE_ROUNDS = 2
+#: cv metric histories card vs host
+API_CV_TOL = 1e-6
+#: fold trees' leaf values card vs host, the CPU tests' tolerance
+#: (tests/torch_port_cases.TRAIN_RTOL / TRAIN_ATOL): exp and the
+#: histogram sums differ by an ulp
+API_TREE_RTOL, API_TREE_ATOL = 1e-4, 1e-5
+#: refit's leaf values card vs host, relative (the gradients differ by an
+#: ulp of exp; the leaf sums run in f64 in another order)
+API_REFIT_RTOL = 1e-5
+#: pred_contrib row sums vs the raw scores (f64 SHAP against the card's
+#: f32 forest sums)
+API_CONTRIB_TOL = 1e-4
+#: the compiled convert_model C++ vs the f64 host tree walk
+API_CONVERT_TOL = 1e-10
+#: a served answer vs one published version's prediction of its rows
+API_ONLINE_TOL = 1e-6
+
+
+def api_params(dev, leaves, extra=None):
+    return dict(API_PARAMS, num_leaves=leaves, device_type=dev.type,
+                **(extra or {}))
+
+
+def fold_tree_diffs(a_models, b_models):
+    """Where fold trees differ card vs host: for each tree whose structure
+    (features, thresholds, decision types, children) differs, its first
+    differing split with both sides' (feature, threshold, gain); for the
+    others, leaf values past API_TREE_ATOL + API_TREE_RTOL |x|. Empty when
+    the trees are equal."""
+    import numpy as np
+    out = []
+    if len(a_models) != len(b_models):
+        return ["%d trees against %d" % (len(a_models), len(b_models))]
+    for i, (a, b) in enumerate(zip(a_models, b_models)):
+        k = min(a.num_internal, b.num_internal)
+        for r in range(k):
+            if (a.split_feature[r], a.threshold[r], a.decision_type[r],
+                    a.left_child[r], a.right_child[r]) != \
+                    (b.split_feature[r], b.threshold[r], b.decision_type[r],
+                     b.left_child[r], b.right_child[r]):
+                out.append("tree %d split %d: card (%d, %.9g, gain %.9g) "
+                           "host (%d, %.9g, gain %.9g)"
+                           % (i, r, a.split_feature[r], a.threshold[r],
+                              a.split_gain[r], b.split_feature[r],
+                              b.threshold[r], b.split_gain[r]))
+                break
+        else:
+            if a.num_leaves != b.num_leaves:
+                out.append("tree %d: %d leaves against %d"
+                           % (i, a.num_leaves, b.num_leaves))
+            elif not np.allclose(b.leaf_value[:b.num_leaves],
+                                 a.leaf_value[:a.num_leaves],
+                                 rtol=API_TREE_RTOL, atol=API_TREE_ATOL):
+                d = np.abs(b.leaf_value[:b.num_leaves]
+                           - a.leaf_value[:a.num_leaves])
+                out.append("tree %d: leaf values past %g + %g |x| (max "
+                           "|diff| %.3g at %.3g)"
+                           % (i, API_TREE_ATOL, API_TREE_RTOL, d.max(),
+                              a.leaf_value[int(np.argmax(d))]))
+    return out
+
+
+def api_cv(dev, X, y, leaves, device_type):
+    """``lgt.cv`` of (X, y): API_CV_FOLDS folds x API_CV_ROUNDS rounds,
+    the fold boosters kept. Returns (result, wall s)."""
+    import lightgbm_tpu_torch as lgt
+    params = dict(api_params(dev, leaves, {"metric": ["auc",
+                                                      "binary_logloss"]}),
+                  device_type=device_type)
+    t0 = time.perf_counter()
+    res = lgt.cv(params, lgt.Dataset(X, label=y), API_CV_ROUNDS,
+                 nfold=API_CV_FOLDS, seed=0, return_cvbooster=True)
+    return res, time.perf_counter() - t0
+
+
+def api_compile_cpp(src, out_dir):
+    """The convert_model source compiled with g++ into a ctypes library
+    (PredictRaw)."""
+    import ctypes
+    import numpy as np
+    so = os.path.join(out_dir, "model.so")
+    r = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-std=c++14",
+                        "-o", so, src], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError("g++ failed on the converted model:\n%s"
+                             % r.stderr[-2000:])
+    lib = ctypes.CDLL(so)
+    dptr = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+    lib.PredictRaw.argtypes = [dptr, dptr]
+    lib.PredictRaw.restype = None
+    return lib
+
+
+def host_raw_f64(bst, X):
+    """The host tree walk's f64 raw scores (one class)."""
+    import numpy as np
+    g = bst.inner
+    score = np.zeros(len(X))
+    for t in g.models:
+        score += t.predict(X)
+    return score + g.init_scores[0]
+
+
+def api_serve_online(dev, bst, data, seed):
+    """(g): ``bst`` behind a PredictServer with an online refit trainer
+    (``start=True``: its worker thread trains), then a continue-mode
+    trainer in its place, while API_PREDICT_THREADS threads post
+    /predict and the main thread posts API_INGEST_POSTS labeled chunks
+    to /ingest. Every answer must equal one published version's
+    prediction of its rows. Each /predict's latency is kept by the part
+    of the run it started in: ``idle`` (API_LATENCY_WINDOW_S of /predict
+    alone before the first /ingest, after one warm-up request a thread), ``refit`` and ``continue`` (from
+    the first /ingest of a cycle to its verdict) and ``after_continue``
+    (API_LATENCY_WINDOW_S after the continue verdict). Returns (summary,
+    {part: launch counts})."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.obs import telemetry
+    from lightgbm_tpu_torch.online import OnlineTrainer
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.serve import PredictServer, PredictSession
+
+    rng = np.random.RandomState(seed + 71)
+    X, y = data[2], data[3]
+    chunk = API_INGEST_ROWS
+    trigger = chunk * API_INGEST_POSTS // 2
+    reqs = [higgs_like(rng, API_PREDICT_ROWS)
+            for _ in range(API_PREDICT_THREADS)]
+    versions = {bst.inner.model_version: bst.model_to_string()}
+    refit = OnlineTrainer(bst, mode="refit", trigger_rows=trigger,
+                          min_rows=64, shadow_rows=trigger)
+    server = PredictServer(bst, port=0, buckets=(64, 256), max_wait_ms=1.0,
+                           online=refit)
+    base = "http://%s:%d" % server.address
+    th = threading.Thread(target=server.serve_forever,
+                          name="smoke-3k-http", daemon=True)
+    th.start()
+    stop = threading.Event()
+    answers, failures = [], []
+    parts = ("idle", "refit", "continue", "after_continue")
+    window = [parts[0]]                 # the part a request starts in
+    latency = {k: [] for k in parts}    # ms
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path,
+                                     data=json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    def predict_loop(i):
+        while not stop.is_set():
+            at = window[0]
+            t = time.perf_counter()
+            try:
+                out = post("/predict", {"rows": reqs[i].tolist()})
+                latency[at].append((time.perf_counter() - t) * 1e3)
+                answers.append((i, out["model_version"],
+                                np.asarray(out["predictions"])))
+            except Exception as exc:        # every failure is counted
+                failures.append(repr(exc))
+            time.sleep(API_PREDICT_PAUSE_S)
+
+    def wait_cycle(tr, trains, what):
+        deadline = time.perf_counter() + 300
+        while tr.state()["trains"] < trains \
+                or tr.state()["last_result"] in ("idle", "skipped"):
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase 3k (g): no %s cycle: %s"
+                                     % (what, tr.state()))
+            time.sleep(0.02)
+        st = tr.state()
+        if st["errors"]:
+            raise AssertionError("phase 3k (g) %s: %s"
+                                 % (what, st["last_error"]))
+        versions[bst.inner.model_version] = bst.model_to_string()
+        return st
+
+    counts, states = {}, {}
+    threads = [threading.Thread(target=predict_loop, args=(i,),
+                                name="smoke-3k-predict-%d" % i)
+               for i in range(API_PREDICT_THREADS)]
+    try:
+        sync(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(API_PREDICT_THREADS):        # warm the buckets
+            out = post("/predict", {"rows": reqs[i].tolist()})
+            answers.append((i, out["model_version"],
+                            np.asarray(out["predictions"])))
+        for t in threads:
+            t.start()
+        time.sleep(API_LATENCY_WINDOW_S)
+        sync(dev)
+        counts["idle"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        window[0] = "refit"
+        for p in range(API_INGEST_POSTS):
+            if p == API_INGEST_POSTS // 2:
+                states["refit"] = wait_cycle(refit, 1, "refit")
+                sync(dev)
+                counts["refit"] = kernels.launch_counts()
+                kernels.reset_launch_counts()
+                window[0] = "continue"
+                # the continue cycle: a continue-mode trainer takes the
+                # entry's place; its worker trains through the device
+                # tree loop (a CUDA graph capture) beside the serving
+                # threads
+                entry = server.registry.get()
+                entry.online = OnlineTrainer(
+                    bst, mode="continue", trigger_rows=trigger, min_rows=64,
+                    shadow_rows=trigger,
+                    continue_rounds=API_CONTINUE_ROUNDS)
+                refit.close()
+            lo = p * chunk % (len(y) - chunk)
+            out = post("/ingest", {"rows": X[lo:lo + chunk].tolist(),
+                                   "labels": y[lo:lo + chunk].tolist()})
+            if out.get("rows") != chunk:
+                raise AssertionError("phase 3k (g): /ingest answered %s"
+                                     % out)
+        states["continue"] = wait_cycle(server.registry.get().online, 1,
+                                        "continue")
+        sync(dev)
+        counts["continue"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        window[0] = "after_continue"
+        time.sleep(API_LATENCY_WINDOW_S)
+        wall = time.perf_counter() - t0
+        sync(dev)
+        counts["after_continue"] = kernels.launch_counts()
+        forest_after = bst.inner._forest_model(
+            0, len(bst.inner.models) // bst.inner.num_tree_per_iteration) \
+            is not None
+        health = json.loads(urllib.request.urlopen(
+            base + "/healthz", timeout=60).read())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        server.shutdown()
+        th.join(timeout=60)
+        server.close()
+    if failures:
+        raise AssertionError("phase 3k (g): %d failed requests, first %s"
+                             % (len(failures), failures[0]))
+    verdicts = sum(s["promotions"] + s["rejections"]
+                   for s in states.values())
+    if verdicts < 1:
+        raise AssertionError("phase 3k (g): no gate verdict: %s" % states)
+    # each published version's prediction of each thread's rows, through
+    # the serving path (the serving train_set's bins where the forest
+    # kernel is eligible)
+    expected = {}
+    for v, text in versions.items():
+        b = lgt.Booster({"device_type": dev.type}, model_str=text)
+        b.inner.train_set = bst.inner.train_set
+        sess = PredictSession(b, buckets=(64, 256))
+        expected[v] = [sess.predict(r) for r in reqs]
+    worst = 0.0
+    for i, v, out in answers:
+        errs = [float(np.max(np.abs(out - expected[u][i])))
+                for u in expected]
+        worst = max(worst, min(errs))
+        if min(errs) > API_ONLINE_TOL:
+            raise AssertionError("phase 3k (g): an answer (version %d) "
+                                 "equals no published version (closest "
+                                 "%.3g)" % (v, min(errs)))
+    lat = {k: dict(n=len(v), p50=float(np.percentile(v, 50)),
+                   p99=float(np.percentile(v, 99)))
+           for k, v in latency.items() if v}
+    if set(lat) != set(parts):
+        raise AssertionError("phase 3k (g): no /predict answer in parts %s"
+                             % sorted(set(parts) - set(lat)))
+    hists = telemetry.snapshot()["histograms"]
+    summary = dict(
+        predict_latency_ms=lat, forest_after_continue=forest_after,
+        answers=len(answers), failures=0, versions=sorted(versions),
+        served_versions=sorted({v for _, v, _ in answers}),
+        max_abs_err=worst, wall_s=wall, verdicts=verdicts,
+        refit=states["refit"]["last_result"],
+        continue_=states["continue"]["last_result"],
+        healthz_promotions=health["models"]["default"]["online"]
+        ["promotions"],
+        **{k: hists.get("online/" + k) for k in ("train_ms", "shadow_ms",
+                                                 "promote_swap_ms")})
+    log("phase 3k (g) online serving: %d answers from %d threads, 0 "
+        "failures, versions %s (served %s), closest-version max |diff| "
+        "%.3g; refit %s, continue %s; %.1f s; online/train_ms %s, "
+        "online/shadow_ms %s, online/promote_swap_ms %s; launches refit "
+        "part %s, continue part %s"
+        % (len(answers), API_PREDICT_THREADS, summary["versions"],
+           summary["served_versions"], worst, summary["refit"],
+           summary["continue_"], wall, summary["train_ms"],
+           summary["shadow_ms"], summary["promote_swap_ms"],
+           nonzero(counts["refit"]), nonzero(counts["continue"])))
+    log("phase 3k (g) /predict latency ms (%d rows a request, %d threads, "
+        "%.0f ms pause): %s; after the continue verdict the model is %s; "
+        "launches idle part %s, after-continue part %s"
+        % (API_PREDICT_ROWS, API_PREDICT_THREADS, API_PREDICT_PAUSE_S * 1e3,
+           "; ".join("%s n %d p50 %.3f p99 %.3f"
+                     % (k, lat[k]["n"], lat[k]["p50"], lat[k]["p99"])
+                     for k in parts),
+           "on the forest kernel" if forest_after else
+           "ineligible for the forest kernel (the torch walk serves it)",
+           nonzero(counts["idle"]), nonzero(counts["after_continue"])))
+    return summary, counts
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_api_online(dev, data, card, leaves=255, host_rows=200_000,
+                     seed=0, host_leaves=API_HOST_LEAVES,
+                     fit_rounds=API_FIT_ROUNDS):
+    """Phase 3k, the API surface and online training at full width:
+    (a) cv on the card (wall a fold, mean valid AUC), and (last, after
+    the online part's worker thread has launched the same kernels) card
+    against host at ``host_rows`` rows and ``host_leaves`` leaves: equal
+    folds, equal fold trees (API_TREE_RTOL / API_TREE_ATOL), histories
+    within API_CV_TOL; (b) LGBMClassifier,
+    ``fit_rounds`` fused rounds: predict_proba equal to Booster.predict,
+    feature_importances_ to the booster's; (c) the reset_parameter
+    schedule: each tree's shrinkage equals it; (d) refit of (b)'s model on
+    the valid rows, card against host within API_REFIT_RTOL, its sha256;
+    (e) pred_contrib: row sums equal the raw scores within
+    API_CONTRIB_TOL, host ms; (f) convert_model through the command line,
+    compiled with g++, equal to the f64 raw scores within
+    API_CONVERT_TOL; (g) api_serve_online. Launch counts are zeroed
+    before each part and read after. Returns (summary, {part: counts})."""
+    import hashlib
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.ops import kernels
+
+    t_start = time.perf_counter()
+    X, y, Xv, yv = data
+    summary, counts = {}, {}
+
+    def part(name):
+        sync(dev)
+        counts[name] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+
+    sync(dev)
+    kernels.reset_launch_counts()
+    # (a) cv at full size on the card
+    res, wall = api_cv(dev, X, y, leaves, dev.type)
+    part("cv")
+    for b in res["cvbooster"].boosters:
+        if b.inner.device.type != dev.type:
+            raise AssertionError("phase 3k (a): a fold trained on %s"
+                                 % b.inner.device)
+    auc = res["valid auc-mean"][-1]
+    if not 0.5 < auc <= 1.0:
+        raise AssertionError("phase 3k (a): mean valid auc %.4f" % auc)
+    summary["cv"] = dict(rows=len(y), folds=API_CV_FOLDS,
+                         rounds=API_CV_ROUNDS, leaves=leaves, wall_s=wall,
+                         wall_per_fold_s=wall / API_CV_FOLDS,
+                         valid_auc_mean=auc,
+                         valid_auc_stdv=res["valid auc-stdv"][-1])
+    log("phase 3k (a) cv: %d rows, %d folds x %d rounds x %d leaves in "
+        "%.1f s (%.1f s a fold); mean valid auc %.5f (stdv %.5f); "
+        "launches %s" % (len(y), API_CV_FOLDS, API_CV_ROUNDS, leaves, wall,
+                         wall / API_CV_FOLDS, auc,
+                         res["valid auc-stdv"][-1], nonzero(counts["cv"])))
+    del res
+    Xh, yh = X[:host_rows], y[:host_rows]
+
+
+    # (b) the scikit-learn classifier, fused rounds
+    clf = lgt.LGBMClassifier(n_estimators=fit_rounds, num_leaves=leaves,
+                             max_bin=255, device_type=dev.type,
+                             verbosity=-1)
+    t0 = time.perf_counter()
+    clf.fit(X, y)
+    sync(dev)
+    t_fit = time.perf_counter() - t0
+    part("sklearn_fit")
+    bst = clf.booster_
+    t0 = time.perf_counter()
+    proba = clf.predict_proba(Xv)
+    t_proba = time.perf_counter() - t0
+    part("sklearn_predict")
+    if not (np.array_equal(proba[:, 1], bst.predict(Xv))
+            and np.array_equal(clf.feature_importances_,
+                               bst.feature_importance("split"))
+            and list(clf.classes_) == [0.0, 1.0]):
+        raise AssertionError("phase 3k (b): predict_proba, "
+                             "feature_importances_ or classes_ differ from "
+                             "the booster's")
+    fit_auc = auc_np(yv, proba[:, 1])
+    summary["sklearn"] = dict(rows=len(y), rounds=fit_rounds, fit_s=t_fit,
+                              predict_proba_s=t_proba, valid_auc=fit_auc)
+    log("phase 3k (b) LGBMClassifier: %d fused rounds on %d rows in %.2f "
+        "s, predict_proba of %d rows in %.3f s, valid auc %.5f; launches "
+        "fit %s, predict %s" % (fit_rounds, len(y), t_fit, len(yv), t_proba,
+                                fit_auc, nonzero(counts["sklearn_fit"]),
+                                nonzero(counts["sklearn_predict"])))
+
+    # (c) the reset_parameter schedule
+    params = api_params(dev, leaves)
+    sched = list(API_SCHEDULE)
+    sbst = lgt.train(params, lgt.Dataset(Xh, label=yh, params=params),
+                     len(sched),
+                     callbacks=[lgt.reset_parameter(learning_rate=sched)])
+    part("reset_parameter")
+    got = [t.shrinkage for t in sbst.inner.models]
+    if got != sched:
+        raise AssertionError("phase 3k (c): shrinkages %s, schedule %s"
+                             % (got, sched))
+    summary["reset_parameter"] = dict(rows=host_rows, shrinkage=got)
+    log("phase 3k (c) reset_parameter: %d trees on %d rows, shrinkages %s "
+        "= the schedule; launches %s" % (len(sched), host_rows, got,
+                                         nonzero(counts["reset_parameter"])))
+    del sbst
+
+    # (d) refit on the valid rows, card against host
+    text = bst.model_to_string()
+    t0 = time.perf_counter()
+    ref_card = bst.refit(Xv, yv)
+    t_refit = time.perf_counter() - t0
+    part("refit")
+    t0 = time.perf_counter()
+    ref_host = lgt.Booster({"device_type": "cpu"}, model_str=text).refit(
+        Xv, yv)
+    t_refit_host = time.perf_counter() - t0
+    if ref_card.inner.device.type != dev.type:
+        raise AssertionError("phase 3k (d): refit built its booster on %s"
+                             % ref_card.inner.device)
+    worst = 0.0
+    for a, b in zip(ref_card.inner.models, ref_host.inner.models):
+        lv_a, lv_b = a.leaf_value[:a.num_leaves], b.leaf_value[:b.num_leaves]
+        worst = max(worst, float(np.max(np.abs(lv_a - lv_b)
+                                        / np.maximum(np.abs(lv_b), 1e-12))))
+        if not np.allclose(lv_a, lv_b, rtol=API_REFIT_RTOL, atol=0):
+            raise AssertionError("phase 3k (d): refit leaves card vs host "
+                                 "past %g relative" % API_REFIT_RTOL)
+    sha = hashlib.sha256(ref_card.model_to_string().encode()).hexdigest()
+    summary["refit"] = dict(rows=len(yv), card_s=t_refit,
+                            host_s=t_refit_host, max_rel_diff=worst,
+                            model_sha256=sha)
+    log("phase 3k (d) refit: %d rows, card %.3f s, host %.3f s, leaves "
+        "card vs host max relative |diff| %.3g (limit %.0e); sha256 %s; "
+        "launches %s" % (len(yv), t_refit, t_refit_host, worst,
+                         API_REFIT_RTOL, sha, nonzero(counts["refit"])))
+    del ref_card, ref_host
+
+    # (e) pred_contrib
+    Xc = Xv[:API_CONTRIB_ROWS]
+    t0 = time.perf_counter()
+    contrib = bst.predict(Xc, pred_contrib=True)
+    t_contrib = (time.perf_counter() - t0) * 1e3
+    raw = bst.predict(Xc, raw_score=True)
+    part("pred_contrib")
+    err = float(np.max(np.abs(contrib.sum(axis=1) - raw)))
+    if contrib.shape != (len(Xc), HIGGS_FEATURES + 1) \
+            or not err <= API_CONTRIB_TOL:
+        raise AssertionError("phase 3k (e): contributions %s, row sums vs "
+                             "raw %.3g" % (contrib.shape, err))
+    summary["pred_contrib"] = dict(rows=len(Xc), host_ms=t_contrib,
+                                   max_abs_err=err)
+    log("phase 3k (e) pred_contrib: %d rows x %d trees in %.1f host ms, "
+        "row sums vs raw scores max |diff| %.3g (limit %.0e)"
+        % (len(Xc), len(bst.inner.models), t_contrib, err, API_CONTRIB_TOL))
+
+    # (f) convert_model through the command line, compiled
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model.txt")
+        src = os.path.join(tmp, "model.cpp")
+        bst.save_model(model)
+        t0 = time.perf_counter()
+        cli.main(["task=convert_model", "input_model=%s" % model,
+                  "convert_model=%s" % src, "device_type=%s" % dev.type,
+                  "verbosity=-1"])
+        t_convert = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib = api_compile_cpp(src, tmp)
+        t_gxx = time.perf_counter() - t0
+        Xf = np.ascontiguousarray(Xv[:API_CONVERT_ROWS], np.float64)
+        got = np.zeros(len(Xf))
+        out = np.zeros(1)
+        for i, row in enumerate(Xf):
+            lib.PredictRaw(row, out)
+            got[i] = out[0]
+    part("convert_model")
+    err = float(np.max(np.abs(got - host_raw_f64(bst, Xf))))
+    if not err <= API_CONVERT_TOL:
+        raise AssertionError("phase 3k (f): compiled model vs raw scores "
+                             "%.3g" % err)
+    summary["convert_model"] = dict(rows=len(Xf), convert_s=t_convert,
+                                    gxx_s=t_gxx, max_abs_err=err)
+    log("phase 3k (f) convert_model: C++ written in %.2f s, g++ %.1f s; "
+        "%d rows vs the f64 raw scores max |diff| %.3g (limit %.0e)"
+        % (t_convert, t_gxx, len(Xf), err, API_CONVERT_TOL))
+
+    # (g) online training behind /ingest
+    summary["online"], online_counts = api_serve_online(dev, bst, data,
+                                                        seed)
+    for k, v in online_counts.items():
+        counts["online_" + k] = v
+    sync(dev)
+    kernels.reset_launch_counts()
+    # (a) cv card vs host at host_rows rows
+    cv_card, t_card = api_cv(dev, Xh, yh, host_leaves, dev.type)
+    cv_host, t_host = api_cv(dev, Xh, yh, host_leaves, "cpu")
+    part("cv_card_vs_host")
+    diffs = []
+    for i, (a, b) in enumerate(zip(cv_card["cvbooster"].boosters,
+                                   cv_host["cvbooster"].boosters)):
+        # the same rows in the same order, binned alike
+        if not np.array_equal(a.inner.train_set.binned,
+                              b.inner.train_set.binned):
+            raise AssertionError("phase 3k (a): fold %d's rows differ card "
+                                 "vs host" % i)
+        diffs += ["fold %d %s" % (i, d)
+                  for d in fold_tree_diffs(a.inner.models, b.inner.models)]
+    diff = max(float(np.max(np.abs(np.subtract(cv_card[k], cv_host[k]))))
+               for k in cv_card if k != "cvbooster")
+    log("phase 3k (a) cv card vs host: %d rows x %d leaves, folds equal, "
+        "fold trees %s, histories max |diff| %.3g (limit %.0e); card %.1f "
+        "s, host %.1f s" % (host_rows, host_leaves,
+                            "; ".join(diffs) or "equal", diff, API_CV_TOL,
+                            t_card, t_host))
+    summary["cv"]["card_vs_host"] = dict(rows=host_rows, leaves=host_leaves,
+                                         max_abs_diff=diff, card_s=t_card,
+                                         host_s=t_host, tree_diffs=diffs)
+    if diffs or diff > API_CV_TOL:
+        raise AssertionError("phase 3k (a): cv card vs host: trees %s, "
+                             "histories differ by %.3g" % (diffs, diff))
+    del cv_card, cv_host
+    summary["wall_s"] = time.perf_counter() - t_start
+    log("phase 3k took %.1f s (%s)" % (summary["wall_s"], card))
+    return summary, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7474,6 +8065,12 @@ def main(argv=None):
                     "at 1023 and 255 bins through the device tree loop, "
                     "their kernels against their twins, card vs host) and "
                     "print only its summary and its kernels' rows")
+    ap.add_argument("--api-online-only", action="store_true",
+                    help="build, run the API and online phase (3k: cv, "
+                    "LGBMClassifier, the reset_parameter schedule, refit, "
+                    "pred_contrib, convert_model and a PredictServer that "
+                    "trains from /ingest while serving) and print only its "
+                    "summary and launch counts")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -7587,6 +8184,18 @@ def main(argv=None):
                           **bound_row(name, r))
                for name, r in ld_rows.items()}
         print(json.dumps({"linear_dense": summary_ld, "kernels": row},
+                         default=str))
+        log(card)
+        return 0
+
+    if args.api_online_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_api, counts_api = phase_api_online(
+            dev, data, card, leaves=args.leaves, host_rows=args.host_rows,
+            seed=args.seed)
+        print(json.dumps({"api_online": summary_api,
+                          "launches": {k: nonzero(v)
+                                       for k, v in counts_api.items()}},
                          default=str))
         log(card)
         return 0
@@ -7828,6 +8437,13 @@ def main(argv=None):
     errs.update(errs_ld)
     rows.update(ld_rows)
 
+    log("== phase 3k: the API surface (cv, LGBMClassifier, "
+        "reset_parameter, refit, pred_contrib, convert_model) and online "
+        "training behind /ingest while serving (%s)" % card)
+    summary_api, counts_api = phase_api_online(
+        dev, data, card, leaves=args.leaves, host_rows=args.host_rows,
+        seed=args.seed)
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -7921,6 +8537,9 @@ def main(argv=None):
                 "route_rows_cat": counts_m["route_rows_cat"],
                 "rank_lambdas": counts_rank["rank_lambdas"],
                 **linear_dense_launches(counts_ld, summary_ld)}
+    # phase 3k's parts run the main path's kernels too
+    for name in launches:
+        launches[name] += sum(c.get(name, 0) for c in counts_api.values())
     log("launches: planes training %s; one-kernel training %s; resident "
         "training %s; quantized training %s; rows run %s; serving %s"
         % (counts_p, counts_k, counts_rs, counts_q, counts_r, serve_counts))
@@ -7936,6 +8555,9 @@ def main(argv=None):
     log("train summary monotone %s" % json.dumps(summary_mono, default=str))
     log("train summary linear and dense %s" % json.dumps(summary_ld,
                                                           default=str))
+    log("api and online summary %s; launches %s"
+        % (json.dumps(summary_api, default=str),
+           {k: nonzero(v) for k, v in counts_api.items()}))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

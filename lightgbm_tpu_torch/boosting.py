@@ -24,13 +24,16 @@ and final prediction with prediction early stopping, the version-keyed
 device packs behind :class:`~lightgbm_tpu_torch.serve.session.PredictSession`,
 binned routing of a dataset's rows (``_route_tree_device``) and the online
 hot-swap hooks ``adopt`` / ``restore``. DART and RF models load and serve
-(RF averages its trees).
+(RF averages its trees). ``dump_json``, ``to_if_else_cpp`` (standalone C++
+of the ensemble, ``task=convert_model``) and ``feature_importance`` read
+the host trees, as the JAX package's do.
 
 Everything device-side lives on ``self.device``, resolved from
 ``config.device_type`` (see device.py).
 """
 from __future__ import annotations
 
+import json
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -120,16 +123,28 @@ class GBDT:
             self._setup(train_set)
 
     # ------------------------------------------------------------------ setup
-    def _setup(self, train_set: BinnedDataset) -> None:
-        cfg = self.config
+    def check_device_config(self, cfg: Config) -> None:
+        """Refuse settings that would run this booster's work on another
+        device than its own: a new ``device_type`` (the trees, scores and
+        learner live on :attr:`device`), and ``linear_device=off`` on a
+        CUDA device (the card fits every leaf with the Gram kernel; the
+        f64 host oracle is the host learner's fit, not a fallback of the
+        card). :meth:`_setup` and ``Booster.reset_parameter`` call it
+        before they touch anything."""
+        if resolve_device(cfg.device_type) != self.device:
+            raise LightGBMError(
+                "device_type=%s moves a booster that lives on %s; train a "
+                "new booster instead" % (cfg.device_type, self.device))
         if cfg.linear_tree and cfg.linear_device == "off" \
                 and self.device.type == "cuda":
-            # the card fits every leaf with the Gram kernel; the f64 host
-            # oracle is the host learner's fit, not a fallback of the card
             raise LightGBMError(
                 "linear_device=off fits the linear leaves on the host and "
                 "needs device_type=cpu; on a CUDA device use "
                 "linear_device=auto or on (the Gram kernel)")
+
+    def _setup(self, train_set: BinnedDataset) -> None:
+        cfg = self.config
+        self.check_device_config(cfg)
         self.objective = create_objective(cfg)
         self.objective.init(train_set.metadata, self.device)
         self.num_tree_per_iteration = self.objective.num_model_per_iteration
@@ -702,8 +717,9 @@ class GBDT:
         """Device BIN-space ``(ForestPack, has_cat, has_linear,
         ForestWalk)`` for [start, end) (the walk tables derived once per
         pack, beside it), or ``None`` when the forest path is structurally
-        ineligible (no constructed train_set to supply bin mappers, splits
-        on unmapped features, tables over the budget). Cached behind the
+        ineligible (no constructed train_set to supply bin mappers, a
+        threshold inside one of its bins, splits on unmapped features,
+        tables over the budget). Cached behind the
         model-version token like ``_packed_model``, ineligibility
         included."""
         from .ops.forest import (FOREST_VMEM_BUDGET, forest_pack,
@@ -721,12 +737,12 @@ class GBDT:
             ds = self.train_set
             why = None
             entry = None
+            K = self.num_tree_per_iteration
             if ds is None:
                 why = "no constructed train_set (bin mappers unavailable)"
             else:
                 try:
                     telemetry.count("serve/forest_build")
-                    K = self.num_tree_per_iteration
                     fp, has_cat, has_linear = forest_pack(
                         self.models[start * K:end * K], ds, num_class=K,
                         device=self.device)
@@ -891,6 +907,100 @@ class GBDT:
             lines.append("%s=%.17g" % (name, v)
                          if itype == "gain" else "%s=%d" % (name, int(v)))
         return "\n".join(lines)
+
+    def to_if_else_cpp(self, num_iteration: int = -1) -> str:
+        """Standalone C++ prediction source for the whole ensemble
+        (reference: gbdt_model_text.cpp:258 ModelToIfElse; also its model-
+        correctness regression harness). Emits per-tree if-else functions,
+        a PredictRaw accumulator (init scores included) and extern-C
+        single-row entry points so the file both drops into user code and
+        compiles into a test harness."""
+        self.finish_fused("to_if_else_cpp")
+        K = self.num_tree_per_iteration
+        total_iters = len(self.models) // max(K, 1)
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = total_iters
+        end = min(total_iters, num_iteration) * K
+        parts = [
+            "// generated by lightgbm_tpu task=convert_model",
+            "#include <cmath>",
+            "#include <cstdint>",
+            "#include <algorithm>",
+            "",
+            "static inline bool cat_in(int64_t v, const int64_t* arr, "
+            "int n) {",
+            "  return std::binary_search(arr, arr + n, v);",
+            "}",
+            "",
+        ]
+        for i, tree in enumerate(self.models[:end]):
+            parts.append(tree.to_if_else(i))
+            parts.append("")
+        init = ", ".join("%.17g" % v for v in self.init_scores[:max(K, 1)])
+        parts += [
+            "static const int kNumClass = %d;" % max(K, 1),
+            "static const int kNumTrees = %d;" % end,
+            "static const double kInitScore[%d] = {%s};" % (max(K, 1), init),
+            "",
+            "typedef double (*TreeFn)(const double*);",
+            "static const TreeFn kTrees[%d] = {%s};" % (
+                max(end, 1),
+                ", ".join("PredictTree%d" % i for i in range(end)) or "0"),
+            "",
+            "extern \"C\" void PredictRaw(const double* arr, double* out) {",
+            "  for (int k = 0; k < kNumClass; ++k) out[k] = kInitScore[k];",
+            "  for (int i = 0; i < kNumTrees; ++i) {",
+            "    out[i % kNumClass] += kTrees[i](arr);",
+            "  }",
+            "}",
+            "",
+        ]
+        obj = self.objective.name if self.objective else ""
+        if obj == "binary":
+            sig = self.config.sigmoid
+            transform = ("  out[0] = 1.0 / (1.0 + std::exp(-%.17g * "
+                         "out[0]));" % sig)
+        elif obj in ("multiclassova", "ova"):
+            sig = self.config.sigmoid
+            transform = ("  for (int k = 0; k < kNumClass; ++k) out[k] = "
+                         "1.0 / (1.0 + std::exp(-%.17g * out[k]));" % sig)
+        elif obj in ("multiclass", "softmax"):
+            transform = (
+                "  double m = out[0];\n"
+                "  for (int k = 1; k < kNumClass; ++k) m = std::max(m, "
+                "out[k]);\n"
+                "  double s = 0;\n"
+                "  for (int k = 0; k < kNumClass; ++k) { out[k] = "
+                "std::exp(out[k] - m); s += out[k]; }\n"
+                "  for (int k = 0; k < kNumClass; ++k) out[k] /= s;")
+        else:
+            transform = "  // identity output transform"
+        parts += [
+            "extern \"C\" void Predict(const double* arr, double* out) {",
+            "  PredictRaw(arr, out);",
+            transform,
+            "}",
+            "",
+        ]
+        return "\n".join(parts)
+
+    def dump_json(self, num_iteration: int = -1) -> str:
+        self.finish_fused("dump_json")
+        K = self.num_tree_per_iteration
+        total_iters = len(self.models) // max(K, 1)
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = total_iters
+        end = min(total_iters, num_iteration) * K
+        d = {
+            "name": "tree",
+            "version": "v3",
+            "objective": self._objective_string(),
+            "num_class": self.num_class,
+            "num_tree_per_iteration": K,
+            "init_score": self.init_scores.tolist(),
+            "tree_info": [t.to_dict() for t in self.models[:end]],
+        }
+        return json.dumps(d)
 
     def _objective_string(self) -> str:
         obj = self.objective.name if self.objective else self.config.objective

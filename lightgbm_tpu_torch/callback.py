@@ -1,11 +1,11 @@
 """Training callbacks (PyTorch port of ``lightgbm_tpu/callback.py``;
 reference: python-package/lightgbm/callback.py print_evaluation /
-record_evaluation / early_stopping, with the same CallbackEnv protocol).
-``reset_parameter`` needs ``Booster.reset_parameter`` and waits for it."""
+record_evaluation / reset_parameter / early_stopping, with the same
+CallbackEnv protocol)."""
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Union
 
 from .utils.log import Log
 
@@ -66,6 +66,28 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]) -> Callabl
             eval_result[name].setdefault(metric, []).append(value)
 
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs: Union[list, Callable]) -> Callable:
+    """Schedule parameters by iteration, e.g. learning_rate=list|fn
+    (reference: callback.py:105)."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new_params = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError("Length of list %r should equal num_boost_round"
+                                     % key)
+                new_params[key] = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_params[key] = value(env.iteration - env.begin_iteration)
+        if new_params:
+            env.model.reset_parameter(new_params)
+
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

@@ -1,5 +1,5 @@
-"""Command-line application: train / predict / save_binary / serve
-(PyTorch port of ``lightgbm_tpu/cli.py``).
+"""Command-line application: train / predict / convert_model / refit /
+save_binary / serve (PyTorch port of ``lightgbm_tpu/cli.py``).
 
 Equivalent of the reference CLI (reference: src/main.cpp:11,
 src/application/application.h:29 Application, application.cpp:52
@@ -10,11 +10,11 @@ LoadParameters). Usage mirrors the reference:
 Everything runs on the CUDA card unless ``device_type=cpu`` asks for the
 host. Files parse and bin natively (``io.py``, ``io_native.py``). A
 ``data`` file that ``task=save_binary`` wrote (``<data>.bin``) loads
-without re-parsing or re-binning. Settings the port cannot honour raise,
-naming their ROADMAP item: ``task=convert_model`` and ``task=refit``
-(queue A item 7), ``online_train`` and every ``fleet_*`` setting (A12,
-item 8), span tracing, telemetry and trace dumps and the run ledger (A13,
-item 10).
+without re-parsing or re-binning. ``task=serve online_train=true`` runs
+an online trainer per served model behind ``POST /ingest``. Settings the
+port cannot honour raise, naming their ROADMAP item: every ``fleet_*``
+setting (A12, queue A item 8), span tracing, telemetry and trace dumps
+and the run ledger (A13, item 10).
 """
 from __future__ import annotations
 
@@ -96,8 +96,6 @@ class Application:
                 or cfg.telemetry_dump_interval_s > 0:
             _refuse("obs_ledger, obs_hbm_sample_interval_s and "
                     "telemetry_dump_interval_s", "A13, queue A item 10")
-        if cfg.online_train:
-            _refuse("online_train", "A12, queue A item 8")
         fleet = sorted(k for k in self.raw_params if k.startswith("fleet_"))
         if fleet:
             _refuse("the fleet settings (%s)" % ", ".join(fleet),
@@ -113,8 +111,10 @@ class Application:
             self.save_binary()
         elif task == "serve":
             self.serve()
-        elif task in ("convert_model", "refit"):
-            _refuse("task=%s" % task, "queue A item 7")
+        elif task == "convert_model":
+            self.convert_model()
+        elif task == "refit":
+            self.refit()
         else:
             Log.fatal("Unknown task: %s", task)
 
@@ -163,8 +163,6 @@ class Application:
         cfg = self.config
         if not cfg.input_model:
             Log.fatal("task=predict requires input_model")
-        if cfg.predict_contrib:
-            _refuse("predict_contrib", "queue A item 7")
         bst = self._booster(cfg.input_model)
         X, _, _, _, _ = load_text_file(cfg.data, cfg)
         pred = bst.predict(
@@ -172,13 +170,44 @@ class Application:
             start_iteration=cfg.start_iteration_predict,
             num_iteration=(cfg.num_iteration_predict
                            if cfg.num_iteration_predict > 0 else None),
-            pred_leaf=cfg.predict_leaf_index)
+            pred_leaf=cfg.predict_leaf_index,
+            pred_contrib=cfg.predict_contrib)
         pred2d = pred if pred.ndim > 1 else pred.reshape(-1, 1)
         with open(cfg.output_result, "w") as f:
             for row in pred2d:
                 f.write("\t".join("%g" % v for v in row) + "\n")
         Log.info("Finished prediction; results saved to %s",
                  cfg.output_result)
+
+    def convert_model(self) -> None:
+        """(reference: task=convert_model, gbdt_model_text.cpp
+        ModelToIfElse for convert_model_language=cpp; the JSON dump
+        otherwise)."""
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("task=convert_model requires input_model")
+        bst = self._booster(cfg.input_model)
+        out = cfg.convert_model or "gbdt_prediction.cpp"
+        with open(out, "w") as f:
+            if cfg.convert_model_language == "cpp":
+                f.write(bst.inner.to_if_else_cpp())
+            else:
+                f.write(bst.inner.dump_json())
+        Log.info("Model converted (%s) to %s", cfg.convert_model_language,
+                 out)
+
+    def refit(self) -> None:
+        """Refit ``input_model``'s leaves on ``data`` and write the model
+        to ``output_model`` (``Booster.refit``, on the booster's
+        device)."""
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("task=refit requires input_model")
+        bst = self._booster(cfg.input_model)
+        X, label, _, _, _ = load_text_file(cfg.data, cfg)
+        new_bst = bst.refit(X, label, decay_rate=cfg.refit_decay_rate)
+        new_bst.save_model(cfg.output_model)
+        Log.info("Refit model saved to %s", cfg.output_model)
 
     def save_binary(self) -> None:
         """Write ``<data>.bin`` (the reference's name; an npz archive of
@@ -191,10 +220,33 @@ class Application:
             save_binned(binned, f)
         Log.info("Saved binary dataset to %s", path)
 
+    def _online_config(self) -> Optional[Dict[str, Any]]:
+        """The OnlineTrainer keyword arguments of ``online_train=true``,
+        or None."""
+        cfg = self.config
+        if not cfg.online_train:
+            return None
+        return dict(
+            mode=cfg.online_mode,
+            trigger_rows=cfg.online_trigger_rows,
+            trigger_interval_s=cfg.online_trigger_interval_s,
+            buffer_rows=cfg.online_buffer_rows,
+            shadow_rows=cfg.online_shadow_rows,
+            promote_threshold=cfg.online_promote_threshold,
+            min_rows=cfg.online_min_rows,
+            continue_rounds=cfg.online_continue_rounds,
+            decay_rate=cfg.refit_decay_rate,
+            shadow_decay=cfg.online_shadow_decay,
+            promote_patience=cfg.online_promote_patience,
+            rollback_threshold=cfg.online_rollback_threshold,
+            rollback_min_rows=cfg.online_rollback_min_rows)
+
     def make_server(self):
         """The PredictServer of ``task=serve``: ``input_model`` as
         "default" and every ``serve_models`` entry ``id=path``, each behind
-        its own PredictSession and MicroBatcher."""
+        its own PredictSession and MicroBatcher (and, with
+        ``online_train=true``, its own OnlineTrainer fed by ``POST
+        /ingest/<id>``)."""
         from .online.registry import ModelRegistry
         from .serve.http import PredictServer
 
@@ -211,6 +263,7 @@ class Application:
         for spec in cfg.serve_tenant_weights:
             name, _, w = spec.partition("=")
             tenant_weights[name.strip()] = float(w)
+        online = self._online_config()
         registry = ModelRegistry()
         try:
             for mid, path in entries:
@@ -227,16 +280,18 @@ class Application:
                     warmup=cfg.serve_warmup,
                     dispatch_mode=cfg.serve_dispatch,
                     forest=(None if cfg.tpu_forest_kernel == "auto"
-                            else cfg.tpu_forest_kernel))
+                            else cfg.tpu_forest_kernel),
+                    online=None if online is None else dict(online))
             server = PredictServer(registry=registry, host=cfg.serve_host,
                                    port=cfg.serve_port)
         except BaseException:
             registry.close()
             raise
         host, port = server.address
-        Log.info("Serving %s on http://%s:%d (POST /predict; GET /healthz, "
-                 "/models)", ", ".join("%s=%s" % e for e in entries), host,
-                 port)
+        Log.info("Serving %s on http://%s:%d (POST /predict%s; GET "
+                 "/healthz, /models)", ", ".join("%s=%s" % e
+                                                 for e in entries), host,
+                 port, ", /ingest" if online is not None else "")
         return server
 
     def serve(self) -> None:

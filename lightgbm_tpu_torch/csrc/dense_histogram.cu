@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -67,7 +69,6 @@ constexpr int kChunk = 8192;        // selected rows of a partial
 constexpr int kSlices = 4;
 constexpr int kStage = 256;         // selected rows staged at once
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 // The leaf whose rows are summed, and whether the split is live: the host
 // leaf without a header, else the header's smaller child.
@@ -275,25 +276,10 @@ row_update(const T* __restrict__ bins, long long N, int F,
 }
 
 cudaError_t raise_smem() {
-  thread_local bool raised[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev]) return cudaSuccess;
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
   const void* fns[] = {reinterpret_cast<const void*>(dh_hist<uint8_t>),
                        reinterpret_cast<const void*>(dh_hist<uint16_t>)};
-  for (const void* fn : fns) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-    if (e != cudaSuccess) return e;
-  }
-  raised[dev] = true;
-  return cudaSuccess;
+  return lgbt_smem::raise_once(fns, 2, raised);
 }
 
 }  // namespace

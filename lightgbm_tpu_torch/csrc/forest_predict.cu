@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -72,7 +74,6 @@ constexpr int kPassRows = kThreads / kTB;    // rows of a pass
 constexpr int kEnd = 0xffff;                 // no link: the walk ends
 constexpr int kFeatMask = 0x7fffffff;        // sign bit: categorical round
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 struct ForestArgs {
   const int* bins;             // (n, F)
@@ -301,42 +302,16 @@ forest_walk_kernel(ForestArgs a) {
   if (threadIdx.x == 0) a.ticket[chunk] = 0;
 }
 
-// Raise every variant's dynamic shared-memory limit to the most a block
-// may take, once per device; `limit` is then that most (the card's
-// opt-in limit less the largest static room of a variant).
+// Raise every variant's dynamic shared-memory limit once (smem.cuh);
+// `limit` is then the most a launch of any variant may ask for.
 cudaError_t raise_smem(int* limit) {
-  thread_local int raised[kMaxDevices] = {};   // the limit, 0 until raised
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev]) {
-    *limit = raised[dev];
-    return cudaSuccess;
-  }
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
   const void* fns[] = {
       reinterpret_cast<const void*>(forest_walk_kernel<true, false>),
       reinterpret_cast<const void*>(forest_walk_kernel<false, false>),
       reinterpret_cast<const void*>(forest_walk_kernel<true, true>),
       reinterpret_cast<const void*>(forest_walk_kernel<false, true>)};
-  int most = optin;
-  for (const void* fn : fns) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, fn);
-    if (e != cudaSuccess) return e;
-    const int room = optin - static_cast<int>(fa.sharedSizeBytes);
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             room);
-    if (e != cudaSuccess) return e;
-    most = room < most ? room : most;
-  }
-  raised[dev] = most;
-  *limit = most;
-  return cudaSuccess;
+  return lgbt_smem::raise_once(fns, 4, raised, limit);
 }
 
 }  // namespace

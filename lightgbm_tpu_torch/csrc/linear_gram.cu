@@ -48,11 +48,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kTile = 256;          // row leaves staged at once
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 constexpr int kReduceThreads = 256;
 
 __global__ void gram_partial(const float* __restrict__ X, int ldx,
@@ -160,22 +161,9 @@ gram_reduce(const float* __restrict__ partial, int S, long long LW,
 }
 
 cudaError_t raise_smem() {
-  thread_local bool raised[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev]) return cudaSuccess;
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(gram_partial,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           optin);
-  if (e != cudaSuccess) return e;
-  raised[dev] = true;
-  return cudaSuccess;
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  return lgbt_smem::raise_once(reinterpret_cast<const void*>(gram_partial),
+                               raised);
 }
 
 }  // namespace

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "monotone.cuh"
+#include "smem.cuh"
 
 // Field order and types must match ops/monotone.py MonoBoundsArgs.
 struct MonoBoundsArgs {
@@ -256,12 +257,6 @@ mono_commit_kernel(const MonoCommitArgs a) {
   }
 }
 
-int set_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-}
-
 }  // namespace
 
 extern "C" {
@@ -279,8 +274,12 @@ int mono_bounds(const MonoBoundsArgs* args, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * (size_t)a.F * sizeof(float);
-  int rc = set_smem(reinterpret_cast<const void*>(mono_bounds_kernel), smem);
-  if (rc != 0) return rc;
+  if (smem > 48 * 1024) {
+    thread_local int raised[lgbt_smem::kMaxDevices] = {};
+    const cudaError_t e = lgbt_smem::raise_once(
+        reinterpret_cast<const void*>(mono_bounds_kernel), raised);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   mono_bounds_kernel<<<dim3(a.F, a.nodes), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -110,6 +110,7 @@
 #include "segment_hist.cuh"
 #include "segment_partition.cuh"
 #include "split_scan.cuh"
+#include "smem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -371,7 +372,8 @@ size_t smem_bytes(const OneKernelArgs& a) {
 // The cooperative grid of one kernel for `smem` bytes of dynamic shared
 // memory on the current device: the blocks that fit at once (occupancy x
 // SMs). The queries run once per (kernel, device, smem) and thread; a
-// tree's splits all share one smem size.
+// tree's splits all share one smem size. The kernel's dynamic
+// shared-memory limit is raised once (smem.cuh).
 template <bool kResident, int kNch>
 cudaError_t cooperative_grid(size_t smem, int* grid) {
   thread_local int cached_dev = -1, cached_grid = 0;
@@ -383,9 +385,10 @@ cudaError_t cooperative_grid(size_t smem, int* grid) {
     *grid = cached_grid;
     return cudaSuccess;
   }
-  e = cudaFuncSetAttribute(one_kernel_split_kernel<kResident, kNch>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  e = lgbt_smem::raise_once(
+      reinterpret_cast<const void*>(one_kernel_split_kernel<kResident, kNch>),
+      raised);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, one_kernel_split_kernel<kResident, kNch>, kThreads, smem);

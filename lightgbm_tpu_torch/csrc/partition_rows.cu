@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "segment_arg.cuh"
+#include "smem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,7 +62,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSteps = 32;              // 32-row steps per tile
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -331,7 +331,6 @@ partition_rows_kernel(uint8_t* work, int W, int npad,
 // take, once.
 cudaError_t max_grid(size_t smem, int* out) {
   constexpr int kCache = 16;
-  thread_local bool raised[kMaxDevices] = {};
   thread_local int c_dev[kCache], c_grid[kCache], c_n = 0;
   thread_local size_t c_smem[kCache];
   int dev = 0;
@@ -343,21 +342,10 @@ cudaError_t max_grid(size_t smem, int* out) {
       return cudaSuccess;
     }
   }
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    int optin = 0;
-    cudaFuncAttributes fa;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncGetAttributes(&fa, partition_rows_kernel);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(partition_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin - static_cast<int>(fa.sharedSizeBytes));
-    if (e != cudaSuccess) return e;
-    raised[dev] = true;
-  }
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  e = lgbt_smem::raise_once(
+      reinterpret_cast<const void*>(partition_rows_kernel), raised);
+  if (e != cudaSuccess) return e;
   int per_sm = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, partition_rows_kernel, kThreads, smem);

@@ -63,6 +63,7 @@
 #include <stdint.h>
 
 #include "segment_arg.cuh"
+#include "smem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -76,7 +77,6 @@ constexpr int kStripePad = 16;             // a plane's stripe: T + 16 bytes
 // a run's shifted indices: up to 3 leading slots, the run, the last word
 constexpr int kIdxLen = kMaxTile + 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -420,7 +420,6 @@ partition_planes_kernel(uint8_t* work, int W, int npad,
 // take, once.
 cudaError_t max_grid(size_t smem, int* out) {
   constexpr int kCache = 16;
-  thread_local bool raised[kMaxDevices] = {};
   thread_local int c_dev[kCache], c_grid[kCache], c_n = 0;
   thread_local size_t c_smem[kCache];
   int dev = 0;
@@ -432,21 +431,10 @@ cudaError_t max_grid(size_t smem, int* out) {
       return cudaSuccess;
     }
   }
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    int optin = 0;
-    cudaFuncAttributes fa;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncGetAttributes(&fa, partition_planes_kernel);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(partition_planes_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin - static_cast<int>(fa.sharedSizeBytes));
-    if (e != cudaSuccess) return e;
-    raised[dev] = true;
-  }
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  e = lgbt_smem::raise_once(
+      reinterpret_cast<const void*>(partition_planes_kernel), raised);
+  if (e != cudaSuccess) return e;
   int per_sm = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, partition_planes_kernel, kThreads, smem);

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;              // one row a thread: T = 256
@@ -73,7 +75,6 @@ constexpr int kCatBin = -0x7fffffff;       // a categorical round's bin
 constexpr int kStripePad = 16;
 constexpr int kEnd = 0xffff;               // no link: the walk ends
 constexpr unsigned kNoKey = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -260,19 +261,9 @@ route_walk_kernel(const E* __restrict__ bins_t, int F, int npad,
   }
 }
 
-// Raise every variant's dynamic shared-memory limit to the most a block
-// may take, once per device.
+// Raise every variant's dynamic shared-memory limit once (smem.cuh).
 cudaError_t raise_smem() {
-  thread_local bool raised[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev]) return cudaSuccess;
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
   const void* fns[] = {
       reinterpret_cast<const void*>(route_walk_kernel<uint8_t, true, false>),
       reinterpret_cast<const void*>(route_walk_kernel<uint8_t, false, false>),
@@ -284,16 +275,7 @@ cudaError_t raise_smem() {
       reinterpret_cast<const void*>(route_walk_kernel<uint16_t, true, true>),
       reinterpret_cast<const void*>(
           route_walk_kernel<uint16_t, false, true>)};
-  for (const void* fn : fns) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, fn);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin - static_cast<int>(fa.sharedSizeBytes));
-    if (e != cudaSuccess) return e;
-  }
-  raised[dev] = true;
-  return cudaSuccess;
+  return lgbt_smem::raise_once(fns, 8, raised);
 }
 
 template <typename E>

@@ -77,6 +77,7 @@
 
 #include "segment_arg.cuh"
 #include "segment_hist.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -132,14 +133,20 @@ reduce_kernel(const int* __restrict__ seg, const int* __restrict__ lt,
   }
 }
 
+// Raise the kernel's dynamic shared-memory limit once (smem.cuh).
+template <int kNch, class L>
+cudaError_t raise_hist_smem() {
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  return lgbt_smem::raise_once(
+      reinterpret_cast<const void*>(hist_kernel<kNch, L>), raised);
+}
+
 template <int kNch, class L>
 int launch_nch(L lay, size_t plane_bytes, const int* seg, const int* lt,
                int mode, int F, int B, int chunks, float* partial,
                float* out, cudaStream_t s) {
   const int smem = hist_smem_bytes(B, kNch, kHistFeats);
-  cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<kNch, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t e = raise_hist_smem<kNch, L>();
   if (e != cudaSuccess) return static_cast<int>(e);
   // x: the feature groups, so that blocks in flight share a chunk's rows
   // in L2

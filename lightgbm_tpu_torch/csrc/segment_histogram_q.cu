@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "segment_arg.cuh"
+#include "smem.cuh"
 namespace cg = cooperative_groups;
 
 namespace {
@@ -68,7 +69,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRing = 4;          // staged steps per warp: 3 ahead
 constexpr int kMaxCluster = 8;
 constexpr int kDequantBatch = 8;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -239,21 +239,6 @@ hist_q_kernel(const uint8_t* __restrict__ work, int W, int npad,
   }
 }
 
-// Let `kernel` take the most dynamic shared memory a block may have.
-template <typename K>
-cudaError_t raise_smem_limit(K kernel, int dev) {
-  int optin = 0;
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncGetAttributes(&fa, kernel);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              optin - static_cast<int>(fa.sharedSizeBytes));
-}
-
 // The clusters of `cfg`'s shape the card runs at once, from a small
 // per-thread cache (a run's launches use a few shapes). The first query on
 // a device also raises both kernels' dynamic shared-memory limit to the
@@ -262,7 +247,6 @@ template <typename K>
 cudaError_t max_clusters(K kernel, bool staged, const cudaLaunchConfig_t* cfg,
                          int* out) {
   constexpr int kCache = 16;
-  thread_local bool raised[kMaxDevices] = {};
   thread_local int c_dev[kCache], c_cl[kCache], c_most[kCache], c_n = 0;
   thread_local size_t c_smem[kCache];
   thread_local bool c_staged[kCache];
@@ -277,13 +261,11 @@ cudaError_t max_clusters(K kernel, bool staged, const cudaLaunchConfig_t* cfg,
       return cudaSuccess;
     }
   }
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    e = raise_smem_limit(hist_q_kernel<true>, dev);
-    if (e == cudaSuccess) e = raise_smem_limit(hist_q_kernel<false>, dev);
-    if (e != cudaSuccess) return e;
-    raised[dev] = true;
-  }
+  thread_local int raised[lgbt_smem::kMaxDevices] = {};
+  const void* fns[] = {reinterpret_cast<const void*>(hist_q_kernel<true>),
+                       reinterpret_cast<const void*>(hist_q_kernel<false>)};
+  e = lgbt_smem::raise_once(fns, 2, raised);
+  if (e != cudaSuccess) return e;
   int most = 0;
   e = cudaOccupancyMaxActiveClusters(&most, kernel, cfg);
   if (e != cudaSuccess) return e;

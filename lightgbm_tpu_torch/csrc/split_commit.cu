@@ -73,6 +73,7 @@
 #include <stdint.h>
 
 #include "monotone.cuh"
+#include "smem.cuh"
 
 // Field order and types must match ops/commit.py CommitArgs.
 struct CommitArgs {
@@ -430,9 +431,9 @@ int split_commit(const CommitArgs* args, int blocks, void* stream) {
   const size_t smem = a.has_monotone && a.mono_method == 2
       ? (2 * (size_t)a.F + 8 * kWarps + 2) * sizeof(float) : 0;
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        split_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    thread_local int raised[lgbt_smem::kMaxDevices] = {};
+    const cudaError_t rc = lgbt_smem::raise_once(
+        reinterpret_cast<const void*>(split_commit_kernel), raised);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   split_commit_kernel<<<blocks, kThreads, smem,

@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "split_scan.cuh"
+#include "smem.cuh"
 
 // Field order and types must match ops/scan.py SplitScanArgs.
 struct SplitScanArgs {
@@ -159,9 +160,9 @@ template <int kBpt>
 cudaError_t launch_scan(const SplitScanArgs& a, cudaStream_t stream) {
   const size_t smem = scan_smem_floats(kBpt) * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split_scan_kernel<kBpt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    thread_local int raised[lgbt_smem::kMaxDevices] = {};
+    const cudaError_t e = lgbt_smem::raise_once(
+        reinterpret_cast<const void*>(split_scan_kernel<kBpt>), raised);
     if (e != cudaSuccess) return e;
   }
   split_scan_kernel<kBpt><<<a.nodes * a.F, kScanThreads, smem, stream>>>(a);

@@ -5,16 +5,21 @@ With no custom objective or eval, no valid set and no user callback, the
 booster trains in fused blocks of ``tpu_iter_block`` iterations
 (``fused.FusedTrainer``; the JAX package's fast path). Otherwise the
 eager loop runs, one ``Booster.update`` per iteration with callbacks and
-valid-set evaluation between iterations. ``cv`` is later work.
+valid-set evaluation between iterations. ``cv`` trains one booster a
+fold (stratified, group-aware or shuffled folds, ``_make_n_folds``) with
+the fold's rows as its valid set, and returns the folds' mean and
+standard deviation of every valid metric per iteration.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Callable, Dict, List, Optional, Union
 
+import numpy as np
+
 from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException, early_stopping, \
-    log_evaluation
+    log_evaluation, record_evaluation
 from .config import resolve_aliases
 from .obs import telemetry
 from .utils.log import Log
@@ -158,3 +163,141 @@ def _train_fused(booster: Booster, begin: int, end: int) -> None:
     # model lock; take it here too so the field has one guard
     with inner._cache_lock:
         inner.best_iteration = booster.best_iteration
+
+
+class CVBooster:
+    """Ensemble of per-fold boosters (reference: engine.py CVBooster)."""
+
+    def __init__(self) -> None:
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name: str):
+        def handler(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler
+
+
+def _make_n_folds(full_data: Dataset, nfold: int, params: Dict[str, Any],
+                  seed: int, stratified: bool, shuffle: bool):
+    """(reference: engine.py _make_n_folds — stratified / group-aware folds)"""
+    binned = full_data.construct(params)
+    num_data = binned.num_data
+    rng = np.random.RandomState(seed)
+    group_info = binned.metadata.query_boundaries
+    if group_info is not None:
+        # group-wise folds: keep queries intact
+        nq = len(group_info) - 1
+        q_idx = rng.permutation(nq) if shuffle else np.arange(nq)
+        folds_q = np.array_split(q_idx, nfold)
+        for fq in folds_q:
+            test_rows = np.concatenate(
+                [np.arange(group_info[q], group_info[q + 1]) for q in fq]) \
+                if len(fq) else np.array([], dtype=np.int64)
+            train_rows = np.setdiff1d(np.arange(num_data), test_rows)
+            yield train_rows, test_rows
+        return
+    label = binned.metadata.label
+    if stratified and label is not None and len(np.unique(label)) < 50:
+        order = []
+        for v in np.unique(label):
+            idx = np.flatnonzero(label == v)
+            if shuffle:
+                rng.shuffle(idx)
+            order.append(idx)
+        # interleave classes, then slice round-robin
+        folds = [[] for _ in range(nfold)]
+        for idx in order:
+            for i, row in enumerate(idx):
+                folds[i % nfold].append(row)
+        for i in range(nfold):
+            test_rows = np.asarray(sorted(folds[i]), dtype=np.int64)
+            train_rows = np.setdiff1d(np.arange(num_data), test_rows)
+            yield train_rows, test_rows
+        return
+    idx = rng.permutation(num_data) if shuffle else np.arange(num_data)
+    for test_rows in np.array_split(idx, nfold):
+        train_rows = np.setdiff1d(np.arange(num_data), test_rows)
+        yield np.asarray(train_rows), np.asarray(sorted(test_rows))
+
+
+def cv(
+    params: Dict[str, Any],
+    train_set: Dataset,
+    num_boost_round: int = 100,
+    nfold: int = 5,
+    stratified: bool = True,
+    shuffle: bool = True,
+    metrics: Optional[Union[str, List[str]]] = None,
+    fobj: Optional[Callable] = None,
+    feval: Optional[Callable] = None,
+    seed: int = 0,
+    callbacks: Optional[List[Callable]] = None,
+    eval_train_metric: bool = False,
+    return_cvbooster: bool = False,
+) -> Dict[str, Any]:
+    """Cross-validation (reference: engine.py cv)."""
+    params = resolve_aliases(dict(params))
+    num_boost_round = int(params.pop("num_iterations", num_boost_round))
+    if metrics:
+        params["metric"] = metrics if isinstance(metrics, list) else [metrics]
+    early_rounds = int(params.pop("early_stopping_round", 0) or 0)
+
+    X = train_set.data
+    label = train_set.label
+    weight = train_set.weight
+    group = train_set.group
+
+    Xa = np.asarray(X, dtype=np.float64)
+    cvb = CVBooster()
+    fold_iters = []
+    per_fold: List[Dict[str, List[float]]] = []
+    for train_rows, test_rows in _make_n_folds(train_set, nfold, params, seed,
+                                               stratified, shuffle):
+        def subset_group(rows):
+            if group is None:
+                return None
+            qb = train_set.construct(params).metadata.query_boundaries
+            qid = np.zeros(len(label), dtype=np.int64)
+            for q in range(len(qb) - 1):
+                qid[qb[q]:qb[q + 1]] = q
+            sub_qid = qid[rows]
+            _, sizes = np.unique(sub_qid, return_counts=True)
+            return sizes
+        tr = Dataset(Xa[train_rows],
+                     label=None if label is None else label[train_rows],
+                     weight=None if weight is None else weight[train_rows],
+                     group=subset_group(train_rows), params=dict(params))
+        te = tr.create_valid(Xa[test_rows],
+                             label=None if label is None else label[test_rows],
+                             weight=None if weight is None else weight[test_rows],
+                             group=subset_group(test_rows))
+        fold_params = dict(params)
+        fold_params["verbosity"] = -1
+        if early_rounds:
+            fold_params["early_stopping_round"] = early_rounds
+        history: Dict[str, Dict[str, List[float]]] = {}
+        bst = train(fold_params, tr, num_boost_round, valid_sets=[te],
+                    valid_names=["valid"], fobj=fobj, feval=feval,
+                    callbacks=list(callbacks or []) + [record_evaluation(history)])
+        cvb.append(bst)
+        fold_iters.append(bst.best_iteration)
+        per_fold.append(history.get("valid", {}))
+    cvb.best_iteration = int(np.min(fold_iters)) if fold_iters else -1
+
+    # aggregate per-iteration metric history across folds
+    # (reference cv contract: one list entry per boosting round)
+    out: Dict[str, Any] = {}
+    metrics_seen = sorted({m for h in per_fold for m in h})
+    for metric in metrics_seen:
+        series = [h[metric] for h in per_fold if metric in h]
+        n_iters = min(len(s) for s in series)
+        arr = np.asarray([s[:n_iters] for s in series])
+        out["valid %s-mean" % metric] = [float(v) for v in arr.mean(axis=0)]
+        out["valid %s-stdv" % metric] = [float(v) for v in arr.std(axis=0)]
+    if return_cvbooster:
+        out["cvbooster"] = cvb
+    return out

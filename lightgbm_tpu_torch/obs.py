@@ -149,6 +149,16 @@ class Telemetry:
                 h = self._hists[name] = Histogram()
             h.observe(value)
 
+    @contextlib.contextmanager
+    def timed_observe(self, name: str) -> Iterator[None]:
+        """Observe the block's host wall time in milliseconds into
+        histogram ``name`` (online train cycles, promotion swaps)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, (time.perf_counter() - t0) * 1e3)
+
     def record(self, name: str, dedupe_key=None, **payload) -> None:
         """Append a structured event to the ``name`` list; with
         ``dedupe_key`` an event with the same key is kept once."""

@@ -1,11 +1,12 @@
 """Multi-tenant model registry: model id -> (booster, session, batcher)
-(PyTorch port of the serving part of ``lightgbm_tpu/online/registry.py``).
+(PyTorch port of ``lightgbm_tpu/online/registry.py``).
 
 One process serves N models behind one HTTP endpoint
 (``/predict/<model_id>``). Each entry owns its own
 :class:`~lightgbm_tpu_torch.serve.session.PredictSession` and
-:class:`~lightgbm_tpu_torch.serve.batcher.MicroBatcher`. Online training
-(an ``OnlineTrainer`` per entry) comes with the training slice.
+:class:`~lightgbm_tpu_torch.serve.batcher.MicroBatcher`, plus optionally
+an :class:`~lightgbm_tpu_torch.online.trainer.OnlineTrainer` refreshing
+it from ingested traffic (``/ingest/<model_id>``).
 """
 from __future__ import annotations
 
@@ -15,31 +16,41 @@ from typing import Any, Dict, List, Optional
 from .. import obs
 from ..obs import telemetry
 from ..utils.log import LightGBMError
+from .trainer import OnlineTrainer
 
 
 class RegistryEntry:
-    """One served model: booster + session + batcher."""
+    """One served model: booster + session + batcher (+ online trainer)."""
 
-    __slots__ = ("model_id", "booster", "session", "batcher", "created_at")
+    __slots__ = ("model_id", "booster", "session", "batcher", "online",
+                 "created_at")
 
-    def __init__(self, model_id: str, booster, session, batcher) -> None:
+    def __init__(self, model_id: str, booster, session, batcher,
+                 online: Optional[OnlineTrainer] = None) -> None:
         self.model_id = model_id
         self.booster = booster
         self.session = session
         self.batcher = batcher
+        self.online = online
         self.created_at = obs.monotonic()
 
     def info(self) -> Dict[str, Any]:
         """JSON-serializable per-model state (surfaced on /healthz)."""
+        stats = getattr(self.batcher, "tenant_stats", None)
         return {
             "model_version": self.booster.inner.model_version,
             "buckets": list(self.session.buckets),
             "queue_rows": self.batcher.queue_rows(),
-            "tenants": self.batcher.tenant_stats(),
+            # fake batchers in tests may lack the tenant surface
+            "tenants": stats() if callable(stats) else {},
             "age_s": round(obs.monotonic() - self.created_at, 3),
+            "online": self.online.state() if self.online is not None
+            else None,
         }
 
     def close(self) -> None:
+        if self.online is not None:
+            self.online.close()
         self.batcher.close()
 
 
@@ -57,8 +68,13 @@ class ModelRegistry:
                  tenant_quota_rows: int = 0, tenant_weights=None,
                  raw_score: bool = False, warmup: bool = False,
                  dispatch_mode: str = "continuous",
-                 forest: Optional[str] = None) -> RegistryEntry:
-        """Build and register the serving stack for one model."""
+                 forest: Optional[str] = None,
+                 online=None) -> RegistryEntry:
+        """Build and register the serving stack for one model.
+
+        ``online`` is either a ready :class:`OnlineTrainer` or a dict of
+        its keyword arguments (a trainer is built over ``booster``).
+        """
         from ..serve.batcher import MicroBatcher
         from ..serve.session import PredictSession
 
@@ -75,13 +91,26 @@ class ModelRegistry:
                                tenant_quota_rows=tenant_quota_rows,
                                tenant_weights=tenant_weights,
                                dispatch_mode=dispatch_mode)
-        entry = RegistryEntry(model_id, booster, session, batcher)
+        trainer = online
+        try:
+            if isinstance(online, dict):
+                trainer = OnlineTrainer(booster, **online)
+            entry = RegistryEntry(model_id, booster, session, batcher,
+                                  trainer)
+            return self.add_entry(entry)
+        except BaseException:
+            if trainer is not None and trainer is not online:
+                trainer.close()
+            batcher.close()
+            raise
+
+    def add_entry(self, entry: RegistryEntry) -> RegistryEntry:
+        """Register a pre-built entry (tests inject fake sessions)."""
         with self._lock:
-            if model_id in self._entries:
-                batcher.close()
+            if entry.model_id in self._entries:
                 raise LightGBMError("model id %r is already registered"
-                                    % model_id)
-            self._entries[model_id] = entry
+                                    % entry.model_id)
+            self._entries[entry.model_id] = entry
             count = len(self._entries)
         telemetry.gauge("serve/models", count)
         return entry
@@ -120,5 +149,6 @@ class ModelRegistry:
         return {e.model_id: e.info() for e in self.entries()}
 
     def close(self) -> None:
+        """Close every entry (online trainers first, then batchers)."""
         for e in self.entries():
             e.close()

@@ -117,7 +117,9 @@ def forest_pack(trees: List, dataset, num_class: int = 1,
 
     ``dataset`` supplies the bin mappers. Raises ``ValueError`` when a
     split's feature has no inner index in the dataset (BIN-space routing
-    is undefined; the raw oracle path serves those) or when the trees are
+    is undefined; the raw oracle path serves those), when a threshold lies
+    inside one of its bins (BIN routing would differ from the raw
+    thresholds: a model trained on other bins) or when the trees are
     deeper than the kernel's shared memory holds. Returns ``(pack,
     has_cat, has_linear)``.
     """
@@ -133,6 +135,11 @@ def forest_pack(trees: List, dataset, num_class: int = 1,
             raise ValueError(
                 "forest pack: split feature(s) absent from the dataset's "
                 "bin mappers (loaded model?) — BIN-space routing undefined")
+        if not bool(tbl["exact"].all()):
+            raise ValueError(
+                "forest pack: %d threshold(s) inside the dataset's bins (a "
+                "model trained on other bins): BIN routing would differ "
+                "from the raw thresholds" % int((~tbl["exact"]).sum()))
         tables.append(tbl)
     R = max(max((len(a["slot"]) for a in arrs), default=0), 1)
     if R > FOREST_MAX_ROUNDS:

@@ -21,7 +21,9 @@ by CUDA events, which gives each kernel's device time inside a real run
 Under CUDA graph capture (:class:`capture_launches`) a wrapper's launch is
 recorded, not run: its count goes to the capture's tally instead, no
 timing event is recorded, and :func:`add_launches` adds the tally once per
-replay, so the counts stay the launches the card ran.
+replay, so the counts stay the launches the card ran. The tally belongs
+to the capturing thread: other threads (serving beside an online
+trainer's capture) launch and count as usual.
 """
 from __future__ import annotations
 
@@ -139,7 +141,7 @@ class CudaKernel:
         count one launch (into the capture's tally while a graph is being
         captured)."""
         fn = self.load()
-        tally = _CAPTURE[0]
+        tally = getattr(_CAPTURE, "tally", None)
         events = self._events if tally is None else None
         if events is not None:
             import torch
@@ -209,26 +211,27 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-#: the launch tally of the graph being captured, or None
-_CAPTURE: List[Optional[Dict[str, int]]] = [None]
+#: per thread: ``tally``, the launch tally of the graph this thread is
+#: capturing (absent or None outside a capture)
+_CAPTURE = threading.local()
 
 
 class capture_launches:
-    """Context of a CUDA graph capture: the launches the wrappers record
-    inside it are tallied in ``counts`` (symbol -> launches of one replay)
-    and not counted as run."""
+    """Context of a CUDA graph capture on this thread: the launches the
+    wrappers record inside it are tallied in ``counts`` (symbol ->
+    launches of one replay) and not counted as run."""
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}
 
     def __enter__(self) -> "capture_launches":
-        if _CAPTURE[0] is not None:
+        if getattr(_CAPTURE, "tally", None) is not None:
             raise RuntimeError("a graph capture is already in progress")
-        _CAPTURE[0] = self.counts
+        _CAPTURE.tally = self.counts
         return self
 
     def __exit__(self, *exc) -> None:
-        _CAPTURE[0] = None
+        _CAPTURE.tally = None
 
 
 def add_launches(counts: Dict[str, int]) -> None:

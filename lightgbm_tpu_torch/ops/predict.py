@@ -14,6 +14,8 @@ groups chained in tree order).
 :func:`split_bin_table` and :func:`tree_to_bin_log` convert a tree's raw
 thresholds into BIN space once on the host; the forest repack and the
 binned router (``learner.assign_leaves``) both build on them.
+:func:`leaf_indices` routes rows to their leaves over f64 thresholds, as
+the host tree walk does (``Booster.refit``).
 """
 from __future__ import annotations
 
@@ -205,6 +207,25 @@ def predict_raw_impl(X: torch.Tensor, pack: PackedSplits, *,
     return accumulate_scores(vals, pack.tree_class, num_class)
 
 
+def leaf_indices(trees: List, X: torch.Tensor) -> torch.Tensor:
+    """(T, N) int64 leaf index of each of ``X``'s rows in each tree, routed
+    on ``X``'s device over f64 values and f64 thresholds: the decisions of
+    the host walk ``Tree.predict_leaf_index`` (refit's leaf indices)."""
+    pk, has_cat, _ = pack_splits(trees, device=X.device)
+    T, R = pk.slot.shape
+    thr = np.zeros((T, R), np.float64)
+    leaf_of_slot = np.zeros((T, R + 1), np.int64)
+    for ti, t in enumerate(trees):
+        a = t.to_split_arrays()
+        r = len(a["slot"])
+        thr[ti, :r] = a["threshold"]
+        leaf_of_slot[ti, :r + 1] = a["leaf_of_slot"][:r + 1]
+    pk = pk._replace(threshold=torch.as_tensor(thr).to(X.device))
+    slots = _route_trees(X.to(torch.float64), pk, has_cat)
+    return torch.gather(torch.as_tensor(leaf_of_slot).to(X.device), 1,
+                        slots.long())
+
+
 def split_bin_table(a, dataset):
     """Per-split BIN-space routing quantities for one tree's
     ``to_split_arrays`` dict: the single conversion shared by
@@ -214,8 +235,12 @@ def split_bin_table(a, dataset):
     Returns a dict of per-split arrays — ``feature`` (inner index),
     ``tbin`` (threshold bin: go left iff ``bin <= tbin``), ``miss_bin``/
     ``movable`` (missing-bin override), ``valid`` (False where the split
-    feature has no inner index in the dataset) — plus ``cat_bins``
-    mapping categorical split index -> bins routed LEFT."""
+    feature has no inner index in the dataset), ``exact`` (False where a
+    numerical threshold is not the upper bound of its bin ``tbin``: BIN
+    routing then sends that bin's rows above the threshold left, so it
+    differs from the raw thresholds; a model trained on other bins, such
+    as an online continue-mode candidate) — plus ``cat_bins`` mapping
+    categorical split index -> bins routed LEFT."""
     from .binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
 
     r = len(a["slot"])
@@ -224,6 +249,7 @@ def split_bin_table(a, dataset):
     miss_bin = np.zeros(r, np.int32)
     movable = np.zeros(r, bool)
     valid = np.ones(r, bool)
+    exact = np.ones(r, bool)
     cat_bins = {}
     for i in range(r):
         inner = dataset.inner_feature_index(int(a["feature"][i]))
@@ -241,12 +267,14 @@ def split_bin_table(a, dataset):
                                      side="left"))
             tb = min(tb, m.num_bins - 1)
             tbin[i] = tb
+            exact[i] = m.upper_bounds[tb] == float(a["threshold"][i])
             if m.missing_type in (MISSING_ZERO, MISSING_NAN) \
                     and m.bin_type != BIN_CATEGORICAL:
                 miss_bin[i] = m.missing_bin
                 movable[i] = True
     return dict(feature=feature, tbin=tbin, miss_bin=miss_bin,
-                movable=movable, valid=valid, cat_bins=cat_bins)
+                movable=movable, valid=valid, exact=exact,
+                cat_bins=cat_bins)
 
 
 def tree_to_bin_log(tree, dataset, device: torch.device = torch.device("cpu")):

@@ -6,18 +6,24 @@ routes of ``lightgbm_tpu/serve/http.py``).
                                    "model_version": v}
     POST /predict/<model_id>   same, routed to one registry entry
                                (also: {"model": "<id>"} in the body)
-    GET  /healthz              liveness + per-model version/queue state
+    POST /ingest[/<model_id>]  {"rows": [[...]], "labels": [...]} ->
+                               {"buffered_rows": b, "rows": n}: labeled
+                               traffic for the model's OnlineTrainer
+                               (409 when online training is off for it)
+    GET  /healthz              liveness + per-model version/queue/online
+                               state
     GET  /models               registered model ids
 
 The server fronts a :class:`~lightgbm_tpu_torch.online.registry.ModelRegistry`;
-the single-model constructor registers its booster under ``"default"``.
+the single-model constructor registers its booster under ``"default"``
+(``online=``: an OnlineTrainer or its keyword arguments).
 An over-limit submit under the shed policy answers **429**; during
 :meth:`PredictServer.begin_shutdown` new requests get **503** while queued
 work drains. ``ThreadingHTTPServer`` gives one handler thread per
 connection, so concurrent POSTs land in the MicroBatcher together and
-coalesce into one device dispatch. The JAX package's ``/ingest``,
-``/fleet/*``, ``/metrics`` and ``/telemetry`` routes come with later
-slices.
+coalesce into one device dispatch. The JAX package's ``/fleet/*`` routes
+and ingest forwarding (queue A item 8), ``/metrics`` and ``/telemetry``
+(item 10) come with later slices.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ class PredictServer:
                  request_timeout_s: float = 30.0,
                  max_queue_rows: int = 0, overload: str = "shed",
                  tenant_quota_rows: int = 0, tenant_weights=None,
-                 dispatch_mode: str = "continuous", forest=None) -> None:
+                 dispatch_mode: str = "continuous", forest=None,
+                 online=None) -> None:
         from ..online.registry import ModelRegistry
 
         if registry is None:
@@ -66,10 +73,11 @@ class PredictServer:
                               tenant_weights=tenant_weights,
                               raw_score=raw_score,
                               dispatch_mode=dispatch_mode, forest=forest,
-                              warmup=warmup)
-        elif model is not None:
+                              warmup=warmup, online=online)
+        elif model is not None or online is not None:
             raise LightGBMError(
-                "pass either a model or a pre-built registry, not both")
+                "pass either model/online or a pre-built registry, "
+                "not both")
         self.registry = registry
         self.request_timeout_s = float(request_timeout_s)
         self._started_at = obs.monotonic()
@@ -111,7 +119,8 @@ class PredictServer:
                     self._json(503, {"error": "server is draining"})
                     return
                 seg = [s for s in self.path.split("/") if s]
-                if not seg or seg[0] != "predict" or len(seg) > 2 \
+                route = seg[0] if seg else ""
+                if route not in ("predict", "ingest") or len(seg) > 2 \
                         or not isinstance(payload, dict):
                     self._json(404, {"error": "unknown path %s" % self.path})
                     return
@@ -121,7 +130,26 @@ class PredictServer:
                 except KeyError as exc:
                     self._json(404, {"error": str(exc)})
                     return
-                self._predict(entry, payload)
+                if route == "predict":
+                    self._predict(entry, payload)
+                else:
+                    self._ingest(entry, payload)
+
+            def _ingest(self, entry, payload) -> None:
+                if entry.online is None:
+                    self._json(409, {"error": "online training is not "
+                                     "enabled for model %r"
+                                     % entry.model_id})
+                    return
+                try:
+                    rows = np.asarray(payload["rows"], np.float64)
+                    labels = np.asarray(payload["labels"], np.float64)
+                    buffered = entry.online.ingest(rows, labels)
+                    self._json(200, {"buffered_rows": int(buffered),
+                                     "rows": int(len(labels.ravel()))})
+                except Exception as exc:
+                    self._json(400, {"error": "%s: %s"
+                                     % (type(exc).__name__, exc)})
 
             def _predict(self, entry, payload) -> None:
                 try:
@@ -148,6 +176,11 @@ class PredictServer:
         self.httpd = ThreadingHTTPServer((host, int(port)), Handler)
 
     @property
+    def online(self):
+        """Default entry's OnlineTrainer (None when online is off)."""
+        return self.registry.get().online
+
+    @property
     def address(self):
         """(host, port) actually bound — resolves port=0."""
         return self.httpd.server_address[:2]
@@ -158,7 +191,9 @@ class PredictServer:
 
     def healthz(self) -> dict:
         """The /healthz document: model versions, registry size, queue
-        depth, per-tenant queues, uptime, the serving device."""
+        depth, per-tenant queues, uptime, the online trainer's state per
+        model (with its last promotion and rollback times hoisted into
+        ``promotions``), the serving device."""
         models = self.registry.info()
         doc = {
             "status": "draining" if self.draining() else "ok",
@@ -168,6 +203,12 @@ class PredictServer:
             "queue_rows": sum(m["queue_rows"] for m in models.values()),
             "requests": telemetry.counter("serve/requests"),
         }
+        promotions = {
+            mid: {"last_promotion_ts": m["online"]["last_promotion_ts"],
+                  "last_rollback_ts": m["online"]["last_rollback_ts"]}
+            for mid, m in models.items() if m.get("online")}
+        if promotions:
+            doc["promotions"] = promotions
         try:
             default = self.registry.get()
             doc["model_version"] = default.booster.inner.model_version

@@ -168,6 +168,22 @@ class PredictSession:
             bins[:, j] = ds.bin_mappers[j].value_to_bin(Xr[:, j])
         return bins, Xr
 
+    def pack_fingerprint(self) -> str:
+        """sha256 over every tensor of the resident plain-path pack: after
+        a REJECTED online candidate the serving pack must be
+        byte-identical, after a promotion it must differ. Reads the pack
+        back to the host: not for the hot path."""
+        import hashlib
+
+        pack, _, _ = self._ensure_pack()
+        h = hashlib.sha256()
+        for t in pack:
+            arr = t.cpu().numpy()
+            h.update(str(arr.dtype).encode())
+            h.update(str(arr.shape).encode())
+            h.update(arr.tobytes())
+        return h.hexdigest()
+
     # -------------------------------------------------------------- dispatch
     def dispatch(self, X) -> List[Tuple[torch.Tensor, int]]:
         """Bucketed device dispatch; returns [(device scores, real rows)].

@@ -1,11 +1,13 @@
 """The port's command line (``lightgbm_tpu_torch.cli``, ``python -m
 lightgbm_tpu_torch``) on the host: ``task=train`` from a CSV gives the
 model of the in-memory ``train`` on the same rows byte for byte and the
-JAX CLI's trees; ``task=predict`` agrees with the JAX CLI on one model
-file; ``save_binary`` round-trips; the two-round loader, valid sets and
-``input_model`` train through it; every setting the port cannot honour
-raises, naming its ROADMAP item; and the module runs as a subprocess,
-``task=serve`` included, which drains on SIGTERM."""
+JAX CLI's trees; ``task=predict`` (``predict_contrib`` too),
+``task=convert_model`` and ``task=refit`` agree with the JAX CLI on one
+model file; ``save_binary`` round-trips; the two-round loader, valid sets
+and ``input_model`` train through it; ``task=serve online_train=true``
+answers ``/ingest``; every setting the port cannot honour raises, naming
+its ROADMAP item; and the module runs as a subprocess, ``task=serve``
+included, which drains on SIGTERM (with online training too)."""
 import json
 import os
 import queue
@@ -13,12 +15,14 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
 import pytest
 
-from torch_port_cases import (ATOL, CPU, REPO, RTOL, assert_same_trees,
+from torch_port_cases import (ATOL, CPU, REFIT_ATOL, REFIT_RTOL, REPO,
+                              RTOL, assert_same_trees,
                               one_torch_thread, torch_threads)
 
 import lightgbm_tpu as lgb
@@ -183,11 +187,6 @@ def test_parse_args_config_first_command_line_wins(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=convert_model", "input_model=m.txt"], "queue A item 7"),
-    (["task=refit", "input_model=m.txt"], "queue A item 7"),
-    (["task=predict", "input_model=m.txt", "predict_contrib=true"],
-     "queue A item 7"),
-    (["task=serve", "input_model=m.txt", "online_train=true"], "A12"),
     (["task=serve", "fleet_dir=store"], "A12"),
     (["task=serve", "fleet_role=replica", "fleet_url=http://localhost:1"],
      "A12"),
@@ -201,6 +200,102 @@ def test_refused_settings_name_their_item(files, port_model, args, item):
     with pytest.raises(LightGBMError, match="ROADMAP .*%s" % item):
         cli.main(args + ["data=%s" % files["train"], "device_type=cpu",
                          "verbosity=-1"])
+
+
+def test_convert_model_writes_the_jax_cpp(files, port_model, tmp_path):
+    """task=convert_model: the C++ source of the JAX CLI, byte for byte
+    (and the JSON dump for convert_model_language=json)."""
+    for lang in ("cpp", "json"):
+        out = {}
+        for pkg, run in (("port", lambda a: cli.main(a + _args(CPU))),
+                         ("jax", lambda a: jax_cli.Application(
+                             jax_cli.parse_args(a)).run())):
+            path = tmp_path / ("%s.%s" % (pkg, lang))
+            run(_args(dict(task="convert_model", input_model=port_model,
+                           convert_model=str(path),
+                           convert_model_language=lang, verbosity=-1)))
+            out[pkg] = path.read_text()
+        assert out["port"] == out["jax"] and len(out["port"]) > 1000, lang
+
+
+def test_refit_writes_the_jax_refit(files, port_model, tmp_path):
+    """task=refit on valid.csv: the refit model's leaves within refit's
+    tolerance of the JAX CLI's (torch_port_cases.REFIT_RTOL / _ATOL)."""
+    models = {}
+    for pkg, run in (("port", lambda a: cli.main(a + _args(CPU))),
+                     ("jax", lambda a: jax_cli.Application(
+                         jax_cli.parse_args(a)).run())):
+        path = tmp_path / ("refit_%s.txt" % pkg)
+        run(_args(dict(task="refit", data=files["valid"],
+                       input_model=port_model, output_model=str(path),
+                       refit_decay_rate=0.7, verbosity=-1)))
+        models[pkg] = lgt.Booster(CPU, model_file=str(path)).inner.models
+    before = lgt.Booster(CPU, model_file=port_model).inner.models
+    assert len(models["port"]) == len(before) == 5
+    for a, b, c in zip(models["jax"], models["port"], before):
+        np.testing.assert_array_equal(b.split_feature, c.split_feature)
+        assert not np.array_equal(b.leaf_value, c.leaf_value)
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value,
+                                   rtol=REFIT_RTOL, atol=REFIT_ATOL)
+
+
+def test_predict_contrib_writes_the_jax_numbers(files, port_model,
+                                                tmp_path):
+    outs = {}
+    for pkg, run in (("port", lambda a: cli.main(a + _args(CPU))),
+                     ("jax", lambda a: jax_cli.Application(
+                         jax_cli.parse_args(a)).run())):
+        out = tmp_path / ("contrib_%s.txt" % pkg)
+        run(_args(dict(task="predict", data=files["valid"],
+                       input_model=port_model, output_result=str(out),
+                       predict_contrib="true", verbosity=-1)))
+        outs[pkg] = out.read_text()
+    assert outs["port"] == outs["jax"]
+    got = np.loadtxt(tmp_path / "contrib_port.txt", ndmin=2)
+    assert got.shape == (len(files["yv"]), 9)
+
+
+def test_serve_online_train_answers_ingest(files, port_model):
+    """task=serve online_train=true: /ingest feeds the model's trainer,
+    whose worker refits and promotes; /healthz shows it."""
+    app = cli.Application(cli.parse_args(_args(dict(
+        task="serve", input_model=port_model, serve_port=0,
+        serve_warmup="false", online_train="true",
+        online_trigger_rows=256, online_min_rows=64,
+        online_shadow_rows=512, verbosity=-1, **CPU))))
+    server = app.make_server()
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = "http://%s:%d" % server.address
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path,
+                                     data=json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        X = np.nan_to_num(files["X"], nan=0.0)
+        out = post("/ingest", {"rows": X[:300].tolist(),
+                               "labels": files["y"][:300].tolist()})
+        assert out == {"buffered_rows": 300, "rows": 300}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            st = json.loads(urllib.request.urlopen(
+                base + "/healthz", timeout=60).read())
+            st = st["models"]["default"]["online"]
+            if st["trains"] >= 1 and st["last_result"] != "idle":
+                break
+            time.sleep(0.05)
+        assert st["mode"] == "refit" and st["errors"] == 0, st
+        assert st["promotions"] + st["rejections"] == 1, st
+        assert len(post("/predict", {"rows": X[:4].tolist()})
+                   ["predictions"]) == 4
+    finally:
+        server.shutdown()
+        th.join(timeout=30)
+        server.close()
 
 
 def test_ranking_loads_groups_and_refuses_to_train(tmp_path):
@@ -253,31 +348,41 @@ def test_no_arguments_prints_the_usage(capsys):
     assert "python -m lightgbm_tpu_torch config=" in capsys.readouterr().out
 
 
-def test_module_serves_and_drains_on_sigterm(files, port_model, tmp_path):
+def _serve_drains_on_sigterm(files, port_model, tmp_path, extra=()):
+    """``python -m lightgbm_tpu_torch task=serve``: answer one /predict
+    (and whatever ``extra``'s settings add, through the returned url's
+    callback), then drain on SIGTERM and exit 0."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
          "input_model=%s" % port_model, "serve_port=0", "device_type=cpu",
-         "serve_warmup=false"], cwd=str(tmp_path), env=_env(),
+         "serve_warmup=false", *extra], cwd=str(tmp_path), env=_env(),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     lines: "queue.Queue[str]" = queue.Queue()
     reader = threading.Thread(target=lambda: [lines.put(ln) for ln in
                                               proc.stderr], daemon=True)
     reader.start()
+
+    def post(url, obj):
+        req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
     try:
         url = None
         while url is None:
             line = lines.get(timeout=120)
             if "Serving " in line:
                 url = line.split(" on ", 1)[1].split()[0]
-        rows = files["Xv"][:5]
-        body = json.dumps({"rows": np.nan_to_num(rows, nan=0.0).tolist()})
-        req = urllib.request.Request(url + "/predict", data=body.encode(),
-                                     method="POST")
-        with urllib.request.urlopen(req, timeout=60) as resp:
-            got = json.loads(resp.read())["predictions"]
-        want = lgt.Booster(CPU, model_file=port_model).predict(
-            np.nan_to_num(rows, nan=0.0))
+        rows = np.nan_to_num(files["Xv"][:5], nan=0.0)
+        got = post(url + "/predict", {"rows": rows.tolist()})["predictions"]
+        want = lgt.Booster(CPU, model_file=port_model).predict(rows)
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        ingest = None
+        if "online_train=true" in extra:
+            ingest = post(url + "/ingest", {"rows": rows.tolist(),
+                                            "labels": files["yv"][:5]
+                                            .tolist()})
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
         reader.join(timeout=30)
@@ -285,10 +390,25 @@ def test_module_serves_and_drains_on_sigterm(files, port_model, tmp_path):
         while not lines.empty():
             rest.append(lines.get_nowait())
         assert any("drained and closed" in ln for ln in rest), rest
+        return ingest
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def test_module_serves_and_drains_on_sigterm(files, port_model, tmp_path):
+    _serve_drains_on_sigterm(files, port_model, tmp_path)
+
+
+def test_module_serves_online_and_drains_on_sigterm(files, port_model,
+                                                    tmp_path):
+    """The same with online_train=true: /ingest buffers the rows, and
+    SIGTERM stops the trainer's worker with the server."""
+    ingest = _serve_drains_on_sigterm(
+        files, port_model, tmp_path,
+        extra=("online_train=true", "online_trigger_rows=1000"))
+    assert ingest == {"buffered_rows": 5, "rows": 5}
 
 
 def test_chip_smoke_file_phase_on_cpu(monkeypatch):

@@ -46,7 +46,9 @@ def test_every_port_module_is_listed():
                 "learner", "boosting", "basic", "convert", "engine",
                 "callback", "metric", "prng", "fused",
                 "serve.session", "serve.batcher", "serve.http",
-                "online.registry", "linear.pack", "tree", "dataset",
+                "online.registry", "online.buffer", "online.trainer",
+                "shap", "sklearn", "plotting", "linear.pack", "tree",
+                "dataset",
                 "config", "objective", "obs", "utils.log",
                 "io", "io_native", "cli", "__main__"):
         assert "lightgbm_tpu_torch." + mod in names, mod
