@@ -19,12 +19,15 @@
     python3 chip_smoke.py --api-online-only    # phase 3k: cv, sklearn,
                                                # refit, SHAP, convert,
                                                # online training
+    python3 chip_smoke.py --fleet-only    # phase 3l: the raw walk, a
+                                          # trainer and two replicas,
+                                          # failover, compaction
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Eighteen phases, each fatal on failure:
+the checkout it sits in. Nineteen phases, each fatal on failure:
 
 1. build     -- compile the hand-written kernels (``csrc/*.cu``: fifteen
-                sources, twenty-two entry points), one nvcc per source,
+                sources, twenty-three entry points), one nvcc per source,
                 started together; then the two host libraries
                 (``native/parser.cpp``, ``native/binning.cpp``) with g++.
 2. kernels   -- hold each kernel against its plain torch twin on the card:
@@ -108,7 +111,7 @@ the checkout it sits in. Eighteen phases, each fatal on failure:
                 split commit and the router launched), ``task=predict``
                 (scores against the trained booster's ``predict``, which
                 launches the forest kernel; a model read from its file
-                has no bin mappers and takes the plain device predict),
+                has no bin mappers and launches the raw-threshold walk),
                 ``task=save_binary`` and
                 ``task=train`` from the ``.bin`` (the same model), and one
                 ``python -m lightgbm_tpu_torch config=...`` subprocess
@@ -304,6 +307,42 @@ the checkout it sits in. Eighteen phases, each fatal on failure:
                 equal to one published version's prediction, no failure,
                 a gate verdict. Launch counts zeroed before each part and
                 read after (alone: ``--api-online-only``).
+3l. fleet    -- a model of ``--trees`` trees x 255 leaves on phase 3's
+                rows, served by a fleet on the card. (a) The raw-threshold
+                walk (``csrc/forest_predict.cu``'s ``forest_raw``) against
+                its twin
+                ``predict_raw_impl`` on the card: every RAW_EDGE_CASES pack
+                (each missing type at its edges, categorical sets, 3
+                classes, linear + NaN, a 254-round chain, a chain one
+                round deeper than the forest kernel's shared memory holds
+                (tables read from device memory), no splits, padded
+                rounds and trees, 1000 columns read from device memory),
+                the model read back from its text at 1, 64, 4096
+                and 65,536 rows, and 3e's categorical, a 3g multiclass and
+                a 3j linear model: bit-equal, linear leaves within
+                SCORE_ATOL + SCORE_RTOL |b|; timed at 65,536 rows. (b) A
+                trainer (PredictServer, continue-mode OnlineTrainer over a
+                FleetStore, leased, seeded by a boot publish), a
+                ReplicaWatcher replica in this process and a ``python -m
+                lightgbm_tpu_torch task=serve fleet_role=replica
+                fleet_url=<trainer>`` replica process: 4 /predict threads
+                on the replicas, 8 x 1,024 labeled rows to /ingest (one
+                chunk through a replica, forwarded): every answer equals
+                one published version's scores (|diff| 0 against the twin
+                on its text), each replica moves one version a publish,
+                every dispatch either replica made in the window launched
+                the raw walk (the in-process replica's counted on its
+                dispatching threads, the process's from its /healthz
+                before and after) and no call on the card in this
+                process reaches the twin; /predict p50 / p99 before, during and
+                after the promotion. Launch counts zeroed before (b) and
+                read after. (c) Failover: the standby takes a closed
+                primary's unreleased lease within two ttl with its
+                watermark, win streak and buffer; the fenced primary's
+                publish raises StaleLeaseError and reaches no replica. (d)
+                Snapshot compaction: a cold boot from snapshot + tail
+                holds the full replay's buffer (sha256) (alone:
+                ``--fleet-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -2979,12 +3018,12 @@ def phase_resident_train(dev, data, trees, leaves, one_kernel, host_rows):
     if a != b:
         raise AssertionError("resident one-kernel training grew another "
                              "model than planes one-kernel training")
-    # the slice-1 path serves it: the forest kernel against the plain path
+    # the slice-1 path serves it: the forest kernel against the plain twin
     from lightgbm_tpu_torch.serve import PredictSession
     Xq = data[2][:4096]
     summary["serve_err"] = check_scores(
         "serve/resident", PredictSession(bst).predict(Xq),
-        PredictSession(bst, forest="off").predict(Xq))
+        TwinPredict(bst).predict(Xq))
     check_determinism(dev, ds[0], leaves, extra=RESIDENT_PARAMS)
     if dev.type == "cuda":
         summary["profile"] = profile_iteration(dev, ds[0], leaves,
@@ -4385,13 +4424,45 @@ def phase_serve(bst, train, rng, binned_rows):
     return out, counts
 
 
+class TwinPredict:
+    """Predictions of ``bst`` by the plain twin on its device: the raw
+    rows through ``ops/predict.predict_raw_impl`` over the booster's pack
+    (plain torch, no kernel), then the session's output transform."""
+
+    def __init__(self, bst):
+        from lightgbm_tpu_torch.serve import PredictSession
+
+        g = bst.inner
+        self.session = PredictSession(bst, forest="off")
+        self.pack, self.has_cat, self.has_linear, _ = g._packed_model(
+            0, len(g.models) // g.num_tree_per_iteration)
+        self.K = g.num_tree_per_iteration
+
+    def predict(self, X, chunk=65536):
+        import numpy as np
+        import torch
+        from lightgbm_tpu_torch.ops.predict import predict_raw_impl
+
+        X = np.ascontiguousarray(X, np.float32)
+        raw = []
+        for lo in range(0, len(X), chunk):
+            x = torch.from_numpy(X[lo:lo + chunk]).to(self.session.device)
+            s = predict_raw_impl(x, self.pack, num_class=self.K,
+                                 has_cat=self.has_cat,
+                                 has_linear=self.has_linear)
+            raw.append(s.to("cpu", torch.float64).numpy()
+                       .reshape(len(x), -1))
+        return self.session.finalize(np.concatenate(raw))
+
+
 def check_serve(bst, out):
-    """Every main-path answer against the plain path (raw thresholds,
-    plain torch on the card) and a small input against the host walk."""
+    """Every main-path answer against the plain twin on the card
+    (TwinPredict: raw thresholds, plain torch) and a small input against
+    the host walk."""
     import numpy as np
     from lightgbm_tpu_torch.serve import PredictSession
 
-    plain = PredictSession(bst, forest="off")
+    plain = TwinPredict(bst)
     errs = {}
     for n, X in out["reqs"].items():
         errs["session/%d" % n] = check_scores(
@@ -7389,8 +7460,9 @@ def phase_file(dev, data, leaves, card):
             raise AssertionError("the CLI model differs from train's on "
                                  "the same arrays")
         # the trained booster has bin mappers, so it predicts through the
-        # forest kernel; a model read from its file has none and takes the
-        # plain device predict, in both packages (boosting._forest_model)
+        # forest kernel; a model read from its file has none and predicts
+        # over raw thresholds, in both packages (boosting._forest_model):
+        # here through the raw-threshold walk
         sync(dev)
         kernels.reset_launch_counts()
         ref = bst.predict(Xfv)
@@ -7403,7 +7475,7 @@ def phase_file(dev, data, leaves, card):
         summary["cli_predict_s"], _ = run_cli(
             ["task=predict", "data=" + valid_csv, "input_model=" + model,
              "output_result=" + pred, "device_type=" + dev.type,
-             "verbosity=-1"])
+             "verbosity=-1"], expect=("forest_raw",))
         summary["predict_max_abs_err"] = check_scores(
             "cli predict", np.loadtxt(pred), ref)
         summary["cli_save_binary_s"], _ = run_cli(
@@ -7776,7 +7848,7 @@ def api_serve_online(dev, bst, data, seed):
                      % (k, lat[k]["n"], lat[k]["p50"], lat[k]["p99"])
                      for k in parts),
            "on the forest kernel" if forest_after else
-           "ineligible for the forest kernel (the torch walk serves it)",
+           "ineligible for the forest kernel (the raw walk serves it)",
            nonzero(counts["idle"]), nonzero(counts["after_continue"])))
     return summary, counts
 
@@ -8010,6 +8082,916 @@ def phase_api_online(dev, data, card, leaves=255, host_rows=200_000,
     return summary, counts
 
 
+
+# -------------------------------------------------------------- fleet phase
+
+#: the raw-threshold walk's edge packs (raw_edge_pack) and their row counts
+RAW_EDGE_CASES = ("numerical", "zero_missing", "nan_missing",
+                  "mixed_missing", "categorical", "multiclass3",
+                  "linear_nan", "chain254", "deep", "no_splits",
+                  "padded_rounds", "padded_trees", "wide")
+RAW_EDGE_ROWS = (1, 255, 257, 4097)
+#: the wide pack's columns: a pass's rows no longer fit beside the tables,
+#: so its walks read the rows from device memory
+RAW_WIDE_F = 1000
+#: phase 3l (a): the HIGGS-shaped model's trees (the script's --trees), the
+#: row counts the raw walk is held to its twin at, and the rows a model of
+#: another kind (categorical, multiclass, linear) is checked on
+RAW_ROWS = (1, 64, 4096, 65536)
+RAW_KIND_ROWS = 4096
+#: phase 3l (b): the fleet's traffic: /predict threads (half on each
+#: replica), rows a request, the pause between requests, labeled chunks to
+#: the trainer's /ingest (one of them through a replica, forwarded), and
+#: the windows of /predict traffic before the first /ingest and after both
+#: replicas adopted the promotion
+FLEET_PREDICT_THREADS = 4
+FLEET_PREDICT_ROWS = 64
+FLEET_PREDICT_PAUSE_S = 0.01
+FLEET_INGEST_POSTS = 8
+FLEET_INGEST_ROWS = 1024
+FLEET_LATENCY_WINDOW_S = 2.0
+FLEET_CONTINUE_ROUNDS = 2
+#: the replicas' poll interval and the serving trainer's lease ttl; the
+#: failover drill's ttl (c), within two of which the standby must take over
+FLEET_POLL_S = 0.1
+FLEET_SERVE_TTL_S = 5.0
+FLEET_TTL_S = 1.0
+#: the failover drill's labeled chunks (c, d)
+FLEET_DRILL_ROWS = 512
+#: the gate threshold of the fleet's trainers: wide open, so the continue
+#: cycle promotes (the phase tests distribution, not the gate's judgment)
+FLEET_PROMOTE_THRESHOLD = 2.0
+
+
+def raw_edge_pack(name, rng, n, dev, F=7):
+    """A seeded PackedSplits that stresses one edge of the raw-threshold
+    walk, with (n, F) f32 raw rows. Returns (pack, X, predict kwargs). The
+    rows mix values equal to a threshold (the <= edge), values between
+    them, +0 and -0, the Zero missing type's 1e-35 edge and its
+    neighbours, NaN and +-inf. Cases: one missing type for every round
+    (none, Zero, NaN) or a mix; categorical rounds on three columns of
+    integers, -1, non-integers, NaN and +-inf; 3 classes over 40 trees;
+    linear leaves with NaN raw values; a 254-round chain (round r splits
+    slot r; rows go right but at every 32nd round) and a deep one, one
+    round past FOREST_MAX_ROUNDS (the walk reads its tables from device
+    memory); num_splits 0 (half the trees); padded rounds (num_splits
+    below R, junk after); 11 trees (the walk pads them to 16); RAW_WIDE_F
+    columns at 254 rounds."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.predict import PackedSplits
+
+    from lightgbm_tpu_torch.ops.forest import FOREST_MAX_ROUNDS
+
+    T, R, K, Km, Kc = 16, 62, 1, 1, 1
+    if name in ("chain254", "wide"):
+        R = 254
+    if name == "deep":
+        R = FOREST_MAX_ROUNDS + 1
+    if name == "wide":
+        F = RAW_WIDE_F
+    if name == "multiclass3":
+        T, K = 40, 3
+    if name == "padded_trees":
+        T = 11
+    if name == "linear_nan":
+        Km = 3
+    if name == "categorical":
+        Kc = 6
+    L = R + 1
+    slot = np.array([[rng.randint(0, r + 1) for r in range(R)]
+                     for _ in range(T)], np.int32)
+    feature = rng.randint(0, F, (T, R)).astype(np.int64)
+    grid = (np.round(rng.normal(0.0, 1.0, 64) * 64) / 64).astype(np.float32)
+    threshold = rng.choice(grid, (T, R)).astype(np.float32)
+    kind = np.zeros((T, R), np.int32)
+    default_left = rng.rand(T, R) < 0.5
+    missing_type = np.zeros((T, R), np.int32)
+    ns = np.full(T, R, np.int32)
+    cat_values = np.full((T, R, Kc), -2, np.int32)
+    X = rng.choice(grid, (n, F)).astype(np.float32)
+    between = rng.rand(n, F) < 0.3
+    X[between] = rng.normal(0.0, 1.0, int(between.sum()))
+    k0 = np.float32(1e-35)
+    up, down = np.nextafter(k0, np.float32(1)), np.nextafter(k0, np.float32(0))
+    edges = np.array([0.0, -0.0, k0, -k0, up, -up, down, -down, np.nan,
+                      np.inf, -np.inf], np.float32)
+    at_edge = rng.rand(n, F) < 0.25
+    X[at_edge] = rng.choice(edges, int(at_edge.sum()))
+    if name == "zero_missing":
+        missing_type[:] = 1
+    elif name == "nan_missing":
+        missing_type[:] = 2
+    elif name in ("mixed_missing", "multiclass3", "linear_nan", "wide"):
+        missing_type[:] = rng.randint(0, 3, (T, R))
+    elif name in ("chain254", "deep"):
+        slot[:] = np.arange(R)
+        threshold[:] = np.where(np.arange(R) % 32 == 31, 0.0, -1e30)
+    elif name == "no_splits":
+        ns[::2] = 0
+    elif name == "padded_rounds":
+        ns[:] = rng.randint(1, R, T)
+        pad = np.arange(R)[None, :] >= ns[:, None]
+        slot[pad], feature[pad], threshold[pad] = 0, 1, 1e30
+    elif name == "categorical":
+        missing_type[:] = rng.randint(0, 3, (T, R))
+        kind[:] = rng.rand(T, R) < 0.3
+        feature[kind == 1] = rng.randint(0, 3, int(kind.sum()))
+        for t, r in zip(*np.nonzero(kind)):
+            k = rng.randint(0, Kc + 1)
+            cat_values[t, r, :k] = rng.choice(8, k, replace=False)
+        cats = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, -1, 2.5, -0.5, 7.99,
+                         np.nan, np.inf, -np.inf], np.float32)
+        X[:, :3] = rng.choice(cats, (n, 3))
+    value = rng.normal(0.0, 0.05, (T, L)).astype(np.float32)
+    const = np.zeros((T, L), np.float32)
+    coeff = np.zeros((T, L, Km), np.float32)
+    coeff_feat = np.zeros((T, L, Km), np.int64)
+    coeff_mask = np.zeros((T, L, Km), bool)
+    if name == "linear_nan":
+        const[:] = rng.normal(0.0, 0.05, (T, L))
+        coeff[:] = rng.normal(0.0, 0.05, (T, L, Km))
+        coeff_feat[:] = rng.randint(0, F, (T, L, Km))
+        coeff_mask[:] = rng.rand(T, L, Km) < 0.7
+        X[~np.isfinite(X) & ~np.isnan(X)] = 0.0   # +-inf: no linear output
+
+    def dev_t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev,
+                                                            dtype=dtype)
+
+    pk = PackedSplits(
+        slot=dev_t(slot, torch.int32), feature=dev_t(feature, torch.int64),
+        threshold=dev_t(threshold, torch.float32),
+        kind=dev_t(kind, torch.int32),
+        default_left=dev_t(default_left, torch.bool),
+        missing_type=dev_t(missing_type, torch.int32),
+        num_splits=dev_t(ns, torch.int32),
+        value_of_slot=dev_t(value, torch.float32),
+        tree_class=dev_t(np.arange(T) % K, torch.int32),
+        cat_values=dev_t(cat_values, torch.int32),
+        const_of_slot=dev_t(const, torch.float32),
+        coeff=dev_t(coeff, torch.float32),
+        coeff_feat=dev_t(coeff_feat, torch.int64),
+        coeff_mask=dev_t(coeff_mask, torch.bool))
+    kw = dict(num_class=K, has_cat=name == "categorical",
+              has_linear=name == "linear_nan")
+    return pk, torch.from_numpy(X).to(dev), kw
+
+
+def phase_raw_kernels(dev, rng):
+    """The raw-threshold walk against its twin (``predict_raw_impl``) on
+    every RAW_EDGE_CASES pack at RAW_EDGE_ROWS rows (each launch with the
+    pack's raw_walk): bit-equal without linear leaves, else within
+    SCORE_ATOL + SCORE_RTOL * |b|. Only the wide pack's plan reads the
+    rows from device memory, only the deep pack's its tables. On the host
+    both sides are the twin (a rehearsal of the phase)."""
+    from lightgbm_tpu_torch.ops.forest import forest_plan, raw_walk
+    from lightgbm_tpu_torch.ops.predict import predict_raw, predict_raw_impl
+    errs = {}
+    for name in RAW_EDGE_CASES:
+        pk, X, kw = raw_edge_pack(name, rng, max(RAW_EDGE_ROWS), dev)
+        rw = raw_walk(pk)
+        R, T, _ = rw.nodes.shape
+        plan = forest_plan(1, T, R, 1, X.shape[1], kw["num_class"],
+                           raw=True)
+        if plan.staged == (name == "wide") \
+                or plan.tables == (name == "deep"):
+            raise AssertionError("raw_edge/%s: plan %s" % (name, plan))
+        for n in RAW_EDGE_ROWS:
+            got = predict_raw(X[:n], pk, walk=rw, **kw)
+            want = predict_raw_impl(X[:n], pk, **kw)
+            sync(dev)
+            key = "raw_edge/%s/%d" % (name, n)
+            errs[key] = (check_scores if kw["has_linear"] else check_bits)(
+                key, got.cpu().numpy(), want.cpu().numpy())
+    return errs
+
+
+def raw_walk_steps(trees, pack, X, has_cat):
+    """Links the raw walk follows for the rows ``X`` through ``trees``
+    (packed as ``pack``): the depth of each row's leaf, summed over rows
+    and trees."""
+    import torch
+    from lightgbm_tpu_torch.ops.predict import _route_trees
+
+    slots = _route_trees(X.to(torch.float32), pack, has_cat).long()
+    steps = 0
+    for t, tree in enumerate(trees):
+        leaf_of_slot = tree.to_split_arrays()["leaf_of_slot"]
+        depth = torch.as_tensor(tree.leaf_depths()[leaf_of_slot])
+        steps += int(depth.to(X.device)[slots[t]].sum())
+    return steps
+
+
+def raw_bound(pack, walk, X, steps, num_class=1, has_cat=False,
+              has_linear=False):
+    """(bytes, operations) one raw walk call must move and do: the (n, F)
+    f32 rows read once, the tables it reads for this pack (walk entries,
+    first rounds, leaf values and classes; the category sets and linear
+    tables only where used) read once, the (n, K) f32 scores written once;
+    two operations a walk step and one a (row, tree)."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    n = X.shape[0]
+    b = nbytes(X, walk.nodes, walk.first, walk.value_of_slot,
+               walk.tree_class) + n * max(1, num_class) * 4
+    if has_cat:
+        b += nbytes(walk.cat_values)
+    if has_linear:
+        b += nbytes(walk.const_of_slot, walk.coeff, walk.coeff_feat,
+                    walk.coeff_mask)
+    return b, 2 * steps + walk.nodes.shape[1] * n
+
+
+def fleet_kind_models(dev, seed, rows=(MIXED_ROWS, OBJECTIVE_ROWS,
+                                        LINEAR_HOST_ROWS)):
+    """Models of the kinds the HIGGS model lacks, each read back from its
+    text (no bin mappers: the raw walk serves it): phase 3e's categorical
+    and EFB model (MIXED_ROWS rows, MIXED_TREES trees, 63 leaves), a 3g
+    multiclass model (3 classes, OBJECTIVE_ROWS rows, OBJECTIVE_TREES
+    iterations, OBJECTIVE_LEAVES leaves) and a 3j linear model
+    (LINEAR_HOST_ROWS rows, LINEAR_HOST_TREES trees, LINEAR_HOST_LEAVES
+    leaves); ``rows`` cuts the three row counts. Returns {name: (booster,
+    rows)}."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+
+    out = {}
+    X, y, cats = mixed_data(seed, rows[0])
+    bst = lgt.train(dict(MIXED_PARAMS, device_type=dev.type),
+                    lgt.Dataset(X, label=y, categorical_feature=cats),
+                    MIXED_TREES)
+    out["categorical"] = (bst, X)
+    rng = np.random.RandomState(seed + 83)
+    X = higgs_like(rng, rows[1])
+    y = objective_labels("multiclassova", X, rng)
+    bst = lgt.train({"objective": "multiclass", "num_class": 3,
+                     "num_leaves": OBJECTIVE_LEAVES, "max_bin": 255,
+                     "verbosity": -1, "device_type": dev.type},
+                    lgt.Dataset(X, label=y), OBJECTIVE_TREES)
+    out["multiclass"] = (bst, X)
+    X = higgs_like(rng, rows[2])
+    y = np.round((higgs_signal(X) + 0.5 * rng.randn(len(X))) * 1024) / 1024
+    bst = lgt.train({"objective": "regression", "linear_tree": True,
+                     "linear_lambda": LINEAR_LAMBDA,
+                     "num_leaves": LINEAR_HOST_LEAVES, "max_bin": 255,
+                     "verbosity": -1, "device_type": dev.type},
+                    lgt.Dataset(X, label=y), LINEAR_HOST_TREES)
+    out["linear"] = (bst, X)
+    return {k: (lgt.Booster({"device_type": dev.type},
+                            model_str=b.model_to_string()), rows)
+            for k, (b, rows) in out.items()}
+
+
+def fleet_raw_checks(dev, bst, X, seed, errs, timed=True, kind_rows=None):
+    """(a): the raw walk against its twin on the card, on the models the
+    fleet serves: ``bst`` read back from its text at RAW_ROWS rows of
+    ``X`` (bit-equal), and fleet_kind_models at RAW_KIND_ROWS rows
+    (bit-equal but the linear model's, within SCORE_ATOL + SCORE_RTOL |b|,
+    B8's tolerance). Then, when ``timed``, the top size by the host clock
+    and by device time beside its bound and the twin's time. Returns the
+    kernels-line row (with ``bytes`` and ``ops``; None untimed) and the
+    per-size figures."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.forest import raw_walk
+    from lightgbm_tpu_torch.ops.predict import predict_raw, predict_raw_impl
+
+    models = {"higgs": (lgt.Booster({"device_type": dev.type},
+                                    model_str=bst.model_to_string()), X)}
+    models.update(fleet_kind_models(dev, seed, **(
+        {"rows": kind_rows} if kind_rows else {})))
+    shapes = {}
+    for name, (b, rows) in models.items():
+        g = b.inner
+        if g.train_set is not None:
+            raise AssertionError("phase 3l: the %s model has bin mappers"
+                                 % name)
+        pk, has_cat, has_lin, walk = g._packed_model(
+            0, len(g.models) // g.num_tree_per_iteration)
+        if walk is None:          # a rehearsal on the host keeps none
+            walk = raw_walk(pk)
+        kw = dict(num_class=g.num_tree_per_iteration, has_cat=has_cat,
+                  has_linear=has_lin)
+        for n in (RAW_ROWS if name == "higgs" else (RAW_KIND_ROWS,)):
+            x = torch.as_tensor(rows[:n], dtype=torch.float32).to(dev)
+            n = x.shape[0]
+            got = predict_raw(x, pk, walk=walk, **kw)
+            want = predict_raw_impl(x, pk, **kw)
+            sync(dev)
+            key = "raw/%s/%d" % (name, n)
+            errs[key] = (check_scores if has_lin else check_bits)(
+                key, got.cpu().numpy(), want.cpu().numpy())
+            steps = raw_walk_steps(g.models, pk, x, has_cat)
+            nbytes, ops = raw_bound(pk, walk, x, steps, **kw)
+            v = dict(rows=n, trees=len(g.models), steps=steps,
+                     bytes=nbytes, ops=ops)
+            if timed and name == "higgs":
+                def fn():
+                    return predict_raw(x, pk, walk=walk, **kw)
+                t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_o = ops / PEAK_SCALAR_OPS_PER_S * 1e3
+                v.update(ms=cuda_ms(fn), device_ms=device_ms(fn),
+                         bound_ms=max(t_b, t_o),
+                         bound_by="bytes" if t_b >= t_o else "operations")
+                log("raw walk %s: %d rows x %d trees, %d walk steps: %.4f "
+                    "ms (device %.4f), bound %.5f ms (%s)"
+                    % (name, n, len(g.models), steps, v["ms"],
+                       v["device_ms"], v["bound_ms"], v["bound_by"]))
+            shapes["%s_%d" % (name, n)] = v
+    row = None
+    if timed:
+        g = models["higgs"][0].inner
+        pk, _, _, walk = g._packed_model(0, len(g.models))
+        x = torch.as_tensor(X[:max(RAW_ROWS)], dtype=torch.float32).to(dev)
+        top = shapes["higgs_%d" % max(RAW_ROWS)]
+        row = dict(
+            route="cuda", source="lightgbm_tpu_torch/csrc/forest_predict.cu",
+            replaces="lightgbm_tpu/ops/predict.py:145 (predict_raw_impl, "
+            "XLA: the _route_tree fori_loop and the grouped sums; no "
+            "pallas_call)",
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith("raw")),
+            ms=top["ms"], device_ms=top["device_ms"],
+            plain_ms=cuda_ms(lambda: predict_raw_impl(x, pk), iters=3,
+                             warmup=1),
+            bytes=top["bytes"], ops=top["ops"], shapes=shapes)
+    return row, shapes
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(url, obj=None, timeout=120):
+    """GET (POST when ``obj`` is given) ``url``; the decoded JSON answer."""
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if obj is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def wait_until(pred, what, timeout_s, every_s=0.05):
+    """Poll ``pred()`` until it is true; raises after ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError("phase 3l: timed out waiting for %s" % what)
+        time.sleep(every_s)
+
+
+def start_replica_process(dev, trainer_url, work):
+    """``python -m lightgbm_tpu_torch task=serve fleet_role=replica
+    fleet_url=<trainer>`` on a free port, its output in ``work``. Returns
+    (process, base url, log path)."""
+    port = free_port()
+    logp = os.path.join(work, "replica.log")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    with open(logp, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+             "fleet_role=replica", "fleet_url=" + trainer_url,
+             "serve_host=127.0.0.1", "serve_port=%d" % port,
+             "serve_buckets=%d,%d" % (FLEET_PREDICT_ROWS, 256),
+             "serve_max_wait_ms=1", "fleet_poll_interval_s=%g"
+             % FLEET_POLL_S, "device_type=" + dev.type, "verbosity=-1"],
+            cwd=work, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, "http://127.0.0.1:%d" % port, logp
+
+
+def stop_process(proc, timeout_s=60):
+    """SIGTERM (the server drains), then SIGKILL past ``timeout_s``."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=timeout_s)
+    return proc.returncode
+
+
+def fleet_serving(dev, bst, data, seed, work):
+    """(b): a shared-directory fleet on the card. The trainer: ``bst``
+    behind a PredictServer with a continue-mode OnlineTrainer over a
+    FleetStore (seeded by a ``boot`` publish, leased, its serving URL
+    advertised). The replicas: a ReplicaWatcher over the same directory
+    in this process (with an IngestForwarder), and a ``python -m
+    lightgbm_tpu_torch task=serve fleet_role=replica fleet_url=<trainer>``
+    subprocess over RemoteStore. FLEET_PREDICT_THREADS threads post
+    /predict to the replicas (half each) while FLEET_INGEST_POSTS labeled
+    chunks go to the trainer's /ingest, one of them through the
+    in-process replica (forwarded). Every answer must equal one published
+    version's scores (|diff| 0 against the plain twin on that version's
+    text, on the host), each replica must move up one version per
+    publish, and each replica's dispatches in the window must each have
+    launched the raw walk (the in-process replica's tallied on its
+    dispatching threads, the process's from its /healthz before and
+    after the window), while no call on the card in this process (the
+    trainer and the in-process replica) reaches the twin. Returns
+    (summary, launch counts of this process over the run)."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.fleet import (FleetStore, IngestForwarder,
+                                          ReplicaWatcher, bootstrap_model)
+    from lightgbm_tpu_torch.online import OnlineTrainer
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops import predict as predict_ops
+    from lightgbm_tpu_torch.serve import PredictServer, PredictSession
+
+    rng = np.random.RandomState(seed + 97)
+    X, y = data[2], data[3]
+    chunk = FLEET_INGEST_ROWS
+    trigger = chunk * FLEET_INGEST_POSTS
+    reqs = [higgs_like(rng, FLEET_PREDICT_ROWS)
+            for _ in range(FLEET_PREDICT_THREADS)]
+    root = os.path.join(work, "serving")
+    store = FleetStore(root, "default")
+    store.publish(bst.model_to_string(), event="boot")
+    trainer = OnlineTrainer(bst, mode="continue", trigger_rows=trigger,
+                            min_rows=64, shadow_rows=trigger,
+                            continue_rounds=FLEET_CONTINUE_ROUNDS,
+                            promote_threshold=FLEET_PROMOTE_THRESHOLD,
+                            store=store, lease_ttl_s=FLEET_SERVE_TTL_S,
+                            holder_id="trainer")
+    servers, threads, procs = [], [], []
+    stop = threading.Event()
+    answers, failures = [], []
+    parts = ("before", "cycle", "after")
+    window = [parts[0]]
+    latency = {k: [] for k in parts}
+    # every call of the plain twin with a tensor on the card (none may be;
+    # this process's nodes: the trainer and the in-process replica)
+    plain_calls = []
+    twin = predict_ops.predict_raw_impl
+    # the in-process replica's dispatches in the window and the launches
+    # they made, tallied on the thread that dispatches (the per-thread
+    # tally of ops/kernels.capture_launches, then counted as run)
+    replica_tally = {"on": False, "dispatches": 0, "launches": {}}
+    tally_lock = threading.Lock()
+
+    def counted_twin(X_, *a, **k):
+        if X_.device.type != "cpu":
+            plain_calls.append(tuple(X_.shape))
+        return twin(X_, *a, **k)
+
+    def serve(server, name):
+        th = threading.Thread(target=server.serve_forever, name=name,
+                              daemon=True)
+        th.start()
+        servers.append((server, th))
+        return "http://%s:%d" % server.address
+
+    def predict_loop(i, base):
+        while not stop.is_set():
+            at = window[0]
+            t = time.perf_counter()
+            try:
+                out = http_json(base + "/predict",
+                                {"rows": reqs[i].tolist()})
+                latency[at].append((time.perf_counter() - t) * 1e3)
+                answers.append((i, base, out["model_version"],
+                                np.asarray(out["predictions"])))
+            except Exception as exc:       # every failure is counted
+                failures.append(repr(exc))
+            time.sleep(FLEET_PREDICT_PAUSE_S)
+
+    predict_ops.predict_raw_impl = counted_twin
+    try:
+        server_t = PredictServer(bst, port=0, buckets=(FLEET_PREDICT_ROWS,
+                                                       256),
+                                 max_wait_ms=1.0, online=trainer)
+        server_t.fleet_store = store
+        base_t = serve(server_t, "smoke-3l-trainer")
+        trainer.advertise_url = base_t
+        if not trainer.wait_for_lease(10 * FLEET_SERVE_TTL_S):
+            raise AssertionError("phase 3l (b): the trainer never took "
+                                 "the lease: %s" % store.lease_state())
+        # the lease record carries the URL from the next renewal on
+        wait_until(lambda: store.lease_state().get("url") == base_t,
+                   "the trainer's advertised url", 4 * FLEET_SERVE_TTL_S)
+        rstore = FleetStore(root, "default", read_only=True)
+        rb, applied = bootstrap_model(rstore, {"device_type": dev.type})
+        if rb is None or applied != 1:
+            raise AssertionError("phase 3l (b): replica bootstrap got v%d"
+                                 % applied)
+        server_r = PredictServer(rb, port=0, buckets=(FLEET_PREDICT_ROWS,
+                                                      256),
+                                 max_wait_ms=1.0)
+        server_r.fleet_watcher = ReplicaWatcher(
+            rb, rstore, poll_interval_s=FLEET_POLL_S,
+            applied_version=applied, node_id="replica-in-process")
+        server_r.ingest_forwarder = IngestForwarder(store=rstore)
+        session_r = server_r.session
+        dispatch_r = session_r.dispatch
+
+        def tallied_dispatch(X_):
+            with kernels.capture_launches() as cap:
+                pieces = dispatch_r(X_)
+            kernels.add_launches(cap.counts)
+            with tally_lock:
+                if replica_tally["on"]:
+                    replica_tally["dispatches"] += 1
+                    for k, v in cap.counts.items():
+                        replica_tally["launches"][k] = \
+                            replica_tally["launches"].get(k, 0) + v
+            return pieces
+
+        session_r.dispatch = tallied_dispatch
+        base_r = serve(server_r, "smoke-3l-replica")
+        proc, base_p, logp = start_replica_process(dev, base_t, work)
+        procs.append(proc)
+
+        def replica_up():
+            if proc.poll() is not None:
+                with open(logp) as f:
+                    raise AssertionError("phase 3l (b): the replica "
+                                         "process exited %d:\n%s"
+                                         % (proc.returncode,
+                                            f.read()[-3000:]))
+            try:
+                return http_json(base_p + "/healthz", timeout=10)
+            except OSError:
+                return None
+        t_up = time.perf_counter()
+        doc = wait_until(replica_up, "the replica process", 300, 0.5)
+        proc_up_s = time.perf_counter() - t_up
+        if doc["fleet"]["applied_version"] != 1:
+            raise AssertionError("phase 3l (b): the replica process booted "
+                                 "at v%d" % doc["fleet"]["applied_version"])
+        versions0 = {"in_process": rb.inner.model_version,
+                     "process": doc["model_version"]}
+        bases = [base_r, base_p]
+        for i in range(FLEET_PREDICT_THREADS):       # warm the buckets
+            http_json(bases[i % 2] + "/predict", {"rows": reqs[i].tolist()})
+        sync(dev)
+        # the replica process's counts before the window (its boot
+        # warm-up and the warm-up requests launched the walk already)
+        health_p0 = http_json(base_p + "/healthz")
+        kernels.reset_launch_counts()
+        with tally_lock:
+            replica_tally["on"] = True
+        t0 = time.perf_counter()
+        for i in range(FLEET_PREDICT_THREADS):
+            th = threading.Thread(target=predict_loop,
+                                  args=(i, bases[i % 2]),
+                                  name="smoke-3l-predict-%d" % i)
+            th.start()
+            threads.append(th)
+        time.sleep(FLEET_LATENCY_WINDOW_S)
+        window[0] = "cycle"
+        forwarded = None
+        for p in range(FLEET_INGEST_POSTS):
+            lo = p * chunk % (len(y) - chunk)
+            body = {"rows": X[lo:lo + chunk].tolist(),
+                    "labels": y[lo:lo + chunk].tolist()}
+            if p == 0:
+                out = http_json(base_r + "/ingest", body)
+                forwarded = out.get("forwarded_to")
+                if forwarded != base_t:
+                    raise AssertionError("phase 3l (b): the replica "
+                                         "relayed /ingest to %s, not %s: %s"
+                                         % (forwarded, base_t, out))
+            else:
+                out = http_json(base_t + "/ingest", body)
+                if out.get("rows") != chunk:
+                    raise AssertionError("phase 3l (b): /ingest answered "
+                                         "%s" % out)
+        st = wait_until(
+            lambda: (lambda s: s if s["trains"] >= 1 and s["last_result"]
+                     not in ("idle", "skipped") else None)(trainer.state()),
+            "the continue cycle", 300)
+        if st["errors"] or st["promotions"] != 1:
+            raise AssertionError("phase 3l (b): the continue cycle: %s" % st)
+        head = store.latest_publish()["version"]
+        wait_until(lambda: server_r.fleet_watcher.state()["applied_version"]
+                   == head, "the in-process replica's adoption", 60)
+        wait_until(lambda: http_json(base_p + "/healthz")["fleet"]
+                   ["applied_version"] == head,
+                   "the replica process's adoption", 60)
+        t_adopted = time.perf_counter() - t0
+        window[0] = "after"
+        time.sleep(FLEET_LATENCY_WINDOW_S)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        wall = time.perf_counter() - t0
+        sync(dev)
+        with tally_lock:
+            replica_tally["on"] = False
+        counts = kernels.launch_counts()
+        health_p = http_json(base_p + "/healthz")
+        health_r = server_r.healthz()
+        pubs = store.publishes()
+    finally:
+        stop.set()
+        predict_ops.predict_raw_impl = twin
+        for th in threads:
+            th.join(timeout=120)
+        for proc in procs:
+            stop_process(proc)
+        for server, th in servers:
+            server.shutdown()
+            th.join(timeout=60)
+            server.close()
+    if failures:
+        raise AssertionError("phase 3l (b): %d failed requests, first %s"
+                             % (len(failures), failures[0]))
+    if plain_calls:
+        raise AssertionError("phase 3l (b): %d calls on the card reached "
+                             "the plain twin (%s)" % (len(plain_calls),
+                                                      plain_calls[:3]))
+    if [p["event"] for p in pubs] != ["boot", "promotion"]:
+        raise AssertionError("phase 3l (b): publishes %s" % pubs)
+    # one version per publish on each replica
+    fleet_r, fleet_p = health_r["fleet"], health_p["fleet"]
+    for tag, f, v0, v1 in (("in-process", fleet_r, versions0["in_process"],
+                            health_r["model_version"]),
+                           ("process", fleet_p, versions0["process"],
+                            health_p["model_version"])):
+        if f["applied_version"] != head or f["swaps"] != len(pubs) - 1 \
+                or v1 - v0 != len(pubs) - 1:
+            raise AssertionError("phase 3l (b): the %s replica moved %d "
+                                 "versions for %d publishes (%s)"
+                                 % (tag, v1 - v0, len(pubs) - 1, f))
+    # each replica's dispatches in the window and its raw walk launches
+    # in the window: every dispatch must have launched the walk
+    raw_launches = {
+        "in_process": dict(
+            dispatches=replica_tally["dispatches"],
+            forest_raw=replica_tally["launches"].get("forest_raw", 0)),
+        "process": {
+            k: health_p[key].get(k, 0) - health_p0[key].get(k, 0)
+            if isinstance(health_p[key], dict)
+            else health_p[key] - health_p0[key]
+            for k, key in (("dispatches", "dispatches"),
+                           ("forest_raw", "kernel_launches"))}}
+    for tag, c in raw_launches.items():
+        if c["dispatches"] <= 0 or (dev.type == "cuda" and
+                                    c["forest_raw"] < c["dispatches"]):
+            raise AssertionError("phase 3l (b): the %s replica's %d "
+                                 "dispatches in the window launched the "
+                                 "raw walk %d times"
+                                 % (tag, c["dispatches"], c["forest_raw"]))
+    # each published version's scores, by the plain twin on the host
+    expected = {}
+    for p in pubs:
+        b = lgt.Booster({"device_type": "cpu"},
+                        model_str=store.load_model(p["version"]))
+        sess = PredictSession(b, buckets=(FLEET_PREDICT_ROWS, 256))
+        expected[p["version"]] = [sess.predict(r) for r in reqs]
+    worst = 0.0
+    served = set()
+    for i, base, v, out in answers:
+        errs = {u: float(np.max(np.abs(out - e[i])))
+                for u, e in expected.items()}
+        u = min(errs, key=errs.get)
+        worst = max(worst, errs[u])
+        if errs[u] != 0.0:
+            raise AssertionError("phase 3l (b): an answer (replica %s, "
+                                 "version %d) equals no published version "
+                                 "(closest v%d, |diff| %.3g)"
+                                 % (base, v, u, errs[u]))
+        served.add(u)
+    lat = {k: dict(n=len(v), p50=float(np.percentile(v, 50)),
+                   p99=float(np.percentile(v, 99)))
+           for k, v in latency.items() if v}
+    if set(lat) != set(parts):
+        raise AssertionError("phase 3l (b): no /predict answer in parts %s"
+                             % sorted(set(parts) - set(lat)))
+    summary = dict(
+        answers=len(answers), failures=0, max_abs_err=worst,
+        served_versions=sorted(served), publishes=len(pubs),
+        predict_latency_ms=lat, wall_s=wall, adopted_s=t_adopted,
+        replica_process_start_s=proc_up_s, forwarded_to_trainer=True,
+        raw_launches=raw_launches, trainer=dict(
+            promotions=st["promotions"], last_result=st["last_result"],
+            lease_epoch=st["lease_epoch"], role=st["role"]))
+    log("phase 3l (b) fleet serving: %d answers from %d threads on 2 "
+        "replicas, 0 failures, every one a published version's (|diff| 0; "
+        "served %s); publishes %s; both replicas one version a publish; "
+        "raw walk launches %s; /predict ms (%d rows, %.0f ms pause) %s; "
+        "adopted %.1f s after the first request, replica process up in "
+        "%.1f s; launches %s"
+        % (len(answers), FLEET_PREDICT_THREADS, sorted(served),
+           [p["event"] for p in pubs], raw_launches, FLEET_PREDICT_ROWS,
+           FLEET_PREDICT_PAUSE_S * 1e3,
+           "; ".join("%s n %d p50 %.3f p99 %.3f"
+                     % (k, lat[k]["n"], lat[k]["p50"], lat[k]["p99"])
+                     for k in parts), t_adopted, proc_up_s,
+           nonzero(counts)))
+    return summary, counts
+
+
+def buffer_sha256(tr):
+    """sha256 over a trainer's shadow window and pending training rows
+    (rows and labels, oldest first), the pending chunks read under the
+    buffer's lock without draining them."""
+    import hashlib
+    import numpy as np
+    buf = tr.buffer
+    with buf._lock:
+        pending = list(buf._chunks)
+    parts = [buf.shadow()]
+    if pending:
+        parts.append((np.concatenate([c[0] for c in pending]),
+                      np.concatenate([c[1] for c in pending])))
+    h = hashlib.sha256()
+    for part in parts:
+        for a in (part if part is not None else ()):
+            h.update(np.ascontiguousarray(a, np.float64).tobytes())
+    return h.hexdigest()
+
+
+def fleet_failover(dev, bst, data, seed, work):
+    """(c) and (d). (c): a primary and a standby trainer (refit, lease ttl
+    FLEET_TTL_S) over one directory on the card. The primary takes the
+    lease, banks a win and buffers more rows, then closes without
+    releasing the lease; the standby must take over within two ttl with
+    the primary's watermark, win streak and buffer (sha256), and a
+    publish by the fenced primary must raise StaleLeaseError and reach no
+    replica. (d): the store compacted with ``snapshot_rows``; a cold
+    trainer from the snapshot plus the tail must hold a buffer whose
+    sha256 equals that of a full replay of the uncompacted copy."""
+    import shutil
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.fleet import (FleetStore, ReplicaWatcher,
+                                          StaleLeaseError)
+    from lightgbm_tpu_torch.online import OnlineTrainer
+
+    X, y = data[2], data[3]
+    n = FLEET_DRILL_ROWS
+    base_str = bst.model_to_string()
+    root = os.path.join(work, "failover")
+    kw = dict(mode="refit", trigger_rows=10 ** 9, min_rows=64,
+              shadow_rows=4 * n, promote_threshold=FLEET_PROMOTE_THRESHOLD,
+              promote_patience=2, lease_ttl_s=FLEET_TTL_S, start=False)
+
+    def booster():
+        return lgt.Booster({"device_type": dev.type}, model_str=base_str)
+
+    def chunk(k):
+        lo = (k * n) % (len(y) - n)
+        return X[lo:lo + n], y[lo:lo + n]
+
+    primary = OnlineTrainer(booster(), store=FleetStore(root, "m"),
+                            holder_id="primary", **kw)
+    if not primary.try_acquire():
+        raise AssertionError("phase 3l (c): the primary took no lease")
+    for k in range(3):
+        primary.ingest(*chunk(k))
+    if primary.run_once() != "deferred":
+        raise AssertionError("phase 3l (c): the primary banked no win")
+    for k in range(3, 5):
+        primary.ingest(*chunk(k))
+    want = primary.state()
+    want_sha = buffer_sha256(primary)
+    standby = OnlineTrainer(booster(), store=FleetStore(root, "m"),
+                            holder_id="standby", **kw)
+    if standby.try_acquire():
+        raise AssertionError("phase 3l (c): the standby took a live lease")
+    t0 = time.perf_counter()
+    primary.close(release_lease=False)
+    wait_until(standby.try_acquire, "the standby's takeover",
+               4 * FLEET_TTL_S, 0.02)
+    takeover_s = time.perf_counter() - t0
+    got = standby.state()
+    got_sha = buffer_sha256(standby)
+    keys = ("consumed_rows", "win_streak", "buffered_rows", "shadow_rows")
+    if takeover_s > 2 * FLEET_TTL_S or got_sha != want_sha \
+            or any(got[k] != want[k] for k in keys):
+        raise AssertionError("phase 3l (c): takeover after %.2f s (ttl "
+                             "%g): %s against %s, buffers %s / %s"
+                             % (takeover_s, FLEET_TTL_S,
+                                {k: got[k] for k in keys},
+                                {k: want[k] for k in keys}, got_sha[:12],
+                                want_sha[:12]))
+    try:
+        primary._store.publish(base_str, event="promotion")
+    except StaleLeaseError as exc:
+        fenced = str(exc)
+    else:
+        raise AssertionError("phase 3l (c): the fenced primary published")
+    # the standby's own publish is the only one a replica sees
+    standby.ingest(*chunk(5))
+    if standby.run_once() != "promoted":
+        raise AssertionError("phase 3l (c): the standby did not promote")
+    rstore = FleetStore(root, "m", read_only=True)
+    replica = booster()
+    watcher = ReplicaWatcher(replica, rstore, poll_interval_s=FLEET_POLL_S,
+                             start=False)
+    watcher.poll_once()
+    pubs = rstore.publishes()
+    if [(p["version"], p["lease_epoch"]) for p in pubs] \
+            != [(1, got["lease_epoch"])] \
+            or watcher.state()["applied_version"] != 1 \
+            or replica.model_to_string() != rstore.load_model(1):
+        raise AssertionError("phase 3l (c): publishes %s, replica at v%d"
+                             % (pubs, watcher.state()["applied_version"]))
+    # (d) snapshot compaction: a cold boot from snapshot + tail against a
+    # full replay of an uncompacted copy
+    for k in range(6, 8):
+        standby.ingest(*chunk(k))
+    full = os.path.join(work, "failover_full")
+    shutil.copytree(root, full)
+    st = standby.state()
+    summary_c = standby._store.compact(
+        watermark=st["consumed_rows"], wins=st["win_streak"],
+        keep_rows=standby.buffer.shadow_capacity,
+        snapshot_rows=standby.buffer.shadow_capacity)
+    snap = summary_c.get("snapshot")
+    if not isinstance(snap, dict) or not snap.get("rows"):
+        raise AssertionError("phase 3l (d): no snapshot: %s" % summary_c)
+    tail = chunk(8)
+    for r in (root, full):
+        FleetStore(r, "m").append_ingest(*tail)
+    cold_kw = dict(kw, lease_ttl_s=0.0)
+    cold = OnlineTrainer(booster(), store=FleetStore(root, "m"), **cold_kw)
+    ref = OnlineTrainer(booster(), store=FleetStore(full, "m"), **cold_kw)
+    cold_sha, ref_sha = buffer_sha256(cold), buffer_sha256(ref)
+    cs, rs = cold.state(), ref.state()
+    if cold_sha != ref_sha or any(cs[k] != rs[k] for k in keys):
+        raise AssertionError("phase 3l (d): snapshot boot %s (%s) against "
+                             "full replay %s (%s)"
+                             % ({k: cs[k] for k in keys}, cold_sha[:12],
+                                {k: rs[k] for k in keys}, ref_sha[:12]))
+    kinds = [e["kind"] for e in FleetStore(root, "m").events()]
+    for tr in (standby, cold, ref):
+        tr.close()
+    summary = dict(
+        takeover_s=takeover_s, ttl_s=FLEET_TTL_S,
+        watermark=got["consumed_rows"], win_streak=got["win_streak"],
+        buffer_sha256=got_sha, lease_epoch=got["lease_epoch"],
+        zombie_refused=fenced, snapshot_rows=snap["rows"],
+        snapshot_bytes=snap.get("bytes"),
+        log_kinds_after_compaction=sorted(set(kinds)),
+        snapshot_boot_sha256=cold_sha)
+    log("phase 3l (c) failover: the standby took the lease %.2f s after "
+        "the primary closed (ttl %g s) at epoch %d with its watermark %d, "
+        "win streak %d and buffer (sha256 %s...); the fenced primary's "
+        "publish raised StaleLeaseError, the replica adopted only the "
+        "standby's v1. (d) snapshot of %d rows: a cold boot's buffer "
+        "sha256 %s... equals the full replay's"
+        % (takeover_s, FLEET_TTL_S, got["lease_epoch"],
+           got["consumed_rows"], got["win_streak"], got_sha[:12],
+           snap["rows"], cold_sha[:12]))
+    return summary
+
+
+def phase_fleet(dev, data, card, trees=40, leaves=255, seed=0,
+                timed=True, kind_rows=None):
+    """Phase 3l, the fleet at full width on the card: (a) the raw walk
+    against its twin (fleet_raw_checks, the edge packs first); (b) a
+    shared-directory fleet of a trainer and two replicas serving and
+    training (fleet_serving); (c) failover and (d) snapshot compaction
+    (fleet_failover). The served model: ``trees`` fused trees of
+    ``leaves`` leaves on the script's training rows. Returns (summary,
+    launch counts of (b), the raw walk's kernels-line row or None, check
+    errors). ``timed=False`` and ``kind_rows`` rehearse it on the host
+    (tests/test_torch_fleet.py)."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+
+    X, y = data[0], data[1]
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(API_PARAMS, num_leaves=leaves, device_type=dev.type),
+                    lgt.Dataset(X, label=y), trees)
+    train_s = time.perf_counter() - t0
+    errs = phase_raw_kernels(dev, np.random.RandomState(seed + 89))
+    row, shapes = fleet_raw_checks(dev, bst, data[2], seed, errs,
+                                   timed=timed, kind_rows=kind_rows)
+    for name, e in sorted(errs.items()):
+        log("check %s: max |diff| %.3g" % (name, e))
+    work = tempfile.mkdtemp(prefix="smoke-3l-")
+    try:
+        serving, counts = fleet_serving(dev, bst, data, seed, work)
+        failover = fleet_failover(dev, bst, data, seed, work)
+    finally:
+        shutil_rmtree(work)
+    if row is not None:
+        row["launches_main_path"] = counts.get("forest_raw", 0)
+    summary = dict(train_s=train_s, raw_shapes=shapes, serving=serving,
+                   failover=failover)
+    log("phase 3l (%s): model %d trees x %d leaves trained in %.1f s"
+        % (card, trees, leaves, train_s))
+    return summary, counts, row, errs
+
+
+def shutil_rmtree(path):
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8071,6 +9053,11 @@ def main(argv=None):
                     "pred_contrib, convert_model and a PredictServer that "
                     "trains from /ingest while serving) and print only its "
                     "summary and launch counts")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build, run the fleet phase (3l: the raw walk "
+                    "against its twin, a trainer and two replicas serving "
+                    "and training, failover, snapshot compaction) and "
+                    "print only its summary and the raw walk's row")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -8295,6 +9282,19 @@ def main(argv=None):
         log(card)
         return 0
 
+    if args.fleet_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_fleet, counts_fleet, raw_row, _ = phase_fleet(
+            dev, data, card, trees=args.trees, leaves=args.leaves,
+            seed=args.seed)
+        raw_row["launches"] = raw_row.pop("launches_main_path")
+        print(json.dumps({"fleet": summary_fleet,
+                          "kernels": {"forest_raw": bound_row("forest_raw",
+                                                              raw_row)},
+                          "launches": nonzero(counts_fleet)}, default=str))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -8444,6 +9444,16 @@ def main(argv=None):
         dev, data, card, leaves=args.leaves, host_rows=args.host_rows,
         seed=args.seed)
 
+    log("== phase 3l: the fleet on the card: the raw-threshold walk, a "
+        "trainer and two replicas serving and training, failover and "
+        "snapshot compaction (%s)" % card)
+    summary_fleet, counts_fleet, raw_row, errs_fleet = phase_fleet(
+        dev, data, card, trees=args.trees, leaves=args.leaves,
+        seed=args.seed)
+    errs.update(errs_fleet)
+    raw_row.pop("launches_main_path")
+    rows["forest_raw"] = raw_row
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -8536,6 +9546,7 @@ def main(argv=None):
                                    for c in counts_opt.values()),
                 "route_rows_cat": counts_m["route_rows_cat"],
                 "rank_lambdas": counts_rank["rank_lambdas"],
+                "forest_raw": counts_fleet["forest_raw"],
                 **linear_dense_launches(counts_ld, summary_ld)}
     # phase 3k's parts run the main path's kernels too
     for name in launches:
@@ -8558,6 +9569,8 @@ def main(argv=None):
     log("api and online summary %s; launches %s"
         % (json.dumps(summary_api, default=str),
            {k: nonzero(v) for k, v in counts_api.items()}))
+    log("fleet summary %s; launches %s"
+        % (json.dumps(summary_fleet, default=str), nonzero(counts_fleet)))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

@@ -675,9 +675,12 @@ class GBDT:
 
     # ---------------------------------------------------------------- packs
     def _packed_model(self, start: int, end: int):
-        """Device ``PackedSplits`` for iterations [start, end), cached
-        behind the model-version token (``serve/pack_build`` /
-        ``serve/pack_hit``)."""
+        """Device ``(PackedSplits, has_cat, has_linear, RawWalk)`` for
+        iterations [start, end), cached behind the model-version token
+        (``serve/pack_build`` / ``serve/pack_hit``). The raw-threshold
+        walk's tables (``ops/forest.raw_walk``) are derived once per pack
+        on a CUDA device, None on the host (the twin needs none)."""
+        from .ops.forest import raw_walk
         from .ops.predict import pack_splits
 
         self.finish_fused("packed_model")
@@ -691,22 +694,24 @@ class GBDT:
                 self._pack_cache.clear()
             telemetry.count("serve/pack_build")
             K = self.num_tree_per_iteration
-            hit = self._pack_cache[key] = pack_splits(
+            pk, has_cat, has_linear = pack_splits(
                 self.models[start * K:end * K], num_class=K,
                 device=self.device)
+            walk = raw_walk(pk) if self.device.type == "cuda" else None
+            hit = self._pack_cache[key] = (pk, has_cat, has_linear, walk)
             return hit
 
     def _forest_knob(self) -> str:
         """Resolved ``tpu_forest_kernel`` for serving sessions. ``auto``
         resolves ``on``: the CUDA forest kernel is the port's serving
         path wherever the model is eligible (``_forest_model`` sends an
-        ineligible model to the plain predict)."""
+        ineligible model to the raw-threshold walk)."""
         cfg = getattr(self.config, "tpu_forest_kernel", "auto")
         if cfg != "auto":
             return cfg
         reason = ("hand-written CUDA forest kernel is the serving path; "
                   "ineligible models (no bin mappers, tables past "
-                  "FOREST_VMEM_BUDGET) take the plain predict")
+                  "FOREST_VMEM_BUDGET) take the raw-threshold walk")
         telemetry.record("auto_resolution",
                          dedupe_key=("tpu_forest_kernel", "on", reason),
                          knob="tpu_forest_kernel", configured="auto",

@@ -11,14 +11,19 @@ Everything runs on the CUDA card unless ``device_type=cpu`` asks for the
 host. Files parse and bin natively (``io.py``, ``io_native.py``). A
 ``data`` file that ``task=save_binary`` wrote (``<data>.bin``) loads
 without re-parsing or re-binning. ``task=serve online_train=true`` runs
-an online trainer per served model behind ``POST /ingest``. Settings the
-port cannot honour raise, naming their ROADMAP item: every ``fleet_*``
-setting (A12, queue A item 8), span tracing, telemetry and trace dumps
-and the run ledger (A13, item 10).
+an online trainer per served model behind ``POST /ingest``; with
+``fleet_dir``, ``fleet_url`` or ``fleet_urls`` it joins a fleet as a
+trainer (``fleet_role=trainer``: publishes its promotions, optionally
+lease-gated) or a replica (``fleet_role=replica``: watches the store and
+hot-swaps each published model). Settings the port cannot honour raise,
+naming their ROADMAP item: span tracing, telemetry and trace dumps and
+the run ledger (A13, item 10).
 """
 from __future__ import annotations
 
+import os
 import signal
+import socket
 import sys
 import threading
 from typing import Any, Dict, List, Optional
@@ -96,10 +101,6 @@ class Application:
                 or cfg.telemetry_dump_interval_s > 0:
             _refuse("obs_ledger, obs_hbm_sample_interval_s and "
                     "telemetry_dump_interval_s", "A13, queue A item 10")
-        fleet = sorted(k for k in self.raw_params if k.startswith("fleet_"))
-        if fleet:
-            _refuse("the fleet settings (%s)" % ", ".join(fleet),
-                    "A12, queue A item 8")
 
     def run(self) -> None:
         task = self.config.task
@@ -246,7 +247,16 @@ class Application:
         "default" and every ``serve_models`` entry ``id=path``, each behind
         its own PredictSession and MicroBatcher (and, with
         ``online_train=true``, its own OnlineTrainer fed by ``POST
-        /ingest/<id>``)."""
+        /ingest/<id>``).
+
+        Fleet mode (one model per store): ``fleet_dir`` is a shared
+        directory, ``fleet_url`` a remote trainer's ``/fleet`` routes (a
+        replica), ``fleet_urls`` several endpoints (a replica fails over
+        among them; a trainer writes through the first, the store host).
+        A trainer publishes its promotions and, with
+        ``fleet_lease_ttl_s`` > 0, boots in standby and trains only while
+        it holds the store's lease; a replica boots from the newest
+        verified publish and hot-swaps every later one."""
         from .online.registry import ModelRegistry
         from .serve.http import PredictServer
 
@@ -257,18 +267,64 @@ class Application:
         for spec in cfg.serve_models:
             mid, path = spec.split("=", 1)
             entries.append((mid.strip(), path.strip()))
-        if not entries:
+        fleet_on = bool(cfg.fleet_dir or cfg.fleet_url or cfg.fleet_urls)
+        if not entries and not fleet_on:
             Log.fatal("task=serve requires input_model or serve_models")
+        fleet_trainer = fleet_on and cfg.fleet_role == "trainer"
+        fleet_replica = fleet_on and cfg.fleet_role == "replica"
+        holder = "%s:%d" % (socket.gethostname(), os.getpid())
+        if fleet_trainer and not cfg.online_train:
+            Log.fatal("fleet_role=trainer requires online_train=true (the "
+                      "trainer is the process that publishes promotions)")
+        if fleet_replica and cfg.online_train:
+            Log.fatal("fleet_role=replica is serve-only (replicas apply "
+                      "published models, they never train); drop "
+                      "online_train or use fleet_role=trainer")
+        if fleet_on and len(entries) > 1:
+            Log.fatal("fleet mode serves one model per store; drop "
+                      "serve_models or run one process per model")
+        if fleet_replica and not entries:
+            entries = [("default", "")]   # boot purely from the store
         tenant_weights = {}
         for spec in cfg.serve_tenant_weights:
             name, _, w = spec.partition("=")
             tenant_weights[name.strip()] = float(w)
         online = self._online_config()
         registry = ModelRegistry()
+        watcher = store = None
         try:
             for mid, path in entries:
-                registry.register(
-                    mid, self._booster(path),
+                booster, applied = None, 0
+                if fleet_on:
+                    store, booster, applied = self._fleet_store(
+                        mid, fleet_trainer, fleet_replica)
+                if booster is not None:
+                    Log.info("fleet: %s booted from published v%d", mid,
+                             applied)
+                else:
+                    if not path:
+                        Log.fatal("fleet: store %s has no published model "
+                                  "yet and no input_model to seed from",
+                                  cfg.fleet_dir or cfg.fleet_url
+                                  or ",".join(cfg.fleet_urls))
+                    booster = self._booster(path)
+                    if fleet_trainer and store.latest_publish() is None:
+                        # seed the store so replicas can boot before the
+                        # first promotion
+                        store.publish(booster.model_to_string(),
+                                      event="boot")
+                model_online = None if online is None else dict(online)
+                if fleet_trainer:
+                    model_online.update(
+                        store=store, replay=cfg.fleet_replay,
+                        lease_ttl_s=cfg.fleet_lease_ttl_s,
+                        holder_id=holder,
+                        compact_bytes=cfg.fleet_compact_bytes,
+                        keep_artifacts=cfg.fleet_keep_artifacts,
+                        snapshot_rows=cfg.fleet_snapshot_rows,
+                        heartbeat_interval_s=cfg.fleet_heartbeat_interval_s)
+                entry = registry.register(
+                    mid, booster,
                     buckets=cfg.serve_buckets or None,
                     max_batch_rows=cfg.serve_max_batch_rows,
                     max_wait_ms=cfg.serve_max_wait_ms,
@@ -281,18 +337,99 @@ class Application:
                     dispatch_mode=cfg.serve_dispatch,
                     forest=(None if cfg.tpu_forest_kernel == "auto"
                             else cfg.tpu_forest_kernel),
-                    online=None if online is None else dict(online))
+                    online=model_online)
+                if fleet_replica:
+                    from .fleet import ReplicaWatcher
+                    watcher = ReplicaWatcher(
+                        entry.booster, store,
+                        poll_interval_s=cfg.fleet_poll_interval_s,
+                        applied_version=applied,
+                        backoff_max_s=cfg.fleet_backoff_max_s,
+                        heartbeat_interval_s=cfg.fleet_heartbeat_interval_s,
+                        node_id=holder)
             server = PredictServer(registry=registry, host=cfg.serve_host,
                                    port=cfg.serve_port)
         except BaseException:
+            if watcher is not None:
+                watcher.close()
             registry.close()
             raise
+        server.fleet_watcher = watcher
+        if cfg.fleet_dir and store is not None:
+            # a local store: the /fleet routes (remote replicas converge
+            # through them) and the /healthz lease and log state
+            server.fleet_store = store
+        elif store is not None:
+            # a remote store: its retries and backoff on /healthz
+            server.fleet_transport = store
         host, port = server.address
+        if fleet_trainer:
+            # advertise this trainer's serving endpoint in the lease
+            # record (acquire and renew write it): the leader hint that
+            # ingest forwarding follows. The port is known only after
+            # the bind, so the next lease touch carries it.
+            adv_host = host if host not in ("0.0.0.0", "::") \
+                else socket.gethostname()
+            ent = registry.get()
+            if ent.online is not None:
+                ent.online.advertise_url = "http://%s:%d" % (adv_host, port)
+        if cfg.fleet_forward_ingest and store is not None:
+            # relay labeled traffic that reaches this node to the lease
+            # holder (replicas and standbys have no trainer to buffer it)
+            from .fleet import IngestForwarder
+            server.ingest_forwarder = IngestForwarder(
+                store=store if cfg.fleet_dir else None,
+                urls=(cfg.fleet_urls or
+                      ([cfg.fleet_url] if cfg.fleet_url else ())),
+                timeout_s=cfg.fleet_timeout_s)
         Log.info("Serving %s on http://%s:%d (POST /predict%s; GET "
-                 "/healthz, /models)", ", ".join("%s=%s" % e
-                                                 for e in entries), host,
-                 port, ", /ingest" if online is not None else "")
+                 "/healthz, /models)%s",
+                 ", ".join("%s=%s" % e for e in entries), host, port,
+                 ", /ingest" if online is not None else "",
+                 " [fleet %s @ %s]" % (cfg.fleet_role,
+                                       cfg.fleet_dir or cfg.fleet_url
+                                       or ",".join(cfg.fleet_urls))
+                 if fleet_on else "")
         return server
+
+    def _fleet_store(self, model_id: str, trainer: bool, replica: bool):
+        """(store, booster, applied version) of one fleet node: the store
+        over ``fleet_dir`` or the remote endpoints, and the booster of its
+        newest verified publish (None, 0 when nothing is published yet)."""
+        from . import fleet
+
+        cfg = self.config
+        params = dict(self.raw_params)
+        if cfg.fleet_dir:
+            # a replica over a shared directory is a pure reader: no
+            # torn-tail repair or orphan reaping on a live trainer's files
+            store = fleet.FleetStore(cfg.fleet_dir, model_id,
+                                     read_only=replica)
+            booster, applied = fleet.bootstrap_model(store, params)
+            return store, booster, applied
+        net = dict(timeout_s=cfg.fleet_timeout_s,
+                   backoff_max_s=cfg.fleet_backoff_max_s)
+        if trainer:
+            # the full write surface (lease, fenced publish, appends,
+            # compaction) over HTTP against the store host
+            store = fleet.RemoteWriteStore(cfg.fleet_urls[0], **net)
+        elif len(cfg.fleet_urls) > 1:
+            # liveness-ranked failover among several endpoints
+            store = fleet.MultiEndpointStore(cfg.fleet_urls, **net)
+            store.probe()
+        else:
+            store = fleet.RemoteStore(cfg.fleet_url or cfg.fleet_urls[0],
+                                      **net)
+        try:
+            booster, applied = fleet.bootstrap_model(store, params)
+        except Exception as exc:
+            # the remote trainer may not be up yet; the watcher keeps
+            # retrying with backoff
+            Log.warning("fleet: remote bootstrap failed (%s: %s); watching "
+                        "%s for the first publish", type(exc).__name__,
+                        exc, cfg.fleet_url or ",".join(cfg.fleet_urls))
+            booster, applied = None, 0
+        return store, booster, applied
 
     def serve(self) -> None:
         """task=serve: the stdlib-HTTP JSON prediction endpoint. SIGTERM

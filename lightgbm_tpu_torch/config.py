@@ -395,10 +395,10 @@ class Config:
     #   family, no feature bundling / CEGB / intermediate monotone).
     tpu_forest_kernel: str = "auto"  # auto|off|on: forest-at-once serving —
     #   one CUDA launch per dispatch walks the whole ensemble over
-    #   BIN-space split-major node tables (ops/forest.py), vs the plain
-    #   raw-threshold predict (ops/predict.py). auto: on wherever the model
-    #   is eligible (a constructed train_set supplies bin mappers, node
-    #   tables within FOREST_VMEM_BUDGET); off: always the plain predict.
+    #   BIN-space split-major node tables (ops/forest.py), vs the
+    #   raw-threshold walk (ops/predict.predict_raw). auto: on wherever the
+    #   model is eligible (a constructed train_set supplies bin mappers,
+    #   node tables within FOREST_VMEM_BUDGET); off: always the raw walk.
     tpu_goss_compact: str = "auto"   # auto|off|on: GOSS row compaction —
     #   after the sampler emits the inbag mask, a device sort-by-inbag +
     #   static-shape slice packs the surviving rows into a compact work

@@ -1,5 +1,29 @@
-// Forest-at-once ensemble inference in BIN space, for Hopper (sm_90a).
+// Forest-at-once ensemble inference, for Hopper (sm_90a): one walk
+// kernel, templated on what a row holds, with two entry points.
+//   forest_predict: (N, F) i32 BIN-space rows and the ForestPack (B8).
+//   forest_raw: (N, F) f32 raw rows and the PackedSplits tables, the
+//     raw-threshold walk.
+// Both share the grid, the staging, the link walk, the linear leaves and
+// the sums below; a row type (BinRow, RawRow) gives the step's test, the
+// category key and the entry's links.
 //
+// forest_raw replaces the XLA function lightgbm_tpu/ops/predict.py:
+// predict_raw_impl (its _route_tree fori_loop and the grouped sums),
+// which the JAX serving session jits for any model without a BIN-space
+// pack: a model read from its text, a replica's published model, an
+// online continue-mode candidate trained on other bins. Its contract is
+// the port's plain twin ops/predict.predict_raw_impl: the numerical test
+// v <= threshold in f32, NaN -> 0 unless the missing type is NaN (then
+// the default direction), |v| <= 1e-35 -> the default direction under
+// the Zero missing type, categorical set membership of int(v)
+// (non-finite values as -1). Its entries (ops/forest.raw_walk) hold
+// {feature | categorical << 31, the f32 threshold's bits, missing type |
+// default_left << 2 | next_right << 3, next_left}: 29- and 32-bit links,
+// so any depth walks. One class is summed as below; K classes walk all
+// groups in one span, so each class chains its groups in order from 0.f
+// as the twin does: without linear leaves it equals the twin bit for bit.
+//
+// forest_predict:
 // Replaces the TPU kernel lightgbm_tpu/ops/forest.py:forest_predict_impl
 // (pallas_call "forest_predict", inner `kernel`). Same contract: (N, F) i32
 // inner-feature bins (+ (N, F) f32 raw rows for linear leaves) and the
@@ -47,6 +71,10 @@
 //     numerical step is 13 instructions; the categorical set test is
 //     compiled only into the kernel for packs that have categorical
 //     rounds.
+//   tables in device memory (the raw walk only): a group whose entries
+//     and leaf values do not fit a block's shared memory (more than
+//     ops/forest.FOREST_MAX_ROUNDS rounds) is walked from device memory,
+//     entry by entry; only the passes' rows are staged.
 //   sums: the 8 lanes of a row hold its group's 8 leaf values; three
 //     __shfl_xor_sync steps (xor 4, 2, 1) leave ((v0+v4)+(v2+v6))+
 //     ((v1+v5)+(v3+v7)) in lane 0: the oracle's halving association
@@ -61,6 +89,7 @@
 //     plain twin bit for bit. Every result repeats run to run (no atomics
 //     on values).
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "smem.cuh"
@@ -71,19 +100,21 @@ constexpr int kThreads = 256;
 constexpr int kTB = 8;                       // trees of a group, lanes of a set
 constexpr int kWarpRows = 32 / kTB;          // rows of a warp in a pass
 constexpr int kPassRows = kThreads / kTB;    // rows of a pass
-constexpr int kEnd = 0xffff;                 // no link: the walk ends
+constexpr int kEnd = 0xffff;                 // BIN links: the walk ends
+constexpr int kRawEnd = (1 << 29) - 1;       // raw links: the walk ends
 constexpr int kFeatMask = 0x7fffffff;        // sign bit: categorical round
+constexpr float kZero = 1e-35f;              // ops/predict.K_ZERO in f32
 constexpr unsigned kFull = 0xffffffffu;
 
-struct ForestArgs {
-  const int* bins;             // (n, F)
+struct WalkArgs {
+  const void* rows;            // (n, F) i32 bins or f32 raw values
   const float* X;              // (n, F) raw rows, linear leaves only
   int n, F;
   const int4* nodes;           // (R, T) walk entries
   const int* first;            // (T,)
   const float* value_of_slot;  // (T, L)
   const int* tree_class;       // (T,)
-  const int* cat_bins;         // (R, T, Kc), pad -2
+  const int* cats;             // (R, T, Kc) left-routing set, pad -2
   const float* const_of_slot;  // (T, L)
   const float* coeff;          // (T, L, Km)
   const int* coeff_feat;       // (T, L, Km)
@@ -95,6 +126,43 @@ struct ForestArgs {
   float* part;                 // (spans, n, K) partials
   unsigned* ticket;            // (chunks,), zero between launches
   float* out;                  // (n, K)
+};
+
+// A BIN-space row (forest_predict): entry {feature | cat, tbin, miss,
+// next_left | next_right << 16}; miss is INT_MIN where the movable-missing
+// bin keeps the threshold's direction.
+struct BinRow {
+  using Elem = int;
+  __device__ static bool numerical(int4 e, int c) {
+    return (c <= e.y) != (c == e.z);
+  }
+  __device__ static int cat_key(int c) { return c; }
+  __device__ static int next(int4 e, bool go) {
+    const unsigned w = static_cast<unsigned>(e.w);
+    return static_cast<int>(go ? w & 0xffffu : w >> 16);
+  }
+};
+
+// A raw f32 row (forest_raw): ops/predict._route_trees' decision,
+// operation for operation.
+struct RawRow {
+  using Elem = float;
+  __device__ static bool numerical(int4 e, float v) {
+    const int mt = e.z & 3;
+    const bool dl = (e.z >> 2) & 1;
+    const bool nan = isnan(v);
+    const float u = (nan && mt != 2) ? 0.f : v;
+    bool go = u <= __int_as_float(e.y);
+    if (mt == 2 && nan) go = dl;
+    if (mt == 1 && fabsf(u) <= kZero) go = dl;
+    return go;
+  }
+  __device__ static int cat_key(float v) {
+    return isfinite(v) ? static_cast<int>(v) : -1;
+  }
+  __device__ static int next(int4 e, bool go) {
+    return go ? e.w : static_cast<int>(static_cast<unsigned>(e.z) >> 3);
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -123,37 +191,42 @@ __device__ __forceinline__ void cp_async_wait(bool one_in_flight) {
   }
 }
 
-// Copy `ints` i32 from 16-byte aligned `src` to 16-byte aligned `dst`
-// with the `lanes` threads from `lane`: 16 bytes a thread, the tail 4.
-__device__ __forceinline__ void stage_ints(int* dst, const int* src,
-                                           int ints, int lane, int lanes) {
-  const int vec = ints >> 2;
+// Copy `words` 4-byte words from 16-byte aligned `src` to 16-byte aligned
+// `dst` with the `lanes` threads from `lane`: 16 bytes a thread, the tail 4.
+__device__ __forceinline__ void stage_words(int* dst, const int* src,
+                                            int words, int lane, int lanes) {
+  const int vec = words >> 2;
   for (int k = lane; k < vec; k += lanes) {
     cp_async16(dst + 4 * k, src + 4 * k);
   }
-  for (int k = 4 * vec + lane; k < ints; k += lanes) {
+  for (int k = 4 * vec + lane; k < words; k += lanes) {
     cp_async4(dst + k, src + k);
   }
 }
 
-// Whether a row with bin c goes left at round r of tree t (entry e).
+// Whether a row with value c goes left at round r of tree t (entry e).
 // Categorical rounds exist only in a kCat instantiation: the test in
 // every walk's loop made the walk up to 1.8x slower.
-template <bool kCat>
-__device__ __forceinline__ bool goes_left(const ForestArgs& a, int4 e,
-                                          int c, int r, int t) {
+template <class Row, bool kCat>
+__device__ __forceinline__ bool goes_left(const WalkArgs& a, int4 e,
+                                          typename Row::Elem c, int r,
+                                          int t) {
   if (kCat && e.x < 0) {
-    const int* cb = a.cat_bins + ((size_t)r * a.T + t) * a.Kc;
+    const int key = Row::cat_key(c);
+    const int* cb = a.cats + ((size_t)r * a.T + t) * a.Kc;
     bool go = false;
-    for (int k = 0; k < a.Kc; ++k) go |= (__ldg(cb + k) == c);
+    for (int k = 0; k < a.Kc; ++k) go |= (__ldg(cb + k) == key);
     return go;
   }
-  return (c <= e.y) != (c == e.z);
+  return Row::numerical(e, c);
 }
 
-template <bool kStaged, bool kCat>
+// kStaged: the passes' rows in shared memory; kShared: the group's
+// entries and leaf values in shared memory (else read from device memory).
+template <class Row, bool kStaged, bool kCat, bool kShared>
 __global__ void __launch_bounds__(kThreads, 4)
-forest_walk_kernel(ForestArgs a) {
+forest_walk_kernel(WalkArgs a) {
+  using Elem = typename Row::Elem;
   extern __shared__ __align__(16) unsigned char s_dyn[];
   __shared__ int s_first[kTB];
   __shared__ int s_cls[kTB];
@@ -162,8 +235,10 @@ forest_walk_kernel(ForestArgs a) {
   // round-major: a set's 8 lanes read 8 different 16-byte bank groups
   int4* s_node = reinterpret_cast<int4*>(s_dyn);                // (R, kTB)
   float* s_val = reinterpret_cast<float*>(s_node + kTB * R);     // (L, kTB)
-  int* s_bins = reinterpret_cast<int*>(s_val + kTB * L);  // (warps, 2, rows)
-  const int warp_ints = kWarpRows * F;
+  int* s_rows = kShared ? reinterpret_cast<int*>(s_val + kTB * L)
+                        : reinterpret_cast<int*>(s_dyn);  // (warps, 2, rows)
+  const int warp_words = kWarpRows * F;
+  const Elem* rows = static_cast<const Elem*>(a.rows);
 
   const int chunk = blockIdx.x, sp = blockIdx.y, spans = gridDim.y;
   const int g_lo = sp * a.span, g_hi = min(a.T / kTB, g_lo + a.span);
@@ -173,13 +248,14 @@ forest_walk_kernel(ForestArgs a) {
   const int warp = threadIdx.x >> 5;
   const unsigned lane = threadIdx.x & 31;
   const int set = lane / kTB, j = lane % kTB;
-  int* w_bins = s_bins + warp * 2 * warp_ints;
+  int* w_rows = s_rows + warp * 2 * warp_words;
   // each warp stages its own rows of a pass: no block barrier per pass
   auto stage = [&](int p, int b) {
     const int r0 = row_lo + p * kPassRows + warp * kWarpRows;
     if (r0 < row_hi) {
-      stage_ints(w_bins + b * warp_ints, a.bins + (size_t)r0 * F,
-                 min(kWarpRows, row_hi - r0) * F, lane, 32);
+      stage_words(w_rows + b * warp_words,
+                  reinterpret_cast<const int*>(rows + (size_t)r0 * F),
+                  min(kWarpRows, row_hi - r0) * F, lane, 32);
     }
   };
 
@@ -189,13 +265,15 @@ forest_walk_kernel(ForestArgs a) {
     __syncthreads();                 // the last group's tables are free
     // the group's entries and leaf values, transposed to (round, tree)
     // and (slot, tree): one commit group
-    for (int k = threadIdx.x; k < kTB * R; k += kThreads) {
-      cp_async16(s_node + k,
-                 a.nodes + (size_t)(k / kTB) * a.T + t0 + k % kTB);
-    }
-    for (int k = threadIdx.x; k < kTB * L; k += kThreads) {
-      cp_async4(s_val + k,
-                a.value_of_slot + (size_t)(t0 + k % kTB) * L + k / kTB);
+    if (kShared) {
+      for (int k = threadIdx.x; k < kTB * R; k += kThreads) {
+        cp_async16(s_node + k,
+                   a.nodes + (size_t)(k / kTB) * a.T + t0 + k % kTB);
+      }
+      for (int k = threadIdx.x; k < kTB * L; k += kThreads) {
+        cp_async4(s_val + k,
+                  a.value_of_slot + (size_t)(t0 + k % kTB) * L + k / kTB);
+      }
     }
     cp_async_commit();
     if (kStaged) stage(0, 0);
@@ -224,18 +302,22 @@ forest_walk_kernel(ForestArgs a) {
       const bool live = row < row_hi;
       float v = 0.f;
       if (live) {
-        const int* brow = kStaged ? w_bins + b * warp_ints + set * F
-                                  : a.bins + (size_t)row * F;
+        const Elem* brow =
+            kStaged ? reinterpret_cast<const Elem*>(w_rows + b * warp_words) +
+                          set * F
+                    : rows + (size_t)row * F;
         const int4* nd = s_node + j;  // the lane's tree, round-major
+        const int4* gd = a.nodes + t;
         int r = s_first[j], state = 0;
-        while (r < R) {               // kEnd (> R) ends it; links go forward
-          const int4 e = nd[r * kTB];
-          const bool go = goes_left<kCat>(a, e, brow[e.x & kFeatMask], r, t);
-          const unsigned links = static_cast<unsigned>(e.w);
+        while (r < R) {               // an end link (> R) ends it
+          const int4 e = kShared ? nd[r * kTB] : __ldg(gd + (size_t)r * a.T);
+          const bool go =
+              goes_left<Row, kCat>(a, e, brow[e.x & kFeatMask], r, t);
           if (!go) state = r + 1;
-          r = static_cast<int>(go ? links & 0xffffu : links >> 16);
+          r = Row::next(e, go);
         }
-        v = s_val[state * kTB + j];
+        v = kShared ? s_val[state * kTB + j]
+                    : __ldg(a.value_of_slot + (size_t)t * L + state);
         if (a.has_linear) {
           const size_t o = (size_t)t * L + state;
           const float* cf = a.coeff + o * a.Km;
@@ -302,16 +384,98 @@ forest_walk_kernel(ForestArgs a) {
   if (threadIdx.x == 0) a.ticket[chunk] = 0;
 }
 
+// The instantiations an entry point launches: every (staged, cat) pair,
+// and for the raw rows the device-memory tables too.
+template <class Row, bool kShared>
+void variants(const void** fns) {
+  fns[0] = reinterpret_cast<const void*>(
+      forest_walk_kernel<Row, true, false, kShared>);
+  fns[1] = reinterpret_cast<const void*>(
+      forest_walk_kernel<Row, false, false, kShared>);
+  fns[2] = reinterpret_cast<const void*>(
+      forest_walk_kernel<Row, true, true, kShared>);
+  fns[3] = reinterpret_cast<const void*>(
+      forest_walk_kernel<Row, false, true, kShared>);
+}
+
 // Raise every variant's dynamic shared-memory limit once (smem.cuh);
 // `limit` is then the most a launch of any variant may ask for.
 cudaError_t raise_smem(int* limit) {
   thread_local int raised[lgbt_smem::kMaxDevices] = {};
-  const void* fns[] = {
-      reinterpret_cast<const void*>(forest_walk_kernel<true, false>),
-      reinterpret_cast<const void*>(forest_walk_kernel<false, false>),
-      reinterpret_cast<const void*>(forest_walk_kernel<true, true>),
-      reinterpret_cast<const void*>(forest_walk_kernel<false, true>)};
-  return lgbt_smem::raise_once(fns, 4, raised, limit);
+  const void* fns[12];
+  variants<BinRow, true>(fns);
+  variants<RawRow, true>(fns + 4);
+  variants<RawRow, false>(fns + 8);
+  return lgbt_smem::raise_once(fns, 12, raised, limit);
+}
+
+template <class Row, bool kShared>
+void launch(const WalkArgs& a, dim3 grid, int smem, cudaStream_t s,
+            int staged, int has_cat) {
+  if (staged && has_cat) {
+    forest_walk_kernel<Row, true, true, kShared>
+        <<<grid, kThreads, smem, s>>>(a);
+  } else if (staged) {
+    forest_walk_kernel<Row, true, false, kShared>
+        <<<grid, kThreads, smem, s>>>(a);
+  } else if (has_cat) {
+    forest_walk_kernel<Row, false, true, kShared>
+        <<<grid, kThreads, smem, s>>>(a);
+  } else {
+    forest_walk_kernel<Row, false, false, kShared>
+        <<<grid, kThreads, smem, s>>>(a);
+  }
+}
+
+// The checks and arguments both entry points share; returns the status
+// of a refused plan, else cudaSuccess with `a` filled.
+cudaError_t prepare(WalkArgs* a, const void* rows, const void* X, int n,
+                    int F, const void* nodes, const void* first,
+                    const void* value_of_slot, const void* tree_class,
+                    const void* cats, const void* const_of_slot,
+                    const void* coeff, const void* coeff_feat,
+                    const void* coeff_mask, int R, int T, int L, int K,
+                    int Kc, int Km, int has_linear, int rows_per_block,
+                    int chunks, int span, int smem, void* part, void* ticket,
+                    void* out) {
+  if (n < 1 || F < 1 || R < 1 || L != R + 1 || T < kTB || T % kTB ||
+      K < 1 || rows_per_block < kPassRows ||
+      rows_per_block % kPassRows || chunks < 1 ||
+      (long long)chunks * rows_per_block < n || span < 1 || smem < 0 ||
+      reinterpret_cast<uintptr_t>(rows) % 16 ||
+      reinterpret_cast<uintptr_t>(nodes) % 16) {
+    return cudaErrorInvalidValue;
+  }
+  int limit = 0;
+  cudaError_t e = raise_smem(&limit);
+  if (e != cudaSuccess) return e;
+  if (smem > limit) return cudaErrorInvalidValue;
+  a->rows = rows;
+  a->X = static_cast<const float*>(X);
+  a->n = n;
+  a->F = F;
+  a->nodes = static_cast<const int4*>(nodes);
+  a->first = static_cast<const int*>(first);
+  a->value_of_slot = static_cast<const float*>(value_of_slot);
+  a->tree_class = static_cast<const int*>(tree_class);
+  a->cats = static_cast<const int*>(cats);
+  a->const_of_slot = static_cast<const float*>(const_of_slot);
+  a->coeff = static_cast<const float*>(coeff);
+  a->coeff_feat = static_cast<const int*>(coeff_feat);
+  a->coeff_mask = static_cast<const float*>(coeff_mask);
+  a->R = R;
+  a->T = T;
+  a->L = L;
+  a->K = K;
+  a->Kc = Kc;
+  a->Km = Km;
+  a->has_linear = has_linear;
+  a->rows_per_block = rows_per_block;
+  a->span = span;
+  a->part = static_cast<float*>(part);
+  a->ticket = static_cast<unsigned*>(ticket);
+  a->out = static_cast<float*>(out);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -335,55 +499,54 @@ int forest_predict(const void* bins, const void* X, int n, int F,
                    int rows_per_block, int chunks, int span, int smem,
                    void* part,
                    void* ticket, void* out, void* stream) {
-  if (n < 1 || F < 1 || R < 1 || R >= kEnd || L != R + 1 || T < kTB ||
-      T % kTB || K < 1 || rows_per_block < kPassRows ||
-      rows_per_block % kPassRows || chunks < 1 ||
-      (long long)chunks * rows_per_block < n || span < 1 ||
-      (K == 1 && span != 1) || smem < 0 ||
-      reinterpret_cast<uintptr_t>(bins) % 16 ||
-      reinterpret_cast<uintptr_t>(nodes) % 16) {
+  if (R >= kEnd || (K == 1 && span != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int limit = 0;
-  cudaError_t e = raise_smem(&limit);
+  WalkArgs a;
+  cudaError_t e = prepare(&a, bins, X, n, F, nodes, first, value_of_slot,
+                          tree_class, cat_bins, const_of_slot, coeff,
+                          coeff_feat, coeff_mask, R, T, L, K, Kc, Km,
+                          has_linear, rows_per_block, chunks, span, smem,
+                          part, ticket, out);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-  ForestArgs a;
-  a.bins = static_cast<const int*>(bins);
-  a.X = static_cast<const float*>(X);
-  a.n = n;
-  a.F = F;
-  a.nodes = static_cast<const int4*>(nodes);
-  a.first = static_cast<const int*>(first);
-  a.value_of_slot = static_cast<const float*>(value_of_slot);
-  a.tree_class = static_cast<const int*>(tree_class);
-  a.cat_bins = static_cast<const int*>(cat_bins);
-  a.const_of_slot = static_cast<const float*>(const_of_slot);
-  a.coeff = static_cast<const float*>(coeff);
-  a.coeff_feat = static_cast<const int*>(coeff_feat);
-  a.coeff_mask = static_cast<const float*>(coeff_mask);
-  a.R = R;
-  a.T = T;
-  a.L = L;
-  a.K = K;
-  a.Kc = Kc;
-  a.Km = Km;
-  a.has_linear = has_linear;
-  a.rows_per_block = rows_per_block;
-  a.span = span;
-  a.part = static_cast<float*>(part);
-  a.ticket = static_cast<unsigned*>(ticket);
-  a.out = static_cast<float*>(out);
   const dim3 grid(chunks, (T / kTB + span - 1) / span);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged && has_cat) {
-    forest_walk_kernel<true, true><<<grid, kThreads, smem, s>>>(a);
-  } else if (staged) {
-    forest_walk_kernel<true, false><<<grid, kThreads, smem, s>>>(a);
-  } else if (has_cat) {
-    forest_walk_kernel<false, true><<<grid, kThreads, smem, s>>>(a);
+  launch<BinRow, true>(a, grid, smem, static_cast<cudaStream_t>(stream),
+                       staged, has_cat);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The raw walk over (n, F) f32 rows X, which the linear leaves read too;
+// cat_values is (R, T, Kc). The plan is ops/forest.forest_plan's with
+// raw=True: span 1 for one class, every group for K classes (each class
+// then chains its groups in order), and shared = 0 where the group's
+// tables do not fit a block's shared memory.
+int forest_raw(const void* X, int n, int F, const void* nodes,
+               const void* first, const void* value_of_slot,
+               const void* tree_class, const void* cat_values,
+               const void* const_of_slot, const void* coeff,
+               const void* coeff_feat, const void* coeff_mask, int R, int T,
+               int L, int K, int Kc, int Km, int has_cat, int has_linear,
+               int staged, int shared, int rows_per_block, int chunks,
+               int span, int smem, void* part, void* ticket, void* out,
+               void* stream) {
+  const int groups = T / kTB;
+  if (R >= kRawEnd || Kc < 1 || Km < 1 || (K == 1 && span != 1) ||
+      (K > 1 && span != groups)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WalkArgs a;
+  cudaError_t e = prepare(&a, X, X, n, F, nodes, first, value_of_slot,
+                          tree_class, cat_values, const_of_slot, coeff,
+                          coeff_feat, coeff_mask, R, T, L, K, Kc, Km,
+                          has_linear, rows_per_block, chunks, span, smem,
+                          part, ticket, out);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(chunks, (groups + span - 1) / span);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    launch<RawRow, true>(a, grid, smem, s, staged, has_cat);
   } else {
-    forest_walk_kernel<false, false><<<grid, kThreads, smem, s>>>(a);
+    launch<RawRow, false>(a, grid, smem, s, staged, has_cat);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """Continual refit with a shadow-scoring promotion gate (PyTorch port of
-``lightgbm_tpu/online/trainer.py`` without the fleet).
+``lightgbm_tpu/online/trainer.py``).
 
 :class:`OnlineTrainer` closes the loop "train and serve in one process":
 labeled traffic is ingested into a bounded
@@ -33,10 +33,24 @@ the incumbent copy, the watch's pair) lives on the serving booster's
 device (``device_type``); a continue-mode candidate trains there too, on
 the worker thread beside the serving threads.
 
-The fleet knobs of the JAX trainer (``store``, ``replay``, ``holder_id``,
-``lease_ttl_s``, ``compact_bytes``, ``keep_artifacts``, ``snapshot_rows``,
-``heartbeat_interval_s``, ``advertise_url``) raise when set: the fleet is
-queue A item 8 of ROADMAP.md.
+- **Durability** (``store``): a :class:`~lightgbm_tpu_torch.fleet.FleetStore`
+  persists every ingest chunk, every gate verdict (with the win streak
+  and a consumed-row watermark) and publishes every promotion and
+  rollback as a version-tokened whole-model artifact. On boot the trainer
+  replays the store: rows at or below the watermark re-enter only the
+  shadow window (they were trained on already), rows above it re-enter
+  both, and the win streak resumes where the dead process left it.
+- **Failover** (``lease_ttl_s`` > 0): the trainer starts in standby (it
+  persists ingest but neither buffers nor trains) until it wins the
+  store's trainer lease. On acquisition it arms publish fencing with its
+  lease epoch, rebuilds its state through the replay path and goes
+  active; the worker renews the lease every ttl/3 and demotes itself to
+  standby the moment a renewal fails, from which point the fencing epoch
+  refuses its publishes. ``compact_bytes`` > 0 compacts the store
+  (snapshot + truncate, ``FleetStore.compact``; ``snapshot_rows`` > 0
+  moves the compacted chunks into a snapshot blob) whenever the event
+  log outgrows that bound, after the gate verdict that made the state
+  durable.
 
 Telemetry: ``online/ingested_rows``, ``online/train_runs``,
 ``online/promotions``, ``online/rejections``, ``online/train_errors``
@@ -46,6 +60,7 @@ port's span recorder (a no-op until the observability slice).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -207,20 +222,6 @@ class OnlineTrainer:
                  advertise_url: Optional[str] = None,
                  candidate_factory=None,
                  start: bool = True) -> None:
-        from ..learner import _refuse
-
-        fleet = [name for name, on in (
-            ("store", store is not None), ("replay", not replay),
-            ("holder_id", holder_id is not None),
-            ("lease_ttl_s", lease_ttl_s > 0),
-            ("compact_bytes", bool(compact_bytes)),
-            ("keep_artifacts", bool(keep_artifacts)),
-            ("snapshot_rows", bool(snapshot_rows)),
-            ("heartbeat_interval_s", heartbeat_interval_s > 0),
-            ("advertise_url", bool(advertise_url))) if on]
-        if fleet:
-            _refuse("the online trainer's fleet settings (%s)"
-                    % ", ".join(fleet), "A12, queue A item 8")
         if mode not in MODES:
             raise LightGBMError("online mode must be one of %s, got %r"
                                 % ("|".join(MODES), mode))
@@ -244,6 +245,30 @@ class OnlineTrainer:
             raise LightGBMError("online trigger_rows must be >= 1")
         if promote_threshold < 0:
             raise LightGBMError("online promote_threshold must be >= 0")
+        if lease_ttl_s < 0:
+            raise LightGBMError("online lease_ttl_s must be >= 0 "
+                                "(0 disables failover leasing), got %g"
+                                % lease_ttl_s)
+        if compact_bytes < 0 or keep_artifacts < 0:
+            raise LightGBMError("online compact_bytes/keep_artifacts "
+                                "must be >= 0")
+        if snapshot_rows < 0:
+            raise LightGBMError("online snapshot_rows must be >= 0 "
+                                "(0 disables snapshot compaction), got %d"
+                                % snapshot_rows)
+        if snapshot_rows > 0 and store is None:
+            raise LightGBMError("online snapshot_rows needs a fleet "
+                                "store to snapshot into")
+        if heartbeat_interval_s < 0:
+            raise LightGBMError("online heartbeat_interval_s must be "
+                                ">= 0 (0 disables heartbeats), got %g"
+                                % heartbeat_interval_s)
+        if lease_ttl_s > 0 and store is None:
+            raise LightGBMError("online lease_ttl_s needs a fleet store "
+                                "to hold the lease in")
+        if compact_bytes > 0 and store is None:
+            raise LightGBMError("online compact_bytes needs a fleet "
+                                "store to compact")
         self._booster = booster
         self._mode = mode
         self._trigger_rows = int(trigger_rows)
@@ -256,6 +281,24 @@ class OnlineTrainer:
         self._patience = int(promote_patience)
         self._rb_threshold = float(rollback_threshold)
         self._rb_min_rows = int(rollback_min_rows)
+        # the fleet store is duck-typed (append_ingest/append_gate/
+        # publish/events, plus acquire/renew/release_lease and compact
+        # when the failover and retention knobs are on), so tests can
+        # inject fakes
+        self._store = store
+        self._lease_ttl = float(lease_ttl_s)
+        self._holder = str(holder_id) if holder_id \
+            else "pid-%d" % os.getpid()
+        self._compact_bytes = int(compact_bytes)
+        self._keep_artifacts = int(keep_artifacts)
+        self._snapshot_rows = int(snapshot_rows)
+        # the URL this trainer's serving endpoint is reachable at,
+        # advertised in the lease record at acquire/renew time (the
+        # leader hint ingest forwarding follows). Public and mutable: a
+        # server bound to an ephemeral port learns its address after the
+        # trainer exists, and the next renewal advertises it.
+        self.advertise_url = str(advertise_url) if advertise_url else None
+        self._replay_on_acquire = bool(replay)
         # test/extension hook: a callable (X, y) -> Booster replaces the
         # default candidate build (degraded-candidate gate tests)
         self._candidate_factory = candidate_factory
@@ -292,15 +335,32 @@ class OnlineTrainer:
         self._last_losses: Optional[Dict[str, float]] = None
         self._rollback: Optional[tuple] = None
         self._last_train_t = obs.monotonic()
-        # hysteresis win-streak, consumed-row count and the
-        # post-promotion live watch
+        # hysteresis win-streak, consumed-row watermark (rows drained
+        # into a train cycle: the replay boundary between shadow-only
+        # and trainable traffic) and the post-promotion live watch
         self._wins = 0
         self._consumed_rows = 0
+        self._replayed_rows = 0
         self._auto_rollbacks = 0
         self._last_promotion_ts = 0.0
         self._last_rollback_ts = 0.0
         self._watch: Optional[Dict[str, Any]] = None
         self._watch_chunks: List[Tuple[np.ndarray, np.ndarray]] = []
+        # failover: with a lease ttl the trainer boots in standby (no
+        # replay, no training) until it wins the lease; try_acquire()
+        # then replays and goes active with fencing armed
+        self._standby = self._lease_ttl > 0
+        self._lease_epoch = 0
+        self._lease_lost = 0
+        self._last_renew_t = obs.monotonic()
+        # periodic heartbeats into the store's sidecar (role, version,
+        # lease, counters) for the /fleet/status rollup
+        self._hb_interval = float(heartbeat_interval_s)
+        self._hb_last = 0.0
+        self._hb_sent = 0
+        self._hb_errors = 0
+        if self._store is not None and replay and not self._standby:
+            self._replay()
         # pre-touch the promotion counters so a freshly started online
         # server shows the whole family before the first train cycle
         telemetry.count("online/promotions", 0)
@@ -318,9 +378,24 @@ class OnlineTrainer:
         """Add labeled rows (features, labels) to the training buffer and
         shadow window; returns the buffered row count. Called from HTTP
         handler threads (POST /ingest) or embedding code; never blocks on
-        training."""
+        training.
+
+        With a fleet store the chunk is persisted BEFORE the in-memory
+        push: a crash after the append replays the chunk on restart
+        instead of losing it; a crash before it loses a chunk the caller
+        never saw acknowledged."""
         X_arr = np.asarray(X, np.float64)
         y_arr = np.asarray(y, np.float64).ravel()
+        if self._store is not None:
+            self._store.append_ingest(X_arr, y_arr)
+        with self._lock:
+            standby = self._standby
+        if standby:
+            # a standby keeps no local state: on takeover it rebuilds
+            # everything from the log (which just got this chunk), so
+            # buffering here would count it twice
+            telemetry.count("online/ingested_rows", int(y_arr.size))
+            return 0
         buffered = self.buffer.push(X_arr, y_arr)
         self._feed_watch(X_arr, y_arr)
         telemetry.count("online/ingested_rows", int(y_arr.size))
@@ -348,12 +423,103 @@ class OnlineTrainer:
             with self._lock:
                 self._lock.notify_all()
 
+    # --------------------------------------------------------------- replay
+    def _replay(self) -> None:
+        """Rebuild buffer and hysteresis state from the fleet store.
+
+        Gate events carry the consumed-row watermark: ingest rows at or
+        below it were already drained into a train cycle by the dead
+        process, so they re-enter ONLY the shadow window (training on
+        them again would count their gradients twice); rows above it
+        re-enter the training buffer too. The win streak resumes from the
+        newest gate event.
+
+        A ``compact`` record stands in for everything truncated before
+        it: its watermark/wins snapshot seeds the gate fold, and its
+        ``row_base`` seeds the global row offset, so the retained ingest
+        suffix replays at the offsets it first held: replay from a
+        compacted log equals replay from the full log bit for bit."""
+        events = list(self._store.events())
+        watermark = 0
+        wins = 0
+        for e in events:
+            kind = e.get("kind")
+            if kind == "compact":
+                watermark = max(watermark, int(e.get("watermark", 0)))
+                wins = int(e.get("wins", 0))
+            elif kind == "gate":
+                watermark = max(watermark, int(e.get("consumed_rows", 0)))
+                wins = int(e.get("wins", 0))
+        with self._lock:
+            self._wins = wins
+        seen = 0
+        replayed = 0
+
+        def push_chunk(lo: int, e: Dict[str, Any]) -> int:
+            try:
+                X = np.asarray(e["rows"], np.float64)
+                y = np.asarray(e["labels"], np.float64).ravel()
+            except (KeyError, TypeError, ValueError):
+                return 0   # a malformed entry must not block the boot
+            if X.ndim == 1:
+                X = X[None, :]
+            if len(y) == 0 or X.shape[0] != len(y):
+                return 0
+            hi = lo + len(y)
+            if hi <= watermark:
+                self.buffer.push(X, y, training=False)
+            elif lo >= watermark:
+                self.buffer.push(X, y)
+            else:
+                # the chunk straddles the watermark: only its untrained
+                # tail re-enters the training buffer
+                cut = watermark - lo
+                self.buffer.push(X[:cut], y[:cut], training=False)
+                self.buffer.push(X[cut:], y[cut:])
+            return len(y)
+
+        for e in events:
+            kind = e.get("kind")
+            if kind == "compact":
+                if isinstance(e.get("snapshot"), dict):
+                    # snapshot bootstrap: the record's row_base already
+                    # sits past the snapshotted span, so its chunks are
+                    # pushed here at their recorded offsets; a missing
+                    # or corrupt snapshot degrades to no chunks with the
+                    # offsets intact (lost buffer warmth, never a
+                    # misaligned replay)
+                    loader = getattr(self._store, "snapshot_chunks",
+                                     None)
+                    if loader is not None:
+                        for lo, _hi, ev in loader(e):
+                            replayed += push_chunk(lo, ev)
+                seen = max(seen, int(e.get("row_base", 0)))
+                continue
+            if kind != "ingest":
+                continue
+            n = push_chunk(seen, e)
+            seen += n
+            replayed += n
+        with self._lock:
+            self._consumed_rows = min(watermark, seen)
+            self._replayed_rows = replayed
+            wins_now = self._wins
+        if replayed:
+            telemetry.count("fleet/replayed_rows", replayed)
+            Log.info("fleet: replayed %d ingest rows (%d shadow-only at "
+                     "watermark %d), win-streak=%d", replayed,
+                     min(watermark, seen), watermark, wins_now)
+
     # --------------------------------------------------------------- worker
     def _worker(self) -> None:
         # poll granularity: the interval trigger when set, else a coarse
         # tick — row triggers arrive via notify so the tick only bounds
         # shutdown latency
         poll = self._interval if self._interval > 0 else 0.5
+        if self._lease_ttl > 0:
+            # the renewal must fire well inside the ttl however coarse
+            # the train trigger is
+            poll = min(poll, self._lease_ttl / 3.0)
         while True:
             with self._lock:
                 if self._stopped:
@@ -361,6 +527,12 @@ class OnlineTrainer:
                 self._lock.wait(timeout=poll)
                 if self._stopped:
                     return
+            active = self._lease_ttl <= 0 or self._lease_tick()
+            # standbys heartbeat too: the /fleet/status rollup shows the
+            # warm spare waiting on the lease, not just the holder
+            self.maybe_heartbeat()
+            if not active:
+                continue   # standby (or just demoted): no watch, no train
             try:
                 # the live watch outranks training: a regressed model
                 # should be rolled back before another cycle builds a
@@ -394,15 +566,175 @@ class OnlineTrainer:
             return obs.monotonic() - last >= self._interval
         return False
 
+    # --------------------------------------------------------------- failover
+    def try_acquire(self) -> bool:
+        """One lease-acquisition attempt. On success: arm publish
+        fencing with the new epoch, rebuild state from the log through
+        the replay path (the watermark and win streak the dead holder
+        made durable), go active. Returns True when this trainer is (now)
+        the active publisher; always True when leasing is off."""
+        if self._lease_ttl <= 0:
+            return True
+        with self._lock:
+            if not self._standby:
+                return True
+        try:
+            # url= only when advertised: fake stores in tests take two
+            # positionals
+            if self.advertise_url:
+                epoch = self._store.acquire_lease(
+                    self._holder, self._lease_ttl,
+                    url=self.advertise_url)
+            else:
+                epoch = self._store.acquire_lease(self._holder,
+                                                  self._lease_ttl)
+        except Exception as exc:
+            Log.warning("fleet: lease acquisition failed: %s: %s",
+                        type(exc).__name__, exc)
+            return False
+        if epoch is None:
+            return False
+        self._store.set_fence(self._holder, int(epoch))
+        if self._replay_on_acquire:
+            # rebuilt from the log alone: nothing this process buffered
+            # while standby (there should be nothing) survives
+            self.buffer.reset()
+            with self._lock:
+                self._wins = 0
+                self._consumed_rows = 0
+                self._replayed_rows = 0
+            self._replay()
+        with self._lock:
+            self._standby = False
+            self._lease_epoch = int(epoch)
+            self._last_renew_t = obs.monotonic()
+        telemetry.count("fleet/lease_takeovers")
+        Log.info("fleet: %s is now the ACTIVE trainer (lease epoch %d)",
+                 self._holder, epoch)
+        return True
+
+    def wait_for_lease(self, timeout_s: float) -> bool:
+        """Block until this trainer holds the lease, up to
+        ``timeout_s``. With the worker running the worker's own tick
+        acquires; without one (``start=False``) this polls
+        :meth:`try_acquire` directly."""
+        deadline = obs.monotonic() + float(timeout_s)
+        while True:
+            with self._lock:
+                if not self._standby:
+                    return True
+            if self._thread is None and self.try_acquire():
+                return True
+            remaining = deadline - obs.monotonic()
+            if remaining <= 0:
+                return False
+            time.sleep(min(0.05, remaining))
+
+    def _lease_tick(self) -> bool:
+        """Worker-side lease duty: acquire when standby, renew every
+        ttl/3 when active, demote the moment a renewal fails (the fence
+        epoch then blocks any publish this process still attempts).
+        Returns True when active."""
+        with self._lock:
+            standby = self._standby
+            epoch = self._lease_epoch
+            last_renew = self._last_renew_t
+        if standby:
+            return self.try_acquire()
+        if obs.monotonic() - last_renew < self._lease_ttl / 3.0:
+            return True
+        renewed = False
+        try:
+            if self.advertise_url:
+                renewed = self._store.renew_lease(
+                    self._holder, epoch, self._lease_ttl,
+                    url=self.advertise_url)
+            else:
+                renewed = self._store.renew_lease(self._holder, epoch,
+                                                  self._lease_ttl)
+        except Exception as exc:
+            Log.warning("fleet: lease renewal errored: %s: %s",
+                        type(exc).__name__, exc)
+        if renewed:
+            with self._lock:
+                self._last_renew_t = obs.monotonic()
+            return True
+        with self._lock:
+            self._standby = True
+            self._lease_epoch = 0
+            self._lease_lost += 1
+        telemetry.count("fleet/lease_lost")
+        Log.warning("fleet: %s lost the trainer lease (epoch %d) — "
+                    "demoting to standby", self._holder, epoch)
+        return False
+
+    # ------------------------------------------------------------- heartbeats
+    def heartbeat_doc(self) -> Dict[str, Any]:
+        """Compact node summary recorded to the store each heartbeat:
+        the trainer's half of the ``/fleet/status`` rollup (replicas
+        record the watcher's)."""
+        version = 0
+        if self._store is not None:
+            state = getattr(self._store, "state", None)
+            if state is not None:
+                try:
+                    version = int(state().get("last_published_version", 0))
+                except Exception:
+                    version = 0
+        with self._lock:
+            doc = {
+                "node": self._holder,
+                "role": ("standby" if self._standby else "active")
+                if self._lease_ttl > 0 else "solo",
+                "pid": os.getpid(),
+                "version": version,
+                "lease_epoch": self._lease_epoch,
+                "trains": self._trains,
+                "promotions": self._promotions,
+                "rejections": self._rejections,
+                "consumed_rows": self._consumed_rows,
+            }
+        doc["buffered_rows"] = self.buffer.rows
+        return doc
+
+    def maybe_heartbeat(self, force: bool = False) -> bool:
+        """Record a heartbeat when one is due (``heartbeat_interval_s``
+        elapsed; 0 disables unless ``force``). Never raises: a store that
+        cannot take a heartbeat must not perturb the train loop."""
+        if self._store is None or (self._hb_interval <= 0 and not force):
+            return False
+        record = getattr(self._store, "record_heartbeat", None)
+        if record is None:
+            return False
+        now = obs.monotonic()
+        with self._lock:
+            if not force and now - self._hb_last < self._hb_interval:
+                return False
+            self._hb_last = now
+        try:
+            ok = bool(record(self.heartbeat_doc()))
+        except Exception:
+            with self._lock:
+                self._hb_errors += 1
+            telemetry.count("fleet/heartbeat_errors")
+            return False
+        if ok:
+            with self._lock:
+                self._hb_sent += 1
+        return ok
+
     # ---------------------------------------------------------------- cycle
     def run_once(self) -> str:
         """One synchronous train cycle: drain the buffer, build a
         candidate, shadow-score it, promote or reject. Returns
         ``"promoted"``, ``"rejected"``, ``"deferred"`` (shadow win
         banked toward ``promote_patience``, no swap yet) or
-        ``"skipped"`` (not enough data). Tests call this directly with
-        ``start=False``."""
+        ``"skipped"`` (not enough data), or ``"standby"`` (this trainer
+        does not hold the lease: only the active holder trains). Tests
+        call this directly with ``start=False``."""
         with self._lock:
+            if self._standby:
+                return "standby"
             self._last_train_t = obs.monotonic()
         data = self.buffer.take_training()
         if data is None or len(data[1]) < self._min_rows:
@@ -445,8 +777,12 @@ class OnlineTrainer:
                           "rows": int(len(ys))}
                 accept = bool(np.isfinite(cand)
                               and cand <= self._threshold * cur + 1e-12)
+            # the drained rows are consumed either way (a rejected
+            # candidate's training data is gone too), so the replay
+            # watermark advances on every real cycle
             with self._lock:
                 self._consumed_rows += int(len(y))
+                consumed = self._consumed_rows
             if accept:
                 with self._lock:
                     self._wins += 1
@@ -455,19 +791,63 @@ class OnlineTrainer:
                     # hysteresis: a win is banked, not acted on, until
                     # the streak reaches promote_patience
                     telemetry.count("online/deferrals")
+                    self._record_gate("deferred", wins, consumed, losses)
+                    self._maybe_compact(wins, consumed)
                     self._finish("deferred", losses)
                     return "deferred"
                 with self._lock:
                     self._wins = 0
                 self._promote(candidate, builder.serialize(candidate), src)
+                self._record_gate("promoted", 0, consumed, losses)
+                self._maybe_compact(0, consumed)
                 self._finish("promoted", losses)
                 return "promoted"
             telemetry.count("online/rejections")
             with self._lock:
                 self._rejections += 1
                 self._wins = 0   # a loss breaks the streak
+            self._record_gate("rejected", 0, consumed, losses)
+            self._maybe_compact(0, consumed)
             self._finish("rejected", losses)
             return "rejected"
+
+    def _record_gate(self, result: str, wins: int, consumed: int,
+                     losses) -> None:
+        if self._store is None:
+            return
+        try:
+            self._store.append_gate(result, wins, consumed, losses)
+        except Exception as exc:
+            # durability is best-effort on a full or broken disk; the
+            # live promotion decision already happened
+            Log.warning("fleet: gate append failed: %s: %s",
+                        type(exc).__name__, exc)
+
+    def _maybe_compact(self, wins: int, consumed: int) -> None:
+        """Retention: once the event log outgrows ``compact_bytes``,
+        snapshot (the gate verdict just recorded made the watermark and
+        streak durable) and truncate. ``keep_rows`` is the shadow
+        window's capacity: the retained ingest suffix rebuilds both
+        windows bit for bit."""
+        if (self._store is None or self._compact_bytes <= 0
+                or not hasattr(self._store, "compact")):
+            return
+        try:
+            if self._store.log_bytes() <= self._compact_bytes:
+                return
+            kw = {}
+            if self._snapshot_rows > 0:
+                # passed only when on, so fake stores with the narrow
+                # compact signature keep working
+                kw["snapshot_rows"] = self._snapshot_rows
+            self._store.compact(watermark=consumed, wins=wins,
+                                keep_rows=self.buffer.shadow_capacity,
+                                keep_artifacts=self._keep_artifacts, **kw)
+        except Exception as exc:
+            # retention is best-effort; an uncompacted log only costs
+            # disk, never correctness
+            Log.warning("fleet: compaction failed: %s: %s",
+                        type(exc).__name__, exc)
 
     # ------------------------------------------------------------ promotion
     def _promote(self, candidate, cand_str: str, prev_str: str) -> None:
@@ -490,6 +870,18 @@ class OnlineTrainer:
         telemetry.count("online/promotions")
         telemetry.gauge("online/model_version",
                         self._booster.inner.model_version)
+        self._publish("promotion", cand_str)
+
+    def _publish(self, event: str, model_str: str,
+                 meta: Optional[Dict[str, Any]] = None) -> None:
+        if self._store is None:
+            return
+        try:
+            self._store.publish(model_str, event=event, meta=meta)
+        except Exception as exc:
+            # replicas keep serving the previous published version
+            Log.warning("fleet: publish(%s) failed: %s: %s", event,
+                        type(exc).__name__, exc)
 
     def rollback(self) -> bool:
         """Restore the model displaced by the last promotion (single
@@ -508,6 +900,9 @@ class OnlineTrainer:
             self._model_str = prev_str
             self._last_rollback_ts = time.time()
         telemetry.count("online/rollbacks")
+        # a rollback distributes like any publish: replicas converge on
+        # the newest version token, which is now the restored model
+        self._publish("rollback", prev_str)
         return True
 
     # ------------------------------------------------------------ live watch
@@ -586,14 +981,27 @@ class OnlineTrainer:
                 "promote_patience": self._patience,
                 "win_streak": self._wins,
                 "consumed_rows": self._consumed_rows,
+                "replayed_rows": self._replayed_rows,
                 "auto_rollbacks": self._auto_rollbacks,
                 "last_promotion_ts": self._last_promotion_ts,
                 "last_rollback_ts": self._last_rollback_ts,
                 "watch_armed": self._watch is not None,
                 "watch_rows": self._watch["rows"]
                 if self._watch is not None else 0,
-                "role": "solo",
+                "role": ("standby" if self._standby else "active")
+                if self._lease_ttl > 0 else "solo",
+                "lease_epoch": self._lease_epoch,
+                "lease_holder": self._holder
+                if self._lease_ttl > 0 else None,
+                "lease_lost": self._lease_lost,
+                "heartbeats": {
+                    "interval_s": self._hb_interval,
+                    "sent": self._hb_sent,
+                    "errors": self._hb_errors,
+                },
             }
+        if self._store is not None:
+            st["store"] = self._store.state()
         st["buffered_rows"] = self.buffer.rows
         st["shadow_rows"] = self.buffer.shadow_rows
         st["dropped_rows"] = self.buffer.dropped_rows
@@ -602,13 +1010,31 @@ class OnlineTrainer:
         return st
 
     # -------------------------------------------------------------- shutdown
-    def close(self, timeout: Optional[float] = None) -> None:
-        """Stop the worker (the in-flight cycle finishes). Idempotent."""
+    def close(self, timeout: Optional[float] = None, *,
+              release_lease: bool = True) -> None:
+        """Stop the worker (the in-flight cycle finishes). Idempotent.
+
+        ``release_lease=False`` leaves the lease to expire on its own (a
+        crash: the standby waits out the ttl), and the fence stays armed,
+        so this instance's late publishes still raise
+        ``StaleLeaseError`` like a real zombie's."""
         with self._lock:
             self._stopped = True
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout)
+        if self._lease_ttl > 0 and self._store is not None \
+                and release_lease:
+            with self._lock:
+                epoch = self._lease_epoch
+                active = not self._standby
+            if active:
+                try:
+                    self._store.release_lease(self._holder, epoch)
+                    self._store.clear_fence()
+                except Exception as exc:
+                    Log.warning("fleet: lease release failed: %s: %s",
+                                type(exc).__name__, exc)
 
     def __enter__(self) -> "OnlineTrainer":
         return self

@@ -13,6 +13,16 @@ the same front update as plain torch ops. Both sum leaf values in the
 ``predict_raw_impl`` oracle's grouping, so the three agree to float32
 rounding (the kernel and the twin bit for bit for one class without
 linear leaves).
+
+The raw-threshold walk serves the models that have no BIN-space pack (no
+bin mappers, or thresholds inside the serving bins): :func:`raw_walk`
+derives its tables from a ``PackedSplits`` once per pack, and
+:func:`forest_raw_impl` launches ``csrc/forest_predict.cu``'s raw entry
+point over (N, F) f32 raw rows, the same walk along :func:`walk_links`
+with f32 comparisons, reading a group's tables from device memory where
+they do not fit a block's shared memory. It equals
+``ops/predict.predict_raw_impl`` bit for bit without linear leaves;
+``ops/predict.predict_raw`` is its wrapper.
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ import torch
 
 from .kernels import CudaKernel, register, stream_of
 from .partition import sm_count
-from .predict import TREE_BATCH, accumulate_scores
+from .predict import K_ZERO, TREE_BATCH, accumulate_scores
 
 #: Bound on the node tables' bytes for a model to be eligible (the name
 #: and value of the TPU package's VMEM budget, so the same models are
@@ -50,8 +60,10 @@ FOREST_PASS_ROWS = FOREST_THREADS // FOREST_TREE_BATCH
 FOREST_SMEM_BYTES = 232448 - 128
 FOREST_SM_SMEM_BYTES = 233472
 FOREST_BLOCKS_PER_SM = 4
-#: the link that ends a walk (links are 16-bit)
+#: the link that ends a walk (the forest kernel's links are 16-bit; the
+#: raw walk's 29- and 32-bit)
 FOREST_END = 0xFFFF
+FOREST_RAW_END = (1 << 29) - 1
 #: the feature word's flag of a categorical round, and the missing bin of
 #: a round whose movable-missing bin does not change the direction (no
 #: bin is INT_MIN)
@@ -59,11 +71,14 @@ FOREST_CAT = 1 << 31
 FOREST_NO_MISS = -(1 << 31)
 
 
-def forest_smem_bytes(rounds: int, num_cols: int, staged: bool) -> int:
-    """Shared memory of one block of the kernel: a group's 16-byte node
-    entries and f32 leaf values (``rounds + 1`` slots), and, when
-    ``staged``, two buffers of a pass's rows of ``num_cols`` i32 bins."""
-    b = FOREST_TREE_BATCH * (16 * rounds + 4 * (rounds + 1))
+def forest_smem_bytes(rounds: int, num_cols: int, staged: bool,
+                      tables: bool = True) -> int:
+    """Shared memory of one block of the kernel: when ``tables``, a
+    group's 16-byte node entries and f32 leaf values (``rounds + 1``
+    slots), and, when ``staged``, two buffers of a pass's rows of
+    ``num_cols`` 4-byte values."""
+    b = FOREST_TREE_BATCH * (16 * rounds + 4 * (rounds + 1)) if tables \
+        else 0
     if staged:
         b += 2 * FOREST_PASS_ROWS * num_cols * 4
     return b
@@ -71,7 +86,8 @@ def forest_smem_bytes(rounds: int, num_cols: int, staged: bool) -> int:
 
 #: Most routing rounds (num_leaves - 1) whose group of node entries and
 #: leaf values fits the shared memory one block may use (the bins then
-#: come from device memory).
+#: come from device memory): the forest kernel's limit, past which the
+#: raw walk reads its tables from device memory.
 FOREST_MAX_ROUNDS = max(r for r in range(1, FOREST_END)
                         if forest_smem_bytes(r, 0, False)
                         <= FOREST_SMEM_BYTES)
@@ -256,33 +272,9 @@ def forest_walk(fp: ForestPack) -> ForestWalk:
     the movable-missing bin only where its default direction differs from
     the threshold's (else FOREST_NO_MISS), so the kernel's numerical step
     is go = (b <= tbin) != (b == miss)."""
-    R, T = fp.slot.shape
-    dev = fp.slot.device
     i64 = torch.int64
-    none = 1 << 40
-    ns = fp.num_splits.to(i64).clamp(0, R)
-    r = torch.arange(R, dtype=i64, device=dev)[None, :]
-    slot = fp.slot.t().to(i64)                                # (T, R)
-    # a slot outside [0, R] is never a row's: such a round is not reached
-    reach = (r < ns[:, None]) & (slot >= 0) & (slot <= R)
-    key = torch.where(reach, slot << 16 | r, none)
-    skey = torch.sort(key, dim=1).values
-    nxt = torch.cat([skey[:, 1:], torch.full((T, 1), none, dtype=i64,
-                                             device=dev)], dim=1)
-    same = (nxt != none) & ((nxt >> 16) == (skey >> 16))
-    at = torch.where(skey != none, skey & 0xFFFF, R)          # R: dropped
-    nl = torch.full((T, R + 1), FOREST_END, dtype=i64, device=dev)
-    nl.scatter_(1, at, torch.where(same, nxt & 0xFFFF, FOREST_END))
-    want = (r + 1) << 16 | (r + 1)
-    q = torch.searchsorted(skey, want.expand(T, R).contiguous())
-    kq = torch.gather(skey, 1, q.clamp(max=R - 1))
-    nr = torch.where((q < R) & (kq != none) & ((kq >> 16) == r + 1),
-                     kq & 0xFFFF, FOREST_END)
-    links = torch.where(reach, nl[:, :R] | nr << 16,
-                        FOREST_END | FOREST_END << 16)
-    k0 = skey[:, 0]
-    first = torch.where((k0 != none) & ((k0 >> 16) == 0), k0 & 0xFFFF,
-                        FOREST_END)
+    nl, nr, first = walk_links(fp.slot.t(), fp.num_splits, FOREST_END)
+    links = nl | nr << 16
     tbin = fp.tbin.t().to(i64)
     miss = fp.miss_bin.t().to(i64)
     flips = (fp.movable.t() == 1) & ((fp.default_left.t() == 1)
@@ -290,9 +282,52 @@ def forest_walk(fp: ForestPack) -> ForestWalk:
     miss = torch.where(flips, miss, FOREST_NO_MISS)
     word = fp.feature.t().to(i64) | (fp.kind.t() > 0).to(i64) * FOREST_CAT
     nodes = torch.stack([word, tbin, miss, links], dim=2).transpose(0, 1)
-    nodes = torch.where(nodes >= 1 << 31, nodes - (1 << 32), nodes)
-    return ForestWalk(nodes.to(torch.int32).contiguous(),
-                      first.to(torch.int32).contiguous())
+    return ForestWalk(_as_i32(nodes), first.to(torch.int32).contiguous())
+
+
+def _as_i32(a: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) or [-2^31, 2^31) -> their int32 bits."""
+    a = torch.where(a >= 1 << 31, a - (1 << 32), a)
+    return a.to(torch.int32).contiguous()
+
+
+def walk_links(slot: torch.Tensor, num_splits: torch.Tensor, end: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(T, R) i64 child links ``next_left`` and ``next_right`` and (T,)
+    i64 starting rounds of trees whose round r splits leaf slot
+    ``slot[t, r]`` (rounds at or past ``num_splits[t]`` are padding), on
+    ``slot``'s device with torch ops over all trees at once (no host
+    sync); ``end`` where there is no link. See :func:`forest_walk`."""
+    T, R = slot.shape
+    dev = slot.device
+    i64 = torch.int64
+    none = 1 << 62
+    # keys slot << S | r: wide enough for any round
+    S = max(1, R).bit_length()
+    mask = (1 << S) - 1
+    ns = num_splits.to(i64).clamp(0, R)
+    r = torch.arange(R, dtype=i64, device=dev)[None, :]
+    slot = slot.to(i64)
+    # a slot outside [0, R] is never a row's: such a round is not reached
+    reach = (r < ns[:, None]) & (slot >= 0) & (slot <= R)
+    key = torch.where(reach, slot << S | r, none)
+    skey = torch.sort(key, dim=1).values
+    nxt = torch.cat([skey[:, 1:], torch.full((T, 1), none, dtype=i64,
+                                             device=dev)], dim=1)
+    same = (nxt != none) & ((nxt >> S) == (skey >> S))
+    at = torch.where(skey != none, skey & mask, R)            # R: dropped
+    nl = torch.full((T, R + 1), end, dtype=i64, device=dev)
+    nl.scatter_(1, at, torch.where(same, nxt & mask, end))
+    want = (r + 1) << S | (r + 1)
+    q = torch.searchsorted(skey, want.expand(T, R).contiguous())
+    kq = torch.gather(skey, 1, q.clamp(max=R - 1))
+    nr = torch.where((q < R) & (kq != none) & ((kq >> S) == r + 1),
+                     kq & mask, end)
+    nl = torch.where(reach, nl[:, :R], end)
+    nr = torch.where(reach, nr, end)
+    k0 = skey[:, 0]
+    first = torch.where((k0 != none) & ((k0 >> S) == 0), k0 & mask, end)
+    return nl, nr, first
 
 
 class ForestPlan(NamedTuple):
@@ -308,11 +343,14 @@ class ForestPlan(NamedTuple):
     span: int             # groups a block walks (1 for one class)
     spans: int            # group spans (grid y)
     smem: int             # dynamic shared memory of a block
+    tables: bool = True   # a group's entries and leaf values in shared
+    #                       memory (else read from device memory: the raw
+    #                       walk past FOREST_MAX_ROUNDS)
 
 
 @functools.lru_cache(maxsize=1024)
 def forest_plan(n: int, T: int, R: int, sms: int, F: int,
-                K: int) -> ForestPlan:
+                K: int, raw: bool = False) -> ForestPlan:
     """Size a forest call over ``n`` rows of ``F`` i32 bins and ``T``
     trees (a multiple of FOREST_TREE_BATCH) of ``R`` rounds and ``K``
     classes on a card of ``sms`` SMs. Every block stages one group's node
@@ -326,27 +364,38 @@ def forest_plan(n: int, T: int, R: int, sms: int, F: int,
     the blocks the card holds (FOREST_BLOCKS_PER_SM an SM, fewer where
     shared memory binds) with every span, at least one pass of rows
     each, so a 256-row rung of one class runs groups x 8 blocks and the
-    top rung about one wave."""
-    if R > FOREST_MAX_ROUNDS:
-        raise ValueError("forest_predict: %d rounds exceed the %d a block's "
-                         "shared memory holds" % (R, FOREST_MAX_ROUNDS))
+    top rung about one wave.
+
+    ``raw`` plans the raw walk over f32 rows: ``K`` classes walk every
+    group in one span (each class chains its groups in order, as the twin
+    does), and trees deeper than FOREST_MAX_ROUNDS read their tables from
+    device memory (``tables`` False) where the forest kernel refuses
+    them."""
+    name = "forest_raw" if raw else "forest_predict"
+    end = FOREST_RAW_END if raw else FOREST_END
+    if R >= end or (R > FOREST_MAX_ROUNDS and not raw):
+        raise ValueError("%s: %d rounds exceed the %d a block's shared "
+                         "memory holds" % (name, R, FOREST_MAX_ROUNDS))
     if T < FOREST_TREE_BATCH or T % FOREST_TREE_BATCH:
-        raise ValueError("forest_predict: the kernel walks groups of %d "
-                         "trees; got T=%d" % (FOREST_TREE_BATCH, T))
+        raise ValueError("%s: the kernel walks groups of %d trees; got "
+                         "T=%d" % (name, FOREST_TREE_BATCH, T))
     groups = T // FOREST_TREE_BATCH
     span = min(groups, max(1, K))
+    if raw and K > 1:
+        span = groups
     spans = -(-groups // span)
-    smem = forest_smem_bytes(R, F, True)
+    tables = R <= FOREST_MAX_ROUNDS
+    smem = forest_smem_bytes(R, F, True, tables)
     staged = smem <= FOREST_SMEM_BYTES
     if not staged:
-        smem = forest_smem_bytes(R, F, False)
+        smem = forest_smem_bytes(R, F, False, tables)
     per_sm = max(1, min(FOREST_BLOCKS_PER_SM,
                         FOREST_SM_SMEM_BYTES // (smem + 1024)))
     want = max(1, sms * per_sm // spans)
     rows = -(-max(n, 1) // want)
     rows = -(-rows // FOREST_PASS_ROWS) * FOREST_PASS_ROWS
     return ForestPlan(staged, rows, max(1, -(-n // rows)), groups, span,
-                      spans, smem)
+                      spans, smem, tables)
 
 
 def forest_slots_plain(bins: torch.Tensor, fp: ForestPack,
@@ -491,5 +540,179 @@ def forest_predict_impl(bins: torch.Tensor, X: Optional[torch.Tensor],
             R, T, L, K, Kc, Km, int(has_cat), int(has_linear),
             int(plan.staged), plan.rows_per_block, plan.chunks, plan.span,
             plan.smem,
+            part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream)
+    return out[:, 0] if K == 1 else out
+
+
+# ------------------------------------------------------------------ raw walk
+class RawWalk(NamedTuple):
+    """The raw-threshold walk's view of a ``PackedSplits``, derived once
+    per pack (:func:`raw_walk`) and kept beside it; trees padded to a
+    FOREST_TREE_BATCH multiple (the pads have no split and a zero leaf).
+    ``num_features`` is one more than the largest column a split or a
+    linear leaf reads: the rows must have at least that many."""
+    nodes: torch.Tensor          # (R, T, 4) i32 {feature | FOREST_CAT,
+    #                              f32 threshold bits, missing_type |
+    #                              default_left << 2 | next_right << 3,
+    #                              next_left}
+    first: torch.Tensor          # (T,) i32 first round that splits slot 0
+    value_of_slot: torch.Tensor  # (T, L) f32
+    tree_class: torch.Tensor     # (T,) i32
+    cat_values: torch.Tensor     # (R, T, Kc) i32, pad -2
+    const_of_slot: torch.Tensor  # (T, L) f32
+    coeff: torch.Tensor          # (T, L, Km) f32
+    coeff_feat: torch.Tensor     # (T, L, Km) i32 column of X
+    coeff_mask: torch.Tensor     # (T, L, Km) f32 0/1
+    num_features: int
+
+
+def raw_walk(pack) -> RawWalk:
+    """Walk tables of ``pack`` (``ops/predict.PackedSplits``) on its
+    device: the child links of :func:`walk_links` (FOREST_RAW_END where
+    there is none) beside each round's column, f32 threshold bits,
+    missing type and default direction, the category sets round-major
+    as the forest kernel's, and the leaf tables padded to whole groups of
+    trees. One read back of the largest column used."""
+    T, R = pack.slot.shape
+    dev = pack.slot.device
+    i64 = torch.int64
+    Tp = T + (-T) % FOREST_TREE_BATCH
+
+    def pad(a: torch.Tensor, fill=0) -> torch.Tensor:
+        if Tp == T:
+            return a
+        extra = torch.full((Tp - T,) + tuple(a.shape[1:]), fill,
+                           dtype=a.dtype, device=dev)
+        return torch.cat([a, extra])
+
+    nl, nr, first = walk_links(pack.slot, pack.num_splits, FOREST_RAW_END)
+    word = pack.feature.to(i64) | (pack.kind > 0).to(i64) * FOREST_CAT
+    thr = pack.threshold.to(torch.float32).contiguous() \
+        .view(torch.int32).to(i64)
+    meta = pack.missing_type.to(i64) | pack.default_left.to(i64) << 2 \
+        | nr << 3
+    nodes = pad(torch.stack([word, thr, meta, nl], dim=2))
+    first = pad(first, FOREST_RAW_END)
+    linear = torch.where(pack.coeff_mask, pack.coeff_feat, 0)
+    num_features = int(torch.maximum(pack.feature.max(), linear.max())) + 1
+    return RawWalk(
+        nodes=_as_i32(nodes.transpose(0, 1)),
+        first=first.to(torch.int32).contiguous(),
+        value_of_slot=pad(pack.value_of_slot.to(torch.float32)).contiguous(),
+        tree_class=pad(pack.tree_class.to(torch.int32)).contiguous(),
+        cat_values=pad(pack.cat_values.to(torch.int32), -2)
+        .transpose(0, 1).contiguous(),
+        const_of_slot=pad(pack.const_of_slot.to(torch.float32)).contiguous(),
+        coeff=pad(pack.coeff.to(torch.float32)).contiguous(),
+        coeff_feat=pad(pack.coeff_feat.to(torch.int32)).contiguous(),
+        coeff_mask=pad(pack.coeff_mask.to(torch.float32)).contiguous(),
+        num_features=num_features)
+
+
+def raw_walk_slots_plain(X: torch.Tensor, rw: RawWalk,
+                         has_cat: bool = False) -> torch.Tensor:
+    """(T, N) i32 leaf slot of every (tree, row) by the kernel's walk as
+    plain torch: every (row, tree) pair starts at its tree's first round
+    and follows the entry's links round by round, exactly the decisions
+    the raw walk (``csrc/forest_predict.cu``, ``RawRow``) makes (the
+    tables' oracle in the tests)."""
+    X = X.to(torch.float32)
+    R, T, _ = rw.nodes.shape
+    n = X.shape[0]
+    dev = X.device
+    nodes = rw.nodes.to(torch.int64) & 0xFFFFFFFF
+    r = rw.first.to(torch.int64)[None, :].expand(n, T).clone()
+    state = torch.zeros((n, T), dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)[:, None].expand(n, T)
+    trees = torch.arange(T, device=dev)[None, :].expand(n, T)
+    while True:
+        live = r < R
+        if not bool(live.any()):
+            break
+        rr = torch.where(live, r, 0)
+        e = nodes[rr, trees]                                  # (n, T, 4)
+        word = e[..., 0]
+        v = X[rows, word & 0x7FFFFFFF]
+        thr = torch.where(e[..., 1] >= 1 << 31, e[..., 1] - (1 << 32),
+                          e[..., 1]).to(torch.int32).view(torch.float32)
+        mt = e[..., 2] & 3
+        dl = ((e[..., 2] >> 2) & 1) == 1
+        nan = torch.isnan(v)
+        u = torch.where(nan & (mt != 2), 0.0, v)
+        go = u <= thr
+        go = torch.where((mt == 2) & nan, dl, go)
+        go = torch.where((mt == 1) & (u.abs() <= K_ZERO), dl, go)
+        if has_cat:
+            iv = torch.where(torch.isfinite(v), v, -1.0).to(torch.int32)
+            cv = rw.cat_values[rr, trees]                     # (n, T, Kc)
+            in_set = (cv == iv[..., None]).any(dim=2)
+            go = torch.where(word >= 1 << 31, in_set, go)
+        state = torch.where(live & ~go, rr + 1, state)
+        nxt = torch.where(go, e[..., 3], e[..., 2] >> 3)
+        r = torch.where(live, nxt, r)
+    return state.to(torch.int32).t()
+
+
+FOREST_RAW_KERNEL = register(CudaKernel(
+    "forest_raw", "forest_predict.cu",
+    [_P, _I, _I] + [_P] * 9 + [_I] * 14 + [_P] * 4))
+
+
+def forest_raw_impl(X: torch.Tensor, rw: RawWalk, *, num_class: int = 1,
+                    has_cat: bool = False,
+                    has_linear: bool = False) -> torch.Tensor:
+    """(N, F) f32 raw rows on a CUDA device -> (N,) or (N, K) f32 raw
+    scores by one launch of the raw walk (``csrc/forest_predict.cu``'s
+    ``forest_raw``, planned by :func:`forest_plan` with ``raw=True``) over
+    the walk tables ``rw`` (:func:`raw_walk` of the pack, on the same
+    device). The plain twin is ``ops/predict.predict_raw_impl``;
+    ``ops/predict.predict_raw`` picks between them by the tensor's
+    device."""
+    K = max(1, int(num_class))
+    if X.device.type != "cuda":
+        raise RuntimeError("forest_raw: the kernel runs on a CUDA tensor, "
+                           "got %s" % X.device)
+    if X.dim() != 2:
+        raise ValueError("forest_raw: X must be (N, F), got %s"
+                         % (tuple(X.shape),))
+    n, F = X.shape
+    if F < rw.num_features:
+        raise ValueError("forest_raw: the model reads column %d but the "
+                         "rows have %d" % (rw.num_features - 1, F))
+    R, T, _ = rw.nodes.shape
+    L = rw.value_of_slot.shape[1]
+    if L != R + 1:
+        raise ValueError("forest_raw: %d leaf slots for %d rounds" % (L, R))
+    want = {"nodes": torch.int32, "first": torch.int32,
+            "value_of_slot": torch.float32, "tree_class": torch.int32,
+            "cat_values": torch.int32, "const_of_slot": torch.float32,
+            "coeff": torch.float32, "coeff_feat": torch.int32,
+            "coeff_mask": torch.float32}
+    for name, dtype in want.items():
+        t = getattr(rw, name)
+        if t.device != X.device or not t.is_contiguous() \
+                or t.dtype != dtype:
+            raise ValueError("forest_raw: table %s must be contiguous %s "
+                             "on %s" % (name, dtype, X.device))
+    # the passes' rows are copied 16 bytes at a time
+    X = X.to(torch.float32).contiguous()
+    if X.data_ptr() % 16:
+        X = X.clone()
+    out = torch.empty((n, K), dtype=torch.float32, device=X.device)
+    if n:
+        plan = forest_plan(n, T, R, sm_count(X.device.index), F, K,
+                           raw=True)
+        stream = stream_of(X)
+        part, ticket = _forest_scratch(X.device, stream,
+                                       plan.spans * n * K, plan.chunks)
+        FOREST_RAW_KERNEL.launch(
+            X.data_ptr(), n, F, rw.nodes.data_ptr(), rw.first.data_ptr(),
+            rw.value_of_slot.data_ptr(), rw.tree_class.data_ptr(),
+            rw.cat_values.data_ptr(), rw.const_of_slot.data_ptr(),
+            rw.coeff.data_ptr(), rw.coeff_feat.data_ptr(),
+            rw.coeff_mask.data_ptr(), R, T, L, K,
+            rw.cat_values.shape[2], rw.coeff.shape[2], int(has_cat),
+            int(has_linear), int(plan.staged), int(plan.tables),
+            plan.rows_per_block, plan.chunks, plan.span, plan.smem,
             part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream)
     return out[:, 0] if K == 1 else out

@@ -5,11 +5,15 @@ Every tree flattens into leaf-slot split order (``Tree.to_split_arrays``)
 and rows are routed arithmetically: split r tests raw values against its
 threshold and moves non-left rows from ``slot[r]`` to slot ``r+1``.
 :func:`predict_raw_impl` is plain torch: it is the raw-value oracle the
-forest kernel is held to, and the serving path for models that have no
-bin mappers (a model loaded from text alone). It routes all trees at once
-per round and sums leaf values in the JAX oracle's grouping (groups of
-``TREE_BATCH`` trees, each group summed in XLA's halving association,
-groups chained in tree order).
+forest kernels are held to. It routes all trees at once per round and sums
+leaf values in the JAX oracle's grouping (groups of ``TREE_BATCH`` trees,
+each group summed in XLA's halving association, or per class in tree
+order, groups chained in tree order). :func:`predict_raw` serves the
+models that have no BIN-space pack (a model loaded from text alone, one
+trained on other bins): on a CUDA tensor it launches the raw-threshold
+walk (``csrc/forest_predict.cu``'s ``forest_raw``,
+``ops/forest.forest_raw_impl``), which computes the twin's function bit
+for bit without linear leaves; on a CPU tensor it runs the twin.
 
 :func:`split_bin_table` and :func:`tree_to_bin_log` convert a tree's raw
 thresholds into BIN space once on the host; the forest repack and the
@@ -164,12 +168,25 @@ def halving_sum(rows: torch.Tensor) -> torch.Tensor:
     return rows[0]
 
 
+def group_class_sums(v: torch.Tensor, cls: torch.Tensor,
+                     num_class: int) -> torch.Tensor:
+    """(G, N) leaf values of one group of trees and their (G,) classes ->
+    (N, K): each class's values added in tree order from 0, the other
+    classes' trees adding 0 (the kernels' per-lane order)."""
+    onehot = (cls[:, None] == torch.arange(num_class, device=cls.device)
+              ).to(v.dtype)
+    part = v.new_zeros((v.shape[1], num_class))
+    for i in range(v.shape[0]):
+        part = part + v[i][:, None] * onehot[i][None, :]
+    return part
+
+
 def accumulate_scores(vals: torch.Tensor, tree_class: torch.Tensor,
                       num_class: int) -> torch.Tensor:
     """(T, N) per-tree leaf values -> (N,) or (N, K) raw scores, summed in
     the oracle's order: groups of ``TREE_BATCH`` trees, chained in tree
-    order; a binary group in halving association, a multiclass group
-    per class in tree order."""
+    order from 0; a binary group in halving association, a multiclass
+    group per class in tree order (:func:`group_class_sums`)."""
     T, n = vals.shape
     pad = (-T) % TREE_BATCH
     if pad:
@@ -180,11 +197,8 @@ def accumulate_scores(vals: torch.Tensor, tree_class: torch.Tensor,
     for g in range(0, vals.shape[0], TREE_BATCH):
         v = vals[g:g + TREE_BATCH]
         if num_class > 1:
-            cls = tree_class[g:g + TREE_BATCH]
-            part = torch.stack(
-                [(v * (cls == k)[:, None]).sum(dim=0)
-                 for k in range(num_class)], dim=1)
-            score = score + part
+            score = score + group_class_sums(
+                v, tree_class[g:g + TREE_BATCH], num_class)
         else:
             score = score + halving_sum(v)
     return score
@@ -205,6 +219,27 @@ def predict_raw_impl(X: torch.Tensor, pack: PackedSplits, *,
     else:
         vals = torch.gather(pack.value_of_slot, 1, slots.long())
     return accumulate_scores(vals, pack.tree_class, num_class)
+
+
+def predict_raw(X: torch.Tensor, pack: PackedSplits, *, walk=None,
+                num_class: int = 1, has_cat: bool = False,
+                has_linear: bool = False) -> torch.Tensor:
+    """(N, F) raw rows -> (N,) or (N, K) f32 raw ensemble scores.
+
+    A CPU ``X`` runs the plain twin :func:`predict_raw_impl`. A CUDA ``X``
+    launches the raw-threshold walk once, over ``walk`` (the pack's
+    ``ops/forest.raw_walk``, which a caller that serves the pack keeps
+    beside it; derived here when None), or raises: there is no
+    fallback."""
+    if X.device.type == "cpu":
+        return predict_raw_impl(X, pack, num_class=num_class,
+                                has_cat=has_cat, has_linear=has_linear)
+    from .forest import forest_raw_impl, raw_walk
+
+    if walk is None:
+        walk = raw_walk(pack)
+    return forest_raw_impl(X, walk, num_class=num_class, has_cat=has_cat,
+                           has_linear=has_linear)
 
 
 def leaf_indices(trees: List, X: torch.Tensor) -> torch.Tensor:

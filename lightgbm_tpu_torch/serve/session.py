@@ -2,7 +2,7 @@
 port of ``lightgbm_tpu/serve/session.py``).
 
 - The ensemble's device tables come from the booster's version-keyed
-  caches (``_packed_model`` for the plain raw-threshold predict,
+  caches (``_packed_model`` for the raw-threshold walk,
   ``_forest_model`` for the forest kernel) and are refreshed only when
   the model-version token moves.
 - Row counts round UP to a fixed bucket ladder; a batch is padded to its
@@ -12,7 +12,12 @@ port of ``lightgbm_tpu/serve/session.py``).
   graph per rung will capture.
 - With ``tpu_forest_kernel`` on (the ``auto`` default), rows are binned on
   the host with the training set's bin mappers and the whole ensemble runs
-  as ONE forest kernel launch per dispatch (``ops/forest.py``).
+  as ONE forest kernel launch per dispatch (``ops/forest.py``). A model
+  the forest path cannot serve (no bin mappers: a model read from text, a
+  replica's published model; thresholds inside the serving bins: a
+  continue-mode candidate) runs as ONE launch of the raw-threshold walk
+  over the raw rows (``ops/predict.predict_raw``); the plain twin serves
+  only CPU tensors.
 
 :meth:`predict_binned` routes a constructed ``Dataset`` in BIN space
 through ``tree_to_bin_log`` + ``assign_leaves`` (the row-router kernel,
@@ -28,7 +33,7 @@ import torch
 
 from ..obs import telemetry, tracer
 from ..ops.forest import forest_predict_impl
-from ..ops.predict import predict_raw_impl
+from ..ops.predict import predict_raw
 from ..utils.log import LightGBMError, Log
 
 #: Default bucket ladder. Rungs are ~4x apart: at most ~25% of a dispatch
@@ -64,6 +69,7 @@ class PredictSession:
         self.buckets = rungs
         self._lock = threading.Lock()
         self._pack = None
+        self._walk = None
         self._has_cat = False
         self._has_linear = False
         self._K = max(1, int(self._gbdt.num_tree_per_iteration))
@@ -114,20 +120,20 @@ class PredictSession:
         return self._start, max(self._start, end)
 
     def _ensure_pack(self):
-        """Refresh the plain-path pack iff the model version (or the
+        """Refresh the raw-threshold pack iff the model version (or the
         resolved iteration range) moved; returns (pack, has_cat,
-        has_linear). Lock order is session -> booster."""
+        has_linear, walk). Lock order is session -> booster."""
         g = self._gbdt
         with self._lock, g._cache_lock:
             ver = g.model_version
             rng = self._resolve_range()
             if self._pack is None or ver != self._version \
                     or rng != self._range:
-                self._pack, self._has_cat, self._has_linear = \
+                self._pack, self._has_cat, self._has_linear, self._walk = \
                     g._packed_model(*rng)
                 self._version, self._range = ver, rng
                 self._warm.clear()
-            return self._pack, self._has_cat, self._has_linear
+            return self._pack, self._has_cat, self._has_linear, self._walk
 
     def _forest_mode(self) -> str:
         if self._forest_cfg is not None:
@@ -175,7 +181,7 @@ class PredictSession:
         back to the host: not for the hot path."""
         import hashlib
 
-        pack, _, _ = self._ensure_pack()
+        pack = self._ensure_pack()[0]
         h = hashlib.sha256()
         for t in pack:
             arr = t.cpu().numpy()
@@ -202,10 +208,10 @@ class PredictSession:
                 if warn:
                     Log.warning(
                         "tpu_forest_kernel=on but this model is ineligible "
-                        "for the forest path; serving stays on the plain "
-                        "predict")
+                        "for the forest path; serving takes the "
+                        "raw-threshold walk")
         if forest is None:
-            pack, has_cat, has_linear = self._ensure_pack()
+            pack, has_cat, has_linear, walk = self._ensure_pack()
         X = np.ascontiguousarray(np.asarray(X), dtype=np.float32)
         if X.ndim == 1:
             X = X[None, :]
@@ -252,8 +258,8 @@ class PredictSession:
                         walk=walk, num_class=self._K, has_cat=f_cat,
                         has_linear=f_lin)
                 else:
-                    score = predict_raw_impl(
-                        torch.from_numpy(chunk).to(dev), pack,
+                    score = predict_raw(
+                        torch.from_numpy(chunk).to(dev), pack, walk=walk,
                         num_class=self._K, has_cat=has_cat,
                         has_linear=has_linear)
                 pieces.append((score, rows))

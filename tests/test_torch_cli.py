@@ -5,9 +5,11 @@ JAX CLI's trees; ``task=predict`` (``predict_contrib`` too),
 ``task=convert_model`` and ``task=refit`` agree with the JAX CLI on one
 model file; ``save_binary`` round-trips; the two-round loader, valid sets
 and ``input_model`` train through it; ``task=serve online_train=true``
-answers ``/ingest``; every setting the port cannot honour raises, naming
-its ROADMAP item; and the module runs as a subprocess, ``task=serve``
-included, which drains on SIGTERM (with online training too)."""
+answers ``/ingest``; the fleet's settings build trainer and replica
+nodes and their bad values raise the JAX CLI's errors; every setting the
+port cannot honour raises, naming its ROADMAP item; and the module runs
+as a subprocess, ``task=serve`` included, which drains on SIGTERM (with
+online training too)."""
 import json
 import os
 import queue
@@ -30,6 +32,7 @@ from lightgbm_tpu import cli as jax_cli
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch.utils import log
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 
@@ -45,6 +48,18 @@ def _one_thread_module():
     fixture: one torch thread for them too."""
     with torch_threads(1):
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_log_level():
+    """``cli.Application`` sets the process-global log level from
+    ``verbosity``, as the reference's ResetLogLevel does: put the level
+    and sink back after this module, so the tests that run after it in
+    the same process log at the level they started with."""
+    level, sink = log._default_level, log._default_sink
+    yield
+    log.Log.reset_log_level(level)
+    log.Log.reset_callback(sink)
 
 
 #: the training settings of every CLI run here (parity needs splits by
@@ -187,19 +202,64 @@ def test_parse_args_config_first_command_line_wins(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=serve", "fleet_dir=store"], "A12"),
-    (["task=serve", "fleet_role=replica", "fleet_url=http://localhost:1"],
-     "A12"),
+    (["task=serve", "fleet_dir=store", "online_train=true",
+      "input_model=m.txt"], "A12"),
+    (["task=serve", "fleet_role=replica", "fleet_url=http://localhost:1",
+      "input_model=m.txt", "fleet_timeout_s=1"], "A12"),
     (["task=train", "trace_spans=on"], "A13"),
     (["task=train", "--dump-telemetry", "t.json"], "A13"),
     (["task=train", "--dump-trace=t.json"], "A13"),
     (["task=serve", "obs_ledger=true"], "A13"),
 ])
-def test_refused_settings_name_their_item(files, port_model, args, item):
-    args = [a.replace("m.txt", port_model) for a in args]
+def test_refused_settings_name_their_item(files, port_model, args, item,
+                                          tmp_path):
+    """The settings the port cannot honour raise, naming their ROADMAP
+    item (A13, item 10). The fleet's (A12, item 8) raised until the fleet
+    was ported: those cases now build their serving node, a trainer over
+    ``fleet_dir`` and a replica over ``fleet_url`` (whose trainer is not
+    up: it boots from ``input_model`` and keeps watching), and close
+    it."""
+    args = [a.replace("m.txt", port_model)
+            .replace("fleet_dir=store", "fleet_dir=%s" % (tmp_path / "s"))
+            for a in args]
+    args += ["data=%s" % files["train"], "device_type=cpu", "verbosity=-1"]
+    if item == "A12":
+        server = cli.Application(cli.parse_args(
+            args + ["serve_port=0", "serve_warmup=false"])).make_server()
+        try:
+            doc = server.healthz()
+            if "fleet_dir=%s" % (tmp_path / "s") in args:
+                assert doc["fleet_store"]["last_published_version"] == 1
+                assert server.online.state()["role"] == "solo"
+            else:
+                assert doc["fleet"]["applied_version"] == 0
+                assert server.fleet_transport is not None
+        finally:
+            server.close()
+        return
     with pytest.raises(LightGBMError, match="ROADMAP .*%s" % item):
-        cli.main(args + ["data=%s" % files["train"], "device_type=cpu",
-                         "verbosity=-1"])
+        cli.main(args)
+
+
+@pytest.mark.parametrize("setting", [
+    "fleet_lease_ttl_s=-1", "fleet_snapshot_rows=100",
+    "fleet_role=replica", "fleet_role=observer",
+    "fleet_url=http://localhost:1",
+])
+def test_fleet_settings_raise_as_the_jax_package(files, port_model,
+                                                 tmp_path, setting):
+    """A bad fleet setting raises the JAX CLI's error: a negative lease
+    ttl, snapshots without compaction, a replica without a store, an
+    unknown role, a trainer over ``fleet_url``."""
+    args = ["task=serve", "input_model=%s" % port_model, "verbosity=-1",
+            "online_train=true", setting]
+    if "fleet_url" not in setting and setting != "fleet_role=replica":
+        args.append("fleet_dir=%s" % (tmp_path / "s"))
+    with pytest.raises(Exception) as want:
+        jax_cli.Application(jax_cli.parse_args(args))
+    with pytest.raises(LightGBMError) as got:
+        cli.Application(cli.parse_args(args + ["device_type=cpu"]))
+    assert str(got.value) == str(want.value)
 
 
 def test_convert_model_writes_the_jax_cpp(files, port_model, tmp_path):

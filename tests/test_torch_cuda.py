@@ -680,3 +680,89 @@ def test_linear_training_card_vs_host(card):
     data = chip_smoke.training_data(3, 30_000, 0)
     res = chip_smoke.linear_card_vs_host(card, data, 30_000, 3, 31)
     assert res["splits_agree"] == res["splits"] > 0
+
+
+def test_raw_walk_edges_match_twin_on_card(card):
+    """The raw-threshold walk (csrc/forest_predict.cu's forest_raw)
+    against its twin on every chip_smoke.RAW_EDGE_CASES pack (each
+    missing type at its edges, categorical sets with NaN, inf and
+    non-integers, 3 classes, linear leaves with NaN, a 254-round chain, a
+    chain past FOREST_MAX_ROUNDS (tables in device memory), no splits,
+    padded rounds and trees, 1000 columns read from device memory) at 1,
+    255, 257 and 4097 rows: bit-equal, linear leaves within tolerance."""
+    before = kernels.launch_counts()["forest_raw"]
+    errs = chip_smoke.phase_raw_kernels(card, np.random.RandomState(13))
+    assert max(errs.values()) <= 1e-5, errs
+    assert kernels.launch_counts()["forest_raw"] > before
+
+
+def test_model_text_serves_through_the_raw_walk_on_card(card):
+    """A booster read from its text has no bin mappers: its session on the
+    card launches the raw walk, never the twin, and answers as the twin
+    does on the host, bit for bit."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import predict as predict_ops
+    from lightgbm_tpu_torch.serve import PredictSession
+
+    rng = np.random.RandomState(4)
+    X = chip_smoke.higgs_like(rng, 3000)
+    y = chip_smoke.higgs_labels(rng, X)
+    bst = lgt.train({"objective": "binary", "num_leaves": 31,
+                     "verbosity": -1, "device_type": "cpu"},
+                    lgt.Dataset(X, label=y), 5)
+    text = bst.model_to_string()
+    on_card = PredictSession(lgt.Booster({"device_type": "cuda"},
+                                         model_str=text))
+    on_host = PredictSession(lgt.Booster({"device_type": "cpu"},
+                                         model_str=text))
+    calls = []
+    twin = predict_ops.predict_raw_impl
+
+    def counted(X_, *a, **k):
+        calls.append(X_.device.type)
+        return twin(X_, *a, **k)
+
+    predict_ops.predict_raw_impl = counted
+    try:
+        before = kernels.launch_counts()["forest_raw"]
+        got = on_card.predict(X[:700])
+        after = kernels.launch_counts()["forest_raw"]
+        want = on_host.predict(X[:700])
+    finally:
+        predict_ops.predict_raw_impl = twin
+    assert after > before and calls == ["cpu"]
+    assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+
+def test_deep_model_text_serves_through_the_raw_walk_on_card(card):
+    """Chain trees one round deeper than the forest kernel's shared
+    memory holds (chip_smoke.chain_trees, FOREST_MAX_ROUNDS + 1 rounds),
+    served from their text: the raw walk reads the tables from device
+    memory and answers as the twin does on the host, bit for bit."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import forest as Fo
+    from lightgbm_tpu_torch.serve import PredictSession
+
+    rng = np.random.RandomState(6)
+    X = chip_smoke.higgs_like(rng, 3000)
+    y = chip_smoke.higgs_labels(rng, X)
+    bst = lgt.train({"objective": "binary", "num_leaves": 7,
+                     "verbosity": -1, "device_type": "cpu"},
+                    lgt.Dataset(X, label=y), 8)
+    g = bst.inner
+    g.models = chip_smoke.chain_trees(g.train_set, rng, 8,
+                                      Fo.FOREST_MAX_ROUNDS + 1)
+    g._bump_model_version()
+    text = bst.model_to_string()
+    on_card = lgt.Booster({"device_type": "cuda"}, model_str=text)
+    pk = on_card.inner._packed_model(0, 8)[0]
+    R, T = pk.slot.shape[1], pk.slot.shape[0]
+    assert R == Fo.FOREST_MAX_ROUNDS + 1
+    assert not Fo.forest_plan(700, T, R, 132, X.shape[1], 1,
+                              raw=True).tables
+    before = kernels.launch_counts()["forest_raw"]
+    got = PredictSession(on_card).predict(X[:700])
+    assert kernels.launch_counts()["forest_raw"] > before
+    want = PredictSession(lgt.Booster({"device_type": "cpu"},
+                                      model_str=text)).predict(X[:700])
+    assert np.asarray(got).tobytes() == np.asarray(want).tobytes()

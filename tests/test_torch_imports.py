@@ -50,5 +50,7 @@ def test_every_port_module_is_listed():
                 "shap", "sklearn", "plotting", "linear.pack", "tree",
                 "dataset",
                 "config", "objective", "obs", "utils.log",
-                "io", "io_native", "cli", "__main__"):
+                "io", "io_native", "cli", "__main__", "obs_ledger",
+                "fleet.store", "fleet.replica", "fleet.transport",
+                "fleet.control", "fleet.chaos"):
         assert "lightgbm_tpu_torch." + mod in names, mod

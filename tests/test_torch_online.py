@@ -310,16 +310,42 @@ def test_atomic_swap_every_batch_is_one_whole_version():
                    for v in range(v0, v1 + 1)), (v0, v1)
 
 
-def test_fleet_knobs_raise_naming_item_8():
+def test_fleet_knobs_raise_naming_item_8(tmp_path):
+    """The trainer's fleet settings raised, naming ROADMAP item 8, until
+    the fleet was ported. Now each of them runs over a store, and their
+    bad values raise the JAX trainer's errors."""
+    import lightgbm_tpu as jlgb
+    from lightgbm_tpu.online import OnlineTrainer as JaxOnlineTrainer
+
+    from lightgbm_tpu_torch.fleet import FleetStore
+
     bst = _train(seed=7)
-    for knobs in (dict(store=object()), dict(lease_ttl_s=1.0),
-                  dict(replay=False), dict(holder_id="node-1"),
-                  dict(compact_bytes=1 << 20), dict(keep_artifacts=2),
-                  dict(snapshot_rows=100), dict(heartbeat_interval_s=1.0),
+    store = FleetStore(str(tmp_path), "m")
+    for knobs in (dict(), dict(lease_ttl_s=1.0), dict(replay=False),
+                  dict(holder_id="node-1"), dict(compact_bytes=1 << 20),
+                  dict(keep_artifacts=2), dict(snapshot_rows=100),
+                  dict(heartbeat_interval_s=1.0),
                   dict(advertise_url="http://localhost:1")):
-        with pytest.raises(LightGBMError, match="ROADMAP A12, queue A "
-                                                "item 8"):
+        tr = OnlineTrainer(bst, start=False, store=store, **knobs)
+        try:
+            st = tr.state()
+            assert st["role"] == ("standby" if knobs.get("lease_ttl_s")
+                                  else "solo"), knobs
+            assert st["store"]["model_id"] == "m"
+            tr.ingest(*_data(8, seed=1))
+        finally:
+            tr.close()
+    assert [e["n"] for e in store.events("ingest")] == [8] * 9
+    jb = jlgb.Booster(model_str=bst.model_to_string())
+    for knobs in (dict(lease_ttl_s=-1.0), dict(snapshot_rows=100),
+                  dict(snapshot_rows=-1), dict(lease_ttl_s=1.0),
+                  dict(compact_bytes=1 << 20), dict(compact_bytes=-1),
+                  dict(heartbeat_interval_s=-1.0)):
+        with pytest.raises(jlgb.utils.log.LightGBMError) as want:
+            JaxOnlineTrainer(jb, start=False, **knobs)
+        with pytest.raises(LightGBMError) as got:
             OnlineTrainer(bst, start=False, **knobs)
+        assert str(got.value) == str(want.value), knobs
 
 
 # ---------------------------------------------------- admission control
