@@ -22,9 +22,12 @@
     python3 chip_smoke.py --fleet-only    # phase 3l: the raw walk, a
                                           # trainer and two replicas,
                                           # failover, compaction
+    python3 chip_smoke.py --parallel-only # phase 3m: the distributed
+                                          # learners, rank groups of 2
+                                          # and 4 on the card
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
-the checkout it sits in. Nineteen phases, each fatal on failure:
+the checkout it sits in. Twenty phases, each fatal on failure:
 
 1. build     -- compile the hand-written kernels (``csrc/*.cu``: fifteen
                 sources, twenty-three entry points), one nvcc per source,
@@ -125,7 +128,7 @@ the checkout it sits in. Nineteen phases, each fatal on failure:
                 the partition, histogram and router kernels must have run.
                 Every tree's leaf segment counts must equal the router's
                 per-leaf row counts and sum to N, and the histogram count
-                channel the in-bag rows. Two 3-iteration runs must give
+                channel the in-bag rows. Two 2-iteration runs must give
                 byte-equal model strings; 3 iterations on 200,000 rows on
                 the card and on the host (the plain twins) must agree in
                 train logloss within LOGLOSS_TOL; at the default sizes the
@@ -343,6 +346,31 @@ the checkout it sits in. Nineteen phases, each fatal on failure:
                 Snapshot compaction: a cold boot from snapshot + tail
                 holds the full replay's buffer (sha256) (alone:
                 ``--fleet-only``).
+3m. parallel -- the distributed learners (``tree_learner=data|feature|
+                voting``, slice 19) at full width: phase 3's rows binned
+                once and written as npz, rank processes of this script
+                (``--parallel-rank``) in gloo groups of 2 and 4 on the one
+                card (NCCL refuses two ranks on a device; the port's Comm
+                stages card tensors through pinned host memory), per
+                iteration with the valid set, PARALLEL_TREES trees a run:
+                at D = 2 data with and without tpu_hist_scatter, feature,
+                voting (top_k PARALLEL_TOP_K), int8 data, data again
+                (sha256-equal); at D = 4 data. Every rank's model
+                sha256-equal to the others', its launches of B1, B5 and B3
+                (B2, B6 and B3 for int8) and none of B7, the valid AUC
+                within PARALLEL_AUC_TOL of the serial per-iteration model
+                (chain kernels) of the same run, the wall a tree beside
+                serial's (ranks share one card: no scaling figure), the
+                collective bytes a tree by the shapes and as counted. On
+                1/64-grid L2 labels within 1/8 the first tree of data and
+                of feature byte-equal to serial's; the D = 2 group on the
+                card against itself on the host (``--host-rows`` rows x 3
+                trees x 63 leaves, the first tree equal, train logloss
+                within LOGLOSS_TOL); a sharded load of a 200,000-row CSV
+                by the two ranks (bins equal to one rank's load of the
+                whole file, the first data tree byte-equal to the serial
+                one); which gloo collectives take card tensors (alone:
+                ``--parallel-only``).
 4. quantized -- the slice-3 path, the same data and trees with
                 QUANT_PARAMS (int8 quantized gradients, bagging 0.8, column
                 sampling 0.8) on the rows layout: the rows partition, the
@@ -387,6 +415,12 @@ the checkout it sits in. Nineteen phases, each fatal on failure:
                 deep leaf, planes and resident (b7_breakdown; alone:
                 ``--breakdown-only``); whether the card takes a cluster
                 dimension with a cooperative launch (cluster_probe).
+
+In the full run the host halves of the card-vs-host checks, the reading
+of the profiler's traces and phase 2b's ``python -m`` subprocess run in
+worker processes beside the card's phases (host_call, host_later); their
+checks run, and print, before phase 7. The seeded data of phases 2b and
+3f is made while nvcc builds the kernels (make_beside).
 
 The second-to-last line of output is the ``kernels`` JSON object; the last
 is ``{"ok": true, "device": {...}}``. Without a card, or outside the
@@ -628,10 +662,22 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+#: the host seconds cuda_ms spends on one timing at most (past its first
+#: call): a slow call (a plain twin at full width) is timed over fewer
+#: calls, never fewer than 3
+TIMING_BUDGET_S = 0.25
+
+
 def cuda_ms(fn, iters=20, warmup=2):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
+    """Mean milliseconds per call of ``fn`` on the current stream, over
+    ``iters`` calls or as many as TIMING_BUDGET_S holds (at least 3)."""
     import torch
-    for _ in range(warmup):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    iters = max(3, min(iters, int(TIMING_BUDGET_S / max(one, 1e-9))))
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1231,8 +1277,11 @@ def phase_train(dev, datasets, trees, leaves, extra=None):
                                  "with the router or the histograms' "
                                  "in-bag counts" % env.iteration)
         checked.append(ns)
+        sync(dev)
+        stamps.append(time.perf_counter())
 
     evals = {}
+    stamps = []
     sync(dev)
     kernels.reset_launch_counts()
     if dev.type == "cuda":
@@ -1251,7 +1300,11 @@ def phase_train(dev, datasets, trees, leaves, extra=None):
     if not (np.isfinite(ll) and 0.5 < auc <= 1.0):
         raise AssertionError("valid auc %.4f logloss %.4f" % (auc, ll))
     import hashlib
+    tree_ms = np.diff([t0] + stamps) * 1e3
     summary = dict(trees=trees, splits=int(sum(checked)), wall_s=wall,
+                   steady_tree_ms=float(np.median(tree_ms[1:]))
+                   if trees > 1 else float(tree_ms[0]),
+                   valid_auc_by_tree=list(evals["valid_0"]["auc"]),
                    model_sha256=hashlib.sha256(
                        bst.model_to_string().encode()).hexdigest(),
                    wall_per_tree_ms=wall / trees * 1e3, valid_auc=auc,
@@ -1270,7 +1323,7 @@ def phase_train(dev, datasets, trees, leaves, extra=None):
     return bst, counts, summary
 
 
-def check_determinism(dev, train, leaves, iters=3, extra=None):
+def check_determinism(dev, train, leaves, iters=2, extra=None):
     """Two card runs of ``iters`` iterations: byte-equal model strings."""
     import lightgbm_tpu_torch as lgt
     params = train_params(dev, leaves, extra)
@@ -1282,11 +1335,33 @@ def check_determinism(dev, train, leaves, iters=3, extra=None):
         "(%d bytes)" % (json.dumps(extra or {}), iters, len(a)))
 
 
+#: kineto's chrome-trace categories of work on the device
+DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_device_ms(path):
+    """Device milliseconds by name in a chrome trace that torch.profiler
+    exported (its events of DEVICE_TRACE_CATS), for host_call."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    by_name = {}
+    for ev in events:
+        if ev.get("cat") in DEVICE_TRACE_CATS and "dur" in ev:
+            by_name[ev["name"]] = (by_name.get(ev["name"], 0.0)
+                                   + float(ev["dur"]) / 1e3)
+    return by_name
+
+
 def profile_iteration(dev, train, leaves, extra=None):
     """One boosting iteration (after a warm-up one) under torch.profiler:
     device time by kernel name and the device's busy share of the wall.
-    Returns a dict; kernel times are None when the profiler saw no device
-    activity."""
+    Returns a dict, whose device_busy_ms and top are filled when the trace
+    has been read (None when the profiler saw no device activity). The
+    device's activity alone is traced, and the trace is written as it
+    stands and read by a host worker (trace_device_ms through host_call):
+    a per-iteration tree runs tens of thousands of torch ops, and
+    torch.profiler's own reading of them (key_averages) took 13-40 s of
+    the script's process an iteration."""
     import torch
     import lightgbm_tpu_torch as lgt
     from torch.profiler import ProfilerActivity, profile
@@ -1294,83 +1369,272 @@ def profile_iteration(dev, train, leaves, extra=None):
     bst = lgt.Booster(train_params(dev, leaves, extra), train)
     bst.update()
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bst.update()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us and ev.key not in by_name:
-            by_name[ev.key] = us / 1e3
-    # kernels only (not the cudaLaunchKernel host events): names of device
-    # events; their sum over the wall is the busy share
-    kern = {k: v for k, v in by_name.items()
-            if not k.startswith("cuda") and not k.startswith("aten::")}
-    busy = sum(kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-    log("profile %s: one iteration, wall %.1f ms, device busy %.1f ms "
-        "(%.1f%%); top kernels %s" % (json.dumps(extra or {}), wall_ms, busy,
-                                      100.0 * busy / wall_ms,
-                              ", ".join("%s %.2f" % kv for kv in top)))
-    return dict(wall_ms=wall_ms, device_busy_ms=busy if kern else None,
-                top=top)
+    tmp = tempfile.mkdtemp(prefix="lgbt_trace_")
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    del prof, bst
+    out = dict(wall_ms=wall_ms)
+
+    def check(by_name):
+        shutil_rmtree(tmp)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log("profile %s: one iteration, wall %.1f ms, device busy %.1f ms "
+            "(%.1f%%); top kernels %s"
+            % (json.dumps(extra or {}), wall_ms, busy, 100.0 * busy / wall_ms,
+               ", ".join("%s %.2f" % kv for kv in top)))
+        out.update(device_busy_ms=busy if by_name else None, top=top)
+
+    host_call(trace_device_ms, (path,), check)
+    return out
+
+
+def tree_splits(bst):
+    """Each tree's splits in order, [(feature, threshold), ...] a tree."""
+    return [[(int(t.split_feature[r]), float(t.threshold[r]))
+             for r in range(t.num_internal)] for t in bst.inner.models]
 
 
 def split_agreement(a_bst, b_bst):
     """(splits that agree, splits, (first tree's agreeing, its splits)):
-    per tree, the splits equal in order up to the first difference."""
+    per tree, the splits equal in order up to the first difference. Each
+    side is a Booster or its tree_splits."""
     agree = total = 0
     first = None
-    for a, b in zip(a_bst.inner.models, b_bst.inner.models):
-        k = max(a.num_internal, b.num_internal)
-        total += k
+    a_trees, b_trees = (t if isinstance(t, list) else tree_splits(t)
+                        for t in (a_bst, b_bst))
+    for a, b in zip(a_trees, b_trees):
+        total += max(len(a), len(b))
         same = 0
-        for r in range(min(a.num_internal, b.num_internal)):
-            if (a.split_feature[r], a.threshold[r]) != \
-                    (b.split_feature[r], b.threshold[r]):
+        for sa, sb in zip(a, b):
+            if sa != sb:
                 break
             same += 1
         agree += same
         if first is None:
-            first = (same, k)
+            first = (same, max(len(a), len(b)))
     return agree, total, first
+
+
+# ------------------------------------------------------- host reference runs
+
+#: the host (``device_type=cpu``) trainings that the card-vs-host checks
+#: hold the card against. In the full run they go to HOST_WORKERS worker
+#: processes of one torch thread each, started after the build: a host run
+#: is bound by one core (200,000 rows x 3 trees x 63 leaves took 6.5 s on
+#: one thread and 8.7 s on eight, on an 8-core x86 host), so they overlap
+#: the card's phases instead of holding them up. Each check runs when the
+#: script collects its host run (await_host_checks, before the result
+#: lines); a failed check fails the script there. Elsewhere (a phase alone,
+#: the CPU tests) a host run and its check run in place.
+HOST_WORKERS = 4
+#: seconds the script waits for one host run it collects
+HOST_RUN_TIMEOUT_S = 600
+_HOST = {"pool": None, "pending": [], "started": []}
+
+
+def _host_worker_init():
+    """A host worker sees no card, runs one torch thread and yields the
+    CPU to the script's own process (whose host clock times the card)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(10)
+    import torch
+    torch.set_num_threads(1)
+
+
+def host_train(params, X, y, trees, forced=None):
+    """``lightgbm_tpu_torch.train(params, Dataset(X, y), trees)`` on the
+    host (``params`` name device_type cpu); ``forced`` is the text of the
+    forced-splits file the params name, written anew here. Returns
+    {"splits": tree_splits, "eval_train": bst.eval_train(), "seconds": the
+    training's wall}."""
+    import lightgbm_tpu_torch as lgt
+    with tempfile.TemporaryDirectory(prefix="lgbt_host_") as tmp:
+        if forced is not None:
+            params = dict(params, forcedsplits_filename=os.path.join(
+                tmp, "forced.json"))
+            with open(params["forcedsplits_filename"], "w") as f:
+                f.write(forced)
+        ds = lgt.Dataset(X, label=y, params=params)
+        t0 = time.perf_counter()
+        bst = lgt.train(params, ds, trees)
+        secs = time.perf_counter() - t0
+        return dict(splits=tree_splits(bst), eval_train=bst.eval_train(),
+                    seconds=secs)
+
+
+def host_call(fn, args, check):
+    """``check(fn(*args))``: ``fn`` in a host worker when the full run
+    keeps its pool (the check then runs in await_host_checks), else here
+    and now. ``fn`` must not touch the card."""
+    pool = _HOST["pool"]
+    if pool is None:
+        check(fn(*args))
+    else:
+        _HOST["pending"].append((pool.apply_async(fn, args), check))
+
+
+def host_later(pending, check):
+    """``check(pending.get())`` for work already under way in a process of
+    its own (``pending.get(timeout)`` waits for it): in await_host_checks
+    when the full run keeps its pool, else here and now."""
+    if _HOST["pool"] is None:
+        check(pending.get(timeout=HOST_RUN_TIMEOUT_S))
+    else:
+        _HOST["pending"].append((pending, check))
+
+
+def host_run(params, X, y, trees, check):
+    """Train on the host (host_train, device_type cpu) and call
+    ``check(result)`` (host_call)."""
+    params = dict(params, device_type="cpu")
+    forced = None
+    if params.get("forcedsplits_filename"):
+        with open(params["forcedsplits_filename"]) as f:
+            forced = f.read()
+    host_call(host_train, (params, X, y, trees, forced), check)
+
+
+class Started:
+    """A process started with Popen, as host_later's pending work:
+    ``get(timeout)`` waits for it and returns (its exit code, its wall
+    from start to exit); ``kill()`` stops it."""
+
+    def __init__(self, proc):
+        self.proc, self.t0, self.secs = proc, time.perf_counter(), None
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+        _HOST["started"].append(self)
+
+    def _wait(self):
+        self.proc.wait()
+        self.secs = time.perf_counter() - self.t0
+
+    def get(self, timeout=None):
+        self._waiter.join(timeout)
+        if self._waiter.is_alive():
+            raise TimeoutError("pid %d still running after %s s"
+                               % (self.proc.pid, timeout))
+        if self in _HOST["started"]:
+            _HOST["started"].remove(self)
+        return self.proc.returncode, self.secs
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self._waiter.join()
+
+
+#: results make_beside made ahead of the phases that use them, by key
+_PREMADE = {}
+
+
+def make_beside(jobs):
+    """Start a thread that makes ``{key: (fn, *args)}`` into _PREMADE, one
+    after another. Returns a function that waits for the thread, raises
+    what a job raised, and returns the thread's seconds."""
+    done = {}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            for key, (fn, *args) in jobs.items():
+                _PREMADE[key] = fn(*args)
+        except BaseException as exc:          # raised again by wait()
+            done["error"] = exc
+        done["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in done:
+            raise done["error"]
+        return done["seconds"]
+    return wait
+
+
+def premade(key, fn, *args):
+    """``fn(*args)``, or what make_beside made under ``key`` (taken
+    once)."""
+    if key in _PREMADE:
+        return _PREMADE.pop(key)
+    return fn(*args)
+
+
+def start_host_pool(workers=HOST_WORKERS):
+    """Start the full run's host workers (spawned: a forked child would
+    inherit the parent's CUDA state)."""
+    import multiprocessing
+    _HOST["pool"] = multiprocessing.get_context("spawn").Pool(
+        workers, initializer=_host_worker_init)
+
+
+def await_host_checks():
+    """Collect every host run sent to the workers, in order, and run its
+    check. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while _HOST["pending"]:
+        res, check = _HOST["pending"].pop(0)
+        check(res.get(timeout=HOST_RUN_TIMEOUT_S))
+    return time.perf_counter() - t0
+
+
+def stop_host_pool():
+    """Stop the host workers and every process started as Started,
+    whether or not their results were collected."""
+    pool, _HOST["pool"] = _HOST["pool"], None
+    _HOST["pending"] = []
+    started, _HOST["started"] = _HOST["started"], []
+    for proc in started:
+        proc.kill()
+    if pool is not None:
+        pool.terminate()
+        pool.join()
 
 
 def card_vs_host(dev, data, rows, leaves, iters=3, extra=None,
                  first_tree_equal=False):
-    """The same small training on the card and on the host (plain twins):
-    splits that agree (every split of the first tree when
-    ``first_tree_equal``), and train logloss within LOGLOSS_TOL."""
+    """The same small training on the card and on the host (plain twins,
+    host_run): splits that agree (every split of the first tree when
+    ``first_tree_equal``), and train logloss within LOGLOSS_TOL. Returns
+    the comparison's dict, filled when the host run's check has run."""
     import lightgbm_tpu_torch as lgt
     X, y = data[0][:rows], data[1][:rows]
+    params = dict(train_params(dev, leaves, extra), metric=["binary_logloss"])
+    ds = lgt.Dataset(X, label=y, params=params)
+    t0 = time.perf_counter()
+    bst = lgt.train(params, ds, iters)
+    ta = time.perf_counter() - t0
+    card, la = tree_splits(bst), bst.eval_train()[0][2]
+    del bst, ds
     out = {}
-    for name, d in (("card", dev.type), ("host", "cpu")):
-        params = dict(train_params(dev, leaves, extra), device_type=d,
-                      metric=["binary_logloss"])
-        ds = lgt.Dataset(X, label=y, params=params)
-        t0 = time.perf_counter()
-        bst = lgt.train(params, ds, iters)
-        out[name] = (bst, time.perf_counter() - t0,
-                     bst.eval_train()[0][2])
-    (ca, ta, la), (ho, th, lh) = out["card"], out["host"]
-    agree, total, first = split_agreement(ca, ho)
-    log("card vs host %s: %d rows x %d iterations; %d of %d splits agree "
-        "(in order, up to the first difference per tree; first tree %d of "
-        "%d); train logloss card %.7f host %.7f; card %.1f s, host %.1f s"
-        % (json.dumps(extra or {}), rows, iters, agree, total, first[0],
-           first[1], la, lh, ta, th))
-    if abs(la - lh) > LOGLOSS_TOL:
-        raise AssertionError("train logloss card %.6f vs host %.6f"
-                             % (la, lh))
-    if first_tree_equal and first[0] != first[1]:
-        raise AssertionError("first tree: %d of %d splits agree" % first)
-    return dict(splits_agree=agree, splits=total, first_tree=first,
-                logloss_card=la, logloss_host=lh)
+
+    def check(host):
+        lh, th = host["eval_train"][0][2], host["seconds"]
+        agree, total, first = split_agreement(card, host["splits"])
+        log("card vs host %s: %d rows x %d iterations; %d of %d splits "
+            "agree (in order, up to the first difference per tree; first "
+            "tree %d of %d); train logloss card %.7f host %.7f; card %.1f "
+            "s, host %.1f s"
+            % (json.dumps(extra or {}), rows, iters, agree, total,
+               first[0], first[1], la, lh, ta, th))
+        if abs(la - lh) > LOGLOSS_TOL:
+            raise AssertionError("train logloss card %.6f vs host %.6f"
+                                 % (la, lh))
+        if first_tree_equal and first[0] != first[1]:
+            raise AssertionError("first tree: %d of %d splits agree" % first)
+        out.update(splits_agree=agree, splits=total, first_tree=first,
+                   logloss_card=la, logloss_host=lh)
+
+    host_run(params, X, y, iters, check)
+    return out
 
 
 def rows_vs_planes(dev, data, rows, leaves, iters=3):
@@ -2688,18 +2952,12 @@ def phase_one_kernel_train(dev, data, trees, leaves, planes, host_rows):
     summary["card_vs_host"] = card_vs_host(dev, data, host_rows, leaves,
                                            extra=ONE_KERNEL_PARAMS)
     gap = abs(summary["valid_auc"] - planes["valid_auc"])
-
-    def busy(s):
-        p = s.get("profile") or {}
-        return "%.1f%%" % (100.0 * p["device_busy_ms"] / p["wall_ms"]) \
-            if p.get("device_busy_ms") else "not measured"
-
     log("valid auc after %d trees: three-launch %.5f, one-kernel %.5f "
-        "(|diff| %.5f, limit %.3f); ms per tree %.1f vs %.1f; device busy "
-        "%s vs %s" % (trees, planes["valid_auc"], summary["valid_auc"], gap,
-                      ONE_KERNEL_AUC_TOL, planes["wall_per_tree_ms"],
-                      summary["wall_per_tree_ms"], busy(planes),
-                      busy(summary)))
+        "(|diff| %.5f, limit %.3f); ms per tree %.1f vs %.1f (the device's "
+        "busy shares on the profile lines)"
+        % (trees, planes["valid_auc"], summary["valid_auc"], gap,
+           ONE_KERNEL_AUC_TOL, planes["wall_per_tree_ms"],
+           summary["wall_per_tree_ms"]))
     if gap > ONE_KERNEL_AUC_TOL:
         raise AssertionError("one-kernel valid auc %.5f vs three-launch %.5f"
                              % (summary["valid_auc"], planes["valid_auc"]))
@@ -4618,8 +4876,9 @@ def rank_datasets(dev, rows, params):
     import numpy as np
     import lightgbm_tpu_torch as lgt
     t0 = time.perf_counter()
-    X, y, group = mslr_like(rows)
-    gen = time.perf_counter() - t0
+    made = "beside the build" if ("mslr_like", rows) in _PREMADE else None
+    X, y, group = premade(("mslr_like", rows), mslr_like, rows)
+    made = made or "in %.1f s" % (time.perf_counter() - t0)
     cut = len(group) - len(group) // 10
     r = int(group[:cut].sum())
     t1 = time.perf_counter()
@@ -4630,9 +4889,9 @@ def rank_datasets(dev, rows, params):
                         reference=train)
     valid.construct()
     log("rank data: %d rows x %d features, %d queries (%d train, %d "
-        "valid; sizes %d-%d, mean %.1f), made in %.1f s, binned in %.1f s"
+        "valid; sizes %d-%d, mean %.1f), made %s, binned in %.1f s"
         % (len(X), X.shape[1], len(group), cut, len(group) - cut,
-           group.min(), group.max(), group.mean(), gen,
+           group.min(), group.max(), group.mean(), made,
            time.perf_counter() - t1))
     return train, valid
 
@@ -5126,40 +5385,47 @@ def phase_objectives(dev, data, card, rows=OBJECTIVE_ROWS,
     X = data[0][:rows]
     rng = np.random.RandomState(seed + 43)
     out = {}
+
+    def check_for(obj, ca, ta, mname, va, renew):
+        def check(host):
+            vh, th = host["eval_train"][0][2], host["seconds"]
+            agree, total, first = split_agreement(ca, host["splits"])
+            log("phase 3g %s (%s): %d rows x %d trees x %d leaves (%s); %d "
+                "of %d splits agree (first tree %d of %d); train %s card "
+                "%.7f host %.7f; card %.1f s, host %.1f s"
+                % (obj, card, rows, trees, leaves,
+                   "per iteration" if renew else "fused", agree, total,
+                   first[0], first[1], mname, va, vh, ta, th))
+            if not (np.isfinite(va) and abs(va - vh)
+                    <= OBJECTIVE_METRIC_TOL * max(1.0, abs(vh))):
+                raise AssertionError("phase 3g %s: train %s card %.6f host "
+                                     "%.6f" % (obj, mname, va, vh))
+            out[obj].update(host=vh, splits_agree=agree, splits=total,
+                            host_s=th)
+        return check
+
     for obj in OBJECTIVES:
         y = objective_labels(obj, X, rng)
-        res = {}
-        for name, d in (("card", dev.type), ("host", "cpu")):
-            params = dict(objective=obj, num_leaves=leaves, max_bin=255,
-                          verbosity=-1, device_type=d)
-            if obj == "multiclassova":
-                params["num_class"] = 3
-            ds = lgt.Dataset(X, label=y, params=params)
-            t0 = time.perf_counter()
-            bst = lgt.train(params, ds, trees)
-            sync(dev)
-            ev = bst.eval_train()
-            res[name] = (bst, time.perf_counter() - t0, ev[0][1], ev[0][2])
-        (ca, ta, mname, va), (ho, th, _, vh) = res["card"], res["host"]
-        renew = ca.inner.objective.need_renew
-        fused = getattr(ca.inner, "_fused", None) is not None
+        params = dict(objective=obj, num_leaves=leaves, max_bin=255,
+                      verbosity=-1, device_type=dev.type)
+        if obj == "multiclassova":
+            params["num_class"] = 3
+        ds = lgt.Dataset(X, label=y, params=params)
+        t0 = time.perf_counter()
+        bst = lgt.train(params, ds, trees)
+        sync(dev)
+        ev = bst.eval_train()
+        ta, mname, va = time.perf_counter() - t0, ev[0][1], ev[0][2]
+        renew = bst.inner.objective.need_renew
+        fused = getattr(bst.inner, "_fused", None) is not None
         if fused == renew:
             raise AssertionError("phase 3g %s: fused %s with renewal %s"
                                  % (obj, fused, renew))
-        agree, total, first = split_agreement(ca, ho)
-        log("phase 3g %s (%s): %d rows x %d trees x %d leaves (%s); %d of "
-            "%d splits agree (first tree %d of %d); train %s card %.7f host "
-            "%.7f; card %.1f s, host %.1f s"
-            % (obj, card, rows, trees, leaves,
-               "per iteration" if renew else "fused", agree, total,
-               first[0], first[1], mname, va, vh, ta, th))
-        if not (np.isfinite(va) and abs(va - vh)
-                <= OBJECTIVE_METRIC_TOL * max(1.0, abs(vh))):
-            raise AssertionError("phase 3g %s: train %s card %.6f host %.6f"
-                                 % (obj, mname, va, vh))
-        out[obj] = dict(metric=mname, card=va, host=vh, splits_agree=agree,
-                        splits=total, card_s=ta, host_s=th,
-                        fused=not renew)
+        out[obj] = dict(metric=mname, card=va, card_s=ta, fused=not renew)
+        ca = tree_splits(bst)
+        del bst, ds
+        host_run(params, X, y, trees,
+                 check_for(obj, ca, ta, mname, va, renew))
     return out
 
 
@@ -5169,7 +5435,7 @@ def phase_objectives(dev, data, card, rows=OBJECTIVE_ROWS,
 #: data, 255 leaves, 255 bins), the first per-iteration trees compared with
 #: the first fused ones, and the card-vs-host runs (3g's size)
 OPTIONS_TREES = 10
-OPTIONS_PER_ITER_TREES = 3
+OPTIONS_PER_ITER_TREES = 2
 OPTIONS_HOST_ROWS = 200_000
 OPTIONS_HOST_TREES = 3
 OPTIONS_HOST_LEAVES = 63
@@ -5679,24 +5945,28 @@ def options_card_vs_host(dev, data, name, extra, rows, trees, leaves,
     train logloss within OPTIONS_METRIC_TOL."""
     import lightgbm_tpu_torch as lgt
     X, y = data[0][:rows], data[1][:rows]
-    res = {}
-    for where, d in (("card", dev.type), ("host", "cpu")):
-        params = dict(train_params(dev, leaves, extra), device_type=d)
-        bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
-                        trees)
-        res[where] = (bst, bst.eval_train()[1][2])
-    (ca, lc), (ho, lh) = res["card"], res["host"]
-    agree, total, first = split_agreement(ca, ho)
-    log("phase %s card vs host %s: %d rows x %d trees x %d leaves; %d of "
-        "%d splits agree (first tree %d of %d); train logloss card %.9f "
-        "host %.9f (|diff| %.3g, limit %.1g)"
-        % (tag, name, rows, trees, leaves, agree, total, first[0], first[1],
-           lc, lh, abs(lc - lh), OPTIONS_METRIC_TOL))
-    if not abs(lc - lh) <= OPTIONS_METRIC_TOL:
-        raise AssertionError("phase %s %s: train logloss card %.9f host "
-                             "%.9f" % (tag, name, lc, lh))
-    return dict(splits_agree=agree, splits=total, logloss_card=lc,
-                logloss_host=lh)
+    params = train_params(dev, leaves, extra)
+    bst = lgt.train(params, lgt.Dataset(X, label=y, params=params), trees)
+    ca, lc = tree_splits(bst), bst.eval_train()[1][2]
+    del bst
+    out = {}
+
+    def check(host):
+        lh = host["eval_train"][1][2]
+        agree, total, first = split_agreement(ca, host["splits"])
+        log("phase %s card vs host %s: %d rows x %d trees x %d leaves; %d "
+            "of %d splits agree (first tree %d of %d); train logloss card "
+            "%.9f host %.9f (|diff| %.3g, limit %.1g)"
+            % (tag, name, rows, trees, leaves, agree, total, first[0],
+               first[1], lc, lh, abs(lc - lh), OPTIONS_METRIC_TOL))
+        if not abs(lc - lh) <= OPTIONS_METRIC_TOL:
+            raise AssertionError("phase %s %s: train logloss card %.9f host "
+                                 "%.9f" % (tag, name, lc, lh))
+        out.update(splits_agree=agree, splits=total, logloss_card=lc,
+                   logloss_host=lh)
+
+    host_run(params, X, y, trees, check)
+    return out
 
 
 def phase_options(dev, data, card, trees=OPTIONS_TREES,
@@ -6872,25 +7142,29 @@ def linear_card_vs_host(dev, data, rows, trees, leaves):
     agree, and the train logloss within LINEAR_METRIC_TOL."""
     import lightgbm_tpu_torch as lgt
     X, y = data[0][:rows], data[1][:rows]
-    res = {}
-    for where, d in (("card", dev.type), ("host", "cpu")):
-        params = dict(train_params(dev, leaves, {"linear_tree": True,
-                                                 "linear_device": "on"}),
-                      device_type=d)
-        bst = lgt.train(params, lgt.Dataset(X, label=y, params=params),
-                        trees)
-        res[where] = (bst, bst.eval_train()[1][2])
-    (ca, lc), (ho, lh) = res["card"], res["host"]
-    agree, total, _ = split_agreement(ca, ho)
-    log("phase 3j card vs host linear: %d rows x %d trees x %d leaves; %d "
-        "of %d splits agree; train logloss card %.9f host %.9f (|diff| "
-        "%.3g, limit %.1g)" % (rows, trees, leaves, agree, total, lc, lh,
-                               abs(lc - lh), LINEAR_METRIC_TOL))
-    if not abs(lc - lh) <= LINEAR_METRIC_TOL:
-        raise AssertionError("phase 3j linear: train logloss card %.9f host "
-                             "%.9f" % (lc, lh))
-    return dict(splits_agree=agree, splits=total, logloss_card=lc,
-                logloss_host=lh)
+    params = train_params(dev, leaves, {"linear_tree": True,
+                                        "linear_device": "on"})
+    bst = lgt.train(params, lgt.Dataset(X, label=y, params=params), trees)
+    ca, lc = tree_splits(bst), bst.eval_train()[1][2]
+    del bst
+    out = {}
+
+    def check(host):
+        lh = host["eval_train"][1][2]
+        agree, total, _ = split_agreement(ca, host["splits"])
+        log("phase 3j card vs host linear: %d rows x %d trees x %d leaves; "
+            "%d of %d splits agree; train logloss card %.9f host %.9f "
+            "(|diff| %.3g, limit %.1g)" % (rows, trees, leaves, agree, total,
+                                          lc, lh, abs(lc - lh),
+                                          LINEAR_METRIC_TOL))
+        if not abs(lc - lh) <= LINEAR_METRIC_TOL:
+            raise AssertionError("phase 3j linear: train logloss card %.9f "
+                                 "host %.9f" % (lc, lh))
+        out.update(splits_agree=agree, splits=total, logloss_card=lc,
+                   logloss_host=lh)
+
+    host_run(params, X, y, trees, check)
+    return out
 
 
 def dense_run(dev, data, name, extra, trees, per_iter, leaves):
@@ -7407,11 +7681,24 @@ def phase_file(dev, data, leaves, card):
         params = {"objective": "binary", "max_bin": 255,
                   "num_leaves": leaves, "num_iterations": FILE_TREES,
                   "verbosity": -1, "device_type": dev.type}
-        conf = os.path.join(d, "train.conf")
+        # the subprocess, started now, runs beside the rest (its own copy
+        # of the CSV: the phase's directory goes before it is collected)
+        sub_dir = tempfile.mkdtemp(prefix="chip_smoke_sub_")
+        sub_csv = os.path.join(sub_dir, "train.csv")
+        with open(train_csv, "rb") as f, open(sub_csv, "wb") as g:
+            g.write(f.read())
+        conf = os.path.join(sub_dir, "train.conf")
         with open(conf, "w") as f:
             f.write("".join("%s = %s\n" % kv for kv in dict(
-                params, task="train", data=train_csv,
-                output_model=os.path.join(d, "sub.txt")).items()))
+                params, task="train", data=sub_csv,
+                output_model=os.path.join(sub_dir, "sub.txt")).items()))
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        with open(os.path.join(sub_dir, "out.txt"), "w") as out:
+            sub = Started(subprocess.Popen(
+                [sys.executable, "-m", "lightgbm_tpu_torch",
+                 "config=" + conf], cwd=sub_dir, env=env, stdout=out,
+                stderr=subprocess.STDOUT))
 
         # the in-memory model: parse and bin natively, train on the card
         t0 = time.perf_counter()
@@ -7486,29 +7773,37 @@ def phase_file(dev, data, leaves, card):
              "output_model=" + from_bin] + arg)
         if model_text(from_bin) != want:
             raise AssertionError("the model from the .bin differs")
-        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        t0 = time.perf_counter()
-        sub = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
-                              "config=" + conf], cwd=d, env=env,
-                             capture_output=True, text=True, timeout=600)
-        summary["subprocess_s"] = time.perf_counter() - t0
-        if sub.returncode != 0:
-            raise AssertionError("python -m lightgbm_tpu_torch exited %d:\n%s"
-                                 % (sub.returncode, sub.stderr[-3000:]))
-        if model_text(os.path.join(d, "sub.txt")) != want:
-            raise AssertionError("the subprocess's model differs")
     summary["model_sha256"] = hashlib.sha256(want.encode()).hexdigest()
     summary["host_build_s"] = dict(io_native.BUILD_SECONDS)
     log("file: %d + %d rows written in %.1f s; parse %.2f s, construct "
         "%.2f s, train %.2f s (%d trees x %d leaves); cli train %.2f s, "
         "predict %.2f s, save_binary %.2f s, train from .bin %.2f s; "
-        "python -m %.1f s; every model byte-equal (%s)"
+        "every model byte-equal (%s)"
         % (len(Xf), len(Xfv), summary["write_s"], summary["parse_s"],
            summary["construct_s"], summary["train_s"], FILE_TREES, leaves,
            summary["cli_train_s"], summary["cli_predict_s"],
            summary["cli_save_binary_s"], summary["cli_train_bin_s"],
-           summary["subprocess_s"], summary["model_sha256"][:16]))
+           summary["model_sha256"][:16]))
+
+    def check_sub(res):
+        rc, secs = res
+        try:
+            with open(os.path.join(sub_dir, "out.txt")) as f:
+                tail = f.read()[-3000:]
+            if rc != 0:
+                raise AssertionError("python -m lightgbm_tpu_torch exited "
+                                     "%d:\n%s" % (rc, tail))
+            with open(os.path.join(sub_dir, "sub.txt")) as f:
+                if f.read() != want:
+                    raise AssertionError("the subprocess's model differs")
+        finally:
+            shutil_rmtree(sub_dir)
+        summary["subprocess_s"] = secs
+        log("file: python -m lightgbm_tpu_torch %.1f s (started before the "
+            "CLI runs above), its model byte-equal (%s)"
+            % (secs, summary["model_sha256"][:16]))
+
+    host_later(sub, check_sub)
     log("file: launches, cli train %s; predict %s (%s)"
         % (train_counts, predict_counts, card))
     return summary, {"train": train_counts, "predict": predict_counts}
@@ -7617,6 +7912,17 @@ def api_cv(dev, X, y, leaves, device_type):
     res = lgt.cv(params, lgt.Dataset(X, label=y), API_CV_ROUNDS,
                  nfold=API_CV_FOLDS, seed=0, return_cvbooster=True)
     return res, time.perf_counter() - t0
+
+
+def host_cv(X, y, leaves):
+    """api_cv on the host, for host_call: {"folds": [(a fold booster's
+    binned rows, its trees)], "hist": the histories, "seconds": the
+    wall}."""
+    import torch
+    res, secs = api_cv(torch.device("cpu"), X, y, leaves, "cpu")
+    folds = [(b.inner.train_set.binned, b.inner.models)
+             for b in res.pop("cvbooster").boosters]
+    return dict(folds=folds, hist=res, seconds=secs)
 
 
 def api_compile_cpp(src, out_dir):
@@ -8051,32 +8357,37 @@ def phase_api_online(dev, data, card, leaves=255, host_rows=200_000,
     kernels.reset_launch_counts()
     # (a) cv card vs host at host_rows rows
     cv_card, t_card = api_cv(dev, Xh, yh, host_leaves, dev.type)
-    cv_host, t_host = api_cv(dev, Xh, yh, host_leaves, "cpu")
     part("cv_card_vs_host")
-    diffs = []
-    for i, (a, b) in enumerate(zip(cv_card["cvbooster"].boosters,
-                                   cv_host["cvbooster"].boosters)):
-        # the same rows in the same order, binned alike
-        if not np.array_equal(a.inner.train_set.binned,
-                              b.inner.train_set.binned):
-            raise AssertionError("phase 3k (a): fold %d's rows differ card "
-                                 "vs host" % i)
-        diffs += ["fold %d %s" % (i, d)
-                  for d in fold_tree_diffs(a.inner.models, b.inner.models)]
-    diff = max(float(np.max(np.abs(np.subtract(cv_card[k], cv_host[k]))))
-               for k in cv_card if k != "cvbooster")
-    log("phase 3k (a) cv card vs host: %d rows x %d leaves, folds equal, "
-        "fold trees %s, histories max |diff| %.3g (limit %.0e); card %.1f "
-        "s, host %.1f s" % (host_rows, host_leaves,
-                            "; ".join(diffs) or "equal", diff, API_CV_TOL,
-                            t_card, t_host))
-    summary["cv"]["card_vs_host"] = dict(rows=host_rows, leaves=host_leaves,
-                                         max_abs_diff=diff, card_s=t_card,
-                                         host_s=t_host, tree_diffs=diffs)
-    if diffs or diff > API_CV_TOL:
-        raise AssertionError("phase 3k (a): cv card vs host: trees %s, "
-                             "histories differ by %.3g" % (diffs, diff))
-    del cv_card, cv_host
+    card_folds = [(b.inner.train_set.binned, b.inner.models)
+                  for b in cv_card.pop("cvbooster").boosters]
+    out = summary["cv"]["card_vs_host"] = dict(
+        rows=host_rows, leaves=host_leaves, card_s=t_card)
+
+    def check_cv(host):
+        diffs = []
+        for i, ((a_bins, a_trees), (b_bins, b_trees)) in enumerate(
+                zip(card_folds, host["folds"])):
+            # the same rows in the same order, binned alike
+            if not np.array_equal(a_bins, b_bins):
+                raise AssertionError("phase 3k (a): fold %d's rows differ "
+                                     "card vs host" % i)
+            diffs += ["fold %d %s" % (i, d)
+                      for d in fold_tree_diffs(a_trees, b_trees)]
+        diff = max(float(np.max(np.abs(np.subtract(cv_card[k],
+                                                   host["hist"][k]))))
+                   for k in cv_card)
+        log("phase 3k (a) cv card vs host: %d rows x %d leaves, folds "
+            "equal, fold trees %s, histories max |diff| %.3g (limit %.0e); "
+            "card %.1f s, host %.1f s"
+            % (host_rows, host_leaves, "; ".join(diffs) or "equal", diff,
+               API_CV_TOL, t_card, host["seconds"]))
+        out.update(max_abs_diff=diff, host_s=host["seconds"],
+                   tree_diffs=diffs)
+        if diffs or diff > API_CV_TOL:
+            raise AssertionError("phase 3k (a): cv card vs host: trees %s, "
+                                 "histories differ by %.3g" % (diffs, diff))
+
+    host_call(host_cv, (Xh, yh, host_leaves), check_cv)
     summary["wall_s"] = time.perf_counter() - t_start
     log("phase 3k took %.1f s (%s)" % (summary["wall_s"], card))
     return summary, counts
@@ -8987,12 +9298,705 @@ def phase_fleet(dev, data, card, trees=40, leaves=255, seed=0,
     return summary, counts, row, errs
 
 
+# ------------------------------------------------------------ parallel phase
+
+#: phase 3m: the distributed learners at full width (the training rows of
+#: phase 3, 255 bins, 255 leaves, binary, with the valid set, per
+#: iteration), ranks on the one card. Cut: PARALLEL_TREES trees a run
+#: (from the 4 first planned: ranks sharing one card grow a tree in 2-5 s,
+#: and the whole script must keep its time on the slower machines)
+PARALLEL_TREES = 2
+#: voting's top_k: at F = 28 the default 20 gives 2k >= F (every feature
+#: merged)
+PARALLEL_TOP_K = 8
+#: the modes run at D = 2 (name, tree_learner, extra params)
+PARALLEL_MODES = (("data", "data", {}),
+                  ("data_noscatter", "data", {"tpu_hist_scatter": False}),
+                  ("feature", "feature", {}),
+                  ("voting", "voting", {"top_k": PARALLEL_TOP_K}),
+                  ("int8", "data", {"use_quantized_grad": True}))
+#: the int8 run shows each rank's B2 and B6: cut to 1 tree
+PARALLEL_INT8_TREES = 1
+#: valid AUC against serial's (tests/test_parallel.py:67's bounds; int8
+#: against the f32 serial model as phase 4 holds it)
+PARALLEL_AUC_TOL = {"data": 0.005, "data_noscatter": 0.005, "feature": 0.03,
+                    "voting": 0.03, "int8": AUC_TOL}
+PARALLEL_HOST_TREES = 3
+PARALLEL_HOST_LEAVES = 63
+PARALLEL_CSV_ROWS = 200_000
+PARALLEL_LOAD_TREES = 3
+#: the kernels every rank's f32 and int8 runs must launch (B1, B5, B3;
+#: B2, B6, B3)
+PARALLEL_F32_KERNELS = ("partition_segment", "segment_histogram",
+                        "route_rows")
+PARALLEL_INT8_KERNELS = ("partition_segment_rows", "segment_histogram_q",
+                         "route_rows")
+#: a rank group's time limit: every join inside it times out within this
+PARALLEL_GROUP_TIMEOUT_S = 900
+
+
+def l2_grid_labels(X):
+    """L2 labels on the 1/64 grid within [-1/8, 1/8]: every f32 sum of
+    up to 2^21 of them (and of the unit hessians and counts) is exact in
+    any order, so one tree grown from them is the same tree however its
+    sums are split over ranks."""
+    import numpy as np
+    return np.clip(np.round(higgs_signal(X) * 8.0), -8, 8) / 64.0
+
+
+def tree_block(text, k=0):
+    """The ``Tree=k`` block of a model text."""
+    head = "Tree=%d\n" % k
+    start = text.index(head)
+    end = text.find("\n\n", start)
+    return text[start:end if end >= 0 else len(text)]
+
+
+def first_difference(a, b):
+    """Where two model texts' first trees differ: for each line that
+    differs, its key and the differing entries (index and both values)."""
+    out = []
+    for la, lb in zip(tree_block(a).split("\n"), tree_block(b).split("\n")):
+        if la != lb:
+            key, _, va = la.partition("=")
+            vb = lb.partition("=")[2]
+            diffs = [(i, x, y) for i, (x, y) in enumerate(
+                zip(va.split(), vb.split())) if x != y]
+            out.append("  %s: %d entries differ, first %s"
+                       % (key, len(diffs), diffs[:6]))
+    return "\n".join(out) or "  (one block is a prefix of the other)"
+
+
+def same_first_tree(a, b):
+    """Two model texts' first trees: the same structure and counts, and
+    leaf values equal as numbers (a zero's sign aside: a sum that the
+    SplitInfo sync carries may turn -0.0 into 0.0, as the JAX package's
+    masked sum does)."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    ta, tb = (lgt.Booster({"device_type": "cpu"}, model_str=t).inner
+              .models[0] for t in (a, b))
+    k = ta.num_internal
+    return ta.num_leaves == tb.num_leaves and all(
+        np.array_equal(getattr(ta, f)[:k], getattr(tb, f)[:k])
+        for f in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child")) and np.array_equal(
+        ta.leaf_count[:ta.num_leaves], tb.leaf_count[:tb.num_leaves]) \
+        and np.array_equal(ta.leaf_value[:ta.num_leaves],
+                           tb.leaf_value[:tb.num_leaves])
+
+
+def gloo_cuda_probe(dev, world):
+    """Which gloo collectives take card tensors under this torch (the
+    port's Comm stages card tensors through pinned host memory for a
+    gloo group either way)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.arange(8 * world, dtype=torch.float32, device=dev)
+    probes = {}
+    tries = (("all_reduce", lambda: dist.all_reduce(x.clone())),
+             ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+             ("all_gather", lambda: dist.all_gather(
+                 [torch.empty_like(x) for _ in range(world)], x)),
+             ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                 torch.empty(8, device=dev), x)))
+    for name, fn in tries:
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            probes[name] = "accepted"
+        except Exception as e:   # the probe reports, the Comm stages
+            probes[name] = "refused: %s" % str(e).splitlines()[0][:120]
+        dist.barrier()
+    return probes
+
+
+def par_train(dev, npz, valid_npz, params, trees, label=None,
+              want_text=False):
+    """A rank's ``lgt.train`` of ``trees`` iterations with the valid set:
+    model sha256, wall, the valid metrics, this run's launch counts, the
+    comm's collectives and bytes, the learner class."""
+    import hashlib
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import kernels
+
+    p = dict(params, device_type=dev.type)
+    train = lgt.Dataset(npz, label=None if label is None else np.load(label),
+                        params=p)
+    train.construct()
+    valid = [lgt.Dataset(valid_npz, params=p)] if valid_npz else []
+    evals = {}
+    stamps = []
+
+    def stamp(env):
+        # a callback: every booster trains per iteration, serial too
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(p, train, trees, valid_sets=valid,
+                    callbacks=[lgt.record_evaluation(evals), stamp])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    per_tree = np.diff([t0] + stamps) * 1e3
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    text = bst.model_to_string()
+    lrn = bst.inner.learner
+    comm = getattr(lrn, "comm", None)
+    out = dict(sha=hashlib.sha256(text.encode()).hexdigest(), wall_s=wall,
+               wall_per_tree_ms=wall / trees * 1e3,
+               tree_ms=[float(v) for v in per_tree],
+               steady_tree_ms=float(np.median(per_tree[1:]))
+               if len(per_tree) > 1 else float(per_tree[0]),
+               launches=counts,
+               learner=type(lrn).__name__, fused=bst.inner.supports_fused(),
+               comm=dict(comm.stats) if comm is not None else {},
+               metrics={k: v[-1] for k, v in evals.get("valid_0",
+                                                         {}).items()},
+               auc_by_tree=list(evals.get("valid_0", {}).get("auc", [])),
+               train_metric=bst.eval_train()[0][2] if not valid else None,
+               init_scores=[float(v) for v in bst.inner.init_scores],
+               num_trees=len(bst.inner.models))
+    if want_text:
+        out["text"] = text
+    return out
+
+
+def load_and_train(dev, csv, params, trees, sharded=True):
+    """``io.load_dataset_sharded`` of ``csv`` (default gathers over the
+    group when ``sharded``, else every row) and ``trees`` iterations on it
+    per iteration (a callback: the distributed learners' per-split host
+    loop; data-parallel when sharded, else serial). Returns the bins, the
+    model text, the load's seconds and the init scores."""
+    import hashlib
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io import load_dataset_sharded
+
+    p = dict(params, device_type=dev.type,
+             tree_learner="data" if sharded else "serial")
+    t0 = time.perf_counter()
+    ds = load_dataset_sharded(csv, Config.from_params(p)) if sharded \
+        else load_dataset_sharded(csv, Config.from_params(p), rank=0,
+                                  world=1)
+    load_s = time.perf_counter() - t0
+    wrap = lgt.Dataset(None)
+    wrap._constructed = ds
+    bst = lgt.train(p, wrap, trees, callbacks=[lambda env: None])
+    text = bst.model_to_string()
+    return dict(binned=ds.binned, shard_info=ds.shard_info, load_s=load_s,
+                text=text, sha=hashlib.sha256(text.encode()).hexdigest(),
+                learner=type(bst.inner.learner).__name__,
+                local_label_mean=float(np.mean(ds.metadata.label)),
+                init_scores=[float(v) for v in bst.inner.init_scores])
+
+
+PARALLEL_CASES = {"train": par_train, "load": load_and_train}
+
+
+def gloo_latency(group, reps=20):
+    """Milliseconds a gloo collective of the group takes on host tensors of
+    a histogram's size (28 x 256 x 3 f32) and a SplitInfo's (2 x 280), the
+    median of ``reps`` after 3 warm-ups."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    d = dist.get_world_size(group)
+    out = {}
+    for size in (28 * 256 * 3, 2 * 280):
+        x = torch.ones(size - size % d)
+        parts = [torch.empty_like(x) for _ in range(d)]
+        blk = torch.empty(x.numel() // d)
+        rs = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        for name, fn in (("all_reduce", lambda: dist.all_reduce(
+                             x, group=group)),
+                         ("all_gather", lambda: dist.all_gather(
+                             parts, x, group=group)),
+                         ("reduce_scatter", lambda: rs(blk, x,
+                                                       group=group))):
+            times = []
+            for i in range(reps + 3):
+                t0 = time.perf_counter()
+                fn()
+                if i >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out["%s_%d" % (name, size)] = float(np.median(times))
+    return out
+
+
+def rank_warmup(dev):
+    """What a rank's first training would pay once: the kernels bound,
+    the card's context, the pinned-memory pool."""
+    import torch
+    from lightgbm_tpu_torch.linear import fit as linear_fit  # noqa: F401
+    from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
+                                        histogram, kernels, monotone, node,
+                                        partition, rank, route, scan)
+    if dev.type == "cuda":
+        kernels.build_all()
+        x = torch.ones(1 << 20, device=dev)
+        torch.empty(x.shape, pin_memory=True).copy_(x)
+        torch.cuda.synchronize(dev)
+
+
+def parallel_rank(rank, world, work):
+    """One rank of a phase 3m group: join the group (a ``file://`` store
+    in ``work``; on the card the rank's is ``cuda:(rank % count)``), warm
+    up, then wait for ``work/cases.pkl`` (the parent writes it once the
+    inputs are ready), run every case in order and write
+    ``work/out_<rank>.pkl``. A case of ``D`` ranks runs on the group of
+    ranks ``[0, D)`` (the others go on to the next case); ``on_card`` on
+    the group's device (the host when the phase rehearses there), else on
+    the host."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from lightgbm_tpu_torch.parallel.distributed import (backend,
+                                                         global_mesh,
+                                                         init_distributed,
+                                                         make_mesh)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    with open(os.path.join(work, "device")) as f:
+        device_type = f.read().strip()
+    init_distributed("file://" + os.path.join(work, "store"), world, rank,
+                     device_type=device_type,
+                     timeout_s=PARALLEL_GROUP_TIMEOUT_S)
+    card_dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device_type == "cuda" else torch.device("cpu")
+    rank_warmup(card_dev)
+    # every rank makes the group of the first two ranks (the D = 2 cases)
+    groups = {2: make_mesh(2), world: make_mesh(world)}
+    out = {"backend": backend(), "device": str(card_dev),
+           "probe": gloo_cuda_probe(card_dev, world)
+           if backend() == "gloo" and device_type == "cuda" else {},
+           "latency_ms": {d: gloo_latency(g) for d, g in groups.items()
+                          if rank < d}}
+    spec = os.path.join(work, "cases.pkl")
+    deadline = time.perf_counter() + PARALLEL_GROUP_TIMEOUT_S
+    while not os.path.exists(spec):
+        if time.perf_counter() > deadline:
+            raise RuntimeError("no cases after %d s"
+                               % PARALLEL_GROUP_TIMEOUT_S)
+        time.sleep(0.05)
+    with open(spec, "rb") as f:
+        cases = pickle.load(f)
+    for name, kind, on_card, d, kw in cases:
+        dist.barrier()     # each case starts on every rank of it at once
+        if rank >= d:
+            continue
+        dev = card_dev if on_card else torch.device("cpu")
+        t0 = time.perf_counter()
+        with global_mesh(group=groups[d]):
+            out[name] = PARALLEL_CASES[kind](dev, **kw)
+        out[name]["case_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "out_%d.pkl" % rank), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+class RankGroup:
+    """``world`` ranks of this script (``--parallel-rank``) on ``dev``'s
+    type, started at once: they join, warm up and wait for their cases
+    while the caller prepares the inputs."""
+
+    def __init__(self, dev, world, work):
+        os.makedirs(work, exist_ok=True)
+        self.world, self.work = world, work
+        with open(os.path.join(work, "device"), "w") as f:
+            f.write(dev.type)
+        env = dict(os.environ, PYTHONPATH=HERE)
+        self.procs, self.logs = [], []
+        for rank in range(world):
+            logp = os.path.join(work, "rank%d.log" % rank)
+            self.logs.append(logp)
+            with open(logp, "w") as lf:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--parallel-rank", str(rank), str(world), work],
+                    stdout=lf, stderr=subprocess.STDOUT, env=env, cwd=HERE))
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def run(self, cases, timeout_s=PARALLEL_GROUP_TIMEOUT_S):
+        """Hand the ranks ``cases`` (``(name, kind, on_card, D, kwargs)``)
+        and wait for all of them (a failed or late rank kills the group
+        and fails the phase); their outputs in rank order."""
+        import pickle
+        tmp = os.path.join(self.work, "cases.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(cases, f)
+        os.replace(tmp, os.path.join(self.work, "cases.pkl"))
+        deadline = time.perf_counter() + timeout_s
+        failed = None
+        procs = self.procs
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    failed = "a rank failed"
+                    break
+                if time.perf_counter() > deadline:
+                    failed = "timed out after %d s" % timeout_s
+                    break
+                time.sleep(0.1)
+            if failed is None and any(p.returncode != 0 for p in procs):
+                failed = "a rank failed"
+        finally:
+            self.kill()
+        if failed:
+            for rank, logp in enumerate(self.logs):
+                with open(logp) as lf:
+                    log("rank %d of %d (rc %s):\n%s"
+                        % (rank, self.world, procs[rank].returncode,
+                           lf.read()[-4000:]))
+            raise AssertionError("phase 3m: group of %d ranks: %s"
+                                 % (self.world, failed))
+        outs = []
+        for rank in range(self.world):
+            with open(os.path.join(self.work, "out_%d.pkl" % rank),
+                      "rb") as f:
+                outs.append(pickle.load(f))
+        return outs
+
+
+def run_rank_group(dev, world, cases, work,
+                   timeout_s=PARALLEL_GROUP_TIMEOUT_S):
+    """Start a RankGroup of ``world`` ranks and run ``cases`` on it."""
+    return RankGroup(dev, world, work).run(cases, timeout_s)
+
+
+def collective_bytes(mode, world, num_grp, num_bin, rows, splits, num_feat,
+                     top_k):
+    """The collective payload bytes (a rank's input to each collective) of
+    one tree of ``splits`` splits, from the shapes: the root sums (12 B)
+    and histogram, then per split the smaller child's (G, B, 3) f32
+    histogram (all-reduce; reduce-scatter in scatter mode, G padded to D
+    blocks); the SplitInfo sync of feature and scatter modes (one
+    all-gather of a node's gain and fields, B + 23 f32); voting's (F,)
+    votes and (2k, B, 3) merged rows a node; the (N / D) int32 gather of
+    the rows' leaves."""
+    hist = num_grp * num_bin * 12
+    scat = -(-num_grp // world) * world * num_bin * 12
+    info = 4 * (num_bin + 23)                # a node
+    vote = 4 * num_feat + min(2 * top_k, num_feat) * num_bin * 12
+    root, per = {"feature": (info, 2 * info),
+                 "voting": (12 + vote, 2 * vote),
+                 "data_noscatter": (12 + hist, hist)}.get(
+        mode, (12 + scat + info, scat + 2 * info))
+    gather = 0 if mode == "feature" else 4 * (-(-rows // world))
+    return root + splits * per + gather
+
+
+def phase_parallel(dev, data, card, trees=PARALLEL_TREES, leaves=255,
+                   host_rows=200_000, serial=None):
+    """Phase 3m: the distributed learners at full width on the card, ranks
+    sharing it over gloo (one process a rank; NCCL refuses two ranks on one
+    card). The parent bins phase 3's rows once and writes the npz every
+    rank trains on; then, against the serial per-iteration model of the
+    same run (``tpu_split_kernel=off``: the chain's kernels, which the
+    distributed trees take), at D = 2: data with and without
+    ``tpu_hist_scatter``, feature, voting (``top_k=8``) and int8 data, each
+    ``trees`` trees; data again (sha256-equal); the first tree of data and
+    of feature on 1/64-grid L2 labels byte-equal to serial's; card against
+    host at ``host_rows`` rows x 3 trees x 63 leaves; a sharded load of a
+    200,000-row CSV. At D = 4: data. Every rank's model sha256-equal to
+    the others', every rank launched B1, B5 and B3 (B2, B6 and B3 in the
+    int8 run) and never B7, valid AUC within PARALLEL_AUC_TOL of serial's.
+    ``serial`` is that model's ``phase_train`` summary when the caller
+    trained it (phase 3 of the full run: the same rows, parameters and
+    path); else it is trained here. Returns the summary."""
+    params = dict(train_params(dev, leaves), verbosity=-1,
+                  tpu_split_kernel="off")
+    work = tempfile.mkdtemp(prefix="smoke-3m-")
+    group = None
+    try:
+        # one group of 4 ranks, started first: they join and warm up while
+        # this process writes their inputs; the D = 2 cases run on its
+        # first two ranks (the others wait), then D = 4 on all of them
+        t_group = time.perf_counter()
+        group = RankGroup(dev, 4, os.path.join(work, "group"))
+        return _parallel_cases(dev, data, card, trees, leaves, host_rows,
+                               work, serial, params, group, t_group)
+    finally:
+        if group is not None:
+            group.kill()
+        shutil_rmtree(work)
+
+
+def _parallel_cases(dev, data, card, trees, leaves, host_rows, work, serial,
+                    params, group, t_group):
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+
+    X, y, Xv, yv = data
+    t0 = time.perf_counter()
+    train = lgt.Dataset(X, label=y, params=params)
+    train.construct()
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    valid.construct()
+    npz, vnpz = (os.path.join(work, n) for n in ("train.npz", "valid.npz"))
+    train.save_binary(npz)
+    valid.save_binary(vnpz)
+    l2 = os.path.join(work, "l2.npy")
+    np.save(l2, l2_grid_labels(X))
+    host_npz = os.path.join(work, "host.npz")
+    host_params = dict(params, num_leaves=PARALLEL_HOST_LEAVES,
+                       metric=["binary_logloss"])
+    lgt.Dataset(X[:host_rows], label=y[:host_rows],
+                params=host_params).save_binary(host_npz)
+    csv = os.path.join(work, "load.csv")
+    write_csv(csv, X[:PARALLEL_CSV_ROWS], y[:PARALLEL_CSV_ROWS])
+    prep_s = time.perf_counter() - t0
+    log("phase 3m: binned and wrote the ranks' inputs in %.1f s" % prep_s)
+
+    # ---- serial references in this process, on the card ----
+    if serial is None:
+        serial = par_train(dev, npz, vnpz, params, trees)
+    else:
+        serial = dict(wall_per_tree_ms=serial["wall_per_tree_ms"],
+                      steady_tree_ms=serial["steady_tree_ms"],
+                      auc_by_tree=serial["valid_auc_by_tree"],
+                      metrics={"auc": serial["valid_auc_by_tree"][
+                          trees - 1]}, launches="phase 3's")
+    l2_params = dict(params, objective="regression", metric=["l2"],
+                     boost_from_average=False)
+    serial_l2 = par_train(dev, npz, None, l2_params, 1, label=l2,
+                          want_text=True)
+    log("phase 3m serial (%s): per iteration %.1f ms a tree (%.1f from the "
+        "second), valid auc after %d trees %.5f; launches %s" % (
+            card, serial["wall_per_tree_ms"], serial["steady_tree_ms"],
+            trees, serial["metrics"]["auc"], serial["launches"]))
+
+    cases = [(name, "train", True, 2, dict(
+        npz=npz, valid_npz=vnpz, params=dict(params, tree_learner=tl,
+                                             **extra),
+        trees=PARALLEL_INT8_TREES if name == "int8" else trees))
+        for name, tl, extra in PARALLEL_MODES]
+    cases.append(("data_again", "train", True, 2, dict(
+        npz=npz, valid_npz=vnpz, params=dict(params, tree_learner="data"),
+        trees=trees)))
+    for tl in ("data", "feature"):
+        cases.append(("l2_" + tl, "train", True, 2, dict(
+            npz=npz, valid_npz=None, params=dict(l2_params, tree_learner=tl),
+            trees=1, label=l2, want_text=True)))
+    for name, on_card in (("host_card", True), ("host_cpu", False)):
+        cases.append((name, "train", on_card, 2, dict(
+            npz=host_npz, valid_npz=None,
+            params=dict(host_params, tree_learner="data"),
+            trees=PARALLEL_HOST_TREES, want_text=True)))
+    load_params = dict(params, boost_from_average=False,
+                       metric=["binary_logloss"])
+    cases.append(("load", "load", True, 2, dict(
+        csv=csv, params=load_params, trees=PARALLEL_LOAD_TREES)))
+    # the single-rank reference of the sharded load: every row, serial
+    whole = load_and_train(dev, csv, load_params, PARALLEL_LOAD_TREES,
+                           sharded=False)
+    cases.append(("data_d4", "train", True, 4, dict(cases[0][4])))
+    t0 = time.perf_counter()
+    outs = group.run(cases)
+    group_s = time.perf_counter() - t0
+    log("phase 3m: the ranks ran their cases in %.1f s (%.1f s since they "
+        "started); gloo ms on host tensors by group size %s"
+        % (group_s, time.perf_counter() - t_group, outs[0]["latency_ms"]))
+    g2 = outs[:2]
+    g4 = [{"data": o["data_d4"]} for o in outs]
+
+    log("phase 3m: cases by seconds (rank 0): %s" % (", ".join(
+            "%s %.1f" % (k, v["case_s"]) for k, v in outs[0].items()
+            if isinstance(v, dict) and "case_s" in v)))
+    summary = dict(serial_wall_per_tree_ms=serial["wall_per_tree_ms"],
+                   serial_steady_tree_ms=serial["steady_tree_ms"],
+                   serial_valid_auc=serial["metrics"]["auc"],
+                   prep_s=prep_s, group_s=group_s,
+                   backend=outs[0]["backend"], probe=outs[0]["probe"],
+                   latency_ms=outs[0]["latency_ms"],
+                   devices=[o["device"] for o in outs], modes={})
+    num_grp = train.construct().num_groups
+    num_feat = train.construct().num_features
+    for world, outs, names in ((2, g2, [m[0] for m in PARALLEL_MODES]
+                                + ["data_again"]), (4, g4, ["data"])):
+        for name in names:
+            runs = [o[name] for o in outs]
+            shas = {r["sha"] for r in runs}
+            if len(shas) != 1:
+                raise AssertionError("phase 3m D=%d %s: the ranks' models "
+                                     "differ" % (world, name))
+            r0 = runs[0]
+            mode = "int8" if name == "int8" else name.replace("_again", "")
+            auc = r0["metrics"]["auc"]
+            n_trees = r0["num_trees"]
+            # serial's valid AUC after as many trees
+            serial_auc = serial["auc_by_tree"][n_trees - 1]
+            tol = PARALLEL_AUC_TOL[mode]
+            want = PARALLEL_INT8_KERNELS if mode == "int8" \
+                else PARALLEL_F32_KERNELS
+            for rank, r in enumerate(runs):
+                miss = [k for k in want if r["launches"].get(k, 0) <= 0] \
+                    if dev.type == "cuda" else []
+                if miss or r["launches"].get("one_kernel_split", 0):
+                    raise AssertionError(
+                        "phase 3m D=%d %s rank %d: launches %s (missing %s; "
+                        "the one-kernel split is ineligible under a comm)"
+                        % (world, name, rank, r["launches"], miss))
+                if r["fused"]:
+                    raise AssertionError("phase 3m: a distributed booster "
+                                         "took the fused blocks")
+            expect = {"data": "DataParallelTreeLearner",
+                      "feature": "FeatureParallelTreeLearner",
+                      "voting": "VotingParallelTreeLearner"}[
+                          "data" if mode in ("data_noscatter", "int8")
+                          else mode]
+            if r0["learner"] != expect:
+                raise AssertionError("phase 3m %s: learner %s"
+                                     % (name, r0["learner"]))
+            shape_bytes = collective_bytes(
+                "data" if mode == "int8" else mode, world, num_grp,
+                params["max_bin"], len(y), leaves - 1, num_feat,
+                PARALLEL_TOP_K)
+            row = dict(world=world, sha256=r0["sha"], trees=n_trees,
+                       wall_per_tree_ms=[r["wall_per_tree_ms"] for r in runs],
+                       steady_tree_ms=[r["steady_tree_ms"] for r in runs],
+                       valid_auc=auc, serial_valid_auc=serial_auc,
+                       auc_gap=abs(auc - serial_auc),
+                       collective_bytes_per_tree_shapes=shape_bytes,
+                       collective_bytes_per_tree_measured=[
+                           r["comm"]["bytes"] / n_trees for r in runs],
+                       staged_bytes_per_tree=[
+                           r["comm"]["staged_bytes"] / n_trees
+                           for r in runs],
+                       collectives_per_tree=r0["comm"]["collectives"]
+                       / n_trees, case_s=[r["case_s"] for r in runs],
+                       launches=[r["launches"] for r in runs])
+            summary["modes"]["%s_d%d" % (name, world)] = row
+            log("phase 3m D=%d %s (%s, %s over one card: no scaling "
+                "figure): %d trees, wall a tree %s ms, from the second tree "
+                "%s (serial %.1f, %.1f); valid auc %.5f "
+                "(serial %.5f, |diff| %.5f, limit %.3f); collective bytes a "
+                "tree %d by the shapes, %s measured (%.1f collectives a "
+                "tree), staged through host %s; every rank's model %s; "
+                "launches by rank %s" % (
+                    world, name, card, summary["backend"], n_trees,
+                    ", ".join("%.1f" % v for v in row["wall_per_tree_ms"]),
+                    ", ".join("%.1f" % v for v in row["steady_tree_ms"]),
+                    serial["wall_per_tree_ms"], serial["steady_tree_ms"],
+                    auc, serial_auc, row["auc_gap"], tol,
+                    shape_bytes, ", ".join("%.0f" % v for v in
+                                           row["collective_bytes_per_tree_"
+                                               "measured"]),
+                    row["collectives_per_tree"],
+                    ", ".join("%.0f" % v for v in
+                              row["staged_bytes_per_tree"]),
+                    r0["sha"][:16], row["launches"]))
+            if row["auc_gap"] > tol:
+                raise AssertionError("phase 3m D=%d %s: valid auc %.5f vs "
+                                     "serial %.5f" % (world, name, auc,
+                                                      serial_auc))
+    if g2[0]["data_again"]["sha"] != g2[0]["data"]["sha"]:
+        raise AssertionError("phase 3m: two D=2 data runs differ")
+    # ---- the first tree on exact sums: byte-equal to serial's ----
+    want = tree_block(serial_l2["text"])
+    for tl in ("data", "feature"):
+        for rank, o in enumerate(g2):
+            if tree_block(o["l2_" + tl]["text"]) != want:
+                raise AssertionError(
+                    "phase 3m: the first %s tree on the 1/64-grid L2 labels "
+                    "(rank %d) is not serial's:\n%s" % (
+                        tl, rank, first_difference(o["l2_" + tl]["text"],
+                                                   serial_l2["text"])))
+    log("phase 3m: on 1/64-grid L2 labels the first tree of data and of "
+        "feature at D=2 equals the serial tree byte for byte (%d bytes)"
+        % len(want))
+    # ---- card against host, the same group ----
+    hc, hh = g2[0]["host_card"], g2[0]["host_cpu"]
+    for o in g2:
+        if o["host_card"]["sha"] != hc["sha"] or \
+                o["host_cpu"]["sha"] != hh["sha"]:
+            raise AssertionError("phase 3m card vs host: the ranks differ")
+    ca = lgt.Booster({"device_type": "cpu"}, model_str=hc["text"])
+    ho = lgt.Booster({"device_type": "cpu"}, model_str=hh["text"])
+    agree, total, first = split_agreement(ca, ho)
+    log("phase 3m card vs host (D=2 data, %d rows x %d trees x %d leaves): "
+        "%d of %d splits agree (first tree %d of %d); train logloss card "
+        "%.7f host %.7f; card %.1f s, host %.1f s" % (
+            host_rows, PARALLEL_HOST_TREES, PARALLEL_HOST_LEAVES, agree,
+            total, first[0], first[1], hc["train_metric"],
+            hh["train_metric"], hc["wall_s"], hh["wall_s"]))
+    if first[0] != first[1] or \
+            abs(hc["train_metric"] - hh["train_metric"]) > LOGLOSS_TOL:
+        raise AssertionError("phase 3m: card and host groups disagree")
+    summary["card_vs_host"] = dict(splits_agree=agree, splits=total,
+                                   first_tree=first,
+                                   logloss_card=hc["train_metric"],
+                                   logloss_host=hh["train_metric"])
+    # ---- the sharded load ----
+    ld = [o["load"] for o in g2]
+    n_csv = whole["shard_info"][2]
+    for r, o in enumerate(ld):
+        r0, r1 = r * n_csv // 2, (r + 1) * n_csv // 2
+        if o["shard_info"] != (r, 2, n_csv) or \
+                not np.array_equal(o["binned"], whole["binned"][r0:r1]):
+            raise AssertionError("phase 3m: rank %d's shard %s is not the "
+                                 "whole load's rows" % (r, o["shard_info"]))
+    if ld[0]["sha"] != ld[1]["sha"]:
+        raise AssertionError("phase 3m: the sharded models differ by rank")
+    sh = lgt.Booster({"device_type": "cpu"}, model_str=ld[0]["text"])
+    wh = lgt.Booster({"device_type": "cpu"}, model_str=whole["text"])
+    agree, total, first = split_agreement(sh, wh)
+    load_bytes = tree_block(ld[0]["text"]) == tree_block(whole["text"])
+    if not load_bytes:
+        log("phase 3m sharded load: the first trees' texts differ:\n"
+            + first_difference(ld[0]["text"], whole["text"]))
+    if not same_first_tree(ld[0]["text"], whole["text"]):
+        raise AssertionError("phase 3m: the first tree on the sharded load "
+                             "is not the whole load's")
+    summary["load"] = dict(shard_info=[r["shard_info"] for r in ld],
+                           load_s=[r["load_s"] for r in ld],
+                           whole_load_s=whole["load_s"],
+                           splits_agree=agree, splits=total,
+                           sharded_sha256=ld[0]["sha"],
+                           whole_sha256=whole["sha"],
+                           first_tree_bytes_equal=load_bytes)
+    log("phase 3m sharded load (%d rows, 2 ranks, default gathers): shards "
+        "%s, bins equal to the whole load's rows; %d data-parallel trees "
+        "against the serial ones on the whole file: first tree equal (%s), "
+        "%d of %d splits agree; load %s s (the whole file %.2f)" % (
+            n_csv, summary["load"]["shard_info"], PARALLEL_LOAD_TREES,
+            "byte for byte" if load_bytes else
+            "splits, counts and leaf values; the text differs", agree, total,
+            ", ".join("%.2f" % v for v in summary["load"]["load_s"]),
+            whole["load_s"]))
+    log("phase 3m: gloo on card tensors under torch %s: %s"
+        % (__import__("torch").__version__, summary["probe"]))
+    return summary
+
+
 def shutil_rmtree(path):
     import shutil
     shutil.rmtree(path, ignore_errors=True)
 
 
 def main(argv=None):
+    try:
+        return run(argv)
+    finally:
+        stop_host_pool()
+
+
+def run(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trees", type=int, default=40)
@@ -9058,6 +10062,14 @@ def main(argv=None):
                     "against its twin, a trainer and two replicas serving "
                     "and training, failover, snapshot compaction) and "
                     "print only its summary and the raw walk's row")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, run the distributed learners' phase (3m: "
+                    "D = 2 and 4 ranks on the card, each mode against "
+                    "serial, card vs host, a sharded load) and print only "
+                    "its summary")
+    ap.add_argument("--parallel-rank", nargs=3, metavar=("RANK", "WORLD",
+                                                        "WORK"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
@@ -9069,6 +10081,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     import torch
+    if args.parallel_rank:
+        # one rank of phase 3m's group (the parent built the kernels)
+        sys.path.insert(0, HERE)
+        rank, world, work = args.parallel_rank
+        return parallel_rank(int(rank), int(world), work)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
         return 2
@@ -9092,7 +10109,18 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     log("== phase 1: build")
+    beside = None
+    if not args.parallel_rank and not any(
+            v for k, v in vars(args).items() if k.endswith("_only")):
+        # the full run: its seeded data is made while nvcc runs
+        beside = make_beside({
+            ("training_data",): (training_data, args.seed, args.train_rows,
+                                 args.valid_rows),
+            ("mslr_like", RANK_ROWS): (mslr_like, RANK_ROWS)})
     secs = kernels.build_all()
+    if beside is not None:
+        log("build: the full run's data made beside it in %.1f s"
+            % beside())
     for k in kernels.KERNELS.values():
         lines = [ln for ln in k.build_log.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -9295,6 +10323,14 @@ def main(argv=None):
         log(card)
         return 0
 
+    if args.parallel_only:
+        data = training_data(args.seed, args.train_rows, args.valid_rows)
+        summary_par = phase_parallel(dev, data, card, leaves=args.leaves,
+                                     host_rows=args.host_rows)
+        print(json.dumps({"parallel": summary_par}, default=str))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -9304,6 +10340,7 @@ def main(argv=None):
         log(card)
         return 0
 
+    start_host_pool()
     log("== phase 2: kernels vs plain")
     import numpy as np
     errs = phase_kernels(dev, args.seed)
@@ -9325,7 +10362,8 @@ def main(argv=None):
 
     log("== phase 2b: native construction at full size, and CSV files "
         "through the command line (%s)" % card)
-    data = training_data(args.seed, args.train_rows, args.valid_rows)
+    data = premade(("training_data",), training_data, args.seed,
+                   args.train_rows, args.valid_rows)
     summary_file, counts_file = phase_file(dev, data, args.leaves, card)
 
     log("== phase 3: full-width training, planes layout (%s)" % card)
@@ -9454,6 +10492,13 @@ def main(argv=None):
     raw_row.pop("launches_main_path")
     rows["forest_raw"] = raw_row
 
+    log("== phase 3m: the distributed learners (data, feature, voting) on "
+        "rank groups of 2 and 4 sharing the card, and a sharded load (%s)"
+        % card)
+    summary_par = phase_parallel(dev, data, card, leaves=args.leaves,
+                                 host_rows=args.host_rows, serial=summary_p
+                                 if args.trees >= PARALLEL_TREES else None)
+
     log("== phase 4: full-width quantized, sampled training (%s)" % card)
     quant_ds = build_datasets(dev, data, args.leaves, QUANT_PARAMS)
     bst_q, counts_q, summary_q = phase_train(dev, quant_ds, args.trees,
@@ -9505,6 +10550,10 @@ def main(argv=None):
         log("check forest/full_width_%s: max |diff| %.3g"
             % (tag, errs["forest/full_width_" + tag]))
     latency = serve_latency(bst_q, out["reqs"])
+
+    log("host runs: the last collected after %.1f s more"
+        % await_host_checks())
+    stop_host_pool()
 
     log("== phase 7: timings (%s)" % card)
     rows = phase_timings(bst_q, out, dev, errs, rows, forest_shapes)
@@ -9571,6 +10620,7 @@ def main(argv=None):
            {k: nonzero(v) for k, v in counts_api.items()}))
     log("fleet summary %s; launches %s"
         % (json.dumps(summary_fleet, default=str), nonzero(counts_fleet)))
+    log("parallel summary %s" % json.dumps(summary_par, default=str))
     log("file summary %s; launches %s" % (json.dumps(summary_file),
                                           counts_file))
     kernels_line = {"kernels": [dict(name=name, launches=launches[name], **r)

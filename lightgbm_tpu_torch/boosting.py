@@ -149,8 +149,15 @@ class GBDT:
         self.objective.init(train_set.metadata, self.device)
         self.num_tree_per_iteration = self.objective.num_model_per_iteration
         self.metrics = create_metrics(cfg, self.objective.name)
-        self.learner = SerialTreeLearner(
-            cfg, train_set, self.device, bins=self._valid_bins(train_set),
+        from .parallel.distributed import current_group
+        from .parallel.mesh import create_tree_learner
+        # tree_learner=data|feature|voting builds its distributed learner
+        # over the process group (serial without one, as the JAX package
+        # does on one device)
+        group = current_group() if cfg.tree_learner != "serial" else None
+        self.learner = create_tree_learner(
+            cfg, train_set, group, self.device,
+            bins=self._valid_bins(train_set),
             bins_t=self._valid_bins_t(train_set))
         if cfg.boost_from_average and self.objective.name != "none":
             for k in range(self.num_tree_per_iteration):
@@ -244,15 +251,18 @@ class GBDT:
     def supports_fused(self) -> bool:
         """True when K iterations can run as one fused block (no
         per-iteration host observation needed): plain GBDT, a built-in
-        objective without leaf renewal, no valid sets (the JAX package's
-        conditions; its mesh learner has no counterpart here)."""
+        objective without leaf renewal, no valid sets, a one-device learner
+        (the JAX package's conditions: a distributed learner's trees join
+        the ranks per split)."""
+        from .parallel.mesh import _MeshTreeLearner
         return (type(self) is GBDT
                 and not self.config.linear_tree
                 and self.objective is not None
                 and self.objective.name != "none"
                 and not self.objective.need_renew
                 and not self.valid_sets
-                and self.train_set is not None)
+                and self.train_set is not None
+                and not isinstance(self.learner, _MeshTreeLearner))
 
     def train_block(self, k: int) -> bool:
         """Train k iterations as one fused block (see fused.py). Returns

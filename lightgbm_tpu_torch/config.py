@@ -819,8 +819,9 @@ NOOP_PARAMS: Dict[str, tuple] = {
     "local_listen_port": (12400, "the reference's socket cluster port; "
                           "multi-host runs bootstrap via "
                           "parallel.distributed.init_distributed"),
-    "time_out": (120, "the reference's socket timeout; jax.distributed "
-                 "manages connection timeouts"),
+    "time_out": (120, "the reference's socket timeout; "
+                 "init_distributed(timeout_s=...) sets the process "
+                 "group's"),
     "machine_list_filename": ("", "the reference's socket cluster file; "
                               "use init_distributed(coordinator_address=...)"),
 }

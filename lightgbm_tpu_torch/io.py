@@ -13,7 +13,8 @@ Files without a header parse natively (``native/parser.cpp`` through
 ``io_native.parse_file``); a header, or a detected format other than the
 expected one, takes numpy's parser, as in the JAX package. The two-round
 loader streams the file through ``io_native.parse_dense_range`` (the JAX
-package streams it through pandas). Sharded loading is ROADMAP A11.
+package streams it through pandas). :func:`load_dataset_sharded` streams
+each rank's rows the same way, for the distributed learners.
 """
 from __future__ import annotations
 
@@ -331,8 +332,231 @@ def load_dataset_two_round(filename: str, config: Config,
     return ds
 
 
-def load_dataset_sharded(filename: str, config: Config, *args, **kwargs):
-    """Per-host sharded loading (the JAX package's ``load_dataset_sharded``)
-    waits for the port's distributed learners."""
-    from .learner import _refuse
-    _refuse("sharded dataset loading", "A11")
+def _group_allgather(x):
+    """Every rank's ``x`` (a numpy array) in rank order, over the
+    distributed learners' group (``dist.all_gather_object``)."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import current_group
+
+    group = current_group()
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, np.asarray(x), group=group)
+    return np.stack(parts)
+
+
+def load_dataset_sharded(filename: str, config: Config,
+                         rank: Optional[int] = None,
+                         world: Optional[int] = None, sample_gather=None,
+                         count_gather=None):
+    """Per-rank sharded dataset loading (the JAX package's
+    ``load_dataset_sharded``; reference: the distributed loader,
+    src/io/dataset_loader.cpp:182,951: each rank reads its row partition,
+    bin mappers are found from a globally gathered sample so every rank
+    holds the same binning, and no rank holds the whole matrix).
+
+    - ``rank`` / ``world`` default to the process group's
+      (``parallel.distributed.current_group``; 0 and 1 without one).
+    - Each rank streams the file (``io_native.parse_dense_range``, one
+      chunk at a time) and keeps only rows ``[rank * N / world, (rank + 1)
+      * N / world)``, or every row with ``pre_partition`` (the file is the
+      rank's partition).
+    - Bin finding: every rank reservoir-samples its slice at
+      ``data_random_seed + rank`` into a slot of ``bin_construct_sample_cnt
+      // world`` rows; the samples are gathered (``sample_gather``, by
+      default ``dist.all_gather_object`` over the group) and every rank
+      derives the same BinMappers from the same global sample. The per-rank
+      (rows, samples held) counts (``count_gather``, the same default)
+      drop each slot's padding and, with ``pre_partition``, weight each
+      rank's slot by its row share.
+    - Returns a BinnedDataset of the local rows only, with ``shard_info =
+      (rank, world, n_total)``; the distributed learners pad each rank's
+      rows to ``round_up(n_total, D) / world``.
+    """
+    import torch.distributed as dist
+
+    from .dataset import Metadata, _extract_binned, construct_dataset
+    from .parallel.distributed import current_group
+
+    group = current_group()
+    if rank is None:
+        rank = dist.get_rank(group) if group is not None else 0
+    if world is None:
+        world = dist.get_world_size(group) if group is not None else 1
+    fmt, header_names, skip, head = _read_head(filename, config)
+    if fmt == "libsvm":
+        Log.fatal("sharded loading supports dense text formats")
+    sep = "," if fmt == "csv" else "\t"
+    data_line = next((ln for ln in head[skip:] if ln and ln.strip()), None)
+    if data_line is None:
+        Log.fatal("Data file %s has no data rows", filename)
+    ncol = data_line.rstrip("\r\n").count(sep) + 1
+    label_idx, weight_idx, group_idx, used_cols = _column_roles(
+        config, header_names, ncol)
+    feature_names = [header_names[c] for c in used_cols] if header_names \
+        else None
+
+    if config.pre_partition:
+        # the file IS this rank's partition (reference: config.h
+        # pre_partition): keep every row, no counting pass
+        n_total = -1
+        r0, r1 = 0, np.iinfo(np.int64).max
+    else:
+        # pass 1: count data rows (stream, no parsing)
+        n_total = 0
+        with open(filename) as f:
+            for _ in range(skip):
+                f.readline()
+            for line in f:
+                if line.strip():
+                    n_total += 1
+        r0 = rank * n_total // world
+        r1 = (rank + 1) * n_total // world
+
+    # pass 2: stream; keep only [r0, r1); reservoir-sample the local slice
+    # into a uniform budget // world slot (equal gather shapes on every
+    # rank; the slot's padding is dropped after the gather)
+    target = max(2, int(config.bin_construct_sample_cnt) // world)
+    rng = np.random.RandomState(config.data_random_seed + rank)
+    sample = np.empty((target, len(used_cols)), np.float64)
+    n_samp = 0
+    locals_X, locals_y, locals_w, locals_g = [], [], [], []
+    seen = 0
+    for chunk in dense_chunks(filename, skip, sep, ncol, 100_000):
+        c0, c1 = seen, seen + len(chunk)
+        seen = c1
+        lo, hi = max(r0, c0), min(r1, c1)
+        if lo < hi:
+            part = chunk[lo - c0:hi - c0]
+            locals_X.append(part[:, used_cols])
+            if 0 <= label_idx < ncol:
+                locals_y.append(part[:, label_idx].copy())
+            if weight_idx >= 0:
+                locals_w.append(part[:, weight_idx].copy())
+            if group_idx >= 0:
+                locals_g.append(part[:, group_idx].copy())
+            Xc = part[:, used_cols]
+            m = len(Xc)
+            fill = min(max(target - n_samp, 0), m)
+            if fill:
+                sample[n_samp:n_samp + fill] = Xc[:fill]
+            if m > fill:
+                idx = np.arange(n_samp + fill, n_samp + m)
+                r = (rng.random_sample(m - fill) * (idx + 1)).astype(np.int64)
+                keep = r < target
+                sample[r[keep]] = Xc[fill:][keep]
+            n_samp += m
+    X_local = np.concatenate(locals_X) if locals_X else \
+        np.zeros((0, len(used_cols)))
+    if config.pre_partition:
+        n_total = seen  # pass 2 counted the local file; world > 1 gathers
+    local_sample = sample[:min(target, n_samp)]
+    valid_rows = None
+    shard_rows = None
+    in_group = group is not None and dist.get_world_size(group) == world
+    can_gather_stats = count_gather is not None or in_group
+    if world > 1 and config.pre_partition and not can_gather_stats:
+        Log.fatal("pre_partition sharded loading needs per-rank stats: run "
+                  "in a process group of %d ranks or supply count_gather",
+                  world)
+    if world > 1 and len(local_sample) == 0:
+        Log.fatal("rank %d: no data rows in %s", rank, filename)
+    default_gather = sample_gather is None
+    if world > 1 and can_gather_stats:
+        if count_gather is None:
+            count_gather = _group_allgather
+        # per-rank (rows, samples held): the proportional sample weighting
+        # and (pre_partition) the shard capacity
+        stats = np.asarray(count_gather(np.asarray(
+            [float(seen if config.pre_partition else len(X_local)),
+             float(len(local_sample))]))).reshape(world, 2)
+        shard_rows = stats[:, 0]
+        held = stats[:, 1].astype(np.int64)
+        if config.pre_partition:
+            # unequal shards: each rank's slot weighted by its row share;
+            # ranks clipped at their held sample hand their unused share
+            # to the others (water-fill)
+            share = shard_rows / max(shard_rows.sum(), 1.0)
+            budget = target * world
+            alloc = np.minimum(held, np.maximum(2, np.round(budget * share)))
+            for _ in range(3):
+                leftover = budget - alloc.sum()
+                room = held - alloc
+                open_share = share * (room > 0)
+                if leftover <= 0 or open_share.sum() <= 0:
+                    break
+                alloc = np.minimum(held, alloc + np.round(
+                    leftover * open_share / open_share.sum()))
+            valid_rows = alloc.astype(np.int64)
+        else:
+            valid_rows = held
+    if world > 1 and len(local_sample) < target:
+        # equal gather shapes: pad the slot by cycling local rows; the
+        # default gather slices the pad rows off with the stats
+        if not default_gather:
+            Log.warning(
+                "rank %d pads its quantile sample %d -> %d rows; the "
+                "custom sample_gather sees duplicated rows (trim with the "
+                "per-rank counts from count_gather)", rank,
+                len(local_sample), target)
+        reps = -(-target // len(local_sample))
+        local_sample = np.tile(local_sample, (reps, 1))[:target]
+
+    if sample_gather is None:
+        if world > 1:
+            def sample_gather(x):
+                return _group_allgather(x).reshape(-1, x.shape[1])
+        else:
+            def sample_gather(x):
+                return x
+    global_sample = np.asarray(sample_gather(local_sample))
+    if valid_rows is not None and default_gather:
+        # drop each rank's slot padding (every rank slices the same
+        # gathered stats alike); only the default gather guarantees the
+        # (world, target) slot layout
+        if global_sample.shape[0] != world * target:
+            Log.fatal("the sample gather returned %d rows, expected %d",
+                      global_sample.shape[0], world * target)
+        blocks = global_sample.reshape(world, target, -1)
+        global_sample = np.concatenate(
+            [blocks[r, :valid_rows[r]] for r in range(world)])
+
+    # the same structure on every rank from the same global sample
+    ds = construct_dataset(global_sample, config,
+                           feature_names=feature_names,
+                           categorical_feature=None)
+    group_sizes = None
+    if locals_g:
+        # per-row query ids: the local slice must start and end on query
+        # edges for correct ranking
+        group_sizes = _group_sizes(np.concatenate(locals_g))
+    elif os.path.exists(filename + ".query"):
+        # pre-partitioned files own complete query sets, so their sidecars
+        # apply verbatim; the rank row-split cannot honour sidecars
+        if world > 1 and not config.pre_partition:
+            Log.fatal("sharded loading with a .query sidecar is not "
+                      "supported (query sizes cannot be split per rank); "
+                      "use a group_column instead")
+        group_sizes = np.loadtxt(filename + ".query", dtype=np.int64).ravel()
+    wfile = filename + ".weight"
+    if not locals_w and os.path.exists(wfile):
+        if world > 1 and not config.pre_partition:
+            Log.fatal("sharded loading with a .weight sidecar is not "
+                      "supported; use a weight_column instead")
+        locals_w = [np.loadtxt(wfile, dtype=np.float64).ravel()]
+    ds.num_data = len(X_local)
+    ds.metadata = Metadata(
+        len(X_local),
+        label=np.concatenate(locals_y) if locals_y else None,
+        weight=np.concatenate(locals_w) if locals_w else None,
+        group=group_sizes)
+    ds.binned = _extract_binned(X_local, ds,
+                                nthreads=int(config.num_threads))
+    ds.raw_numeric = None
+    if config.pre_partition and world > 1:
+        # unequal pre-partitioned files publish a capacity of world *
+        # max(local rows); the learners pad every rank's block to it (pad
+        # rows carry zero gradients, hessians and counts)
+        n_total = int(shard_rows.max()) * world
+    ds.shard_info = (int(rank), int(world), int(n_total))
+    return ds

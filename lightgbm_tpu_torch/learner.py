@@ -39,8 +39,11 @@ rows (``ops/histogram.DenseHistogram``): on the card through the device
 tree loop (``ops/chain.DenseSplit``), per iteration too, and on the host
 through the per-split host loop.
 
-Only the serial learner is ported (:class:`Comm` is its identity seam);
-the data/feature/voting learners are later work (ROADMAP A11).
+The distributed learners (``parallel/mesh.py``) grow the same trees
+through :class:`Comm`, the collective seam over a ``torch.distributed``
+process group (the identity for one device): the per-split host loop of
+each rank runs its own rows through the kernels, and the collectives join
+the ranks' histograms, sums, votes and winning splits.
 """
 from __future__ import annotations
 
@@ -173,20 +176,196 @@ def leaf_values_by_row(leaf_value: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Comm:
-    """Collective seam of the tree builder, serial identity only
-    (reference analog: the Network hooks of the parallel tree learners).
-    The distributed strategies are ROADMAP A11."""
+    """Collective seam of the tree builders (the JAX package's ``Comm``;
+    reference analog: static class Network, network.h:89, and the hooks of
+    the Data/Feature/Voting-parallel tree learners). ``axis`` is a
+    ``torch.distributed`` process group of ``num_machines`` ranks, one
+    process a rank; ``axis=None`` is one device and every method the
+    identity.
 
-    axis = None
-    mode = "serial"
+    Modes (reference: tree_learner.cpp:15 factory):
+    - ``serial``/``data``: rows sharded; histograms are globally reduced
+      and every rank computes the same best split. With ``hist_scatter``
+      (``tpu_hist_scatter``, data mode) a histogram is reduce-scattered by
+      blocks of ``ceil(G / D)`` bundle groups, each rank searches the
+      features of its block and :meth:`sync_split` carries the winner
+      (data_parallel_tree_learner.cpp:155-251).
+    - ``feature``: rows replicated, the split search sharded by feature
+      ownership (``f % D == rank``), the winner synced
+      (feature_parallel_tree_learner.cpp:40).
+    - ``voting``: rows sharded, histograms stay local; ranks vote their
+      local top-k features and the global top-2k features' rows are merged
+      (voting_parallel_tree_learner.cpp:151 GlobalVoting).
+
+    Every collective gives each rank the same bits. A gloo group moves a
+    card tensor through pinned host memory, explicitly (gloo stages card
+    tensors through the host itself); ``stats`` counts the collectives,
+    their payload bytes and the bytes staged."""
+
+    def __init__(self, axis=None, mode: Optional[str] = None, top_k: int = 20,
+                 num_machines: int = 1, hist_scatter: bool = True) -> None:
+        self.axis = axis
+        self.mode = mode or ("data" if axis is not None else "serial")
+        self.top_k = int(top_k)
+        self.num_machines = int(num_machines)
+        self.hist_scatter = bool(hist_scatter) and self.mode == "data" \
+            and axis is not None and self.num_machines > 1
+        self.rank = 0
+        self.staged = False
+        if axis is not None:
+            import torch.distributed as dist
+            self.rank = dist.get_rank(axis)
+            self.staged = dist.get_backend(axis) == "gloo"
+        self.stats = {"collectives": 0, "bytes": 0, "staged_bytes": 0}
+
+    # ---- the collectives: fresh tensors on the input's device ----
+    def _buffer(self, x: torch.Tensor) -> torch.Tensor:
+        """A fresh buffer holding ``x`` for an in-place collective: pinned
+        host memory for a gloo group's card tensor."""
+        x = x.contiguous()
+        self.stats["collectives"] += 1
+        self.stats["bytes"] += x.numel() * x.element_size()
+        if self.staged and x.is_cuda:
+            buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            buf.copy_(x)
+            self.stats["staged_bytes"] += x.numel() * x.element_size()
+            return buf
+        return x.clone()
+
+    def _back(self, buf: torch.Tensor, device) -> torch.Tensor:
+        if buf.device != device:
+            self.stats["staged_bytes"] += buf.numel() * buf.element_size()
+            return buf.to(device)
+        return buf
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        buf = self._buffer(x)
+        dist.all_reduce(buf, group=self.axis)
+        return self._back(buf, x.device)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(D, *x.shape): every rank's ``x`` in rank order."""
+        import torch.distributed as dist
+        buf = self._buffer(x)
+        parts = [torch.empty_like(buf) for _ in range(self.num_machines)]
+        dist.all_gather(parts, buf, group=self.axis)
+        return self._back(torch.stack(parts), x.device)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ranks of ``x``'s block ``rank`` along dim 0 (its
+        length a multiple of D)."""
+        import torch.distributed as dist
+        buf = self._buffer(x)
+        out = torch.empty((buf.shape[0] // self.num_machines,)
+                          + tuple(buf.shape[1:]), dtype=buf.dtype,
+                          device=buf.device)
+        fn = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        fn(out, buf, group=self.axis)
+        return self._back(out, x.device)
+
+    # ---- the builders' seam (JAX learner.py:48-168) ----
+    def psum(self, x):
+        if self.axis is None:
+            return x
+        return self.all_reduce(x)
+
+    def _gpad(self, g: int) -> int:
+        d = self.num_machines
+        return -(-g // d) * d
 
     def hist(self, h):
-        """Leaf-histogram reduction."""
-        return h
+        """Leaf-histogram reduction: a reduce-scatter by group blocks in
+        scatter mode (this rank's block re-embedded into zeros), else an
+        all-reduce; the identity where rows are replicated (feature) or
+        histograms stay local (voting)."""
+        if self.axis is None or self.mode in ("feature", "voting"):
+            return h
+        if self.hist_scatter:
+            g = h.shape[0]
+            gpad = self._gpad(g)
+            blk = gpad // self.num_machines
+            hp = torch.zeros((gpad,) + tuple(h.shape[1:]), dtype=h.dtype,
+                             device=h.device)
+            hp[:g] = h
+            out = torch.zeros_like(hp)
+            out[self.rank * blk:(self.rank + 1) * blk] = \
+                self.reduce_scatter(hp)
+            return out[:g]
+        return self.all_reduce(h)
+
+    def owned_group_mask(self, feat_group: torch.Tensor, num_groups: int):
+        """(F,) bool: this rank owns feature f's histogram block (scatter
+        mode); None otherwise. ``num_groups`` is the bundled column count,
+        so the block size matches :meth:`hist`."""
+        if not self.hist_scatter:
+            return None
+        blk = self._gpad(num_groups) // self.num_machines
+        return (feat_group >= self.rank * blk) \
+            & (feat_group < (self.rank + 1) * blk)
 
     def root(self, x):
-        """Root gradient-sum reduction."""
-        return x
+        """Root gradient-sum reduction (replicated rows: identity)."""
+        if self.axis is None or self.mode == "feature":
+            return x
+        return self.all_reduce(x)
+
+    def owned_mask(self, num_feat: int, device):
+        """Feature-parallel search ownership, ``f % D == rank``; None in
+        the other modes."""
+        if self.mode != "feature" or self.axis is None:
+            return None
+        return (torch.arange(num_feat, device=device) % self.num_machines) \
+            == self.rank
+
+    def sync_split(self, info):
+        """The globally best SplitInfo of each node (SyncUpGlobalBestSplit,
+        parallel_tree_learner.h:191), in feature mode and scatter mode:
+        gather every rank's gain (NaN read as -inf), take the argmax (ties
+        to the lowest rank), then a masked sum carries every field over,
+        -inf gains restored; as the JAX package's masked psum, a field is
+        carried in f32 and non-finite values but -inf become 0. ``info``
+        holds P nodes (fields with a leading P).
+
+        One all-gather of every rank's gain and fields, then the masked sum
+        on each rank: a sum of one value and zeros does not depend on its
+        order (a zero's sign included), so it has the psum's bits."""
+        if self.axis is None or not (self.mode == "feature"
+                                     or self.hist_scatter):
+            return info
+        f32 = torch.float32
+        p = info.gain.shape[0]
+        cols, spans = [info.gain.to(f32).reshape(p, 1)], []
+        for x in info:
+            v = x.reshape(p, -1)
+            if v.dtype == f32:
+                cols.append(torch.where(torch.isfinite(v), v,
+                                        torch.zeros_like(v)))
+                cols.append(torch.isneginf(v).to(f32))
+            else:
+                cols.append(v.to(f32))
+            spans.append(v.shape[1])
+        every = self.all_gather(torch.cat(cols, dim=1))          # (D, P, C)
+        gains = every[:, :, 0]
+        win = torch.argmax(torch.where(torch.isnan(gains),
+                                       torch.full_like(gains, float("-inf")),
+                                       gains), dim=0)             # (P,)
+        mine = (win[None, :] == torch.arange(
+            self.num_machines, device=win.device)[:, None]).to(f32)
+        out = every[0, :, 1:] * mine[0][:, None]
+        for r in range(1, self.num_machines):
+            out = out + every[r, :, 1:] * mine[r][:, None]
+        fields, at = [], 0
+        for x, w in zip(info, spans):
+            v = out[:, at:at + w]
+            at += w
+            if x.dtype == f32:
+                neg = out[:, at:at + w] > 0.5
+                at += w
+                v = torch.where(neg, torch.full_like(v, float("-inf")), v)
+            fields.append(v.to(x.dtype).reshape(x.shape))
+        return type(info)(*fields)
 
 
 def _empty_best(num_leaves: int, num_bin: int, device) -> "SplitInfo":
@@ -223,7 +402,10 @@ def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
     that ``r`` and its leaf: the root at ``r = 0``, leaf 0; both children
     of round ``r`` at ``r``, the split leaf and the new one. Under the
     advanced monotone method ``adv_bounds`` is the nodes' per-candidate
-    ``(lo_l, up_l, lo_r, up_r)``, (P, F, B) each."""
+    ``(lo_l, up_l, lo_r, up_r)``, (P, F, B) each. The voting learner's
+    scans add ``extra_mask`` (the voted features), ``want_feature_gains``
+    and ``use_hp`` (its local constraints), and its local vote drops the
+    CEGB penalties (``use_delta``)."""
     from .ops.node import node_inputs
     from .ops.split import find_best_split
 
@@ -231,7 +413,8 @@ def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
 
     def best_for(hist, parent_sum, parent_out, lower, upper, depth, *,
                  r=0, leaf=0, leaf1=0, used=None, tree_used=None,
-                 adv_bounds=None):
+                 adv_bounds=None, extra_mask=None, want_feature_gains=False,
+                 use_hp=None, use_delta=True):
         mask, thr, delta = feature_mask, None, None
         if active:
             p = hist.shape[0]
@@ -241,11 +424,16 @@ def _make_best_for(meta, hp, feature_mask, opts=None, keys=None,
                         sums=parent_sum.contiguous(), used=used,
                         tree_used=tree_used)
             mask, thr, delta = node.rows(p)
-        return find_best_split(hist, parent_sum, meta, mask, hp,
+        if extra_mask is not None:
+            mask = mask & extra_mask
+        return find_best_split(hist, parent_sum, meta, mask,
+                               use_hp if use_hp is not None else hp,
                                parent_output=parent_out, leaf_lower=lower,
                                leaf_upper=upper, node_depth=depth,
-                               rand_threshold=thr, cegb_delta=delta,
-                               adv_bounds=adv_bounds)
+                               rand_threshold=thr,
+                               cegb_delta=delta if use_delta else None,
+                               adv_bounds=adv_bounds,
+                               want_feature_gains=want_feature_gains)
 
     return best_for
 
@@ -406,6 +594,16 @@ def build_tree_partitioned(
     the root segment holds the in-bag ones alone. Either way the root sums
     come from ``ghc`` as given and every row is routed in its own order.
 
+    ``comm`` (:class:`Comm`) joins the ranks of a distributed learner,
+    each growing the tree over its own rows (``bins``, ``ghc``): the root
+    sums and every histogram reduced (or reduce-scattered) before the
+    scan, the scan masked to the rank's owned features and its winner
+    synced (feature and scatter modes), or the voting branch; a forced
+    leaf's histogram made global where the pool is not. The int8
+    histograms are dequantized by the rank's own scales first, and each
+    rank draws the dither at its local row positions, as the JAX package's
+    shards do.
+
     Kept exactly as the JAX builder has them: the leaf to split is the
     first argmax of the best gains; the smaller child is the one with the
     smaller in-bag count (``left_sum[2] <= right_sum[2]``); the larger
@@ -565,7 +763,63 @@ def build_tree_partitioned(
         keys = node_keys(key, opts.extra_seed,
                          torch.zeros(4, dtype=torch.int64, device=dev))
         node = node_buf(opts, num_feat, dev)
-    best_for = _make_best_for(meta, hp, feature_mask, opts, keys, node)
+    # the search mask under the comm (JAX learner.py:1009-1076): the owned
+    # features in feature mode, the owned group blocks in scatter mode
+    fmask_search = feature_mask
+    owned = comm.owned_mask(num_feat, dev)
+    if owned is not None:
+        fmask_search = fmask_search & owned
+    owned_g = comm.owned_group_mask(
+        bundle["group"] if bundle is not None
+        else torch.arange(num_feat, device=dev), num_grp)
+    if owned_g is not None:
+        fmask_search = fmask_search & owned_g
+    best_raw = _make_best_for(meta, hp, fmask_search, opts, keys, node)
+    voting = comm.mode == "voting"
+    if voting:
+        # local vote constraints scaled by 1 / num_machines
+        # (voting_parallel_tree_learner.cpp:62-64)
+        d_m = float(max(comm.num_machines, 1))
+        hp_loc = hp._replace(
+            min_data_in_leaf=hp.min_data_in_leaf / d_m,
+            min_sum_hessian_in_leaf=hp.min_sum_hessian_in_leaf / d_m)
+
+    def best_for(hg, tot_g, tot_l, parent_out, lower, upper, depth, **kw):
+        """Best splits of a batch of nodes under the comm: ``hg`` their
+        (P, G, Bm, 3) histograms (global, or local under voting),
+        ``tot_g`` / ``tot_l`` their global / local (g, h, cnt) sums."""
+        if not voting:
+            return comm.sync_split(best_raw(feat_view(hg, tot_g), tot_g,
+                                            parent_out, lower, upper, depth,
+                                            **kw))
+        # voting (GlobalVoting, voting_parallel_tree_learner.cpp:151,322):
+        # each rank's local top-k, the votes summed, the global top-2k
+        # (ties to the lowest feature) merged by a sum and searched
+        fv_loc = feat_view(hg, tot_l)
+        p = fv_loc.shape[0]
+        fg = best_raw(fv_loc, tot_l, parent_out, lower, upper, depth,
+                      want_feature_gains=True, use_hp=hp_loc,
+                      use_delta=False, **dict(kw, adv_bounds=None))
+        k = min(comm.top_k, num_feat)
+        k2 = min(2 * comm.top_k, num_feat)
+        top = torch.sort(fg, dim=1, descending=True, stable=True).indices
+        votes = torch.zeros((p, num_feat), dtype=f32, device=dev)
+        votes.scatter_add_(1, top[:, :k], torch.ones((p, k), dtype=f32,
+                                                     device=dev))
+        votes = comm.psum(votes)
+        bias = -torch.arange(num_feat, dtype=f32, device=dev) * 1e-6
+        sel = torch.sort(votes + bias[None], dim=1, descending=True,
+                         stable=True).indices[:, :k2]            # (P, k2)
+        flat = fv_loc.reshape(p, num_feat, -1)
+        at = sel[:, :, None].expand(p, k2, flat.shape[2])
+        merged = comm.psum(torch.gather(flat, 1, at))
+        full = torch.zeros_like(flat).scatter_(1, at, merged) \
+            .reshape(fv_loc.shape)
+        selmask = torch.zeros((p, num_feat), dtype=torch.bool,
+                              device=dev).scatter_(1, sel, True)
+        return best_raw(full, tot_g, parent_out, lower, upper, depth,
+                        extra_mask=selmask, **kw)
+
     # the intermediate and advanced monotone methods: the leaves' bin
     # boxes, the advanced per-bin bounds and the nodes' per-candidate
     # bounds (ops/monotone.py; mono_bounds and mono_commit launch their
@@ -590,12 +844,17 @@ def build_tree_partitioned(
 
     # ---- root ----
     root_hist = comm.hist(root_hist)
+    root_sum_loc = root_sum
     root_sum = comm.root(root_sum)
     hist_pool = torch.zeros((num_leaves, num_grp, bm, 3), dtype=f32,
                             device=dev)
     hist_pool[0] = root_hist
     leaf_sum = torch.zeros((num_leaves, 3), dtype=f32, device=dev)
     leaf_sum[0] = root_sum
+    # each leaf's local (g, h, cnt) sums: the voting ranks vote with them
+    leaf_sum_loc = torch.zeros_like(leaf_sum) if voting else None
+    if voting:
+        leaf_sum_loc[0] = root_sum_loc
     leaf_out = torch.zeros(num_leaves, dtype=f32, device=dev)
     leaf_out[0] = calc_leaf_output(root_sum[0], root_sum[1], hp)
     leaf_lower = torch.full((num_leaves,), float("-inf"), device=dev)
@@ -615,8 +874,8 @@ def build_tree_partitioned(
     seg_tab[0, 1] = nr
     depth = [0] * num_leaves
     best = _empty_best(num_leaves, num_bin, dev)
-    root_info = best_for(feat_view(root_hist[None], root_sum[None]),
-                         root_sum[None], leaf_out[:1], leaf_lower[:1],
+    root_info = best_for(root_hist[None], root_sum[None],
+                         root_sum_loc[None], leaf_out[:1], leaf_lower[:1],
                          leaf_upper[:1], 0, used=leaf_used,
                          tree_used=tree_used,
                          adv_bounds=leaf_bounds(0) if method == 2 else None)
@@ -650,8 +909,13 @@ def build_tree_partitioned(
         ok_d = no
         if forcing:
             fl = f_leaf[r]
+            # the forced leaf's histogram made global where the pool holds
+            # local rows (voting) or one rank's blocks (scatter), so every
+            # rank scans the same
+            hg_forced = comm.psum(hist_pool[fl]) \
+                if voting or comm.hist_scatter else hist_pool[fl]
             fi = scan_leaf_info(
-                feat_view(hist_pool[fl][None], leaf_sum[fl][None])[0],
+                feat_view(hg_forced[None], leaf_sum[fl][None])[0],
                 leaf_sum[fl], leaf_out[fl], leaf_lower[fl], leaf_upper[fl],
                 depth[fl], f_mask[r], f_thr[r], meta, hp,
                 tuple(b[0] for b in leaf_bounds(fl)) if method == 2
@@ -796,10 +1060,18 @@ def build_tree_partitioned(
             hist_left, hist_right = (hist_small, hist_large) \
                 if left_smaller else (hist_large, hist_small)
             # ---- refresh best splits for both children in one batched
-            # scan, drawn at this round with both children's leaves
-            infos = best_for(feat_view(torch.stack([hist_left, hist_right]),
-                                       pair_sum),
-                             pair_sum, pair_out, pair_lo, pair_up, d,
+            # scan, drawn at this round with both children's leaves; the
+            # voting ranks' local child sums (group 0's bins hold every
+            # row of a leaf)
+            pair_loc = None
+            if voting:
+                loc_left = torch.sum(hist_left[0], dim=0)
+                pair_loc = torch.stack([loc_left,
+                                        leaf_sum_loc[leaf] - loc_left])
+                leaf_sum_loc[leaf] = pair_loc[0]
+                leaf_sum_loc[new] = pair_loc[1]
+            infos = best_for(torch.stack([hist_left, hist_right]), pair_sum,
+                             pair_loc, pair_out, pair_lo, pair_up, d,
                              r=r, leaf=leaf, leaf1=new, used=leaf_used,
                              tree_used=tree_used,
                              adv_bounds=leaf_bounds(leaf, new, 2)
@@ -908,8 +1180,10 @@ def build_tree(
     n_forced = 0 if forced is None else len(forced[0])
 
     # ---- root ----
-    root_sum = comm.root(torch.sum(ghc, dim=0))
-    root_hist = comm.hist(dense(-1).clone())
+    # the JAX dense builder sums every histogram over the ranks (data
+    # mode only: the learners refuse the other modes here)
+    root_sum = comm.psum(torch.sum(ghc, dim=0))
+    root_hist = comm.psum(dense(-1).clone())
     hist_pool = torch.zeros((num_leaves, num_feat, num_bin, 3), dtype=f32,
                             device=dev)
     hist_pool[0] = root_hist
@@ -1018,7 +1292,7 @@ def build_tree(
 
         # ---- histograms: the smaller child's rows by mask, the sibling by
         # subtraction (serial_tree_learner.cpp:418) ----
-        hist_small = comm.hist(dense(leaf if left_smaller else new).clone())
+        hist_small = comm.psum(dense(leaf if left_smaller else new).clone())
         hist_large = hist_pool[leaf] - hist_small
         hist_left, hist_right = (hist_small, hist_large) if left_smaller \
             else (hist_large, hist_small)
@@ -1605,8 +1879,6 @@ class SerialTreeLearner:
             else device_bins(dataset.binned, dev)
         self.num_bin_hist = int(max(2, dataset.group_num_bins().max()
                                     if dataset.num_groups else 2))
-        if config.tree_learner != "serial":
-            _refuse("tree_learner=%s" % config.tree_learner, "A11")
         self.bins_t = bins_t if bins_t is not None else route_layout(self.bins)
         mono = np.zeros(dataset.num_features, dtype=np.int8)
         if dataset.monotone_constraints is not None:
@@ -1678,17 +1950,24 @@ class SerialTreeLearner:
         self.dense = not self.use_partition()
         if self.dense:
             self._dense_gates()
+        self.comm = self._make_comm()
         #: whether :meth:`train` grows its trees through the device tree
         #: loop: the dense builder on the card, so that its per-iteration
         #: trees (valid sets, DART, RF) run the split scan kernel and the
-        #: dense histogram's kernels; elsewhere the per-split host loop
-        self.train_on_loop = self.dense and dev.type == "cuda"
-        self.comm = Comm()
+        #: dense histogram's kernels; elsewhere, and under a distributed
+        #: learner's comm (collectives per split), the per-split host loop
+        self.train_on_loop = self.dense and dev.type == "cuda" \
+            and self.comm.axis is None
         self._kw = self.build_kwargs()
         self._work = None
         self._loop: Optional[DeviceTreeLoop] = None
         #: the last tree's per-leaf segment and histogram counts
         self.last_stats: dict = {}
+
+    def _make_comm(self) -> Comm:
+        """The builders' collective seam: the identity for one device
+        (the distributed learners give their process group's)."""
+        return Comm()
 
     def _dense_gates(self) -> None:
         """What the dense builder cannot honour, as the JAX package gates
@@ -1955,6 +2234,9 @@ class SerialTreeLearner:
             bad.append("int8 stochastic-rounding draws are row-position "
                        "seeded (compaction would change the quantization "
                        "stream)")
+        if self.comm.axis is not None:
+            bad.append("multi-device comm unsupported (per-shard "
+                       "compact/dense cond would diverge)")
         if bad:
             Log.warning("tpu_goss_compact=on is not eligible here (%s); "
                         "using the dense-mask path", "; ".join(bad))

@@ -766,3 +766,41 @@ def test_deep_model_text_serves_through_the_raw_walk_on_card(card):
     want = PredictSession(lgt.Booster({"device_type": "cpu"},
                                       model_str=text)).predict(X[:700])
     assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+
+def test_data_parallel_group_card_vs_host_on_card(card, tmp_path):
+    """Two ranks sharing the card (gloo, the card's tensors staged through
+    host memory) train tree_learner=data, and the same group trains it on
+    the host: every rank's model equal, the card's first tree equal to the
+    host's split for split, train logloss within LOGLOSS_TOL, and every
+    rank launched the partition, histogram and router kernels (never the
+    one-kernel split)."""
+    import lightgbm_tpu_torch as lgt
+
+    X, y, _, _ = chip_smoke.training_data(3, 20_000, 0)
+    params = dict(chip_smoke.train_params(card, 31), verbosity=-1,
+                  tree_learner="data", metric=["binary_logloss"])
+    npz = str(tmp_path / "train.npz")
+    lgt.Dataset(X, label=y, params=params).save_binary(npz)
+    cases = [(name, "train", on_card, 2, dict(npz=npz, valid_npz=None,
+                                              params=params, trees=3,
+                                              want_text=True))
+             for name, on_card in (("card", True), ("host", False))]
+    outs = chip_smoke.run_rank_group(card, 2, cases, str(tmp_path / "g"),
+                                     timeout_s=600)
+    for name in ("card", "host"):
+        assert len({o[name]["sha"] for o in outs}) == 1, name
+    for o in outs:
+        assert o["backend"] == "gloo" and o["device"].startswith("cuda")
+        got = o["card"]["launches"]
+        for k in chip_smoke.PARALLEL_F32_KERNELS:
+            assert got.get(k, 0) > 0, (k, got)
+        assert got.get("one_kernel_split", 0) == 0
+        assert o["card"]["comm"]["staged_bytes"] > 0
+        assert o["host"]["comm"]["staged_bytes"] == 0
+    ca = lgt.Booster({"device_type": "cpu"}, model_str=outs[0]["card"]["text"])
+    ho = lgt.Booster({"device_type": "cpu"}, model_str=outs[0]["host"]["text"])
+    _, _, first = chip_smoke.split_agreement(ca, ho)
+    assert first[0] == first[1]
+    assert abs(outs[0]["card"]["train_metric"]
+               - outs[0]["host"]["train_metric"]) <= chip_smoke.LOGLOSS_TOL

@@ -52,5 +52,6 @@ def test_every_port_module_is_listed():
                 "config", "objective", "obs", "utils.log",
                 "io", "io_native", "cli", "__main__", "obs_ledger",
                 "fleet.store", "fleet.replica", "fleet.transport",
-                "fleet.control", "fleet.chaos"):
+                "fleet.control", "fleet.chaos", "parallel.mesh",
+                "parallel.distributed"):
         assert "lightgbm_tpu_torch." + mod in names, mod

@@ -273,10 +273,15 @@ def test_two_round_refusals(tmp_path):
     with pytest.raises(LightGBMError, match="linear_tree"):
         port_io.load_dataset_two_round(path, Config.from_params(
             dict(CPU, linear_tree=True)))
-    with pytest.raises(LightGBMError, match="A11"):
-        port_io.load_dataset_sharded(path, Config.from_params(CPU))
+    # sharded loading is ported (tests/test_torch_distributed_load.py):
+    # one rank of one loads every row; a LibSVM file is refused, as the
+    # JAX package refuses it
+    ds = port_io.load_dataset_sharded(path, Config.from_params(CPU))
+    assert ds.shard_info == (0, 1, ds.num_data)
     svm = tmp_path / "d.svm"
     svm.write_text("1 0:1.5\n0 1:0.5\n")
+    with pytest.raises(LightGBMError, match="dense text formats"):
+        port_io.load_dataset_sharded(str(svm), Config.from_params(CPU))
     assert port_io.load_dataset_two_round(str(svm),
                                           Config.from_params(CPU)) is None
 

@@ -120,6 +120,86 @@ def test_quantized_phase_small_on_cpu(trained, quantized):
     assert res["first_tree"][0] == res["first_tree"][1] > 0
 
 
+def test_host_runs_in_workers_equal_in_place(trained, tmp_path):
+    """The full run's host workers: card_vs_host and options_card_vs_host
+    (with a forced-splits file, which its phase deletes before the workers
+    read it) give the same comparisons from two spawned workers as in
+    place; their checks run at await_host_checks, a failing one raises
+    there, and stop_host_pool leaves no worker and no pending run."""
+    data = trained[0]
+    forced = chip_smoke.forced_json(str(tmp_path / "forced.json"))
+    extra = {"forcedsplits_filename": forced}
+
+    def both():
+        return (chip_smoke.card_vs_host(CPU, data, 1000, 7, iters=2),
+                chip_smoke.options_card_vs_host(CPU, data, "forced", extra,
+                                                1000, 2, 7))
+
+    in_place = both()
+    chip_smoke.start_host_pool(2)
+    try:
+        pooled = both()
+        os.remove(forced)
+        assert pooled == ({}, {})              # filled by their checks
+        chip_smoke.await_host_checks()
+        assert pooled == in_place and in_place[1]["splits"] > 0
+        chip_smoke.host_run(dict(chip_smoke.train_params(CPU, 7)),
+                            data[0][:500], data[1][:500], 1,
+                            lambda host: 1 / 0)
+        with pytest.raises(ZeroDivisionError):
+            chip_smoke.await_host_checks()
+    finally:
+        chip_smoke.stop_host_pool()
+    assert chip_smoke._HOST == {"pool": None, "pending": [], "started": []}
+
+
+def test_trace_device_ms_sums_device_work(tmp_path):
+    """profile_iteration's trace reader: the device's kernels, copies and
+    sets by name in ms, the host's events left out; a trace that
+    torch.profiler exported here (host activity only) reads as none."""
+    import json
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "k1", "dur": 1500.0},
+        {"ph": "X", "cat": "kernel", "name": "k1", "dur": 500.0},
+        {"ph": "X", "cat": "gpu_memcpy", "dur": 250.0,
+         "name": "Memcpy DtoD (Device -> Device)"},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)",
+         "dur": 10.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "dur": 7.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "dur": 9.0},
+        {"ph": "f", "cat": "ac2g", "name": "flow"}]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    assert chip_smoke.trace_device_ms(str(path)) == {
+        "k1": 2.0, "Memcpy DtoD (Device -> Device)": 0.25,
+        "Memset (Device)": 0.01}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8).add_(1)
+    prof.export_chrome_trace(str(path))
+    assert chip_smoke.trace_device_ms(str(path)) == {}
+
+
+def test_make_beside_hands_each_result_over_once():
+    """The full run's data made beside the build: premade hands a result
+    over once, then computes; a job's error is raised by the wait."""
+    wait = chip_smoke.make_beside({
+        ("sum",): (sum, [1, 2]),
+        ("data",): (chip_smoke.training_data, 0, 30, 5)})
+    assert wait() >= 0.0
+    assert chip_smoke.premade(("sum",), sum, [5]) == 3
+    assert chip_smoke.premade(("sum",), sum, [5]) == 5
+    got = chip_smoke.premade(("data",), chip_smoke.training_data, 0, 1, 1)
+    for a, b in zip(got, chip_smoke.training_data(0, 30, 5)):
+        np.testing.assert_array_equal(a, b)
+    assert chip_smoke._PREMADE == {}
+    wait = chip_smoke.make_beside({("bad",): (int, "x")})
+    with pytest.raises(ValueError):
+        wait()
+    assert chip_smoke._PREMADE == {}
+
+
 def test_rows_vs_planes_and_goss_small_on_cpu(trained):
     data = trained[0]
     with pytest.raises(AssertionError, match="never launched"):

@@ -257,20 +257,22 @@ def test_ineligible_split_kernel_downgrades(tmp_path):
 ])
 def test_unsupported_settings_raise(tmp_path, extra):
     """Settings the port does not train raise naming their ROADMAP item
-    (tree_learner=data and int8 on the planes layout, each with its item).
-    The per-node split options, forced splits (a file that is not there
-    warns and forces nothing, as in the JAX package), GOSS compaction
-    (where GOSS does not sample it warns and keeps the dense path), DART
-    and RF, linear trees (a binary-cache dataset keeps no raw features, so
-    its leaves stay constant, as the JAX package's fit skips them) and the
-    dense builder train since they were ported, and raise no longer."""
+    (int8 on the planes layout, item B, as in the JAX package). The
+    per-node split options, forced splits (a file that is not there warns
+    and forces nothing, as in the JAX package), GOSS compaction (where GOSS
+    does not sample it warns and keeps the dense path), DART and RF,
+    linear trees (a binary-cache dataset keeps no raw features, so its
+    leaves stay constant, as the JAX package's fit skips them), the dense
+    builder and ``tree_learner=data`` (without a process group it trains
+    the serial learner, as the JAX package does on one device) train since
+    they were ported, and raise no longer."""
     _, path, _, _, _ = jax_dataset("binary", tmp_path, n=200, seed=3)
     params = dict(train_params("binary"), **CPU)
     params.update(extra)
     ported = ("tpu_goss_compact", "feature_fraction_bynode", "extra_trees",
               "interaction_constraints", "cegb_penalty_split",
               "forcedsplits_filename", "boosting", "linear_tree",
-              "tree_builder")
+              "tree_builder", "tree_learner")
     if any(k in extra for k in ported):
         bst = lgt.train(params, lgt.dataset_from_reference(path, CPU), 2)
         assert bst.current_iteration == 2
@@ -282,8 +284,10 @@ def test_unsupported_settings_raise(tmp_path, extra):
         if "tree_builder" in extra:
             assert bst.inner.learner.dense
             assert bst.inner.learner._kw["work_layout"] == "dense"
+        if "tree_learner" in extra:
+            assert type(bst.inner.learner) is SerialTreeLearner
         return
-    item = {"tree_learner": "A11", "tpu_work_layout": "B"}[next(iter(extra))]
+    item = {"tpu_work_layout": "B"}[next(iter(extra))]
     with pytest.raises(LightGBMError, match="ROADMAP %s" % item):
         lgt.train(params, lgt.dataset_from_reference(path, CPU), 1)
 
