@@ -25,6 +25,9 @@
     python3 chip_smoke.py --parallel-only # phase 3m: the distributed
                                           # learners, rank groups of 2
                                           # and 4 on the card
+    python3 chip_smoke.py --profile-only [--root DIR]  # the chain's and
+                                          # B7's profiled fused blocks,
+                                          # of the checkout in DIR
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 the checkout it sits in. Twenty phases, each fatal on failure:
@@ -3357,19 +3360,20 @@ def model_segment(bst, dev, idx, depth, start=128):
     return slim, planes, seg3 + [int(info.feature)], info.go_left, kw
 
 
-def stamp_phases(stamps):
-    """Per phase of ONE_KERNEL_PHASES, the earliest start and the latest
-    end over the blocks (ms from the launch's first stamp), and the
-    launch's device ms (its last stamp minus its first), from a stamp
-    buffer the kernel filled."""
+def stamp_phases(stamps, phases=None):
+    """Per phase of ``phases`` (ONE_KERNEL_PHASES by default), the
+    earliest start and the latest end over the blocks (ms from the
+    launch's first stamp), and the launch's device ms (its last stamp
+    minus its first), from a stamp buffer the kernel filled."""
     from lightgbm_tpu_torch.ops.partition import ONE_KERNEL_PHASES
     st = stamps[stamps[:, 0] != 0].double()
     t0 = float(st[:, 0].min())
     out = {}
-    for name, a, b in ONE_KERNEL_PHASES:
+    for name, a, b in phases or ONE_KERNEL_PHASES:
         ran = st[st[:, b] != 0]        # the blocks that ran the phase
-        out[name] = ((float(ran[:, a].min()) - t0) * 1e-6,
-                     (float(ran[:, b].max()) - t0) * 1e-6)
+        if ran.shape[0]:
+            out[name] = ((float(ran[:, a].min()) - t0) * 1e-6,
+                         (float(ran[:, b].max()) - t0) * 1e-6)
     return out, (float(st.max()) - t0) * 1e-6, int(st.shape[0])
 
 
@@ -3425,6 +3429,107 @@ def b7_breakdown(bst, dev, reps=5):
                              for k, (a, b) in phases.items()),
                    "; ".join("%s %.4f" % kv for kv in crit.items())))
             out[tag][mode] = (ms, phases)
+    return out
+
+
+def launch_floor_ms(dev):
+    """The device ms of a one-element torch kernel (``device_ms`` over 50
+    queued launches): the least time a launch takes on this card."""
+    import torch
+    x = torch.zeros(1, device=dev)
+    return device_ms(lambda: x.add_(1.0), iters=50)
+
+
+def median_stamped(launch, buffer, phases, reps):
+    """``launch(stamps)`` ``reps`` times, each into a fresh ``buffer()``;
+    the run with the median device time as stamp_phases gives it, and each
+    phase's share of the critical path (from the previous phase's last
+    stamp to its own)."""
+    runs = []
+    for _ in range(reps):
+        st = buffer()
+        launch(st)
+        sync(st.device)
+        runs.append(stamp_phases(st.cpu(), phases))
+    ph, ms, blocks = sorted(runs, key=lambda r: r[1])[reps // 2]
+    crit, prev = {}, 0.0
+    for k, (_, b) in ph.items():
+        crit[k], prev = b - prev, b
+    return ph, ms, blocks, crit
+
+
+def log_scan_stamps(what, call, dev, reps=5):
+    """The split scan's stamped phases (median of ``reps`` launches of
+    ``call(stamps=...)``) into the log; returns them."""
+    from lightgbm_tpu_torch.ops import scan as S
+
+    ph, ms, blocks, crit = median_stamped(
+        lambda st: call(stamps=st), lambda: S.scan_stamp_buffer(dev),
+        S.SCAN_PHASES, reps)
+    log("%s: stamped %.4f ms (median of %d, %d CTAs): %s; critical path %s"
+        % (what, ms, reps, blocks,
+           "; ".join("%s %.4f-%.4f" % (k, a, b) for k, (a, b) in ph.items()),
+           "; ".join("%s %.4f" % kv for kv in crit.items())))
+    return dict(stamped_ms=ms, blocks=blocks, phases=ph, critical=crit)
+
+
+def scan_commit_breakdown(bst, dev, reps=5):
+    """The split scan's and the split commit's phases from their own
+    %globaltimer stamps on a fused chain model's device tree loop (its
+    gradients): the scan at the root split and the tree's last live split
+    (ops/scan.SCAN_PHASES), the commit at the middle slot
+    (ops/commit.COMMIT_PHASES), each the median of ``reps`` stamped
+    launches beside its device_ms, and the launch floor. Returns a
+    dict."""
+    import torch
+    from lightgbm_tpu_torch.ops import commit as C
+    from lightgbm_tpu_torch.ops import scan as S
+
+    g = bst.inner
+    lrn = g.learner
+    grad, hess = g.objective.get_gradients(g.train_score.score)
+    ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+    L = lrn.num_leaves
+    loop = loop_state_at(lrn, ghc, L - 1)
+    live = loop.state.hdr[:, 6].cpu()
+    deep = max(s for s in range(L - 1) if int(live[s]) == 1)
+    floor = launch_floor_ms(dev)
+    out = {"launch_floor_device_ms": floor, "card": None}
+    log("launch floor: a one-element torch kernel %.4f device ms" % floor)
+    for where, s in (("root", 0), ("deep", deep)):
+        loop, call = scan_call_at(lrn, ghc, s)
+        ph, ms, blocks, crit = median_stamped(
+            lambda st: call(stamps=st), lambda: S.scan_stamp_buffer(dev),
+            S.SCAN_PHASES, reps)
+        dms = device_ms(call)
+        log("scan breakdown %s (slot %d): device %.4f ms, stamped %.4f ms "
+            "(median of %d, %d blocks): %s; critical path %s"
+            % (where, s, dms, ms, reps, blocks,
+               "; ".join("%s %.4f-%.4f" % (k, a, b)
+                         for k, (a, b) in ph.items()),
+               "; ".join("%s %.4f" % kv for kv in crit.items())))
+        out["scan_" + where] = dict(slot=s, device_ms=dms, stamped_ms=ms,
+                                    blocks=blocks, phases=ph, critical=crit)
+    s = L // 2
+    loop = loop_state_at(lrn, ghc, s)
+    st = C.TreeState(*(t.clone() for t in loop.state))
+    op = C.SplitCommit(st, loop.out, max_depth=loop.commit.max_depth,
+                       monotone=lrn.meta.monotone,
+                       has_monotone=lrn.hp.has_monotone,
+                       pooled=loop.pooled)
+    ph, ms, blocks, crit = median_stamped(
+        lambda stp: op(s, stamps=stp),
+        lambda: torch.zeros((C.COMMIT_MAX_GRID, C.COMMIT_STAMP_SLOTS),
+                            dtype=torch.int64, device=dev),
+        C.COMMIT_PHASES, reps)
+    dms = device_ms(lambda: op(s))
+    log("commit breakdown (slot %d of %d): device %.4f ms, stamped %.4f ms "
+        "(median of %d, %d blocks): %s; critical path %s"
+        % (s, L, dms, ms, reps, blocks,
+           "; ".join("%s %.4f-%.4f" % (k, a, b) for k, (a, b) in ph.items()),
+           "; ".join("%s %.4f" % kv for kv in crit.items())))
+    out["commit_mid"] = dict(slot=s, device_ms=dms, stamped_ms=ms,
+                             blocks=blocks, phases=ph, critical=crit)
     return out
 
 
@@ -3736,16 +3841,19 @@ COMMIT_CASES = (
 )
 
 
-def check_split_commit(name, st, out, s, max_depth, monotone, mono_on):
+def check_split_commit(name, st, out, s, max_depth, monotone, mono_on,
+                       pooled=False):
     """split_commit (the kernel on a CUDA state) against its plain twin on
     copies of one state: every table, log, header and pair row bit-equal
-    (compared as bytes, so NaN and -0.0 count). Returns 0.0."""
+    (compared as bytes, so NaN and -0.0 count); ``pooled`` the mode whose
+    split pooled the children (no copy). Returns 0.0."""
     import torch
     from lightgbm_tpu_torch.ops import commit as C
 
     a = C.TreeState(*(t.clone() for t in st))
     b = C.TreeState(*(t.clone() for t in st))
-    kw = dict(max_depth=max_depth, monotone=monotone, has_monotone=mono_on)
+    kw = dict(max_depth=max_depth, monotone=monotone, has_monotone=mono_on,
+              pooled=pooled)
     C.split_commit(a, out, s, **kw)
     C.split_commit_plain(b, out, s, **kw)
     sync(st.hdr.device)
@@ -3760,12 +3868,14 @@ def check_split_commit(name, st, out, s, max_depth, monotone, mono_on):
     return 0.0
 
 
-def phase_commit_kernel(dev, rng, L=63, F=9, B=40):
+def phase_commit_kernel(dev, rng, L=63, F=9, B=40, modes=(False,)):
     """The split commit against its twin on seeded states (COMMIT_CASES:
     the first and a middle split, max_depth cutting the children, basic
     monotone bounds, tied and NaN gains, a split after the tree stopped
     (live 0), the final commit of a tree that ran and of one that
-    stopped)."""
+    stopped), in each of ``modes`` (``pooled``: False the commit copies
+    the children, True the split scan pooled them; keys of the pooled
+    mode end in ``/pooled``)."""
     import torch
     errs = {}
     monotone = torch.as_tensor(rng.randint(-1, 2, F).astype("int8")).to(dev)
@@ -3774,8 +3884,10 @@ def phase_commit_kernel(dev, rng, L=63, F=9, B=40):
         s = where if isinstance(where, int) else int(round(where * (L - 1)))
         if s > 0:
             st.hdr[s - 1, 6] = live
-        errs["commit/%s" % name] = check_split_commit(
-            "commit/" + name, st, out, s, max_depth, monotone, mono_on)
+        for pooled in modes:
+            key = "commit/%s%s" % (name, "/pooled" if pooled else "")
+            errs[key] = check_split_commit(key, st, out, s, max_depth,
+                                           monotone, mono_on, pooled)
     return errs
 
 
@@ -3794,12 +3906,15 @@ def loop_state_at(lrn, ghc, s):
     return loop
 
 
-def full_width_commit(bst, dev, errs, timed=True, s=None):
+def full_width_commit(bst, dev, errs, timed=True, s=None, label=""):
     """The split commit against its twin at a full-width state: the
     fused model's learner's device loop run to commit ``s`` of a tree
     (the middle one by default) on the model's gradients (F, B and L of
-    phase 3d), then commit s on copies. When ``timed``: the kernel's ms
-    (host clock and device_ms), the twin's and the bound."""
+    phase 3d), then commit s on copies, in the loop's mode (``pooled``
+    where its split pools the children: the chain without bundles; else
+    the commit copies them: B7). When ``timed``: the kernel's ms (host
+    clock and device_ms), the twin's and the bound. ``label`` tells the
+    check's key apart (``commit/full_width<label>``)."""
     import torch
     from lightgbm_tpu_torch.ops import commit as C
 
@@ -3808,41 +3923,46 @@ def full_width_commit(bst, dev, errs, timed=True, s=None):
     grad, hess = g.objective.get_gradients(g.train_score.score)
     ghc = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
     L = lrn.num_leaves
-    tag = "commit/full_width" if s is None else "commit/full_width_s%d" % s
+    tag = ("commit/full_width" if s is None
+           else "commit/full_width_s%d" % s) + label
     s = L // 2 if s is None else s
     loop = loop_state_at(lrn, ghc, s)
     st, out = loop.state, loop.out
+    pooled = loop.pooled
     kw = dict(max_depth=loop.commit.max_depth, monotone=lrn.meta.monotone,
               mono_on=lrn.hp.has_monotone)
     errs[tag] = check_split_commit(tag, st, out, s, kw["max_depth"],
-                                   kw["monotone"], kw["mono_on"])
+                                   kw["monotone"], kw["mono_on"], pooled)
     if not timed:
         return {}
     a = C.TreeState(*(t.clone() for t in st))
     op = C.SplitCommit(a, out, max_depth=kw["max_depth"],
-                       monotone=kw["monotone"], has_monotone=kw["mono_on"])
+                       monotone=kw["monotone"], has_monotone=kw["mono_on"],
+                       pooled=pooled)
     b = C.TreeState(*(t.clone() for t in st))
     k_ms = cuda_ms(lambda: op(s))
     k_dev = device_ms(lambda: op(s))
     p_ms = cuda_ms(lambda: C.split_commit_plain(
         b, out, s, max_depth=kw["max_depth"], monotone=kw["monotone"],
-        has_monotone=kw["mono_on"]), iters=5, warmup=1)
+        has_monotone=kw["mono_on"], pooled=pooled), iters=5, warmup=1)
     F, B = st.hist_pool.shape[1], st.hist_pool.shape[2]
-    # the function reads the two child histograms and writes them into
-    # the pool, reads the L gains and the winner's row of the best table
-    # and writes the log entry, leaf rows and the header: the histograms
-    # dominate
-    f_bytes = 2 * 2 * F * B * 3 * 4 + L * 4 + 2 * B + 512
-    log("full width split commit: %.4f ms (device %.4f, twin %.3f) at L = "
-        "%d, F = %d, B = %d, s = %d; byte floor %.6f ms"
-        % (k_ms, k_dev, p_ms, L, F, B, s, f_bytes / PEAK_BYTES_PER_S * 1e3))
+    # the function reads the L gains and the winner's row of the best
+    # table and writes the log entry, leaf rows and the header; unless the
+    # split pooled them, it also reads the two child histograms and writes
+    # them into the pool, which then dominate
+    f_bytes = (0 if pooled else 2 * 2 * F * B * 3 * 4) + L * 4 + 2 * B + 512
+    log("full width split commit%s (%s): %.4f ms (device %.4f, twin %.3f) "
+        "at L = %d, F = %d, B = %d, s = %d, %d blocks; byte floor %.6f ms"
+        % (label, "pooled" if pooled else "copies the children", k_ms,
+           k_dev, p_ms, L, F, B, s, op._blocks,
+           f_bytes / PEAK_BYTES_PER_S * 1e3))
     return {"split_commit": dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/split_commit.cu",
-        replaces="lightgbm_tpu/learner.py:1175",
+        replaces="lightgbm_tpu/learner.py:1175", status="redesigned PR 20",
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("commit/")),
         ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=None,
-        bytes=f_bytes, ops=L + 64)}
+        bytes=f_bytes, ops=L + 64, pooled=pooled)}
 
 
 def check_one_kernel_header(name, work, seg, table, kw):
@@ -4039,6 +4159,94 @@ def check_split_scan(name, hists, pair, depth, meta, fmask, hp, op=None):
     return 0.0
 
 
+#: phase 2's seeded fold shapes (F, B, categorical): the chain's width,
+#: the ranking width (three item rounds of the cluster), the dense
+#: builder's 907 and 1023 bins (fewer warps a CTA, two rounds)
+FOLD_SHAPES = ((28, 255, False), (28, 255, True), (137, 255, False),
+               (28, 907, False), (28, 1023, True))
+
+
+def seeded_scan_state(rng, dev, F, B, cat=False, P=6):
+    """Seeded scan inputs at F features of B bins: FeatureMeta with some
+    features short of B bins and a movable missing bin on others (with
+    ``cat``, a few categorical features of 4-40 categories under
+    many-vs-many and one-vs-rest), SplitHyper, a (P, F, B, 3) pool of
+    histograms on a 1/64 grid (counts integral), a smaller child below
+    the parent of row 2, and a pair row of the children's sums. Returns
+    (meta, hp, fmask, pool, small, pair)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops.partition import split_pair
+    from lightgbm_tpu_torch.ops.split import FeatureMeta, SplitHyper
+
+    nb = np.full(F, B, np.int32)
+    short = rng.rand(F) < 0.3
+    nb[short] = rng.randint(2, B + 1, int(short.sum()))
+    movable = (rng.rand(F) < 0.3) & (nb > 2)
+    miss = np.where(movable, nb - 1, 0).astype(np.int32)
+    is_cat = np.zeros(F, bool)
+    hp = {"min_data_in_leaf": 5.0, "min_sum_hessian_in_leaf": 1e-3}
+    if cat:
+        idx = rng.choice(F, 4, replace=False)
+        is_cat[idx] = True
+        nb[idx] = (5, 12, 40, 3)
+        movable[idx] = False
+        miss[idx] = 0
+        hp.update(has_categorical=True, max_cat_to_onehot=4,
+                  min_data_per_group=5.0, cat_smooth=2.0)
+    meta = FeatureMeta(
+        num_bins=torch.as_tensor(nb).to(dev),
+        movable_missing=torch.as_tensor(movable).to(dev),
+        missing_bin=torch.as_tensor(miss).to(dev),
+        is_categorical=torch.as_tensor(is_cat).to(dev),
+        monotone=torch.zeros(F, dtype=torch.int8, device=dev),
+        penalty=torch.ones(F, dtype=torch.float32, device=dev),
+        cegb_coupled=torch.zeros(F, dtype=torch.float32, device=dev))
+    cnt = rng.poisson(40.0, (P, F, B)).astype(np.float32)
+    cnt[:, np.arange(B)[None, :] >= nb[:, None]] = 0.0
+    g = np.round(rng.randn(P, F, B) * cnt * 0.2 * 64) / 64
+    h = np.round(np.abs(rng.randn(P, F, B)) * cnt * 0.1 * 64) / 64
+    pool = torch.as_tensor(np.stack([g, h, cnt], -1).astype(np.float32)) \
+        .to(dev).contiguous()
+    small = torch.as_tensor((np.stack([g[2], h[2], cnt[2]], -1)
+                             * 0.375).astype(np.float32)).to(dev)
+    small = torch.round(small * 64) / 64
+    tot = pool[2].sum(dim=(0, 1)) / F
+    sums = torch.stack([tot * 0.375, tot * 0.625])
+    pair = split_pair(sums, torch.zeros(2, device=dev),
+                      torch.full((2,), float("-inf"), device=dev),
+                      torch.full((2,), float("inf"), device=dev))
+    fmask = torch.as_tensor(rng.rand(F) < 0.9).to(dev)
+    return meta, SplitHyper(**hp), fmask, pool, small.contiguous(), pair
+
+
+def phase_fold_kernels(dev, rng, shapes=FOLD_SHAPES):
+    """The split scan on seeded inputs at FOLD_SHAPES: fold mode (the
+    sibling folded in) against the torch sequence on the card with the
+    left or the right child the smaller, and a dead header
+    (check_split_fold); direct mode on the same children against
+    find_best_split (check_split_scan). Returns errs."""
+    import types
+    from lightgbm_tpu_torch.ops.scan import SplitScan, fold_children
+
+    errs = {}
+    for F, B, cat in shapes:
+        meta, hp, fmask, pool, small, pair = seeded_scan_state(rng, dev, F, B,
+                                                               cat)
+        op = SplitScan(meta, fmask, hp, num_feat=F, num_bins=B, device=dev)
+        loop = types.SimpleNamespace(split=types.SimpleNamespace(scan=op))
+        tag = "F%d_B%d%s" % (F, B, "_cat" if cat else "")
+        for ls in (1, 0):
+            hdr = chain_header([0, 0, 0, 0], ls, 1, dev, 3, slot=2)
+            key = "split_scan/fold/%s/ls%d" % (tag, ls)
+            errs[key] = check_split_fold(key, loop, hdr, pair, small, pool, 3)
+            key = "split_scan/direct/%s/ls%d" % (tag, ls)
+            errs[key] = check_split_scan(key, fold_children(small, pool, hdr)
+                                         .contiguous(), pair, 3, meta, fmask,
+                                         hp, op)
+    return errs
+
+
 def cat_route_table(rng, rounds, F, nb, dev, frac=0.5):
     """A seeded router table (route_table_np's "tree") and its categorical
     table: about ``frac`` of the rounds categorical, each with a random
@@ -4149,9 +4357,131 @@ def chain_split_at(lrn, ghc, s):
     table."""
     loop = loop_state_at(lrn, ghc, s + 1)
     st = loop.state
-    hists = loop.split.fhist if loop.split.fhist is not None \
-        else loop.out.hists
-    return loop, st.hdr[s], st.pair[s], hists, loop.table(s)
+    return loop, st.hdr[s], st.pair[s], loop.children(s), loop.table(s)
+
+
+def fold_inputs_at(lrn, ghc, s):
+    """The inputs of split slot ``s``'s scan in fold mode: the learner's
+    device tree loop run eagerly through slot ``s - 1`` on ``ghc``, then
+    slot ``s`` up to its scan (``pre_split``, the split's first launches).
+    Returns (loop, header row, pair row, the smaller child, a copy of the
+    pool before the scan)."""
+    from lightgbm_tpu_torch.ops.chain import DenseSplit
+
+    loop = loop_state_at(lrn, ghc, s)
+    loop.pre_split(s)
+    st = loop.state
+    hdr, pair = st.hdr[s], st.pair[s]
+    split = loop.split
+    if isinstance(split, DenseSplit):
+        small = split.small_child(hdr, loop.table(s), loop.out, s + 1)
+    else:
+        small = split.small_child(hdr, loop.table(s), loop.out)
+    return loop, hdr, pair, small.clone(), st.hist_pool.clone()
+
+
+def check_split_fold(name, loop, hdr, pair, small, pool0, s):
+    """The split scan's fold mode (the kernel on CUDA tensors) against the
+    torch sequence on the card (``ops/scan.split_scan_fold_plain``: the
+    sibling by index_select / sub / where, the pool rows, find_best_split)
+    on copies of one pool: the pool and every SplitInfo field bit-equal
+    (as bytes); a dead header (live 0) writes nothing. Returns 0.0."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.scan import split_scan_fold_plain
+
+    dev = small.device
+    op = loop.split.scan
+    F, B = small.shape[0], small.shape[1]
+    outs = [P.split_out(F, B, dev) for _ in range(2)]
+    pa, pb = pool0.clone(), pool0.clone()
+    op.fold(small, pa, hdr, s + 1, pair, outs[0])
+    split_scan_fold_plain(small, pb, hdr, s + 1, pair, outs[1], op.meta,
+                          op.fmask, op.hp, op.node, op.bounds)
+    dead_hdr = hdr.clone()
+    dead_hdr[6] = 0
+    dead = P.split_out(F, B, dev)
+    for t in dead:
+        t.fill_(1)
+    pd = pool0.clone()
+    op.fold(small, pd, dead_hdr, s + 1, pair, dead)
+    sync(dev)
+    if not torch.equal(pa.view(torch.uint8), pb.view(torch.uint8)):
+        rows = (pa.view(torch.uint8) != pb.view(torch.uint8)).flatten(1) \
+            .any(1).nonzero().flatten().tolist()
+        raise AssertionError("%s: the folded pool rows %s differ from the "
+                             "torch sequence's" % (name, rows[:8]))
+    for fld in ("fout", "iout", "bout"):
+        x, y = getattr(outs[0], fld), getattr(outs[1], fld)
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            raise AssertionError("%s: split_scan fold %s %s vs %s"
+                                 % (name, fld, x.tolist()[:8],
+                                    y.tolist()[:8]))
+    if not torch.equal(pd, pool0) or not all(bool((t == 1).all())
+                                             for t in dead):
+        raise AssertionError("%s: a dead header's fold wrote something"
+                             % name)
+    return 0.0
+
+
+def scan_call_at(lrn, ghc, s):
+    """The split scan of slot ``s`` of the learner's device tree loop as
+    the loop launches it: in fold mode from the slot's inputs
+    (fold_inputs_at) into a copy of the pool, else on the children the
+    loop's split gave it (chain_split_at). Returns (loop, call), where
+    ``call(stamps=None)`` launches the scan again."""
+    from lightgbm_tpu_torch.ops import partition as P
+
+    if lrn._loop is not None and lrn._loop.pooled:
+        loop, hdr, pair, small, pool0 = fold_inputs_at(lrn, ghc, s)
+        pool = pool0.clone()
+        F, B = small.shape[0], small.shape[1]
+        o2 = P.split_out(F, B, small.device)
+        op = loop.split.scan
+
+        def call(stamps=None):
+            op.fold(small, pool, hdr, s + 1, pair, o2, stamps=stamps)
+
+        return loop, call
+    loop, hdr, pair, hists, _ = chain_split_at(lrn, ghc, s)
+    hists = hists.clone()
+    F, B = hists.shape[1], hists.shape[2]
+    o2 = P.split_out(F, B, hists.device)
+    op = loop.split.scan
+
+    def call(stamps=None):
+        op(hists, pair, hdr, o2, stamps=stamps)
+
+    return loop, call
+
+
+def fold_timing(lrn, ghc, s, errs, key, tag, where):
+    """The split scan of slot ``s`` in fold mode, as the chain launches
+    it: check_split_fold into ``errs`` (``key/fold``), then its ms (host
+    clock, device_ms) beside the torch sequence it replaces on the card
+    (index_select / sub / where, the pool rows, find_best_split), on a
+    copy of the pool. Returns the timings (ms, device_ms and plain_ms:
+    the row's main-path figures)."""
+    from lightgbm_tpu_torch.ops import partition as P
+    from lightgbm_tpu_torch.ops.scan import split_scan_fold_plain
+
+    loop, hdr, pair, small, pool0 = fold_inputs_at(lrn, ghc, s)
+    errs[key + "/fold"] = check_split_fold(key + "/fold", loop, hdr, pair,
+                                           small, pool0, s)
+    op = loop.split.scan
+    F, B = small.shape[0], small.shape[1]
+    pool, poolb = pool0.clone(), pool0.clone()
+    o2, o3 = P.split_out(F, B, small.device), P.split_out(F, B,
+                                                          small.device)
+    f_ms = cuda_ms(lambda: op.fold(small, pool, hdr, s + 1, pair, o2))
+    f_dev = device_ms(lambda: op.fold(small, pool, hdr, s + 1, pair, o2))
+    f_plain = cuda_ms(lambda: split_scan_fold_plain(
+        small, poolb, hdr, s + 1, pair, o3, op.meta, op.fmask, op.hp,
+        op.node, op.bounds), iters=5, warmup=1)
+    log("chain %s at the %s: split_scan fold %.4f ms (device %.4f; the "
+        "torch sequence and find_best_split %.3f)"
+        % (tag, where, f_ms, f_dev, f_plain))
+    return dict(ms=f_ms, device_ms=f_dev, plain_ms=f_plain, fold=True)
 
 
 def full_width_chain(bst, dev, errs, tag, timed=True):
@@ -4187,6 +4517,9 @@ def full_width_chain(bst, dev, errs, tag, timed=True):
         errs[key] = check_split_scan(key, hists.clone(), pair, hdr[5],
                                      lrn.meta, loop.fmask, lrn.hp, op)
         if not timed:
+            if loop.pooled:
+                fl = fold_inputs_at(lrn, ghc, s)
+                errs[key + "/fold"] = check_split_fold(key + "/fold", *fl, s)
             continue
         F, B = hists.shape[1], hists.shape[2]
         o2 = P.split_out(F, B, dev)
@@ -4241,11 +4574,15 @@ def full_width_chain(bst, dev, errs, tag, timed=True):
                                  own_hist))
         out[where] = dict(rows=cnt, small_rows=hseg[2], ms=k_ms,
                           device_ms=k_dev, plain_ms=p_ms,
+                          direct_ms=k_ms, direct_device_ms=k_dev,
                           partition_static_device_ms=st_part,
                           partition_own_plan_device_ms=own_part,
                           histogram_static_device_ms=st_hist,
                           histogram_own_plan_device_ms=own_hist,
                           histogram=hist.layout, F=F, B=B)
+        if loop.pooled:
+            out[where].update(fold_timing(lrn, ghc, s, errs, key, tag,
+                                          where))
     if not timed:
         return {}
     deep_row = out["deep"]
@@ -4253,15 +4590,17 @@ def full_width_chain(bst, dev, errs, tag, timed=True):
     # the scan reads the two (F, B, 3) histograms and the pair row and
     # writes two SplitInfo rows; ~10 operations for each of its 2 x 4 x F
     # x B candidates
+    # fold mode also reads the parent's row and writes both children
+    hist_bytes = (4 if deep_row.get("fold") else 2) * F * B * 12
     return {"split_scan": dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/split_scan.cu",
         replaces="lightgbm_tpu/ops/split.py:find_best_split (XLA; no "
-                 "pallas_call)",
+                 "pallas_call)", status="redesigned PR 20",
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("split_scan/")),
         ms=deep_row["ms"], device_ms=deep_row["device_ms"],
         plain_ms=deep_row["plain_ms"], library_ms=None,
-        bytes=2 * F * B * 12 + 48 + 2 * (64 + B),
+        bytes=hist_bytes + 48 + 2 * (64 + B),
         ops=2 * 4 * F * B * 10, shapes=out)}
 
 
@@ -4457,23 +4796,77 @@ def profile_block(dev, train, leaves, extra, k=FUSED_BLOCK):
         bst.inner.finish_fused("profile")
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, calls = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us and ev.key not in by_name:
             by_name[ev.key] = us / 1e3
+            calls[ev.key] = ev.count
     kern = {k_: v for k_, v in by_name.items()
             if not k_.startswith("cuda") and not k_.startswith("aten::")}
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    # the device ops a tree (kernels, copies, fills: the graph's nodes that
+    # ran) and those of the chain's former sibling ops, by kernel name
+    per_tree = {name: sum(calls[k_] for k_ in kern if any(
+        p in k_ for p in pats)) / k for name, pats in SIBLING_KERNELS}
+    per_tree["device_ops"] = sum(calls[k_] for k_ in kern) / k
+    loop = bst.inner.learner._loop
+    nodes = graph_nodes(loop) if loop is not None and loop.cuda else None
     log("profile fused block %s: %d trees, wall %.1f ms (%.2f ms/tree), "
-        "device busy %.1f ms (%.1f%%); top kernels %s"
+        "device busy %.1f ms (%.1f%%); top kernels %s; a tree: %s; graph "
+        "nodes a tree %s"
         % (json.dumps(extra), k, wall_ms, wall_ms / k, busy,
-           100.0 * busy / wall_ms, ", ".join("%s %.2f" % kv for kv in top)))
+           100.0 * busy / wall_ms, ", ".join("%s %.2f" % kv for kv in top),
+           ", ".join("%s %.1f" % kv for kv in per_tree.items()),
+           nodes if nodes is not None else "not measured"))
     return dict(wall_ms=wall_ms, device_busy_ms=busy if kern else None,
-                top=top)
+                top=top, per_tree=per_tree, graph_nodes=nodes)
+
+
+#: kernel-name patterns of the torch ops the chain ran a slot for the
+#: sibling before the scan took it over (index_select, sub, where)
+SIBLING_KERNELS = (("index_select", ("index_select", "indexSelect")),
+                   ("sub", ("CUDAFunctor_add", "sub_kernel")),
+                   ("where", ("where_kernel",)))
+
+
+def graph_nodes(loop):
+    """The nodes of one tree of a device tree loop as a CUDA graph: a
+    capture of ``grow()`` kept as a graph (never replayed), counted by
+    the driver's cuGraphGetNodes; a dict of the total and the kernel
+    nodes, or None (with the reason logged) where that fails."""
+    import ctypes
+    import torch
+    from lightgbm_tpu_torch.ops import kernels
+
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with kernels.capture_launches():
+            with torch.cuda.graph(g, capture_error_mode="relaxed"):
+                loop.grow()
+        cu = ctypes.CDLL("libcuda.so.1")
+        handle = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        rc = cu.cuGraphGetNodes(handle, None, ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError("cuGraphGetNodes: %d" % rc)
+        nodes = (ctypes.c_void_p * n.value)()
+        rc = cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+        kinds = {}
+        for nd in nodes:
+            t = ctypes.c_int(0)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(nd), ctypes.byref(t))
+            kinds[t.value] = kinds.get(t.value, 0) + 1
+        g.reset()
+        # CU_GRAPH_NODE_TYPE_KERNEL = 0, MEMCPY = 1, MEMSET = 2
+        return {"total": int(n.value), "kernel": kinds.get(0, 0),
+                "memcpy": kinds.get(1, 0), "memset": kinds.get(2, 0)}
+    except (RuntimeError, OSError, AttributeError, TypeError) as exc:
+        log("graph nodes: not measured (%s)" % exc)
+        return None
 
 
 def phase_one_kernel_header(dev, rng):
@@ -4596,6 +4989,13 @@ def phase_fused(dev, data, trees, leaves, per_iter, args, card, errs,
                                  % (tag, auc, per_iter["predict_auc"]))
         if profile and dev.type == "cuda":
             s["profile"] = profile_block(dev, train, leaves, extra)
+        if tag == "three_launch":
+            crow = full_width_commit(bst, dev, errs,
+                                     timed=dev.type == "cuda",
+                                     label="/chain")
+            if crow:
+                s["commit_pooled"] = crow["split_commit"]
+                s["breakdown"] = scan_commit_breakdown(bst, dev)
         if tag in ("three_launch", "quantized"):
             rows = full_width_chain(bst, dev, errs, tag,
                                     timed=dev.type == "cuda")
@@ -5592,7 +5992,9 @@ def check_scan_leaf(name, loop, s):
     fl = loop.f_leaf[s]
     loop.forced_out.fout.fill_(7.0)
     loop.forced_leaf_scan(s)
-    if s > 0 and fl == loop.f_leaf[s - 1]:
+    if loop.pooled:
+        hist = st.hist_pool[fl]
+    elif s > 0 and fl == loop.f_leaf[s - 1]:
         hist = loop.out.hists[0]
     elif s > 0 and fl == s:
         hist = loop.out.hists[1]
@@ -5767,6 +6169,9 @@ def phase_options_kernels(dev, rng, data, forced_file, rows, leaves):
         errs[key] = check_split_scan_node(key, loop.split.scan,
                                           hists.clone(), pair, hdr,
                                           lrn.meta, lrn.hp)
+        if loop.pooled:
+            errs[key + "/fold"] = check_split_fold(
+                key + "/fold", *fold_inputs_at(lrn, ghc, s), s)
     flrn, fghc = options_learner(
         dev, data, {"forcedsplits_filename": forced_file}, rows, leaves)
     for s in range(len(OPTIONS_FORCED)):
@@ -5815,15 +6220,19 @@ def time_options_kernels(dev, every, forced, errs):
     n_bytes = 32 + F * (1 + 4 + 4 + 1 + 1) + S * F + 2 * F * (1 + 4 + 4)
     n_ops = 2 * (2 * F * 130 + F * F * 3 + 2 * S * F + 6 * F)
     op = loop.split.scan
-    out = P.split_out(F, B, dev)
-    s_ms = cuda_ms(lambda: op(hists, pair, hdr, out))
-    s_dev = device_ms(lambda: op(hists, pair, hdr, out))
     mask, thr, delta = op.node.rows(2)
     s_plain = cuda_ms(lambda: find_best_split(
         hists, pair[0:6].view(2, 3), lrn.meta, mask, lrn.hp,
         parent_output=pair[6:8], leaf_lower=pair[8:10],
         leaf_upper=pair[10:12], node_depth=hdr[5], rand_threshold=thr,
         cegb_delta=delta), iters=5, warmup=1)
+    # the scan as the loop launches it (the sibling folded in), with its
+    # stamped phases
+    _, call = scan_call_at(lrn, ghc, deep)
+    s_ms = cuda_ms(call)
+    s_dev = device_ms(call)
+    log_scan_stamps("phase 3h scan with node inputs (slot %d)" % deep, call,
+                    dev)
     flrn, fghc = forced
     floop = loop_state_at(flrn, fghc, 2)
     floop.forced_leaf_scan(2)
@@ -5833,7 +6242,8 @@ def time_options_kernels(dev, every, forced, errs):
                monotone=flrn.meta.monotone,
                has_monotone=flrn.hp.has_monotone,
                col_map=floop.commit.col_map, forced=floop.forced_out,
-               n_forced=floop.n_forced, track_used=False)
+               n_forced=floop.n_forced, track_used=False,
+               pooled=floop.pooled)
     cop = C.SplitCommit(a, floop.out, **ckw)
     c_ms = cuda_ms(lambda: cop(2, floop.f_leaf[2]))
     c_dev = device_ms(lambda: cop(2, floop.f_leaf[2]))
@@ -5853,16 +6263,20 @@ def time_options_kernels(dev, every, forced, errs):
                         if k.startswith("node_inputs/")),
         ms=n_ms, device_ms=n_dev, plain_ms=n_plain, library_ms=None,
         bytes=n_bytes, ops=n_ops)}
-    scan_bytes = 2 * F * B * 12 + 48 + 2 * (64 + B) + 2 * F * 9
+    # as the loop launches it: the parent's and the smaller child's rows
+    # read, both children's written
+    scan_bytes = 4 * F * B * 12 + 48 + 2 * (64 + B) + 2 * F * 9
+    # the commit copies the two children into the pool only where the scan
+    # did not pool them (as full_width_commit counts it)
+    c_bytes = ((0 if floop.pooled else 2 * 2 * F * B * 3 * 4) + L * 4
+               + 2 * B + 512)
     extended = {
         "split_scan": dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain,
                            bound_ms=max(scan_bytes / PEAK_BYTES_PER_S,
                                         2 * 4 * F * B * 11
                                         / PEAK_SCALAR_OPS_PER_S) * 1e3),
         "split_commit": dict(ms=c_ms, device_ms=c_dev, plain_ms=c_plain,
-                             bound_ms=(2 * 2 * F * B * 3 * 4 + L * 4
-                                       + 2 * B + 512) / PEAK_BYTES_PER_S
-                             * 1e3)}
+                             bound_ms=c_bytes / PEAK_BYTES_PER_S * 1e3)}
     return rows, extended
 
 
@@ -6301,8 +6715,7 @@ def check_split_scan_adv(name, loop, s):
 
     st = loop.state
     hdr, pair = st.hdr[s], st.pair[s]
-    hists = loop.split.fhist if loop.split.fhist is not None \
-        else loop.out.hists
+    hists = loop.children(s)
     F, B = hists.shape[1], hists.shape[2]
     dev = hists.device
     out = P.split_out(F, B, dev)
@@ -6344,6 +6757,9 @@ def phase_monotone_kernels(dev, rng, data, rows, leaves, full_leaves=255):
         loop = loop_state_at(lrn, ghc, s + 1)
         key = "split_scan/advanced/%s" % where
         errs[key], finite = check_split_scan_adv(key, loop, s)
+        if loop.pooled:
+            errs[key + "/fold"] = check_split_fold(
+                key + "/fold", *fold_inputs_at(lrn, ghc, s), s)
         log("phase 3i %s: slot %d, finite bound share %.4f" % (key, s,
                                                                finite))
         if where == "deep" and not finite > 0:
@@ -6455,7 +6871,7 @@ def time_monotone_kernels(dev, adv, errs):
     a = C.TreeState(*(x.clone() for x in st))
     b = C.TreeState(*(x.clone() for x in st))
     ckw = dict(max_depth=loop.commit.max_depth, monotone=lrn.meta.monotone,
-               has_monotone=True, mono_method=2)
+               has_monotone=True, mono_method=2, pooled=loop.pooled)
     cop = C.SplitCommit(a, loop.out, **ckw)
     c_ms = cuda_ms(lambda: cop(deep))
     c_dev = device_ms(lambda: cop(deep))
@@ -6485,17 +6901,17 @@ def time_monotone_kernels(dev, adv, errs):
     loop = loop_state_at(lrn, ghc, deep + 1)
     st = loop.state
     hdr, pair = st.hdr[deep], st.pair[deep]
-    hists = loop.out.hists
-    op = loop.split.scan
-    out = P.split_out(F, B, dev)
-    s_ms = cuda_ms(lambda: op(hists, pair, hdr, out))
-    s_dev = device_ms(lambda: op(hists, pair, hdr, out))
+    hists = loop.children(deep)
     adv_b = tuple(loop.bounds.unbind(1))
     s_plain = cuda_ms(lambda: find_best_split(
         hists, pair[0:6].view(2, 3), lrn.meta, loop.fmask, lrn.hp,
         parent_output=pair[6:8], leaf_lower=pair[8:10],
         leaf_upper=pair[10:12], node_depth=hdr[5], adv_bounds=adv_b),
         iters=5, warmup=1)
+    # the scan as the loop launches it (the sibling folded in)
+    _, call = scan_call_at(lrn, ghc, deep)
+    s_ms = cuda_ms(call)
+    s_dev = device_ms(call)
     log("phase 3i kernels at L = %d, F = %d, B = %d, slot %d: mono_bounds "
         "%.4f ms (device %.4f, twin %.3f); mono_commit %.4f ms (device "
         "%.4f, twin %.3f; %d of %d bound elements selected); split_scan "
@@ -6531,8 +6947,11 @@ def time_monotone_kernels(dev, adv, errs):
                             if k.startswith("mono_commit/")),
             ms=m_ms, device_ms=m_dev, plain_ms=m_plain, library_ms=None,
             selected_elements=touched, bytes=m_bytes, ops=m_ops)}
-    scan_bytes = 2 * F * B * 12 + 2 * 4 * F * B * 4 + 48 + 2 * (64 + B)
-    c_bytes = 2 * 2 * F * B * 3 * 4 + L * 4 + 2 * B + 512 + 2 * F * B * 4
+    scan_bytes = 4 * F * B * 12 + 2 * 4 * F * B * 4 + 48 + 2 * (64 + B)
+    # the commit reads the bound rows; it copies the two children into the
+    # pool only where the scan did not pool them
+    c_bytes = ((0 if loop.pooled else 2 * 2 * F * B * 3 * 4) + L * 4
+               + 2 * B + 512 + 2 * F * B * 4)
     extended = {
         "split_scan": dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain,
                            bound_ms=max(scan_bytes / PEAK_BYTES_PER_S,
@@ -7255,7 +7674,6 @@ def dense_full_width(bst, data, dev, errs, tag, timed):
     from lightgbm_tpu_torch.learner import assign_leaves, assign_leaves_plain
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops import partition as P
-    from lightgbm_tpu_torch.ops.scan import SplitScan
     from lightgbm_tpu_torch.ops.split import find_best_split
 
     g = bst.inner
@@ -7299,6 +7717,11 @@ def dense_full_width(bst, data, dev, errs, tag, timed):
     fmask = torch.ones(F, dtype=torch.bool, device=dev)
     errs["split_scan/%s" % tag] = check_split_scan(
         "split_scan/%s" % tag, hists, pair, 3, lrn.meta, fmask, lrn.hp)
+    # the loop's own scans, the sibling folded in, at its first and last
+    # live slots
+    for where, s in (("root", 0), ("deep", last_live_slot(lrn, ghc))):
+        key = "split_scan/%s/fold_%s" % (tag, where)
+        errs[key] = check_split_fold(key, *fold_inputs_at(lrn, ghc, s), s)
     errs["router_u16/%s/train" % tag] = check_router_u16(
         "router_u16/%s/train" % tag, bins, log_, lrn.bins_t, row_leaf)
     vbins = g._valid_bins(valid_dataset_of(bst, data))
@@ -7329,12 +7752,10 @@ def dense_full_width(bst, data, dev, errs, tag, timed):
         acc = torch.zeros((F * B, 3), dtype=torch.float32, device=dev)
         t[key] = cuda_ms(lambda: acc.index_add_(0, flat, src), iters=5)
         del b_sel, flat, src
-    op = SplitScan(lrn.meta, fmask, lrn.hp, num_feat=F, num_bins=B,
-                   device=dev)
-    out = P.split_out(F, B, dev)
-    shdr = chain_header([0, 0, 0, 0], 1, 1, dev, 3)
-    t["scan"] = (cuda_ms(lambda: op(hists, pair, shdr, out)),
-                 device_ms(lambda: op(hists, pair, shdr, out)),
+    # the scan as the loop launches it (the sibling folded in) at its last
+    # live slot
+    _, call = scan_call_at(lrn, ghc, last_live_slot(lrn, ghc))
+    t["scan"] = (cuda_ms(call), device_ms(call),
                  cuda_ms(lambda: find_best_split(
                      hists, pair[0:6].view(2, 3), lrn.meta, fmask, lrn.hp,
                      parent_output=pair[6:8], leaf_lower=pair[8:10],
@@ -7598,8 +8019,8 @@ def linear_dense_rows(errs, tg, td):
             replaces="lightgbm_tpu/ops/split.py:find_best_split (XLA; no "
                      "pallas_call), past 256 bins",
             max_abs_err=err("split_scan/b"), **timed("scan"),
-            library_ms=None, bins=B,
-            bytes=2 * F * B * 12 + 48 + 2 * (64 + B), ops=2 * 4 * F * B * 13),
+            library_ms=None, bins=B, status="redesigned PR 20",
+            bytes=4 * F * B * 12 + 48 + 2 * (64 + B), ops=2 * 4 * F * B * 13),
         "route_rows_u16": dict(
             route="cuda", source="lightgbm_tpu_torch/csrc/route_rows.cu",
             replaces="lightgbm_tpu/ops/route.py:88 (route_rows; u16 bins "
@@ -10070,14 +10491,30 @@ def run(argv=None):
     ap.add_argument("--parallel-rank", nargs=3, metavar=("RANK", "WORLD",
                                                         "WORK"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--scan-commit-only", action="store_true",
+                    help="build, train --trees fused chain trees and print "
+                    "only the split scan's and the split commit's stamped "
+                    "phases and the launch floor (scan_commit_breakdown)")
     ap.add_argument("--breakdown-only", action="store_true",
                     help="build, train --trees one-kernel trees and print "
                     "only B7's per-phase breakdown (b7_breakdown)")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="build, and print only the profiled fused block "
+                    "(profile_block) of the chain and of the one-kernel "
+                    "split at phase 3d's sizes: ms, device ops, the "
+                    "chain's former sibling ops and graph nodes a tree")
+    ap.add_argument("--root", default=HERE,
+                    help="with --profile-only: the checkout whose "
+                    "lightgbm_tpu_torch is built and driven (to compare "
+                    "two commits on one card, run each in turns)")
     args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    if root != HERE and not args.profile_only:
+        ap.error("--root is for --profile-only")
 
-    if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch", "csrc")):
+    if not os.path.isdir(os.path.join(root, "lightgbm_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
-              "(lightgbm_tpu_torch/ not found beside this script)",
+              "(lightgbm_tpu_torch/ not found in %s)" % root,
               file=sys.stderr)
         return 2
     import torch
@@ -10089,7 +10526,13 @@ def run(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
+    import lightgbm_tpu_torch as lgt
+    if os.path.dirname(os.path.dirname(os.path.abspath(lgt.__file__))) \
+            != root:
+        print("chip_smoke: imported %s, not the one in %s"
+              % (lgt.__file__, root), file=sys.stderr)
+        return 2
     # importing the op modules registers their kernels
     from lightgbm_tpu_torch.linear import fit as linear_fit  # noqa: F401
     from lightgbm_tpu_torch.ops import (commit, forest,  # noqa: F401
@@ -10280,11 +10723,14 @@ def run(argv=None):
 
     if args.fused_only:
         import numpy as np
-        errs = phase_commit_kernel(dev, np.random.RandomState(args.seed + 23))
+        errs = phase_commit_kernel(dev, np.random.RandomState(args.seed + 23),
+                                   modes=(False, True))
         errs.update(phase_one_kernel_header(
             dev, np.random.RandomState(args.seed + 29)))
         errs.update(phase_chain_kernels(
             dev, np.random.RandomState(args.seed + 37)))
+        errs.update(phase_fold_kernels(
+            dev, np.random.RandomState(args.seed + 41)))
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         bst_k, counts_k, summary_k = phase_train(
             dev, build_datasets(dev, data, args.leaves, ONE_KERNEL_PARAMS),
@@ -10331,6 +10777,33 @@ def run(argv=None):
         log(card)
         return 0
 
+    if args.scan_commit_only:
+        import lightgbm_tpu_torch as lgt
+        X, y, _, _ = training_data(args.seed, args.train_rows,
+                                   args.valid_rows)
+        params = train_params(dev, args.leaves, {})
+        train = lgt.Dataset(X, label=y, params=params)
+        train.construct()
+        bst = lgt.train(params, train, args.trees)
+        out = scan_commit_breakdown(bst, dev)
+        out["card"] = card
+        print(json.dumps({"scan_commit_breakdown": out}, default=str))
+        log(card)
+        return 0
+
+    if args.profile_only:
+        X, y, _, _ = training_data(args.seed, args.train_rows, 1000)
+        out = {"root": root, "card": card}
+        for tag, extra in (("chain", {}),
+                           ("one_kernel", ONE_KERNEL_PARAMS)):
+            params = train_params(dev, args.leaves, extra)
+            train = lgt.Dataset(X, label=y, params=params)
+            train.construct()
+            out[tag] = profile_block(dev, train, args.leaves, extra)
+        print(json.dumps({"profile": out}, default=str))
+        log(card)
+        return 0
+
     if args.breakdown_only:
         data = training_data(args.seed, args.train_rows, args.valid_rows)
         ds = build_datasets(dev, data, args.leaves, RESIDENT_PARAMS)
@@ -10352,11 +10825,14 @@ def run(argv=None):
     errs.update(phase_forest_kernels(dev,
                                      np.random.RandomState(args.seed + 17)))
     errs.update(phase_commit_kernel(dev,
-                                    np.random.RandomState(args.seed + 23)))
+                                    np.random.RandomState(args.seed + 23),
+                                    modes=(False, True)))
     errs.update(phase_one_kernel_header(
         dev, np.random.RandomState(args.seed + 29)))
     errs.update(phase_chain_kernels(dev,
                                     np.random.RandomState(args.seed + 37)))
+    errs.update(phase_fold_kernels(dev,
+                                   np.random.RandomState(args.seed + 41)))
     for name, e in errs.items():
         log("check %s: max |diff| %.3g" % (name, e))
 

@@ -1526,13 +1526,17 @@ class DeviceTreeLoop:
                 self.f_leaf, dtype=torch.int32).to(dev)
             self.fview = torch.zeros((1, num_feat, num_bin, 3),
                                      dtype=torch.float32, device=dev)
+        #: the split writes both children into the pool (the scan's fold
+        #: mode: the chain without bundles, the dense builder)
+        self.pooled = bool(getattr(self.split, "pooled", False))
         self.commit = SplitCommit(self.state, self.out, max_depth=max_depth,
                                   monotone=meta.monotone,
                                   has_monotone=hp.has_monotone,
                                   col_map=col_map, forced=self.forced_out,
                                   n_forced=self.n_forced,
                                   track_used=opts.needs_used,
-                                  mono_method=self.mono_method)
+                                  mono_method=self.mono_method,
+                                  pooled=self.pooled)
         self.cuda = dev.type == "cuda"
         self.root_seg = root_segment(self.guard, n, dev) if self.cuda \
             else None
@@ -1655,11 +1659,14 @@ class DeviceTreeLoop:
         """The one-leaf scan of forced slot ``s``, before its commit: the
         forced leaf's histogram is a child of split ``s - 1`` (in the split
         outputs, which the commit has yet to pool: while the forced splits
-        hold, split ``s - 1`` was forced split ``s - 1``) or already in the
+        hold, split ``s - 1`` was forced split ``s - 1``; in the pool
+        already where the split pools the children) or already in the
         pool; its sums, output, bounds and depth are in the state."""
         st = self.state
         fl = self.f_leaf[s]
-        if s > 0 and fl == self.f_leaf[s - 1]:
+        if self.pooled:
+            hist = st.hist_pool[fl:fl + 1]
+        elif s > 0 and fl == self.f_leaf[s - 1]:
             hist = self.out.hists[0:1]
         elif s > 0 and fl == s:
             hist = self.out.hists[1:2]
@@ -1678,35 +1685,55 @@ class DeviceTreeLoop:
             st.depth[fl:fl + 1], st.force_live, self.f_mask[s],
             self.f_thr[s], self.forced_out)
 
+    def children(self, s: int) -> torch.Tensor:
+        """The (2, F, B, 3) children that split slot ``s``'s scan read,
+        after that split ran: the pool rows of its parent and of leaf ``s +
+        1`` where the split pools them, else the split outputs' (the
+        per-feature view with bundles)."""
+        if self.pooled:
+            st = self.state
+            return torch.stack([st.hist_pool[int(st.hdr[s, 7])],
+                                st.hist_pool[s + 1]])
+        fhist = getattr(self.split, "fhist", None)
+        return fhist if fhist is not None else self.out.hists
+
     def splits(self, stop: int) -> None:
         """Split slots ``[0, stop)``: a commit, then the split that reads
         the header it wrote (with the forced leaf's scan before the commit;
         after it, under the advanced monotone method, the commit's per-bin
         bound writes; the children's node inputs; and, advanced, the
         children's per-candidate bounds)."""
+        st = self.state
+        for s in range(stop):
+            self.pre_split(s)
+            self.split.split(st.hdr[s], self.table(s), st.hist_pool,
+                             st.pair[s], self.out,
+                             *(() if self.one_kernel else (s + 1,)))
+
+    def pre_split(self, s: int) -> None:
+        """Split slot ``s`` up to its split: the forced leaf's scan, the
+        commit, and the launches between the commit and the split (the
+        advanced method's per-bin bounds and the children's, the node
+        inputs)."""
         from .ops.monotone import mono_commit
 
         st = self.state
         advanced = self.mono_method == 2
-        for s in range(stop):
-            forced = s < self.n_forced
-            if forced:
-                self.forced_leaf_scan(s)
-            self.commit(s, self.f_leaf[s] if forced else 0)
-            if advanced:
-                mono_commit(st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi,
-                            self.meta.monotone, st.hdr[s, 6:8],
-                            st.pair[s, 6:8], s + 1)
-            if self.node is not None:
-                self.node_inputs(s, st.hdr[s, 7:8], s + 1, 2,
-                                 st.pair[s, 0:6].view(2, 3),
-                                 live=st.hdr[s, 6:7])
-            if advanced:
-                self.mono_bounds(st.hdr[s, 7:8], s + 1, 2,
-                                 live=st.hdr[s, 6:7])
-            self.split.split(st.hdr[s], self.table(s), st.hist_pool,
-                             st.pair[s], self.out,
-                             *((s + 1,) if self.dense else ()))
+        forced = s < self.n_forced
+        if forced:
+            self.forced_leaf_scan(s)
+        self.commit(s, self.f_leaf[s] if forced else 0)
+        if advanced:
+            mono_commit(st.cons_lo, st.cons_hi, st.rng_lo, st.rng_hi,
+                        self.meta.monotone, st.hdr[s, 6:8],
+                        st.pair[s, 6:8], s + 1)
+        if self.node is not None:
+            self.node_inputs(s, st.hdr[s, 7:8], s + 1, 2,
+                             st.pair[s, 0:6].view(2, 3),
+                             live=st.hdr[s, 6:7])
+        if advanced:
+            self.mono_bounds(st.hdr[s, 7:8], s + 1, 2,
+                             live=st.hdr[s, 6:7])
 
     def grow(self) -> TreeLog:
         """One tree from the static inputs, every launch queued without a

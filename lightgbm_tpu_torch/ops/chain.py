@@ -16,17 +16,21 @@ either. Per split, in order:
 - the smaller child's histogram, K4 (planes, rows, resident) or K5 (int8)
   (``ops/histogram.SegmentHistogram``), its segment derived on the card
   from the header and the left count;
-- the sibling as the parent's pool row minus the smaller child, both into
-  ``out.hists`` (torch ops on device tensors);
-- with bundles, the per-feature view of both (``learner.feature_view``)
-  into a buffer of its own, since the pool and the commit work in bundle
-  space and the scan in feature space;
-- the split scan (``ops/scan.SplitScan``, ``csrc/split_scan.cu``) into
-  ``out``, under the children's own node inputs when the learner has
-  per-node options (``node``, an ``ops/node.NodeBuf`` that the tree loop
-  fills before the split) and, under the advanced monotone method, the
-  children's per-candidate bounds (``bounds``, which the tree loop fills
-  with ``ops/monotone.mono_bounds`` before the split).
+- without bundles, the split scan's fold mode (``ops/scan.SplitScan.
+  fold``, ``csrc/split_scan.cu``): the sibling as the parent's pool row
+  minus the smaller child and both children into the pool (the left one
+  over the parent's row, the right one into the new leaf's), in the scan's
+  launch, so the commit copies nothing (:attr:`pooled`);
+- with bundles, the sibling and both children into ``out.hists`` by torch
+  ops, their per-feature view (``learner.feature_view``) into a buffer of
+  its own, since the pool and the commit work in bundle space and the
+  scan in feature space, and the scan of that view;
+- the scan writes into ``out``, under the children's own node inputs when
+  the learner has per-node options (``node``, an ``ops/node.NodeBuf``
+  that the tree loop fills before the split) and, under the advanced
+  monotone method, the children's per-candidate bounds (``bounds``, which
+  the tree loop fills with ``ops/monotone.mono_bounds`` before the
+  split).
 
 The kernels are planned once for the root's row count, so a CUDA graph
 holds every split of a tree. A header whose live word is 0 moves no row
@@ -85,27 +89,39 @@ class ChainSplit:
         self.fhist = None if feat_view is None else torch.zeros(
             (2, scan_feat, scan_bins, 3), dtype=torch.float32,
             device=work.device)
+        #: the scan writes both children into the pool (no bundles)
+        self.pooled = feat_view is None
 
-    def split(self, hdr: torch.Tensor, go_left: torch.Tensor,
-              pool: torch.Tensor, pair: torch.Tensor, out: SplitOut) -> None:
-        """One split from the (8,) i32 device header ``hdr``, the (Bm,)
-        bool routing table ``go_left`` over the split column's codes, the
-        (P, HF, HB, 3) f32 histogram ``pool`` whose row ``parent_slot`` is
-        the parent's, and the (12,) f32 ``pair`` row; the results go into
-        ``out``. Nothing is read back to the host."""
+    def small_child(self, hdr: torch.Tensor, go_left: torch.Tensor,
+                    out: SplitOut) -> torch.Tensor:
+        """The split's first launches: the route gather (resident), the
+        partition (its left count into ``out.lt``) and the smaller child's
+        (F, B, 3) histogram, which it returns."""
         if self.route is not None:
             self.route(hdr)
         self.partition(hdr, go_left, out.lt)
-        small = self.histogram(hdr, out.lt)
+        return self.histogram(hdr, out.lt)
+
+    def split(self, hdr: torch.Tensor, go_left: torch.Tensor,
+              pool: torch.Tensor, pair: torch.Tensor, out: SplitOut,
+              new_leaf: int) -> None:
+        """One split from the (8,) i32 device header ``hdr``, the (Bm,)
+        bool routing table ``go_left`` over the split column's codes, the
+        (P, HF, HB, 3) f32 histogram ``pool`` whose row ``parent_slot`` is
+        the parent's, the (12,) f32 ``pair`` row and the split's new leaf
+        id (slot ``s`` creates leaf ``s + 1``); the results go into
+        ``out`` (and the children into the pool when :attr:`pooled`).
+        Nothing is read back to the host."""
+        small = self.small_child(hdr, go_left, out)
+        if self.pooled:
+            self.scan.fold(small, pool, hdr, new_leaf, pair, out)
+            return
         large = pool.index_select(0, hdr[7:8]).squeeze(0) - small
         ls = hdr[4:5] != 0
         torch.where(ls, small, large, out=out.hists[0])
         torch.where(ls, large, small, out=out.hists[1])
-        hists = out.hists
-        if self.feat_view is not None:
-            self.fhist.copy_(self.feat_view(out.hists, pair[0:6].view(2, 3)))
-            hists = self.fhist
-        self.scan(hists, pair, hdr, out)
+        self.fhist.copy_(self.feat_view(out.hists, pair[0:6].view(2, 3)))
+        self.scan(self.fhist, pair, hdr, out)
 
 
 class DenseSplit:
@@ -119,9 +135,10 @@ class DenseSplit:
     - the smaller child's histogram (``ops/histogram.DenseHistogram``,
       ``csrc/dense_histogram.cu``): its rows selected by leaf id from all
       rows, planned once for all N rows;
-    - the sibling as the parent's pool row minus the smaller child;
-    - the split scan (``ops/scan.SplitScan``) into ``out``, under the
-      children's node inputs (``node``).
+    - the split scan's fold mode (``ops/scan.SplitScan.fold``): the
+      sibling as the parent's pool row minus the smaller child, both
+      children into the pool, the scan into ``out``, under the children's
+      node inputs (``node``); the commit copies nothing (:attr:`pooled`).
 
     :meth:`split` takes the chain's arguments and the split's new leaf id
     (slot ``s`` creates leaf ``s + 1``). A dead header moves no row and
@@ -137,6 +154,7 @@ class DenseSplit:
         self.scan = SplitScan(meta, fmask, hp, num_feat=bins.shape[1],
                               num_bins=num_bins, device=bins.device,
                               node=node)
+        self.pooled = True
 
     def split(self, hdr: torch.Tensor, go_left: torch.Tensor,
               pool: torch.Tensor, pair: torch.Tensor, out: SplitOut,
@@ -144,12 +162,14 @@ class DenseSplit:
         """One split from the (8,) i32 header ``hdr``, the (B,) bool
         routing table ``go_left``, the (P, F, B, 3) pool, the (12,) pair
         row and the new leaf id; the results go into ``out``."""
+        small = self.small_child(hdr, go_left, out, new_leaf)
+        self.scan.fold(small, pool, hdr, new_leaf, pair, out)
+
+    def small_child(self, hdr: torch.Tensor, go_left: torch.Tensor,
+                    out: SplitOut, new_leaf: int) -> torch.Tensor:
+        """The split's first launches: the row update and the smaller
+        child's (F, B, 3) histogram, which it returns."""
         from .histogram import dense_row_update
 
         dense_row_update(self.bins, self.row_leaf, go_left, hdr, new_leaf)
-        small = self.hist(hdr=hdr, new_leaf=new_leaf)
-        large = pool.index_select(0, hdr[7:8]).squeeze(0) - small
-        ls = hdr[4:5] != 0
-        torch.where(ls, small, large, out=out.hists[0])
-        torch.where(ls, large, small, out=out.hists[1])
-        self.scan(out.hists, pair, hdr, out)
+        return self.hist(hdr=hdr, new_leaf=new_leaf)

@@ -26,8 +26,11 @@ split, or the three-launch chain of ``ops/chain.ChainSplit``). The header's
 ``col`` word is the split feature's column of the work rows through an
 (F,) column map: the feature itself, or its bundle with EFB (the pool and
 the split outputs' histograms are then in bundle space, (HF, HB), and the
-best-split tables and the log in feature space). The kernel and its twin
-leave the state bit-equal.
+best-split tables and the log in feature space). With ``pooled`` (the
+split scan's fold mode, ``ops/scan.SplitScan.fold``, fixed when the loop
+is built) the split already wrote both children into the pool, and the
+commit skips that copy. The kernel and its twin leave the state
+bit-equal.
 """
 from __future__ import annotations
 
@@ -45,9 +48,28 @@ _P = ctypes.c_void_p
 COMMIT_KERNEL = register(CudaKernel(
     "split_commit", "split_commit.cu", [_P, ctypes.c_int, _P],
     flags=("-fmad=false",)))
-#: blocks of a commit launch: block 0 does the scalar work, all of them
-#: copy the two child histograms into the pool
-COMMIT_BLOCKS = 32
+#: threads of a commit block
+COMMIT_THREADS = 256
+#: the measurement path: thread 0 of each block writes %globaltimer (ns)
+#: into its row of a (COMMIT_MAX_GRID, COMMIT_STAMP_SLOTS) i64 buffer:
+#: slot 0 at every block's entry; block 0 after (a), after the pick and at
+#: its end; a copy block at the end of its copy
+COMMIT_STAMP_SLOTS = 5
+COMMIT_PHASES = (("scalar apply", 0, 1), ("pick", 1, 2), ("record", 2, 3),
+                 ("pool copy", 0, 4))
+#: rows of a commit stamp buffer: more blocks than any launch takes
+COMMIT_MAX_GRID = 1024
+
+
+def commit_blocks(hist_floats: int, pooled: bool) -> int:
+    """Blocks of a commit launch: block 0's scalar work, and unless
+    ``pooled`` as many copy blocks as cover the two children's
+    ``hist_floats`` floats each in one wave, a thread 16 bytes of each."""
+    if pooled:
+        return 1
+    items = (hist_floats + 3) // 4
+    return 1 + min(COMMIT_MAX_GRID - 1,
+                   (items + COMMIT_THREADS - 1) // COMMIT_THREADS)
 
 
 class TreeState(NamedTuple):
@@ -193,7 +215,7 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
                        monotone: torch.Tensor, has_monotone: bool,
                        col_map=None, forced=None, n_forced: int = 0,
                        f_leaf: int = 0, track_used: bool = False,
-                       mono_method: int = 0) -> None:
+                       mono_method: int = 0, pooled: bool = False) -> None:
     """Plain torch twin of ``csrc/split_commit.cu``: commit ``s`` of the
     tree in ``st`` from the split outputs ``out`` (the host loop's
     bookkeeping, ``learner.build_tree_partitioned``, with every index and
@@ -202,7 +224,8 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
     scan's outputs (a ``SplitOut``, child 0) of slot ``s < n_forced``,
     whose leaf is ``f_leaf``; ``track_used`` keeps each leaf's used
     features; ``mono_method`` the monotone method (``ops/monotone.
-    method_code``: 0 basic, 1 intermediate, 2 advanced)."""
+    method_code``: 0 basic, 1 intermediate, 2 advanced); ``pooled``: the
+    split scan already pooled the children (no copy)."""
     from .monotone import (adv_bounds_of, adv_child_boxes,
                            intermediate_refresh, reclamp)
 
@@ -220,8 +243,9 @@ def split_commit_plain(st: TreeState, out, s: int, *, max_depth: int,
              p_live)
         old = _rows(st.seg_tab, leaf)[0].to(i64)
         _put(st.seg_tab, leaf, torch.stack([old[0], lt, npar]), p_live)
-        _put(st.hist_pool, leaf, out.hists[0:1], p_live)
-        _put(st.hist_pool, new, out.hists[1:2], p_live)
+        if not pooled:
+            _put(st.hist_pool, leaf, out.hists[0:1], p_live)
+            _put(st.hist_pool, new, out.hists[1:2], p_live)
         infos = out.infos()
         gain = infos.gain
         if max_depth > 0:
@@ -357,10 +381,10 @@ class CommitArgs(ctypes.Structure):
         "log_feat", "log_bin", "log_kind", "log_dl", "log_gain", "log_ls",
         "log_rs", "log_go", "num_splits", "hdr", "pair", "monotone",
         "col_map", "leaf_used", "tree_used", "force_live", "ffout", "fiout",
-        "fbout", "rng_lo", "rng_hi", "cons_lo", "cons_hi")] \
+        "fbout", "rng_lo", "rng_hi", "cons_lo", "cons_hi", "stamps")] \
         + [(name, ctypes.c_int32) for name in (
             "s", "L", "F", "B", "HF", "HB", "max_depth", "has_monotone",
-            "n_forced", "f_leaf", "track_used", "mono_method")]
+            "n_forced", "f_leaf", "track_used", "mono_method", "pooled")]
 
 
 class SplitCommit:
@@ -370,12 +394,15 @@ class SplitCommit:
     ``SplitOut``) holds the forced-split scan of slots ``s < n_forced``;
     ``track_used`` keeps each leaf's used features (interaction
     constraints); ``mono_method`` is the monotone method
-    (``ops/monotone.method_code``)."""
+    (``ops/monotone.method_code``); ``pooled``: the split scan pools the
+    children (``ops/scan.SplitScan.fold``), so the commit does not copy
+    them."""
 
     def __init__(self, st: TreeState, out, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
                  col_map=None, forced=None, n_forced: int = 0,
-                 track_used: bool = False, mono_method: int = 0) -> None:
+                 track_used: bool = False, mono_method: int = 0,
+                 pooled: bool = False) -> None:
         _check_commit(st, out, monotone, col_map, mono_method)
         if n_forced and forced is None:
             raise ValueError("split_commit: forced splits need the "
@@ -386,6 +413,7 @@ class SplitCommit:
         self.forced, self.n_forced = forced, int(n_forced)
         self.track_used = bool(track_used)
         self.mono_method = int(mono_method) if has_monotone else 0
+        self.pooled = bool(pooled)
         self._args = None
         if st.best_gain.device.type == "cpu":
             return
@@ -411,10 +439,12 @@ class SplitCommit:
                                 n_forced=self.n_forced,
                                 track_used=int(self.track_used),
                                 mono_method=self.mono_method,
+                                pooled=int(self.pooled),
                                 **{f: ptrs[f] for f, _ in CommitArgs._fields_
                                    if f in ptrs})
+        self._blocks = commit_blocks(HF * HB * 3, self.pooled)
 
-    def __call__(self, s: int, f_leaf: int = 0) -> None:
+    def __call__(self, s: int, f_leaf: int = 0, stamps=None) -> None:
         L = self.st.best_gain.shape[0]
         if not 0 <= s < L:
             raise ValueError("split_commit: s = %d outside [0, %d)" % (s, L))
@@ -425,11 +455,20 @@ class SplitCommit:
                                col_map=self.col_map, forced=self.forced,
                                n_forced=self.n_forced, f_leaf=f_leaf,
                                track_used=self.track_used,
-                               mono_method=self.mono_method)
+                               mono_method=self.mono_method,
+                               pooled=self.pooled)
             return
+        if stamps is not None:
+            check_on_card("split_commit", stamps)
+            if stamps.dtype != torch.int64 or stamps.shape != (
+                    COMMIT_MAX_GRID, COMMIT_STAMP_SLOTS):
+                raise ValueError("split_commit: stamps must be (%d, %d) "
+                                 "int64" % (COMMIT_MAX_GRID,
+                                            COMMIT_STAMP_SLOTS))
         self._args.s = s
         self._args.f_leaf = int(f_leaf)
-        COMMIT_KERNEL.launch(ctypes.addressof(self._args), COMMIT_BLOCKS,
+        self._args.stamps = 0 if stamps is None else stamps.data_ptr()
+        COMMIT_KERNEL.launch(ctypes.addressof(self._args), self._blocks,
                              stream_of(self.st.hdr))
 
 
@@ -437,7 +476,7 @@ def split_commit(st: TreeState, out, s: int, *, max_depth: int,
                  monotone: torch.Tensor, has_monotone: bool,
                  col_map=None, forced=None, n_forced: int = 0,
                  f_leaf: int = 0, track_used: bool = False,
-                 mono_method: int = 0) -> None:
+                 mono_method: int = 0, pooled: bool = False) -> None:
     """Commit ``s`` of the tree in ``st`` (in place) from the split
     outputs ``out`` (``ops/partition.SplitOut``): apply split ``s - 1``,
     pick split ``s`` (forced split ``s`` from ``forced``, the forced-split
@@ -445,13 +484,14 @@ def split_commit(st: TreeState, out, s: int, *, max_depth: int,
     n_forced``), record it and write its header and pair rows.
     ``monotone`` is the (F,) i8 constraint of each feature, ``col_map``
     the (F,) i32 work-row column of each feature (None: the feature),
-    ``mono_method`` the monotone method (``ops/monotone.method_code``). On
-    a CUDA tensor one launch of ``csrc/split_commit.cu``; on a CPU tensor
+    ``mono_method`` the monotone method (``ops/monotone.method_code``),
+    ``pooled`` that the split scan pooled the children. On a CUDA tensor
+    one launch of ``csrc/split_commit.cu``; on a CPU tensor
     :func:`split_commit_plain`. Nothing is read back to the host."""
     SplitCommit(st, out, max_depth=max_depth, monotone=monotone,
                 has_monotone=has_monotone, col_map=col_map, forced=forced,
                 n_forced=n_forced, track_used=track_used,
-                mono_method=mono_method)(s, f_leaf)
+                mono_method=mono_method, pooled=pooled)(s, f_leaf)
 
 
 def _check_commit(st: TreeState, out, monotone: torch.Tensor,

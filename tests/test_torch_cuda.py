@@ -355,6 +355,65 @@ def test_split_commit_matches_twin_on_card(card):
         == len(chip_smoke.COMMIT_CASES)
 
 
+def test_split_commit_full_width_slots_on_card(card):
+    """The split commit at L = 255, F = 28, B = 255: the first, a middle,
+    a dead and the final slot, tied and NaN gains, copying the children
+    (B7, EFB: one wave of 16-byte copy blocks) and not (the scan pooled
+    them), against its twin bit for bit."""
+    errs = chip_smoke.phase_commit_kernel(card, np.random.RandomState(17),
+                                          L=255, F=28, B=255,
+                                          modes=(False, True))
+    assert set(errs.values()) == {0.0}
+    assert len(errs) == 2 * len(chip_smoke.COMMIT_CASES)
+    assert commit.commit_blocks(28 * 255 * 3, False) > 2
+
+
+def test_split_scan_fold_shapes_on_card(card):
+    """The split scan with the chain's sibling folded in at F = 28 and
+    137, B = 255, 907 and 1023, numerical and categorical, either child
+    the smaller and a dead header: the pool rows and every output
+    bit-equal to the torch sequence on the card, and direct mode bit-equal
+    to find_best_split (chip_smoke.phase_fold_kernels). F = 137 loops the
+    cluster's items."""
+    before = kernels.launch_counts()["split_scan"]
+    errs = chip_smoke.phase_fold_kernels(card, np.random.RandomState(43))
+    assert set(errs.values()) == {0.0}, errs
+    assert kernels.launch_counts()["split_scan"] > before
+    assert scan.scan_shape(28, 255)["rounds"] == 1
+    assert scan.scan_shape(137, 255)["rounds"] > 1     # the items loop
+    for F, B in ((137, 255), (28, 907), (28, 1023)):
+        assert scan.scan_shape(F, B)["ctas"] <= 16, (F, B)
+
+
+def test_refused_launch_raises_without_fallback_on_card(card, monkeypatch):
+    """A launch the kernels' entry points refuse raises, and no plain twin
+    runs in its place."""
+    def twin(*args, **kwargs):
+        raise AssertionError("a plain twin ran on the card")
+
+    monkeypatch.setattr(scan, "split_scan_plain", twin)
+    monkeypatch.setattr(scan, "split_scan_fold_plain", twin)
+    monkeypatch.setattr(commit, "split_commit_plain", twin)
+    rng = np.random.RandomState(5)
+    meta, hp, fmask, pool, small, pair = chip_smoke.seeded_scan_state(
+        rng, card, 28, 255)
+    op = scan.SplitScan(meta, fmask, hp, num_feat=28, num_bins=255,
+                        device=card)
+    out = partition.split_out(28, 255, card)
+    hdr = chip_smoke.chain_header([0, 0, 0, 0], 1, 1, card, 3, slot=2)
+    op._args.B = 4000                    # past the kernel's bins: refused
+    with pytest.raises(RuntimeError, match="split_scan"):
+        op.fold(small, pool, hdr, 3, pair, out)
+    st, cout = chip_smoke.commit_state(card, rng, 63, 9, 40)
+    cop = commit.SplitCommit(st, cout, max_depth=-1,
+                             monotone=torch.zeros(9, dtype=torch.int8,
+                                                  device=card),
+                             has_monotone=False)
+    cop._blocks = 1                      # a copying commit without copy
+    with pytest.raises(RuntimeError, match="split_commit"):  # blocks
+        cop(5)
+
+
 def test_one_kernel_header_on_card(card):
     """B7 through its device header: the parent read from a pool row gives
     the bits the parent alone gives, and live = 0 writes nothing

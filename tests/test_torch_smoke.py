@@ -348,6 +348,14 @@ def test_smoke_refuses_without_card():
     assert '"ok"' not in out.stdout
 
 
+def test_root_is_only_for_the_profile(tmp_path):
+    """``--root`` names another checkout for ``--profile-only`` alone, and
+    a root without the package is refused before anything is built."""
+    with pytest.raises(SystemExit):
+        chip_smoke.run(["--root", str(tmp_path)])
+    assert chip_smoke.run(["--profile-only", "--root", str(tmp_path)]) == 2
+
+
 @pytest.fixture(autouse=True)
 def one_thread():
     """One torch thread a test: every phase here runs many small ops on
